@@ -118,12 +118,18 @@ def _grid(h: int, w: int, device):
 
 
 def _bilinear(img, y0, y1, x0, x1, wy, wx):
-    """Blend the four integer taps exactly as the reference does."""
-    w = img.shape[-1]
-    flat = img.reshape(-1)
+    """Blend the four integer taps exactly as the reference does. img is
+    (..., H, W); the indices are (H, W), one flow shared by every image, or
+    of img's shape, a flow per image (the reference's `gather`)."""
+    h, w = img.shape[-2:]
+    flat = img.reshape(img.shape[:-2] + (h * w,))
 
     def tap(yi, xi):
-        return flat[yi * w + xi]
+        idx = yi * w + xi
+        if idx.ndim == 2:
+            return flat[..., idx.reshape(-1)].reshape(img.shape)
+        idx = idx.expand(img.shape).reshape(flat.shape)
+        return torch.gather(flat, -1, idx).reshape(img.shape)
 
     top = tap(y0, x0) * (1 - wx) + tap(y0, x1) * wx
     bot = tap(y1, x0) * (1 - wx) + tap(y1, x1) * wx
@@ -132,8 +138,9 @@ def _bilinear(img, y0, y1, x0, x1, wy, wx):
 
 def warp_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Backward warp: out(y, x) = img(y + v(y,x), x + u(y,x)), bilinear,
-    sample positions clamped to the image."""
-    h, w = img.shape
+    sample positions clamped to the image. img is (..., H, W); u and v are
+    (H, W), shared by every image, or one flow per image."""
+    h, w = img.shape[-2:]
     yy, xx = _grid(h, w, img.device)
     sy = torch.clamp(yy + v.float(), 0.0, h - 1.0)
     sx = torch.clamp(xx + u.float(), 0.0, w - 1.0)
@@ -154,7 +161,8 @@ _E_MARGIN = 64  # positions are clipped to [-E, size-1+E]
 def _tile_offsets(h: int, w: int, u: torch.Tensor, v: torch.Tensor):
     """Clipped sample positions, their integer parts and the per-pixel
     rounded mean integer displacement of the pixel's 32x128 tile (tiles
-    edge-padded, means rounded half to even, as the reference)."""
+    edge-padded, means rounded half to even, as the reference), for (H, W)
+    or (..., H, W) flows; each image has its own tile means."""
     yy, xx = _grid(h, w, u.device)
     sy = torch.clamp(yy + v.float(), -float(_E_MARGIN), h - 1.0 + _E_MARGIN)
     sx = torch.clamp(xx + u.float(), -float(_E_MARGIN), w - 1.0 + _E_MARGIN)
@@ -166,13 +174,16 @@ def _tile_offsets(h: int, w: int, u: torch.Tensor, v: torch.Tensor):
     nh, nw = -(-h // th), -(-w // tw)
 
     def tile_mean(d):
-        # Edge-pad to whole tiles; the sums of integer-valued floats are
-        # exact, and so is the division by the power-of-two tile size.
+        # Edge-pad each image to whole tiles; the sums of integer-valued
+        # floats are exact, and so is the division by the power-of-two
+        # tile size.
         p = torch.nn.functional.pad(
-            d[None, None], (0, nw * tw - w, 0, nh * th - h), mode="replicate"
-        )[0, 0]
-        m = torch.round(p.reshape(nh, th, nw, tw).sum(dim=(1, 3)) / (th * tw))
-        return m.repeat_interleave(th, 0)[:h].repeat_interleave(tw, 1)[:, :w]
+            d.reshape(-1, 1, h, w), (0, nw * tw - w, 0, nh * th - h),
+            mode="replicate",
+        )
+        m = torch.round(p.reshape(-1, nh, th, nw, tw).sum(dim=(2, 4)) / (th * tw))
+        m = m.repeat_interleave(th, -2)[..., :h, :].repeat_interleave(tw, -1)
+        return m[..., :w].reshape(d.shape)
 
     return sy, sx, y0, x0, dy, dx, tile_mean(dy), tile_mean(dx)
 
@@ -183,8 +194,11 @@ def warp_bilinear_tiled(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     clipped to [-64, size-1+64], whose integer part deviates from the
     tile's rounded mean displacement by at most R (clamped beyond), read
     from the edge-replicated image. radius=0 is the reference's auto mode,
-    R = 4 in value."""
-    h, w = img.shape
+    R = 4 in value.
+
+    On a (B, H, W) stack with a flow per image this is the reference's
+    `jax.vmap(warp_bilinear_tiled)`: each image gets its own tile means."""
+    h, w = img.shape[-2:]
     r = float(radius if radius > 0 else _WARP_R)
     sy, sx, y0, x0, dy, dx, byt, bxt = _tile_offsets(h, w, u, v)
     yy, xx = _grid(h, w, img.device)
@@ -199,7 +213,7 @@ def warp_bilinear_tiled(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
 def tile_deviation(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Max |integer displacement - its tile's rounded mean| (0-d tensor)."""
-    h, w = u.shape
+    h, w = u.shape[-2:]
     _, _, _, _, dy, dx, byt, bxt = _tile_offsets(h, w, u, v)
     return torch.maximum(torch.abs(dy - byt).max(), torch.abs(dx - bxt).max())
 
@@ -237,9 +251,11 @@ def hs_pyramid(
     i2: torch.Tensor,
     cfg: HSConfig = HSConfig(),
     pyr: PyramidConfig = PyramidConfig(),
+    device=None,
 ) -> Flow:
-    """Coarse-to-fine pyramidal Horn-Schunck. With pyr.levels == 1 this is
-    exactly hs_solve."""
+    """Coarse-to-fine pyramidal Horn-Schunck of an (H, W) pair. With
+    pyr.levels == 1 this is exactly hs_solve. numpy frames go to `device`,
+    as in hs_solve."""
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs "
                          f"{tuple(i2.shape)}")
@@ -250,7 +266,7 @@ def hs_pyramid(
             "below 8 px"
         )
     check_supported(cfg)
-    i1 = as_frame(i1)
+    i1 = as_frame(i1, device)
     i2 = as_frame(i2, i1.device)
     p1 = gaussian_pyramid(i1, pyr.levels)
     p2 = gaussian_pyramid(i2, pyr.levels)

@@ -9,6 +9,11 @@ Backends:
 `backend="cuda"` on CPU frames raises; nothing falls back from the kernels
 to the plain path, and no tensor changes device behind the caller's back.
 
+Devices: torch tensors stay on their own device. numpy inputs go to the
+entry point's `device` keyword, which defaults to cuda:0; without a CUDA
+device that default raises RuntimeError, so the CPU runs only when the
+caller asks for it (`device="cpu"`, or CPU tensors).
+
 Scope: Jacobi with a fixed sweep count (`tol == 0`), float32. The other
 solvers, solve-to-tolerance and bf16 are still to be ported (ROADMAP.md
 queue 1) and raise NotImplementedError rather than solving something else.
@@ -73,15 +78,33 @@ def check_supported(cfg: HSConfig) -> None:
         )
 
 
-def as_frame(a, device: Optional[torch.device] = None) -> torch.Tensor:
+def target_device(device=None) -> torch.device:
+    """Where numpy inputs go: `device`, or cuda:0 when it is None. With no
+    CUDA device the default raises RuntimeError: nothing falls back to the
+    CPU unless the caller asks for it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "numpy inputs go to the `device` keyword, which defaults to "
+                "cuda:0, and no CUDA device is available; pass device='cpu' "
+                "(or CPU tensors) to run on the CPU"
+            )
+        return torch.device("cuda", 0)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def as_frame(a, device=None) -> torch.Tensor:
     """A contiguous float32 tensor. Tensors stay on their device (a tensor
-    on another device than `device` raises); numpy arrays go to `device`,
-    or to the CPU."""
+    on another device than an explicit `device` raises); numpy arrays go
+    to `target_device(device)`."""
     if isinstance(a, np.ndarray):
-        a = torch.from_numpy(np.ascontiguousarray(a)).to(device or "cpu")
+        a = torch.from_numpy(np.ascontiguousarray(a)).to(target_device(device))
     elif not isinstance(a, torch.Tensor):
         raise TypeError(f"expected a torch tensor or numpy array, got {type(a)}")
-    elif device is not None and a.device != device:
+    elif device is not None and a.device != target_device(device):
         raise ValueError(f"tensor on {a.device}, expected {device}")
     return a.to(torch.float32).contiguous()
 
@@ -141,12 +164,14 @@ def hs_solve(
     i2: torch.Tensor,
     cfg: HSConfig = HSConfig(),
     init: Optional[Flow] = None,
+    device=None,
 ) -> Flow:
     """Solve Horn-Schunck optical flow for the frame pair (i1, i2).
 
-    Frames are (H, W) tensors (or numpy arrays, which stay on the CPU); the
-    solve runs on their device. `init` warm-starts u/v; its arrays may be
-    numpy arrays (moved to the frames' device) or tensors on that device.
+    Frames are (H, W) tensors, and the solve runs on their device, or numpy
+    arrays, which go to `device` (cuda:0 when None; RuntimeError without
+    CUDA). `init` warm-starts u/v; its arrays may be numpy arrays (moved to
+    the frames' device) or tensors on that device.
     """
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs "
@@ -154,6 +179,8 @@ def hs_solve(
     if i1.ndim != 2:
         raise ValueError("hs_solve takes single 2-D grayscale frames; use "
                          "batch.hs_solve_batched for leading batch axes")
+    i1 = as_frame(i1, device)
+    i2 = as_frame(i2, i1.device)
     if init is None:
         return solve_level(i1, i2, cfg, cfg.iters)
     return solve_level(i1, i2, cfg, cfg.iters, u0=init.u, v0=init.v)

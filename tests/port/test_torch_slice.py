@@ -180,6 +180,37 @@ def test_warp_dispatch_matches_reference(method, amp):
     assert _max_diff(got, want) <= WARP_TOL
 
 
+def test_warp_of_a_stack_matches_reference():
+    # A (B, H, W) stack with one shared flow, and with a flow per image,
+    # through `warp`, which sends stacks to the gather as the reference does.
+    shape = (40, 150)
+    img = np.random.default_rng(1).uniform(0, 1, (3,) + shape).astype(np.float32)
+    flows = [_smooth_flow(shape, amp, seed=10 + k) for k, amp in enumerate((1.0, 6.0, 3.0))]
+    u, v = np.stack([f[0] for f in flows]), np.stack([f[1] for f in flows])
+    for fu, fv in ((u[1], v[1]), (u, v)):
+        got = pyr.warp(*(torch.from_numpy(a) for a in (img, fu, fv)))
+        want = ref_pyr.warp(*(jnp.asarray(a) for a in (img, fu, fv)))
+        assert got.shape == img.shape
+        assert _max_diff(got, want) <= WARP_TOL
+    stack = torch.rand(2, 16, 24)
+    z = torch.zeros(16, 24)
+    assert torch.equal(pyr.warp(stack, z, z), stack)
+
+
+@pytest.mark.parametrize("entry", [hs_solve, hs_pyramid])
+def test_numpy_without_device_or_cuda_raises(entry, monkeypatch):
+    # numpy frames go to the `device` keyword, cuda:0 by default; without a
+    # CUDA device that default raises and nothing runs on the CPU.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    i1, i2, _ = syn.translation_pair(32, 32, 1.0, 0.5, key=2)
+    with pytest.raises(RuntimeError, match="device"):
+        entry(i1, i2, HSConfig(iters=2))
+    on_cpu = entry(i1, i2, HSConfig(iters=2), device="cpu")
+    assert on_cpu.u.device.type == "cpu"
+    assert torch.equal(on_cpu.u, entry(torch.from_numpy(i1), torch.from_numpy(i2),
+                                       HSConfig(iters=2)).u)
+
+
 @pytest.mark.parametrize(
     "args",
     [
