@@ -2,32 +2,56 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
 Builds the port's CUDA kernels from csrc/ (nvcc, a few seconds), holds each
-against its plain PyTorch version on the card, then drives the main path
-through the public entry points, hs_solve (1088x1920, alpha 0.5, 100
-sweeps) and hs_pyramid (3 levels at 1080x1920), with launch counters
-showing that both ran through the kernels. Every phase checks what it
-measures and any failure exits non-zero. Imports torch, numpy and
-opticalflowhs_tpu_torch only, never JAX.
+against its plain PyTorch version on the card, then drives the port's
+paths through the public entry points, with launch counters showing that
+each ran through the kernels:
+  phases 1-5: hs_solve (1088x1920, alpha 0.5, 100 sweeps) and hs_pyramid
+              (3 levels at 1080x1920), then an EPE gate;
+  phase 6:    batched K1 and K2 against their plain versions and against
+              the single-frame kernels, B in {1, 3};
+  phase 7:    config 2 (configs/c2_video_batch.json): hs_solve_batched on
+              8 pairs at 1088x1920, and the batched pyramid at 4 x 1080p;
+  phase 8:    config 4 (configs/c4_hd_streaming.json) on a 17-frame 1080p
+              video: flow_stream, flow_stream_warm with the warp prior,
+              flow_stream_occlusion.
+Every phase checks what it measures and any failure exits non-zero.
+Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
 Output: one line of numbers per phase; then, on lines of their own, the
 card's name and power limit as nvidia-smi gives them, and a JSON object
-{"kernels": [...]} (per kernel: launches on the main path, max |diff|
+{"kernels": [...]} (per kernel: launches on the batched path, max |diff|
 against the plain version, ms per launch for the kernel and the plain
-version); the last line is {"ok": true, "device": {...}}.
+version at 8 x 1088x1920, and the least time the card could take); the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 TOL = 2e-6  # the reference's kernel-vs-oracle bar; the kernels aim for 0.0
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA's data sheet): device memory and float32 outside
+# the tensor cores. A kernel's bound is the larger of bytes / memory rate
+# and operations / float32 rate.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = 67e12
+# float32 operations per pixel, counted from the sources: K1 with the
+# zero-start sweep (hs_cube: 16 for Ex/Ey, 2 scales, 8 for Et, 5 for invd,
+# 5 for u1/v1); K2 per sweep (15 per neighbour average, 5 for frac, 4 for
+# the update).
+K1_FLOPS_PER_PX = 36
+K2_FLOPS_PER_PX_SWEEP = 39
 
 
 def require(cond: bool, what: str) -> None:
@@ -68,6 +92,17 @@ def median_ms(fn, runs: int = 20) -> float:
     return statistics.median(times)
 
 
+def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    """Least time in ms the card could take, and what bounds it."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = n_flops / PEAK_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def max_flow_diff(a, b) -> float:
+    return max(max_diff(a.u, b.u), max_diff(a.v, b.v))
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -80,8 +115,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from opticalflowhs_tpu_torch import HSConfig, PyramidConfig, hs_pyramid, hs_solve
-    from opticalflowhs_tpu_torch.data.synthetic import WarpSpec, synthetic_pair, translation_pair
+    from opticalflowhs_tpu_torch import (
+        HSConfig,
+        PyramidConfig,
+        flow_stream,
+        flow_stream_warm,
+        from_reference,
+        hs_pyramid,
+        hs_solve,
+        hs_solve_batched,
+    )
+    from opticalflowhs_tpu_torch.data.synthetic import (
+        WarpSpec,
+        synthetic_pair,
+        synthetic_sequence,
+        translation_pair,
+    )
+    from opticalflowhs_tpu_torch.video import flow_stream_occlusion
     from opticalflowhs_tpu_torch.kernels import _build
     from opticalflowhs_tpu_torch.kernels import derivatives as k1
     from opticalflowhs_tpu_torch.kernels import jacobi as k2
@@ -227,11 +277,146 @@ def main() -> int:
           f"single-level {e_single:.4f}")
     require(e_pyr < 0.6 and e_pyr < e_single, "pyramid EPE gate")
 
+    # -- phase 6: batched K1 and K2 against plain and the 2-D kernels -------
+    def stack(b, h, w, seed, normal=False):
+        rng = np.random.default_rng(seed)
+        make = (lambda: rng.normal(0, 0.5, (b, h, w))) if normal else (
+            lambda: rng.uniform(0, 1, (b, h, w)))
+        return tuple(torch.from_numpy(make().astype(np.float32)).to(dev) for _ in range(2))
+
+    for h, w in ((67, 93), (1088, 1920)):
+        for b in (1, 3):
+            i1, i2 = stack(b, h, w, seed=20)
+            got = k1.hs_derivatives(i1, i2, 1.0, zero_sweep=True)
+            want = k1.derivatives_plain(i1, i2, 1.0, zero_sweep=True)
+            d1 = max(max_diff(g, r) for g, r in zip(got, want))
+            d1s = max(max_diff(g[k], r) for k in range(b)
+                      for g, r in zip(got, k1.hs_derivatives(i1[k], i2[k], 1.0,
+                                                             zero_sweep=True)))
+            fields = got[:4]
+            u0, v0 = stack(b, h, w, seed=21, normal=True)
+            d2 = d2s = 0.0
+            for start in ("warm", "zero"):
+                uv = (u0, v0) if start == "warm" else (torch.zeros_like(u0),) * 2
+                got2 = k2.jacobi_sweeps_batched(*uv, *fields, 13)
+                want2 = k2.jacobi_sweeps_batched_plain(*uv, *fields, 13)
+                d2 = max(d2, max_diff(got2[0], want2[0]), max_diff(got2[1], want2[1]))
+                for k in range(b):
+                    one = k2.jacobi_sweeps(uv[0][k], uv[1][k], *(f[k] for f in fields), 13)
+                    d2s = max(d2s, max_diff(got2[0][k], one[0]),
+                              max_diff(got2[1][k], one[1]))
+            got3 = sr.hs_solve_resident_batched(i1, i2, 1.0, 23)
+            want3 = sr.hs_solve_resident_batched_plain(i1, i2, 1.0, 23)
+            d3 = max(max_diff(got3[0], want3[0]), max_diff(got3[1], want3[1]))
+            err["hs_derivatives"] = max(err["hs_derivatives"], d1, d1s)
+            err["hs_jacobi_sweeps"] = max(err["hs_jacobi_sweeps"], d2, d2s, d3)
+            print(f"phase 6 batched B={b} {h}x{w}: K1 vs plain {d1:.3g}, vs 2-D {d1s:.3g}; "
+                  f"K2 n=13 warm+zero vs plain {d2:.3g}, vs 2-D {d2s:.3g}; "
+                  f"driver n=23 vs plain {d3:.3g}")
+            require(max(d1, d1s, d2, d2s, d3) <= TOL, f"batched kernels B={b} {h}x{w}")
+
+    # -- the batched path (configs 2 and 4), counted ---------------------------
+    def config(name):
+        d = json.loads((ROOT / "configs" / name).read_text())
+        return from_reference(d["hs"])  # the "mesh" section stays with dist/
+
+    cfg2 = config("c2_video_batch.json")                # alpha 1, i100
+    cfg4 = config("c4_hd_streaming.json")               # alpha 1, i100, s = 8
+    cfg4w = dataclasses.replace(cfg4, iters=25)         # the warm stream's budget
+    bsz = 8                                             # opticalflowhs_tpu/bench.py:182
+    rng = np.random.default_rng(0)                      # bench.py's frames
+    c2a, c2b = (torch.from_numpy(rng.uniform(0, 1, (bsz, 1088, 1920)).astype(np.float32)).to(dev)
+                for _ in range(2))
+    t0 = time.perf_counter()
+    vid, gt_c4 = synthetic_sequence(17, 1080, 1920, tx=1.0, ty=0.5)
+    print(f"phase 8 video: 17 x 1080x1920 made in {time.perf_counter() - t0:.3f} s (host)")
+    vid_dev = torch.from_numpy(vid).to(dev)
+    pa, pb = vid_dev[:4], vid_dev[1:5]
+    torch.cuda.synchronize()
+
+    k1.hs_derivatives.launches = 0
+    k2.jacobi_sweeps.launches = 0
+    flow_c2 = hs_solve_batched(c2a, c2b, cfg2)
+    n_c2 = (k1.hs_derivatives.launches, k2.jacobi_sweeps.launches)
+    flow_p2 = hs_solve_batched(pa, pb, cfg2, pyr3)
+    chunks = list(flow_stream(vid, cfg4, chunk=8))
+    warm = list(flow_stream_warm(vid, cfg4w, chunk=8, warp_prior=True))
+    occ_flow, occ_mask = next(flow_stream_occlusion(vid[:9], cfg4, chunk=8))
+    torch.cuda.synchronize()
+    launches_b = {"hs_derivatives": k1.hs_derivatives.launches,
+                  "hs_jacobi_sweeps": k2.jacobi_sweeps.launches}
+    print(f"batched path launches (C2 + batched pyramid + C4 streams): {launches_b}")
+    require(all(n > 0 for n in launches_b.values()), f"a kernel never ran: {launches_b}")
+
+    # -- phase 7: config 2, batched solve and batched pyramid -----------------
+    plain2 = dataclasses.replace(cfg2, backend="torch")
+    for a in flow_c2:
+        require(a.shape == (bsz, 1088, 1920) and bool(torch.isfinite(a).all()),
+                "hs_solve_batched output shape/finite")
+    d_c2 = max_flow_diff(flow_c2, hs_solve_batched(c2a, c2b, plain2))
+    ms_c2 = median_ms(lambda: hs_solve_batched(c2a, c2b, cfg2))
+    ms_c2p = median_ms(lambda: hs_solve_batched(c2a, c2b, plain2), runs=3)
+    print(f"phase 7 C2 hs_solve_batched B={bsz} 1088x1920 a=1 i100: max|diff|={d_c2:.3g} "
+          f"launches per stack K1={n_c2[0]} K2={n_c2[1]} "
+          f"kernel {ms_c2:.3f} ms ({bsz / ms_c2 * 1e3:.1f} pairs/s) "
+          f"plain {ms_c2p:.3f} ms ({bsz / ms_c2p * 1e3:.2f} pairs/s)")
+    require(d_c2 <= TOL, "C2 kernel vs plain")
+    require(n_c2 == (1, 13), f"C2 launches per stack {n_c2}, expected K1=1 K2=13")
+
+    for a in flow_p2:
+        require(a.shape == (4, 1080, 1920) and bool(torch.isfinite(a).all()),
+                "batched pyramid output shape/finite")
+    d_p2 = max_flow_diff(flow_p2, hs_solve_batched(pa, pb, plain2, pyr3))
+    ms_p2 = median_ms(lambda: hs_solve_batched(pa, pb, cfg2, pyr3))
+    print(f"phase 7 batched pyramid B=4 1080x1920 L3 a=1 i100: max|diff|={d_p2:.3g} "
+          f"kernel {ms_p2:.3f} ms ({4 / ms_p2 * 1e3:.1f} pairs/s)")
+    require(d_p2 <= TOL, "batched pyramid kernel vs plain")
+
+    # -- phase 8: config 4, streaming -------------------------------------------
+    require([c.u.shape[0] for c in chunks] == [8, 8], "flow_stream chunk sizes")
+    for k, c in enumerate(chunks):
+        ref = hs_solve_batched(vid_dev[8 * k:8 * k + 8], vid_dev[8 * k + 1:8 * k + 9], cfg4)
+        require(bool(torch.equal(c.u, ref.u) and torch.equal(c.v, ref.v)),
+                f"flow_stream chunk {k} differs from hs_solve_batched")
+
+    def stream_all():
+        for c in flow_stream(vid, cfg4, chunk=8):
+            pass
+
+    ms_s = median_ms(stream_all, runs=5)
+    print(f"phase 8 C4 flow_stream 16 pairs 1080x1920 a=1 i100 s=8 chunk 8: chunks bitwise = "
+          f"hs_solve_batched; {ms_s:.3f} ms end to end from host frames "
+          f"({16 / ms_s * 1e3:.1f} pairs/s)")
+
+    require(len(warm) == 16, "flow_stream_warm pair count")
+    gt = np.broadcast_to(gt_c4, (1080, 1920, 2))
+    epes = [epe(interior(flow_np(f), 10), interior(gt, 10)) for f in warm]
+    plain_warm = list(flow_stream_warm(vid, dataclasses.replace(cfg4w, backend="torch"),
+                                       chunk=8, warp_prior=True))
+    d_w = max(max_flow_diff(a, b) for a, b in zip(warm, plain_warm))
+
+    def warm_all():
+        for f in flow_stream_warm(vid, cfg4w, chunk=8, warp_prior=True):
+            pass
+
+    ms_w = median_ms(warm_all, runs=5)
+    print(f"phase 8 C4 flow_stream_warm warp prior i25: max|diff| vs plain {d_w:.3g}; "
+          f"{ms_w:.3f} ms for 16 pairs ({16 / ms_w * 1e3:.1f} pairs/s); interior EPE "
+          f"first {epes[0]:.4f} mean {float(np.mean(epes)):.4f} last {epes[-1]:.4f}")
+    require(d_w <= TOL, "warm stream kernel vs plain")
+    require(bool(np.isfinite(epes).all()) and epes[-1] < epes[0],
+            f"warm stream EPE does not fall along the stream: {epes}")
+
+    require(tuple(occ_mask.shape) == (8, 1080, 1920) and occ_mask.dtype == torch.bool
+            and occ_flow.u.shape == (8, 1080, 1920), "flow_stream_occlusion shapes")
+    print(f"phase 8 C4 flow_stream_occlusion one window: 8 pairs, mask {tuple(occ_mask.shape)}, "
+          f"occluded share {float(occ_mask.float().mean()):.5f}")
+
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2
     fields = k1.derivatives_plain(i1, i2, 0.5)
     z = torch.zeros_like(i1)
-    ms = {
+    ms2d = {
         "hs_derivatives": (
             event_ms(lambda: k1.hs_derivatives(i1, i2, 0.5, zero_sweep=True)),
             event_ms(lambda: k1.derivatives_plain(i1, i2, 0.5, zero_sweep=True)),
@@ -241,18 +426,52 @@ def main() -> int:
             event_ms(lambda: k2.jacobi_sweeps_plain(z, z, *fields, auto)),
         ),
     }
-    for name, (t_k, t_p) in ms.items():
+    for name, (t_k, t_p) in ms2d.items():
         print(f"kernel {name} 1088x1920: {t_k:.4f} ms per launch, plain {t_p:.4f} ms"
+              + (f" ({auto} sweeps per launch)" if name == "hs_jacobi_sweeps" else ""))
+
+    # -- per-kernel times on the C2 stack, 8 x 1088x1920 ------------------------
+    px = c2a.numel()
+    fields = k1.derivatives_plain(c2a, c2b, 1.0)
+    z = torch.zeros_like(c2a)
+    ms = {
+        "hs_derivatives": (
+            event_ms(lambda: k1.hs_derivatives(c2a, c2b, 1.0, zero_sweep=True)),
+            event_ms(lambda: k1.derivatives_plain(c2a, c2b, 1.0, zero_sweep=True)),
+        ),
+        "hs_jacobi_sweeps": (
+            event_ms(lambda: k2.jacobi_sweeps_batched(z, z, *fields, auto)),
+            event_ms(lambda: k2.jacobi_sweeps_batched_plain(z, z, *fields, auto), reps=5),
+        ),
+    }
+    bounds = {
+        "hs_derivatives": bound_ms(8 * 4 * px, K1_FLOPS_PER_PX * px),
+        "hs_jacobi_sweeps": bound_ms(8 * 4 * px, K2_FLOPS_PER_PX_SWEEP * auto * px),
+    }
+    for name, (t_k, t_p) in ms.items():
+        print(f"kernel {name} {bsz}x1088x1920: {t_k:.4f} ms per launch, plain {t_p:.4f} ms, "
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})"
               + (f" ({auto} sweeps per launch)" if name == "hs_jacobi_sweeps" else ""))
 
     source = {"hs_derivatives": "opticalflowhs_tpu_torch/csrc/derivatives.cu",
               "hs_jacobi_sweeps": "opticalflowhs_tpu_torch/csrc/jacobi.cu"}
-    replaces = {"hs_derivatives": "opticalflowhs_tpu/kernels/derivatives.py:40",
-                "hs_jacobi_sweeps": "opticalflowhs_tpu/kernels/jacobi.py:184"}
+    replaces = {
+        "hs_derivatives": ["opticalflowhs_tpu/kernels/derivatives.py:40",
+                           "opticalflowhs_tpu/kernels/solve_resident.py:161",
+                           "opticalflowhs_tpu/kernels/solve_resident.py:394"],
+        "hs_jacobi_sweeps": ["opticalflowhs_tpu/kernels/jacobi.py:184",
+                             "opticalflowhs_tpu/kernels/jacobi.py:241",
+                             "opticalflowhs_tpu/kernels/jacobi.py:375",
+                             "opticalflowhs_tpu/kernels/jacobi.py:631",
+                             "opticalflowhs_tpu/kernels/solve_resident.py:161",
+                             "opticalflowhs_tpu/kernels/solve_resident.py:394"],
+    }
     kernels = [
         {"name": name, "route": "cuda", "source": source[name],
-         "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1]}
+         "replaces": replaces[name], "launches": launches_b[name],
+         "launches_main_path": launches[name],
+         "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name in ("hs_derivatives", "hs_jacobi_sweeps")
     ]
     print(card)

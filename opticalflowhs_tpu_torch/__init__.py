@@ -9,16 +9,27 @@ the reference's:
   ops/          plain PyTorch stencils (the versions the kernels are held to)
   kernels/      K1 derivatives and K2 Jacobi sweeps (CUDA C++ in csrc/),
                 the whole-solve driver, the nvcc build
-  solver        Flow, hs_solve, solve_level, precompute, sweeps
+  solver        Flow, hs_solve, solve_level, precompute, sweeps,
+                sweeps_until (solve to tolerance)
   pyramid       hs_pyramid, downsample, flow upsampling, warps
+  batch         hs_solve_batched on (B, H, W) stacks, the batched pyramid
+  consistency   forward-backward test, flow_with_occlusion
+  video         flow_stream, flow_stream_warm, flow_stream_occlusion,
+                flow_video (prefetched windows)
   data/, io/, metrics   synthetic pairs, .flo files, EPE
 
-Frames are (H, W) float32 tensors; the solve runs on their device.
+Frames are (H, W) float32 tensors, or (B, H, W) stacks, and the solve runs
+on their device. numpy inputs go to the entry point's `device` keyword,
+cuda:0 by default; without a CUDA device that default raises, so the CPU
+runs only when asked for (`device="cpu"`, or CPU tensors).
 """
 
+from opticalflowhs_tpu_torch.batch import hs_solve_batched
 from opticalflowhs_tpu_torch.config import HSConfig, PyramidConfig, from_reference
+from opticalflowhs_tpu_torch.consistency import flow_with_occlusion
 from opticalflowhs_tpu_torch.pyramid import hs_pyramid
 from opticalflowhs_tpu_torch.solver import Flow, hs_solve
+from opticalflowhs_tpu_torch.video import flow_stream, flow_stream_warm, flow_video
 
 __version__ = "0.1.0"
 
@@ -29,5 +40,10 @@ __all__ = [
     "from_reference",
     "hs_solve",
     "hs_pyramid",
+    "hs_solve_batched",
+    "flow_stream",
+    "flow_stream_warm",
+    "flow_video",
+    "flow_with_occlusion",
     "__version__",
 ]

@@ -35,14 +35,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# C signature of every kernel entry point: argument types, in order.
+# C signature of every kernel entry point: argument types, in order. `b` is
+# the batch count (1 for a single frame), the grid's z dimension.
 SIGNATURES = {
-    # i1, i2, ex, ey, et, invd, u1, v1, h, w, alpha2, variant, device, stream
-    "hs_derivatives": [_P] * 8 + [_I, _I, _F, _I, _I, _P],
-    # u, v, ex, ey, et, invd, uo, vo, h, w, sweeps, tile_h, tile_w,
+    # i1, i2, ex, ey, et, invd, u1, v1, b, h, w, alpha2, variant, device,
+    # stream
+    "hs_derivatives": [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P],
+    # u, v, ex, ey, et, invd, uo, vo, b, h, w, sweeps, tile_h, tile_w,
     # threads, device, stream
-    "hs_jacobi_sweeps": [_P] * 8 + [_I] * 7 + [_P],
+    "hs_jacobi_sweeps": [_P] * 8 + [_I] * 8 + [_P],
 }
+
+# Largest batch one launch takes: CUDA's limit on gridDim.z.
+MAX_BATCH = 65535
 
 
 def sources() -> list[Path]:

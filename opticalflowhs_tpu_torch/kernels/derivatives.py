@@ -1,8 +1,10 @@
 """K1: Horn-Schunck derivatives and the hoisted 1/den in one pass.
 
 Port of opticalflowhs_tpu/kernels/derivatives.py (`derivatives_precompute`,
-TPU kernel `_deriv_kernel`) and of the derivative stage of the resident
-whole-solve kernel. The CUDA source is csrc/derivatives.cu.
+TPU kernel `_deriv_kernel`, one frame or a (B, H, W) stack) and of the
+derivative stage of the resident whole-solve kernels, single and batched.
+The CUDA source is csrc/derivatives.cu; a stack is one launch, with the
+image as the grid's z index.
 
 `hs_derivatives` launches the kernel for CUDA tensors and runs the plain
 version, `derivatives_plain`, for CPU tensors. There is no fallback: a
@@ -35,14 +37,16 @@ def derivatives_plain(i1: torch.Tensor, i2: torch.Tensor, alpha: float,
 
 
 def check_frames(name: str, *arrays: torch.Tensor) -> None:
-    """The kernels take 2-D float32 contiguous tensors of one shape on one
-    device; raise ValueError on anything else."""
+    """The kernels take (H, W) or (B, H, W) float32 contiguous tensors of one
+    shape on one device; raise ValueError on anything else."""
     first = arrays[0]
     for a in arrays:
         if not isinstance(a, torch.Tensor):
             raise ValueError(f"{name}: expected torch tensors, got {type(a)}")
-        if a.ndim != 2:
-            raise ValueError(f"{name}: expected 2-D tensors, got {tuple(a.shape)}")
+        if a.ndim not in (2, 3):
+            raise ValueError(
+                f"{name}: expected (H, W) or (B, H, W) tensors, got {tuple(a.shape)}"
+            )
         if a.dtype != torch.float32:
             raise ValueError(f"{name}: expected float32, got {a.dtype}")
         if not a.is_contiguous():
@@ -57,22 +61,38 @@ def check_frames(name: str, *arrays: torch.Tensor) -> None:
         raise ValueError(f"{name}: unsupported device {first.device}")
 
 
+def batch_dims(name: str, a: torch.Tensor) -> tuple[int, int, int]:
+    """(B, H, W) of an (H, W) frame (B = 1) or a (B, H, W) stack; raise
+    ValueError for a batch beyond one launch's grid."""
+    b = a.shape[0] if a.ndim == 3 else 1
+    if b > _build.MAX_BATCH:
+        raise ValueError(
+            f"{name}: batch {b} exceeds {_build.MAX_BATCH}, the most one "
+            "launch's grid takes; split the stack"
+        )
+    return b, a.shape[-2], a.shape[-1]
+
+
 def hs_derivatives(i1: torch.Tensor, i2: torch.Tensor, alpha: float,
                    variant: str = "hs_cube", zero_sweep: bool = False):
-    """K1 wrapper: the kernel on CUDA tensors, `derivatives_plain` on CPU
-    tensors. Returns (ex, ey, et, invd) or, with zero_sweep, also (u1, v1)."""
+    """K1 wrapper over an (H, W) pair or a (B, H, W) stack of pairs: the
+    kernel on CUDA tensors (one launch for the whole stack),
+    `derivatives_plain` on CPU tensors. Returns (ex, ey, et, invd) or, with
+    zero_sweep, also (u1, v1), each of the frames' shape."""
     check_frames("hs_derivatives", i1, i2)
     if variant not in _VARIANT_CODES:
         raise ValueError(f"unknown derivative variant {variant!r}")
     if i1.device.type == "cpu":
         return derivatives_plain(i1, i2, alpha, variant, zero_sweep)
-    h, w = i1.shape
+    b, h, w = batch_dims("hs_derivatives", i1)
     outs = [torch.empty_like(i1) for _ in range(6 if zero_sweep else 4)]
+    if i1.numel() == 0:
+        return tuple(outs)
     ptrs = [o.data_ptr() for o in outs] + ([None, None] if not zero_sweep else [])
     alpha2 = float(alpha) * float(alpha)
     lib = _build.library()
     err = lib.hs_derivatives(
-        i1.data_ptr(), i2.data_ptr(), *ptrs, h, w, alpha2,
+        i1.data_ptr(), i2.data_ptr(), *ptrs, b, h, w, alpha2,
         _VARIANT_CODES[variant], i1.device.index,
         torch.cuda.current_stream(i1.device).cuda_stream,
     )

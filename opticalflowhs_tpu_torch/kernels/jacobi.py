@@ -2,13 +2,15 @@
 
 Port of the Jacobi sweep kernels of opticalflowhs_tpu/kernels/jacobi.py
 (`jacobi_sweeps` and its whole-image, banded and fused-banded TPU
-schedules) and of the sweep stage of the resident whole-solve kernel. The
+schedules; `jacobi_sweeps_batched` and its stacked and batched-banded
+schedules) and of the sweep stage of the resident whole-solve kernels. The
 CUDA source is csrc/jacobi.cu: one launch runs up to `sweeps_per_launch`
-sweeps on shared-memory tiles with a decaying halo.
+sweeps on shared-memory tiles with a decaying halo, for one frame or for
+a whole (B, H, W) stack (the image is the grid's z index).
 
-`jacobi_sweeps` launches the kernel for CUDA tensors and runs the plain
-version, `jacobi_sweeps_plain`, for CPU tensors. There is no fallback: a
-CUDA tensor goes through the kernel or the call raises.
+`jacobi_sweeps` and `jacobi_sweeps_batched` launch the kernel for CUDA
+tensors and run the plain versions for CPU tensors. There is no fallback:
+a CUDA tensor goes through the kernel or the call raises.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from opticalflowhs_tpu_torch.kernels import _build
-from opticalflowhs_tpu_torch.kernels.derivatives import check_frames
+from opticalflowhs_tpu_torch.kernels.derivatives import batch_dims, check_frames
 from opticalflowhs_tpu_torch.ops import stencils
 
 # Output tile of one block, threads per block and the default sweeps per
@@ -47,22 +49,31 @@ def sweeps_per_launch(block_sweeps: int = 0) -> int:
 
 
 def jacobi_sweeps_plain(u, v, ex, ey, et, inv_den, n: int):
-    """n plain Jacobi sweeps (ops/stencils.py)."""
+    """n plain Jacobi sweeps (ops/stencils.py), on (H, W) or (B, H, W)."""
     for _ in range(n):
         u, v = stencils.jacobi_step(u, v, ex, ey, et, inv_den)
     return u, v
 
 
+def jacobi_sweeps_batched_plain(u, v, ex, ey, et, inv_den, n: int):
+    """n plain Jacobi sweeps on a (B, H, W) stack: each image on its own,
+    as the reference's vmapped twin (the stencils clamp per image)."""
+    return jacobi_sweeps_plain(u, v, ex, ey, et, inv_den, n)
+
+
 def launch_sweeps(u, v, ex, ey, et, inv_den, uo, vo, sweeps: int) -> None:
     """One K2 launch: `sweeps` sweeps from (u, v) into (uo, vo), on the
-    current stream. All eight tensors are CUDA float32 (checked by the
-    callers); uo/vo must not alias u/v."""
-    h, w = u.shape
+    current stream, over a frame or a whole stack. All eight tensors are
+    CUDA float32 of one shape (checked by the callers); uo/vo must not
+    alias u/v."""
+    b, h, w = batch_dims("hs_jacobi_sweeps", u)
+    if u.numel() == 0:
+        return
     lib = _build.library()
     err = lib.hs_jacobi_sweeps(
         u.data_ptr(), v.data_ptr(), ex.data_ptr(), ey.data_ptr(),
         et.data_ptr(), inv_den.data_ptr(), uo.data_ptr(), vo.data_ptr(),
-        h, w, sweeps, TILE_H, TILE_W, THREADS, u.device.index,
+        b, h, w, sweeps, TILE_H, TILE_W, THREADS, u.device.index,
         torch.cuda.current_stream(u.device).cuda_stream,
     )
     _build.check(err, "hs_jacobi_sweeps")
@@ -89,17 +100,37 @@ def sweep_chain(u, v, ex, ey, et, inv_den, n: int, s: int,
     return src
 
 
-def jacobi_sweeps(u, v, ex, ey, et, inv_den, n_sweeps: int,
-                  block_sweeps: int = 0):
-    """n Jacobi sweeps: K2 launches on CUDA tensors, `jacobi_sweeps_plain`
-    on CPU tensors. Returns (u, v); the inputs are not modified."""
-    check_frames("jacobi_sweeps", u, v, ex, ey, et, inv_den)
+def _sweeps(name: str, ndim: int, plain, u, v, ex, ey, et, inv_den,
+            n_sweeps: int, block_sweeps: int):
+    check_frames(name, u, v, ex, ey, et, inv_den)
+    if u.ndim != ndim:
+        raise ValueError(f"{name}: expected {ndim}-D tensors, got {tuple(u.shape)}")
     if n_sweeps == 0:
         return u, v
     if u.device.type == "cpu":
-        return jacobi_sweeps_plain(u, v, ex, ey, et, inv_den, n_sweeps)
+        return plain(u, v, ex, ey, et, inv_den, n_sweeps)
     return sweep_chain(u, v, ex, ey, et, inv_den, n_sweeps,
                        sweeps_per_launch(block_sweeps))
 
 
+def jacobi_sweeps(u, v, ex, ey, et, inv_den, n_sweeps: int,
+                  block_sweeps: int = 0):
+    """n Jacobi sweeps on (H, W) tensors: K2 launches on CUDA tensors,
+    `jacobi_sweeps_plain` on CPU tensors. Returns (u, v); the inputs are
+    not modified."""
+    return _sweeps("jacobi_sweeps", 2, jacobi_sweeps_plain, u, v, ex, ey, et,
+                   inv_den, n_sweeps, block_sweeps)
+
+
+def jacobi_sweeps_batched(u, v, ex, ey, et, inv_den, n_sweeps: int,
+                          block_sweeps: int = 0):
+    """n Jacobi sweeps on a (B, H, W) stack of independent images: on CUDA
+    tensors ceil(n/s) K2 launches for the whole stack, each image clamped
+    at its own edges; `jacobi_sweeps_batched_plain` on CPU tensors.
+    Returns (u, v); the inputs are not modified."""
+    return _sweeps("jacobi_sweeps_batched", 3, jacobi_sweeps_batched_plain,
+                   u, v, ex, ey, et, inv_den, n_sweeps, block_sweeps)
+
+
+# Every K2 launch, single frame or batched, counts here.
 jacobi_sweeps.launches = 0

@@ -14,9 +14,10 @@ entry point's `device` keyword, which defaults to cuda:0; without a CUDA
 device that default raises RuntimeError, so the CPU runs only when the
 caller asks for it (`device="cpu"`, or CPU tensors).
 
-Scope: Jacobi with a fixed sweep count (`tol == 0`), float32. The other
-solvers, solve-to-tolerance and bf16 are still to be ported (ROADMAP.md
-queue 1) and raise NotImplementedError rather than solving something else.
+Scope: Jacobi, float32, with a fixed sweep count or solved to tolerance
+(`sweeps_until`). The other solvers and bf16 are still to be ported
+(ROADMAP.md queue 1) and raise NotImplementedError rather than solving
+something else.
 """
 
 from __future__ import annotations
@@ -65,11 +66,6 @@ def check_supported(cfg: HSConfig) -> None:
         raise NotImplementedError(
             f"solver={cfg.solver!r} is not ported yet (ROADMAP.md queue 1, "
             "item 9: other HS solvers); only 'jacobi' runs"
-        )
-    if cfg.tol > 0:
-        raise NotImplementedError(
-            "tol > 0 (solve-to-tolerance, sweeps_until) is not ported yet "
-            "(ROADMAP.md queue 1, item 3)"
         )
     if cfg.dtype != "float32":
         raise NotImplementedError(
@@ -129,6 +125,53 @@ def sweeps(u, v, ex, ey, et, inv_den, n: int, cfg: HSConfig) -> Flow:
     return Flow(*jacobi_sweeps_plain(u, v, ex, ey, et, inv_den, n))
 
 
+def sweeps_until(u, v, ex, ey, et, inv_den, cfg: HSConfig,
+                 budget: Optional[int] = None, run_block=None) -> Flow:
+    """Solve to tolerance (cfg.tol > 0), as the reference's sweeps_until:
+    check blocks of b = block_sweeps (16 when 0) sweeps, b at most
+    max(budget, 1), run while the next whole block fits the budget
+    (cfg.iters unless given; rounded down to whole blocks) and the last
+    block's max |update| over u and v exceeds tol (the first "update" is
+    float32's max).
+
+    u and v are (H, W) or (B, H, W). On a stack each image stops on its
+    own update and is then frozen, so the result equals a loop of single
+    solves: the rule of the reference's vmapped jnp route. (Its Pallas
+    route stops the whole stack on the stack's max update; ROADMAP.md
+    queue 3.)
+
+    `run_block(u, v, n) -> (u, v)` runs n sweeps; the default is `sweeps`
+    on the given fields. Reading the updates back costs one host
+    synchronisation per check block."""
+    check_supported(cfg)
+    iters = cfg.iters if budget is None else budget
+    if run_block is None:
+        def run_block(uu, vv, nn):
+            return sweeps(uu, vv, ex, ey, et, inv_den, nn, cfg)
+    b = cfg.block_sweeps if cfg.block_sweeps > 0 else 16
+    b = min(b, max(iters, 1))
+    delta = torch.full(u.shape[:-2], torch.finfo(u.dtype).max,
+                       dtype=u.dtype, device=u.device)
+    k = 0
+    while k + b <= iters:
+        active = delta > cfg.tol
+        n_active = int(active.sum())  # the host sync of this block
+        if n_active == 0:
+            break
+        nu, nv = run_block(u, v, b)
+        d = torch.maximum((nu - u).abs().amax(dim=(-2, -1)),
+                          (nv - v).abs().amax(dim=(-2, -1)))
+        if n_active == active.numel():
+            u, v, delta = nu, nv, d
+        else:  # freeze the images that have converged
+            keep = active[..., None, None]
+            u = torch.where(keep, nu, u)
+            v = torch.where(keep, nv, v)
+            delta = torch.where(active, d, delta)
+        k += b
+    return Flow(u, v)
+
+
 def solve_level(
     i1: torch.Tensor,
     i2: torch.Tensor,
@@ -137,11 +180,15 @@ def solve_level(
     u0: Optional[torch.Tensor] = None,
     v0: Optional[torch.Tensor] = None,
 ) -> Flow:
-    """One fixed-budget solve of a 2-D pair, from zero or from (u0, v0).
+    """One solve of a 2-D pair, from zero or from (u0, v0): `iters` sweeps,
+    or with cfg.tol > 0 `sweeps_until` under a budget of `iters`.
 
     The cuda backend runs the whole-solve driver (K1, then K2 launches) at
-    every frame size and for both derivative variants; the torch backend
-    runs the plain ops. Both compute the same sweeps in the same order."""
+    every frame size and for both derivative variants; to tolerance, K1
+    once and then K2 check blocks (the reference's resident-blocked route
+    re-derives the fields per block, with identical values). The torch
+    backend runs the plain ops. Both compute the same sweeps in the same
+    order."""
     check_supported(cfg)
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
@@ -150,6 +197,11 @@ def solve_level(
     if u0 is not None:
         u0 = as_frame(u0, i1.device)
         v0 = as_frame(v0, i1.device)
+    if cfg.tol > 0:
+        ex, ey, et, inv_den = precompute(i1, i2, cfg)
+        if u0 is None:
+            u0, v0 = torch.zeros_like(i1), torch.zeros_like(i1)
+        return sweeps_until(u0, v0, ex, ey, et, inv_den, cfg, budget=iters)
     if resolve_backend(cfg.backend, i1) == "cuda":
         out = hs_solve_resident(i1, i2, cfg.alpha, iters, cfg.deriv_variant,
                                 u0, v0, block_sweeps=cfg.block_sweeps)

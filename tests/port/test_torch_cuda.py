@@ -1,7 +1,9 @@
 """K1, K2 and the whole-solve driver on a CUDA card against their plain
 versions on the same card, at edge-case shapes (partial tiles, frames
 narrower or shorter than a tile, one row, one column) and sweep counts
-that the sweeps per launch do not divide.
+that the sweeps per launch do not divide; single frames and (B, H, W)
+stacks, where each image of a batched launch must equal the single-frame
+kernel on that image; and the batched and streaming entry points.
 
 Marked `cuda`: they skip without a card. They import no JAX, so on a
 machine without it they run with the repository's conftest left out:
@@ -16,7 +18,15 @@ import numpy as np
 import pytest
 import torch
 
-from opticalflowhs_tpu_torch import HSConfig, PyramidConfig, hs_pyramid, hs_solve
+from opticalflowhs_tpu_torch import (
+    HSConfig,
+    PyramidConfig,
+    flow_stream,
+    flow_stream_warm,
+    hs_pyramid,
+    hs_solve,
+    hs_solve_batched,
+)
 from opticalflowhs_tpu_torch.kernels import derivatives as k1
 from opticalflowhs_tpu_torch.kernels import jacobi as k2
 from opticalflowhs_tpu_torch.kernels import solve_resident as sr
@@ -98,3 +108,74 @@ def test_wrappers_reject_bad_cuda_tensors(dev):
         k1.hs_derivatives(i1, i2.cpu(), 0.5)
     with pytest.raises(ValueError):
         k2.jacobi_sweeps(i1.t(), i2, i1, i1, i1, i1, 3)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("variant", ["hs_cube", "central"])
+@pytest.mark.parametrize("zero_sweep", [False, True])
+def test_k1_batched_equals_plain(dev, shape, b, variant, zero_sweep):
+    i1, i2 = _rand((b,) + shape, dev, 7)
+    got = k1.hs_derivatives(i1, i2, 0.7, variant, zero_sweep)
+    _equal(got, k1.derivatives_plain(i1, i2, 0.7, variant, zero_sweep))
+    for k in range(b):
+        _equal([g[k] for g in got], k1.hs_derivatives(i1[k], i2[k], 0.7, variant, zero_sweep))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n,s", [(1, 0), (13, 0), (17, 10)])
+def test_k2_batched_equals_plain(dev, shape, b, n, s):
+    i1, i2 = _rand((b,) + shape, dev, 8)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    u0, v0 = _rand((b,) + shape, dev, 9, normal=True)
+    got = k2.jacobi_sweeps_batched(u0, v0, *fields, n, block_sweeps=s)
+    _equal(got, k2.jacobi_sweeps_batched_plain(u0, v0, *fields, n))
+    for k in range(b):
+        one = k2.jacobi_sweeps(u0[k], v0[k], *(f[k] for f in fields), n, block_sweeps=s)
+        _equal([g[k] for g in got], one)
+
+
+@pytest.mark.parametrize("shape", [(67, 93), (200, 333)])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", [1, 2, 30])
+def test_batched_driver_equals_plain(dev, shape, b, n):
+    i1, i2 = _rand((b,) + shape, dev, 10)
+    _equal(sr.hs_solve_resident_batched(i1, i2, 0.5, n),
+           sr.hs_solve_resident_batched_plain(i1, i2, 0.5, n))
+
+
+def test_batched_entry_points_run_the_kernels(dev):
+    i1, i2 = _rand((4, 96, 128), dev, 11)
+    cfg = HSConfig(alpha=0.5, iters=20)
+    plain = HSConfig(alpha=0.5, iters=20, backend="torch")
+    k1.hs_derivatives.launches = 0
+    k2.jacobi_sweeps.launches = 0
+    got = hs_solve_batched(i1, i2, cfg)
+    assert k1.hs_derivatives.launches == 1
+    assert k2.jacobi_sweeps.launches == -(-19 // k2.sweeps_per_launch(0))
+    _equal(got, hs_solve_batched(i1, i2, plain))
+    tol = HSConfig(alpha=0.5, iters=64, tol=1e-3, block_sweeps=8)
+    _equal(hs_solve_batched(i1, i2, tol),
+           hs_solve_batched(i1, i2, HSConfig(alpha=0.5, iters=64, tol=1e-3,
+                                             block_sweeps=8, backend="torch")))
+    _equal(hs_solve(i1[0], i2[0], tol), hs_solve(i1[0], i2[0], HSConfig(
+        alpha=0.5, iters=64, tol=1e-3, block_sweeps=8, backend="torch")))
+    pyr = PyramidConfig(levels=2)
+    _equal(hs_solve_batched(i1, i2, cfg, pyr), hs_solve_batched(i1, i2, plain, pyr))
+
+
+def test_streams_default_to_the_card(dev):
+    vid = np.random.default_rng(12).uniform(0, 1, (6, 64, 96)).astype(np.float32)
+    cfg = HSConfig(alpha=0.5, iters=10)
+    chunks = list(flow_stream(vid, cfg, chunk=4))
+    assert [c.u.shape[0] for c in chunks] == [4, 1]
+    assert chunks[0].u.device.type == "cuda"
+    whole = hs_solve_batched(torch.from_numpy(vid).to(dev)[:-1],
+                             torch.from_numpy(vid).to(dev)[1:], cfg)
+    _equal((torch.cat([c.u for c in chunks]), torch.cat([c.v for c in chunks])), whole)
+    warm = list(flow_stream_warm(vid, cfg, chunk=2, warp_prior=True))
+    plain = list(flow_stream_warm(vid, HSConfig(alpha=0.5, iters=10, backend="torch"),
+                                  chunk=2, warp_prior=True))
+    for a, b in zip(warm, plain):
+        _equal(a, b)

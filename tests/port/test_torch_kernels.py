@@ -171,7 +171,7 @@ def test_cuda_backend_on_cpu_raises():
     [
         lambda a: a.double(),
         lambda a: a.t(),             # not contiguous
-        lambda a: a[None],           # not 2-D
+        lambda a: a[None, None],     # neither 2-D nor 3-D
         lambda a: a.numpy(),         # not a tensor
     ],
 )

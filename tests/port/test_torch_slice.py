@@ -89,7 +89,8 @@ def test_hs_solve_input_errors():
 
 @pytest.mark.parametrize(
     "cfg",
-    [HSConfig(solver="sor"), HSConfig(tol=1e-3), HSConfig(dtype="bfloat16")],
+    [HSConfig(solver="sor"), HSConfig(solver="robust", tol=1e-3),
+     HSConfig(dtype="bfloat16")],
 )
 def test_unported_configs_raise(cfg):
     a = torch.zeros(16, 16)
@@ -253,6 +254,8 @@ def test_package_imports_without_jax():
         "import opticalflowhs_tpu_torch as p\n"
         "import opticalflowhs_tpu_torch.pyramid, opticalflowhs_tpu_torch.metrics\n"
         "import opticalflowhs_tpu_torch.kernels.solve_resident\n"
+        "import opticalflowhs_tpu_torch.batch, opticalflowhs_tpu_torch.video\n"
+        "import opticalflowhs_tpu_torch.consistency\n"
         "import opticalflowhs_tpu_torch.data.synthetic, opticalflowhs_tpu_torch.io.flo\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'opticalflowhs_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
