@@ -312,7 +312,7 @@ def main() -> int:
             err["hs_jacobi_sweeps"] = max(err["hs_jacobi_sweeps"], d2, d2s, d3)
             print(f"phase 6 batched B={b} {h}x{w}: K1 vs plain {d1:.3g}, vs 2-D {d1s:.3g}; "
                   f"K2 n=13 warm+zero vs plain {d2:.3g}, vs 2-D {d2s:.3g}; "
-                  f"driver n=23 vs plain {d3:.3g}")
+                  f"whole solve n=23 vs plain {d3:.3g}")
             require(max(d1, d1s, d2, d2s, d3) <= TOL, f"batched kernels B={b} {h}x{w}")
 
     # -- the batched path (configs 2 and 4), counted ---------------------------

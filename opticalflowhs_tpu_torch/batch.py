@@ -1,5 +1,5 @@
 """Batched flow over (B, H, W) stacks of frame pairs, mirroring
-opticalflowhs_tpu/batch.py (driver config 2: batched HS over a video).
+opticalflowhs_tpu/batch.py (config 2: batched HS over a video).
 
 The batch axis is pure data parallelism. On the cuda backend a stack runs
 as one chain of launches for the whole stack: K1 over (B, H, W), then the

@@ -1,12 +1,13 @@
-"""Streaming video flow, mirroring opticalflowhs_tpu/video.py (driver
-config 4: HD streaming).
+"""Streaming video flow, mirroring opticalflowhs_tpu/video.py (config 4:
+HD streaming).
 
 Frames arrive on the host in windows of chunk+1 frames that overlap by
 one, so the stream of pairs is seamless. While window k is solved on the
-card, window k+1 is already on its way: it is copied into pinned host
-memory and sent with a non-blocking copy on a side stream; the compute
-stream waits on that copy's event, not the host. A copy from pageable
-memory would block the host until the stream drains, stalling the launch
+card, window k+1 is already on its way: its frames are copied straight
+into pinned host memory (one host copy; no stacked pageable window first)
+and sent with a non-blocking copy on a side stream; the compute stream
+waits on that copy's event, not the host. A copy from pageable memory
+would block the host until the stream drains, stalling the launch
 pipeline behind the solve.
 """
 
@@ -27,21 +28,24 @@ Frames = Union[np.ndarray, torch.Tensor, Iterable[np.ndarray]]
 
 
 def _chunked_with_overlap(frames: Iterable[np.ndarray], chunk: int):
-    """Yield (chunk+1)-frame numpy windows overlapping by one frame."""
+    """Yield windows of chunk+1 frames overlapping by one frame, as lists
+    of (H, W) float32 arrays: the caller stacks each window where it goes."""
     buf: list[np.ndarray] = []
     for f in frames:
-        buf.append(np.asarray(f))
+        buf.append(np.asarray(f, np.float32))
         if len(buf) == chunk + 1:
-            yield np.stack(buf)
+            yield buf
             buf = buf[-1:]
     if len(buf) >= 2:
-        yield np.stack(buf)
+        yield buf
 
 
 def _prefetched_windows(frames: Frames, chunk: int,
                         device=None) -> Iterator[torch.Tensor]:
-    """Yield (chunk+1)-frame float32 windows on the device, each issued
-    before the previous one is consumed.
+    """Yield (chunk+1)-frame float32 windows on the device. Window k+1 is
+    staged when the consumer comes back for it, that is after it has
+    queued its work on window k, so the host copy and the H2D copy overlap
+    that work on the card.
 
     A (T, H, W) tensor is windowed where it lies. numpy frames (a (T, H, W)
     array or an iterator of (H, W) frames) go to `device`: cuda:0 when it
@@ -59,12 +63,15 @@ def _prefetched_windows(frames: Frames, chunk: int,
     windows = _chunked_with_overlap(iter(frames), chunk)
     if dev.type != "cuda":
         for win in windows:
-            yield as_frame(win, dev)
+            yield as_frame(np.stack(win), dev)
         return
     copy_stream = torch.cuda.Stream(dev)
 
-    def issue(win):
-        host = torch.from_numpy(np.ascontiguousarray(win, np.float32)).pin_memory()
+    def stage(win):
+        host = torch.empty((len(win),) + win[0].shape, dtype=torch.float32,
+                           pin_memory=True)
+        for k, f in enumerate(win):
+            host[k].copy_(torch.from_numpy(f))
         with torch.cuda.stream(copy_stream):
             on_card = host.to(dev, non_blocking=True)
             done = torch.cuda.Event()
@@ -72,17 +79,19 @@ def _prefetched_windows(frames: Frames, chunk: int,
         return host, on_card, done
 
     nxt = next(windows, None)
-    pending = issue(nxt) if nxt is not None else None
+    pending = stage(nxt) if nxt is not None else None
     while pending is not None:
         host, cur, done = pending
-        nxt = next(windows, None)
-        pending = issue(nxt) if nxt is not None else None
         compute = torch.cuda.current_stream(dev)
         compute.wait_event(done)
         # `cur` was allocated on the copy stream: keep its memory from
         # being reused while the compute stream still reads it.
         cur.record_stream(compute)
         yield cur
+        # The consumer has queued its work on `cur`: stage the next window
+        # on the host and the copy engine while the card runs that work.
+        nxt = next(windows, None)
+        pending = stage(nxt) if nxt is not None else None
         # The pinned buffer must outlive its copy; by now the copy has
         # long finished, so this wait costs nothing in practice.
         done.synchronize()
