@@ -12,8 +12,9 @@ each ran through the kernels:
   phase 7:    config 2 (configs/c2_video_batch.json): hs_solve_batched on
               8 pairs at 1088x1920, and the batched pyramid at 4 x 1080p;
   phase 8:    config 4 (configs/c4_hd_streaming.json) on a 17-frame 1080p
-              video: flow_stream, flow_stream_warm with the warp prior,
-              flow_stream_occlusion.
+              video: flow_stream (8-image solves), flow_stream_warm with
+              the warp prior, flow_stream_occlusion (a 16-image solve),
+              each against the plain version.
 Every phase checks what it measures and any failure exits non-zero.
 Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
@@ -43,7 +44,12 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA's data sheet): device memory and float32 outside
 # the tensor cores. A kernel's bound is the larger of bytes / memory rate
-# and operations / float32 rate.
+# and operations / float32 rate. The data sheet's float32 rate counts a
+# fused multiply-add as two operations; the kernels are built with
+# --fmad=false, so each multiply and add issues on its own and they can
+# reach about half of it (33.5e12 operations/s). The bounds here use the
+# data sheet's rate, the one bounds are stated against, so an ops bound
+# can be up to 2x below what the unfused kernels could reach.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 67e12
 # float32 operations per pixel, counted from the sources: K1 with the
@@ -111,6 +117,28 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# The cells of configs 2 and 4, also timed by tools/torch_stream_timing.py.
+def cell_config(name: str):
+    """The HSConfig of configs/<name>; its "mesh" section stays with dist/."""
+    from opticalflowhs_tpu_torch import from_reference
+    return from_reference(json.loads((ROOT / "configs" / name).read_text())["hs"])
+
+
+def c2_stack(dev, b: int = 8):
+    """C2's frames: b pairs of uniform noise at 1088x1920 from
+    default_rng(0), as bench.py; b = 8 as opticalflowhs_tpu/bench.py:182."""
+    rng = np.random.default_rng(0)
+    return tuple(torch.from_numpy(rng.uniform(0, 1, (b, 1088, 1920)).astype(np.float32)).to(dev)
+                 for _ in range(2))
+
+
+def c4_video():
+    """C4's video as host numpy frames, and its flow: the 17-frame
+    1080x1920 pan by (1, 0.5) px a frame."""
+    from opticalflowhs_tpu_torch.data.synthetic import synthetic_sequence
+    return synthetic_sequence(17, 1080, 1920, tx=1.0, ty=0.5)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -120,7 +148,6 @@ def main() -> int:
         PyramidConfig,
         flow_stream,
         flow_stream_warm,
-        from_reference,
         hs_pyramid,
         hs_solve,
         hs_solve_batched,
@@ -128,7 +155,6 @@ def main() -> int:
     from opticalflowhs_tpu_torch.data.synthetic import (
         WarpSpec,
         synthetic_pair,
-        synthetic_sequence,
         translation_pair,
     )
     from opticalflowhs_tpu_torch.video import flow_stream_occlusion
@@ -316,19 +342,18 @@ def main() -> int:
             require(max(d1, d1s, d2, d2s, d3) <= TOL, f"batched kernels B={b} {h}x{w}")
 
     # -- the batched path (configs 2 and 4), counted ---------------------------
-    def config(name):
-        d = json.loads((ROOT / "configs" / name).read_text())
-        return from_reference(d["hs"])  # the "mesh" section stays with dist/
-
-    cfg2 = config("c2_video_batch.json")                # alpha 1, i100
-    cfg4 = config("c4_hd_streaming.json")               # alpha 1, i100, s = 8
+    cfg2 = cell_config("c2_video_batch.json")           # alpha 1, i100
+    cfg4 = cell_config("c4_hd_streaming.json")          # alpha 1, i100, s = 8
     cfg4w = dataclasses.replace(cfg4, iters=25)         # the warm stream's budget
-    bsz = 8                                             # opticalflowhs_tpu/bench.py:182
-    rng = np.random.default_rng(0)                      # bench.py's frames
-    c2a, c2b = (torch.from_numpy(rng.uniform(0, 1, (bsz, 1088, 1920)).astype(np.float32)).to(dev)
-                for _ in range(2))
+    # The default thresholds (a 0.01, b 0.5) flag no pixel of this pan, whose
+    # forward-backward error stays below 0.04 px; a 0 and b 1e-4 flag the
+    # pixels above 0.01 px (13% at 270x480 and 540x960 on the CPU), so the
+    # mask carries information.
+    occ = dict(a=0.0, b=1e-4)
+    c2a, c2b = c2_stack(dev)
+    bsz = c2a.shape[0]
     t0 = time.perf_counter()
-    vid, gt_c4 = synthetic_sequence(17, 1080, 1920, tx=1.0, ty=0.5)
+    vid, gt_c4 = c4_video()
     print(f"phase 8 video: 17 x 1080x1920 made in {time.perf_counter() - t0:.3f} s (host)")
     vid_dev = torch.from_numpy(vid).to(dev)
     pa, pb = vid_dev[:4], vid_dev[1:5]
@@ -341,7 +366,7 @@ def main() -> int:
     flow_p2 = hs_solve_batched(pa, pb, cfg2, pyr3)
     chunks = list(flow_stream(vid, cfg4, chunk=8))
     warm = list(flow_stream_warm(vid, cfg4w, chunk=8, warp_prior=True))
-    occ_flow, occ_mask = next(flow_stream_occlusion(vid[:9], cfg4, chunk=8))
+    occ_flow, occ_mask = next(flow_stream_occlusion(vid[:9], cfg4, chunk=8, **occ))
     torch.cuda.synchronize()
     launches_b = {"hs_derivatives": k1.hs_derivatives.launches,
                   "hs_jacobi_sweeps": k2.jacobi_sweeps.launches}
@@ -373,11 +398,19 @@ def main() -> int:
     require(d_p2 <= TOL, "batched pyramid kernel vs plain")
 
     # -- phase 8: config 4, streaming -------------------------------------------
+    # Each chunk equals hs_solve_batched on its pairs bitwise (the stream adds
+    # no arithmetic), and the plain version within TOL (the kernels at
+    # 8 x 1080x1920).
+    plain4 = dataclasses.replace(cfg4, backend="torch")
     require([c.u.shape[0] for c in chunks] == [8, 8], "flow_stream chunk sizes")
+    d_s = 0.0
     for k, c in enumerate(chunks):
-        ref = hs_solve_batched(vid_dev[8 * k:8 * k + 8], vid_dev[8 * k + 1:8 * k + 9], cfg4)
+        pairs = (vid_dev[8 * k:8 * k + 8], vid_dev[8 * k + 1:8 * k + 9])
+        ref = hs_solve_batched(*pairs, cfg4)
         require(bool(torch.equal(c.u, ref.u) and torch.equal(c.v, ref.v)),
                 f"flow_stream chunk {k} differs from hs_solve_batched")
+        d_s = max(d_s, max_flow_diff(c, hs_solve_batched(*pairs, plain4)))
+    require(d_s <= TOL, f"flow_stream kernel vs plain max|diff| {d_s}")
 
     def stream_all():
         for c in flow_stream(vid, cfg4, chunk=8):
@@ -385,7 +418,7 @@ def main() -> int:
 
     ms_s = median_ms(stream_all, runs=5)
     print(f"phase 8 C4 flow_stream 16 pairs 1080x1920 a=1 i100 s=8 chunk 8: chunks bitwise = "
-          f"hs_solve_batched; {ms_s:.3f} ms end to end from host frames "
+          f"hs_solve_batched, max|diff| vs plain {d_s:.3g}; {ms_s:.3f} ms end to end from host frames "
           f"({16 / ms_s * 1e3:.1f} pairs/s)")
 
     require(len(warm) == 16, "flow_stream_warm pair count")
@@ -407,10 +440,19 @@ def main() -> int:
     require(bool(np.isfinite(epes).all()) and epes[-1] < epes[0],
             f"warm stream EPE does not fall along the stream: {epes}")
 
+    # One window is one 16-image solve (both directions of 8 pairs): held
+    # against the plain version, flow within TOL and the mask equal.
     require(tuple(occ_mask.shape) == (8, 1080, 1920) and occ_mask.dtype == torch.bool
             and occ_flow.u.shape == (8, 1080, 1920), "flow_stream_occlusion shapes")
-    print(f"phase 8 C4 flow_stream_occlusion one window: 8 pairs, mask {tuple(occ_mask.shape)}, "
-          f"occluded share {float(occ_mask.float().mean()):.5f}")
+    plain_flow, plain_mask = next(flow_stream_occlusion(vid[:9], plain4, chunk=8, **occ))
+    d_o = max_flow_diff(occ_flow, plain_flow)
+    share = float(occ_mask.float().mean())
+    print(f"phase 8 C4 flow_stream_occlusion one window (16-image solve), {occ}: "
+          f"max|diff| vs plain {d_o:.3g}, mask {tuple(occ_mask.shape)} equal to plain's: "
+          f"{bool(torch.equal(occ_mask, plain_mask))}, occluded share {share:.5f}")
+    require(d_o <= TOL, f"flow_stream_occlusion kernel vs plain max|diff| {d_o}")
+    require(bool(torch.equal(occ_mask, plain_mask)), "occlusion mask differs from plain")
+    require(0.0 < share < 1.0, f"occlusion mask flags all or nothing: {share}")
 
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2

@@ -19,28 +19,13 @@ from typing import Optional, Sequence
 import torch
 
 from opticalflowhs_tpu_torch.config import HSConfig, PyramidConfig
-from opticalflowhs_tpu_torch.kernels.jacobi import (
-    jacobi_sweeps_batched,
-    jacobi_sweeps_batched_plain,
-)
-from opticalflowhs_tpu_torch.kernels.solve_resident import (
-    hs_solve_resident_batched,
-    hs_solve_resident_batched_plain,
-)
 from opticalflowhs_tpu_torch.pyramid import (
     gaussian_pyramid,
     upsample_flow,
     warp_bilinear,
     warp_bilinear_tiled,
 )
-from opticalflowhs_tpu_torch.solver import (
-    Flow,
-    as_frame,
-    check_supported,
-    precompute,
-    resolve_backend,
-    sweeps_until,
-)
+from opticalflowhs_tpu_torch.solver import Flow, as_frame, check_supported, solve_level
 
 
 def reject_unported(lk=None, tvl1=None, mesh=None) -> None:
@@ -56,34 +41,6 @@ def reject_unported(lk=None, tvl1=None, mesh=None) -> None:
             "mesh= (sharding over devices) comes with dist/, which is not "
             "ported yet (ROADMAP.md queue 1, item 12)"
         )
-
-
-def solve_level_batched(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig,
-                        iters: int) -> Flow:
-    """One zero-start solve of a (B, H, W) stack: `iters` sweeps, or with
-    cfg.tol > 0 `sweeps_until` under a budget of `iters`, each image
-    stopping on its own update. The batch twin of solver.solve_level."""
-    check_supported(cfg)
-    cuda = resolve_backend(cfg.backend, i1) == "cuda"
-    if cfg.tol > 0:
-        ex, ey, et, inv_den = precompute(i1, i2, cfg)
-
-        def run_block(u, v, n):
-            if cuda:
-                return jacobi_sweeps_batched(u, v, ex, ey, et, inv_den, n,
-                                             cfg.block_sweeps)
-            return jacobi_sweeps_batched_plain(u, v, ex, ey, et, inv_den, n)
-
-        z = torch.zeros_like(ex)
-        return sweeps_until(z, z, None, None, None, None, cfg, budget=iters,
-                            run_block=run_block)
-    if cuda:
-        out = hs_solve_resident_batched(i1, i2, cfg.alpha, iters,
-                                        cfg.deriv_variant, cfg.block_sweeps)
-    else:
-        out = hs_solve_resident_batched_plain(i1, i2, cfg.alpha, iters,
-                                              cfg.deriv_variant)
-    return Flow(*out)
 
 
 def _pyramid_batched(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig,
@@ -109,7 +66,7 @@ def _pyramid_batched(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig,
                 f2w = warp_bilinear(f2, flow.u, flow.v)
             else:
                 f2w = warp_bilinear_tiled(f2, flow.u, flow.v)
-        dflow = solve_level_batched(f1, f2w, cfg, iters[level])
+        dflow = solve_level(f1, f2w, cfg, iters[level])
         if flow is None:
             flow = dflow
         else:
@@ -142,7 +99,7 @@ def hs_solve_batched(
     i2 = as_frame(i2, i1.device)
     if pyr is not None and pyr.levels > 1:
         return _pyramid_batched(i1, i2, cfg, pyr)
-    return solve_level_batched(i1, i2, cfg, cfg.iters)
+    return solve_level(i1, i2, cfg, cfg.iters)
 
 
 def video_pairs(frames):

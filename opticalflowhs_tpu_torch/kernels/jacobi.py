@@ -8,9 +8,10 @@ CUDA source is csrc/jacobi.cu: one launch runs up to `sweeps_per_launch`
 sweeps on shared-memory tiles with a decaying halo, for one frame or for
 a whole (B, H, W) stack (the image is the grid's z index).
 
-`jacobi_sweeps` and `jacobi_sweeps_batched` launch the kernel for CUDA
-tensors and run the plain versions for CPU tensors. There is no fallback:
-a CUDA tensor goes through the kernel or the call raises.
+`jacobi_sweeps` (also named `jacobi_sweeps_batched`) takes either rank. It
+launches the kernel for CUDA tensors and runs the plain version for CPU
+tensors. There is no fallback: a CUDA tensor goes through the kernel or
+the call raises.
 """
 
 from __future__ import annotations
@@ -49,16 +50,12 @@ def sweeps_per_launch(block_sweeps: int = 0) -> int:
 
 
 def jacobi_sweeps_plain(u, v, ex, ey, et, inv_den, n: int):
-    """n plain Jacobi sweeps (ops/stencils.py), on (H, W) or (B, H, W)."""
+    """n plain Jacobi sweeps (ops/stencils.py), on (H, W) or (B, H, W); on a
+    stack each image on its own, as the reference's vmapped twin (the
+    stencils clamp per image)."""
     for _ in range(n):
         u, v = stencils.jacobi_step(u, v, ex, ey, et, inv_den)
     return u, v
-
-
-def jacobi_sweeps_batched_plain(u, v, ex, ey, et, inv_den, n: int):
-    """n plain Jacobi sweeps on a (B, H, W) stack: each image on its own,
-    as the reference's vmapped twin (the stencils clamp per image)."""
-    return jacobi_sweeps_plain(u, v, ex, ey, et, inv_den, n)
 
 
 def launch_sweeps(u, v, ex, ey, et, inv_den, uo, vo, sweeps: int) -> None:
@@ -100,37 +97,24 @@ def sweep_chain(u, v, ex, ey, et, inv_den, n: int, s: int,
     return src
 
 
-def _sweeps(name: str, ndim: int, plain, u, v, ex, ey, et, inv_den,
-            n_sweeps: int, block_sweeps: int):
-    check_frames(name, u, v, ex, ey, et, inv_den)
-    if u.ndim != ndim:
-        raise ValueError(f"{name}: expected {ndim}-D tensors, got {tuple(u.shape)}")
+def jacobi_sweeps(u, v, ex, ey, et, inv_den, n_sweeps: int,
+                  block_sweeps: int = 0):
+    """n Jacobi sweeps on (H, W) tensors or a (B, H, W) stack of independent
+    images: on CUDA tensors ceil(n/s) K2 launches (for the whole stack,
+    each image clamped at its own edges), `jacobi_sweeps_plain` on CPU
+    tensors. Returns (u, v); the inputs are not modified."""
+    check_frames("jacobi_sweeps", u, v, ex, ey, et, inv_den)
     if n_sweeps == 0:
         return u, v
     if u.device.type == "cpu":
-        return plain(u, v, ex, ey, et, inv_den, n_sweeps)
+        return jacobi_sweeps_plain(u, v, ex, ey, et, inv_den, n_sweeps)
     return sweep_chain(u, v, ex, ey, et, inv_den, n_sweeps,
                        sweeps_per_launch(block_sweeps))
 
 
-def jacobi_sweeps(u, v, ex, ey, et, inv_den, n_sweeps: int,
-                  block_sweeps: int = 0):
-    """n Jacobi sweeps on (H, W) tensors: K2 launches on CUDA tensors,
-    `jacobi_sweeps_plain` on CPU tensors. Returns (u, v); the inputs are
-    not modified."""
-    return _sweeps("jacobi_sweeps", 2, jacobi_sweeps_plain, u, v, ex, ey, et,
-                   inv_den, n_sweeps, block_sweeps)
-
-
-def jacobi_sweeps_batched(u, v, ex, ey, et, inv_den, n_sweeps: int,
-                          block_sweeps: int = 0):
-    """n Jacobi sweeps on a (B, H, W) stack of independent images: on CUDA
-    tensors ceil(n/s) K2 launches for the whole stack, each image clamped
-    at its own edges; `jacobi_sweeps_batched_plain` on CPU tensors.
-    Returns (u, v); the inputs are not modified."""
-    return _sweeps("jacobi_sweeps_batched", 3, jacobi_sweeps_batched_plain,
-                   u, v, ex, ey, et, inv_den, n_sweeps, block_sweeps)
-
-
 # Every K2 launch, single frame or batched, counts here.
 jacobi_sweeps.launches = 0
+
+# The reference's names for the batched sweeps: the same functions.
+jacobi_sweeps_batched = jacobi_sweeps
+jacobi_sweeps_batched_plain = jacobi_sweeps_plain

@@ -14,13 +14,14 @@ shared-memory tiles.
 
 Two u/v pairs ping-pong; nothing synchronises with the host. Unlike the
 TPU kernel, which returns None outside its VMEM residency class and for
-the central variant, this driver covers every 2-D float32 size and both
+the central variant, this driver covers every float32 size and both
 derivative variants.
 
-`hs_solve_resident_batched` is the port of the batched TPU kernel
-(`_resident_kernel_b`, grid (B,), zero start only): the same chain over a
-(B, H, W) stack, where each launch covers the whole stack, so a stack
-costs 1 K1 launch and ceil((n-1)/s) K2 launches, not B times that.
+The driver takes an (H, W) pair or a (B, H, W) stack. On a stack it is the
+port of the batched TPU kernel (`_resident_kernel_b`, grid (B,), which
+starts from zero only; `hs_solve_resident_batched` names it here): each
+launch covers the whole stack, so a stack costs 1 K1 launch and
+ceil((n-1)/s) K2 launches, not B times that.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ from opticalflowhs_tpu_torch.kernels.jacobi import (
 
 def hs_solve_resident_plain(i1, i2, alpha: float, n: int,
                             variant: str = "hs_cube", u0=None, v0=None):
-    """Plain version of the whole solve: derivatives, then n sweeps."""
+    """Plain version of the whole solve: derivatives, then n sweeps; on a
+    stack each image on its own (the stencils clamp per image)."""
     if u0 is None:
         if n == 0:
             return torch.zeros_like(i1), torch.zeros_like(i1)
@@ -52,48 +54,19 @@ def hs_solve_resident_plain(i1, i2, alpha: float, n: int,
     return jacobi_sweeps_plain(u0, v0, ex, ey, et, invd, n)
 
 
-def hs_solve_resident_batched_plain(i1, i2, alpha: float, n: int,
-                                    variant: str = "hs_cube"):
-    """Plain version of the batched zero-start solve: each image of the
-    (B, H, W) stack on its own (the stencils clamp per image)."""
-    return hs_solve_resident_plain(i1, i2, alpha, n, variant)
-
-
-def _check(name: str, ndim: int, n: int, *arrays) -> None:
-    check_frames(name, *arrays)
-    if arrays[0].ndim != ndim:
-        raise ValueError(f"{name}: expected {ndim}-D tensors, "
-                         f"got {tuple(arrays[0].shape)}")
-    if n < 0:
-        raise ValueError("n must be >= 0")
-
-
-def hs_solve_resident_batched(i1, i2, alpha: float, n: int,
-                              variant: str = "hs_cube", block_sweeps: int = 0):
-    """Zero-start HS solves of a (B, H, W) stack of pairs, as the
-    reference's batched resident kernel: K1 + K2 over the whole stack on
-    CUDA tensors, the plain version on CPU tensors. Returns (u, v)."""
-    _check("hs_solve_resident_batched", 3, n, i1, i2)
-    if i1.device.type == "cpu":
-        return hs_solve_resident_batched_plain(i1, i2, alpha, n, variant)
-    return _driver(i1, i2, alpha, n, variant, None, None, block_sweeps)
-
-
 def hs_solve_resident(i1, i2, alpha: float, n: int, variant: str = "hs_cube",
                       u0=None, v0=None, block_sweeps: int = 0):
-    """Whole HS solve (derivatives + n Jacobi sweeps) of an (H, W) pair,
-    from zero or from (u0, v0). K1 + K2 on CUDA tensors, the plain version
-    on CPU tensors. Returns (u, v)."""
+    """Whole HS solve (derivatives + n Jacobi sweeps) of an (H, W) pair or a
+    (B, H, W) stack of pairs, from zero or from (u0, v0). K1 + K2 on CUDA
+    tensors (one chain for the whole stack), the plain version on CPU
+    tensors. Returns (u, v)."""
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
-    _check("hs_solve_resident", 2, n, i1, i2, *(() if u0 is None else (u0, v0)))
+    check_frames("hs_solve_resident", i1, i2, *(() if u0 is None else (u0, v0)))
+    if n < 0:
+        raise ValueError("n must be >= 0")
     if i1.device.type == "cpu":
         return hs_solve_resident_plain(i1, i2, alpha, n, variant, u0, v0)
-    return _driver(i1, i2, alpha, n, variant, u0, v0, block_sweeps)
-
-
-def _driver(i1, i2, alpha, n, variant, u0, v0, block_sweeps):
-    """K1, then the K2 chain, on CUDA tensors of either rank."""
     s = sweeps_per_launch(block_sweeps)
     if u0 is None:
         if n == 0:
@@ -103,3 +76,8 @@ def _driver(i1, i2, alpha, n, variant, u0, v0, block_sweeps):
         return sweep_chain(u1, v1, ex, ey, et, invd, n - 1, s, owned=True)
     ex, ey, et, invd = hs_derivatives(i1, i2, alpha, variant)
     return sweep_chain(u0, v0, ex, ey, et, invd, n, s)
+
+
+# The reference's names for the batched solve: the same functions.
+hs_solve_resident_batched = hs_solve_resident
+hs_solve_resident_batched_plain = hs_solve_resident_plain

@@ -115,7 +115,8 @@ def precompute(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig):
 
 
 def sweeps(u, v, ex, ey, et, inv_den, n: int, cfg: HSConfig) -> Flow:
-    """n Jacobi sweeps: K2 launches on the cuda backend."""
+    """n Jacobi sweeps on (H, W) or (B, H, W): K2 launches on the cuda
+    backend."""
     check_supported(cfg)
     if n == 0:
         return Flow(u, v)
@@ -126,7 +127,7 @@ def sweeps(u, v, ex, ey, et, inv_den, n: int, cfg: HSConfig) -> Flow:
 
 
 def sweeps_until(u, v, ex, ey, et, inv_den, cfg: HSConfig,
-                 budget: Optional[int] = None, run_block=None) -> Flow:
+                 budget: Optional[int] = None) -> Flow:
     """Solve to tolerance (cfg.tol > 0), as the reference's sweeps_until:
     check blocks of b = block_sweeps (16 when 0) sweeps, b at most
     max(budget, 1), run while the next whole block fits the budget
@@ -140,14 +141,10 @@ def sweeps_until(u, v, ex, ey, et, inv_den, cfg: HSConfig,
     route stops the whole stack on the stack's max update; ROADMAP.md
     queue 3.)
 
-    `run_block(u, v, n) -> (u, v)` runs n sweeps; the default is `sweeps`
-    on the given fields. Reading the updates back costs one host
-    synchronisation per check block."""
+    Reading the updates back costs one host synchronisation per check
+    block."""
     check_supported(cfg)
     iters = cfg.iters if budget is None else budget
-    if run_block is None:
-        def run_block(uu, vv, nn):
-            return sweeps(uu, vv, ex, ey, et, inv_den, nn, cfg)
     b = cfg.block_sweeps if cfg.block_sweeps > 0 else 16
     b = min(b, max(iters, 1))
     delta = torch.full(u.shape[:-2], torch.finfo(u.dtype).max,
@@ -158,7 +155,7 @@ def sweeps_until(u, v, ex, ey, et, inv_den, cfg: HSConfig,
         n_active = int(active.sum())  # the host sync of this block
         if n_active == 0:
             break
-        nu, nv = run_block(u, v, b)
+        nu, nv = sweeps(u, v, ex, ey, et, inv_den, b, cfg)
         d = torch.maximum((nu - u).abs().amax(dim=(-2, -1)),
                           (nv - v).abs().amax(dim=(-2, -1)))
         if n_active == active.numel():
@@ -180,11 +177,13 @@ def solve_level(
     u0: Optional[torch.Tensor] = None,
     v0: Optional[torch.Tensor] = None,
 ) -> Flow:
-    """One solve of a 2-D pair, from zero or from (u0, v0): `iters` sweeps,
-    or with cfg.tol > 0 `sweeps_until` under a budget of `iters`.
+    """One solve of an (H, W) pair or a (B, H, W) stack of pairs, from zero
+    or from (u0, v0): `iters` sweeps, or with cfg.tol > 0 `sweeps_until`
+    under a budget of `iters` (on a stack each image stops on its own).
 
-    The cuda backend runs the whole-solve driver (K1, then K2 launches) at
-    every frame size and for both derivative variants; to tolerance, K1
+    The cuda backend runs the whole-solve driver (K1, then K2 launches, one
+    chain for a whole stack) at every frame size and for both derivative
+    variants; to tolerance, K1
     once and then K2 check blocks (the reference's resident-blocked route
     re-derives the fields per block, with identical values). The torch
     backend runs the plain ops. Both compute the same sweeps in the same

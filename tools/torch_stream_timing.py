@@ -5,15 +5,14 @@
 
 Imports opticalflowhs_tpu_torch from DIR (default: this checkout), so two
 trees can be compared in one session on one card (run them in turns:
-A, B, B, A). Works on the cells of chip_smoke.py:
-  * C2: hs_solve_batched, 8 pairs of uniform noise at 1088x1920
-    (default_rng(0)), configs/c2_video_batch.json (alpha 1, 100 sweeps);
-  * C4: the 17-frame 1080x1920 synthetic pan (tx 1, ty 0.5) as host numpy
-    frames, configs/c4_hd_streaming.json (alpha 1, 100 sweeps, s = 8),
-    chunk 8: staging the windows alone (host copies and H2D, no solve),
-    flow_stream, and flow_stream_warm with the warp prior at 25 sweeps.
-Each time is the median over N runs of the host clock around a call that
-ends in torch.cuda.synchronize(), after two warm-up calls.
+A, B, B, A). The cells are chip_smoke.py's, taken from this checkout:
+  * C2: hs_solve_batched on `c2_stack` (8 pairs of noise at 1088x1920),
+    configs/c2_video_batch.json;
+  * C4: `c4_video` (the 17-frame 1080x1920 pan) as host numpy frames,
+    configs/c4_hd_streaming.json, chunk 8: staging the windows alone (host
+    copies and H2D, no solve), flow_stream, and flow_stream_warm with the
+    warp prior at 25 sweeps.
+Each time is chip_smoke.median_ms over N runs.
 
 With --profile it also traces one call of each with torch.profiler and
 reports wall time, device time of kernels and of copies, and the busy
@@ -27,29 +26,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent.parent
-
-
-def median_ms(fn, runs: int) -> float:
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+sys.path.insert(0, str(HERE))
+import chip_smoke  # noqa: E402  (the cells; it imports the port only when called)
 
 
 def profile(fn) -> dict:
@@ -97,20 +82,13 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import opticalflowhs_tpu_torch as p
     from opticalflowhs_tpu_torch import video
-    from opticalflowhs_tpu_torch.data.synthetic import synthetic_sequence
-
-    def config(name):
-        d = json.loads((HERE / "configs" / name).read_text())
-        return p.from_reference(d["hs"])
 
     dev = torch.device("cuda", 0)
-    cfg2 = config("c2_video_batch.json")
-    cfg4 = config("c4_hd_streaming.json")
+    cfg2 = chip_smoke.cell_config("c2_video_batch.json")
+    cfg4 = chip_smoke.cell_config("c4_hd_streaming.json")
     cfg4w = dataclasses.replace(cfg4, iters=25)
-    rng = np.random.default_rng(0)
-    c2a, c2b = (torch.from_numpy(rng.uniform(0, 1, (8, 1088, 1920)).astype(np.float32)).to(dev)
-                for _ in range(2))
-    vid, _ = synthetic_sequence(17, 1080, 1920, tx=1.0, ty=0.5)
+    c2a, c2b = chip_smoke.c2_stack(dev)
+    vid, _ = chip_smoke.c4_video()
 
     def c2():
         p.hs_solve_batched(c2a, c2b, cfg2)
@@ -130,14 +108,10 @@ def main() -> int:
     calls = {"c2_batched_8": c2, "c4_stage_windows": stage, "c4_flow_stream": stream,
              "c4_flow_stream_warm": warm}
     out = {"repo": args.repo, "runs": args.runs,
-           "median_ms": {k: median_ms(fn, args.runs) for k, fn in calls.items()}}
+           "median_ms": {k: chip_smoke.median_ms(fn, args.runs) for k, fn in calls.items()}}
     if args.profile:
         out["profile"] = {k: profile(fn) for k, fn in calls.items()}
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(card)
+    print(chip_smoke.card_line())
     print(json.dumps(out))
     return 0
 
