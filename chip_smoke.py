@@ -14,16 +14,24 @@ each ran through the kernels:
   phase 8:    config 4 (configs/c4_hd_streaming.json) on a 17-frame 1080p
               video: flow_stream (8-image solves), flow_stream_warm with
               the warp prior, flow_stream_occlusion (a 16-image solve),
-              each against the plain version.
+              each against the plain version;
+  phase 9:    K3 (4-color SOR) and K4 (IRLS freeze and sweeps) against
+              their plain versions, 67x93 and 1088x1920, B 1 and 3;
+  phase 10:   SOR at full size: hs_solve 1088x1920 i50, tune_omega,
+              hs_pyramid 1080p L3, SOR i50 against Jacobi i50 and i400 in
+              EPE, hs_solve_batched 4 x 1080p;
+  phase 11:   robust at full size: hs_solve 1088x1920 i100, and the 1080p
+              two-motion seam against classic HS.
 Every phase checks what it measures and any failure exits non-zero.
 Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
 Output: one line of numbers per phase; then, on lines of their own, the
 card's name and power limit as nvidia-smi gives them, and a JSON object
-{"kernels": [...]} (per kernel: launches on the batched path, max |diff|
-against the plain version, ms per launch for the kernel and the plain
-version at 8 x 1088x1920, and the least time the card could take); the
-last line is {"ok": true, "device": {...}}.
+{"kernels": [...]} (per kernel: launches on the batched path for K1 and
+K2, on the SOR and robust path for K3 and K4, max |diff| against the plain
+version, ms per launch for the kernel and the plain version at
+8 x 1088x1920, and the least time the card could take); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -58,6 +66,14 @@ PEAK_FLOPS = 67e12
 # the update).
 K1_FLOPS_PER_PX = 36
 K2_FLOPS_PER_PX_SWEEP = 39
+# K3 per sweep: one SOR update a pixel (its color's stage): K2's 39 and the
+# blend, 3 for each of u and v. K4 freeze: 8 for wd, 14 for ws (an rsqrt
+# counted as one). K4 per sweep: 8 edge weights, 3 for their sum, 14 for
+# the two neighbour sums, 25 for the 2x2 solve (one division).
+K3_FLOPS_PER_PX_SWEEP = 45
+K4_FREEZE_FLOPS_PER_PX = 22
+K4_FLOPS_PER_PX_SWEEP = 52
+OMEGA = 1.71  # the SOR workloads' omega, as tools/hw_sor_resident_ab.py
 
 
 def require(cond: bool, what: str) -> None:
@@ -106,7 +122,8 @@ def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
 
 
 def max_flow_diff(a, b) -> float:
-    return max(max_diff(a.u, b.u), max_diff(a.v, b.v))
+    """Max |diff| over the two fields of two (u, v) pairs or Flows."""
+    return max(max_diff(a[0], b[0]), max_diff(a[1], b[1]))
 
 
 def card_line() -> str:
@@ -137,6 +154,206 @@ def c4_video():
     1080x1920 pan by (1, 0.5) px a frame."""
     from opticalflowhs_tpu_torch.data.synthetic import synthetic_sequence
     return synthetic_sequence(17, 1080, 1920, tx=1.0, ty=0.5)
+
+
+def sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack) -> tuple[dict, dict]:
+    """Phases 9-11: K3 and K4 against their plain versions, then the SOR
+    and robust paths at full size, counted. Returns (max |diff| per kernel,
+    launches per kernel on the counted path)."""
+    from opticalflowhs_tpu_torch import (
+        HSConfig,
+        PyramidConfig,
+        hs_pyramid,
+        hs_solve,
+        hs_solve_batched,
+        robust,
+    )
+    from opticalflowhs_tpu_torch.data.synthetic import translation_pair, two_motion_pair
+    from opticalflowhs_tpu_torch.kernels import derivatives as k1
+    from opticalflowhs_tpu_torch.kernels import solve_resident as sr
+    from opticalflowhs_tpu_torch.kernels import solve_robust as k4
+    from opticalflowhs_tpu_torch.kernels import sor as k3
+    from opticalflowhs_tpu_torch.metrics import epe, interior
+    from opticalflowhs_tpu_torch.solver import tune_omega
+
+    err = {"hs_sor_sweeps": 0.0, "hs_robust_freeze": 0.0, "hs_robust_sweeps": 0.0}
+
+    def note(name, d, what):
+        err[name] = max(err[name], d)
+        require(d <= TOL, f"{what}: max|diff| {d}")
+
+    # -- phase 9: K3 and K4 against their plain versions ----------------------
+    for h, w in ((67, 93), (1088, 1920)):
+        for b in (1, 3):
+            i1, i2 = stack(b, h, w, seed=30)
+            u0, v0 = stack(b, h, w, seed=31, normal=True)
+            z = torch.zeros_like(u0)
+            for variant in ("hs_cube", "central"):
+                ex, ey, et, invd = k1.derivatives_plain(i1, i2, 0.5, variant)
+                for start, uv in (("warm", (u0, v0)), ("zero", (z, z))):
+                    d3 = 0.0
+                    for n, s in ((7, 0), (9, 2)):  # n not a multiple of s
+                        got = k3.sor_sweeps(*uv, ex, ey, et, invd, n, OMEGA, block_sweeps=s)
+                        d3 = max(d3, max_flow_diff(got, k3.sor_sweeps_plain(
+                            *uv, ex, ey, et, invd, n, OMEGA)))
+                    note("hs_sor_sweeps", d3, f"K3 {b}x{h}x{w} {variant} {start}")
+                    dfz = max_flow_diff(k4.freeze_weights(*uv, ex, ey, et, 0.05, 0.01),
+                                        robust.charbonnier_weights(*uv, ex, ey, et, 0.05, 0.01))
+                    note("hs_robust_freeze", dfz, f"K4 freeze {b}x{h}x{w} {variant} {start}")
+                    d4 = 0.0
+                    for k in (1, 5, 20):  # 13 sweeps: every sweep, odd k crossing, k > n
+                        cfg = HSConfig(alpha=0.3, iters=13, solver="robust",
+                                       robust_update_every=k)
+                        d4 = max(d4, max_flow_diff(k4.robust_sweeps(*uv, ex, ey, et, 13, cfg),
+                                                   robust.robust_sweeps(*uv, ex, ey, et, 13, cfg)))
+                    note("hs_robust_sweeps", d4, f"K4 IRLS {b}x{h}x{w} {variant} {start}")
+                    print(f"phase 9 B={b} {h}x{w} {variant} {start}: K3 n=7,9 s=4,2 {d3:.3g}; "
+                          f"K4 freeze {dfz:.3g}; K4 IRLS 13 sweeps k=1,5,20 {d4:.3g}")
+            for start, init in (("zero", (None, None)), ("warm", (u0, v0))):
+                d = max_flow_diff(sr.hs_solve_resident_sor(i1, i2, 0.5, 11, OMEGA, "hs_cube", *init),
+                                  sr.hs_solve_resident_sor_plain(i1, i2, 0.5, 11, OMEGA,
+                                                                 "hs_cube", *init))
+                note("hs_sor_sweeps", d, f"SOR driver {b}x{h}x{w} {start}")
+                cfg = HSConfig(alpha=0.3, iters=13, solver="robust", robust_update_every=5)
+                dr = max_flow_diff(k4.hs_solve_robust_resident(i1, i2, cfg, *init),
+                                   k4.hs_solve_robust_resident_plain(i1, i2, cfg, *init))
+                note("hs_robust_sweeps", dr, f"IRLS driver {b}x{h}x{w} {start}")
+                print(f"phase 9 drivers B={b} {h}x{w} {start}: SOR n=11 {d:.3g}; "
+                      f"IRLS n=13 k=5 {dr:.3g}")
+
+    # -- the SOR and robust path, counted ---------------------------------------
+    cfg_sor = HSConfig(alpha=0.5, iters=50, solver="sor", omega=OMEGA)
+    cfg_rob = HSConfig(alpha=0.25, iters=100, solver="robust", robust_update_every=20)
+    pyr3 = PyramidConfig(levels=3)
+    counters = {"hs_derivatives": k1.hs_derivatives, "hs_sor_sweeps": k3.sor_sweeps,
+                "hs_robust_freeze": k4.freeze_weights, "hs_robust_sweeps": k4.frozen_sweeps}
+
+    def zero_counts():
+        for c in counters.values():
+            c.launches = 0
+
+    def counts():
+        return {n: c.launches for n, c in counters.items()}
+
+    torch.cuda.synchronize()
+    zero_counts()
+    f_sor = hs_solve(s1, s2, cfg_sor)
+    f_pyr = hs_pyramid(p1, p2, cfg_sor, pyr3)
+    f_bat = hs_solve_batched(pa, pb, cfg_sor)
+    f_rob = hs_solve(s1, s2, cfg_rob)
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"SOR and robust path launches (hs_solve SOR, hs_pyramid SOR, "
+          f"hs_solve_batched SOR, hs_solve robust): {launches}")
+    require(all(n > 0 for n in launches.values()), f"a kernel never ran: {launches}")
+
+    def plain(cfg):
+        return dataclasses.replace(cfg, backend="torch")
+
+    # -- phase 10: SOR at full size ------------------------------------------------
+    for f, shape in ((f_sor, (1088, 1920)), (f_pyr, (1080, 1920)), (f_bat, (4, 1080, 1920))):
+        for a in f:
+            require(tuple(a.shape) == shape and bool(torch.isfinite(a).all()),
+                    f"SOR output shape/finite {shape}")
+    d = max_flow_diff(f_sor, hs_solve(s1, s2, plain(cfg_sor)))
+    note("hs_sor_sweeps", d, "hs_solve SOR kernel vs plain")
+    zero_counts()
+    hs_solve(s1, s2, cfg_sor)
+    n_sor = counts()
+    ms_k = median_ms(lambda: hs_solve(s1, s2, cfg_sor))
+    ms_p = median_ms(lambda: hs_solve(s1, s2, plain(cfg_sor)), runs=5)
+    print(f"phase 10 hs_solve SOR 1088x1920 a=0.5 i50 omega {OMEGA}: max|diff|={d:.3g} "
+          f"launches K1={n_sor['hs_derivatives']} K3={n_sor['hs_sor_sweeps']} "
+          f"kernel {ms_k:.3f} ms plain {ms_p:.3f} ms")
+    require(n_sor["hs_derivatives"] == 1 and n_sor["hs_sor_sweeps"] == -(-50 // k3.sweeps_per_launch()),
+            f"hs_solve SOR launches {n_sor}")
+
+    t0 = time.perf_counter()
+    om_k = tune_omega(s1, s2, HSConfig(alpha=0.5))
+    ms_om = (time.perf_counter() - t0) * 1e3
+    om_p = tune_omega(s1, s2, HSConfig(alpha=0.5, backend="torch"))
+    print(f"phase 10 tune_omega 1088x1920 a=0.5: cuda {om_k} ({ms_om:.3f} ms) plain {om_p}")
+    require(om_k == om_p, f"tune_omega differs: cuda {om_k} plain {om_p}")
+
+    d = max_flow_diff(f_pyr, hs_pyramid(p1, p2, plain(cfg_sor), pyr3))
+    note("hs_sor_sweeps", d, "hs_pyramid SOR kernel vs plain")
+    ms_k = median_ms(lambda: hs_pyramid(p1, p2, cfg_sor, pyr3))
+    ms_p = median_ms(lambda: hs_pyramid(p1, p2, plain(cfg_sor), pyr3), runs=5)
+    print(f"phase 10 hs_pyramid SOR 1080x1920 L3 a=0.5 i50: max|diff|={d:.3g} "
+          f"kernel {ms_k:.3f} ms plain {ms_p:.3f} ms")
+
+    t1, t2, gt = translation_pair(1088, 1920, 0.7, -0.3, key=5)
+    t1 = torch.from_numpy(t1).to(dev)
+    t2 = torch.from_numpy(t2).to(dev)
+    gtc = interior(gt, 16)
+    tte = {}
+    for tag, cfg in (("SOR i50", HSConfig(alpha=0.25, iters=50, solver="sor", omega=OMEGA)),
+                     ("Jacobi i50", HSConfig(alpha=0.25, iters=50)),
+                     ("Jacobi i400", HSConfig(alpha=0.25, iters=400))):
+        f = hs_solve(t1, t2, cfg)
+        fl = np.stack([f.u.cpu().numpy(), f.v.cpu().numpy()], axis=-1)
+        tte[tag] = (epe(interior(fl, 16), gtc), median_ms(lambda: hs_solve(t1, t2, cfg), runs=10))
+    print("phase 10 time to EPE, translation_pair 1088x1920 (0.7, -0.3) a=0.25: "
+          + "; ".join(f"{t} EPE {e:.6f} {ms:.3f} ms" for t, (e, ms) in tte.items()))
+    require(tte["SOR i50"][0] < tte["Jacobi i50"][0], f"SOR i50 EPE not below Jacobi i50: {tte}")
+
+    d = max_flow_diff(f_bat, hs_solve_batched(pa, pb, plain(cfg_sor)))
+    note("hs_sor_sweeps", d, "hs_solve_batched SOR kernel vs plain")
+    zero_counts()
+    hs_solve_batched(pa, pb, cfg_sor)
+    n_bat = counts()
+    ms_k = median_ms(lambda: hs_solve_batched(pa, pb, cfg_sor))
+    print(f"phase 10 hs_solve_batched SOR 4 x 1080x1920 a=0.5 i50: max|diff|={d:.3g} "
+          f"launches K1={n_bat['hs_derivatives']} K3={n_bat['hs_sor_sweeps']} "
+          f"kernel {ms_k:.3f} ms ({4 / ms_k * 1e3:.1f} pairs/s)")
+    require(n_bat["hs_derivatives"] == 1 and n_bat["hs_sor_sweeps"] == n_sor["hs_sor_sweeps"],
+            f"batched SOR launches per stack {n_bat}")
+
+    # -- phase 11: robust at full size -----------------------------------------------
+    for a in f_rob:
+        require(tuple(a.shape) == (1088, 1920) and bool(torch.isfinite(a).all()),
+                "robust output shape/finite")
+    d = max_flow_diff(f_rob, hs_solve(s1, s2, plain(cfg_rob)))
+    note("hs_robust_sweeps", d, "hs_solve robust kernel vs plain")
+    zero_counts()
+    hs_solve(s1, s2, cfg_rob)
+    n_rob = counts()
+    ms_k = median_ms(lambda: hs_solve(s1, s2, cfg_rob))
+    ms_p = median_ms(lambda: hs_solve(s1, s2, plain(cfg_rob)), runs=5)
+    blocks = robust.refreeze_blocks(100, 20)
+    want = (1, len(blocks), sum(-(-m // k4.sweeps_per_launch()) for m in blocks))
+    got = (n_rob["hs_derivatives"], n_rob["hs_robust_freeze"], n_rob["hs_robust_sweeps"])
+    print(f"phase 11 hs_solve robust 1088x1920 a=0.25 i100 k=20: max|diff|={d:.3g} "
+          f"launches K1={got[0]} K4 freeze={got[1]} K4 sweeps={got[2]} "
+          f"kernel {ms_k:.3f} ms plain {ms_p:.3f} ms")
+    require(got == want, f"robust launches {got}, expected {want}")
+
+    m1, m2, gt = two_motion_pair(1088, 1920, (1.0, 0.0), (-1.0, 0.0), key=3)
+    m1 = torch.from_numpy(m1).to(dev)
+    m2 = torch.from_numpy(m2).to(dev)
+    band = np.zeros((1088, 1920), bool)
+    band[8:-8, 1920 // 2 - 8:1920 // 2 + 8] = True
+    inner = np.zeros((1088, 1920), bool)
+    inner[8:-8, 8:-8] = True
+    seam = {}
+    for tag, cfg in (("classic i400", HSConfig(alpha=0.1, iters=400)),
+                     ("robust i400", HSConfig(alpha=0.1, iters=400, solver="robust",
+                                              robust_eps_s=0.01))):
+        f = hs_solve(m1, m2, cfg)
+        dp = max_flow_diff(f, hs_solve(m1, m2, plain(cfg)))
+        if cfg.solver == "robust":
+            note("hs_robust_sweeps", dp, f"seam {tag} kernel vs plain")
+        require(dp <= TOL, f"seam {tag} kernel vs plain max|diff| {dp}")
+        fl = np.stack([f.u.cpu().numpy(), f.v.cpu().numpy()], axis=-1)
+        e = np.sqrt(((fl - gt) ** 2).sum(-1))
+        seam[tag] = (float(e[inner].mean()), float(e[band].mean()), dp,
+                     median_ms(lambda: hs_solve(m1, m2, cfg), runs=5))
+    print("phase 11 seam two_motion_pair 1088x1920 (1,0)|(-1,0) a=0.1: "
+          + "; ".join(f"{t} EPE interior {a:.4f} seam band {b:.4f} vs plain {dp:.3g} {ms:.3f} ms"
+                      for t, (a, b, dp, ms) in seam.items()))
+    require(seam["robust i400"][1] < seam["classic i400"][1],
+            f"robust seam-band EPE not below classic: {seam}")
+    return err, launches
 
 
 def main() -> int:
@@ -454,49 +671,105 @@ def main() -> int:
     require(bool(torch.equal(occ_mask, plain_mask)), "occlusion mask differs from plain")
     require(0.0 < share < 1.0, f"occlusion mask flags all or nothing: {share}")
 
+    # -- phases 9-11: SOR and robust -----------------------------------------------
+    err_sr, launches_sr = sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack)
+    err.update(err_sr)
+
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2
     fields = k1.derivatives_plain(i1, i2, 0.5)
-    z = torch.zeros_like(i1)
+    # Two buffers, so that u and v are read from distinct memory as on the
+    # solve path.
+    zu, zv = torch.zeros_like(i1), torch.zeros_like(i1)
     ms2d = {
         "hs_derivatives": (
             event_ms(lambda: k1.hs_derivatives(i1, i2, 0.5, zero_sweep=True)),
             event_ms(lambda: k1.derivatives_plain(i1, i2, 0.5, zero_sweep=True)),
         ),
         "hs_jacobi_sweeps": (
-            event_ms(lambda: k2.jacobi_sweeps(z, z, *fields, auto)),
-            event_ms(lambda: k2.jacobi_sweeps_plain(z, z, *fields, auto)),
+            event_ms(lambda: k2.jacobi_sweeps(zu, zv, *fields, auto)),
+            event_ms(lambda: k2.jacobi_sweeps_plain(zu, zv, *fields, auto)),
         ),
     }
+    from opticalflowhs_tpu_torch import robust
+    from opticalflowhs_tpu_torch.kernels import solve_robust as k4
+    from opticalflowhs_tpu_torch.kernels import sor as k3
+    s3 = k3.sweeps_per_launch()
+    s4 = k4.sweeps_per_launch()
+
+    def sor_robust_timing(a, b, reps_plain):
+        """ms per launch of K3 (s3 sweeps), K4 freeze and K4 sweeps (s4
+        sweeps), kernel and plain, on the frames (a, b)."""
+        ex, ey, et, invd = k1.derivatives_plain(a, b, 0.5)
+        u, v = torch.zeros_like(a), torch.zeros_like(a)
+        wd, ws = robust.charbonnier_weights(u, v, ex, ey, et, 0.05, 0.05)
+
+        def plain_sweeps():
+            uv = (u, v)
+            for _ in range(s4):
+                uv = robust.robust_step(*uv, ex, ey, et, wd, ws, 0.25)
+            return uv
+
+        return {
+            "hs_sor_sweeps": (
+                event_ms(lambda: k3.sor_sweeps(u, v, ex, ey, et, invd, s3, OMEGA)),
+                event_ms(lambda: k3.sor_sweeps_plain(u, v, ex, ey, et, invd, s3, OMEGA),
+                         reps=reps_plain)),
+            "hs_robust_freeze": (
+                event_ms(lambda: k4.freeze_weights(u, v, ex, ey, et, 0.05, 0.05)),
+                event_ms(lambda: robust.charbonnier_weights(u, v, ex, ey, et, 0.05, 0.05),
+                         reps=reps_plain)),
+            "hs_robust_sweeps": (
+                event_ms(lambda: k4.frozen_sweeps(u, v, ex, ey, et, wd, ws, 0.25, s4)),
+                event_ms(plain_sweeps, reps=reps_plain)),
+        }
+
+    def sor_robust_bounds(px):
+        return {
+            "hs_sor_sweeps": bound_ms(8 * 4 * px, K3_FLOPS_PER_PX_SWEEP * s3 * px),
+            "hs_robust_freeze": bound_ms(7 * 4 * px, K4_FREEZE_FLOPS_PER_PX * px),
+            "hs_robust_sweeps": bound_ms(9 * 4 * px, K4_FLOPS_PER_PX_SWEEP * s4 * px),
+        }
+
+    ms2d.update(sor_robust_timing(i1, i2, 20))
+    bounds2d = sor_robust_bounds(i1.numel())
+    per_launch = {"hs_jacobi_sweeps": auto, "hs_sor_sweeps": s3, "hs_robust_sweeps": s4}
     for name, (t_k, t_p) in ms2d.items():
         print(f"kernel {name} 1088x1920: {t_k:.4f} ms per launch, plain {t_p:.4f} ms"
-              + (f" ({auto} sweeps per launch)" if name == "hs_jacobi_sweeps" else ""))
+              + (f", bound {bounds2d[name][0]:.4f} ms ({bounds2d[name][1]})"
+                 if name in bounds2d else "")
+              + (f" ({per_launch[name]} sweeps per launch)" if name in per_launch else ""))
 
     # -- per-kernel times on the C2 stack, 8 x 1088x1920 ------------------------
     px = c2a.numel()
     fields = k1.derivatives_plain(c2a, c2b, 1.0)
-    z = torch.zeros_like(c2a)
+    zu, zv = torch.zeros_like(c2a), torch.zeros_like(c2a)
     ms = {
         "hs_derivatives": (
             event_ms(lambda: k1.hs_derivatives(c2a, c2b, 1.0, zero_sweep=True)),
             event_ms(lambda: k1.derivatives_plain(c2a, c2b, 1.0, zero_sweep=True)),
         ),
         "hs_jacobi_sweeps": (
-            event_ms(lambda: k2.jacobi_sweeps_batched(z, z, *fields, auto)),
-            event_ms(lambda: k2.jacobi_sweeps_batched_plain(z, z, *fields, auto), reps=5),
+            event_ms(lambda: k2.jacobi_sweeps_batched(zu, zv, *fields, auto)),
+            event_ms(lambda: k2.jacobi_sweeps_batched_plain(zu, zv, *fields, auto), reps=5),
         ),
     }
+    ms.update(sor_robust_timing(c2a, c2b, 3))
     bounds = {
         "hs_derivatives": bound_ms(8 * 4 * px, K1_FLOPS_PER_PX * px),
         "hs_jacobi_sweeps": bound_ms(8 * 4 * px, K2_FLOPS_PER_PX_SWEEP * auto * px),
+        **sor_robust_bounds(px),
     }
     for name, (t_k, t_p) in ms.items():
         print(f"kernel {name} {bsz}x1088x1920: {t_k:.4f} ms per launch, plain {t_p:.4f} ms, "
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})"
-              + (f" ({auto} sweeps per launch)" if name == "hs_jacobi_sweeps" else ""))
+              + (f" ({per_launch[name]} sweeps per launch)" if name in per_launch else ""))
 
     source = {"hs_derivatives": "opticalflowhs_tpu_torch/csrc/derivatives.cu",
-              "hs_jacobi_sweeps": "opticalflowhs_tpu_torch/csrc/jacobi.cu"}
+              "hs_jacobi_sweeps": "opticalflowhs_tpu_torch/csrc/jacobi.cu",
+              "hs_sor_sweeps": "opticalflowhs_tpu_torch/csrc/sor.cu",
+              "hs_robust_freeze": "opticalflowhs_tpu_torch/csrc/robust.cu",
+              "hs_robust_sweeps": "opticalflowhs_tpu_torch/csrc/robust.cu"}
     replaces = {
         "hs_derivatives": ["opticalflowhs_tpu/kernels/derivatives.py:40",
                            "opticalflowhs_tpu/kernels/solve_resident.py:161",
@@ -507,14 +780,26 @@ def main() -> int:
                              "opticalflowhs_tpu/kernels/jacobi.py:631",
                              "opticalflowhs_tpu/kernels/solve_resident.py:161",
                              "opticalflowhs_tpu/kernels/solve_resident.py:394"],
+        "hs_sor_sweeps": ["opticalflowhs_tpu/kernels/sor.py:59",
+                          "opticalflowhs_tpu/kernels/sor.py:113",
+                          "opticalflowhs_tpu/kernels/solve_resident.py:161"],
+        "hs_robust_freeze": ["opticalflowhs_tpu/kernels/solve_robust.py:92"],
+        "hs_robust_sweeps": ["opticalflowhs_tpu/kernels/solve_robust.py:92"],
     }
+    # `launches`: K1 and K2 on the batched path (C2, its pyramid, the C4
+    # streams), K3 and K4 on the SOR and robust path; K1 and K2 also on the
+    # main path (C1 + C3) and K1 on the SOR and robust path.
+    launches_b.update({n: launches_sr[n] for n in launches_sr if n != "hs_derivatives"})
+    extra = {"hs_derivatives": {"launches_main_path": launches["hs_derivatives"],
+                                "launches_sor_robust_path": launches_sr["hs_derivatives"]},
+             "hs_jacobi_sweeps": {"launches_main_path": launches["hs_jacobi_sweeps"]}}
     kernels = [
         {"name": name, "route": "cuda", "source": source[name],
          "replaces": replaces[name], "launches": launches_b[name],
-         "launches_main_path": launches[name],
+         **extra.get(name, {}),
          "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
-        for name in ("hs_derivatives", "hs_jacobi_sweeps")
+        for name in source
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

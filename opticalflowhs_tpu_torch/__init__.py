@@ -7,10 +7,12 @@ the reference's:
 
   config        HSConfig, PyramidConfig, from_reference
   ops/          plain PyTorch stencils (the versions the kernels are held to)
-  kernels/      K1 derivatives and K2 Jacobi sweeps (CUDA C++ in csrc/),
-                the whole-solve driver, the nvcc build
+  kernels/      K1 derivatives, K2 Jacobi sweeps, K3 4-color SOR sweeps,
+                K4 IRLS freeze and sweeps (CUDA C++ in csrc/), the
+                whole-solve drivers, the nvcc build
   solver        Flow, hs_solve, solve_level, precompute, sweeps,
-                sweeps_until (solve to tolerance)
+                sweeps_until (solve to tolerance), tune_omega (SOR)
+  robust        the plain Charbonnier IRLS solver (solver="robust")
   pyramid       hs_pyramid, downsample, flow upsampling, warps
   batch         hs_solve_batched on (B, H, W) stacks, the batched pyramid
   consistency   forward-backward test, flow_with_occlusion

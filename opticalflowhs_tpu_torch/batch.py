@@ -3,9 +3,10 @@ opticalflowhs_tpu/batch.py (config 2: batched HS over a video).
 
 The batch axis is pure data parallelism. On the cuda backend a stack runs
 as one chain of launches for the whole stack: K1 over (B, H, W), then the
-K2 sweep launches, each image clamped at its own edges (the Hopper
-counterpart of the reference's batched resident kernel and batched banded
-sweeps). On the torch backend the plain ops run on the stack; the stencils
+K2 (Jacobi), K3 (SOR) or K4 (IRLS) launches, each image clamped at its own
+edges (the Hopper counterpart of the reference's batched resident kernel
+and batched banded sweeps; for SOR and IRLS, of its vmapped single-pair
+solve). On the torch backend the plain ops run on the stack; the stencils
 act on the last two axes, so each image is solved on its own.
 
 Sharding a stack over a device mesh (`mesh=`) belongs with `dist/`, which
@@ -22,6 +23,7 @@ from opticalflowhs_tpu_torch.config import HSConfig, PyramidConfig
 from opticalflowhs_tpu_torch.pyramid import (
     gaussian_pyramid,
     upsample_flow,
+    warp,
     warp_bilinear,
     warp_bilinear_tiled,
 )
@@ -45,12 +47,14 @@ def reject_unported(lk=None, tvl1=None, mesh=None) -> None:
 
 def _pyramid_batched(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig,
                      pyr: PyramidConfig) -> Flow:
-    """The reference's batched pyramid (`_batched_pyramid_impl`, its
-    batched-kernel route): batch-aware per-level ops, a batched zero-start
-    residual solve per level. Like that route it warps with the gather
-    when pyr.warp == "gather" and otherwise with the tiled warp at R = 4,
-    each image with its own tile means; "checked" and warp_radius are
-    not read."""
+    """The reference's batched pyramid (`_batched_pyramid_impl`):
+    batch-aware per-level ops, a batched zero-start residual solve per
+    level. For Jacobi it follows the reference's batched-kernel route,
+    which warps with the gather when pyr.warp == "gather" and otherwise
+    with the tiled warp at R = 4, each image with its own tile means, and
+    reads neither "checked" nor warp_radius. For the other solvers the
+    reference vmaps the single-pair body, so each image is warped by
+    `pyramid.warp` with pyr.warp and pyr.warp_radius."""
     p1 = gaussian_pyramid(i1, pyr.levels)
     p2 = gaussian_pyramid(i2, pyr.levels)
     iters: Sequence[int] = pyr.iters_per_level or (cfg.iters,) * pyr.levels
@@ -62,7 +66,11 @@ def _pyramid_batched(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig,
             f2w = f2
         else:
             flow = upsample_flow(flow, f1.shape[-2:])
-            if pyr.warp == "gather":
+            if cfg.solver != "jacobi":
+                f2w = torch.stack([
+                    warp(f2[k], flow.u[k], flow.v[k], pyr.warp, pyr.warp_radius)
+                    for k in range(f2.shape[0])])
+            elif pyr.warp == "gather":
                 f2w = warp_bilinear(f2, flow.u, flow.v)
             else:
                 f2w = warp_bilinear_tiled(f2, flow.u, flow.v)
@@ -87,10 +95,17 @@ def hs_solve_batched(
 
     Torch tensors stay on their device; numpy stacks go to `device`
     (cuda:0 when None; RuntimeError without CUDA, so the CPU runs only by
-    `device="cpu"` or CPU tensors)."""
+    `device="cpu"` or CPU tensors). SOR's omega == 0 ("auto") is for
+    single pairs only: tune it with `solver.tune_omega` on a representative
+    pair and pass the result."""
     reject_unported(mesh=mesh)
     if i1.ndim != 3:
         raise ValueError(f"expected (B, H, W) frame stacks, got {tuple(i1.shape)}")
+    if cfg.solver == "sor" and cfg.omega == 0.0:
+        raise ValueError(
+            "omega=0 (auto) is single-pair only: call solver.tune_omega on "
+            "a representative pair and pass the result"
+        )
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs "
                          f"{tuple(i2.shape)}")

@@ -21,7 +21,7 @@ import torch
 from opticalflowhs_tpu_torch.batch import hs_solve_batched, reject_unported
 from opticalflowhs_tpu_torch.config import HSConfig, PyramidConfig
 from opticalflowhs_tpu_torch.pyramid import warp
-from opticalflowhs_tpu_torch.solver import Flow, as_frame
+from opticalflowhs_tpu_torch.solver import Flow, as_frame, resolve_omega
 
 
 def _warped_backward(fwd: Flow, bwd: Flow, method: str):
@@ -58,12 +58,14 @@ def solve_bidirectional(
     device=None,
 ) -> tuple[Flow, Flow]:
     """(forward, backward) flow of one (H, W) pair through a single batch-2
-    solve. numpy frames go to `device`, as in hs_solve."""
+    solve. numpy frames go to `device`, as in hs_solve. SOR's omega == 0 is
+    tuned on the pair before the batch-2 solve, which would refuse it."""
     reject_unported(lk, tvl1, mesh)
     if i1.ndim != 2:
         raise ValueError(f"expected (H, W) frames, got {tuple(i1.shape)}")
     i1 = as_frame(i1, device)
     i2 = as_frame(i2, i1.device)
+    cfg = resolve_omega(i1, i2, cfg)
     f = hs_solve_batched(torch.stack([i1, i2]), torch.stack([i2, i1]), cfg, pyr)
     return Flow(f.u[0], f.v[0]), Flow(f.u[1], f.v[1])
 

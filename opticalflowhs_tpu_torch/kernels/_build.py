@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
 The sources expose a plain C interface, so nvcc alone builds them into a
-shared library, without PyTorch's headers, in seconds. The library goes
+shared library, without PyTorch's headers, in seconds: one nvcc per source,
+started together, then one link. The library goes
 into `opticalflowhs_tpu_torch/_build/` under a name keyed by a hash of the
 sources and the command line, so an edited kernel is rebuilt and an
 unchanged one is loaded as it is. It is bound with ctypes; every pointer
@@ -44,6 +45,15 @@ SIGNATURES = {
     # u, v, ex, ey, et, invd, uo, vo, b, h, w, sweeps, tile_h, tile_w,
     # threads, device, stream
     "hs_jacobi_sweeps": [_P] * 8 + [_I] * 8 + [_P],
+    # u, v, ex, ey, et, invd, uo, vo, b, h, w, sweeps, omega, tile_h,
+    # tile_w, threads, device, stream
+    "hs_sor_sweeps": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
+    # u, v, ex, ey, et, wd, ws, b, h, w, eps_d, eps_d^2, eps_s, eps_s^2,
+    # device, stream
+    "hs_robust_freeze": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_I, _P],
+    # u, v, ex, ey, et, wd, ws, uo, vo, b, h, w, sweeps, alpha^2, tile_h,
+    # tile_w, threads, device, stream
+    "hs_robust_sweeps": [_P] * 9 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
 }
 
 # Largest batch one launch takes: CUDA's limit on gridDim.z.
@@ -73,15 +83,20 @@ def find_nvcc() -> str:
     )
 
 
-def nvcc_command(nvcc: str, srcs: list[Path], out: Path) -> list[str]:
+def compile_command(nvcc: str, src: Path, obj: Path) -> list[str]:
+    """nvcc command compiling one source into a position-independent
+    object for sm_90a."""
     return [
         nvcc,
         "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "--fmad=false",
-        "-shared", "-Xcompiler", "-fPIC",
-        "-o", str(out),
-        *(str(s) for s in srcs),
+        "-Xcompiler", "-fPIC",
+        "-c", "-o", str(obj), str(src),
     ]
+
+
+def link_command(nvcc: str, objs: list[Path], out: Path) -> list[str]:
+    return [nvcc, "-shared", "-o", str(out), *(str(o) for o in objs)]
 
 
 def _library_path(srcs: list[Path]) -> Path:
@@ -89,35 +104,45 @@ def _library_path(srcs: list[Path]) -> Path:
     for s in srcs:
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
-    digest.update(" ".join(nvcc_command("nvcc", [], Path("lib.so"))).encode())
+    digest.update(" ".join(compile_command("nvcc", Path("k.cu"), Path("k.o"))
+                           + link_command("nvcc", [], Path("lib.so"))).encode())
     return BUILD_DIR / f"libhsflow_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
     """Compile csrc/*.cu unless a library for these sources exists; return
-    its path. Raises RuntimeError, with nvcc's output, if the build fails."""
+    its path. One nvcc per source, all started together, then one link.
+    Raises RuntimeError, with nvcc's output, if the build fails."""
     srcs = sources()
     lib = _library_path(srcs)
     if lib.exists():
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build under a temporary name and rename, so a concurrent process
-    # never loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    # Build in a temporary directory and rename the library into place, so
+    # a concurrent process never loads a half-written one.
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        proc = subprocess.run(
-            nvcc_command(nvcc, srcs, Path(tmp)), capture_output=True, text=True
-        )
+        objs = [tmp / f"{s.stem}.o" for s in srcs]
+        procs = [subprocess.Popen(compile_command(nvcc, s, o), text=True,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                 for s, o in zip(srcs, objs)]
+        errors = []
+        for s, p in zip(srcs, procs):
+            out, err = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"{s.name} (exit {p.returncode}):\n{err}{out}")
+        if errors:
+            raise RuntimeError("nvcc failed on " + "\n".join(errors))
+        proc = subprocess.run(link_command(nvcc, objs, tmp / "lib.so"),
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}{proc.stdout}"
+                f"nvcc link failed (exit {proc.returncode}):\n{proc.stderr}{proc.stdout}"
             )
-        os.replace(tmp, lib)
+        os.replace(tmp / "lib.so", lib)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     return lib
 
 

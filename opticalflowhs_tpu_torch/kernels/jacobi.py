@@ -40,13 +40,19 @@ def smem_bytes(sweeps: int) -> int:
     return _ARRAYS * 4 * (TILE_H + 2 * sweeps) * (TILE_W + 2 * sweeps)
 
 
-def sweeps_per_launch(block_sweeps: int = 0) -> int:
-    """Sweeps one launch runs: block_sweeps, or AUTO_SWEEPS for 0, cut to
-    what the window's shared memory allows."""
-    s = block_sweeps if block_sweeps > 0 else AUTO_SWEEPS
-    while s > 1 and smem_bytes(s) > SMEM_BYTES:
+def fit_sweeps(block_sweeps: int, auto: int, smem) -> int:
+    """Sweeps one launch of a temporally blocked kernel runs: block_sweeps,
+    or `auto` for 0, cut until its window, `smem(sweeps)` bytes, fits the
+    shared memory of one block (K2, K3 and K4 share this rule)."""
+    s = block_sweeps if block_sweeps > 0 else auto
+    while s > 1 and smem(s) > SMEM_BYTES:
         s -= 1
     return s
+
+
+def sweeps_per_launch(block_sweeps: int = 0) -> int:
+    """Sweeps one K2 launch runs (`fit_sweeps`)."""
+    return fit_sweeps(block_sweeps, AUTO_SWEEPS, smem_bytes)
 
 
 def jacobi_sweeps_plain(u, v, ex, ey, et, inv_den, n: int):
@@ -77,11 +83,11 @@ def launch_sweeps(u, v, ex, ey, et, inv_den, uo, vo, sweeps: int) -> None:
     jacobi_sweeps.launches += 1
 
 
-def sweep_chain(u, v, ex, ey, et, inv_den, n: int, s: int,
-                owned: bool = False):
-    """Run n sweeps as ceil(n/s) K2 launches, the last one running the
+def ping_pong(u, v, n: int, s: int, launch, owned: bool = False):
+    """Run n sweeps as ceil(n/s) launches, the last one running the
     remainder, ping-ponging between two u/v pairs on one stream with no
-    host synchronisation. owned=True lets the chain overwrite (u, v)."""
+    host synchronisation: `launch(u, v, uo, vo, k)` runs k sweeps from
+    (u, v) into (uo, vo). owned=True lets the chain overwrite (u, v)."""
     pairs = [None, (u, v) if owned else None]
     src = (u, v)
     i = 0
@@ -90,11 +96,19 @@ def sweep_chain(u, v, ex, ey, et, inv_den, n: int, s: int,
         if pairs[i % 2] is None:
             pairs[i % 2] = (torch.empty_like(u), torch.empty_like(v))
         dst = pairs[i % 2]
-        launch_sweeps(*src, ex, ey, et, inv_den, *dst, k)
+        launch(*src, *dst, k)
         src = dst
         n -= k
         i += 1
     return src
+
+
+def sweep_chain(u, v, ex, ey, et, inv_den, n: int, s: int,
+                owned: bool = False):
+    """n Jacobi sweeps as ceil(n/s) K2 launches (`ping_pong`)."""
+    def launch(su, sv, du, dv, k):
+        launch_sweeps(su, sv, ex, ey, et, inv_den, du, dv, k)
+    return ping_pong(u, v, n, s, launch, owned)
 
 
 def jacobi_sweeps(u, v, ex, ey, et, inv_den, n_sweeps: int,

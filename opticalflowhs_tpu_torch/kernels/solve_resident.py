@@ -1,16 +1,19 @@
-"""The whole-solve driver: K1 then a chain of K2 launches on one stream.
+"""The whole-solve drivers: K1 then a chain of K2 (Jacobi) or K3 (4-color
+SOR, `hs_solve_resident_sor`) launches on one stream.
 
 Port of opticalflowhs_tpu/kernels/solve_resident.py (`hs_solve_resident`,
-stages=1). On the TPU the solve is one launch with every array resident in
-VMEM; at 1080p its 8 arrays (~67 MB) exceed the H100's combined shared
-memory, so the Hopper analog is temporal blocking through L2: K1 computes
-the four fields once, then each K2 launch runs several sweeps on
-shared-memory tiles.
+stages=1, and `hs_solve_resident_sor`, stages=4). On the TPU the solve is
+one launch with every array resident in VMEM; at 1080p its 8 arrays
+(~67 MB) exceed the H100's combined shared memory, so the Hopper analog is
+temporal blocking through L2: K1 computes the four fields once, then each
+K2 (or K3) launch runs several sweeps on shared-memory tiles.
 
   * Zero start: K1 also writes the first sweep (u1 = -Ex*Et*invd, the
     reference's zero-init shortcut), then ceil((n-1)/s) K2 launches.
   * Warm start: K1 without the shortcut, then ceil(n/s) K2 launches from
     (u0, v0).
+  * SOR has no closed first sweep: K1 without the shortcut, then
+    ceil(n/s) K3 launches from zeros or from (u0, v0).
 
 Two u/v pairs ping-pong; nothing synchronises with the host. Unlike the
 TPU kernel, which returns None outside its VMEM residency class and for
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from opticalflowhs_tpu_torch.kernels import sor
 from opticalflowhs_tpu_torch.kernels.derivatives import (
     check_frames,
     derivatives_plain,
@@ -81,3 +85,43 @@ def hs_solve_resident(i1, i2, alpha: float, n: int, variant: str = "hs_cube",
 # The reference's names for the batched solve: the same functions.
 hs_solve_resident_batched = hs_solve_resident
 hs_solve_resident_batched_plain = hs_solve_resident_plain
+
+
+def hs_solve_resident_sor_plain(i1, i2, alpha: float, n: int, omega: float,
+                                variant: str = "hs_cube", u0=None, v0=None):
+    """Plain version of the whole 4-color SOR solve: derivatives, then n
+    SOR sweeps from zeros or from (u0, v0)."""
+    ex, ey, et, invd = derivatives_plain(i1, i2, alpha, variant)
+    if u0 is None:
+        u0, v0 = torch.zeros_like(i1), torch.zeros_like(i1)
+    return sor.sor_sweeps_plain(u0, v0, ex, ey, et, invd, n, omega)
+
+
+def hs_solve_resident_sor(i1, i2, alpha: float, n: int, omega: float,
+                          variant: str = "hs_cube", u0=None, v0=None,
+                          block_sweeps: int = 0):
+    """Whole 4-color SOR solve of an (H, W) pair or a (B, H, W) stack, the
+    port of the reference's `hs_solve_resident_sor` (`_resident_body` at
+    stages=4): on CUDA tensors K1, then ceil(n/s) K3 launches, one chain
+    for a whole stack; the plain version on CPU tensors. Unlike the TPU
+    kernel it covers both derivative variants and every size. Returns
+    (u, v)."""
+    if (u0 is None) != (v0 is None):
+        raise ValueError("u0 and v0 must be given together")
+    check_frames("hs_solve_resident_sor", i1, i2,
+                 *(() if u0 is None else (u0, v0)))
+    if n < 0:
+        raise ValueError("n must be >= 0")
+    if i1.device.type == "cpu":
+        return hs_solve_resident_sor_plain(i1, i2, alpha, n, omega, variant,
+                                           u0, v0)
+    if n == 0:
+        if u0 is None:
+            return torch.zeros_like(i1), torch.zeros_like(i1)
+        return u0, v0
+    ex, ey, et, invd = hs_derivatives(i1, i2, alpha, variant)
+    owned = u0 is None
+    if owned:
+        u0, v0 = torch.zeros_like(i1), torch.zeros_like(i1)
+    return sor.sor_chain(u0, v0, ex, ey, et, invd, n, omega,
+                         sor.sweeps_per_launch(block_sweeps), owned=owned)

@@ -95,3 +95,38 @@ def jacobi_step(
     vbar = neighbor_avg(v)
     frac = (ex * ubar + ey * vbar + et) * inv_den
     return ubar - ex * frac, vbar - ey * frac
+
+
+def color_masks(h: int, w: int, device=None) -> tuple[torch.Tensor, ...]:
+    """The four (row % 2, col % 2) color grids of 4-color relaxation, in the
+    order (0,0), (0,1), (1,0), (1,1). The HS neighbourhood couples all 8
+    neighbours, and under this coloring no two same-color pixels are
+    neighbours. The (h, w) grids broadcast over a (B, H, W) stack, so the
+    parity is each image's own."""
+    gr = torch.arange(h, device=device)[:, None]
+    gc = torch.arange(w, device=device)[None, :]
+    return tuple((gr % 2 == pi) & (gc % 2 == pj) for pi in (0, 1) for pj in (0, 1))
+
+
+def sor_step(
+    u: torch.Tensor,
+    v: torch.Tensor,
+    ex: torch.Tensor,
+    ey: torch.Tensor,
+    et: torch.Tensor,
+    inv_den: torch.Tensor,
+    omega: float,
+    colors,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One 4-color SOR sweep: per color, the Jacobi target from the CURRENT
+    field (which holds this sweep's earlier colors), then the blend
+    u + omega*(u* - u) on that color's pixels only."""
+    for cm in colors:
+        ubar = neighbor_avg(u)
+        vbar = neighbor_avg(v)
+        frac = (ex * ubar + ey * vbar + et) * inv_den
+        un = ubar - ex * frac
+        vn = vbar - ey * frac
+        u = torch.where(cm, u + omega * (un - u), u)
+        v = torch.where(cm, v + omega * (vn - v), v)
+    return u, v

@@ -35,6 +35,7 @@ from opticalflowhs_tpu_torch.solver import (
     Flow,
     as_frame,
     check_supported,
+    resolve_omega,
     solve_level,
 )
 
@@ -255,7 +256,8 @@ def hs_pyramid(
 ) -> Flow:
     """Coarse-to-fine pyramidal Horn-Schunck of an (H, W) pair. With
     pyr.levels == 1 this is exactly hs_solve. numpy frames go to `device`,
-    as in hs_solve."""
+    as in hs_solve. SOR's omega == 0 is tuned once, on the full-resolution
+    pair (coarser levels are better conditioned)."""
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs "
                          f"{tuple(i2.shape)}")
@@ -268,6 +270,7 @@ def hs_pyramid(
     check_supported(cfg)
     i1 = as_frame(i1, device)
     i2 = as_frame(i2, i1.device)
+    cfg = resolve_omega(i1, i2, cfg)
     p1 = gaussian_pyramid(i1, pyr.levels)
     p2 = gaussian_pyramid(i2, pyr.levels)
     iters: Sequence[int] = pyr.iters_per_level or (cfg.iters,) * pyr.levels

@@ -1,9 +1,11 @@
-"""Horn-Schunck solver, mirroring opticalflowhs_tpu/solver.py (Jacobi path).
+"""Horn-Schunck solver, mirroring opticalflowhs_tpu/solver.py (Jacobi,
+4-color SOR and Charbonnier IRLS).
 
 Backends:
-  - "torch": the plain PyTorch ops (ops/stencils.py), on any device; the
-             version every kernel is held against.
-  - "cuda":  the hand-written kernels (kernels/): K1 derivatives, K2 sweeps.
+  - "torch": the plain PyTorch ops (ops/stencils.py, robust.py), on any
+             device; the version every kernel is held against.
+  - "cuda":  the hand-written kernels (kernels/): K1 derivatives, K2 Jacobi
+             sweeps, K3 4-color SOR sweeps, K4 IRLS freeze and sweeps.
   - "auto":  cuda for CUDA frames, torch for CPU frames.
 
 `backend="cuda"` on CPU frames raises; nothing falls back from the kernels
@@ -14,20 +16,23 @@ entry point's `device` keyword, which defaults to cuda:0; without a CUDA
 device that default raises RuntimeError, so the CPU runs only when the
 caller asks for it (`device="cpu"`, or CPU tensors).
 
-Scope: Jacobi, float32, with a fixed sweep count or solved to tolerance
-(`sweeps_until`). The other solvers and bf16 are still to be ported
-(ROADMAP.md queue 1) and raise NotImplementedError rather than solving
-something else.
+Scope: the solvers "jacobi", "sor" and "robust", float32, with a fixed
+sweep count or solved to tolerance (`sweeps_until`). Multigrid and bf16
+are still to be ported (ROADMAP.md queue 1) and raise NotImplementedError
+rather than solving something else.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from opticalflowhs_tpu_torch import robust
 from opticalflowhs_tpu_torch.config import HSConfig
+from opticalflowhs_tpu_torch.kernels import solve_robust
 from opticalflowhs_tpu_torch.kernels.derivatives import (
     derivatives_plain,
     hs_derivatives,
@@ -39,7 +44,11 @@ from opticalflowhs_tpu_torch.kernels.jacobi import (
 from opticalflowhs_tpu_torch.kernels.solve_resident import (
     hs_solve_resident,
     hs_solve_resident_plain,
+    hs_solve_resident_sor,
+    hs_solve_resident_sor_plain,
 )
+from opticalflowhs_tpu_torch.kernels.sor import sor_sweeps, sor_sweeps_plain
+from opticalflowhs_tpu_torch.ops import stencils
 
 
 class Flow(NamedTuple):
@@ -62,10 +71,10 @@ def resolve_backend(backend: str, frame: torch.Tensor) -> str:
 
 def check_supported(cfg: HSConfig) -> None:
     """Raise NotImplementedError for configurations the port cannot solve yet."""
-    if cfg.solver != "jacobi":
+    if cfg.solver not in ("jacobi", "sor", "robust"):
         raise NotImplementedError(
             f"solver={cfg.solver!r} is not ported yet (ROADMAP.md queue 1, "
-            "item 9: other HS solvers); only 'jacobi' runs"
+            "item 9: multigrid); 'jacobi', 'sor' and 'robust' run"
         )
     if cfg.dtype != "float32":
         raise NotImplementedError(
@@ -115,12 +124,23 @@ def precompute(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig):
 
 
 def sweeps(u, v, ex, ey, et, inv_den, n: int, cfg: HSConfig) -> Flow:
-    """n Jacobi sweeps on (H, W) or (B, H, W): K2 launches on the cuda
+    """n sweeps of cfg.solver on (H, W) or (B, H, W): Jacobi (K2), 4-color
+    SOR (K3) or IRLS (K4, refrozen as `robust.robust_sweeps`, inv_den
+    unused) on the cuda backend, the plain versions on the torch
     backend."""
     check_supported(cfg)
     if n == 0:
         return Flow(u, v)
-    if resolve_backend(cfg.backend, u) == "cuda":
+    cuda = resolve_backend(cfg.backend, u) == "cuda"
+    if cfg.solver == "robust":
+        irls = solve_robust.robust_sweeps if cuda else robust.robust_sweeps
+        return Flow(*irls(u, v, ex, ey, et, n, cfg))
+    if cfg.solver == "sor":
+        if cuda:
+            return Flow(*sor_sweeps(u, v, ex, ey, et, inv_den, n, cfg.omega,
+                                    block_sweeps=cfg.block_sweeps))
+        return Flow(*sor_sweeps_plain(u, v, ex, ey, et, inv_den, n, cfg.omega))
+    if cuda:
         return Flow(*jacobi_sweeps(u, v, ex, ey, et, inv_den, n,
                                    block_sweeps=cfg.block_sweeps))
     return Flow(*jacobi_sweeps_plain(u, v, ex, ey, et, inv_den, n))
@@ -181,13 +201,13 @@ def solve_level(
     or from (u0, v0): `iters` sweeps, or with cfg.tol > 0 `sweeps_until`
     under a budget of `iters` (on a stack each image stops on its own).
 
-    The cuda backend runs the whole-solve driver (K1, then K2 launches, one
-    chain for a whole stack) at every frame size and for both derivative
-    variants; to tolerance, K1
-    once and then K2 check blocks (the reference's resident-blocked route
-    re-derives the fields per block, with identical values). The torch
-    backend runs the plain ops. Both compute the same sweeps in the same
-    order."""
+    The cuda backend runs a whole-solve driver (K1, then one chain of K2,
+    K3 or K4 launches for a whole stack) at every frame size and for both
+    derivative variants; to tolerance, K1 once and then check blocks of
+    `sweeps` (the reference's resident-blocked route re-derives the fields
+    per block, with identical values; an IRLS block refreezes at its
+    start, as the reference's block does). The torch backend runs the
+    plain ops. Both compute the same sweeps in the same order."""
     check_supported(cfg)
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
@@ -201,13 +221,74 @@ def solve_level(
         if u0 is None:
             u0, v0 = torch.zeros_like(i1), torch.zeros_like(i1)
         return sweeps_until(u0, v0, ex, ey, et, inv_den, cfg, budget=iters)
-    if resolve_backend(cfg.backend, i1) == "cuda":
+    cuda = resolve_backend(cfg.backend, i1) == "cuda"
+    if cfg.solver == "robust":
+        rcfg = cfg if iters == cfg.iters else dataclasses.replace(cfg, iters=iters)
+        if cuda:
+            return Flow(*solve_robust.hs_solve_robust_resident(i1, i2, rcfg, u0, v0))
+        return Flow(*solve_robust.hs_solve_robust_resident_plain(i1, i2, rcfg, u0, v0))
+    if cfg.solver == "sor":
+        if cuda:
+            return Flow(*hs_solve_resident_sor(
+                i1, i2, cfg.alpha, iters, cfg.omega, cfg.deriv_variant, u0, v0,
+                block_sweeps=cfg.block_sweeps))
+        return Flow(*hs_solve_resident_sor_plain(
+            i1, i2, cfg.alpha, iters, cfg.omega, cfg.deriv_variant, u0, v0))
+    if cuda:
         out = hs_solve_resident(i1, i2, cfg.alpha, iters, cfg.deriv_variant,
                                 u0, v0, block_sweeps=cfg.block_sweeps)
     else:
         out = hs_solve_resident_plain(i1, i2, cfg.alpha, iters,
                                       cfg.deriv_variant, u0, v0)
     return Flow(*out)
+
+
+def tune_omega(i1, i2, cfg: HSConfig = HSConfig(), power_iters: int = 300,
+               device=None) -> float:
+    """The SOR over-relaxation factor for this problem, as the reference's
+    `tune_omega`: power-iterate the homogeneous Jacobi update (et = 0) to
+    its spectral radius rho (the geometric mean of the last norm ratios),
+    then omega = 2 / (1 + sqrt(1 - rho^2)), clamped to [1, 1.98] and
+    rounded to 0.01.
+
+    The start vectors are standard normals from a CPU
+    `torch.Generator().manual_seed(0)`, moved to the frames' device, so the
+    CPU and the card start from the same vectors (torch cannot reproduce
+    `jax.random.normal`). On the cuda backend each iteration is one K2
+    launch of one sweep and the norms are reductions on the device; the one
+    host synchronisation is the final `float(rho)`."""
+    i1 = as_frame(i1, device)
+    i2 = as_frame(i2, i1.device)
+    ex, ey, _, inv_den = precompute(i1, i2, cfg)
+    zero_et = torch.zeros_like(ex)
+    gen = torch.Generator().manual_seed(0)
+    u, v = (torch.randn(ex.shape, generator=gen, dtype=ex.dtype).to(ex.device)
+            for _ in range(2))
+    n0 = torch.sqrt(torch.sum(u * u) + torch.sum(v * v))
+    u, v = u / n0, v / n0
+    tail = max(1, min(10, power_iters // 3))
+    cuda = resolve_backend(cfg.backend, i1) == "cuda"
+    acc = torch.zeros((), dtype=ex.dtype, device=ex.device)
+    for k in range(power_iters):
+        if cuda:
+            nu, nv = jacobi_sweeps(u, v, ex, ey, zero_et, inv_den, 1)
+        else:
+            nu, nv = stencils.jacobi_step(u, v, ex, ey, zero_et, inv_den)
+        n = torch.sqrt(torch.sum(nu * nu) + torch.sum(nv * nv))
+        if k >= power_iters - tail:
+            acc = acc + torch.log(n)
+        u, v = nu / n, nv / n
+    rho = min(float(torch.exp(acc / tail)), 0.9999)
+    omega = 2.0 / (1.0 + (1.0 - rho * rho) ** 0.5)
+    return round(max(1.0, min(omega, 1.98)), 2)
+
+
+def resolve_omega(i1, i2, cfg: HSConfig) -> HSConfig:
+    """cfg with omega == 0 ("auto", SOR only) replaced by `tune_omega` on
+    the pair (i1, i2); any other cfg as it is."""
+    if cfg.solver == "sor" and cfg.omega == 0.0:
+        return dataclasses.replace(cfg, omega=tune_omega(i1, i2, cfg))
+    return cfg
 
 
 def hs_solve(
@@ -222,7 +303,8 @@ def hs_solve(
     Frames are (H, W) tensors, and the solve runs on their device, or numpy
     arrays, which go to `device` (cuda:0 when None; RuntimeError without
     CUDA). `init` warm-starts u/v; its arrays may be numpy arrays (moved to
-    the frames' device) or tensors on that device.
+    the frames' device) or tensors on that device. cfg.solver="sor" with
+    cfg.omega == 0 tunes omega first (`tune_omega`).
     """
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs "
@@ -230,8 +312,10 @@ def hs_solve(
     if i1.ndim != 2:
         raise ValueError("hs_solve takes single 2-D grayscale frames; use "
                          "batch.hs_solve_batched for leading batch axes")
+    check_supported(cfg)
     i1 = as_frame(i1, device)
     i2 = as_frame(i2, i1.device)
+    cfg = resolve_omega(i1, i2, cfg)
     if init is None:
         return solve_level(i1, i2, cfg, cfg.iters)
     return solve_level(i1, i2, cfg, cfg.iters, u0=init.u, v0=init.v)

@@ -1,9 +1,10 @@
-"""K1, K2 and the whole-solve driver on a CUDA card against their plain
-versions on the same card, at edge-case shapes (partial tiles, frames
+"""K1, K2, K3, K4 and the whole-solve drivers on a CUDA card against their
+plain versions on the same card, at edge-case shapes (partial tiles, frames
 narrower or shorter than a tile, one row, one column) and sweep counts
 that the sweeps per launch do not divide; single frames and (B, H, W)
 stacks, where each image of a batched launch must equal the single-frame
-kernel on that image; and the batched and streaming entry points.
+kernel on that image; the launch counts; and the single, batched and
+streaming entry points with the Jacobi, SOR and IRLS solvers.
 
 Marked `cuda`: they skip without a card. They import no JAX, so on a
 machine without it they run with the repository's conftest left out:
@@ -27,9 +28,14 @@ from opticalflowhs_tpu_torch import (
     hs_solve,
     hs_solve_batched,
 )
+from opticalflowhs_tpu_torch import robust
+from opticalflowhs_tpu_torch.consistency import solve_bidirectional
 from opticalflowhs_tpu_torch.kernels import derivatives as k1
 from opticalflowhs_tpu_torch.kernels import jacobi as k2
 from opticalflowhs_tpu_torch.kernels import solve_resident as sr
+from opticalflowhs_tpu_torch.kernels import solve_robust as k4
+from opticalflowhs_tpu_torch.kernels import sor as k3
+from opticalflowhs_tpu_torch.solver import tune_omega
 
 pytestmark = pytest.mark.cuda
 
@@ -179,3 +185,129 @@ def test_streams_default_to_the_card(dev):
                                   chunk=2, warp_prior=True))
     for a, b in zip(warm, plain):
         _equal(a, b)
+
+
+# -- K3 (4-color SOR) and K4 (IRLS freeze and sweeps) ------------------------
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n,s", [(1, 0), (5, 2), (9, 1), (13, 0), (7, 3), (6, 4)])
+def test_k3_equals_plain(dev, shape, b, n, s):
+    i1, i2 = _rand((b,) + shape, dev, 13)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    u0, v0 = _rand((b,) + shape, dev, 14, normal=True)
+    keep = (u0.clone(), v0.clone())
+    k3.sor_sweeps.launches = 0
+    got = k3.sor_sweeps(u0, v0, *fields, n, 1.7, block_sweeps=s)
+    assert k3.sor_sweeps.launches == -(-n // k3.sweeps_per_launch(s))
+    _equal(got, k3.sor_sweeps_plain(u0, v0, *fields, n, 1.7))
+    _equal((u0, v0), keep)  # inputs untouched
+    for k in range(b):
+        one = k3.sor_sweeps(u0[k], v0[k], *(f[k] for f in fields), n, 1.7, block_sweeps=s)
+        _equal([g[k] for g in got], one)
+
+
+@pytest.mark.parametrize("shape", [(67, 93), (200, 333)])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("variant", ["hs_cube", "central"])
+def test_sor_driver_equals_plain(dev, shape, b, warm, variant):
+    i1, i2 = _rand((b,) + shape, dev, 15)
+    init = _rand((b,) + shape, dev, 16, normal=True) if warm else (None, None)
+    k1.hs_derivatives.launches = 0
+    k3.sor_sweeps.launches = 0
+    got = sr.hs_solve_resident_sor(i1, i2, 0.5, 11, 1.6, variant, *init)
+    assert (k1.hs_derivatives.launches, k3.sor_sweeps.launches) == (
+        1, -(-11 // k3.sweeps_per_launch(0)))
+    _equal(got, sr.hs_solve_resident_sor_plain(i1, i2, 0.5, 11, 1.6, variant, *init))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("b", [1, 3])
+def test_k4_freeze_equals_plain(dev, shape, b):
+    i1, i2 = _rand((b,) + shape, dev, 17)
+    ex, ey, et, _ = k1.derivatives_plain(i1, i2, 0.4)
+    u, v = _rand((b,) + shape, dev, 18, normal=True)
+    for eps in ((0.05, 0.05), (0.01, 0.2)):
+        _equal(k4.freeze_weights(u, v, ex, ey, et, *eps),
+               robust.charbonnier_weights(u, v, ex, ey, et, *eps))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n,s", [(1, 0), (5, 2), (13, 0), (17, 10), (9, 1)])
+def test_k4_sweeps_equal_plain(dev, shape, b, n, s):
+    i1, i2 = _rand((b,) + shape, dev, 19)
+    ex, ey, et, _ = k1.derivatives_plain(i1, i2, 0.4)
+    u0, v0 = _rand((b,) + shape, dev, 20, normal=True)
+    wd, ws = robust.charbonnier_weights(u0, v0, ex, ey, et, 0.05, 0.05)
+    keep = (u0.clone(), v0.clone())
+    k4.frozen_sweeps.launches = 0
+    got = k4.frozen_sweeps(u0, v0, ex, ey, et, wd, ws, 0.3, n, block_sweeps=s)
+    assert k4.frozen_sweeps.launches == -(-n // k4.sweeps_per_launch(s))
+    want = (u0, v0)
+    for _ in range(n):
+        want = robust.robust_step(*want, ex, ey, et, wd, ws, 0.3)
+    _equal(got, want)
+    _equal((u0, v0), keep)
+    for k in range(b):
+        one = k4.frozen_sweeps(u0[k], v0[k], ex[k], ey[k], et[k], wd[k], ws[k], 0.3, n,
+                               block_sweeps=s)
+        _equal([g[k] for g in got], one)
+
+
+@pytest.mark.parametrize("shape", [(67, 93), (200, 333)])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("iters,k", [(13, 1), (13, 5), (25, 20), (8, 20)])
+@pytest.mark.parametrize("warm", [False, True])
+def test_robust_driver_equals_plain(dev, shape, b, iters, k, warm):
+    i1, i2 = _rand((b,) + shape, dev, 21)
+    init = _rand((b,) + shape, dev, 22, normal=True) if warm else (None, None)
+    cfg = HSConfig(alpha=0.3, iters=iters, solver="robust", robust_update_every=k)
+    k1.hs_derivatives.launches = 0
+    k4.freeze_weights.launches = 0
+    k4.frozen_sweeps.launches = 0
+    got = k4.hs_solve_robust_resident(i1, i2, cfg, *init)
+    blocks = robust.refreeze_blocks(iters, k)
+    s = k4.sweeps_per_launch(0)
+    assert (k1.hs_derivatives.launches, k4.freeze_weights.launches,
+            k4.frozen_sweeps.launches) == (1, len(blocks), sum(-(-m // s) for m in blocks))
+    _equal(got, k4.hs_solve_robust_resident_plain(i1, i2, cfg, *init))
+
+
+def test_sor_and_robust_entry_points_run_the_kernels(dev):
+    i1, i2 = _rand((3, 96, 128), dev, 23)
+    counters = (k1.hs_derivatives, k3.sor_sweeps, k4.freeze_weights, k4.frozen_sweeps)
+    for kw in (dict(solver="sor", omega=1.6), dict(solver="robust", robust_update_every=7),
+               dict(solver="sor", omega=1.6, tol=1e-3, block_sweeps=4),
+               dict(solver="robust", tol=1e-3, block_sweeps=6)):
+        cfg = HSConfig(alpha=0.5, iters=20, **kw)
+        plain = HSConfig(alpha=0.5, iters=20, backend="torch", **kw)
+        for c in counters:
+            c.launches = 0
+        got = hs_solve(i1[0], i2[0], cfg)
+        ran = [c.launches for c in counters]
+        assert ran[0] == 1 and (ran[1] > 0 if kw["solver"] == "sor" else min(ran[2:]) > 0)
+        _equal(got, hs_solve(i1[0], i2[0], plain))
+        _equal(hs_solve_batched(i1, i2, cfg), hs_solve_batched(i1, i2, plain))
+        pyr = PyramidConfig(levels=2, warp="checked")
+        _equal(hs_pyramid(i1[0], i2[0], cfg, pyr), hs_pyramid(i1[0], i2[0], plain, pyr))
+        _equal(hs_solve_batched(i1, i2, cfg, pyr), hs_solve_batched(i1, i2, plain, pyr))
+        for a, b in zip(solve_bidirectional(i1[0], i2[0], cfg),
+                        solve_bidirectional(i1[0], i2[0], plain)):
+            _equal(a, b)
+
+
+def test_tune_omega_on_the_card_equals_plain(dev):
+    i1, i2 = _rand((96, 128), dev, 24)
+    for alpha in (0.1, 1.0):
+        k2.jacobi_sweeps.launches = 0
+        om = tune_omega(i1, i2, HSConfig(alpha=alpha), power_iters=60)
+        assert k2.jacobi_sweeps.launches == 60
+        assert om == tune_omega(i1, i2, HSConfig(alpha=alpha, backend="torch"),
+                                power_iters=60)
+        # The CPU starts from the same vectors; its sums round in another
+        # order, which can move the rounded omega by one step at most.
+        assert abs(om - tune_omega(i1.cpu(), i2.cpu(), HSConfig(alpha=alpha),
+                                   power_iters=60)) <= 0.01 + 1e-9

@@ -25,6 +25,8 @@ from opticalflowhs_tpu_torch.kernels import _build
 from opticalflowhs_tpu_torch.kernels import derivatives as k1
 from opticalflowhs_tpu_torch.kernels import jacobi as k2
 from opticalflowhs_tpu_torch.kernels import solve_resident as sr
+from opticalflowhs_tpu_torch.kernels import solve_robust as k4
+from opticalflowhs_tpu_torch.kernels import sor as k3
 from opticalflowhs_tpu_torch.solver import hs_solve, precompute, sweeps
 
 torch.set_num_threads(1)
@@ -127,12 +129,19 @@ def test_resident_requires_both_init_fields():
 
 
 def test_nvcc_command_targets_hopper_without_fma():
-    cmd = _build.nvcc_command("nvcc", _build.sources(), Path("lib.so"))
-    line = " ".join(cmd)
-    assert "arch=compute_90a,code=sm_90a" in line
-    assert "--fmad=false" in cmd
-    assert "fast_math" not in line and "fast-math" not in line
-    assert [Path(s).name for s in _build.sources()] == ["derivatives.cu", "jacobi.cu"]
+    srcs = _build.sources()
+    assert [Path(s).name for s in srcs] == ["derivatives.cu", "jacobi.cu",
+                                           "robust.cu", "sor.cu"]
+    for src in srcs:
+        cmd = _build.compile_command("nvcc", src, Path("k.o"))
+        line = " ".join(cmd)
+        assert "arch=compute_90a,code=sm_90a" in line
+        assert "--fmad=false" in cmd
+        assert "fast_math" not in line and "fast-math" not in line
+        assert cmd[-1] == str(src) and "-c" in cmd
+    # Every entry point of the sources has a ctypes signature.
+    for name in _build.SIGNATURES:
+        assert any(f'extern "C" int {name}(' in s.read_text() for s in srcs), name
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -192,8 +201,9 @@ def test_cpu_wrappers_launch_nothing():
 
 
 def test_sweeps_per_launch_fits_shared_memory():
-    assert k2.sweeps_per_launch(0) == k2.AUTO_SWEEPS
-    assert k2.smem_bytes(k2.AUTO_SWEEPS) <= k2.SMEM_BYTES
-    s = k2.sweeps_per_launch(1000)
-    assert k2.smem_bytes(s) <= k2.SMEM_BYTES < k2.smem_bytes(s + 1)
-    assert k2.sweeps_per_launch(1) == 1
+    for k in (k2, k3, k4):
+        assert k.sweeps_per_launch(0) == k.AUTO_SWEEPS
+        assert k.smem_bytes(k.AUTO_SWEEPS) <= k2.SMEM_BYTES
+        s = k.sweeps_per_launch(1000)
+        assert k.smem_bytes(s) <= k2.SMEM_BYTES < k.smem_bytes(s + 1)
+        assert k.sweeps_per_launch(1) == 1

@@ -89,7 +89,7 @@ def test_hs_solve_input_errors():
 
 @pytest.mark.parametrize(
     "cfg",
-    [HSConfig(solver="sor"), HSConfig(solver="robust", tol=1e-3),
+    [HSConfig(solver="multigrid"), HSConfig(solver="multigrid", tol=1e-3),
      HSConfig(dtype="bfloat16")],
 )
 def test_unported_configs_raise(cfg):
