@@ -21,16 +21,23 @@ each ran through the kernels:
               hs_pyramid 1080p L3, SOR i50 against Jacobi i50 and i400 in
               EPE, hs_solve_batched 4 x 1080p;
   phase 11:   robust at full size: hs_solve 1088x1920 i100, and the 1080p
-              two-motion seam against classic HS.
+              two-motion seam against classic HS;
+  phase 12:   K5 (the TV-L1 inner loop) against its plain version, 67x93,
+              131x130 and 1088x1920, B 1 and 3, iters 1, 7, 100; then
+              TV-L1 at full size: tvl1_solve 1088x1920 L3 (T1), the 1080p
+              seam against phase 11's classic HS (T2), tvl1_solve_batched
+              on 4 x 1080p, flow_stream, flow_stream_occlusion and
+              solve_bidirectional with tvl1= (T3).
 Every phase checks what it measures and any failure exits non-zero.
 Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
 Output: one line of numbers per phase; then, on lines of their own, the
 card's name and power limit as nvidia-smi gives them, and a JSON object
 {"kernels": [...]} (per kernel: launches on the batched path for K1 and
-K2, on the SOR and robust path for K3 and K4, max |diff| against the plain
-version, ms per launch for the kernel and the plain version at
-8 x 1088x1920, and the least time the card could take); the last line is
+K2, on the SOR and robust path for K3 and K4, on the TV-L1 path for K5,
+max |diff| against the plain version, ms per launch for the kernel and the
+plain version at 8 x 1088x1920 (for K5 per call of 100 alternations), and
+the least time the card could take); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -73,6 +80,15 @@ K2_FLOPS_PER_PX_SWEEP = 39
 K3_FLOPS_PER_PX_SWEEP = 45
 K4_FREEZE_FLOPS_PER_PX = 22
 K4_FLOPS_PER_PX_SWEEP = 52
+# K5 per alternation: the u-step 23 (rho 4, the three-case step 5 with its
+# two compares, v 4, two divergences 6, u 4), the p-step 14 a field (two
+# differences, the norm 4 with its sqrt, n 2, two updates 6). A call reads
+# u1, u2 and the 5 constant fields once and writes u1, u2 once; the
+# two-launch schedule itself moves 23 arrays an alternation (u-step 13,
+# p-step 10).
+K5_FLOPS_PER_PX_ITER = 51
+K5_CALL_ARRAYS = 9
+K5_SCHEDULE_ARRAYS_PER_ITER = 23
 OMEGA = 1.71  # the SOR workloads' omega, as tools/hw_sor_resident_ab.py
 
 
@@ -156,6 +172,22 @@ def c4_video():
     return synthetic_sequence(17, 1080, 1920, tx=1.0, ty=0.5)
 
 
+def t1_pair(dev):
+    """T1's frames on the card and their flow: translation_pair(1088, 1920,
+    0.7, -0.3, key=5), as tools/hw_tvl1_ab.py's family row."""
+    from opticalflowhs_tpu_torch.data.synthetic import translation_pair
+    i1, i2, gt = translation_pair(1088, 1920, 0.7, -0.3, key=5)
+    return torch.from_numpy(i1).to(dev), torch.from_numpy(i2).to(dev), gt
+
+
+def t2_pair(dev):
+    """T2's (and R2's) frames on the card and their flow: the 1080p
+    two-motion pair, (1, 0) px left of the seam and (-1, 0) right of it."""
+    from opticalflowhs_tpu_torch.data.synthetic import two_motion_pair
+    i1, i2, gt = two_motion_pair(1088, 1920, (1.0, 0.0), (-1.0, 0.0), key=3)
+    return torch.from_numpy(i1).to(dev), torch.from_numpy(i2).to(dev), gt
+
+
 def sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack) -> tuple[dict, dict]:
     """Phases 9-11: K3 and K4 against their plain versions, then the SOR
     and robust paths at full size, counted. Returns (max |diff| per kernel,
@@ -168,7 +200,6 @@ def sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack) -> tuple[dict, dict]:
         hs_solve_batched,
         robust,
     )
-    from opticalflowhs_tpu_torch.data.synthetic import translation_pair, two_motion_pair
     from opticalflowhs_tpu_torch.kernels import derivatives as k1
     from opticalflowhs_tpu_torch.kernels import solve_resident as sr
     from opticalflowhs_tpu_torch.kernels import solve_robust as k4
@@ -282,9 +313,7 @@ def sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack) -> tuple[dict, dict]:
     print(f"phase 10 hs_pyramid SOR 1080x1920 L3 a=0.5 i50: max|diff|={d:.3g} "
           f"kernel {ms_k:.3f} ms plain {ms_p:.3f} ms")
 
-    t1, t2, gt = translation_pair(1088, 1920, 0.7, -0.3, key=5)
-    t1 = torch.from_numpy(t1).to(dev)
-    t2 = torch.from_numpy(t2).to(dev)
+    t1, t2, gt = t1_pair(dev)
     gtc = interior(gt, 16)
     tte = {}
     for tag, cfg in (("SOR i50", HSConfig(alpha=0.25, iters=50, solver="sor", omega=OMEGA)),
@@ -328,9 +357,7 @@ def sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack) -> tuple[dict, dict]:
           f"kernel {ms_k:.3f} ms plain {ms_p:.3f} ms")
     require(got == want, f"robust launches {got}, expected {want}")
 
-    m1, m2, gt = two_motion_pair(1088, 1920, (1.0, 0.0), (-1.0, 0.0), key=3)
-    m1 = torch.from_numpy(m1).to(dev)
-    m2 = torch.from_numpy(m2).to(dev)
+    m1, m2, gt = t2_pair(dev)
     band = np.zeros((1088, 1920), bool)
     band[8:-8, 1920 // 2 - 8:1920 // 2 + 8] = True
     inner = np.zeros((1088, 1920), bool)
@@ -353,7 +380,215 @@ def sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack) -> tuple[dict, dict]:
                       for t, (a, b, dp, ms) in seam.items()))
     require(seam["robust i400"][1] < seam["classic i400"][1],
             f"robust seam-band EPE not below classic: {seam}")
-    return err, launches
+    return err, launches, seam["classic i400"][1]
+
+
+def tvl1_path(dev, vid, vid_dev, c2a, c2b, classic_band: float) -> dict:
+    """Phase 12: K5 against its plain version, then the TV-L1 path at full
+    size, counted: T1 tvl1_solve 1088x1920 L3 (beside it one level, warps
+    2, iters 30), T2 the 1080p two-motion seam against classic HS's band
+    EPE from phase 11, T3 a stack of C4's video, flow_stream,
+    flow_stream_occlusion and solve_bidirectional with tvl1=. Returns K5's
+    row of the kernels line."""
+    from opticalflowhs_tpu_torch import (
+        PyramidConfig,
+        TVL1Config,
+        flow_stream,
+        tvl1_solve,
+        tvl1_solve_batched,
+    )
+    from opticalflowhs_tpu_torch import tvl1 as tv
+    from opticalflowhs_tpu_torch.consistency import solve_bidirectional
+    from opticalflowhs_tpu_torch.data.synthetic import translation_pair
+    from opticalflowhs_tpu_torch.kernels import tvl1_inner as k5
+    from opticalflowhs_tpu_torch.metrics import epe, interior
+    from opticalflowhs_tpu_torch.video import flow_stream_occlusion
+
+    err = 0.0
+
+    def note(d, what):
+        nonlocal err
+        err = max(err, d)
+        require(d <= TOL, f"{what}: max|diff| {d}")
+
+    def plain(cfg):
+        return dataclasses.replace(cfg, backend="torch")
+
+    cfg0 = TVL1Config()
+    scalars = tv.inner_scalars(cfg0)
+
+    def inner_args(i1, i2, seed):
+        """Warm (u1, u2) from a seeded normal and the fields of a real
+        precompute on the pair scaled to [0, 255]."""
+        i1, i2 = tv.rescale_pair(i1, i2)
+        rng = np.random.default_rng(seed)
+        u1, u2 = (torch.from_numpy(rng.normal(0, 0.5, tuple(i1.shape)).astype(np.float32)).to(dev)
+                  for _ in range(2))
+        return u1, u2, tv.inner_fields(i1, i2, u1, u2, cfg0)
+
+    def pairs(b, h, w, key):
+        """b translation pairs (0.7, -0.3 px), an (H, W) pair when b is 1."""
+        made = [translation_pair(h, w, 0.7, -0.3, key=key + k) for k in range(b)]
+        return tuple(torch.from_numpy(np.stack([m[j] for m in made])).to(dev).squeeze(0)
+                     for j in (0, 1))
+
+    # -- phase 12: K5 against its plain version ---------------------------------
+    t1, t2, gt_t = t1_pair(dev)
+    for b, h, w in ((1, 67, 93), (3, 67, 93), (1, 131, 130), (1, 1088, 1920)):
+        i1, i2 = (t1, t2) if h == 1088 else pairs(b, h, w, 40)
+        u1, u2, fields = inner_args(i1, i2, seed=41)
+        rho0, gx, gy, _, th = fields
+        rho = rho0 + u1 * gx + u2 * gy
+        cases = [float((rho < -th).float().mean()), float((rho > th).float().mean()),
+                 float((rho.abs() <= th).float().mean())]
+        require(min(cases) > 0, f"K5 {b}x{h}x{w}: a case of the data term never fires {cases}")
+        diffs = []
+        for iters in (1, 7, 100):
+            d = max_flow_diff(k5.tvl1_inner(u1, u2, *fields, iters, *scalars),
+                              k5.tvl1_inner_plain(u1, u2, *fields, iters, *scalars))
+            note(d, f"K5 {b}x{h}x{w} iters {iters}")
+            diffs.append(d)
+        print(f"phase 12 K5 B={b} {h}x{w}: data-term cases rho<-th {cases[0]:.4f} "
+              f"rho>th {cases[1]:.4f} |rho|<=th {cases[2]:.4f}; max|diff| vs plain "
+              f"iters 1, 7, 100: {' '.join(f'{d:.3g}' for d in diffs)}")
+
+    # -- the TV-L1 path, counted ------------------------------------------------
+    pyr3 = PyramidConfig(levels=3)
+    small = TVL1Config(warps=2, iters=30)
+    m1, m2, gt_m = t2_pair(dev)
+    pa, pb = vid_dev[:4], vid_dev[1:5]
+    occ = dict(a=0.0, b=1e-4)  # phase 8's thresholds, so that some pixels are flagged
+    torch.cuda.synchronize()
+    k5.tvl1_inner.launches = 0
+    f_t1 = tvl1_solve(t1, t2, cfg0, pyr3)
+    n_t1 = k5.tvl1_inner.launches
+    f_small = tvl1_solve(t1, t2, small)
+    f_t2 = tvl1_solve(m1, m2, cfg0)
+    before_t3 = k5.tvl1_inner.launches
+    f_t3 = tvl1_solve_batched(pa, pb, small)
+    n_t3 = k5.tvl1_inner.launches - before_t3
+    chunks = list(flow_stream(vid, tvl1=small, chunk=8))
+    occ_flow, occ_mask = next(flow_stream_occlusion(vid[:9], tvl1=small, chunk=8, **occ))
+    bidi = solve_bidirectional(t1, t2, tvl1=small)
+    torch.cuda.synchronize()
+    launches = k5.tvl1_inner.launches
+    print(f"TV-L1 path launches (T1, its small leg, T2, T3 stack, flow_stream, "
+          f"flow_stream_occlusion, solve_bidirectional): hs_tvl1_inner {launches}")
+    require(launches > 0, "K5 never ran on the TV-L1 path")
+    want_t1 = 2 * cfg0.iters * cfg0.warps * pyr3.levels
+    require(n_t1 == want_t1, f"T1 K5 launches {n_t1}, expected {want_t1}")
+    require(n_t3 == 2 * small.iters * small.warps, f"T3 K5 launches per stack {n_t3}")
+
+    def flow_np(f):
+        return np.stack([f.u.cpu().numpy(), f.v.cpu().numpy()], axis=-1)
+
+    # -- T1: tvl1_solve 1088x1920 L3, and the small leg -----------------------------
+    for f in (f_t1, f_small, f_t2, bidi[0], bidi[1]):
+        for a in f:
+            require(tuple(a.shape) == (1088, 1920) and bool(torch.isfinite(a).all()),
+                    "TV-L1 output shape/finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_t1 = tvl1_solve(t1, t2, plain(cfg0), pyr3)
+    torch.cuda.synchronize()
+    ms_t1p = (time.perf_counter() - t0) * 1e3
+    d = max_flow_diff(f_t1, p_t1)
+    note(d, "T1 kernel vs plain")
+    ms_t1 = median_ms(lambda: tvl1_solve(t1, t2, cfg0, pyr3), runs=10)
+    e_t1 = epe(interior(flow_np(f_t1), 16), interior(gt_t, 16))
+    print(f"phase 12 T1 tvl1_solve 1088x1920 L3 warps 5 iters 100 median checked: "
+          f"max|diff| vs plain {d:.3g}; K5 launches {n_t1}; kernel {ms_t1:.3f} ms "
+          f"(median of 10) plain {ms_t1p:.3f} ms (once); interior EPE {e_t1:.6f}")
+    require(e_t1 < 0.1, f"T1 EPE {e_t1}")
+    d = max_flow_diff(f_small, tvl1_solve(t1, t2, plain(small)))
+    note(d, "T1 small leg kernel vs plain")
+    ms_s = median_ms(lambda: tvl1_solve(t1, t2, small), runs=10)
+    e_s = epe(interior(flow_np(f_small), 16), interior(gt_t, 16))
+    print(f"phase 12 T1 small leg 1 level warps 2 iters 30: max|diff| vs plain {d:.3g}; "
+          f"kernel {ms_s:.3f} ms; interior EPE {e_s:.6f}")
+
+    # median3's share of T1, by CUDA events on each level's fields: 2 fields
+    # a warp, 5 warps a level.
+    ms_med = []
+    for h, w in ((1088, 1920), (544, 960), (272, 480)):
+        a = torch.from_numpy(np.random.default_rng(42).normal(0, 1, (h, w))
+                             .astype(np.float32)).to(dev)
+        ms_med.append(event_ms(lambda: tv.median3(a)))
+    med_t1 = 2 * cfg0.warps * sum(ms_med)
+    print(f"phase 12 median3 per field 1088x1920 {ms_med[0]:.4f} ms, 544x960 "
+          f"{ms_med[1]:.4f} ms, 272x480 {ms_med[2]:.4f} ms; in T1 (30 calls) "
+          f"{med_t1:.3f} ms = {med_t1 / ms_t1:.3f} of T1's {ms_t1:.3f} ms")
+
+    # -- T2: the seam ----------------------------------------------------------------
+    d = max_flow_diff(f_t2, tvl1_solve(m1, m2, plain(cfg0)))
+    note(d, "T2 kernel vs plain")
+    ms_t2 = median_ms(lambda: tvl1_solve(m1, m2, cfg0), runs=5)
+    e = np.sqrt(((flow_np(f_t2) - gt_m) ** 2).sum(-1))
+    band = e[8:-8, 1920 // 2 - 8:1920 // 2 + 8].mean()
+    print(f"phase 12 T2 seam two_motion_pair 1088x1920 (1,0)|(-1,0) TV-L1 warps 5 "
+          f"iters 100: max|diff| vs plain {d:.3g}; EPE interior {e[8:-8, 8:-8].mean():.4f} "
+          f"seam band {band:.4f} (classic HS i400 {classic_band:.4f}); kernel {ms_t2:.3f} ms")
+    require(band < classic_band, f"TV-L1 seam-band EPE {band} not below classic {classic_band}")
+
+    # -- T3: stacks and streams ----------------------------------------------------------
+    for k in range(4):
+        one = tvl1_solve(pa[k], pb[k], small)
+        require(bool(torch.equal(f_t3.u[k], one.u) and torch.equal(f_t3.v[k], one.v)),
+                f"T3 stack image {k} differs from tvl1_solve")
+    d = max_flow_diff(f_t3, tvl1_solve_batched(pa, pb, plain(small)))
+    note(d, "T3 stack kernel vs plain")
+    ms_t3 = median_ms(lambda: tvl1_solve_batched(pa, pb, small), runs=5)
+    print(f"phase 12 T3 tvl1_solve_batched 4 x 1080x1920 warps 2 iters 30: bitwise = "
+          f"tvl1_solve on each pair; max|diff| vs plain {d:.3g}; K5 launches per stack "
+          f"{n_t3}; kernel {ms_t3:.3f} ms ({4 / ms_t3 * 1e3:.1f} pairs/s)")
+    require([c.u.shape[0] for c in chunks] == [8, 8], "TV-L1 flow_stream chunk sizes")
+    for k, c in enumerate(chunks):
+        ref = tvl1_solve_batched(vid_dev[8 * k:8 * k + 8], vid_dev[8 * k + 1:8 * k + 9], small)
+        require(bool(torch.equal(c.u, ref.u) and torch.equal(c.v, ref.v)),
+                f"TV-L1 flow_stream chunk {k} differs from tvl1_solve_batched")
+
+    def stream_all():
+        for c in flow_stream(vid, tvl1=small, chunk=8):
+            pass
+
+    ms_st = median_ms(stream_all, runs=3)
+    plain_flow, plain_mask = next(flow_stream_occlusion(vid[:9], tvl1=plain(small), chunk=8,
+                                                        **occ))
+    d_o = max_flow_diff(occ_flow, plain_flow)
+    note(d_o, "TV-L1 flow_stream_occlusion kernel vs plain")
+    require(bool(torch.equal(occ_mask, plain_mask)), "TV-L1 occlusion mask differs from plain")
+    pb_f, pb_b = solve_bidirectional(t1, t2, tvl1=plain(small))
+    d_b = max(max_flow_diff(bidi[0], pb_f), max_flow_diff(bidi[1], pb_b))
+    note(d_b, "TV-L1 solve_bidirectional kernel vs plain")
+    print(f"phase 12 T3 flow_stream tvl1 16 pairs 1080x1920 chunk 8: chunks bitwise = "
+          f"tvl1_solve_batched; {ms_st:.3f} ms end to end from host frames "
+          f"({16 / ms_st * 1e3:.1f} pairs/s); flow_stream_occlusion one window (16 images) "
+          f"max|diff| vs plain {d_o:.3g}, masks equal, occluded share "
+          f"{float(occ_mask.float().mean()):.5f}; solve_bidirectional max|diff| vs plain {d_b:.3g}")
+
+    # -- K5 per call (100 alternations), 1088x1920 and the C2 stack --------------------
+    row = {}
+    for tag, (i1, i2), reps_plain in (("1088x1920", (t1, t2), 3), ("c2_stack", (c2a, c2b), 1)):
+        u1, u2, fields = inner_args(i1, i2, seed=43)
+        px = u1.numel()
+        t_k = event_ms(lambda: k5.tvl1_inner(u1, u2, *fields, 100, *scalars), reps=5)
+        t_p = event_ms(lambda: k5.tvl1_inner_plain(u1, u2, *fields, 100, *scalars),
+                       reps=reps_plain)
+        b_ms, b_by = bound_ms(K5_CALL_ARRAYS * 4 * px, K5_FLOPS_PER_PX_ITER * 100 * px)
+        sched_ms = K5_SCHEDULE_ARRAYS_PER_ITER * 4 * px * 100 / PEAK_BYTES_PER_S * 1e3
+        print(f"kernel hs_tvl1_inner {tuple(u1.shape)}: {t_k:.4f} ms per call of 100 "
+              f"alternations (200 launches), plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); the two-launch schedule's own byte bound {sched_ms:.4f} ms")
+        row[tag] = (t_k, t_p, b_ms, b_by)
+    t_k, t_p, b_ms, b_by = row["c2_stack"]
+    one = row["1088x1920"]
+    return {"name": "hs_tvl1_inner", "route": "cuda",
+            "source": "opticalflowhs_tpu_torch/csrc/tvl1.cu",
+            "replaces": ["opticalflowhs_tpu/kernels/tvl1_inner.py:99"],
+            "launches": launches, "launches_t1_solve": n_t1, "max_abs_err": err,
+            "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "ms_1088x1920": one[0], "plain_ms_1088x1920": one[1],
+            "bound_ms_1088x1920": one[2], "t1_ms": ms_t1, "t1_plain_ms": ms_t1p}
 
 
 def main() -> int:
@@ -672,8 +907,11 @@ def main() -> int:
     require(0.0 < share < 1.0, f"occlusion mask flags all or nothing: {share}")
 
     # -- phases 9-11: SOR and robust -----------------------------------------------
-    err_sr, launches_sr = sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack)
+    err_sr, launches_sr, classic_band = sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack)
     err.update(err_sr)
+
+    # -- phase 12: TV-L1 ------------------------------------------------------------------
+    k5_row = tvl1_path(dev, vid, vid_dev, c2a, c2b, classic_band)
 
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2
@@ -800,7 +1038,7 @@ def main() -> int:
          "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name in source
-    ]
+    ] + [k5_row]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

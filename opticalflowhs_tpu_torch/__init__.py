@@ -1,15 +1,16 @@
-"""opticalflowhs_tpu_torch — Horn-Schunck dense optical flow in PyTorch,
-with hand-written CUDA kernels for NVIDIA Hopper.
+"""opticalflowhs_tpu_torch — Horn-Schunck and TV-L1 dense optical flow in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The PyTorch port of `opticalflowhs_tpu` (the JAX package, which stays the
 reference). It imports torch and numpy and never JAX. Module names mirror
 the reference's:
 
-  config        HSConfig, PyramidConfig, from_reference
+  config        HSConfig, PyramidConfig, TVL1Config, from_reference
   ops/          plain PyTorch stencils (the versions the kernels are held to)
   kernels/      K1 derivatives, K2 Jacobi sweeps, K3 4-color SOR sweeps,
-                K4 IRLS freeze and sweeps (CUDA C++ in csrc/), the
-                whole-solve drivers, the nvcc build
+                K4 IRLS freeze and sweeps, K5 the TV-L1 inner loop (CUDA
+                C++ in csrc/), the whole-solve drivers, the nvcc build
+  tvl1          tvl1_solve, tvl1_solve_batched (TV-L1, the third family)
   solver        Flow, hs_solve, solve_level, precompute, sweeps,
                 sweeps_until (solve to tolerance), tune_omega (SOR)
   robust        the plain Charbonnier IRLS solver (solver="robust")
@@ -27,10 +28,16 @@ runs only when asked for (`device="cpu"`, or CPU tensors).
 """
 
 from opticalflowhs_tpu_torch.batch import hs_solve_batched
-from opticalflowhs_tpu_torch.config import HSConfig, PyramidConfig, from_reference
+from opticalflowhs_tpu_torch.config import (
+    HSConfig,
+    PyramidConfig,
+    TVL1Config,
+    from_reference,
+)
 from opticalflowhs_tpu_torch.consistency import flow_with_occlusion
 from opticalflowhs_tpu_torch.pyramid import hs_pyramid
 from opticalflowhs_tpu_torch.solver import Flow, hs_solve
+from opticalflowhs_tpu_torch.tvl1 import tvl1_solve, tvl1_solve_batched
 from opticalflowhs_tpu_torch.video import flow_stream, flow_stream_warm, flow_video
 
 __version__ = "0.1.0"
@@ -38,11 +45,14 @@ __version__ = "0.1.0"
 __all__ = [
     "HSConfig",
     "PyramidConfig",
+    "TVL1Config",
     "Flow",
     "from_reference",
     "hs_solve",
     "hs_pyramid",
     "hs_solve_batched",
+    "tvl1_solve",
+    "tvl1_solve_batched",
     "flow_stream",
     "flow_stream_warm",
     "flow_video",

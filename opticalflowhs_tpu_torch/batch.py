@@ -9,8 +9,10 @@ and batched banded sweeps; for SOR and IRLS, of its vmapped single-pair
 solve). On the torch backend the plain ops run on the stack; the stencils
 act on the last two axes, so each image is solved on its own.
 
-Sharding a stack over a device mesh (`mesh=`) belongs with `dist/`, which
-is still to be ported (ROADMAP.md queue 1, item 12).
+`solve_stack` picks the family for the stream and consistency entry
+points: HS, or TV-L1 with `tvl1=` (tvl1.tvl1_solve_batched). Sharding a
+stack over a device mesh (`mesh=`) belongs with `dist/`, and `lk=` with the
+Lucas-Kanade family; both are still to be ported (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -19,24 +21,29 @@ from typing import Optional, Sequence
 
 import torch
 
-from opticalflowhs_tpu_torch.config import HSConfig, PyramidConfig
+from opticalflowhs_tpu_torch.config import HSConfig, PyramidConfig, TVL1Config
 from opticalflowhs_tpu_torch.pyramid import (
     gaussian_pyramid,
     upsample_flow,
-    warp,
     warp_bilinear,
     warp_bilinear_tiled,
+    warp_each,
 )
 from opticalflowhs_tpu_torch.solver import Flow, as_frame, check_supported, solve_level
+from opticalflowhs_tpu_torch.tvl1 import tvl1_solve_batched
 
 
 def reject_unported(lk=None, tvl1=None, mesh=None) -> None:
-    """Raise NotImplementedError for the options whose families are still
-    to be ported: `lk=`/`tvl1=` (other flow models) and `mesh=`."""
-    if lk is not None or tvl1 is not None:
+    """Check the family options of the stream and consistency entry points:
+    ValueError for lk= together with tvl1=, as the reference; then
+    NotImplementedError for the options still to be ported, `lk=` (the
+    Lucas-Kanade family) and `mesh=`."""
+    if lk is not None and tvl1 is not None:
+        raise ValueError("pass at most one of lk= and tvl1=")
+    if lk is not None:
         raise NotImplementedError(
-            "lk= and tvl1= need the Lucas-Kanade and TV-L1 families, which "
-            "are not ported yet (ROADMAP.md queue 1, items 10 and 11)"
+            "lk= needs the Lucas-Kanade family, which is not ported yet "
+            "(ROADMAP.md queue 1, item 10)"
         )
     if mesh is not None:
         raise NotImplementedError(
@@ -54,7 +61,7 @@ def _pyramid_batched(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig,
     with the tiled warp at R = 4, each image with its own tile means, and
     reads neither "checked" nor warp_radius. For the other solvers the
     reference vmaps the single-pair body, so each image is warped by
-    `pyramid.warp` with pyr.warp and pyr.warp_radius."""
+    `pyramid.warp`'s rule with pyr.warp and pyr.warp_radius (`warp_each`)."""
     p1 = gaussian_pyramid(i1, pyr.levels)
     p2 = gaussian_pyramid(i2, pyr.levels)
     iters: Sequence[int] = pyr.iters_per_level or (cfg.iters,) * pyr.levels
@@ -67,9 +74,7 @@ def _pyramid_batched(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig,
         else:
             flow = upsample_flow(flow, f1.shape[-2:])
             if cfg.solver != "jacobi":
-                f2w = torch.stack([
-                    warp(f2[k], flow.u[k], flow.v[k], pyr.warp, pyr.warp_radius)
-                    for k in range(f2.shape[0])])
+                f2w = warp_each(f2, flow.u, flow.v, pyr.warp, pyr.warp_radius)
             elif pyr.warp == "gather":
                 f2w = warp_bilinear(f2, flow.u, flow.v)
             else:
@@ -115,6 +120,17 @@ def hs_solve_batched(
     if pyr is not None and pyr.levels > 1:
         return _pyramid_batched(i1, i2, cfg, pyr)
     return solve_level(i1, i2, cfg, cfg.iters)
+
+
+def solve_stack(i1, i2, cfg: HSConfig, pyr: Optional[PyramidConfig] = None,
+                tvl1: Optional[TVL1Config] = None) -> Flow:
+    """A (B, H, W) stack through the chosen family: `hs_solve_batched`
+    with (cfg, pyr), or with `tvl1` the TV-L1 family (cfg is then ignored)
+    on pyr or, when it is None, one level, as the reference's streams."""
+    if tvl1 is not None:
+        return tvl1_solve_batched(i1, i2, tvl1,
+                                  pyr if pyr is not None else PyramidConfig(levels=1))
+    return hs_solve_batched(i1, i2, cfg, pyr)
 
 
 def video_pairs(frames):

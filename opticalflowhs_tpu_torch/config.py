@@ -1,4 +1,4 @@
-"""Solver and pyramid configuration, mirroring opticalflowhs_tpu/config.py.
+"""Solver, pyramid and TV-L1 configuration, mirroring opticalflowhs_tpu/config.py.
 
 The field names, defaults and `__post_init__` checks are the reference's,
 so a configuration moves between the two packages unchanged. Only the
@@ -6,7 +6,7 @@ backend names differ: "torch" is the plain PyTorch path (the counterpart
 of the reference's "jnp") and "cuda" the hand-written Hopper kernels (the
 counterpart of "pallas"). `from_reference` translates a reference config.
 
-Horn-Schunck has no learned weights, so a config plus an optional
+Neither family has learned weights, so a config plus an optional
 warm-start flow is all the state that crosses between the packages.
 """
 
@@ -97,32 +97,78 @@ class PyramidConfig:
             raise ValueError("iters_per_level must match levels")
 
 
+@dataclass(frozen=True)
+class TVL1Config:
+    """TV-L1 flow configuration (tvl1.py): L1 data term, total-variation
+    prior, duality-based alternation (Zach, Pock & Bischof 2007)."""
+
+    lambda_: float = 0.15       # data-term weight, in the [0, 255]-intensity
+                                # convention: tvl1_solve rescales each pair
+                                # jointly to [0, 255] first
+    theta: float = 0.3          # quadratic-coupling relaxation parameter
+    tau: float = 0.25           # dual ascent step (stable for tau <= 1/4)
+    warps: int = 5              # warp-and-relinearize steps per level
+    warps_per_level: Tuple[int, ...] = ()  # per-level override of `warps`
+                                # (finest first, like iters_per_level);
+                                # pyr.iters_per_level is not read
+    iters: int = 100            # v/u alternations per warp iteration
+    median: bool = True         # 3x3 median of the flow after each warp
+    dtype: str = "float32"      # compute dtype (the port runs float32 only)
+    backend: str = "auto"       # inner loop: cuda (K5) for CUDA frames,
+                                # torch otherwise
+    warp: str = "auto"          # tiled | gather | checked | auto (= checked)
+
+    def __post_init__(self):
+        if self.lambda_ <= 0 or self.theta <= 0:
+            raise ValueError("lambda_ and theta must be > 0")
+        if not 0 < self.tau <= 0.25:
+            raise ValueError("tau must be in (0, 0.25] (Chambolle stability)")
+        if self.warps < 1 or self.iters < 1:
+            raise ValueError("warps and iters must be >= 1")
+        if any(w < 1 for w in self.warps_per_level):
+            raise ValueError("warps_per_level entries must be >= 1")
+        if self.warp not in ("auto", "tiled", "gather", "checked"):
+            raise ValueError("warp must be auto|tiled|gather|checked")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}")
+
+
 _HS_FIELDS = {f.name for f in dataclasses.fields(HSConfig)}
 _PYR_FIELDS = {f.name for f in dataclasses.fields(PyramidConfig)}
+_TVL1_FIELDS = {f.name for f in dataclasses.fields(TVL1Config)}
 
 
-def from_reference(d: dict[str, Any]) -> HSConfig | PyramidConfig:
+def _translate(d: dict[str, Any]) -> dict[str, Any]:
+    """The reference's values in the port's terms: backend renamed, lists
+    (from JSON) made tuples."""
+    vals = dict(d)
+    if "backend" in vals:
+        if vals["backend"] not in _BACKEND_FROM_REFERENCE:
+            raise ValueError(f"unknown reference backend {vals['backend']!r}")
+        vals["backend"] = _BACKEND_FROM_REFERENCE[vals["backend"]]
+    for key in ("iters_per_level", "warps_per_level"):
+        if key in vals:
+            vals[key] = tuple(int(n) for n in vals[key])
+    return vals
+
+
+def from_reference(d: dict[str, Any]) -> HSConfig | PyramidConfig | TVL1Config:
     """Build the port's config from a reference config.
 
-    `d` is `dataclasses.asdict()` of an opticalflowhs_tpu HSConfig or
-    PyramidConfig, or the "hs" / "pyramid" section of a configs/*.json
-    file. The class is chosen by the field names; backend "jnp" maps to
-    "torch" and "pallas" to "cuda".
+    `d` is `dataclasses.asdict()` of an opticalflowhs_tpu HSConfig,
+    PyramidConfig or TVL1Config, or the "hs" / "pyramid" / "tvl1" section
+    of a configs/*.json file. The class is chosen by the field names, tried
+    in that order: a dict whose keys fit more than one class (such as
+    {"iters": 50}, which fits HSConfig and TVL1Config, or {"warp": "gather"},
+    which fits PyramidConfig and TVL1Config) resolves to the first. Backend
+    "jnp" maps to "torch" and "pallas" to "cuda".
     """
     keys = set(d)
-    if keys <= _HS_FIELDS:
-        vals = dict(d)
-        if "backend" in vals:
-            if vals["backend"] not in _BACKEND_FROM_REFERENCE:
-                raise ValueError(f"unknown reference backend {vals['backend']!r}")
-            vals["backend"] = _BACKEND_FROM_REFERENCE[vals["backend"]]
-        return HSConfig(**vals)
-    if keys <= _PYR_FIELDS:
-        vals = dict(d)
-        if "iters_per_level" in vals:
-            vals["iters_per_level"] = tuple(int(n) for n in vals["iters_per_level"])
-        return PyramidConfig(**vals)
+    for fields, cls in ((_HS_FIELDS, HSConfig), (_PYR_FIELDS, PyramidConfig),
+                        (_TVL1_FIELDS, TVL1Config)):
+        if keys <= fields:
+            return cls(**_translate(d))
     raise ValueError(
-        f"fields {sorted(keys - _HS_FIELDS)} match neither HSConfig nor "
-        "PyramidConfig"
+        f"fields {sorted(keys - _HS_FIELDS)} match none of HSConfig, "
+        "PyramidConfig and TVL1Config"
     )

@@ -2,7 +2,10 @@
 
   derivatives.py     K1 hs_derivatives: Ex, Ey, Et, 1/den (+ zero-start sweep)
   jacobi.py          K2 hs_jacobi_sweeps: temporally blocked Jacobi sweeps
-  solve_resident.py  the whole-solve driver: K1, then a chain of K2 launches
+  sor.py             K3 hs_sor_sweeps: temporally blocked 4-color SOR sweeps
+  solve_robust.py    K4 hs_robust_freeze/_sweeps: the IRLS solve
+  solve_resident.py  the whole-solve drivers: K1, then a chain of K2 or K3
+  tvl1_inner.py      K5 hs_tvl1_inner: the TV-L1 inner loop (u- and p-steps)
   _build.py          nvcc build at first use, ctypes binding
 
 Importing these modules builds nothing: the library is built and loaded at

@@ -54,6 +54,9 @@ SIGNATURES = {
     # u, v, ex, ey, et, wd, ws, uo, vo, b, h, w, sweeps, alpha^2, tile_h,
     # tile_w, threads, device, stream
     "hs_robust_sweeps": [_P] * 9 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
+    # u1, u2, rho0, gx, gy, inv_g2, th, p1x, p1y, p2x, p2y, b, h, w, iters,
+    # theta, sigma, lambda*theta, device, stream
+    "hs_tvl1_inner": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_I, _P],
 }
 
 # Largest batch one launch takes: CUDA's limit on gridDim.z.

@@ -213,23 +213,44 @@ def warp_bilinear_tiled(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
 
 def tile_deviation(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Max |integer displacement - its tile's rounded mean| (0-d tensor)."""
+    """Max |integer displacement - its tile's rounded mean|: a 0-d tensor
+    for an (H, W) flow, one value per image for a (B, H, W) stack."""
     h, w = u.shape[-2:]
     _, _, _, _, dy, dx, byt, bxt = _tile_offsets(h, w, u, v)
-    return torch.maximum(torch.abs(dy - byt).max(), torch.abs(dx - bxt).max())
+    return torch.maximum(torch.abs(dy - byt).amax(dim=(-2, -1)),
+                         torch.abs(dx - bxt).amax(dim=(-2, -1)))
+
+
+def _rung(dev: float) -> int:
+    """The exactness ladder's rung at deviation `dev`: 0 the tiled warp at
+    R = 4, 1 at R = 8, 2 the gather."""
+    return 0 if dev <= float(_WARP_R) else 1 if dev <= 8.0 else 2
+
+
+def _warp_rung(img, u, v, rung: int) -> torch.Tensor:
+    if rung == 2:
+        return warp_bilinear(img, u, v)
+    return warp_bilinear_tiled(img, u, v, _WARP_R if rung == 0 else 8)
 
 
 def warp_bilinear_checked(img: torch.Tensor, u: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
     """The reference's exactness ladder: the tiled warp at R = 4 while the
     per-tile deviation is <= 4, at R = 8 while it is <= 8, else the gather.
-    Reading the deviation synchronises with the device once."""
-    dev = float(tile_deviation(u, v))
-    if dev <= float(_WARP_R):
-        return warp_bilinear_tiled(img, u, v, _WARP_R)
-    if dev <= 8.0:
-        return warp_bilinear_tiled(img, u, v, 8)
-    return warp_bilinear(img, u, v)
+
+    A (B, H, W) stack with a flow per image is the reference's vmapped
+    ladder: each image takes the rung of its own deviation, and the images
+    of one rung are warped together. Reading the deviations synchronises
+    with the device once, for one image or a stack."""
+    rungs = [_rung(d) for d in tile_deviation(u, v).reshape(-1).tolist()]
+    if len(set(rungs)) == 1:
+        return _warp_rung(img, u, v, rungs[0])
+    out = torch.empty_like(img)
+    for rung in set(rungs):
+        idx = torch.tensor([k for k, r in enumerate(rungs) if r == rung],
+                           device=img.device)
+        out[idx] = _warp_rung(img[idx], u[idx], v[idx], rung)
+    return out
 
 
 def warp(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
@@ -238,6 +259,19 @@ def warp(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     4 for 0), "gather" (plain bilinear), "checked" (tiled while exact, else
     gather)."""
     if method == "gather" or img.ndim != 2:
+        return warp_bilinear(img, u, v)
+    if method == "checked":
+        return warp_bilinear_checked(img, u, v)
+    return warp_bilinear_tiled(img, u, v, radius)
+
+
+def warp_each(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+              method: str = "auto", radius: int = _WARP_R) -> torch.Tensor:
+    """`warp`'s rule applied to each image of a (B, H, W) stack with its own
+    flow, as the reference's vmap of the single-pair warp: each image takes
+    its own tile means and its own rung of the checked ladder (one host sync
+    for the whole stack). On an (H, W) image it is `warp`."""
+    if method == "gather":
         return warp_bilinear(img, u, v)
     if method == "checked":
         return warp_bilinear_checked(img, u, v)

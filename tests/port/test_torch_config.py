@@ -1,5 +1,6 @@
 """The port's configs against the reference's: same fields, defaults and
-ValueErrors; `from_reference` on every configs/*.json section."""
+ValueErrors; `from_reference` on every configs/*.json section and on the
+reference's HSConfig, PyramidConfig and TVL1Config."""
 
 import dataclasses
 import json
@@ -15,7 +16,8 @@ CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
 
 @pytest.mark.parametrize(
     "ref_cls,port_cls",
-    [(ref.HSConfig, port.HSConfig), (ref.PyramidConfig, port.PyramidConfig)],
+    [(ref.HSConfig, port.HSConfig), (ref.PyramidConfig, port.PyramidConfig),
+     (ref.TVL1Config, port.TVL1Config)],
 )
 def test_fields_and_defaults_match(ref_cls, port_cls):
     ref_fields = [(f.name, f.default) for f in dataclasses.fields(ref_cls)]
@@ -31,6 +33,9 @@ def test_backend_names():
     port.HSConfig(backend="cuda")
     with pytest.raises(ValueError):
         port.HSConfig(backend="pallas")
+    port.TVL1Config(backend="cuda")
+    with pytest.raises(ValueError):
+        port.TVL1Config(backend="pallas")
 
 
 @pytest.mark.parametrize(
@@ -73,6 +78,26 @@ def test_pyramid_value_errors_match(kwargs):
     assert str(port_err.value) == str(ref_err.value)
 
 
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        {"lambda_": 0.0},
+        {"theta": -1.0},
+        {"tau": 0.3},
+        {"warps": 0},
+        {"iters": 0},
+        {"warps_per_level": (2, 0)},
+        {"warp": "nearest"},
+    ],
+)
+def test_tvl1_value_errors_match(kwargs):
+    with pytest.raises(ValueError) as ref_err:
+        ref.TVL1Config(**kwargs)
+    with pytest.raises(ValueError) as port_err:
+        port.TVL1Config(**kwargs)
+    assert str(port_err.value) == str(ref_err.value)
+
+
 @pytest.mark.parametrize("path", sorted(CONFIG_DIR.glob("*.json")), ids=lambda p: p.name)
 def test_from_reference_on_config_files(path):
     data = json.loads(path.read_text())
@@ -100,6 +125,20 @@ def test_from_reference_on_asdict(backend, expect):
         ref.PyramidConfig(levels=2, iters_per_level=(5, 9), warp="checked")
     ))
     assert pyr == port.PyramidConfig(levels=2, iters_per_level=(5, 9), warp="checked")
+
+
+@pytest.mark.parametrize("backend,expect", [("jnp", "torch"), ("pallas", "cuda"), ("auto", "auto")])
+def test_from_reference_on_tvl1_asdict(backend, expect):
+    tv = port.from_reference(dataclasses.asdict(
+        ref.TVL1Config(lambda_=0.2, warps_per_level=(3, 1), backend=backend, warp="gather")
+    ))
+    assert tv == port.TVL1Config(lambda_=0.2, warps_per_level=(3, 1), backend=expect,
+                                 warp="gather")
+    # A dict whose keys fit more than one class resolves to the first of
+    # HSConfig, PyramidConfig, TVL1Config.
+    assert isinstance(port.from_reference({"iters": 50}), port.HSConfig)
+    assert isinstance(port.from_reference({"warp": "gather"}), port.PyramidConfig)
+    assert isinstance(port.from_reference({"warps": 2}), port.TVL1Config)
 
 
 def test_from_reference_rejects_unknown_fields():

@@ -1,10 +1,11 @@
-"""K1, K2, K3, K4 and the whole-solve drivers on a CUDA card against their
+"""K1-K5 and the whole-solve drivers on a CUDA card against their
 plain versions on the same card, at edge-case shapes (partial tiles, frames
 narrower or shorter than a tile, one row, one column) and sweep counts
 that the sweeps per launch do not divide; single frames and (B, H, W)
 stacks, where each image of a batched launch must equal the single-frame
 kernel on that image; the launch counts; and the single, batched and
-streaming entry points with the Jacobi, SOR and IRLS solvers.
+streaming entry points with the Jacobi, SOR and IRLS solvers and with
+TV-L1.
 
 Marked `cuda`: they skip without a card. They import no JAX, so on a
 machine without it they run with the repository's conftest left out:
@@ -22,20 +23,26 @@ import torch
 from opticalflowhs_tpu_torch import (
     HSConfig,
     PyramidConfig,
+    TVL1Config,
     flow_stream,
     flow_stream_warm,
     hs_pyramid,
     hs_solve,
     hs_solve_batched,
+    tvl1_solve,
+    tvl1_solve_batched,
 )
 from opticalflowhs_tpu_torch import robust
+from opticalflowhs_tpu_torch import tvl1 as tv
 from opticalflowhs_tpu_torch.consistency import solve_bidirectional
 from opticalflowhs_tpu_torch.kernels import derivatives as k1
 from opticalflowhs_tpu_torch.kernels import jacobi as k2
 from opticalflowhs_tpu_torch.kernels import solve_resident as sr
 from opticalflowhs_tpu_torch.kernels import solve_robust as k4
 from opticalflowhs_tpu_torch.kernels import sor as k3
+from opticalflowhs_tpu_torch.kernels import tvl1_inner as k5
 from opticalflowhs_tpu_torch.solver import tune_omega
+from opticalflowhs_tpu_torch.video import flow_stream_occlusion
 
 pytestmark = pytest.mark.cuda
 
@@ -311,3 +318,72 @@ def test_tune_omega_on_the_card_equals_plain(dev):
         # order, which can move the rounded omega by one step at most.
         assert abs(om - tune_omega(i1.cpu(), i2.cpu(), HSConfig(alpha=alpha),
                                    power_iters=60)) <= 0.01 + 1e-9
+
+
+# -- K5 (the TV-L1 inner loop) and the TV-L1 entry points ----------------------
+
+
+def _tvl1_fields(shape, dev, seed):
+    """Warm (u1, u2) and the inner loop's fields, computed as
+    tvl1_warp_iteration computes them, from a pair on the [0, 255] scale."""
+    i1, i2 = (255.0 * a for a in _rand(shape, dev, seed))
+    u1, u2 = _rand(shape, dev, seed + 1, normal=True)
+    cfg = TVL1Config()
+    return u1, u2, tv.inner_fields(i1, i2, u1, u2, cfg), tv.inner_scalars(cfg)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("iters", [1, 7])
+def test_k5_equals_plain(dev, shape, b, iters):
+    u1, u2, fields, scalars = _tvl1_fields((b,) + shape, dev, 25)
+    keep = (u1.clone(), u2.clone())
+    k5.tvl1_inner.launches = 0
+    got = k5.tvl1_inner(u1, u2, *fields, iters, *scalars)
+    assert k5.tvl1_inner.launches == 2 * iters
+    _equal(got, k5.tvl1_inner_plain(u1, u2, *fields, iters, *scalars))
+    _equal((u1, u2), keep)  # inputs untouched
+    for k in range(b):
+        one = k5.tvl1_inner(u1[k], u2[k], *(f[k] for f in fields), iters, *scalars)
+        _equal([g[k] for g in got], one)
+
+
+def test_k5_rejects_bad_tensors(dev):
+    u1, u2, fields, scalars = _tvl1_fields((16, 24), dev, 26)
+    with pytest.raises(ValueError, match="float32"):
+        k5.tvl1_inner(u1.double(), u2.double(), *(f.double() for f in fields), 3, *scalars)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.tvl1_inner(u1[:, ::2], u2[:, ::2], *(f[:, ::2] for f in fields), 3, *scalars)
+    with pytest.raises(ValueError, match="device"):
+        k5.tvl1_inner(u1, u2.cpu(), *fields, 3, *scalars)
+    # backend="cuda" takes CUDA frames only; nothing falls back to the CPU.
+    with pytest.raises(ValueError, match="CUDA"):
+        tvl1_solve(u1.cpu(), u2.cpu(), TVL1Config(backend="cuda"))
+
+
+def test_tvl1_entry_points_run_k5(dev):
+    i1, i2 = _rand((3, 96, 128), dev, 27)
+    i2 = 0.8 * i1 + 0.2 * i2  # correlated frames, so the flow is not noise
+    cfg = TVL1Config(warps=2, iters=10)
+    plain = TVL1Config(warps=2, iters=10, backend="torch")
+    pyr = PyramidConfig(levels=2)
+    k5.tvl1_inner.launches = 0
+    got = tvl1_solve(i1[0], i2[0], cfg, pyr)
+    assert k5.tvl1_inner.launches == 2 * 10 * 2 * 2  # u- and p-step, iters, warps, levels
+    _equal(got, tvl1_solve(i1[0], i2[0], plain, pyr))
+    k5.tvl1_inner.launches = 0
+    stack = tvl1_solve_batched(i1, i2, cfg)
+    assert k5.tvl1_inner.launches == 2 * 10 * 2  # one chain for the whole stack
+    _equal(stack, tvl1_solve_batched(i1, i2, plain))
+    for k in range(3):
+        _equal([a[k] for a in stack], tvl1_solve(i1[k], i2[k], cfg))
+    vid = torch.cat([i1, i2[-1:]])
+    chunks = list(flow_stream(vid, tvl1=cfg, chunk=2))
+    whole = tvl1_solve_batched(vid[:-1], vid[1:], cfg)
+    _equal((torch.cat([c.u for c in chunks]), torch.cat([c.v for c in chunks])), whole)
+    (f, m), (fp, mp) = (next(flow_stream_occlusion(vid, tvl1=c, chunk=3)) for c in (cfg, plain))
+    _equal(f, fp)
+    assert torch.equal(m, mp)
+    for a, b in zip(solve_bidirectional(i1[0], i2[0], tvl1=cfg),
+                    solve_bidirectional(i1[0], i2[0], tvl1=plain)):
+        _equal(a, b)

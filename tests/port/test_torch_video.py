@@ -98,7 +98,16 @@ def test_flow_stream_rejects_bad_args():
     with pytest.raises(ValueError, match="T, H, W"):
         list(video.flow_stream(np.zeros((8, 8), np.float32), device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        list(video.flow_stream(_video(), tvl1=object(), device="cpu"))
+        list(video.flow_stream(_video(), lk=object(), device="cpu"))
+
+
+@pytest.mark.parametrize("entry", ["flow_stream", "flow_stream_occlusion", "flow_video"])
+def test_lk_and_tvl1_together_raise(entry):
+    both = dict(lk=object(), tvl1=object(), device="cpu")
+    with pytest.raises(ValueError, match="at most one of lk= and tvl1="):
+        out = getattr(video, entry)(_video(), **both)
+        if entry != "flow_video":  # the streams are generators
+            next(out)
 
 
 @pytest.mark.parametrize("warp_prior", [False, True])

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's batched and streaming paths on one CUDA card.
+"""Time the PyTorch port's batched, streaming and TV-L1 paths on one CUDA
+card.
 
-    python3 tools/torch_stream_timing.py [--repo DIR] [--runs N] [--profile]
+    python3 tools/torch_stream_timing.py [--repo DIR] [--runs N] [--profile] [--tvl1]
 
 Imports opticalflowhs_tpu_torch from DIR (default: this checkout), so two
 trees can be compared in one session on one card (run them in turns:
@@ -12,11 +13,17 @@ A, B, B, A). The cells are chip_smoke.py's, taken from this checkout:
     configs/c4_hd_streaming.json, chunk 8: staging the windows alone (host
     copies and H2D, no solve), flow_stream, and flow_stream_warm with the
     warp prior at 25 sweeps.
+With --tvl1 the cells are chip_smoke.py's phase 12 instead:
+  * T1: tvl1_solve on `t1_pair` (1088x1920), 3 levels, TVL1Config();
+  * T2: tvl1_solve on `t2_pair` (the 1080p two-motion seam), one level;
+  * T3: tvl1_solve_batched on 4 pairs of `c4_video`, warps 2, iters 30.
 Each time is chip_smoke.median_ms over N runs.
 
 With --profile it also traces one call of each with torch.profiler and
-reports wall time, device time of kernels and of copies, and the busy
-share (kernel time over wall time).
+reports wall time, device time of kernels and of copies, the busy share
+(kernel time over wall time), the device time of K5's kernels, and for
+tvl1.median3 (a record_function range) the device time of the kernels it
+launches and its span on the device timeline.
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -49,9 +56,18 @@ def profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernel_us = copy_us = 0.0
+    kernel_us = copy_us = k5_us = minmax_us = 0.0
+    median3 = {"kernels_ms": None, "span_ms": None}
     by_name: dict[str, float] = {}
     for e in prof.key_averages():
+        if e.key == "median3":
+            # The range twice: on the host, with the device time of the
+            # kernels launched inside it; on the device timeline, as the
+            # span from its first to its last kernel, gaps included.
+            on_device = e.device_type == torch.autograd.DeviceType.CUDA
+            median3["span_ms" if on_device else "kernels_ms"] = float(
+                e.self_device_time_total if on_device else e.device_time_total) / 1e3
+            continue
         # Device-side entries only: a CPU op (aten::copy_, aten::add) also
         # carries the device time of what it launched.
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -63,11 +79,40 @@ def profile(fn) -> dict:
             copy_us += us
         else:
             kernel_us += us
+        if "u_step_kernel" in e.key or "p_step_kernel" in e.key:
+            k5_us += us
+        if "minimum" in e.key or "maximum" in e.key:
+            minmax_us += us
         by_name[e.key] = us
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall, "kernel_ms": kernel_us / 1e3, "copy_ms": copy_us / 1e3,
-            "busy_share": kernel_us / 1e3 / wall,
+            "busy_share": kernel_us / 1e3 / wall, "k5_ms": k5_us / 1e3,
+            "median3_kernels_ms": median3["kernels_ms"], "median3_span_ms": median3["span_ms"],
+            "min_max_kernels_ms": minmax_us / 1e3,
             "top": [[k[:60], v / 1e3] for k, v in top]}
+
+
+def tvl1_calls(p, dev) -> dict:
+    """chip_smoke.py's phase-12 cells T1, T2 and T3, with tvl1.median3 in a
+    record_function range so that a trace can attribute its kernels."""
+    from opticalflowhs_tpu_torch import tvl1
+
+    median3 = tvl1.median3
+
+    def traced_median3(a):
+        with torch.profiler.record_function("median3"):
+            return median3(a)
+
+    tvl1.median3 = traced_median3
+    t1, t2, _ = chip_smoke.t1_pair(dev)
+    m1, m2, _ = chip_smoke.t2_pair(dev)
+    vid = torch.from_numpy(chip_smoke.c4_video()[0][:5]).to(dev)
+    small = p.TVL1Config(warps=2, iters=30)
+    return {
+        "t1_tvl1_solve_L3": lambda: p.tvl1_solve(t1, t2, p.TVL1Config(), p.PyramidConfig(levels=3)),
+        "t2_tvl1_seam": lambda: p.tvl1_solve(m1, m2, p.TVL1Config()),
+        "t3_tvl1_batched_4": lambda: p.tvl1_solve_batched(vid[:4], vid[1:5], small),
+    }
 
 
 def main() -> int:
@@ -75,6 +120,7 @@ def main() -> int:
     ap.add_argument("--repo", default=str(HERE))
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--tvl1", action="store_true", help="time the TV-L1 cells T1-T3")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_stream_timing: no CUDA device", file=sys.stderr)
@@ -84,6 +130,8 @@ def main() -> int:
     from opticalflowhs_tpu_torch import video
 
     dev = torch.device("cuda", 0)
+    if args.tvl1:
+        return report(args, tvl1_calls(p, dev))
     cfg2 = chip_smoke.cell_config("c2_video_batch.json")
     cfg4 = chip_smoke.cell_config("c4_hd_streaming.json")
     cfg4w = dataclasses.replace(cfg4, iters=25)
@@ -105,8 +153,13 @@ def main() -> int:
         for _ in p.flow_stream_warm(vid, cfg4w, chunk=8, warp_prior=True):
             pass
 
-    calls = {"c2_batched_8": c2, "c4_stage_windows": stage, "c4_flow_stream": stream,
-             "c4_flow_stream_warm": warm}
+    return report(args, {"c2_batched_8": c2, "c4_stage_windows": stage,
+                         "c4_flow_stream": stream, "c4_flow_stream_warm": warm})
+
+
+def report(args, calls: dict) -> int:
+    """Median ms of each call (and with --profile its trace), then the
+    card's name and power limit and one JSON line."""
     out = {"repo": args.repo, "runs": args.runs,
            "median_ms": {k: chip_smoke.median_ms(fn, args.runs) for k, fn in calls.items()}}
     if args.profile:
