@@ -27,7 +27,15 @@ each ran through the kernels:
               TV-L1 at full size: tvl1_solve 1088x1920 L3 (T1), the 1080p
               seam against phase 11's classic HS (T2), tvl1_solve_batched
               on 4 x 1080p, flow_stream, flow_stream_occlusion and
-              solve_bidirectional with tvl1= (T3).
+              solve_bidirectional with tvl1= (T3);
+  phase 13:   K6 and K7 (the whole Jacobi solve in one sweep launch, u/v
+              ping-pong and in place) against their plain versions and the
+              K1 + K2 chain, 67x93, 131x130 (small forced geometries) and
+              1088x1920 central, B 1 and 3, n 7, 9, 100, zero and warm;
+              then frames past the resident class through the entry
+              points: hs_solve 2160x3840 (L1, K7) and 4320x7680 (L2, K6)
+              i100, hs_pyramid 4K L3 (L3), the batched twins on 2 x 4K
+              (L4) and hs_solve_checkpointed 4K i200 (L5).
 Every phase checks what it measures and any failure exits non-zero.
 Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
@@ -35,9 +43,11 @@ Output: one line of numbers per phase; then, on lines of their own, the
 card's name and power limit as nvidia-smi gives them, and a JSON object
 {"kernels": [...]} (per kernel: launches on the batched path for K1 and
 K2, on the SOR and robust path for K3 and K4, on the TV-L1 path for K5,
-max |diff| against the plain version, ms per launch for the kernel and the
-plain version at 8 x 1088x1920 (for K5 per call of 100 alternations), and
-the least time the card could take); the last line is
+on phase 13's path for K6 and K7, max |diff| against the plain version, ms
+per launch for the kernel and the plain version at 8 x 1088x1920 (for K5
+per call of 100 alternations; for K6 and K7 per whole solve, K1 included,
+at 4320x7680 and 2160x3840 i100), and the least time the card could
+take); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -89,6 +99,11 @@ K4_FLOPS_PER_PX_SWEEP = 52
 K5_FLOPS_PER_PX_ITER = 51
 K5_CALL_ARRAYS = 9
 K5_SCHEDULE_ARRAYS_PER_ITER = 23
+# A whole Jacobi solve from zero (K1 with its first sweep, then n - 1
+# sweeps) reads two frames and writes two flows; a K6/K7 sweep block moves
+# K2's 8 arrays.
+SOLVE_ARRAYS = 4
+SWEEP_BLOCK_ARRAYS = 8
 OMEGA = 1.71  # the SOR workloads' omega, as tools/hw_sor_resident_ab.py
 
 
@@ -591,6 +606,244 @@ def tvl1_path(dev, vid, vid_dev, c2a, c2b, classic_band: float) -> dict:
             "bound_ms_1088x1920": one[2], "t1_ms": ms_t1, "t1_plain_ms": ms_t1p}
 
 
+def peak_bytes(fn) -> int:
+    """Peak device memory that `fn` allocates beyond what was allocated
+    before it (torch.cuda.max_memory_allocated)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def beyond_resident(dev, frames, stack, s1, s2) -> list:
+    """Phase 13: K6 and K7 against their plain versions and the K1 + K2
+    chain, then frames past the resident class through the entry points,
+    counted: L1 hs_solve 2160x3840 i100 (K7), L2 4320x7680 i100 and 1088x1920
+    central i100 (K6), L3 hs_pyramid 4K L3, L4 the batched twins on 2 x 4K,
+    L5 hs_solve_checkpointed 4K i200; C1 beside them keeps its K1 + K2
+    chain. Returns the K6 and K7 rows of the kernels line."""
+    import tempfile
+
+    from opticalflowhs_tpu_torch import (
+        HSConfig,
+        PyramidConfig,
+        hs_pyramid,
+        hs_solve,
+        hs_solve_checkpointed,
+    )
+    from opticalflowhs_tpu_torch.checkpoint import frames_hash, save_state
+    from opticalflowhs_tpu_torch.data.synthetic import translation_pair
+    from opticalflowhs_tpu_torch.kernels import derivatives as k1
+    from opticalflowhs_tpu_torch.kernels import jacobi as k2
+    from opticalflowhs_tpu_torch.kernels import solve_fused as k6
+    from opticalflowhs_tpu_torch.kernels import solve_resident as sr
+    from opticalflowhs_tpu_torch.kernels import solve_skewed as k7
+    from opticalflowhs_tpu_torch.metrics import epe, interior
+
+    err = {"hs_solve_fused": 0.0, "hs_solve_skewed": 0.0}
+
+    def note(name, got, want, what):
+        d = max_flow_diff(got, want)
+        err[name] = max(err[name], d)
+        require(d <= TOL, f"{what}: max|diff| {d}")
+        return d
+
+    def same(a, b, what):
+        require(bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])),
+                f"{what}: not bitwise equal")
+
+    # -- phase 13: K6 and K7 against plain and the K1 + K2 chain ----------------
+    # Small frames with small forced geometries (K6 on 2 blocks, so that
+    # each loops over several tiles; K7 in 16-row bands), and 1088x1920
+    # central at the kernels' own geometry.
+    for b, h, w in ((1, 67, 93), (3, 67, 93), (1, 131, 130), (3, 131, 130), (1, 1088, 1920)):
+        small = h < 1000
+        variant = "hs_cube" if small else "central"
+        i1, i2 = (a.squeeze(0) for a in stack(b, h, w, seed=50))
+        u0, v0 = (a.squeeze(0) for a in stack(b, h, w, seed=51, normal=True))
+        geo6 = dict(blocks=2) if small else {}
+        geo7 = dict(band=16) if small else {}
+        d6 = d7 = 0.0
+        for n in (7, 9, 100):
+            for init in ((None, None), (u0, v0)):
+                want = k6.hs_solve_fused_plain(i1, i2, 0.5, n, variant, *init)
+                chain = sr.hs_solve_resident(i1, i2, 0.5, n, variant, *init)
+                got6 = k6.hs_solve_fused(i1, i2, 0.5, n, variant, *init, **geo6)
+                got7 = k7.hs_solve_skewed(i1, i2, 0.5, n, variant, *init, **geo7)
+                start = "zero" if init[0] is None else "warm"
+                what = f"{b}x{h}x{w} {variant} n={n} {start}"
+                d6 = max(d6, note("hs_solve_fused", got6, want, f"K6 {what}"))
+                d7 = max(d7, note("hs_solve_skewed", got7, want, f"K7 {what}"))
+                same(got6, chain, f"K6 vs the K1 + K2 chain {what}")
+                same(got7, chain, f"K7 vs the K1 + K2 chain {what}")
+                if b > 1 and init[0] is None:
+                    for k in range(b):
+                        one = k6.hs_solve_fused(i1[k], i2[k], 0.5, n, variant)
+                        same((got6[0][k], got6[1][k]), one, f"K6 stack image {k} {what}")
+                        same((got7[0][k], got7[1][k]), one, f"K7 stack image {k} {what}")
+        print(f"phase 13 K6/K7 B={b} {h}x{w} {variant} n=7,9,100 zero+warm "
+              f"{'(K6 on 2 blocks, K7 in 16-row bands)' if small else '(own geometry)'}: "
+              f"max|diff| vs plain K6 {d6:.3g} K7 {d7:.3g}; = the K1 + K2 chain bitwise"
+              + ("; stack = singles" if b > 1 else ""))
+
+    # -- the beyond-resident path, counted --------------------------------------
+    cfg = HSConfig(alpha=0.5, iters=100)
+    cfg_c = HSConfig(alpha=0.5, iters=100, deriv_variant="central")
+    cfg3 = HSConfig(alpha=1.0, iters=100)
+    pyr3 = PyramidConfig(levels=3)
+    cfg_ck = HSConfig(alpha=0.5, iters=200, checkpoint_every=100)
+    q1, q2 = frames(2160, 3840, seed=0)
+    e1, e2 = frames(4320, 7680, seed=0)
+    t0 = time.perf_counter()
+    p1, p2, gt = translation_pair(2160, 3840, 3.0, 1.5, key=0, max_freq=0.06)
+    print(f"phase 13 pyramid pair 2160x3840 made in {time.perf_counter() - t0:.3f} s (host)")
+    p1, p2 = torch.from_numpy(p1).to(dev), torch.from_numpy(p2).to(dev)
+    ba, bb = stack(2, 2160, 3840, seed=0)
+    ckdir = tempfile.mkdtemp(prefix="hsflow_ck_")
+    ck = str(Path(ckdir) / "l5.npz")
+    counters = {"K1": k1.hs_derivatives, "K2": k2.jacobi_sweeps,
+                "K6": k6.hs_solve_fused, "K7": k7.hs_solve_skewed}
+    per_call = {}
+
+    def counted(tag, fn):
+        before = {n: c.launches for n, c in counters.items()}
+        out = fn()
+        per_call[tag] = {n: c.launches - before[n] for n, c in counters.items()}
+        return out
+
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    f_l1 = counted("L1", lambda: hs_solve(q1, q2, cfg))
+    f_l2 = counted("L2", lambda: hs_solve(e1, e2, cfg))
+    f_l2c = counted("L2 central", lambda: hs_solve(s1, s2, cfg_c))
+    f_c1 = counted("C1", lambda: hs_solve(s1, s2, cfg))
+    f_l3 = counted("L3", lambda: hs_pyramid(p1, p2, cfg3, pyr3))
+    f_l4f = counted("L4 fused", lambda: k6.hs_solve_fused_batched(ba, bb, 0.5, 100))
+    f_l4s = counted("L4 skewed", lambda: k7.hs_solve_skewed_batched(ba, bb, 0.5, 100))
+    f_l5 = counted("L5", lambda: hs_solve_checkpointed(q1, q2, cfg_ck, ck))
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"beyond-resident path launches (L1, L2, L2 central, C1, L3, L4, L5): {launches}; "
+          f"per call {per_call}")
+    want = {"L1": (1, 0, 0, 1), "L2": (1, 0, 1, 0), "L2 central": (1, 0, 1, 0),
+            "C1": (1, 13, 0, 0), "L4 fused": (1, 0, 1, 0), "L4 skewed": (1, 0, 0, 1),
+            "L5": (2, 0, 0, 2)}
+    for tag, counts in want.items():
+        require(tuple(per_call[tag].values()) == counts,
+                f"{tag} launches {per_call[tag]}, expected K1, K2, K6, K7 = {counts}")
+    require(per_call["L3"]["K7"] == 1 and per_call["L3"]["K1"] == 3
+            and per_call["L3"]["K6"] == 0 and per_call["L3"]["K2"] > 0,
+            f"L3 launches {per_call['L3']}")
+
+    def plain(c):
+        return dataclasses.replace(c, backend="torch")
+
+    # -- L1: hs_solve 2160x3840 i100 through K7 ----------------------------------
+    for f, shape in ((f_l1, (2160, 3840)), (f_l2, (4320, 7680)), (f_l3, (2160, 3840)),
+                     (f_l4f, (2, 2160, 3840)), (f_l4s, (2, 2160, 3840)), (f_l5, (2160, 3840))):
+        for a in f:
+            require(tuple(a.shape) == shape and bool(torch.isfinite(a).all()),
+                    f"phase 13 output shape/finite {shape}")
+    same(f_c1, sr.hs_solve_resident(s1, s2, 0.5, 100), "C1 vs the K1 + K2 chain")
+    rows = {}
+    for tag, name, (a, b), f in (("L1", "hs_solve_skewed", (q1, q2), f_l1),
+                                 ("L2", "hs_solve_fused", (e1, e2), f_l2)):
+        h, w = a.shape
+        px = a.numel()
+        d = note(name, f, hs_solve(a, b, plain(cfg)), f"{tag} kernel vs plain")
+        same(f, sr.hs_solve_resident(a, b, 0.5, 100), f"{tag} vs the K1 + K2 chain")
+        ms_k = median_ms(lambda: hs_solve(a, b, cfg))
+        ms_c = median_ms(lambda: sr.hs_solve_resident(a, b, 0.5, 100))
+        ms_p = median_ms(lambda: hs_solve(a, b, plain(cfg)), runs=3)
+        mem_k = peak_bytes(lambda: hs_solve(a, b, cfg))
+        mem_c = peak_bytes(lambda: sr.hs_solve_resident(a, b, 0.5, 100))
+        b_ms, b_by = bound_ms(SOLVE_ARRAYS * 4 * px,
+                              (K1_FLOPS_PER_PX + 99 * K2_FLOPS_PER_PX_SWEEP) * px)
+        block_ms = SWEEP_BLOCK_ARRAYS * 4 * px / PEAK_BYTES_PER_S * 1e3
+        print(f"phase 13 {tag} hs_solve {h}x{w} a=0.5 i100 ({name}): max|diff| vs plain {d:.3g}, "
+              f"= the K1 + K2 chain bitwise; launches {per_call[tag]}; kernel {ms_k:.3f} ms, "
+              f"K1 + K2 chain {ms_c:.3f} ms, plain {ms_p:.3f} ms (median of 20, 20, 3); "
+              f"peak memory {mem_k / 2**20:.1f} MiB, chain {mem_c / 2**20:.1f} MiB; "
+              f"bound {b_ms:.4f} ms ({b_by}), {block_ms:.4f} ms of bytes a sweep block")
+        rows[name] = dict(ms=ms_k, plain_ms=ms_p, chain_ms=ms_c, bound_ms=b_ms, bound_by=b_by,
+                          block_bytes_ms=block_ms, peak_mib=mem_k / 2**20,
+                          chain_peak_mib=mem_c / 2**20, shape=[h, w])
+        if name == "hs_solve_skewed":
+            pencils = 2 * 2 * k2.sweeps_per_launch(0) * w * 4
+            require(mem_c - mem_k >= 2 * px * 4 - pencils,
+                    f"K7 peak {mem_k} not one u/v pair below the chain's {mem_c}")
+
+    # -- L2: also 1088x1920 central through K6 -------------------------------------
+    d = note("hs_solve_fused", f_l2c, hs_solve(s1, s2, plain(cfg_c)), "L2 central kernel vs plain")
+    same(f_l2c, sr.hs_solve_resident(s1, s2, 0.5, 100, "central"), "L2 central vs the chain")
+    ms_k = median_ms(lambda: hs_solve(s1, s2, cfg_c))
+    ms_c = median_ms(lambda: sr.hs_solve_resident(s1, s2, 0.5, 100, "central"))
+    print(f"phase 13 L2 hs_solve 1088x1920 central a=0.5 i100 (hs_solve_fused): max|diff| vs plain "
+          f"{d:.3g}; launches {per_call['L2 central']}; kernel {ms_k:.3f} ms, K1 + K2 chain "
+          f"{ms_c:.3f} ms (median of 20)")
+    rows["hs_solve_fused"].update(ms_1088x1920_central=ms_k, chain_ms_1088x1920_central=ms_c)
+
+    # -- L3: hs_pyramid 4K L3 --------------------------------------------------------
+    d = max_flow_diff(f_l3, hs_pyramid(p1, p2, plain(cfg3), pyr3))
+    require(d <= TOL, f"L3 kernel vs plain max|diff| {d}")
+    err["hs_solve_skewed"] = max(err["hs_solve_skewed"], d)
+    ms_k = median_ms(lambda: hs_pyramid(p1, p2, cfg3, pyr3))
+    fl = np.stack([f_l3.u.cpu().numpy(), f_l3.v.cpu().numpy()], axis=-1)
+    e = epe(interior(fl, 16), interior(gt, 16))
+    print(f"phase 13 L3 hs_pyramid 2160x3840 L3 a=1 i100 (3, 1.5) px: max|diff| vs plain {d:.3g}; "
+          f"launches {per_call['L3']}; kernel {ms_k:.3f} ms (median of 20); interior EPE {e:.6f}")
+
+    # -- L4: the batched twins on 2 x 4K ------------------------------------------------
+    want = sr.hs_solve_resident_batched_plain(ba, bb, 0.5, 100)
+    chain = sr.hs_solve_resident_batched(ba, bb, 0.5, 100)
+    d4 = {}
+    for name, f, single in (("hs_solve_fused", f_l4f, k6.hs_solve_fused),
+                            ("hs_solve_skewed", f_l4s, k7.hs_solve_skewed)):
+        d4[name] = note(name, f, want, f"L4 {name} vs plain")
+        same(f, chain, f"L4 {name} vs the batched K1 + K2 chain")
+        for k in range(2):
+            same((f[0][k], f[1][k]), single(ba[k], bb[k], 0.5, 100), f"L4 {name} image {k}")
+    ms_f = median_ms(lambda: k6.hs_solve_fused_batched(ba, bb, 0.5, 100), runs=10)
+    ms_s = median_ms(lambda: k7.hs_solve_skewed_batched(ba, bb, 0.5, 100), runs=10)
+    ms_c = median_ms(lambda: sr.hs_solve_resident_batched(ba, bb, 0.5, 100), runs=10)
+    print(f"phase 13 L4 2 x 2160x3840 a=0.5 i100: max|diff| vs plain fused_batched "
+          f"{d4['hs_solve_fused']:.3g}, skewed_batched {d4['hs_solve_skewed']:.3g}; both = the "
+          f"batched K1 + K2 chain and = singles "
+          f"bitwise; launches {per_call['L4 fused']} {per_call['L4 skewed']}; fused "
+          f"{ms_f:.3f} ms, skewed {ms_s:.3f} ms, chain {ms_c:.3f} ms (median of 10)")
+
+    # -- L5: hs_solve_checkpointed 4K i200, every 100 --------------------------------------
+    whole = hs_solve(q1, q2, dataclasses.replace(cfg_ck, checkpoint_every=0))
+    same(f_l5, whole, "L5 checkpointed vs uninterrupted")
+    # A stop after the first segment: its state on disk, then a resume.
+    ck2 = str(Path(ckdir) / "l5_stop.npz")
+    save_state(ck2, hs_solve(q1, q2, dataclasses.replace(cfg_ck, iters=100)), 100, cfg_ck,
+               input_hash=frames_hash(q1, q2))
+    before = k7.hs_solve_skewed.launches
+    resumed = hs_solve_checkpointed(q1, q2, cfg_ck, ck2)
+    same(resumed, whole, "L5 resumed vs uninterrupted")
+    require(k7.hs_solve_skewed.launches - before == 1, "L5 resume runs one K7 segment")
+    print(f"phase 13 L5 hs_solve_checkpointed 2160x3840 i200 every 100: launches "
+          f"{per_call['L5']}; = the uninterrupted solve bitwise; resumed after a stop at "
+          f"sweep 100 (one warm K7 segment) = uninterrupted bitwise")
+
+    replaces = {"hs_solve_fused": ["opticalflowhs_tpu/kernels/solve_fused.py:111",
+                                   "opticalflowhs_tpu/kernels/solve_fused.py:375"],
+                "hs_solve_skewed": ["opticalflowhs_tpu/kernels/solve_skewed.py:219",
+                                    "opticalflowhs_tpu/kernels/solve_skewed.py:229"]}
+    return [{"name": name, "route": "cuda",
+             "source": f"opticalflowhs_tpu_torch/csrc/{name[3:]}.cu",
+             "replaces": replaces[name],
+             "launches": launches["K6" if name == "hs_solve_fused" else "K7"],
+             "max_abs_err": err[name], **rows[name], "library_ms": None}
+            for name in ("hs_solve_fused", "hs_solve_skewed")]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -913,6 +1166,9 @@ def main() -> int:
     # -- phase 12: TV-L1 ------------------------------------------------------------------
     k5_row = tvl1_path(dev, vid, vid_dev, c2a, c2b, classic_band)
 
+    # -- phase 13: frames past the resident class (K6, K7, checkpoints) -------------------
+    k67_rows = beyond_resident(dev, frames, stack, s1, s2)
+
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2
     fields = k1.derivatives_plain(i1, i2, 0.5)
@@ -1038,7 +1294,7 @@ def main() -> int:
          "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name in source
-    ] + [k5_row]
+    ] + [k5_row] + k67_rows
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

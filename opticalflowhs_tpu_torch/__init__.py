@@ -8,11 +8,13 @@ the reference's:
   config        HSConfig, PyramidConfig, TVL1Config, from_reference
   ops/          plain PyTorch stencils (the versions the kernels are held to)
   kernels/      K1 derivatives, K2 Jacobi sweeps, K3 4-color SOR sweeps,
-                K4 IRLS freeze and sweeps, K5 the TV-L1 inner loop (CUDA
-                C++ in csrc/), the whole-solve drivers, the nvcc build
+                K4 IRLS freeze and sweeps, K5 the TV-L1 inner loop, K6 and
+                K7 the whole Jacobi solve in one sweep launch (CUDA C++ in
+                csrc/), the whole-solve drivers, the nvcc build
   tvl1          tvl1_solve, tvl1_solve_batched (TV-L1, the third family)
   solver        Flow, hs_solve, solve_level, precompute, sweeps,
                 sweeps_until (solve to tolerance), tune_omega (SOR)
+  checkpoint    hs_solve_checkpointed: chunked solve, save and resume
   robust        the plain Charbonnier IRLS solver (solver="robust")
   pyramid       hs_pyramid, downsample, flow upsampling, warps
   batch         hs_solve_batched on (B, H, W) stacks, the batched pyramid
@@ -28,6 +30,7 @@ runs only when asked for (`device="cpu"`, or CPU tensors).
 """
 
 from opticalflowhs_tpu_torch.batch import hs_solve_batched
+from opticalflowhs_tpu_torch.checkpoint import hs_solve_checkpointed
 from opticalflowhs_tpu_torch.config import (
     HSConfig,
     PyramidConfig,
@@ -51,6 +54,7 @@ __all__ = [
     "hs_solve",
     "hs_pyramid",
     "hs_solve_batched",
+    "hs_solve_checkpointed",
     "tvl1_solve",
     "tvl1_solve_batched",
     "flow_stream",

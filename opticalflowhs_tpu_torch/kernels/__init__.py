@@ -6,8 +6,28 @@
   solve_robust.py    K4 hs_robust_freeze/_sweeps: the IRLS solve
   solve_resident.py  the whole-solve drivers: K1, then a chain of K2 or K3
   tvl1_inner.py      K5 hs_tvl1_inner: the TV-L1 inner loop (u- and p-steps)
+  solve_fused.py     K6 hs_solve_fused_sweeps: all n Jacobi sweeps in one
+                     persistent cooperative launch (u/v ping-pong)
+  solve_skewed.py    K7 hs_solve_skewed_sweeps: the same with u and v in
+                     place, time-skewed over row bands
   _build.py          nvcc build at first use, ctypes binding
 
 Importing these modules builds nothing: the library is built and loaded at
 the first launch on a CUDA tensor.
 """
+
+from opticalflowhs_tpu_torch.kernels.solve_fused import (
+    hs_solve_fused,
+    hs_solve_fused_batched,
+)
+from opticalflowhs_tpu_torch.kernels.solve_skewed import (
+    hs_solve_skewed,
+    hs_solve_skewed_batched,
+)
+
+__all__ = [
+    "hs_solve_fused",
+    "hs_solve_fused_batched",
+    "hs_solve_skewed",
+    "hs_solve_skewed_batched",
+]

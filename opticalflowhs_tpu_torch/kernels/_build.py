@@ -10,6 +10,12 @@ and the stream are `c_void_p` (an unset argtype would cut a pointer to 32
 bits), every scalar `c_int` or `c_float`, and every function returns its
 `cudaError_t` as an int.
 
+The persistent kernels K6 and K7 synchronise their whole grid
+(cooperative_groups grid sync, csrc/cooperative.cuh). That needs a
+cooperative launch, which their C entry points make and which refuses a
+grid larger than can be resident, but no extra build flag: since CUDA 11
+grid sync needs no relocatable device code (-rdc).
+
 The flags are part of the numerics: `--fmad=false` stops nvcc contracting
 a*b + c into one fused multiply-add, and fast math stays off (IEEE
 division), so the kernels round exactly where the plain PyTorch versions
@@ -35,6 +41,7 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 
 # C signature of every kernel entry point: argument types, in order. `b` is
 # the batch count (1 for a single frame), the grid's z dimension.
@@ -57,6 +64,16 @@ SIGNATURES = {
     # u1, u2, rho0, gx, gy, inv_g2, th, p1x, p1y, p2x, p2y, b, h, w, iters,
     # theta, sigma, lambda*theta, device, stream
     "hs_tvl1_inner": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_I, _P],
+    # s, tile_h, tile_w, threads, device, out: the most K6 (K7) blocks that
+    # can be resident at once
+    "hs_solve_fused_blocks": [_I] * 5 + [_IP],
+    "hs_solve_skewed_blocks": [_I] * 5 + [_IP],
+    # u0, v0, ex, ey, et, invd, ua, va, ub, vb, b, h, w, n, s, tile_h,
+    # tile_w, threads, grid, device, stream
+    "hs_solve_fused_sweeps": [_P] * 10 + [_I] * 10 + [_P],
+    # u0, v0, ex, ey, et, invd, u, v, pu, pv, b, h, w, n, s, band, tile_h,
+    # tile_w, threads, grid, device, stream
+    "hs_solve_skewed_sweeps": [_P] * 10 + [_I] * 11 + [_P],
 }
 
 # Largest batch one launch takes: CUDA's limit on gridDim.z.
@@ -65,6 +82,11 @@ MAX_BATCH = 65535
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    """The headers the sources include (csrc/*.cuh), hashed with them."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def find_nvcc() -> str:
@@ -104,7 +126,7 @@ def link_command(nvcc: str, objs: list[Path], out: Path) -> list[str]:
 
 def _library_path(srcs: list[Path]) -> Path:
     digest = hashlib.sha256()
-    for s in srcs:
+    for s in srcs + headers():
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
     digest.update(" ".join(compile_command("nvcc", Path("k.cu"), Path("k.o"))

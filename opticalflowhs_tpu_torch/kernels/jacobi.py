@@ -36,8 +36,10 @@ SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
 _ARRAYS = 8
 
 
-def smem_bytes(sweeps: int) -> int:
-    return _ARRAYS * 4 * (TILE_H + 2 * sweeps) * (TILE_W + 2 * sweeps)
+def smem_bytes(sweeps: int, tile_h: int = TILE_H, tile_w: int = TILE_W) -> int:
+    """Shared memory of one window: the 8 arrays of a tile grown by
+    `sweeps` on each side (hs_tile::smem_bytes, for K2, K6 and K7)."""
+    return _ARRAYS * 4 * (tile_h + 2 * sweeps) * (tile_w + 2 * sweeps)
 
 
 def fit_sweeps(block_sweeps: int, auto: int, smem) -> int:

@@ -20,6 +20,10 @@ TPU kernel, which returns None outside its VMEM residency class and for
 the central variant, this driver covers every float32 size and both
 derivative variants.
 
+`applicable` is the reference's class test for its resident kernel, kept
+here as a plain function of the frame's size: `solver.solve_level` routes
+by the reference's classes (K6 and K7 take frames beyond this one).
+
 The driver takes an (H, W) pair or a (B, H, W) stack. On a stack it is the
 port of the batched TPU kernel (`_resident_kernel_b`, grid (B,), which
 starts from zero only; `hs_solve_resident_batched` names it here): each
@@ -42,6 +46,49 @@ from opticalflowhs_tpu_torch.kernels.jacobi import (
     sweep_chain,
     sweeps_per_launch,
 )
+
+# The reference's resident class (opticalflowhs_tpu/kernels/solve_resident.py
+# `pick_geometry` :94 and `applicable` :607, float32, no HSFLOW_* overrides):
+# 4 fields + 2 u/v pairs + band temporaries within a 118 MiB TPU VMEM
+# budget. These are the reference's routing rule, not properties of the
+# H100; the port keeps them so that it routes as the reference does.
+_LANE = 128
+_SUBLANE = 8
+_RESIDENT_ARRAYS = 8
+_TEMP_ARRAYS = 10
+_RESIDENT_LIMIT = 118 * 1024 * 1024
+
+
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _resident_geometry(h: int, w: int):
+    """The reference's `pick_geometry(h, w, float32)` at stages=1:
+    (nb, band, hp, wp, s, sigma) for the fewest bands that fit, or None."""
+    wp = round_up(w, _LANE)
+    h_units = -(-h // _SUBLANE)
+    for nb in range(1, h_units + 1):
+        band = -(-h_units // nb) * _SUBLANE
+        hp = band * nb
+        sigma = 0 if nb == 1 else _SUBLANE  # round_up(s = 1, sublane)
+        if nb > 1 and sigma > band:
+            continue
+        resident = _RESIDENT_ARRAYS * hp * wp * 4
+        temps = _TEMP_ARRAYS * (band + 2 * sigma) * wp * 4
+        deriv_win = 2 * (band + _SUBLANE) * wp * 4
+        if resident + temps + deriv_win <= _RESIDENT_LIMIT:
+            return nb, band, hp, wp, 1, sigma
+    return None
+
+
+def applicable(h: int, w: int, n: int, variant: str):
+    """The reference's `solve_resident.applicable` for a float32 (h, w)
+    frame: its geometry when its resident kernel takes the solve (hs_cube,
+    n >= 1, within the budget), else None."""
+    if n < 1 or variant != "hs_cube":
+        return None
+    return _resident_geometry(h, w)
 
 
 def hs_solve_resident_plain(i1, i2, alpha: float, n: int,

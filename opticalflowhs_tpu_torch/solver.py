@@ -5,7 +5,8 @@ Backends:
   - "torch": the plain PyTorch ops (ops/stencils.py, robust.py), on any
              device; the version every kernel is held against.
   - "cuda":  the hand-written kernels (kernels/): K1 derivatives, K2 Jacobi
-             sweeps, K3 4-color SOR sweeps, K4 IRLS freeze and sweeps.
+             sweeps, K3 4-color SOR sweeps, K4 IRLS freeze and sweeps, K6
+             and K7 the whole Jacobi solve in one sweep launch.
   - "auto":  cuda for CUDA frames, torch for CPU frames.
 
 `backend="cuda"` on CPU frames raises; nothing falls back from the kernels
@@ -25,6 +26,7 @@ rather than solving something else.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -32,7 +34,12 @@ import torch
 
 from opticalflowhs_tpu_torch import robust
 from opticalflowhs_tpu_torch.config import HSConfig
-from opticalflowhs_tpu_torch.kernels import solve_robust
+from opticalflowhs_tpu_torch.kernels import (
+    solve_fused,
+    solve_resident,
+    solve_robust,
+    solve_skewed,
+)
 from opticalflowhs_tpu_torch.kernels.derivatives import (
     derivatives_plain,
     hs_derivatives,
@@ -189,6 +196,34 @@ def sweeps_until(u, v, ex, ey, et, inv_den, cfg: HSConfig,
     return Flow(u, v)
 
 
+@functools.cache
+def whole_solve_route(h: int, w: int, iters: int, variant: str,
+                      block_sweeps: int = 0) -> str:
+    """Which whole-solve schedule the reference's `solve_level` takes for a
+    fixed-count Jacobi solve of one float32 (h, w) frame on its Pallas
+    backend (opticalflowhs_tpu/solver.py:344-405), by the reference's own
+    class tests (kept here as plain functions of the frame's size; their
+    thresholds are the reference's routing rule, not properties of the
+    H100): "resident" (iters >= 2 and its resident class: hs_cube, up to
+    about 3.7 Mpx, 1440p), else for iters >= 64 "skewed" (its 2-array residency
+    class, 6 to about 11 Mpx: 4K) or "fused" (the rest past the whole-image
+    VMEM class, central 1080p and 8K included; none for block_sweeps in
+    1..7), else "chain". The start, zero or warm, does not enter.
+
+    Cached: the class tests walk the reference's geometry models in Python,
+    thousands of steps at 8K, and a video asks about the same frame size
+    again and again."""
+    if iters >= 2 and solve_resident.applicable(h, w, iters, variant):
+        return "resident"
+    if iters >= 64:
+        if solve_skewed.applicable(h, w, iters):
+            return "skewed"
+        s_cap = block_sweeps if block_sweeps > 0 else solve_fused.MAX_S
+        if solve_fused.applicable(h, w, iters, s_cap):
+            return "fused"
+    return "chain"
+
+
 def solve_level(
     i1: torch.Tensor,
     i2: torch.Tensor,
@@ -203,7 +238,10 @@ def solve_level(
 
     The cuda backend runs a whole-solve driver (K1, then one chain of K2,
     K3 or K4 launches for a whole stack) at every frame size and for both
-    derivative variants; to tolerance, K1 once and then check blocks of
+    derivative variants, except that a fixed-count Jacobi solve of one
+    frame takes the reference's route (`whole_solve_route`): K1 + K7 in
+    its skewed class, K1 + K6 in its fused class. To tolerance, K1 once
+    and then check blocks of
     `sweeps` (the reference's resident-blocked route re-derives the fields
     per block, with identical values; an IRLS block refreezes at its
     start, as the reference's block does). The torch backend runs the
@@ -234,6 +272,14 @@ def solve_level(
                 block_sweeps=cfg.block_sweeps))
         return Flow(*hs_solve_resident_sor_plain(
             i1, i2, cfg.alpha, iters, cfg.omega, cfg.deriv_variant, u0, v0))
+    if cuda and i1.ndim == 2:
+        route = whole_solve_route(*i1.shape, iters, cfg.deriv_variant,
+                                  cfg.block_sweeps)
+        if route in ("skewed", "fused"):
+            solve = (solve_skewed.hs_solve_skewed if route == "skewed"
+                     else solve_fused.hs_solve_fused)
+            return Flow(*solve(i1, i2, cfg.alpha, iters, cfg.deriv_variant,
+                               u0, v0, block_sweeps=cfg.block_sweeps))
     if cuda:
         out = hs_solve_resident(i1, i2, cfg.alpha, iters, cfg.deriv_variant,
                                 u0, v0, block_sweeps=cfg.block_sweeps)

@@ -1,11 +1,12 @@
-"""K1-K5 and the whole-solve drivers on a CUDA card against their
+"""K1-K7 and the whole-solve drivers on a CUDA card against their
 plain versions on the same card, at edge-case shapes (partial tiles, frames
 narrower or shorter than a tile, one row, one column) and sweep counts
 that the sweeps per launch do not divide; single frames and (B, H, W)
 stacks, where each image of a batched launch must equal the single-frame
 kernel on that image; the launch counts; and the single, batched and
 streaming entry points with the Jacobi, SOR and IRLS solvers and with
-TV-L1.
+TV-L1; K6 and K7 (the persistent whole-solve kernels) at small forced
+geometries, the routes of `hs_solve` into them, and their failures.
 
 Marked `cuda`: they skip without a card. They import no JAX, so on a
 machine without it they run with the repository's conftest left out:
@@ -16,11 +17,14 @@ Tolerance: 0.0. The kernels are built without FMA contraction and keep
 the plain ops' association order, so they equal the plain versions bitwise.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from opticalflowhs_tpu_torch import (
+    Flow,
     HSConfig,
     PyramidConfig,
     TVL1Config,
@@ -37,8 +41,10 @@ from opticalflowhs_tpu_torch import tvl1 as tv
 from opticalflowhs_tpu_torch.consistency import solve_bidirectional
 from opticalflowhs_tpu_torch.kernels import derivatives as k1
 from opticalflowhs_tpu_torch.kernels import jacobi as k2
+from opticalflowhs_tpu_torch.kernels import solve_fused as k6
 from opticalflowhs_tpu_torch.kernels import solve_resident as sr
 from opticalflowhs_tpu_torch.kernels import solve_robust as k4
+from opticalflowhs_tpu_torch.kernels import solve_skewed as k7
 from opticalflowhs_tpu_torch.kernels import sor as k3
 from opticalflowhs_tpu_torch.kernels import tvl1_inner as k5
 from opticalflowhs_tpu_torch.solver import tune_omega
@@ -387,3 +393,86 @@ def test_tvl1_entry_points_run_k5(dev):
     for a, b in zip(solve_bidirectional(i1[0], i2[0], tvl1=cfg),
                     solve_bidirectional(i1[0], i2[0], tvl1=plain)):
         _equal(a, b)
+
+
+# -- K6 and K7 (whole solve in one sweep launch) --------------------------------
+
+BEYOND_SHAPES = [(67, 93), (131, 130), (1, 7), (9, 1), (200, 333)]
+BEYOND_NS = [(1, 0), (7, 0), (9, 4), (100, 0), (17, 10)]  # s does not divide n
+
+
+@pytest.mark.parametrize("shape", BEYOND_SHAPES)
+@pytest.mark.parametrize("n,s", BEYOND_NS)
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("blocks", [0, 2])
+def test_k6_equals_plain(dev, shape, n, s, warm, blocks):
+    i1, i2 = _rand(shape, dev, 40)
+    init = _rand(shape, dev, 41, normal=True) if warm else (None, None)
+    keep = [a.clone() for a in init if a is not None]
+    got = k6.hs_solve_fused(i1, i2, 0.5, n, "hs_cube", *init, block_sweeps=s, blocks=blocks)
+    _equal(got, k6.hs_solve_fused_plain(i1, i2, 0.5, n, "hs_cube", *init))
+    _equal(got, sr.hs_solve_resident(i1, i2, 0.5, n, "hs_cube", *init, block_sweeps=s))
+    _equal([a for a in init if a is not None], keep)  # the start is not written
+
+
+@pytest.mark.parametrize("shape", BEYOND_SHAPES)
+@pytest.mark.parametrize("n,s", BEYOND_NS)
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("band,blocks", [(0, 0), (16, 0), (16, 8)])
+def test_k7_equals_plain(dev, shape, n, s, warm, band, blocks):
+    i1, i2 = _rand(shape, dev, 42)
+    init = _rand(shape, dev, 43, normal=True) if warm else (None, None)
+    keep = [a.clone() for a in init if a is not None]
+    got = k7.hs_solve_skewed(i1, i2, 0.5, n, "central", *init, block_sweeps=s,
+                             band=band, blocks=blocks)
+    _equal(got, k7.hs_solve_skewed_plain(i1, i2, 0.5, n, "central", *init))
+    _equal(got, sr.hs_solve_resident(i1, i2, 0.5, n, "central", *init, block_sweeps=s))
+    _equal([a for a in init if a is not None], keep)
+
+
+@pytest.mark.parametrize("shape", [(67, 93), (131, 130)])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", [7, 100])
+def test_k6_k7_batched_equal_plain_and_singles(dev, shape, b, n):
+    i1, i2 = _rand((b,) + shape, dev, 44)
+    want = k6.hs_solve_fused_batched_plain(i1, i2, 0.5, n)
+    for got in (k6.hs_solve_fused_batched(i1, i2, 0.5, n, blocks=2),
+                k7.hs_solve_skewed_batched(i1, i2, 0.5, n, band=24),
+                sr.hs_solve_resident_batched(i1, i2, 0.5, n)):
+        _equal(got, want)
+        for k in range(b):
+            _equal([g[k] for g in got], k7.hs_solve_skewed(i1[k], i2[k], 0.5, n, band=24))
+
+
+def test_hs_solve_routes_to_k6_and_k7(dev):
+    counters = (k1.hs_derivatives, k2.jacobi_sweeps, k6.hs_solve_fused, k7.hs_solve_skewed)
+    cases = [((1088, 1920), HSConfig(alpha=0.5, iters=64, deriv_variant="central"), (1, 0, 1, 0)),
+             ((2160, 3840), HSConfig(alpha=0.5, iters=64), (1, 0, 0, 1)),
+             ((2160, 3840), HSConfig(alpha=0.5, iters=63), (1, 8, 0, 0)),
+             ((1088, 1920), HSConfig(alpha=0.5, iters=64), (1, 8, 0, 0))]
+    for shape, cfg, want in cases:
+        i1, i2 = _rand(shape, dev, 45)
+        u0, v0 = _rand(shape, dev, 46, normal=True)
+        for init in (None, Flow(u0, v0)):
+            for c in counters:
+                c.launches = 0
+            got = hs_solve(i1, i2, cfg, init=init)
+            assert tuple(c.launches for c in counters) == want, (shape, cfg, init is None)
+            plain = dataclasses.replace(cfg, backend="torch")
+            _equal(got, hs_solve(i1, i2, plain, init=init))
+
+
+def test_k6_k7_failures_raise(dev):
+    i1, i2 = _rand((131, 130), dev, 47)
+    before = (k6.hs_solve_fused.launches, k7.hs_solve_skewed.launches)
+    with pytest.raises(RuntimeError, match="hs_solve_fused_sweeps"):
+        k6.hs_solve_fused(i1, i2, 0.5, 9, blocks=10**6)   # cannot all be resident
+    with pytest.raises(RuntimeError, match="hs_solve_skewed_sweeps"):
+        k7.hs_solve_skewed(i1, i2, 0.5, 9, blocks=10**6)
+    with pytest.raises(ValueError, match="resident blocks"):
+        k7.hs_solve_skewed(i1, i2, 0.5, 9, band=128, blocks=2)  # 8 tiles a band
+    with pytest.raises(ValueError):
+        k6.hs_solve_fused(i1, i2, 0.5, 9, u0=i1)
+    with pytest.raises(ValueError):
+        k7.hs_solve_skewed_batched(i1, i2, 0.5, 9)
+    assert (k6.hs_solve_fused.launches, k7.hs_solve_skewed.launches) == before

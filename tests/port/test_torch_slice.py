@@ -258,7 +258,9 @@ def test_package_imports_without_jax():
         "import opticalflowhs_tpu_torch.consistency\n"
         "import opticalflowhs_tpu_torch.tvl1, opticalflowhs_tpu_torch.kernels.tvl1_inner\n"
         "import opticalflowhs_tpu_torch.kernels.sor, opticalflowhs_tpu_torch.kernels.solve_robust\n"
-        "import opticalflowhs_tpu_torch.robust\n"
+        "import opticalflowhs_tpu_torch.robust, opticalflowhs_tpu_torch.checkpoint\n"
+        "import opticalflowhs_tpu_torch.kernels.solve_fused\n"
+        "import opticalflowhs_tpu_torch.kernels.solve_skewed\n"
         "import opticalflowhs_tpu_torch.data.synthetic, opticalflowhs_tpu_torch.io.flo\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'opticalflowhs_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
