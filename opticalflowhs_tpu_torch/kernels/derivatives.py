@@ -38,7 +38,13 @@ def derivatives_plain(i1: torch.Tensor, i2: torch.Tensor, alpha: float,
 
 def check_frames(name: str, *arrays: torch.Tensor) -> None:
     """The kernels take (H, W) or (B, H, W) float32 contiguous tensors of one
-    shape on one device; raise ValueError on anything else."""
+    shape on one device; raise ValueError on anything else.
+
+    Raise RuntimeError for CUDA tensors of which any requires grad while
+    grad mode is on: the kernels write their outputs through raw pointers,
+    so a solve through them would return a flow without a grad_fn and the
+    gradient would be lost without a word. CPU tensors run the plain path,
+    which torch differentiates itself, and are not refused."""
     first = arrays[0]
     for a in arrays:
         if not isinstance(a, torch.Tensor):
@@ -59,6 +65,14 @@ def check_frames(name: str, *arrays: torch.Tensor) -> None:
             )
     if first.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {first.device}")
+    if (first.device.type == "cuda" and torch.is_grad_enabled()
+            and any(a.requires_grad for a in arrays)):
+        raise RuntimeError(
+            f"{name}: the CUDA kernels do not differentiate yet (ROADMAP.md "
+            "queue 1: autograd through the kernels), so the gradient would "
+            "be dropped; call under torch.no_grad(), or solve on the CPU "
+            "(device='cpu'), where the plain path is differentiable"
+        )
 
 
 def batch_dims(name: str, a: torch.Tensor) -> tuple[int, int, int]:

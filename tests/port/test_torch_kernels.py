@@ -194,6 +194,17 @@ def test_wrappers_check_inputs(bad):
         k2.jacobi_sweeps(bad(z), z, z, z, z, z, 1)
 
 
+@pytest.mark.parametrize("solver", ["jacobi", "sor", "robust"])
+def test_cpu_plain_path_keeps_gradients(solver):
+    # The gradient guard in check_frames refuses CUDA tensors only: on the
+    # CPU the plain path runs and torch differentiates it.
+    i1, i2 = (torch.from_numpy(a).requires_grad_() for a in _frames((16, 24)))
+    flow = hs_solve(i1, i2, HSConfig(iters=4, solver=solver, omega=1.5))
+    assert flow.u.grad_fn is not None
+    (flow.u.square().sum() + flow.v.sum()).backward()
+    assert float(i1.grad.abs().max()) > 0 and float(i2.grad.abs().max()) > 0
+
+
 def test_cpu_wrappers_launch_nothing():
     i1, i2 = (torch.from_numpy(a) for a in _frames((16, 24)))
     before = (k1.hs_derivatives.launches, k2.jacobi_sweeps.launches)

@@ -12,6 +12,8 @@ forward-backward error, which adds two such flows through a warp.
 Occlusion masks must be equal.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,9 +23,10 @@ import opticalflowhs_tpu.consistency as ref_cons
 import opticalflowhs_tpu.video as ref_video
 from opticalflowhs_tpu.config import HSConfig as RefHS
 import opticalflowhs_tpu_torch.video as video
-from opticalflowhs_tpu_torch import HSConfig, flow_with_occlusion, hs_solve_batched
+from opticalflowhs_tpu_torch import HSConfig, flow_with_occlusion, hs_solve, hs_solve_batched
 from opticalflowhs_tpu_torch.consistency import fb_error, solve_bidirectional
 from opticalflowhs_tpu_torch.data.synthetic import synthetic_sequence
+from opticalflowhs_tpu_torch.solver import tune_omega
 
 torch.set_num_threads(1)
 
@@ -125,6 +128,26 @@ def test_flow_stream_warm_matches_reference(warp_prior):
                                            fused=False, device="cpu"))
     for a, b in zip(got, per_pair):
         assert torch.equal(a.u, b.u) and torch.equal(a.v, b.v)
+
+
+def test_flow_stream_warm_sor_auto_omega_tunes_each_pair():
+    # A deliberate divergence: the reference's fused=True warm stream runs
+    # every pair after the first with omega still 0, which moves nothing
+    # (its solve_level skips the SOR whole solve for omega 0, and the sweeps
+    # blend u + 0*(u* - u)), so the stream repeats its first flow. The port
+    # tunes omega for each pair, as the reference's fused=False does.
+    vid = _video(t=5, tx=1.5, ty=-0.5, key=5)
+    cfg = HSConfig(alpha=0.3, iters=10, solver="sor", omega=0.0)
+    got = list(video.flow_stream_warm(vid, cfg, chunk=2, device="cpu"))
+    frames = torch.from_numpy(vid)
+    prev = None
+    for k, g in enumerate(got):
+        a, b = frames[k], frames[k + 1]
+        tuned = dataclasses.replace(cfg, omega=tune_omega(a, b, cfg))
+        prev = hs_solve(a, b, tuned, init=prev)
+        assert torch.equal(g.u, prev.u) and torch.equal(g.v, prev.v), k
+    assert len(got) == 4
+    assert min(float((b.u - a.u).abs().max()) for a, b in zip(got, got[1:])) > 0
 
 
 def test_flow_stream_warm_composes_with_tol():
