@@ -35,7 +35,15 @@ each ran through the kernels:
               then frames past the resident class through the entry
               points: hs_solve 2160x3840 (L1, K7) and 4320x7680 (L2, K6)
               i100, hs_pyramid 4K L3 (L3), the batched twins on 2 x 4K
-              (L4) and hs_solve_checkpointed 4K i200 (L5).
+              (L4) and hs_solve_checkpointed 4K i200 (L5);
+  phase 14:   K8 (the whole SOR solve on parity planes) against the plain
+              planes, the plain SOR sweeps and the K1 + K3 chain at every
+              parity of h and w, n 1, 4, 7, zero and warm; S1 through
+              kernels.hs_solve_sor_planes (1088x1920 i50) against the chain
+              and plain; None at 2160x3840; M1 hs_solve with
+              solver="multigrid" (K1, then plain V-cycles) at i1 and i2
+              against all-plain and Jacobi i100/i1600 in EPE; a multigrid
+              stack of 2 x 1080p and a 3-level multigrid pyramid.
 Every phase checks what it measures and any failure exits non-zero.
 Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
@@ -43,11 +51,11 @@ Output: one line of numbers per phase; then, on lines of their own, the
 card's name and power limit as nvidia-smi gives them, and a JSON object
 {"kernels": [...]} (per kernel: launches on the batched path for K1 and
 K2, on the SOR and robust path for K3 and K4, on the TV-L1 path for K5,
-on phase 13's path for K6 and K7, max |diff| against the plain version, ms
-per launch for the kernel and the plain version at 8 x 1088x1920 (for K5
-per call of 100 alternations; for K6 and K7 per whole solve, K1 included,
-at 4320x7680 and 2160x3840 i100), and the least time the card could
-take); the last line is
+on phase 13's path for K6 and K7, on phase 14's for K8, max |diff| against
+the plain version, ms per launch for the kernel and the plain version at
+8 x 1088x1920 (for K5 per call of 100 alternations; for K6, K7 and K8 per
+whole solve, K1 included, at 4320x7680, 2160x3840 i100 and 1088x1920 i50),
+and the least time the card could take); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -105,6 +113,12 @@ K5_SCHEDULE_ARRAYS_PER_ITER = 23
 SOLVE_ARRAYS = 4
 SWEEP_BLOCK_ARRAYS = 8
 OMEGA = 1.71  # the SOR workloads' omega, as tools/hw_sor_resident_ab.py
+# K1 without the zero-start sweep (the SOR solves' derivatives): 31 float32
+# operations a pixel. A K8 color stage moves about 3.5 full-frame arrays (u
+# and v of all four planes read, the fields of one plane read, u and v of
+# one plane written; csrc/sor_planes.cu).
+K1_FIELDS_FLOPS_PER_PX = 31
+K8_STAGE_ARRAYS = 3.5
 
 
 def require(cond: bool, what: str) -> None:
@@ -180,6 +194,14 @@ def c2_stack(dev, b: int = 8):
                  for _ in range(2))
 
 
+def c1_frames(dev):
+    """C1's (and S1's) frames on the card: two 1088x1920 frames of uniform
+    noise from default_rng(0), as bench.py."""
+    rng = np.random.default_rng(0)
+    return tuple(torch.from_numpy(rng.uniform(0, 1, (1088, 1920)).astype(np.float32)).to(dev)
+                 for _ in range(2))
+
+
 def c4_video():
     """C4's video as host numpy frames, and its flow: the 17-frame
     1080x1920 pan by (1, 0.5) px a frame."""
@@ -200,6 +222,15 @@ def t2_pair(dev):
     two-motion pair, (1, 0) px left of the seam and (-1, 0) right of it."""
     from opticalflowhs_tpu_torch.data.synthetic import two_motion_pair
     i1, i2, gt = two_motion_pair(1088, 1920, (1.0, 0.0), (-1.0, 0.0), key=3)
+    return torch.from_numpy(i1).to(dev), torch.from_numpy(i2).to(dev), gt
+
+
+def m1_pair(dev):
+    """M1's frames on the card and their flow: translation_pair(1088, 1920,
+    1.0, 0.0, key=3), the reference's multigrid-against-Jacobi pair
+    (tests/unit/test_multigrid.py) at full size."""
+    from opticalflowhs_tpu_torch.data.synthetic import translation_pair
+    i1, i2, gt = translation_pair(1088, 1920, 1.0, 0.0, key=3)
     return torch.from_numpy(i1).to(dev), torch.from_numpy(i2).to(dev), gt
 
 
@@ -844,6 +875,176 @@ def beyond_resident(dev, frames, stack, s1, s2) -> list:
             for name in ("hs_solve_fused", "hs_solve_skewed")]
 
 
+def sor_planes_and_multigrid(dev, stack, s1, s2) -> dict:
+    """Phase 14: K8 (the whole SOR solve on parity planes) against the plain
+    plane schedule, the plain SOR sweeps and the K1 + K3 chain at every
+    parity of h and w, then the path counted: S1 through
+    `kernels.hs_solve_sor_planes`, M1 `hs_solve` with solver="multigrid"
+    (K1, then the plain V-cycles) at i1 and i2, a multigrid stack and
+    pyramid. Returns K8's row of the kernels line."""
+    from opticalflowhs_tpu_torch import (
+        HSConfig,
+        PyramidConfig,
+        hs_pyramid,
+        hs_solve,
+        hs_solve_batched,
+    )
+    from opticalflowhs_tpu_torch.kernels import derivatives as k1
+    from opticalflowhs_tpu_torch.kernels import jacobi as k2
+    from opticalflowhs_tpu_torch.kernels import solve_resident as sr
+    from opticalflowhs_tpu_torch.kernels import sor as k3
+    from opticalflowhs_tpu_torch.kernels import sor_planes as k8
+    from opticalflowhs_tpu_torch.metrics import epe, interior
+
+    err = 0.0
+
+    def note(got, want, what):
+        nonlocal err
+        d = max_flow_diff(got, want)
+        err = max(err, d)
+        require(d <= TOL, f"{what}: max|diff| {d}")
+        return d
+
+    def same(a, b, what):
+        require(bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])),
+                f"{what}: not bitwise equal")
+
+    # -- phase 14: K8 against its plain versions, every parity of h and w -----------
+    for h, w in ((192, 128), (131, 130), (96, 255), (97, 253), (67, 93)):
+        i1, i2 = (a[0] for a in stack(1, h, w, seed=60))
+        u0, v0 = (a[0] for a in stack(1, h, w, seed=61, normal=True))
+        fields = k1.derivatives_plain(i1, i2, 0.5)
+        z = torch.zeros_like(i1)
+        d = 0.0
+        for n in (1, 4, 7):
+            for init in ((None, None), (u0, v0)):
+                what = f"K8 {h}x{w} n={n} {'zero' if init[0] is None else 'warm'}"
+                got = k8.sor_planes(*init, *fields, n, OMEGA)
+                d = max(d, note(got, k8.sor_planes_plain(*init, *fields, n, OMEGA), what))
+                same(got, k3.sor_sweeps_plain(*(init if init[0] is not None else (z, z)),
+                                              *fields, n, OMEGA), f"{what} vs plain SOR")
+                whole = k8.hs_solve_sor_planes(i1, i2, 0.5, n, OMEGA, "hs_cube", *init)
+                same(whole, got, f"{what} whole solve vs sor_planes")
+                same(whole, sr.hs_solve_resident_sor(i1, i2, 0.5, n, OMEGA, "hs_cube", *init),
+                     f"{what} vs the K1 + K3 chain")
+        print(f"phase 14 K8 {h}x{w} (h {'odd' if h % 2 else 'even'}, w "
+              f"{'odd' if w % 2 else 'even'}) n=1,4,7 zero+warm omega {OMEGA}: max|diff| vs "
+              f"the plain planes {d:.3g}; = plain SOR and = the K1 + K3 chain bitwise")
+    big = torch.zeros(2160, 3840, device=dev)
+    require(k8.hs_solve_sor_planes(big, big, 0.5, 50, OMEGA) is None,
+            "K8 must return None outside the reference's plane class (2160x3840)")
+    del big
+
+    # -- the path, counted -------------------------------------------------------------
+    m1, m2, gt = m1_pair(dev)
+    mg = {n: HSConfig(alpha=1.0, iters=n, solver="multigrid") for n in (1, 2)}
+    pa, pb = stack(2, 1080, 1920, seed=62)
+    pyr3 = PyramidConfig(levels=3)
+    counters = {"K1": k1.hs_derivatives, "K2": k2.jacobi_sweeps, "K3": k3.sor_sweeps,
+                "K8": k8.sor_planes}
+    per_call = {}
+
+    def counted(tag, fn):
+        before = {n: c.launches for n, c in counters.items()}
+        out = fn()
+        per_call[tag] = {n: c.launches - before[n] for n, c in counters.items()}
+        return out
+
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    f_s1 = counted("S1 K8", lambda: k8.hs_solve_sor_planes(s1, s2, 0.5, 50, OMEGA))
+    f_mg1 = counted("M1 i1", lambda: hs_solve(m1, m2, mg[1]))
+    f_mg2 = counted("M1 i2", lambda: hs_solve(m1, m2, mg[2]))
+    f_bat = counted("multigrid stack", lambda: hs_solve_batched(pa, pb, mg[2]))
+    f_pyr = counted("multigrid pyramid", lambda: hs_pyramid(m1, m2, mg[2], pyr3))
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"phase 14 path launches (S1 K8, M1 i1, M1 i2, multigrid stack, multigrid pyramid): "
+          f"{launches}; per call {per_call}")
+    want = {"S1 K8": (1, 0, 0, 4 * 50 + 2), "M1 i1": (1, 0, 0, 0), "M1 i2": (1, 0, 0, 0),
+            "multigrid stack": (1, 0, 0, 0), "multigrid pyramid": (3, 0, 0, 0)}
+    for tag, counts in want.items():
+        require(tuple(per_call[tag].values()) == counts,
+                f"{tag} launches {per_call[tag]}, expected K1, K2, K3, K8 = {counts}")
+    for f, shape in ((f_s1, (1088, 1920)), (f_mg1, (1088, 1920)), (f_mg2, (1088, 1920)),
+                     (f_bat, (2, 1080, 1920)), (f_pyr, (1088, 1920))):
+        for a in f:
+            require(tuple(a.shape) == shape and bool(torch.isfinite(a).all()),
+                    f"phase 14 output shape/finite {shape}")
+
+    def plain(c):
+        return dataclasses.replace(c, backend="torch")
+
+    # -- S1 through K8 -------------------------------------------------------------------
+    fields = k1.derivatives_plain(s1, s2, 0.5)
+    plain_s1 = sr.hs_solve_resident_sor_plain(s1, s2, 0.5, 50, OMEGA)
+    d = note(f_s1, plain_s1, "S1 K8 vs plain SOR")
+    same(f_s1, k8.sor_planes_plain(None, None, *fields, 50, OMEGA), "S1 K8 vs the plain planes")
+    same(f_s1, sr.hs_solve_resident_sor(s1, s2, 0.5, 50, OMEGA), "S1 K8 vs the K1 + K3 chain")
+    u0, v0 = (a[0] for a in stack(1, 1088, 1920, seed=63, normal=True))
+    for n in (1, 7):
+        note(k8.hs_solve_sor_planes(s1, s2, 0.5, n, OMEGA, "hs_cube", u0, v0),
+             sr.hs_solve_resident_sor_plain(s1, s2, 0.5, n, OMEGA, "hs_cube", u0, v0),
+             f"S1 K8 warm n={n} vs plain SOR")
+    ms_k8 = median_ms(lambda: k8.hs_solve_sor_planes(s1, s2, 0.5, 50, OMEGA))
+    ms_chain = median_ms(lambda: sr.hs_solve_resident_sor(s1, s2, 0.5, 50, OMEGA))
+    ms_plain = median_ms(lambda: sr.hs_solve_resident_sor_plain(s1, s2, 0.5, 50, OMEGA))
+    # Per stage: K8 at n = 50 against n = 0 (pack and unpack only), by events.
+    t50 = event_ms(lambda: k8.sor_planes(None, None, *fields, 50, OMEGA), reps=10)
+    t0 = event_ms(lambda: k8.sor_planes(None, None, *fields, 0, OMEGA), reps=10)
+    px = s1.numel()
+    b_ms, b_by = bound_ms(SOLVE_ARRAYS * 4 * px,
+                          (K1_FIELDS_FLOPS_PER_PX + 50 * K3_FLOPS_PER_PX_SWEEP) * px)
+    stage_ms = K8_STAGE_ARRAYS * 4 * px / PEAK_BYTES_PER_S * 1e3
+    stage_us = (t50 - t0) / 200 * 1e3
+    print(f"phase 14 S1 hs_solve_sor_planes 1088x1920 a=0.5 i50 omega {OMEGA}: max|diff| vs "
+          f"plain SOR {d:.3g}, = the plain planes and = the K1 + K3 chain bitwise; launches "
+          f"{per_call['S1 K8']}; K8 solve {ms_k8:.3f} ms, K1 + K3 chain {ms_chain:.3f} ms, plain "
+          f"{ms_plain:.3f} ms (median of 20 each); K8 alone {t50:.4f} ms, pack + unpack "
+          f"{t0:.4f} ms, {stage_us:.2f} us a color stage (its bytes {stage_ms * 1e3:.2f} us); "
+          f"whole-solve bound {b_ms:.4f} ms ({b_by})")
+
+    # -- M1: multigrid at 1080p ------------------------------------------------------------
+    def flow_epe(f):
+        fl = np.stack([f.u.cpu().numpy(), f.v.cpu().numpy()], axis=-1)
+        return epe(interior(fl, 8), interior(gt, 8))
+
+    ms_mg = {}
+    for n, f in ((1, f_mg1), (2, f_mg2)):
+        same(f, hs_solve(m1, m2, plain(mg[n])), f"M1 i{n} cuda vs all-plain")
+        ms_mg[n] = median_ms(lambda: hs_solve(m1, m2, mg[n]), runs=10)
+    e_mg = {n: flow_epe(f) for n, f in ((1, f_mg1), (2, f_mg2))}
+    e_j = {}
+    for n in (100, 1600):
+        cfg = HSConfig(alpha=1.0, iters=n)
+        e_j[n] = (flow_epe(hs_solve(m1, m2, cfg)), median_ms(lambda: hs_solve(m1, m2, cfg), runs=5))
+    print(f"phase 14 M1 hs_solve multigrid 1088x1920 a=1 translation (1, 0) key 3: i1 "
+          f"{ms_mg[1]:.3f} ms, i2 {ms_mg[2]:.3f} ms (median of 10), = all-plain bitwise, "
+          f"K1 = 1 a solve; interior EPE i1 "
+          f"{e_mg[1]:.6f} i2 {e_mg[2]:.6f}; Jacobi i100 {e_j[100][0]:.6f} ({e_j[100][1]:.3f} ms), "
+          f"i1600 {e_j[1600][0]:.6f} ({e_j[1600][1]:.3f} ms)")
+    require(e_mg[2] < e_j[100][0], f"multigrid i2 EPE {e_mg[2]} not below Jacobi i100's {e_j}")
+
+    # -- multigrid beyond single solves -----------------------------------------------------
+    for k in range(2):
+        same((f_bat.u[k], f_bat.v[k]), hs_solve(pa[k], pb[k], mg[2]), f"multigrid stack image {k}")
+    same(f_bat, hs_solve_batched(pa, pb, plain(mg[2])), "multigrid stack vs plain")
+    same(f_pyr, hs_pyramid(m1, m2, plain(mg[2]), pyr3), "multigrid pyramid vs plain")
+    ms_bat = median_ms(lambda: hs_solve_batched(pa, pb, mg[2]), runs=3)
+    ms_pyr = median_ms(lambda: hs_pyramid(m1, m2, mg[2], pyr3), runs=3)
+    print(f"phase 14 multigrid i2: hs_solve_batched 2 x 1080x1920 = singles and = plain bitwise, "
+          f"{ms_bat:.3f} ms; hs_pyramid L3 = plain bitwise, {ms_pyr:.3f} ms, interior EPE "
+          f"{flow_epe(f_pyr):.6f} (median of 3)")
+    return {"name": "hs_sor_planes", "route": "cuda",
+            "source": "opticalflowhs_tpu_torch/csrc/sor_planes.cu",
+            "replaces": ["opticalflowhs_tpu/kernels/sor_planes.py:78"],
+            "launches": launches["K8"], "max_abs_err": err, "ms": ms_k8, "plain_ms": ms_plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "chain_ms": ms_chain,
+            "k8_alone_ms": t50, "pack_unpack_ms": t0, "stage_us": stage_us,
+            "stage_bytes_us": stage_ms * 1e3, "m1_i1_ms": ms_mg[1], "m1_i2_ms": ms_mg[2]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -937,7 +1138,7 @@ def main() -> int:
     cfg1 = HSConfig(alpha=0.5, iters=100)               # bench.py headline
     cfg3 = HSConfig(alpha=1.0, iters=100)               # configs/c3_pyramid.json
     pyr3 = PyramidConfig(levels=3)
-    s1, s2 = frames(1088, 1920, seed=0)                 # bench.py's frames
+    s1, s2 = c1_frames(dev)                             # bench.py's frames
     p1, p2, _ = translation_pair(1080, 1920, 3.0, 1.5, key=0, max_freq=0.06)
     p1 = torch.from_numpy(p1).to(dev)
     p2 = torch.from_numpy(p2).to(dev)
@@ -1169,6 +1370,9 @@ def main() -> int:
     # -- phase 13: frames past the resident class (K6, K7, checkpoints) -------------------
     k67_rows = beyond_resident(dev, frames, stack, s1, s2)
 
+    # -- phase 14: K8 (the SOR solve on parity planes) and multigrid ----------------------
+    k8_row = sor_planes_and_multigrid(dev, stack, s1, s2)
+
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2
     fields = k1.derivatives_plain(i1, i2, 0.5)
@@ -1294,7 +1498,7 @@ def main() -> int:
          "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name in source
-    ] + [k5_row] + k67_rows
+    ] + [k5_row] + k67_rows + [k8_row]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,13 +9,16 @@ the reference's:
   ops/          plain PyTorch stencils (the versions the kernels are held to)
   kernels/      K1 derivatives, K2 Jacobi sweeps, K3 4-color SOR sweeps,
                 K4 IRLS freeze and sweeps, K5 the TV-L1 inner loop, K6 and
-                K7 the whole Jacobi solve in one sweep launch (CUDA C++ in
-                csrc/), the whole-solve drivers, the nvcc build
+                K7 the whole Jacobi solve in one sweep launch, K8 the whole
+                SOR solve on parity planes (CUDA C++ in csrc/), the
+                whole-solve drivers, the nvcc build
   tvl1          tvl1_solve, tvl1_solve_batched (TV-L1, the third family)
   solver        Flow, hs_solve, solve_level, precompute, sweeps,
                 sweeps_until (solve to tolerance), tune_omega (SOR)
   checkpoint    hs_solve_checkpointed: chunked solve, save and resume
   robust        the plain Charbonnier IRLS solver (solver="robust")
+  multigrid     V-cycles with 4-color Gauss-Seidel smoothing
+                (solver="multigrid"; iters counts cycles)
   pyramid       hs_pyramid, downsample, flow upsampling, warps
   batch         hs_solve_batched on (B, H, W) stacks, the batched pyramid
   consistency   forward-backward test, flow_with_occlusion

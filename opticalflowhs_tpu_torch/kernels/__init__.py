@@ -10,6 +10,9 @@
                      persistent cooperative launch (u/v ping-pong)
   solve_skewed.py    K7 hs_solve_skewed_sweeps: the same with u and v in
                      place, time-skewed over row bands
+  sor_planes.py      K8 hs_sor_planes: the whole 4-color SOR solve on
+                     (row%2, col%2) parity planes (pack, one launch a color
+                     stage, unpack); not routed, as in the reference
   _build.py          nvcc build at first use, ctypes binding
 
 Importing these modules builds nothing: the library is built and loaded at
@@ -24,10 +27,12 @@ from opticalflowhs_tpu_torch.kernels.solve_skewed import (
     hs_solve_skewed,
     hs_solve_skewed_batched,
 )
+from opticalflowhs_tpu_torch.kernels.sor_planes import hs_solve_sor_planes
 
 __all__ = [
     "hs_solve_fused",
     "hs_solve_fused_batched",
     "hs_solve_skewed",
     "hs_solve_skewed_batched",
+    "hs_solve_sor_planes",
 ]

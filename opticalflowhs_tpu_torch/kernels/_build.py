@@ -74,6 +74,9 @@ SIGNATURES = {
     # u0, v0, ex, ey, et, invd, u, v, pu, pv, b, h, w, n, s, band, tile_h,
     # tile_w, threads, grid, device, stream
     "hs_solve_skewed_sweeps": [_P] * 10 + [_I] * 11 + [_P],
+    # u0, v0 (both null for a zero start), ex, ey, et, invd, planes, uo, vo,
+    # h, w, n, omega, device, stream
+    "hs_sor_planes": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
 }
 
 # Largest batch one launch takes: CUDA's limit on gridDim.z.

@@ -1,0 +1,203 @@
+"""K8: the whole 4-color SOR solve on (row%2, col%2) parity planes.
+
+Port of opticalflowhs_tpu/kernels/sor_planes.py (`hs_solve_sor_planes`, TPU
+kernel `_planes_kernel`). u, v and the four fields are held as the four
+quarter-resolution parity planes of the frame, so a color stage of a SOR
+sweep touches exactly one plane, with no masks and no idle lanes, and
+updates it in place. The separable [1,2,1] passes sum the same three values
+in the same order as at full resolution, so the result equals the plain
+SOR sweeps (ops/stencils.py sor_step) bitwise.
+
+On the H100 the planes live in device memory: one C call (csrc/sor_planes.cu)
+enqueues a pack launch, one launch a color stage (4*n) and an unpack
+launch; the launch boundary is the barrier between stages. `sor_planes`
+launches it for CUDA tensors and runs the plain plane schedule,
+`sor_planes_plain`, for CPU tensors. There is no fallback: a CUDA tensor
+goes through the kernel or the call raises.
+
+`hs_solve_sor_planes` keeps the reference's contract: None for a stack, no
+sweeps, the central variant or a frame outside the reference's plane class
+(`applicable_shape`), and never otherwise. As in the reference, the solver
+does not route to it: SOR solves take the K1 + K3 chain.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from opticalflowhs_tpu_torch.kernels import _build
+from opticalflowhs_tpu_torch.kernels.derivatives import check_frames, hs_derivatives
+from opticalflowhs_tpu_torch.kernels.solve_resident import round_up
+
+# The reference's plane class (opticalflowhs_tpu/kernels/sor_planes.py
+# `applicable_shape` :57, float32, no HSFLOW_* override): the plane set and
+# its temporaries, 11 full-frame equivalents of the frame padded to 16 x 256,
+# within a 112 MiB TPU VMEM budget. It is the reference's rule for where its
+# kernel runs, not a property of the H100.
+_FULL_EQUIV = 11
+_LIMIT = 112 * 1024 * 1024
+
+# The four colors in stage order: (row % 2, col % 2).
+COLORS = ((0, 0), (0, 1), (1, 0), (1, 1))
+_ARRAYS = 6  # u, v, ex, ey, et, invd
+
+
+def applicable_shape(h: int, w: int):
+    """The reference's (hp, wp) for a float32 (h, w) frame inside its plane
+    class, else None."""
+    hp = round_up(h, 16)
+    wp = round_up(w, 256)
+    if _FULL_EQUIV * hp * wp * 4 <= _LIMIT:
+        return hp, wp
+    return None
+
+
+def plane_shape(h: int, w: int) -> tuple[int, int]:
+    """(ceil(h/2), ceil(w/2)): the shape of every plane of an (h, w) frame."""
+    return (h + 1) // 2, (w + 1) // 2
+
+
+def planes(a: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The four parity planes of an (H, W) array in COLORS order, each of
+    `plane_shape`; where H or W is odd, the planes of the short parity end
+    in a pad row or column of zeros."""
+    h, w = a.shape
+    h2, w2 = plane_shape(h, w)
+    out = []
+    for pi, pj in COLORS:
+        p = a.new_zeros((h2, w2))
+        src = a[pi::2, pj::2]
+        p[:src.shape[0], :src.shape[1]] = src
+        out.append(p)
+    return tuple(out)
+
+
+def interleave(p00, p01, p10, p11, h: int, w: int) -> torch.Tensor:
+    """The (h, w) array whose parity planes these are (pads dropped)."""
+    h2, w2 = p00.shape
+    r0 = torch.stack([p00, p01], dim=-1).reshape(h2, 2 * w2)
+    r1 = torch.stack([p10, p11], dim=-1).reshape(h2, 2 * w2)
+    return torch.stack([r0, r1], dim=1).reshape(2 * h2, 2 * w2)[:h, :w].contiguous()
+
+
+def sor_planes_plain(u0, v0, ex, ey, et, inv_den, n: int, omega: float):
+    """n 4-color SOR sweeps of an (H, W) frame on its parity planes, stage by
+    stage, as the reference's `_planes_kernel` (:100-160): the vertical pass
+    of a plane mixes the two row parities of its column parity, the
+    horizontal pass the two column parities, and the true bottom row and
+    right column are clamped by a one-row or one-column fix whose plane
+    depends on the parity of h and w. u0/v0 None start from zero. Returns
+    (u, v) at full resolution."""
+    h, w = ex.shape
+    h2, w2 = plane_shape(h, w)
+    if u0 is None:
+        u0, v0 = torch.zeros_like(ex), torch.zeros_like(ex)
+    U = dict(zip(COLORS, planes(u0)))
+    V = dict(zip(COLORS, planes(v0)))
+    F = [dict(zip(COLORS, planes(f))) for f in (ex, ey, et, inv_den)]
+    h_odd = h % 2 == 1
+    w_odd = w % 2 == 1
+    # The bottom clamp row h-1 lives in the planes of parity (h-1)%2 at plane
+    # row (h-1)//2; likewise the right column.
+    m_bot = (torch.arange(h2, device=ex.device) == (h - 1) // 2)[:, None]
+    m_rt = (torch.arange(w2, device=ex.device) == (w - 1) // 2)[None, :]
+
+    def tpass(P, pi, pjc):
+        """Vertical [1,2,1] pass at (row parity pi, column parity pjc)."""
+        center = P[(pi, pjc)]
+        other = P[(1 - pi, pjc)]
+        if pi == 0:
+            up = torch.cat([center[0:1], other[:h2 - 1]], dim=0)  # row 0 clamps
+            dn = other
+            if h_odd:  # the true bottom row is even: clamp to center
+                dn = torch.where(m_bot, center, dn)
+        else:
+            up = other
+            dn = torch.cat([other[1:], other[h2 - 1:]], dim=0)
+            if not h_odd:  # the true bottom row is odd: clamp to center
+                dn = torch.where(m_bot, center, dn)
+        return up + 2.0 * center + dn
+
+    def navg_plane(P, pi, pj):
+        """neighbor_avg restricted to color (pi, pj), bitwise."""
+        t_same = tpass(P, pi, pj)
+        t_other = tpass(P, pi, 1 - pj)
+        if pj == 0:
+            lf = torch.cat([t_same[:, 0:1], t_other[:, :w2 - 1]], dim=1)
+            rt = t_other
+            if w_odd:
+                rt = torch.where(m_rt, t_same, rt)
+        else:
+            lf = t_other
+            rt = torch.cat([t_other[:, 1:], t_other[:, w2 - 1:]], dim=1)
+            if not w_odd:
+                rt = torch.where(m_rt, t_same, rt)
+        s = lf + 2.0 * t_same + rt
+        return s * (1.0 / 12.0) - P[(pi, pj)] * (1.0 / 3.0)
+
+    for _ in range(n):
+        for c in COLORS:
+            ubar = navg_plane(U, *c)
+            vbar = navg_plane(V, *c)
+            e_x, e_y, e_t, ivd = (f[c] for f in F)
+            frac = (e_x * ubar + e_y * vbar + e_t) * ivd
+            un = ubar - e_x * frac
+            vn = vbar - e_y * frac
+            U[c] = U[c] + omega * (un - U[c])
+            V[c] = V[c] + omega * (vn - V[c])
+    return (interleave(*(U[c] for c in COLORS), h, w),
+            interleave(*(V[c] for c in COLORS), h, w))
+
+
+def sor_planes(u0, v0, ex, ey, et, inv_den, n: int, omega: float):
+    """n 4-color SOR sweeps of an (H, W) frame, from (u0, v0) or, when both
+    are None, from zero: on CUDA tensors one K8 call (pack, 4*n color
+    stages, unpack; 4*n + 2 launches), on CPU tensors `sor_planes_plain`.
+    Returns new (u, v); the inputs are not modified."""
+    if (u0 is None) != (v0 is None):
+        raise ValueError("u0 and v0 must be given together")
+    check_frames("sor_planes", ex, ey, et, inv_den, *(() if u0 is None else (u0, v0)))
+    if ex.ndim != 2:
+        raise ValueError(f"sor_planes: expected an (H, W) frame, got {tuple(ex.shape)}")
+    if n < 0:
+        raise ValueError("n must be >= 0")
+    if ex.device.type == "cpu":
+        return sor_planes_plain(u0, v0, ex, ey, et, inv_den, n, omega)
+    h, w = ex.shape
+    uo, vo = torch.empty_like(ex), torch.empty_like(ex)
+    if ex.numel() == 0:
+        return uo, vo
+    scratch = torch.empty((_ARRAYS, 4) + plane_shape(h, w), dtype=ex.dtype,
+                          device=ex.device)
+    start = (None, None) if u0 is None else (u0.data_ptr(), v0.data_ptr())
+    err = _build.library().hs_sor_planes(
+        *start, ex.data_ptr(), ey.data_ptr(), et.data_ptr(), inv_den.data_ptr(),
+        scratch.data_ptr(), uo.data_ptr(), vo.data_ptr(), h, w, n, float(omega),
+        ex.device.index, torch.cuda.current_stream(ex.device).cuda_stream,
+    )
+    _build.check(err, "hs_sor_planes")
+    sor_planes.launches += 4 * n + 2
+    return uo, vo
+
+
+# Every K8 kernel launch (pack, color stage, unpack).
+sor_planes.launches = 0
+
+
+def hs_solve_sor_planes(i1, i2, alpha: float, n_sweeps: int, omega: float,
+                        variant: str = "hs_cube", u0=None, v0=None):
+    """Whole 4-color SOR solve of an (H, W) pair on color planes: K1, then
+    one K8 call, on CUDA tensors; `derivatives_plain` and `sor_planes_plain`
+    on CPU tensors. Returns (u, v), or None where the reference's kernel
+    does: a frame that is not 2-D, n_sweeps < 1, a variant other than
+    hs_cube, or a frame outside its plane class (`applicable_shape`). A
+    build or launch failure raises."""
+    if (u0 is None) != (v0 is None):
+        raise ValueError("u0 and v0 must be given together")
+    if i1.ndim != 2 or n_sweeps < 1 or variant != "hs_cube":
+        return None
+    if applicable_shape(*i1.shape) is None:
+        return None
+    check_frames("hs_solve_sor_planes", i1, i2, *(() if u0 is None else (u0, v0)))
+    ex, ey, et, invd = hs_derivatives(i1, i2, alpha, variant)
+    return sor_planes(u0, v0, ex, ey, et, invd, n_sweeps, omega)

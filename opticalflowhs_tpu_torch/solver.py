@@ -1,12 +1,15 @@
 """Horn-Schunck solver, mirroring opticalflowhs_tpu/solver.py (Jacobi,
-4-color SOR and Charbonnier IRLS).
+4-color SOR, Charbonnier IRLS and multigrid).
 
 Backends:
-  - "torch": the plain PyTorch ops (ops/stencils.py, robust.py), on any
-             device; the version every kernel is held against.
+  - "torch": the plain PyTorch ops (ops/stencils.py, robust.py,
+             multigrid.py), on any device; the version every kernel is held
+             against.
   - "cuda":  the hand-written kernels (kernels/): K1 derivatives, K2 Jacobi
              sweeps, K3 4-color SOR sweeps, K4 IRLS freeze and sweeps, K6
-             and K7 the whole Jacobi solve in one sweep launch.
+             and K7 the whole Jacobi solve in one sweep launch. Multigrid
+             runs K1 and then its plain V-cycles on the card, as the
+             reference runs jnp cycles on every backend.
   - "auto":  cuda for CUDA frames, torch for CPU frames.
 
 `backend="cuda"` on CPU frames raises; nothing falls back from the kernels
@@ -17,10 +20,10 @@ entry point's `device` keyword, which defaults to cuda:0; without a CUDA
 device that default raises RuntimeError, so the CPU runs only when the
 caller asks for it (`device="cpu"`, or CPU tensors).
 
-Scope: the solvers "jacobi", "sor" and "robust", float32, with a fixed
-sweep count or solved to tolerance (`sweeps_until`). Multigrid and bf16
-are still to be ported (ROADMAP.md queue 1) and raise NotImplementedError
-rather than solving something else.
+Scope: the solvers "jacobi", "sor", "robust" and "multigrid" (iters counts
+V-cycles), float32, with a fixed sweep count or solved to tolerance
+(`sweeps_until`). bf16 is still to be ported (ROADMAP.md queue 1) and
+raises NotImplementedError rather than solving something else.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from opticalflowhs_tpu_torch import robust
+from opticalflowhs_tpu_torch import multigrid, robust
 from opticalflowhs_tpu_torch.config import HSConfig
 from opticalflowhs_tpu_torch.kernels import (
     solve_fused,
@@ -77,16 +80,12 @@ def resolve_backend(backend: str, frame: torch.Tensor) -> str:
 
 
 def check_supported(cfg: HSConfig) -> None:
-    """Raise NotImplementedError for configurations the port cannot solve yet."""
-    if cfg.solver not in ("jacobi", "sor", "robust"):
-        raise NotImplementedError(
-            f"solver={cfg.solver!r} is not ported yet (ROADMAP.md queue 1, "
-            "item 9: multigrid); 'jacobi', 'sor' and 'robust' run"
-        )
+    """Raise NotImplementedError for configurations the port cannot solve
+    yet: every solver runs, in float32 only."""
     if cfg.dtype != "float32":
         raise NotImplementedError(
-            f"dtype={cfg.dtype!r} is not ported yet (ROADMAP.md queue 1, "
-            "item 3: bf16); only float32 runs"
+            f"dtype={cfg.dtype!r} is not ported yet (ROADMAP.md queue 1: "
+            "bf16); only float32 runs"
         )
 
 
@@ -133,11 +132,13 @@ def precompute(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig):
 def sweeps(u, v, ex, ey, et, inv_den, n: int, cfg: HSConfig) -> Flow:
     """n sweeps of cfg.solver on (H, W) or (B, H, W): Jacobi (K2), 4-color
     SOR (K3) or IRLS (K4, refrozen as `robust.robust_sweeps`, inv_den
-    unused) on the cuda backend, the plain versions on the torch
-    backend."""
+    unused) on the cuda backend, the plain versions on the torch backend;
+    for multigrid n V-cycles (`multigrid.mg_sweeps`), plain on both."""
     check_supported(cfg)
     if n == 0:
         return Flow(u, v)
+    if cfg.solver == "multigrid":
+        return Flow(*multigrid.mg_sweeps(u, v, ex, ey, et, inv_den, n, cfg))
     cuda = resolve_backend(cfg.backend, u) == "cuda"
     if cfg.solver == "robust":
         irls = solve_robust.robust_sweeps if cuda else robust.robust_sweeps
@@ -156,7 +157,8 @@ def sweeps(u, v, ex, ey, et, inv_den, n: int, cfg: HSConfig) -> Flow:
 def sweeps_until(u, v, ex, ey, et, inv_den, cfg: HSConfig,
                  budget: Optional[int] = None) -> Flow:
     """Solve to tolerance (cfg.tol > 0), as the reference's sweeps_until:
-    check blocks of b = block_sweeps (16 when 0) sweeps, b at most
+    check blocks of b = block_sweeps (16 when 0) sweeps, or of one V-cycle
+    for multigrid, b at most
     max(budget, 1), run while the next whole block fits the budget
     (cfg.iters unless given; rounded down to whole blocks) and the last
     block's max |update| over u and v exceeds tol (the first "update" is
@@ -172,7 +174,10 @@ def sweeps_until(u, v, ex, ey, et, inv_den, cfg: HSConfig,
     block."""
     check_supported(cfg)
     iters = cfg.iters if budget is None else budget
-    b = cfg.block_sweeps if cfg.block_sweeps > 0 else 16
+    if cfg.solver == "multigrid":
+        b = 1
+    else:
+        b = cfg.block_sweeps if cfg.block_sweeps > 0 else 16
     b = min(b, max(iters, 1))
     delta = torch.full(u.shape[:-2], torch.finfo(u.dtype).max,
                        dtype=u.dtype, device=u.device)
@@ -244,7 +249,8 @@ def solve_level(
     and then check blocks of
     `sweeps` (the reference's resident-blocked route re-derives the fields
     per block, with identical values; an IRLS block refreezes at its
-    start, as the reference's block does). The torch backend runs the
+    start, as the reference's block does). Multigrid runs K1 (or the plain
+    derivatives) and then its plain V-cycles. The torch backend runs the
     plain ops. Both compute the same sweeps in the same order."""
     check_supported(cfg)
     if (u0 is None) != (v0 is None):
@@ -254,11 +260,14 @@ def solve_level(
     if u0 is not None:
         u0 = as_frame(u0, i1.device)
         v0 = as_frame(v0, i1.device)
-    if cfg.tol > 0:
+    if cfg.tol > 0 or cfg.solver == "multigrid":
+        # Multigrid must not fall through to the Jacobi drivers below.
         ex, ey, et, inv_den = precompute(i1, i2, cfg)
         if u0 is None:
             u0, v0 = torch.zeros_like(i1), torch.zeros_like(i1)
-        return sweeps_until(u0, v0, ex, ey, et, inv_den, cfg, budget=iters)
+        if cfg.tol > 0:
+            return sweeps_until(u0, v0, ex, ey, et, inv_den, cfg, budget=iters)
+        return sweeps(u0, v0, ex, ey, et, inv_den, iters, cfg)
     cuda = resolve_backend(cfg.backend, i1) == "cuda"
     if cfg.solver == "robust":
         rcfg = cfg if iters == cfg.iters else dataclasses.replace(cfg, iters=iters)

@@ -1,4 +1,4 @@
-"""K1-K7 and the whole-solve drivers on a CUDA card against their
+"""K1-K8 and the whole-solve drivers on a CUDA card against their
 plain versions on the same card, at edge-case shapes (partial tiles, frames
 narrower or shorter than a tile, one row, one column) and sweep counts
 that the sweeps per launch do not divide; single frames and (B, H, W)
@@ -6,7 +6,11 @@ stacks, where each image of a batched launch must equal the single-frame
 kernel on that image; the launch counts; and the single, batched and
 streaming entry points with the Jacobi, SOR and IRLS solvers and with
 TV-L1; K6 and K7 (the persistent whole-solve kernels) at small forced
-geometries, the routes of `hs_solve` into them, and their failures.
+geometries, the routes of `hs_solve` into them, and their failures; K8
+(the SOR solve on parity planes) against the plain planes, the plain SOR
+sweeps and the K1 + K3 chain at every parity of h and w; multigrid on the
+card (K1, then the plain V-cycles); and the gradient guard at every kernel
+entry.
 
 Marked `cuda`: they skip without a card. They import no JAX, so on a
 machine without it they run with the repository's conftest left out:
@@ -46,6 +50,7 @@ from opticalflowhs_tpu_torch.kernels import solve_resident as sr
 from opticalflowhs_tpu_torch.kernels import solve_robust as k4
 from opticalflowhs_tpu_torch.kernels import solve_skewed as k7
 from opticalflowhs_tpu_torch.kernels import sor as k3
+from opticalflowhs_tpu_torch.kernels import sor_planes as k8
 from opticalflowhs_tpu_torch.kernels import tvl1_inner as k5
 from opticalflowhs_tpu_torch.solver import tune_omega
 from opticalflowhs_tpu_torch.video import flow_stream_occlusion
@@ -476,3 +481,117 @@ def test_k6_k7_failures_raise(dev):
     with pytest.raises(ValueError):
         k7.hs_solve_skewed_batched(i1, i2, 0.5, 9)
     assert (k6.hs_solve_fused.launches, k7.hs_solve_skewed.launches) == before
+
+
+# -- K8 (the SOR solve on parity planes), multigrid, the gradient guard ---------
+
+# Every parity of h and w (the reference's test shapes, and 67x93), and
+# frames of 1-3 rows or columns, where a plane is a single row or all pad.
+PLANES_SHAPES = [(192, 128), (131, 130), (96, 255), (97, 253), (67, 93),
+                 (1, 7), (2, 9), (3, 8), (7, 1), (8, 2), (9, 3)]
+
+
+@pytest.mark.parametrize("shape", PLANES_SHAPES)
+@pytest.mark.parametrize("n", [1, 4, 7])
+@pytest.mark.parametrize("warm", [False, True])
+def test_k8_equals_plain_and_the_k3_chain(dev, shape, n, warm):
+    i1, i2 = _rand(shape, dev, 60)
+    init = _rand(shape, dev, 61, normal=True) if warm else (None, None)
+    keep = [a.clone() for a in init if a is not None]
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    k8.sor_planes.launches = 0
+    got = k8.sor_planes(*init, *fields, n, 1.7)
+    assert k8.sor_planes.launches == 4 * n + 2  # pack, 4n color stages, unpack
+    _equal(got, k8.sor_planes_plain(*init, *fields, n, 1.7))
+    z = torch.zeros_like(i1)
+    _equal(got, k3.sor_sweeps_plain(*(init if warm else (z, z)), *fields, n, 1.7))
+    k1.hs_derivatives.launches = 0
+    whole = k8.hs_solve_sor_planes(i1, i2, 0.5, n, 1.7, "hs_cube", *init)
+    assert k1.hs_derivatives.launches == 1
+    _equal(whole, got)
+    _equal(whole, sr.hs_solve_resident_sor(i1, i2, 0.5, n, 1.7, "hs_cube", *init))
+    _equal([a for a in init if a is not None], keep)  # the start is not written
+
+
+def test_k8_contract(dev):
+    i1, i2 = _rand((64, 96), dev, 62)
+    big = torch.zeros(2160, 3840, device=dev)
+    before = (k1.hs_derivatives.launches, k8.sor_planes.launches)
+    assert k8.hs_solve_sor_planes(big, big, 0.5, 4, 1.7) is None   # outside the class
+    assert k8.hs_solve_sor_planes(i1[None], i2[None], 0.5, 4, 1.7) is None
+    assert k8.hs_solve_sor_planes(i1, i2, 0.5, 0, 1.7) is None
+    assert k8.hs_solve_sor_planes(i1, i2, 0.5, 4, 1.7, "central") is None
+    assert (k1.hs_derivatives.launches, k8.sor_planes.launches) == before
+    with pytest.raises(ValueError, match="together"):
+        k8.hs_solve_sor_planes(i1, i2, 0.5, 4, 1.7, u0=i1)
+    with pytest.raises(ValueError):
+        k8.sor_planes(None, None, *(f[None] for f in k1.derivatives_plain(i1, i2, 0.5)), 4, 1.7)
+    u0, v0 = _rand((64, 96), dev, 63, normal=True)
+    _equal(k8.sor_planes(u0, v0, *k1.derivatives_plain(i1, i2, 0.5), 0, 1.7), (u0, v0))
+
+
+@pytest.mark.parametrize("kw", [dict(iters=2), dict(iters=6, tol=1e-3), dict(iters=1, warm=True)])
+def test_multigrid_on_the_card_equals_plain(dev, kw):
+    kw = dict(kw)
+    warm = kw.pop("warm", False)
+    i1, i2 = _rand((3, 96, 128), dev, 64)
+    init = Flow(*_rand((96, 128), dev, 65, normal=True)) if warm else None
+    cfg = HSConfig(alpha=1.0, solver="multigrid", **kw)
+    plain = dataclasses.replace(cfg, backend="torch")
+    counters = (k1.hs_derivatives, k2.jacobi_sweeps, k3.sor_sweeps)
+    for c in counters:
+        c.launches = 0
+    got = hs_solve(i1[0], i2[0], cfg, init=init)
+    assert tuple(c.launches for c in counters) == (1, 0, 0)  # K1, then plain V-cycles
+    _equal(got, hs_solve(i1[0], i2[0], plain, init=init))
+    k1.hs_derivatives.launches = 0
+    stack = hs_solve_batched(i1, i2, cfg)
+    assert k1.hs_derivatives.launches == 1  # one K1 for the whole stack
+    _equal(stack, hs_solve_batched(i1, i2, plain))
+    for k in range(3):
+        _equal([a[k] for a in stack], hs_solve(i1[k], i2[k], cfg))
+    pyr = PyramidConfig(levels=2)
+    _equal(hs_pyramid(i1[0], i2[0], cfg, pyr), hs_pyramid(i1[0], i2[0], plain, pyr))
+
+
+def _guarded_entries(dev):
+    """(name, the argument given as requiring grad, the call) for every
+    kernel entry: K1-K8, the whole-solve drivers and hs_solve."""
+    i1, i2 = _rand((40, 56), dev, 66)
+    u, v = _rand((40, 56), dev, 67, normal=True)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    ex, ey, et, _ = fields
+    wd, ws = robust.charbonnier_weights(u, v, ex, ey, et, 0.05, 0.05)
+    u1, u2, tv_fields, scalars = _tvl1_fields((40, 56), dev, 68)
+    cfg_r = HSConfig(alpha=0.3, iters=5, solver="robust")
+    return [
+        ("K1", i1, lambda a: k1.hs_derivatives(a, i2, 0.5)),
+        ("K1 (second frame)", i2, lambda a: k1.hs_derivatives(i1, a, 0.5)),
+        ("K2", u, lambda a: k2.jacobi_sweeps(a, v, *fields, 3)),
+        ("K1 + K2", i1, lambda a: sr.hs_solve_resident(a, i2, 0.5, 3)),
+        ("K3", u, lambda a: k3.sor_sweeps(a, v, *fields, 3, 1.6)),
+        ("K1 + K3", i1, lambda a: sr.hs_solve_resident_sor(a, i2, 0.5, 3, 1.6)),
+        ("K4 freeze", u, lambda a: k4.freeze_weights(a, v, ex, ey, et, 0.05, 0.05)),
+        ("K4 sweeps", u, lambda a: k4.frozen_sweeps(a, v, ex, ey, et, wd, ws, 0.3, 3)),
+        ("K1 + K4", i1, lambda a: k4.hs_solve_robust_resident(a, i2, cfg_r)),
+        ("K5", u1, lambda a: k5.tvl1_inner(a, u2, *tv_fields, 3, *scalars)),
+        ("K1 + K6", i1, lambda a: k6.hs_solve_fused(a, i2, 0.5, 3)),
+        ("K1 + K7", i1, lambda a: k7.hs_solve_skewed(a, i2, 0.5, 3)),
+        ("K8", u, lambda a: k8.sor_planes(a, v, *fields, 3, 1.6)),
+        ("K1 + K8", i1, lambda a: k8.hs_solve_sor_planes(a, i2, 0.5, 3, 1.6)),
+        ("hs_solve", i1, lambda a: hs_solve(a, i2, HSConfig(iters=3))),
+        ("hs_solve multigrid", i1,
+         lambda a: hs_solve(a, i2, HSConfig(iters=1, solver="multigrid"))),
+    ]
+
+
+@pytest.mark.parametrize("k", range(16))
+def test_kernel_entries_refuse_frames_that_require_grad(dev, k):
+    name, base, call = _guarded_entries(dev)[k]
+    a = base.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no_grad"):
+        call(a)
+    with torch.no_grad():
+        out = call(a)
+    assert all(not t.requires_grad for t in out), name
+    call(base)  # grad mode on, nothing requires grad: runs

@@ -132,7 +132,8 @@ def test_nvcc_command_targets_hopper_without_fma():
     srcs = _build.sources()
     assert [Path(s).name for s in srcs] == ["derivatives.cu", "jacobi.cu",
                                            "robust.cu", "solve_fused.cu",
-                                           "solve_skewed.cu", "sor.cu", "tvl1.cu"]
+                                           "solve_skewed.cu", "sor.cu", "sor_planes.cu",
+                                           "tvl1.cu"]
     for src in srcs:
         cmd = _build.compile_command("nvcc", src, Path("k.o"))
         line = " ".join(cmd)

@@ -89,8 +89,8 @@ def test_hs_solve_input_errors():
 
 @pytest.mark.parametrize(
     "cfg",
-    [HSConfig(solver="multigrid"), HSConfig(solver="multigrid", tol=1e-3),
-     HSConfig(dtype="bfloat16")],
+    [HSConfig(solver="sor", omega=1.6, dtype="bfloat16"),
+     HSConfig(tol=1e-3, dtype="bfloat16"), HSConfig(dtype="bfloat16")],
 )
 def test_unported_configs_raise(cfg):
     a = torch.zeros(16, 16)
@@ -261,6 +261,7 @@ def test_package_imports_without_jax():
         "import opticalflowhs_tpu_torch.robust, opticalflowhs_tpu_torch.checkpoint\n"
         "import opticalflowhs_tpu_torch.kernels.solve_fused\n"
         "import opticalflowhs_tpu_torch.kernels.solve_skewed\n"
+        "import opticalflowhs_tpu_torch.kernels.sor_planes, opticalflowhs_tpu_torch.multigrid\n"
         "import opticalflowhs_tpu_torch.data.synthetic, opticalflowhs_tpu_torch.io.flo\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'opticalflowhs_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"

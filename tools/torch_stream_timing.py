@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's batched, streaming and TV-L1 paths on one CUDA
-card.
+"""Time the PyTorch port's batched, streaming, TV-L1, color-plane SOR and
+multigrid paths on one CUDA card.
 
-    python3 tools/torch_stream_timing.py [--repo DIR] [--runs N] [--profile] [--tvl1]
+    python3 tools/torch_stream_timing.py [--repo DIR] [--runs N] [--profile] [--tvl1 | --mg]
 
 Imports opticalflowhs_tpu_torch from DIR (default: this checkout), so two
 trees can be compared in one session on one card (run them in turns:
@@ -13,6 +13,10 @@ A, B, B, A). The cells are chip_smoke.py's, taken from this checkout:
     configs/c4_hd_streaming.json, chunk 8: staging the windows alone (host
     copies and H2D, no solve), flow_stream, and flow_stream_warm with the
     warp prior at 25 sweeps.
+With --mg the cells are chip_smoke.py's phase 14 instead:
+  * S1 through K8 (kernels.hs_solve_sor_planes) and through the K1 + K3
+    chain (`c1_frames`, alpha 0.5, i50, omega chip_smoke.OMEGA);
+  * M1: hs_solve with solver="multigrid", alpha 1, i1 and i2, on `m1_pair`.
 With --tvl1 the cells are chip_smoke.py's phase 12 instead:
   * T1: tvl1_solve on `t1_pair` (1088x1920), 3 levels, TVL1Config();
   * T2: tvl1_solve on `t2_pair` (the 1080p two-motion seam), one level;
@@ -115,12 +119,30 @@ def tvl1_calls(p, dev) -> dict:
     }
 
 
+def sor_planes_mg_calls(p, dev) -> dict:
+    """chip_smoke.py's phase-14 cells: S1 through K8 and through the K1 + K3
+    chain, and M1 multigrid at one and two V-cycles."""
+    from opticalflowhs_tpu_torch.kernels import solve_resident, sor_planes
+
+    s1, s2 = chip_smoke.c1_frames(dev)
+    m1, m2, _ = chip_smoke.m1_pair(dev)
+    om = chip_smoke.OMEGA
+    mg = {n: p.HSConfig(alpha=1.0, iters=n, solver="multigrid") for n in (1, 2)}
+    return {
+        "s1_k8": lambda: sor_planes.hs_solve_sor_planes(s1, s2, 0.5, 50, om),
+        "s1_k1_k3_chain": lambda: solve_resident.hs_solve_resident_sor(s1, s2, 0.5, 50, om),
+        "m1_multigrid_i1": lambda: p.hs_solve(m1, m2, mg[1]),
+        "m1_multigrid_i2": lambda: p.hs_solve(m1, m2, mg[2]),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=str(HERE))
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--tvl1", action="store_true", help="time the TV-L1 cells T1-T3")
+    ap.add_argument("--mg", action="store_true", help="time S1 through K8, and M1")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_stream_timing: no CUDA device", file=sys.stderr)
@@ -132,6 +154,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     if args.tvl1:
         return report(args, tvl1_calls(p, dev))
+    if args.mg:
+        return report(args, sor_planes_mg_calls(p, dev))
     cfg2 = chip_smoke.cell_config("c2_video_batch.json")
     cfg4 = chip_smoke.cell_config("c4_hd_streaming.json")
     cfg4w = dataclasses.replace(cfg4, iters=25)
