@@ -43,7 +43,15 @@ each ran through the kernels:
               and plain; None at 2160x3840; M1 hs_solve with
               solver="multigrid" (K1, then plain V-cycles) at i1 and i2
               against all-plain and Jacobi i100/i1600 in EPE; a multigrid
-              stack of 2 x 1080p and a 3-level multigrid pyramid.
+              stack of 2 x 1080p and a 3-level multigrid pyramid;
+  phase 15:   K9 (tile sweeps keyed to a global origin, Jacobi and SOR),
+              K10 (the ring halo exchange), K11 and K12 (the fused ring
+              solves) against their plain versions on virtual meshes of
+              cuda:0 (1x1, 2x1, 4x1, 2x2, 1x4); then config 5
+              (configs/c5_multihost_4k.json) through dist/ on virtual
+              meshes: hs_solve_tiled 2160x3840 i100 halo_sweeps 4 on 4 x 4
+              (D1), hs_pyramid_tiled L3 (D2), halo_impl="rdma" on 4 x 1
+              and 2 x 2 (D3), SOR i50 (D4), each against the untiled solve.
 Every phase checks what it measures and any failure exits non-zero.
 Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
@@ -51,7 +59,8 @@ Output: one line of numbers per phase; then, on lines of their own, the
 card's name and power limit as nvidia-smi gives them, and a JSON object
 {"kernels": [...]} (per kernel: launches on the batched path for K1 and
 K2, on the SOR and robust path for K3 and K4, on the TV-L1 path for K5,
-on phase 13's path for K6 and K7, on phase 14's for K8, max |diff| against
+on phase 13's path for K6 and K7, on phase 14's for K8, on phase 15's for
+K9-K12, max |diff| against
 the plain version, ms per launch for the kernel and the plain version at
 8 x 1088x1920 (for K5 per call of 100 alternations; for K6, K7 and K8 per
 whole solve, K1 included, at 4320x7680, 2160x3840 i100 and 1088x1920 i50),
@@ -119,6 +128,8 @@ OMEGA = 1.71  # the SOR workloads' omega, as tools/hw_sor_resident_ab.py
 # one plane written; csrc/sor_planes.cu).
 K1_FIELDS_FLOPS_PER_PX = 31
 K8_STAGE_ARRAYS = 3.5
+# NVLink between the cards of one host: 900 GB/s all to all, 450 each way.
+NVLINK_BYTES_PER_S = 450e9
 
 
 def require(cond: bool, what: str) -> None:
@@ -223,6 +234,22 @@ def t2_pair(dev):
     from opticalflowhs_tpu_torch.data.synthetic import two_motion_pair
     i1, i2, gt = two_motion_pair(1088, 1920, (1.0, 0.0), (-1.0, 0.0), key=3)
     return torch.from_numpy(i1).to(dev), torch.from_numpy(i2).to(dev), gt
+
+
+def c5_frames(dev):
+    """D1-D4's frames on the card: two 2160x3840 frames of uniform noise from
+    default_rng(5), config 5's size."""
+    rng = np.random.default_rng(5)
+    return tuple(torch.from_numpy(rng.uniform(0, 1, (2160, 3840)).astype(np.float32)).to(dev)
+                 for _ in range(2))
+
+
+def c5_configs():
+    """Config 5's (configs/c5_multihost_4k.json) HSConfig (alpha 1, i100),
+    PyramidConfig (3 levels) and MeshConfig (1 x 4 x 4, halo_sweeps 4)."""
+    from opticalflowhs_tpu_torch import from_reference
+    c5 = json.loads((ROOT / "configs" / "c5_multihost_4k.json").read_text())
+    return tuple(from_reference(c5[k]) for k in ("hs", "pyramid", "mesh"))
 
 
 def m1_pair(dev):
@@ -1045,6 +1072,284 @@ def sor_planes_and_multigrid(dev, stack, s1, s2) -> dict:
             "stage_bytes_us": stage_ms * 1e3, "m1_i1_ms": ms_mg[1], "m1_i2_ms": ms_mg[2]}
 
 
+def _ring_inputs(dev, my, mx, th, tw, sg, seed, h, w):
+    """A (y, x) grid of shards for K11/K12: owned (th, tw) starts, fields of
+    the shards extended by sg rows (and sg columns on a 2-D mesh) from
+    random frames, global origins; the true image is h x w."""
+    from opticalflowhs_tpu_torch.kernels import derivatives as k1
+    rng = np.random.default_rng(seed)
+    sx = sg if mx > 1 else 0
+
+    def rand(shape, normal=False):
+        a = rng.normal(0, 0.5, shape) if normal else rng.uniform(0, 1, shape)
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    gu = [[rand((th, tw), True) for _ in range(mx)] for _ in range(my)]
+    gv = [[rand((th, tw), True) for _ in range(mx)] for _ in range(my)]
+    gf = [[tuple(k1.derivatives_plain(rand((th + 2 * sg, tw + 2 * sx)),
+                                      rand((th + 2 * sg, tw + 2 * sx)), 0.5))
+           for _ in range(mx)] for _ in range(my)]
+    origins = [[(i * th, j * tw) for j in range(mx)] for i in range(my)]
+    return gu, gv, gf, origins
+
+
+def tiled_path(dev, pair, stack) -> list:
+    """Phase 15: K9 (tile sweeps with a global origin, Jacobi and SOR), K10
+    (the ring halo exchange), K11 and K12 (the fused ring solves) against
+    their plain versions on virtual meshes of cuda:0, then config 5
+    (configs/c5_multihost_4k.json) through dist/: hs_solve_tiled 2160x3840
+    i100 halo_sweeps 4 on a virtual 4 x 4 mesh (D1), hs_pyramid_tiled (D2),
+    halo_impl="rdma" on 4 x 1 (K11) and 2 x 2 (K12) (D3), SOR tiled i50
+    (D4) and K10 on the 4 x 1 frame shards, counted, each against the
+    untiled solve, and timed. Returns the K9-K12 rows of the kernels line."""
+    from opticalflowhs_tpu_torch import hs_pyramid, hs_solve
+    from opticalflowhs_tpu_torch.config import MeshConfig
+    from opticalflowhs_tpu_torch.dist import hs_pyramid_tiled, hs_solve_tiled, make_mesh
+    from opticalflowhs_tpu_torch.kernels import derivatives as k1
+    from opticalflowhs_tpu_torch.kernels import ring
+    from opticalflowhs_tpu_torch.kernels import tile as k9
+
+    names = ("hs_tile_sweeps", "hs_sor_tile_sweeps", "hs_ring_halo_exchange",
+             "hs_ring_fused_sweeps", "hs_ring_fused_sweeps_2d")
+    err = {n: 0.0 for n in names}
+
+    def same(name, a, b, what):
+        d = max(max_diff(x, y) for x, y in zip(a, b))
+        err[name] = max(err[name], d)
+        require(d == 0.0, f"{what}: max|diff| {d}, expected bitwise equality")
+
+    # -- phase 15: K9 against its plain versions, origins at the four corners --
+    # Padded shards of a 300 x 400 image at negative, odd origins (every
+    # corner of the image, and an odd interior origin), single and stacked.
+    for ph, pw in ((67, 93), (131, 130)):
+        corners = [(-4, -3), (-3, 400 - pw + 5), (300 - ph + 3, -5),
+                   (300 - ph + 4, 400 - pw + 3), (117, 33)]
+        u0, v0 = (a[0] for a in stack(1, ph, pw, seed=150, normal=True))
+        i1, i2 = (a[0] for a in stack(1, ph, pw, seed=151))
+        fields = k1.derivatives_plain(i1, i2, 0.5)
+        for r0, c0 in corners:
+            for n in (7, 13):
+                same("hs_tile_sweeps", k9.tile_sweeps(u0, v0, *fields, n, r0, c0, 300, 400),
+                     k9.tile_sweeps_plain(u0, v0, *fields, n, r0, c0, 300, 400),
+                     f"K9 {ph}x{pw} origin ({r0}, {c0}) n={n}")
+                same("hs_sor_tile_sweeps",
+                     k9.sor_tile_sweeps(u0, v0, *fields, n, OMEGA, r0, c0, 300, 400),
+                     k9.sor_tile_sweeps_plain(u0, v0, *fields, n, OMEGA, r0, c0, 300, 400),
+                     f"K9 SOR {ph}x{pw} origin ({r0}, {c0}) n={n}")
+        su, sv = stack(5, ph, pw, seed=152, normal=True)
+        sa, sb = stack(5, ph, pw, seed=153)
+        sf = k1.derivatives_plain(sa, sb, 0.5)
+        rows, cols = [c[0] for c in corners], [c[1] for c in corners]
+        same("hs_tile_sweeps", k9.tile_sweeps(su, sv, *sf, 7, rows, cols, 300, 400),
+             k9.tile_sweeps_plain(su, sv, *sf, 7, rows, cols, 300, 400),
+             f"K9 stack of 5 {ph}x{pw}")
+        same("hs_sor_tile_sweeps", k9.sor_tile_sweeps(su, sv, *sf, 7, OMEGA, rows, cols, 300, 400),
+             k9.sor_tile_sweeps_plain(su, sv, *sf, 7, OMEGA, rows, cols, 300, 400),
+             f"K9 SOR stack of 5 {ph}x{pw}")
+        print(f"phase 15 K9 {ph}x{pw} (Jacobi and SOR) at the four corners of a 300x400 image "
+              f"and (117, 33), n 7 and 13, single and a stack of 5: = plain bitwise "
+              f"(every element of the padded shard)")
+
+    # -- phase 15: K10, K11 and K12 against their plain versions -------------------
+    for my, mx in ((1, 1), (2, 1), (4, 1), (2, 2), (1, 4)):
+        th, tw = 40, 93 if mx == 1 else 50
+        h, w = my * th - 3, mx * tw - (0 if mx == 1 else 5)
+        for halo in (4, 8):
+            tiles = [u[0] for u in _ring_inputs(dev, my, 1, th, tw, 8, 160 + my, h, w)[0]]
+            for g, r in zip(ring.ring_halo_exchange(tiles, halo),
+                            ring.ring_halo_exchange_plain(tiles, halo)):
+                same("hs_ring_halo_exchange", (g,), (r,), f"K10 ring of {my} halo {halo}")
+        for n in (7, 12, 13):
+            for s in (4, 8):
+                gu, gv, gf, go = _ring_inputs(dev, my, mx, th, tw, 8, 170 + n + s, h, w)
+                if mx == 1:
+                    args = ([r[0] for r in gu], [r[0] for r in gv], [r[0] for r in gf], n, s,
+                            [o[0][0] for o in go], h, w)
+                    got, want = ring.ring_fused_sweeps(*args), ring.ring_fused_sweeps_plain(*args)
+                    name = "hs_ring_fused_sweeps"
+                else:
+                    args = (gu, gv, gf, n, s, go, h, w)
+                    got = ring.ring_fused_sweeps_2d(*args)
+                    want = ring.ring_fused_sweeps_2d_plain(*args)
+                    got = ([a for row in got[0] for a in row], [a for row in got[1] for a in row])
+                    want = ([a for row in want[0] for a in row], [a for row in want[1] for a in row])
+                same(name, got[0] + got[1], want[0] + want[1],
+                     f"{'K11' if mx == 1 else 'K12'} {my}x{mx} n={n} s={s}")
+        print(f"phase 15 mesh {my}x{mx} (virtual, cuda:0): K10 halo 4, 8 and "
+              f"{'K11' if mx == 1 else 'K12'} n 7, 12, 13 with s 4, 8 = plain bitwise")
+
+    # -- config 5 through dist/, counted ------------------------------------------
+    cfg5, pyr5, mcfg = c5_configs()
+    s5 = mcfg.halo_sweeps
+    sor5 = dataclasses.replace(cfg5, solver="sor", omega=OMEGA, iters=50)
+    q1, q2 = pair
+    H, W = q1.shape
+    m44 = make_mesh(mcfg, [dev] * 16)
+    m41 = make_mesh(MeshConfig(y=4, x=1), [dev] * 4)
+    m22 = make_mesh(MeshConfig(y=2, x=2), [dev] * 4)
+    counters = {"K9": k9.tile_sweeps, "K9 SOR": k9.sor_tile_sweeps,
+                "K10": ring.ring_halo_exchange, "K11": ring.ring_fused_sweeps,
+                "K12": ring.ring_fused_sweeps_2d}
+    per_call = {}
+
+    def counted(tag, fn):
+        before = {n: c.launches for n, c in counters.items()}
+        out = fn()
+        per_call[tag] = {n: c.launches - before[n] for n, c in counters.items()}
+        return out
+
+    shards41 = [q1[i * (H // 4):(i + 1) * (H // 4)].contiguous() for i in range(4)]
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t1 = counted("D1", lambda: hs_solve_tiled(q1, q2, cfg5, m44, halo_sweeps=s5))
+    t2 = counted("D2", lambda: hs_pyramid_tiled(q1, q2, cfg5, pyr5, m44, halo_sweeps=s5))
+    t3a = counted("D3 4x1", lambda: hs_solve_tiled(q1, q2, cfg5, m41, halo_sweeps=s5,
+                                                   halo_impl="rdma"))
+    t3b = counted("D3 2x2", lambda: hs_solve_tiled(q1, q2, cfg5, m22, halo_sweeps=s5,
+                                                   halo_impl="rdma"))
+    t4 = counted("D4", lambda: hs_solve_tiled(q1, q2, sor5, m44, halo_sweeps=s5))
+    x10 = counted("K10", lambda: ring.ring_halo_exchange(shards41, s5 + 1))
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"tiled path launches (D1, D2, D3, D4, K10): {launches}; per call {per_call}")
+    want = {"D1": (25, 0, 0, 0, 0), "D3 4x1": (0, 0, 0, 1, 0), "D3 2x2": (0, 0, 0, 0, 1),
+            "D4": (0, 13, 0, 0, 0), "K10": (0, 0, 1, 0, 0)}
+    for tag, counts in want.items():
+        require(tuple(per_call[tag].values()) == counts,
+                f"{tag} launches {per_call[tag]}, expected K9, K9 SOR, K10, K11, K12 = {counts}")
+    require(per_call["D2"]["K9"] > 0 and sum(per_call["D2"].values()) == per_call["D2"]["K9"],
+            f"D2 launches {per_call['D2']}")
+    require(all(n > 0 for n in launches.values()), f"a kernel never ran: {launches}")
+    for f in (t1, t2, t3a, t3b, t4):
+        for a in f:
+            require(tuple(a.shape) == (H, W) and bool(torch.isfinite(a).all())
+                    and a.device == dev, "phase 15 output shape/finite/device")
+
+    l1 = hs_solve(q1, q2, cfg5)                           # untiled: K1 + K7
+    l3 = hs_pyramid(q1, q2, cfg5, pyr5)
+    s4 = hs_solve(q1, q2, sor5)                           # untiled: K1 + K3
+    diffs = {"D1": max_flow_diff(t1, l1), "D2": max_flow_diff(t2, l3),
+             "D3 4x1": max_flow_diff(t3a, l1), "D3 2x2": max_flow_diff(t3b, l1),
+             "D4": max_flow_diff(t4, s4)}
+    for g, r in zip(x10, ring.ring_halo_exchange_plain(shards41, s5 + 1)):
+        same("hs_ring_halo_exchange", (g,), (r,), "K10 on config 5's 4 x 1 frame shards")
+    for tag, d in diffs.items():
+        require(d <= TOL, f"{tag} tiled vs untiled max|diff| {d}")
+    err["hs_tile_sweeps"] = max(err["hs_tile_sweeps"], diffs["D1"], diffs["D2"])
+    err["hs_sor_tile_sweeps"] = max(err["hs_sor_tile_sweeps"], diffs["D4"])
+    err["hs_ring_fused_sweeps"] = max(err["hs_ring_fused_sweeps"], diffs["D3 4x1"])
+    err["hs_ring_fused_sweeps_2d"] = max(err["hs_ring_fused_sweeps_2d"], diffs["D3 2x2"])
+
+    ms = {
+        "D1": median_ms(lambda: hs_solve_tiled(q1, q2, cfg5, m44, halo_sweeps=s5), runs=10),
+        "L1": median_ms(lambda: hs_solve(q1, q2, cfg5), runs=10),
+        "D2": median_ms(lambda: hs_pyramid_tiled(q1, q2, cfg5, pyr5, m44, halo_sweeps=s5),
+                        runs=10),
+        "L3": median_ms(lambda: hs_pyramid(q1, q2, cfg5, pyr5), runs=10),
+        "D3 4x1": median_ms(lambda: hs_solve_tiled(q1, q2, cfg5, m41, halo_sweeps=s5,
+                                                   halo_impl="rdma"), runs=10),
+        "D3 2x2": median_ms(lambda: hs_solve_tiled(q1, q2, cfg5, m22, halo_sweeps=s5,
+                                                   halo_impl="rdma"), runs=10),
+        "D4": median_ms(lambda: hs_solve_tiled(q1, q2, sor5, m44, halo_sweeps=s5), runs=10),
+        "S4K": median_ms(lambda: hs_solve(q1, q2, sor5), runs=10),
+    }
+    print(f"phase 15 config 5 {H}x{W} a=1 (noise, seed 5), halo_sweeps {s5}, virtual meshes "
+          f"on cuda:0: max|diff| tiled vs untiled {diffs}; ms (median of 10): {ms}")
+
+    # -- per-kernel times at config 5's shapes ----------------------------------------
+    hw = s5
+    th, tw = H // 4, W // 4
+    ph, pw = th + 2 * hw, tw + 2 * hw
+    su, sv = stack(16, ph, pw, seed=180, normal=True)
+    sa, sb = stack(16, ph, pw, seed=181)
+    sf = k1.derivatives_plain(sa, sb, 1.0)
+    org = k9.origin_table(su, [i * th - hw for i in range(4) for _ in range(4)],
+                          [j * tw - hw for _ in range(4) for j in range(4)])
+    rows = org[:, 0].cpu().tolist()
+    cols = org[:, 1].cpu().tolist()
+    ph_s, pw_s = th + 8 * hw, tw + 8 * hw
+    tu, tv = stack(16, ph_s, pw_s, seed=182, normal=True)
+    ta, tb = stack(16, ph_s, pw_s, seed=183)
+    tf = k1.derivatives_plain(ta, tb, 1.0)
+    org_s = k9.origin_table(tu, [r - 3 * hw for r in rows], [c - 3 * hw for c in cols])
+    rows_s = org_s[:, 0].cpu().tolist()
+    cols_s = org_s[:, 1].cpu().tolist()
+    g41 = _ring_inputs(dev, 4, 1, th, W, hw, 190, H, W)
+    g22 = _ring_inputs(dev, 2, 2, H // 2, W // 2, hw, 191, H, W)
+    a41 = ([r[0] for r in g41[0]], [r[0] for r in g41[1]], [r[0] for r in g41[2]], 100, hw,
+           [o[0][0] for o in g41[3]], H, W)
+    a22 = (*g22[:3], 100, hw, g22[3], H, W)
+    timing = {
+        "hs_tile_sweeps": (
+            event_ms(lambda: k9.tile_sweeps(su, sv, *sf, hw, org, None, H, W)),
+            event_ms(lambda: k9.tile_sweeps_plain(su, sv, *sf, hw, rows, cols, H, W),
+                     reps=3)),
+        "hs_sor_tile_sweeps": (
+            event_ms(lambda: k9.sor_tile_sweeps(tu, tv, *tf, hw, OMEGA, org_s, None, H, W)),
+            event_ms(lambda: k9.sor_tile_sweeps_plain(tu, tv, *tf, hw, OMEGA, rows_s, cols_s,
+                                                      H, W), reps=3)),
+        "hs_ring_halo_exchange": (
+            event_ms(lambda: ring.ring_halo_exchange(shards41, hw + 1)),
+            event_ms(lambda: ring.ring_halo_exchange_plain(shards41, hw + 1))),
+        "hs_ring_fused_sweeps": (
+            event_ms(lambda: ring.ring_fused_sweeps(*a41), reps=10),
+            event_ms(lambda: ring.ring_fused_sweeps_plain(*a41), reps=2)),
+        "hs_ring_fused_sweeps_2d": (
+            event_ms(lambda: ring.ring_fused_sweeps_2d(*a22), reps=10),
+            event_ms(lambda: ring.ring_fused_sweeps_2d_plain(*a22), reps=2)),
+    }
+    px9, px9s = 16 * ph * pw, 16 * ph_s * pw_s
+    owned = H * W
+    halo41 = 2 * 2 * 4 * hw * W * 4           # u and v, both sides, 4 shards
+    halo22 = 2 * 2 * 4 * (hw * (W // 2) + (H // 2 + 2 * hw) * hw) * 4
+    bounds = {
+        "hs_tile_sweeps": bound_ms(SWEEP_BLOCK_ARRAYS * 4 * px9, K2_FLOPS_PER_PX_SWEEP * hw * px9),
+        "hs_sor_tile_sweeps": bound_ms(SWEEP_BLOCK_ARRAYS * 4 * px9s,
+                                       K3_FLOPS_PER_PX_SWEEP * hw * px9s),
+        "hs_ring_halo_exchange": bound_ms(4 * (2 * owned + 4 * 2 * (hw + 1) * W), 0),
+        "hs_ring_fused_sweeps": bound_ms(4 * (4 * (owned + 4 * 2 * hw * W) + 2 * owned),
+                                         K2_FLOPS_PER_PX_SWEEP * 100 * owned),
+        "hs_ring_fused_sweeps_2d": bound_ms(
+            4 * (4 * 4 * (H // 2 + 2 * hw) * (W // 2 + 2 * hw) + 2 * owned),
+            K2_FLOPS_PER_PX_SWEEP * 100 * owned),
+    }
+    block_ms = SWEEP_BLOCK_ARRAYS * 4 * owned / PEAK_BYTES_PER_S * 1e3
+    extra = {
+        "hs_tile_sweeps": {"launches_per_D1_solve": per_call["D1"]["K9"],
+                           "shape": [16, ph, pw], "sweeps_per_launch": hw},
+        "hs_sor_tile_sweeps": {"launches_per_D4_solve": per_call["D4"]["K9 SOR"],
+                               "shape": [16, ph_s, pw_s], "sweeps_per_launch": hw},
+        "hs_ring_halo_exchange": {"shards": [4, th, W], "halo": hw + 1,
+                                  "halo_nvlink_ms": 4 * 2 * (hw + 1) * W * 4
+                                  / NVLINK_BYTES_PER_S * 1e3},
+        "hs_ring_fused_sweeps": {"mesh": [4, 1], "n": 100, "s": hw,
+                                 "block_bound_ms": block_ms + halo41 / NVLINK_BYTES_PER_S * 1e3,
+                                 "solve_ms_D3": ms["D3 4x1"]},
+        "hs_ring_fused_sweeps_2d": {"mesh": [2, 2], "n": 100, "s": hw,
+                                    "block_bound_ms": block_ms + halo22 / NVLINK_BYTES_PER_S * 1e3,
+                                    "solve_ms_D3": ms["D3 2x2"]},
+    }
+    for name, (t_k, t_p) in timing.items():
+        print(f"kernel {name}: {t_k:.4f} ms per call, plain {t_p:.4f} ms, bound "
+              f"{bounds[name][0]:.4f} ms ({bounds[name][1]}) {extra[name]}")
+    source = {"hs_tile_sweeps": "opticalflowhs_tpu_torch/csrc/jacobi.cu",
+              "hs_sor_tile_sweeps": "opticalflowhs_tpu_torch/csrc/sor.cu",
+              "hs_ring_halo_exchange": "opticalflowhs_tpu_torch/csrc/ring.cu",
+              "hs_ring_fused_sweeps": "opticalflowhs_tpu_torch/csrc/ring.cu",
+              "hs_ring_fused_sweeps_2d": "opticalflowhs_tpu_torch/csrc/ring.cu"}
+    replaces = {"hs_tile_sweeps": ["opticalflowhs_tpu/kernels/jacobi.py:855"],
+                "hs_sor_tile_sweeps": ["opticalflowhs_tpu/kernels/sor.py:59"],
+                "hs_ring_halo_exchange": ["opticalflowhs_tpu/kernels/rdma_halo.py:49"],
+                "hs_ring_fused_sweeps": ["opticalflowhs_tpu/kernels/rdma_halo.py:135"],
+                "hs_ring_fused_sweeps_2d": ["opticalflowhs_tpu/kernels/rdma_halo.py:398"]}
+    key = dict(zip(names, ("K9", "K9 SOR", "K10", "K11", "K12")))
+    return [{"name": n, "route": "cuda", "source": source[n], "replaces": replaces[n],
+             "launches": launches[key[n]], "max_abs_err": err[n], "ms": timing[n][0],
+             "plain_ms": timing[n][1], "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
+             "library_ms": None, **extra[n]} for n in names]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1373,6 +1678,9 @@ def main() -> int:
     # -- phase 14: K8 (the SOR solve on parity planes) and multigrid ----------------------
     k8_row = sor_planes_and_multigrid(dev, stack, s1, s2)
 
+    # -- phase 15: the tiled solver (K9-K12) and config 5 ---------------------------------
+    k9_12_rows = tiled_path(dev, c5_frames(dev), stack)
+
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2
     fields = k1.derivatives_plain(i1, i2, 0.5)
@@ -1498,7 +1806,7 @@ def main() -> int:
          "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name in source
-    ] + [k5_row] + k67_rows + [k8_row]
+    ] + [k5_row] + k67_rows + [k8_row] + k9_12_rows
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,13 +5,15 @@ The PyTorch port of `opticalflowhs_tpu` (the JAX package, which stays the
 reference). It imports torch and numpy and never JAX. Module names mirror
 the reference's:
 
-  config        HSConfig, PyramidConfig, TVL1Config, from_reference
+  config        HSConfig, PyramidConfig, TVL1Config, MeshConfig, from_reference
   ops/          plain PyTorch stencils (the versions the kernels are held to)
   kernels/      K1 derivatives, K2 Jacobi sweeps, K3 4-color SOR sweeps,
                 K4 IRLS freeze and sweeps, K5 the TV-L1 inner loop, K6 and
                 K7 the whole Jacobi solve in one sweep launch, K8 the whole
-                SOR solve on parity planes (CUDA C++ in csrc/), the
-                whole-solve drivers, the nvcc build
+                SOR solve on parity planes, K9 the tiled solver's shard
+                sweeps, K10-K12 the ring exchange and fused ring solves
+                (CUDA C++ in csrc/), the whole-solve drivers, the nvcc
+                build
   tvl1          tvl1_solve, tvl1_solve_batched (TV-L1, the third family)
   solver        Flow, hs_solve, solve_level, precompute, sweeps,
                 sweeps_until (solve to tolerance), tune_omega (SOR)
@@ -24,6 +26,8 @@ the reference's:
   consistency   forward-backward test, flow_with_occlusion
   video         flow_stream, flow_stream_warm, flow_stream_occlusion,
                 flow_video (prefetched windows)
+  dist/         make_mesh (meshes of devices in one process, virtual ones
+                included), halo_pad, hs_solve_tiled, hs_pyramid_tiled
   data/, io/, metrics   synthetic pairs, .flo files, EPE
 
 Frames are (H, W) float32 tensors, or (B, H, W) stacks, and the solve runs
@@ -36,6 +40,7 @@ from opticalflowhs_tpu_torch.batch import hs_solve_batched
 from opticalflowhs_tpu_torch.checkpoint import hs_solve_checkpointed
 from opticalflowhs_tpu_torch.config import (
     HSConfig,
+    MeshConfig,
     PyramidConfig,
     TVL1Config,
     from_reference,
@@ -50,6 +55,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "HSConfig",
+    "MeshConfig",
     "PyramidConfig",
     "TVL1Config",
     "Flow",

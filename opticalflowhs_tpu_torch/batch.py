@@ -11,8 +11,9 @@ act on the last two axes, so each image is solved on its own.
 
 `solve_stack` picks the family for the stream and consistency entry
 points: HS, or TV-L1 with `tvl1=` (tvl1.tvl1_solve_batched). Sharding a
-stack over a device mesh (`mesh=`) belongs with `dist/`, and `lk=` with the
-Lucas-Kanade family; both are still to be ported (ROADMAP.md queue 1).
+stack over a device mesh (`mesh=`) comes with the rest of `dist/`, and
+`lk=` with the Lucas-Kanade family; both are still to be ported (ROADMAP.md
+queue 1, items 6 and 2).
 """
 
 from __future__ import annotations
@@ -43,12 +44,13 @@ def reject_unported(lk=None, tvl1=None, mesh=None) -> None:
     if lk is not None:
         raise NotImplementedError(
             "lk= needs the Lucas-Kanade family, which is not ported yet "
-            "(ROADMAP.md queue 1, item 10)"
+            "(ROADMAP.md queue 1, item 2)"
         )
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= (sharding over devices) comes with dist/, which is not "
-            "ported yet (ROADMAP.md queue 1, item 12)"
+            "mesh= (sharding a stack over devices) is not ported yet: it comes "
+            "with the rest of dist/ (ROADMAP.md queue 1, item 6); "
+            "dist.hs_solve_tiled shards a solve over a mesh today"
         )
 
 

@@ -1,4 +1,4 @@
-"""Solver, pyramid and TV-L1 configuration, mirroring opticalflowhs_tpu/config.py.
+"""Solver, pyramid, TV-L1 and mesh configuration, mirroring opticalflowhs_tpu/config.py.
 
 The field names, defaults and `__post_init__` checks are the reference's,
 so a configuration moves between the two packages unchanged. Only the
@@ -133,9 +133,34 @@ class TVL1Config:
             raise ValueError(f"backend must be one of {BACKENDS}")
 
 
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh configuration for the tiled solver (dist/)."""
+
+    batch: int = 1              # data-parallel axis size (frame pairs)
+    y: int = 1                  # spatial tiling: rows of shards
+    x: int = 1                  # spatial tiling: columns of shards
+    halo_sweeps: int = 1        # exchange an s-px halo every s sweeps (blockwise)
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("batch", "y", "x")
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        return (self.batch, self.y, self.x)
+
+    def __post_init__(self):
+        if min(self.batch, self.y, self.x) < 1:
+            raise ValueError("mesh axis sizes must be >= 1")
+        if self.halo_sweeps < 1:
+            raise ValueError("halo_sweeps must be >= 1")
+
+
 _HS_FIELDS = {f.name for f in dataclasses.fields(HSConfig)}
 _PYR_FIELDS = {f.name for f in dataclasses.fields(PyramidConfig)}
 _TVL1_FIELDS = {f.name for f in dataclasses.fields(TVL1Config)}
+_MESH_FIELDS = {f.name for f in dataclasses.fields(MeshConfig)}
 
 
 def _translate(d: dict[str, Any]) -> dict[str, Any]:
@@ -152,23 +177,25 @@ def _translate(d: dict[str, Any]) -> dict[str, Any]:
     return vals
 
 
-def from_reference(d: dict[str, Any]) -> HSConfig | PyramidConfig | TVL1Config:
+def from_reference(
+    d: dict[str, Any],
+) -> HSConfig | PyramidConfig | TVL1Config | MeshConfig:
     """Build the port's config from a reference config.
 
     `d` is `dataclasses.asdict()` of an opticalflowhs_tpu HSConfig,
-    PyramidConfig or TVL1Config, or the "hs" / "pyramid" / "tvl1" section
-    of a configs/*.json file. The class is chosen by the field names, tried
-    in that order: a dict whose keys fit more than one class (such as
-    {"iters": 50}, which fits HSConfig and TVL1Config, or {"warp": "gather"},
-    which fits PyramidConfig and TVL1Config) resolves to the first. Backend
-    "jnp" maps to "torch" and "pallas" to "cuda".
+    PyramidConfig, TVL1Config or MeshConfig, or the "hs" / "pyramid" /
+    "tvl1" / "mesh" section of a configs/*.json file. The class is chosen by
+    the field names, tried in that order: a dict whose keys fit more than
+    one class (such as {"iters": 50}, which fits HSConfig and TVL1Config, or
+    {"warp": "gather"}, which fits PyramidConfig and TVL1Config) resolves to
+    the first. Backend "jnp" maps to "torch" and "pallas" to "cuda".
     """
     keys = set(d)
     for fields, cls in ((_HS_FIELDS, HSConfig), (_PYR_FIELDS, PyramidConfig),
-                        (_TVL1_FIELDS, TVL1Config)):
+                        (_TVL1_FIELDS, TVL1Config), (_MESH_FIELDS, MeshConfig)):
         if keys <= fields:
             return cls(**_translate(d))
     raise ValueError(
         f"fields {sorted(keys - _HS_FIELDS)} match none of HSConfig, "
-        "PyramidConfig and TVL1Config"
+        "PyramidConfig, TVL1Config and MeshConfig"
     )

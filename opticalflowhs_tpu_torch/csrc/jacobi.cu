@@ -32,6 +32,16 @@
 // and runs the launch's sweeps on its shared-memory window
 // (jacobi_tile.cuh, shared with K6 and K7); only the owned tile is written
 // back.
+//
+// K9 hs_tile_sweeps is the same kernel on the shards of the tiled solver
+// (opticalflowhs_tpu_torch/dist/): it replaces the TPU kernel _tile_kernel
+// of opticalflowhs_tpu/kernels/jacobi.py (line 855, called by tile_sweeps at
+// line 920). Each image of the stack is a halo-padded shard whose element
+// (0, 0) is the global pixel org[2k], org[2k+1] of an img_h x img_w image
+// (the origin may be negative, and each slice has its own); the clamps fire
+// at the true image edges from those global coordinates and at the shard's
+// own edges, where the plain version's shifts clamp. One launch covers every
+// shard of a device. Bound as K2: 8 arrays of the padded stack a launch.
 
 #include <cuda_runtime.h>
 
@@ -45,8 +55,8 @@ __global__ void jacobi_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ ex, const float* __restrict__ ey,
     const float* __restrict__ et, const float* __restrict__ invd,
-    float* __restrict__ uo, float* __restrict__ vo,
-    int h, int w, int sweeps, int tile_h, int tile_w) {
+    float* __restrict__ uo, float* __restrict__ vo, const int* __restrict__ org,
+    int h, int w, int img_h, int img_w, int sweeps, int tile_h, int tile_w) {
   extern __shared__ float smem[];
   // Move every array to image blockIdx.z; below, all indices are per image.
   const long long img = (long long)blockIdx.z * h * w;
@@ -54,8 +64,12 @@ __global__ void jacobi_kernel(
   v += img;
   uo += img;
   vo += img;
-  const hs_tile::Window win = hs_tile::make_window(
-      blockIdx.y * tile_h, blockIdx.x * tile_w, tile_h, tile_w, sweeps, h, w);
+  // Global origin of this image's element (0, 0): zero for whole images.
+  const int org_r = org != nullptr ? org[2 * blockIdx.z] : 0;
+  const int org_c = org != nullptr ? org[2 * blockIdx.z + 1] : 0;
+  const hs_tile::Window win = hs_tile::make_window_at(
+      blockIdx.y * tile_h, blockIdx.x * tile_w, tile_h, tile_w, sweeps, h, w,
+      org_r, org_c, img_h, img_w);
   hs_tile::Buffers b = hs_tile::carve(smem, win);
   hs_tile::stage(b, win, ex + img, ey + img, et + img, invd + img, w,
                  [&](int, int, long long g, float& uu, float& vv) {
@@ -68,14 +82,11 @@ __global__ void jacobi_kernel(
   hs_tile::write_tile(uo, vo, b, win, tile_h, tile_w, w);
 }
 
-}  // namespace
-
-extern "C" int hs_jacobi_sweeps(const float* u, const float* v,
-                                const float* ex, const float* ey,
-                                const float* et, const float* invd, float* uo,
-                                float* vo, int b, int h, int w,
-                                int sweeps, int tile_h, int tile_w,
-                                int threads, int device, void* stream) {
+int launch(const float* u, const float* v, const float* ex, const float* ey,
+           const float* et, const float* invd, float* uo, float* vo,
+           const int* org, int b, int h, int w, int img_h, int img_w,
+           int sweeps, int tile_h, int tile_w, int threads, int device,
+           void* stream) {
   if (b < 1 || b > kMaxBatch) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -89,6 +100,33 @@ extern "C" int hs_jacobi_sweeps(const float* u, const float* v,
   }
   const dim3 grid((w + tile_w - 1) / tile_w, (h + tile_h - 1) / tile_h, b);
   jacobi_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      u, v, ex, ey, et, invd, uo, vo, h, w, sweeps, tile_h, tile_w);
+      u, v, ex, ey, et, invd, uo, vo, org, h, w, img_h, img_w, sweeps, tile_h,
+      tile_w);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int hs_jacobi_sweeps(const float* u, const float* v,
+                                const float* ex, const float* ey,
+                                const float* et, const float* invd, float* uo,
+                                float* vo, int b, int h, int w,
+                                int sweeps, int tile_h, int tile_w,
+                                int threads, int device, void* stream) {
+  return launch(u, v, ex, ey, et, invd, uo, vo, nullptr, b, h, w, h, w, sweeps,
+                tile_h, tile_w, threads, device, stream);
+}
+
+// K9: b halo-padded h x w shards; org holds 2b ints on the device, the
+// global (row, column) of each shard's element (0, 0) in the img_h x img_w
+// image.
+extern "C" int hs_tile_sweeps(const float* u, const float* v, const float* ex,
+                              const float* ey, const float* et,
+                              const float* invd, float* uo, float* vo,
+                              const int* org, int b, int h, int w, int img_h,
+                              int img_w, int sweeps, int tile_h, int tile_w,
+                              int threads, int device, void* stream) {
+  if (org == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(u, v, ex, ey, et, invd, uo, vo, org, b, h, w, img_h, img_w,
+                sweeps, tile_h, tile_w, threads, device, stream);
 }

@@ -35,10 +35,12 @@ __host__ __device__ inline size_t smem_bytes(int th, int tw, int halo) {
 }
 
 struct Window {
-  int r0, c0;                      // global origin (negative at the top/left)
+  int r0, c0;                      // array origin (negative at the top/left)
   int win_h, win_w;                // extent, halo included
-  int wr_lo, wr_hi, wc_lo, wc_hi;  // the part inside the image
+  int wr_lo, wr_hi, wc_lo, wc_hi;  // the part inside the array
   int halo;
+  int org_r, org_c;                // global coordinates of array element (0, 0)
+  int img_h, img_w;                // the true image the clamps fire at
 };
 
 __device__ __forceinline__ Window make_window(int tr0, int tc0, int th, int tw,
@@ -53,6 +55,24 @@ __device__ __forceinline__ Window make_window(int tr0, int tc0, int th, int tw,
   win.wr_hi = min(win.win_h, h - win.r0);
   win.wc_lo = max(0, -win.c0);
   win.wc_hi = min(win.win_w, w - win.c0);
+  win.org_r = 0;
+  win.org_c = 0;
+  win.img_h = h;
+  win.img_w = w;
+  return win;
+}
+
+// The window of make_window in an array whose element (0, 0) is the global
+// pixel (org_r, org_c) of an img_h x img_w image.
+__device__ __forceinline__ Window make_window_at(int tr0, int tc0, int th,
+                                                 int tw, int halo, int h, int w,
+                                                 int org_r, int org_c,
+                                                 int img_h, int img_w) {
+  Window win = make_window(tr0, tc0, th, tw, halo, h, w);
+  win.org_r = org_r;
+  win.org_c = org_c;
+  win.img_h = img_h;
+  win.img_w = img_w;
   return win;
 }
 
@@ -117,7 +137,8 @@ __device__ __forceinline__ void stage(const Buffers& b, const Window& win,
 }
 
 // `sweeps` (<= win.halo) Jacobi sweeps between (su, sv) and (du, dv); on
-// return su/sv point at the last sweep. Ends with a __syncthreads.
+// return su/sv point at the last sweep. (h, w) is the array's size. Ends
+// with a __syncthreads.
 __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
                                            int h, int w, int sweeps) {
   const int tid = threadIdx.x;
@@ -142,10 +163,12 @@ __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
         const int ra = rlo + (strip / ncols) * chunk;
         const int rb = min(ra + chunk, rhi);
         if (ra >= rb) continue;
-        const int gc = c0 + c;
-        const int cl = gc > 0 ? c - 1 : c;       // j-1, clamped at column 0
-        const int cr = gc < w - 1 ? c + 1 : c;   // j+1, clamped at column w-1
-        const int ru = r0 + ra > 0 ? ra - 1 : ra;  // i-1, clamped at row 0
+        // Clamps at the array's edges and at the true image edges.
+        const int ac = c0 + c, gc = win.org_c + ac;
+        const int ar = r0 + ra;
+        const int cl = ac > 0 && gc != 0 ? c - 1 : c;                  // j-1
+        const int cr = ac < w - 1 && gc != win.img_w - 1 ? c + 1 : c;  // j+1
+        const int ru = ar > 0 && win.org_r + ar != 0 ? ra - 1 : ra;    // i-1
         // Rows i-1 (top) and i (mid) of the 3x3 neighbourhood.
         float ut_l = su[ru * win_w + cl], ut_c = su[ru * win_w + c],
               ut_r = su[ru * win_w + cr];
@@ -156,7 +179,8 @@ __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
         float vm_l = sv[ra * win_w + cl], vm_c = sv[ra * win_w + c],
               vm_r = sv[ra * win_w + cr];
         for (int r = ra; r < rb; ++r) {
-          const int rd = r0 + r < h - 1 ? r + 1 : r;  // i+1, clamped at h-1
+          const int rd = r0 + r < h - 1 && win.org_r + r0 + r != win.img_h - 1
+                             ? r + 1 : r;  // i+1
           const float ub_l = su[rd * win_w + cl], ub_c = su[rd * win_w + c],
                       ub_r = su[rd * win_w + cr];
           const float vb_l = sv[rd * win_w + cl], vb_c = sv[rd * win_w + c],
@@ -180,10 +204,24 @@ __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
               ((e_x * ubar + e_y * vbar) + b.set[o]) * b.sinvd[o];
           du[o] = ubar - e_x * frac;
           dv[o] = vbar - e_y * frac;
+          // Roll the neighbourhood down a row. A true image edge inside the
+          // strip (a shard of a larger image) breaks the roll: below the
+          // bottom edge, row i+1 was row i itself, so row r+1 is loaded
+          // afresh; at the top edge, row r+1's i-1 clamps to itself.
           ut_l = um_l; ut_c = um_c; ut_r = um_r;
           vt_l = vm_l; vt_c = vm_c; vt_r = vm_r;
-          um_l = ub_l; um_c = ub_c; um_r = ub_r;
-          vm_l = vb_l; vm_c = vb_c; vm_r = vb_r;
+          if (rd == r + 1) {
+            um_l = ub_l; um_c = ub_c; um_r = ub_r;
+            vm_l = vb_l; vm_c = vb_c; vm_r = vb_r;
+          } else if (r + 1 < rb) {
+            const int n = (r + 1) * win_w;
+            um_l = su[n + cl]; um_c = su[n + c]; um_r = su[n + cr];
+            vm_l = sv[n + cl]; vm_c = sv[n + c]; vm_r = sv[n + cr];
+          }
+          if (win.org_r + r0 + r + 1 == 0) {
+            ut_l = um_l; ut_c = um_c; ut_r = um_r;
+            vt_l = vm_l; vt_c = vm_c; vt_r = vm_r;
+          }
         }
       }
     }

@@ -42,6 +42,15 @@
 // (neighbor_avg, sor_step), the constants are the float32 values of 1/12,
 // 1/3 and omega, and the library is built with --fmad=false, so the output
 // equals the plain PyTorch sweeps bitwise.
+//
+// K9's SOR twin, hs_sor_tile_sweeps, is the same kernel on the halo-padded
+// shards of the tiled solver (opticalflowhs_tpu_torch/dist/): it replaces
+// sor_tile_sweeps of opticalflowhs_tpu/kernels/sor.py (line 331, through
+// _sor_vmem_kernel, line 59, and _sor_banded_kernel, line 113). Image k of
+// the stack is a shard whose element (0, 0) is the global pixel org[2k],
+// org[2k+1] of an img_h x img_w image; the clamps fire at the true image
+// edges and at the shard's own edges, and the color parity is that of the
+// global row and column (an odd origin flips the local parity).
 
 #include <cuda_runtime.h>
 
@@ -57,8 +66,9 @@ __global__ void sor_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ ex, const float* __restrict__ ey,
     const float* __restrict__ et, const float* __restrict__ invd,
-    float* __restrict__ uo, float* __restrict__ vo,
-    int h, int w, int sweeps, float omega, int tile_h, int tile_w) {
+    float* __restrict__ uo, float* __restrict__ vo, const int* __restrict__ org,
+    int h, int w, int img_h, int img_w, int sweeps, float omega, int tile_h,
+    int tile_w) {
   extern __shared__ float smem[];
   // Move every array to image blockIdx.z; below, all indices are per image.
   const long long img = (long long)blockIdx.z * h * w;
@@ -81,9 +91,14 @@ __global__ void sor_kernel(
   float* set = sey + area;
   float* sinvd = set + area;
 
-  // Global origin of the window, and the part of it inside the image.
+  // Array origin of the window, and the part of it inside the array; the
+  // array's element (0, 0) is the global pixel (org_r, org_c), zero for
+  // whole images.
   const int r0 = blockIdx.y * tile_h - halo;
   const int c0 = blockIdx.x * tile_w - halo;
+  const int org_r = org != nullptr ? org[2 * blockIdx.z] : 0;
+  const int org_c = org != nullptr ? org[2 * blockIdx.z + 1] : 0;
+  const int gr0 = org_r + r0, gc0 = org_c + c0;  // global origin of the window
   const int wr_lo = max(0, -r0), wr_hi = min(win_h, h - r0);
   const int wc_lo = max(0, -c0), wc_hi = min(win_w, w - c0);
   const int tid = threadIdx.x;
@@ -116,19 +131,21 @@ __global__ void sor_kernel(
     // parity of negative x too).
     const int rlo = max(k, wr_lo), rhi = min(win_h - k, wr_hi);
     const int clo = max(k, wc_lo), chi = min(win_w - k, wc_hi);
-    const int ra = rlo + ((pi - (r0 + rlo)) & 1);
-    const int ca = clo + ((pj - (c0 + clo)) & 1);
+    const int ra = rlo + ((pi - (gr0 + rlo)) & 1);
+    const int ca = clo + ((pj - (gc0 + clo)) & 1);
     const int nr = rhi > ra ? (rhi - ra + 1) / 2 : 0;
     const int nc = chi > ca ? (chi - ca + 1) / 2 : 0;
     const int n = nr * nc;
     for (int i = tid; i < n; i += nthreads) {
       const int r = ra + 2 * (i / nc);
       const int c = ca + 2 * (i % nc);
-      const int gr = r0 + r, gc = c0 + c;
-      const int ru = gr > 0 ? r - 1 : r;      // i-1, clamped at row 0
-      const int rd = gr < h - 1 ? r + 1 : r;  // i+1, clamped at row h-1
-      const int cl = gc > 0 ? c - 1 : c;      // j-1, clamped at column 0
-      const int cr = gc < w - 1 ? c + 1 : c;  // j+1, clamped at column w-1
+      // Clamps at the array's edges and at the true image edges.
+      const int ar = r0 + r, ac = c0 + c;
+      const int gr = gr0 + r, gc = gc0 + c;
+      const int ru = ar > 0 && gr != 0 ? r - 1 : r;                  // i-1
+      const int rd = ar < h - 1 && gr != img_h - 1 ? r + 1 : r;      // i+1
+      const int cl = ac > 0 && gc != 0 ? c - 1 : c;                  // j-1
+      const int cr = ac < w - 1 && gc != img_w - 1 ? c + 1 : c;      // j+1
       const int top = ru * win_w, mid = r * win_w, bot = rd * win_w;
       const int o = mid + c;
       // neighbor_avg: t = (a(i-1) + 2a) + a(i+1) per column, then
@@ -171,14 +188,11 @@ __global__ void sor_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int hs_sor_sweeps(const float* u, const float* v, const float* ex,
-                             const float* ey, const float* et,
-                             const float* invd, float* uo, float* vo, int b,
-                             int h, int w, int sweeps, float omega,
-                             int tile_h, int tile_w, int threads, int device,
-                             void* stream) {
+int launch(const float* u, const float* v, const float* ex, const float* ey,
+           const float* et, const float* invd, float* uo, float* vo,
+           const int* org, int b, int h, int w, int img_h, int img_w,
+           int sweeps, float omega, int tile_h, int tile_w, int threads,
+           int device, void* stream) {
   if (b < 1 || b > kMaxBatch || sweeps < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -194,6 +208,35 @@ extern "C" int hs_sor_sweeps(const float* u, const float* v, const float* ex,
   }
   const dim3 grid((w + tile_w - 1) / tile_w, (h + tile_h - 1) / tile_h, b);
   sor_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      u, v, ex, ey, et, invd, uo, vo, h, w, sweeps, omega, tile_h, tile_w);
+      u, v, ex, ey, et, invd, uo, vo, org, h, w, img_h, img_w, sweeps, omega,
+      tile_h, tile_w);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int hs_sor_sweeps(const float* u, const float* v, const float* ex,
+                             const float* ey, const float* et,
+                             const float* invd, float* uo, float* vo, int b,
+                             int h, int w, int sweeps, float omega,
+                             int tile_h, int tile_w, int threads, int device,
+                             void* stream) {
+  return launch(u, v, ex, ey, et, invd, uo, vo, nullptr, b, h, w, h, w, sweeps,
+                omega, tile_h, tile_w, threads, device, stream);
+}
+
+// K9's SOR twin: b halo-padded h x w shards; org holds 2b ints on the
+// device, the global (row, column) of each shard's element (0, 0) in the
+// img_h x img_w image.
+extern "C" int hs_sor_tile_sweeps(const float* u, const float* v,
+                                  const float* ex, const float* ey,
+                                  const float* et, const float* invd,
+                                  float* uo, float* vo, const int* org, int b,
+                                  int h, int w, int img_h, int img_w,
+                                  int sweeps, float omega, int tile_h,
+                                  int tile_w, int threads, int device,
+                                  void* stream) {
+  if (org == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(u, v, ex, ey, et, invd, uo, vo, org, b, h, w, img_h, img_w,
+                sweeps, omega, tile_h, tile_w, threads, device, stream);
 }

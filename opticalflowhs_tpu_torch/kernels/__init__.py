@@ -13,6 +13,12 @@
   sor_planes.py      K8 hs_sor_planes: the whole 4-color SOR solve on
                      (row%2, col%2) parity planes (pack, one launch a color
                      stage, unpack); not routed, as in the reference
+  tile.py            K9 hs_tile_sweeps / hs_sor_tile_sweeps: K2's and K3's
+                     sweeps on halo-padded shards keyed to a global origin
+                     (the tiled solver, dist/)
+  ring.py            K10 hs_ring_halo_exchange, K11/K12 hs_ring_fused_sweeps:
+                     the ring exchange, and the whole solve of a mesh of
+                     shards with the halo exchange inside one launch a device
   _build.py          nvcc build at first use, ctypes binding
 
 Importing these modules builds nothing: the library is built and loaded at

@@ -7,10 +7,10 @@ into `opticalflowhs_tpu_torch/_build/` under a name keyed by a hash of the
 sources and the command line, so an edited kernel is rebuilt and an
 unchanged one is loaded as it is. It is bound with ctypes; every pointer
 and the stream are `c_void_p` (an unset argtype would cut a pointer to 32
-bits), every scalar `c_int` or `c_float`, and every function returns its
-`cudaError_t` as an int.
+bits), every scalar `c_int` or `c_float` (the ring kernels' epoch
+`c_ulonglong`), and every function returns its `cudaError_t` as an int.
 
-The persistent kernels K6 and K7 synchronise their whole grid
+The persistent kernels K6, K7, K11 and K12 synchronise their whole grid
 (cooperative_groups grid sync, csrc/cooperative.cuh). That needs a
 cooperative launch, which their C entry points make and which refuses a
 grid larger than can be resident, but no extra build flag: since CUDA 11
@@ -42,6 +42,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
+_U64 = ctypes.c_ulonglong
 
 # C signature of every kernel entry point: argument types, in order. `b` is
 # the batch count (1 for a single frame), the grid's z dimension.
@@ -77,6 +78,21 @@ SIGNATURES = {
     # u0, v0 (both null for a zero start), ex, ey, et, invd, planes, uo, vo,
     # h, w, n, omega, device, stream
     "hs_sor_planes": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+    # u, v, ex, ey, et, invd, uo, vo, org, b, h, w, img_h, img_w, sweeps,
+    # tile_h, tile_w, threads, device, stream
+    "hs_tile_sweeps": [_P] * 9 + [_I] * 10 + [_P],
+    # u, v, ex, ey, et, invd, uo, vo, org, b, h, w, img_h, img_w, sweeps,
+    # omega, tile_h, tile_w, threads, device, stream
+    "hs_sor_tile_sweeps": [_P] * 9 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+    # table, n, h, w, halo, device, stream
+    "hs_ring_halo_exchange": [_P] + [_I] * 5 + [_P],
+    # device, peer
+    "hs_enable_peer": [_I, _I],
+    # s, tile, threads, device, out: the most K11/K12 blocks resident at once
+    "hs_ring_blocks": [_I] * 4 + [_IP],
+    # table, n_shards, th, tw, sy, sx, n, s, img_h, img_w, epoch0, tile,
+    # threads, grid, device, stream
+    "hs_ring_fused_sweeps": [_P] + [_I] * 9 + [_U64] + [_I] * 4 + [_P],
 }
 
 # Largest batch one launch takes: CUDA's limit on gridDim.z.

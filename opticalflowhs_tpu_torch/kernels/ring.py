@@ -1,0 +1,482 @@
+"""K10-K12: the ring halo exchange, and the whole Jacobi solve of a mesh of
+shards with the halo exchange inside the launch.
+
+Port of opticalflowhs_tpu/kernels/rdma_halo.py:
+  K10 `ring_halo_exchange`   (`_halo_kernel`): the periodic ring exchange
+                             of `halo` rows along y, (h, w) -> (h + 2 halo, w)
+  K11 `ring_fused_sweeps`    (`_fused_kernel`): all n sweeps of a
+                             row-decomposed ring, a sigma-row u/v halo
+                             exchanged with both neighbours every s sweeps
+  K12 `ring_fused_sweeps_2d` (`_fused_kernel_2d`): the same on a (y, x)
+                             mesh, row strips along y, then column strips
+                             along x that carry the fresh corners
+The CUDA source is csrc/ring.cu. A device runs one launch for all the shards
+it holds, so a virtual mesh of 16 shards on one card is one launch; a shard
+on another card is reached by peer stores over NVLink (`enable_peer`, which
+raises where the cards cannot reach each other).
+
+Each ring wraps around (the reference's periodic ring): the top shard's
+upper halo is the bottom shard's last rows. Those halo rows lie outside the
+image, and true pixels never read them, because the clamps fire at the true
+image edges from global coordinates.
+
+A shard may carry a (B, th, tw) stack: image k of every shard forms its own
+ring. The reference rounds sigma up to 8 rows and the column halo to 128
+columns for the TPU's tiles; here sigma is the fields' own halo (at least
+the block's sweeps), and the 2-D column halo is sigma wide.
+
+On CPU tensors the wrappers run the plain versions (the slot writes as
+tensor copies from the neighbours' shards, then masked sweeps over the
+extended shard); on CUDA tensors the kernels, or they raise. There is no
+fallback. The owned pixels of both are equal bitwise; the halo rows of the
+working shard are discarded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import struct
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from opticalflowhs_tpu_torch.kernels import _build
+from opticalflowhs_tpu_torch.kernels.derivatives import check_frames
+from opticalflowhs_tpu_torch.kernels.jacobi import SMEM_BYTES, THREADS, smem_bytes
+from opticalflowhs_tpu_torch.ops import stencils
+
+# Output tile of one K11/K12 block: the largest whose window, grown by the
+# block's sweeps, fits the shared memory of one block (K2's 8 arrays).
+TILES = (64, 32, 16)
+
+_PEERS: set = set()
+_FLAGS: dict = {}      # device -> persistent int64 epoch flags
+_EPOCH = [0]           # last epoch handed out; flags only ever grow
+
+
+# -- shared helpers --------------------------------------------------------------
+
+
+def enable_peer(device: int, peer: int) -> None:
+    """Let `device`'s kernels store into `peer`'s memory (once per pair);
+    raise RuntimeError where the two cards cannot reach each other."""
+    if device == peer or (device, peer) in _PEERS:
+        return
+    err = _build.library().hs_enable_peer(device, peer)
+    if err != 0:
+        msg = _build.library().hs_error_string(err).decode()
+        raise RuntimeError(
+            f"cuda:{device} cannot store into cuda:{peer} (peer access: {msg}); "
+            "the ring kernels need every pair of neighbouring cards to reach "
+            "each other"
+        )
+    _PEERS.add((device, peer))
+
+
+def barrier(devices) -> None:
+    """Make every CUDA device's current stream wait for the work queued so
+    far on each other's: before a launch that stores into other devices'
+    buffers (they were allocated on their own streams) and after it (their
+    receivers read them)."""
+    devs = []
+    for d in devices:
+        if d.type == "cuda" and d not in devs:
+            devs.append(d)
+    if len(devs) < 2:
+        return
+    events = {}
+    for d in devs:
+        events[d] = torch.cuda.Event()
+        events[d].record(torch.cuda.current_stream(d))
+    for d in devs:
+        stream = torch.cuda.current_stream(d)
+        for o in devs:
+            if o != d:
+                stream.wait_event(events[o])
+
+
+def _device_kind(tensors) -> str:
+    kinds = {t.device.type for t in tensors}
+    if len(kinds) != 1:
+        raise ValueError("the shards of a ring lie on CPU and CUDA devices; "
+                         "a mesh takes one kind")
+    return kinds.pop()
+
+
+def _table(records: list[bytes], device) -> torch.Tensor:
+    buf = bytearray(b"".join(records))
+    return torch.frombuffer(buf, dtype=torch.uint8).to(device)
+
+
+# -- K10: the ring halo exchange ------------------------------------------------------
+
+
+def ring_halo_exchange_plain(tiles, halo: int):
+    """Each (..., h, w) shard of a ring (along y, in ring order) -> (..., h +
+    2 halo, w): its upper neighbour's last `halo` rows above it, its lower
+    neighbour's first rows below it, wrapping around."""
+    n = len(tiles)
+    out = []
+    for i, t in enumerate(tiles):
+        up, dn = tiles[(i - 1) % n], tiles[(i + 1) % n]
+        out.append(torch.cat([up[..., -halo:, :].to(t.device), t,
+                              dn[..., :halo, :].to(t.device)], dim=-2))
+    return out
+
+
+def ring_halo_exchange(tiles, halo: int):
+    """K10 over a ring of shards (a sequence along y, each (h, w) or a
+    (B, h, w) stack, one shape, on CPU or CUDA devices): one launch a device
+    stores each shard and its edge rows into its own output and its
+    neighbours'; `ring_halo_exchange_plain` on CPU tensors. Unlike the
+    reference, any halo from 1 to h rows is taken."""
+    tiles = list(tiles)
+    for t in tiles:
+        check_frames("ring_halo_exchange", t)
+        if t.shape != tiles[0].shape:
+            raise ValueError("the shards of a ring differ in shape")
+    h, w = tiles[0].shape[-2:]
+    if halo < 1:
+        raise ValueError(f"halo must be >= 1, got {halo}")
+    if halo > h:
+        raise ValueError(f"halo {halo} exceeds tile height {h}")
+    if _device_kind(tiles) == "cpu":
+        return ring_halo_exchange_plain(tiles, halo)
+    n = len(tiles)
+    nb = tiles[0].shape[0] if tiles[0].ndim == 3 else 1
+    outs = [torch.empty(t.shape[:-2] + (h + 2 * halo, w), dtype=t.dtype,
+                        device=t.device) for t in tiles]
+    src_px, out_px = h * w * 4, (h + 2 * halo) * w * 4
+    per_device: dict = {}
+    for i, t in enumerate(tiles):
+        up, dn = (i - 1) % n, (i + 1) % n
+        dev = t.device.index
+        for peer in (tiles[up].device.index, tiles[dn].device.index):
+            enable_peer(dev, peer)
+        for k in range(nb):
+            per_device.setdefault(t.device, []).append(struct.pack(
+                "<4Q", t.data_ptr() + k * src_px, outs[i].data_ptr() + k * out_px,
+                outs[up].data_ptr() + k * out_px, outs[dn].data_ptr() + k * out_px))
+    devices = list(per_device)
+    barrier(devices)
+    lib = _build.library()
+    for dev, recs in per_device.items():
+        table = _table(recs, dev)
+        err = lib.hs_ring_halo_exchange(
+            table.data_ptr(), len(recs), h, w, halo, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "hs_ring_halo_exchange")
+        ring_halo_exchange.launches += 1
+    barrier(devices)
+    return outs
+
+
+ring_halo_exchange.launches = 0
+
+
+# -- K11 / K12: the fused ring solve ----------------------------------------------------
+
+
+@dataclass
+class Shard:
+    """One shard of a ring solve: its owned start (th, tw), the four fields
+    of the extended shard (th + 2 sy, tw + 2 sx), and the global (row, col)
+    of owned pixel (0, 0)."""
+
+    u: torch.Tensor
+    v: torch.Tensor
+    fields: tuple
+    row0: int
+    col0: int = 0
+
+
+def _geometry(rings):
+    first = rings[0][0][0]
+    th, tw = first.u.shape[-2:]
+    eh, ew = first.fields[0].shape[-2:]
+    sy, sx = (eh - th) // 2, (ew - tw) // 2
+    for grid in rings:
+        for row in grid:
+            for sh in row:
+                if sh.u.shape != first.u.shape or any(
+                        f.shape[-2:] != (eh, ew) or f.shape[:-2] != sh.u.shape[:-2]
+                        for f in sh.fields):
+                    raise ValueError("the shards of a ring solve differ in shape")
+    if eh != th + 2 * sy or ew != tw + 2 * sx or sy < 1:
+        raise ValueError(f"fields {eh}x{ew} must carry an even halo around the "
+                         f"{th}x{tw} shard, at least one row deep")
+    return th, tw, sy, sx
+
+
+def _block_sweeps(n_sweeps: int, block_sweeps: int, sy: int, sx: int) -> int:
+    s = max(1, min(block_sweeps, n_sweeps))
+    if s > sy or (sx and s > sx):
+        raise ValueError(f"the fields' {sy}-row/{sx}-column halo is narrower "
+                         f"than a block of {s} sweeps")
+    return s
+
+
+def ring_solve_plain(rings, n_sweeps: int, block_sweeps: int, h: int, w: int):
+    """The plain version of K11/K12 on a list of rings, each a (y, x) grid
+    of `Shard`s: every s sweeps the row halos (sy rows of the upper and
+    lower neighbours' owned columns) and, when the fields carry a column
+    halo, the column strips of the left and right neighbours' row-extended
+    shards; then s masked sweeps over each extended shard. Returns the owned
+    (u, v) of every shard, grids like the input."""
+    th, tw, sy, sx = _geometry(rings)
+    if n_sweeps == 0:
+        return [[[(sh.u, sh.v) for sh in row] for row in grid] for grid in rings]
+    s = _block_sweeps(n_sweeps, block_sweeps, sy, sx)
+    out = []
+    for grid in rings:
+        my, mx = len(grid), len(grid[0])
+        masks = [[stencils.edge_masks(*_ext_grids(sh, th, tw, sy, sx), h, w)
+                  for sh in row] for row in grid]
+        state = [[(sh.u, sh.v) for sh in row] for row in grid]
+        left = n_sweeps
+        while left > 0:
+            ns = min(s, left)
+            ext = []
+            for i in range(my):
+                ext.append([])
+                for j in range(mx):
+                    dev = grid[i][j].u.device
+                    up, dn = state[(i - 1) % my][j], state[(i + 1) % my][j]
+                    ext[i].append(tuple(
+                        torch.cat([up[f][..., th - sy:, :].to(dev), state[i][j][f],
+                                   dn[f][..., :sy, :].to(dev)], dim=-2)
+                        for f in (0, 1)))
+            if sx:
+                ext = [[tuple(torch.cat([ext[i][(j - 1) % mx][f][..., tw - sx:].to(
+                    grid[i][j].u.device), ext[i][j][f], ext[i][(j + 1) % mx][f][..., :sx].to(
+                    grid[i][j].u.device)], dim=-1) for f in (0, 1))
+                        for j in range(mx)] for i in range(my)]
+            for i in range(my):
+                for j in range(mx):
+                    uu, vv = ext[i][j]
+                    for _ in range(ns):
+                        uu, vv = stencils.jacobi_step_masked(
+                            uu, vv, *grid[i][j].fields, masks[i][j])
+                    state[i][j] = (uu[..., sy:sy + th, sx:sx + tw],
+                                   vv[..., sy:sy + th, sx:sx + tw])
+            left -= ns
+        out.append(state)
+    return out
+
+
+def _ext_grids(sh: Shard, th: int, tw: int, sy: int, sx: int):
+    dev = sh.u.device
+    gr = sh.row0 - sy + torch.arange(th + 2 * sy, device=dev)[:, None]
+    gc = sh.col0 - sx + torch.arange(tw + 2 * sx, device=dev)[None, :]
+    return gr, gc
+
+
+@functools.cache
+def resident_blocks(device: int, s: int, tile: int) -> int:
+    """The most K11/K12 blocks resident at once on `device`."""
+    out = ctypes.c_int(0)
+    err = _build.library().hs_ring_blocks(s, tile, THREADS, device, ctypes.byref(out))
+    _build.check(err, "hs_ring_blocks")
+    return out.value
+
+
+def _tile_for(s: int) -> int:
+    for t in TILES:
+        if smem_bytes(s, t, t) <= SMEM_BYTES:
+            return t
+    raise ValueError(f"a block of {s} sweeps is too deep for the ring kernels' "
+                     f"shared-memory window (at most {max_ring_sweeps()} sweeps)")
+
+
+def max_ring_sweeps() -> int:
+    s = 1
+    while smem_bytes(s + 1, TILES[-1], TILES[-1]) <= SMEM_BYTES:
+        s += 1
+    return s
+
+
+def _flags(device: torch.device, n: int) -> torch.Tensor:
+    """n int64 epoch flags on `device`, kept from call to call: epochs only
+    grow, so a flag never needs a reset."""
+    buf = _FLAGS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int64, device=device)
+        _FLAGS[device] = buf
+    return buf
+
+
+_FLAGS_PER_SHARD = 8   # [phase: rows, columns][parity][side]
+
+
+def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
+               blocks: int = 0):
+    """K11 (fields without a column halo) or K12 (with one) over a list of
+    rings, each a (y, x) grid of `Shard`s of (th, tw) owned tensors, on CPU
+    or CUDA devices: one cooperative launch a device for every shard it
+    holds, `ring_solve_plain` on CPU tensors. `blocks` > 0 forces each
+    launch's grid (a grid too large to be resident raises). Returns the
+    owned (u, v) of every shard."""
+    th, tw, sy, sx = _geometry(rings)
+    shards = [sh for grid in rings for row in grid for sh in row]
+    for sh in shards:
+        check_frames("ring_solve", sh.u, sh.v)
+        check_frames("ring_solve", *sh.fields)
+        if sh.fields[0].device != sh.u.device:
+            raise ValueError("a shard's fields lie on another device than its flow")
+    if _device_kind([sh.u for sh in shards]) == "cpu":
+        return ring_solve_plain(rings, n_sweeps, block_sweeps, h, w)
+    if n_sweeps == 0:
+        return [[[(sh.u, sh.v) for sh in row] for row in grid] for grid in rings]
+    if any(sh.u.ndim != 2 for sh in shards):
+        # Image k of every stack forms its own ring.
+        nb = shards[0].u.shape[0]
+        split = [[[[Shard(sh.u[k], sh.v[k], tuple(f[k] for f in sh.fields), sh.row0, sh.col0)
+                    for sh in row] for row in grid] for k in range(nb)] for grid in rings]
+        res = ring_solve([g for per in split for g in per], n_sweeps, block_sweeps,
+                         h, w, blocks)
+        out, at = [], 0
+        for grid in rings:
+            per = res[at:at + nb]
+            at += nb
+            out.append([[tuple(torch.stack([p[i][j][f] for p in per]) for f in (0, 1))
+                         for j in range(len(grid[0]))] for i in range(len(grid))])
+        return out
+    s = _block_sweeps(n_sweeps, block_sweeps, sy, sx)
+    tile = _tile_for(s)
+    n_blocks = -(-n_sweeps // s)
+    eh, ew = th + 2 * sy, tw + 2 * sx
+    row_floats = 2 * 2 * 2 * sy * tw
+    col_floats = 2 * 2 * 2 * eh * sx
+
+    # Per shard: state pairs, comm slots, flags (index into its device's
+    # persistent buffer).
+    local: dict = {}
+    for sh in shards:
+        local.setdefault(sh.u.device, []).append(sh)
+    flag_ptr, slots, state = {}, {}, {}
+    for dev, members in local.items():
+        flags = _flags(dev, _FLAGS_PER_SHARD * len(members))
+        for k, sh in enumerate(members):
+            flag_ptr[id(sh)] = flags.data_ptr() + 8 * _FLAGS_PER_SHARD * k
+            rows = torch.empty(row_floats, dtype=torch.float32, device=dev)
+            cols = torch.empty(col_floats, dtype=torch.float32, device=dev) if sx else None
+            slots[id(sh)] = (rows, cols)
+            state[id(sh)] = [torch.empty_like(sh.u) for _ in range(4)]
+    epoch0 = _EPOCH[0] + 1
+    if epoch0 + n_blocks >= 2 ** 63:
+        raise RuntimeError("ring epochs exhausted")
+    _EPOCH[0] = epoch0 + n_blocks
+
+    tables = {}
+    for grid in rings:
+        my, mx = len(grid), len(grid[0])
+        for i in range(my):
+            for j in range(mx):
+                sh = grid[i][j]
+                nbs = (grid[(i - 1) % my][j], grid[(i + 1) % my][j],
+                       grid[i][(j - 1) % mx], grid[i][(j + 1) % mx])
+                dev = sh.u.device.index
+                for nb in nbs[:2] + (nbs[2:] if sx else ()):
+                    enable_peer(dev, nb.u.device.index)
+                rows, cols = slots[id(sh)]
+                ua, va, ub, vb = state[id(sh)]
+                ptrs = [sh.u.data_ptr(), sh.v.data_ptr(), ua.data_ptr(), va.data_ptr(),
+                        ub.data_ptr(), vb.data_ptr(),
+                        *(f.data_ptr() for f in sh.fields),
+                        rows.data_ptr(), 0 if cols is None else cols.data_ptr(),
+                        flag_ptr[id(sh)],
+                        slots[id(nbs[0])][0].data_ptr(), slots[id(nbs[1])][0].data_ptr(),
+                        flag_ptr[id(nbs[0])], flag_ptr[id(nbs[1])]]
+                if sx:
+                    ptrs += [slots[id(nbs[2])][1].data_ptr(), slots[id(nbs[3])][1].data_ptr(),
+                             flag_ptr[id(nbs[2])], flag_ptr[id(nbs[3])]]
+                else:
+                    ptrs += [0, 0, 0, 0]
+                tables.setdefault(sh.u.device, []).append(
+                    (id(sh), struct.pack("<21Qii", *ptrs, sh.row0, sh.col0)))
+    devices = list(tables)
+    lib = _build.library()
+    barrier(devices)
+    counter = ring_fused_sweeps_2d if sx else ring_fused_sweeps
+    for dev, recs in tables.items():
+        # The table's order is the device's member order (flag offsets).
+        order = {id(sh): k for k, sh in enumerate(local[dev])}
+        recs = [r for _, r in sorted(recs, key=lambda x: order[x[0]])]
+        table = _table(recs, dev)
+        tiles = len(recs) * -(-th // tile) * -(-tw // tile)
+        grid_blocks = blocks if blocks > 0 else min(
+            tiles, resident_blocks(dev.index, s, tile))
+        err = lib.hs_ring_fused_sweeps(
+            table.data_ptr(), len(recs), th, tw, sy, sx, n_sweeps, s, h, w,
+            epoch0, tile, THREADS, grid_blocks, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "hs_ring_fused_sweeps")
+        counter.launches += 1
+    barrier(devices)
+    pick = (0, 1) if n_blocks % 2 == 1 else (2, 3)
+    return [[[tuple(state[id(sh)][p] for p in pick) for sh in row] for row in grid]
+            for grid in rings]
+
+
+def _as_rings_1d(u, v, fields, row0):
+    return [[[Shard(u[i], v[i], tuple(fields[i]), int(row0[i]), 0)] for i in range(len(u))]]
+
+
+def ring_fused_sweeps_plain(u, v, fields, n_sweeps: int, block_sweeps: int, row0,
+                            h: int, w: int):
+    """The plain version of K11 on one row-decomposed ring: u, v sequences
+    (ring order along y) of (th, w) shards or stacks, `fields` their
+    (exh, eyh, eth, invdh) with a sigma-row halo, `row0` the global row of
+    each shard's owned row 0. Returns lists of the owned u and v. On the
+    1-shard ring this is the reference's `ring_fused_sweeps_logic_twin`."""
+    res = ring_solve_plain(_as_rings_1d(u, v, fields, row0), n_sweeps,
+                           block_sweeps, h, w)[0]
+    return [r[0][0] for r in res], [r[0][1] for r in res]
+
+
+def ring_fused_sweeps(u, v, fields, n_sweeps: int, block_sweeps: int, row0,
+                      h: int, w: int, blocks: int = 0):
+    """K11 on one row-decomposed ring (arguments as
+    `ring_fused_sweeps_plain`): one launch a device, all n sweeps, a halo
+    exchanged every `block_sweeps`; the plain version on CPU tensors."""
+    if any(f.shape[-1] != u[0].shape[-1] for fs in fields for f in fs):
+        raise ValueError("K11's fields carry a row halo only; use ring_fused_sweeps_2d")
+    res = ring_solve(_as_rings_1d(u, v, fields, row0), n_sweeps, block_sweeps,
+                     h, w, blocks)[0]
+    return [r[0][0] for r in res], [r[0][1] for r in res]
+
+
+def _as_rings_2d(u, v, fields, origins):
+    return [[[Shard(u[i][j], v[i][j], tuple(fields[i][j]), int(origins[i][j][0]),
+                    int(origins[i][j][1])) for j in range(len(u[0]))]
+             for i in range(len(u))]]
+
+
+def ring_fused_sweeps_2d_plain(u, v, fields, n_sweeps: int, block_sweeps: int,
+                               origins, h: int, w: int):
+    """The plain version of K12 on one (y, x) mesh: u, v (y, x) grids of
+    (th, tw) shards or stacks, `fields` a grid of 4-tuples with a sigma-row
+    and sigma-column halo, `origins` a grid of the global (row, col) of each
+    owned (0, 0). Returns grids of the owned u and v."""
+    res = ring_solve_plain(_as_rings_2d(u, v, fields, origins), n_sweeps,
+                           block_sweeps, h, w)[0]
+    return ([[c[0] for c in row] for row in res], [[c[1] for c in row] for row in res])
+
+
+def ring_fused_sweeps_2d(u, v, fields, n_sweeps: int, block_sweeps: int, origins,
+                         h: int, w: int, blocks: int = 0):
+    """K12 on one (y, x) mesh (arguments as `ring_fused_sweeps_2d_plain`):
+    one launch a device; the plain version on CPU tensors."""
+    if any(f.shape[-1] == u[0][0].shape[-1] for row in fields for fs in row for f in fs):
+        raise ValueError("K12's fields carry a column halo too; use ring_fused_sweeps")
+    res = ring_solve(_as_rings_2d(u, v, fields, origins), n_sweeps, block_sweeps,
+                     h, w, blocks)[0]
+    return ([[c[0] for c in row] for row in res], [[c[1] for c in row] for row in res])
+
+
+# Launches: K11 on ring_fused_sweeps, K12 on ring_fused_sweeps_2d, whichever
+# entry (or ring_solve) made them.
+ring_fused_sweeps.launches = 0
+ring_fused_sweeps_2d.launches = 0

@@ -97,6 +97,105 @@ def jacobi_step(
     return ubar - ex * frac, vbar - ey * frac
 
 
+# -- true-edge-masked twins ------------------------------------------------------
+#
+# The ops above for tiles of a larger global image (the tiled solver, dist/):
+# the clamp fires at the TRUE image edge, from boolean masks of global
+# coordinates, and at the array's own edge the shifts still clamp. Same
+# association order as the unmasked ops, so on the pixels of the true image
+# that a tile computes exactly, tiled == untiled bitwise; rows and columns
+# outside the image (zero pad, decaying halo) are garbage that true pixels
+# never read.
+
+
+def edge_masks(gr: torch.Tensor, gc: torch.Tensor, h: int, w: int):
+    """(top, bottom, left, right) boolean grids from global row/col grids."""
+    return (gr == 0, gr == h - 1, gc == 0, gc == w - 1)
+
+
+def neighbor_avg_masked(u: torch.Tensor, masks) -> torch.Tensor:
+    """neighbor_avg with the clamp at the true image edges given by masks."""
+    m_top, m_bot, m_lf, m_rt = masks
+    up = torch.where(m_top, u, shift_down_row(u))   # u(i-1)
+    dn = torch.where(m_bot, u, shift_up_row(u))     # u(i+1)
+    t = up + 2.0 * u + dn
+    rt = torch.where(m_lf, t, shift_right_col(t))   # t(j-1)
+    lf = torch.where(m_rt, t, shift_left_col(t))    # t(j+1)
+    s = rt + 2.0 * t + lf
+    return s * (1.0 / 12.0) - u * (1.0 / 3.0)
+
+
+def jacobi_step_masked(u, v, ex, ey, et, inv_den, masks):
+    """jacobi_step with true-edge masks (the tiled solver's shard bodies)."""
+    ubar = neighbor_avg_masked(u, masks)
+    vbar = neighbor_avg_masked(v, masks)
+    frac = (ex * ubar + ey * vbar + et) * inv_den
+    return ubar - ex * frac, vbar - ey * frac
+
+
+def sor_step_masked(u, v, ex, ey, et, inv_den, omega: float, colors, masks):
+    """sor_step with true-edge masks. `colors` must come from GLOBAL pixel
+    coordinates (`global_colors`): a tile whose offset is odd has another
+    local parity than the image. A color stage reads pixels updated in the
+    same sweep, so the halo decays one ring per stage, four per sweep."""
+    for cm in colors:
+        ubar = neighbor_avg_masked(u, masks)
+        vbar = neighbor_avg_masked(v, masks)
+        frac = (ex * ubar + ey * vbar + et) * inv_den
+        un = ubar - ex * frac
+        vn = vbar - ey * frac
+        u = torch.where(cm, u + omega * (un - u), u)
+        v = torch.where(cm, v + omega * (vn - v), v)
+    return u, v
+
+
+def global_colors(gr: torch.Tensor, gc: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The four (row % 2, col % 2) color grids from GLOBAL row/col grids, in
+    color_masks' order; % is floor-mod, so negative halo rows take the
+    image's parity too."""
+    return tuple((gr % 2 == pi) & (gc % 2 == pj) for pi in (0, 1) for pj in (0, 1))
+
+
+def derivatives_masked(i1: torch.Tensor, i2: torch.Tensor, masks,
+                       variant: str = "hs_cube"):
+    """derivatives with the clamp at the true image edges given by masks."""
+    m_top, m_bot, m_lf, m_rt = masks
+
+    def up_row(a):  # a(i+1), clamped at the true bottom edge
+        return torch.where(m_bot, a, shift_up_row(a))
+
+    def left_col(a):  # a(j+1), clamped at the true right edge
+        return torch.where(m_rt, a, shift_left_col(a))
+
+    if variant == "hs_cube":
+        ex = torch.zeros_like(i1)
+        ey = torch.zeros_like(i1)
+        for f in (i1, i2):
+            fr = up_row(f)
+            fc = left_col(f)
+            frc = left_col(fr)
+            ex = ex + (fc - f) + (frc - fr)
+            ey = ey + (fr - f) + (frc - fc)
+        ex = ex * 0.25
+        ey = ey * 0.25
+        d = i2 - i1
+        et = 0.25 * (d + up_row(d) + left_col(d) + left_col(up_row(d)))
+        return ex, ey, et
+    elif variant == "central":
+
+        def down_row(a):  # a(i-1), clamped at the true top edge
+            return torch.where(m_top, a, shift_down_row(a))
+
+        def right_col(a):  # a(j-1), clamped at the true left edge
+            return torch.where(m_lf, a, shift_right_col(a))
+
+        ex = 0.5 * (left_col(i1) - right_col(i1))
+        ey = 0.5 * (up_row(i1) - down_row(i1))
+        et = i2 - i1
+        return ex, ey, et
+    raise ValueError(f"unknown derivative variant {variant!r}")
+
+
 def color_masks(h: int, w: int, device=None) -> tuple[torch.Tensor, ...]:
     """The four (row % 2, col % 2) color grids of 4-color relaxation, in the
     order (0,0), (0,1), (1,0), (1,1). The HS neighbourhood couples all 8

@@ -203,7 +203,7 @@ def _check(i1, i2, cfg: TVL1Config, pyr: PyramidConfig, rank: int) -> None:
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"dtype={cfg.dtype!r} is not ported yet (ROADMAP.md queue 1, "
-            "item 3: bf16); only float32 runs"
+            "item 5: bf16); only float32 runs"
         )
 
 
@@ -240,8 +240,8 @@ def tvl1_solve_batched(
     `device`, as in tvl1_solve."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= (sharding over devices) comes with dist/, which is not "
-            "ported yet (ROADMAP.md queue 1, item 12)"
+            "mesh= (sharding a stack over devices) is not ported yet: it comes "
+            "with the rest of dist/ (ROADMAP.md queue 1, item 6)"
         )
     _check(i1, i2, cfg, pyr, rank=3)
     i1 = as_frame(i1, device)
@@ -250,8 +250,9 @@ def tvl1_solve_batched(
 
 def tvl1_solve_tiled(i1, i2, cfg: TVL1Config = TVL1Config(),
                      pyr: PyramidConfig = PyramidConfig(levels=1), mesh=None):
-    """Spatially tiled TV-L1 over a device mesh: comes with dist/."""
+    """Spatially tiled TV-L1 over a device mesh: comes with the rest of
+    dist/."""
     raise NotImplementedError(
-        "tvl1_solve_tiled shards a frame over devices and comes with dist/, "
-        "which is not ported yet (ROADMAP.md queue 1, item 12)"
+        "tvl1_solve_tiled shards a frame over devices and is not ported yet: "
+        "it comes with the rest of dist/ (ROADMAP.md queue 1, item 6)"
     )

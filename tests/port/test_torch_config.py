@@ -17,7 +17,7 @@ CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
 @pytest.mark.parametrize(
     "ref_cls,port_cls",
     [(ref.HSConfig, port.HSConfig), (ref.PyramidConfig, port.PyramidConfig),
-     (ref.TVL1Config, port.TVL1Config)],
+     (ref.TVL1Config, port.TVL1Config), (ref.MeshConfig, port.MeshConfig)],
 )
 def test_fields_and_defaults_match(ref_cls, port_cls):
     ref_fields = [(f.name, f.default) for f in dataclasses.fields(ref_cls)]
@@ -98,6 +98,20 @@ def test_tvl1_value_errors_match(kwargs):
     assert str(port_err.value) == str(ref_err.value)
 
 
+@pytest.mark.parametrize(
+    "kwargs", [{"batch": 0}, {"y": 0}, {"x": -1}, {"halo_sweeps": 0}]
+)
+def test_mesh_value_errors_match(kwargs):
+    with pytest.raises(ValueError) as ref_err:
+        ref.MeshConfig(**kwargs)
+    with pytest.raises(ValueError) as port_err:
+        port.MeshConfig(**kwargs)
+    assert str(port_err.value) == str(ref_err.value)
+    cfg = port.MeshConfig(batch=2, y=4, x=4, halo_sweeps=4)
+    assert cfg.shape == ref.MeshConfig(batch=2, y=4, x=4).shape == (2, 4, 4)
+    assert cfg.axis_names == ref.MeshConfig().axis_names
+
+
 @pytest.mark.parametrize("path", sorted(CONFIG_DIR.glob("*.json")), ids=lambda p: p.name)
 def test_from_reference_on_config_files(path):
     data = json.loads(path.read_text())
@@ -113,6 +127,10 @@ def test_from_reference_on_config_files(path):
     pyr = port.from_reference(data["pyramid"])
     assert isinstance(pyr, port.PyramidConfig)
     assert dataclasses.asdict(pyr) == dataclasses.asdict(run.pyramid)
+    if "mesh" in data:
+        mesh = port.from_reference(data["mesh"])
+        assert isinstance(mesh, port.MeshConfig)
+        assert dataclasses.asdict(mesh) == dataclasses.asdict(run.mesh)
 
 
 @pytest.mark.parametrize("backend,expect", [("jnp", "torch"), ("pallas", "cuda"), ("auto", "auto")])
@@ -139,6 +157,8 @@ def test_from_reference_on_tvl1_asdict(backend, expect):
     assert isinstance(port.from_reference({"iters": 50}), port.HSConfig)
     assert isinstance(port.from_reference({"warp": "gather"}), port.PyramidConfig)
     assert isinstance(port.from_reference({"warps": 2}), port.TVL1Config)
+    mesh = port.from_reference(dataclasses.asdict(ref.MeshConfig(batch=2, y=2, x=4, halo_sweeps=3)))
+    assert mesh == port.MeshConfig(batch=2, y=2, x=4, halo_sweeps=3)
 
 
 def test_from_reference_rejects_unknown_fields():

@@ -1,4 +1,4 @@
-"""K1-K8 and the whole-solve drivers on a CUDA card against their
+"""K1-K12 and the whole-solve drivers on a CUDA card against their
 plain versions on the same card, at edge-case shapes (partial tiles, frames
 narrower or shorter than a tile, one row, one column) and sweep counts
 that the sweeps per launch do not divide; single frames and (B, H, W)
@@ -9,8 +9,11 @@ TV-L1; K6 and K7 (the persistent whole-solve kernels) at small forced
 geometries, the routes of `hs_solve` into them, and their failures; K8
 (the SOR solve on parity planes) against the plain planes, the plain SOR
 sweeps and the K1 + K3 chain at every parity of h and w; multigrid on the
-card (K1, then the plain V-cycles); and the gradient guard at every kernel
-entry.
+card (K1, then the plain V-cycles); K9 (shard sweeps keyed to a global
+origin) and K10-K12 (the ring exchange and fused ring solves) on virtual
+meshes of one card, the tiled solver there against the untiled solve, the
+refusals of a mixed mesh and of a grid too large to be resident; and the
+gradient guard at every kernel entry.
 
 Marked `cuda`: they skip without a card. They import no JAX, so on a
 machine without it they run with the repository's conftest left out:
@@ -595,3 +598,197 @@ def test_kernel_entries_refuse_frames_that_require_grad(dev, k):
         out = call(a)
     assert all(not t.requires_grad for t in out), name
     call(base)  # grad mode on, nothing requires grad: runs
+
+
+# -- the tiled solver: K9-K12 on virtual meshes -------------------------------
+
+from opticalflowhs_tpu_torch.config import MeshConfig  # noqa: E402
+from opticalflowhs_tpu_torch.dist import hs_solve_tiled, make_mesh  # noqa: E402
+from opticalflowhs_tpu_torch.kernels import ring  # noqa: E402
+from opticalflowhs_tpu_torch.kernels import tile as k9  # noqa: E402
+
+
+def _tile_problem(dev, shape, seed, stack=0):
+    full = (stack,) + shape if stack else shape
+    i1, i2 = _rand(full, dev, seed)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    u0, v0 = _rand(full, dev, seed + 1, normal=True)
+    return u0, v0, fields
+
+
+# Padded-shard origins: the four corners of a 300 x 400 image, negative and
+# odd, and an odd interior origin.
+_CORNERS = {"tl": lambda ph, pw: (-4, -3), "tr": lambda ph, pw: (-3, 400 - pw + 5),
+            "bl": lambda ph, pw: (300 - ph + 3, -5), "br": lambda ph, pw: (300 - ph + 4, 400 - pw + 3),
+            "mid": lambda ph, pw: (117, 33)}
+
+
+@pytest.mark.parametrize("shape", [(67, 93), (131, 130)])
+@pytest.mark.parametrize("corner", list(_CORNERS))
+@pytest.mark.parametrize("sor", [False, True])
+def test_k9_equals_plain(dev, shape, corner, sor):
+    u0, v0, fields = _tile_problem(dev, shape, 70)
+    r0, c0 = _CORNERS[corner](*shape)
+    for n in (7, 13):
+        if sor:
+            got = k9.sor_tile_sweeps(u0, v0, *fields, n, 1.6, r0, c0, 300, 400)
+            want = k9.sor_tile_sweeps_plain(u0, v0, *fields, n, 1.6, r0, c0, 300, 400)
+        else:
+            got = k9.tile_sweeps(u0, v0, *fields, n, r0, c0, 300, 400)
+            want = k9.tile_sweeps_plain(u0, v0, *fields, n, r0, c0, 300, 400)
+        _equal(got, want)  # every element of the padded shard, halo included
+
+
+@pytest.mark.parametrize("sor", [False, True])
+def test_k9_stack_of_shards_is_one_launch(dev, sor):
+    u0, v0, fields = _tile_problem(dev, (67, 93), 72, stack=3)
+    rows, cols = [-4, 117, 300 - 67 + 3], [-3, 33, 400 - 93 + 4]
+    counter = k9.sor_tile_sweeps if sor else k9.tile_sweeps
+    counter.launches = 0
+    if sor:
+        got = k9.sor_tile_sweeps(u0, v0, *fields, 4, 1.6, rows, cols, 300, 400)
+        want = k9.sor_tile_sweeps_plain(u0, v0, *fields, 4, 1.6, rows, cols, 300, 400)
+    else:
+        got = k9.tile_sweeps(u0, v0, *fields, 4, rows, cols, 300, 400)
+        want = k9.tile_sweeps_plain(u0, v0, *fields, 4, rows, cols, 300, 400)
+    assert counter.launches == 1
+    _equal(got, want)
+    for k in range(3):
+        f = [a[k] for a in fields]
+        one = (k9.sor_tile_sweeps(u0[k], v0[k], *f, 4, 1.6, rows[k], cols[k], 300, 400) if sor
+               else k9.tile_sweeps(u0[k], v0[k], *f, 4, rows[k], cols[k], 300, 400))
+        _equal((got[0][k], got[1][k]), one)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+@pytest.mark.parametrize("halo", [1, 3, 12])
+@pytest.mark.parametrize("stack", [0, 2])
+def test_k10_equals_plain(dev, n_shards, halo, stack):
+    tiles = [_rand(((stack,) if stack else ()) + (12, 37), dev, 80 + k, n=1)[0]
+             for k in range(n_shards)]
+    ring.ring_halo_exchange.launches = 0
+    got = ring.ring_halo_exchange(tiles, halo)
+    assert ring.ring_halo_exchange.launches == 1  # one launch for the device
+    for g, r in zip(got, ring.ring_halo_exchange_plain(tiles, halo)):
+        assert torch.equal(g, r)
+
+
+def _ring_problem(dev, my, mx, th, tw, sy, sx, seed, h, w):
+    grid_u, grid_v, grid_f, origins = [], [], [], []
+    for i in range(my):
+        ru, rv, rf, ro = [], [], [], []
+        for j in range(mx):
+            u0, v0 = _rand((th, tw), dev, seed + 10 * i + j, normal=True)
+            a, b = _rand((th + 2 * sy, tw + 2 * sx), dev, seed + 100 + 10 * i + j)
+            ru.append(u0)
+            rv.append(v0)
+            rf.append(tuple(k1.derivatives_plain(a, b, 0.5)))
+            ro.append((i * th, j * tw))
+        grid_u.append(ru)
+        grid_v.append(rv)
+        grid_f.append(rf)
+        origins.append(ro)
+    return grid_u, grid_v, grid_f, origins
+
+
+@pytest.mark.parametrize("my", [1, 2, 4])
+@pytest.mark.parametrize("n,s", [(7, 4), (12, 4), (13, 8)])
+def test_k11_equals_plain(dev, my, n, s):
+    th, tw, sy = 40, 93, 8
+    gu, gv, gf, go = _ring_problem(dev, my, 1, th, tw, sy, 0, 90, my * th - 3, tw)
+    u, v, f = [r[0] for r in gu], [r[0] for r in gv], [r[0] for r in gf]
+    rows = [o[0][0] for o in go]
+    ring.ring_fused_sweeps.launches = 0
+    got = ring.ring_fused_sweeps(u, v, f, n, s, rows, my * th - 3, tw)
+    assert ring.ring_fused_sweeps.launches == 1  # one launch for every shard
+    want = ring.ring_fused_sweeps_plain(u, v, f, n, s, rows, my * th - 3, tw)
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, b), float((a - b).abs().max())
+
+
+@pytest.mark.parametrize("my,mx", [(1, 1), (2, 2), (1, 4), (2, 1)])
+@pytest.mark.parametrize("n,s", [(7, 4), (12, 4), (13, 8)])
+def test_k12_equals_plain(dev, my, mx, n, s):
+    th, tw, sg = 40, 50, 8
+    h, w = my * th - 3, mx * tw - 5
+    gu, gv, gf, go = _ring_problem(dev, my, mx, th, tw, sg, sg, 95, h, w)
+    ring.ring_fused_sweeps_2d.launches = 0
+    got = ring.ring_fused_sweeps_2d(gu, gv, gf, n, s, go, h, w)
+    assert ring.ring_fused_sweeps_2d.launches == 1
+    want = ring.ring_fused_sweeps_2d_plain(gu, gv, gf, n, s, go, h, w)
+    for i in range(my):
+        for j in range(mx):
+            _equal((got[0][i][j], got[1][i][j]), (want[0][i][j], want[1][i][j]))
+
+
+@pytest.mark.parametrize("my,mx", [(1, 1), (2, 2), (4, 4), (1, 4), (4, 1)])
+@pytest.mark.parametrize("s", [1, 4])
+def test_tiled_solve_on_a_virtual_mesh_equals_untiled(dev, my, mx, s):
+    i1, i2 = _rand((130, 197), dev, 60)
+    mesh = make_mesh(MeshConfig(y=my, x=mx), [dev] * (my * mx))
+    cfg = HSConfig(alpha=0.5, iters=23)
+    k9.tile_sweeps.launches = 0
+    got = hs_solve_tiled(i1, i2, cfg, mesh, halo_sweeps=s)
+    assert k9.tile_sweeps.launches == -(-23 // s)  # one a block for 16 shards
+    _equal(got, hs_solve(i1, i2, cfg))
+    _equal(got, hs_solve_tiled(i1, i2, HSConfig(alpha=0.5, iters=23, backend="torch"),
+                               mesh, halo_sweeps=s))
+    ring.ring_fused_sweeps.launches = ring.ring_fused_sweeps_2d.launches = 0
+    rdma = hs_solve_tiled(i1, i2, cfg, mesh, halo_sweeps=s, halo_impl="rdma")
+    assert ring.ring_fused_sweeps.launches + ring.ring_fused_sweeps_2d.launches == 1
+    _equal(rdma, got)
+    sor = HSConfig(alpha=0.5, iters=9, solver="sor", omega=1.6)
+    if 130 // my > 4 * s and 197 // mx > 4 * s:
+        _equal(hs_solve_tiled(i1, i2, sor, mesh, halo_sweeps=s),
+               hs_solve_tiled(i1, i2, dataclasses.replace(sor, backend="torch"), mesh,
+                              halo_sweeps=s))
+
+
+def test_tiled_solve_stack_and_tol_on_a_virtual_mesh(dev):
+    i1, i2 = _rand((4, 64, 96), dev, 61)
+    i2[1] = i1[1]  # converges at the first check
+    mesh = make_mesh(MeshConfig(batch=2, y=2, x=2), [dev] * 8)
+    for cfg in (HSConfig(alpha=0.5, iters=20), HSConfig(alpha=0.5, iters=40, tol=1e-3)):
+        got = hs_solve_tiled(i1, i2, cfg, mesh, halo_sweeps=3)
+        _equal(got, hs_solve_tiled(i1, i2, dataclasses.replace(cfg, backend="torch"), mesh,
+                                   halo_sweeps=3))
+    _equal(hs_solve_tiled(i1, i2, HSConfig(alpha=0.5, iters=20), mesh, halo_sweeps=3,
+                          halo_impl="rdma"),
+           hs_solve_tiled(i1, i2, HSConfig(alpha=0.5, iters=20), mesh, halo_sweeps=3))
+
+
+def test_mixed_mesh_is_refused(dev):
+    with pytest.raises(ValueError, match="CPU devices or CUDA devices"):
+        make_mesh(MeshConfig(y=1, x=2), ["cpu", dev])
+
+
+def test_k11_grid_too_large_is_refused(dev):
+    gu, gv, gf, go = _ring_problem(dev, 2, 1, 40, 93, 4, 0, 97, 80, 93)
+    u, v, f = [r[0] for r in gu], [r[0] for r in gv], [r[0] for r in gf]
+    with pytest.raises(RuntimeError, match="hs_ring_fused_sweeps"):
+        ring.ring_fused_sweeps(u, v, f, 8, 4, [0, 40], 80, 93, blocks=100_000)
+
+
+def _dist_guarded(dev):
+    u0, v0, fields = _tile_problem(dev, (40, 56), 75)
+    gu, gv, gf, go = _ring_problem(dev, 2, 1, 20, 56, 4, 0, 76, 40, 56)
+    i1, i2 = _rand((40, 56), dev, 77)
+    mesh = make_mesh(MeshConfig(y=2, x=2), [dev] * 4)
+    return [
+        (u0, lambda a: k9.tile_sweeps(a, v0, *fields, 3, -3, -3, 40, 56)),
+        (u0, lambda a: k9.sor_tile_sweeps(a, v0, *fields, 3, 1.6, -3, -3, 40, 56)),
+        (u0, lambda a: ring.ring_halo_exchange([a, v0], 2)),
+        (gu[0][0], lambda a: ring.ring_fused_sweeps([a, gu[1][0]], [gv[0][0], gv[1][0]],
+                                                    [gf[0][0], gf[1][0]], 4, 4, [0, 20], 40, 56)),
+        (i1, lambda a: hs_solve_tiled(a, i2, HSConfig(iters=3), mesh)),
+    ]
+
+
+@pytest.mark.parametrize("k", range(5))
+def test_dist_kernel_entries_refuse_frames_that_require_grad(dev, k):
+    base, call = _dist_guarded(dev)[k]
+    a = base.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no_grad"):
+        call(a)
+    with torch.no_grad():
+        call(a)

@@ -131,7 +131,7 @@ def test_resident_requires_both_init_fields():
 def test_nvcc_command_targets_hopper_without_fma():
     srcs = _build.sources()
     assert [Path(s).name for s in srcs] == ["derivatives.cu", "jacobi.cu",
-                                           "robust.cu", "solve_fused.cu",
+                                           "ring.cu", "robust.cu", "solve_fused.cu",
                                            "solve_skewed.cu", "sor.cu", "sor_planes.cu",
                                            "tvl1.cu"]
     for src in srcs:

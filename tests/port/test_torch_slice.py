@@ -263,6 +263,10 @@ def test_package_imports_without_jax():
         "import opticalflowhs_tpu_torch.kernels.solve_skewed\n"
         "import opticalflowhs_tpu_torch.kernels.sor_planes, opticalflowhs_tpu_torch.multigrid\n"
         "import opticalflowhs_tpu_torch.data.synthetic, opticalflowhs_tpu_torch.io.flo\n"
+        "import opticalflowhs_tpu_torch.dist, opticalflowhs_tpu_torch.dist.halo\n"
+        "import opticalflowhs_tpu_torch.dist.mesh, opticalflowhs_tpu_torch.dist.tiled_solver\n"
+        "import opticalflowhs_tpu_torch.dist.pyramid_tiled\n"
+        "import opticalflowhs_tpu_torch.kernels.tile, opticalflowhs_tpu_torch.kernels.ring\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'opticalflowhs_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print(p.hs_solve.__name__)\n"

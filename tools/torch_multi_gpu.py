@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Config 5 on a real 2 x 2 mesh of four GPUs, one shard per card.
+
+    python3 tools/torch_multi_gpu.py            # needs 4 CUDA devices
+    python3 tools/torch_multi_gpu.py --cpu      # a small rehearsal on a CPU mesh
+
+Runs `configs/c5_multihost_4k.json` (2160x3840, alpha 1, i100, halo_sweeps
+4; noise frames from default_rng(5)) through `dist.hs_solve_tiled` on a
+2 x 2 mesh of cuda:0-3: halo_impl="ppermute" (halo copies between the cards,
+then K9 on each) and halo_impl="rdma" (K12: one launch a card, its halo
+rows and columns stored into the neighbours' slots over NVLink), and
+`hs_pyramid_tiled` (L3). Each is held against the untiled solve on one card
+(hs_solve / hs_pyramid on cuda:0) and timed (median of 10, host clock around
+a synchronised call) beside the same mesh made virtual on cuda:0 (2 x 2 and
+config 5's 4 x 4). Prints the cards' names and power limits and one JSON
+object as its last line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+TOL = 2e-6
+
+
+def median_ms(fn, runs: int, sync) -> float:
+    for _ in range(2):
+        fn()
+    sync()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cpu", action="store_true",
+                    help="rehearse on a CPU mesh at 216 x 384, i20 (no timing claims)")
+    args = ap.parse_args()
+    from opticalflowhs_tpu_torch import from_reference, hs_pyramid, hs_solve
+    from opticalflowhs_tpu_torch.config import MeshConfig
+    from opticalflowhs_tpu_torch.dist import hs_pyramid_tiled, hs_solve_tiled, make_mesh
+    from opticalflowhs_tpu_torch.kernels import ring
+    from opticalflowhs_tpu_torch.kernels import tile as k9
+
+    c5 = json.loads((ROOT / "configs" / "c5_multihost_4k.json").read_text())
+    cfg, pyr = from_reference(c5["hs"]), from_reference(c5["pyramid"])
+    s = from_reference(c5["mesh"]).halo_sweeps
+    if args.cpu:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, iters=20)
+        h, w = 216, 384
+        cards = [torch.device("cpu")] * 4
+        one = torch.device("cpu")
+
+        def sync():
+            pass
+        names = ["cpu"]
+    else:
+        if torch.cuda.device_count() < 4:
+            print(f"torch_multi_gpu: needs 4 CUDA devices, found {torch.cuda.device_count()}",
+                  file=sys.stderr)
+            return 1
+        h, w = 2160, 3840
+        cards = [torch.device("cuda", i) for i in range(4)]
+        one = cards[0]
+        sync = torch.cuda.synchronize
+        names = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+        for line in names:
+            print(line)
+        for i in range(4):
+            for j in range(4):
+                if i != j and not torch.cuda.can_device_access_peer(i, j):
+                    print(f"torch_multi_gpu: cuda:{i} cannot reach cuda:{j}", file=sys.stderr)
+                    return 1
+    rng = np.random.default_rng(5)
+    i1, i2 = (torch.from_numpy(rng.uniform(0, 1, (h, w)).astype(np.float32)).to(one)
+              for _ in range(2))
+    real = make_mesh(MeshConfig(y=2, x=2), cards)
+    virt22 = make_mesh(MeshConfig(y=2, x=2), [one] * 4)
+    virt44 = make_mesh(MeshConfig(y=4, x=4), [one] * 16)
+
+    untiled = hs_solve(i1, i2, cfg)
+    untiled_pyr = hs_pyramid(i1, i2, cfg, pyr)
+    runs = {
+        "real 2x2 ppermute": lambda: hs_solve_tiled(i1, i2, cfg, real, halo_sweeps=s),
+        "real 2x2 rdma": lambda: hs_solve_tiled(i1, i2, cfg, real, halo_sweeps=s,
+                                                halo_impl="rdma"),
+        "real 2x2 pyramid": lambda: hs_pyramid_tiled(i1, i2, cfg, pyr, real, halo_sweeps=s),
+        "virtual 2x2 ppermute": lambda: hs_solve_tiled(i1, i2, cfg, virt22, halo_sweeps=s),
+        "virtual 2x2 rdma": lambda: hs_solve_tiled(i1, i2, cfg, virt22, halo_sweeps=s,
+                                                   halo_impl="rdma"),
+        "virtual 4x4 ppermute": lambda: hs_solve_tiled(i1, i2, cfg, virt44, halo_sweeps=s),
+        "virtual 2x2 pyramid": lambda: hs_pyramid_tiled(i1, i2, cfg, pyr, virt22,
+                                                        halo_sweeps=s),
+    }
+    counters = {"K9": k9.tile_sweeps, "K12": ring.ring_fused_sweeps_2d}
+    result = {"cards": names, "shape": [h, w], "iters": cfg.iters, "halo_sweeps": s,
+              "max_abs_diff_vs_untiled": {}, "launches": {}, "ms": {}}
+    for tag, fn in runs.items():
+        before = {n: c.launches for n, c in counters.items()}
+        out = fn()
+        sync()
+        result["launches"][tag] = {n: c.launches - before[n] for n, c in counters.items()}
+        want = untiled_pyr if "pyramid" in tag else untiled
+        d = max(float((out.u - want.u).abs().max()), float((out.v - want.v).abs().max()))
+        result["max_abs_diff_vs_untiled"][tag] = d
+        if out.u.device != one or d > TOL:
+            print(f"torch_multi_gpu: {tag} differs from the untiled solve by {d} "
+                  f"(flow on {out.u.device})", file=sys.stderr)
+            return 1
+    result["ms"]["untiled hs_solve"] = median_ms(lambda: hs_solve(i1, i2, cfg), 10, sync)
+    result["ms"]["untiled hs_pyramid"] = median_ms(lambda: hs_pyramid(i1, i2, cfg, pyr), 10, sync)
+    for tag, fn in runs.items():
+        result["ms"][tag] = median_ms(fn, 10, sync)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

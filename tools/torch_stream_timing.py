@@ -2,7 +2,7 @@
 """Time the PyTorch port's batched, streaming, TV-L1, color-plane SOR and
 multigrid paths on one CUDA card.
 
-    python3 tools/torch_stream_timing.py [--repo DIR] [--runs N] [--profile] [--tvl1 | --mg]
+    python3 tools/torch_stream_timing.py [--repo DIR] [--runs N] [--profile] [--tvl1 | --mg | --dist]
 
 Imports opticalflowhs_tpu_torch from DIR (default: this checkout), so two
 trees can be compared in one session on one card (run them in turns:
@@ -17,6 +17,12 @@ With --mg the cells are chip_smoke.py's phase 14 instead:
   * S1 through K8 (kernels.hs_solve_sor_planes) and through the K1 + K3
     chain (`c1_frames`, alpha 0.5, i50, omega chip_smoke.OMEGA);
   * M1: hs_solve with solver="multigrid", alpha 1, i1 and i2, on `m1_pair`.
+With --dist the cells are chip_smoke.py's phase 15 instead (config 5 on
+`c5_frames`, 2160x3840, `c5_configs`, virtual meshes of cuda:0):
+  * D1: hs_solve_tiled on the 4 x 4 mesh, halo_sweeps 4; D2:
+    hs_pyramid_tiled L3 on it; D3: halo_impl="rdma" on 4 x 1 (K11) and
+    2 x 2 (K12); D4: SOR i50 omega chip_smoke.OMEGA on 4 x 4;
+  * beside them the untiled hs_solve (K1 + K7), hs_pyramid and SOR solve.
 With --tvl1 the cells are chip_smoke.py's phase 12 instead:
   * T1: tvl1_solve on `t1_pair` (1088x1920), 3 levels, TVL1Config();
   * T2: tvl1_solve on `t2_pair` (the 1080p two-motion seam), one level;
@@ -136,6 +142,30 @@ def sor_planes_mg_calls(p, dev) -> dict:
     }
 
 
+def dist_calls(p, dev) -> dict:
+    """chip_smoke.py's phase-15 cells D1-D4 and the untiled solves beside
+    them."""
+    from opticalflowhs_tpu_torch.dist import hs_pyramid_tiled, hs_solve_tiled, make_mesh
+
+    q1, q2 = chip_smoke.c5_frames(dev)
+    cfg, pyr, mcfg = chip_smoke.c5_configs()
+    s = mcfg.halo_sweeps
+    sor = dataclasses.replace(cfg, solver="sor", omega=chip_smoke.OMEGA, iters=50)
+    m44 = make_mesh(mcfg, [dev] * 16)
+    m41 = make_mesh(p.MeshConfig(y=4), [dev] * 4)
+    m22 = make_mesh(p.MeshConfig(y=2, x=2), [dev] * 4)
+    return {
+        "d1_tiled_4x4": lambda: hs_solve_tiled(q1, q2, cfg, m44, halo_sweeps=s),
+        "l1_untiled": lambda: p.hs_solve(q1, q2, cfg),
+        "d2_pyramid_tiled_4x4": lambda: hs_pyramid_tiled(q1, q2, cfg, pyr, m44, halo_sweeps=s),
+        "l3_pyramid_untiled": lambda: p.hs_pyramid(q1, q2, cfg, pyr),
+        "d3_rdma_4x1": lambda: hs_solve_tiled(q1, q2, cfg, m41, halo_sweeps=s, halo_impl="rdma"),
+        "d3_rdma_2x2": lambda: hs_solve_tiled(q1, q2, cfg, m22, halo_sweeps=s, halo_impl="rdma"),
+        "d4_sor_tiled_4x4": lambda: hs_solve_tiled(q1, q2, sor, m44, halo_sweeps=s),
+        "sor_untiled": lambda: p.hs_solve(q1, q2, sor),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=str(HERE))
@@ -143,6 +173,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--tvl1", action="store_true", help="time the TV-L1 cells T1-T3")
     ap.add_argument("--mg", action="store_true", help="time S1 through K8, and M1")
+    ap.add_argument("--dist", action="store_true", help="time config 5's cells D1-D4")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_stream_timing: no CUDA device", file=sys.stderr)
@@ -156,6 +187,8 @@ def main() -> int:
         return report(args, tvl1_calls(p, dev))
     if args.mg:
         return report(args, sor_planes_mg_calls(p, dev))
+    if args.dist:
+        return report(args, dist_calls(p, dev))
     cfg2 = chip_smoke.cell_config("c2_video_batch.json")
     cfg4 = chip_smoke.cell_config("c4_hd_streaming.json")
     cfg4w = dataclasses.replace(cfg4, iters=25)
