@@ -154,3 +154,22 @@ def test_ring_errors():
     with pytest.raises(ValueError, match="column halo too"):
         ring.ring_fused_sweeps_2d([[t]], [[t]], [[f]], 2, 2, [[(0, 0)]], 8, 12)
     assert ring.max_ring_sweeps() >= 8
+
+
+def test_unreachable_peer_raises(monkeypatch):
+    # Two cards that cannot reach each other refuse the ring kernels; the
+    # C helper's error comes back as RuntimeError, never as a fallback.
+    class Lib:
+        @staticmethod
+        def hs_enable_peer(device, peer):
+            return 217  # cudaErrorPeerAccessUnsupported
+
+        @staticmethod
+        def hs_error_string(err):
+            return b"peer access is not supported between these two devices"
+
+    monkeypatch.setattr(ring._build, "library", lambda: Lib)
+    monkeypatch.setattr(ring, "_PEERS", set())
+    with pytest.raises(RuntimeError, match="cannot store into cuda:1"):
+        ring.enable_peer(0, 1)
+    ring.enable_peer(0, 0)  # a card and itself need no peer access
