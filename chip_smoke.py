@@ -47,7 +47,8 @@ each ran through the kernels:
   phase 15:   K9 (tile sweeps keyed to a global origin, Jacobi and SOR),
               K10 (the ring halo exchange), K11 and K12 (the fused ring
               solves) against their plain versions on virtual meshes of
-              cuda:0 (1x1, 2x1, 4x1, 2x2, 1x4); then config 5
+              cuda:0 (1x1, 2x1, 4x1, 2x2, 1x4) and at config 5's shapes
+              (where they are timed); then config 5
               (configs/c5_multihost_4k.json) through dist/ on virtual
               meshes: hs_solve_tiled 2160x3840 i100 halo_sweeps 4 on 4 x 4
               (D1), hs_pyramid_tiled L3 (D2), halo_impl="rdma" on 4 x 1
@@ -1072,6 +1073,14 @@ def sor_planes_and_multigrid(dev, stack, s1, s2) -> dict:
             "stage_bytes_us": stage_ms * 1e3, "m1_i1_ms": ms_mg[1], "m1_i2_ms": ms_mg[2]}
 
 
+def _tensors(x) -> list:
+    """The tensors of a kernel's output (a tensor or nested tuples and
+    lists of them), in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in _tensors(y)]
+
+
 def _ring_inputs(dev, my, mx, th, tw, sg, seed, h, w):
     """A (y, x) grid of shards for K11/K12: owned (th, tw) starts, fields of
     the shards extended by sg rows (and sg columns on a 2-D mesh) from
@@ -1101,7 +1110,9 @@ def tiled_path(dev, pair, stack) -> list:
     i100 halo_sweeps 4 on a virtual 4 x 4 mesh (D1), hs_pyramid_tiled (D2),
     halo_impl="rdma" on 4 x 1 (K11) and 2 x 2 (K12) (D3), SOR tiled i50
     (D4) and K10 on the 4 x 1 frame shards, counted, each against the
-    untiled solve, and timed. Returns the K9-K12 rows of the kernels line."""
+    untiled solve, and timed; last, each kernel timed at config 5's shapes
+    and held against its plain version there. Returns the K9-K12 rows of
+    the kernels line."""
     from opticalflowhs_tpu_torch import hs_pyramid, hs_solve
     from opticalflowhs_tpu_torch.config import MeshConfig
     from opticalflowhs_tpu_torch.dist import hs_pyramid_tiled, hs_solve_tiled, make_mesh
@@ -1128,22 +1139,24 @@ def tiled_path(dev, pair, stack) -> list:
         i1, i2 = (a[0] for a in stack(1, ph, pw, seed=151))
         fields = k1.derivatives_plain(i1, i2, 0.5)
         for r0, c0 in corners:
+            org = k9.origin_table(u0, r0, c0)
             for n in (7, 13):
-                same("hs_tile_sweeps", k9.tile_sweeps(u0, v0, *fields, n, r0, c0, 300, 400),
+                same("hs_tile_sweeps", k9.tile_sweeps(u0, v0, *fields, n, org, 300, 400),
                      k9.tile_sweeps_plain(u0, v0, *fields, n, r0, c0, 300, 400),
                      f"K9 {ph}x{pw} origin ({r0}, {c0}) n={n}")
                 same("hs_sor_tile_sweeps",
-                     k9.sor_tile_sweeps(u0, v0, *fields, n, OMEGA, r0, c0, 300, 400),
+                     k9.sor_tile_sweeps(u0, v0, *fields, n, OMEGA, org, 300, 400),
                      k9.sor_tile_sweeps_plain(u0, v0, *fields, n, OMEGA, r0, c0, 300, 400),
                      f"K9 SOR {ph}x{pw} origin ({r0}, {c0}) n={n}")
         su, sv = stack(5, ph, pw, seed=152, normal=True)
         sa, sb = stack(5, ph, pw, seed=153)
         sf = k1.derivatives_plain(sa, sb, 0.5)
         rows, cols = [c[0] for c in corners], [c[1] for c in corners]
-        same("hs_tile_sweeps", k9.tile_sweeps(su, sv, *sf, 7, rows, cols, 300, 400),
+        org = k9.origin_table(su, rows, cols)
+        same("hs_tile_sweeps", k9.tile_sweeps(su, sv, *sf, 7, org, 300, 400),
              k9.tile_sweeps_plain(su, sv, *sf, 7, rows, cols, 300, 400),
              f"K9 stack of 5 {ph}x{pw}")
-        same("hs_sor_tile_sweeps", k9.sor_tile_sweeps(su, sv, *sf, 7, OMEGA, rows, cols, 300, 400),
+        same("hs_sor_tile_sweeps", k9.sor_tile_sweeps(su, sv, *sf, 7, OMEGA, org, 300, 400),
              k9.sor_tile_sweeps_plain(su, sv, *sf, 7, OMEGA, rows, cols, 300, 400),
              f"K9 SOR stack of 5 {ph}x{pw}")
         print(f"phase 15 K9 {ph}x{pw} (Jacobi and SOR) at the four corners of a 300x400 image "
@@ -1257,48 +1270,63 @@ def tiled_path(dev, pair, stack) -> list:
     print(f"phase 15 config 5 {H}x{W} a=1 (noise, seed 5), halo_sweeps {s5}, virtual meshes "
           f"on cuda:0: max|diff| tiled vs untiled {diffs}; ms (median of 10): {ms}")
 
-    # -- per-kernel times at config 5's shapes ----------------------------------------
+    # -- per-kernel times at config 5's shapes, each kernel = plain bitwise there --------
     hw = s5
     th, tw = H // 4, W // 4
     ph, pw = th + 2 * hw, tw + 2 * hw
     su, sv = stack(16, ph, pw, seed=180, normal=True)
     sa, sb = stack(16, ph, pw, seed=181)
     sf = k1.derivatives_plain(sa, sb, 1.0)
-    org = k9.origin_table(su, [i * th - hw for i in range(4) for _ in range(4)],
-                          [j * tw - hw for _ in range(4) for j in range(4)])
-    rows = org[:, 0].cpu().tolist()
-    cols = org[:, 1].cpu().tolist()
+    rows = [i * th - hw for i in range(4) for _ in range(4)]
+    cols = [j * tw - hw for _ in range(4) for j in range(4)]
+    org = k9.origin_table(su, rows, cols)
     ph_s, pw_s = th + 8 * hw, tw + 8 * hw
     tu, tv = stack(16, ph_s, pw_s, seed=182, normal=True)
     ta, tb = stack(16, ph_s, pw_s, seed=183)
     tf = k1.derivatives_plain(ta, tb, 1.0)
-    org_s = k9.origin_table(tu, [r - 3 * hw for r in rows], [c - 3 * hw for c in cols])
-    rows_s = org_s[:, 0].cpu().tolist()
-    cols_s = org_s[:, 1].cpu().tolist()
+    rows_s, cols_s = [r - 3 * hw for r in rows], [c - 3 * hw for c in cols]
+    org_s = k9.origin_table(tu, rows_s, cols_s)
     g41 = _ring_inputs(dev, 4, 1, th, W, hw, 190, H, W)
     g22 = _ring_inputs(dev, 2, 2, H // 2, W // 2, hw, 191, H, W)
     a41 = ([r[0] for r in g41[0]], [r[0] for r in g41[1]], [r[0] for r in g41[2]], 100, hw,
            [o[0][0] for o in g41[3]], H, W)
     a22 = (*g22[:3], 100, hw, g22[3], H, W)
-    timing = {
+    kept = {}
+
+    def keep(key, fn):
+        # Time fn and keep its last output, to hold the kernel against its
+        # plain version on the same inputs at these shapes.
+        def run():
+            kept[key] = fn()
+        return run
+
+    calls = {
         "hs_tile_sweeps": (
-            event_ms(lambda: k9.tile_sweeps(su, sv, *sf, hw, org, None, H, W)),
-            event_ms(lambda: k9.tile_sweeps_plain(su, sv, *sf, hw, rows, cols, H, W),
-                     reps=3)),
+            lambda: k9.tile_sweeps(su, sv, *sf, hw, org, H, W), 20,
+            lambda: k9.tile_sweeps_plain(su, sv, *sf, hw, rows, cols, H, W), 3),
         "hs_sor_tile_sweeps": (
-            event_ms(lambda: k9.sor_tile_sweeps(tu, tv, *tf, hw, OMEGA, org_s, None, H, W)),
-            event_ms(lambda: k9.sor_tile_sweeps_plain(tu, tv, *tf, hw, OMEGA, rows_s, cols_s,
-                                                      H, W), reps=3)),
+            lambda: k9.sor_tile_sweeps(tu, tv, *tf, hw, OMEGA, org_s, H, W), 20,
+            lambda: k9.sor_tile_sweeps_plain(tu, tv, *tf, hw, OMEGA, rows_s, cols_s, H, W), 3),
         "hs_ring_halo_exchange": (
-            event_ms(lambda: ring.ring_halo_exchange(shards41, hw + 1)),
-            event_ms(lambda: ring.ring_halo_exchange_plain(shards41, hw + 1))),
+            lambda: ring.ring_halo_exchange(shards41, hw + 1), 20,
+            lambda: ring.ring_halo_exchange_plain(shards41, hw + 1), 20),
         "hs_ring_fused_sweeps": (
-            event_ms(lambda: ring.ring_fused_sweeps(*a41), reps=10),
-            event_ms(lambda: ring.ring_fused_sweeps_plain(*a41), reps=2)),
+            lambda: ring.ring_fused_sweeps(*a41), 10,
+            lambda: ring.ring_fused_sweeps_plain(*a41), 2),
         "hs_ring_fused_sweeps_2d": (
-            event_ms(lambda: ring.ring_fused_sweeps_2d(*a22), reps=10),
-            event_ms(lambda: ring.ring_fused_sweeps_2d_plain(*a22), reps=2)),
+            lambda: ring.ring_fused_sweeps_2d(*a22), 10,
+            lambda: ring.ring_fused_sweeps_2d_plain(*a22), 2),
     }
+    timing = {name: (event_ms(keep((name, "cuda"), fk), reps=rk),
+                     event_ms(keep((name, "plain"), fp), reps=rp))
+              for name, (fk, rk, fp, rp) in calls.items()}
+    for name in calls:
+        same(name, _tensors(kept[name, "cuda"]), _tensors(kept[name, "plain"]),
+             f"{name} at config 5's shapes")
+    kept.clear()
+    print("phase 15 K9 (16 x 548x968 and SOR 16 x 572x992, 4 sweeps), K10 (4 x 540x3840, "
+          "halo 5), K11 (4 x 1, n 100) and K12 (2 x 2, n 100) at config 5's shapes: "
+          "= plain bitwise")
     px9, px9s = 16 * ph * pw, 16 * ph_s * pw_s
     owned = H * W
     halo41 = 2 * 2 * 4 * hw * W * 4           # u and v, both sides, 4 shards
@@ -1314,25 +1342,30 @@ def tiled_path(dev, pair, stack) -> list:
             4 * (4 * 4 * (H // 2 + 2 * hw) * (W // 2 + 2 * hw) + 2 * owned),
             K2_FLOPS_PER_PX_SWEEP * 100 * owned),
     }
+    # Bounds of the work across cards, from the data sheet's NVLink rate: on
+    # the text lines only, since the kernels line holds what this run measured.
     block_ms = SWEEP_BLOCK_ARRAYS * 4 * owned / PEAK_BYTES_PER_S * 1e3
+    nvlink = {"hs_ring_halo_exchange": {"halo_nvlink_ms": 4 * 2 * (hw + 1) * W * 4
+                                        / NVLINK_BYTES_PER_S * 1e3},
+              "hs_ring_fused_sweeps": {"block_bound_ms": block_ms + halo41
+                                       / NVLINK_BYTES_PER_S * 1e3},
+              "hs_ring_fused_sweeps_2d": {"block_bound_ms": block_ms + halo22
+                                          / NVLINK_BYTES_PER_S * 1e3}}
     extra = {
         "hs_tile_sweeps": {"launches_per_D1_solve": per_call["D1"]["K9"],
                            "shape": [16, ph, pw], "sweeps_per_launch": hw},
         "hs_sor_tile_sweeps": {"launches_per_D4_solve": per_call["D4"]["K9 SOR"],
                                "shape": [16, ph_s, pw_s], "sweeps_per_launch": hw},
-        "hs_ring_halo_exchange": {"shards": [4, th, W], "halo": hw + 1,
-                                  "halo_nvlink_ms": 4 * 2 * (hw + 1) * W * 4
-                                  / NVLINK_BYTES_PER_S * 1e3},
+        "hs_ring_halo_exchange": {"shards": [4, th, W], "halo": hw + 1},
         "hs_ring_fused_sweeps": {"mesh": [4, 1], "n": 100, "s": hw,
-                                 "block_bound_ms": block_ms + halo41 / NVLINK_BYTES_PER_S * 1e3,
                                  "solve_ms_D3": ms["D3 4x1"]},
         "hs_ring_fused_sweeps_2d": {"mesh": [2, 2], "n": 100, "s": hw,
-                                    "block_bound_ms": block_ms + halo22 / NVLINK_BYTES_PER_S * 1e3,
                                     "solve_ms_D3": ms["D3 2x2"]},
     }
     for name, (t_k, t_p) in timing.items():
         print(f"kernel {name}: {t_k:.4f} ms per call, plain {t_p:.4f} ms, bound "
-              f"{bounds[name][0]:.4f} ms ({bounds[name][1]}) {extra[name]}")
+              f"{bounds[name][0]:.4f} ms ({bounds[name][1]}) {extra[name]} "
+              f"{nvlink.get(name, {})}")
     source = {"hs_tile_sweeps": "opticalflowhs_tpu_torch/csrc/jacobi.cu",
               "hs_sor_tile_sweeps": "opticalflowhs_tpu_torch/csrc/sor.cu",
               "hs_ring_halo_exchange": "opticalflowhs_tpu_torch/csrc/ring.cu",

@@ -51,6 +51,9 @@ namespace {
 
 constexpr int kMaxBatch = 65535;  // gridDim.z limit
 
+// kShard: the images are K9's shards, each at its own global origin (org);
+// otherwise whole images, and K2's loop is the one K6 and K7 run.
+template <bool kShard>
 __global__ void jacobi_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ ex, const float* __restrict__ ey,
@@ -65,8 +68,8 @@ __global__ void jacobi_kernel(
   uo += img;
   vo += img;
   // Global origin of this image's element (0, 0): zero for whole images.
-  const int org_r = org != nullptr ? org[2 * blockIdx.z] : 0;
-  const int org_c = org != nullptr ? org[2 * blockIdx.z + 1] : 0;
+  const int org_r = kShard ? org[2 * blockIdx.z] : 0;
+  const int org_c = kShard ? org[2 * blockIdx.z + 1] : 0;
   const hs_tile::Window win = hs_tile::make_window_at(
       blockIdx.y * tile_h, blockIdx.x * tile_w, tile_h, tile_w, sweeps, h, w,
       org_r, org_c, img_h, img_w);
@@ -77,7 +80,7 @@ __global__ void jacobi_kernel(
                    vv = v[g];
                  });
   __syncthreads();
-  hs_tile::run_sweeps(b, win, h, w, sweeps);
+  hs_tile::run_sweeps<kShard>(b, win, h, w, sweeps);
   // su/sv now hold the last sweep; write back the owned tile only.
   hs_tile::write_tile(uo, vo, b, win, tile_h, tile_w, w);
 }
@@ -90,16 +93,17 @@ int launch(const float* u, const float* v, const float* ex, const float* ey,
   if (b < 1 || b > kMaxBatch) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const auto kernel = org != nullptr ? jacobi_kernel<true> : jacobi_kernel<false>;
   const size_t smem = hs_tile::smem_bytes(tile_h, tile_w, sweeps);
   if (smem > 48 * 1024) {
     // Above 48 KB, dynamic shared memory must be opted into per kernel.
-    err = cudaFuncSetAttribute(jacobi_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((w + tile_w - 1) / tile_w, (h + tile_h - 1) / tile_h, b);
-  jacobi_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       u, v, ex, ey, et, invd, uo, vo, org, h, w, img_h, img_w, sweeps, tile_h,
       tile_w);
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
 // The temporally blocked Jacobi sweeps of one shared-memory window, shared by
-// K2 (jacobi.cu), K6 (solve_fused.cu) and K7 (solve_skewed.cu).
+// K2 (jacobi.cu), K6 (solve_fused.cu) and K7 (solve_skewed.cu), and on the
+// shards of the tiled solver by K9 (jacobi.cu), K11 and K12 (ring.cu).
 //
 // A block owns a th x tw output tile at (tr0, tc0) and stages the window
 // grown by `halo` rows and columns on each side, cut at the true image
@@ -137,8 +138,12 @@ __device__ __forceinline__ void stage(const Buffers& b, const Window& win,
 }
 
 // `sweeps` (<= win.halo) Jacobi sweeps between (su, sv) and (du, dv); on
-// return su/sv point at the last sweep. (h, w) is the array's size. Ends
-// with a __syncthreads.
+// return su/sv point at the last sweep. (h, w) is the array's size. With
+// kShard false the array is the whole image and the clamps fire at its
+// edges only (K2, K6, K7); with kShard true it is a shard of a larger
+// image (K9, K11, K12), whose true edges, from win.org_* and win.img_*, may
+// also lie inside a strip. Ends with a __syncthreads.
+template <bool kShard = false>
 __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
                                            int h, int w, int sweeps) {
   const int tid = threadIdx.x;
@@ -163,12 +168,15 @@ __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
         const int ra = rlo + (strip / ncols) * chunk;
         const int rb = min(ra + chunk, rhi);
         if (ra >= rb) continue;
-        // Clamps at the array's edges and at the true image edges.
+        // Clamps at the array's edges and, on a shard, at the true image
+        // edges.
         const int ac = c0 + c, gc = win.org_c + ac;
         const int ar = r0 + ra;
-        const int cl = ac > 0 && gc != 0 ? c - 1 : c;                  // j-1
-        const int cr = ac < w - 1 && gc != win.img_w - 1 ? c + 1 : c;  // j+1
-        const int ru = ar > 0 && win.org_r + ar != 0 ? ra - 1 : ra;    // i-1
+        const int cl = ac > 0 && (!kShard || gc != 0) ? c - 1 : c;  // j-1
+        const int cr =
+            ac < w - 1 && (!kShard || gc != win.img_w - 1) ? c + 1 : c;  // j+1
+        const int ru =
+            ar > 0 && (!kShard || win.org_r + ar != 0) ? ra - 1 : ra;  // i-1
         // Rows i-1 (top) and i (mid) of the 3x3 neighbourhood.
         float ut_l = su[ru * win_w + cl], ut_c = su[ru * win_w + c],
               ut_r = su[ru * win_w + cr];
@@ -179,7 +187,8 @@ __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
         float vm_l = sv[ra * win_w + cl], vm_c = sv[ra * win_w + c],
               vm_r = sv[ra * win_w + cr];
         for (int r = ra; r < rb; ++r) {
-          const int rd = r0 + r < h - 1 && win.org_r + r0 + r != win.img_h - 1
+          const int rd = r0 + r < h - 1 &&
+                                 (!kShard || win.org_r + r0 + r != win.img_h - 1)
                              ? r + 1 : r;  // i+1
           const float ub_l = su[rd * win_w + cl], ub_c = su[rd * win_w + c],
                       ub_r = su[rd * win_w + cr];
@@ -204,13 +213,13 @@ __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
               ((e_x * ubar + e_y * vbar) + b.set[o]) * b.sinvd[o];
           du[o] = ubar - e_x * frac;
           dv[o] = vbar - e_y * frac;
-          // Roll the neighbourhood down a row. A true image edge inside the
-          // strip (a shard of a larger image) breaks the roll: below the
-          // bottom edge, row i+1 was row i itself, so row r+1 is loaded
-          // afresh; at the top edge, row r+1's i-1 clamps to itself.
+          // Roll the neighbourhood down a row. On a shard, a true image
+          // edge inside the strip breaks the roll: below the bottom edge,
+          // row i+1 was row i itself, so row r+1 is loaded afresh; at the
+          // top edge, row r+1's i-1 clamps to itself.
           ut_l = um_l; ut_c = um_c; ut_r = um_r;
           vt_l = vm_l; vt_c = vm_c; vt_r = vm_r;
-          if (rd == r + 1) {
+          if (!kShard || rd == r + 1) {
             um_l = ub_l; um_c = ub_c; um_r = ub_r;
             vm_l = vb_l; vm_c = vb_c; vm_r = vb_r;
           } else if (r + 1 < rb) {
@@ -218,7 +227,7 @@ __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
             um_l = su[n + cl]; um_c = su[n + c]; um_r = su[n + cr];
             vm_l = sv[n + cl]; vm_c = sv[n + c]; vm_r = sv[n + cr];
           }
-          if (win.org_r + r0 + r + 1 == 0) {
+          if (kShard && win.org_r + r0 + r + 1 == 0) {
             ut_l = um_l; ut_c = um_c; ut_r = um_r;
             vt_l = vm_l; vt_c = vm_c; vt_r = vm_r;
           }

@@ -276,7 +276,7 @@ __global__ void __launch_bounds__(512, 1)
                        vv = extended_at(sh, g, k, p, 1, ar, ac);
                      });
       __syncthreads();
-      hs_tile::run_sweeps(bf, win, g.eh, g.ew, ns);
+      hs_tile::run_sweeps<true>(bf, win, g.eh, g.ew, ns);
       // The owned part of the tile into the pair this block writes.
       float* du = k % 2 == 0 ? sh.ua : sh.ub;
       float* dv = k % 2 == 0 ? sh.va : sh.vb;

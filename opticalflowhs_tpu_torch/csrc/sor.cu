@@ -62,6 +62,9 @@ constexpr int kMaxBatch = 65535;  // gridDim.z limit
 constexpr float kTwelfth = (float)(1.0 / 12.0);
 constexpr float kThird = (float)(1.0 / 3.0);
 
+// kShard: the images are K9's shards, each at its own global origin (org),
+// with clamps at the true image edges too; otherwise whole images.
+template <bool kShard>
 __global__ void sor_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ ex, const float* __restrict__ ey,
@@ -96,8 +99,8 @@ __global__ void sor_kernel(
   // whole images.
   const int r0 = blockIdx.y * tile_h - halo;
   const int c0 = blockIdx.x * tile_w - halo;
-  const int org_r = org != nullptr ? org[2 * blockIdx.z] : 0;
-  const int org_c = org != nullptr ? org[2 * blockIdx.z + 1] : 0;
+  const int org_r = kShard ? org[2 * blockIdx.z] : 0;
+  const int org_c = kShard ? org[2 * blockIdx.z + 1] : 0;
   const int gr0 = org_r + r0, gc0 = org_c + c0;  // global origin of the window
   const int wr_lo = max(0, -r0), wr_hi = min(win_h, h - r0);
   const int wc_lo = max(0, -c0), wc_hi = min(win_w, w - c0);
@@ -139,13 +142,13 @@ __global__ void sor_kernel(
     for (int i = tid; i < n; i += nthreads) {
       const int r = ra + 2 * (i / nc);
       const int c = ca + 2 * (i % nc);
-      // Clamps at the array's edges and at the true image edges.
+      // Clamps at the array's edges and, on a shard, at the true image edges.
       const int ar = r0 + r, ac = c0 + c;
       const int gr = gr0 + r, gc = gc0 + c;
-      const int ru = ar > 0 && gr != 0 ? r - 1 : r;                  // i-1
-      const int rd = ar < h - 1 && gr != img_h - 1 ? r + 1 : r;      // i+1
-      const int cl = ac > 0 && gc != 0 ? c - 1 : c;                  // j-1
-      const int cr = ac < w - 1 && gc != img_w - 1 ? c + 1 : c;      // j+1
+      const int ru = ar > 0 && (!kShard || gr != 0) ? r - 1 : r;              // i-1
+      const int rd = ar < h - 1 && (!kShard || gr != img_h - 1) ? r + 1 : r;  // i+1
+      const int cl = ac > 0 && (!kShard || gc != 0) ? c - 1 : c;              // j-1
+      const int cr = ac < w - 1 && (!kShard || gc != img_w - 1) ? c + 1 : c;  // j+1
       const int top = ru * win_w, mid = r * win_w, bot = rd * win_w;
       const int o = mid + c;
       // neighbor_avg: t = (a(i-1) + 2a) + a(i+1) per column, then
@@ -199,15 +202,16 @@ int launch(const float* u, const float* v, const float* ex, const float* ey,
   const int halo = kStagesPerSweep * sweeps;
   const size_t smem = (size_t)kFields * (tile_h + 2 * halo) *
                       (tile_w + 2 * halo) * sizeof(float);
+  const auto kernel = org != nullptr ? sor_kernel<true> : sor_kernel<false>;
   if (smem > 48 * 1024) {
     // Above 48 KB, dynamic shared memory must be opted into per kernel.
-    err = cudaFuncSetAttribute(sor_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((w + tile_w - 1) / tile_w, (h + tile_h - 1) / tile_h, b);
-  sor_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       u, v, ex, ey, et, invd, uo, vo, org, h, w, img_h, img_w, sweeps, omega,
       tile_h, tile_w);
   return (int)cudaGetLastError();

@@ -171,10 +171,12 @@ def tile_body(lay: Layout, f1: dict, f2: dict, cfg: HSConfig, s: int, h: int,
     fields = _fields(lay, f1, f2, cfg, hw, hw, h, w)
     probe = next(iter(f1.values()))
     cuda = resolve_backend(cfg.backend, probe) == "cuda"
+    # The kernels take an origin table (built once), the plain versions the
+    # (rows, cols) lists.
     origins = {}
     for dev in lay.local:
         rows, cols = lay.slice_origins(dev, -hw, -hw)
-        origins[dev] = ((tile.origin_table(fields[dev][0], rows, cols), None)
+        origins[dev] = ((tile.origin_table(fields[dev][0], rows, cols),)
                         if cuda else (rows, cols))
 
     def block(u: dict, v: dict, n: int):
@@ -182,13 +184,12 @@ def tile_body(lay: Layout, f1: dict, f2: dict, cfg: HSConfig, s: int, h: int,
         ru, rv = {}, {}
         for dev in lay.local:
             a, b = pu[dev].flatten(0, 1), pv[dev].flatten(0, 1)
-            r0, c0 = origins[dev]
             if is_sor:
                 sweep = tile.sor_tile_sweeps if cuda else tile.sor_tile_sweeps_plain
-                ru[dev], rv[dev] = sweep(a, b, *fields[dev], n, cfg.omega, r0, c0, h, w)
+                ru[dev], rv[dev] = sweep(a, b, *fields[dev], n, cfg.omega, *origins[dev], h, w)
             else:
                 sweep = tile.tile_sweeps if cuda else tile.tile_sweeps_plain
-                ru[dev], rv[dev] = sweep(a, b, *fields[dev], n, r0, c0, h, w)
+                ru[dev], rv[dev] = sweep(a, b, *fields[dev], n, *origins[dev], h, w)
         return (lay.split(ru, lambda t: unpad(t, hw)),
                 lay.split(rv, lambda t: unpad(t, hw)))
 

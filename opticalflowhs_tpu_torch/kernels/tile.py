@@ -79,13 +79,23 @@ def sor_tile_sweeps_plain(u, v, ex, ey, et, inv_den, n_sweeps: int,
 
 
 def origin_table(u: torch.Tensor, row0: Origins, col0: Origins) -> torch.Tensor:
-    """The kernels' (S, 2) int32 table of per-slice origins, on u's device.
-    Build it once per solve and pass it back in as `row0`: the origins of a
-    shard stack do not change from one sweep block to the next."""
+    """The wrappers' (S, 2) int32 table of per-slice global origins (row0,
+    col0: ints or per-slice sequences), on u's device. Build it once per
+    solve: the origins of a shard stack do not change from one sweep block
+    to the next."""
     s = u.shape[0] if u.ndim == 3 else 1
     r = torch.as_tensor(row0, dtype=torch.int32).expand(s)
     c = torch.as_tensor(col0, dtype=torch.int32).expand(s)
     return torch.stack([r, c], dim=1).contiguous().to(u.device)
+
+
+def _check_table(u, org):
+    s = u.shape[0] if u.ndim == 3 else 1
+    if (not isinstance(org, torch.Tensor) or tuple(org.shape) != (s, 2)
+            or org.dtype != torch.int32 or org.device != u.device
+            or not org.is_contiguous()):
+        raise ValueError(f"origins must be an origin_table: a contiguous ({s}, 2) "
+                         f"int32 tensor on {u.device}")
 
 
 def _launcher(entry: str, u, ex, ey, et, inv_den, org, h: int, w: int,
@@ -111,59 +121,37 @@ def _launcher(entry: str, u, ex, ey, et, inv_den, org, h: int, w: int,
     return launch
 
 
-def _cuda_origins(u, row0, col0):
-    if isinstance(row0, torch.Tensor) and row0.ndim == 2:
-        if col0 is not None:
-            raise ValueError("pass an origin table as row0 with col0=None")
-        s = u.shape[0] if u.ndim == 3 else 1
-        if (tuple(row0.shape) != (s, 2) or row0.dtype != torch.int32
-                or row0.device != u.device or not row0.is_contiguous()):
-            raise ValueError(f"origin table must be a contiguous ({s}, 2) int32 "
-                             f"tensor on {u.device}")
-        return row0
-    return origin_table(u, row0, col0)
-
-
-def _split_origins(row0, col0):
-    """(row0, col0) for the plain versions, from ints, sequences or a table."""
-    if isinstance(row0, torch.Tensor) and row0.ndim == 2:
-        return row0[:, 0].cpu(), row0[:, 1].cpu()
-    return row0, col0
-
-
-def tile_sweeps(u, v, ex, ey, et, inv_den, n_sweeps: int, row0: Origins,
-                col0: Origins, h: int, w: int, block_sweeps: int = 0):
+def tile_sweeps(u, v, ex, ey, et, inv_den, n_sweeps: int, org: torch.Tensor,
+                h: int, w: int, block_sweeps: int = 0):
     """n Jacobi sweeps on halo-padded shards, (PH, PW) or an (S, PH, PW)
-    stack: clamps at the true h x w image from each slice's global origin
-    (row0, col0) (ints, per-slice sequences, or an `origin_table` as row0
-    with col0=None). On CUDA tensors ceil(n/s) K9 launches for the whole
-    stack (s as K2: `jacobi.sweeps_per_launch(block_sweeps)`), on CPU
-    tensors `tile_sweeps_plain`. Returns the padded (u, v)."""
+    stack: clamps at the true h x w image from each slice's global origin,
+    given as an `origin_table`. On CUDA tensors ceil(n/s) K9 launches for
+    the whole stack (s as K2: `jacobi.sweeps_per_launch(block_sweeps)`), on
+    CPU tensors `tile_sweeps_plain`. Returns the padded (u, v)."""
     check_frames("tile_sweeps", u, v, ex, ey, et, inv_den)
+    _check_table(u, org)
     if n_sweeps == 0:
         return u, v
     if u.device.type == "cpu":
         return tile_sweeps_plain(u, v, ex, ey, et, inv_den, n_sweeps,
-                                 *_split_origins(row0, col0), h, w)
-    org = _cuda_origins(u, row0, col0)
+                                 org[:, 0], org[:, 1], h, w)
     launch = _launcher("hs_tile_sweeps", u, ex, ey, et, inv_den, org, h, w)
     return k2.ping_pong(u, v, n_sweeps, k2.sweeps_per_launch(block_sweeps),
                         launch)
 
 
 def sor_tile_sweeps(u, v, ex, ey, et, inv_den, n_sweeps: int, omega: float,
-                    row0: Origins, col0: Origins, h: int, w: int,
-                    block_sweeps: int = 0):
+                    org: torch.Tensor, h: int, w: int, block_sweeps: int = 0):
     """SOR twin of `tile_sweeps`: n 4-color sweeps, colors by global parity;
     ceil(n/s) launches of K9's SOR entry (s as K3), or the plain version on
     CPU tensors."""
     check_frames("sor_tile_sweeps", u, v, ex, ey, et, inv_den)
+    _check_table(u, org)
     if n_sweeps == 0:
         return u, v
     if u.device.type == "cpu":
         return sor_tile_sweeps_plain(u, v, ex, ey, et, inv_den, n_sweeps, omega,
-                                     *_split_origins(row0, col0), h, w)
-    org = _cuda_origins(u, row0, col0)
+                                     org[:, 0], org[:, 1], h, w)
     launch = _launcher("hs_sor_tile_sweeps", u, ex, ey, et, inv_den, org, h, w,
                        omega)
     return k2.ping_pong(u, v, n_sweeps, k3.sweeps_per_launch(block_sweeps),

@@ -631,10 +631,10 @@ def test_k9_equals_plain(dev, shape, corner, sor):
     r0, c0 = _CORNERS[corner](*shape)
     for n in (7, 13):
         if sor:
-            got = k9.sor_tile_sweeps(u0, v0, *fields, n, 1.6, r0, c0, 300, 400)
+            got = k9.sor_tile_sweeps(u0, v0, *fields, n, 1.6, k9.origin_table(u0, r0, c0), 300, 400)
             want = k9.sor_tile_sweeps_plain(u0, v0, *fields, n, 1.6, r0, c0, 300, 400)
         else:
-            got = k9.tile_sweeps(u0, v0, *fields, n, r0, c0, 300, 400)
+            got = k9.tile_sweeps(u0, v0, *fields, n, k9.origin_table(u0, r0, c0), 300, 400)
             want = k9.tile_sweeps_plain(u0, v0, *fields, n, r0, c0, 300, 400)
         _equal(got, want)  # every element of the padded shard, halo included
 
@@ -646,17 +646,18 @@ def test_k9_stack_of_shards_is_one_launch(dev, sor):
     counter = k9.sor_tile_sweeps if sor else k9.tile_sweeps
     counter.launches = 0
     if sor:
-        got = k9.sor_tile_sweeps(u0, v0, *fields, 4, 1.6, rows, cols, 300, 400)
+        got = k9.sor_tile_sweeps(u0, v0, *fields, 4, 1.6, k9.origin_table(u0, rows, cols), 300, 400)
         want = k9.sor_tile_sweeps_plain(u0, v0, *fields, 4, 1.6, rows, cols, 300, 400)
     else:
-        got = k9.tile_sweeps(u0, v0, *fields, 4, rows, cols, 300, 400)
+        got = k9.tile_sweeps(u0, v0, *fields, 4, k9.origin_table(u0, rows, cols), 300, 400)
         want = k9.tile_sweeps_plain(u0, v0, *fields, 4, rows, cols, 300, 400)
     assert counter.launches == 1
     _equal(got, want)
     for k in range(3):
         f = [a[k] for a in fields]
-        one = (k9.sor_tile_sweeps(u0[k], v0[k], *f, 4, 1.6, rows[k], cols[k], 300, 400) if sor
-               else k9.tile_sweeps(u0[k], v0[k], *f, 4, rows[k], cols[k], 300, 400))
+        org = k9.origin_table(u0[k], rows[k], cols[k])
+        one = (k9.sor_tile_sweeps(u0[k], v0[k], *f, 4, 1.6, org, 300, 400) if sor
+               else k9.tile_sweeps(u0[k], v0[k], *f, 4, org, 300, 400))
         _equal((got[0][k], got[1][k]), one)
 
 
@@ -774,9 +775,10 @@ def _dist_guarded(dev):
     gu, gv, gf, go = _ring_problem(dev, 2, 1, 20, 56, 4, 0, 76, 40, 56)
     i1, i2 = _rand((40, 56), dev, 77)
     mesh = make_mesh(MeshConfig(y=2, x=2), [dev] * 4)
+    org = k9.origin_table(u0, -3, -3)
     return [
-        (u0, lambda a: k9.tile_sweeps(a, v0, *fields, 3, -3, -3, 40, 56)),
-        (u0, lambda a: k9.sor_tile_sweeps(a, v0, *fields, 3, 1.6, -3, -3, 40, 56)),
+        (u0, lambda a: k9.tile_sweeps(a, v0, *fields, 3, org, 40, 56)),
+        (u0, lambda a: k9.sor_tile_sweeps(a, v0, *fields, 3, 1.6, org, 40, 56)),
         (u0, lambda a: ring.ring_halo_exchange([a, v0], 2)),
         (gu[0][0], lambda a: ring.ring_fused_sweeps([a, gu[1][0]], [gv[0][0], gv[1][0]],
                                                     [gf[0][0], gf[1][0]], 4, 4, [0, 20], 40, 56)),

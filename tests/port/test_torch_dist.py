@@ -163,11 +163,11 @@ def test_tile_sweeps_plain_matches_reference_kernel(origin, sor, record_property
     t = [torch.from_numpy(a.copy()) for a in arrs]
     j = [jnp.asarray(a) for a in arrs]
     if sor:
-        got = tile.sor_tile_sweeps(*t, n, 1.6, *origin, h, w)
+        got = tile.sor_tile_sweeps(*t, n, 1.6, tile.origin_table(t[0], *origin), h, w)
         want = ref_sor.sor_tile_sweeps(*j, n, 1.6, *origin, h, w, interpret=True)
         ring = 4 * n
     else:
-        got = tile.tile_sweeps(*t, n, *origin, h, w)
+        got = tile.tile_sweeps(*t, n, tile.origin_table(t[0], *origin), h, w)
         want = ref_jacobi.tile_sweeps(*j, n, *origin, h, w, interpret=True)
         ring = n
     exact = (slice(ring, -ring), slice(ring, -ring))
@@ -183,9 +183,9 @@ def test_tile_sweeps_stack_equals_slices(sor):
     rows, cols = [-4, 13, 50], [-3, 0, 27]
     args = (4, 1.6) if sor else (4,)
     fn = tile.sor_tile_sweeps if sor else tile.tile_sweeps
-    got = fn(*t, *args, rows, cols, 70, 60)
+    got = fn(*t, *args, tile.origin_table(t[0], rows, cols), 70, 60)
     for k in range(3):
-        one = fn(*(a[k] for a in t), *args, rows[k], cols[k], 70, 60)
+        one = fn(*(a[k] for a in t), *args, tile.origin_table(t[0][k], rows[k], cols[k]), 70, 60)
         assert torch.equal(got[0][k], one[0]) and torch.equal(got[1][k], one[1])
 
 

@@ -2,7 +2,8 @@
 """Time the PyTorch port's batched, streaming, TV-L1, color-plane SOR and
 multigrid paths on one CUDA card.
 
-    python3 tools/torch_stream_timing.py [--repo DIR] [--runs N] [--profile] [--tvl1 | --mg | --dist]
+    python3 tools/torch_stream_timing.py [--repo DIR] [--runs N] [--profile]
+                                         [--tvl1 | --mg | --dist | --untiled]
 
 Imports opticalflowhs_tpu_torch from DIR (default: this checkout), so two
 trees can be compared in one session on one card (run them in turns:
@@ -23,6 +24,10 @@ With --dist the cells are chip_smoke.py's phase 15 instead (config 5 on
     hs_pyramid_tiled L3 on it; D3: halo_impl="rdma" on 4 x 1 (K11) and
     2 x 2 (K12); D4: SOR i50 omega chip_smoke.OMEGA on 4 x 4;
   * beside them the untiled hs_solve (K1 + K7), hs_pyramid and SOR solve.
+With --untiled only those untiled solves of config 5 and C1 (hs_solve
+1088x1920 i100 on `c1_frames`, K1 + K2): the whole-image paths whose
+kernels share their sweep code with the tiled ones. They need no dist/, so
+a tree from before it can be compared.
 With --tvl1 the cells are chip_smoke.py's phase 12 instead:
   * T1: tvl1_solve on `t1_pair` (1088x1920), 3 levels, TVL1Config();
   * T2: tvl1_solve on `t2_pair` (the 1080p two-motion seam), one level;
@@ -166,6 +171,23 @@ def dist_calls(p, dev) -> dict:
     }
 
 
+def untiled_calls(p, dev) -> dict:
+    """The untiled cells beside D1-D4 (configs/c5_multihost_4k.json's hs
+    and pyramid sections, read without its mesh), and C1."""
+    c5 = json.loads((chip_smoke.ROOT / "configs" / "c5_multihost_4k.json").read_text())
+    cfg, pyr = p.from_reference(c5["hs"]), p.from_reference(c5["pyramid"])
+    sor = dataclasses.replace(cfg, solver="sor", omega=chip_smoke.OMEGA, iters=50)
+    q1, q2 = chip_smoke.c5_frames(dev)
+    s1, s2 = chip_smoke.c1_frames(dev)
+    c1 = p.HSConfig(alpha=0.5, iters=100)
+    return {
+        "c1_hs_solve_1080p": lambda: p.hs_solve(s1, s2, c1),
+        "l1_untiled": lambda: p.hs_solve(q1, q2, cfg),
+        "l3_pyramid_untiled": lambda: p.hs_pyramid(q1, q2, cfg, pyr),
+        "sor_untiled": lambda: p.hs_solve(q1, q2, sor),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=str(HERE))
@@ -174,6 +196,8 @@ def main() -> int:
     ap.add_argument("--tvl1", action="store_true", help="time the TV-L1 cells T1-T3")
     ap.add_argument("--mg", action="store_true", help="time S1 through K8, and M1")
     ap.add_argument("--dist", action="store_true", help="time config 5's cells D1-D4")
+    ap.add_argument("--untiled", action="store_true",
+                    help="time config 5's untiled solves and C1 only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_stream_timing: no CUDA device", file=sys.stderr)
@@ -189,6 +213,8 @@ def main() -> int:
         return report(args, sor_planes_mg_calls(p, dev))
     if args.dist:
         return report(args, dist_calls(p, dev))
+    if args.untiled:
+        return report(args, untiled_calls(p, dev))
     cfg2 = chip_smoke.cell_config("c2_video_batch.json")
     cfg4 = chip_smoke.cell_config("c4_hd_streaming.json")
     cfg4w = dataclasses.replace(cfg4, iters=25)
