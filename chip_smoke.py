@@ -5,8 +5,10 @@ Builds the port's CUDA kernels from csrc/ (nvcc, a few seconds), holds each
 against its plain PyTorch version on the card, then drives the port's
 paths through the public entry points, with launch counters showing that
 each ran through the kernels:
-  phases 1-5: hs_solve (1088x1920, alpha 0.5, 100 sweeps) and hs_pyramid
-              (3 levels at 1080x1920), then an EPE gate;
+  phases 1-5: K1 and K2 against their plain versions (K2 also at the
+              edge shapes of its own geometry, every s from 1 to 12, B 1
+              and 3); hs_solve (1088x1920, alpha 0.5, 100 sweeps) and
+              hs_pyramid (3 levels at 1080x1920), then an EPE gate;
   phase 6:    batched K1 and K2 against their plain versions and against
               the single-frame kernels, B in {1, 3};
   phase 7:    config 2 (configs/c2_video_batch.json): hs_solve_batched on
@@ -46,8 +48,10 @@ each ran through the kernels:
               stack of 2 x 1080p and a 3-level multigrid pyramid;
   phase 15:   K9 (tile sweeps keyed to a global origin, Jacobi and SOR),
               K10 (the ring halo exchange), K11 and K12 (the fused ring
-              solves) against their plain versions on virtual meshes of
-              cuda:0 (1x1, 2x1, 4x1, 2x2, 1x4) and at config 5's shapes
+              solves) against their plain versions (K9 also with true
+              image edges at K2's warp and lane boundaries) on virtual
+              meshes of cuda:0 (1x1, 2x1, 4x1, 2x2, 1x4) and at config 5's
+              shapes
               (where they are timed); then config 5
               (configs/c5_multihost_4k.json) through dist/ on virtual
               meshes: hs_solve_tiled 2160x3840 i100 halo_sweeps 4 on 4 x 4
@@ -65,7 +69,10 @@ K9-K12, max |diff| against
 the plain version, ms per launch for the kernel and the plain version at
 8 x 1088x1920 (for K5 per call of 100 alternations; for K6, K7 and K8 per
 whole solve, K1 included, at 4320x7680, 2160x3840 i100 and 1088x1920 i50),
-and the least time the card could take); the last line is
+and the least time the card could take; K2's row adds its single-frame
+1088x1920 numbers, and K2's and K9's rows the geometry the built kernel
+reports: tile, threads, shared bytes, registers, spills, resident blocks
+an SM); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -97,12 +104,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 67e12
 # float32 operations per pixel, counted from the sources: K1 with the
 # zero-start sweep (hs_cube: 16 for Ex/Ey, 2 scales, 8 for Et, 5 for invd,
-# 5 for u1/v1); K2 per sweep (15 per neighbour average, 5 for frac, 4 for
-# the update).
+# 5 for u1/v1); a Jacobi sweep of the shared loop (jacobi_tile.cuh: K6, K7,
+# K11, K12), 15 per neighbour average, 5 for frac, 4 for the update; K2 and
+# K9 per sweep, each column sum once: 9 per neighbour average, so 27.
 K1_FLOPS_PER_PX = 36
-K2_FLOPS_PER_PX_SWEEP = 39
-# K3 per sweep: one SOR update a pixel (its color's stage): K2's 39 and the
-# blend, 3 for each of u and v. K4 freeze: 8 for wd, 14 for ws (an rsqrt
+SWEEP_FLOPS_PER_PX = 39
+K2_FLOPS_PER_PX_SWEEP = 27
+# K3 per sweep: one SOR update a pixel (its color's stage): the shared
+# loop's 39 and the blend, 3 for each of u and v. K4 freeze: 8 for wd, 14 for ws (an rsqrt
 # counted as one). K4 per sweep: 8 edge weights, 3 for their sum, 14 for
 # the two neighbour sums, 25 for the 2x2 solve (one division).
 K3_FLOPS_PER_PX_SWEEP = 45
@@ -131,6 +140,12 @@ K1_FIELDS_FLOPS_PER_PX = 31
 K8_STAGE_ARRAYS = 3.5
 # NVLink between the cards of one host: 900 GB/s all to all, 450 each way.
 NVLINK_BYTES_PER_S = 450e9
+# Frames at the edges of K2's geometry (48 x 128 windows, warps spanning 128
+# columns, lanes of 4 columns, 3 rows a warp): narrower than a lane, a warp
+# or a tile, 1-3 rows, a last tile of one column (w = 113 at s = 8), one
+# column.
+K2_EDGE_SHAPES = ((1, 1), (2, 7), (3, 31), (1, 32), (2, 33), (3, 63), (5, 65), (9, 129),
+                  (33, 113), (40, 1))
 
 
 def require(cond: bool, what: str) -> None:
@@ -235,6 +250,14 @@ def t2_pair(dev):
     from opticalflowhs_tpu_torch.data.synthetic import two_motion_pair
     i1, i2, gt = two_motion_pair(1088, 1920, (1.0, 0.0), (-1.0, 0.0), key=3)
     return torch.from_numpy(i1).to(dev), torch.from_numpy(i2).to(dev), gt
+
+
+def c3_frames(dev):
+    """C3's frames on the card: the 1080x1920 translation_pair (3, 1.5) px of
+    configs/c3_pyramid.json's workload (key 0, max_freq 0.06)."""
+    from opticalflowhs_tpu_torch.data.synthetic import translation_pair
+    p1, p2, _ = translation_pair(1080, 1920, 3.0, 1.5, key=0, max_freq=0.06)
+    return torch.from_numpy(p1).to(dev), torch.from_numpy(p2).to(dev)
 
 
 def c5_frames(dev):
@@ -822,7 +845,7 @@ def beyond_resident(dev, frames, stack, s1, s2) -> list:
         mem_k = peak_bytes(lambda: hs_solve(a, b, cfg))
         mem_c = peak_bytes(lambda: sr.hs_solve_resident(a, b, 0.5, 100))
         b_ms, b_by = bound_ms(SOLVE_ARRAYS * 4 * px,
-                              (K1_FLOPS_PER_PX + 99 * K2_FLOPS_PER_PX_SWEEP) * px)
+                              (K1_FLOPS_PER_PX + 99 * SWEEP_FLOPS_PER_PX) * px)
         block_ms = SWEEP_BLOCK_ARRAYS * 4 * px / PEAK_BYTES_PER_S * 1e3
         print(f"phase 13 {tag} hs_solve {h}x{w} a=0.5 i100 ({name}): max|diff| vs plain {d:.3g}, "
               f"= the K1 + K2 chain bitwise; launches {per_call[tag]}; kernel {ms_k:.3f} ms, "
@@ -1117,6 +1140,7 @@ def tiled_path(dev, pair, stack) -> list:
     from opticalflowhs_tpu_torch.config import MeshConfig
     from opticalflowhs_tpu_torch.dist import hs_pyramid_tiled, hs_solve_tiled, make_mesh
     from opticalflowhs_tpu_torch.kernels import derivatives as k1
+    from opticalflowhs_tpu_torch.kernels import jacobi as k2
     from opticalflowhs_tpu_torch.kernels import ring
     from opticalflowhs_tpu_torch.kernels import tile as k9
 
@@ -1162,6 +1186,26 @@ def tiled_path(dev, pair, stack) -> list:
         print(f"phase 15 K9 {ph}x{pw} (Jacobi and SOR) at the four corners of a 300x400 image "
               f"and (117, 33), n 7 and 13, single and a stack of 5: = plain bitwise "
               f"(every element of the padded shard)")
+
+    # K9 with the true top (left) edge of its first windows at a warp's first
+    # row and inside a warp's rows (at a lane's first column, inside a lane,
+    # at its last column), and the bottom and right edges inside the shards.
+    for s in (1, 3, 4, 8):
+        _, _, lh = k2.k2_tile(s)
+        rows = [-(k2.K2_WARP_ROWS * m - s) for m in (3, 4)]
+        rows += [r - 1 for r in rows] + [r - 2 for r in rows] + [70 - 37 + 2, 70 - 37 + 5]
+        cols = [-(k2.K2_LANE_COLS * m - lh) for m in (3, 4)]
+        cols += [c - 1 for c in cols] + [c - 3 for c in cols] + [150 - 45 + 3, 150 - 45 + 4]
+        su, sv = stack(len(rows), 37, 45, seed=154, normal=True)
+        sa, sb = stack(len(rows), 37, 45, seed=155)
+        sf = k1.derivatives_plain(sa, sb, 0.5)
+        org = k9.origin_table(su, rows, cols)
+        same("hs_tile_sweeps",
+             k9.tile_sweeps(su, sv, *sf, 2 * s + 1, org, 70, 150, block_sweeps=s),
+             k9.tile_sweeps_plain(su, sv, *sf, 2 * s + 1, rows, cols, 70, 150),
+             f"K9 s={s} edges at warp and lane boundaries")
+    print("phase 15 K9 37x45 shards of a 70x150 image, true edges at K2's warp and lane "
+          "boundaries, s 1, 3, 4, 8: = plain bitwise")
 
     # -- phase 15: K10, K11 and K12 against their plain versions -------------------
     for my, mx in ((1, 1), (2, 1), (4, 1), (2, 2), (1, 4)):
@@ -1337,10 +1381,10 @@ def tiled_path(dev, pair, stack) -> list:
                                        K3_FLOPS_PER_PX_SWEEP * hw * px9s),
         "hs_ring_halo_exchange": bound_ms(4 * (2 * owned + 4 * 2 * (hw + 1) * W), 0),
         "hs_ring_fused_sweeps": bound_ms(4 * (4 * (owned + 4 * 2 * hw * W) + 2 * owned),
-                                         K2_FLOPS_PER_PX_SWEEP * 100 * owned),
+                                         SWEEP_FLOPS_PER_PX * 100 * owned),
         "hs_ring_fused_sweeps_2d": bound_ms(
             4 * (4 * 4 * (H // 2 + 2 * hw) * (W // 2 + 2 * hw) + 2 * owned),
-            K2_FLOPS_PER_PX_SWEEP * 100 * owned),
+            SWEEP_FLOPS_PER_PX * 100 * owned),
     }
     # Bounds of the work across cards, from the data sheet's NVLink rate: on
     # the text lines only, since the kernels line holds what this run measured.
@@ -1353,7 +1397,8 @@ def tiled_path(dev, pair, stack) -> list:
                                           / NVLINK_BYTES_PER_S * 1e3}}
     extra = {
         "hs_tile_sweeps": {"launches_per_D1_solve": per_call["D1"]["K9"],
-                           "shape": [16, ph, pw], "sweeps_per_launch": hw},
+                           "shape": [16, ph, pw], "sweeps_per_launch": hw,
+                           "geometry": k2.k2_geometry(dev, hw, shard=True)},
         "hs_sor_tile_sweeps": {"launches_per_D4_solve": per_call["D4"]["K9 SOR"],
                                "shape": [16, ph_s, pw_s], "sweeps_per_launch": hw},
         "hs_ring_halo_exchange": {"shards": [4, th, W], "halo": hw + 1},
@@ -1396,11 +1441,7 @@ def main() -> int:
         hs_solve,
         hs_solve_batched,
     )
-    from opticalflowhs_tpu_torch.data.synthetic import (
-        WarpSpec,
-        synthetic_pair,
-        translation_pair,
-    )
+    from opticalflowhs_tpu_torch.data.synthetic import WarpSpec, synthetic_pair
     from opticalflowhs_tpu_torch.video import flow_stream_occlusion
     from opticalflowhs_tpu_torch.kernels import _build
     from opticalflowhs_tpu_torch.kernels import derivatives as k1
@@ -1471,15 +1512,31 @@ def main() -> int:
             start = "warm" if init[0] is not None else "zero"
             print(f"phase 3 driver {h}x{w} n=23 {start} start: max|diff|={d:.3g}")
             require(d <= TOL, f"driver {h}x{w} {start} max|diff| {d}")
+    # K2 at the edges of its geometry, every sweeps per launch, single frames
+    # and stacks of 3, n not divisible by s.
+    d_edge = 0.0
+    for shape in K2_EDGE_SHAPES:
+        for b in (1, 3):
+            rng = np.random.default_rng(4)
+            full = shape if b == 1 else (b,) + shape
+            i1, i2, u0, v0 = (torch.from_numpy(rng.uniform(-1, 1, full).astype(np.float32)).to(dev)
+                              for _ in range(4))
+            fields = k1.derivatives_plain(i1, i2, 0.5)
+            for s in range(1, 13):
+                n = 2 * k2.sweeps_per_launch(s) + 1
+                got = k2.jacobi_sweeps(u0, v0, *fields, n, block_sweeps=s)
+                want = k2.jacobi_sweeps_plain(u0, v0, *fields, n)
+                d_edge = max(d_edge, max_diff(got[0], want[0]), max_diff(got[1], want[1]))
+    err["hs_jacobi_sweeps"] = max(err["hs_jacobi_sweeps"], d_edge)
+    print(f"phase 3 K2 edge shapes {K2_EDGE_SHAPES}, B 1 and 3, s 1-12: max|diff|={d_edge:.3g}")
+    require(d_edge <= TOL, f"K2 edge shapes max|diff| {d_edge}")
 
     # -- the main path, counted -----------------------------------------------
     cfg1 = HSConfig(alpha=0.5, iters=100)               # bench.py headline
     cfg3 = HSConfig(alpha=1.0, iters=100)               # configs/c3_pyramid.json
     pyr3 = PyramidConfig(levels=3)
     s1, s2 = c1_frames(dev)                             # bench.py's frames
-    p1, p2, _ = translation_pair(1080, 1920, 3.0, 1.5, key=0, max_freq=0.06)
-    p1 = torch.from_numpy(p1).to(dev)
-    p2 = torch.from_numpy(p2).to(dev)
+    p1, p2 = c3_frames(dev)
     torch.cuda.synchronize()
 
     k1.hs_derivatives.launches = 0
@@ -1831,7 +1888,13 @@ def main() -> int:
     launches_b.update({n: launches_sr[n] for n in launches_sr if n != "hs_derivatives"})
     extra = {"hs_derivatives": {"launches_main_path": launches["hs_derivatives"],
                                 "launches_sor_robust_path": launches_sr["hs_derivatives"]},
-             "hs_jacobi_sweeps": {"launches_main_path": launches["hs_jacobi_sweeps"]}}
+             "hs_jacobi_sweeps": {"launches_main_path": launches["hs_jacobi_sweeps"],
+                                  "ms_1088x1920": ms2d["hs_jacobi_sweeps"][0],
+                                  "plain_ms_1088x1920": ms2d["hs_jacobi_sweeps"][1],
+                                  "bound_ms_1088x1920": bound_ms(
+                                      8 * 4 * s1.numel(),
+                                      K2_FLOPS_PER_PX_SWEEP * auto * s1.numel())[0],
+                                  "geometry": k2.k2_geometry(dev, auto)}}
     kernels = [
         {"name": name, "route": "cuda", "source": source[name],
          "replaces": replaces[name], "launches": launches_b[name],

@@ -1,6 +1,8 @@
-// The temporally blocked Jacobi sweeps of one shared-memory window, shared by
-// K2 (jacobi.cu), K6 (solve_fused.cu) and K7 (solve_skewed.cu), and on the
-// shards of the tiled solver by K9 (jacobi.cu), K11 and K12 (ring.cu).
+// The temporally blocked Jacobi sweeps of one shared-memory window, run by
+// the persistent drivers K6 (solve_fused.cu) and K7 (solve_skewed.cu), and on
+// the shards of the tiled solver by K11 and K12 (ring.cu). K2 and K9
+// (jacobi.cu) have a loop of their own (fields in registers, column sums
+// shared by warp shuffles); these four move onto it in a later change.
 //
 // A block owns a th x tw output tile at (tr0, tc0) and stages the window
 // grown by `halo` rows and columns on each side, cut at the true image
@@ -140,9 +142,9 @@ __device__ __forceinline__ void stage(const Buffers& b, const Window& win,
 // `sweeps` (<= win.halo) Jacobi sweeps between (su, sv) and (du, dv); on
 // return su/sv point at the last sweep. (h, w) is the array's size. With
 // kShard false the array is the whole image and the clamps fire at its
-// edges only (K2, K6, K7); with kShard true it is a shard of a larger
-// image (K9, K11, K12), whose true edges, from win.org_* and win.img_*, may
-// also lie inside a strip. Ends with a __syncthreads.
+// edges only (K6, K7); with kShard true it is a shard of a larger image
+// (K11, K12), whose true edges, from win.org_* and win.img_*, may also lie
+// inside a strip. Ends with a __syncthreads.
 template <bool kShard = false>
 __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
                                            int h, int w, int sweeps) {

@@ -34,8 +34,8 @@
 // (and, on a 2-D mesh, the column strips) into the neighbours' slots of
 // parity k % 2; then each block takes 64 x 64 owned tiles and stages the
 // tile's window, grown by the block's sweeps, from the state, the row slots
-// and the column slots, and runs K2's temporally blocked sweeps on chip
-// (jacobi_tile.cuh) with the clamps at the true image edges from global
+// and the column slots, and runs the shared temporally blocked sweeps on
+// chip (jacobi_tile.cuh) with the clamps at the true image edges from global
 // coordinates. On a 1-D mesh a tile whose window reaches no halo row starts
 // before the flags arrive (the reference's overlap of the transfer with the
 // interior sweep); the others wait for their flags. The 2-D exchange runs
@@ -45,13 +45,13 @@
 // follows my block k reads, through the flag waits (rdma_halo.py:177-185).
 // Data written during the launch (state, slots) is read with __ldcg.
 //
-// Bound: a sweep block moves K2's 8 arrays of the owned pixels through
+// Bound: a sweep block moves a K2 launch's 8 arrays of the owned pixels through
 // device memory, plus the halo bytes over NVLink (450 GB/s each way) when
 // the neighbours sit on other cards; a whole solve reads the four fields
 // once and writes u and v once against 39 float32 operations a pixel a
 // sweep.
 //
-// Exactness: K2's sweep body and clamps, so the owned pixels equal the plain
+// Exactness: the shared sweep body and clamps, so the owned pixels equal the plain
 // version (kernels/ring.py) bitwise.
 
 #include <cooperative_groups.h>

@@ -15,7 +15,7 @@
 // resident, ~1 an SM at the ~200 KB window of s = 8). Sweep block k: each
 // block loops over its 64 x 64 tiles (of every image of the stack), stages
 // the tile's window from pair A or B (from zeros or from u0/v0 at block 0),
-// runs the block's sweeps on chip with K2's body (jacobi_tile.cuh) and
+// runs the block's sweeps on chip with the shared body (jacobi_tile.cuh) and
 // writes its tile to the other pair; a grid-wide barrier then separates the
 // block from the next. The last block runs the remainder. u/v written
 // during the launch are read with __ldcg (L2, not the SM's own L1, which
@@ -26,9 +26,10 @@
 // the whole solve at i100 does 3,897 float32 operations a pixel (K1 with
 // its first sweep, then 99 sweeps; chip_smoke.py), 482 us at 4K and 1930 us
 // at 4320x7680 at 67 TFLOP/s. Against the K1 + K2 chain it saves the
-// launches and their gaps, not bytes: the tiles and sweeps are K2's.
+// launches and their gaps, not bytes: its tiles and sweeps are those that
+// K2 ran before K2 took a loop of its own (csrc/jacobi.cu).
 //
-// Exactness: K2's sweep body, so K6 equals the plain sweeps (and the K1 + K2
+// Exactness: the shared sweep body, so K6 equals the plain sweeps (and the K1 + K2
 // chain) bitwise.
 
 #include <cooperative_groups.h>

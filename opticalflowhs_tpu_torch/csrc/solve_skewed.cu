@@ -22,7 +22,7 @@
 //      zeros or u0/v0 at block 0); the tiles of the band's last sigma rows
 //      save them, old, into pencil (i + 1) % 2 for band i+1;
 //   2. grid barrier: every window of the band is read before any write;
-//   3. each block runs the block's sweeps on chip (K2's body,
+//   3. each block runs the block's sweeps on chip (the shared body,
 //      jacobi_tile.cuh) and writes its central rows back in place.
 // Band i+1 reads only rows below band i and the pencil, so it needs no
 // barrier after band i's writes; one more barrier ends each sweep block.
@@ -38,7 +38,7 @@
 // barrier a band, and a band's tiles fill only part of the card (the
 // wrapper sizes bands to the grid).
 //
-// Exactness: K2's sweep body, so K7 equals the plain sweeps bitwise.
+// Exactness: the shared sweep body, so K7 equals the plain sweeps bitwise.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

@@ -2,6 +2,7 @@
 
   derivatives.py     K1 hs_derivatives: Ex, Ey, Et, 1/den (+ zero-start sweep)
   jacobi.py          K2 hs_jacobi_sweeps: temporally blocked Jacobi sweeps
+                     (persistent 48 x 128 windows, fields in registers)
   sor.py             K3 hs_sor_sweeps: temporally blocked 4-color SOR sweeps
   solve_robust.py    K4 hs_robust_freeze/_sweeps: the IRLS solve
   solve_resident.py  the whole-solve drivers: K1, then a chain of K2 or K3

@@ -50,9 +50,12 @@ SIGNATURES = {
     # i1, i2, ex, ey, et, invd, u1, v1, b, h, w, alpha2, variant, device,
     # stream
     "hs_derivatives": [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P],
-    # u, v, ex, ey, et, invd, uo, vo, b, h, w, sweeps, tile_h, tile_w,
-    # threads, device, stream
-    "hs_jacobi_sweeps": [_P] * 8 + [_I] * 8 + [_P],
+    # u, v, ex, ey, et, invd, uo, vo, b, h, w, sweeps, device, stream
+    "hs_jacobi_sweeps": [_P] * 8 + [_I] * 5 + [_P],
+    # sweeps, shard, device, out[8]: K2's (K9's) tile, threads, shared
+    # bytes, registers, spilled bytes, resident blocks a multiprocessor,
+    # multiprocessors
+    "hs_jacobi_geometry": [_I, _I, _I, _IP],
     # u, v, ex, ey, et, invd, uo, vo, b, h, w, sweeps, omega, tile_h,
     # tile_w, threads, device, stream
     "hs_sor_sweeps": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
@@ -79,8 +82,8 @@ SIGNATURES = {
     # h, w, n, omega, device, stream
     "hs_sor_planes": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
     # u, v, ex, ey, et, invd, uo, vo, org, b, h, w, img_h, img_w, sweeps,
-    # tile_h, tile_w, threads, device, stream
-    "hs_tile_sweeps": [_P] * 9 + [_I] * 10 + [_P],
+    # device, stream
+    "hs_tile_sweeps": [_P] * 9 + [_I] * 7 + [_P],
     # u, v, ex, ey, et, invd, uo, vo, org, b, h, w, img_h, img_w, sweeps,
     # omega, tile_h, tile_w, threads, device, stream
     "hs_sor_tile_sweeps": [_P] * 9 + [_I] * 6 + [_F] + [_I] * 4 + [_P],

@@ -5,8 +5,12 @@ Port of the Jacobi sweep kernels of opticalflowhs_tpu/kernels/jacobi.py
 schedules; `jacobi_sweeps_batched` and its stacked and batched-banded
 schedules) and of the sweep stage of the resident whole-solve kernels. The
 CUDA source is csrc/jacobi.cu: one launch runs up to `sweeps_per_launch`
-sweeps on shared-memory tiles with a decaying halo, for one frame or for
-a whole (B, H, W) stack (the image is the grid's z index).
+sweeps, for one frame or for a whole (B, H, W) stack, with one persistent
+block a multiprocessor walking 64 x 128 windows (the tile and its decaying
+halo): the fields in registers, u and v in shared memory, each column sum
+computed once and passed to the neighbouring lanes by warp shuffles, and
+the next window's u and v staged while the current one is swept.
+`k2_launch_schedule_plain` walks that schedule in plain torch.
 
 `jacobi_sweeps` (also named `jacobi_sweeps_batched`) takes either rank. It
 launches the kernel for CUDA tensors and runs the plain version for CPU
@@ -16,18 +20,20 @@ the call raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from opticalflowhs_tpu_torch.kernels import _build
 from opticalflowhs_tpu_torch.kernels.derivatives import batch_dims, check_frames
 from opticalflowhs_tpu_torch.ops import stencils
 
-# Output tile of one block, threads per block and the default sweeps per
-# launch (HSConfig.block_sweeps = 0). A block stages 8 float32 arrays of
-# the (tile + 2*sweeps) window in shared memory: 200 KB at 64x64 and s = 8,
-# so one block per SM. Chosen by a sweep over tiles 8x128..64x64, s 2..12
-# and 128..512 threads at 1088x1920 on an H100 (PERF.md); the best few
-# configurations were within 10% of each other.
+# The shared-window sweep loop of jacobi_tile.cuh, which K6, K7, K11 and K12
+# run inside their persistent drivers: output tile of one block, threads per
+# block, and the default sweeps per launch (HSConfig.block_sweeps = 0) of
+# every Jacobi kernel. A block of that loop stages 8 float32 arrays of the
+# (tile + 2*sweeps) window in shared memory: 200 KB at 64x64 and s = 8, so
+# `fit_sweeps` allows at most 10 sweeps a launch (K2 and K9 keep that rule).
 TILE_H = 64
 TILE_W = 64
 THREADS = 512
@@ -35,10 +41,43 @@ AUTO_SWEEPS = 8
 SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
 _ARRAYS = 8
 
+# K2's own geometry (csrc/jacobi.cu; K9 shares it). A block of K2_THREADS
+# threads sweeps a K2_WINDOW_H x K2_WINDOW_W window: warp j owns rows
+# 3j..3j+2 (K2_WARP_ROWS), lane l the K2_LANE_COLS columns 4l..4l+3, and
+# the fields of those 12 pixels stay in registers; each column sum is
+# computed once and passed to the neighbouring lanes by warp shuffles (27
+# float32 operations a pixel a sweep). Shared memory holds three u/v pairs
+# of the window (two swept, one staged for the next tile by cp.async):
+# K2_SMEM_BYTES; the registers (122-128 a thread) allow one block a
+# multiprocessor, and the grid is persistent. At s = 8 the tile is 32 x 112
+# (`k2_tile`). Bound: 8 arrays a launch, 19.9 us at 1088x1920; measured on
+# an H100 0.0635-0.0664 ms (30-31% of it), held back by the sweep
+# arithmetic (PERF.md, tools/torch_k2_limits.py). A 64-row window at 4
+# rows a thread spilled registers and ran slower.
+K2_WINDOW_H = 48
+K2_WINDOW_W = 128
+K2_LANE_COLS = 4
+K2_WARP_ROWS = 3
+K2_THREADS = 512
+K2_SMEM_BYTES = 6 * 4 * K2_WINDOW_H * K2_WINDOW_W  # 147,456
+K2_MAX_SWEEPS = 16
+
+
+def k2_tile(sweeps: int, window=(K2_WINDOW_H, K2_WINDOW_W),
+            lane_cols: int = K2_LANE_COLS) -> tuple[int, int, int]:
+    """(tile rows, tile columns, left halo) of one K2 window at `sweeps`
+    (csrc/jacobi.cu `geometry`): the window less s rows above and below,
+    and less s columns rounded up to the lane's width on the left and at
+    least s on the right, so tile and window columns stay aligned to it."""
+    wh, ww = window
+    lh = -(-sweeps // lane_cols) * lane_cols
+    return wh - 2 * sweeps, (ww - lh - sweeps) // lane_cols * lane_cols, lh
+
 
 def smem_bytes(sweeps: int, tile_h: int = TILE_H, tile_w: int = TILE_W) -> int:
-    """Shared memory of one window: the 8 arrays of a tile grown by
-    `sweeps` on each side (hs_tile::smem_bytes, for K2, K6 and K7)."""
+    """Shared memory of one window of the shared loop: the 8 arrays of a
+    tile grown by `sweeps` on each side (hs_tile::smem_bytes, for K6, K7,
+    K11 and K12)."""
     return _ARRAYS * 4 * (tile_h + 2 * sweeps) * (tile_w + 2 * sweeps)
 
 
@@ -66,6 +105,122 @@ def jacobi_sweeps_plain(u, v, ex, ey, et, inv_den, n: int):
     return u, v
 
 
+def k2_launch_schedule_plain(u, v, ex, ey, et, inv_den, sweeps: int,
+                             origins=None, img_hw=None,
+                             window=(K2_WINDOW_H, K2_WINDOW_W),
+                             lane_cols: int = K2_LANE_COLS,
+                             warp_rows: int = K2_WARP_ROWS):
+    """One K2 launch of `sweeps` sweeps as csrc/jacobi.cu schedules it, in
+    plain torch, on (H, W) or (B, H, W): each image cut into `k2_tile`
+    tiles; each tile's window staged with what lies outside the array set
+    to NaN (the kernel stages zeros: NaN shows that no exact pixel reads
+    it). Sweep k runs on every row of each warp (`warp_rows` rows) that
+    meets the window's rows shrunk by k (cut at the array's edges), and on
+    all columns, into a second buffer (NaN at first) that keeps its old
+    rows elsewhere; rows i-1 and i+1 stay inside the window; the column
+    sums t(j-1) and t(j+1) come from the neighbouring column as the warp
+    shuffles give them, the window's first column taking the first lane's
+    own last column and its last column the last lane's own first one; the
+    clamps fire at the array's edges and, with `origins` (K9: a per-image
+    (row, col) of the global pixel at element (0, 0), in an `img_hw`
+    image), at the true image edges. Only the owned tile of the last sweep
+    is written. Returns (u, v)."""
+    single = u.ndim == 2
+    arrays = [a[None] if single else a for a in (u, v, ex, ey, et, inv_den)]
+    b, h, w = arrays[0].shape
+    wh, ww = window
+    th, tw, lh = k2_tile(sweeps, window, lane_cols)
+    if th < 1 or tw < lane_cols or ww % lane_cols:
+        raise ValueError(f"no K2 tile of {sweeps} sweeps in a {wh} x {ww} window")
+    shard = origins is not None
+    ih, iw = img_hw if shard else (h, w)
+    out_u = torch.full_like(arrays[0], float("nan"))
+    out_v = torch.full_like(arrays[0], float("nan"))
+    rows_w = torch.arange(wh)
+    for img in range(b):
+        org_r, org_c = (int(origins[img][0]), int(origins[img][1])) if shard else (0, 0)
+        for tr0 in range(0, h, th):
+            for tc0 in range(0, w, tw):
+                r0, c0 = tr0 - sweeps, tc0 - lh
+                ar, ac = rows_w + r0, torch.arange(ww) + c0
+                rin, cin = (ar >= 0) & (ar < h), (ac >= 0) & (ac < w)
+                rs, cs = rin.nonzero()[:, 0], cin.nonzero()[:, 0]
+
+                def stage(a):
+                    win = torch.full((wh, ww), float("nan"), dtype=a.dtype)
+                    win[rs[0]:rs[-1] + 1, cs[0]:cs[-1] + 1] = (
+                        a[img, ar[rs[0]]:ar[rs[-1]] + 1, ac[cs[0]]:ac[cs[-1]] + 1])
+                    return win
+
+                su, sv, fx, fy, ft, fi = (stage(a) for a in arrays)
+                gr, gc = ar + org_r, ac + org_c
+                top = (ar == 0) | (shard & (gr == 0)) | (rows_w == 0)
+                bot = (ar == h - 1) | (shard & (gr == ih - 1)) | (rows_w == wh - 1)
+                up = torch.where(top, rows_w, rows_w - 1)
+                down = torch.where(bot, rows_w, rows_w + 1)
+                lcl = cin & ((ac == 0) | (shard & (gc == 0)))
+                rcl = cin & ((ac == w - 1) | (shard & (gc == iw - 1)))
+                wr_lo, wr_hi = max(0, -r0), min(wh, h - r0)
+                du = torch.full((wh, ww), float("nan"))
+                dv = torch.full((wh, ww), float("nan"))
+                for k in range(1, sweeps + 1):
+                    rlo, rhi = max(k, wr_lo), min(wh - k, wr_hi)
+                    lo = rlo // warp_rows * warp_rows
+                    hi = min(wh, -(-rhi // warp_rows) * warp_rows)
+                    if rlo < rhi:
+                        r = rows_w[lo:hi]
+                        bars = []
+                        for a in (su, sv):
+                            t = a[up[r]] + 2.0 * a[r] + a[down[r]]
+                            tl = torch.cat([t[:, lane_cols - 1:lane_cols], t[:, :-1]], 1)
+                            tr = torch.cat([t[:, 1:], t[:, ww - lane_cols:ww - lane_cols + 1]], 1)
+                            tl = torch.where(lcl, t, tl)
+                            tr = torch.where(rcl, t, tr)
+                            s = tl + 2.0 * t + tr
+                            bars.append(s * (1.0 / 12.0) - a[r] * (1.0 / 3.0))
+                        ubar, vbar = bars
+                        frac = (fx[r] * ubar + fy[r] * vbar + ft[r]) * fi[r]
+                        du[r] = ubar - fx[r] * frac
+                        dv[r] = vbar - fy[r] * frac
+                    su, du, sv, dv = du, su, dv, sv
+                # su/sv hold the last sweep: write the owned tile.
+                rt = torch.arange(sweeps, sweeps + th)
+                rt = rt[rin[rt]]
+                ct = torch.arange(lh, lh + tw)
+                ct = ct[cin[ct]]
+                if len(rt) and len(ct):
+                    dst = (img, slice(int(ar[rt[0]]), int(ar[rt[-1]]) + 1),
+                           slice(int(ac[ct[0]]), int(ac[ct[-1]]) + 1))
+                    out_u[dst] = su[rt[0]:rt[-1] + 1, ct[0]:ct[-1] + 1]
+                    out_v[dst] = sv[rt[0]:rt[-1] + 1, ct[0]:ct[-1] + 1]
+    return (out_u[0], out_v[0]) if single else (out_u, out_v)
+
+
+def k2_sweeps_schedule_plain(u, v, ex, ey, et, inv_den, n: int, s: int, **kw):
+    """n sweeps as K2's ceil(n/s) launches, each through
+    `k2_launch_schedule_plain` (keywords passed on)."""
+    while n > 0:
+        k = min(s, n)
+        u, v = k2_launch_schedule_plain(u, v, ex, ey, et, inv_den, k, **kw)
+        n -= k
+    return u, v
+
+
+def k2_geometry(device, sweeps: int = AUTO_SWEEPS, shard: bool = False) -> dict:
+    """K2's (with shard=True K9's) geometry on a CUDA device at `sweeps`,
+    as the built kernel reports it: tile, threads, shared bytes, registers
+    a thread and spilled bytes (cudaFuncGetAttributes), resident blocks a
+    multiprocessor and multiprocessors."""
+    out = (ctypes.c_int * 8)()
+    err = _build.library().hs_jacobi_geometry(
+        sweeps, int(shard), torch.device(device).index or 0,
+        ctypes.cast(out, ctypes.POINTER(ctypes.c_int)))
+    _build.check(err, "hs_jacobi_geometry")
+    keys = ("tile_h", "tile_w", "threads", "smem_bytes", "registers",
+            "spill_bytes", "blocks_per_sm", "sms")
+    return dict(zip(keys, list(out)))
+
+
 def launch_sweeps(u, v, ex, ey, et, inv_den, uo, vo, sweeps: int) -> None:
     """One K2 launch: `sweeps` sweeps from (u, v) into (uo, vo), on the
     current stream, over a frame or a whole stack. All eight tensors are
@@ -78,7 +233,7 @@ def launch_sweeps(u, v, ex, ey, et, inv_den, uo, vo, sweeps: int) -> None:
     err = lib.hs_jacobi_sweeps(
         u.data_ptr(), v.data_ptr(), ex.data_ptr(), ey.data_ptr(),
         et.data_ptr(), inv_den.data_ptr(), uo.data_ptr(), vo.data_ptr(),
-        b, h, w, sweeps, TILE_H, TILE_W, THREADS, u.device.index,
+        b, h, w, sweeps, u.device.index,
         torch.cuda.current_stream(u.device).cuda_stream,
     )
     _build.check(err, "hs_jacobi_sweeps")

@@ -11,8 +11,11 @@ the shard's own edges, where the image goes on, are decaying halo.
 The CUDA sources are K2's and K3's kernels (csrc/jacobi.cu, csrc/sor.cu)
 behind the entries `hs_tile_sweeps` and `hs_sor_tile_sweeps`, which take a
 per-slice origin: one launch covers a whole (S, PH, PW) stack, every shard
-that lives on one device, each with its own origin. The reference pads
-each shard to the TPU's 8 x 128 tiles; here nothing is padded.
+that lives on one device, each with its own origin. The Jacobi entry runs
+K2's design (persistent 64 x 128 windows, fields in registers; its plain
+schedule is `jacobi.k2_launch_schedule_plain` with `origins`). The
+reference pads each shard to the TPU's 8 x 128 tiles; here nothing is
+padded.
 
 On CPU tensors the wrappers run the plain versions (`stencils.
 jacobi_step_masked` and `sor_step_masked` over the whole padded shard), on
@@ -106,14 +109,13 @@ def _launcher(entry: str, u, ex, ey, et, inv_den, org, h: int, w: int,
     lib = _build.library()
     fn = getattr(lib, entry)
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    mod = k3 if omega is not None else k2
-    extra = () if omega is None else (float(omega),)
+    # K9 Jacobi takes K2's fixed geometry; the SOR entry K3's tile.
+    extra = () if omega is None else (float(omega), k3.TILE_H, k3.TILE_W, k3.THREADS)
 
     def launch(su, sv, du, dv, k):
         err = fn(su.data_ptr(), sv.data_ptr(), ex.data_ptr(), ey.data_ptr(),
                  et.data_ptr(), inv_den.data_ptr(), du.data_ptr(), dv.data_ptr(),
-                 org.data_ptr(), b, ph, pw, h, w, k, *extra, mod.TILE_H,
-                 mod.TILE_W, mod.THREADS, u.device.index, stream)
+                 org.data_ptr(), b, ph, pw, h, w, k, *extra, u.device.index, stream)
         _build.check(err, entry)
         counter = sor_tile_sweeps if omega is not None else tile_sweeps
         counter.launches += 1

@@ -1,7 +1,9 @@
 """K1-K12 and the whole-solve drivers on a CUDA card against their
 plain versions on the same card, at edge-case shapes (partial tiles, frames
-narrower or shorter than a tile, one row, one column) and sweep counts
-that the sweeps per launch do not divide; single frames and (B, H, W)
+narrower or shorter than a tile, one row, one column; for K2 and K9 also
+those of K2's window, warps and lanes, every sweeps per launch, and
+shard edges at warp and lane boundaries) and sweep counts that the sweeps
+per launch do not divide; single frames and (B, H, W)
 stacks, where each image of a batched launch must equal the single-frame
 kernel on that image; the launch counts; and the single, batched and
 streaming entry points with the Jacobi, SOR and IRLS solvers and with
@@ -100,6 +102,58 @@ def test_k2_equals_plain(dev, shape, n, s):
     _equal(k2.jacobi_sweeps(u0, v0, *fields, n, block_sweeps=s),
            k2.jacobi_sweeps_plain(u0, v0, *fields, n))
     _equal((u0, v0), keep)  # inputs untouched
+
+
+# K2's own geometry (48 x 128 windows, a warp spanning 128 columns, lanes of
+# 4 columns, 3 rows a warp): frames narrower than a lane, a warp or a tile,
+# of 1-3 rows, a last tile of one column (w = 113 at s = 8), one column.
+K2_EDGE_SHAPES = [(1, 1), (2, 7), (3, 31), (1, 32), (2, 33), (3, 63), (5, 65), (9, 129),
+                  (33, 113), (40, 1)]
+
+
+@pytest.mark.parametrize("shape", K2_EDGE_SHAPES)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("s", range(1, 13))
+def test_k2_edge_shapes_equal_plain(dev, shape, b, s):
+    full = shape if b == 1 else (b,) + shape
+    i1, i2 = _rand(full, dev, 90)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    u0, v0 = _rand(full, dev, 91, normal=True)
+    n = 2 * k2.sweeps_per_launch(s) + 1  # s does not divide n
+    _equal(k2.jacobi_sweeps(u0, v0, *fields, n, block_sweeps=s),
+           k2.jacobi_sweeps_plain(u0, v0, *fields, n))
+
+
+@pytest.mark.parametrize("w", [64, 93])
+def test_k2_unaligned_views_equal_plain(dev, w):
+    # Contiguous views 4 bytes off a 16-byte boundary take the 4-byte copies.
+    h = 50
+    flat = [torch.from_numpy(np.random.default_rng(92 + k).normal(0, 0.5, 1 + h * w)
+                             .astype(np.float32)).to(dev) for k in range(4)]
+    u0, v0, i1, i2 = (f[1:].view(h, w) for f in flat)
+    fields = k1.derivatives_plain(i1.abs(), i2.abs(), 0.5)
+    _equal(k2.jacobi_sweeps(u0, v0, *fields, 11), k2.jacobi_sweeps_plain(u0, v0, *fields, 11))
+
+
+def test_k2_geometry_on_the_card(dev):
+    geo = k2.k2_geometry(dev)
+    th, tw, _ = k2.k2_tile(k2.sweeps_per_launch(0))
+    assert (geo["tile_h"], geo["tile_w"]) == (th, tw)
+    assert geo["threads"] == k2.K2_THREADS and geo["smem_bytes"] == k2.K2_SMEM_BYTES
+    assert 0 < geo["registers"] <= 65536 // k2.K2_THREADS and geo["blocks_per_sm"] >= 1
+
+
+def test_k2_launch_counts_on_the_main_paths(dev):
+    i1, i2 = _rand((96, 128), dev, 93)
+    cfg = HSConfig(alpha=0.5, iters=100)
+    for run, want in ((lambda: hs_solve(i1, i2, cfg), (1, 13)),
+                      (lambda: hs_pyramid(i1, i2, cfg, PyramidConfig(levels=3)), (3, 39)),
+                      (lambda: hs_solve_batched(torch.stack([i1, i2, i1]),
+                                                torch.stack([i2, i1, i2]), cfg), (1, 13))):
+        k1.hs_derivatives.launches = 0
+        k2.jacobi_sweeps.launches = 0
+        run()
+        assert (k1.hs_derivatives.launches, k2.jacobi_sweeps.launches) == want
 
 
 @pytest.mark.parametrize("shape", [(67, 93), (200, 333)])
@@ -637,6 +691,32 @@ def test_k9_equals_plain(dev, shape, corner, sor):
             got = k9.tile_sweeps(u0, v0, *fields, n, k9.origin_table(u0, r0, c0), 300, 400)
             want = k9.tile_sweeps_plain(u0, v0, *fields, n, r0, c0, 300, 400)
         _equal(got, want)  # every element of the padded shard, halo included
+
+
+def _k2_edge_origins(s):
+    """Shard origins that put the true top (left) edge of the first window
+    at a warp's first row and inside a warp's rows (at a lane's first
+    column, inside a lane and at its last column)."""
+    _, _, lh = k2.k2_tile(s)
+    rows = [-(k2.K2_WARP_ROWS * m - s) for m in (3, 4)]
+    rows += [r - 1 for r in rows] + [r - 2 for r in rows]
+    cols = [-(k2.K2_LANE_COLS * m - lh) for m in (3, 4)]
+    cols += [c - 1 for c in cols] + [c - 3 for c in cols]
+    return rows, cols
+
+
+@pytest.mark.parametrize("s", [1, 3, 4, 8])
+@pytest.mark.parametrize("shape", [(37, 45), (60, 140)])
+def test_k9_true_edges_at_warp_and_lane_boundaries(dev, s, shape):
+    rows, cols = _k2_edge_origins(s)
+    # A 70 x 150 image: the shards hold its bottom and right edges too.
+    h, w = 70, 150
+    rows = rows + [h - shape[0] + 2, h - shape[0] + 5]
+    cols = cols + [w - shape[1] + 3, w - shape[1] + 4]
+    u0, v0, fields = _tile_problem(dev, shape, 76, stack=len(rows))
+    org = k9.origin_table(u0, rows, cols)
+    got = k9.tile_sweeps(u0, v0, *fields, 2 * s + 1, org, h, w, block_sweeps=s)
+    _equal(got, k9.tile_sweeps_plain(u0, v0, *fields, 2 * s + 1, rows, cols, h, w))
 
 
 @pytest.mark.parametrize("sor", [False, True])

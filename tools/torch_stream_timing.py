@@ -24,10 +24,11 @@ With --dist the cells are chip_smoke.py's phase 15 instead (config 5 on
     hs_pyramid_tiled L3 on it; D3: halo_impl="rdma" on 4 x 1 (K11) and
     2 x 2 (K12); D4: SOR i50 omega chip_smoke.OMEGA on 4 x 4;
   * beside them the untiled hs_solve (K1 + K7), hs_pyramid and SOR solve.
-With --untiled only those untiled solves of config 5 and C1 (hs_solve
-1088x1920 i100 on `c1_frames`, K1 + K2): the whole-image paths whose
-kernels share their sweep code with the tiled ones. They need no dist/, so
-a tree from before it can be compared.
+With --untiled only those untiled solves of config 5, C1 (hs_solve
+1088x1920 i100 on `c1_frames`, K1 + K2), C3 (hs_pyramid L3 on
+`c3_frames`) and L2 (hs_solve 4320x7680 i100 on default_rng(0) noise, K1 +
+K6): the whole-image paths whose kernels share their sweep code with the
+tiled ones. They need no dist/, so a tree from before it can be compared.
 With --tvl1 the cells are chip_smoke.py's phase 12 instead:
   * T1: tvl1_solve on `t1_pair` (1088x1920), 3 levels, TVL1Config();
   * T2: tvl1_solve on `t2_pair` (the 1080p two-motion seam), one level;
@@ -52,6 +53,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent.parent
@@ -180,8 +182,15 @@ def untiled_calls(p, dev) -> dict:
     q1, q2 = chip_smoke.c5_frames(dev)
     s1, s2 = chip_smoke.c1_frames(dev)
     c1 = p.HSConfig(alpha=0.5, iters=100)
+    p1, p2 = chip_smoke.c3_frames(dev)
+    c3 = p.HSConfig(alpha=1.0, iters=100)
+    rng = np.random.default_rng(0)
+    e1, e2 = (torch.from_numpy(rng.uniform(0, 1, (4320, 7680)).astype(np.float32)).to(dev)
+              for _ in range(2))
     return {
         "c1_hs_solve_1080p": lambda: p.hs_solve(s1, s2, c1),
+        "c3_hs_pyramid_1080p": lambda: p.hs_pyramid(p1, p2, c3, p.PyramidConfig(levels=3)),
+        "l2_hs_solve_8k": lambda: p.hs_solve(e1, e2, c1),
         "l1_untiled": lambda: p.hs_solve(q1, q2, cfg),
         "l3_pyramid_untiled": lambda: p.hs_pyramid(q1, q2, cfg, pyr),
         "sor_untiled": lambda: p.hs_solve(q1, q2, sor),

@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
-"""Time the port's whole-solve kernels per sweep block on one CUDA card:
-one K2 launch of 8 sweeps against K6 (`hs_solve_fused`) and K7
-(`hs_solve_skewed`) launches of 8 and 96 sweeps, on the same fields.
+"""Time the port's sweep kernels per launch and the solves built on them, on
+one CUDA card: one K2 launch of 8 sweeps against K6 (`hs_solve_fused`) and
+K7 (`hs_solve_skewed`) launches of 8 and 96 sweeps on the same fields, and
+the K1 + K2 chain of a whole i100 solve (`solve_resident.hs_solve_resident`,
+1 K1 and 13 K2 launches); a K2 launch of 8 sweeps at 67x93 and on an 8 x
+1088x1920 stack; K9 (`kernels.tile.tile_sweeps`) on config 5's 16 shards of
+548x968 at 4 sweeps a launch; K11 and K12 (`kernels.ring`) as whole i100
+solves of config 5's 4 x 1 and 2 x 2 meshes.
 
     python3 tools/torch_whole_solve_timing.py [--repo DIR] [--reps N]
 
@@ -10,8 +15,9 @@ and 1088x1920, alpha 0.5, the fields computed once by K1; the sweeps start
 from zero. A K6 launch of 8 sweeps is one sweep block with no grid barrier,
 so it holds K6's per-tile code against K2's launch; 96 sweeps is 12 blocks.
 K7 runs at 4K and 1080p with bands of one and two rows of 64 x 64 tiles
-(its own choice is two on 132 resident blocks). Each time is the device
-time per call from CUDA events over N calls after one warm-up call.
+(its own choice is two on 132 resident blocks). K9, K11 and K12 take
+chip_smoke.py's phase-15 inputs. Each time is the device time per call
+from CUDA events over N calls after one warm-up call.
 
 Imports opticalflowhs_tpu_torch from DIR (default: this checkout), so two
 trees can be compared on one card in one run. Prints the card's name
@@ -57,8 +63,11 @@ def main() -> int:
     import chip_smoke
     from opticalflowhs_tpu_torch.kernels import derivatives as k1
     from opticalflowhs_tpu_torch.kernels import jacobi as k2
+    from opticalflowhs_tpu_torch.kernels import ring
     from opticalflowhs_tpu_torch.kernels import solve_fused as k6
+    from opticalflowhs_tpu_torch.kernels import solve_resident as sr
     from opticalflowhs_tpu_torch.kernels import solve_skewed as k7
+    from opticalflowhs_tpu_torch.kernels import tile as k9
 
     dev = torch.device("cuda", 0)
     out = {}
@@ -70,7 +79,9 @@ def main() -> int:
         z = torch.zeros_like(i1)
         uo, vo = torch.empty_like(z), torch.empty_like(z)
         row = {"k2_launch_8": event_ms(
-            lambda: k2.launch_sweeps(z, z, *fields, uo, vo, 8), args.reps)}
+            lambda: k2.launch_sweeps(z, z, *fields, uo, vo, 8), args.reps),
+               "k1_k2_chain_i100": event_ms(
+            lambda: sr.hs_solve_resident(i1, i2, 0.5, 100), args.reps)}
         for n in (8, 96):
             row[f"k6_{n}"] = event_ms(lambda: k6.launch_fused(z, z, *fields, n, 8), args.reps)
             if h * w < 20_000_000:
@@ -79,6 +90,42 @@ def main() -> int:
                         lambda: k7.launch_skewed(z, z, *fields, n, 8, band=band), args.reps)
         out[f"{h}x{w}"] = row
         print(f"{h}x{w}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()), flush=True)
+    for name, shape in (("67x93", (67, 93)), ("8x1088x1920", (8, 1088, 1920))):
+        rng = np.random.default_rng(0)
+        i1, i2 = (torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to(dev)
+                  for _ in range(2))
+        fields = k1.hs_derivatives(i1, i2, 0.5)
+        z = torch.zeros_like(i1)
+        uo, vo = torch.empty_like(z), torch.empty_like(z)
+        out[name] = {"k2_launch_8": event_ms(
+            lambda: k2.launch_sweeps(z, z, *fields, uo, vo, 8), args.reps)}
+        print(f"{name}: k2_launch_8 {out[name]['k2_launch_8']:.4f} ms", flush=True)
+
+    # Config 5's shapes (chip_smoke.py phase 15): K9 on 16 shards of 548x968
+    # at 4 sweeps, K11 and K12 whole i100 solves.
+    h, w, hw = 2160, 3840, 4
+    th, tw = h // 4, w // 4
+    rng = np.random.default_rng(180)
+    su = torch.from_numpy(rng.normal(0, 0.5, (16, th + 2 * hw, tw + 2 * hw))
+                          .astype(np.float32)).to(dev)
+    sa, sb = (torch.from_numpy(rng.uniform(0, 1, su.shape).astype(np.float32)).to(dev)
+              for _ in range(2))
+    sf = k1.derivatives_plain(sa, sb, 1.0)
+    org = k9.origin_table(su, [i * th - hw for i in range(4) for _ in range(4)],
+                          [j * tw - hw for _ in range(4) for j in range(4)])
+    g41 = chip_smoke._ring_inputs(dev, 4, 1, th, w, hw, 190, h, w)
+    g22 = chip_smoke._ring_inputs(dev, 2, 2, h // 2, w // 2, hw, 191, h, w)
+    a41 = ([r[0] for r in g41[0]], [r[0] for r in g41[1]], [r[0] for r in g41[2]], 100, hw,
+           [o[0][0] for o in g41[3]], h, w)
+    a22 = (*g22[:3], 100, hw, g22[3], h, w)
+    out["config5"] = {
+        "k9_16x548x968_s4": event_ms(lambda: k9.tile_sweeps(su, su, *sf, hw, org, h, w),
+                                     args.reps),
+        "k11_4x1_i100": event_ms(lambda: ring.ring_fused_sweeps(*a41), args.reps),
+        "k12_2x2_i100": event_ms(lambda: ring.ring_fused_sweeps_2d(*a22), args.reps),
+    }
+    print("config5: " + ", ".join(f"{k} {v:.4f} ms" for k, v in out["config5"].items()),
+          flush=True)
     print(chip_smoke.card_line())
     print(json.dumps({"whole_solve_ms": out, "reps": args.reps,
                       "device": torch.cuda.get_device_name(0)}))
