@@ -25,7 +25,8 @@ each ran through the kernels:
   phase 11:   robust at full size: hs_solve 1088x1920 i100, and the 1080p
               two-motion seam against classic HS;
   phase 12:   K5 (the TV-L1 inner loop) against its plain version, 67x93,
-              131x130 and 1088x1920, B 1 and 3, iters 1, 7, 100; then
+              131x130 and 1088x1920, B 1 and 3, iters 1, 7, 30, 100, every
+              s; its geometry, and its time at T1's level sizes; then
               TV-L1 at full size: tvl1_solve 1088x1920 L3 (T1), the 1080p
               seam against phase 11's classic HS (T2), tvl1_solve_batched
               on 4 x 1080p, flow_stream, flow_stream_occlusion and
@@ -67,7 +68,8 @@ K2, on the SOR and robust path for K3 and K4, on the TV-L1 path for K5,
 on phase 13's path for K6 and K7, on phase 14's for K8, on phase 15's for
 K9-K12, max |diff| against
 the plain version, ms per launch for the kernel and the plain version at
-8 x 1088x1920 (for K5 per call of 100 alternations; for K6, K7 and K8 per
+8 x 1088x1920 (for K5 per call of 100 alternations, with its 1088x1920,
+544x960 and 272x480 numbers; for K6, K7 and K8 per
 whole solve, K1 included, at 4320x7680, 2160x3840 i100 and 1088x1920 i50),
 and the least time the card could take; K2's row adds its single-frame
 1088x1920 numbers, and K2's and K9's rows the geometry the built kernel
@@ -119,13 +121,23 @@ K4_FREEZE_FLOPS_PER_PX = 22
 K4_FLOPS_PER_PX_SWEEP = 52
 # K5 per alternation: the u-step 23 (rho 4, the three-case step 5 with its
 # two compares, v 4, two divergences 6, u 4), the p-step 14 a field (two
-# differences, the norm 4 with its sqrt, n 2, two updates 6). A call reads
-# u1, u2 and the 5 constant fields once and writes u1, u2 once; the
-# two-launch schedule itself moves 23 arrays an alternation (u-step 13,
-# p-step 10).
+# differences, the norm 4 with its sqrt, n 2, two updates 6): 51 float32
+# operations, of which 4 are IEEE divisions and 2 square roots. Without fast
+# math each is a sequence of instructions on its fast path, as cuobjdump
+# shows the kernel's SASS: a division K5_DIV_INSTR (MUFU.RCP, FCHK, five
+# FFMA and the range branch), a square root K5_SQRT_INSTR (the range test
+# and its branch, MUFU.RSQ, two FMUL and two FFMA, the add of the bias), so
+# the operations bound counts 51 - 6 + 4*K5_DIV_INSTR + 2*K5_SQRT_INSTR = 93
+# a pixel an alternation. A call reads
+# u1, u2 and the 5 constant fields once and writes u1, u2 once. The blocked
+# schedule moves, per launch, the 11 arrays of its windows in (7 in the
+# first launch, which starts from zero duals) and the 6 state arrays of its
+# tiles out (2 in the last launch): `k5_schedule_bytes`.
 K5_FLOPS_PER_PX_ITER = 51
+K5_DIV_INSTR = 8
+K5_SQRT_INSTR = 8
+K5_OPS_PER_PX_ITER = K5_FLOPS_PER_PX_ITER - 6 + 4 * K5_DIV_INSTR + 2 * K5_SQRT_INSTR
 K5_CALL_ARRAYS = 9
-K5_SCHEDULE_ARRAYS_PER_ITER = 23
 # A whole Jacobi solve from zero (K1 with its first sweep, then n - 1
 # sweeps) reads two frames and writes two flows; a K6/K7 sweep block moves
 # K2's 8 arrays.
@@ -146,6 +158,18 @@ NVLINK_BYTES_PER_S = 450e9
 # column.
 K2_EDGE_SHAPES = ((1, 1), (2, 7), (3, 31), (1, 32), (2, 33), (3, 63), (5, 65), (9, 129),
                   (33, 113), (40, 1))
+
+
+def k5_schedule_bytes(geo: dict, px: int, iters: int) -> float:
+    """Bytes a K5 call of `iters` alternations moves under its blocked
+    schedule: each launch reads the arrays of its windows (the window's area
+    over the tile's times the frame) and writes those of its tiles."""
+    s = geo["iters_per_launch"]
+    halo = geo["window_h"] * 128 / (geo["tile_h"] * geo["tile_w"])
+    launches = -(-iters // s)
+    arrays = sum((7 if k == 0 else 11) * halo + (2 if k == launches - 1 else 6)
+                 for k in range(launches))
+    return 4.0 * px * arrays
 
 
 def require(cond: bool, what: str) -> None:
@@ -499,6 +523,7 @@ def tvl1_path(dev, vid, vid_dev, c2a, c2b, classic_band: float) -> dict:
     from opticalflowhs_tpu_torch.data.synthetic import translation_pair
     from opticalflowhs_tpu_torch.kernels import tvl1_inner as k5
     from opticalflowhs_tpu_torch.metrics import epe, interior
+    from opticalflowhs_tpu_torch.pyramid import gaussian_pyramid
     from opticalflowhs_tpu_torch.video import flow_stream_occlusion
 
     err = 0.0
@@ -530,7 +555,15 @@ def tvl1_path(dev, vid, vid_dev, c2a, c2b, classic_band: float) -> dict:
                      for j in (0, 1))
 
     # -- phase 12: K5 against its plain version ---------------------------------
+    # Every s from 1 to K5_MAX_ITERS (and the auto value), iters that s does
+    # not divide, at odd shapes, a stack and 1088x1920.
     t1, t2, gt_t = t1_pair(dev)
+    geo = k5.k5_geometry(dev)
+    print(f"phase 12 K5 geometry at 1088x1920 (auto s = {geo['iters_per_launch']}): {geo}")
+    for shape in ((544, 960), (272, 480), (8, 1088, 1920)):
+        print(f"phase 12 K5 geometry at {'x'.join(map(str, shape))}: "
+              f"{k5.k5_geometry(dev, 0, shape)}")
+    require(geo["spill_bytes"] == 0, f"K5 spills registers: {geo}")
     for b, h, w in ((1, 67, 93), (3, 67, 93), (1, 131, 130), (1, 1088, 1920)):
         i1, i2 = (t1, t2) if h == 1088 else pairs(b, h, w, 40)
         u1, u2, fields = inner_args(i1, i2, seed=41)
@@ -540,14 +573,18 @@ def tvl1_path(dev, vid, vid_dev, c2a, c2b, classic_band: float) -> dict:
                  float((rho.abs() <= th).float().mean())]
         require(min(cases) > 0, f"K5 {b}x{h}x{w}: a case of the data term never fires {cases}")
         diffs = []
-        for iters in (1, 7, 100):
-            d = max_flow_diff(k5.tvl1_inner(u1, u2, *fields, iters, *scalars),
-                              k5.tvl1_inner_plain(u1, u2, *fields, iters, *scalars))
+        for iters in (1, 7, 30, 100):
+            want = k5.tvl1_inner_plain(u1, u2, *fields, iters, *scalars)
+            d = 0.0
+            for s in range(k5.K5_MAX_ITERS + 1):
+                d = max(d, max_flow_diff(
+                    k5.tvl1_inner(u1, u2, *fields, iters, *scalars, block_iters=s), want))
             note(d, f"K5 {b}x{h}x{w} iters {iters}")
             diffs.append(d)
         print(f"phase 12 K5 B={b} {h}x{w}: data-term cases rho<-th {cases[0]:.4f} "
               f"rho>th {cases[1]:.4f} |rho|<=th {cases[2]:.4f}; max|diff| vs plain "
-              f"iters 1, 7, 100: {' '.join(f'{d:.3g}' for d in diffs)}")
+              f"iters 1, 7, 30, 100 (s 1-{k5.K5_MAX_ITERS} and auto): "
+              f"{' '.join(f'{d:.3g}' for d in diffs)}")
 
     # -- the TV-L1 path, counted ------------------------------------------------
     pyr3 = PyramidConfig(levels=3)
@@ -572,9 +609,13 @@ def tvl1_path(dev, vid, vid_dev, c2a, c2b, classic_band: float) -> dict:
     print(f"TV-L1 path launches (T1, its small leg, T2, T3 stack, flow_stream, "
           f"flow_stream_occlusion, solve_bidirectional): hs_tvl1_inner {launches}")
     require(launches > 0, "K5 never ran on the TV-L1 path")
-    want_t1 = 2 * cfg0.iters * cfg0.warps * pyr3.levels
+    # ceil(iters/s) a call, s the kernel's choice at each level's size.
+    levels = [tuple(a.shape) for a in gaussian_pyramid(t1, pyr3.levels)]
+    want_t1 = cfg0.warps * sum(k5.k5_geometry(dev, 0, hw, cfg0.iters)["launches"]
+                               for hw in levels)
     require(n_t1 == want_t1, f"T1 K5 launches {n_t1}, expected {want_t1}")
-    require(n_t3 == 2 * small.iters * small.warps, f"T3 K5 launches per stack {n_t3}")
+    want_t3 = small.warps * k5.k5_geometry(dev, 0, tuple(pa.shape), small.iters)["launches"]
+    require(n_t3 == want_t3, f"T3 K5 launches per stack {n_t3}, expected {want_t3}")
 
     def flow_np(f):
         return np.stack([f.u.cpu().numpy(), f.v.cpu().numpy()], axis=-1)
@@ -663,29 +704,37 @@ def tvl1_path(dev, vid, vid_dev, c2a, c2b, classic_band: float) -> dict:
           f"max|diff| vs plain {d_o:.3g}, masks equal, occluded share "
           f"{float(occ_mask.float().mean()):.5f}; solve_bidirectional max|diff| vs plain {d_b:.3g}")
 
-    # -- K5 per call (100 alternations), 1088x1920 and the C2 stack --------------------
+    # -- K5 per call (100 alternations): T1's three levels and the C2 stack ----------
     row = {}
-    for tag, (i1, i2), reps_plain in (("1088x1920", (t1, t2), 3), ("c2_stack", (c2a, c2b), 1)):
+    for tag, (i1, i2), reps_plain in (("1088x1920", (t1, t2), 3),
+                                      ("544x960", pairs(1, 544, 960, 44), 3),
+                                      ("272x480", pairs(1, 272, 480, 45), 3),
+                                      ("c2_stack", (c2a, c2b), 1)):
         u1, u2, fields = inner_args(i1, i2, seed=43)
         px = u1.numel()
+        g = k5.k5_geometry(dev, 0, tuple(u1.shape), 100)
         t_k = event_ms(lambda: k5.tvl1_inner(u1, u2, *fields, 100, *scalars), reps=5)
         t_p = event_ms(lambda: k5.tvl1_inner_plain(u1, u2, *fields, 100, *scalars),
                        reps=reps_plain)
-        b_ms, b_by = bound_ms(K5_CALL_ARRAYS * 4 * px, K5_FLOPS_PER_PX_ITER * 100 * px)
-        sched_ms = K5_SCHEDULE_ARRAYS_PER_ITER * 4 * px * 100 / PEAK_BYTES_PER_S * 1e3
+        b_ms, b_by = bound_ms(K5_CALL_ARRAYS * 4 * px, K5_OPS_PER_PX_ITER * 100 * px)
+        sched_ms = k5_schedule_bytes(g, px, 100) / PEAK_BYTES_PER_S * 1e3
         print(f"kernel hs_tvl1_inner {tuple(u1.shape)}: {t_k:.4f} ms per call of 100 "
-              f"alternations (200 launches), plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}); the two-launch schedule's own byte bound {sched_ms:.4f} ms")
-        row[tag] = (t_k, t_p, b_ms, b_by)
-    t_k, t_p, b_ms, b_by = row["c2_stack"]
-    one = row["1088x1920"]
+              f"alternations ({g['launches']} launches of {g['iters_per_launch']}), plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; {K5_OPS_PER_PX_ITER} operations a pixel an alternation); the "
+              f"blocked schedule's own byte bound {sched_ms:.4f} ms")
+        row[tag] = (t_k, t_p, b_ms, b_by, sched_ms)
+    t_k, t_p, b_ms, b_by, _ = row["c2_stack"]
     return {"name": "hs_tvl1_inner", "route": "cuda",
             "source": "opticalflowhs_tpu_torch/csrc/tvl1.cu",
             "replaces": ["opticalflowhs_tpu/kernels/tvl1_inner.py:99"],
             "launches": launches, "launches_t1_solve": n_t1, "max_abs_err": err,
             "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "ms_1088x1920": one[0], "plain_ms_1088x1920": one[1],
-            "bound_ms_1088x1920": one[2], "t1_ms": ms_t1, "t1_plain_ms": ms_t1p}
+            "library_ms": None, "iters_per_launch": geo["iters_per_launch"],
+            "geometry": geo,
+            **{f"{k}_{tag}": v for tag, vals in row.items() if tag != "c2_stack"
+               for k, v in zip(("ms", "plain_ms", "bound_ms", "bound_by", "schedule_bound_ms"),
+                               vals)},
+            "schedule_bound_ms": row["c2_stack"][4], "t1_ms": ms_t1, "t1_plain_ms": ms_t1p}
 
 
 def peak_bytes(fn) -> int:

@@ -2,7 +2,8 @@
 plain versions on the same card, at edge-case shapes (partial tiles, frames
 narrower or shorter than a tile, one row, one column; for K2 and K9 also
 those of K2's window, warps and lanes, every sweeps per launch, and
-shard edges at warp and lane boundaries) and sweep counts that the sweeps
+shard edges at warp and lane boundaries; for K5 every alternations per
+launch, and its geometry without spills) and sweep counts that the sweeps
 per launch do not divide; single frames and (B, H, W)
 stacks, where each image of a batched launch must equal the single-frame
 kernel on that image; the launch counts; and the single, batched and
@@ -408,12 +409,60 @@ def test_k5_equals_plain(dev, shape, b, iters):
     keep = (u1.clone(), u2.clone())
     k5.tvl1_inner.launches = 0
     got = k5.tvl1_inner(u1, u2, *fields, iters, *scalars)
-    assert k5.tvl1_inner.launches == 2 * iters
+    assert k5.tvl1_inner.launches == k5.k5_geometry(dev, 0, u1.shape, iters)["launches"]
     _equal(got, k5.tvl1_inner_plain(u1, u2, *fields, iters, *scalars))
     _equal((u1, u2), keep)  # inputs untouched
     for k in range(b):
         one = k5.tvl1_inner(u1[k], u2[k], *(f[k] for f in fields), iters, *scalars)
         _equal([g[k] for g in got], one)
+
+
+# K5's geometry (48 x 128 windows, and 32- or 16-row windows for small
+# frames; warps spanning 128 columns, lanes of 4 columns): K2's edge shapes
+# and frames around K5's tile (40 x 120 at s = 4).
+K5_EDGE_SHAPES = K2_EDGE_SHAPES + [(41, 121), (81, 241)]
+
+
+@pytest.mark.parametrize("shape", K5_EDGE_SHAPES)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("s", range(1, k5.K5_MAX_ITERS + 1))
+def test_k5_edge_shapes_equal_plain(dev, shape, b, s):
+    full = shape if b == 1 else (b,) + shape
+    u1, u2, fields, scalars = _tvl1_fields(full, dev, 28)
+    for iters in sorted({1, 7, 2 * s + 1}):  # s does not divide 2s + 1
+        k5.tvl1_inner.launches = 0
+        got = k5.tvl1_inner(u1, u2, *fields, iters, *scalars, block_iters=s)
+        assert k5.tvl1_inner.launches == -(-iters // s)
+        _equal(got, k5.tvl1_inner_plain(u1, u2, *fields, iters, *scalars))
+
+
+@pytest.mark.parametrize("w", [64, 93])
+def test_k5_unaligned_views_equal_plain(dev, w):
+    # Contiguous views 4 bytes off a 16-byte boundary take the 4-byte copies.
+    def unaligned(t):
+        v = torch.empty(1 + t.numel(), device=dev)[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    u1, u2, fields, scalars = _tvl1_fields((50, w), dev, 29)
+    args = [unaligned(t) for t in (u1, u2, *fields)]
+    _equal(k5.tvl1_inner(*args, 11, *scalars), k5.tvl1_inner_plain(*args, 11, *scalars))
+
+
+@pytest.mark.parametrize("s", [0] + list(range(1, k5.K5_MAX_ITERS + 1)))
+@pytest.mark.parametrize("shape", [(1088, 1920), (544, 960), (272, 480), (8, 1088, 1920)])
+def test_k5_geometry_on_the_card(dev, s, shape):
+    geo = k5.k5_geometry(dev, s, shape, 100)
+    if s:
+        assert geo["iters_per_launch"] == s
+    else:  # the cost rule's choice
+        assert 2 <= geo["iters_per_launch"] <= 8
+    assert geo["launches"] == -(-100 // geo["iters_per_launch"])
+    assert geo["spill_bytes"] == 0 and 0 < geo["registers"] <= 65536 // geo["threads"]
+    assert geo["blocks_per_sm"] >= 1
+    assert (geo["window_h"], geo["threads"], geo["smem_bytes"]) == (
+        k5.K5_WINDOW_H, k5.K5_THREADS, k5.K5_SMEM_BYTES)
+    assert (geo["tile_h"], geo["tile_w"]) == k5.k5_tile(geo["iters_per_launch"])[:2]
 
 
 def test_k5_rejects_bad_tensors(dev):
@@ -424,6 +473,8 @@ def test_k5_rejects_bad_tensors(dev):
         k5.tvl1_inner(u1[:, ::2], u2[:, ::2], *(f[:, ::2] for f in fields), 3, *scalars)
     with pytest.raises(ValueError, match="device"):
         k5.tvl1_inner(u1, u2.cpu(), *fields, 3, *scalars)
+    with pytest.raises(ValueError, match="block_iters"):
+        k5.tvl1_inner(u1, u2, *fields, 3, *scalars, block_iters=k5.K5_MAX_ITERS + 1)
     # backend="cuda" takes CUDA frames only; nothing falls back to the CPU.
     with pytest.raises(ValueError, match="CUDA"):
         tvl1_solve(u1.cpu(), u2.cpu(), TVL1Config(backend="cuda"))
@@ -437,11 +488,12 @@ def test_tvl1_entry_points_run_k5(dev):
     pyr = PyramidConfig(levels=2)
     k5.tvl1_inner.launches = 0
     got = tvl1_solve(i1[0], i2[0], cfg, pyr)
-    assert k5.tvl1_inner.launches == 2 * 10 * 2 * 2  # u- and p-step, iters, warps, levels
+    per_call = [k5.k5_geometry(dev, 0, hw, 10)["launches"] for hw in ((96, 128), (48, 64))]
+    assert k5.tvl1_inner.launches == 2 * sum(per_call)  # warps x each level's calls
     _equal(got, tvl1_solve(i1[0], i2[0], plain, pyr))
     k5.tvl1_inner.launches = 0
     stack = tvl1_solve_batched(i1, i2, cfg)
-    assert k5.tvl1_inner.launches == 2 * 10 * 2  # one chain for the whole stack
+    assert k5.tvl1_inner.launches == 2 * k5.k5_geometry(dev, 0, i1.shape, 10)["launches"]
     _equal(stack, tvl1_solve_batched(i1, i2, plain))
     for k in range(3):
         _equal([a[k] for a in stack], tvl1_solve(i1[k], i2[k], cfg))

@@ -32,8 +32,10 @@ tiled ones. They need no dist/, so a tree from before it can be compared.
 With --tvl1 the cells are chip_smoke.py's phase 12 instead:
   * T1: tvl1_solve on `t1_pair` (1088x1920), 3 levels, TVL1Config();
   * T2: tvl1_solve on `t2_pair` (the 1080p two-motion seam), one level;
-  * T3: tvl1_solve_batched on 4 pairs of `c4_video`, warps 2, iters 30.
-Each time is chip_smoke.median_ms over N runs.
+  * T3: tvl1_solve_batched on 4 pairs of `c4_video`, warps 2, iters 30;
+  * K5 per call of 100 alternations at 1088x1920, 544x960, 272x480 and 8 x
+    1088x1920 (device time, chip_smoke.event_ms over N calls).
+Each other time is chip_smoke.median_ms over N runs.
 
 With --profile it also traces one call of each with torch.profiler and
 reports wall time, device time of kernels and of copies, the busy share
@@ -96,7 +98,9 @@ def profile(fn) -> dict:
             copy_us += us
         else:
             kernel_us += us
-        if "u_step_kernel" in e.key or "p_step_kernel" in e.key:
+        # K5's kernels: tvl1_kernel since its redesign, u_step_kernel and
+        # p_step_kernel before it (so that an older tree is traced alike).
+        if any(k in e.key for k in ("tvl1_kernel", "u_step_kernel", "p_step_kernel")):
             k5_us += us
         if "minimum" in e.key or "maximum" in e.key:
             minmax_us += us
@@ -130,6 +134,34 @@ def tvl1_calls(p, dev) -> dict:
         "t2_tvl1_seam": lambda: p.tvl1_solve(m1, m2, p.TVL1Config()),
         "t3_tvl1_batched_4": lambda: p.tvl1_solve_batched(vid[:4], vid[1:5], small),
     }
+
+
+def k5_calls(dev) -> dict:
+    """K5 per call of 100 alternations (kernels.tvl1_inner at its auto
+    alternations a launch) at T1's three level sizes and on C2's 8 x
+    1088x1920 stack, on fields made as chip_smoke.py's phase 12 makes them."""
+    from opticalflowhs_tpu_torch import TVL1Config
+    from opticalflowhs_tpu_torch import tvl1
+    from opticalflowhs_tpu_torch.data.synthetic import translation_pair
+    from opticalflowhs_tpu_torch.kernels import tvl1_inner as k5
+
+    cfg = TVL1Config()
+    t1, t2, _ = chip_smoke.t1_pair(dev)
+    c2a, c2b = chip_smoke.c2_stack(dev)
+    frames = {"1088x1920": (t1, t2)}
+    for h, w, key in ((544, 960, 44), (272, 480, 45)):
+        a, b, _ = translation_pair(h, w, 0.7, -0.3, key=key)
+        frames[f"{h}x{w}"] = (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+    frames["8x1088x1920"] = (c2a, c2b)
+    calls = {}
+    for tag, (i1, i2) in frames.items():
+        i1, i2 = tvl1.rescale_pair(i1, i2)
+        rng = np.random.default_rng(43)
+        u1, u2 = (torch.from_numpy(rng.normal(0, 0.5, tuple(i1.shape)).astype(np.float32))
+                  .to(dev) for _ in range(2))
+        args = (u1, u2, *tvl1.inner_fields(i1, i2, u1, u2, cfg), 100, *tvl1.inner_scalars(cfg))
+        calls[f"k5_call_100_{tag}"] = lambda args=args: k5.tvl1_inner(*args)
+    return calls
 
 
 def sor_planes_mg_calls(p, dev) -> dict:
@@ -217,7 +249,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     if args.tvl1:
-        return report(args, tvl1_calls(p, dev))
+        return report(args, tvl1_calls(p, dev), k5_calls(dev))
     if args.mg:
         return report(args, sor_planes_mg_calls(p, dev))
     if args.dist:
@@ -249,11 +281,14 @@ def main() -> int:
                          "c4_flow_stream": stream, "c4_flow_stream_warm": warm})
 
 
-def report(args, calls: dict) -> int:
-    """Median ms of each call (and with --profile its trace), then the
+def report(args, calls: dict, kernels: dict | None = None) -> int:
+    """Median ms of each call (and with --profile its trace), the device ms
+    per call of each of `kernels` (CUDA events over N calls), then the
     card's name and power limit and one JSON line."""
     out = {"repo": args.repo, "runs": args.runs,
            "median_ms": {k: chip_smoke.median_ms(fn, args.runs) for k, fn in calls.items()}}
+    if kernels:
+        out["event_ms"] = {k: chip_smoke.event_ms(fn, args.runs) for k, fn in kernels.items()}
     if args.profile:
         out["profile"] = {k: profile(fn) for k, fn in calls.items()}
     print(chip_smoke.card_line())
