@@ -101,7 +101,8 @@ constexpr int kArrays = kStates + kFields;
 constexpr int kPrefetched = 3;
 constexpr int kSlots = kArrays + kPrefetched;
 constexpr size_t kSmemBytes = (size_t)kSlots * kArea * sizeof(float);
-constexpr int kMaxIters = 15;
+// The most alternations a launch: the range of the auto rule (`plan`).
+constexpr int kMaxIters = 8;
 // The auto rule's cost of staging a window, in alternations of it
 // (`plan`): measured on an H100, staging all 11 arrays takes about half as
 // long as 4 alternations on them.
@@ -451,7 +452,7 @@ int plan(int b, int h, int w, int iters, int block_iters, int grid_max) {
   if (block_iters > 0) return block_iters;
   int best = 2;
   long long best_cost = -1;
-  for (int s = 2; s <= 8; ++s) {
+  for (int s = 2; s <= kMaxIters; ++s) {
     const long long rounds = (tiles_of(b, h, w, s) + grid_max - 1) / grid_max;
     const long long cost = (long long)((iters + s - 1) / s) * rounds * (s + kStageCost);
     if (best_cost < 0 || cost < best_cost) {
@@ -467,12 +468,14 @@ int plan(int b, int h, int w, int iters, int block_iters, int grid_max) {
 // `iters` alternations as ceil(iters/s) launches (s from `plan`). Each of
 // u1, u2, p1x, p1y, p2x, p2y holds two slots of b*h*w floats: u1 and u2
 // start in slot 0, the duals start at zero (their slot 0 is never read),
-// and the result is in slot (launches mod 2) of u1 and u2.
+// and the result is in slot (launches mod 2) of u1 and u2. *launches gets
+// the number of launches enqueued, also when one of them fails.
 extern "C" int hs_tvl1_inner(float* u1, float* u2, const float* rho0, const float* gx,
                              const float* gy, const float* inv_g2, const float* th,
                              float* p1x, float* p1y, float* p2x, float* p2y, int b, int h,
                              int w, int iters, float theta, float sigma, float lam_theta,
-                             int block_iters, int device, void* stream) {
+                             int block_iters, int device, void* stream, int* launches) {
+  *launches = 0;
   if (b < 1 || b > kMaxBatch || h < 1 || w < 1 || iters < 1 || block_iters < 0 ||
       block_iters > kMaxIters)
     return (int)cudaErrorInvalidValue;
@@ -519,6 +522,7 @@ extern "C" int hs_tvl1_inner(float* u1, float* u2, const float* rho0, const floa
     tvl1_kernel<<<grid, kThreads, kSmemBytes, st>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    ++*launches;
     done += k;
   }
   return (int)cudaSuccess;

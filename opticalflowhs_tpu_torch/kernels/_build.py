@@ -66,9 +66,9 @@ SIGNATURES = {
     # tile_w, threads, device, stream
     "hs_robust_sweeps": [_P] * 9 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     # u1, u2, rho0, gx, gy, inv_g2, th, p1x, p1y, p2x, p2y, b, h, w, iters,
-    # theta, sigma, lambda*theta, block_iters, device, stream (the six state
-    # arrays with two slots each)
-    "hs_tvl1_inner": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_I, _I, _P],
+    # theta, sigma, lambda*theta, block_iters, device, stream, out: the
+    # launches enqueued (the six state arrays with two slots each)
+    "hs_tvl1_inner": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_I, _I, _P, _IP],
     # b, h, w, iters, block_iters, device, out[11]: K5's alternations a
     # launch, launches, window rows, tile, threads, shared bytes, registers,
     # spilled bytes, resident blocks a multiprocessor, tiles of a launch

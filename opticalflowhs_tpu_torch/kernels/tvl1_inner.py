@@ -32,28 +32,26 @@ from opticalflowhs_tpu_torch.kernels.jacobi import k2_tile
 
 # K5's geometry (csrc/tvl1.cu). A block of K5_THREADS threads runs s
 # alternations on a K5_WINDOW_H x K5_WINDOW_W window: warp j owns window row
-# j (K5_WARP_ROWS), lane l the K5_LANE_COLS columns 4l..4l+3; shared memory
-# holds the window's 6 state and 5 constant arrays, and rho0, gx and gy of
-# the next window, staged while this one runs (K5_SMEM_BYTES). The tile
-# is K2's rule at this window (`k5_tile`): 24 x 120 at s = 4. s is
-# block_iters, or for 0 the s in [2, 8] that the kernel's cost rule picks
+# j, lane l the K5_LANE_COLS columns 4l..4l+3; shared memory holds the
+# window's 6 state and 5 constant arrays, and rho0, gx and gy of the next
+# window, staged while this one runs (K5_SMEM_BYTES). The tile is K2's rule
+# at this window (`k5_tile`): 24 x 120 at s = 4. s is block_iters (at most
+# K5_MAX_ITERS), or for 0 the s in [2, 8] that the kernel's cost rule picks
 # for the frame (`k5_geometry`): 4 at 1088x1920, 6 at 544x960, 8 at 272x480
 # for 100 alternations. Fields kept in registers (60 a thread at 48 x 128
 # windows of 3 rows a thread) limited the arithmetic and ran no faster.
 K5_WINDOW_H = 32
 K5_WINDOW_W = 128
 K5_LANE_COLS = 4
-K5_WARP_ROWS = 1
 K5_THREADS = 1024
 K5_SMEM_BYTES = 14 * 4 * K5_WINDOW_H * K5_WINDOW_W  # 229,376
-K5_MAX_ITERS = 15
+K5_MAX_ITERS = 8
 
 
-def k5_tile(iters: int, window=(K5_WINDOW_H, K5_WINDOW_W),
-            lane_cols: int = K5_LANE_COLS) -> tuple[int, int, int]:
+def k5_tile(iters: int, window=(K5_WINDOW_H, K5_WINDOW_W)) -> tuple[int, int, int]:
     """(tile rows, tile columns, left halo) of one K5 window at `iters`
     alternations a launch: K2's rule (`jacobi.k2_tile`)."""
-    return k2_tile(iters, window, lane_cols)
+    return k2_tile(iters, window, K5_LANE_COLS)
 
 
 def _check_block_iters(block_iters: int) -> None:
@@ -97,24 +95,21 @@ def tvl1_inner_plain(u1, u2, rho0, gx, gy, inv_g2, th, iters: int,
 def k5_launch_schedule_plain(u1, u2, duals, rho0, gx, gy, inv_g2, th, iters: int,
                              theta: float, sigma: float, lam_theta: float,
                              last: bool = True,
-                             window=(K5_WINDOW_H, K5_WINDOW_W),
-                             lane_cols: int = K5_LANE_COLS,
-                             warp_rows: int = K5_WARP_ROWS):
+                             window=(K5_WINDOW_H, K5_WINDOW_W)):
     """One K5 launch of `iters` alternations as csrc/tvl1.cu schedules it,
     in plain torch, on (H, W) or (B, H, W): each image cut into `k5_tile`
     tiles; each tile's window staged with what lies outside the array set
     to NaN (the kernel stages zeros: NaN shows that no exact pixel reads
     it), the duals zero inside the array when `duals` is None (the call's
-    first launch). Alternation k runs, in place, its u-step on every row of
-    each warp (`warp_rows` rows) that meets window rows [k, H-k+1) and its
-    p-step on those that meet [k, H-k), both cut at the array's edges, on
-    all columns; the column neighbours come as the warp shuffles give them
-    (the window's first column takes the first lane's own last column as its
-    left, the last column the last lane's own first one as its right), the
-    row neighbours from inside the window (its first and last rows their
-    own). With `last` (the call's last launch) the final p-step is skipped
-    and only u is written. Only the owned tile is written, into arrays that
-    are NaN elsewhere. Returns (u1, u2, duals), duals None with `last`."""
+    first launch). Alternation k runs, in place, its u-step on window rows
+    [k, H-k+1) (a warp each) and its p-step on [k, H-k), both cut at the
+    array's edges, on all columns (4 a lane); the column neighbours come as
+    the warp shuffles give them (the window's first column takes the first
+    lane's own last column as its left, the last column the last lane's own
+    first one as its right), the row neighbours from inside the window (its
+    first and last rows their own). With `last` (the call's last launch)
+    the final p-step is skipped and only u is written. Only the owned tile
+    is written, into arrays that are NaN elsewhere. Returns (u1, u2, duals), duals None with `last`."""
     # tvl1 routes to this module, so its operators are imported here.
     from opticalflowhs_tpu_torch.tvl1 import _safe_norm
 
@@ -128,8 +123,9 @@ def k5_launch_schedule_plain(u1, u2, duals, rho0, gx, gy, inv_g2, th, iters: int
     fs = lift((rho0, gx, gy, inv_g2, th))
     b, h, w = us[0].shape
     wh, ww = window
-    t_h, t_w, lh = k5_tile(iters, window, lane_cols)
-    if t_h < 1 or t_w < lane_cols or ww % lane_cols or wh % warp_rows:
+    lane_cols = K5_LANE_COLS
+    t_h, t_w, lh = k5_tile(iters, window)
+    if t_h < 1 or t_w < lane_cols or ww % lane_cols:
         raise ValueError(f"no K5 tile of {iters} alternations in a {wh} x {ww} window")
     nan = float("nan")
     outs = [torch.full_like(us[0], nan) for _ in range(2 if last else 6)]
@@ -161,14 +157,10 @@ def k5_launch_schedule_plain(u1, u2, duals, rho0, gx, gy, inv_g2, th, iters: int
                 cfirst, clast = (ac == 0)[None, :], (ac == w - 1)[None, :]
                 wr_lo, wr_hi = max(0, -r0), min(wh, h - r0)
 
-                def warp_rows_of(lo, hi):
-                    lo = lo // warp_rows * warp_rows
-                    return rows_w[lo:min(wh, -(-hi // warp_rows) * warp_rows)]
-
                 for k in range(1, iters + 1):
                     lo, hi = max(k, wr_lo), min(wh - k + 1, wr_hi)
                     if lo < hi:
-                        r = warp_rows_of(lo, hi)
+                        r = rows_w[lo:hi]
                         a1, a2 = s1[r], s2[r]
                         rho = f0[r] + a1 * f1[r] + a2 * f2[r]
                         step = torch.where(rho < -f4[r], lam_theta,
@@ -186,7 +178,7 @@ def k5_launch_schedule_plain(u1, u2, duals, rho0, gx, gy, inv_g2, th, iters: int
                         break
                     lo, hi = max(k, wr_lo), min(wh - k, wr_hi)
                     if lo < hi:
-                        r = warp_rows_of(lo, hi)
+                        r = rows_w[lo:hi]
                         for su, px, py in ((s1, p1x, p1y), (s2, p2x, p2y)):
                             c = su[r]
                             dx = torch.where(clast, 0.0, c[:, right] - c)
@@ -268,24 +260,25 @@ def tvl1_inner(u1, u2, rho0, gx, gy, inv_g2, th, iters: int, theta: float,
     b, h, w = batch_dims("hs_tvl1_inner", u1)
     if iters == 0 or u1.numel() == 0:
         return u1.clone(), u2.clone()
-    launches = k5_geometry(u1.device, block_iters, (b, h, w), iters)["launches"]
     # Two slots of each state array: u starts in slot 0, the result is in
     # slot launches % 2; the duals' slot 0 is never read.
     state = [torch.empty((2,) + tuple(u1.shape), dtype=u1.dtype, device=u1.device)
              for _ in range(6)]
     state[0][0].copy_(u1)
     state[1][0].copy_(u2)
+    launches = ctypes.c_int(0)
     err = _build.library().hs_tvl1_inner(
         state[0].data_ptr(), state[1].data_ptr(), rho0.data_ptr(), gx.data_ptr(),
         gy.data_ptr(), inv_g2.data_ptr(), th.data_ptr(),
         *(p.data_ptr() for p in state[2:]), b, h, w, iters, float(theta),
         float(sigma), float(lam_theta), block_iters, u1.device.index,
-        torch.cuda.current_stream(u1.device).cuda_stream,
+        torch.cuda.current_stream(u1.device).cuda_stream, ctypes.byref(launches),
     )
+    tvl1_inner.launches += launches.value
     _build.check(err, "hs_tvl1_inner")
-    tvl1_inner.launches += launches
-    return state[0][launches % 2], state[1][launches % 2]
+    return state[0][launches.value % 2], state[1][launches.value % 2]
 
 
-# Every K5 kernel launch, single frame or batched: ceil(iters/s) a call.
+# Every K5 kernel launch, single frame or batched, as the C call reports
+# what it enqueued: ceil(iters/s) a call.
 tvl1_inner.launches = 0

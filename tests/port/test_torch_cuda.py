@@ -417,10 +417,12 @@ def test_k5_equals_plain(dev, shape, b, iters):
         _equal([g[k] for g in got], one)
 
 
-# K5's geometry (48 x 128 windows, and 32- or 16-row windows for small
-# frames; warps spanning 128 columns, lanes of 4 columns): K2's edge shapes
-# and frames around K5's tile (40 x 120 at s = 4).
-K5_EDGE_SHAPES = K2_EDGE_SHAPES + [(41, 121), (81, 241)]
+# K5's geometry (32 x 128 windows, a warp a window row of 128 columns, lanes
+# of 4 columns): K2's edge shapes, and frames one row and column past K5's
+# tiles: 25 x 121 past one and 49 x 241 past two tiles of s = 4 (24 x 120),
+# 31 x 121 past one of s = 1 (30 x 120); K2's 33 x 113 lies past two of
+# s = 8 (16 x 112).
+K5_EDGE_SHAPES = K2_EDGE_SHAPES + [(25, 121), (49, 241), (31, 121)]
 
 
 @pytest.mark.parametrize("shape", K5_EDGE_SHAPES)

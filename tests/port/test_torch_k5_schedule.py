@@ -3,8 +3,8 @@ inner loop, bitwise.
 
 `tvl1_inner.k5_launch_schedule_plain` cuts each image into K5's tiles,
 stages each tile's window with NaN outside the array, runs s in-place
-two-pass alternations on every row of the warps that meet the shrinking
-exact region and on all of the window's columns, takes the column
+two-pass alternations on the rows of the shrinking exact region (a warp
+a row) and on all of the window's columns, takes the column
 neighbours as the warp shuffles give them (the window's first and last
 columns from the edge lanes' own values), applies the edge rules at the
 array's first and last rows and columns, and writes only the owned tile.
@@ -12,9 +12,10 @@ array's first and last rows and columns, and writes only the owned tile.
 zero duals and the last writing u only. These tests hold the chain equal to
 `tvl1_inner_plain` with max |diff| 0.0 (no NaN of the halo and no garbage
 row or column reaches an owned pixel) at odd shapes, on stacks, at every s
-from 1 to the largest the window takes, with iters that s does not divide,
-and with small windows, so that tiles meet every edge; and once against the
-JAX reference's Pallas kernel in interpret mode, within its 2e-6 bar.
+from 1 to K5_MAX_ITERS, on frames just past the tiles of each s, with iters
+that s does not divide, and with small windows, so that tiles meet every
+edge; and once against the JAX reference's Pallas kernel in interpret mode,
+within its 2e-6 bar.
 """
 
 import jax.numpy as jnp
@@ -30,12 +31,12 @@ from opticalflowhs_tpu_torch.kernels import tvl1_inner as k5
 
 INNER_TOL = 2e-6  # the reference's kernel-vs-oracle bar
 
-# K5's window, and small ones: (window, lane columns, warp rows).
+# K5's window, and small ones (a warp a row, 4 columns a lane, as K5).
 GEOMETRIES = {
-    "k5": ((k5.K5_WINDOW_H, k5.K5_WINDOW_W), k5.K5_LANE_COLS, k5.K5_WARP_ROWS),
-    "8x16": ((8, 16), 4, 1),
-    "12x16": ((12, 16), 4, 3),
-    "16x24": ((16, 24), 4, 2),
+    "k5": (k5.K5_WINDOW_H, k5.K5_WINDOW_W),
+    "8x16": (8, 16),
+    "12x16": (12, 16),
+    "16x24": (16, 24),
 }
 
 
@@ -71,12 +72,11 @@ def _diff(got, want) -> float:
     return max(float((g - w).abs().nan_to_num(float("inf")).max()) for g, w in zip(got, want))
 
 
-def _max_iters(geometry):
-    window, lane_cols, _ = geometry
+def _max_iters(window):
     s = 1
     while s < k5.K5_MAX_ITERS:
-        th, tw, _ = k5.k5_tile(s + 1, window, lane_cols)
-        if th < 1 or tw < lane_cols:
+        th, tw, _ = k5.k5_tile(s + 1, window)
+        if th < 1 or tw < k5.K5_LANE_COLS:
             break
         s += 1
     return s
@@ -91,13 +91,13 @@ def test_k5_tile_fits_its_window(s):
     assert th + 2 * s == k5.K5_WINDOW_H
     # 11 arrays of the window and 3 of the next one, within a block's 227 KB.
     assert k5.K5_SMEM_BYTES == 14 * 4 * k5.K5_WINDOW_H * k5.K5_WINDOW_W <= 232_448
-    assert k5.K5_WINDOW_H == k5.K5_THREADS // 32 * k5.K5_WARP_ROWS
+    assert k5.K5_WINDOW_H == k5.K5_THREADS // 32  # a warp a window row
     assert k5.K5_WINDOW_W == 32 * k5.K5_LANE_COLS
 
 
 def test_k5_block_iters_bounds():
     assert k5.k5_tile(4) == (24, 120, 4)
-    assert k5.K5_WINDOW_H - 2 * k5.K5_MAX_ITERS == 2  # the most a 32-row window takes
+    assert k5.k5_tile(k5.K5_MAX_ITERS) == (16, 112, 8)  # the auto rule's largest s
     u1, u2, fields, sc = _problem((16, 16), 7)
     for bad in (-1, k5.K5_MAX_ITERS + 1):
         with pytest.raises(ValueError, match="block_iters"):
@@ -105,13 +105,14 @@ def test_k5_block_iters_bounds():
 
 
 # Odd shapes; K5's window meets every edge of them, the small windows make
-# many tiles.
-@pytest.mark.parametrize("shape", [(37, 53), (67, 93), (131, 130)])
+# many tiles. 25 x 121 and 49 x 241 lie one row and column past one and two
+# tiles of s = 4 (24 x 120), the auto s at 1088x1920.
+@pytest.mark.parametrize("shape", [(37, 53), (67, 93), (131, 130), (25, 121), (49, 241)])
 @pytest.mark.parametrize("iters", [1, 7, 30])
 def test_schedule_at_k5_window_equals_plain(shape, iters):
     u1, u2, fields, sc = _problem(shape, 1)
     want = k5.tvl1_inner_plain(u1, u2, *fields, iters, *sc)
-    for s in sorted({1, 4, 8, k5.K5_MAX_ITERS, min(iters, k5.K5_MAX_ITERS)}):
+    for s in sorted({1, 4, k5.K5_MAX_ITERS, min(iters, k5.K5_MAX_ITERS)}):
         got = k5.k5_iters_schedule_plain(u1, u2, *fields, iters, s, *sc)
         assert _diff(got, want) == 0.0, s
 
@@ -124,16 +125,26 @@ def test_schedule_at_every_s_equals_plain(s):
     assert _diff(got, k5.tvl1_inner_plain(u1, u2, *fields, iters, *sc)) == 0.0
 
 
+@pytest.mark.parametrize("s", range(1, k5.K5_MAX_ITERS + 1))
+def test_schedule_past_the_tiles_of_s_equals_plain(s):
+    # A frame one row past two of s's tiles and one column past one, so that
+    # the last tile row and column hold a single pixel.
+    th, tw, _ = k5.k5_tile(s)
+    u1, u2, fields, sc = _problem((2 * th + 1, tw + 1), 9)
+    iters = 2 * s + 1
+    got = k5.k5_iters_schedule_plain(u1, u2, *fields, iters, s, *sc)
+    assert _diff(got, k5.tvl1_inner_plain(u1, u2, *fields, iters, *sc)) == 0.0
+
+
 @pytest.mark.parametrize("geometry", ["8x16", "12x16", "16x24"])
 @pytest.mark.parametrize("shape", [(37, 53), (3, 21, 37)])
 def test_schedule_at_small_windows_equals_plain(geometry, shape):
-    window, lane_cols, warp_rows = GEOMETRIES[geometry]
+    window = GEOMETRIES[geometry]
     u1, u2, fields, sc = _problem(shape, 2)
     iters = 7
     want = k5.tvl1_inner_plain(u1, u2, *fields, iters, *sc)
-    for s in range(1, _max_iters(GEOMETRIES[geometry]) + 1):
-        got = k5.k5_iters_schedule_plain(u1, u2, *fields, iters, s, *sc, window=window,
-                                         lane_cols=lane_cols, warp_rows=warp_rows)
+    for s in range(1, _max_iters(window) + 1):
+        got = k5.k5_iters_schedule_plain(u1, u2, *fields, iters, s, *sc, window=window)
         assert _diff(got, want) == 0.0, s
 
 
