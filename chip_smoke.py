@@ -35,10 +35,11 @@ each ran through the kernels:
               ping-pong and in place) against their plain versions and the
               K1 + K2 chain, 67x93, 131x130 (small forced geometries) and
               1088x1920 central, B 1 and 3, n 7, 9, 100, zero and warm;
-              then frames past the resident class through the entry
-              points: hs_solve 2160x3840 (L1, K7) and 4320x7680 (L2, K6)
-              i100, hs_pyramid 4K L3 (L3), the batched twins on 2 x 4K
-              (L4) and hs_solve_checkpointed 4K i200 (L5);
+              their geometry (no spills) and a sweep block beside a K2
+              launch at 4K and 8K; then frames past the resident class
+              through the entry points: hs_solve 2160x3840 (L1, K7) and
+              4320x7680 (L2, K6) i100, hs_pyramid 4K L3 (L3), the batched
+              twins on 2 x 4K (L4) and hs_solve_checkpointed 4K i200 (L5);
   phase 14:   K8 (the whole SOR solve on parity planes) against the plain
               planes, the plain SOR sweeps and the K1 + K3 chain at every
               parity of h and w, n 1, 4, 7, zero and warm; S1 through
@@ -106,9 +107,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 67e12
 # float32 operations per pixel, counted from the sources: K1 with the
 # zero-start sweep (hs_cube: 16 for Ex/Ey, 2 scales, 8 for Et, 5 for invd,
-# 5 for u1/v1); a Jacobi sweep of the shared loop (jacobi_tile.cuh: K6, K7,
-# K11, K12), 15 per neighbour average, 5 for frac, 4 for the update; K2 and
-# K9 per sweep, each column sum once: 9 per neighbour average, so 27.
+# 5 for u1/v1); a Jacobi sweep of the shared loop (jacobi_tile.cuh: K11,
+# K12), 15 per neighbour average, 5 for frac, 4 for the update; K2's window
+# loop (k2_window.cuh: K2, K9, K6, K7) per sweep, each column sum once: 9 per
+# neighbour average, so 27.
 K1_FLOPS_PER_PX = 36
 SWEEP_FLOPS_PER_PX = 39
 K2_FLOPS_PER_PX_SWEEP = 27
@@ -846,6 +848,27 @@ def beyond_resident(dev, frames, stack, s1, s2) -> list:
         per_call[tag] = {n: c.launches - before[n] for n, c in counters.items()}
         return out
 
+    # -- K6/K7 geometry, and a sweep block of 8 beside a K2 launch of 8 ----------------
+    # (before the counted run: these launches are not the path's)
+    geo = {"K6": k6.k6_geometry(dev, 8), "K7 4K": k7.k7_geometry(dev, 2160, 3840, 8),
+           "K7 8K": k7.k7_geometry(dev, 4320, 7680, 8)}
+    for tag, g in geo.items():
+        require(g["spill_bytes"] == 0 and g["blocks_per_sm"] >= 1, f"{tag} geometry {g}")
+        print(f"phase 13 {tag} geometry at s 8: {g}")
+    blocks = {}
+    for tag, (a, b) in (("2160x3840", (q1, q2)), ("4320x7680", (e1, e2))):
+        fields = k1.hs_derivatives(a, b, 0.5)
+        z = torch.zeros_like(a)
+        uo, vo = torch.empty_like(z), torch.empty_like(z)
+        blocks[tag] = {
+            "k2_launch": event_ms(lambda: k2.launch_sweeps(z, z, *fields, uo, vo, 8), 10),
+            "k6_block": event_ms(lambda: k6.launch_fused(z, z, *fields, 8, 8), 10),
+            "k7_block": event_ms(lambda: k7.launch_skewed(z, z, *fields, 8, 8), 10)}
+        print(f"phase 13 a sweep block of 8 at {tag}: K6 {blocks[tag]['k6_block']:.4f} ms, "
+              f"K7 {blocks[tag]['k7_block']:.4f} ms, a K2 launch of 8 "
+              f"{blocks[tag]['k2_launch']:.4f} ms (CUDA events, 10 calls)")
+        del fields, z, uo, vo
+
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
@@ -894,7 +917,7 @@ def beyond_resident(dev, frames, stack, s1, s2) -> list:
         mem_k = peak_bytes(lambda: hs_solve(a, b, cfg))
         mem_c = peak_bytes(lambda: sr.hs_solve_resident(a, b, 0.5, 100))
         b_ms, b_by = bound_ms(SOLVE_ARRAYS * 4 * px,
-                              (K1_FLOPS_PER_PX + 99 * SWEEP_FLOPS_PER_PX) * px)
+                              (K1_FLOPS_PER_PX + 99 * K2_FLOPS_PER_PX_SWEEP) * px)
         block_ms = SWEEP_BLOCK_ARRAYS * 4 * px / PEAK_BYTES_PER_S * 1e3
         print(f"phase 13 {tag} hs_solve {h}x{w} a=0.5 i100 ({name}): max|diff| vs plain {d:.3g}, "
               f"= the K1 + K2 chain bitwise; launches {per_call[tag]}; kernel {ms_k:.3f} ms, "
@@ -903,7 +926,11 @@ def beyond_resident(dev, frames, stack, s1, s2) -> list:
               f"bound {b_ms:.4f} ms ({b_by}), {block_ms:.4f} ms of bytes a sweep block")
         rows[name] = dict(ms=ms_k, plain_ms=ms_p, chain_ms=ms_c, bound_ms=b_ms, bound_by=b_by,
                           block_bytes_ms=block_ms, peak_mib=mem_k / 2**20,
-                          chain_peak_mib=mem_c / 2**20, shape=[h, w])
+                          chain_peak_mib=mem_c / 2**20, shape=[h, w],
+                          geometry=geo["K6" if name == "hs_solve_fused" else "K7 4K"],
+                          sweep_block_ms={t: b["k6_block" if name == "hs_solve_fused"
+                                               else "k7_block"] for t, b in blocks.items()},
+                          k2_launch_ms={t: b["k2_launch"] for t, b in blocks.items()})
         if name == "hs_solve_skewed":
             pencils = 2 * 2 * k2.sweeps_per_launch(0) * w * 4
             require(mem_c - mem_k >= 2 * px * 4 - pencils,
@@ -926,6 +953,7 @@ def beyond_resident(dev, frames, stack, s1, s2) -> list:
     ms_k = median_ms(lambda: hs_pyramid(p1, p2, cfg3, pyr3))
     fl = np.stack([f_l3.u.cpu().numpy(), f_l3.v.cpu().numpy()], axis=-1)
     e = epe(interior(fl, 16), interior(gt, 16))
+    rows["hs_solve_skewed"].update(pyramid_ms_2160x3840_l3=ms_k)
     print(f"phase 13 L3 hs_pyramid 2160x3840 L3 a=1 i100 (3, 1.5) px: max|diff| vs plain {d:.3g}; "
           f"launches {per_call['L3']}; kernel {ms_k:.3f} ms (median of 20); interior EPE {e:.6f}")
 
@@ -942,6 +970,8 @@ def beyond_resident(dev, frames, stack, s1, s2) -> list:
     ms_f = median_ms(lambda: k6.hs_solve_fused_batched(ba, bb, 0.5, 100), runs=10)
     ms_s = median_ms(lambda: k7.hs_solve_skewed_batched(ba, bb, 0.5, 100), runs=10)
     ms_c = median_ms(lambda: sr.hs_solve_resident_batched(ba, bb, 0.5, 100), runs=10)
+    rows["hs_solve_fused"].update(ms_2x2160x3840=ms_f, chain_ms_2x2160x3840=ms_c)
+    rows["hs_solve_skewed"].update(ms_2x2160x3840=ms_s, chain_ms_2x2160x3840=ms_c)
     print(f"phase 13 L4 2 x 2160x3840 a=0.5 i100: max|diff| vs plain fused_batched "
           f"{d4['hs_solve_fused']:.3g}, skewed_batched {d4['hs_solve_skewed']:.3g}; both = the "
           f"batched K1 + K2 chain and = singles "

@@ -1,11 +1,11 @@
-// Host helpers for the persistent cooperative kernels K6 (solve_fused.cu) and
-// K7 (solve_skewed.cu): how many blocks can be resident at once, and the
-// launch. A grid-wide barrier (cooperative_groups::this_grid().sync()) is
-// only safe when every block of the grid is resident; cudaLaunchCooperativeKernel
-// refuses a larger grid (cudaErrorCooperativeLaunchTooLarge), and the entry
-// points return that error instead of deadlocking. Grid sync needs no
-// relocatable device code (-rdc) since CUDA 11, so the build flags stay
-// those of every other kernel.
+// Helpers for the persistent cooperative kernels K6 (solve_fused.cu), K7
+// (solve_skewed.cu), K11 and K12 (ring.cu): how many blocks can be resident
+// at once, the launch, and K6's and K7's grid barrier. A grid-wide barrier
+// is only safe when every block of the grid is resident;
+// cudaLaunchCooperativeKernel refuses a larger grid
+// (cudaErrorCooperativeLaunchTooLarge), and the entry points return that
+// error instead of deadlocking. Grid sync needs no relocatable device code
+// (-rdc) since CUDA 11, so the build flags stay those of every other kernel.
 
 #pragma once
 
@@ -50,6 +50,32 @@ cudaError_t launch(Kernel kernel, int grid, int threads, size_t smem,
                                     (cudaStream_t)stream);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
+}
+
+// A barrier across the whole grid of a cooperative launch. `count` is zero
+// at the launch's start (the entry point clears it on the stream) and
+// counts the blocks' arrivals; the n-th barrier of the launch (n = 1, 2,
+// ...) waits until every block has arrived n times. The count is a kernel
+// parameter and n a value the caller holds anyway, so the barrier keeps
+// nothing in registers across the code around it: K6 and K7 run K2's
+// sweeps, which need all 128 registers a thread, and cooperative_groups'
+// grid sync, which keeps its workspace live through the whole kernel,
+// made them spill and run each tile slower on an H100. The block's
+// writes, ordered before thread 0's by the first __syncthreads, are
+// released by its fence and arrival, and acquired by every block after
+// the wait.
+__device__ __forceinline__ void grid_barrier(unsigned long long* count,
+                                             unsigned long long n) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1ull);
+    const unsigned long long target = n * gridDim.x;
+    while (*reinterpret_cast<volatile unsigned long long*>(count) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
 }
 
 }  // namespace hs_coop

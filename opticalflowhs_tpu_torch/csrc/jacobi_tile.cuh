@@ -1,8 +1,10 @@
-// The temporally blocked Jacobi sweeps of one shared-memory window, run by
-// the persistent drivers K6 (solve_fused.cu) and K7 (solve_skewed.cu), and on
-// the shards of the tiled solver by K11 and K12 (ring.cu). K2 and K9
-// (jacobi.cu) have a loop of their own (fields in registers, column sums
-// shared by warp shuffles); these four move onto it in a later change.
+// The temporally blocked Jacobi sweeps of one shared-memory window, run only
+// by the fused ring solves K11 and K12 (ring.cu) on the shards of the tiled
+// solver. K2 and K9 (jacobi.cu), K6 (solve_fused.cu) and K7
+// (solve_skewed.cu) run K2's window loop (k2_window.cuh: fields in
+// registers, column sums shared by warp shuffles, the next window staged
+// behind the sweeps), which runs 1.8-2.5x faster than this loop on an H100
+// (PERF.md); K11 and K12 move onto it in a later change.
 //
 // A block owns a th x tw output tile at (tr0, tc0) and stages the window
 // grown by `halo` rows and columns on each side, cut at the true image
@@ -140,12 +142,10 @@ __device__ __forceinline__ void stage(const Buffers& b, const Window& win,
 }
 
 // `sweeps` (<= win.halo) Jacobi sweeps between (su, sv) and (du, dv); on
-// return su/sv point at the last sweep. (h, w) is the array's size. With
-// kShard false the array is the whole image and the clamps fire at its
-// edges only (K6, K7); with kShard true it is a shard of a larger image
-// (K11, K12), whose true edges, from win.org_* and win.img_*, may also lie
-// inside a strip. Ends with a __syncthreads.
-template <bool kShard = false>
+// return su/sv point at the last sweep. (h, w) is the array's size, a
+// shard of a larger image (K11, K12) whose true edges, from win.org_* and
+// win.img_*, may also lie inside a strip; the clamps fire at both. Ends
+// with a __syncthreads.
 __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
                                            int h, int w, int sweeps) {
   const int tid = threadIdx.x;
@@ -174,11 +174,9 @@ __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
         // edges.
         const int ac = c0 + c, gc = win.org_c + ac;
         const int ar = r0 + ra;
-        const int cl = ac > 0 && (!kShard || gc != 0) ? c - 1 : c;  // j-1
-        const int cr =
-            ac < w - 1 && (!kShard || gc != win.img_w - 1) ? c + 1 : c;  // j+1
-        const int ru =
-            ar > 0 && (!kShard || win.org_r + ar != 0) ? ra - 1 : ra;  // i-1
+        const int cl = ac > 0 && gc != 0 ? c - 1 : c;                     // j-1
+        const int cr = ac < w - 1 && gc != win.img_w - 1 ? c + 1 : c;     // j+1
+        const int ru = ar > 0 && win.org_r + ar != 0 ? ra - 1 : ra;       // i-1
         // Rows i-1 (top) and i (mid) of the 3x3 neighbourhood.
         float ut_l = su[ru * win_w + cl], ut_c = su[ru * win_w + c],
               ut_r = su[ru * win_w + cr];
@@ -189,9 +187,8 @@ __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
         float vm_l = sv[ra * win_w + cl], vm_c = sv[ra * win_w + c],
               vm_r = sv[ra * win_w + cr];
         for (int r = ra; r < rb; ++r) {
-          const int rd = r0 + r < h - 1 &&
-                                 (!kShard || win.org_r + r0 + r != win.img_h - 1)
-                             ? r + 1 : r;  // i+1
+          const int rd =
+              r0 + r < h - 1 && win.org_r + r0 + r != win.img_h - 1 ? r + 1 : r;  // i+1
           const float ub_l = su[rd * win_w + cl], ub_c = su[rd * win_w + c],
                       ub_r = su[rd * win_w + cr];
           const float vb_l = sv[rd * win_w + cl], vb_c = sv[rd * win_w + c],
@@ -215,13 +212,13 @@ __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
               ((e_x * ubar + e_y * vbar) + b.set[o]) * b.sinvd[o];
           du[o] = ubar - e_x * frac;
           dv[o] = vbar - e_y * frac;
-          // Roll the neighbourhood down a row. On a shard, a true image
-          // edge inside the strip breaks the roll: below the bottom edge,
+          // Roll the neighbourhood down a row. A true image edge inside
+          // the strip breaks the roll: below the bottom edge,
           // row i+1 was row i itself, so row r+1 is loaded afresh; at the
           // top edge, row r+1's i-1 clamps to itself.
           ut_l = um_l; ut_c = um_c; ut_r = um_r;
           vt_l = vm_l; vt_c = vm_c; vt_r = vm_r;
-          if (!kShard || rd == r + 1) {
+          if (rd == r + 1) {
             um_l = ub_l; um_c = ub_c; um_r = ub_r;
             vm_l = vb_l; vm_c = vb_c; vm_r = vb_r;
           } else if (r + 1 < rb) {
@@ -229,7 +226,7 @@ __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
             um_l = su[n + cl]; um_c = su[n + c]; um_r = su[n + cr];
             vm_l = sv[n + cl]; vm_c = sv[n + c]; vm_r = sv[n + cr];
           }
-          if (kShard && win.org_r + r0 + r + 1 == 0) {
+          if (win.org_r + r0 + r + 1 == 0) {
             ut_l = um_l; ut_c = um_c; ut_r = um_r;
             vt_l = vm_l; vt_c = vm_c; vt_r = vm_r;
           }
@@ -239,26 +236,6 @@ __device__ __forceinline__ void run_sweeps(Buffers& b, const Window& win,
     __syncthreads();
     float* t = b.su; b.su = b.du; b.du = t;
     t = b.sv; b.sv = b.dv; b.dv = t;
-  }
-}
-
-// Writes the owned th x tw tile of su/sv (cut at the image edge) to uo/vo,
-// which point at the image's first pixel.
-__device__ __forceinline__ void write_tile(float* uo, float* vo,
-                                           const Buffers& b, const Window& win,
-                                           int th, int tw, int w) {
-  const int halo = win.halo;
-  const int tr_hi = min(halo + th, win.wr_hi);
-  const int tc_hi = min(halo + tw, win.wc_hi);
-  const int lw = tc_hi - halo;
-  const int n = (tr_hi - halo) * lw;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int wr = halo + i / lw;
-    const int wc = halo + i % lw;
-    const long long g = (long long)(win.r0 + wr) * w + (win.c0 + wc);
-    const int s = wr * win.win_w + wc;
-    uo[g] = b.su[s];
-    vo[g] = b.sv[s];
   }
 }
 

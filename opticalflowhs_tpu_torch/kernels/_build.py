@@ -11,7 +11,8 @@ bits), every scalar `c_int` or `c_float` (the ring kernels' epoch
 `c_ulonglong`), and every function returns its `cudaError_t` as an int.
 
 The persistent kernels K6, K7, K11 and K12 synchronise their whole grid
-(cooperative_groups grid sync, csrc/cooperative.cuh). That needs a
+(a barrier on a count in device memory for K6 and K7, cooperative_groups
+grid sync for K11 and K12; csrc/cooperative.cuh). That needs a
 cooperative launch, which their C entry points make and which refuses a
 grid larger than can be resident, but no extra build flag: since CUDA 11
 grid sync needs no relocatable device code (-rdc).
@@ -73,16 +74,18 @@ SIGNATURES = {
     # launch, launches, window rows, tile, threads, shared bytes, registers,
     # spilled bytes, resident blocks a multiprocessor, tiles of a launch
     "hs_tvl1_geometry": [_I] * 6 + [_IP],
-    # s, tile_h, tile_w, threads, device, out: the most K6 (K7) blocks that
-    # can be resident at once
-    "hs_solve_fused_blocks": [_I] * 5 + [_IP],
-    "hs_solve_skewed_blocks": [_I] * 5 + [_IP],
-    # u0, v0, ex, ey, et, invd, ua, va, ub, vb, b, h, w, n, s, tile_h,
-    # tile_w, threads, grid, device, stream
-    "hs_solve_fused_sweeps": [_P] * 10 + [_I] * 10 + [_P],
-    # u0, v0, ex, ey, et, invd, u, v, pu, pv, b, h, w, n, s, band, tile_h,
-    # tile_w, threads, grid, device, stream
-    "hs_solve_skewed_sweeps": [_P] * 10 + [_I] * 11 + [_P],
+    # device, out: the most K6 (K7) blocks that can be resident at once
+    "hs_solve_fused_blocks": [_I, _IP],
+    "hs_solve_skewed_blocks": [_I, _IP],
+    # sweeps, device, out[8]: K6's (K7's) build, as hs_jacobi_geometry's
+    "hs_solve_fused_geometry": [_I, _I, _IP],
+    "hs_solve_skewed_geometry": [_I, _I, _IP],
+    # u0, v0, ex, ey, et, invd, ua, va, ub, vb, barrier (8 bytes), b, h, w,
+    # n, s, grid, device, stream
+    "hs_solve_fused_sweeps": [_P] * 11 + [_I] * 7 + [_P],
+    # u0, v0, ex, ey, et, invd, u, v, pu, pv, barrier (8 bytes), b, h, w, n,
+    # s, m, band_ty, grid, device, stream
+    "hs_solve_skewed_sweeps": [_P] * 11 + [_I] * 9 + [_P],
     # u0, v0 (both null for a zero start), ex, ey, et, invd, planes, uo, vo,
     # h, w, n, omega, device, stream
     "hs_sor_planes": [_P] * 9 + [_I] * 3 + [_F, _I, _P],

@@ -6,11 +6,13 @@ schedules; `jacobi_sweeps_batched` and its stacked and batched-banded
 schedules) and of the sweep stage of the resident whole-solve kernels. The
 CUDA source is csrc/jacobi.cu: one launch runs up to `sweeps_per_launch`
 sweeps, for one frame or for a whole (B, H, W) stack, with one persistent
-block a multiprocessor walking 64 x 128 windows (the tile and its decaying
+block a multiprocessor walking 48 x 128 windows (the tile and its decaying
 halo): the fields in registers, u and v in shared memory, each column sum
 computed once and passed to the neighbouring lanes by warp shuffles, and
-the next window's u and v staged while the current one is swept.
-`k2_launch_schedule_plain` walks that schedule in plain torch.
+the next window's u and v staged while the current one is swept. That
+window loop (csrc/k2_window.cuh) also runs inside K6 and K7.
+`k2_launch_schedule_plain` walks it in plain torch (`k2_stage`,
+`k2_window_sweeps`, `k2_owned` a window at a time, which K7's twin reuses).
 
 `jacobi_sweeps` (also named `jacobi_sweeps_batched`) takes either rank. It
 launches the kernel for CUDA tensors and runs the plain version for CPU
@@ -28,12 +30,13 @@ from opticalflowhs_tpu_torch.kernels import _build
 from opticalflowhs_tpu_torch.kernels.derivatives import batch_dims, check_frames
 from opticalflowhs_tpu_torch.ops import stencils
 
-# The shared-window sweep loop of jacobi_tile.cuh, which K6, K7, K11 and K12
-# run inside their persistent drivers: output tile of one block, threads per
+# The shared-window sweep loop of jacobi_tile.cuh, which K11 and K12 run
+# inside their persistent drivers: output tile of one block, threads per
 # block, and the default sweeps per launch (HSConfig.block_sweeps = 0) of
 # every Jacobi kernel. A block of that loop stages 8 float32 arrays of the
 # (tile + 2*sweeps) window in shared memory: 200 KB at 64x64 and s = 8, so
-# `fit_sweeps` allows at most 10 sweeps a launch (K2 and K9 keep that rule).
+# `fit_sweeps` allows at most 10 sweeps a launch (K2, K9, K6 and K7 keep
+# that rule).
 TILE_H = 64
 TILE_W = 64
 THREADS = 512
@@ -41,7 +44,8 @@ AUTO_SWEEPS = 8
 SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
 _ARRAYS = 8
 
-# K2's own geometry (csrc/jacobi.cu; K9 shares it). A block of K2_THREADS
+# K2's own geometry (csrc/k2_window.cuh; K9, K6 and K7 share it). A block
+# of K2_THREADS
 # threads sweeps a K2_WINDOW_H x K2_WINDOW_W window: warp j owns rows
 # 3j..3j+2 (K2_WARP_ROWS), lane l the K2_LANE_COLS columns 4l..4l+3, and
 # the fields of those 12 pixels stay in registers; each column sum is
@@ -76,8 +80,8 @@ def k2_tile(sweeps: int, window=(K2_WINDOW_H, K2_WINDOW_W),
 
 def smem_bytes(sweeps: int, tile_h: int = TILE_H, tile_w: int = TILE_W) -> int:
     """Shared memory of one window of the shared loop: the 8 arrays of a
-    tile grown by `sweeps` on each side (hs_tile::smem_bytes, for K6, K7,
-    K11 and K12)."""
+    tile grown by `sweeps` on each side (hs_tile::smem_bytes, for K11 and
+    K12)."""
     return _ARRAYS * 4 * (tile_h + 2 * sweeps) * (tile_w + 2 * sweeps)
 
 
@@ -105,6 +109,90 @@ def jacobi_sweeps_plain(u, v, ex, ey, et, inv_den, n: int):
     return u, v
 
 
+def k2_stage(a, r0: int, c0: int, window=(K2_WINDOW_H, K2_WINDOW_W)):
+    """The (wh, ww) window of the (H, W) array `a` whose element (0, 0) is
+    array pixel (r0, c0), NaN outside the array (the kernels stage zeros
+    there: NaN shows that no exact pixel reads it)."""
+    wh, ww = window
+    h, w = a.shape
+    win = torch.full((wh, ww), float("nan"), dtype=a.dtype)
+    rlo, rhi = max(0, -r0), min(wh, h - r0)
+    clo, chi = max(0, -c0), min(ww, w - c0)
+    if rlo < rhi and clo < chi:
+        win[rlo:rhi, clo:chi] = a[r0 + rlo:r0 + rhi, c0 + clo:c0 + chi]
+    return win
+
+
+def k2_window_sweeps(su, sv, fx, fy, ft, fi, sweeps: int, r0: int, c0: int,
+                     hw, org=(0, 0), img_hw=None, lane_cols: int = K2_LANE_COLS,
+                     warp_rows: int = K2_WARP_ROWS):
+    """The `sweeps` sweeps of one staged K2 window at array pixel (r0, c0)
+    of an (h, w) = `hw` array, as the kernel runs them: sweep k on every
+    row of each warp (`warp_rows` rows) that meets the window's rows shrunk
+    by k (cut at the array's edges), on all columns, into a second buffer
+    (NaN at first) that keeps its old rows elsewhere; rows i-1 and i+1 stay
+    inside the window; the column sums t(j-1) and t(j+1) come from the
+    neighbouring column as the warp shuffles give them, the window's first
+    column taking the first lane's own last column and its last column the
+    last lane's own first one; the clamps fire at the array's edges and,
+    with `img_hw` (K9: `org` the global pixel of array element (0, 0) in an
+    img_hw image), at the true image edges. Returns the last sweep's
+    (u, v) window."""
+    h, w = hw
+    wh, ww = su.shape
+    shard = img_hw is not None
+    ih, iw = img_hw if shard else (h, w)
+    rows_w = torch.arange(wh)
+    ar, ac = rows_w + r0, torch.arange(ww) + c0
+    cin = (ac >= 0) & (ac < w)
+    gr, gc = ar + org[0], ac + org[1]
+    top = (ar == 0) | (shard & (gr == 0)) | (rows_w == 0)
+    bot = (ar == h - 1) | (shard & (gr == ih - 1)) | (rows_w == wh - 1)
+    up = torch.where(top, rows_w, rows_w - 1)
+    down = torch.where(bot, rows_w, rows_w + 1)
+    lcl = cin & ((ac == 0) | (shard & (gc == 0)))
+    rcl = cin & ((ac == w - 1) | (shard & (gc == iw - 1)))
+    wr_lo, wr_hi = max(0, -r0), min(wh, h - r0)
+    du = torch.full((wh, ww), float("nan"))
+    dv = torch.full((wh, ww), float("nan"))
+    for k in range(1, sweeps + 1):
+        rlo, rhi = max(k, wr_lo), min(wh - k, wr_hi)
+        lo = rlo // warp_rows * warp_rows
+        hi = min(wh, -(-rhi // warp_rows) * warp_rows)
+        if rlo < rhi:
+            r = rows_w[lo:hi]
+            bars = []
+            for a in (su, sv):
+                t = a[up[r]] + 2.0 * a[r] + a[down[r]]
+                tl = torch.cat([t[:, lane_cols - 1:lane_cols], t[:, :-1]], 1)
+                tr = torch.cat([t[:, 1:], t[:, ww - lane_cols:ww - lane_cols + 1]], 1)
+                tl = torch.where(lcl, t, tl)
+                tr = torch.where(rcl, t, tr)
+                s = tl + 2.0 * t + tr
+                bars.append(s * (1.0 / 12.0) - a[r] * (1.0 / 3.0))
+            ubar, vbar = bars
+            frac = (fx[r] * ubar + fy[r] * vbar + ft[r]) * fi[r]
+            du[r] = ubar - fx[r] * frac
+            dv[r] = vbar - fy[r] * frac
+        su, du, sv, dv = du, su, dv, sv
+    return su, sv
+
+
+def k2_owned(r0: int, c0: int, sweeps: int, hw, window=(K2_WINDOW_H, K2_WINDOW_W),
+             lane_cols: int = K2_LANE_COLS):
+    """The owned tile of the window at array pixel (r0, c0), cut at the
+    (h, w) array: (array rows, array columns, window rows, window columns)
+    as slices, or None when it holds no pixel of the array."""
+    th, tw, lh = k2_tile(sweeps, window, lane_cols)
+    h, w = hw
+    a_r0, a_c0 = max(r0 + sweeps, 0), max(c0 + lh, 0)
+    a_r1, a_c1 = min(r0 + sweeps + th, h), min(c0 + lh + tw, w)
+    if a_r0 >= a_r1 or a_c0 >= a_c1:
+        return None
+    return (slice(a_r0, a_r1), slice(a_c0, a_c1),
+            slice(a_r0 - r0, a_r1 - r0), slice(a_c0 - c0, a_c1 - c0))
+
+
 def k2_launch_schedule_plain(u, v, ex, ey, et, inv_den, sweeps: int,
                              origins=None, img_hw=None,
                              window=(K2_WINDOW_H, K2_WINDOW_W),
@@ -113,18 +201,10 @@ def k2_launch_schedule_plain(u, v, ex, ey, et, inv_den, sweeps: int,
     """One K2 launch of `sweeps` sweeps as csrc/jacobi.cu schedules it, in
     plain torch, on (H, W) or (B, H, W): each image cut into `k2_tile`
     tiles; each tile's window staged with what lies outside the array set
-    to NaN (the kernel stages zeros: NaN shows that no exact pixel reads
-    it). Sweep k runs on every row of each warp (`warp_rows` rows) that
-    meets the window's rows shrunk by k (cut at the array's edges), and on
-    all columns, into a second buffer (NaN at first) that keeps its old
-    rows elsewhere; rows i-1 and i+1 stay inside the window; the column
-    sums t(j-1) and t(j+1) come from the neighbouring column as the warp
-    shuffles give them, the window's first column taking the first lane's
-    own last column and its last column the last lane's own first one; the
-    clamps fire at the array's edges and, with `origins` (K9: a per-image
-    (row, col) of the global pixel at element (0, 0), in an `img_hw`
-    image), at the true image edges. Only the owned tile of the last sweep
-    is written. Returns (u, v)."""
+    to NaN (`k2_stage`) and swept as the kernel sweeps it
+    (`k2_window_sweeps`; with `origins`, K9's per-image (row, col) of the
+    global pixel at element (0, 0), in an `img_hw` image). Only the owned
+    tile of the last sweep is written. Returns (u, v)."""
     single = u.ndim == 2
     arrays = [a[None] if single else a for a in (u, v, ex, ey, et, inv_den)]
     b, h, w = arrays[0].shape
@@ -133,66 +213,21 @@ def k2_launch_schedule_plain(u, v, ex, ey, et, inv_den, sweeps: int,
     if th < 1 or tw < lane_cols or ww % lane_cols:
         raise ValueError(f"no K2 tile of {sweeps} sweeps in a {wh} x {ww} window")
     shard = origins is not None
-    ih, iw = img_hw if shard else (h, w)
     out_u = torch.full_like(arrays[0], float("nan"))
     out_v = torch.full_like(arrays[0], float("nan"))
-    rows_w = torch.arange(wh)
     for img in range(b):
-        org_r, org_c = (int(origins[img][0]), int(origins[img][1])) if shard else (0, 0)
+        org = (int(origins[img][0]), int(origins[img][1])) if shard else (0, 0)
         for tr0 in range(0, h, th):
             for tc0 in range(0, w, tw):
                 r0, c0 = tr0 - sweeps, tc0 - lh
-                ar, ac = rows_w + r0, torch.arange(ww) + c0
-                rin, cin = (ar >= 0) & (ar < h), (ac >= 0) & (ac < w)
-                rs, cs = rin.nonzero()[:, 0], cin.nonzero()[:, 0]
-
-                def stage(a):
-                    win = torch.full((wh, ww), float("nan"), dtype=a.dtype)
-                    win[rs[0]:rs[-1] + 1, cs[0]:cs[-1] + 1] = (
-                        a[img, ar[rs[0]]:ar[rs[-1]] + 1, ac[cs[0]]:ac[cs[-1]] + 1])
-                    return win
-
-                su, sv, fx, fy, ft, fi = (stage(a) for a in arrays)
-                gr, gc = ar + org_r, ac + org_c
-                top = (ar == 0) | (shard & (gr == 0)) | (rows_w == 0)
-                bot = (ar == h - 1) | (shard & (gr == ih - 1)) | (rows_w == wh - 1)
-                up = torch.where(top, rows_w, rows_w - 1)
-                down = torch.where(bot, rows_w, rows_w + 1)
-                lcl = cin & ((ac == 0) | (shard & (gc == 0)))
-                rcl = cin & ((ac == w - 1) | (shard & (gc == iw - 1)))
-                wr_lo, wr_hi = max(0, -r0), min(wh, h - r0)
-                du = torch.full((wh, ww), float("nan"))
-                dv = torch.full((wh, ww), float("nan"))
-                for k in range(1, sweeps + 1):
-                    rlo, rhi = max(k, wr_lo), min(wh - k, wr_hi)
-                    lo = rlo // warp_rows * warp_rows
-                    hi = min(wh, -(-rhi // warp_rows) * warp_rows)
-                    if rlo < rhi:
-                        r = rows_w[lo:hi]
-                        bars = []
-                        for a in (su, sv):
-                            t = a[up[r]] + 2.0 * a[r] + a[down[r]]
-                            tl = torch.cat([t[:, lane_cols - 1:lane_cols], t[:, :-1]], 1)
-                            tr = torch.cat([t[:, 1:], t[:, ww - lane_cols:ww - lane_cols + 1]], 1)
-                            tl = torch.where(lcl, t, tl)
-                            tr = torch.where(rcl, t, tr)
-                            s = tl + 2.0 * t + tr
-                            bars.append(s * (1.0 / 12.0) - a[r] * (1.0 / 3.0))
-                        ubar, vbar = bars
-                        frac = (fx[r] * ubar + fy[r] * vbar + ft[r]) * fi[r]
-                        du[r] = ubar - fx[r] * frac
-                        dv[r] = vbar - fy[r] * frac
-                    su, du, sv, dv = du, su, dv, sv
-                # su/sv hold the last sweep: write the owned tile.
-                rt = torch.arange(sweeps, sweeps + th)
-                rt = rt[rin[rt]]
-                ct = torch.arange(lh, lh + tw)
-                ct = ct[cin[ct]]
-                if len(rt) and len(ct):
-                    dst = (img, slice(int(ar[rt[0]]), int(ar[rt[-1]]) + 1),
-                           slice(int(ac[ct[0]]), int(ac[ct[-1]]) + 1))
-                    out_u[dst] = su[rt[0]:rt[-1] + 1, ct[0]:ct[-1] + 1]
-                    out_v[dst] = sv[rt[0]:rt[-1] + 1, ct[0]:ct[-1] + 1]
+                wins = [k2_stage(a[img], r0, c0, window) for a in arrays]
+                su, sv = k2_window_sweeps(*wins, sweeps, r0, c0, (h, w), org,
+                                          img_hw if shard else None, lane_cols, warp_rows)
+                own = k2_owned(r0, c0, sweeps, (h, w), window, lane_cols)
+                if own is not None:
+                    rows, cols, wrows, wcols = own
+                    out_u[img, rows, cols] = su[wrows, wcols]
+                    out_v[img, rows, cols] = sv[wrows, wcols]
     return (out_u[0], out_v[0]) if single else (out_u, out_v)
 
 

@@ -5,12 +5,14 @@ stack.
 Port of opticalflowhs_tpu/kernels/solve_fused.py: `hs_solve_fused` (the
 megakernel `_mega_kernel`, zero or warm start) and
 `hs_solve_fused_batched` (`_mega_kernel_b`, zero start only, as the
-reference). The CUDA source is csrc/solve_fused.cu: each sweep block runs
-s sweeps of every 64 x 64 tile on chip (K2's body), the u/v pairs
-ping-pong by block parity, the zero start is written in-kernel at block 0,
-the remainder n mod s is the last block, and a grid barrier separates the
-blocks. Launches: K1 + 1 a solve, where the K1 + K2 chain takes
-1 + ceil((n-1)/s).
+reference). The CUDA source is csrc/solve_fused.cu: K2's window loop
+(csrc/k2_window.cuh) inside a persistent cooperative grid of K2's blocks.
+Each sweep block of s sweeps is one K2 launch's walk over the stack's K2
+tiles; the u/v pairs ping-pong by block parity, the zero start is staged
+as zeros at block 0, the remainder n mod s is the last block at its own K2
+tile, and a grid barrier separates the blocks. Launches: K1 + 1 a solve,
+where the K1 + K2 chain takes 1 + ceil((n-1)/s). `fused_schedule_plain`
+walks that schedule in plain torch.
 
 Unlike the TPU kernel, which returns None outside its class, these entry
 points run every float32 size; `applicable` is the reference's class test,
@@ -29,12 +31,17 @@ from opticalflowhs_tpu_torch.kernels import _build
 from opticalflowhs_tpu_torch.kernels.derivatives import (
     batch_dims,
     check_frames,
+    derivatives_plain,
     hs_derivatives,
 )
 from opticalflowhs_tpu_torch.kernels.jacobi import (
-    THREADS,
-    TILE_H,
-    TILE_W,
+    AUTO_SWEEPS,
+    K2_LANE_COLS,
+    K2_WARP_ROWS,
+    K2_WINDOW_H,
+    K2_WINDOW_W,
+    k2_sweeps_schedule_plain,
+    k2_tile,
     sweeps_per_launch,
 )
 from opticalflowhs_tpu_torch.kernels.solve_resident import (
@@ -103,42 +110,91 @@ def hs_solve_fused_plain(i1, i2, alpha: float, n: int,
     return hs_solve_resident_plain(i1, i2, alpha, n, variant, u0, v0)
 
 
+def fused_schedule_plain(i1, i2, alpha: float, n: int, variant: str = "hs_cube",
+                         u0=None, v0=None, s: int = AUTO_SWEEPS,
+                         window=(K2_WINDOW_H, K2_WINDOW_W),
+                         lane_cols: int = K2_LANE_COLS, warp_rows: int = K2_WARP_ROWS):
+    """K6's schedule in plain PyTorch, on (H, W) or (B, H, W): the fields,
+    then ceil(n/s) sweep blocks, each one K2 launch's walk
+    (`jacobi.k2_launch_schedule_plain`: K2 tiles, NaN-staged windows), the
+    last one the remainder at its own tile, from zeros or (u0, v0) into a
+    fresh pair each block (the kernel's ping-pong). Equals the plain whole
+    solve bitwise (the tests hold it to that)."""
+    fields = derivatives_plain(i1, i2, alpha, variant)
+    u = torch.zeros_like(i1) if u0 is None else u0
+    v = torch.zeros_like(i1) if v0 is None else v0
+    return k2_sweeps_schedule_plain(u, v, *fields, n, s, window=window,
+                                    lane_cols=lane_cols, warp_rows=warp_rows)
+
+
 @functools.cache
-def resident_blocks(entry: str, device: int, s: int, tile_h: int,
-                    tile_w: int) -> int:
+def resident_blocks(entry: str, device: int) -> int:
     """The most blocks of a persistent kernel (`entry`, the C function
     hs_solve_fused_blocks or hs_solve_skewed_blocks) that can be resident
-    on `device` at once at s sweeps a block: the largest grid its
-    cooperative launch takes."""
+    on `device` at once: the largest grid its cooperative launch takes."""
     out = ctypes.c_int(0)
-    err = getattr(_build.library(), entry)(s, tile_h, tile_w, THREADS, device,
-                                           ctypes.byref(out))
+    err = getattr(_build.library(), entry)(device, ctypes.byref(out))
     _build.check(err, entry)
     return out.value
+
+
+def build_geometry(entry: str, device, sweeps: int) -> dict:
+    """A persistent kernel's build (`entry`, hs_solve_fused_geometry or
+    hs_solve_skewed_geometry) at `sweeps` on a CUDA device: K2's tile,
+    threads, shared bytes, registers a thread and spilled bytes
+    (cudaFuncGetAttributes), resident blocks a multiprocessor and
+    multiprocessors."""
+    out = (ctypes.c_int * 8)()
+    err = getattr(_build.library(), entry)(
+        sweeps, torch.device(device).index or 0,
+        ctypes.cast(out, ctypes.POINTER(ctypes.c_int)))
+    _build.check(err, entry)
+    keys = ("tile_h", "tile_w", "threads", "smem_bytes", "registers",
+            "spill_bytes", "blocks_per_sm", "sms")
+    return dict(zip(keys, list(out)))
+
+
+def k6_geometry(device, sweeps: int = 8) -> dict:
+    """K6's build at `sweeps` (`build_geometry`)."""
+    return build_geometry("hs_solve_fused_geometry", device, sweeps)
 
 
 def _ptr(a):
     return None if a is None else a.data_ptr()
 
 
+@functools.cache
+def barrier_count(device: int, stream: int) -> torch.Tensor:
+    """8 bytes of device memory for the grid barrier of K6 and K7 launches
+    on `stream` of CUDA device `device` (the C call clears them on the
+    stream before each launch). One buffer a device and stream, kept for
+    the process: the launches on one stream run in order, and a buffer
+    taken at every launch would add an allocator block to every solve's
+    working memory."""
+    return torch.empty(1, dtype=torch.int64, device=torch.device("cuda", device))
+
+
 def launch_fused(u0, v0, ex, ey, et, invd, n: int, s: int, blocks: int = 0):
     """One K6 launch: n >= 1 sweeps from (u0, v0), or from zeros when u0
-    is None, on the fields of a frame or stack. `blocks` > 0 forces the
-    grid (a grid larger than can be resident raises). Returns (u, v)."""
+    is None, on the fields of a frame or stack, s sweeps a block (K2's tile
+    at s). `blocks` > 0 forces the grid (a grid larger than can be resident
+    raises). Returns (u, v)."""
     b, h, w = batch_dims("hs_solve_fused_sweeps", ex)
     n_blocks = -(-n // s)
     ua, va = torch.empty_like(ex), torch.empty_like(ex)
     ub, vb = (ua, va) if n_blocks == 1 else (torch.empty_like(ex),
                                              torch.empty_like(ex))
     dev = ex.device.index
-    tiles = b * -(-h // TILE_H) * -(-w // TILE_W)
+    th, tw, _ = k2_tile(s)
+    tiles = b * -(-h // th) * -(-w // tw)
     grid = blocks if blocks > 0 else min(
-        tiles, resident_blocks("hs_solve_fused_blocks", dev, s, TILE_H, TILE_W))
+        tiles, resident_blocks("hs_solve_fused_blocks", dev))
+    stream = torch.cuda.current_stream(ex.device).cuda_stream
     err = _build.library().hs_solve_fused_sweeps(
         _ptr(u0), _ptr(v0), ex.data_ptr(), ey.data_ptr(), et.data_ptr(),
         invd.data_ptr(), ua.data_ptr(), va.data_ptr(), ub.data_ptr(),
-        vb.data_ptr(), b, h, w, n, s, TILE_H, TILE_W, THREADS, grid, dev,
-        torch.cuda.current_stream(ex.device).cuda_stream,
+        vb.data_ptr(), barrier_count(dev, stream).data_ptr(), b, h, w, n,
+        s, grid, dev, stream,
     )
     _build.check(err, "hs_solve_fused_sweeps")
     hs_solve_fused.launches += 1

@@ -1,8 +1,10 @@
 """K7's band/pencil schedule and the beyond-resident routing on the CPU:
-`skewed_schedule_plain` against the plain whole solve at many geometries,
-the port's class functions against the reference's, K7's tile and band
-geometry, and the K6/K7 wrappers on CPU tensors (the plain solve, no
-launch). test_torch_beyond_resident.py holds the plain solves against the
+`skewed_schedule_plain` (K2 windows on bands of K2 tiles) against the
+plain whole solve at K2's own window, the port's class functions against
+the reference's, K7's plan (tile, m, band, bands) and its cost rule, and
+the K6/K7 wrappers on CPU tensors (the plain solve, no launch).
+test_torch_whole_solve_schedule.py walks both schedules at small windows;
+test_torch_beyond_resident.py holds the plain solves against the
 reference's interpret-mode kernels.
 
 Tolerances: the schedule equals the plain whole solve bitwise (0.0; the
@@ -83,7 +85,11 @@ def test_skewed_schedule_of_a_stack_and_its_limits():
     got = k7.skewed_schedule_plain(i1, i2, 0.5, 13, "central", s=4, band=9)
     assert _max_diff(got, k7.hs_solve_skewed_plain(i1, i2, 0.5, 13, "central")) == 0.0
     with pytest.raises(ValueError, match="band"):
-        k7.skewed_schedule_plain(i1, i2, 0.5, 13, s=8, band=4)
+        k7.skewed_schedule_plain(i1, i2, 0.5, 13, s=8, band=-4)
+    with pytest.raises(ValueError, match="K2 tile"):
+        k7.skewed_schedule_plain(i1, i2, 0.5, 13, s=8, window=(16, 24))
+    with pytest.raises(ValueError, match="wide"):
+        k7.skewed_schedule_plain(i1, i2, 0.5, 13, s=4, blocks=1, window=(12, 16))
 
 
 # -- routing: the reference's classes --------------------------------------------
@@ -167,20 +173,68 @@ def test_cpu_tensors_take_the_plain_solve_and_launch_nothing():
                       k6.hs_solve_fused.launches, k7.hs_solve_skewed.launches)
 
 
-def test_k7_geometry():
-    def grid(n):
-        return lambda tile_h, tile_w: n
+# (h, w, s, blocks, band) -> K7's plan (tile_h, tile_w, m, band rows, bands).
+K7_PLANS = [
+    # 4K on 132 resident blocks: 35 x 68 tiles of 32 x 112; 3 tiles a block,
+    # 11 tile rows a band (385 of the 396 it could hold): 6 bands of 3 tiles
+    # a block and a last one of 2 tile rows, 1 a block.
+    ((2160, 3840, 8, 132, 0), (32, 112, 3, 352, 7)),
+    # 1080p: 18 x 34 tiles; 22 tile rows a band, 3 a block: 2 bands (the
+    # cost rule's tie with 3 bands of 14 rows, 2 a block, goes to fewer).
+    ((1088, 1920, 8, 132, 0), (32, 112, 3, 704, 2)),
+    # 8K: 69 tiles across, 5 tile rows a band at m = 3, 27 bands.
+    ((4320, 7680, 8, 132, 0), (32, 112, 3, 160, 27)),
+    # a forced band is rounded up to whole tile rows; m follows from it.
+    ((2160, 3840, 8, 132, 64), (32, 112, 1, 64, 34)),
+    ((2160, 3840, 8, 132, 100), (32, 112, 2, 128, 17)),
+    ((2160, 3840, 8, 132, 1), (32, 112, 1, 32, 68)),
+    # the remainder's and other s's tiles: K2's at s.
+    ((2160, 3840, 4, 132, 0), (40, 120, 3, 480, 5)),
+    ((2160, 3840, 1, 132, 0), (46, 120, 3, 552, 4)),
+    # small frames: one band of every tile row.
+    ((67, 93, 10, 4, 4), (28, 104, 1, 28, 3)),
+    ((67, 93, 8, 132, 0), (32, 112, 1, 96, 1)),
+    # a band row of 33,792 px (132 tiles of 256 before): 302 K2 tiles across.
+    ((600, 33792, 8, 132, 0), (32, 112, 3, 32, 19)),
+    ((600, 9000, 8, 132, 0), (32, 112, 2, 96, 7)),
+]
 
-    # 4K on 132 resident blocks: 64 x 64 tiles, two rows of them a band.
-    assert k7.geometry(2160, 3840, 8, grid(132)) == (128, 64, 64)
-    assert k7.geometry(2160, 3840, 8, grid(132), band=64) == (64, 64, 64)
-    # wider than 132 tiles of 64: 128-wide tiles, as tall as shared memory
-    # allows at s = 8.
-    band, tile_h, tile_w = k7.geometry(600, 9000, 8, grid(132))
-    assert (tile_w, tile_h) == (128, 32) and band % tile_h == 0
-    assert k2.smem_bytes(8, tile_h, tile_w) <= k2.SMEM_BYTES
-    assert k7.geometry(67, 93, 10, grid(4), band=4) == (10, 64, 64)  # band >= s
+
+@pytest.mark.parametrize("args,plan", K7_PLANS)
+def test_k7_geometry(args, plan):
+    h, w, s, blocks, band = args
+    got = k7.geometry(h, w, s, blocks, band)
+    assert got == plan
+    th, tw, m, band_rows, bands = got
+    assert (th, tw) == k2.k2_tile(s)[:2] and band_rows % th == 0
+    tiles_x, tiles_y = -(-w // tw), -(-h // th)
+    band_ty = band_rows // th
+    assert 1 <= m <= k7.MAX_TILES and min(band_ty, tiles_y) * tiles_x <= m * blocks
+    assert bands == -(-tiles_y // band_ty) and (bands - 1) * band_ty < tiles_y
+
+
+def test_k7_geometry_cost_rule_and_refusals():
+    # The cost rule: the sum over the bands of (the most tiles a block has
+    # in the band + a barrier's share), fewer than 3 bands one barrier more;
+    # no other band of the same frame costs less.
+    def cost(h, w, band_rows):
+        th, tw, _ = k2.k2_tile(8)
+        tiles_x, tiles_y, band_ty = -(-w // tw), -(-h // th), band_rows // th
+        ms = [-(-min(band_ty, tiles_y - r) * tiles_x // 132) for r in range(0, tiles_y, band_ty)]
+        return sum(ms) + k7._STEP_COST * (len(ms) + (len(ms) < 3))
+
+    for h, w in ((2160, 3840), (1088, 1920), (4320, 7680), (600, 9000), (2880, 5120)):
+        best = k7.geometry(h, w, 8, 132)
+        th = best[0]
+        for rows in range(1, -(-h // th) + 1):
+            try:
+                other = k7.geometry(h, w, 8, 132, band=rows * th)
+            except ValueError:
+                continue
+            assert cost(h, w, best[3]) <= cost(h, w, other[3]) + 1e-9, (h, w, rows)
     with pytest.raises(ValueError, match="wide"):
-        k7.geometry(100, 40000, 8, grid(132))
+        k7.geometry(100, 3 * 132 * 112 + 1, 8, 132)
     with pytest.raises(ValueError, match="resident blocks"):
-        k7.geometry(2160, 3840, 8, grid(132), band=256)
+        k7.geometry(2160, 3840, 8, 132, band=384)  # 12 tile rows x 35 > 396
+    with pytest.raises(ValueError, match="resident blocks"):
+        k7.geometry(131, 130, 8, 2, band=128)  # 5 tile rows x 2 > 6

@@ -594,6 +594,138 @@ def test_k6_k7_failures_raise(dev):
     assert (k6.hs_solve_fused.launches, k7.hs_solve_skewed.launches) == before
 
 
+# K2's tile is 32 x 112 at s = 8: shapes just past it and its rows and
+# columns, and one or two rows past a lane (4) of columns.
+K6_K7_EDGE_SHAPES = [(33, 113), (32, 113), (33, 112), (65, 225), (1, 113), (97, 5)]
+K6_K7_MAX_S = k2.sweeps_per_launch(1000)  # the highest s a block_sweeps gives
+
+
+@pytest.mark.parametrize("shape", K6_K7_EDGE_SHAPES)
+@pytest.mark.parametrize("s", range(1, K6_K7_MAX_S + 1))
+def test_k6_k7_every_s_at_edge_shapes(dev, shape, s):
+    i1, i2 = _rand(shape, dev, 48)
+    u0, v0 = _rand(shape, dev, 49, normal=True)
+    n = 2 * s + 1  # three sweep blocks, the last one the remainder 1
+    for init in ((None, None), (u0, v0)):
+        want = k6.hs_solve_fused_plain(i1, i2, 0.5, n, "hs_cube", *init)
+        _equal(k6.hs_solve_fused(i1, i2, 0.5, n, "hs_cube", *init, block_sweeps=s), want)
+        _equal(k7.hs_solve_skewed(i1, i2, 0.5, n, "hs_cube", *init, block_sweeps=s), want)
+        _equal(k7.hs_solve_skewed(i1, i2, 0.5, n, "hs_cube", *init, block_sweeps=s,
+                                  band=1, blocks=1), want)
+
+
+@pytest.mark.parametrize("s", [1, 8, k2.K2_MAX_SWEEPS])
+def test_k6_k7_launches_at_the_largest_s(dev, s):
+    # The C entry points take s up to K2's 16 (block_sweeps stops at 10).
+    i1, i2 = _rand((70, 250), dev, 50)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    z = torch.zeros_like(i1)
+    want = k2.jacobi_sweeps_plain(z, z, *fields, 3 * s + 2)
+    _equal(k6.launch_fused(None, None, *fields, 3 * s + 2, s), want)
+    _equal(k7.launch_skewed(None, None, *fields, 3 * s + 2, s), want)
+    _equal(k7.launch_skewed(None, None, *fields, 3 * s + 2, s, band=1, blocks=2), want)
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 3])
+@pytest.mark.parametrize("b", [1, 3])
+def test_k6_on_small_grids_walks_many_tiles(dev, blocks, b):
+    shape = (b, 131, 300) if b > 1 else (131, 300)  # 5 x 3 tiles an image at s 8
+    i1, i2 = _rand(shape, dev, 51)
+    want = k6.hs_solve_fused_plain(i1, i2, 0.5, 27, "hs_cube")
+    _equal(k6.hs_solve_fused(i1, i2, 0.5, 27, "hs_cube", blocks=blocks), want)
+    _equal(k6.hs_solve_fused(i1, i2, 0.5, 27, "hs_cube", blocks=blocks, block_sweeps=4), want)
+
+
+@pytest.mark.parametrize("w", [64, 93, 130])
+@pytest.mark.parametrize("blocks", [0, 1, 3])
+def test_k6_k7_unaligned_views_equal_plain(dev, w, blocks):
+    # Contiguous views 4 bytes off a 16-byte boundary take the 4-byte path,
+    # which reads u/v around the SM's L1 (__ldcg): a pair is re-read two
+    # sweep blocks after an SM last held it, so n covers at least 3 blocks.
+    h = 70
+    flat = [torch.from_numpy(np.random.default_rng(52 + k).normal(0, 0.5, 1 + h * w)
+                             .astype(np.float32)).to(dev) for k in range(4)]
+    u0, v0, i1, i2 = (f[1:].view(h, w) for f in flat)
+    i1, i2 = i1.abs(), i2.abs()
+    for n in (29, 40):
+        want = k6.hs_solve_fused_plain(i1, i2, 0.5, n, "hs_cube", u0, v0)
+        _equal(k6.hs_solve_fused(i1, i2, 0.5, n, "hs_cube", u0, v0, blocks=blocks), want)
+        for band in (0, 1):
+            _equal(k7.hs_solve_skewed(i1, i2, 0.5, n, "hs_cube", u0, v0, band=band,
+                                      blocks=blocks), want)
+
+
+# (shape, band rows, blocks) -> K7's m and bands at s 8 (32 x 112 tiles).
+K7_FORCED = [
+    ((70, 250), 1, 3, 1, 3),     # 3 tiles a band on 3 blocks: m 1, 3 bands
+    ((70, 250), 33, 3, 2, 2),    # 2 tile rows, 6 tiles on 3 blocks: m 2, 2 bands
+    ((70, 250), 96, 3, 3, 1),    # the whole frame, 9 tiles on 3 blocks: m 3, 1 band
+    ((200, 250), 64, 2, 3, 4),   # 6 tiles on 2 blocks: m 3, 4 bands
+    ((200, 250), 32, 1, 3, 7),   # one tile row on 1 block: m 3, 7 bands
+    ((200, 500), 32, 5, 1, 7),   # 5 tiles a band on 5 blocks: m 1, 7 bands
+    ((130, 600), 64, 4, 3, 3),   # 12 tiles on 4 blocks: m 3, 3 bands
+]
+
+
+@pytest.mark.parametrize("shape,band,blocks,m,bands", K7_FORCED)
+@pytest.mark.parametrize("n", [8, 17, 100])
+def test_k7_forced_bands_and_tiles_a_block(dev, shape, band, blocks, m, bands, n):
+    plan = k7.geometry(*shape, 8, blocks, band)
+    assert (plan[2], plan[4]) == (m, bands)
+    i1, i2 = _rand(shape, dev, 53)
+    u0, v0 = _rand(shape, dev, 54, normal=True)
+    for init in ((None, None), (u0, v0)):
+        got = k7.hs_solve_skewed(i1, i2, 0.5, n, "central", *init, band=band, blocks=blocks)
+        _equal(got, k7.hs_solve_skewed_plain(i1, i2, 0.5, n, "central", *init))
+        _equal(got, sr.hs_solve_resident(i1, i2, 0.5, n, "central", *init))
+
+
+def test_k7_on_a_wide_frame(dev):
+    # 12,000 px across: 108 tiles of 112 a row; on 40 blocks 3 a block.
+    i1, i2 = _rand((70, 12000), dev, 55)
+    want = k7.hs_solve_skewed_plain(i1, i2, 0.5, 17, "hs_cube")
+    assert k7.geometry(70, 12000, 8, 40)[2] == 3
+    _equal(k7.hs_solve_skewed(i1, i2, 0.5, 17, blocks=40), want)
+    _equal(k7.hs_solve_skewed(i1, i2, 0.5, 17), want)
+    _equal(k6.hs_solve_fused(i1, i2, 0.5, 17), want)
+    with pytest.raises(ValueError, match="wide"):
+        k7.hs_solve_skewed(i1, i2, 0.5, 17, blocks=30)  # 108 > 3 x 30
+
+
+@pytest.mark.parametrize("s", range(1, K6_K7_MAX_S + 1))
+def test_k6_k7_geometry_has_no_spills(dev, s):
+    for geo in (k6.k6_geometry(dev, s), k7.k7_geometry(dev, 2160, 3840, s)):
+        assert (geo["tile_h"], geo["tile_w"]) == k2.k2_tile(s)[:2]
+        assert geo["threads"] == k2.K2_THREADS and geo["spill_bytes"] == 0
+        assert 0 < geo["registers"] <= 65536 // k2.K2_THREADS
+        assert geo["blocks_per_sm"] >= 1
+    assert k6.k6_geometry(dev, s)["smem_bytes"] == k2.K2_SMEM_BYTES
+    geo = k7.k7_geometry(dev, 2160, 3840, s)
+    assert geo["smem_bytes"] == 4 * k2.K2_SMEM_BYTES // 3
+    assert (geo["m"], geo["band"], geo["bands"]) == k7.geometry(2160, 3840, s, geo["grid"])[2:]
+
+
+def test_k6_k7_refusals(dev):
+    i1, i2 = _rand((131, 130), dev, 56)
+    u0, v0 = _rand((131, 130), dev, 57, normal=True)
+    before = (k6.hs_solve_fused.launches, k7.hs_solve_skewed.launches)
+    grid = k6.resident_blocks("hs_solve_fused_blocks", 0)
+    with pytest.raises(RuntimeError, match="hs_solve_fused_sweeps"):
+        k6.hs_solve_fused(i1, i2, 0.5, 9, blocks=grid + 1)   # one block too many
+    with pytest.raises(RuntimeError, match="hs_solve_skewed_sweeps"):
+        k7.hs_solve_skewed(i1, i2, 0.5, 9, blocks=grid + 1)
+    with pytest.raises(ValueError, match="resident blocks"):
+        k7.hs_solve_skewed(i1, i2, 0.5, 9, band=200, blocks=1)  # 10 tiles > 3
+    for solve in (k6.hs_solve_fused, k7.hs_solve_skewed):
+        with pytest.raises(RuntimeError, match="grad"):
+            solve(i1, i2, 0.5, 9, "hs_cube", u0.clone().requires_grad_(), v0)
+        with pytest.raises(RuntimeError, match="grad"):
+            solve(i1, i2, 0.5, 9, "hs_cube", u0, v0.clone().requires_grad_())
+    assert (k6.hs_solve_fused.launches, k7.hs_solve_skewed.launches) == before
+    # The stream is still usable: no refused launch left an error behind.
+    _equal(k6.hs_solve_fused(i1, i2, 0.5, 9), k6.hs_solve_fused_plain(i1, i2, 0.5, 9))
+
+
 # -- K8 (the SOR solve on parity planes), multigrid, the gradient guard ---------
 
 # Every parity of h and w (the reference's test shapes, and 67x93), and

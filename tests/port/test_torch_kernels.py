@@ -146,6 +146,17 @@ def test_nvcc_command_targets_hopper_without_fma():
         assert any(f'extern "C" int {name}(' in s.read_text() for s in srcs), name
 
 
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_signature_has_the_c_entry_points_arguments(name):
+    # ctypes passes what SIGNATURES says: one argument more or less than the
+    # C declaration shifts every argument after it.
+    text = next(s.read_text() for s in _build.sources()
+                if f'extern "C" int {name}(' in s.read_text())
+    decl = text[text.index(f'extern "C" int {name}(') + len(f'extern "C" int {name}('):]
+    params = decl[:decl.index(")")]
+    assert params.count(",") + 1 == len(_build.SIGNATURES[name]), params
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.delenv("CUDA_PATH", raising=False)

@@ -1,27 +1,34 @@
 #!/usr/bin/env python3
 """Time the port's sweep kernels per launch and the solves built on them, on
-one CUDA card: one K2 launch of 8 sweeps against K6 (`hs_solve_fused`) and
-K7 (`hs_solve_skewed`) launches of 8 and 96 sweeps on the same fields, and
-the K1 + K2 chain of a whole i100 solve (`solve_resident.hs_solve_resident`,
-1 K1 and 13 K2 launches); a K2 launch of 8 sweeps at 67x93 and on an 8 x
-1088x1920 stack; K9 (`kernels.tile.tile_sweeps`) on config 5's 16 shards of
-548x968 at 4 sweeps a launch; K11 and K12 (`kernels.ring`) as whole i100
-solves of config 5's 4 x 1 and 2 x 2 meshes.
+one CUDA card: one K2 launch of 8 sweeps against a K6 (`hs_solve_fused`) and
+a K7 (`hs_solve_skewed`) sweep block of 8 and launches of 96 sweeps on the
+same fields (K7 at each m and band of its plan, and at bands forced to
+other m); the K1 + K2 chain of a whole i100 solve
+(`solve_resident.hs_solve_resident`, 1 K1 and 13 K2 launches); the whole
+solves of chip_smoke.py's phase 13 through their entry points (L1
+`hs_solve` 2160x3840, L2 4320x7680 and 1088x1920 `central`, L4 the batched
+twins on 2 x 2160x3840, all i100; L3 `hs_pyramid` 3 levels at
+2160x3840, alpha 1, on the same noise frames, K7 at level 0); a K2 launch
+of 8 sweeps at 67x93 and on an 8 x 1088x1920 stack; K9
+(`kernels.tile.tile_sweeps`) on config 5's 16
+shards of 548x968 at 4 sweeps a launch; K11 and K12 (`kernels.ring`) as
+whole i100 solves of config 5's 4 x 1 and 2 x 2 meshes.
 
     python3 tools/torch_whole_solve_timing.py [--repo DIR] [--reps N]
 
 Frames are chip_smoke.py's noise (default_rng(0)) at 4320x7680, 2160x3840
 and 1088x1920, alpha 0.5, the fields computed once by K1; the sweeps start
-from zero. A K6 launch of 8 sweeps is one sweep block with no grid barrier,
-so it holds K6's per-tile code against K2's launch; 96 sweeps is 12 blocks.
-K7 runs at 4K and 1080p with bands of one and two rows of 64 x 64 tiles
-(its own choice is two on 132 resident blocks). K9, K11 and K12 take
-chip_smoke.py's phase-15 inputs. Each time is the device time per call
-from CUDA events over N calls after one warm-up call.
+from zero. A K6 or K7 launch of 8 sweeps is one sweep block with no grid
+barrier between blocks, so it holds the kernel's per-tile code against K2's
+launch; 96 sweeps is 12 blocks. K9, K11 and K12 take chip_smoke.py's
+phase-15 inputs. Each time is the device time per call from CUDA events
+over N calls after one warm-up call.
 
 Imports opticalflowhs_tpu_torch from DIR (default: this checkout), so two
-trees can be compared on one card in one run. Prints the card's name
-and power limit, then one JSON line.
+trees can be compared on one card in one run; a tree whose K7 has no plan
+of m tiles a block (before K2's window loop) gets bands of one and two
+rows of its 64 x 64 tiles. Prints the card's name and power limit, then
+one JSON line.
 """
 
 from __future__ import annotations
@@ -50,6 +57,23 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def k7_bands(k7, h: int, w: int) -> dict:
+    """Band rows to time K7 at, by name: its own plan and one band a value
+    of m (the K2-window tree), or one and two rows of 64 x 64 tiles."""
+    if not hasattr(k7, "MAX_TILES"):
+        return {"band64": 64, "band128": 128}
+    out = {}
+    plan = k7.geometry(h, w, 8, 132)
+    out[f"plan_m{plan[2]}_bands{plan[4]}"] = 0
+    th = plan[0]
+    for m in range(1, k7.MAX_TILES + 1):
+        rows = m * 132 // -(-w // plan[1])  # the most tile rows a band at m
+        if rows >= 1:
+            got = k7.geometry(h, w, 8, 132, rows * th)
+            out[f"m{got[2]}_bands{got[4]}"] = rows * th
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=str(HERE))
@@ -61,6 +85,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.repo).resolve()))
     sys.path.insert(1, str(HERE))
     import chip_smoke
+    from opticalflowhs_tpu_torch import HSConfig, PyramidConfig, hs_pyramid, hs_solve
     from opticalflowhs_tpu_torch.kernels import derivatives as k1
     from opticalflowhs_tpu_torch.kernels import jacobi as k2
     from opticalflowhs_tpu_torch.kernels import ring
@@ -85,11 +110,34 @@ def main() -> int:
         for n in (8, 96):
             row[f"k6_{n}"] = event_ms(lambda: k6.launch_fused(z, z, *fields, n, 8), args.reps)
             if h * w < 20_000_000:
-                for band in (64, 128):
-                    row[f"k7_{n}_band{band}"] = event_ms(
+                for tag, band in k7_bands(k7, h, w).items():
+                    row[f"k7_{n}_{tag}"] = event_ms(
                         lambda: k7.launch_skewed(z, z, *fields, n, 8, band=band), args.reps)
+        cfg = HSConfig(alpha=0.5, iters=100)
+        if (h, w) == (2160, 3840):
+            row["L1_hs_solve_i100"] = event_ms(lambda: hs_solve(i1, i2, cfg), args.reps)
+            row["L3_hs_pyramid_l3_i100"] = event_ms(
+                lambda: hs_pyramid(i1, i2, HSConfig(alpha=1.0, iters=100),
+                                   PyramidConfig(levels=3)), args.reps)
+            ba, bb = (torch.stack([a, a.flip(0)]) for a in (i1, i2))
+            row["L4_fused_2x_i100"] = event_ms(
+                lambda: k6.hs_solve_fused_batched(ba, bb, 0.5, 100), args.reps)
+            row["L4_skewed_2x_i100"] = event_ms(
+                lambda: k7.hs_solve_skewed_batched(ba, bb, 0.5, 100), args.reps)
+            row["L4_chain_2x_i100"] = event_ms(
+                lambda: sr.hs_solve_resident_batched(ba, bb, 0.5, 100), args.reps)
+            del ba, bb
+        elif (h, w) == (4320, 7680):
+            row["L2_hs_solve_i100"] = event_ms(lambda: hs_solve(i1, i2, cfg), args.reps)
+        else:
+            cfg_c = HSConfig(alpha=0.5, iters=100, deriv_variant="central")
+            row["L2_central_hs_solve_i100"] = event_ms(lambda: hs_solve(i1, i2, cfg_c),
+                                                       args.reps)
+            row["L2_central_chain_i100"] = event_ms(
+                lambda: sr.hs_solve_resident(i1, i2, 0.5, 100, "central"), args.reps)
         out[f"{h}x{w}"] = row
         print(f"{h}x{w}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()), flush=True)
+        del fields, z, uo, vo, i1, i2
     for name, shape in (("67x93", (67, 93)), ("8x1088x1920", (8, 1088, 1920))):
         rng = np.random.default_rng(0)
         i1, i2 = (torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to(dev)
@@ -127,7 +175,7 @@ def main() -> int:
     print("config5: " + ", ".join(f"{k} {v:.4f} ms" for k, v in out["config5"].items()),
           flush=True)
     print(chip_smoke.card_line())
-    print(json.dumps({"whole_solve_ms": out, "reps": args.reps,
+    print(json.dumps({"whole_solve_ms": out, "reps": args.reps, "repo": args.repo,
                       "device": torch.cuda.get_device_name(0)}))
     return 0
 
