@@ -53,8 +53,10 @@ each ran through the kernels:
               solves) against their plain versions (K9 also with true
               image edges at K2's warp and lane boundaries) on virtual
               meshes of cuda:0 (1x1, 2x1, 4x1, 2x2, 1x4) and at config 5's
-              shapes
-              (where they are timed); then config 5
+              shapes (where they are timed: K11 and K12 also a sweep block
+              beside a K9 launch, their geometry, and a block's time
+              beyond the K9 launch: exchange, flag waits, barrier); then
+              config 5
               (configs/c5_multihost_4k.json) through dist/ on virtual
               meshes: hs_solve_tiled 2160x3840 i100 halo_sweeps 4 on 4 x 4
               (D1), hs_pyramid_tiled L3 (D2), halo_impl="rdma" on 4 x 1
@@ -107,15 +109,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 67e12
 # float32 operations per pixel, counted from the sources: K1 with the
 # zero-start sweep (hs_cube: 16 for Ex/Ey, 2 scales, 8 for Et, 5 for invd,
-# 5 for u1/v1); a Jacobi sweep of the shared loop (jacobi_tile.cuh: K11,
-# K12), 15 per neighbour average, 5 for frac, 4 for the update; K2's window
-# loop (k2_window.cuh: K2, K9, K6, K7) per sweep, each column sum once: 9 per
-# neighbour average, so 27.
+# 5 for u1/v1); K2's window loop (k2_window.cuh: K2, K9, K6, K7, K11, K12)
+# per sweep, each column sum once: 9 per neighbour average, 5 for frac, 4
+# for the update, so 27.
 K1_FLOPS_PER_PX = 36
-SWEEP_FLOPS_PER_PX = 39
 K2_FLOPS_PER_PX_SWEEP = 27
-# K3 per sweep: one SOR update a pixel (its color's stage): the shared
-# loop's 39 and the blend, 3 for each of u and v. K4 freeze: 8 for wd, 14 for ws (an rsqrt
+# K3 per sweep: one SOR update a pixel (its color's stage): 39 for the
+# update as sor.cu computes it (15 per neighbour average, 5 for frac, 4 for
+# the update) and the blend, 3 for each of u and v. K4 freeze: 8 for wd, 14 for ws (an rsqrt
 # counted as one). K4 per sweep: 8 edge weights, 3 for their sum, 14 for
 # the two neighbour sums, 25 for the 2x2 solve (one division).
 K3_FLOPS_PER_PX_SWEEP = 45
@@ -1296,7 +1297,7 @@ def tiled_path(dev, pair, stack) -> list:
                             ring.ring_halo_exchange_plain(tiles, halo)):
                 same("hs_ring_halo_exchange", (g,), (r,), f"K10 ring of {my} halo {halo}")
         for n in (7, 12, 13):
-            for s in (4, 8):
+            for s in (1, 3, 4, 8):
                 gu, gv, gf, go = _ring_inputs(dev, my, mx, th, tw, 8, 170 + n + s, h, w)
                 if mx == 1:
                     args = ([r[0] for r in gu], [r[0] for r in gv], [r[0] for r in gf], n, s,
@@ -1312,7 +1313,7 @@ def tiled_path(dev, pair, stack) -> list:
                 same(name, got[0] + got[1], want[0] + want[1],
                      f"{'K11' if mx == 1 else 'K12'} {my}x{mx} n={n} s={s}")
         print(f"phase 15 mesh {my}x{mx} (virtual, cuda:0): K10 halo 4, 8 and "
-              f"{'K11' if mx == 1 else 'K12'} n 7, 12, 13 with s 4, 8 = plain bitwise")
+              f"{'K11' if mx == 1 else 'K12'} n 7, 12, 13 with s 1, 3, 4, 8 = plain bitwise")
 
     # -- config 5 through dist/, counted ------------------------------------------
     cfg5, pyr5, mcfg = c5_configs()
@@ -1450,8 +1451,44 @@ def tiled_path(dev, pair, stack) -> list:
     print("phase 15 K9 (16 x 548x968 and SOR 16 x 572x992, 4 sweeps), K10 (4 x 540x3840, "
           "halo 5), K11 (4 x 1, n 100) and K12 (2 x 2, n 100) at config 5's shapes: "
           "= plain bitwise")
+    # -- K11 and K12: their geometry, a sweep block beside a K9 launch of
+    # the same sweeps, and the tile order of the flag waits --------------------
+    n_blk = -(-100 // hw)
+    for tag, two in (("K11", False), ("K12", True)):
+        g = ring.ring_geometry(dev, hw, two_d=two)
+        require(g["spill_bytes"] == 0 and 0 < g["registers"] <= 128 and g["blocks_per_sm"] == 1,
+                f"{tag} geometry {g}: expected at most 128 registers, no spills, 1 block an SM")
+        print(f"phase 15 {tag} geometry at s {hw}: {g}")
+    # A sweep block: a solve of n_blk blocks less one of half as many, both
+    # long enough that the card, not the host, sets their pace.
+    half = n_blk // 2
+    half41 = a41[:3] + (half * hw,) + a41[4:]
+    half22 = a22[:3] + (half * hw,) + a22[4:]
+    half_ms = {"hs_ring_fused_sweeps": event_ms(lambda: ring.ring_fused_sweeps(*half41), reps=10),
+               "hs_ring_fused_sweeps_2d": event_ms(lambda: ring.ring_fused_sweeps_2d(*half22),
+                                                   reps=10)}
+    block_of = {n: (timing[n][0] - half_ms[n]) / (n_blk - half) for n in half_ms}
+    print(f"phase 15 a sweep block of {hw} at config 5's shapes (a solve of {n_blk} blocks "
+          f"less a solve of {half}, over {n_blk - half}): K11 4 x 1 "
+          f"{block_of['hs_ring_fused_sweeps']:.4f} ms, K12 2 x 2 "
+          f"{block_of['hs_ring_fused_sweeps_2d']:.4f} ms; a K9 launch of {hw} over D1's "
+          f"16 x {ph}x{pw} {timing['hs_tile_sweeps'][0]:.4f} ms; solves of {half} blocks "
+          f"{half_ms}")
+    # K11 walks its tiles in one order: the interior tile rows first, the
+    # edge rows, whose windows reach a halo and may wait for its flag, last.
+    # What a sweep block takes beyond a K9 launch of the same sweeps over
+    # nearly as many pixels is its exchange, its flag waits and its grid
+    # barrier; tools/torch_ring_limits.py cuts them out one at a time.
+    beyond = {n: block_of[n] - timing["hs_tile_sweeps"][0] for n in block_of}
+    print(f"phase 15 K11 tile order: interior tile rows first, edge rows (the flag waits) "
+          f"last; a sweep block beyond a K9 launch of {hw} (exchange, flag waits, grid "
+          f"barrier): K11 4 x 1 {beyond['hs_ring_fused_sweeps']:.4f} ms, K12 2 x 2 "
+          f"{beyond['hs_ring_fused_sweeps_2d']:.4f} ms")
+
     px9, px9s = 16 * ph * pw, 16 * ph_s * pw_s
     owned = H * W
+    ext41 = 4 * (th + 2 * hw) * W
+    ext22 = 4 * (H // 2 + 2 * hw) * (W // 2 + 2 * hw)
     halo41 = 2 * 2 * 4 * hw * W * 4           # u and v, both sides, 4 shards
     halo22 = 2 * 2 * 4 * (hw * (W // 2) + (H // 2 + 2 * hw) * hw) * 4
     bounds = {
@@ -1459,12 +1496,18 @@ def tiled_path(dev, pair, stack) -> list:
         "hs_sor_tile_sweeps": bound_ms(SWEEP_BLOCK_ARRAYS * 4 * px9s,
                                        K3_FLOPS_PER_PX_SWEEP * hw * px9s),
         "hs_ring_halo_exchange": bound_ms(4 * (2 * owned + 4 * 2 * (hw + 1) * W), 0),
-        "hs_ring_fused_sweeps": bound_ms(4 * (4 * (owned + 4 * 2 * hw * W) + 2 * owned),
-                                         SWEEP_FLOPS_PER_PX * 100 * owned),
-        "hs_ring_fused_sweeps_2d": bound_ms(
-            4 * (4 * 4 * (H // 2 + 2 * hw) * (W // 2 + 2 * hw) + 2 * owned),
-            SWEEP_FLOPS_PER_PX * 100 * owned),
+        # The four fields of the extended shards and the start in, u and v
+        # out, once a solve; 27 operations a pixel a sweep.
+        "hs_ring_fused_sweeps": bound_ms(4 * (4 * ext41 + 4 * owned),
+                                         K2_FLOPS_PER_PX_SWEEP * 100 * owned),
+        "hs_ring_fused_sweeps_2d": bound_ms(4 * (4 * ext22 + 4 * owned),
+                                            K2_FLOPS_PER_PX_SWEEP * 100 * owned),
     }
+    # The byte floor of the kernels' schedule: a sweep block moves K2's 8
+    # arrays of the extended shards, ceil(n/s) times a solve.
+    schedule_ms = {n: n_blk * SWEEP_BLOCK_ARRAYS * 4 * ext / PEAK_BYTES_PER_S * 1e3
+                   for n, ext in (("hs_ring_fused_sweeps", ext41),
+                                  ("hs_ring_fused_sweeps_2d", ext22))}
     # Bounds of the work across cards, from the data sheet's NVLink rate: on
     # the text lines only, since the kernels line holds what this run measured.
     block_ms = SWEEP_BLOCK_ARRAYS * 4 * owned / PEAK_BYTES_PER_S * 1e3
@@ -1482,9 +1525,15 @@ def tiled_path(dev, pair, stack) -> list:
                                "shape": [16, ph_s, pw_s], "sweeps_per_launch": hw},
         "hs_ring_halo_exchange": {"shards": [4, th, W], "halo": hw + 1},
         "hs_ring_fused_sweeps": {"mesh": [4, 1], "n": 100, "s": hw,
-                                 "solve_ms_D3": ms["D3 4x1"]},
+                                 "solve_ms_D3": ms["D3 4x1"],
+                                 "block_ms": block_of["hs_ring_fused_sweeps"],
+                                 "schedule_bound_ms": schedule_ms["hs_ring_fused_sweeps"],
+                                 "geometry": ring.ring_geometry(dev, hw)},
         "hs_ring_fused_sweeps_2d": {"mesh": [2, 2], "n": 100, "s": hw,
-                                    "solve_ms_D3": ms["D3 2x2"]},
+                                    "solve_ms_D3": ms["D3 2x2"],
+                                    "block_ms": block_of["hs_ring_fused_sweeps_2d"],
+                                    "schedule_bound_ms": schedule_ms["hs_ring_fused_sweeps_2d"],
+                                    "geometry": ring.ring_geometry(dev, hw, two_d=True)},
     }
     for name, (t_k, t_p) in timing.items():
         print(f"kernel {name}: {t_k:.4f} ms per call, plain {t_p:.4f} ms, bound "

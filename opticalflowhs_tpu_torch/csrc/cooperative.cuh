@@ -1,11 +1,11 @@
 // Helpers for the persistent cooperative kernels K6 (solve_fused.cu), K7
 // (solve_skewed.cu), K11 and K12 (ring.cu): how many blocks can be resident
-// at once, the launch, and K6's and K7's grid barrier. A grid-wide barrier
-// is only safe when every block of the grid is resident;
+// at once, the launch, and their grid barrier. A grid-wide barrier is only
+// safe when every block of the grid is resident;
 // cudaLaunchCooperativeKernel refuses a larger grid
 // (cudaErrorCooperativeLaunchTooLarge), and the entry points return that
-// error instead of deadlocking. Grid sync needs no relocatable device code
-// (-rdc) since CUDA 11, so the build flags stay those of every other kernel.
+// error instead of deadlocking. The barrier needs no relocatable device
+// code (-rdc), so the build flags stay those of every other kernel.
 
 #pragma once
 
@@ -57,10 +57,10 @@ cudaError_t launch(Kernel kernel, int grid, int threads, size_t smem,
 // counts the blocks' arrivals; the n-th barrier of the launch (n = 1, 2,
 // ...) waits until every block has arrived n times. The count is a kernel
 // parameter and n a value the caller holds anyway, so the barrier keeps
-// nothing in registers across the code around it: K6 and K7 run K2's
-// sweeps, which need all 128 registers a thread, and cooperative_groups'
-// grid sync, which keeps its workspace live through the whole kernel,
-// made them spill and run each tile slower on an H100. The block's
+// nothing in registers across the code around it: K6, K7, K11 and K12 run
+// K2's sweeps, which need all 128 registers a thread, and
+// cooperative_groups' grid sync, which keeps its workspace live through the
+// whole kernel, made them spill and run each tile slower on an H100. The block's
 // writes, ordered before thread 0's by the first __syncthreads, are
 // released by its fence and arrival, and acquired by every block after
 // the wait.

@@ -1,6 +1,7 @@
 // K2's window loop: the temporally blocked Jacobi sweeps of one persistent
 // block of 512 threads walking 48 x 128 windows, shared by K2 and K9
-// (jacobi.cu), K6 (solve_fused.cu) and K7 (solve_skewed.cu).
+// (jacobi.cu), K6 (solve_fused.cu), K7 (solve_skewed.cu), K11 and K12
+// (ring.cu).
 //
 //   * Each tile is the centre of a 48 x 128 window: the tile grown by s rows
 //     above and below, and by s columns rounded up to 4 on the left and at
@@ -34,6 +35,16 @@
 //     writes do not invalidate: the 16-byte copies (cp.async.cg) already
 //     are; the 4-byte ones become __ldcg loads and shared stores
 //     (cp.async.ca may allocate in L1).
+//   * `walk_owned` is the walk of K11 and K12: it covers only the owned
+//     rectangle of each image, rows [oy, h - oy) and columns [ox, w - ox),
+//     and writes only its pixels, so that the halo around it, which the
+//     ring's neighbours store into during the launch, is never written by
+//     a sweep; it walks the interior tile rows first, and its Ring is
+//     called before each tile is staged. It has functions of its own
+//     (tile_owned, sweep_owned) beside walk_tiles and sweep_tile, which
+//     stay as they were, so that K2, K9, K6 and K7 build to the same code;
+//     they are static, so a source that does not walk a ring compiles none
+//     of them (with external linkage they changed K2's SASS).
 //
 // Exactness: the association order is that of ops/stencils.py
 // (neighbor_avg, jacobi_step), the constants are the float32 values of
@@ -468,6 +479,109 @@ __device__ __forceinline__ void walk_tiles(float* smem, const Args& a, bool live
     sweep_tile<kShard>(smem, cur, dst, a, geo, tile, ln, f);
     // Every thread is done with this tile's pairs before the next staging
     // reuses one of them.
+    __syncthreads();
+    const int x = spare;
+    spare = cur;
+    cur = x;
+  }
+}
+
+// -- K11, K12: the walk over the owned rectangles of a ring's images ----------
+
+// Image, tile row and tile column of tile t of the owned rectangles: the
+// interior tile rows of every image first and each image's first and last
+// tile rows after them all (K11: the tiles whose windows reach a halo row,
+// which may have to wait for it, last).
+static __device__ __forceinline__ void tile_index(const Args& a, int t, int& img, int& ty,
+                                                  int& tx) {
+  const int mid = max(a.tiles_y - 2, 0);
+  const int n_mid = a.b * mid * a.tiles_x;
+  const bool edge = t >= n_mid;
+  const int rows = edge ? a.tiles_y - mid : mid;
+  if (edge) t -= n_mid;
+  img = t / (rows * a.tiles_x);
+  const int rem = t - img * rows * a.tiles_x;
+  const int r = rem / a.tiles_x;
+  tx = rem - r * a.tiles_x;
+  ty = edge ? (r == 0 ? 0 : a.tiles_y - 1) : 1 + r;
+}
+
+// Tile t of the owned rectangles, which start at row oy and column ox.
+static __device__ __forceinline__ Tile tile_owned(const Args& a, const Geometry& g, int t, int oy,
+                                           int ox) {
+  int img, ty, tx;
+  tile_index(a, t, img, ty, tx);
+  Tile x = tile_rc(a, g, img, ty, tx);
+  x.r0 += oy;
+  x.c0 += ox;
+  x.wr_lo = max(0, -x.r0);
+  x.wr_hi = min(kWinH, a.h - x.r0);
+  x.org_r = a.org[2 * img];
+  x.org_c = a.org[2 * img + 1];
+  return x;
+}
+
+// sweep_tile on a shard (kShard) with the owned pixels ending before row
+// own_h and column own_w of the array.
+static __device__ __forceinline__ void sweep_owned(float* smem, int& cur, int& dst, const Args& a,
+                                            const Geometry& geo, const Tile& tile, Lane& ln,
+                                            const Fields& f, int own_h, int own_w) {
+  ln.lcl = ln.rcl = ln.own = 0;
+#pragma unroll
+  for (int q = 0; q < kLaneCols; ++q) {
+    const int ac = tile.c0 + ln.col0 + q, gc = tile.org_c + ac;
+    if (ac < 0 || ac >= a.w) continue;
+    if (ac == 0 || gc == 0) ln.lcl |= 1u << q;
+    if (ac == a.w - 1 || gc == a.img_w - 1) ln.rcl |= 1u << q;
+    if (ln.col0 + q >= geo.lh && ln.col0 + q < geo.lh + geo.tw && ac < own_w)
+      ln.own |= 1u << q;
+  }
+  ln.out_lo = max(a.sweeps, tile.wr_lo);
+  ln.out_hi = min(min(a.sweeps + geo.th, tile.wr_hi), own_h - tile.r0);
+  const int gr0 = tile.org_r + tile.r0, gc0 = tile.org_c + tile.c0;
+  const bool edge =
+      tile.wr_lo > 0 || tile.wr_hi < kWinH || tile.c0 < 0 || tile.c0 + kWinW > a.w ||
+      (gr0 <= 0 && gr0 + kWinH > 0) || (gr0 < a.img_h && gr0 + kWinH >= a.img_h) ||
+      (gc0 <= 0 && gc0 + kWinW > 0) || (gc0 < a.img_w && gc0 + kWinW >= a.img_w);
+  if (edge)
+    run_tile<true, true>(smem, cur, dst, a, tile, ln, f);
+  else
+    run_tile<false, true>(smem, cur, dst, a, tile, ln, f);
+}
+
+// walk_tiles (kShard, kL2) over the owned rectangles, which start at row
+// ring.oy() and column ring.ox(), in tile_index's order; every thread
+// calls ring.before_stage(a, t, tile) before tile t is staged. The next
+// tile is staged before this tile's fields are loaded, so that the 4-byte
+// staging's loads through registers never meet the fields there.
+template <class Ring>
+__device__ __forceinline__ void walk_owned(float* smem, const Args& a, const Ring& ring) {
+  const Geometry geo = geometry(a.sweeps);
+  const int ntiles = a.b * a.tiles_x * a.tiles_y;
+  if ((int)blockIdx.x >= ntiles) return;
+  Lane ln;
+  ln.row0 = (threadIdx.x >> 5) * kRows;
+  ln.col0 = (threadIdx.x & 31) * kLaneCols;
+  int cur = 0, dst = 1, spare = 2;
+  const Tile first = tile_owned(a, geo, blockIdx.x, ring.oy(), ring.ox());
+  ring.before_stage(a, blockIdx.x, first);
+  stage_tile<true>(smem, cur, a, first, ln.row0, ln.col0, true);
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const Tile tile = tile_owned(a, geo, t, ring.oy(), ring.ox());
+    const int tn = t + gridDim.x;
+    if (tn < ntiles) {
+      const Tile next = tile_owned(a, geo, tn, ring.oy(), ring.ox());
+      ring.before_stage(a, tn, next);
+      stage_tile<true>(smem, spare, a, next, ln.row0, ln.col0, true);
+    }
+    Fields f;
+    load_fields(f, a, tile, ln.row0, ln.col0);
+    if (tn < ntiles)
+      copy_wait<1>();
+    else
+      copy_wait<0>();
+    __syncthreads();
+    sweep_owned(smem, cur, dst, a, geo, tile, ln, f, a.h - ring.oy(), a.w - ring.ox());
     __syncthreads();
     const int x = spare;
     spare = cur;

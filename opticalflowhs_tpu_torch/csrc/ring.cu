@@ -18,51 +18,78 @@
 // On the TPU each chip runs one launch and pltpu.make_async_remote_copy
 // moves the rows chip to chip with DMA semaphores. Here a device runs one
 // launch for every shard it holds (several shards share a device on a
-// virtual mesh), and a row moves by a plain store into the neighbour's comm
-// slot: a global store on the same device, a peer store over NVLink on
-// another (the wrapper enables peer access first). The sender then fences
-// (__threadfence_system), meets its grid at a barrier, and release-stores a
-// flag (st.release.sys) in the receiver's memory; the receiver acquire-loads
-// it (ld.acquire.sys) until it reaches the block's epoch. Flags hold epochs
-// (a per-call base plus the block index), so they never need a reset.
+// virtual mesh), and a row moves by a plain store into the neighbour's
+// array: a global store on the same device, a peer store over NVLink on
+// another (the wrapper enables peer access first). The sender's block then
+// meets at a barrier, and one thread fences (__threadfence_system) and
+// release-stores a flag (st.release.sys) in the receiver's memory; the
+// receiver acquire-loads it (ld.acquire.sys) until it reaches the sweep
+// block's epoch. Flags hold epochs (a per-call base plus the block index),
+// so they never need a reset.
 //
-// K11/K12 design: one persistent cooperative grid a device (csrc/
-// cooperative.cuh), as many blocks as can be resident: every shard that
-// waits on another runs in the same launch, or the launch is refused. The
-// state keeps only the owned th x tw pixels of each shard (two buffers, u/v
-// ping-pong by block parity, as K6). Sweep block k: send the owned edge rows
-// (and, on a 2-D mesh, the column strips) into the neighbours' slots of
-// parity k % 2; then each block takes 64 x 64 owned tiles and stages the
-// tile's window, grown by the block's sweeps, from the state, the row slots
-// and the column slots, and runs the shared temporally blocked sweeps on
-// chip (jacobi_tile.cuh) with the clamps at the true image edges from global
-// coordinates. On a 1-D mesh a tile whose window reaches no halo row starts
-// before the flags arrive (the reference's overlap of the transfer with the
-// interior sweep); the others wait for their flags. The 2-D exchange runs
-// serially before the sweeps, as the reference's does. A grid barrier ends
-// the block. Parity double-buffering keeps a fast neighbour from overwriting
-// a slot not yet read: its block k+2 send follows my block k+1 send, which
-// follows my block k reads, through the flag waits (rdma_halo.py:177-185).
-// Data written during the launch (state, slots) is read with __ldcg.
+// K11/K12 design: K2's window loop (k2_window.cuh) in one persistent
+// cooperative grid of K2's blocks a device (512 threads, one an SM, three
+// u/v pairs of the 48 x 128 window in shared memory), as K6 runs it; every
+// shard that waits on another runs in the same launch, or the launch is
+// refused (cooperative.cuh). The images of a device (its shards, and the
+// images of a shard's stack) are stacked, (b, th + 2 sy, tw + 2 sx), the
+// fields' own shape: one Args serves u, v and the four fields, and K9's
+// origin table gives each image's global origin, so the clamps fire at the
+// true image edges. u/v live in two such pairs, P0 and P1; sweep block k
+// reads P[k % 2] and writes the owned pixels of P[(k + 1) % 2] (block 0
+// reads the start, which the wrapper copied into P0). The halo lives in the
+// pairs themselves:
+//   * phase R of block k: one block a side of an image stores the image's
+//     sy top (bottom) owned rows of P[k % 2] straight into the bottom (top)
+//     halo rows of its upper (lower) neighbour's P[k % 2], then releases
+//     the neighbour's flag;
+//   * phase C (K12) then sends the full-height column strips of the
+//     row-extended image, once its row halos have arrived, into the halo
+//     columns of its left and right neighbours' P[k % 2]; all flags of the
+//     device's images are waited for and a grid barrier ends the exchange
+//     before any tile is staged, the reference's serial two-phase order;
+//   * the sweeps: each sweep block is one K2 launch's walk over the owned
+//     K2 tiles of the stack (walk_owned: K9's shard clamps, the kL2 reads),
+//     one Args a kind of block (even: P0 to P1, odd: P1 to P0, the
+//     remainder n mod s at its own tile) in the kernel's parameters. The
+//     walk covers only the owned rectangle and writes only owned pixels, so
+//     no sweep ever writes a halo row or column of its destination pair,
+//     which a neighbour on another card may be storing into for its next
+//     phase R. On a 1-D mesh (K11) a tile
+//     whose window reaches no halo row is staged without waiting; before
+//     staging one that does, thread 0 waits for that halo's flag. The
+//     interior tile rows are walked first (tile_index), so the waits fall at
+//     the end of the block, the reference's overlap of the transfer with
+//     the interior sweep;
+//   * a grid barrier (hs_coop::grid_barrier, on a count the entry point
+//     clears) ends the sweep block.
+// No slot or staging buffer is needed: the windows are staged by cp.async
+// (kL2: around L1, which stores by other SMs and by peers do not
+// invalidate) from one array. The reference's parity argument holds with
+// P[p] in place of its slot p: a neighbour's block k + 2 store into my
+// P[k % 2] follows its block k + 1 flag wait, which follows my block k + 1
+// phase R, which follows the barrier after my block k reads of P[k % 2]
+// (rdma_halo.py:177-185).
 //
-// Bound: a sweep block moves a K2 launch's 8 arrays of the owned pixels through
-// device memory, plus the halo bytes over NVLink (450 GB/s each way) when
-// the neighbours sit on other cards; a whole solve reads the four fields
-// once and writes u and v once against 39 float32 operations a pixel a
-// sweep.
+// Bound: a whole solve moves each input once (the four fields of the
+// extended shards, the start) and writes u and v once, against 27 float32
+// operations a pixel a sweep (K2's count), an operations bound; a schedule
+// of sweep blocks cannot keep the fields on chip between blocks at 4K, so
+// the byte floor of this schedule is ceil(n/s) blocks of K2's 8 arrays of
+// the extended shards (chip_smoke.py prints both), plus the halo bytes over
+// NVLink (450 GB/s each way) when the neighbours sit on other cards.
 //
-// Exactness: the shared sweep body and clamps, so the owned pixels equal the plain
-// version (kernels/ring.py) bitwise.
+// Exactness: K2's sweeps on K2's tiles with K9's clamps, so the owned
+// pixels equal the plain version (kernels/ring.py) bitwise.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "cooperative.cuh"
-#include "jacobi_tile.cuh"
-
-namespace cg = cooperative_groups;
+#include "k2_window.cuh"
 
 namespace {
+
+using namespace hs_k2;
 
 // -- K10 ---------------------------------------------------------------------
 
@@ -96,31 +123,29 @@ __global__ void halo_kernel(const HaloShard* __restrict__ shards, int h, int w,
 
 typedef unsigned long long u64;
 
-struct RingShard {
-  const float* u0;  // owned start, th x tw (null: zeros)
-  const float* v0;
-  float* ua;        // owned state, two u/v pairs
-  float* va;
-  float* ub;
-  float* vb;
-  const float* ex;  // fields of the extended shard, (th + 2 sy) x (tw + 2 sx)
-  const float* ey;
-  const float* et;
-  const float* invd;
-  float* rows;      // my row slots [parity][side: top, bottom][u, v][sy][tw]
-  float* cols;      // my column slots [parity][side: left, right][u, v][eh][sx]
-  u64* flags;       // my flags [phase: rows, columns][parity][side]
-  float* nb_rows[2];  // the row slots of my upper and lower neighbours
-  u64* nb_rflags[2];
-  float* nb_cols[2];  // the column slots of my left and right neighbours
-  u64* nb_cflags[2];
-  int row0, col0;   // global (row, column) of owned pixel (0, 0)
+constexpr size_t kSmemBytes = 3 * kPairBytes;
+
+// Per image of a device's stack: where its ring neighbours' arrays and
+// flags lie (on this device or a peer).
+struct RingLink {
+  float* nb[4][4];   // neighbour [up, down, left, right]: its image's element
+                     // (0, 0) in [P0 u, P0 v, P1 u, P1 v]
+  u64* nb_flags[4];  // the neighbours' flags
+  u64* flags;        // mine: [phase: rows, columns][parity][side: top or
+                     // left, bottom or right]
 };
 
-struct RingGeom {
-  int n_shards, th, tw, sy, sx, eh, ew;
-  int n, s, img_h, img_w, tile;
+// One Args for each kind of sweep block, in the kernel's parameters, as
+// K6's FusedArgs; even.u/v is P0 and odd.u/v P1 for the exchange.
+struct RingArgs {
+  Args even;  // blocks 0, 2, ...: from P0 into P1
+  Args odd;   // blocks 1, 3, ...: from P1 into P0
+  Args rem;   // the remainder n mod s, at its own tile, after the full blocks
+  const RingLink* links;  // one an image
+  u64* barrier;           // the grid barrier's count, zero at the start
   u64 epoch0;
+  int n_full;
+  int oy, ox;             // the owned rectangle's first row and column: sy, sx
 };
 
 __device__ __forceinline__ u64 ld_acquire_sys(const u64* p) {
@@ -137,162 +162,132 @@ __device__ __forceinline__ void wait_flag(const u64* p, u64 epoch) {
   while (ld_acquire_sys(p) < epoch) __nanosleep(64);
 }
 
-__device__ __forceinline__ size_t row_slot(const RingGeom& g, int parity,
-                                           int side, int field) {
-  return (size_t)((parity * 2 + side) * 2 + field) * g.sy * g.tw;
-}
-
-__device__ __forceinline__ size_t col_slot(const RingGeom& g, int parity,
-                                           int side, int field) {
-  return (size_t)((parity * 2 + side) * 2 + field) * g.eh * g.sx;
-}
-
 __device__ __forceinline__ int flag_index(int phase, int parity, int side) {
   return (phase * 2 + parity) * 2 + side;
 }
 
-// Owned pixel (r, c) of field f of a shard's state at block k.
-__device__ __forceinline__ float state_at(const RingShard& sh, const RingGeom& g,
-                                         int k, int f, int r, int c) {
-  const size_t o = (size_t)r * g.tw + c;
-  if (k == 0) {
-    const float* s0 = f == 0 ? sh.u0 : sh.v0;
-    return s0 != nullptr ? s0[o] : 0.0f;
+// rows x cols floats from src to dst, both of row stride w, by this block's
+// threads, T (float or float4) at a time. src was written during the
+// launch, by other SMs, so it is read around L1. One load is in flight a
+// thread: two made an instance of the kernel spill, the sweeps' registers
+// being all the kernel has.
+template <class T>
+__device__ __forceinline__ void copy_rect_of(float* dst, const float* src, int rows, int cols,
+                                             int w) {
+  const int per_row = cols / (int)(sizeof(T) / sizeof(float));
+  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+    const int r = i / per_row;
+    const size_t o = (size_t)r * w + (size_t)(i - r * per_row) * (sizeof(T) / sizeof(float));
+    *reinterpret_cast<T*>(dst + o) = __ldcg(reinterpret_cast<const T*>(src + o));
   }
-  // Block k reads what block k-1 wrote: pair A after an even block.
-  const float* s = (k % 2 == 1) ? (f == 0 ? sh.ua : sh.va) : (f == 0 ? sh.ub : sh.vb);
-  return __ldcg(s + o);
 }
 
-// Extended-shard pixel (ar, ac) of field f at block k of parity p: from the
-// column slots, the row slots or the state.
-__device__ __forceinline__ float extended_at(const RingShard& sh,
-                                             const RingGeom& g, int k, int p,
-                                             int f, int ar, int ac) {
-  if (ac < g.sx) return __ldcg(sh.cols + col_slot(g, p, 0, f) + (size_t)ar * g.sx + ac);
-  if (ac >= g.sx + g.tw)
-    return __ldcg(sh.cols + col_slot(g, p, 1, f) + (size_t)ar * g.sx +
-                  (ac - g.sx - g.tw));
-  const int cc = ac - g.sx;
-  if (ar < g.sy) return __ldcg(sh.rows + row_slot(g, p, 0, f) + (size_t)ar * g.tw + cc);
-  if (ar >= g.sy + g.th)
-    return __ldcg(sh.rows + row_slot(g, p, 1, f) +
-                  (size_t)(ar - g.sy - g.th) * g.tw + cc);
-  return state_at(sh, g, k, f, ar - g.sy, cc);
+// 16 bytes at a time with vec (cols and the offsets multiples of 4).
+__device__ __forceinline__ void copy_rect(float* dst, const float* src, int rows, int cols,
+                                          int w, bool vec) {
+  if (vec)
+    copy_rect_of<float4>(dst, src, rows, cols, w);
+  else
+    copy_rect_of<float>(dst, src, rows, cols, w);
 }
 
-__global__ void __launch_bounds__(512, 1)
-    ring_kernel(const RingShard* __restrict__ shards, RingGeom g) {
-  extern __shared__ float smem[];
-  cg::grid_group grid = cg::this_grid();
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long gstride = (long long)gridDim.x * blockDim.x;
-  const bool two_d = g.sx > 0;
-  const int tiles_x = (g.tw + g.tile - 1) / g.tile;
-  const int tiles_y = (g.th + g.tile - 1) / g.tile;
-  const long long per_shard = (long long)tiles_x * tiles_y;
-  const long long total = per_shard * g.n_shards;
-  const int n_full = g.n / g.s, rem = g.n % g.s;
-  const int n_blocks = n_full + (rem > 0 ? 1 : 0);
-  for (int k = 0; k < n_blocks; ++k) {
-    const int ns = k < n_full ? g.s : rem;
-    const int p = k % 2;
-    const u64 epoch = g.epoch0 + k;
-    // Phase R: my top owned rows into my upper neighbour's bottom slot, my
-    // bottom owned rows into my lower neighbour's top slot.
-    {
-      const long long per = 2LL * 2 * g.sy * g.tw;
-      for (long long i = gid; i < per * g.n_shards; i += gstride) {
-        const RingShard& sh = shards[i / per];
-        long long j = i % per;
-        const int nb = (int)(j / (2LL * g.sy * g.tw));
-        j %= 2LL * g.sy * g.tw;
-        const int f = (int)(j / ((long long)g.sy * g.tw));
-        j %= (long long)g.sy * g.tw;
-        const int r = (int)(j / g.tw), c = (int)(j % g.tw);
-        const int sr = nb == 0 ? r : g.th - g.sy + r;
-        sh.nb_rows[nb][row_slot(g, p, 1 - nb, f) + (size_t)r * g.tw + c] =
-            state_at(sh, g, k, f, sr, c);
+// Phase R (kCols false) or C of sweep block k: job 2 img + side sends one
+// side of one image, for u and v, and releases the receiver's flag. The
+// jobs go to the last blocks, which hold the fewest tiles. Rows: side 0 my
+// top owned rows into my upper neighbour's bottom halo, side 1 my bottom
+// owned rows into my lower neighbour's top halo (owned columns only).
+// Columns, once both row halos have arrived: side 0 my left owned columns,
+// full height, into my left neighbour's right halo, side 1 my right ones
+// into my right neighbour's left halo.
+template <bool kCols>
+__device__ __forceinline__ void exchange(const RingArgs& r, int k) {
+  const Args& a = r.even;
+  const int p = k & 1;
+  const u64 epoch = r.epoch0 + k;
+  const size_t area = (size_t)a.h * a.w;
+  const int oy = r.oy, ox = r.ox;
+  for (int j = gridDim.x - 1 - blockIdx.x; j < 2 * a.b; j += gridDim.x) {
+    const int img = j >> 1, side = j & 1;
+    const RingLink& link = r.links[img];
+    if (kCols) {
+      if (threadIdx.x == 0) {
+        wait_flag(link.flags + flag_index(0, p, 0), epoch);
+        wait_flag(link.flags + flag_index(0, p, 1), epoch);
       }
-      __threadfence_system();
-      grid.sync();
-      for (long long i = gid; i < 2LL * g.n_shards; i += gstride) {
-        const int nb = (int)(i % 2);
-        st_release_sys(shards[i / 2].nb_rflags[nb] + flag_index(0, p, 1 - nb), epoch);
-      }
-    }
-    if (two_d) {
-      // Phase C, after both row halos have arrived: the full-height column
-      // strips, row halos included, into the left and right neighbours'
-      // column slots.
-      for (long long i = gid; i < 2LL * g.n_shards; i += gstride)
-        wait_flag(shards[i / 2].flags + flag_index(0, p, (int)(i % 2)), epoch);
-      grid.sync();
-      const long long per = 2LL * 2 * g.eh * g.sx;
-      for (long long i = gid; i < per * g.n_shards; i += gstride) {
-        const RingShard& sh = shards[i / per];
-        long long j = i % per;
-        const int nb = (int)(j / (2LL * g.eh * g.sx));
-        j %= 2LL * g.eh * g.sx;
-        const int f = (int)(j / ((long long)g.eh * g.sx));
-        j %= (long long)g.eh * g.sx;
-        const int r = (int)(j / g.sx), c = (int)(j % g.sx);
-        const int ac = g.sx + (nb == 0 ? c : g.tw - g.sx + c);
-        sh.nb_cols[nb][col_slot(g, p, 1 - nb, f) + (size_t)r * g.sx + c] =
-            extended_at(sh, g, k, p, f, r, ac);
-      }
-      __threadfence_system();
-      grid.sync();
-      for (long long i = gid; i < 2LL * g.n_shards; i += gstride) {
-        const int nb = (int)(i % 2);
-        st_release_sys(shards[i / 2].nb_cflags[nb] + flag_index(1, p, 1 - nb), epoch);
-      }
-      for (long long i = gid; i < 2LL * g.n_shards; i += gstride)
-        wait_flag(shards[i / 2].flags + flag_index(1, p, (int)(i % 2)), epoch);
-      grid.sync();
-    }
-    // Sweeps: each block takes owned tiles of every shard.
-    for (long long t = blockIdx.x; t < total; t += gridDim.x) {
-      const RingShard& sh = shards[t / per_shard];
-      const int tt = (int)(t % per_shard);
-      const hs_tile::Window win = hs_tile::make_window_at(
-          g.sy + (tt / tiles_x) * g.tile, g.sx + (tt % tiles_x) * g.tile, g.tile,
-          g.tile, ns, g.eh, g.ew, sh.row0 - g.sy, sh.col0 - g.sx, g.img_h,
-          g.img_w);
-      if (!two_d) {
-        // Only a window that reaches a halo row waits for that halo.
-        if (threadIdx.x == 0) {
-          if (win.r0 + win.wr_lo < g.sy)
-            wait_flag(sh.flags + flag_index(0, p, 0), epoch);
-          if (win.r0 + win.wr_hi > g.sy + g.th)
-            wait_flag(sh.flags + flag_index(0, p, 1), epoch);
-        }
-        __syncthreads();
-      }
-      hs_tile::Buffers bf = hs_tile::carve(smem, win);
-      hs_tile::stage(bf, win, sh.ex, sh.ey, sh.et, sh.invd, g.ew,
-                     [&](int ar, int ac, long long, float& uu, float& vv) {
-                       uu = extended_at(sh, g, k, p, 0, ar, ac);
-                       vv = extended_at(sh, g, k, p, 1, ar, ac);
-                     });
       __syncthreads();
-      hs_tile::run_sweeps(bf, win, g.eh, g.ew, ns);
-      // The owned part of the tile into the pair this block writes.
-      float* du = k % 2 == 0 ? sh.ua : sh.ub;
-      float* dv = k % 2 == 0 ? sh.va : sh.vb;
-      const int r_lo = win.halo, r_hi = min(win.halo + g.tile, g.sy + g.th - win.r0);
-      const int c_lo = win.halo, c_hi = min(win.halo + g.tile, g.sx + g.tw - win.c0);
-      const int lw = c_hi - c_lo;
-      const int cnt = (r_hi - r_lo) * lw;
-      for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-        const int wr = r_lo + i / lw, wc = c_lo + i % lw;
-        const size_t o = (size_t)(win.r0 + wr - g.sy) * g.tw + (win.c0 + wc - g.sx);
-        du[o] = bf.su[wr * win.win_w + wc];
-        dv[o] = bf.sv[wr * win.win_w + wc];
-      }
-      __syncthreads();  // the next tile reuses the shared memory
     }
-    if (k + 1 < n_blocks) grid.sync();
+    const int nb = kCols ? 2 + side : side;
+    for (int f = 0; f < 2; ++f) {
+      const float* mine =
+          (f == 0 ? (p ? r.odd.u : a.u) : (p ? r.odd.v : a.v)) + img * area;
+      float* theirs = link.nb[nb][2 * p + f];
+      if (kCols)
+        copy_rect(theirs + (side ? 0 : a.w - ox), mine + (side ? a.w - 2 * ox : ox), a.h, ox,
+                  a.w, a.vec);
+      else
+        copy_rect(theirs + (size_t)(side ? 0 : a.h - oy) * a.w + ox,
+                  mine + (size_t)(side ? a.h - 2 * oy : oy) * a.w + ox, oy, a.w - 2 * ox, a.w,
+                  a.vec);
+    }
+    // The block's stores, ordered before thread 0's by the barrier, are
+    // made visible to the whole system by its fence and release.
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence_system();
+      st_release_sys(link.nb_flags[nb] + flag_index(kCols, p, 1 - side), epoch);
+    }
+  }
+}
+
+// The Ring of walk_owned (k2_window.cuh): the owned rectangle, and with
+// kWait (K11) a wait for the row halo that a tile's window reaches before
+// it is staged. It reads what it needs from the kernel's parameters.
+template <bool kWait>
+struct HaloRing {
+  const RingArgs& r;
+  int k;
+  __device__ __forceinline__ int oy() const { return r.oy; }
+  __device__ __forceinline__ int ox() const { return r.ox; }
+  __device__ __forceinline__ void before_stage(const Args& a, int t, const Tile& x) const {
+    if (!kWait) return;
+    const bool top = x.r0 < r.oy;
+    const bool bot = min(x.r0 + kWinH, a.h) > a.h - r.oy;
+    if (!top && !bot) return;  // the same for every thread of the block
+    if (threadIdx.x == 0) {
+      int img, ty, tx;
+      tile_index(a, t, img, ty, tx);
+      const u64* f = r.links[img].flags;
+      if (top) wait_flag(f + flag_index(0, k & 1, 0), r.epoch0 + k);
+      if (bot) wait_flag(f + flag_index(0, k & 1, 1), r.epoch0 + k);
+    }
+    __syncthreads();
+  }
+};
+
+// K11 (kTwoD false) and K12: all sweep blocks of the device's stack. One
+// instance of K2's walk serves the three kinds of sweep block: three, as K6
+// has four, made the sweeps spill (its Args read from the parameters at an
+// offset picked by the kind instead). The n-th grid barrier of the launch
+// is k + 1 (K11) or 2k + 1 and 2k + 2 (K12).
+template <bool kTwoD>
+__global__ void __launch_bounds__(kThreads, 1) ring_kernel(const RingArgs r) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_blocks = r.n_full + (r.rem.sweeps > 0 ? 1 : 0);
+  for (int k = 0; k < n_blocks; ++k) {
+    exchange<false>(r, k);
+    if (kTwoD) {
+      exchange<true>(r, k);
+      // Every halo of every image of the device has landed before any tile
+      // is staged.
+      for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < 4 * r.even.b;
+           i += gridDim.x * blockDim.x)
+        wait_flag(r.links[i >> 2].flags + flag_index((i >> 1) & 1, k & 1, i & 1),
+                  r.epoch0 + k);
+      hs_coop::grid_barrier(r.barrier, 2 * k + 1);
+    }
+    const HaloRing<!kTwoD> ring{r, k};
+    walk_owned(smem, k == r.n_full ? r.rem : (k & 1) ? r.odd : r.even, ring);
+    if (k + 1 < n_blocks) hs_coop::grid_barrier(r.barrier, kTwoD ? 2 * k + 2 : k + 1);
   }
 }
 
@@ -333,43 +328,88 @@ extern "C" int hs_enable_peer(int device, int peer) {
   return (int)err;
 }
 
-// Most K11/K12 blocks of `threads` threads that can be resident at once with
-// a tile x tile window grown by s sweeps.
-extern "C" int hs_ring_blocks(int s, int tile, int threads, int device,
-                              int* blocks) {
-  return (int)hs_coop::max_blocks(ring_kernel, hs_tile::smem_bytes(tile, tile, s),
-                                  threads, device, blocks);
+// Most K11/K12 blocks that can be resident at once on `device`.
+extern "C" int hs_ring_blocks(int device, int* blocks) {
+  return (int)hs_coop::max_blocks(ring_kernel<false>, kSmemBytes, kThreads, device, blocks);
 }
 
-// K11 (sx = 0) and K12 (sx > 0): n sweeps of the n_shards RingShard records
-// of `table`, on the device, in one cooperative launch of `grid` blocks.
-extern "C" int hs_ring_fused_sweeps(const void* table, int n_shards, int th,
-                                    int tw, int sy, int sx, int n, int s,
-                                    int img_h, int img_w,
-                                    unsigned long long epoch0, int tile,
-                                    int threads, int grid, int device,
-                                    void* stream) {
-  if (n_shards < 1 || th < 1 || tw < 1 || sy < 1 || sy > th || sx < 0 ||
-      sx > tw || n < 1 || s < 1 || s > sy || (sx > 0 && s > sx) || tile < 1 ||
-      grid < 1 || epoch0 < 1)
+template <class Kernel>
+cudaError_t geometry_of(Kernel kernel, int sweeps, int device, int* out) {
+  int grid_max = 0;
+  const cudaError_t err = hs_coop::max_blocks(kernel, kSmemBytes, kThreads, device, &grid_max);
+  return err != cudaSuccess ? err : report(kernel, kSmemBytes, sweeps, device, grid_max, out);
+}
+
+// K11's (two_d 0) or K12's build at `sweeps` on `device`, as
+// hs_jacobi_geometry reports K2's:
+// out[0..7] tile rows, tile columns, threads, shared bytes, registers a
+// thread, spilled bytes a thread, resident blocks a multiprocessor,
+// multiprocessors.
+extern "C" int hs_ring_geometry(int sweeps, int two_d, int device, int* out) {
+  if (sweeps < 1 || sweeps > kMaxSweeps) return (int)cudaErrorInvalidValue;
+  return (int)(two_d ? geometry_of(ring_kernel<true>, sweeps, device, out)
+                     : geometry_of(ring_kernel<false>, sweeps, device, out));
+}
+
+// K11 (sx = 0) and K12 (sx > 0): n sweeps of the b images of a device, s a
+// sweep block (the last block n mod s), in one cooperative launch of `grid`
+// blocks. Each image is h x w, its owned th x tw pixels at (sy, sx), th = h
+// - 2 sy, tw = w - 2 sx; (pu0, pv0) and (pu1, pv1) are the pairs P0 and P1,
+// (b, h, w) each, with the start in P0's owned pixels; the result lands in
+// the owned pixels of P1 when ceil(n/s) is odd, else of P0. `links` holds b
+// RingLink records and `org` 2b ints, the global origin of each image's
+// element (0, 0) in the img_h x img_w image, both on the device; `barrier`
+// is 8 bytes of device memory, cleared here on the stream; epochs
+// epoch0 .. epoch0 + ceil(n/s) - 1 must exceed every epoch already in the
+// flags. A grid that cannot be resident is refused.
+extern "C" int hs_ring_fused_sweeps(const void* links, const int* org, float* pu0, float* pv0,
+                                    float* pu1, float* pv1, const float* ex, const float* ey,
+                                    const float* et, const float* invd, u64* barrier, int b,
+                                    int h, int w, int sy, int sx, int img_h, int img_w, int n,
+                                    int s, u64 epoch0, int grid, int device, void* stream) {
+  const int th = h - 2 * sy, tw = w - 2 * sx;
+  if (links == nullptr || org == nullptr || barrier == nullptr || b < 1 || sy < 1 ||
+      sx < 0 || th < sy || tw < 1 || tw < sx || n < 1 || s < 1 || s > kMaxSweeps ||
+      s > sy || (sx > 0 && s > sx) || grid < 1 || epoch0 < 1)
     return (int)cudaErrorInvalidValue;
-  RingGeom g;
-  g.n_shards = n_shards;
-  g.th = th;
-  g.tw = tw;
-  g.sy = sy;
-  g.sx = sx;
-  g.eh = th + 2 * sy;
-  g.ew = tw + 2 * sx;
-  g.n = n;
-  g.s = s;
-  g.img_h = img_h;
-  g.img_w = img_w;
-  g.tile = tile;
-  g.epoch0 = epoch0;
-  const RingShard* shards = (const RingShard*)table;
-  void* args[] = {&shards, &g};
-  return (int)hs_coop::launch(ring_kernel, grid, threads,
-                              hs_tile::smem_bytes(tile, tile, s), args, device,
-                              stream);
+  Args a;
+  a.ex = ex; a.ey = ey; a.et = et; a.invd = invd; a.org = org;
+  a.b = b; a.h = h; a.w = w; a.img_h = img_h; a.img_w = img_w;
+  a.vec = w % 4 == 0 && sx % 4 == 0 && aligned(ex) && aligned(ey) && aligned(et) &&
+          aligned(invd) && aligned(pu0) && aligned(pv0) && aligned(pu1) && aligned(pv1);
+  // A sweep block of `sweeps` (0: none) from (su, sv) into (du, dv).
+  auto block = [&](int sweeps, float* su, float* sv, float* du, float* dv) {
+    Args x = a;
+    x.u = su;
+    x.v = sv;
+    x.uo = du;
+    x.vo = dv;
+    x.sweeps = sweeps;
+    const Geometry gx = geometry(sweeps > 0 ? sweeps : 1);
+    x.tiles_x = (tw + gx.tw - 1) / gx.tw;
+    x.tiles_y = (th + gx.th - 1) / gx.th;
+    return x;
+  };
+  const Geometry g = geometry(1);
+  if ((long long)b * ((tw + g.tw - 1) / g.tw) * ((th + g.th - 1) / g.th) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  RingArgs r;
+  r.n_full = n / s;
+  r.even = block(s, pu0, pv0, pu1, pv1);
+  r.odd = block(s, pu1, pv1, pu0, pv0);
+  r.rem = r.n_full % 2 ? block(n % s, pu1, pv1, pu0, pv0) : block(n % s, pu0, pv0, pu1, pv1);
+  r.links = (const RingLink*)links;
+  r.barrier = barrier;
+  r.epoch0 = epoch0;
+  r.oy = sy;
+  r.ox = sx;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(barrier, 0, sizeof(*barrier), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&r};
+  return (int)(sx > 0 ? hs_coop::launch(ring_kernel<true>, grid, kThreads, kSmemBytes, args,
+                                        device, stream)
+                      : hs_coop::launch(ring_kernel<false>, grid, kThreads, kSmemBytes, args,
+                                        device, stream));
 }

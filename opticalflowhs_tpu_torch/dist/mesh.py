@@ -5,8 +5,8 @@ reference's axis names: "batch" splits (B, H, W) stacks, "y" and "x" tile
 the pixel grid. A shard is a tensor on its device, and several shards may
 share a device: `make_mesh(cfg, [torch.device("cuda", 0)] * 16)` is a
 virtual 4 x 4 mesh on one card, which runs the whole decomposition (halo
-exchange, true-edge clamps, global color parity, the ring kernels' slot
-writes and flag waits) on that card; `["cpu"] * 8` is the CPU tests' mesh;
+exchange, true-edge clamps, global color parity, the ring kernels' halo
+stores and flag waits) on that card; `["cpu"] * 8` is the CPU tests' mesh;
 on four cards of one host one shard per card moves its halos by peer copies
 and peer stores over NVLink. The reference is single-controller too: its
 mesh is jax devices under one process, and its tests run 8 fake CPU

@@ -11,11 +11,9 @@ bits), every scalar `c_int` or `c_float` (the ring kernels' epoch
 `c_ulonglong`), and every function returns its `cudaError_t` as an int.
 
 The persistent kernels K6, K7, K11 and K12 synchronise their whole grid
-(a barrier on a count in device memory for K6 and K7, cooperative_groups
-grid sync for K11 and K12; csrc/cooperative.cuh). That needs a
-cooperative launch, which their C entry points make and which refuses a
-grid larger than can be resident, but no extra build flag: since CUDA 11
-grid sync needs no relocatable device code (-rdc).
+with a barrier on a count in device memory (csrc/cooperative.cuh). That
+needs every block resident, which their C entry points ensure by a
+cooperative launch, refused for a larger grid, but no extra build flag.
 
 The flags are part of the numerics: `--fmad=false` stops nvcc contracting
 a*b + c into one fused multiply-add, and fast math stays off (IEEE
@@ -99,11 +97,15 @@ SIGNATURES = {
     "hs_ring_halo_exchange": [_P] + [_I] * 5 + [_P],
     # device, peer
     "hs_enable_peer": [_I, _I],
-    # s, tile, threads, device, out: the most K11/K12 blocks resident at once
-    "hs_ring_blocks": [_I] * 4 + [_IP],
-    # table, n_shards, th, tw, sy, sx, n, s, img_h, img_w, epoch0, tile,
-    # threads, grid, device, stream
-    "hs_ring_fused_sweeps": [_P] + [_I] * 9 + [_U64] + [_I] * 4 + [_P],
+    # device, out: the most K11/K12 blocks resident at once
+    "hs_ring_blocks": [_I, _IP],
+    # sweeps, two_d, device, out[8]: K11's (K12's) build, as
+    # hs_jacobi_geometry's
+    "hs_ring_geometry": [_I] * 3 + [_IP],
+    # links, org, P0 u, P0 v, P1 u, P1 v, ex, ey, et, invd, barrier (8
+    # bytes), b, h, w, sy, sx, img_h, img_w, n, s, epoch0, grid, device,
+    # stream
+    "hs_ring_fused_sweeps": [_P] * 11 + [_I] * 9 + [_U64] + [_I] * 2 + [_P],
 }
 
 # Largest batch one launch takes: CUDA's limit on gridDim.z.

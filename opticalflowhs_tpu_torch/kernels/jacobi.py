@@ -10,7 +10,7 @@ block a multiprocessor walking 48 x 128 windows (the tile and its decaying
 halo): the fields in registers, u and v in shared memory, each column sum
 computed once and passed to the neighbouring lanes by warp shuffles, and
 the next window's u and v staged while the current one is swept. That
-window loop (csrc/k2_window.cuh) also runs inside K6 and K7.
+window loop (csrc/k2_window.cuh) also runs inside K6, K7, K11 and K12.
 `k2_launch_schedule_plain` walks it in plain torch (`k2_stage`,
 `k2_window_sweeps`, `k2_owned` a window at a time, which K7's twin reuses).
 
@@ -30,21 +30,22 @@ from opticalflowhs_tpu_torch.kernels import _build
 from opticalflowhs_tpu_torch.kernels.derivatives import batch_dims, check_frames
 from opticalflowhs_tpu_torch.ops import stencils
 
-# The shared-window sweep loop of jacobi_tile.cuh, which K11 and K12 run
-# inside their persistent drivers: output tile of one block, threads per
-# block, and the default sweeps per launch (HSConfig.block_sweeps = 0) of
-# every Jacobi kernel. A block of that loop stages 8 float32 arrays of the
-# (tile + 2*sweeps) window in shared memory: 200 KB at 64x64 and s = 8, so
-# `fit_sweeps` allows at most 10 sweeps a launch (K2, K9, K6 and K7 keep
-# that rule).
+# The default sweeps per launch (HSConfig.block_sweeps = 0) of every Jacobi
+# kernel, and the rule that caps it: `fit_sweeps` cuts a launch's sweeps
+# until 8 float32 arrays of a 64 x 64 tile grown by the sweeps fit the
+# shared memory of one block (200 KB at s = 8), so at most 10 sweeps a
+# launch. That was the window of the shared sweep loop the first kernels
+# ran; K2, K9, K6 and K7 keep its rule, and K3's and K4's kernels their own
+# (`smem_bytes` of kernels/sor.py, kernels/solve_robust.py). K11 and K12
+# take their sweep block from the tiled solver (at most MAX_RING_SWEEPS,
+# kernels/ring.py).
 TILE_H = 64
 TILE_W = 64
-THREADS = 512
 AUTO_SWEEPS = 8
 SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
 _ARRAYS = 8
 
-# K2's own geometry (csrc/k2_window.cuh; K9, K6 and K7 share it). A block
+# K2's own geometry (csrc/k2_window.cuh; K9, K6, K7, K11 and K12 share it). A block
 # of K2_THREADS
 # threads sweeps a K2_WINDOW_H x K2_WINDOW_W window: warp j owns rows
 # 3j..3j+2 (K2_WARP_ROWS), lane l the K2_LANE_COLS columns 4l..4l+3, and
@@ -79,9 +80,8 @@ def k2_tile(sweeps: int, window=(K2_WINDOW_H, K2_WINDOW_W),
 
 
 def smem_bytes(sweeps: int, tile_h: int = TILE_H, tile_w: int = TILE_W) -> int:
-    """Shared memory of one window of the shared loop: the 8 arrays of a
-    tile grown by `sweeps` on each side (hs_tile::smem_bytes, for K11 and
-    K12)."""
+    """Shared memory of one window of the rule `sweeps_per_launch` keeps:
+    the 8 arrays of a tile grown by `sweeps` on each side."""
     return _ARRAYS * 4 * (tile_h + 2 * sweeps) * (tile_w + 2 * sweeps)
 
 
@@ -179,14 +179,16 @@ def k2_window_sweeps(su, sv, fx, fy, ft, fi, sweeps: int, r0: int, c0: int,
 
 
 def k2_owned(r0: int, c0: int, sweeps: int, hw, window=(K2_WINDOW_H, K2_WINDOW_W),
-             lane_cols: int = K2_LANE_COLS):
+             lane_cols: int = K2_LANE_COLS, owned=(0, 0)):
     """The owned tile of the window at array pixel (r0, c0), cut at the
-    (h, w) array: (array rows, array columns, window rows, window columns)
-    as slices, or None when it holds no pixel of the array."""
+    (h, w) array, or with owned = (oy, ox) at its rows [oy, h - oy) and
+    columns [ox, w - ox): (array rows, array columns, window rows, window
+    columns) as slices, or None when it holds no such pixel."""
     th, tw, lh = k2_tile(sweeps, window, lane_cols)
     h, w = hw
-    a_r0, a_c0 = max(r0 + sweeps, 0), max(c0 + lh, 0)
-    a_r1, a_c1 = min(r0 + sweeps + th, h), min(c0 + lh + tw, w)
+    oy, ox = owned
+    a_r0, a_c0 = max(r0 + sweeps, oy), max(c0 + lh, ox)
+    a_r1, a_c1 = min(r0 + sweeps + th, h - oy), min(c0 + lh + tw, w - ox)
     if a_r0 >= a_r1 or a_c0 >= a_c1:
         return None
     return (slice(a_r0, a_r1), slice(a_c0, a_c1),
@@ -197,14 +199,16 @@ def k2_launch_schedule_plain(u, v, ex, ey, et, inv_den, sweeps: int,
                              origins=None, img_hw=None,
                              window=(K2_WINDOW_H, K2_WINDOW_W),
                              lane_cols: int = K2_LANE_COLS,
-                             warp_rows: int = K2_WARP_ROWS):
+                             warp_rows: int = K2_WARP_ROWS, owned=None):
     """One K2 launch of `sweeps` sweeps as csrc/jacobi.cu schedules it, in
     plain torch, on (H, W) or (B, H, W): each image cut into `k2_tile`
     tiles; each tile's window staged with what lies outside the array set
     to NaN (`k2_stage`) and swept as the kernel sweeps it
     (`k2_window_sweeps`; with `origins`, K9's per-image (row, col) of the
     global pixel at element (0, 0), in an `img_hw` image). Only the owned
-    tile of the last sweep is written. Returns (u, v)."""
+    tile of the last sweep is written. With owned = (oy, ox) (K11, K12)
+    only the rectangle of rows [oy, H - oy) and columns [ox, W - ox) is cut
+    into tiles and written, NaN elsewhere. Returns (u, v)."""
     single = u.ndim == 2
     arrays = [a[None] if single else a for a in (u, v, ex, ey, et, inv_den)]
     b, h, w = arrays[0].shape
@@ -213,17 +217,18 @@ def k2_launch_schedule_plain(u, v, ex, ey, et, inv_den, sweeps: int,
     if th < 1 or tw < lane_cols or ww % lane_cols:
         raise ValueError(f"no K2 tile of {sweeps} sweeps in a {wh} x {ww} window")
     shard = origins is not None
+    oy, ox = owned if owned is not None else (0, 0)
     out_u = torch.full_like(arrays[0], float("nan"))
     out_v = torch.full_like(arrays[0], float("nan"))
     for img in range(b):
         org = (int(origins[img][0]), int(origins[img][1])) if shard else (0, 0)
-        for tr0 in range(0, h, th):
-            for tc0 in range(0, w, tw):
+        for tr0 in range(oy, h - oy, th):
+            for tc0 in range(ox, w - ox, tw):
                 r0, c0 = tr0 - sweeps, tc0 - lh
                 wins = [k2_stage(a[img], r0, c0, window) for a in arrays]
                 su, sv = k2_window_sweeps(*wins, sweeps, r0, c0, (h, w), org,
                                           img_hw if shard else None, lane_cols, warp_rows)
-                own = k2_owned(r0, c0, sweeps, (h, w), window, lane_cols)
+                own = k2_owned(r0, c0, sweeps, (h, w), window, lane_cols, (oy, ox))
                 if own is not None:
                     rows, cols, wrows, wcols = own
                     out_u[img, rows, cols] = su[wrows, wcols]

@@ -13,7 +13,11 @@ Port of opticalflowhs_tpu/kernels/rdma_halo.py:
 The CUDA source is csrc/ring.cu. A device runs one launch for all the shards
 it holds, so a virtual mesh of 16 shards on one card is one launch; a shard
 on another card is reached by peer stores over NVLink (`enable_peer`, which
-raises where the cards cannot reach each other).
+raises where the cards cannot reach each other). K11 and K12 run K2's window
+loop (csrc/k2_window.cuh) over the owned pixels of every image of a device,
+stacked, with the halo exchanged straight into the halo rows and columns of
+the neighbours' u/v pairs; `ring_schedule_plain` walks that schedule in
+plain torch.
 
 Each ring wraps around (the reference's periodic ring): the top shard's
 upper halo is the bottom shard's last rows. Those halo rows lie outside the
@@ -25,11 +29,11 @@ ring. The reference rounds sigma up to 8 rows and the column halo to 128
 columns for the TPU's tiles; here sigma is the fields' own halo (at least
 the block's sweeps), and the 2-D column halo is sigma wide.
 
-On CPU tensors the wrappers run the plain versions (the slot writes as
-tensor copies from the neighbours' shards, then masked sweeps over the
-extended shard); on CUDA tensors the kernels, or they raise. There is no
-fallback. The owned pixels of both are equal bitwise; the halo rows of the
-working shard are discarded.
+On CPU tensors the wrappers run the plain versions (the halo as tensor
+copies from the neighbours' shards, then masked sweeps over the extended
+shard); on CUDA tensors the kernels, or they raise. There is no fallback.
+The owned pixels of both are equal bitwise; the halo of the working shard
+is discarded.
 """
 
 from __future__ import annotations
@@ -44,12 +48,21 @@ import torch
 
 from opticalflowhs_tpu_torch.kernels import _build
 from opticalflowhs_tpu_torch.kernels.derivatives import check_frames
-from opticalflowhs_tpu_torch.kernels.jacobi import SMEM_BYTES, THREADS, smem_bytes
+from opticalflowhs_tpu_torch.kernels.jacobi import (
+    K2_LANE_COLS,
+    K2_MAX_SWEEPS,
+    K2_WARP_ROWS,
+    K2_WINDOW_H,
+    K2_WINDOW_W,
+    k2_launch_schedule_plain,
+    k2_tile,
+)
+from opticalflowhs_tpu_torch.kernels.solve_fused import barrier_count
 from opticalflowhs_tpu_torch.ops import stencils
 
-# Output tile of one K11/K12 block: the largest whose window, grown by the
-# block's sweeps, fits the shared memory of one block (K2's 8 arrays).
-TILES = (64, 32, 16)
+# Most sweeps a K11/K12 sweep block runs: K2's window takes at most 16
+# (a 16-row tile), and the fields' halo must be at least as deep.
+MAX_RING_SWEEPS = K2_MAX_SWEEPS
 
 _PEERS: set = set()
 _FLAGS: dict = {}      # device -> persistent int64 epoch flags
@@ -105,9 +118,25 @@ def _device_kind(tensors) -> str:
     return kinds.pop()
 
 
+@functools.lru_cache(maxsize=64)
+def _device_bytes(data: bytes, device: torch.device, stream: int) -> torch.Tensor:
+    """A small read-only table on `device`, made on the stream whose handle
+    is `stream` and read only by launches on it. The 64 most recent tables
+    live as long as the process, for reuse: a call whose tables equal an
+    earlier one's (the same layout and buffers, as a loop of solves on one
+    mesh gets them from the allocator) copies nothing. A new one is copied
+    from pageable memory, which waits for the work queued on the stream. The
+    stream is part of the key, so an evicted table goes back to the pool of
+    the one stream whose launches read it, and is reused only after them."""
+    return torch.frombuffer(bytearray(data), dtype=torch.uint8).to(device)
+
+
 def _table(records: list[bytes], device) -> torch.Tensor:
-    buf = bytearray(b"".join(records))
-    return torch.frombuffer(buf, dtype=torch.uint8).to(device)
+    """`records` joined, as a table for launches on `device`'s current
+    stream."""
+    device = torch.device(device)
+    return _device_bytes(b"".join(records), device,
+                         torch.cuda.current_stream(device).cuda_stream)
 
 
 # -- K10: the ring halo exchange ------------------------------------------------------
@@ -210,11 +239,17 @@ def _geometry(rings):
     return th, tw, sy, sx
 
 
-def _block_sweeps(n_sweeps: int, block_sweeps: int, sy: int, sx: int) -> int:
+def _block_sweeps(n_sweeps: int, block_sweeps: int, sy: int, sx: int,
+                  cap: Optional[int] = None) -> int:
+    """Sweeps a block: block_sweeps, at most n; no deeper than the fields'
+    halo, nor than `cap` (the kernels' MAX_RING_SWEEPS)."""
     s = max(1, min(block_sweeps, n_sweeps))
     if s > sy or (sx and s > sx):
         raise ValueError(f"the fields' {sy}-row/{sx}-column halo is narrower "
                          f"than a block of {s} sweeps")
+    if cap is not None and s > cap:
+        raise ValueError(f"a block of {s} sweeps is deeper than the ring kernels' "
+                         f"K2 window takes (at most {cap})")
     return s
 
 
@@ -273,28 +308,97 @@ def _ext_grids(sh: Shard, th: int, tw: int, sy: int, sx: int):
     return gr, gc
 
 
+def ring_schedule_plain(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
+                        window=(K2_WINDOW_H, K2_WINDOW_W), lane_cols: int = K2_LANE_COLS,
+                        warp_rows: int = K2_WARP_ROWS):
+    """K11's and K12's schedule in plain torch, on the rings of
+    `ring_solve_plain`: each shard's u/v lives in an extended pair, NaN where
+    nothing was written. Each sweep block first exchanges into the pairs
+    (phase R: the sy edge rows of the owned columns of the upper and lower
+    neighbours' pairs; phase C, with a column halo: the full-height column
+    strips of the left and right neighbours' pairs, row halos included),
+    then runs one K2 launch's walk (`jacobi.k2_launch_schedule_plain`) over
+    the owned rectangle only, with the shards' global origins, into a fresh
+    pair that holds the owned pixels and NaN elsewhere: no sweep writes a
+    halo. Returns the owned (u, v) of every shard; equal to
+    `ring_solve_plain` bitwise (the tests hold it to that)."""
+    th, tw, sy, sx = _geometry(rings)
+    if n_sweeps == 0:
+        return [[[(sh.u, sh.v) for sh in row] for row in grid] for grid in rings]
+    s = _block_sweeps(n_sweeps, block_sweeps, sy, sx)
+    own = (Ellipsis, slice(sy, sy + th), slice(sx, sx + tw))
+    out = []
+    for grid in rings:
+        my, mx = len(grid), len(grid[0])
+        pairs = {}
+        for i in range(my):
+            for j in range(mx):
+                sh = grid[i][j]
+                pair = []
+                for a in (sh.u, sh.v):
+                    p = torch.full(a.shape[:-2] + (th + 2 * sy, tw + 2 * sx), float("nan"),
+                                   dtype=a.dtype, device=a.device)
+                    p[own] = a
+                    pair.append(p)
+                pairs[i, j] = pair
+        left = n_sweeps
+        while left > 0:
+            ns = min(s, left)
+            for i in range(my):
+                for j in range(mx):
+                    up, dn = pairs[(i - 1) % my, j], pairs[(i + 1) % my, j]
+                    for f in (0, 1):
+                        p = pairs[i, j][f]
+                        p[..., :sy, sx:sx + tw] = up[f][..., th:th + sy, sx:sx + tw].to(p.device)
+                        p[..., sy + th:, sx:sx + tw] = dn[f][..., sy:2 * sy, sx:sx + tw].to(
+                            p.device)
+            if sx:
+                for i in range(my):
+                    for j in range(mx):
+                        lt, rt = pairs[i, (j - 1) % mx], pairs[i, (j + 1) % mx]
+                        for f in (0, 1):
+                            p = pairs[i, j][f]
+                            p[..., :sx] = lt[f][..., tw:tw + sx].to(p.device)
+                            p[..., sx + tw:] = rt[f][..., sx:2 * sx].to(p.device)
+            new = {}
+            for i in range(my):
+                for j in range(mx):
+                    sh = grid[i][j]
+                    nb = sh.u.shape[0] if sh.u.ndim == 3 else 1
+                    org = [(sh.row0 - sy, sh.col0 - sx)] * nb
+                    new[i, j] = list(k2_launch_schedule_plain(
+                        *pairs[i, j], *sh.fields, ns, origins=org, img_hw=(h, w),
+                        owned=(sy, sx), window=window, lane_cols=lane_cols,
+                        warp_rows=warp_rows))
+            pairs = new
+            left -= ns
+        out.append([[tuple(a[own] for a in pairs[i, j]) for j in range(mx)]
+                    for i in range(my)])
+    return out
+
+
 @functools.cache
-def resident_blocks(device: int, s: int, tile: int) -> int:
-    """The most K11/K12 blocks resident at once on `device`."""
+def resident_blocks(device: int) -> int:
+    """The most K11/K12 blocks resident at once on `device` (one an SM)."""
     out = ctypes.c_int(0)
-    err = _build.library().hs_ring_blocks(s, tile, THREADS, device, ctypes.byref(out))
+    err = _build.library().hs_ring_blocks(device, ctypes.byref(out))
     _build.check(err, "hs_ring_blocks")
     return out.value
 
 
-def _tile_for(s: int) -> int:
-    for t in TILES:
-        if smem_bytes(s, t, t) <= SMEM_BYTES:
-            return t
-    raise ValueError(f"a block of {s} sweeps is too deep for the ring kernels' "
-                     f"shared-memory window (at most {max_ring_sweeps()} sweeps)")
-
-
-def max_ring_sweeps() -> int:
-    s = 1
-    while smem_bytes(s + 1, TILES[-1], TILES[-1]) <= SMEM_BYTES:
-        s += 1
-    return s
+def ring_geometry(device, sweeps: int = 8, two_d: bool = False) -> dict:
+    """K11's (two_d=True: K12's) build at `sweeps` on a CUDA device, as
+    `solve_fused.build_geometry` reports K6's: K2's tile, threads, shared
+    bytes, registers a thread, spilled bytes, resident blocks a
+    multiprocessor, multiprocessors."""
+    out = (ctypes.c_int * 8)()
+    err = _build.library().hs_ring_geometry(
+        sweeps, int(two_d), torch.device(device).index or 0,
+        ctypes.cast(out, ctypes.POINTER(ctypes.c_int)))
+    _build.check(err, "hs_ring_geometry")
+    keys = ("tile_h", "tile_w", "threads", "smem_bytes", "registers",
+            "spill_bytes", "blocks_per_sm", "sms")
+    return dict(zip(keys, list(out)))
 
 
 def _flags(device: torch.device, n: int) -> torch.Tensor:
@@ -307,17 +411,41 @@ def _flags(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-_FLAGS_PER_SHARD = 8   # [phase: rows, columns][parity][side]
+_FLAGS_PER_IMAGE = 8   # [phase: rows, columns][parity][side]
+# csrc/ring.cu RingLink: the (0, 0) of each neighbour's image (up, down,
+# left, right) in P0 u, P0 v, P1 u, P1 v; the neighbours' flags; my flags.
+_LINK = struct.Struct("<21Q")
+
+
+def _stacked(parts: list, hw) -> torch.Tensor:
+    """One device's per-shard tensors, in its image order, as one (B, h, w)
+    stack: the tensor they are consecutive slices of when they are (the
+    tiled solver builds its fields stacked per device), the one part itself,
+    or else a copy."""
+    if len(parts) == 1:
+        return parts[0].reshape((-1,) + tuple(hw))
+    base = parts[0]._base
+    if base is not None and base.is_contiguous() and base.numel() == sum(
+            p.numel() for p in parts):
+        at = base.data_ptr()
+        for p in parts:
+            if p._base is not base or p.data_ptr() != at:
+                break
+            at += p.numel() * p.element_size()
+        else:
+            return base.view((-1,) + tuple(hw))
+    return torch.cat([p.reshape((-1,) + tuple(hw)) for p in parts])
 
 
 def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
                blocks: int = 0):
     """K11 (fields without a column halo) or K12 (with one) over a list of
-    rings, each a (y, x) grid of `Shard`s of (th, tw) owned tensors, on CPU
-    or CUDA devices: one cooperative launch a device for every shard it
-    holds, `ring_solve_plain` on CPU tensors. `blocks` > 0 forces each
-    launch's grid (a grid too large to be resident raises). Returns the
-    owned (u, v) of every shard."""
+    rings, each a (y, x) grid of `Shard`s of (th, tw) owned tensors or (B,
+    th, tw) stacks (image k of every shard forms its own ring), on CPU or
+    CUDA devices: one cooperative launch a device for every image it holds,
+    `ring_solve_plain` on CPU tensors. `blocks` > 0 forces each launch's
+    grid (a grid too large to be resident raises). Returns the owned (u, v)
+    of every shard, views of the kernel's pairs."""
     th, tw, sy, sx = _geometry(rings)
     shards = [sh for grid in rings for row in grid for sh in row]
     for sh in shards:
@@ -329,47 +457,45 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
         return ring_solve_plain(rings, n_sweeps, block_sweeps, h, w)
     if n_sweeps == 0:
         return [[[(sh.u, sh.v) for sh in row] for row in grid] for grid in rings]
-    if any(sh.u.ndim != 2 for sh in shards):
-        # Image k of every stack forms its own ring.
-        nb = shards[0].u.shape[0]
-        split = [[[[Shard(sh.u[k], sh.v[k], tuple(f[k] for f in sh.fields), sh.row0, sh.col0)
-                    for sh in row] for row in grid] for k in range(nb)] for grid in rings]
-        res = ring_solve([g for per in split for g in per], n_sweeps, block_sweeps,
-                         h, w, blocks)
-        out, at = [], 0
-        for grid in rings:
-            per = res[at:at + nb]
-            at += nb
-            out.append([[tuple(torch.stack([p[i][j][f] for p in per]) for f in (0, 1))
-                         for j in range(len(grid[0]))] for i in range(len(grid))])
-        return out
-    s = _block_sweeps(n_sweeps, block_sweeps, sy, sx)
-    tile = _tile_for(s)
+    s = _block_sweeps(n_sweeps, block_sweeps, sy, sx, MAX_RING_SWEEPS)
     n_blocks = -(-n_sweeps // s)
+    nb = shards[0].u.shape[0] if shards[0].u.ndim == 3 else 1
     eh, ew = th + 2 * sy, tw + 2 * sx
-    row_floats = 2 * 2 * 2 * sy * tw
-    col_floats = 2 * 2 * 2 * eh * sx
+    own = (slice(sy, sy + th), slice(sx, sx + tw))
 
-    # Per shard: state pairs, comm slots, flags (index into its device's
-    # persistent buffer).
+    # Per device: its images stacked (shard by shard, a shard's stack in
+    # order), the pairs P0 and P1 with the start in P0's owned pixels, the
+    # fields, the origin table and the flags.
     local: dict = {}
     for sh in shards:
         local.setdefault(sh.u.device, []).append(sh)
-    flag_ptr, slots, state = {}, {}, {}
+    first: dict = {}
+    state: dict = {}
     for dev, members in local.items():
-        flags = _flags(dev, _FLAGS_PER_SHARD * len(members))
+        b = len(members) * nb
+        pairs = torch.empty((4, b, eh, ew), dtype=torch.float32, device=dev)
         for k, sh in enumerate(members):
-            flag_ptr[id(sh)] = flags.data_ptr() + 8 * _FLAGS_PER_SHARD * k
-            rows = torch.empty(row_floats, dtype=torch.float32, device=dev)
-            cols = torch.empty(col_floats, dtype=torch.float32, device=dev) if sx else None
-            slots[id(sh)] = (rows, cols)
-            state[id(sh)] = [torch.empty_like(sh.u) for _ in range(4)]
+            first[id(sh)] = k * nb
+            pairs[0, k * nb:(k + 1) * nb][(Ellipsis,) + own] = sh.u.reshape(nb, th, tw)
+            pairs[1, k * nb:(k + 1) * nb][(Ellipsis,) + own] = sh.v.reshape(nb, th, tw)
+        fields = tuple(_stacked([sh.fields[q] for sh in members], (eh, ew)) for q in range(4))
+        org = _table([struct.pack(f"<{2 * b}i", *(x for sh in members for _ in range(nb)
+                                                  for x in (sh.row0 - sy, sh.col0 - sx)))],
+                     dev).view(torch.int32)
+        state[dev] = (pairs, fields, org, _flags(dev, _FLAGS_PER_IMAGE * b))
     epoch0 = _EPOCH[0] + 1
     if epoch0 + n_blocks >= 2 ** 63:
         raise RuntimeError("ring epochs exhausted")
     _EPOCH[0] = epoch0 + n_blocks
 
-    tables = {}
+    def image(sh, q: int, k: int) -> int:
+        pairs = state[sh.u.device][0]
+        return pairs[q, first[id(sh)] + k].data_ptr()
+
+    def flags(sh, k: int) -> int:
+        return state[sh.u.device][3].data_ptr() + 8 * _FLAGS_PER_IMAGE * (first[id(sh)] + k)
+
+    links: dict = {dev: [None] * state[dev][0].shape[1] for dev in local}
     for grid in rings:
         my, mx = len(grid), len(grid[0])
         for i in range(my):
@@ -377,47 +503,45 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
                 sh = grid[i][j]
                 nbs = (grid[(i - 1) % my][j], grid[(i + 1) % my][j],
                        grid[i][(j - 1) % mx], grid[i][(j + 1) % mx])
-                dev = sh.u.device.index
-                for nb in nbs[:2] + (nbs[2:] if sx else ()):
-                    enable_peer(dev, nb.u.device.index)
-                rows, cols = slots[id(sh)]
-                ua, va, ub, vb = state[id(sh)]
-                ptrs = [sh.u.data_ptr(), sh.v.data_ptr(), ua.data_ptr(), va.data_ptr(),
-                        ub.data_ptr(), vb.data_ptr(),
-                        *(f.data_ptr() for f in sh.fields),
-                        rows.data_ptr(), 0 if cols is None else cols.data_ptr(),
-                        flag_ptr[id(sh)],
-                        slots[id(nbs[0])][0].data_ptr(), slots[id(nbs[1])][0].data_ptr(),
-                        flag_ptr[id(nbs[0])], flag_ptr[id(nbs[1])]]
-                if sx:
-                    ptrs += [slots[id(nbs[2])][1].data_ptr(), slots[id(nbs[3])][1].data_ptr(),
-                             flag_ptr[id(nbs[2])], flag_ptr[id(nbs[3])]]
-                else:
-                    ptrs += [0, 0, 0, 0]
-                tables.setdefault(sh.u.device, []).append(
-                    (id(sh), struct.pack("<21Qii", *ptrs, sh.row0, sh.col0)))
-    devices = list(tables)
+                for n in nbs[:2] + (nbs[2:] if sx else ()):
+                    enable_peer(sh.u.device.index, n.u.device.index)
+                for k in range(nb):
+                    links[sh.u.device][first[id(sh)] + k] = _LINK.pack(
+                        *(image(n, q, k) for n in nbs for q in range(4)),
+                        *(flags(n, k) for n in nbs), flags(sh, k))
+    devices = list(local)
     lib = _build.library()
+    th_k, tw_k, _ = k2_tile(s)
     barrier(devices)
     counter = ring_fused_sweeps_2d if sx else ring_fused_sweeps
-    for dev, recs in tables.items():
-        # The table's order is the device's member order (flag offsets).
-        order = {id(sh): k for k, sh in enumerate(local[dev])}
-        recs = [r for _, r in sorted(recs, key=lambda x: order[x[0]])]
-        table = _table(recs, dev)
-        tiles = len(recs) * -(-th // tile) * -(-tw // tile)
-        grid_blocks = blocks if blocks > 0 else min(
-            tiles, resident_blocks(dev.index, s, tile))
+    for dev in devices:
+        pairs, fields, org, _ = state[dev]
+        b = pairs.shape[1]
+        table = _table(links[dev], dev)
+        tiles = b * -(-th // th_k) * -(-tw // tw_k)
+        grid_blocks = blocks if blocks > 0 else min(tiles, resident_blocks(dev.index))
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hs_ring_fused_sweeps(
-            table.data_ptr(), len(recs), th, tw, sy, sx, n_sweeps, s, h, w,
-            epoch0, tile, THREADS, grid_blocks, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
+            table.data_ptr(), org.data_ptr(), *(pairs[q].data_ptr() for q in range(4)),
+            *(f.data_ptr() for f in fields), barrier_count(dev.index, stream).data_ptr(),
+            b, eh, ew, sy, sx, h, w, n_sweeps, s, epoch0, grid_blocks, dev.index, stream)
         _build.check(err, "hs_ring_fused_sweeps")
         counter.launches += 1
     barrier(devices)
-    pick = (0, 1) if n_blocks % 2 == 1 else (2, 3)
-    return [[[tuple(state[id(sh)][p] for p in pick) for sh in row] for row in grid]
-            for grid in rings]
+    q = 2 if n_blocks % 2 else 0
+    out = []
+    for grid in rings:
+        res = []
+        for row in grid:
+            cells = []
+            for sh in row:
+                pairs, k = state[sh.u.device][0], first[id(sh)]
+                cells.append(tuple(
+                    pairs[q + f, k:k + nb][(Ellipsis,) + own].reshape(sh.u.shape)
+                    for f in (0, 1)))
+            res.append(cells)
+        out.append(res)
+    return out
 
 
 def _as_rings_1d(u, v, fields, row0):

@@ -179,17 +179,30 @@ def _tvl1_pyramid_body(i1: torch.Tensor, i2: torch.Tensor, cfg: TVL1Config,
 
 
 def _check(i1, i2, cfg: TVL1Config, pyr: PyramidConfig, rank: int) -> None:
-    """The reference's checks of tvl1_solve (shapes, rank, levels, warps per
-    level), and the dtype the port runs."""
+    """The reference's checks: tvl1_solve's (rank 2: shapes, rank, levels,
+    warps per level) or tvl1_solve_batched's (rank 3: the rank only, with
+    equal shapes, where the reference's vmap fails anyway, and a
+    warps_per_level too short for the levels, where it raises IndexError);
+    and the dtype the port runs."""
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs "
                          f"{tuple(i2.shape)}")
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"dtype={cfg.dtype!r} is not ported yet (ROADMAP.md queue 1, "
+            "item 5: bf16); only float32 runs"
+        )
     if i1.ndim != rank:
         raise ValueError(
             "tvl1_solve takes single 2-D grayscale frames; use "
             "tvl1_solve_batched for leading batch axes" if rank == 2
             else f"expected (B, H, W) frame stacks, got {tuple(i1.shape)}"
         )
+    if rank == 3:
+        if cfg.warps_per_level and len(cfg.warps_per_level) < pyr.levels:
+            raise ValueError(f"warps_per_level {cfg.warps_per_level} is shorter than "
+                             f"levels={pyr.levels}")
+        return
     min_side = min(i1.shape[-2:])
     if min_side // (2 ** (pyr.levels - 1)) < 8:
         raise ValueError(
@@ -199,11 +212,6 @@ def _check(i1, i2, cfg: TVL1Config, pyr: PyramidConfig, rank: int) -> None:
     if cfg.warps_per_level and len(cfg.warps_per_level) != pyr.levels:
         raise ValueError(
             f"warps_per_level {cfg.warps_per_level} must match levels={pyr.levels}"
-        )
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r} is not ported yet (ROADMAP.md queue 1, "
-            "item 5: bf16); only float32 runs"
         )
 
 
@@ -235,9 +243,13 @@ def tvl1_solve_batched(
     device=None,
 ) -> Flow:
     """TV-L1 over a (B, H, W) stack of frame pairs, each pair on its own
-    (own [0, 255] rescale, own warp rule), equal to a loop of `tvl1_solve`.
-    One chain of launches serves the whole stack. numpy stacks go to
-    `device`, as in tvl1_solve."""
+    (own [0, 255] rescale, own warp rule): equal to a loop of `tvl1_solve`
+    over the pairs that it takes. Like the reference's, it checks only the
+    rank, so it also solves frames that tvl1_solve refuses (pyramid levels
+    below 8 px, sides below 8 px at one level) and takes a warps_per_level
+    longer than the levels (its first entries); one shorter raises
+    ValueError. One chain of launches serves the whole stack. numpy stacks
+    go to `device`, as in tvl1_solve."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (sharding a stack over devices) is not ported yet: it comes "

@@ -511,6 +511,17 @@ def test_tvl1_entry_points_run_k5(dev):
         _equal(a, b)
 
 
+def test_tvl1_stack_of_frames_below_8_px_runs_k5(dev):
+    # tvl1_solve refuses 7-row frames; the stacked entry takes them, as the
+    # reference's does, through K5.
+    i1, i2 = _rand((2, 7, 40), dev, 28)
+    i2 = 0.8 * i1 + 0.2 * i2
+    k5.tvl1_inner.launches = 0
+    got = tvl1_solve_batched(i1, i2, TVL1Config(warps=2, iters=10))
+    assert k5.tvl1_inner.launches > 0
+    _equal(got, tvl1_solve_batched(i1, i2, TVL1Config(warps=2, iters=10, backend="torch")))
+
+
 # -- K6 and K7 (whole solve in one sweep launch) --------------------------------
 
 BEYOND_SHAPES = [(67, 93), (131, 130), (1, 7), (9, 1), (200, 333)]
@@ -986,6 +997,136 @@ def test_k12_equals_plain(dev, my, mx, n, s):
     for i in range(my):
         for j in range(mx):
             _equal((got[0][i][j], got[1][i][j]), (want[0][i][j], want[1][i][j]))
+
+
+# K11 and K12 on K2's window loop. Meshes: (my, 0) is a 1-D ring of my
+# shards (K11), (my, mx) a 2-D one (K12).
+RING_MESHES = [(1, 0), (2, 0), (4, 0), (5, 0), (1, 1), (2, 2), (1, 4), (4, 1), (3, 2)]
+
+
+def _ring_rings(dev, my, mx, s, seed, stack=0, warm=True, th=None, tw=None):
+    """One ring of Shards with a halo exactly s deep: by default two K2
+    tile rows a shard, the second cut short, and a true image that ends
+    inside the last shards. Returns (rings, h, w)."""
+    th = th or (k2.K2_WINDOW_H - 2 * s) + 7
+    tw = tw or (37 if mx == 0 else s + 21)
+    sx, mx = (s if mx else 0), max(mx, 1)
+    lead = (stack,) if stack else ()
+    grid = []
+    for i in range(my):
+        row = []
+        for j in range(mx):
+            if warm:
+                u0, v0 = _rand(lead + (th, tw), dev, seed + 10 * i + j, normal=True)
+            else:
+                u0, v0 = (torch.zeros(lead + (th, tw), device=dev) for _ in range(2))
+            a, b = _rand(lead + (th + 2 * s, tw + 2 * sx), dev, seed + 100 + 10 * i + j)
+            row.append(ring.Shard(u0, v0, tuple(k1.derivatives_plain(a, b, 0.5)), i * th,
+                                  j * tw))
+        grid.append(row)
+    return [grid], my * th - 2, mx * tw - 3
+
+
+def _ring_equal(rings, n, s, h, w, **kw):
+    two_d = rings[0][0][0].fields[0].shape[-1] != rings[0][0][0].u.shape[-1]
+    counter = ring.ring_fused_sweeps_2d if two_d else ring.ring_fused_sweeps
+    counter.launches = 0
+    got = ring.ring_solve(rings, n, s, h, w, **kw)
+    assert counter.launches == 1  # one launch for the device's every image
+    want = ring.ring_solve_plain(rings, n, s, h, w)
+    for g_grid, w_grid in zip(got, want):
+        for g_row, w_row in zip(g_grid, w_grid):
+            for g, r in zip(g_row, w_row):
+                _equal(g, r)
+
+
+@pytest.mark.parametrize("s", range(1, ring.MAX_RING_SWEEPS + 1))
+@pytest.mark.parametrize("my,mx", RING_MESHES)
+def test_k11_k12_equal_plain_at_every_block_depth(dev, my, mx, s):
+    # n = 2s + 1: three sweep blocks, the last one short; sx = s, so s not a
+    # multiple of 4 runs the 4-byte path.
+    rings, h, w = _ring_rings(dev, my, mx, s, 200 + s)
+    _ring_equal(rings, 2 * s + 1, s, h, w)
+
+
+@pytest.mark.parametrize("my,mx", RING_MESHES)
+@pytest.mark.parametrize("stack", [0, 3])
+@pytest.mark.parametrize("warm", [False, True])
+def test_k11_k12_stacks_and_starts_equal_plain(dev, my, mx, stack, warm):
+    rings, h, w = _ring_rings(dev, my, mx, 4, 230, stack=stack, warm=warm)
+    _ring_equal(rings, 13, 4, h, w)
+
+
+@pytest.mark.parametrize("my,mx", [(4, 0), (2, 2)])
+@pytest.mark.parametrize("th", [60, 130])
+@pytest.mark.parametrize("blocks", [0, 1, 3])
+def test_k11_k12_tile_orders_and_small_grids_equal_plain(dev, my, mx, th, blocks):
+    # Shards of 2 x 3 K2 tiles (edge rows only) or 4 x 3 (the interior rows
+    # walked first, the edge rows last), by the resident grid or by 1 or 3
+    # blocks (each doing every exchange job).
+    rings, h, w = _ring_rings(dev, my, mx, 4, 240, th=th, tw=300)
+    _ring_equal(rings, 17, 4, h, w, blocks=blocks)
+
+
+@pytest.mark.parametrize("mx", [0, 1])
+def test_k11_k12_unaligned_views_equal_plain(dev, mx):
+    # One shard a device keeps its fields as given: contiguous views 4 bytes
+    # off a 16-byte boundary run the 4-byte path over 4 sweep blocks.
+    s, th, tw = 4, 50, 64
+    sx = s if mx else 0
+    eh, ew = th + 2 * s, tw + 2 * sx
+    flat = [torch.from_numpy(np.random.default_rng(250 + k).uniform(0, 1, 1 + eh * ew)
+                             .astype(np.float32)).to(dev) for k in range(2)]
+    fields = tuple(f.contiguous() for f in k1.derivatives_plain(
+        *(f[1:].view(eh, ew) for f in flat), 0.5))
+    views = []
+    for f in fields:
+        buf = torch.empty(1 + eh * ew, device=dev)
+        buf[1:] = f.flatten()
+        views.append(buf[1:].view(eh, ew))
+    assert views[0].data_ptr() % 16 != 0
+    u0, v0 = _rand((th, tw), dev, 252, normal=True)
+    rings = [[[ring.Shard(u0, v0, tuple(views), 0, 0)]]]
+    _ring_equal(rings, 15, s, th - 1, tw - 2)
+
+
+@pytest.mark.parametrize("s", range(1, ring.MAX_RING_SWEEPS + 1))
+@pytest.mark.parametrize("two_d", [False, True])
+def test_k11_k12_geometry_has_no_spills(dev, s, two_d):
+    geo = ring.ring_geometry(dev, s, two_d=two_d)
+    th, tw, _ = k2.k2_tile(s)
+    assert (geo["tile_h"], geo["tile_w"]) == (th, tw)
+    assert geo["threads"] == k2.K2_THREADS and geo["smem_bytes"] == k2.K2_SMEM_BYTES
+    assert 0 < geo["registers"] <= 65536 // k2.K2_THREADS and geo["spill_bytes"] == 0
+    assert geo["blocks_per_sm"] == 1
+
+
+def test_k11_k12_refuse_a_block_deeper_than_k2s_window(dev):
+    rings, h, w = _ring_rings(dev, 2, 2, 17, 260, th=40, tw=40)
+    with pytest.raises(ValueError, match="at most 16"):
+        ring.ring_solve(rings, 40, 17, h, w)
+
+
+def test_ring_tables_are_kept_per_stream(dev):
+    # A table is read only by launches on the stream it was made on, so an
+    # evicted one never goes back to another stream's pool while they run.
+    side = torch.cuda.Stream(dev)
+    first = ring._table([b"ring table"], dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        other = ring._table([b"ring table"], dev)
+        rings, h, w = _ring_rings(dev, 2, 0, 4, 280)
+        _ring_equal(rings, 9, 4, h, w)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    assert other.data_ptr() != first.data_ptr()
+    assert ring._table([b"ring table"], dev) is first
+
+
+@pytest.mark.parametrize("two_d", [False, True])
+def test_k11_k12_grid_too_large_is_refused(dev, two_d):
+    rings, h, w = _ring_rings(dev, 2, int(two_d), 4, 270)
+    with pytest.raises(RuntimeError, match="hs_ring_fused_sweeps"):
+        ring.ring_solve(rings, 8, 4, h, w, blocks=100_000)
 
 
 @pytest.mark.parametrize("my,mx", [(1, 1), (2, 2), (4, 4), (1, 4), (4, 1)])

@@ -2,7 +2,12 @@
 and K12's fused ring solves) on the CPU: against the reference's CPU logic
 twin of its fused ring kernel on the 1-shard ring, against plain wrapped
 concatenation for the exchange, and on n-shard 1-D and 2-D meshes against
-the untiled sweeps (tiled == untiled).
+the untiled sweeps (tiled == untiled). K11's and K12's schedule walked in
+plain torch (`ring.ring_schedule_plain`: the exchange into extended pairs,
+K2's windows over the owned tiles only, NaN wherever nothing was written)
+equals the plain solve bitwise on those meshes, at every sweep block from 1
+to K2's 16, with owned heights that K2's tile rows do not divide and true
+image edges inside the shards.
 
 Tolerances: 2e-6 against the reference's logic twin (its Pallas kernel in
 interpret mode; same ops, XLA:CPU may round the last ulp of a fused chain
@@ -17,6 +22,7 @@ import torch
 
 from opticalflowhs_tpu.kernels.rdma_halo import ring_fused_sweeps_logic_twin
 from opticalflowhs_tpu.ops import stencils as ref_st
+from opticalflowhs_tpu_torch.kernels import jacobi as k2
 from opticalflowhs_tpu_torch.kernels import ring
 from opticalflowhs_tpu_torch.kernels.derivatives import derivatives_plain
 from opticalflowhs_tpu_torch.ops import stencils
@@ -56,6 +62,23 @@ def _shards(a: torch.Tensor, my: int, mx: int, sy: int, sx: int):
              for j in range(mx)] for i in range(my)]
 
 
+def _rings(uv, fields, my, mx, sy, sx):
+    """One ring of `Shard`s cut from whole fields (sx = 0: a 1-D ring)."""
+    h, w = uv[0].shape[-2:]
+    us, vs = (_shards(a, my, mx, 0, 0) for a in uv)
+    fs = [_shards(f, my, mx, sy, sx) for f in fields]
+    return [[[ring.Shard(us[i][j], vs[i][j], tuple(f[i][j] for f in fs), i * (h // my),
+                         j * (w // mx)) for j in range(mx)] for i in range(my)]]
+
+
+def _schedule_equals_plain(rings, n, s, h, w):
+    got = ring.ring_schedule_plain(rings, n, s, h, w)
+    want = ring.ring_solve_plain(rings, n, s, h, w)
+    for g_row, w_row in zip(got[0], want[0]):
+        for g, r in zip(g_row, w_row):
+            assert torch.equal(g[0], r[0]) and torch.equal(g[1], r[1])
+
+
 @pytest.mark.parametrize("n,s", [(12, 4), (13, 8), (7, 16), (16, 8)])
 def test_one_ring_matches_reference_logic_twin(n, s, record_property):
     # The reference's own case (tests/unit/test_rdma_logic_twin.py): 64 x
@@ -78,6 +101,41 @@ def test_one_ring_matches_reference_logic_twin(n, s, record_property):
     assert d <= TWIN_TOL
 
 
+@pytest.mark.parametrize("s", [17, 34])
+def test_plain_ring_takes_blocks_deeper_than_the_kernels(s, record_property):
+    # The reference takes any block depth its halo allows, and so does the
+    # plain version that CPU shards run: against the reference's logic twin
+    # on its own case, and tiled == untiled on a 2-shard ring. On the card
+    # K11/K12 refuse a block deeper than K2's window takes (16 sweeps), a
+    # known gap from the reference (ROADMAP.md queue 3).
+    h, w, n = 64, 96, s + 3  # a block of s, then one of 3
+    rng = np.random.default_rng(1)
+    i1, i2 = (rng.uniform(0, 1, (h, w)).astype(np.float32) for _ in range(2))
+    ex, ey, et = ref_st.derivatives(jnp.asarray(i1), jnp.asarray(i2))
+    ivd = 1.0 / (0.25 + ex * ex + ey * ey)
+    sigma = ((s + 7) // 8) * 8
+    ext = [jnp.concatenate([a[-sigma:], a, a[:sigma]], axis=0) for a in (ex, ey, et, ivd)]
+    z = jnp.zeros((h, w), jnp.float32)
+    want = ring_fused_sweeps_logic_twin(z, z, *ext, n, s, 0, h, w)
+    zt = torch.zeros(h, w)
+    got = ring.ring_fused_sweeps([zt], [zt.clone()], [tuple(torch.from_numpy(np.array(a))
+                                                           for a in ext)], n, s, [0], h, w)
+    d = max(float(np.abs(got[k][0].numpy() - np.asarray(want[k])).max()) for k in (0, 1))
+    record_property("max_abs_diff", d)
+    assert d <= TWIN_TOL
+
+    uv, fields = _problem((80, 37), 40 + s)
+    us, vs = (_shards(a, 2, 1, 0, 0) for a in uv)
+    fs = [_shards(f, 2, 1, s, 0) for f in fields]
+    got = ring.ring_fused_sweeps([r[0] for r in us], [r[0] for r in vs],
+                                 [tuple(f[i][0] for f in fs) for i in range(2)],
+                                 n, s, [0, 40], 80, 37)
+    want = _untiled(uv, fields, n)
+    assert torch.equal(torch.cat(got[0]), want[0]) and torch.equal(torch.cat(got[1]), want[1])
+    with pytest.raises(ValueError, match="at most 16"):
+        ring._block_sweeps(n, s, sigma, 0, ring.MAX_RING_SWEEPS)
+
+
 @pytest.mark.parametrize("my", [1, 2, 4, 5])
 @pytest.mark.parametrize("n,s", [(7, 4), (12, 4), (13, 8), (9, 1)])
 def test_1d_ring_equals_untiled(my, n, s):
@@ -90,6 +148,7 @@ def test_1d_ring_equals_untiled(my, n, s):
                                  n, s, [i * (h // my) for i in range(my)], h, w)
     want = _untiled(uv, fields, n)
     assert torch.equal(torch.cat(got[0]), want[0]) and torch.equal(torch.cat(got[1]), want[1])
+    _schedule_equals_plain(_rings(uv, fields, my, 1, sy, 0), n, s, h, w)
 
 
 @pytest.mark.parametrize("my,mx", [(1, 1), (2, 2), (1, 4), (4, 1), (3, 2)])
@@ -105,6 +164,54 @@ def test_2d_ring_equals_untiled(my, mx, n, s):
     want = _untiled(uv, fields, n)
     for got, ref in ((gu, want[0]), (gv, want[1])):
         assert torch.equal(torch.cat([torch.cat(row, dim=-1) for row in got], dim=-2), ref)
+    _schedule_equals_plain(_rings(uv, fields, my, mx, sg, sg), n, s, h, w)
+
+
+# Meshes of K11's and K12's schedule: (my, 0) is a 1-D ring of my shards.
+RING_MESHES = [(1, 0), (2, 0), (4, 0), (5, 0), (1, 1), (2, 2), (1, 4), (4, 1), (3, 2)]
+
+
+@pytest.mark.parametrize("s", [1, 3, 4, 8, 16])
+@pytest.mark.parametrize("my,mx", RING_MESHES)
+def test_schedule_equals_plain_at_every_block_depth(my, mx, s):
+    # Two K2 tile rows a shard, the second one cut short (owned heights
+    # that K2's tile rows do not divide), a halo exactly s deep (a sweep
+    # block exhausts it), n = 2s + 1 (three blocks, the last one short),
+    # and the true image ending inside the last shards.
+    th = (k2.K2_WINDOW_H - 2 * s) + 7
+    tw = 37 if mx == 0 else s + 21
+    uv, fields = _problem((my * th, max(mx, 1) * tw), 50 + s)
+    rings = _rings(uv, fields, my, max(mx, 1), s, s if mx else 0)
+    _schedule_equals_plain(rings, 2 * s + 1, s, my * th - 2, max(mx, 1) * tw - 3)
+
+
+@pytest.mark.parametrize("s", [3, 4])
+@pytest.mark.parametrize("dy,dx", [(0, 0), (1, 1), (2, 3), (3, 2), (4, 4)])
+def test_schedule_true_edges_at_warp_and_lane_boundaries(s, dy, dx):
+    # A 2 x 2 mesh of a (2, 70, 150) stack whose true image ends dy rows and
+    # dx columns before the shards do: the bottom edge at a warp's last row
+    # and inside a warp's rows, the right edge at a lane's last column and
+    # inside a lane; the top and left edges sit at window row s and column
+    # lh, a warp's first row for s = 3 and inside one for s = 4.
+    uv, fields = _problem((2, 70, 150), 60 + dy)
+    _schedule_equals_plain(_rings(uv, fields, 2, 2, s, s), 3 * s - 1, s, 70 - dy, 150 - dx)
+
+
+def test_schedule_of_several_wide_tiles():
+    # A 1 x 1 mesh over 3 x 3 K2 tiles at s = 4 (40 x 120 each, the last
+    # cut short) and a 1-D ring of two shards, each three tiles wide.
+    uv, fields = _problem((100, 300), 70)
+    _schedule_equals_plain(_rings(uv, fields, 1, 1, 4, 4), 9, 4, 100, 300)
+    _schedule_equals_plain(_rings(uv, fields, 2, 1, 4, 0), 9, 4, 100, 300)
+    # A sweep block writes the owned rectangle and nothing else: never a
+    # halo row or column, which a neighbour may be storing into.
+    ext = [_wrap(a, 4, 5) for a in (*uv, *fields)]
+    u, v = k2.k2_launch_schedule_plain(*ext, 4, origins=[(-4, -5)], img_hw=(100, 300),
+                                       owned=(4, 5))
+    inside = torch.zeros(108, 310, dtype=torch.bool)
+    inside[4:104, 5:305] = True
+    for a in (u, v):
+        assert bool(torch.isfinite(a[inside]).all()) and bool(torch.isnan(a[~inside]).all())
 
 
 def test_ring_solve_of_several_rings_equals_each_alone():
@@ -153,7 +260,27 @@ def test_ring_errors():
         ring.ring_fused_sweeps([t], [t], [f2], 2, 2, [0], 8, 12)
     with pytest.raises(ValueError, match="column halo too"):
         ring.ring_fused_sweeps_2d([[t]], [[t]], [[f]], 2, 2, [[(0, 0)]], 8, 12)
-    assert ring.max_ring_sweeps() >= 8
+    # A sweep block is at most K2's 16 sweeps on the card; the plain
+    # versions take any depth the halo allows.
+    assert ring.MAX_RING_SWEEPS == k2.K2_MAX_SWEEPS == 16
+    assert ring._block_sweeps(40, 16, 16, 16, ring.MAX_RING_SWEEPS) == 16
+    with pytest.raises(ValueError, match="at most 16"):
+        ring._block_sweeps(40, 17, 17, 0, ring.MAX_RING_SWEEPS)
+    assert ring._block_sweeps(40, 17, 17, 0) == 17
+
+
+def test_device_stacks_are_views_of_consecutive_shards():
+    # The tiled solver hands a device's fields as consecutive slices of one
+    # stack: the kernel takes that stack as it is; anything else is copied.
+    base = torch.arange(4 * 6 * 5, dtype=torch.float32).reshape(4, 6, 5)
+    parts = [base.reshape(2, 2, 6, 5)[k] for k in range(2)]
+    got = ring._stacked(parts, (6, 5))
+    assert got.data_ptr() == base.data_ptr() and torch.equal(got, base)
+    swapped = ring._stacked(parts[::-1], (6, 5))
+    assert swapped.data_ptr() != base.data_ptr()
+    assert torch.equal(swapped, torch.cat([base[2:], base[:2]]))
+    one = base[1]
+    assert ring._stacked([one], (6, 5)).data_ptr() == one.data_ptr()
 
 
 def test_unreachable_peer_raises(monkeypatch):

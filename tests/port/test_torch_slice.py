@@ -246,6 +246,26 @@ def test_flow_roundtrip_and_epe(tmp_path):
     assert epe(interior(f, 10), interior(gt, 10)) < 0.05
 
 
+# The host-side io names (images, KITTI, read_flow/write_flow) are not
+# ported yet (ROADMAP.md queue 1, item 4).
+_IO_UNPORTED = {"load_gray", "save_image", "read_flow_png", "write_flow_png",
+                "read_flow", "write_flow"}
+
+
+@pytest.mark.parametrize("sub,unported", [("data", set()), ("io", _IO_UNPORTED)])
+def test_subpackages_export_the_references_names(sub, unported):
+    import importlib
+
+    ref = importlib.import_module(f"opticalflowhs_tpu.{sub}")
+    port = importlib.import_module(f"opticalflowhs_tpu_torch.{sub}")
+    assert sorted(port.__all__) == sorted(set(ref.__all__) - unported)
+    for name in port.__all__:
+        assert callable(getattr(port, name))
+    from opticalflowhs_tpu_torch.data import translation_pair
+    from opticalflowhs_tpu_torch.io import read_flo as read
+    assert translation_pair is syn.translation_pair and read is read_flo
+
+
 def test_package_imports_without_jax():
     code = (
         "import sys\n"
@@ -263,6 +283,8 @@ def test_package_imports_without_jax():
         "import opticalflowhs_tpu_torch.kernels.solve_skewed\n"
         "import opticalflowhs_tpu_torch.kernels.sor_planes, opticalflowhs_tpu_torch.multigrid\n"
         "import opticalflowhs_tpu_torch.data.synthetic, opticalflowhs_tpu_torch.io.flo\n"
+        "from opticalflowhs_tpu_torch.data import translation_pair\n"
+        "from opticalflowhs_tpu_torch.io import read_flo, write_flo\n"
         "import opticalflowhs_tpu_torch.dist, opticalflowhs_tpu_torch.dist.halo\n"
         "import opticalflowhs_tpu_torch.dist.mesh, opticalflowhs_tpu_torch.dist.tiled_solver\n"
         "import opticalflowhs_tpu_torch.dist.pyramid_tiled\n"

@@ -314,15 +314,89 @@ def test_solve_bidirectional_tvl1_matches_reference(frames):
         ((2, 32, 32), (2, 32, 32), {}, "2-D"),
         ((32, 32), (32, 32), dict(pyr=PyramidConfig(levels=4)), "below 8"),
         ((32, 32), (32, 32), dict(cfg=TVL1Config(warps_per_level=(2, 1))), "warps_per_level"),
+        # The batched entry checks only the rank, as the reference's: it
+        # solves what the single-pair rules refuse (match None: both solve);
+        # a warps_per_level shorter than the levels raises ValueError here,
+        # IndexError there.
+        ((32, 32), (32, 32), dict(entry="batched"), "B, H, W"),
+        ((2, 7, 40), (2, 7, 40), dict(entry="batched"), None),
+        ((2, 16, 16), (2, 16, 16), dict(entry="batched", pyr=PyramidConfig(levels=3)), None),
+        ((2, 16, 24), (2, 16, 24), dict(entry="batched",
+                                        cfg=TVL1Config(warps_per_level=(1, 1, 2))), None),
+        ((2, 16, 24), (2, 16, 24), dict(entry="batched", pyr=PyramidConfig(levels=2),
+                                        cfg=TVL1Config(warps_per_level=(1,))),
+         "warps_per_level"),
     ],
 )
 def test_solve_validation_matches_reference(a, b, kw, match):
-    ref_kw = {k: (RefPyr(levels=v.levels) if k == "pyr"
-                  else RefTV(warps_per_level=v.warps_per_level)) for k, v in kw.items()}
+    kw = dict(kw)
+    batched = kw.pop("entry", "single") == "batched"
+    if batched:
+        # One cheap warp (the gather, the quickest to compile): the cases
+        # that solve only show that both entries take the stack.
+        tv_kw = dict(warps=1, iters=2, warp="gather",
+                     warps_per_level=kw["cfg"].warps_per_level if "cfg" in kw else ())
+        kw["cfg"] = TVL1Config(**tv_kw)
+        ref_kw = {"cfg": RefTV(backend="jnp", **tv_kw)}
+        if "pyr" in kw:
+            ref_kw["pyr"] = RefPyr(levels=kw["pyr"].levels, iters_per_level=())
+        ref_entry, entry = ref_tv.tvl1_solve_batched, tvl1_solve_batched
+    else:
+        ref_kw = {k: (RefPyr(levels=v.levels) if k == "pyr"
+                      else RefTV(warps_per_level=v.warps_per_level)) for k, v in kw.items()}
+        ref_entry, entry = ref_tv.tvl1_solve, tvl1_solve
+    ra, rb, ta, tb = jnp.zeros(a), jnp.zeros(b), torch.zeros(a), torch.zeros(b)
+    if match is None:
+        want = ref_entry(ra, rb, **ref_kw)
+        got = entry(ta, tb, **kw)
+        assert tuple(got.u.shape) == tuple(want.u.shape) == a
+        return
+    ref_error = IndexError if batched and match == "warps_per_level" else ValueError
+    with pytest.raises(ref_error, match=None if ref_error is IndexError else match):
+        ref_entry(ra, rb, **ref_kw)
     with pytest.raises(ValueError, match=match):
-        ref_tv.tvl1_solve(jnp.zeros(a), jnp.zeros(b), **ref_kw)
-    with pytest.raises(ValueError, match=match):
-        tvl1_solve(torch.zeros(a), torch.zeros(b), **kw)
+        entry(ta, tb, **kw)
+
+
+@pytest.mark.parametrize("shape,levels", [((2, 7, 40), 1), ((2, 16, 16), 3)])
+def test_batched_solves_frames_the_single_rules_refuse(shape, levels):
+    # Frames below 8 px at a level: tvl1_solve refuses each pair, the
+    # stacked entries of both solve them, within the reference's bars: one
+    # level with the default checked warp on frames narrower than its
+    # tiles, and three levels down to 4 x 4 with the gather (the checked
+    # warp's three levels take the reference half a minute to compile).
+    rng = np.random.default_rng(11)
+    base = rng.uniform(0, 1, (shape[0], shape[1] + 2, shape[2] + 2)).astype(np.float32)
+    a = base[:, 1:-1, 1:-1]
+    b = base[:, 2:, :-2] * 0.9 + base[:, 1:-1, 1:-1] * 0.1
+    cfg = dict(warps=2, iters=20, warp="checked" if levels == 1 else "gather")
+    got = tvl1_solve_batched(*_t(np.ascontiguousarray(a), np.ascontiguousarray(b)),
+                             TVL1Config(**cfg), PyramidConfig(levels=levels))
+    want = ref_tv.tvl1_solve_batched(*_j(a, b), RefTV(backend="jnp", **cfg),
+                                     RefPyr(levels=levels, iters_per_level=()))
+    if levels == 1:
+        assert _flow_diff(got, want) <= STACK_TOL
+    else:
+        # Warps across levels: trajectory level, the multi-warp solves' bar
+        # (EPE within EPE_TOL), held here on every pixel's endpoint.
+        _flow_diff(got, want)
+        end = np.hypot(got.u.numpy() - np.asarray(want.u), got.v.numpy() - np.asarray(want.v))
+        assert float(end.max()) <= EPE_TOL
+    with pytest.raises(ValueError, match="below 8"):
+        tvl1_solve(*_t(np.ascontiguousarray(a[0]), np.ascontiguousarray(b[0])),
+                   TVL1Config(**cfg), PyramidConfig(levels=levels))
+
+
+def test_flow_stream_tvl1_on_a_narrow_video_matches_reference():
+    # 7-row frames: the stream's stacks solve them, as the reference's do.
+    frames = synthetic_sequence(4, 7, 40, tx=0.5, ty=0.2, key=5)[0]
+    cfg = TVL1Config(**STREAM_CFG)
+    got = list(video.flow_stream(frames, tvl1=cfg, chunk=2, device="cpu"))
+    want = list(ref_video.flow_stream(frames, tvl1=RefTV(backend="jnp", **STREAM_CFG),
+                                      chunk=2))
+    assert [f.u.shape for f in got] == [(2, 7, 40), (1, 7, 40)]
+    for g, w in zip(got, want):
+        assert _flow_diff(g, w) <= WARP_ITER_TOL
 
 
 def test_unsupported_options_raise():

@@ -7,8 +7,9 @@
 Runs `configs/c5_multihost_4k.json` (2160x3840, alpha 1, i100, halo_sweeps
 4; noise frames from default_rng(5)) through `dist.hs_solve_tiled` on a
 2 x 2 mesh of cuda:0-3: halo_impl="ppermute" (halo copies between the cards,
-then K9 on each) and halo_impl="rdma" (K12: one launch a card, its halo
-rows and columns stored into the neighbours' slots over NVLink), and
+then K9 on each) and halo_impl="rdma" (K12: one launch a card, its edge
+rows and columns stored into the halo of the neighbours' u/v pairs over
+NVLink), and
 `hs_pyramid_tiled` (L3). Each is held against the untiled solve on one card
 (hs_solve / hs_pyramid on cuda:0) and timed (median of 10, host clock around
 a synchronised call) beside the same mesh made virtual on cuda:0 (2 x 2 and

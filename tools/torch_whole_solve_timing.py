@@ -12,7 +12,11 @@ twins on 2 x 2160x3840, all i100; L3 `hs_pyramid` 3 levels at
 of 8 sweeps at 67x93 and on an 8 x 1088x1920 stack; K9
 (`kernels.tile.tile_sweeps`) on config 5's 16
 shards of 548x968 at 4 sweeps a launch; K11 and K12 (`kernels.ring`) as
-whole i100 solves of config 5's 4 x 1 and 2 x 2 meshes.
+whole i100 solves of config 5's 4 x 1 and 2 x 2 meshes, and as i52
+solves (13 sweep blocks against 25: their difference is 12 blocks); and
+the build each kernel reports (registers,
+spills: K2 and K6 at 8 sweeps, K9, K11 and K12 at 4, K7 at its 4K plan),
+where the tree has the report.
 
     python3 tools/torch_whole_solve_timing.py [--repo DIR] [--reps N]
 
@@ -166,12 +170,25 @@ def main() -> int:
     a41 = ([r[0] for r in g41[0]], [r[0] for r in g41[1]], [r[0] for r in g41[2]], 100, hw,
            [o[0][0] for o in g41[3]], h, w)
     a22 = (*g22[:3], 100, hw, g22[3], h, w)
+    half41 = a41[:3] + (52,) + a41[4:]
+    half22 = a22[:3] + (52,) + a22[4:]
     out["config5"] = {
         "k9_16x548x968_s4": event_ms(lambda: k9.tile_sweeps(su, su, *sf, hw, org, h, w),
                                      args.reps),
         "k11_4x1_i100": event_ms(lambda: ring.ring_fused_sweeps(*a41), args.reps),
         "k12_2x2_i100": event_ms(lambda: ring.ring_fused_sweeps_2d(*a22), args.reps),
+        "k11_4x1_i52": event_ms(lambda: ring.ring_fused_sweeps(*half41), args.reps),
+        "k12_2x2_i52": event_ms(lambda: ring.ring_fused_sweeps_2d(*half22), args.reps),
     }
+    geometry = {"k2_s8": k2.k2_geometry(dev, 8), "k9_s4": k2.k2_geometry(dev, 4, shard=True),
+                "k6_s8": k6.k6_geometry(dev, 8)}
+    if hasattr(k7, "k7_geometry"):
+        geometry["k7_4k_s8"] = k7.k7_geometry(dev, 2160, 3840, 8)
+    if hasattr(ring, "ring_geometry"):
+        geometry["k11_s4"] = ring.ring_geometry(dev, 4)
+        geometry["k12_s4"] = ring.ring_geometry(dev, 4, two_d=True)
+    print(f"geometry: {geometry}", flush=True)
+    out["geometry"] = geometry
     print("config5: " + ", ".join(f"{k} {v:.4f} ms" for k, v in out["config5"].items()),
           flush=True)
     print(chip_smoke.card_line())
