@@ -18,7 +18,8 @@ each ran through the kernels:
               the warp prior, flow_stream_occlusion (a 16-image solve),
               each against the plain version;
   phase 9:    K3 (4-color SOR) and K4 (IRLS freeze and sweeps) against
-              their plain versions, 67x93 and 1088x1920, B 1 and 3;
+              their plain versions, 67x93 and 1088x1920, B 1 and 3, K3 at s
+              2, 5, 11 and its plan; K3's geometry (no spills);
   phase 10:   SOR at full size: hs_solve 1088x1920 i50, tune_omega,
               hs_pyramid 1080p L3, SOR i50 against Jacobi i50 and i400 in
               EPE, hs_solve_batched 4 x 1080p;
@@ -77,7 +78,8 @@ whole solve, K1 included, at 4320x7680, 2160x3840 i100 and 1088x1920 i50),
 and the least time the card could take; K2's row adds its single-frame
 1088x1920 numbers, and K2's and K9's rows the geometry the built kernel
 reports: tile, threads, shared bytes, registers, spills, resident blocks
-an SM); the last line is
+an SM, K3's and K9 SOR's too, with their schedule's byte floor); the last
+line is
 {"ok": true, "device": {...}}.
 """
 
@@ -114,12 +116,14 @@ PEAK_FLOPS = 67e12
 # for the update, so 27.
 K1_FLOPS_PER_PX = 36
 K2_FLOPS_PER_PX_SWEEP = 27
-# K3 per sweep: one SOR update a pixel (its color's stage): 39 for the
-# update as sor.cu computes it (15 per neighbour average, 5 for frac, 4 for
-# the update) and the blend, 3 for each of u and v. K4 freeze: 8 for wd, 14 for ws (an rsqrt
-# counted as one). K4 per sweep: 8 edge weights, 3 for their sum, 14 for
-# the two neighbour sums, 25 for the 2x2 solve (one division).
-K3_FLOPS_PER_PX_SWEEP = 45
+# K3 per sweep (sor.cu, K9 SOR too): one SOR update a pixel (its color's
+# stage): the column sums 4.5 a field (those of a lane's 4 columns, and of
+# the 2 the first stage updated again), the neighbour average 6 a field,
+# 5 for frac, 4 for the targets and the blend, 3 for each of u and v: 36.
+# K4 freeze: 8 for wd, 14 for ws (an rsqrt counted as one). K4 per sweep: 8
+# edge weights, 3 for their sum, 14 for the two neighbour sums, 25 for the
+# 2x2 solve (one division).
+K3_FLOPS_PER_PX_SWEEP = 36
 K4_FREEZE_FLOPS_PER_PX = 22
 K4_FLOPS_PER_PX_SWEEP = 52
 # K5 per alternation: the u-step 23 (rho 4, the three-case step 5 with its
@@ -161,6 +165,21 @@ NVLINK_BYTES_PER_S = 450e9
 # column.
 K2_EDGE_SHAPES = ((1, 1), (2, 7), (3, 31), (1, 32), (2, 33), (3, 63), (5, 65), (9, 129),
                   (33, 113), (40, 1))
+
+
+def k3_schedule_bytes(geo: dict, px: int) -> float:
+    """Bytes one K3 launch moves under its schedule: the 6 arrays of its
+    windows in (the window's area over the tile's times the frame) and u and
+    v of its tiles out."""
+    from opticalflowhs_tpu_torch.kernels import sor as k3
+    halo = k3.K3_WINDOW_H * k3.K3_WINDOW_W / (geo["tile_h"] * geo["tile_w"])
+    return 4.0 * px * (6 * halo + 2)
+
+
+def k3_plan_launches(dev, shape, n: int) -> int:
+    """K3 launches of a chain of n sweeps over `shape` by K3's plan."""
+    from opticalflowhs_tpu_torch.kernels import sor as k3
+    return k3.launches(n, k3.sweeps_per_launch(0, shape, n, k3.device_blocks(dev)))
 
 
 def k5_schedule_bytes(geo: dict, px: int, iters: int) -> float:
@@ -347,7 +366,8 @@ def sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack) -> tuple[dict, dict]:
                 ex, ey, et, invd = k1.derivatives_plain(i1, i2, 0.5, variant)
                 for start, uv in (("warm", (u0, v0)), ("zero", (z, z))):
                     d3 = 0.0
-                    for n, s in ((7, 0), (9, 2)):  # n not a multiple of s
+                    # n not a multiple of s; the plan's s, and s up to K3_MAX_SWEEPS
+                    for n, s in ((7, 0), (9, 2), (13, 5), (23, k3.K3_MAX_SWEEPS)):
                         got = k3.sor_sweeps(*uv, ex, ey, et, invd, n, OMEGA, block_sweeps=s)
                         d3 = max(d3, max_flow_diff(got, k3.sor_sweeps_plain(
                             *uv, ex, ey, et, invd, n, OMEGA)))
@@ -362,7 +382,8 @@ def sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack) -> tuple[dict, dict]:
                         d4 = max(d4, max_flow_diff(k4.robust_sweeps(*uv, ex, ey, et, 13, cfg),
                                                    robust.robust_sweeps(*uv, ex, ey, et, 13, cfg)))
                     note("hs_robust_sweeps", d4, f"K4 IRLS {b}x{h}x{w} {variant} {start}")
-                    print(f"phase 9 B={b} {h}x{w} {variant} {start}: K3 n=7,9 s=4,2 {d3:.3g}; "
+                    print(f"phase 9 B={b} {h}x{w} {variant} {start}: K3 n=7,9,13,23 "
+                          f"s=plan,2,5,{k3.K3_MAX_SWEEPS} {d3:.3g}; "
                           f"K4 freeze {dfz:.3g}; K4 IRLS 13 sweeps k=1,5,20 {d4:.3g}")
             for start, init in (("zero", (None, None)), ("warm", (u0, v0))):
                 d = max_flow_diff(sr.hs_solve_resident_sor(i1, i2, 0.5, 11, OMEGA, "hs_cube", *init),
@@ -375,6 +396,17 @@ def sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack) -> tuple[dict, dict]:
                 note("hs_robust_sweeps", dr, f"IRLS driver {b}x{h}x{w} {start}")
                 print(f"phase 9 drivers B={b} {h}x{w} {start}: SOR n=11 {d:.3g}; "
                       f"IRLS n=13 k=5 {dr:.3g}")
+
+    for shard in (False, True):
+        for s in (2, 4, k3.K3_MAX_SWEEPS):
+            geo = k3.k3_geometry(dev, s, shard)
+            require(geo["spill_bytes"] == 0 and geo["blocks_per_sm"] == 1
+                    and 0 < geo["registers"] <= 65536 // geo["threads"],
+                    f"K3 geometry {geo}: expected no spills and one block an SM")
+            print(f"phase 9 K3 geometry ({'K9 SOR' if shard else 'K3'}) s={s}: {geo}")
+    plan = {shape: k3.sweeps_per_launch(0, shape, n, k3.device_blocks(dev))
+            for shape, n in (((1088, 1920), 50), ((4, 1080, 1920), 50), ((16, 572, 992), 4))}
+    print(f"phase 9 K3 plan (s): {plan}, for i50, i50 and D4's halo block of 4")
 
     # -- the SOR and robust path, counted ---------------------------------------
     cfg_sor = HSConfig(alpha=0.5, iters=50, solver="sor", omega=OMEGA)
@@ -420,7 +452,8 @@ def sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack) -> tuple[dict, dict]:
     print(f"phase 10 hs_solve SOR 1088x1920 a=0.5 i50 omega {OMEGA}: max|diff|={d:.3g} "
           f"launches K1={n_sor['hs_derivatives']} K3={n_sor['hs_sor_sweeps']} "
           f"kernel {ms_k:.3f} ms plain {ms_p:.3f} ms")
-    require(n_sor["hs_derivatives"] == 1 and n_sor["hs_sor_sweeps"] == -(-50 // k3.sweeps_per_launch()),
+    require(n_sor["hs_derivatives"] == 1
+            and n_sor["hs_sor_sweeps"] == k3_plan_launches(dev, (1088, 1920), 50),
             f"hs_solve SOR launches {n_sor}")
 
     t0 = time.perf_counter()
@@ -459,7 +492,8 @@ def sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack) -> tuple[dict, dict]:
     print(f"phase 10 hs_solve_batched SOR 4 x 1080x1920 a=0.5 i50: max|diff|={d:.3g} "
           f"launches K1={n_bat['hs_derivatives']} K3={n_bat['hs_sor_sweeps']} "
           f"kernel {ms_k:.3f} ms ({4 / ms_k * 1e3:.1f} pairs/s)")
-    require(n_bat["hs_derivatives"] == 1 and n_bat["hs_sor_sweeps"] == n_sor["hs_sor_sweeps"],
+    require(n_bat["hs_derivatives"] == 1
+            and n_bat["hs_sor_sweeps"] == k3_plan_launches(dev, tuple(pa.shape), 50),
             f"batched SOR launches per stack {n_bat}")
 
     # -- phase 11: robust at full size -----------------------------------------------
@@ -1222,6 +1256,7 @@ def tiled_path(dev, pair, stack) -> list:
     from opticalflowhs_tpu_torch.kernels import derivatives as k1
     from opticalflowhs_tpu_torch.kernels import jacobi as k2
     from opticalflowhs_tpu_torch.kernels import ring
+    from opticalflowhs_tpu_torch.kernels import sor as k3
     from opticalflowhs_tpu_torch.kernels import tile as k9
 
     names = ("hs_tile_sweeps", "hs_sor_tile_sweeps", "hs_ring_halo_exchange",
@@ -1350,8 +1385,12 @@ def tiled_path(dev, pair, stack) -> list:
     torch.cuda.synchronize()
     launches = {n: c.launches for n, c in counters.items()}
     print(f"tiled path launches (D1, D2, D3, D4, K10): {launches}; per call {per_call}")
+    # D4: ceil(50/4) halo blocks, each K3's plan over the device's 16 shards
+    # of (540 + 2*16) x (960 + 2*16): one launch a block.
+    d4_shards = (16, H // 4 + 8 * s5, W // 4 + 8 * s5)
+    d4 = sum(k3_plan_launches(dev, d4_shards, min(s5, 50 - k)) for k in range(0, 50, s5))
     want = {"D1": (25, 0, 0, 0, 0), "D3 4x1": (0, 0, 0, 1, 0), "D3 2x2": (0, 0, 0, 0, 1),
-            "D4": (0, 13, 0, 0, 0), "K10": (0, 0, 1, 0, 0)}
+            "D4": (0, d4, 0, 0, 0), "K10": (0, 0, 1, 0, 0)}
     for tag, counts in want.items():
         require(tuple(per_call[tag].values()) == counts,
                 f"{tag} launches {per_call[tag]}, expected K9, K9 SOR, K10, K11, K12 = {counts}")
@@ -1522,7 +1561,11 @@ def tiled_path(dev, pair, stack) -> list:
                            "shape": [16, ph, pw], "sweeps_per_launch": hw,
                            "geometry": k2.k2_geometry(dev, hw, shard=True)},
         "hs_sor_tile_sweeps": {"launches_per_D4_solve": per_call["D4"]["K9 SOR"],
-                               "shape": [16, ph_s, pw_s], "sweeps_per_launch": hw},
+                               "shape": [16, ph_s, pw_s], "sweeps_per_launch": hw,
+                               "schedule_bound_ms": k3_schedule_bytes(
+                                   k3.k3_geometry(dev, hw, shard=True), px9s)
+                               / PEAK_BYTES_PER_S * 1e3,
+                               "geometry": k3.k3_geometry(dev, hw, shard=True)},
         "hs_ring_halo_exchange": {"shards": [4, th, W], "halo": hw + 1},
         "hs_ring_fused_sweeps": {"mesh": [4, 1], "n": 100, "s": hw,
                                  "solve_ms_D3": ms["D3 4x1"],
@@ -1918,7 +1961,7 @@ def main() -> int:
     from opticalflowhs_tpu_torch import robust
     from opticalflowhs_tpu_torch.kernels import solve_robust as k4
     from opticalflowhs_tpu_torch.kernels import sor as k3
-    s3 = k3.sweeps_per_launch()
+    s3 = k3.sweeps_per_launch(0, tuple(s1.shape), 50, k3.device_blocks(dev))  # S1's launches
     s4 = k4.sweeps_per_launch()
 
     def sor_robust_timing(a, b, reps_plain):
@@ -1936,7 +1979,8 @@ def main() -> int:
 
         return {
             "hs_sor_sweeps": (
-                event_ms(lambda: k3.sor_sweeps(u, v, ex, ey, et, invd, s3, OMEGA)),
+                event_ms(lambda: k3.sor_sweeps(u, v, ex, ey, et, invd, s3, OMEGA,
+                                               block_sweeps=s3)),
                 event_ms(lambda: k3.sor_sweeps_plain(u, v, ex, ey, et, invd, s3, OMEGA),
                          reps=reps_plain)),
             "hs_robust_freeze": (
@@ -1958,11 +2002,17 @@ def main() -> int:
     ms2d.update(sor_robust_timing(i1, i2, 20))
     bounds2d = sor_robust_bounds(i1.numel())
     per_launch = {"hs_jacobi_sweeps": auto, "hs_sor_sweeps": s3, "hs_robust_sweeps": s4}
+    geo3 = k3.k3_geometry(dev, s3)
+    # K3's own schedule: its windows' 6 arrays in, u and v of its tiles out.
+    k3_floor = {px: k3_schedule_bytes(geo3, px) / PEAK_BYTES_PER_S * 1e3
+                for px in (i1.numel(), c2a.numel())}
     for name, (t_k, t_p) in ms2d.items():
         print(f"kernel {name} 1088x1920: {t_k:.4f} ms per launch, plain {t_p:.4f} ms"
               + (f", bound {bounds2d[name][0]:.4f} ms ({bounds2d[name][1]})"
                  if name in bounds2d else "")
-              + (f" ({per_launch[name]} sweeps per launch)" if name in per_launch else ""))
+              + (f" ({per_launch[name]} sweeps per launch)" if name in per_launch else "")
+              + (f", schedule's byte floor {k3_floor[i1.numel()]:.4f} ms"
+                 if name == "hs_sor_sweeps" else ""))
 
     # -- per-kernel times on the C2 stack, 8 x 1088x1920 ------------------------
     px = c2a.numel()
@@ -1987,7 +2037,9 @@ def main() -> int:
     for name, (t_k, t_p) in ms.items():
         print(f"kernel {name} {bsz}x1088x1920: {t_k:.4f} ms per launch, plain {t_p:.4f} ms, "
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})"
-              + (f" ({per_launch[name]} sweeps per launch)" if name in per_launch else ""))
+              + (f" ({per_launch[name]} sweeps per launch)" if name in per_launch else "")
+              + (f", schedule's byte floor {k3_floor[px]:.4f} ms"
+                 if name == "hs_sor_sweeps" else ""))
 
     source = {"hs_derivatives": "opticalflowhs_tpu_torch/csrc/derivatives.cu",
               "hs_jacobi_sweeps": "opticalflowhs_tpu_torch/csrc/jacobi.cu",
@@ -2022,7 +2074,14 @@ def main() -> int:
                                   "bound_ms_1088x1920": bound_ms(
                                       8 * 4 * s1.numel(),
                                       K2_FLOPS_PER_PX_SWEEP * auto * s1.numel())[0],
-                                  "geometry": k2.k2_geometry(dev, auto)}}
+                                  "geometry": k2.k2_geometry(dev, auto)},
+             "hs_sor_sweeps": {"sweeps_per_launch": s3,
+                               "ms_1088x1920": ms2d["hs_sor_sweeps"][0],
+                               "plain_ms_1088x1920": ms2d["hs_sor_sweeps"][1],
+                               "bound_ms_1088x1920": bounds2d["hs_sor_sweeps"][0],
+                               "schedule_bound_ms": k3_floor[px],
+                               "schedule_bound_ms_1088x1920": k3_floor[i1.numel()],
+                               "geometry": geo3}}
     kernels = [
         {"name": name, "route": "cuda", "source": source[name],
          "replaces": replaces[name], "launches": launches_b[name],

@@ -4,6 +4,8 @@
   jacobi.py          K2 hs_jacobi_sweeps: temporally blocked Jacobi sweeps
                      (persistent 48 x 128 windows, fields in registers)
   sor.py             K3 hs_sor_sweeps: temporally blocked 4-color SOR sweeps
+                     (persistent 48 x 128 windows, u, v and fields in
+                     registers, two barriers a sweep)
   solve_robust.py    K4 hs_robust_freeze/_sweeps: the IRLS solve
   solve_resident.py  the whole-solve drivers: K1, then a chain of K2 or K3
   tvl1_inner.py      K5 hs_tvl1_inner: the TV-L1 inner loop (u- and p-steps)

@@ -55,9 +55,13 @@ SIGNATURES = {
     # bytes, registers, spilled bytes, resident blocks a multiprocessor,
     # multiprocessors
     "hs_jacobi_geometry": [_I, _I, _I, _IP],
-    # u, v, ex, ey, et, invd, uo, vo, b, h, w, sweeps, omega, tile_h,
-    # tile_w, threads, device, stream
-    "hs_sor_sweeps": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
+    # u, v, ex, ey, et, invd, uo, vo, b, h, w, sweeps, omega, device,
+    # stream
+    "hs_sor_sweeps": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+    # sweeps, shard, device, out[9]: K3's (K9 SOR's) sweeps, tile, threads,
+    # shared bytes, registers, spilled bytes, resident blocks a
+    # multiprocessor, multiprocessors
+    "hs_sor_geometry": [_I, _I, _I, _IP],
     # u, v, ex, ey, et, wd, ws, b, h, w, eps_d, eps_d^2, eps_s, eps_s^2,
     # device, stream
     "hs_robust_freeze": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_I, _P],
@@ -91,8 +95,8 @@ SIGNATURES = {
     # device, stream
     "hs_tile_sweeps": [_P] * 9 + [_I] * 7 + [_P],
     # u, v, ex, ey, et, invd, uo, vo, org, b, h, w, img_h, img_w, sweeps,
-    # omega, tile_h, tile_w, threads, device, stream
-    "hs_sor_tile_sweeps": [_P] * 9 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+    # omega, device, stream
+    "hs_sor_tile_sweeps": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
     # table, n, h, w, halo, device, stream
     "hs_ring_halo_exchange": [_P] + [_I] * 5 + [_P],
     # device, peer

@@ -35,9 +35,11 @@ from opticalflowhs_tpu_torch.ops import stencils
 # until 8 float32 arrays of a 64 x 64 tile grown by the sweeps fit the
 # shared memory of one block (200 KB at s = 8), so at most 10 sweeps a
 # launch. That was the window of the shared sweep loop the first kernels
-# ran; K2, K9, K6 and K7 keep its rule, and K3's and K4's kernels their own
-# (`smem_bytes` of kernels/sor.py, kernels/solve_robust.py). K11 and K12
-# take their sweep block from the tiled solver (at most MAX_RING_SWEEPS,
+# ran; K2, K9, K6 and K7 keep its rule, and K4's kernel its own
+# (`smem_bytes` of kernels/solve_robust.py). K3 and K9's SOR entry take
+# theirs from a cost rule over launches and rounds of tiles, at most
+# K3_MAX_SWEEPS (`sweeps_per_launch` of kernels/sor.py). K11 and K12 take
+# their sweep block from the tiled solver (at most MAX_RING_SWEEPS,
 # kernels/ring.py).
 TILE_H = 64
 TILE_W = 64
@@ -88,7 +90,7 @@ def smem_bytes(sweeps: int, tile_h: int = TILE_H, tile_w: int = TILE_W) -> int:
 def fit_sweeps(block_sweeps: int, auto: int, smem) -> int:
     """Sweeps one launch of a temporally blocked kernel runs: block_sweeps,
     or `auto` for 0, cut until its window, `smem(sweeps)` bytes, fits the
-    shared memory of one block (K2, K3 and K4 share this rule)."""
+    shared memory of one block (K2 and K4 share this rule)."""
     s = block_sweeps if block_sweeps > 0 else auto
     while s > 1 and smem(s) > SMEM_BYTES:
         s -= 1

@@ -170,5 +170,5 @@ def hs_solve_resident_sor(i1, i2, alpha: float, n: int, omega: float,
     owned = u0 is None
     if owned:
         u0, v0 = torch.zeros_like(i1), torch.zeros_like(i1)
-    return sor.sor_chain(u0, v0, ex, ey, et, invd, n, omega,
-                         sor.sweeps_per_launch(block_sweeps), owned=owned)
+    return sor.sor_chain(u0, v0, ex, ey, et, invd, n, omega, block_sweeps,
+                         owned=owned)

@@ -12,10 +12,13 @@ The CUDA sources are K2's and K3's kernels (csrc/jacobi.cu, csrc/sor.cu)
 behind the entries `hs_tile_sweeps` and `hs_sor_tile_sweeps`, which take a
 per-slice origin: one launch covers a whole (S, PH, PW) stack, every shard
 that lives on one device, each with its own origin. The Jacobi entry runs
-K2's design (persistent 64 x 128 windows, fields in registers; its plain
-schedule is `jacobi.k2_launch_schedule_plain` with `origins`). The
-reference pads each shard to the TPU's 8 x 128 tiles; here nothing is
-padded.
+K2's design (persistent 48 x 128 windows with a halo of s rows and
+columns, fields in registers; its plain schedule is
+`jacobi.k2_launch_schedule_plain` with `origins`), the SOR entry K3's
+(persistent 48 x 128 windows with a halo of 2s rows and 4s columns, u, v
+and fields in registers, two barriers a sweep, s by K3's cost rule for the
+stack; `sor.k3_launch_schedule_plain` with `origins`). The reference pads
+each shard to the TPU's 8 x 128 tiles; here nothing is padded.
 
 On CPU tensors the wrappers run the plain versions (`stencils.
 jacobi_step_masked` and `sor_step_masked` over the whole padded shard), on
@@ -109,8 +112,7 @@ def _launcher(entry: str, u, ex, ey, et, inv_den, org, h: int, w: int,
     lib = _build.library()
     fn = getattr(lib, entry)
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    # K9 Jacobi takes K2's fixed geometry; the SOR entry K3's tile.
-    extra = () if omega is None else (float(omega), k3.TILE_H, k3.TILE_W, k3.THREADS)
+    extra = () if omega is None else (float(omega),)
 
     def launch(su, sv, du, dv, k):
         err = fn(su.data_ptr(), sv.data_ptr(), ex.data_ptr(), ey.data_ptr(),
@@ -145,8 +147,9 @@ def tile_sweeps(u, v, ex, ey, et, inv_den, n_sweeps: int, org: torch.Tensor,
 def sor_tile_sweeps(u, v, ex, ey, et, inv_den, n_sweeps: int, omega: float,
                     org: torch.Tensor, h: int, w: int, block_sweeps: int = 0):
     """SOR twin of `tile_sweeps`: n 4-color sweeps, colors by global parity;
-    ceil(n/s) launches of K9's SOR entry (s as K3), or the plain version on
-    CPU tensors."""
+    ceil(n/s) launches of K9's SOR entry (s by K3's rule,
+    `sor.sweeps_per_launch`, for the stack), or the plain version on CPU
+    tensors."""
     check_frames("sor_tile_sweeps", u, v, ex, ey, et, inv_den)
     _check_table(u, org)
     if n_sweeps == 0:
@@ -156,8 +159,8 @@ def sor_tile_sweeps(u, v, ex, ey, et, inv_den, n_sweeps: int, omega: float,
                                      org[:, 0], org[:, 1], h, w)
     launch = _launcher("hs_sor_tile_sweeps", u, ex, ey, et, inv_den, org, h, w,
                        omega)
-    return k2.ping_pong(u, v, n_sweeps, k3.sweeps_per_launch(block_sweeps),
-                        launch)
+    s = k3.sweeps_per_launch(block_sweeps, u.shape, n_sweeps, k3.device_blocks(u.device))
+    return k2.ping_pong(u, v, n_sweeps, s, launch)
 
 
 # Every K9 launch counts here: Jacobi on tile_sweeps, SOR on sor_tile_sweeps.

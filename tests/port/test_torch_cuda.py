@@ -266,9 +266,15 @@ def test_streams_default_to_the_card(dev):
 # -- K3 (4-color SOR) and K4 (IRLS freeze and sweeps) ------------------------
 
 
+def _k3_launches(shape, n, s, dev):
+    """K3 launches of n sweeps at block_sweeps s: K3's plan for the shape."""
+    return k3.launches(n, k3.sweeps_per_launch(s, shape, n, k3.device_blocks(dev)))
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("b", [1, 3])
-@pytest.mark.parametrize("n,s", [(1, 0), (5, 2), (9, 1), (13, 0), (7, 3), (6, 4)])
+@pytest.mark.parametrize("n,s", [(1, 0), (5, 2), (9, 1), (13, 0), (7, 3), (6, 4), (23, 11),
+                                 (17, 8), (12, 5), (25, 12)])
 def test_k3_equals_plain(dev, shape, b, n, s):
     i1, i2 = _rand((b,) + shape, dev, 13)
     fields = k1.derivatives_plain(i1, i2, 0.5)
@@ -276,7 +282,7 @@ def test_k3_equals_plain(dev, shape, b, n, s):
     keep = (u0.clone(), v0.clone())
     k3.sor_sweeps.launches = 0
     got = k3.sor_sweeps(u0, v0, *fields, n, 1.7, block_sweeps=s)
-    assert k3.sor_sweeps.launches == -(-n // k3.sweeps_per_launch(s))
+    assert k3.sor_sweeps.launches == _k3_launches(u0.shape, n, s, dev)
     _equal(got, k3.sor_sweeps_plain(u0, v0, *fields, n, 1.7))
     _equal((u0, v0), keep)  # inputs untouched
     for k in range(b):
@@ -295,8 +301,80 @@ def test_sor_driver_equals_plain(dev, shape, b, warm, variant):
     k3.sor_sweeps.launches = 0
     got = sr.hs_solve_resident_sor(i1, i2, 0.5, 11, 1.6, variant, *init)
     assert (k1.hs_derivatives.launches, k3.sor_sweeps.launches) == (
-        1, -(-11 // k3.sweeps_per_launch(0)))
+        1, _k3_launches(i1.shape, 11, 0, dev))
     _equal(got, sr.hs_solve_resident_sor_plain(i1, i2, 0.5, 11, 1.6, variant, *init))
+
+
+# K3's own geometry (48 x 128 windows, tiles less 2s rows and 4s columns of
+# halo, warps of 4 rows, lanes of 4 columns): frames one pixel below and
+# above one and two tiles at every s, stacks, zero and warm starts.
+def _k3_edge_shape(s, kind):
+    th, tw, _, _ = k3.k3_tile(s)
+    return {"one-": (th - 1, tw - 1), "one+": (th + 1, tw + 1),
+            "two-": (2 * th - 1, 2 * tw - 1), "two+": (2 * th + 1, 2 * tw + 1)}[kind]
+
+
+@pytest.mark.parametrize("s", range(1, k3.K3_MAX_SWEEPS + 1))
+@pytest.mark.parametrize("kind", ["one-", "one+", "two-", "two+"])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("warm", [False, True])
+def test_k3_tile_edge_shapes_equal_plain(dev, s, kind, b, warm):
+    full = (b,) + _k3_edge_shape(s, kind)
+    i1, i2 = _rand(full, dev, 100 + s)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    u0, v0 = _rand(full, dev, 101, normal=True) if warm else (torch.zeros(full, device=dev),) * 2
+    n = 2 * s + 1  # s does not divide n
+    k3.sor_sweeps.launches = 0
+    got = k3.sor_sweeps(u0, v0, *fields, n, 1.7, block_sweeps=s)
+    assert k3.sor_sweeps.launches == k3.launches(n, s)
+    _equal(got, k3.sor_sweeps_plain(u0, v0, *fields, n, 1.7))
+
+
+@pytest.mark.parametrize("s", range(1, k3.K3_MAX_SWEEPS + 1))
+@pytest.mark.parametrize("w", [96, 93])
+def test_k3_unaligned_views_equal_plain(dev, s, w):
+    # Contiguous views 4 bytes off a 16-byte boundary take the 4-byte copies.
+    h = 50
+    flat = [torch.from_numpy(np.random.default_rng(102 + k).normal(0, 0.5, 1 + 2 * h * w)
+                             .astype(np.float32)).to(dev) for k in range(4)]
+    u0, v0, i1, i2 = (f[1:].view(2, h, w) for f in flat)
+    fields = k1.derivatives_plain(i1.abs(), i2.abs(), 0.5)
+    n = s + 2
+    _equal(k3.sor_sweeps(u0, v0, *fields, n, 1.7, block_sweeps=s),
+           k3.sor_sweeps_plain(u0, v0, *fields, n, 1.7))
+
+
+@pytest.mark.parametrize("shard", [False, True])
+@pytest.mark.parametrize("s", [1, 4, k3.K3_MAX_SWEEPS])
+def test_k3_geometry_on_the_card(dev, shard, s):
+    geo = k3.k3_geometry(dev, s, shard)
+    th, tw, _, _ = k3.k3_tile(s)
+    assert (geo["sweeps"], geo["tile_h"], geo["tile_w"]) == (s, th, tw)
+    assert geo["threads"] == k3.K3_THREADS and geo["smem_bytes"] == k3.K3_SMEM_BYTES
+    assert 0 < geo["registers"] <= 65536 // k3.K3_THREADS and geo["spill_bytes"] == 0
+    assert geo["blocks_per_sm"] == 1
+    assert k3.device_blocks(dev) == geo["sms"]
+
+
+def test_k2_geometry_unchanged_beside_k3(dev):
+    # K3 shares K2's cp.async helpers only: K2's and K9's builds stay as they were.
+    for shard in (False, True):
+        geo = k2.k2_geometry(dev, 8, shard)
+        assert (geo["tile_h"], geo["tile_w"], geo["threads"]) == (32, 112, k2.K2_THREADS)
+        assert geo["smem_bytes"] == k2.K2_SMEM_BYTES and geo["spill_bytes"] == 0
+        assert geo["registers"] <= 128 and geo["blocks_per_sm"] == 1
+
+
+@pytest.mark.parametrize("shape,n", [((1088, 1920), 50), ((2, 272, 480), 50), ((67, 93), 11),
+                                     ((3, 1080, 1920), 4)])
+def test_k3_launches_follow_the_plan(dev, shape, n):
+    i1, i2 = _rand(shape, dev, 103)
+    k1.hs_derivatives.launches = 0
+    k3.sor_sweeps.launches = 0
+    sr.hs_solve_resident_sor(i1, i2, 0.5, n, 1.7)
+    s = k3.sweeps_per_launch(0, shape, n, k3.device_blocks(dev))
+    assert (k1.hs_derivatives.launches, k3.sor_sweeps.launches) == (1, k3.launches(n, s))
+    assert s == k3.sweeps_per_launch(0, shape, n)  # one block a multiprocessor, 132 of them
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -937,6 +1015,21 @@ def test_k9_stack_of_shards_is_one_launch(dev, sor):
                else k9.tile_sweeps(u0[k], v0[k], *f, 4, org, 300, 400))
         _equal((got[0][k], got[1][k]), one)
 
+
+
+@pytest.mark.parametrize("s", range(1, k3.K3_MAX_SWEEPS + 1))
+def test_k9_sor_at_odd_and_even_origins_equals_plain(dev, s):
+    # Shards of a 300 x 400 image whose origins flip the row or column
+    # parity (or both), with true edges inside, one launch for the stack.
+    ph, pw = 37, 150
+    rows = [-4, -3, 117, 116, 5, 300 - ph + 3, 300 - ph + 4]
+    cols = [-3, -4, 33, 32, -6, 400 - pw + 4, 400 - pw + 5]
+    u0, v0, fields = _tile_problem(dev, (ph, pw), 104, stack=len(rows))
+    org = k9.origin_table(u0, rows, cols)
+    k9.sor_tile_sweeps.launches = 0
+    got = k9.sor_tile_sweeps(u0, v0, *fields, 2 * s + 1, 1.6, org, 300, 400, block_sweeps=s)
+    assert k9.sor_tile_sweeps.launches == k3.launches(2 * s + 1, s)
+    _equal(got, k9.sor_tile_sweeps_plain(u0, v0, *fields, 2 * s + 1, 1.6, rows, cols, 300, 400))
 
 @pytest.mark.parametrize("n_shards", [1, 2, 4])
 @pytest.mark.parametrize("halo", [1, 3, 12])

@@ -225,9 +225,16 @@ def test_cpu_wrappers_launch_nothing():
 
 
 def test_sweeps_per_launch_fits_shared_memory():
-    for k in (k2, k3, k4):
+    for k in (k2, k4):
         assert k.sweeps_per_launch(0) == k.AUTO_SWEEPS
         assert k.smem_bytes(k.AUTO_SWEEPS) <= k2.SMEM_BYTES
         s = k.sweeps_per_launch(1000)
         assert k.smem_bytes(s) <= k2.SMEM_BYTES < k.smem_bytes(s + 1)
         assert k.sweeps_per_launch(1) == 1
+    # K3's window is the same at every s; its tile sets the cap, its cost
+    # rule the default.
+    assert k3.K3_SMEM_BYTES <= k2.SMEM_BYTES
+    assert k3.sweeps_per_launch(0, (1088, 1920), 50) == 4
+    assert k3.sweeps_per_launch(1000, (1088, 1920), 50) == k3.K3_MAX_SWEEPS
+    assert k3.k3_tile(k3.K3_MAX_SWEEPS)[0] > 0 >= k3.k3_tile(k3.K3_MAX_SWEEPS + 1)[0]
+    assert k3.sweeps_per_launch(1, (1088, 1920), 50) == 1

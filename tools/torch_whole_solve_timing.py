@@ -18,7 +18,19 @@ the build each kernel reports (registers,
 spills: K2 and K6 at 8 sweeps, K9, K11 and K12 at 4, K7 at its 4K plan),
 where the tree has the report.
 
-    python3 tools/torch_whole_solve_timing.py [--repo DIR] [--reps N]
+    python3 tools/torch_whole_solve_timing.py [--repo DIR] [--reps N] [--k3 [--scan]]
+
+With --k3 it times K3 (4-color SOR) instead: a launch of 4 sweeps at
+1088x1920 and on an 8 x 1088x1920 stack, K9's SOR entry
+(`kernels.tile.sor_tile_sweeps`) over D4's 16 shards of 572x992 for one
+halo block of 4 sweeps (s by the tree's own rule), the K1 + K3 chain of
+S1 (`solve_resident.hs_solve_resident_sor` 1088x1920 i50, omega
+chip_smoke.OMEGA), beside a K2 launch of 8 sweeps at both shapes and a
+K9 Jacobi launch over D1's 16 shards of 548x968; with --scan, where the
+tree's K3 has a plan (`sor.sweeps_per_launch` over shapes), a launch at every s up
+to K3_MAX_SWEEPS at 1088x1920, 1088x1900, 8 x 1088x1920, 544x960 and
+272x480, K9 SOR on D4's stack at s 1-4, and the chain of 50 sweeps at
+each s at 1088x1920 and 544x960, beside the plan's s.
 
 Frames are chip_smoke.py's noise (default_rng(0)) at 4320x7680, 2160x3840
 and 1088x1920, alpha 0.5, the fields computed once by K1; the sweeps start
@@ -78,10 +90,93 @@ def k7_bands(k7, h: int, w: int) -> dict:
     return out
 
 
+def k3_times(dev, reps: int, scan: bool) -> dict:
+    """--k3: K3 and K9 SOR launches, the S1 chain, beside K2 and K9 Jacobi
+    launches; with `scan`, where the tree has K3's plan, launches and chains
+    at every s."""
+    import chip_smoke
+    from opticalflowhs_tpu_torch.kernels import derivatives as k1
+    from opticalflowhs_tpu_torch.kernels import jacobi as k2
+    from opticalflowhs_tpu_torch.kernels import solve_resident as sr
+    from opticalflowhs_tpu_torch.kernels import sor as k3
+    from opticalflowhs_tpu_torch.kernels import tile as k9
+
+    om = chip_smoke.OMEGA
+
+    def problem(shape, seed=0):
+        rng = np.random.default_rng(seed)
+        i1, i2 = (torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to(dev)
+                  for _ in range(2))
+        return i1, i2, k1.hs_derivatives(i1, i2, 0.5)
+
+    out = {}
+    for name, shape in (("1088x1920", (1088, 1920)), ("8x1088x1920", (8, 1088, 1920))):
+        _, _, fields = problem(shape)
+        z = torch.zeros_like(fields[0])
+        uo, vo = torch.empty_like(z), torch.empty_like(z)
+        out[f"k3_launch_s4_{name}"] = event_ms(
+            lambda: k3.launch_sweeps(z, z, *fields, uo, vo, 4, om), reps)
+        out[f"k2_launch_8_{name}"] = event_ms(
+            lambda: k2.launch_sweeps(z, z, *fields, uo, vo, 8), reps)
+    s1, s2 = chip_smoke.c1_frames(dev)
+    out["s1_k1_k3_chain_i50"] = event_ms(
+        lambda: sr.hs_solve_resident_sor(s1, s2, 0.5, 50, om), reps)
+    h, w = 2160, 3840
+    for tag, hw, sor in (("k9_16x548x968_s4", 4, False), ("k9_sor_16x572x992_n4", 16, True)):
+        th, tw = h // 4, w // 4
+        rng = np.random.default_rng(180)
+        su = torch.from_numpy(rng.normal(0, 0.5, (16, th + 2 * hw, tw + 2 * hw))
+                              .astype(np.float32)).to(dev)
+        sa, sb = (torch.from_numpy(rng.uniform(0, 1, su.shape).astype(np.float32)).to(dev)
+                  for _ in range(2))
+        sf = k1.derivatives_plain(sa, sb, 1.0)
+        rows = [i * th - hw for i in range(4) for _ in range(4)]
+        cols = [j * tw - hw for _ in range(4) for j in range(4)]
+        org = k9.origin_table(su, rows, cols)
+        if sor:
+            out[tag] = event_ms(lambda: k9.sor_tile_sweeps(su, su, *sf, 4, om, org, h, w), reps)
+            d4 = (su, sf, org)
+        else:
+            out[tag] = event_ms(lambda: k9.tile_sweeps(su, su, *sf, 4, org, h, w), reps)
+    if not scan or not hasattr(k3, "K3_MAX_SWEEPS"):
+        return out
+    blocks = k3.device_blocks(dev)
+    scan = {}
+    for name, shape in (("1088x1920", (1088, 1920)), ("1088x1900", (1088, 1900)),
+                        ("8x1088x1920", (8, 1088, 1920)), ("544x960", (544, 960)),
+                        ("272x480", (272, 480))):
+        _, _, fields = problem(shape)
+        z = torch.zeros_like(fields[0])
+        uo, vo = torch.empty_like(z), torch.empty_like(z)
+        row = {"plan_n50": k3.sweeps_per_launch(0, shape, 50, blocks)}
+        for s in range(1, k3.K3_MAX_SWEEPS + 1):
+            row[f"launch_s{s}"] = event_ms(
+                lambda: k3.launch_sweeps(z, z, *fields, uo, vo, s, om), reps)
+            if name in ("1088x1920", "544x960"):
+                row[f"chain50_s{s}"] = event_ms(
+                    lambda: k3.sor_sweeps(z, z, *fields, 50, om, block_sweeps=s), reps)
+        scan[name] = row
+        print(f"k3 scan {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()),
+              flush=True)
+    su, sf, org = d4
+    row = {"plan_n4": k3.sweeps_per_launch(0, su.shape, 4, blocks)}
+    for s in range(1, 5):
+        row[f"n4_s{s}"] = event_ms(
+            lambda: k9.sor_tile_sweeps(su, su, *sf, 4, om, org, h, w, block_sweeps=s), reps)
+    scan["d4_16x572x992"] = row
+    print("k3 scan d4: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()), flush=True)
+    out["scan"] = scan
+    out["geometry"] = {"k3_s4": k3.k3_geometry(dev, 4), "k9_sor_s4": k3.k3_geometry(dev, 4, True),
+                       "k2_s8": k2.k2_geometry(dev, 8)}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=str(HERE))
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--k3", action="store_true")
+    ap.add_argument("--scan", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_whole_solve_timing: no CUDA device", file=sys.stderr)
@@ -89,6 +184,14 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.repo).resolve()))
     sys.path.insert(1, str(HERE))
     import chip_smoke
+    if args.k3:
+        out = k3_times(torch.device("cuda", 0), args.reps, args.scan)
+        print("k3: " + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()
+                                 if isinstance(v, float)), flush=True)
+        print(chip_smoke.card_line())
+        print(json.dumps({"k3_ms": out, "reps": args.reps, "repo": args.repo,
+                          "device": torch.cuda.get_device_name(0)}))
+        return 0
     from opticalflowhs_tpu_torch import HSConfig, PyramidConfig, hs_pyramid, hs_solve
     from opticalflowhs_tpu_torch.kernels import derivatives as k1
     from opticalflowhs_tpu_torch.kernels import jacobi as k2
