@@ -19,7 +19,8 @@ each ran through the kernels:
               each against the plain version;
   phase 9:    K3 (4-color SOR) and K4 (IRLS freeze and sweeps) against
               their plain versions, 67x93 and 1088x1920, B 1 and 3, K3 at s
-              2, 5, 11 and its plan; K3's geometry (no spills);
+              2, 5, 11 and its plan, K4 at s 2, 7, 14 and its plan; K3's
+              and K4's geometry (no spills) and plans;
   phase 10:   SOR at full size: hs_solve 1088x1920 i50, tune_omega,
               hs_pyramid 1080p L3, SOR i50 against Jacobi i50 and i400 in
               EPE, hs_solve_batched 4 x 1080p;
@@ -120,12 +121,19 @@ K2_FLOPS_PER_PX_SWEEP = 27
 # stage): the column sums 4.5 a field (those of a lane's 4 columns, and of
 # the 2 the first stage updated again), the neighbour average 6 a field,
 # 5 for frac, 4 for the targets and the blend, 3 for each of u and v: 36.
-# K4 freeze: 8 for wd, 14 for ws (an rsqrt counted as one). K4 per sweep: 8
-# edge weights, 3 for their sum, 14 for the two neighbour sums, 25 for the
-# 2x2 solve (one division).
+# K4 freeze: 8 for wd, 14 for ws (an rsqrt counted as one). K4's sweep
+# kernel (robust.cu) forms the launch's frozen coefficients once a pixel,
+# K4_HOISTED_FLOPS_PER_PX: 8 for the four edge weights, 3 for their sum, 2
+# for wd Ex and wd Ey, 3 each for a11 and a22, 1 for a12, 2 for c1 and c2,
+# 3 for det and 1 for 1/det (an IEEE division counted as one); a sweep is
+# then K4_FLOPS_PER_PX_SWEEP: 14 for the two neighbour sums, 4 for b1 and
+# b2, 8 for u' and v'. A launch of s sweeps is 26 s + 26 a pixel: the
+# hoisted set spread over the launch's sweeps is 26 + 26/s a pixel a sweep
+# (52 at s = 1, what the plain sweep computes).
 K3_FLOPS_PER_PX_SWEEP = 36
 K4_FREEZE_FLOPS_PER_PX = 22
-K4_FLOPS_PER_PX_SWEEP = 52
+K4_FLOPS_PER_PX_SWEEP = 26
+K4_HOISTED_FLOPS_PER_PX = 26
 # K5 per alternation: the u-step 23 (rho 4, the three-case step 5 with its
 # two compares, v 4, two divergences 6, u 4), the p-step 14 a field (two
 # differences, the norm 4 with its sqrt, n 2, two updates 6): 51 float32
@@ -180,6 +188,29 @@ def k3_plan_launches(dev, shape, n: int) -> int:
     """K3 launches of a chain of n sweeps over `shape` by K3's plan."""
     from opticalflowhs_tpu_torch.kernels import sor as k3
     return k3.launches(n, k3.sweeps_per_launch(0, shape, n, k3.device_blocks(dev)))
+
+
+def k4_schedule_bytes(geo: dict, px: int) -> float:
+    """Bytes one K4 sweep launch moves under its schedule: the 7 arrays of
+    its windows in (the window's area over the tile's times the frame) and
+    u and v of its tiles out."""
+    halo = geo["window_h"] * 128 / (geo["tile_h"] * geo["tile_w"])
+    return 4.0 * px * (7 * halo + 2)
+
+
+def k4_plan(dev, shape, m: int) -> int:
+    """K4's sweeps a launch in a refreeze block of m sweeps over `shape`."""
+    from opticalflowhs_tpu_torch.kernels import solve_robust as k4
+    return k4.sweeps_per_launch(0, shape, m, k4.device_blocks(dev))
+
+
+def k4_plan_launches(dev, shape, iters: int, every: int) -> int:
+    """K4 sweep launches of an IRLS run of `iters` sweeps refrozen every
+    `every`, by K4's plan for each refreeze block."""
+    from opticalflowhs_tpu_torch import robust
+    from opticalflowhs_tpu_torch.kernels import solve_robust as k4
+    return sum(k4.launches(m, k4_plan(dev, shape, m))
+               for m in robust.refreeze_blocks(iters, every))
 
 
 def k5_schedule_bytes(geo: dict, px: int, iters: int) -> float:
@@ -372,9 +403,19 @@ def sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack) -> tuple[dict, dict]:
                         d3 = max(d3, max_flow_diff(got, k3.sor_sweeps_plain(
                             *uv, ex, ey, et, invd, n, OMEGA)))
                     note("hs_sor_sweeps", d3, f"K3 {b}x{h}x{w} {variant} {start}")
+                    wd, ws = robust.charbonnier_weights(*uv, ex, ey, et, 0.05, 0.01)
                     dfz = max_flow_diff(k4.freeze_weights(*uv, ex, ey, et, 0.05, 0.01),
-                                        robust.charbonnier_weights(*uv, ex, ey, et, 0.05, 0.01))
+                                        (wd, ws))
                     note("hs_robust_freeze", dfz, f"K4 freeze {b}x{h}x{w} {variant} {start}")
+                    # n not a multiple of s; the plan's s, and s up to K4_MAX_SWEEPS
+                    d4s = 0.0
+                    for n, s in ((13, 0), (9, 2), (15, 7), (29, k4.K4_MAX_SWEEPS)):
+                        got = k4.frozen_sweeps(*uv, ex, ey, et, wd, ws, 0.3, n, block_sweeps=s)
+                        want = uv
+                        for _ in range(n):
+                            want = robust.robust_step(*want, ex, ey, et, wd, ws, 0.3)
+                        d4s = max(d4s, max_flow_diff(got, want))
+                    note("hs_robust_sweeps", d4s, f"K4 sweeps {b}x{h}x{w} {variant} {start}")
                     d4 = 0.0
                     for k in (1, 5, 20):  # 13 sweeps: every sweep, odd k crossing, k > n
                         cfg = HSConfig(alpha=0.3, iters=13, solver="robust",
@@ -384,7 +425,9 @@ def sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack) -> tuple[dict, dict]:
                     note("hs_robust_sweeps", d4, f"K4 IRLS {b}x{h}x{w} {variant} {start}")
                     print(f"phase 9 B={b} {h}x{w} {variant} {start}: K3 n=7,9,13,23 "
                           f"s=plan,2,5,{k3.K3_MAX_SWEEPS} {d3:.3g}; "
-                          f"K4 freeze {dfz:.3g}; K4 IRLS 13 sweeps k=1,5,20 {d4:.3g}")
+                          f"K4 freeze {dfz:.3g}; K4 sweeps n=13,9,15,29 "
+                          f"s=plan,2,7,{k4.K4_MAX_SWEEPS} {d4s:.3g}; "
+                          f"K4 IRLS 13 sweeps k=1,5,20 {d4:.3g}")
             for start, init in (("zero", (None, None)), ("warm", (u0, v0))):
                 d = max_flow_diff(sr.hs_solve_resident_sor(i1, i2, 0.5, 11, OMEGA, "hs_cube", *init),
                                   sr.hs_solve_resident_sor_plain(i1, i2, 0.5, 11, OMEGA,
@@ -407,6 +450,18 @@ def sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack) -> tuple[dict, dict]:
     plan = {shape: k3.sweeps_per_launch(0, shape, n, k3.device_blocks(dev))
             for shape, n in (((1088, 1920), 50), ((4, 1080, 1920), 50), ((16, 572, 992), 4))}
     print(f"phase 9 K3 plan (s): {plan}, for i50, i50 and D4's halo block of 4")
+    for s in (1, k4_plan(dev, (1088, 1920), 20), k4.K4_MAX_SWEEPS):
+        geo = k4.k4_geometry(dev, s)
+        require(geo["spill_bytes"] == 0 and geo["blocks_per_sm"] == 1
+                and 0 < geo["registers"] <= min(255, 65536 // geo["threads"]),
+                f"K4 geometry {geo}: expected no spills and one block an SM")
+        print(f"phase 9 K4 geometry s={s}: {geo}")
+    rcp = k4.rcp_check(dev)
+    print(f"phase 9 K4 reciprocal against the IEEE division over every float it takes: {rcp}")
+    require(rcp == {"mismatch_div": 0, "mismatch_double": 0, "checked": 2 * 252 * 2 ** 23},
+            f"K4's reciprocal differs from the IEEE division: {rcp}")
+    plan = {shape: k4_plan(dev, shape, 20) for shape in ((1088, 1920), (4, 1080, 1920))}
+    print(f"phase 9 K4 plan (s) for a refreeze block of 20 (R1's): {plan}")
 
     # -- the SOR and robust path, counted ---------------------------------------
     cfg_sor = HSConfig(alpha=0.5, iters=50, solver="sor", omega=OMEGA)
@@ -508,7 +563,7 @@ def sor_and_robust(dev, s1, s2, p1, p2, pa, pb, stack) -> tuple[dict, dict]:
     ms_k = median_ms(lambda: hs_solve(s1, s2, cfg_rob))
     ms_p = median_ms(lambda: hs_solve(s1, s2, plain(cfg_rob)), runs=5)
     blocks = robust.refreeze_blocks(100, 20)
-    want = (1, len(blocks), sum(-(-m // k4.sweeps_per_launch()) for m in blocks))
+    want = (1, len(blocks), k4_plan_launches(dev, (1088, 1920), 100, 20))
     got = (n_rob["hs_derivatives"], n_rob["hs_robust_freeze"], n_rob["hs_robust_sweeps"])
     print(f"phase 11 hs_solve robust 1088x1920 a=0.25 i100 k=20: max|diff|={d:.3g} "
           f"launches K1={got[0]} K4 freeze={got[1]} K4 sweeps={got[2]} "
@@ -1962,13 +2017,14 @@ def main() -> int:
     from opticalflowhs_tpu_torch.kernels import solve_robust as k4
     from opticalflowhs_tpu_torch.kernels import sor as k3
     s3 = k3.sweeps_per_launch(0, tuple(s1.shape), 50, k3.device_blocks(dev))  # S1's launches
-    s4 = k4.sweeps_per_launch()
+    s4 = k4_plan(dev, tuple(s1.shape), 20)  # R1's launches
 
     def sor_robust_timing(a, b, reps_plain):
         """ms per launch of K3 (s3 sweeps), K4 freeze and K4 sweeps (s4
         sweeps), kernel and plain, on the frames (a, b)."""
         ex, ey, et, invd = k1.derivatives_plain(a, b, 0.5)
         u, v = torch.zeros_like(a), torch.zeros_like(a)
+        uo, vo = torch.empty_like(a), torch.empty_like(a)
         wd, ws = robust.charbonnier_weights(u, v, ex, ey, et, 0.05, 0.05)
 
         def plain_sweeps():
@@ -1988,7 +2044,7 @@ def main() -> int:
                 event_ms(lambda: robust.charbonnier_weights(u, v, ex, ey, et, 0.05, 0.05),
                          reps=reps_plain)),
             "hs_robust_sweeps": (
-                event_ms(lambda: k4.frozen_sweeps(u, v, ex, ey, et, wd, ws, 0.25, s4)),
+                event_ms(lambda: k4.launch_sweeps(u, v, ex, ey, et, wd, ws, uo, vo, s4, 0.25)),
                 event_ms(plain_sweeps, reps=reps_plain)),
         }
 
@@ -1996,7 +2052,8 @@ def main() -> int:
         return {
             "hs_sor_sweeps": bound_ms(8 * 4 * px, K3_FLOPS_PER_PX_SWEEP * s3 * px),
             "hs_robust_freeze": bound_ms(7 * 4 * px, K4_FREEZE_FLOPS_PER_PX * px),
-            "hs_robust_sweeps": bound_ms(9 * 4 * px, K4_FLOPS_PER_PX_SWEEP * s4 * px),
+            "hs_robust_sweeps": bound_ms(
+                9 * 4 * px, (K4_FLOPS_PER_PX_SWEEP * s4 + K4_HOISTED_FLOPS_PER_PX) * px),
         }
 
     ms2d.update(sor_robust_timing(i1, i2, 20))
@@ -2006,13 +2063,18 @@ def main() -> int:
     # K3's own schedule: its windows' 6 arrays in, u and v of its tiles out.
     k3_floor = {px: k3_schedule_bytes(geo3, px) / PEAK_BYTES_PER_S * 1e3
                 for px in (i1.numel(), c2a.numel())}
+    geo4 = k4.k4_geometry(dev, s4)
+    # K4's own schedule: its windows' 7 arrays in, u and v of its tiles out.
+    k4_floor = {px: k4_schedule_bytes(geo4, px) / PEAK_BYTES_PER_S * 1e3
+                for px in (i1.numel(), c2a.numel())}
+    floor = {"hs_sor_sweeps": k3_floor, "hs_robust_sweeps": k4_floor}
     for name, (t_k, t_p) in ms2d.items():
         print(f"kernel {name} 1088x1920: {t_k:.4f} ms per launch, plain {t_p:.4f} ms"
               + (f", bound {bounds2d[name][0]:.4f} ms ({bounds2d[name][1]})"
                  if name in bounds2d else "")
               + (f" ({per_launch[name]} sweeps per launch)" if name in per_launch else "")
-              + (f", schedule's byte floor {k3_floor[i1.numel()]:.4f} ms"
-                 if name == "hs_sor_sweeps" else ""))
+              + (f", schedule's byte floor {floor[name][i1.numel()]:.4f} ms"
+                 if name in floor else ""))
 
     # -- per-kernel times on the C2 stack, 8 x 1088x1920 ------------------------
     px = c2a.numel()
@@ -2038,8 +2100,8 @@ def main() -> int:
         print(f"kernel {name} {bsz}x1088x1920: {t_k:.4f} ms per launch, plain {t_p:.4f} ms, "
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})"
               + (f" ({per_launch[name]} sweeps per launch)" if name in per_launch else "")
-              + (f", schedule's byte floor {k3_floor[px]:.4f} ms"
-                 if name == "hs_sor_sweeps" else ""))
+              + (f", schedule's byte floor {floor[name][px]:.4f} ms"
+                 if name in floor else ""))
 
     source = {"hs_derivatives": "opticalflowhs_tpu_torch/csrc/derivatives.cu",
               "hs_jacobi_sweeps": "opticalflowhs_tpu_torch/csrc/jacobi.cu",
@@ -2081,7 +2143,14 @@ def main() -> int:
                                "bound_ms_1088x1920": bounds2d["hs_sor_sweeps"][0],
                                "schedule_bound_ms": k3_floor[px],
                                "schedule_bound_ms_1088x1920": k3_floor[i1.numel()],
-                               "geometry": geo3}}
+                               "geometry": geo3},
+             "hs_robust_sweeps": {"sweeps_per_launch": s4,
+                                  "ms_1088x1920": ms2d["hs_robust_sweeps"][0],
+                                  "plain_ms_1088x1920": ms2d["hs_robust_sweeps"][1],
+                                  "bound_ms_1088x1920": bounds2d["hs_robust_sweeps"][0],
+                                  "schedule_bound_ms": k4_floor[px],
+                                  "schedule_bound_ms_1088x1920": k4_floor[i1.numel()],
+                                  "geometry": geo4}}
     kernels = [
         {"name": name, "route": "cuda", "source": source[name],
          "replaces": replaces[name], "launches": launches_b[name],

@@ -65,9 +65,16 @@ SIGNATURES = {
     # u, v, ex, ey, et, wd, ws, b, h, w, eps_d, eps_d^2, eps_s, eps_s^2,
     # device, stream
     "hs_robust_freeze": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_I, _P],
-    # u, v, ex, ey, et, wd, ws, uo, vo, b, h, w, sweeps, alpha^2, tile_h,
-    # tile_w, threads, device, stream
-    "hs_robust_sweeps": [_P] * 9 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
+    # u, v, ex, ey, et, wd, ws, uo, vo, b, h, w, sweeps, alpha^2, device,
+    # stream
+    "hs_robust_sweeps": [_P] * 9 + [_I] * 4 + [_F, _I, _P],
+    # sweeps, device, out[12]: K4's sweeps, tile, left halo, window rows,
+    # rows a thread, threads, shared bytes, registers, spilled bytes,
+    # resident blocks a multiprocessor, multiprocessors
+    "hs_robust_geometry": [_I, _I, _IP],
+    # counts (3 uint64 on the device), device, stream: K4's reciprocal
+    # against the IEEE division over every float it takes
+    "hs_robust_rcp_check": [_P, _I, _P],
     # u1, u2, rho0, gx, gy, inv_g2, th, p1x, p1y, p2x, p2y, b, h, w, iters,
     # theta, sigma, lambda*theta, block_iters, device, stream, out: the
     # launches enqueued (the six state arrays with two slots each)

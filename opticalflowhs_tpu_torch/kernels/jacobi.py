@@ -31,14 +31,15 @@ from opticalflowhs_tpu_torch.kernels.derivatives import batch_dims, check_frames
 from opticalflowhs_tpu_torch.ops import stencils
 
 # The default sweeps per launch (HSConfig.block_sweeps = 0) of every Jacobi
-# kernel, and the rule that caps it: `fit_sweeps` cuts a launch's sweeps
-# until 8 float32 arrays of a 64 x 64 tile grown by the sweeps fit the
+# kernel, and the rule that caps it: `sweeps_per_launch` cuts a launch's
+# sweeps until 8 float32 arrays of a 64 x 64 tile grown by the sweeps fit the
 # shared memory of one block (200 KB at s = 8), so at most 10 sweeps a
 # launch. That was the window of the shared sweep loop the first kernels
-# ran; K2, K9, K6 and K7 keep its rule, and K4's kernel its own
-# (`smem_bytes` of kernels/solve_robust.py). K3 and K9's SOR entry take
-# theirs from a cost rule over launches and rounds of tiles, at most
-# K3_MAX_SWEEPS (`sweeps_per_launch` of kernels/sor.py). K11 and K12 take
+# ran; K2, K9, K6 and K7 keep its rule. K3 and K9's SOR entry take theirs
+# from a cost rule over launches and rounds of tiles, at most
+# K3_MAX_SWEEPS (`sweeps_per_launch` of kernels/sor.py), and K4's sweeps
+# from one of their own for each refreeze block, at most K4_MAX_SWEEPS
+# (`sweeps_per_launch` of kernels/solve_robust.py). K11 and K12 take
 # their sweep block from the tiled solver (at most MAX_RING_SWEEPS,
 # kernels/ring.py).
 TILE_H = 64
@@ -87,19 +88,14 @@ def smem_bytes(sweeps: int, tile_h: int = TILE_H, tile_w: int = TILE_W) -> int:
     return _ARRAYS * 4 * (tile_h + 2 * sweeps) * (tile_w + 2 * sweeps)
 
 
-def fit_sweeps(block_sweeps: int, auto: int, smem) -> int:
-    """Sweeps one launch of a temporally blocked kernel runs: block_sweeps,
-    or `auto` for 0, cut until its window, `smem(sweeps)` bytes, fits the
-    shared memory of one block (K2 and K4 share this rule)."""
-    s = block_sweeps if block_sweeps > 0 else auto
-    while s > 1 and smem(s) > SMEM_BYTES:
+def sweeps_per_launch(block_sweeps: int = 0) -> int:
+    """Sweeps one K2 launch runs: block_sweeps, or AUTO_SWEEPS for 0, cut
+    until `smem_bytes` of that many sweeps fits the shared memory of one
+    block."""
+    s = block_sweeps if block_sweeps > 0 else AUTO_SWEEPS
+    while s > 1 and smem_bytes(s) > SMEM_BYTES:
         s -= 1
     return s
-
-
-def sweeps_per_launch(block_sweeps: int = 0) -> int:
-    """Sweeps one K2 launch runs (`fit_sweeps`)."""
-    return fit_sweeps(block_sweeps, AUTO_SWEEPS, smem_bytes)
 
 
 def jacobi_sweeps_plain(u, v, ex, ey, et, inv_den, n: int):

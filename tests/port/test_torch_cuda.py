@@ -2,7 +2,8 @@
 plain versions on the same card, at edge-case shapes (partial tiles, frames
 narrower or shorter than a tile, one row, one column; for K2 and K9 also
 those of K2's window, warps and lanes, every sweeps per launch, and
-shard edges at warp and lane boundaries; for K5 every alternations per
+shard edges at warp and lane boundaries; for K3 and K4 those of their
+own windows at every sweeps per launch, with the launches their plans make; for K5 every alternations per
 launch, and its geometry without spills) and sweep counts that the sweeps
 per launch do not divide; single frames and (B, H, W)
 stacks, where each image of a batched launch must equal the single-frame
@@ -388,9 +389,22 @@ def test_k4_freeze_equals_plain(dev, shape, b):
                robust.charbonnier_weights(u, v, ex, ey, et, *eps))
 
 
+def _k4_launches(shape, n, s, dev):
+    """K4 sweep launches of a block of n sweeps at block_sweeps s: K4's plan
+    for the shape."""
+    return k4.launches(n, k4.sweeps_per_launch(s, shape, n, k4.device_blocks(dev)))
+
+
+def _robust_plain(u, v, ex, ey, et, wd, ws, n):
+    for _ in range(n):
+        u, v = robust.robust_step(u, v, ex, ey, et, wd, ws, 0.3)
+    return u, v
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("b", [1, 3])
-@pytest.mark.parametrize("n,s", [(1, 0), (5, 2), (13, 0), (17, 10), (9, 1)])
+@pytest.mark.parametrize("n,s", [(1, 0), (5, 2), (13, 0), (17, 10), (9, 1), (20, 0),
+                                 (29, k4.K4_MAX_SWEEPS), (16, k4.K4_MAX_SWEEPS + 1)])
 def test_k4_sweeps_equal_plain(dev, shape, b, n, s):
     i1, i2 = _rand((b,) + shape, dev, 19)
     ex, ey, et, _ = k1.derivatives_plain(i1, i2, 0.4)
@@ -399,11 +413,8 @@ def test_k4_sweeps_equal_plain(dev, shape, b, n, s):
     keep = (u0.clone(), v0.clone())
     k4.frozen_sweeps.launches = 0
     got = k4.frozen_sweeps(u0, v0, ex, ey, et, wd, ws, 0.3, n, block_sweeps=s)
-    assert k4.frozen_sweeps.launches == -(-n // k4.sweeps_per_launch(s))
-    want = (u0, v0)
-    for _ in range(n):
-        want = robust.robust_step(*want, ex, ey, et, wd, ws, 0.3)
-    _equal(got, want)
+    assert k4.frozen_sweeps.launches == _k4_launches(u0.shape, n, s, dev)
+    _equal(got, _robust_plain(u0, v0, ex, ey, et, wd, ws, n))
     _equal((u0, v0), keep)
     for k in range(b):
         one = k4.frozen_sweeps(u0[k], v0[k], ex[k], ey[k], et[k], wd[k], ws[k], 0.3, n,
@@ -413,7 +424,7 @@ def test_k4_sweeps_equal_plain(dev, shape, b, n, s):
 
 @pytest.mark.parametrize("shape", [(67, 93), (200, 333)])
 @pytest.mark.parametrize("b", [1, 3])
-@pytest.mark.parametrize("iters,k", [(13, 1), (13, 5), (25, 20), (8, 20)])
+@pytest.mark.parametrize("iters,k", [(13, 1), (13, 5), (25, 20), (8, 20), (100, 20)])
 @pytest.mark.parametrize("warm", [False, True])
 def test_robust_driver_equals_plain(dev, shape, b, iters, k, warm):
     i1, i2 = _rand((b,) + shape, dev, 21)
@@ -424,10 +435,84 @@ def test_robust_driver_equals_plain(dev, shape, b, iters, k, warm):
     k4.frozen_sweeps.launches = 0
     got = k4.hs_solve_robust_resident(i1, i2, cfg, *init)
     blocks = robust.refreeze_blocks(iters, k)
-    s = k4.sweeps_per_launch(0)
     assert (k1.hs_derivatives.launches, k4.freeze_weights.launches,
-            k4.frozen_sweeps.launches) == (1, len(blocks), sum(-(-m // s) for m in blocks))
+            k4.frozen_sweeps.launches) == (
+        1, len(blocks), sum(_k4_launches(i1.shape, m, 0, dev) for m in blocks))
     _equal(got, k4.hs_solve_robust_resident_plain(i1, i2, cfg, *init))
+
+
+# K4's sweep geometry (windows of K4_WINDOW_H x 128, the tile less s rows
+# and s columns (rounded up to 4 on the left), warps of K4_THREAD_ROWS rows,
+# lanes of 4 columns): frames one pixel below and above one and two tiles at
+# every s, stacks, zero and warm starts, both derivative variants.
+def _k4_edge_shape(s, kind):
+    th, tw, _ = k4.k4_tile(s)
+    return {"one-": (th - 1, tw - 1), "one+": (th + 1, tw + 1),
+            "two-": (2 * th - 1, 2 * tw - 1), "two+": (2 * th + 1, 2 * tw + 1)}[kind]
+
+
+@pytest.mark.parametrize("s", range(1, k4.K4_MAX_SWEEPS + 1))
+@pytest.mark.parametrize("kind", ["one-", "one+", "two-", "two+"])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("warm", [False, True])
+def test_k4_tile_edge_shapes_equal_plain(dev, s, kind, b, warm):
+    full = (b,) + _k4_edge_shape(s, kind)
+    i1, i2 = _rand(full, dev, 110 + s)
+    ex, ey, et, _ = k1.derivatives_plain(i1, i2, 0.4, "central" if s % 2 else "hs_cube")
+    u0, v0 = _rand(full, dev, 111, normal=True) if warm else (torch.zeros(full, device=dev),) * 2
+    wd, ws = robust.charbonnier_weights(u0, v0, ex, ey, et, 0.05, 0.05)
+    n = 2 * s + 1  # s does not divide n
+    k4.frozen_sweeps.launches = 0
+    got = k4.frozen_sweeps(u0, v0, ex, ey, et, wd, ws, 0.3, n, block_sweeps=s)
+    assert k4.frozen_sweeps.launches == k4.launches(n, s)
+    _equal(got, _robust_plain(u0, v0, ex, ey, et, wd, ws, n))
+
+
+@pytest.mark.parametrize("s", range(1, k4.K4_MAX_SWEEPS + 1))
+@pytest.mark.parametrize("w", [96, 93])
+def test_k4_unaligned_views_equal_plain(dev, s, w):
+    # Contiguous views 4 bytes off a 16-byte boundary take the 4-byte copies.
+    h = 40
+    flat = [torch.from_numpy(np.random.default_rng(112 + k).normal(0, 0.5, 1 + 2 * h * w)
+                             .astype(np.float32)).to(dev) for k in range(4)]
+    u0, v0, i1, i2 = (f[1:].view(2, h, w) for f in flat)
+    ex, ey, et, _ = k1.derivatives_plain(i1.abs(), i2.abs(), 0.4)
+    wd, ws = robust.charbonnier_weights(u0, v0, ex, ey, et, 0.05, 0.05)
+    n = s + 2
+    _equal(k4.frozen_sweeps(u0, v0, ex, ey, et, wd, ws, 0.3, n, block_sweeps=s),
+           _robust_plain(u0, v0, ex, ey, et, wd, ws, n))
+
+
+@pytest.mark.parametrize("s", [1, 5, 8, k4.K4_MAX_SWEEPS])
+def test_k4_geometry(dev, s):
+    geo = k4.k4_geometry(dev, s)
+    th, tw, lh = k4.k4_tile(s)
+    assert (geo["sweeps"], geo["tile_h"], geo["tile_w"], geo["left_halo"]) == (s, th, tw, lh)
+    assert (geo["window_h"], geo["thread_rows"], geo["threads"]) == (
+        k4.K4_WINDOW_H, k4.K4_THREAD_ROWS, k4.K4_THREADS)
+    assert geo["smem_bytes"] == k4.K4_SMEM_BYTES
+    assert 0 < geo["registers"] <= min(255, 65536 // k4.K4_THREADS)
+    assert geo["spill_bytes"] == 0 and geo["blocks_per_sm"] == 1
+    assert k4.device_blocks(dev) == geo["sms"]
+
+
+def test_k4_reciprocal_equals_the_ieee_division_over_every_float(dev):
+    # The sweep kernel forms 1/det by the division's own fast path without
+    # its branch, for every det whose exponent that path takes.
+    assert k4.rcp_check(dev) == {"mismatch_div": 0, "mismatch_double": 0,
+                                 "checked": 2 * 252 * 2 ** 23}
+
+
+@pytest.mark.parametrize("shape,iters,k", [((1088, 1920), 100, 20), ((2, 272, 480), 30, 7),
+                                           ((67, 93), 13, 5), ((3, 1080, 1920), 20, 20)])
+def test_k4_launches_follow_the_plan(dev, shape, iters, k):
+    i1, i2 = _rand(shape, dev, 113)
+    cfg = HSConfig(alpha=0.25, iters=iters, solver="robust", robust_update_every=k)
+    k4.frozen_sweeps.launches = 0
+    k4.hs_solve_robust_resident(i1, i2, cfg)
+    blocks = robust.refreeze_blocks(iters, k)
+    plan = [k4.sweeps_per_launch(0, shape, m, k4.device_blocks(dev)) for m in blocks]
+    assert k4.frozen_sweeps.launches == sum(k4.launches(m, s) for m, s in zip(blocks, plan))
 
 
 def test_sor_and_robust_entry_points_run_the_kernels(dev):

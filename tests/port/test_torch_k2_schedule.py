@@ -77,7 +77,7 @@ def test_k2_tile_fits_its_window(s):
 
 def test_k2_default_tile():
     assert k2.k2_tile(k2.sweeps_per_launch(0)) == (32, 112, 8)
-    # The contract's cap: fit_sweeps cuts 11 and 12 to 10, which K2's window takes.
+    # The contract's cap: sweeps_per_launch cuts 11 and 12 to 10, which K2's window takes.
     assert k2.sweeps_per_launch(12) == 10 <= k2.K2_MAX_SWEEPS
 
 

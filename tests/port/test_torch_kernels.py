@@ -225,12 +225,19 @@ def test_cpu_wrappers_launch_nothing():
 
 
 def test_sweeps_per_launch_fits_shared_memory():
-    for k in (k2, k4):
-        assert k.sweeps_per_launch(0) == k.AUTO_SWEEPS
-        assert k.smem_bytes(k.AUTO_SWEEPS) <= k2.SMEM_BYTES
-        s = k.sweeps_per_launch(1000)
-        assert k.smem_bytes(s) <= k2.SMEM_BYTES < k.smem_bytes(s + 1)
-        assert k.sweeps_per_launch(1) == 1
+    assert k2.sweeps_per_launch(0) == k2.AUTO_SWEEPS
+    assert k2.smem_bytes(k2.AUTO_SWEEPS) <= k2.SMEM_BYTES
+    s = k2.sweeps_per_launch(1000)
+    assert k2.smem_bytes(s) <= k2.SMEM_BYTES < k2.smem_bytes(s + 1)
+    assert k2.sweeps_per_launch(1) == 1
+    # K4's window is the same at every s; a tile of at least a warp's rows
+    # sets the cap, its cost rule the default (per refreeze block).
+    assert k4.K4_SMEM_BYTES <= k2.SMEM_BYTES
+    assert 1 <= k4.sweeps_per_launch(0, (1088, 1920), 20, 132) <= k4.K4_MAX_SWEEPS
+    assert k4.sweeps_per_launch(1000, (1088, 1920), 20, 132) == k4.K4_MAX_SWEEPS
+    assert (k4.k4_tile(k4.K4_MAX_SWEEPS)[0] >= k4.K4_THREAD_ROWS
+            > k4.k4_tile(k4.K4_MAX_SWEEPS + 1)[0])
+    assert k4.sweeps_per_launch(1, (1088, 1920), 20, 132) == 1
     # K3's window is the same at every s; its tile sets the cap, its cost
     # rule the default.
     assert k3.K3_SMEM_BYTES <= k2.SMEM_BYTES

@@ -9,9 +9,15 @@ the port's own nvcc command line (kernels/_build.py) and `-Xptxas -v`, and
 prints, for every kernel, its registers a thread, stack frame and spill
 stores and loads. With --repo, DIR's sources are built the same way and
 each kernel's SASS (`cuobjdump -sass`, the anonymous namespace's hash
-masked) is compared with this tree's: "identical" means the two builds run
-the same instructions. Needs a CUDA toolkit (nvcc, cuobjdump); builds
-into a temporary directory. Prints one JSON line last.
+masked, and runs of blanks taken as one, since cuobjdump pads its columns
+to the widest instruction of the whole object) is compared with this
+tree's: "identical" means the two builds run the same instructions, with
+the same encodings; otherwise the report counts the lines that differ
+and says whether the two are the same lines in another order. Building
+a tree against a copy of itself gives the tool's noise floor (ptxas has
+ordered one source's instructions differently from one build to the
+next). Needs a CUDA toolkit (nvcc, cuobjdump); builds into a temporary
+directory. Prints one JSON line last.
 """
 
 from __future__ import annotations
@@ -31,10 +37,11 @@ sys.path.insert(0, str(HERE))
 from opticalflowhs_tpu_torch.kernels import _build  # noqa: E402
 
 _ANON = re.compile(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+")
+_ADDR = re.compile(r"^/\*[0-9a-f]+\*/ ")
 
 
 def build(root: Path, names: list[str], out: Path) -> tuple[dict, dict]:
-    """({kernel: ptxas line}, {kernel: SASS text}) of root's sources, built
+    """({kernel: ptxas line}, {kernel: SASS lines}) of root's sources, built
     one at a time: built all at once on a loaded machine, ptxas once gave
     K2 another instruction order than the same source built alone."""
     nvcc = _build.find_nvcc()
@@ -61,8 +68,24 @@ def build(root: Path, names: list[str], out: Path) -> tuple[dict, dict]:
                               capture_output=True, text=True, check=True).stdout
         for part in re.split(r"\n\s*Function : ", dump)[1:]:
             head, _, body = part.partition("\n")
-            sass[_ANON.sub("", head.strip())] = _ANON.sub("", body)
+            sass[_ANON.sub("", head.strip())] = [
+                " ".join(line.split()) for line in _ANON.sub("", body).splitlines()
+                if line.strip()]
     return usage, sass
+
+
+def compare(mine: list[str] | None, theirs: list[str] | None) -> str:
+    """How one kernel's SASS lines compare with another build's."""
+    if theirs is None:
+        return "absent there"
+    if mine == theirs:
+        return "identical"
+    n = max(len(mine), len(theirs))
+    changed = sum(a != b for a, b in zip(mine, theirs)) + abs(len(mine) - len(theirs))
+    reordered = (sorted(_ADDR.sub("", x) for x in mine)
+                 == sorted(_ADDR.sub("", x) for x in theirs))
+    order = "; the same lines in another order" if reordered else ""
+    return f"differs: {changed} of {n} lines{order}"
 
 
 def main() -> int:
@@ -82,9 +105,7 @@ def main() -> int:
     for kernel, line in sorted(usage.items()):
         row = {"ptxas": line.strip("; ")}
         if other is not None:
-            theirs = other[1].get(kernel)
-            row["sass_vs_repo"] = ("absent there" if theirs is None else
-                                   "identical" if theirs == sass.get(kernel) else "differs")
+            row["sass_vs_repo"] = compare(sass.get(kernel), other[1].get(kernel))
         report[kernel] = row
         print(f"{kernel}: {row}")
     print(json.dumps({"kernels": report, "repo": args.repo}))

@@ -18,7 +18,7 @@ the build each kernel reports (registers,
 spills: K2 and K6 at 8 sweeps, K9, K11 and K12 at 4, K7 at its 4K plan),
 where the tree has the report.
 
-    python3 tools/torch_whole_solve_timing.py [--repo DIR] [--reps N] [--k3 [--scan]]
+    python3 tools/torch_whole_solve_timing.py [--repo DIR] [--reps N] [--k3 | --k4] [--scan]
 
 With --k3 it times K3 (4-color SOR) instead: a launch of 4 sweeps at
 1088x1920 and on an 8 x 1088x1920 stack, K9's SOR entry
@@ -30,6 +30,19 @@ K9 Jacobi launch over D1's 16 shards of 548x968; with --scan, where the
 tree's K3 has a plan (`sor.sweeps_per_launch` over shapes), a launch at every s up
 to K3_MAX_SWEEPS at 1088x1920, 1088x1900, 8 x 1088x1920, 544x960 and
 272x480, K9 SOR on D4's stack at s 1-4, and the chain of 50 sweeps at
+each s at 1088x1920 and 544x960, beside the plan's s.
+
+With --k4 it times K4 (IRLS) instead: a sweep launch of 8 sweeps and one
+at the tree's plan for a refreeze block of 20 (R1's; 8 where the tree has
+no plan) at 1088x1920, 8 x 1088x1920, 544x960 and 272x480, a freeze
+launch at 1088x1920, R1 (`hs_solve` robust 1088x1920 alpha 0.25 i100,
+refrozen every 20) and K1 at 1088x1920 and 8 x 1088x1920; the sweep and
+freeze launches and K1 both by CUDA events over N calls and by the profiler's
+device time of the kernel itself (`device_ms`: the mean of its launches
+over N calls, so that a wrapper's host time does not count). With --scan,
+where the tree's K4 has a plan (`solve_robust.sweeps_per_launch` over
+shapes), a launch at every s up to K4_MAX_SWEEPS at 1088x1920, 1088x1900,
+8 x 1088x1920, 544x960 and 272x480, and a refreeze block of 20 sweeps at
 each s at 1088x1920 and 544x960, beside the plan's s.
 
 Frames are chip_smoke.py's noise (default_rng(0)) at 4320x7680, 2160x3840
@@ -71,6 +84,100 @@ def event_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, key: str, reps: int):
+    """Mean device time in ms of the kernels whose name holds `key`, from
+    torch.profiler over `reps` calls of fn after one warm-up; None where the
+    trace holds no device time for them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key:
+            us += float(e.self_device_time_total)
+            n += e.count
+    return us / n / 1e3 if n and us > 0 else None
+
+
+def k4_times(dev, reps: int, scan: bool) -> dict:
+    """--k4: K4 sweep and freeze launches, R1 and K1, by events and by the
+    profiler's device time; with `scan`, where the tree has K4's plan,
+    launches and refreeze blocks of 20 at every s."""
+    import chip_smoke
+    from opticalflowhs_tpu_torch import HSConfig, hs_solve
+    from opticalflowhs_tpu_torch.kernels import derivatives as k1
+    from opticalflowhs_tpu_torch.kernels import solve_robust as k4
+
+    planned = hasattr(k4, "K4_MAX_SWEEPS")
+
+    def problem(shape, seed=0):
+        rng = np.random.default_rng(seed)
+        i1, i2 = (torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to(dev)
+                  for _ in range(2))
+        ex, ey, et, _ = k1.hs_derivatives(i1, i2, 0.25)
+        z = torch.zeros_like(ex)
+        wd, ws = k4.freeze_weights(z, z, ex, ey, et, 0.05, 0.05)
+        return i1, i2, (z, z, ex, ey, et, wd, ws)
+
+    def launch(p, s):
+        """One sweep launch of s sweeps from p's zero flow."""
+        if planned:
+            uo, vo = torch.empty_like(p[0]), torch.empty_like(p[0])
+            return lambda: k4.launch_sweeps(*p, uo, vo, s, 0.25)
+        return lambda: k4.frozen_sweeps(*p, 0.25, s, block_sweeps=s)
+
+    def plan(shape, m):
+        return (k4.sweeps_per_launch(0, shape, m, k4.device_blocks(dev)) if planned
+                else 8)
+
+    out = {}
+    for name, shape in (("1088x1920", (1088, 1920)), ("8x1088x1920", (8, 1088, 1920)),
+                        ("544x960", (544, 960)), ("272x480", (272, 480))):
+        i1, i2, p = problem(shape)
+        row = {"plan_m20": plan(shape, 20)}
+        for tag, s in (("s8", 8), ("plan", row["plan_m20"])):
+            row[f"sweeps_{tag}_ms"] = event_ms(launch(p, s), reps)
+            row[f"sweeps_{tag}_device_ms"] = device_ms(launch(p, s), "sweeps_kernel", reps)
+        if name in ("1088x1920", "8x1088x1920"):
+            row["k1_ms"] = event_ms(lambda: k1.hs_derivatives(i1, i2, 0.5, zero_sweep=True),
+                                    reps)
+            row["k1_device_ms"] = device_ms(
+                lambda: k1.hs_derivatives(i1, i2, 0.5, zero_sweep=True), "derivatives", reps)
+        if name == "1088x1920":
+            row["freeze_ms"] = event_ms(lambda: k4.freeze_weights(*p[:5], 0.05, 0.05), reps)
+            row["freeze_device_ms"] = device_ms(
+                lambda: k4.freeze_weights(*p[:5], 0.05, 0.05), "freeze_kernel", reps)
+        out[name] = row
+        print(f"k4 {name}: {row}", flush=True)
+    s1, s2 = chip_smoke.c1_frames(dev)
+    cfg = HSConfig(alpha=0.25, iters=100, solver="robust", robust_update_every=20)
+    out["r1_hs_solve_robust_i100_ms"] = event_ms(lambda: hs_solve(s1, s2, cfg), reps)
+    print(f"k4 R1: {out['r1_hs_solve_robust_i100_ms']:.4f} ms", flush=True)
+    if not scan or not planned:
+        return out
+    sc = {}
+    for name, shape in (("1088x1920", (1088, 1920)), ("1088x1900", (1088, 1900)),
+                        ("8x1088x1920", (8, 1088, 1920)), ("544x960", (544, 960)),
+                        ("272x480", (272, 480))):
+        _, _, p = problem(shape)
+        row = {"plan_m20": plan(shape, 20)}
+        for s in range(1, k4.K4_MAX_SWEEPS + 1):
+            row[f"launch_s{s}"] = event_ms(launch(p, s), reps)
+            if name in ("1088x1920", "544x960"):
+                row[f"block20_s{s}"] = event_ms(
+                    lambda: k4.frozen_sweeps(*p, 0.25, 20, block_sweeps=s), reps)
+        sc[name] = row
+        print(f"k4 scan {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()),
+              flush=True)
+    out["scan"] = sc
+    out["geometry"] = {s: k4.k4_geometry(dev, s) for s in (1, 8, k4.K4_MAX_SWEEPS)}
+    return out
 
 
 def k7_bands(k7, h: int, w: int) -> dict:
@@ -176,6 +283,7 @@ def main() -> int:
     ap.add_argument("--repo", default=str(HERE))
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--k3", action="store_true")
+    ap.add_argument("--k4", action="store_true")
     ap.add_argument("--scan", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -184,6 +292,12 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.repo).resolve()))
     sys.path.insert(1, str(HERE))
     import chip_smoke
+    if args.k4:
+        out = k4_times(torch.device("cuda", 0), args.reps, args.scan)
+        print(chip_smoke.card_line())
+        print(json.dumps({"k4_ms": out, "reps": args.reps, "repo": args.repo,
+                          "device": torch.cuda.get_device_name(0)}))
+        return 0
     if args.k3:
         out = k3_times(torch.device("cuda", 0), args.reps, args.scan)
         print("k3: " + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()
