@@ -62,7 +62,14 @@ each ran through the kernels:
               (configs/c5_multihost_4k.json) through dist/ on virtual
               meshes: hs_solve_tiled 2160x3840 i100 halo_sweeps 4 on 4 x 4
               (D1), hs_pyramid_tiled L3 (D2), halo_impl="rdma" on 4 x 1
-              and 2 x 2 (D3), SOR i50 (D4), each against the untiled solve.
+              and 2 x 2 (D3), SOR i50 (D4), each against the untiled solve;
+  phase 16:   the Lucas-Kanade family (plain torch; no kernel launches):
+              lk_solve on T1's pair (LK1) and C3's frames at 3 levels
+              (LK3) against the CPU, lk_solve_batched on 8 of C4's pairs
+              (LK-B, = singles), flow_stream(lk=) on C4's video (LK-S),
+              flow_with_occlusion(lk=) against the CPU; ego-motion of
+              LK-S's flows and of an exact model field; hs_energy of C1's
+              and T1's solves at i25 and i100; a profile of one LK1 call.
 Every phase checks what it measures and any failure exits non-zero.
 Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
@@ -1654,6 +1661,172 @@ def tiled_path(dev, pair, stack) -> list:
              "library_ms": None, **extra[n]} for n in names]
 
 
+def lk_path(dev, vid, vid_dev, s1, s2) -> None:
+    """Phase 16: the Lucas-Kanade family, ego-motion and hs_energy at full
+    size through the public entry points. Plain PyTorch on the card, as the
+    reference runs LK as XLA ops outside any kernel: K1-K12 must not launch.
+    LK1 lk_solve on T1's pair, LK3 on C3's (3 levels), LK-B
+    lk_solve_batched on the first 8 pairs of C4's video (= singles
+    bitwise), LK-S flow_stream(lk=) on its 17 host frames (= LK-B on each
+    window bitwise), flow_with_occlusion(lk=) against the CPU, ego-motion
+    of LK-S's flows and of an exact model field, hs_energy of C1's and T1's
+    solves at i25 and i100 (falling on T1's); and one LK1 call under
+    torch.profiler."""
+    from opticalflowhs_tpu_torch import (
+        HSConfig,
+        LKConfig,
+        PyramidConfig,
+        flow_stream,
+        flow_with_occlusion,
+        hs_solve,
+        lk_solve,
+        lk_solve_batched,
+    )
+    from opticalflowhs_tpu_torch.egomotion import estimate_egomotion
+    from opticalflowhs_tpu_torch.kernels import counted_wrappers
+    from opticalflowhs_tpu_torch.metrics import epe, hs_energy, interior
+    from opticalflowhs_tpu_torch.solver import Flow
+
+    def flow_epe(f, gt, crop=16):
+        fl = np.stack([f.u.cpu().numpy(), f.v.cpu().numpy()], axis=-1)
+        return epe(interior(fl, crop), interior(np.broadcast_to(gt, fl.shape), crop))
+
+    print(f"phase 16 card: {card_line()}")
+    cfg = LKConfig()
+    t1, t2, gt_t1 = t1_pair(dev)
+    p1, p2 = c3_frames(dev)
+    gt_c3 = np.array([3.0, 1.5], np.float32)  # C3's translation
+    pyr3 = PyramidConfig(levels=3)
+    # hs_energy's flows come from K1 and K2, before the counters are read:
+    # C1's noise pair and T1's textured pair, at i25 and i100.
+    energy_cells = {tag: (a, b, {n: hs_solve(a, b, HSConfig(alpha=0.5, iters=n))
+                                 for n in (25, 100)})
+                    for tag, (a, b) in (("C1", (s1, s2)), ("T1", (t1, t2)))}
+    torch.cuda.synchronize()
+    wrappers = counted_wrappers()
+    before = {n: w.launches for n, w in wrappers.items()}
+
+    # -- LK1 and LK3: single pairs, against the CPU ----------------------------------
+    lk1 = lk_solve(t1, t2, cfg)
+    for a in lk1:
+        require(a.shape == (1088, 1920) and bool(torch.isfinite(a).all()), "LK1 shape/finite")
+    d1 = max_flow_diff(lk1, [a.to(dev) for a in lk_solve(t1.cpu(), t2.cpu(), cfg)])
+    e1 = flow_epe(lk1, gt_t1)
+    ms1 = median_ms(lambda: lk_solve(t1, t2, cfg))
+    print(f"phase 16 LK1 lk_solve 1088x1920 (0.7, -0.3) LKConfig() 1 level: {ms1:.3f} ms "
+          f"(median of 20), interior EPE (crop 16) {e1:.4f}, max|diff| vs the CPU {d1:.3g}")
+    require(d1 <= TOL, f"LK1 card vs CPU max|diff| {d1}")
+    require(e1 < 0.05, f"LK1 EPE {e1}")
+    lk3 = lk_solve(p1, p2, cfg, pyr3)
+    d3 = max_flow_diff(lk3, [a.to(dev) for a in lk_solve(p1.cpu(), p2.cpu(), cfg, pyr3)])
+    e3 = flow_epe(lk3, gt_c3)
+    ms3 = median_ms(lambda: lk_solve(p1, p2, cfg, pyr3))
+    print(f"phase 16 LK3 lk_solve 1080x1920 (3, 1.5) LKConfig() 3 levels: {ms3:.3f} ms "
+          f"(median of 20), interior EPE (crop 16) {e3:.4f}, max|diff| vs the CPU {d3:.3g}")
+    require(d3 <= TOL, f"LK3 card vs CPU max|diff| {d3}")
+    require(e3 < 0.1, f"LK3 EPE {e3}")
+
+    # -- LK-B and LK-S: a stack of C4's pairs, and the lk= stream --------------------
+    a, b = vid_dev[:8], vid_dev[1:9]
+    lkb = lk_solve_batched(a, b, cfg)
+    for k in range(8):
+        one = lk_solve(a[k], b[k], cfg)
+        require(bool(torch.equal(lkb.u[k], one.u) and torch.equal(lkb.v[k], one.v)),
+                f"LK-B pair {k} differs from lk_solve")
+    msb = median_ms(lambda: lk_solve_batched(a, b, cfg))
+    print(f"phase 16 LK-B lk_solve_batched 8 x 1080x1920 (C4's pairs 0-7): bitwise = 8 "
+          f"lk_solve; {msb:.3f} ms a stack (median of 20, {8 / msb * 1e3:.1f} pairs/s)")
+    chunks = list(flow_stream(vid, lk=cfg, chunk=8))
+    require([c.u.shape[0] for c in chunks] == [8, 8], "LK-S chunk sizes")
+    for k, c in enumerate(chunks):
+        win = vid_dev[8 * k:8 * k + 9]
+        ref = lk_solve_batched(win[:-1], win[1:], cfg)
+        require(bool(torch.equal(c.u, ref.u) and torch.equal(c.v, ref.v)),
+                f"LK-S chunk {k} differs from lk_solve_batched")
+
+    def stream_all():
+        for _ in flow_stream(vid, lk=cfg, chunk=8):
+            pass
+
+    mss = median_ms(stream_all, runs=5)
+    print(f"phase 16 LK-S flow_stream(lk=LKConfig(), chunk=8) 16 pairs 1080x1920 from host "
+          f"frames: chunks bitwise = lk_solve_batched; {mss:.3f} ms end to end (median of 5, "
+          f"{16 / mss * 1e3:.1f} pairs/s)")
+
+    # -- the occlusion test with lk=, against the CPU ----------------------------------
+    occ_f, occ_m = flow_with_occlusion(t1, t2, lk=cfg)
+    cpu_f, cpu_m = flow_with_occlusion(t1.cpu(), t2.cpu(), lk=cfg)
+    d_o = max_flow_diff(occ_f, [x.to(dev) for x in cpu_f])
+    print(f"phase 16 flow_with_occlusion(lk=) on T1's pair: max|diff| vs the CPU {d_o:.3g}, "
+          f"masks equal {bool(torch.equal(occ_m.cpu(), cpu_m))}, occluded share "
+          f"{float(occ_m.float().mean()):.5f}")
+    require(d_o <= TOL and bool(torch.equal(occ_m.cpu(), cpu_m)), "LK occlusion card vs CPU")
+
+    # -- ego-motion: LK-S's flows, and an exact model field against the CPU ------------
+    stream = Flow(torch.cat([c.u for c in chunks]), torch.cat([c.v for c in chunks]))
+    em = estimate_egomotion(stream)
+    err_t = max(float((em.tx - 1.0).abs().max()), float((em.ty - 0.5).abs().max()))
+    print(f"phase 16 ego-motion of LK-S's 16 flows (pan (1, 0.5)): tx {float(em.tx.min()):.5f}"
+          f"-{float(em.tx.max()):.5f}, ty {float(em.ty.min()):.5f}-{float(em.ty.max()):.5f}, "
+          f"max |error| {err_t:.3g} px (bar 0.01), residual <= {float(em.residual.max()):.4f}")
+    require(err_t <= 0.01, f"ego-motion translation error {err_t}")
+    yy = torch.arange(1080, dtype=torch.float32, device=dev)[:, None] - 539.5
+    xx = torch.arange(1920, dtype=torch.float32, device=dev)[None, :] - 959.5
+    model = Flow(0.3 + 0.002 * xx + 0.001 * yy, -0.2 + 0.002 * yy - 0.001 * xx)
+    em_k = estimate_egomotion(model)
+    em_c = estimate_egomotion(Flow(model.u.cpu(), model.v.cpu()))
+    d_e = max(abs(float(x) - float(y)) for x, y in zip(em_k, em_c))
+    truth = (0.3, -0.2, -0.001, 0.002)
+    d_t = max(abs(float(x) - t) for x, t in zip(em_k, truth))
+    print(f"phase 16 ego-motion of an exact model field 1080x1920 (tx 0.3, ty -0.2, omega "
+          f"-0.001, scale 0.002): max|diff| vs the CPU {d_e:.3g} (bar 1e-5), vs the model "
+          f"{d_t:.3g} (bar 1e-4), residual {float(em_k.residual):.3g}")
+    require(d_e <= 1e-5, f"ego-motion of the model, card vs CPU max|diff| {d_e}")
+    require(d_t <= 1e-4, f"ego-motion of the model, max|error| {d_t}")
+
+    # -- hs_energy of C1's and T1's solves ------------------------------------------------
+    # Its forward-difference smoothness term is not the one the Jacobi sweep's
+    # 8-neighbour average minimises: on C1's white noise it rises with the
+    # sweeps, in the reference too (tests/port/test_torch_egomotion.py), so
+    # the energy must fall on the textured pair, and is only reported on C1.
+    for tag, (a, b, flows) in energy_cells.items():
+        en = {n: float(hs_energy(a, b, f, alpha=0.5)) for n, f in flows.items()}
+        en_c = {n: float(hs_energy(a.cpu(), b.cpu(), Flow(f.u.cpu(), f.v.cpu()), alpha=0.5))
+                for n, f in flows.items()}
+        rel = max(abs(en[n] - en_c[n]) / abs(en_c[n]) for n in en)
+        print(f"phase 16 hs_energy of {tag}'s hs_solve (a=0.5): i25 {en[25]:.8f}, i100 "
+              f"{en[100]:.8f}; relative |diff| vs the CPU {rel:.3g} (bar 1e-5)")
+        require(rel <= 1e-5, f"hs_energy of {tag} card vs CPU relative diff {rel}")
+        if tag != "C1":
+            require(en[100] <= en[25], f"hs_energy of {tag} rose from i25 to i100")
+
+    torch.cuda.synchronize()
+    moved = {n: w.launches - before[n] for n, w in wrappers.items() if w.launches != before[n]}
+    print(f"phase 16 K1-K12 launches across phase 16: {moved or 'none'}")
+    require(not moved, f"a kernel launched on the LK path: {moved}")
+
+    # -- one LK1 call under the profiler -------------------------------------------------
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lk_solve(t1, t2, cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    on_dev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    dev_ms = sum(float(e.self_device_time_total) for e in on_dev) / 1e3
+    n_kernels = sum(e.count for e in on_dev)
+    n_ops = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("aten::"))
+    top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:4]
+    print(f"phase 16 profiler LK1 (one call): wall {wall:.3f} ms, device {dev_ms:.3f} ms, busy "
+          f"share {dev_ms / wall:.3f}, {n_kernels} device kernels, {n_ops} aten ops; top: "
+          + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                      for e in top))
+    require(n_kernels > 0, "the profiler saw no device kernel of LK1")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1996,6 +2169,9 @@ def main() -> int:
 
     # -- phase 15: the tiled solver (K9-K12) and config 5 ---------------------------------
     k9_12_rows = tiled_path(dev, c5_frames(dev), stack)
+
+    # -- phase 16: Lucas-Kanade, ego-motion, hs_energy (plain torch, no kernel) -----------
+    lk_path(dev, vid, vid_dev, s1, s2)
 
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2

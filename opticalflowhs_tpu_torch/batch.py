@@ -10,10 +10,10 @@ solve). On the torch backend the plain ops run on the stack; the stencils
 act on the last two axes, so each image is solved on its own.
 
 `solve_stack` picks the family for the stream and consistency entry
-points: HS, or TV-L1 with `tvl1=` (tvl1.tvl1_solve_batched). Sharding a
-stack over a device mesh (`mesh=`) comes with the rest of `dist/`, and
-`lk=` with the Lucas-Kanade family; both are still to be ported (ROADMAP.md
-queue 1, items 6 and 2).
+points: HS, Lucas-Kanade with `lk=` (lucas_kanade.lk_solve_batched) or
+TV-L1 with `tvl1=` (tvl1.tvl1_solve_batched). Sharding a stack over a
+device mesh (`mesh=`) comes with the rest of `dist/`, still to be ported
+(ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from opticalflowhs_tpu_torch.config import HSConfig, PyramidConfig, TVL1Config
+from opticalflowhs_tpu_torch.config import HSConfig, LKConfig, PyramidConfig, TVL1Config
+from opticalflowhs_tpu_torch.lucas_kanade import lk_solve_batched
 from opticalflowhs_tpu_torch.pyramid import (
     gaussian_pyramid,
     upsample_flow,
@@ -37,15 +38,9 @@ from opticalflowhs_tpu_torch.tvl1 import tvl1_solve_batched
 def reject_unported(lk=None, tvl1=None, mesh=None) -> None:
     """Check the family options of the stream and consistency entry points:
     ValueError for lk= together with tvl1=, as the reference; then
-    NotImplementedError for the options still to be ported, `lk=` (the
-    Lucas-Kanade family) and `mesh=`."""
+    NotImplementedError for `mesh=`, still to be ported."""
     if lk is not None and tvl1 is not None:
         raise ValueError("pass at most one of lk= and tvl1=")
-    if lk is not None:
-        raise NotImplementedError(
-            "lk= needs the Lucas-Kanade family, which is not ported yet "
-            "(ROADMAP.md queue 1, item 2)"
-        )
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (sharding a stack over devices) is not ported yet: it comes "
@@ -125,14 +120,19 @@ def hs_solve_batched(
 
 
 def solve_stack(i1, i2, cfg: HSConfig, pyr: Optional[PyramidConfig] = None,
-                tvl1: Optional[TVL1Config] = None) -> Flow:
+                tvl1: Optional[TVL1Config] = None,
+                lk: Optional[LKConfig] = None) -> Flow:
     """A (B, H, W) stack through the chosen family: `hs_solve_batched`
-    with (cfg, pyr), or with `tvl1` the TV-L1 family (cfg is then ignored)
-    on pyr or, when it is None, one level, as the reference's streams."""
-    if tvl1 is not None:
-        return tvl1_solve_batched(i1, i2, tvl1,
-                                  pyr if pyr is not None else PyramidConfig(levels=1))
-    return hs_solve_batched(i1, i2, cfg, pyr)
+    with (cfg, pyr), or with `lk` the Lucas-Kanade family, with `tvl1` the
+    TV-L1 family (cfg is then ignored), on pyr or, when it is None, one
+    level, as the reference's streams."""
+    if lk is None and tvl1 is None:
+        return hs_solve_batched(i1, i2, cfg, pyr)
+    if pyr is None:
+        pyr = PyramidConfig(levels=1, iters_per_level=())
+    if lk is not None:
+        return lk_solve_batched(i1, i2, lk, pyr)
+    return tvl1_solve_batched(i1, i2, tvl1, pyr)
 
 
 def video_pairs(frames):

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import json
 import os
 import tempfile
 from typing import Optional
@@ -29,16 +28,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from opticalflowhs_tpu_torch.config import HSConfig
+from opticalflowhs_tpu_torch.config import HSConfig, config_hash
 from opticalflowhs_tpu_torch.solver import Flow, as_frame, hs_solve, target_device
-
-
-def config_hash(cfg) -> str:
-    """Stable short hash of a config dataclass: the reference's
-    `config.config_hash` (sha256 of its fields as sorted JSON, 16 hex
-    digits)."""
-    blob = json.dumps(dataclasses.asdict(cfg), sort_keys=True).encode()
-    return hashlib.sha256(blob).hexdigest()[:16]
 
 
 def checkpoint_path(path: str, tag) -> str:

@@ -1,10 +1,13 @@
-"""Solver, pyramid, TV-L1 and mesh configuration, mirroring opticalflowhs_tpu/config.py.
+"""Solver, pyramid, Lucas-Kanade, TV-L1, mesh and run configuration,
+mirroring opticalflowhs_tpu/config.py.
 
 The field names, defaults and `__post_init__` checks are the reference's,
 so a configuration moves between the two packages unchanged. Only the
 backend names differ: "torch" is the plain PyTorch path (the counterpart
 of the reference's "jnp") and "cuda" the hand-written Hopper kernels (the
-counterpart of "pallas"). `from_reference` translates a reference config.
+counterpart of "pallas"). `from_reference` translates a reference config,
+`load_config` a configs/*.json file with dotted overrides, and
+`config_hash` tags checkpoints with the reference's hash.
 
 Neither family has learned weights, so a config plus an optional
 warm-start flow is all the state that crosses between the packages.
@@ -13,6 +16,8 @@ warm-start flow is all the state that crosses between the packages.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from dataclasses import dataclass
 from typing import Any, Tuple
 
@@ -98,6 +103,34 @@ class PyramidConfig:
 
 
 @dataclass(frozen=True)
+class LKConfig:
+    """Dense pyramidal Lucas-Kanade configuration (lucas_kanade.py), the
+    second model family."""
+
+    window: int = 15            # odd box-window side for the local least squares
+    iters: int = 3              # warp-refine Newton steps per pyramid level
+    eps: float = 1e-3           # Tikhonov diagonal regularization of the 2x2
+                                # structure tensor (textureless windows)
+    dtype: str = "float32"      # compute dtype (the port runs float32 only)
+    max_step: float = 0.0       # > 0: clamp each refinement's |du|,|dv| (px);
+                                # 0 = unclamped
+    smooth: bool = True         # binomial-blur the flow between refinements
+    warp: str = "auto"          # tiled | gather | auto (= tiled)
+
+    def __post_init__(self):
+        if self.window < 3 or self.window % 2 == 0:
+            raise ValueError("window must be odd and >= 3")
+        if self.iters < 1:
+            raise ValueError("iters must be >= 1")
+        if self.eps <= 0:
+            raise ValueError("eps must be > 0")
+        if self.max_step < 0:
+            raise ValueError("max_step must be >= 0 (0 = unclamped)")
+        if self.warp not in ("auto", "tiled", "gather"):
+            raise ValueError("warp must be auto|tiled|gather")
+
+
+@dataclass(frozen=True)
 class TVL1Config:
     """TV-L1 flow configuration (tvl1.py): L1 data term, total-variation
     prior, duality-based alternation (Zach, Pock & Bischof 2007)."""
@@ -157,17 +190,34 @@ class MeshConfig:
             raise ValueError("halo_sweeps must be >= 1")
 
 
+@dataclass(frozen=True)
+class RunConfig:
+    """Top-level bundle: everything a CLI or bench invocation needs."""
+
+    hs: HSConfig = HSConfig()
+    pyramid: PyramidConfig = PyramidConfig(levels=1)
+    mesh: MeshConfig = MeshConfig()
+    lk: LKConfig = LKConfig()
+    tvl1: TVL1Config = TVL1Config()
+    method: str = "hs"          # flow model family: hs | lk | tvl1
+
+    def __post_init__(self):
+        if self.method not in ("hs", "lk", "tvl1"):
+            raise ValueError("method must be hs|lk|tvl1")
+
+
 _HS_FIELDS = {f.name for f in dataclasses.fields(HSConfig)}
 _PYR_FIELDS = {f.name for f in dataclasses.fields(PyramidConfig)}
+_LK_FIELDS = {f.name for f in dataclasses.fields(LKConfig)}
 _TVL1_FIELDS = {f.name for f in dataclasses.fields(TVL1Config)}
 _MESH_FIELDS = {f.name for f in dataclasses.fields(MeshConfig)}
 
 
 def _translate(d: dict[str, Any]) -> dict[str, Any]:
-    """The reference's values in the port's terms: backend renamed, lists
-    (from JSON) made tuples."""
+    """The reference's values in the port's terms: backend renamed (the
+    port's own names pass as they are), lists (from JSON) made tuples."""
     vals = dict(d)
-    if "backend" in vals:
+    if "backend" in vals and vals["backend"] not in BACKENDS:
         if vals["backend"] not in _BACKEND_FROM_REFERENCE:
             raise ValueError(f"unknown reference backend {vals['backend']!r}")
         vals["backend"] = _BACKEND_FROM_REFERENCE[vals["backend"]]
@@ -179,23 +229,105 @@ def _translate(d: dict[str, Any]) -> dict[str, Any]:
 
 def from_reference(
     d: dict[str, Any],
-) -> HSConfig | PyramidConfig | TVL1Config | MeshConfig:
+) -> HSConfig | PyramidConfig | TVL1Config | LKConfig | MeshConfig:
     """Build the port's config from a reference config.
 
     `d` is `dataclasses.asdict()` of an opticalflowhs_tpu HSConfig,
-    PyramidConfig, TVL1Config or MeshConfig, or the "hs" / "pyramid" /
-    "tvl1" / "mesh" section of a configs/*.json file. The class is chosen by
-    the field names, tried in that order: a dict whose keys fit more than
-    one class (such as {"iters": 50}, which fits HSConfig and TVL1Config, or
-    {"warp": "gather"}, which fits PyramidConfig and TVL1Config) resolves to
-    the first. Backend "jnp" maps to "torch" and "pallas" to "cuda".
+    PyramidConfig, TVL1Config, LKConfig or MeshConfig, or the "hs" /
+    "pyramid" / "tvl1" / "lk" / "mesh" section of a configs/*.json file.
+    The class is chosen by the field names, tried in that order: a dict
+    whose keys fit more than one class (such as {"iters": 50}, which fits
+    HSConfig, TVL1Config and LKConfig, or {"warp": "gather"}, which fits
+    PyramidConfig, TVL1Config and LKConfig) resolves to the first, so
+    LKConfig, added after the others, takes only dicts that no earlier
+    class fits (such as {"window": 11}). Backend "jnp" maps to "torch" and
+    "pallas" to "cuda".
     """
     keys = set(d)
     for fields, cls in ((_HS_FIELDS, HSConfig), (_PYR_FIELDS, PyramidConfig),
-                        (_TVL1_FIELDS, TVL1Config), (_MESH_FIELDS, MeshConfig)):
+                        (_TVL1_FIELDS, TVL1Config), (_LK_FIELDS, LKConfig),
+                        (_MESH_FIELDS, MeshConfig)):
         if keys <= fields:
             return cls(**_translate(d))
     raise ValueError(
         f"fields {sorted(keys - _HS_FIELDS)} match none of HSConfig, "
-        "PyramidConfig, TVL1Config and MeshConfig"
+        "PyramidConfig, TVL1Config, LKConfig and MeshConfig"
     )
+
+
+_SECTIONS = {"hs": HSConfig, "pyramid": PyramidConfig, "mesh": MeshConfig,
+             "lk": LKConfig, "tvl1": TVL1Config}
+
+
+def _coerce(cls: type, field_name: str, value: Any) -> Any:
+    """A dotted override's value as `cls.field_name` takes it: strings (from
+    a command line) parsed by the field's type, other values as given."""
+    ftypes = {f.name: f.type for f in dataclasses.fields(cls)}
+    if field_name not in ftypes:
+        raise KeyError(f"{cls.__name__} has no field '{field_name}'")
+    current = getattr(cls(), field_name) if cls is not RunConfig else None
+    ftype = ftypes[field_name]
+    if isinstance(value, str):
+        if ftype in ("int", int):
+            return int(value)
+        if ftype in ("float", float):
+            return float(value)
+        if ftype in ("bool", bool):
+            if value.lower() in ("1", "true", "yes", "on"):
+                return True
+            if value.lower() in ("0", "false", "no", "off"):
+                return False
+            raise ValueError(f"cannot parse boolean from {value!r}")
+        if "Tuple" in str(ftype) or isinstance(current, tuple):
+            if value.strip() == "":
+                return ()
+            return tuple(int(v) for v in value.split(","))
+    return value
+
+
+def load_config(path: str | None = None,
+                overrides: dict[str, Any] | None = None) -> RunConfig:
+    """Build a RunConfig from an optional JSON file plus dotted overrides,
+    as the reference's `load_config` does; each section then goes through
+    `from_reference`'s translation (backend "jnp" -> "torch", "pallas" ->
+    "cuda"; lists -> tuples), so the reference's configs/*.json load
+    unchanged.
+
+    JSON layout mirrors the dataclass nesting:
+        {"hs": {"alpha": 1.0, "iters": 100}, "pyramid": {"levels": 3}}
+    Overrides use dotted keys: {"hs.alpha": 0.5, "mesh.y": 2}, and
+    "method" (hs | lk | tvl1).
+    """
+    data: dict[str, dict[str, Any]] = {k: {} for k in _SECTIONS}
+    method = "hs"
+    if path is not None:
+        with open(path) as f:
+            loaded = json.load(f)
+        for sect, vals in loaded.items():
+            if sect == "method":
+                method = vals
+                continue
+            if sect not in _SECTIONS:
+                raise KeyError(f"unknown config section '{sect}'")
+            data[sect].update(vals)
+    for key, value in (overrides or {}).items():
+        if key == "method":
+            method = value
+            continue
+        if "." not in key:
+            raise KeyError(f"override '{key}' must be dotted, e.g. hs.alpha")
+        sect, field_name = key.split(".", 1)
+        if sect not in _SECTIONS:
+            raise KeyError(f"unknown config section '{sect}'")
+        data[sect][field_name] = _coerce(_SECTIONS[sect], field_name, value)
+    return RunConfig(**{sect: cls(**_translate(data[sect]))
+                        for sect, cls in _SECTIONS.items()}, method=method)
+
+
+def config_hash(cfg) -> str:
+    """Stable short hash of any config dataclass (RunConfig, HSConfig, ...):
+    the reference's (sha256 of its fields as sorted JSON, 16 hex digits),
+    so a config whose backends are "auto" hashes alike in both packages.
+    Tags checkpoints (checkpoint.py)."""
+    blob = json.dumps(dataclasses.asdict(cfg), sort_keys=True).encode()
+    return hashlib.sha256(blob).hexdigest()[:16]

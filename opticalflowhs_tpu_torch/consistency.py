@@ -8,9 +8,9 @@ forward target, cancels it. Occluded or unreliable pixels fail
                                             + |f_bwd(x + f_fwd(x))|^2) + b
 
 with (a, b) = (0.01, 0.5) by default. Both directions solve as one batch-2
-solve (batch.solve_stack: HS, or TV-L1 with `tvl1=`), so they share every
-kernel launch. The functions take one (H, W) flow or a (B, H, W) stack of
-flows.
+solve (batch.solve_stack: HS, Lucas-Kanade with `lk=` or TV-L1 with
+`tvl1=`), so they share every kernel launch. The functions take one (H, W)
+flow or a (B, H, W) stack of flows.
 """
 
 from __future__ import annotations
@@ -59,18 +59,18 @@ def solve_bidirectional(
     device=None,
 ) -> tuple[Flow, Flow]:
     """(forward, backward) flow of one (H, W) pair through a single batch-2
-    solve: HS with (cfg, pyr), or with `tvl1` the TV-L1 family (cfg is then
-    ignored; pyr defaults to one level). numpy frames go to `device`, as in
-    hs_solve. SOR's omega == 0 is tuned on the pair before the batch-2
-    solve, which would refuse it."""
+    solve: HS with (cfg, pyr), or with `lk` the Lucas-Kanade family, with
+    `tvl1` the TV-L1 family (cfg is then ignored; pyr defaults to one
+    level). numpy frames go to `device`, as in hs_solve. SOR's omega == 0
+    is tuned on the pair before the batch-2 solve, which would refuse it."""
     reject_unported(lk, tvl1, mesh)
     if i1.ndim != 2:
         raise ValueError(f"expected (H, W) frames, got {tuple(i1.shape)}")
     i1 = as_frame(i1, device)
     i2 = as_frame(i2, i1.device)
-    if tvl1 is None:
+    if lk is None and tvl1 is None:
         cfg = resolve_omega(i1, i2, cfg)
-    f = solve_stack(torch.stack([i1, i2]), torch.stack([i2, i1]), cfg, pyr, tvl1)
+    f = solve_stack(torch.stack([i1, i2]), torch.stack([i2, i1]), cfg, pyr, tvl1, lk)
     return Flow(f.u[0], f.v[0]), Flow(f.u[1], f.v[1])
 
 

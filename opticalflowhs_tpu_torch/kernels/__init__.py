@@ -38,7 +38,42 @@ from opticalflowhs_tpu_torch.kernels.solve_skewed import (
 )
 from opticalflowhs_tpu_torch.kernels.sor_planes import hs_solve_sor_planes
 
+
+
+def counted_wrappers() -> dict:
+    """Every kernel wrapper that counts its launches in `.launches` (K1-K12),
+    by kernel name: the wrappers add one where they launch, and nowhere
+    else."""
+    from opticalflowhs_tpu_torch.kernels import (
+        derivatives,
+        jacobi,
+        ring,
+        solve_fused,
+        solve_robust,
+        solve_skewed,
+        sor,
+        sor_planes,
+        tile,
+        tvl1_inner,
+    )
+    return {"K1 hs_derivatives": derivatives.hs_derivatives,
+            "K2 hs_jacobi_sweeps": jacobi.jacobi_sweeps,
+            "K3 hs_sor_sweeps": sor.sor_sweeps,
+            "K4 hs_robust_freeze": solve_robust.freeze_weights,
+            "K4 hs_robust_sweeps": solve_robust.frozen_sweeps,
+            "K5 hs_tvl1_inner": tvl1_inner.tvl1_inner,
+            "K6 hs_solve_fused": solve_fused.hs_solve_fused,
+            "K7 hs_solve_skewed": solve_skewed.hs_solve_skewed,
+            "K8 hs_sor_planes": sor_planes.sor_planes,
+            "K9 hs_tile_sweeps": tile.tile_sweeps,
+            "K9 hs_sor_tile_sweeps": tile.sor_tile_sweeps,
+            "K10 hs_ring_halo_exchange": ring.ring_halo_exchange,
+            "K11 hs_ring_fused_sweeps": ring.ring_fused_sweeps,
+            "K12 hs_ring_fused_sweeps_2d": ring.ring_fused_sweeps_2d}
+
+
 __all__ = [
+    "counted_wrappers",
     "hs_solve_fused",
     "hs_solve_fused_batched",
     "hs_solve_skewed",

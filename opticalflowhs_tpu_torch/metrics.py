@@ -1,16 +1,21 @@
-"""Flow metrics (NumPy), mirroring opticalflowhs_tpu/metrics.py.
+"""Flow metrics, mirroring opticalflowhs_tpu/metrics.py.
 
 EPE: mean over valid pixels of sqrt((u-u_gt)^2 + (v-v_gt)^2); valid = not
 marked unknown in the ground truth (|value| > 1e9, the Middlebury .flo
 convention). Angular error follows Barron et al. 1994 as used by the
-Middlebury evaluation. Torch tensors are accepted and copied to the host.
+Middlebury evaluation. Both run in NumPy; torch tensors are accepted and
+copied to the host. `hs_energy`, the solver's convergence diagnostic, runs
+in torch on the frames' device.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from opticalflowhs_tpu_torch.io.flo import unknown_mask
+from opticalflowhs_tpu_torch.ops import stencils
+from opticalflowhs_tpu_torch.solver import as_frame
 
 
 def _host(a) -> np.ndarray:
@@ -51,6 +56,40 @@ def angular_error(flow, gt, valid_mask: np.ndarray | None = None) -> float:
     if not valid.any():
         return float("nan")
     return float(ang[valid].mean())
+
+
+def hs_energy(i1, i2, flow, alpha: float = 1.0, deriv_variant: str = "hs_cube",
+              axis_names=(), device=None) -> torch.Tensor:
+    """The Horn-Schunck objective the Jacobi iteration minimizes [HS81 eq. 6]:
+
+        E = mean( (Ex u + Ey v + Et)^2 ) + alpha^2 * mean( |grad u|^2 + |grad v|^2 )
+
+    (forward-difference gradients), as a 0-d float32 tensor on the frames'
+    device; over a (B, H, W) stack the means run over every pixel. Its
+    monotone non-increase over sweeps is the convergence diagnostic. numpy
+    frames go to `device` (cuda:0 when None), the flow to the frames'
+    device. `axis_names` (sums across the shards of a mesh) comes with the
+    rest of dist/ and raises NotImplementedError.
+    """
+    if axis_names:
+        raise NotImplementedError(
+            "axis_names= (sums across mesh shards) is not ported yet: it comes "
+            "with the rest of dist/ (ROADMAP.md queue 1, item 6)"
+        )
+    i1 = as_frame(i1, device)
+    ex, ey, et = stencils.derivatives(i1, as_frame(i2, i1.device), deriv_variant)
+    u = as_frame(flow.u, i1.device)
+    v = as_frame(flow.v, i1.device)
+
+    data = ((ex * u + ey * v + et) ** 2).sum()
+
+    def grad2(a):
+        gx = stencils.shift_left_col(a) - a
+        gy = stencils.shift_up_row(a) - a
+        return (gx * gx + gy * gy).sum()
+
+    n = torch.ones_like(u).sum()
+    return (data + alpha * alpha * (grad2(u) + grad2(v))) / n
 
 
 def interior(arr: np.ndarray, margin: int) -> np.ndarray:

@@ -113,12 +113,12 @@ def flow_stream(
     consumer chooses when to synchronise.
 
     `frames`: a (T, H, W) array or tensor, or an iterator of (H, W) numpy
-    frames (what a camera or decoder feed looks like). `tvl1`: solve with
-    the TV-L1 family instead of HS (`cfg` is then ignored; `pyr` defaults
-    to one level)."""
+    frames (what a camera or decoder feed looks like). `lk` / `tvl1`: solve
+    with the Lucas-Kanade or TV-L1 family instead of HS (`cfg` is then
+    ignored; `pyr` defaults to one level)."""
     reject_unported(lk, tvl1, mesh)
     for cur in _prefetched_windows(frames, chunk, device):
-        yield solve_stack(cur[:-1], cur[1:], cfg, pyr, tvl1)
+        yield solve_stack(cur[:-1], cur[1:], cfg, pyr, tvl1, lk)
 
 
 def flow_stream_warm(
@@ -178,13 +178,13 @@ def flow_stream_occlusion(
     """flow_stream plus per-pair occlusion masks: yields (forward Flow,
     boolean mask) per chunk. Both directions ride one 2n-image solve per
     window, then the forward-backward test (consistency.occlusion_mask)
-    runs on the stack; thresholds (a, b) as there. `tvl1=` as in
-    flow_stream."""
+    runs on the stack; thresholds (a, b) as there. `lk=` and `tvl1=` as
+    in flow_stream."""
     reject_unported(lk, tvl1, mesh)
     for cur in _prefetched_windows(frames, chunk, device):
         n = cur.shape[0] - 1
         f = solve_stack(torch.cat([cur[:-1], cur[1:]]),
-                        torch.cat([cur[1:], cur[:-1]]), cfg, pyr, tvl1)
+                        torch.cat([cur[1:], cur[:-1]]), cfg, pyr, tvl1, lk)
         fwd = Flow(f.u[:n], f.v[:n])
         bwd = Flow(f.u[n:], f.v[n:])
         yield fwd, occlusion_mask(fwd, bwd, a=a, b=b)

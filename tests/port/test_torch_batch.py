@@ -30,6 +30,7 @@ from opticalflowhs_tpu.solver import hs_solve as ref_hs_solve
 import opticalflowhs_tpu_torch.pyramid as pyr
 from opticalflowhs_tpu_torch import (
     HSConfig,
+    LKConfig,
     PyramidConfig,
     flow_stream,
     flow_stream_warm,
@@ -265,8 +266,9 @@ def test_batched_entry_errors():
         hs_solve_batched(torch.zeros(2, 8, 8), torch.zeros(2, 8, 9))
     with pytest.raises(NotImplementedError, match="dist/"):
         hs_solve_batched(torch.zeros(2, 8, 8), torch.zeros(2, 8, 8), mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_bidirectional(z, z, lk=object())
+    # lk= solves (the Lucas-Kanade family); with mesh= it still raises.
+    with pytest.raises(NotImplementedError, match="dist/"):
+        solve_bidirectional(z, z, lk=LKConfig(), mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         hs_solve_batched(torch.zeros(2, 8, 8), torch.zeros(2, 8, 8),
                          HSConfig(solver="multigrid", dtype="bfloat16"))

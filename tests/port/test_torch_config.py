@@ -1,6 +1,7 @@
 """The port's configs against the reference's: same fields, defaults and
 ValueErrors; `from_reference` on every configs/*.json section and on the
-reference's HSConfig, PyramidConfig and TVL1Config."""
+reference's HSConfig, PyramidConfig, TVL1Config and LKConfig;
+`load_config`, `RunConfig` and `config_hash` as the reference's."""
 
 import dataclasses
 import json
@@ -17,7 +18,8 @@ CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
 @pytest.mark.parametrize(
     "ref_cls,port_cls",
     [(ref.HSConfig, port.HSConfig), (ref.PyramidConfig, port.PyramidConfig),
-     (ref.TVL1Config, port.TVL1Config), (ref.MeshConfig, port.MeshConfig)],
+     (ref.TVL1Config, port.TVL1Config), (ref.MeshConfig, port.MeshConfig),
+     (ref.LKConfig, port.LKConfig)],
 )
 def test_fields_and_defaults_match(ref_cls, port_cls):
     ref_fields = [(f.name, f.default) for f in dataclasses.fields(ref_cls)]
@@ -166,3 +168,133 @@ def test_from_reference_rejects_unknown_fields():
         port.from_reference({"alpha": 1.0, "levels": 3})
     with pytest.raises(ValueError):
         port.from_reference({"backend": "tpu"})
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        {"window": 4},
+        {"window": 1},
+        {"iters": 0},
+        {"eps": 0.0},
+        {"max_step": -1.0},
+        {"warp": "nearest"},
+        {"warp": "checked"},
+    ],
+)
+def test_lk_value_errors_match(kwargs):
+    with pytest.raises(ValueError) as ref_err:
+        ref.LKConfig(**kwargs)
+    with pytest.raises(ValueError) as port_err:
+        port.LKConfig(**kwargs)
+    assert str(port_err.value) == str(ref_err.value)
+
+
+def test_from_reference_on_an_lk_section():
+    lk = port.from_reference(dataclasses.asdict(
+        ref.LKConfig(window=11, iters=2, eps=1e-2, max_step=0.5, smooth=False, warp="gather")
+    ))
+    assert lk == port.LKConfig(window=11, iters=2, eps=1e-2, max_step=0.5, smooth=False,
+                               warp="gather")
+    assert port.from_reference({"window": 7, "iters": 4}) == port.LKConfig(window=7, iters=4)
+    # LKConfig is tried after TVL1Config: dicts that an earlier class fits
+    # resolve as before.
+    assert isinstance(port.from_reference({"iters": 3, "warp": "gather"}), port.TVL1Config)
+    assert isinstance(port.from_reference({"eps": 0.01}), port.LKConfig)
+
+
+def _translated(run) -> dict:
+    """asdict of a reference RunConfig in the port's backend names."""
+    d = dataclasses.asdict(run)
+    for sect in ("hs", "tvl1"):
+        d[sect]["backend"] = port._BACKEND_FROM_REFERENCE[d[sect]["backend"]]
+    d["pyramid"]["iters_per_level"] = tuple(d["pyramid"]["iters_per_level"])
+    return d
+
+
+@pytest.mark.parametrize("path", sorted(CONFIG_DIR.glob("*.json")), ids=lambda p: p.name)
+def test_load_config_on_config_files(path):
+    got = port.load_config(str(path))
+    assert isinstance(got, port.RunConfig) and isinstance(got.lk, port.LKConfig)
+    assert dataclasses.asdict(got) == _translated(ref.load_config(str(path)))
+    hash(got)  # nested frozen dataclasses hash
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [
+        {"hs.iters": "42", "mesh.y": "4", "hs.backend": "pallas"},
+        {"pyramid.levels": "3", "pyramid.iters_per_level": "50,80,100"},
+        {"lk.window": "11", "lk.iters": "2", "lk.smooth": "false", "method": "lk"},
+        {"tvl1.warps_per_level": "3,1", "tvl1.lambda_": "0.2", "method": "tvl1"},
+        {"hs.alpha": 0.5, "pyramid.iters_per_level": ""},
+    ],
+)
+def test_load_config_overrides_match(tmp_path, overrides):
+    f = tmp_path / "run.json"
+    f.write_text(json.dumps({"hs": {"alpha": 1.0, "backend": "jnp"},
+                             "pyramid": {"levels": 2, "iters_per_level": [5, 9]},
+                             "lk": {"eps": 0.01}}))
+    for path in (None, str(f)):
+        got = port.load_config(path, overrides)
+        assert dataclasses.asdict(got) == _translated(ref.load_config(path, overrides))
+
+
+@pytest.mark.parametrize(
+    "path_doc,overrides,err",
+    [
+        ({"gamma": {}}, None, KeyError),
+        (None, {"hs.gamma": 1}, KeyError),
+        (None, {"alpha": 1}, KeyError),
+        (None, {"lk.smooth": "maybe"}, ValueError),
+        (None, {"method": "farneback"}, ValueError),
+        ({"method": "sift"}, None, ValueError),
+    ],
+)
+def test_load_config_errors_match(tmp_path, path_doc, overrides, err):
+    path = None
+    if path_doc is not None:
+        path = tmp_path / "bad.json"
+        path.write_text(json.dumps(path_doc))
+    with pytest.raises(err) as ref_err:
+        ref.load_config(path and str(path), overrides)
+    with pytest.raises(err) as port_err:
+        port.load_config(path and str(path), overrides)
+    assert str(port_err.value) == str(ref_err.value)
+
+
+def test_load_config_takes_the_ports_backend_names():
+    got = port.load_config(overrides={"hs.backend": "cuda", "tvl1.backend": "torch"})
+    assert got.hs.backend == "cuda" and got.tvl1.backend == "torch"
+
+
+def test_run_config_method_validation():
+    for method in ("hs", "lk", "tvl1"):
+        assert port.RunConfig(method=method).method == method
+    with pytest.raises(ValueError) as ref_err:
+        ref.RunConfig(method="farneback")
+    with pytest.raises(ValueError) as port_err:
+        port.RunConfig(method="farneback")
+    assert str(port_err.value) == str(ref_err.value)
+    assert [f.name for f in dataclasses.fields(port.RunConfig)] == [
+        f.name for f in dataclasses.fields(ref.RunConfig)]
+    assert dataclasses.asdict(port.RunConfig()) == _translated(ref.RunConfig())
+
+
+def test_config_hash_is_the_references_and_unchanged():
+    from opticalflowhs_tpu_torch import checkpoint
+
+    # One definition, which checkpoints use.
+    assert checkpoint.config_hash is port.config_hash
+    # The hashes that tag existing checkpoints stay what they were.
+    assert port.config_hash(port.HSConfig()) == "f215c91168ab1118"
+    assert port.config_hash(port.RunConfig()) == "ef7a7a11ef4b9155"
+    for cfg_port, cfg_ref in (
+        (port.HSConfig(alpha=0.5, iters=200, checkpoint_every=100),
+         ref.HSConfig(alpha=0.5, iters=200, checkpoint_every=100)),
+        (port.LKConfig(window=11), ref.LKConfig(window=11)),
+        (port.RunConfig(method="lk", lk=port.LKConfig(iters=2)),
+         ref.RunConfig(method="lk", lk=ref.LKConfig(iters=2))),
+    ):
+        assert port.config_hash(cfg_port) == ref.config_hash(cfg_ref)
+    assert port.config_hash(port.HSConfig(alpha=2.0)) != port.config_hash(port.HSConfig())

@@ -16,8 +16,9 @@ sweeps and the K1 + K3 chain at every parity of h and w; multigrid on the
 card (K1, then the plain V-cycles); K9 (shard sweeps keyed to a global
 origin) and K10-K12 (the ring exchange and fused ring solves) on virtual
 meshes of one card, the tiled solver there against the untiled solve, the
-refusals of a mixed mesh and of a grid too large to be resident; and the
-gradient guard at every kernel entry.
+refusals of a mixed mesh and of a grid too large to be resident; the
+gradient guard at every kernel entry; and Lucas-Kanade, the ego-motion fit
+and hs_energy, which launch no kernel, against their CPU runs.
 
 Marked `cuda`: they skip without a card. They import no JAX, so on a
 machine without it they run with the repository's conftest left out:
@@ -37,19 +38,26 @@ import torch
 from opticalflowhs_tpu_torch import (
     Flow,
     HSConfig,
+    LKConfig,
     PyramidConfig,
     TVL1Config,
     flow_stream,
     flow_stream_warm,
+    flow_with_occlusion,
     hs_pyramid,
     hs_solve,
     hs_solve_batched,
+    lk_solve,
+    lk_solve_batched,
     tvl1_solve,
     tvl1_solve_batched,
 )
 from opticalflowhs_tpu_torch import robust
 from opticalflowhs_tpu_torch import tvl1 as tv
 from opticalflowhs_tpu_torch.consistency import solve_bidirectional
+from opticalflowhs_tpu_torch.data.synthetic import synthetic_sequence, translation_pair
+from opticalflowhs_tpu_torch.egomotion import estimate_egomotion
+from opticalflowhs_tpu_torch.kernels import counted_wrappers
 from opticalflowhs_tpu_torch.kernels import derivatives as k1
 from opticalflowhs_tpu_torch.kernels import jacobi as k2
 from opticalflowhs_tpu_torch.kernels import solve_fused as k6
@@ -59,6 +67,7 @@ from opticalflowhs_tpu_torch.kernels import solve_skewed as k7
 from opticalflowhs_tpu_torch.kernels import sor as k3
 from opticalflowhs_tpu_torch.kernels import sor_planes as k8
 from opticalflowhs_tpu_torch.kernels import tvl1_inner as k5
+from opticalflowhs_tpu_torch.metrics import hs_energy
 from opticalflowhs_tpu_torch.solver import tune_omega
 from opticalflowhs_tpu_torch.video import flow_stream_occlusion
 
@@ -1379,3 +1388,151 @@ def test_dist_kernel_entries_refuse_frames_that_require_grad(dev, k):
         call(a)
     with torch.no_grad():
         call(a)
+
+
+# -- Lucas-Kanade, ego-motion and hs_energy: plain torch on the card -------------
+#
+# No kernel: LK, the ego-motion fit and hs_energy are PyTorch ops on the
+# frames' device, as the reference runs them as XLA ops outside any kernel,
+# and none of K1-K12 launches. LK is elementwise ops, gathers and exact sums
+# of integer-valued floats (the tiled warp's tile means), which round alike
+# on the card and the CPU: the card equals the CPU run bitwise. The
+# ego-motion moments and the energy are float32 sums, which the card adds
+# in another order: 1e-5 relative (1e-6 absolute near 0). Gradients pass
+# through index_put's atomic adds on the card: 1e-5 relative to the largest
+# entry.
+
+SUM_RTOL = 1e-5
+SUM_ATOL = 1e-6
+
+LK_SOLVES = [
+    (1, {}, 0),
+    (2, dict(iters=2, max_step=0.5, smooth=False, warp="gather"), 0),
+    (3, dict(window=9, warp="tiled"), 2),
+]
+
+
+def _launch_counts():
+    return {n: w.launches for n, w in counted_wrappers().items()}
+
+
+def _equal_cpu(got, want):
+    for g, w in zip(got, want):
+        assert g.is_cuda and not w.is_cuda
+        assert torch.equal(g.cpu(), w), float((g.cpu() - w).abs().max())
+
+
+def _lk_pair(dev, h=131, w=190):
+    i1, i2, _ = translation_pair(h, w, 0.7, -0.4, key=5)
+    return torch.from_numpy(i1).to(dev), torch.from_numpy(i2).to(dev)
+
+
+@pytest.mark.parametrize("levels,fields,radius", LK_SOLVES)
+def test_lk_solve_on_the_card_equals_cpu(dev, levels, fields, radius):
+    i1, i2 = _lk_pair(dev)
+    cfg, pyr = LKConfig(**fields), PyramidConfig(levels=levels, warp_radius=radius)
+    before = _launch_counts()
+    got = lk_solve(i1, i2, cfg, pyr)
+    assert got.u.device == dev and _launch_counts() == before
+    _equal_cpu(got, lk_solve(i1.cpu(), i2.cpu(), cfg, pyr))
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+def test_lk_solve_batched_on_the_card_equals_cpu_and_singles(dev, levels):
+    a, b = _rand((3, 67, 140), dev, 81)
+    b = 0.5 * (a + b)  # correlated frames, so that the flow is not noise
+    cfg, pyr = LKConfig(iters=2, window=9), PyramidConfig(levels=levels)
+    before = _launch_counts()
+    got = lk_solve_batched(a, b, cfg, pyr)
+    assert _launch_counts() == before
+    _equal_cpu(got, lk_solve_batched(a.cpu(), b.cpu(), cfg, pyr))
+    for k in range(3):
+        one = lk_solve_batched(a[k:k + 1], b[k:k + 1], cfg, pyr)
+        assert torch.equal(got.u[k], one.u[0]) and torch.equal(got.v[k], one.v[0])
+
+
+def test_lk_streams_on_the_card_equal_cpu(dev):
+    vid = synthetic_sequence(5, 40, 140, tx=1.0, ty=0.5, key=3)[0]
+    cfg = LKConfig(iters=2, window=9)
+    before = _launch_counts()
+    got = list(flow_stream(vid, lk=cfg, chunk=2))  # numpy frames: cuda:0
+    occ = list(flow_stream_occlusion(vid, lk=cfg, chunk=2))
+    fwd, bwd = solve_bidirectional(vid[0], vid[1], lk=cfg)
+    f_occ, m_occ = flow_with_occlusion(vid[0], vid[1], lk=cfg, a=0.0, b=1e-4)
+    torch.cuda.synchronize()
+    assert _launch_counts() == before
+    for g, w in zip(got, flow_stream(vid, lk=cfg, chunk=2, device="cpu")):
+        assert g.u.device == dev
+        _equal_cpu(g, w)
+    for (gf, gm), (wf, wm) in zip(occ, flow_stream_occlusion(vid, lk=cfg, chunk=2,
+                                                             device="cpu")):
+        _equal_cpu(gf, wf)
+        assert torch.equal(gm.cpu(), wm)
+    wf, wb = solve_bidirectional(vid[0], vid[1], lk=cfg, device="cpu")
+    _equal_cpu(fwd, wf)
+    _equal_cpu(bwd, wb)
+    wf, wm = flow_with_occlusion(vid[0], vid[1], lk=cfg, a=0.0, b=1e-4, device="cpu")
+    _equal_cpu(f_occ, wf)
+    assert torch.equal(m_occ.cpu(), wm) and 0 < float(wm.float().mean()) < 1
+
+
+def test_numpy_inputs_of_lk_egomotion_and_energy_default_to_cuda0(dev):
+    i1, i2, _ = translation_pair(48, 64, 0.7, -0.4, key=5)
+    f = lk_solve(i1, i2)
+    assert f.u.device == torch.device("cuda", 0)
+    fb = lk_solve_batched(np.stack([i1, i2]), np.stack([i2, i1]))
+    assert fb.u.device == torch.device("cuda", 0)
+    host = Flow(f.u.cpu().numpy(), f.v.cpu().numpy())
+    assert estimate_egomotion(host).tx.device == torch.device("cuda", 0)
+    assert hs_energy(i1, i2, host).device == torch.device("cuda", 0)
+
+
+def test_lk_solve_backward_on_the_card(dev):
+    i1, i2, _ = translation_pair(48, 64, 0.5, 0.0, key=11)
+    grads = {}
+    for d in (dev, torch.device("cpu")):
+        a = torch.from_numpy(i1).to(d).requires_grad_()
+        b = torch.from_numpy(i2).to(d).requires_grad_()
+        f = lk_solve(a, b, LKConfig(iters=2, window=9))
+        torch.mean(f.u * f.u + f.v * f.v).backward()
+        grads[d.type] = (a.grad.cpu(), b.grad.cpu())
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert bool(torch.isfinite(g).all()) and float(w.abs().max()) > 0
+        assert float((g - w).abs().max()) <= SUM_RTOL * float(w.abs().max())
+
+
+def _close_sums(got, want):
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        g = g.cpu()
+        tol = max(SUM_ATOL, SUM_RTOL * float(w.abs().max()))
+        assert float((g - w).abs().max()) <= tol, (g, w)
+
+
+@pytest.mark.parametrize("stack", [0, 2])
+@pytest.mark.parametrize("center,offset", [(None, None), ((31.5, 23.5), None),
+                                           (None, (270, 480))])
+def test_egomotion_on_the_card_equals_cpu(dev, stack, center, offset):
+    shape = (270, 480) if stack == 0 else (stack, 270, 480)
+    rng = np.random.default_rng(82)
+    yy, xx = np.mgrid[0:270, 0:480].astype(np.float32)
+    u = (0.3 + 0.002 * (xx - 239.5) + 0.001 * (yy - 134.5)
+         + rng.normal(0, 0.05, shape)).astype(np.float32)
+    v = (-0.2 + 0.002 * (yy - 134.5) - 0.001 * (xx - 239.5)
+         + rng.normal(0, 0.05, shape)).astype(np.float32)
+    kw = dict(center=center, global_offset=offset)
+    got = estimate_egomotion(Flow(torch.from_numpy(u).to(dev), torch.from_numpy(v).to(dev)), **kw)
+    want = estimate_egomotion(Flow(torch.from_numpy(u), torch.from_numpy(v)), **kw)
+    _close_sums(got, want)
+    _close_sums(got.focus_of_expansion(), want.focus_of_expansion())
+
+
+@pytest.mark.parametrize("variant", ["hs_cube", "central"])
+@pytest.mark.parametrize("shape", [(270, 480), (3, 67, 140)])
+def test_hs_energy_on_the_card_equals_cpu(dev, variant, shape):
+    i1, i2 = _rand(shape, dev, 83)
+    u, v = _rand(shape, dev, 84, normal=True)
+    got = hs_energy(i1, i2, Flow(u, v), 0.5, variant)
+    want = hs_energy(i1.cpu(), i2.cpu(), Flow(u.cpu(), v.cpu()), 0.5, variant)
+    assert got.is_cuda and got.shape == ()
+    assert abs(float(got) - float(want)) <= SUM_RTOL * abs(float(want))

@@ -275,7 +275,11 @@ def test_package_imports_without_jax():
         "import opticalflowhs_tpu_torch.pyramid, opticalflowhs_tpu_torch.metrics\n"
         "import opticalflowhs_tpu_torch.kernels.solve_resident\n"
         "import opticalflowhs_tpu_torch.batch, opticalflowhs_tpu_torch.video\n"
-        "import opticalflowhs_tpu_torch.consistency\n"
+        "import opticalflowhs_tpu_torch.consistency, opticalflowhs_tpu_torch.lucas_kanade\n"
+        "import opticalflowhs_tpu_torch.egomotion\n"
+        "from opticalflowhs_tpu_torch import LKConfig, RunConfig, lk_solve, lk_solve_batched\n"
+        "from opticalflowhs_tpu_torch.config import load_config, config_hash\n"
+        "from opticalflowhs_tpu_torch.metrics import hs_energy\n"
         "import opticalflowhs_tpu_torch.tvl1, opticalflowhs_tpu_torch.kernels.tvl1_inner\n"
         "import opticalflowhs_tpu_torch.kernels.sor, opticalflowhs_tpu_torch.kernels.solve_robust\n"
         "import opticalflowhs_tpu_torch.robust, opticalflowhs_tpu_torch.checkpoint\n"

@@ -23,7 +23,13 @@ import opticalflowhs_tpu.consistency as ref_cons
 import opticalflowhs_tpu.video as ref_video
 from opticalflowhs_tpu.config import HSConfig as RefHS
 import opticalflowhs_tpu_torch.video as video
-from opticalflowhs_tpu_torch import HSConfig, flow_with_occlusion, hs_solve, hs_solve_batched
+from opticalflowhs_tpu_torch import (
+    HSConfig,
+    LKConfig,
+    flow_with_occlusion,
+    hs_solve,
+    hs_solve_batched,
+)
 from opticalflowhs_tpu_torch.consistency import fb_error, solve_bidirectional
 from opticalflowhs_tpu_torch.data.synthetic import synthetic_sequence
 from opticalflowhs_tpu_torch.solver import tune_omega
@@ -100,8 +106,9 @@ def test_flow_stream_rejects_bad_args():
         list(video.flow_stream(_video(), chunk=0, device="cpu"))
     with pytest.raises(ValueError, match="T, H, W"):
         list(video.flow_stream(np.zeros((8, 8), np.float32), device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        list(video.flow_stream(_video(), lk=object(), device="cpu"))
+    # lk= solves (the Lucas-Kanade family); with mesh= it still raises.
+    with pytest.raises(NotImplementedError, match="dist/"):
+        list(video.flow_stream(_video(), lk=LKConfig(), mesh=object(), device="cpu"))
 
 
 @pytest.mark.parametrize("entry", ["flow_stream", "flow_stream_occlusion", "flow_video"])
