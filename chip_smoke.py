@@ -70,6 +70,15 @@ each ran through the kernels:
               flow_with_occlusion(lk=) against the CPU; ego-motion of
               LK-S's flows and of an exact model field; hs_energy of C1's
               and T1's solves at i25 and i100; a profile of one LK1 call.
+  phase 17:   the command line (opticalflowhs_tpu_torch.cli, in process,
+              its files in a temporary directory): run on C3's pair as
+              PGM (= hs_pyramid bitwise, the same K1/K2 launches, timed
+              beside the solve with its host stages; KITTI, --viz and
+              --needle files read back), video on C4's frames as a PGM
+              directory (= flow_stream bitwise, the same launches; an LK
+              stream with --occlusion --egomotion), eval middlebury on four
+              1088x1920 pairs (= evaluate on the entry points bitwise, hs
+              and lk), bench at 1088x1920, selftest (kernel check 0.0), info.
 Every phase checks what it measures and any failure exits non-zero.
 Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
@@ -104,6 +113,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# The port's one roofline accounting (opticalflowhs_tpu_torch/bench.py).
+from opticalflowhs_tpu_torch.bench import HBM_GBPS, VPU_TOPS
+
 TOL = 2e-6  # the reference's kernel-vs-oracle bar; the kernels aim for 0.0
 ROOT = Path(__file__).resolve().parent
 
@@ -114,9 +126,11 @@ ROOT = Path(__file__).resolve().parent
 # --fmad=false, so each multiply and add issues on its own and they can
 # reach about half of it (33.5e12 operations/s). The bounds here use the
 # data sheet's rate, the one bounds are stated against, so an ops bound
-# can be up to 2x below what the unfused kernels could reach.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = 67e12
+# can be up to 2x below what the unfused kernels could reach. The rates come
+# from the port's bench.py tables, keyed by the card's name.
+H100_SXM = "NVIDIA H100 80GB HBM3"
+PEAK_BYTES_PER_S = HBM_GBPS[H100_SXM] * 1e9   # 3.35e12
+PEAK_FLOPS = VPU_TOPS[H100_SXM] * 1e12         # 67e12
 # float32 operations per pixel, counted from the sources: K1 with the
 # zero-start sweep (hs_cube: 16 for Ex/Ey, 2 scales, 8 for Et, 5 for invd,
 # 5 for u1/v1); K2's window loop (k2_window.cuh: K2, K9, K6, K7, K11, K12)
@@ -1827,6 +1841,267 @@ def lk_path(dev, vid, vid_dev, s1, s2) -> None:
     require(n_kernels > 0, "the profiler saw no device kernel of LK1")
 
 
+def cli_path(dev, vid, c1_ms: float, c3_ms: float) -> None:
+    """Phase 17: the command line on the card at full width, in process
+    through cli.main, with its files in a temporary directory. `run` on C3's
+    pair saved as PGM (= hs_pyramid on the load_gray-ed frames bitwise, the
+    same K1/K2 launches, timed beside the solve, and the host stages timed
+    one by one; renders and a KITTI file written and read back); `video` on
+    C4's 17 frames as a PGM directory (= flow_stream bitwise, the same
+    launches; --occlusion --egomotion with --method lk); `eval middlebury`
+    on four 1088x1920 translation pairs (= evaluate on the entry points
+    bitwise, hs and lk); `bench` at 1088x1920 beside phase 4's C1 time;
+    `selftest` (its kernel check at 0.0); `info`."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+
+    from opticalflowhs_tpu_torch import (
+        LKConfig,
+        flow_stream,
+        hs_pyramid,
+        lk_solve,
+    )
+    from opticalflowhs_tpu_torch import cli
+    from opticalflowhs_tpu_torch.config import load_config
+    from opticalflowhs_tpu_torch.data.datasets import MiddleburyDataset, evaluate
+    from opticalflowhs_tpu_torch.data.synthetic import translation_pair
+    from opticalflowhs_tpu_torch.io import kitti, native, read_flow
+    from opticalflowhs_tpu_torch.io.flo import read_flo, write_flo
+    from opticalflowhs_tpu_torch.io.images import load_gray, save_image
+    from opticalflowhs_tpu_torch.kernels import derivatives as k1
+    from opticalflowhs_tpu_torch.kernels import jacobi as k2
+    from opticalflowhs_tpu_torch.viz import flow_to_color, needle_plot
+
+    def quiet(argv) -> tuple[int, str]:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        return rc, out.getvalue()
+
+    def counted(fn):
+        """fn's K1 and K2 launches, counted from 0."""
+        torch.cuda.synchronize()
+        k1.hs_derivatives.launches = 0
+        k2.jacobi_sweeps.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        return k1.hs_derivatives.launches, k2.jacobi_sweeps.launches
+
+    def host_ms(fn, runs: int = 5) -> float:
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def flow_np(f):
+        return np.stack([f.u.cpu().numpy(), f.v.cpu().numpy()], axis=-1)
+
+    t_phase = time.perf_counter()
+    has = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "cv2")}
+    built = native.build()
+    print(f"phase 17 card: {card_line()}; Pillow importable: {has['PIL']}, OpenCV (cv2) "
+          f"importable: {has['cv2']}, so PNGs go through "
+          f"{'Pillow' if has['PIL'] else 'OpenCV' if has['cv2'] else 'io.png16'}; libhsio "
+          f"built: {built}, loaded: {native.available()}, codecs {native.codecs()} "
+          f"(PNM {bool(native.codecs() & native.CODEC_PNM)}, OpenCV "
+          f"{bool(native.codecs() & native.CODEC_OPENCV)}, video {native.video_available()})")
+
+    with tempfile.TemporaryDirectory() as td:
+        d = Path(td)
+        c3 = str(ROOT / "configs" / "c3_pyramid.json")
+        c4 = str(ROOT / "configs" / "c4_hd_streaming.json")
+        rc3 = load_config(c3)
+
+        # -- run: C3's pair as PGM ------------------------------------------------
+        p1, p2, _ = translation_pair(1080, 1920, 3.0, 1.5, key=0, max_freq=0.06)
+        f1, f2 = str(d / "c3_1.pgm"), str(d / "c3_2.pgm")
+        save_image(f1, p1)
+        save_image(f2, p2)
+        run = ["--config", c3, "run", f1, f2, "-o", str(d / "c3.flo")]
+        i1 = torch.from_numpy(load_gray(f1)).to(dev)
+        i2 = torch.from_numpy(load_gray(f2)).to(dev)
+        n_cli = counted(lambda: quiet(run))
+        want = hs_pyramid(i1, i2, rc3.hs, rc3.pyramid)
+        n_in = counted(lambda: hs_pyramid(i1, i2, rc3.hs, rc3.pyramid))
+        got = read_flo(d / "c3.flo")
+        require(got.shape == (1080, 1920, 2) and bool(np.isfinite(got).all()),
+                "CLI run output shape/finite")
+        require(np.array_equal(got, flow_np(want)), "CLI run .flo differs from hs_pyramid")
+        require(n_cli == n_in and min(n_cli) > 0,
+                f"CLI run launches K1/K2 {n_cli}, in-process {n_in}")
+        ms_cli = median_ms(lambda: quiet(run), runs=5)
+        ms_in = median_ms(lambda: hs_pyramid(i1, i2, rc3.hs, rc3.pyramid), runs=5)
+        print(f"phase 17 CLI run C3 (1080x1920 PGM pair, L3 a=1 i100): .flo = in-process "
+              f"hs_pyramid bitwise; launches K1/K2 {n_cli} = in-process {n_in}; median of 5 "
+              f"warm calls {ms_cli:.3f} ms (host clock, whole command) beside the in-process "
+              f"solve {ms_in:.3f} ms (phase 5: {c3_ms:.3f} ms on the float frames)")
+
+        # The host stages of a run, one by one (host clock, median of 5).
+        host = np.ascontiguousarray(got)
+        h1, h2 = load_gray(f1), load_gray(f2)
+        stages = {
+            "load_gray x2 (PGM, Python)": host_ms(lambda: (load_gray(f1), load_gray(f2))),
+            "H2D x2": host_ms(lambda: (torch.from_numpy(h1).to(dev), torch.from_numpy(h2).to(dev),
+                                       torch.cuda.synchronize())),
+            "solve (hs_pyramid, synced)": ms_in,
+            "D2H + stack": host_ms(lambda: flow_np(want)),
+            "write_flo": host_ms(lambda: write_flo(d / "t.flo", host)),
+            "flow_to_color": host_ms(lambda: flow_to_color(host)),
+            "save_image PNG (render)": host_ms(
+                lambda: save_image(d / "t.png", flow_to_color(host)), runs=3),
+            "needle_plot": host_ms(lambda: needle_plot(host, background=p1), runs=3),
+            "write KITTI PNG": host_ms(lambda: kitti.write_flow_png(d / "t_k.png", host),
+                                       runs=3),
+        }
+        if built and native.available() and native.can_decode(f1):
+            stages["load_gray x2 (PGM, libhsio)"] = host_ms(
+                lambda: (native.load_gray(f1), native.load_gray(f2)))
+        print("phase 17 CLI run host stages at 1080x1920 (ms, median): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+        k_png, v_png, n_png = (str(d / n) for n in ("c3_k.png", "c3_v.png", "c3_n.png"))
+        rc, out = quiet(["--config", c3, "run", f1, f2, "-o", k_png, "--viz", v_png,
+                         "--needle", n_png])
+        require(rc == 0, "CLI run with renders")
+        back, valid = kitti.read_flow_png(k_png)
+        # KITTI's 1/64 px steps: half a step, plus half a float32 ulp of the
+        # 2^15-offset value the encoder rounds.
+        require(bool(valid.all()) and np.abs(back - got).max() <= (0.5 + 2**-9) / 64
+                and np.array_equal(read_flow(k_png), back), "CLI KITTI output read back")
+        v = load_gray(v_png)
+        n = load_gray(n_png)
+        require(v.shape == n.shape == (1080, 1920) and float(v.std()) > 0,
+                "CLI renders read back")
+        print(f"phase 17 CLI run -o KITTI .png --viz --needle: written and read back "
+              f"(KITTI max |diff| {np.abs(back - got).max():.3g} px, render std {v.std():.4f})")
+
+        # -- video: C4's 17 frames as a PGM directory -------------------------------
+        vd = d / "c4"
+        vd.mkdir()
+        for k, f in enumerate(vid):
+            save_image(vd / f"frame_{k:03d}.pgm", f)
+        loader = ("libhsio (native.stream_frames)"
+                  if built and native.available() and native.can_decode(str(vd / "frame_000.pgm"))
+                  else "Python (io.images.load_gray)")
+        frames = np.stack([load_gray(vd / f"frame_{k:03d}.pgm") for k in range(len(vid))])
+        rc4 = load_config(c4)
+        video = ["--config", c4, "video", str(vd), "-o", str(d / "c4_out"), "--chunk", "8"]
+        n_cli = counted(lambda: quiet(video))
+        n_in = counted(lambda: list(flow_stream(frames, rc4.hs, chunk=8, device=dev)))
+        chunks = list(flow_stream(frames, rc4.hs, chunk=8, device=dev))
+        want = np.concatenate([np.stack([c.u.cpu().numpy(), c.v.cpu().numpy()], -1)
+                               for c in chunks])
+        got = np.stack([read_flo(d / "c4_out" / f"flow_{k:05d}.flo") for k in range(16)])
+        require(np.array_equal(got, want), "CLI video flows differ from flow_stream")
+        require(n_cli == n_in and min(n_cli) > 0,
+                f"CLI video launches K1/K2 {n_cli}, in-process {n_in}")
+        ms_v = median_ms(lambda: quiet(video), runs=3)
+        print(f"phase 17 CLI video C4 (17 x 1080x1920 PGM, a=1 i100 s=8, chunk 8) loader "
+              f"{loader}: 16 flows = in-process flow_stream bitwise; launches K1/K2 {n_cli} "
+              f"= in-process {n_in}; {ms_v:.3f} ms a command (median of 3; "
+              f"{16 / ms_v * 1e3:.1f} fps from files to .flo files)")
+        rc, out = quiet(["video", str(vd), "-o", str(d / "c4_lk"), "--chunk", "8",
+                         "--method", "lk", "--pyramid.levels", "1", "--occlusion",
+                         "--egomotion"])
+        require(rc == 0, "CLI video --occlusion --egomotion")
+        ems = [json.loads(x) for x in (d / "c4_lk" / "egomotion.jsonl").read_text().splitlines()]
+        tx = [e["tx"] for e in ems]
+        ty = [e["ty"] for e in ems]
+        occ_share = float(np.mean([load_gray(d / "c4_lk" / f"occ_{k:05d}.png").mean()
+                                   for k in range(16)]))
+        require(len(ems) == 16 and max(abs(t - 1.0) for t in tx) <= 0.01
+                and max(abs(t - 0.5) for t in ty) <= 0.01,
+                f"CLI video ego-motion off the pan (1, 0.5): tx {tx}, ty {ty}")
+        print(f"phase 17 CLI video --method lk --occlusion --egomotion: {len(ems)} fits, tx "
+              f"{min(tx):.5f}-{max(tx):.5f}, ty {min(ty):.5f}-{max(ty):.5f} (pan (1, 0.5)); "
+              f"flagged share {occ_share:.5f}; {out.strip().splitlines()[-1]}")
+
+        # -- eval middlebury: four 1088x1920 translation pairs ----------------------
+        mb = d / "mb"
+        for k, (tx_, ty_) in enumerate(((1.0, 0.5), (-0.5, 0.25), (0.75, -1.0), (0.3, 0.6))):
+            a, b, gt = translation_pair(1088, 1920, tx_, ty_, key=20 + k)
+            seq = mb / "other-data" / f"seq{k}"
+            seq.mkdir(parents=True)
+            save_image(seq / "frame10.png", a)
+            save_image(seq / "frame11.png", b)
+            g = mb / "other-gt-flow" / f"seq{k}"
+            g.mkdir(parents=True)
+            write_flo(g / "flow10.flo", np.broadcast_to(gt, (1088, 1920, 2)).astype(np.float32))
+        # The png16 branch of load_gray (what runs where neither Pillow nor
+        # OpenCV imports) against the decode this machine took, on the first
+        # sequence's two frames.
+        pngs = sorted(mb.glob("other-data/seq0/frame1*.png"))
+        t0 = time.perf_counter()
+        took = [load_gray(p) for p in pngs]
+        ms_took = (time.perf_counter() - t0) * 1e3 / len(pngs)
+        saved = {m: sys.modules.get(m) for m in ("PIL", "PIL.Image", "cv2")}
+        try:
+            for m in saved:
+                sys.modules[m] = None
+            t0 = time.perf_counter()
+            forced = [load_gray(p) for p in pngs]
+            ms_forced = (time.perf_counter() - t0) * 1e3 / len(pngs)
+        finally:
+            for m, mod in saved.items():
+                if mod is None:
+                    sys.modules.pop(m, None)
+                else:
+                    sys.modules[m] = mod
+        require(all(np.array_equal(a, b) for a, b in zip(took, forced)),
+                "load_gray's png16 branch differs from this machine's decode")
+        print(f"phase 17 load_gray of seq0's 2 PNGs (1088x1920, 8-bit grey): png16 branch "
+              f"(Pillow and cv2 hidden) = this machine's decode bitwise; {ms_took:.3f} ms a "
+              f"frame as taken, {ms_forced:.3f} ms through png16")
+        rc0 = load_config(None)
+        for method in ("hs", "lk"):
+            out_json = d / f"eval_{method}.json"
+            argv = ["eval", "middlebury", str(mb), "--out", str(out_json), "--method", method]
+            t0 = time.perf_counter()
+            rc, out = quiet(argv)
+            dt = time.perf_counter() - t0
+            require(rc == 0, f"CLI eval {method}")
+
+            def solve(f1_, f2_, method=method):
+                a_ = torch.from_numpy(f1_).to(dev)
+                b_ = torch.from_numpy(f2_).to(dev)
+                if method == "lk":
+                    return flow_np(lk_solve(a_, b_, LKConfig(), rc0.pyramid))
+                return flow_np(hs_pyramid(a_, b_, rc0.hs, rc0.pyramid))
+
+            want = evaluate(MiddleburyDataset(str(mb)), solve)
+            got = json.loads(out_json.read_text())
+            require(got == want, f"CLI eval {method} table differs: {got} vs {want}")
+            print(f"phase 17 CLI eval middlebury 4 x 1088x1920 PNG, {method} L3: table = "
+                  f"in-process bitwise; ALL EPE {got['ALL']['epe']:.4f} AE "
+                  f"{got['ALL']['ae']:.3f}; {dt * 1e3:.1f} ms a command")
+
+        # -- bench, selftest, info ----------------------------------------------------
+        rc, out = quiet(["bench", "--shape", "1088x1920", "--cfg.alpha", "0.5"])
+        require(rc == 0, "CLI bench")
+        res = json.loads(out)
+        st = res["sweep_throughput"]
+        require(res["device"] == torch.cuda.get_device_name(0) and st["ms_per_solve"] > 0,
+                "CLI bench device/time")
+        print(f"phase 17 CLI bench --shape 1088x1920 a=0.5 i100 (C1's shape; mean of 10 "
+              f"chained calls): {json.dumps(res)}; beside phase 4's C1 {c1_ms:.3f} ms "
+              f"(median of 20 synced)")
+
+        rc, out = quiet(["selftest"])
+        diff = [ln for ln in out.splitlines() if "cuda == torch oracle" in ln]
+        require(rc == 0 and len(diff) == 1 and "[PASS]" in diff[0]
+                and diff[0].endswith("(max diff 0.00e+00)"),
+                f"CLI selftest: {out}")
+        print(f"phase 17 CLI selftest: exit 0; {diff[0].strip()}")
+        rc, out = quiet(["info"])
+        require(rc == 0 and torch.cuda.get_device_name(0) in out, f"CLI info: {out}")
+        print("phase 17 CLI info: " + " | ".join(ln.strip() for ln in out.splitlines()))
+    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2172,6 +2447,9 @@ def main() -> int:
 
     # -- phase 16: Lucas-Kanade, ego-motion, hs_energy (plain torch, no kernel) -----------
     lk_path(dev, vid, vid_dev, s1, s2)
+
+    # -- phase 17: the command line (hsflow-torch) on the card ----------------------------
+    cli_path(dev, vid, ms_k, ms_k3)
 
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2

@@ -33,7 +33,17 @@ the reference's:
                 flow, with its focus of expansion
   dist/         make_mesh (meshes of devices in one process, virtual ones
                 included), halo_pad, hs_solve_tiled, hs_pyramid_tiled
-  data/, io/, metrics   synthetic pairs, .flo files, EPE, hs_energy
+  metrics       EPE, angular error, hs_energy
+  data/         synthetic pairs with analytic flow; datasets: the
+                Middlebury, Sintel and KITTI readers, evaluate
+  io/           .flo and KITTI flow files (read_flow, write_flow), PNM and
+                PNG frames (images, png16), the native libhsio binding
+  viz           the Middlebury color wheel, needle plots
+  logging_util  get_logger, log_metrics (JSON lines)
+  bench         run_bench, run_scaling_bench: sweep throughput and latency
+                against the card's roofline
+  cli           the hsflow-torch command: run, video, eval, bench, viz,
+                selftest, info (python -m opticalflowhs_tpu_torch.cli)
 
 Frames are (H, W) float32 tensors, or (B, H, W) stacks, and the solve runs
 on their device. numpy inputs go to the entry point's `device` keyword,

@@ -246,10 +246,8 @@ def test_flow_roundtrip_and_epe(tmp_path):
     assert epe(interior(f, 10), interior(gt, 10)) < 0.05
 
 
-# The host-side io names (images, KITTI, read_flow/write_flow) are not
-# ported yet (ROADMAP.md queue 1, item 4).
-_IO_UNPORTED = {"load_gray", "save_image", "read_flow_png", "write_flow_png",
-                "read_flow", "write_flow"}
+# Every name of the reference's `io` and `data` is ported.
+_IO_UNPORTED: set = set()
 
 
 @pytest.mark.parametrize("sub,unported", [("data", set()), ("io", _IO_UNPORTED)])
@@ -259,11 +257,39 @@ def test_subpackages_export_the_references_names(sub, unported):
     ref = importlib.import_module(f"opticalflowhs_tpu.{sub}")
     port = importlib.import_module(f"opticalflowhs_tpu_torch.{sub}")
     assert sorted(port.__all__) == sorted(set(ref.__all__) - unported)
+    assert not unported
     for name in port.__all__:
         assert callable(getattr(port, name))
     from opticalflowhs_tpu_torch.data import translation_pair
     from opticalflowhs_tpu_torch.io import read_flo as read
     assert translation_pair is syn.translation_pair and read is read_flo
+
+
+def _public_names(mod) -> set:
+    """Names a module defines for its users: not private, not modules, and
+    not functions, classes or typing objects imported from elsewhere."""
+    import inspect
+
+    out = set()
+    for name, value in vars(mod).items():
+        if name.startswith("_") or inspect.ismodule(value):
+            continue
+        if getattr(value, "__module__", mod.__name__) != mod.__name__:
+            continue
+        out.add(name)
+    return out
+
+
+@pytest.mark.parametrize("name", [
+    "io", "io.flo", "io.images", "io.kitti", "io.native", "io.png16", "viz",
+    "logging_util", "data.datasets", "bench", "cli",
+])
+def test_host_modules_define_the_references_names(name):
+    import importlib
+
+    ref = importlib.import_module(f"opticalflowhs_tpu.{name}")
+    port = importlib.import_module(f"opticalflowhs_tpu_torch.{name}")
+    assert _public_names(port) == _public_names(ref)
 
 
 def test_package_imports_without_jax():
@@ -293,6 +319,12 @@ def test_package_imports_without_jax():
         "import opticalflowhs_tpu_torch.dist.mesh, opticalflowhs_tpu_torch.dist.tiled_solver\n"
         "import opticalflowhs_tpu_torch.dist.pyramid_tiled\n"
         "import opticalflowhs_tpu_torch.kernels.tile, opticalflowhs_tpu_torch.kernels.ring\n"
+        "import opticalflowhs_tpu_torch.cli, opticalflowhs_tpu_torch.bench\n"
+        "import opticalflowhs_tpu_torch.viz, opticalflowhs_tpu_torch.logging_util\n"
+        "import opticalflowhs_tpu_torch.io.images, opticalflowhs_tpu_torch.io.kitti\n"
+        "import opticalflowhs_tpu_torch.io.native, opticalflowhs_tpu_torch.io.png16\n"
+        "import opticalflowhs_tpu_torch.data.datasets\n"
+        "from opticalflowhs_tpu_torch.io import load_gray, read_flow, write_flow\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'opticalflowhs_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print(p.hs_solve.__name__)\n"
