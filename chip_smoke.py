@@ -42,11 +42,13 @@ each ran through the kernels:
               through the entry points: hs_solve 2160x3840 (L1, K7) and
               4320x7680 (L2, K6) i100, hs_pyramid 4K L3 (L3), the batched
               twins on 2 x 4K (L4) and hs_solve_checkpointed 4K i200 (L5);
-  phase 14:   K8 (the whole SOR solve on parity planes) against the plain
-              planes, the plain SOR sweeps and the K1 + K3 chain at every
-              parity of h and w, n 1, 4, 7, zero and warm; S1 through
+  phase 14:   K8 (the whole SOR solve in one launch on K3's window walk)
+              against the plain planes, the plain SOR sweeps and the K1 +
+              K3 chain at every parity of h and w, n 1, 4, 7, zero and
+              warm; its geometry (no spills); S1 through
               kernels.hs_solve_sor_planes (1088x1920 i50) against the chain
-              and plain; None at 2160x3840; M1 hs_solve with
+              and plain, K8's sweep block beside a K3 launch; None at
+              2160x3840; M1 hs_solve with
               solver="multigrid" (K1, then plain V-cycles) at i1 and i2
               against all-plain and Jacobi i100/i1600 in EPE; a multigrid
               stack of 2 x 1080p and a 3-level multigrid pyramid;
@@ -55,7 +57,8 @@ each ran through the kernels:
               solves) against their plain versions (K9 also with true
               image edges at K2's warp and lane boundaries) on virtual
               meshes of cuda:0 (1x1, 2x1, 4x1, 2x2, 1x4) and at config 5's
-              shapes (where they are timed: K11 and K12 also a sweep block
+              shapes (where they are timed: K10 also by its device time
+              beside a copy_ of its bytes; K11 and K12 also a sweep block
               beside a K9 launch, their geometry, and a block's time
               beyond the K9 launch: exchange, flag waits, barrier); then
               config 5
@@ -91,7 +94,8 @@ K9-K12, max |diff| against
 the plain version, ms per launch for the kernel and the plain version at
 8 x 1088x1920 (for K5 per call of 100 alternations, with its 1088x1920,
 544x960 and 272x480 numbers; for K6, K7 and K8 per
-whole solve, K1 included, at 4320x7680, 2160x3840 i100 and 1088x1920 i50),
+whole solve, K1 included, at 4320x7680, 2160x3840 i100 and 1088x1920 i50;
+for K10 its device time by the profiler, its events and a copy_ beside),
 and the least time the card could take; K2's row adds its single-frame
 1088x1920 numbers, and K2's and K9's rows the geometry the built kernel
 reports: tile, threads, shared bytes, registers, spills, resident blocks
@@ -181,11 +185,8 @@ SOLVE_ARRAYS = 4
 SWEEP_BLOCK_ARRAYS = 8
 OMEGA = 1.71  # the SOR workloads' omega, as tools/hw_sor_resident_ab.py
 # K1 without the zero-start sweep (the SOR solves' derivatives): 31 float32
-# operations a pixel. A K8 color stage moves about 3.5 full-frame arrays (u
-# and v of all four planes read, the fields of one plane read, u and v of
-# one plane written; csrc/sor_planes.cu).
+# operations a pixel.
 K1_FIELDS_FLOPS_PER_PX = 31
-K8_STAGE_ARRAYS = 3.5
 # NVLink between the cards of one host: 900 GB/s all to all, 450 each way.
 NVLINK_BYTES_PER_S = 450e9
 # Frames at the edges of K2's geometry (48 x 128 windows, warps spanning 128
@@ -282,6 +283,25 @@ def median_ms(fn, runs: int = 20) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def device_ms(fn, match: str, reps: int = 20) -> tuple[float, int]:
+    """Device time per call of the kernels whose name holds `match`, from
+    torch.profiler over `reps` calls after a warm-up, and how many such
+    kernel runs the profiler saw (0: it saw none, and the time means
+    nothing)."""
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key]
+    return (sum(float(e.self_device_time_total) for e in hits) / 1e3 / reps,
+            sum(e.count for e in hits))
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -1132,6 +1152,7 @@ def sor_planes_and_multigrid(dev, stack, s1, s2) -> dict:
     )
     from opticalflowhs_tpu_torch.kernels import derivatives as k1
     from opticalflowhs_tpu_torch.kernels import jacobi as k2
+    from opticalflowhs_tpu_torch.kernels import solve_fused as k6
     from opticalflowhs_tpu_torch.kernels import solve_resident as sr
     from opticalflowhs_tpu_torch.kernels import sor as k3
     from opticalflowhs_tpu_torch.kernels import sor_planes as k8
@@ -1171,6 +1192,12 @@ def sor_planes_and_multigrid(dev, stack, s1, s2) -> dict:
         print(f"phase 14 K8 {h}x{w} (h {'odd' if h % 2 else 'even'}, w "
               f"{'odd' if w % 2 else 'even'}) n=1,4,7 zero+warm omega {OMEGA}: max|diff| vs "
               f"the plain planes {d:.3g}; = plain SOR and = the K1 + K3 chain bitwise")
+    for s in range(1, k3.K3_MAX_SWEEPS + 1):
+        geo = k8.k8_geometry(dev, s)
+        require(geo["spill_bytes"] == 0 and (geo["tile_h"], geo["tile_w"]) == k3.k3_tile(s)[:2],
+                f"K8 geometry at s {s}: {geo}")
+    print(f"phase 14 K8 geometry (s 1-{k3.K3_MAX_SWEEPS}, no spills), at s 4: "
+          f"{k8.k8_geometry(dev, 4)}")
     big = torch.zeros(2160, 3840, device=dev)
     require(k8.hs_solve_sor_planes(big, big, 0.5, 50, OMEGA) is None,
             "K8 must return None outside the reference's plane class (2160x3840)")
@@ -1203,7 +1230,7 @@ def sor_planes_and_multigrid(dev, stack, s1, s2) -> dict:
     launches = {n: c.launches for n, c in counters.items()}
     print(f"phase 14 path launches (S1 K8, M1 i1, M1 i2, multigrid stack, multigrid pyramid): "
           f"{launches}; per call {per_call}")
-    want = {"S1 K8": (1, 0, 0, 4 * 50 + 2), "M1 i1": (1, 0, 0, 0), "M1 i2": (1, 0, 0, 0),
+    want = {"S1 K8": (1, 0, 0, 1), "M1 i1": (1, 0, 0, 0), "M1 i2": (1, 0, 0, 0),
             "multigrid stack": (1, 0, 0, 0), "multigrid pyramid": (3, 0, 0, 0)}
     for tag, counts in want.items():
         require(tuple(per_call[tag].values()) == counts,
@@ -1231,20 +1258,30 @@ def sor_planes_and_multigrid(dev, stack, s1, s2) -> dict:
     ms_k8 = median_ms(lambda: k8.hs_solve_sor_planes(s1, s2, 0.5, 50, OMEGA))
     ms_chain = median_ms(lambda: sr.hs_solve_resident_sor(s1, s2, 0.5, 50, OMEGA))
     ms_plain = median_ms(lambda: sr.hs_solve_resident_sor_plain(s1, s2, 0.5, 50, OMEGA))
-    # Per stage: K8 at n = 50 against n = 0 (pack and unpack only), by events.
-    t50 = event_ms(lambda: k8.sor_planes(None, None, *fields, 50, OMEGA), reps=10)
-    t0 = event_ms(lambda: k8.sor_planes(None, None, *fields, 0, OMEGA), reps=10)
+    # A sweep block: K8 at n = 50 (13 blocks of the rule's s = 4, the last
+    # the remainder) less K8 at n = 26 (7), beside a K3 launch of s sweeps,
+    # by events.
+    s50 = k3.sweeps_per_launch(0, s1.shape, 50, k6.resident_blocks("hs_sor_planes_blocks", 0))
+    n_half = 50 - 6 * s50
+    t50 = event_ms(lambda: k8.sor_planes(None, None, *fields, 50, OMEGA), reps=20)
+    t_half = event_ms(lambda: k8.sor_planes(None, None, *fields, n_half, OMEGA,
+                                            block_sweeps=s50), reps=20)
+    block_ms = (t50 - t_half) / 6
+    z = torch.zeros_like(s1)
+    uo, vo = torch.empty_like(s1), torch.empty_like(s1)
+    k3_ms = event_ms(lambda: k3.launch_sweeps(z, z, *fields, uo, vo, s50, OMEGA), reps=20)
+    chain_k3_ms = event_ms(lambda: k3.sor_sweeps(z, z, *fields, 50, OMEGA), reps=20)
     px = s1.numel()
     b_ms, b_by = bound_ms(SOLVE_ARRAYS * 4 * px,
                           (K1_FIELDS_FLOPS_PER_PX + 50 * K3_FLOPS_PER_PX_SWEEP) * px)
-    stage_ms = K8_STAGE_ARRAYS * 4 * px / PEAK_BYTES_PER_S * 1e3
-    stage_us = (t50 - t0) / 200 * 1e3
+    geo = k8.k8_geometry(dev, s50)
     print(f"phase 14 S1 hs_solve_sor_planes 1088x1920 a=0.5 i50 omega {OMEGA}: max|diff| vs "
           f"plain SOR {d:.3g}, = the plain planes and = the K1 + K3 chain bitwise; launches "
-          f"{per_call['S1 K8']}; K8 solve {ms_k8:.3f} ms, K1 + K3 chain {ms_chain:.3f} ms, plain "
-          f"{ms_plain:.3f} ms (median of 20 each); K8 alone {t50:.4f} ms, pack + unpack "
-          f"{t0:.4f} ms, {stage_us:.2f} us a color stage (its bytes {stage_ms * 1e3:.2f} us); "
-          f"whole-solve bound {b_ms:.4f} ms ({b_by})")
+          f"{per_call['S1 K8']}; K8 solve {ms_k8:.4f} ms, K1 + K3 chain {ms_chain:.4f} ms "
+          f"({ms_k8 / ms_chain:.3f}x), plain {ms_plain:.3f} ms (median of 20 each); by events: "
+          f"K8 alone {t50:.4f} ms, the chain's 13 K3 launches {chain_k3_ms:.4f} ms; a sweep "
+          f"block of {s50} {block_ms:.4f} ms (n 50 less n {n_half}, over 6), a K3 launch of "
+          f"{s50} {k3_ms:.4f} ms; whole-solve bound {b_ms:.4f} ms ({b_by}); geometry {geo}")
 
     # -- M1: multigrid at 1080p ------------------------------------------------------------
     def flow_epe(f):
@@ -1282,8 +1319,9 @@ def sor_planes_and_multigrid(dev, stack, s1, s2) -> dict:
             "replaces": ["opticalflowhs_tpu/kernels/sor_planes.py:78"],
             "launches": launches["K8"], "max_abs_err": err, "ms": ms_k8, "plain_ms": ms_plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "chain_ms": ms_chain,
-            "k8_alone_ms": t50, "pack_unpack_ms": t0, "stage_us": stage_us,
-            "stage_bytes_us": stage_ms * 1e3, "m1_i1_ms": ms_mg[1], "m1_i2_ms": ms_mg[2]}
+            "k8_alone_ms": t50, "chain_k3_ms": chain_k3_ms, "sweeps_per_block": s50,
+            "block_ms": block_ms, "k3_launch_ms": k3_ms, "geometry": geo,
+            "m1_i1_ms": ms_mg[1], "m1_i2_ms": ms_mg[2]}
 
 
 def _tensors(x) -> list:
@@ -1566,6 +1604,18 @@ def tiled_path(dev, pair, stack) -> list:
     print("phase 15 K9 (16 x 548x968 and SOR 16 x 572x992, 4 sweeps), K10 (4 x 540x3840, "
           "halo 5), K11 (4 x 1, n 100) and K12 (2 x 2, n 100) at config 5's shapes: "
           "= plain bitwise")
+    # -- K10 by its device time (the profiler; the events above hold the
+    # wrapper's host work too: its tables and the barriers), beside one copy_
+    # of the same bytes: a (4, th + halo, W) tensor read and written moves
+    # what K10 reads (4 shards) and writes (4 shards and their halos).
+    k10_event_ms = timing["hs_ring_halo_exchange"][0]
+    k10_ms, k10_runs = device_ms(lambda: ring.ring_halo_exchange(shards41, hw + 1), "halo_kernel")
+    require(k10_runs >= 20, f"the profiler saw {k10_runs} K10 kernels in 20 calls")
+    timing["hs_ring_halo_exchange"] = (k10_ms, timing["hs_ring_halo_exchange"][1])
+    yard_src = torch.zeros((4, th + hw + 1, W), device=dev)
+    yard_dst = torch.empty_like(yard_src)
+    copy_ms = event_ms(lambda: yard_dst.copy_(yard_src))
+    copy_dev_ms, _ = device_ms(lambda: yard_dst.copy_(yard_src), "")
     # -- K11 and K12: their geometry, a sweep block beside a K9 launch of
     # the same sweeps, and the tile order of the flag waits --------------------
     n_blk = -(-100 // hw)
@@ -1642,7 +1692,9 @@ def tiled_path(dev, pair, stack) -> list:
                                    k3.k3_geometry(dev, hw, shard=True), px9s)
                                / PEAK_BYTES_PER_S * 1e3,
                                "geometry": k3.k3_geometry(dev, hw, shard=True)},
-        "hs_ring_halo_exchange": {"shards": [4, th, W], "halo": hw + 1},
+        "hs_ring_halo_exchange": {"shards": [4, th, W], "halo": hw + 1,
+                                  "ms_is": "device time (profiler)", "event_ms": k10_event_ms,
+                                  "copy_ms": copy_ms, "copy_device_ms": copy_dev_ms},
         "hs_ring_fused_sweeps": {"mesh": [4, 1], "n": 100, "s": hw,
                                  "solve_ms_D3": ms["D3 4x1"],
                                  "block_ms": block_of["hs_ring_fused_sweeps"],

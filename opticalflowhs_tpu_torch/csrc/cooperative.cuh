@@ -1,7 +1,7 @@
 // Helpers for the persistent cooperative kernels K6 (solve_fused.cu), K7
-// (solve_skewed.cu), K11 and K12 (ring.cu): how many blocks can be resident
-// at once, the launch, and their grid barrier. A grid-wide barrier is only
-// safe when every block of the grid is resident;
+// (solve_skewed.cu), K8 (sor_planes.cu), K11 and K12 (ring.cu): how many
+// blocks can be resident at once, the launch, and their grid barrier. A
+// grid-wide barrier is only safe when every block of the grid is resident;
 // cudaLaunchCooperativeKernel refuses a larger grid
 // (cudaErrorCooperativeLaunchTooLarge), and the entry points return that
 // error instead of deadlocking. The barrier needs no relocatable device

@@ -93,6 +93,26 @@ using namespace hs_k2;
 
 // -- K10 ---------------------------------------------------------------------
 
+// K10's design: a row copy that reads each source row once. One block a
+// source row (blockIdx.x the row, blockIdx.y the shard), its threads striding
+// along the row: it stores the row to the shard's own output and, for the
+// shard's first (last) `halo` rows, also into the bottom (top) halo of its
+// upper (lower) ring neighbour's output, a peer store over NVLink where that
+// lies on another card. The row's base is formed once; the threads then
+// stride along it with 16-byte loads and stores where w % 4 == 0 and all
+// four pointers of the shard are 16-byte aligned (every row is then
+// aligned), else 4 bytes at a time. A block a row, rather than a warp,
+// gives each thread a few loads to put in flight at once (3.75 float4 at w
+// = 3840) instead of 30 in turn, and fills the SMs: config 5's 2,160 rows
+// are 16 warps an SM as a warp a row. On an H100 at config 5's 4 x
+// 540x3840, halo 5, a warp a row took 29-30 us of device time, a block a
+// row 23.4-23.8, as a copy_ of the same bytes (PERF.md). Nothing is read
+// twice, so loads and stores carry the streaming hints (__ldcs, __stcs).
+// Bound: each shard read once and each output written once, (2h + 2 halo)
+// w floats a shard, at the memory's rate: 20.0 us there.
+
+constexpr int kHaloThreads = 256;
+
 struct HaloShard {
   const float* src;  // the shard, h x w
   float* own;        // its output, (h + 2 halo) x w
@@ -100,23 +120,36 @@ struct HaloShard {
   float* dn;         // the output of its lower ring neighbour
 };
 
-__global__ void halo_kernel(const HaloShard* __restrict__ shards, int h, int w,
-                            int halo) {
-  const HaloShard sh = shards[blockIdx.y];
-  const long long own = (long long)h * w, edge = (long long)halo * w;
-  const long long total = own + 2 * edge;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    if (i < own) {
-      sh.own[edge + i] = sh.src[i];
-    } else if (i < own + edge) {  // my top rows: the upper neighbour's bottom halo
-      const long long j = i - own;
-      sh.up[edge + own + j] = sh.src[j];
-    } else {  // my bottom rows: the lower neighbour's top halo
-      const long long j = i - own - edge;
-      sh.dn[j] = sh.src[own - edge + j];
-    }
+// One row of n units (float4 or float) from s to d, and to e and f where
+// they are not null, the block's threads striding along it.
+template <class T>
+__device__ __forceinline__ void copy_row(const T* __restrict__ s, T* d, T* e, T* f, int n) {
+#pragma unroll 4
+  for (int c = threadIdx.x; c < n; c += kHaloThreads) {
+    const T x = __ldcs(s + c);
+    __stcs(d + c, x);
+    if (e != nullptr) __stcs(e + c, x);
+    if (f != nullptr) __stcs(f + c, x);
   }
+}
+
+__global__ void __launch_bounds__(kHaloThreads) halo_kernel(
+    const HaloShard* __restrict__ shards, int h, int w, int halo) {
+  const int r = blockIdx.x;
+  const HaloShard sh = shards[blockIdx.y];
+  const long long row = (long long)r * w;
+  // My top rows are the upper neighbour's bottom halo, my bottom rows the
+  // lower neighbour's top halo; where halo > h/2 a row is both.
+  float* up = r < halo ? sh.up + (long long)(halo + h) * w + row : nullptr;
+  float* dn = r >= h - halo ? sh.dn + row - (long long)(h - halo) * w : nullptr;
+  float* own = sh.own + (long long)halo * w + row;
+  const unsigned long long bases = (unsigned long long)sh.src | (unsigned long long)sh.own |
+                                   (unsigned long long)sh.up | (unsigned long long)sh.dn;
+  if ((w & 3) == 0 && (bases & 15ull) == 0)
+    copy_row(reinterpret_cast<const float4*>(sh.src + row), reinterpret_cast<float4*>(own),
+             reinterpret_cast<float4*>(up), reinterpret_cast<float4*>(dn), w >> 2);
+  else
+    copy_row(sh.src + row, own, up, dn, w);
 }
 
 // -- K11 / K12 ---------------------------------------------------------------
@@ -302,11 +335,7 @@ extern "C" int hs_ring_halo_exchange(const void* table, int n, int h, int w,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)(h + 2 * halo) * w;
-  const int threads = 256;
-  const long long want = (total + threads - 1) / threads;
-  const int blocks = (int)(want < 4096 ? want : 4096);
-  halo_kernel<<<dim3(blocks, n), threads, 0, (cudaStream_t)stream>>>(
+  halo_kernel<<<dim3(h, n), kHaloThreads, 0, (cudaStream_t)stream>>>(
       (const HaloShard*)table, h, w, halo);
   return (int)cudaGetLastError();
 }

@@ -13,9 +13,10 @@
                      persistent cooperative launch (u/v ping-pong)
   solve_skewed.py    K7 hs_solve_skewed_sweeps: the same with u and v in
                      place, time-skewed over row bands
-  sor_planes.py      K8 hs_sor_planes: the whole 4-color SOR solve on
-                     (row%2, col%2) parity planes (pack, one launch a color
-                     stage, unpack); not routed, as in the reference
+  sor_planes.py      K8 hs_sor_planes: the whole 4-color SOR solve in one
+                     persistent cooperative launch on K3's window walk (the
+                     reference's parity planes kept as its plain schedule);
+                     not routed, as in the reference
   tile.py            K9 hs_tile_sweeps / hs_sor_tile_sweeps: K2's and K3's
                      sweeps on halo-padded shards keyed to a global origin
                      (the tiled solver, dist/)

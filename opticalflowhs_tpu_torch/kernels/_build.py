@@ -10,7 +10,7 @@ and the stream are `c_void_p` (an unset argtype would cut a pointer to 32
 bits), every scalar `c_int` or `c_float` (the ring kernels' epoch
 `c_ulonglong`), and every function returns its `cudaError_t` as an int.
 
-The persistent kernels K6, K7, K11 and K12 synchronise their whole grid
+The persistent kernels K6, K7, K8, K11 and K12 synchronise their whole grid
 with a barrier on a count in device memory (csrc/cooperative.cuh). That
 needs every block resident, which their C entry points ensure by a
 cooperative launch, refused for a larger grid, but no extra build flag.
@@ -95,9 +95,13 @@ SIGNATURES = {
     # u0, v0, ex, ey, et, invd, u, v, pu, pv, barrier (8 bytes), b, h, w, n,
     # s, m, band_ty, grid, device, stream
     "hs_solve_skewed_sweeps": [_P] * 11 + [_I] * 9 + [_P],
-    # u0, v0 (both null for a zero start), ex, ey, et, invd, planes, uo, vo,
-    # h, w, n, omega, device, stream
-    "hs_sor_planes": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+    # u0, v0 (both null for a zero start), ex, ey, et, invd, ua, va, ub, vb,
+    # barrier (8 bytes), h, w, n, s, omega, grid, device, stream
+    "hs_sor_planes": [_P] * 11 + [_I] * 4 + [_F, _I, _I, _P],
+    # device, out: the most K8 blocks resident at once
+    "hs_sor_planes_blocks": [_I, _IP],
+    # sweeps, device, out[8]: K8's build, as hs_solve_fused_geometry's
+    "hs_sor_planes_geometry": [_I, _I, _IP],
     # u, v, ex, ey, et, invd, uo, vo, org, b, h, w, img_h, img_w, sweeps,
     # device, stream
     "hs_tile_sweeps": [_P] * 9 + [_I] * 7 + [_P],

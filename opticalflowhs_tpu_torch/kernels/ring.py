@@ -158,9 +158,11 @@ def ring_halo_exchange_plain(tiles, halo: int):
 def ring_halo_exchange(tiles, halo: int):
     """K10 over a ring of shards (a sequence along y, each (h, w) or a
     (B, h, w) stack, one shape, on CPU or CUDA devices): one launch a device
-    stores each shard and its edge rows into its own output and its
-    neighbours'; `ring_halo_exchange_plain` on CPU tensors. Unlike the
-    reference, any halo from 1 to h rows is taken."""
+    reads each row of its shards once and stores it into the shard's own
+    output and, for the edge rows, into the neighbours' halos (csrc/ring.cu:
+    a block a row, 16-byte streaming copies where the rows allow them);
+    `ring_halo_exchange_plain` on CPU tensors. Unlike the reference, any
+    halo from 1 to h rows is taken."""
     tiles = list(tiles)
     for t in tiles:
         check_frames("ring_halo_exchange", t)

@@ -1,19 +1,24 @@
-"""K8: the whole 4-color SOR solve on (row%2, col%2) parity planes.
+"""K8: the whole 4-color SOR solve of a frame in one launch.
 
 Port of opticalflowhs_tpu/kernels/sor_planes.py (`hs_solve_sor_planes`, TPU
-kernel `_planes_kernel`). u, v and the four fields are held as the four
-quarter-resolution parity planes of the frame, so a color stage of a SOR
-sweep touches exactly one plane, with no masks and no idle lanes, and
-updates it in place. The separable [1,2,1] passes sum the same three values
-in the same order as at full resolution, so the result equals the plain
-SOR sweeps (ops/stencils.py sor_step) bitwise.
+kernel `_planes_kernel`). The reference holds u, v and the four fields as
+the four quarter-resolution parity planes of the frame in VMEM, so that a
+color stage of a SOR sweep touches exactly one plane, with no masks and no
+idle lanes, and runs all n sweeps in one launch. `sor_planes_plain` keeps
+that plane schedule in plain torch: the separable [1,2,1] passes sum the
+same three values in the same order as at full resolution, so it equals
+the plain SOR sweeps (ops/stencils.py sor_step) bitwise.
 
-On the H100 the planes live in device memory: one C call (csrc/sor_planes.cu)
-enqueues a pack launch, one launch a color stage (4*n) and an unpack
-launch; the launch boundary is the barrier between stages. `sor_planes`
-launches it for CUDA tensors and runs the plain plane schedule,
-`sor_planes_plain`, for CPU tensors. There is no fallback: a CUDA tensor
-goes through the kernel or the call raises.
+On the H100 the planes are not needed (K3's half sweeps, split by row
+parity, do no masked work), and the launch is what the reference's kernel
+is: csrc/sor_planes.cu runs all n sweeps in ONE persistent cooperative
+launch on K3's window walk (csrc/k3_window.cuh), sweep blocks of s sweeps
+separated by grid barriers, u/v alternating between two pairs A and B, the
+zero start staged as zeros, the remainder n mod s the last block.
+`k8_schedule_plain` walks that schedule in plain torch. `sor_planes`
+launches it for CUDA tensors and runs `sor_planes_plain` for CPU tensors.
+There is no fallback: a CUDA tensor goes through the kernel or the call
+raises.
 
 `hs_solve_sor_planes` keeps the reference's contract: None for a stack, no
 sweeps, the central variant or a frame outside the reference's plane class
@@ -27,7 +32,18 @@ import torch
 
 from opticalflowhs_tpu_torch.kernels import _build
 from opticalflowhs_tpu_torch.kernels.derivatives import check_frames, hs_derivatives
+from opticalflowhs_tpu_torch.kernels.solve_fused import (
+    barrier_count,
+    build_geometry,
+    resident_blocks,
+)
 from opticalflowhs_tpu_torch.kernels.solve_resident import round_up
+from opticalflowhs_tpu_torch.kernels.sor import (
+    K3_BLOCKS,
+    k3_launch_schedule_plain,
+    k3_tiles,
+    sweeps_per_launch,
+)
 
 # The reference's plane class (opticalflowhs_tpu/kernels/sor_planes.py
 # `applicable_shape` :57, float32, no HSFLOW_* override): the plane set and
@@ -39,7 +55,6 @@ _LIMIT = 112 * 1024 * 1024
 
 # The four colors in stage order: (row % 2, col % 2).
 COLORS = ((0, 0), (0, 1), (1, 0), (1, 1))
-_ARRAYS = 6  # u, v, ex, ey, et, invd
 
 
 def applicable_shape(h: int, w: int):
@@ -149,11 +164,47 @@ def sor_planes_plain(u0, v0, ex, ey, et, inv_den, n: int, omega: float):
             interleave(*(V[c] for c in COLORS), h, w))
 
 
-def sor_planes(u0, v0, ex, ey, et, inv_den, n: int, omega: float):
+def k8_schedule_plain(u0, v0, ex, ey, et, inv_den, n: int, omega: float, s: int = 0):
+    """K8's launch in plain torch, on an (H, W) frame: ceil(n/s) sweep
+    blocks (s by `sweeps_per_launch(s, ...)`, K3's rule, as the wrapper
+    picks it on an H100's 132 blocks), each one K3 launch's walk (`sor.k3_launch_schedule_plain`:
+    K3 tiles, windows staged with NaN outside the array, only owned tiles
+    written), the last one the remainder n mod s at its own tile. Block 0
+    reads (u0, v0), or zeros when both are None; block k writes pair A (k
+    even) or B (k odd), which start as NaN, and block k + 1 reads it. Returns
+    the pair the last block wrote. Equals `sor_planes_plain` and the plain
+    SOR sweeps bitwise (the tests hold it to that)."""
+    if (u0 is None) != (v0 is None):
+        raise ValueError("u0 and v0 must be given together")
+    if n < 1:
+        raise ValueError("n must be >= 1")
+    s = sweeps_per_launch(s, ex.shape, n, K3_BLOCKS)
+    pairs = [tuple(torch.full_like(ex, float("nan")) for _ in range(2)) for _ in range(2)]
+    u, v = (torch.zeros_like(ex), torch.zeros_like(ex)) if u0 is None else (u0, v0)
+    for k, done in enumerate(range(0, n, s)):
+        du, dv = pairs[k % 2]
+        ou, ov = k3_launch_schedule_plain(u, v, ex, ey, et, inv_den, min(s, n - done), omega)
+        du.copy_(ou)
+        dv.copy_(ov)
+        u, v = du, dv
+    return u, v
+
+
+def k8_geometry(device, sweeps: int = 4) -> dict:
+    """K8's build at `sweeps` on a CUDA device (`solve_fused.build_geometry`):
+    K3's tile, threads, shared bytes, registers a thread, spilled bytes,
+    resident blocks a multiprocessor, multiprocessors."""
+    return build_geometry("hs_sor_planes_geometry", device, sweeps)
+
+
+def sor_planes(u0, v0, ex, ey, et, inv_den, n: int, omega: float,
+               block_sweeps: int = 0, blocks: int = 0):
     """n 4-color SOR sweeps of an (H, W) frame, from (u0, v0) or, when both
-    are None, from zero: on CUDA tensors one K8 call (pack, 4*n color
-    stages, unpack; 4*n + 2 launches), on CPU tensors `sor_planes_plain`.
-    Returns new (u, v); the inputs are not modified."""
+    are None, from zero: on CUDA tensors one K8 launch (s sweeps a block, s
+    by K3's rule `sor.sweeps_per_launch(block_sweeps, ...)`; `blocks` > 0
+    forces the grid, and a grid larger than can be resident raises), none
+    for n = 0; on CPU tensors `sor_planes_plain`. Returns new (u, v); the
+    inputs are not modified."""
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
     check_frames("sor_planes", ex, ey, et, inv_den, *(() if u0 is None else (u0, v0)))
@@ -161,26 +212,35 @@ def sor_planes(u0, v0, ex, ey, et, inv_den, n: int, omega: float):
         raise ValueError(f"sor_planes: expected an (H, W) frame, got {tuple(ex.shape)}")
     if n < 0:
         raise ValueError("n must be >= 0")
+    if block_sweeps < 0 or blocks < 0:
+        raise ValueError("block_sweeps and blocks must be >= 0 (0 = auto)")
     if ex.device.type == "cpu":
         return sor_planes_plain(u0, v0, ex, ey, et, inv_den, n, omega)
+    if n == 0 or ex.numel() == 0:
+        if u0 is None:
+            return torch.zeros_like(ex), torch.zeros_like(ex)
+        return u0.clone(), v0.clone()
     h, w = ex.shape
-    uo, vo = torch.empty_like(ex), torch.empty_like(ex)
-    if ex.numel() == 0:
-        return uo, vo
-    scratch = torch.empty((_ARRAYS, 4) + plane_shape(h, w), dtype=ex.dtype,
-                          device=ex.device)
+    dev = ex.device.index
+    grid_max = resident_blocks("hs_sor_planes_blocks", dev)
+    s = sweeps_per_launch(block_sweeps, ex.shape, n, grid_max)
+    n_blocks = -(-n // s)
+    ua, va = torch.empty_like(ex), torch.empty_like(ex)
+    ub, vb = (ua, va) if n_blocks == 1 else (torch.empty_like(ex), torch.empty_like(ex))
+    grid = blocks if blocks > 0 else min(k3_tiles(ex.shape, s), grid_max)
+    stream = torch.cuda.current_stream(ex.device).cuda_stream
     start = (None, None) if u0 is None else (u0.data_ptr(), v0.data_ptr())
     err = _build.library().hs_sor_planes(
         *start, ex.data_ptr(), ey.data_ptr(), et.data_ptr(), inv_den.data_ptr(),
-        scratch.data_ptr(), uo.data_ptr(), vo.data_ptr(), h, w, n, float(omega),
-        ex.device.index, torch.cuda.current_stream(ex.device).cuda_stream,
+        ua.data_ptr(), va.data_ptr(), ub.data_ptr(), vb.data_ptr(),
+        barrier_count(dev, stream).data_ptr(), h, w, n, s, float(omega), grid, dev, stream,
     )
     _build.check(err, "hs_sor_planes")
-    sor_planes.launches += 4 * n + 2
-    return uo, vo
+    sor_planes.launches += 1
+    return (ua, va) if n_blocks % 2 == 1 else (ub, vb)
 
 
-# Every K8 kernel launch (pack, color stage, unpack).
+# Every K8 launch: one a call with n >= 1 on CUDA tensors.
 sor_planes.launches = 0
 
 

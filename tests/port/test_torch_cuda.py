@@ -927,16 +927,79 @@ def test_k8_equals_plain_and_the_k3_chain(dev, shape, n, warm):
     fields = k1.derivatives_plain(i1, i2, 0.5)
     k8.sor_planes.launches = 0
     got = k8.sor_planes(*init, *fields, n, 1.7)
-    assert k8.sor_planes.launches == 4 * n + 2  # pack, 4n color stages, unpack
+    assert k8.sor_planes.launches == 1  # the whole solve in one launch
     _equal(got, k8.sor_planes_plain(*init, *fields, n, 1.7))
     z = torch.zeros_like(i1)
     _equal(got, k3.sor_sweeps_plain(*(init if warm else (z, z)), *fields, n, 1.7))
-    k1.hs_derivatives.launches = 0
+    k1.hs_derivatives.launches = k3.sor_sweeps.launches = 0
     whole = k8.hs_solve_sor_planes(i1, i2, 0.5, n, 1.7, "hs_cube", *init)
-    assert k1.hs_derivatives.launches == 1
+    assert (k1.hs_derivatives.launches, k8.sor_planes.launches) == (1, 2)
+    assert k3.sor_sweeps.launches == 0
     _equal(whole, got)
     _equal(whole, sr.hs_solve_resident_sor(i1, i2, 0.5, n, 1.7, "hs_cube", *init))
     _equal([a for a in init if a is not None], keep)  # the start is not written
+
+
+# K8 at every s its blocks take and on small grids that walk many tiles a
+# block: frames one pixel below and above K3's tiles at s = 2 (40 x 112),
+# every parity of h and w; n with a remainder block and at least 3 blocks.
+@pytest.mark.parametrize("shape", [(39, 111), (41, 113), (81, 225), (80, 224), (1, 1)])
+@pytest.mark.parametrize("s", [1, 2, 3, 4, 7, k3.K3_MAX_SWEEPS])
+@pytest.mark.parametrize("blocks", [0, 1, 3])
+@pytest.mark.parametrize("warm", [False, True])
+def test_k8_every_s_and_small_grids_equal_plain(dev, shape, s, blocks, warm):
+    i1, i2 = _rand(shape, dev, 64)
+    init = _rand(shape, dev, 65, normal=True) if warm else (None, None)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    n = 3 * s + 2
+    k8.sor_planes.launches = 0
+    got = k8.sor_planes(*init, *fields, n, 1.7, block_sweeps=s, blocks=blocks)
+    assert k8.sor_planes.launches == 1
+    z = torch.zeros_like(i1)
+    _equal(got, k3.sor_sweeps_plain(*(init if warm else (z, z)), *fields, n, 1.7))
+    _equal(got, k3.sor_sweeps(*(init if warm else (z, z)), *fields, n, 1.7, block_sweeps=s))
+
+
+@pytest.mark.parametrize("w", [64, 93, 130])
+@pytest.mark.parametrize("blocks", [0, 1, 3])
+def test_k8_unaligned_views_equal_plain(dev, w, blocks):
+    # Contiguous views 4 bytes off a 16-byte boundary take the 4-byte path,
+    # which reads u/v around the SM's L1 (__ldcg): a pair is re-read two
+    # sweep blocks after an SM last held it, so n covers at least 3 blocks.
+    h = 70
+    flat = [torch.from_numpy(np.random.default_rng(66 + k).normal(0, 0.5, 1 + h * w)
+                             .astype(np.float32)).to(dev) for k in range(4)]
+    u0, v0, i1, i2 = (f[1:].view(h, w) for f in flat)
+    fields = [torch.cat([f.new_zeros(1), f.flatten()])[1:].view(h, w)
+              for f in k1.derivatives_plain(i1.abs(), i2.abs(), 0.5)]
+    for init in ((u0, v0), (None, None)):
+        z = torch.zeros_like(u0)
+        want = k3.sor_sweeps_plain(*(init if init[0] is not None else (z, z)), *fields, 13, 1.7)
+        _equal(k8.sor_planes(*init, *fields, 13, 1.7, block_sweeps=4, blocks=blocks), want)
+
+
+@pytest.mark.parametrize("s", range(1, k3.K3_MAX_SWEEPS + 1))
+def test_k8_geometry_has_no_spills(dev, s):
+    geo = k8.k8_geometry(dev, s)
+    assert (geo["tile_h"], geo["tile_w"]) == k3.k3_tile(s)[:2]
+    assert geo["threads"] == k3.K3_THREADS and geo["smem_bytes"] == k3.K3_SMEM_BYTES
+    assert geo["spill_bytes"] == 0 and 0 < geo["registers"] <= 65536 // k3.K3_THREADS
+    assert geo["blocks_per_sm"] >= 1
+
+
+def test_k8_refusals(dev):
+    i1, i2 = _rand((131, 130), dev, 67)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    before = k8.sor_planes.launches
+    grid = k6.resident_blocks("hs_sor_planes_blocks", 0)
+    with pytest.raises(RuntimeError, match="hs_sor_planes"):
+        k8.sor_planes(None, None, *fields, 9, 1.7, blocks=grid + 1)  # one block too many
+    with pytest.raises(ValueError, match=">= 0"):
+        k8.sor_planes(None, None, *fields, 9, 1.7, block_sweeps=-1)
+    assert k8.sor_planes.launches == before
+    # The stream is still usable: no refused launch left an error behind.
+    _equal(k8.sor_planes(None, None, *fields, 9, 1.7), k8.sor_planes_plain(None, None, *fields,
+                                                                           9, 1.7))
 
 
 def test_k8_contract(dev):
@@ -953,7 +1016,9 @@ def test_k8_contract(dev):
     with pytest.raises(ValueError):
         k8.sor_planes(None, None, *(f[None] for f in k1.derivatives_plain(i1, i2, 0.5)), 4, 1.7)
     u0, v0 = _rand((64, 96), dev, 63, normal=True)
+    before = k8.sor_planes.launches
     _equal(k8.sor_planes(u0, v0, *k1.derivatives_plain(i1, i2, 0.5), 0, 1.7), (u0, v0))
+    assert k8.sor_planes.launches == before  # n = 0 launches nothing
 
 
 @pytest.mark.parametrize("kw", [dict(iters=2), dict(iters=6, tol=1e-3), dict(iters=1, warm=True)])
@@ -1134,6 +1199,35 @@ def test_k10_equals_plain(dev, n_shards, halo, stack):
     ring.ring_halo_exchange.launches = 0
     got = ring.ring_halo_exchange(tiles, halo)
     assert ring.ring_halo_exchange.launches == 1  # one launch for the device
+    for g, r in zip(got, ring.ring_halo_exchange_plain(tiles, halo)):
+        assert torch.equal(g, r)
+
+
+# K10's 16-byte rows (w % 4 == 0) and its 4-byte rows (w % 4 = 1, 2, 3), a
+# halo of one row and of the whole shard (each row then lands in both
+# neighbours' halos), rings of 1, 2 and 4 shards, single and stacked.
+@pytest.mark.parametrize("w", [36, 37, 38, 39])
+@pytest.mark.parametrize("halo", [1, 10])
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+@pytest.mark.parametrize("stack", [0, 3])
+def test_k10_row_paths_equal_plain(dev, w, halo, n_shards, stack):
+    tiles = [_rand(((stack,) if stack else ()) + (10, w), dev, 85 + k, n=1)[0]
+             for k in range(n_shards)]
+    ring.ring_halo_exchange.launches = 0
+    got = ring.ring_halo_exchange(tiles, halo)
+    assert ring.ring_halo_exchange.launches == 1  # one launch for the device
+    for g, r in zip(got, ring.ring_halo_exchange_plain(tiles, halo)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("halo", [1, 5, 12])
+def test_k10_unaligned_views_equal_plain(dev, halo):
+    # Contiguous views 4 bytes off a 16-byte boundary, at a width that is a
+    # multiple of 4: the 4-byte rows.
+    h, w = 12, 64
+    tiles = [torch.from_numpy(np.random.default_rng(88 + k).normal(0, 0.5, 1 + h * w)
+                              .astype(np.float32)).to(dev)[1:].view(h, w) for k in range(4)]
+    got = ring.ring_halo_exchange(tiles, halo)
     for g, r in zip(got, ring.ring_halo_exchange_plain(tiles, halo)):
         assert torch.equal(g, r)
 

@@ -2,6 +2,7 @@
 """Config 5 on a real 2 x 2 mesh of four GPUs, one shard per card.
 
     python3 tools/torch_multi_gpu.py            # needs 4 CUDA devices
+    python3 tools/torch_multi_gpu.py --k10      # K10 only, on the 4 cards
     python3 tools/torch_multi_gpu.py --cpu      # a small rehearsal on a CPU mesh
 
 Runs `configs/c5_multihost_4k.json` (2160x3840, alpha 1, i100, halo_sweeps
@@ -13,8 +14,13 @@ NVLink), and
 `hs_pyramid_tiled` (L3). Each is held against the untiled solve on one card
 (hs_solve / hs_pyramid on cuda:0) and timed (median of 10, host clock around
 a synchronised call) beside the same mesh made virtual on cuda:0 (2 x 2 and
-config 5's 4 x 4). Prints the cards' names and power limits and one JSON
-object as its last line.
+config 5's 4 x 4). K10 (the ring halo exchange) runs on config 5's frame
+cut into a ring of four 540 x 3840 shards, one a card, halo 5: its edge
+rows are peer stores over NVLink. It is held bitwise against
+`ring_halo_exchange_plain` and timed: host clock around a call synchronised
+on every card (median of 20), and each card's kernel by the profiler.
+Prints the cards' names and power limits and one JSON object as its last
+line.
 """
 
 from __future__ import annotations
@@ -49,10 +55,45 @@ def median_ms(fn, runs: int, sync) -> float:
     return statistics.median(times)
 
 
+def k10_ring(cards, frame, halo: int, sync) -> dict:
+    """K10 on a ring of len(cards) row shards of `frame`, shard k on
+    cards[k]: bitwise against the plain exchange, launches, host ms (median
+    of 20), and on CUDA the mean device ms of one K10 kernel (profiler)."""
+    from opticalflowhs_tpu_torch.kernels import ring
+    n = len(cards)
+    th = frame.shape[0] // n
+    shards = [frame[k * th:(k + 1) * th].contiguous().to(cards[k]) for k in range(n)]
+    ring.ring_halo_exchange.launches = 0
+    got = ring.ring_halo_exchange(shards, halo)
+    sync()
+    out = {"shards": [n, th, frame.shape[1]], "halo": halo,
+           "launches": ring.ring_halo_exchange.launches,
+           "bitwise": all(bool(torch.equal(g, r)) for g, r in
+                          zip(got, ring.ring_halo_exchange_plain(shards, halo))),
+           "ms": median_ms(lambda: ring.ring_halo_exchange(shards, halo), 20, sync),
+           "plain_ms": median_ms(lambda: ring.ring_halo_exchange_plain(shards, halo), 20,
+                                 sync)}
+    if cards[0].type == "cuda":
+        from torch.profiler import ProfilerActivity
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                ring.ring_halo_exchange(shards, halo)
+            sync()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and "halo_kernel" in e.key]
+        runs = sum(e.count for e in hits)
+        out["kernel_runs"] = runs
+        out["device_ms_per_kernel"] = (sum(float(e.self_device_time_total) for e in hits)
+                                       / 1e3 / max(runs, 1))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse on a CPU mesh at 216 x 384, i20 (no timing claims)")
+    ap.add_argument("--k10", action="store_true", help="run K10's ring only")
     args = ap.parse_args()
     from opticalflowhs_tpu_torch import from_reference, hs_pyramid, hs_solve
     from opticalflowhs_tpu_torch.config import MeshConfig
@@ -81,7 +122,10 @@ def main() -> int:
         h, w = 2160, 3840
         cards = [torch.device("cuda", i) for i in range(4)]
         one = cards[0]
-        sync = torch.cuda.synchronize
+
+        def sync():
+            for c in cards:
+                torch.cuda.synchronize(c)
         names = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
@@ -95,6 +139,13 @@ def main() -> int:
     rng = np.random.default_rng(5)
     i1, i2 = (torch.from_numpy(rng.uniform(0, 1, (h, w)).astype(np.float32)).to(one)
               for _ in range(2))
+    k10 = k10_ring(cards, i1, s + 1, sync)
+    if not k10["bitwise"] or (one.type == "cuda" and k10["launches"] != 4):
+        print(f"torch_multi_gpu: K10 on the cards: {k10}", file=sys.stderr)
+        return 1
+    if args.k10:
+        print(json.dumps({"cards": names, "k10": k10}))
+        return 0
     real = make_mesh(MeshConfig(y=2, x=2), cards)
     virt22 = make_mesh(MeshConfig(y=2, x=2), [one] * 4)
     virt44 = make_mesh(MeshConfig(y=4, x=4), [one] * 16)
@@ -115,7 +166,7 @@ def main() -> int:
     }
     counters = {"K9": k9.tile_sweeps, "K12": ring.ring_fused_sweeps_2d}
     result = {"cards": names, "shape": [h, w], "iters": cfg.iters, "halo_sweeps": s,
-              "max_abs_diff_vs_untiled": {}, "launches": {}, "ms": {}}
+              "k10": k10, "max_abs_diff_vs_untiled": {}, "launches": {}, "ms": {}}
     for tag, fn in runs.items():
         before = {n: c.launches for n, c in counters.items()}
         out = fn()

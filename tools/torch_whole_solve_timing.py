@@ -18,7 +18,7 @@ the build each kernel reports (registers,
 spills: K2 and K6 at 8 sweeps, K9, K11 and K12 at 4, K7 at its 4K plan),
 where the tree has the report.
 
-    python3 tools/torch_whole_solve_timing.py [--repo DIR] [--reps N] [--k3 | --k4] [--scan]
+    python3 tools/torch_whole_solve_timing.py [--repo DIR] [--reps N] [--k3 | --k4 | --k10] [--scan]
 
 With --k3 it times K3 (4-color SOR) instead: a launch of 4 sweeps at
 1088x1920 and on an 8 x 1088x1920 stack, K9's SOR entry
@@ -44,6 +44,12 @@ where the tree's K4 has a plan (`solve_robust.sweeps_per_launch` over
 shapes), a launch at every s up to K4_MAX_SWEEPS at 1088x1920, 1088x1900,
 8 x 1088x1920, 544x960 and 272x480, and a refreeze block of 20 sweeps at
 each s at 1088x1920 and 544x960, beside the plan's s.
+
+With --k10 it times K10 (the ring halo exchange) instead, on config 5's
+frame cut into a ring of 4 x 540x3840 shards on one card, halo 5, and at
+halos 1 and 540: the kernel's device time (`device_ms`), the wrapper's by
+CUDA events (its tables and host work included), and one `copy_` of the
+same bytes (a (4, 540 + halo, 3840) tensor) by both.
 
 Frames are chip_smoke.py's noise (default_rng(0)) at 4320x7680, 2160x3840
 and 1088x1920, alpha 0.5, the fields computed once by K1; the sweeps start
@@ -103,6 +109,32 @@ def device_ms(fn, key: str, reps: int):
             us += float(e.self_device_time_total)
             n += e.count
     return us / n / 1e3 if n and us > 0 else None
+
+
+def k10_times(dev, reps: int) -> dict:
+    """--k10: K10 on config 5's 4 x 1 frame shards at halos 1, 5 and 540,
+    by device time and by events, beside a copy_ of the same bytes."""
+    import chip_smoke
+    from opticalflowhs_tpu_torch.kernels import ring
+
+    q1, _ = chip_smoke.c5_frames(dev)
+    th, w = q1.shape[0] // 4, q1.shape[1]
+    shards = [q1[k * th:(k + 1) * th].contiguous() for k in range(4)]
+    out = {}
+    for halo in (1, 5, th):
+        got = ring.ring_halo_exchange(shards, halo)
+        for g, r in zip(got, ring.ring_halo_exchange_plain(shards, halo)):
+            if not torch.equal(g, r):
+                raise RuntimeError(f"K10 differs from its plain version at halo {halo}")
+        out[f"k10_halo{halo}_device"] = device_ms(
+            lambda: ring.ring_halo_exchange(shards, halo), "halo_kernel", reps)
+        out[f"k10_halo{halo}_events"] = event_ms(
+            lambda: ring.ring_halo_exchange(shards, halo), reps)
+        src = torch.zeros((4, th + halo, w), device=dev)
+        dst = torch.empty_like(src)
+        out[f"copy_halo{halo}_device"] = device_ms(lambda: dst.copy_(src), "", reps)
+        out[f"copy_halo{halo}_events"] = event_ms(lambda: dst.copy_(src), reps)
+    return out
 
 
 def k4_times(dev, reps: int, scan: bool) -> dict:
@@ -284,6 +316,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--k3", action="store_true")
     ap.add_argument("--k4", action="store_true")
+    ap.add_argument("--k10", action="store_true")
     ap.add_argument("--scan", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -292,6 +325,13 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.repo).resolve()))
     sys.path.insert(1, str(HERE))
     import chip_smoke
+    if args.k10:
+        out = k10_times(torch.device("cuda", 0), args.reps)
+        print("k10: " + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()), flush=True)
+        print(chip_smoke.card_line())
+        print(json.dumps({"k10_ms": out, "reps": args.reps, "repo": args.repo,
+                          "device": torch.cuda.get_device_name(0)}))
+        return 0
     if args.k4:
         out = k4_times(torch.device("cuda", 0), args.reps, args.scan)
         print(chip_smoke.card_line())
