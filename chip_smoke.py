@@ -82,6 +82,15 @@ each ran through the kernels:
               stream with --occlusion --egomotion), eval middlebury on four
               1088x1920 pairs (= evaluate on the entry points bitwise, hs
               and lk), bench at 1088x1920, selftest (kernel check 0.0), info.
+  phase 18:   gradients (kernels/autodiff.py: the kernel forward, the plain
+              twin's VJP backward): every entry (K1-K8, the whole-solve
+              drivers) at 40x56 and 3 x 37x61, zero and warm, = its plain
+              twin; K4's parts, K9-K12 and hs_solve_tiled refused, forward
+              mode refused; G1 C1's hs_solve i100 and i400 (launches, ms,
+              peak beside an un-checkpointed hand loop) and three descent
+              steps on an offset to frame 2; G2 S1, R1, a stack of C2, C3's
+              pyramid, L1 (K7) and L2 central (K6); G3 tvl1_solve one level
+              (K5); each = the plain route bitwise.
 Every phase checks what it measures and any failure exits non-zero.
 Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
@@ -2154,6 +2163,355 @@ def cli_path(dev, vid, c1_ms: float, c3_ms: float) -> None:
     print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def _grad_entries(dev, shape) -> dict:
+    """{name: (inputs, kernel-route call, plain call)}: every entry of the
+    autograd scheme (kernels/autodiff.py) at `shape`, zero and warm starts,
+    K8's only for a 2-D frame (as tests/port/test_torch_cuda.py)."""
+    from opticalflowhs_tpu_torch import HSConfig, hs_solve, robust
+    from opticalflowhs_tpu_torch import tvl1 as tv
+    from opticalflowhs_tpu_torch.config import TVL1Config
+    from opticalflowhs_tpu_torch.kernels import derivatives as k1
+    from opticalflowhs_tpu_torch.kernels import jacobi as k2
+    from opticalflowhs_tpu_torch.kernels import solve_fused as k6
+    from opticalflowhs_tpu_torch.kernels import solve_resident as sr
+    from opticalflowhs_tpu_torch.kernels import solve_robust as k4
+    from opticalflowhs_tpu_torch.kernels import solve_skewed as k7
+    from opticalflowhs_tpu_torch.kernels import sor as k3
+    from opticalflowhs_tpu_torch.kernels import sor_planes as k8
+    from opticalflowhs_tpu_torch.kernels import tvl1_inner as k5
+    rng = np.random.default_rng(180)
+
+    def rand(normal=False):
+        a = rng.normal(0, 0.5, shape) if normal else rng.uniform(0, 1, shape)
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    i1, i2 = rand(), rand()
+    u, v = rand(True), rand(True)
+    f = tuple(k1.derivatives_plain(i1, i2, 0.5))
+    u1, u2 = rand(True), rand(True)
+    tcfg = TVL1Config()
+    tf = tv.inner_fields(255.0 * i1, 255.0 * i2, u1, u2, tcfg)
+    sc = tv.inner_scalars(tcfg)
+    cfg_r = HSConfig(alpha=0.3, iters=5, solver="robust", robust_update_every=2)
+    pair = (i1[0], i2[0]) if len(shape) == 3 else (i1, i2)
+    out = {
+        "K1": ((i1, i2), lambda a, b: k1.hs_derivatives(a, b, 0.5, zero_sweep=True),
+               lambda a, b: k1.derivatives_plain(a, b, 0.5, zero_sweep=True)),
+        "K2": ((u, v) + f, lambda *t: k2.jacobi_sweeps(*t, 9),
+               lambda *t: k2.jacobi_sweeps_plain(*t, 9)),
+        "K3": ((u, v) + f, lambda *t: k3.sor_sweeps(*t, 5, OMEGA),
+               lambda *t: k3.sor_sweeps_plain(*t, 5, OMEGA)),
+        "K4 robust_sweeps": ((u, v) + f[:3], lambda *t: k4.robust_sweeps(*t, 5, cfg_r),
+                             lambda *t: robust.robust_sweeps(*t, 5, cfg_r)),
+        "K5": ((u1, u2) + tuple(tf), lambda *t: k5.tvl1_inner(*t, 7, *sc),
+               lambda *t: k5.tvl1_inner_plain(*t, 7, *sc)),
+        "hs_solve multigrid": (
+            pair, lambda a, b: hs_solve(a, b, HSConfig(iters=1, solver="multigrid")),
+            lambda a, b: hs_solve(a, b, HSConfig(iters=1, solver="multigrid",
+                                                 backend="torch"))),
+    }
+    solves = {
+        "K1 + K2": (lambda a, b, c, d: sr.hs_solve_resident(a, b, 0.5, 9, u0=c, v0=d),
+                    lambda a, b, c, d: sr.hs_solve_resident_plain(a, b, 0.5, 9, u0=c, v0=d)),
+        "K1 + K3": (lambda a, b, c, d: sr.hs_solve_resident_sor(a, b, 0.5, 5, OMEGA,
+                                                                u0=c, v0=d),
+                    lambda a, b, c, d: sr.hs_solve_resident_sor_plain(a, b, 0.5, 5, OMEGA,
+                                                                      u0=c, v0=d)),
+        "K1 + K4": (lambda a, b, c, d: k4.hs_solve_robust_resident(a, b, cfg_r, c, d),
+                    lambda a, b, c, d: k4.hs_solve_robust_resident_plain(a, b, cfg_r, c, d)),
+        "K1 + K6": (lambda a, b, c, d: k6.hs_solve_fused(a, b, 0.5, 9, u0=c, v0=d),
+                    lambda a, b, c, d: k6.hs_solve_fused_plain(a, b, 0.5, 9, u0=c, v0=d)),
+        "K1 + K7": (lambda a, b, c, d: k7.hs_solve_skewed(a, b, 0.5, 9, u0=c, v0=d),
+                    lambda a, b, c, d: k7.hs_solve_skewed_plain(a, b, 0.5, 9, u0=c, v0=d)),
+    }
+    if len(shape) == 2:
+        out["K8"] = ((u, v) + f, lambda *t: k8.sor_planes(*t, 5, OMEGA),
+                     lambda *t: k8.sor_planes_plain(*t, 5, OMEGA))
+        solves["K1 + K8"] = (
+            lambda a, b, c, d: k8.hs_solve_sor_planes(a, b, 0.5, 5, OMEGA, u0=c, v0=d),
+            lambda a, b, c, d: k8.sor_planes_plain(c, d, *k1.derivatives_plain(a, b, 0.5),
+                                                   5, OMEGA))
+    for name, (call, twin) in solves.items():
+        out[name + " zero"] = ((i1, i2), lambda a, b, call=call: call(a, b, None, None),
+                               lambda a, b, twin=twin: twin(a, b, None, None))
+        out[name + " warm"] = ((i1, i2, u, v), call, twin)
+    return out
+
+
+def gradient_path(dev, frames, s1, s2, c2a, c2b, p1, p2) -> None:
+    """Phase 18: gradients on the card. Every entry of the autograd scheme
+    (kernels/autodiff.py: the kernel forward, the plain twin's VJP
+    backward) at small shapes = its plain twin bitwise, the parts without a
+    scheme refused, forward mode refused; then G1 (C1's hs_solve, i100 and
+    i400, and three steps of descent on an offset to frame 2), G2 (S1, R1,
+    a stack of C2, C3's pyramid, L1 through K7 and L2 central through K6)
+    and G3 (tvl1_solve one level on S2's pair through K5), each = the plain
+    route bitwise, with its launches, times and peak memory."""
+    import torch.autograd.forward_ad as fwad
+
+    from opticalflowhs_tpu_torch import (
+        HSConfig,
+        PyramidConfig,
+        TVL1Config,
+        hs_pyramid,
+        hs_solve,
+        hs_solve_batched,
+        robust,
+        tvl1_solve,
+    )
+    from opticalflowhs_tpu_torch.config import MeshConfig
+    from opticalflowhs_tpu_torch.dist import hs_solve_tiled, make_mesh
+    from opticalflowhs_tpu_torch.kernels import counted_wrappers, ring
+    from opticalflowhs_tpu_torch.kernels import derivatives as k1
+    from opticalflowhs_tpu_torch.kernels import solve_resident as sr
+    from opticalflowhs_tpu_torch.kernels import solve_robust as k4
+    from opticalflowhs_tpu_torch.kernels import tile as k9
+    from opticalflowhs_tpu_torch.kernels import tvl1_inner as k5
+    from opticalflowhs_tpu_torch.ops import stencils
+
+    t_phase = time.perf_counter()
+    wrappers = counted_wrappers()
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts() -> dict:
+        """Launches since zero_counts() by kernel (K4's freeze and sweeps
+        together)."""
+        out = {}
+        for k, w in wrappers.items():
+            if w.launches:
+                out[k.split()[0]] = out.get(k.split()[0], 0) + w.launches
+        return out
+
+    def worst(got, want) -> float:
+        """Max |diff| over pairs of tensors, relative to the largest |want|."""
+        d = max(max_diff(g.detach(), w.detach()) for g, w in zip(got, want))
+        return d / max(1.0, max(float(w.detach().abs().max()) for w in want))
+
+    # -- every entry at small shapes -------------------------------------------------
+    n_cases, err = 0, 0.0
+    for shape in ((40, 56), (3, 37, 61)):
+        for name, (inputs, call, twin) in _grad_entries(dev, shape).items():
+            for wrt in ("all", "first"):
+                ins = [t.clone().requires_grad_(wrt == "all" or i == 0)
+                       for i, t in enumerate(inputs)]
+                gen = torch.Generator().manual_seed(n_cases)
+                zero_counts()
+                outs = call(*ins)
+                fwd = counts()
+                weights = [torch.randn(o.shape, generator=gen).to(dev) for o in outs]
+                wanted = [t for t in ins if t.requires_grad]
+
+                def grads(o):
+                    loss = sum((a * w).sum() for a, w in zip(o, weights))
+                    return torch.autograd.grad(loss, wanted, allow_unused=True,
+                                               materialize_grads=True)
+                g = grads(outs)
+                require(counts() == fwd and fwd, f"{name} {shape}: launches {fwd} then "
+                        f"{counts()} (the backward must launch none)")
+                want_outs = twin(*ins)
+                d = worst(list(outs) + list(g), list(want_outs) + list(grads(want_outs)))
+                require(d <= TOL, f"{name} {shape} wrt {wrt}: gradients vs plain {d}")
+                err = max(err, d)
+                n_cases += 1
+    print(f"phase 18 every entry of the scheme (K1-K8, the whole-solve drivers, hs_solve "
+          f"multigrid) at 40x56 and 3 x 37x61, zero and warm, all inputs and the first "
+          f"requiring grad: {n_cases} cases, outputs and gradients vs the plain twin max "
+          f"rel |diff| {err:.3g}; launches in the forward only")
+
+    # -- what refuses ------------------------------------------------------------------
+    rng = np.random.default_rng(181)
+
+    def rand(shape, normal=False):
+        a = rng.normal(0, 0.5, shape) if normal else rng.uniform(0, 1, shape)
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    u, v = rand((40, 56), True), rand((40, 56), True)
+    i1, i2 = rand((40, 56)), rand((40, 56))
+    f = k1.derivatives_plain(i1, i2, 0.5)
+    wd, ws = robust.charbonnier_weights(u, v, *f[:3], 0.05, 0.05)
+    org = k9.origin_table(u, -3, -3)
+    gu, gv, gf, go = _ring_inputs(dev, 2, 1, 20, 56, 4, 182, 40, 56)
+    hu, hv, hf, ho = _ring_inputs(dev, 2, 2, 20, 28, 4, 183, 40, 56)
+    mesh = make_mesh(MeshConfig(y=2, x=2), [dev] * 4)
+    refused = {
+        "K4 freeze": lambda a: k4.freeze_weights(a, v, *f[:3], 0.05, 0.05),
+        "K4 sweeps": lambda a: k4.frozen_sweeps(a, v, *f[:3], wd, ws, 0.3, 3),
+        "K9": lambda a: k9.tile_sweeps(a, v, *f, 3, org, 40, 56),
+        "K9 SOR": lambda a: k9.sor_tile_sweeps(a, v, *f, 3, OMEGA, org, 40, 56),
+        "K10": lambda a: ring.ring_halo_exchange([a, v], 2),
+        "K11": lambda a: ring.ring_fused_sweeps(
+            [a[:20], gu[1][0]], [gv[0][0], gv[1][0]], [gf[0][0], gf[1][0]], 4, 4,
+            [0, 20], 40, 56),
+        "K12": lambda a: ring.ring_fused_sweeps_2d(
+            [[a[:20, :28].contiguous(), hu[0][1]], hu[1]], hv, hf, 4, 4, ho, 40, 56),
+        "hs_solve_tiled": lambda a: hs_solve_tiled(a, i2, HSConfig(iters=3), mesh),
+    }
+    for name, call in refused.items():
+        a = (i1 if name == "hs_solve_tiled" else u).clone().requires_grad_()
+        try:
+            call(a)
+        except RuntimeError as e:
+            require("does not differentiate" in str(e) and "no_grad" in str(e),
+                    f"{name} refused with another message: {e}")
+        else:
+            raise RuntimeError(f"check failed: {name} took a CUDA input that requires grad")
+    with fwad.dual_level():
+        dual = fwad.make_dual(i1, torch.ones_like(i1))
+        for name, call in (("K1", lambda: k1.hs_derivatives(dual, i2, 0.5)),
+                           ("K1 + K2", lambda: sr.hs_solve_resident(dual, i2, 0.5, 3))):
+            try:
+                call()
+            except NotImplementedError as e:
+                require("jvp" in str(e), f"forward mode refused with another message: {e}")
+            else:
+                raise RuntimeError(f"check failed: forward mode passed through {name}")
+        tangent = fwad.unpack_dual(hs_solve(dual, i2, HSConfig(iters=3, backend="torch")).u)
+        require(tangent.tangent is not None, "the plain backend dropped the tangent")
+    print(f"phase 18 refused with the new message: {', '.join(refused)}; forward mode "
+          "through K1's and the K1 + K2 driver's entries raises (the plain backend carries "
+          "the tangent)")
+
+    # -- G1-G3: the routes at full width -----------------------------------------------
+    def loss_of(flow):
+        """mean(u^2) + mean(v^2), the loss of the reference's autodiff test,
+        of a Flow or a (u, v) pair."""
+        return flow[0].square().mean() + flow[1].square().mean()
+
+    def route(solve, a, b):
+        """Gradients of loss_of(solve(a, b)) with respect to both frames."""
+        a, b = a.clone().requires_grad_(), b.clone().requires_grad_()
+        return torch.autograd.grad(loss_of(solve(a, b)), (a, b))
+
+    def g_check(tag, solve, plain_solve, a, b, want_counts, runs=3, plain_runs=3):
+        """The kernel route: its forward's launches (= want_counts, none in the
+        backward), its gradients = the plain route's bitwise, forward +
+        backward ms (median of `runs` after two warm-up calls, synced; for 0
+        the one warm run that measures the peak) beside the other route's
+        (median of `plain_runs`, or for 0 the one run of the check), and the
+        gradient's peak above the inputs."""
+        aa, bb = a.clone().requires_grad_(), b.clone().requires_grad_()
+        zero_counts()
+        flow = solve(aa, bb)
+        torch.cuda.synchronize()
+        fwd = counts()
+        g = torch.autograd.grad(loss_of(flow), (aa, bb))
+        torch.cuda.synchronize()
+        require(fwd == want_counts and counts() == fwd,
+                f"{tag}: launches {fwd} then {counts()}, expected {want_counts} then none")
+        del flow
+        t0 = time.perf_counter()
+        want = route(plain_solve, a, b)
+        torch.cuda.synchronize()
+        ms_once = (time.perf_counter() - t0) * 1e3
+        d = max(max_diff(x, y) for x, y in zip(g, want))
+        require(d == 0.0 or d <= TOL * float(max(w.abs().max() for w in want)),
+                f"{tag}: gradients vs plain {d}")
+        t0 = time.perf_counter()
+        peak = peak_bytes(lambda: route(solve, a, b)) / 2**20
+        ms = median_ms(lambda: route(solve, a, b), runs=runs) if runs \
+            else (time.perf_counter() - t0) * 1e3
+        ms_p = median_ms(lambda: route(plain_solve, a, b), runs=plain_runs) \
+            if plain_runs else ms_once
+        scale = float(max(w.abs().max() for w in want))
+        print(f"phase 18 {tag}: launches {fwd} forward, 0 backward; gradients vs the "
+              f"other route max|diff| {d:.3g} (max |grad| {scale:.3g}); forward + backward "
+              f"{ms:.3f} ms ({f'median of {runs}' if runs else 'one run'}), other route "
+              f"{ms_p:.3f} ms "
+              f"({f'median of {plain_runs}' if plain_runs else 'one run'}); the gradient's "
+              f"peak {peak:.1f} MiB above the inputs")
+
+    plain = lambda c: dataclasses.replace(c, backend="torch")  # noqa: E731
+    cfg1 = HSConfig(alpha=0.5, iters=100)
+    g_check("G1 hs_solve 1088x1920 a=0.5 i100", lambda a, b: hs_solve(a, b, cfg1),
+            lambda a, b: hs_solve(a, b, plain(cfg1)), s1, s2,
+            {"K1": 1, "K2": 13}, runs=5, plain_runs=5)
+
+    def hand_loop(a, b):
+        """i100 plain Jacobi sweeps from zero, no checkpointing: every sweep
+        on the tape."""
+        a, b = a.clone().requires_grad_(), b.clone().requires_grad_()
+        ex, ey, et, invd = k1.derivatives_plain(a, b, 0.5)
+        u, v = torch.zeros_like(a), torch.zeros_like(a)
+        for _ in range(100):
+            u, v = stencils.jacobi_step(u, v, ex, ey, et, invd)
+        return torch.autograd.grad(u.square().mean() + v.square().mean(), (a, b))
+
+    hand = peak_bytes(lambda: hand_loop(s1, s2)) / 2**20
+    print(f"phase 18 G1 hand loop of 100 stencils.jacobi_step, no checkpoint: peak "
+          f"{hand:.1f} MiB above the inputs")
+    cfg4 = HSConfig(alpha=0.5, iters=400)
+    g_check("G1 hs_solve 1088x1920 a=0.5 i400", lambda a, b: hs_solve(a, b, cfg4),
+            lambda a, b: hs_solve(a, b, plain(cfg4)), s1, s2,
+            {"K1": 1, "K2": 50}, runs=0, plain_runs=0)
+
+    off = {r: torch.zeros_like(s2) for r in ("auto", "torch")}  # auto: the kernel route
+    losses = []
+    for step in range(3):
+        got = {}
+        for r in off:
+            o = off[r].clone().requires_grad_()
+            loss = loss_of(hs_solve(s1, s2 + o, dataclasses.replace(cfg1, backend=r)))
+            got[r] = (loss.detach(), torch.autograd.grad(loss, o)[0])
+        require(torch.equal(got["auto"][0], got["torch"][0])
+                and torch.equal(got["auto"][1], got["torch"][1]),
+                f"G1 descent step {step}: kernel route vs plain")
+        g = got["auto"][1]
+        eta = 0.01 / g.abs().max()
+        for r in off:
+            off[r] = off[r] - eta * got[r][1]
+        losses.append(float(got["auto"][0]))
+    require(losses[0] > losses[1] > losses[2], f"G1 descent: the loss did not fall {losses}")
+    print(f"phase 18 G1 descent on a per-pixel offset to frame 2 (steps of 0.01 / max|grad|): "
+          f"loss {losses[0]:.6g} -> {losses[1]:.6g} -> {losses[2]:.6g}; kernel route = plain "
+          "route bitwise at every step")
+
+    k3_n = k3_plan_launches(dev, tuple(s1.shape), 50)
+    cfg_s = HSConfig(alpha=0.5, iters=50, solver="sor", omega=OMEGA)
+    g_check(f"G2 S1 SOR 1088x1920 i50 omega {OMEGA}", lambda a, b: hs_solve(a, b, cfg_s),
+            lambda a, b: hs_solve(a, b, plain(cfg_s)), s1, s2, {"K1": 1, "K3": k3_n})
+    cfg_r = HSConfig(alpha=0.25, iters=100, solver="robust", robust_update_every=20)
+    g_check("G2 R1 robust 1088x1920 i100 k 20", lambda a, b: hs_solve(a, b, cfg_r),
+            lambda a, b: hs_solve(a, b, plain(cfg_r)), s1, s2,
+            {"K1": 1, "K4": 5 + k4_plan_launches(dev, tuple(s1.shape), 100, 20)})
+    cfg_b = HSConfig(alpha=1.0, iters=100)
+    g_check("G2 hs_solve_batched 4 x 1088x1920 (C2's first 4) a=1 i100",
+            lambda a, b: hs_solve_batched(a, b, cfg_b),
+            lambda a, b: hs_solve_batched(a, b, plain(cfg_b)), c2a[:4], c2b[:4],
+            {"K1": 1, "K2": 13})
+    pyr3 = PyramidConfig(levels=3)
+    torch.use_deterministic_algorithms(True)
+    try:
+        g_check("G2 hs_pyramid 1080x1920 (C3) L3 a=1 i100, deterministic algorithms",
+                lambda a, b: hs_pyramid(a, b, cfg_b, pyr3),
+                lambda a, b: hs_pyramid(a, b, plain(cfg_b), pyr3), p1, p2,
+                {"K1": 3, "K2": 39})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    q1, q2 = frames(2160, 3840, seed=0)
+    g_check("G2 L1 hs_solve 2160x3840 a=0.5 i100 (K7) against the K1 + K2 chain",
+            lambda a, b: hs_solve(a, b, cfg1),
+            lambda a, b: sr.hs_solve_resident(a, b, 0.5, 100), q1, q2,
+            {"K1": 1, "K7": 1})
+    del q1, q2
+    cfg_c = HSConfig(alpha=0.5, iters=100, deriv_variant="central")
+    g_check("G2 L2 hs_solve 1088x1920 central a=0.5 i100 (K6) against the K1 + K2 chain",
+            lambda a, b: hs_solve(a, b, cfg_c),
+            lambda a, b: sr.hs_solve_resident(a, b, 0.5, 100, "central"), s1, s2,
+            {"K1": 1, "K6": 1})
+
+    t1, t2, _ = t1_pair(dev)
+    tcfg, tpyr = TVL1Config(), PyramidConfig(levels=1)
+    k5_n = tcfg.warps * k5.k5_geometry(dev, 0, tuple(t1.shape), tcfg.iters)["launches"]
+    g_check("G3 tvl1_solve 1088x1920 (S2's pair) 1 level TVL1Config()",
+            lambda a, b: tvl1_solve(a, b, tcfg, tpyr),
+            lambda a, b: tvl1_solve(a, b, plain(tcfg), tpyr), t1, t2,
+            {"K5": k5_n}, runs=0, plain_runs=0)
+    print(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2502,6 +2860,9 @@ def main() -> int:
 
     # -- phase 17: the command line (hsflow-torch) on the card ----------------------------
     cli_path(dev, vid, ms_k, ms_k3)
+
+    # -- phase 18: gradients through the kernel entries -----------------------------------
+    gradient_path(dev, frames, s1, s2, c2a, c2b, p1, p2)
 
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2

@@ -7,7 +7,9 @@ K2 (Jacobi), K3 (SOR) or K4 (IRLS) launches, each image clamped at its own
 edges (the Hopper counterpart of the reference's batched resident kernel
 and batched banded sweeps; for SOR and IRLS, of its vmapped single-pair
 solve). On the torch backend the plain ops run on the stack; the stencils
-act on the last two axes, so each image is solved on its own.
+act on the last two axes, so each image is solved on its own. Gradients
+pass through the stack's kernel entries as through a single pair's
+(kernels/autodiff.py).
 
 `solve_stack` picks the family for the stream and consistency entry
 points: HS, Lucas-Kanade with `lk=` (lucas_kanade.lk_solve_batched) or

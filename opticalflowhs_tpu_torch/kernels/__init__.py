@@ -23,6 +23,9 @@
   ring.py            K10 hs_ring_halo_exchange, K11/K12 hs_ring_fused_sweeps:
                      the ring exchange, and the whole solve of a mesh of
                      shards with the halo exchange inside one launch a device
+  autodiff.py        the autograd scheme of K1-K8 and the whole-solve
+                     drivers: the kernel forward, the plain twin's VJP
+                     backward (the reference's custom_vjp)
   _build.py          nvcc build at first use, ctypes binding
 
 Importing these modules builds nothing: the library is built and loaded at

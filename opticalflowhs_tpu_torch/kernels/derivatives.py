@@ -8,14 +8,16 @@ image as the grid's z index.
 
 `hs_derivatives` launches the kernel for CUDA tensors and runs the plain
 version, `derivatives_plain`, for CPU tensors. There is no fallback: a
-CUDA tensor goes through the kernel or the call raises.
+CUDA tensor goes through the kernel or the call raises. CUDA frames that
+need a gradient go through `autodiff.KernelEntry`: the kernel forward,
+the VJP of `derivatives_plain` backward (the reference's `_derivatives_ad`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from opticalflowhs_tpu_torch.kernels import _build
+from opticalflowhs_tpu_torch.kernels import _build, autodiff
 from opticalflowhs_tpu_torch.ops import stencils
 
 _VARIANT_CODES = {"hs_cube": 0, "central": 1}
@@ -42,9 +44,14 @@ def check_frames(name: str, *arrays: torch.Tensor) -> None:
 
     Raise RuntimeError for CUDA tensors of which any requires grad while
     grad mode is on: the kernels write their outputs through raw pointers,
-    so a solve through them would return a flow without a grad_fn and the
-    gradient would be lost without a word. CPU tensors run the plain path,
-    which torch differentiates itself, and are not refused."""
+    so a flow computed by them alone has no grad_fn and the gradient would
+    be lost without a word. The entries K1-K8 and the whole-solve drivers
+    route such calls through `autodiff.KernelEntry` before they get
+    here, so only the parts with no autograd scheme of their own reach the
+    refusal: K4's freeze and sweep launches (called by K4's entries with
+    grad off), K9-K12 and the tiled solver on CUDA shards. CPU tensors run
+    the plain path, which torch differentiates itself, and are not
+    refused."""
     first = arrays[0]
     for a in arrays:
         if not isinstance(a, torch.Tensor):
@@ -68,10 +75,12 @@ def check_frames(name: str, *arrays: torch.Tensor) -> None:
     if (first.device.type == "cuda" and torch.is_grad_enabled()
             and any(a.requires_grad for a in arrays)):
         raise RuntimeError(
-            f"{name}: the CUDA kernels do not differentiate yet (ROADMAP.md "
-            "queue 1: autograd through the kernels), so the gradient would "
-            "be dropped; call under torch.no_grad(), or solve on the CPU "
-            "(device='cpu'), where the plain path is differentiable"
+            f"{name}: this kernel does not differentiate, as the reference's "
+            "tile and rdma kernels do not, so the gradient would be dropped "
+            "(a tiled solve's gradient waits for ROADMAP.md queue 1 item 6; "
+            "K4's freeze and sweep launches differentiate only through "
+            "robust_sweeps and hs_solve_robust_resident); call under "
+            "torch.no_grad(), or solve untiled"
         )
 
 
@@ -92,7 +101,12 @@ def hs_derivatives(i1: torch.Tensor, i2: torch.Tensor, alpha: float,
     """K1 wrapper over an (H, W) pair or a (B, H, W) stack of pairs: the
     kernel on CUDA tensors (one launch for the whole stack),
     `derivatives_plain` on CPU tensors. Returns (ex, ey, et, invd) or, with
-    zero_sweep, also (u1, v1), each of the frames' shape."""
+    zero_sweep, also (u1, v1), each of the frames' shape. Differentiable
+    with respect to both frames (`autodiff`)."""
+    if autodiff.needs_grad(i1, i2):
+        return autodiff.KernelEntry.apply(
+            lambda a, b: hs_derivatives(a, b, alpha, variant, zero_sweep),
+            lambda a, b: derivatives_plain(a, b, alpha, variant, zero_sweep), i1, i2)
     check_frames("hs_derivatives", i1, i2)
     if variant not in _VARIANT_CODES:
         raise ValueError(f"unknown derivative variant {variant!r}")

@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from opticalflowhs_tpu_torch.kernels import _build
+from opticalflowhs_tpu_torch.kernels import _build, autodiff
 from opticalflowhs_tpu_torch.kernels.derivatives import batch_dims, check_frames
 from opticalflowhs_tpu_torch.ops import stencils
 
@@ -101,10 +101,11 @@ def sweeps_per_launch(block_sweeps: int = 0) -> int:
 def jacobi_sweeps_plain(u, v, ex, ey, et, inv_den, n: int):
     """n plain Jacobi sweeps (ops/stencils.py), on (H, W) or (B, H, W); on a
     stack each image on its own, as the reference's vmapped twin (the
-    stencils clamp per image)."""
-    for _ in range(n):
-        u, v = stencils.jacobi_step(u, v, ex, ey, et, inv_den)
-    return u, v
+    stencils clamp per image). The sweeps run through
+    `stencils.checkpointed_loop`, as the reference's twin (`_jnp_sweeps`):
+    the same values, and a gradient tape of O(sqrt(n)) fields."""
+    return stencils.checkpointed_loop(
+        lambda uv: stencils.jacobi_step(*uv, ex, ey, et, inv_den), (u, v), n)
 
 
 def k2_stage(a, r0: int, c0: int, window=(K2_WINDOW_H, K2_WINDOW_W)):
@@ -311,7 +312,13 @@ def jacobi_sweeps(u, v, ex, ey, et, inv_den, n_sweeps: int,
     """n Jacobi sweeps on (H, W) tensors or a (B, H, W) stack of independent
     images: on CUDA tensors ceil(n/s) K2 launches (for the whole stack,
     each image clamped at its own edges), `jacobi_sweeps_plain` on CPU
-    tensors. Returns (u, v); the inputs are not modified."""
+    tensors. Returns (u, v); the inputs are not modified. Differentiable
+    with respect to all six tensors (`autodiff`: the VJP of
+    `jacobi_sweeps_plain`, as the reference's `_jacobi_sweeps_ad`)."""
+    if autodiff.needs_grad(u, v, ex, ey, et, inv_den):
+        return autodiff.KernelEntry.apply(
+            lambda *t: jacobi_sweeps(*t, n_sweeps, block_sweeps),
+            lambda *t: jacobi_sweeps_plain(*t, n_sweeps), u, v, ex, ey, et, inv_den)
     check_frames("jacobi_sweeps", u, v, ex, ey, et, inv_den)
     if n_sweeps == 0:
         return u, v

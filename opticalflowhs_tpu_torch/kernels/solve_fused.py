@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from opticalflowhs_tpu_torch.kernels import _build
+from opticalflowhs_tpu_torch.kernels import _build, autodiff
 from opticalflowhs_tpu_torch.kernels.derivatives import (
     batch_dims,
     check_frames,
@@ -206,9 +206,17 @@ def hs_solve_fused(i1, i2, alpha: float, n: int, variant: str = "hs_cube",
     """Whole HS solve of an (H, W) pair or a (B, H, W) stack, from zero or
     from (u0, v0): on CUDA tensors K1, then one K6 launch of all n sweeps
     (s = `jacobi.sweeps_per_launch(block_sweeps)` a block; `blocks` > 0
-    forces the grid); the plain version on CPU tensors. Returns (u, v)."""
+    forces the grid); the plain version on CPU tensors. Returns (u, v).
+    Differentiable with respect to the frames and the start (`autodiff`:
+    the VJP of `hs_solve_fused_plain`)."""
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
+    if autodiff.needs_grad(i1, i2, u0, v0):
+        return autodiff.KernelEntry.apply(
+            lambda a, b, c, d: hs_solve_fused(a, b, alpha, n, variant, c, d,
+                                              block_sweeps, blocks),
+            lambda a, b, c, d: hs_solve_fused_plain(a, b, alpha, n, variant, c, d),
+            i1, i2, u0, v0)
     check_frames("hs_solve_fused", i1, i2, *(() if u0 is None else (u0, v0)))
     if n < 0:
         raise ValueError("n must be >= 0")

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from opticalflowhs_tpu_torch.kernels import sor
+from opticalflowhs_tpu_torch.kernels import autodiff, sor
 from opticalflowhs_tpu_torch.kernels.derivatives import (
     check_frames,
     derivatives_plain,
@@ -110,9 +110,16 @@ def hs_solve_resident(i1, i2, alpha: float, n: int, variant: str = "hs_cube",
     """Whole HS solve (derivatives + n Jacobi sweeps) of an (H, W) pair or a
     (B, H, W) stack of pairs, from zero or from (u0, v0). K1 + K2 on CUDA
     tensors (one chain for the whole stack), the plain version on CPU
-    tensors. Returns (u, v)."""
+    tensors. Returns (u, v). Differentiable with respect to the frames and
+    the start (`autodiff`: the VJP of `hs_solve_resident_plain`)."""
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
+    if autodiff.needs_grad(i1, i2, u0, v0):
+        return autodiff.KernelEntry.apply(
+            lambda a, b, c, d: hs_solve_resident(a, b, alpha, n, variant, c, d,
+                                                 block_sweeps),
+            lambda a, b, c, d: hs_solve_resident_plain(a, b, alpha, n, variant, c, d),
+            i1, i2, u0, v0)
     check_frames("hs_solve_resident", i1, i2, *(() if u0 is None else (u0, v0)))
     if n < 0:
         raise ValueError("n must be >= 0")
@@ -152,9 +159,17 @@ def hs_solve_resident_sor(i1, i2, alpha: float, n: int, omega: float,
     stages=4): on CUDA tensors K1, then ceil(n/s) K3 launches, one chain
     for a whole stack; the plain version on CPU tensors. Unlike the TPU
     kernel it covers both derivative variants and every size. Returns
-    (u, v)."""
+    (u, v). Differentiable with respect to the frames and the start
+    (`autodiff`: the VJP of `hs_solve_resident_sor_plain`)."""
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
+    if autodiff.needs_grad(i1, i2, u0, v0):
+        return autodiff.KernelEntry.apply(
+            lambda a, b, c, d: hs_solve_resident_sor(a, b, alpha, n, omega, variant,
+                                                     c, d, block_sweeps),
+            lambda a, b, c, d: hs_solve_resident_sor_plain(a, b, alpha, n, omega,
+                                                           variant, c, d),
+            i1, i2, u0, v0)
     check_frames("hs_solve_resident_sor", i1, i2,
                  *(() if u0 is None else (u0, v0)))
     if n < 0:

@@ -33,7 +33,7 @@ import functools
 import torch
 
 from opticalflowhs_tpu_torch import robust as plain
-from opticalflowhs_tpu_torch.kernels import _build
+from opticalflowhs_tpu_torch.kernels import _build, autodiff
 from opticalflowhs_tpu_torch.kernels.derivatives import (
     batch_dims,
     check_frames,
@@ -380,7 +380,14 @@ def robust_sweeps(u, v, ex, ey, et, n: int, cfg, owned: bool = False):
     """n IRLS sweeps on (H, W) tensors or a (B, H, W) stack, refrozen as
     `robust.robust_sweeps`: on CUDA tensors, per refreeze block of m
     sweeps, one freeze launch and ceil(m/s) sweep launches, s the block's
-    plan (`sweeps_per_launch`); the plain version on CPU tensors. The inputs are not modified unless owned."""
+    plan (`sweeps_per_launch`); the plain version on CPU tensors. The inputs are not modified unless owned.
+    Differentiable with respect to all five tensors (`autodiff`: the VJP of
+    `robust.robust_sweeps`; the freeze and sweep launches run with grad
+    off, never owning the caller's tensors)."""
+    if autodiff.needs_grad(u, v, ex, ey, et):
+        return autodiff.KernelEntry.apply(
+            lambda *t: robust_sweeps(*t, n, cfg),
+            lambda *t: plain.robust_sweeps(*t, n, cfg), u, v, ex, ey, et)
     check_frames("robust_sweeps", u, v, ex, ey, et)
     if u.device.type == "cpu":
         return plain.robust_sweeps(u, v, ex, ey, et, n, cfg)
@@ -406,9 +413,16 @@ def hs_solve_robust_resident(i1, i2, cfg, u0=None, v0=None):
     """Whole IRLS solve (derivatives, every refreeze, cfg.iters sweeps) of
     an (H, W) pair or a (B, H, W) stack, from zeros or from (u0, v0): K1
     and the K4 chain on CUDA tensors, the plain version on CPU tensors.
-    Returns (u, v)."""
+    Returns (u, v). Differentiable with respect to the frames and the start
+    (`autodiff`: the VJP of `hs_solve_robust_resident_plain`, as the
+    reference's `_solve_ad`)."""
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
+    if autodiff.needs_grad(i1, i2, u0, v0):
+        return autodiff.KernelEntry.apply(
+            lambda a, b, c, d: hs_solve_robust_resident(a, b, cfg, c, d),
+            lambda a, b, c, d: hs_solve_robust_resident_plain(a, b, cfg, c, d),
+            i1, i2, u0, v0)
     check_frames("hs_solve_robust_resident", i1, i2,
                  *(() if u0 is None else (u0, v0)))
     if i1.device.type == "cpu":

@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from opticalflowhs_tpu_torch.kernels import _build
+from opticalflowhs_tpu_torch.kernels import _build, autodiff
 from opticalflowhs_tpu_torch.kernels.derivatives import (
     batch_dims,
     check_frames,
@@ -351,9 +351,16 @@ def hs_solve_skewed(i1, i2, alpha: float, n: int, variant: str = "hs_cube",
     from (u0, v0), with no second u/v pair: on CUDA tensors K1, then one K7
     launch of all n sweeps (s = `jacobi.sweeps_per_launch(block_sweeps)`
     a block; `band` and `blocks` > 0 force the geometry); the plain version
-    on CPU tensors. Returns (u, v)."""
+    on CPU tensors. Returns (u, v). Differentiable with respect to the
+    frames and the start (`autodiff`: the VJP of `hs_solve_skewed_plain`)."""
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
+    if autodiff.needs_grad(i1, i2, u0, v0):
+        return autodiff.KernelEntry.apply(
+            lambda a, b, c, d: hs_solve_skewed(a, b, alpha, n, variant, c, d,
+                                               block_sweeps, band, blocks),
+            lambda a, b, c, d: hs_solve_skewed_plain(a, b, alpha, n, variant, c, d),
+            i1, i2, u0, v0)
     check_frames("hs_solve_skewed", i1, i2, *(() if u0 is None else (u0, v0)))
     if n < 0:
         raise ValueError("n must be >= 0")

@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from opticalflowhs_tpu_torch.kernels import _build
+from opticalflowhs_tpu_torch.kernels import _build, autodiff
 from opticalflowhs_tpu_torch.kernels.derivatives import batch_dims, check_frames
 from opticalflowhs_tpu_torch.kernels.jacobi import ping_pong
 from opticalflowhs_tpu_torch.ops import stencils
@@ -114,11 +114,12 @@ def launches(n: int, s: int) -> int:
 
 def sor_sweeps_plain(u, v, ex, ey, et, inv_den, n: int, omega: float):
     """n plain 4-color SOR sweeps (ops/stencils.py sor_step) on (H, W) or
-    (B, H, W); the color grids are each image's own."""
+    (B, H, W); the color grids are each image's own. The sweeps run through
+    `stencils.checkpointed_loop`, as the reference's twin."""
     colors = stencils.color_masks(*u.shape[-2:], device=u.device)
-    for _ in range(n):
-        u, v = stencils.sor_step(u, v, ex, ey, et, inv_den, omega, colors)
-    return u, v
+    return stencils.checkpointed_loop(
+        lambda uv: stencils.sor_step(*uv, ex, ey, et, inv_den, omega, colors),
+        (u, v), n)
 
 
 def _stage(a, r0: int, c0: int):
@@ -305,7 +306,12 @@ def sor_sweeps(u, v, ex, ey, et, inv_den, n: int, omega: float,
     tensors ceil(n/s) K3 launches (one chain for the whole stack, two u/v
     pairs ping-ponging, no host synchronisation; s from `sweeps_per_launch`),
     `sor_sweeps_plain` on CPU tensors. Returns (u, v); the inputs are not
-    modified."""
+    modified. Differentiable with respect to all six tensors (`autodiff`:
+    the VJP of `sor_sweeps_plain`, as the reference's `_sor_sweeps_ad`)."""
+    if autodiff.needs_grad(u, v, ex, ey, et, inv_den):
+        return autodiff.KernelEntry.apply(
+            lambda *t: sor_sweeps(*t, n, omega, block_sweeps),
+            lambda *t: sor_sweeps_plain(*t, n, omega), u, v, ex, ey, et, inv_den)
     check_frames("sor_sweeps", u, v, ex, ey, et, inv_den)
     _check_block_sweeps(block_sweeps)
     if n == 0:

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from opticalflowhs_tpu_torch.kernels import _build
+from opticalflowhs_tpu_torch.kernels import _build, autodiff
 from opticalflowhs_tpu_torch.kernels.derivatives import check_frames, hs_derivatives
 from opticalflowhs_tpu_torch.kernels.solve_fused import (
     barrier_count,
@@ -44,6 +44,7 @@ from opticalflowhs_tpu_torch.kernels.sor import (
     k3_tiles,
     sweeps_per_launch,
 )
+from opticalflowhs_tpu_torch.ops import stencils
 
 # The reference's plane class (opticalflowhs_tpu/kernels/sor_planes.py
 # `applicable_shape` :57, float32, no HSFLOW_* override): the plane set and
@@ -101,14 +102,13 @@ def sor_planes_plain(u0, v0, ex, ey, et, inv_den, n: int, omega: float):
     of a plane mixes the two row parities of its column parity, the
     horizontal pass the two column parities, and the true bottom row and
     right column are clamped by a one-row or one-column fix whose plane
-    depends on the parity of h and w. u0/v0 None start from zero. Returns
-    (u, v) at full resolution."""
+    depends on the parity of h and w. u0/v0 None start from zero. The
+    sweeps run through `stencils.checkpointed_loop` on the eight planes of
+    u and v. Returns (u, v) at full resolution."""
     h, w = ex.shape
     h2, w2 = plane_shape(h, w)
     if u0 is None:
         u0, v0 = torch.zeros_like(ex), torch.zeros_like(ex)
-    U = dict(zip(COLORS, planes(u0)))
-    V = dict(zip(COLORS, planes(v0)))
     F = [dict(zip(COLORS, planes(f))) for f in (ex, ey, et, inv_den)]
     h_odd = h % 2 == 1
     w_odd = w % 2 == 1
@@ -150,7 +150,9 @@ def sor_planes_plain(u0, v0, ex, ey, et, inv_den, n: int, omega: float):
         s = lf + 2.0 * t_same + rt
         return s * (1.0 / 12.0) - P[(pi, pj)] * (1.0 / 3.0)
 
-    for _ in range(n):
+    def sweep(state):
+        U = dict(zip(COLORS, state[:4]))
+        V = dict(zip(COLORS, state[4:]))
         for c in COLORS:
             ubar = navg_plane(U, *c)
             vbar = navg_plane(V, *c)
@@ -160,8 +162,10 @@ def sor_planes_plain(u0, v0, ex, ey, et, inv_den, n: int, omega: float):
             vn = vbar - e_y * frac
             U[c] = U[c] + omega * (un - U[c])
             V[c] = V[c] + omega * (vn - V[c])
-    return (interleave(*(U[c] for c in COLORS), h, w),
-            interleave(*(V[c] for c in COLORS), h, w))
+        return tuple(U[c] for c in COLORS) + tuple(V[c] for c in COLORS)
+
+    state = stencils.checkpointed_loop(sweep, planes(u0) + planes(v0), n)
+    return interleave(*state[:4], h, w), interleave(*state[4:], h, w)
 
 
 def k8_schedule_plain(u0, v0, ex, ey, et, inv_den, n: int, omega: float, s: int = 0):
@@ -204,9 +208,14 @@ def sor_planes(u0, v0, ex, ey, et, inv_den, n: int, omega: float,
     by K3's rule `sor.sweeps_per_launch(block_sweeps, ...)`; `blocks` > 0
     forces the grid, and a grid larger than can be resident raises), none
     for n = 0; on CPU tensors `sor_planes_plain`. Returns new (u, v); the
-    inputs are not modified."""
+    inputs are not modified. Differentiable with respect to the start and
+    the fields (`autodiff`: the VJP of `sor_planes_plain`)."""
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
+    if autodiff.needs_grad(u0, v0, ex, ey, et, inv_den):
+        return autodiff.KernelEntry.apply(
+            lambda *t: sor_planes(*t, n, omega, block_sweeps, blocks),
+            lambda *t: sor_planes_plain(*t, n, omega), u0, v0, ex, ey, et, inv_den)
     check_frames("sor_planes", ex, ey, et, inv_den, *(() if u0 is None else (u0, v0)))
     if ex.ndim != 2:
         raise ValueError(f"sor_planes: expected an (H, W) frame, got {tuple(ex.shape)}")
@@ -251,13 +260,15 @@ def hs_solve_sor_planes(i1, i2, alpha: float, n_sweeps: int, omega: float,
     on CPU tensors. Returns (u, v), or None where the reference's kernel
     does: a frame that is not 2-D, n_sweeps < 1, a variant other than
     hs_cube, or a frame outside its plane class (`applicable_shape`). A
-    build or launch failure raises."""
+    build or launch failure raises. Differentiable with respect to the
+    frames and the start, through K1's and K8's entries (`autodiff`)."""
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
     if i1.ndim != 2 or n_sweeps < 1 or variant != "hs_cube":
         return None
     if applicable_shape(*i1.shape) is None:
         return None
-    check_frames("hs_solve_sor_planes", i1, i2, *(() if u0 is None else (u0, v0)))
+    if not autodiff.needs_grad(i1, i2, u0, v0):
+        check_frames("hs_solve_sor_planes", i1, i2, *(() if u0 is None else (u0, v0)))
     ex, ey, et, invd = hs_derivatives(i1, i2, alpha, variant)
     return sor_planes(u0, v0, ex, ey, et, invd, n_sweeps, omega)

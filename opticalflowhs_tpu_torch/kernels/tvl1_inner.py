@@ -26,9 +26,10 @@ import functools
 
 import torch
 
-from opticalflowhs_tpu_torch.kernels import _build
+from opticalflowhs_tpu_torch.kernels import _build, autodiff
 from opticalflowhs_tpu_torch.kernels.derivatives import batch_dims, check_frames
 from opticalflowhs_tpu_torch.kernels.jacobi import k2_tile
+from opticalflowhs_tpu_torch.ops import stencils
 
 # K5's geometry (csrc/tvl1.cu). A block of K5_THREADS threads runs s
 # alternations on a K5_WINDOW_H x K5_WINDOW_W window: warp j owns window row
@@ -67,12 +68,13 @@ def tvl1_inner_plain(u1, u2, rho0, gx, gy, inv_g2, th, iters: int,
     (three-case shrinkage of the L1 data term), the u-step
     u = v + theta*div p and the projected dual ascent
     p <- (p + sigma*grad u) / (1 + sigma*|grad u|), from zero duals.
-    Returns (u1, u2)."""
+    The alternations run through `stencils.checkpointed_loop`, as the
+    reference's twin (`_jnp_twin`). Returns (u1, u2)."""
     # tvl1 routes to this module, so its operators are imported here.
     from opticalflowhs_tpu_torch.tvl1 import _mask_dual, _safe_norm, divergence, grad_forward
 
-    p1x = p1y = p2x = p2y = torch.zeros_like(u1)
-    for _ in range(iters):
+    def body(state):
+        u1, u2, p1x, p1y, p2x, p2y = state
         rho = rho0 + u1 * gx + u2 * gy
         step = torch.where(
             rho < -th,
@@ -89,7 +91,11 @@ def tvl1_inner_plain(u1, u2, rho0, gx, gy, inv_g2, th, iters: int,
         n2 = 1.0 + sigma * _safe_norm(d2x, d2y)
         p1x, p1y = _mask_dual((p1x + sigma * d1x) / n1, (p1y + sigma * d1y) / n1)
         p2x, p2y = _mask_dual((p2x + sigma * d2x) / n2, (p2y + sigma * d2y) / n2)
-    return u1, u2
+        return u1, u2, p1x, p1y, p2x, p2y
+
+    z = torch.zeros_like(u1)
+    state = stencils.checkpointed_loop(body, (u1, u2, z, z, z, z), iters)
+    return state[0], state[1]
 
 
 def k5_launch_schedule_plain(u1, u2, duals, rho0, gx, gy, inv_g2, th, iters: int,
@@ -249,7 +255,14 @@ def tvl1_inner(u1, u2, rho0, gx, gy, inv_g2, th, iters: int, theta: float,
     stream, on CPU tensors `tvl1_inner_plain` runs. The state ping-pongs between two slots
     of buffers of its own, so the caller's tensors are not modified. theta,
     sigma and lam_theta reach the kernel as the float32 values torch rounds
-    them to. Returns (u1, u2)."""
+    them to. Returns (u1, u2). Differentiable with respect to all seven
+    tensors (`autodiff`: the VJP of `tvl1_inner_plain`, as the reference's
+    `_inner_ad`)."""
+    if autodiff.needs_grad(u1, u2, rho0, gx, gy, inv_g2, th):
+        return autodiff.KernelEntry.apply(
+            lambda *t: tvl1_inner(*t, iters, theta, sigma, lam_theta, block_iters),
+            lambda *t: tvl1_inner_plain(*t, iters, theta, sigma, lam_theta),
+            u1, u2, rho0, gx, gy, inv_g2, th)
     check_frames("tvl1_inner", u1, u2, rho0, gx, gy, inv_g2, th)
     if iters < 0:
         raise ValueError(f"tvl1_inner: iters must be >= 0, got {iters}")

@@ -21,7 +21,8 @@ Plain PyTorch on every device, as the reference runs jnp on every backend
 (its solver.py:148-155): a cycle is mostly small coarse grids, and on the
 cuda backend only the derivatives (K1) run as a kernel. Every op acts on
 the last two axes, so a (B, H, W) stack is solved in one pass and equals a
-loop of single solves.
+loop of single solves. Gradients pass through K1's entry
+(kernels/autodiff.py) and the plain cycles, which torch tapes whole.
 """
 
 from __future__ import annotations

@@ -11,7 +11,10 @@ All shifts clamp at the edge (replicate), over the last two axes.
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.utils.checkpoint
 
 # -- replicate-clamped shifts over the last two axes ---------------------------
 
@@ -95,6 +98,51 @@ def jacobi_step(
     vbar = neighbor_avg(v)
     frac = (ex * ubar + ey * vbar + et) * inv_den
     return ubar - ex * frac, vbar - ey * frac
+
+
+def checkpoint_block(fn, state):
+    """fn(*state) -> tuple of tensors, through `torch.utils.checkpoint`
+    (non-reentrant) when grad mode is on: reverse-mode AD then keeps the
+    block's input state and recomputes the block's tape during the backward.
+    The forward is fn itself, the same ops in the same order; fn draws no
+    random numbers, so no RNG state is kept. With grad mode off it is
+    fn(*state)."""
+    if not torch.is_grad_enabled():
+        return tuple(fn(*state))
+    return tuple(torch.utils.checkpoint.checkpoint(
+        fn, *state, use_reentrant=False, preserve_rng_state=False))
+
+
+def checkpointed_loop(step, state, n: int):
+    """Run `n` applications of `step` (a tuple of tensors to a tuple of
+    tensors) on `state`, with sqrt(n) recomputation: the reference's
+    `checkpointed_loop` (opticalflowhs_tpu/ops/stencils.py:268).
+
+    The forward is exactly n applications of `step`, so it equals the plain
+    loop bitwise. The loop runs as n // b blocks of b = isqrt(n) steps, each
+    through `checkpoint_block`, then the remainder plainly; for b < 2 it is
+    the plain loop. Reverse-mode AD then stores the n // b block-boundary
+    states (the tensors `step` closes over once) and recomputes one block's
+    tape at a time in the backward: O(sqrt(n)) fields instead of every
+    step's intermediates."""
+    state = tuple(state)
+    b = math.isqrt(max(n, 0))
+    if b < 2 or not torch.is_grad_enabled():
+        for _ in range(n):
+            state = tuple(step(state))
+        return state
+    n_blocks, rem = divmod(n, b)
+
+    def block(*x):
+        for _ in range(b):
+            x = tuple(step(x))
+        return x
+
+    for _ in range(n_blocks):
+        state = checkpoint_block(block, state)
+    for _ in range(rem):
+        state = tuple(step(state))
+    return state
 
 
 # -- true-edge-masked twins ------------------------------------------------------

@@ -16,6 +16,9 @@ so where a tile's displacement deviates more than R from that mean the
 sample position clamps. Here that is one gather whose integer sample row is
 yy + byt + clamp(dy - byt, -R, R), clamped to the image (likewise for
 columns), which equals the reference in every regime.
+
+Gradients reach the frames through the warps, the resampling and each
+level's `solve_level` (kernels/autodiff.py on the cuda backend).
 """
 
 from __future__ import annotations

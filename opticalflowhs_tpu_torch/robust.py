@@ -19,9 +19,12 @@ the shifts clamp per image.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from opticalflowhs_tpu_torch.ops.stencils import (
+    checkpoint_block,
     shift_down_row,
     shift_left_col,
     shift_right_col,
@@ -79,12 +82,19 @@ def refreeze_blocks(n: int, update_every: int) -> list[int]:
 def robust_sweeps(u, v, ex, ey, et, n: int, cfg):
     """n IRLS sweeps: the weights are refrozen at the start of every block
     of `refreeze_blocks(n, cfg.robust_update_every)`, the first time at the
-    start flow."""
+    start flow. Each block runs through `stencils.checkpoint_block`, as the
+    reference's `jax.checkpoint` per block: the gradient tape holds one
+    state a block, not one a sweep."""
     alpha = float(cfg.alpha)
     eps_d = float(cfg.robust_eps_d)
     eps_s = float(cfg.robust_eps_s)
-    for m in refreeze_blocks(n, cfg.robust_update_every):
+
+    def block(u, v, m):
         wd, ws = charbonnier_weights(u, v, ex, ey, et, eps_d, eps_s)
         for _ in range(m):
             u, v = robust_step(u, v, ex, ey, et, wd, ws, alpha)
+        return u, v
+
+    for m in refreeze_blocks(n, cfg.robust_update_every):
+        u, v = checkpoint_block(functools.partial(block, m=m), (u, v))
     return u, v

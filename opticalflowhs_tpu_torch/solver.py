@@ -24,6 +24,13 @@ Scope: the solvers "jacobi", "sor", "robust" and "multigrid" (iters counts
 V-cycles), float32, with a fixed sweep count or solved to tolerance
 (`sweeps_until`). bf16 is still to be ported (ROADMAP.md queue 1) and
 raises NotImplementedError rather than solving something else.
+
+Gradients: both backends differentiate with respect to the frames and a
+warm start. The plain ops tape through `stencils.checkpointed_loop`
+(O(sqrt(n)) fields); on the cuda backend every kernel entry the routes
+reach (K1-K8, the whole-solve drivers) is a kernel forward and a
+plain-twin backward (kernels/autodiff.py), the reference's `custom_vjp`
+scheme, with the same launches forward and none backward.
 """
 
 from __future__ import annotations
@@ -171,7 +178,10 @@ def sweeps_until(u, v, ex, ey, et, inv_den, cfg: HSConfig,
     queue 3.)
 
     Reading the updates back costs one host synchronisation per check
-    block."""
+    block. The updates are compared detached, so with grad on the flow keeps
+    one graph through the blocks taken: the port differentiates this route,
+    where the reference's `while_loop` refuses reverse mode (ROADMAP.md
+    queue 3)."""
     check_supported(cfg)
     iters = cfg.iters if budget is None else budget
     if cfg.solver == "multigrid":
@@ -188,8 +198,8 @@ def sweeps_until(u, v, ex, ey, et, inv_den, cfg: HSConfig,
         if n_active == 0:
             break
         nu, nv = sweeps(u, v, ex, ey, et, inv_den, b, cfg)
-        d = torch.maximum((nu - u).abs().amax(dim=(-2, -1)),
-                          (nv - v).abs().amax(dim=(-2, -1)))
+        d = torch.maximum((nu - u).detach().abs().amax(dim=(-2, -1)),
+                          (nv - v).detach().abs().amax(dim=(-2, -1)))
         if n_active == active.numel():
             u, v, delta = nu, nv, d
         else:  # freeze the images that have converged
@@ -298,6 +308,7 @@ def solve_level(
     return Flow(*out)
 
 
+@torch.no_grad()
 def tune_omega(i1, i2, cfg: HSConfig = HSConfig(), power_iters: int = 300,
                device=None) -> float:
     """The SOR over-relaxation factor for this problem, as the reference's
@@ -311,7 +322,9 @@ def tune_omega(i1, i2, cfg: HSConfig = HSConfig(), power_iters: int = 300,
     CPU and the card start from the same vectors (torch cannot reproduce
     `jax.random.normal`). On the cuda backend each iteration is one K2
     launch of one sweep and the norms are reductions on the device; the one
-    host synchronisation is the final `float(rho)`."""
+    host synchronisation is the final `float(rho)`. It runs under
+    `torch.no_grad()`: omega is a float, and frames that require grad would
+    otherwise tape all `power_iters` sweeps."""
     i1 = as_frame(i1, device)
     i2 = as_frame(i2, i1.device)
     ex, ey, _, inv_den = precompute(i1, i2, cfg)

@@ -17,6 +17,9 @@ flow; unlike HS there is no residual to add.
 Stacks run as one chain for the whole stack, K5 included. (The reference
 keeps its stacks on its jnp loop, because its manual-DMA kernel has no
 batching rule; K5 has a batch grid and equals the plain loop.)
+
+Gradients reach the frames through the warps and the inner loop: K5's
+entry is a kernel forward and a plain-twin backward (kernels/autodiff.py).
 """
 
 from __future__ import annotations

@@ -16,8 +16,9 @@ sweeps and the K1 + K3 chain at every parity of h and w; multigrid on the
 card (K1, then the plain V-cycles); K9 (shard sweeps keyed to a global
 origin) and K10-K12 (the ring exchange and fused ring solves) on virtual
 meshes of one card, the tiled solver there against the untiled solve, the
-refusals of a mixed mesh and of a grid too large to be resident; the
-gradient guard at every kernel entry; and Lucas-Kanade, the ego-motion fit
+refusals of a mixed mesh and of a grid too large to be resident;
+gradients through every kernel entry (= the plain twin's) and the guard
+of the parts without a scheme; and Lucas-Kanade, the ego-motion fit
 and hs_energy, which launch no kernel, against their CPU runs.
 
 Marked `cuda`: they skip without a card. They import no JAX, so on a
@@ -899,14 +900,15 @@ def test_k6_k7_refusals(dev):
         k7.hs_solve_skewed(i1, i2, 0.5, 9, blocks=grid + 1)
     with pytest.raises(ValueError, match="resident blocks"):
         k7.hs_solve_skewed(i1, i2, 0.5, 9, band=200, blocks=1)  # 10 tiles > 3
-    for solve in (k6.hs_solve_fused, k7.hs_solve_skewed):
-        with pytest.raises(RuntimeError, match="grad"):
-            solve(i1, i2, 0.5, 9, "hs_cube", u0.clone().requires_grad_(), v0)
-        with pytest.raises(RuntimeError, match="grad"):
-            solve(i1, i2, 0.5, 9, "hs_cube", u0, v0.clone().requires_grad_())
     assert (k6.hs_solve_fused.launches, k7.hs_solve_skewed.launches) == before
     # The stream is still usable: no refused launch left an error behind.
     _equal(k6.hs_solve_fused(i1, i2, 0.5, 9), k6.hs_solve_fused_plain(i1, i2, 0.5, 9))
+    # A start that requires grad is no longer refused: it is solved through
+    # the kernel, differentiably (kernels/autodiff.py).
+    for solve in (k6.hs_solve_fused, k7.hs_solve_skewed):
+        out = solve(i1, i2, 0.5, 9, "hs_cube", u0, v0.clone().requires_grad_())
+        assert all(o.grad_fn is not None for o in out)
+        _equal([o.detach() for o in out], k6.hs_solve_fused_plain(i1, i2, 0.5, 9, u0=u0, v0=v0))
 
 
 # -- K8 (the SOR solve on parity planes), multigrid, the gradient guard ---------
@@ -1045,47 +1047,133 @@ def test_multigrid_on_the_card_equals_plain(dev, kw):
     _equal(hs_pyramid(i1[0], i2[0], cfg, pyr), hs_pyramid(i1[0], i2[0], plain, pyr))
 
 
-def _guarded_entries(dev):
-    """(name, the argument given as requiring grad, the call) for every
-    kernel entry: K1-K8, the whole-solve drivers and hs_solve."""
-    i1, i2 = _rand((40, 56), dev, 66)
+# -- gradients: every kernel entry = its plain twin --------------------------------
+#
+# Each entry of the autograd scheme (kernels/autodiff.py: the kernel forward,
+# the plain twin's VJP backward) on CUDA tensors that require grad, against
+# the plain twin on the same tensors: outputs and the gradient of every
+# input bitwise, the forward's launches counted and none in the backward.
+
+_CFG_R = HSConfig(alpha=0.3, iters=5, solver="robust", robust_update_every=2)
+_GRAD_SHAPES = [(40, 56), (3, 37, 61)]
+
+
+def _grad_entries(dev, shape):
+    """{name: (inputs, kernel-route call, plain call)} for every entry of the
+    scheme at `shape`, zero and warm starts; K8's only for a 2-D frame."""
+    i1, i2 = _rand(shape, dev, 66)
+    u, v = _rand(shape, dev, 67, normal=True)
+    f = tuple(k1.derivatives_plain(i1, i2, 0.5))
+    u1, u2, tf, sc = _tvl1_fields(shape, dev, 68)
+    plain_hs = HSConfig(iters=3, backend="torch")
+    out = {
+        "K1": ((i1, i2), lambda a, b: k1.hs_derivatives(a, b, 0.5, zero_sweep=True),
+               lambda a, b: k1.derivatives_plain(a, b, 0.5, zero_sweep=True)),
+        "K2": ((u, v) + f, lambda *t: k2.jacobi_sweeps(*t, 9),
+               lambda *t: k2.jacobi_sweeps_plain(*t, 9)),
+        "K3": ((u, v) + f, lambda *t: k3.sor_sweeps(*t, 5, 1.6),
+               lambda *t: k3.sor_sweeps_plain(*t, 5, 1.6)),
+        "K4 robust_sweeps": ((u, v) + f[:3], lambda *t: k4.robust_sweeps(*t, 5, _CFG_R),
+                             lambda *t: robust.robust_sweeps(*t, 5, _CFG_R)),
+        "K5": ((u1, u2) + tuple(tf), lambda *t: k5.tvl1_inner(*t, 7, *sc),
+               lambda *t: k5.tvl1_inner_plain(*t, 7, *sc)),
+        "hs_solve": ((i1[0], i2[0]) if len(shape) == 3 else (i1, i2),
+                     lambda a, b: hs_solve(a, b, HSConfig(iters=3)),
+                     lambda a, b: hs_solve(a, b, plain_hs)),
+        "hs_solve multigrid": (
+            (i1[0], i2[0]) if len(shape) == 3 else (i1, i2),
+            lambda a, b: hs_solve(a, b, HSConfig(iters=1, solver="multigrid")),
+            lambda a, b: hs_solve(a, b, HSConfig(iters=1, solver="multigrid",
+                                                 backend="torch"))),
+    }
+    solves = {
+        "K1 + K2": (lambda a, b, c, d: sr.hs_solve_resident(a, b, 0.5, 9, u0=c, v0=d),
+                    lambda a, b, c, d: sr.hs_solve_resident_plain(a, b, 0.5, 9, u0=c, v0=d)),
+        "K1 + K3": (lambda a, b, c, d: sr.hs_solve_resident_sor(a, b, 0.5, 5, 1.6, u0=c, v0=d),
+                    lambda a, b, c, d: sr.hs_solve_resident_sor_plain(a, b, 0.5, 5, 1.6,
+                                                                      u0=c, v0=d)),
+        "K1 + K4": (lambda a, b, c, d: k4.hs_solve_robust_resident(a, b, _CFG_R, c, d),
+                    lambda a, b, c, d: k4.hs_solve_robust_resident_plain(a, b, _CFG_R, c, d)),
+        "K1 + K6": (lambda a, b, c, d: k6.hs_solve_fused(a, b, 0.5, 9, u0=c, v0=d),
+                    lambda a, b, c, d: k6.hs_solve_fused_plain(a, b, 0.5, 9, u0=c, v0=d)),
+        "K1 + K7": (lambda a, b, c, d: k7.hs_solve_skewed(a, b, 0.5, 9, u0=c, v0=d),
+                    lambda a, b, c, d: k7.hs_solve_skewed_plain(a, b, 0.5, 9, u0=c, v0=d)),
+    }
+    if len(shape) == 2:
+        out["K8"] = ((u, v) + f, lambda *t: k8.sor_planes(*t, 5, 1.6),
+                     lambda *t: k8.sor_planes_plain(*t, 5, 1.6))
+        solves["K1 + K8"] = (
+            lambda a, b, c, d: k8.hs_solve_sor_planes(a, b, 0.5, 5, 1.6, u0=c, v0=d),
+            lambda a, b, c, d: k8.sor_planes_plain(c, d, *k1.derivatives_plain(a, b, 0.5),
+                                                   5, 1.6))
+    for name, (call, twin) in solves.items():
+        out[name + " zero"] = ((i1, i2), lambda a, b, call=call: call(a, b, None, None),
+                               lambda a, b, twin=twin: twin(a, b, None, None))
+        out[name + " warm"] = ((i1, i2, u, v), call, twin)
+    return out
+
+
+_GRAD_NAMES = ["K1", "K2", "K3", "K4 robust_sweeps", "K5", "hs_solve", "hs_solve multigrid"] + [
+    f"K1 + K{k} {start}" for k in (2, 3, 4, 6, 7) for start in ("zero", "warm")]
+_GRAD_CASES = [(s, n) for s in _GRAD_SHAPES for n in _GRAD_NAMES] + [
+    ((40, 56), n) for n in ("K8", "K1 + K8 zero", "K1 + K8 warm")]
+
+
+def _weighted_grads(fn, inputs):
+    outs = fn(*inputs)
+    gen = torch.Generator().manual_seed(9)
+    loss = sum((o * torch.randn(o.shape, generator=gen).to(o.device)).sum() for o in outs)
+    wrt = [t for t in inputs if t.requires_grad]
+    return outs, torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True)
+
+
+@pytest.mark.parametrize("shape,name", _GRAD_CASES)
+@pytest.mark.parametrize("wrt", ["all", "first"])
+def test_kernel_entries_differentiate_as_their_plain_twins(dev, shape, name, wrt):
+    inputs, call, twin = _grad_entries(dev, shape)[name]
+    inputs = [t.clone().requires_grad_(wrt == "all" or i == 0) for i, t in enumerate(inputs)]
+    counters = counted_wrappers().values()
+    for c in counters:
+        c.launches = 0
+    outs, grads = _weighted_grads(call, inputs)
+    fwd = sum(c.launches for c in counters)
+    assert fwd > 0 and all(o.grad_fn is not None for o in outs), name
+    want_outs, want = _weighted_grads(twin, inputs)
+    assert sum(c.launches for c in counters) == fwd  # the backward launches none
+    _equal([o.detach() for o in outs], [o.detach() for o in want_outs])
+    _equal(grads, want)
+
+
+@pytest.mark.parametrize("part", ["freeze", "sweeps"])
+def test_k4_parts_refuse_frames_that_require_grad(dev, part):
     u, v = _rand((40, 56), dev, 67, normal=True)
-    fields = k1.derivatives_plain(i1, i2, 0.5)
-    ex, ey, et, _ = fields
+    ex, ey, et, _ = k1.derivatives_plain(*_rand((40, 56), dev, 66), 0.5)
     wd, ws = robust.charbonnier_weights(u, v, ex, ey, et, 0.05, 0.05)
-    u1, u2, tv_fields, scalars = _tvl1_fields((40, 56), dev, 68)
-    cfg_r = HSConfig(alpha=0.3, iters=5, solver="robust")
-    return [
-        ("K1", i1, lambda a: k1.hs_derivatives(a, i2, 0.5)),
-        ("K1 (second frame)", i2, lambda a: k1.hs_derivatives(i1, a, 0.5)),
-        ("K2", u, lambda a: k2.jacobi_sweeps(a, v, *fields, 3)),
-        ("K1 + K2", i1, lambda a: sr.hs_solve_resident(a, i2, 0.5, 3)),
-        ("K3", u, lambda a: k3.sor_sweeps(a, v, *fields, 3, 1.6)),
-        ("K1 + K3", i1, lambda a: sr.hs_solve_resident_sor(a, i2, 0.5, 3, 1.6)),
-        ("K4 freeze", u, lambda a: k4.freeze_weights(a, v, ex, ey, et, 0.05, 0.05)),
-        ("K4 sweeps", u, lambda a: k4.frozen_sweeps(a, v, ex, ey, et, wd, ws, 0.3, 3)),
-        ("K1 + K4", i1, lambda a: k4.hs_solve_robust_resident(a, i2, cfg_r)),
-        ("K5", u1, lambda a: k5.tvl1_inner(a, u2, *tv_fields, 3, *scalars)),
-        ("K1 + K6", i1, lambda a: k6.hs_solve_fused(a, i2, 0.5, 3)),
-        ("K1 + K7", i1, lambda a: k7.hs_solve_skewed(a, i2, 0.5, 3)),
-        ("K8", u, lambda a: k8.sor_planes(a, v, *fields, 3, 1.6)),
-        ("K1 + K8", i1, lambda a: k8.hs_solve_sor_planes(a, i2, 0.5, 3, 1.6)),
-        ("hs_solve", i1, lambda a: hs_solve(a, i2, HSConfig(iters=3))),
-        ("hs_solve multigrid", i1,
-         lambda a: hs_solve(a, i2, HSConfig(iters=1, solver="multigrid"))),
-    ]
-
-
-@pytest.mark.parametrize("k", range(16))
-def test_kernel_entries_refuse_frames_that_require_grad(dev, k):
-    name, base, call = _guarded_entries(dev)[k]
-    a = base.clone().requires_grad_()
-    with pytest.raises(RuntimeError, match="no_grad"):
+    call = ((lambda a: k4.freeze_weights(a, v, ex, ey, et, 0.05, 0.05)) if part == "freeze"
+            else (lambda a: k4.frozen_sweeps(a, v, ex, ey, et, wd, ws, 0.3, 3)))
+    a = u.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="does not differentiate.*no_grad"):
         call(a)
     with torch.no_grad():
         out = call(a)
-    assert all(not t.requires_grad for t in out), name
-    call(base)  # grad mode on, nothing requires grad: runs
+    assert all(not t.requires_grad for t in out)
+
+
+def test_kernel_entries_refuse_forward_mode(dev):
+    import torch.autograd.forward_ad as fwad
+    i1, i2 = _rand((40, 56), dev, 66)
+    f = k1.derivatives_plain(i1, i2, 0.5)
+    with fwad.dual_level():
+        d1 = fwad.make_dual(i1, torch.ones_like(i1))
+        for call in (lambda: k1.hs_derivatives(d1, i2, 0.5),
+                     lambda: sr.hs_solve_resident(d1, i2, 0.5, 3),
+                     lambda: k2.jacobi_sweeps(d1, i2, *f, 3),
+                     lambda: hs_solve(d1, i2, HSConfig(iters=3))):
+            with pytest.raises(NotImplementedError, match="jvp"):
+                call()
+        # The plain backend carries the tangent.
+        flow = hs_solve(d1, i2, HSConfig(iters=3, backend="torch"))
+        assert fwad.unpack_dual(flow.u).tangent is not None
 
 
 # -- the tiled solver: K9-K12 on virtual meshes -------------------------------
@@ -1478,7 +1566,7 @@ def _dist_guarded(dev):
 def test_dist_kernel_entries_refuse_frames_that_require_grad(dev, k):
     base, call = _dist_guarded(dev)[k]
     a = base.clone().requires_grad_()
-    with pytest.raises(RuntimeError, match="no_grad"):
+    with pytest.raises(RuntimeError, match="does not differentiate.*no_grad"):
         call(a)
     with torch.no_grad():
         call(a)
