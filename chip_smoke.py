@@ -99,7 +99,7 @@ card's name and power limit as nvidia-smi gives them, and a JSON object
 {"kernels": [...]} (per kernel: launches on the batched path for K1 and
 K2, on the SOR and robust path for K3 and K4, on the TV-L1 path for K5,
 on phase 13's path for K6 and K7, on phase 14's for K8, on phase 15's for
-K9-K12, max |diff| against
+K9-K12, on phase 19's for the bfloat16 builds, max |diff| against
 the plain version, ms per launch for the kernel and the plain version at
 8 x 1088x1920 (for K5 per call of 100 alternations, with its 1088x1920,
 544x960 and 272x480 numbers; for K6, K7 and K8 per
@@ -196,6 +196,24 @@ OMEGA = 1.71  # the SOR workloads' omega, as tools/hw_sor_resident_ab.py
 # K1 without the zero-start sweep (the SOR solves' derivatives): 31 float32
 # operations a pixel.
 K1_FIELDS_FLOPS_PER_PX = 31
+# bfloat16 builds (phase 19): the same float32 arithmetic plus one rounding
+# a stored array: K1 with its first sweep rounds 6 arrays, a K2 sweep u and
+# v (29 a pixel a sweep in place of 27); every array 2 bytes.
+K1_BF16_FLOPS_PER_PX = K1_FLOPS_PER_PX + 6
+K2_BF16_FLOPS_PER_PX_SWEEP = K2_FLOPS_PER_PX_SWEEP + 2
+BF16_REPLACES = {
+    "K1": ["opticalflowhs_tpu/kernels/derivatives.py:40",
+           "opticalflowhs_tpu/kernels/solve_resident.py:161",
+           "opticalflowhs_tpu/kernels/solve_resident.py:394"],
+    "K2": ["opticalflowhs_tpu/kernels/jacobi.py:184", "opticalflowhs_tpu/kernels/jacobi.py:241",
+           "opticalflowhs_tpu/kernels/jacobi.py:375", "opticalflowhs_tpu/kernels/jacobi.py:631",
+           "opticalflowhs_tpu/kernels/solve_resident.py:161",
+           "opticalflowhs_tpu/kernels/solve_resident.py:394"],
+    "K6": ["opticalflowhs_tpu/kernels/solve_fused.py:111",
+           "opticalflowhs_tpu/kernels/solve_fused.py:375"],
+    "K7": ["opticalflowhs_tpu/kernels/solve_skewed.py:219",
+           "opticalflowhs_tpu/kernels/solve_skewed.py:229"],
+}
 # NVLink between the cards of one host: 900 GB/s all to all, 450 each way.
 NVLINK_BYTES_PER_S = 450e9
 # Frames at the edges of K2's geometry (48 x 128 windows, warps spanning 128
@@ -294,23 +312,35 @@ def median_ms(fn, runs: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, match: str, reps: int = 20) -> tuple[float, int]:
-    """Device time per call of the kernels whose name holds `match`, from
-    torch.profiler over `reps` calls after a warm-up, and how many such
-    kernel runs the profiler saw (0: it saw none, and the time means
-    nothing)."""
+def device_ms(fn, match: str, reps: int = 20, tries: int = 3) -> tuple[float, int]:
+    """Device time per call of the kernels whose name `match` (a regular
+    expression) is found in, from torch.profiler over `reps` calls after a
+    warm-up, and how many such kernel runs the profiler saw (0: it saw
+    none, and the time means nothing). The profiler names a kernel by its
+    demangled or its mangled symbol, so `match` must find either. It tries
+    up to `tries` times: a profiler run may return no device activity, and
+    each empty run is reported on stderr with the device names it saw."""
+    import re
+
     from torch.profiler import ProfilerActivity
+    pattern = re.compile(match)
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key]
-    return (sum(float(e.self_device_time_total) for e in hits) / 1e3 / reps,
-            sum(e.count for e in hits))
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        cuda = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        hits = [e for e in cuda if pattern.search(e.key)]
+        if hits:
+            return (sum(float(e.self_device_time_total) for e in hits) / 1e3 / reps,
+                    sum(e.count for e in hits))
+        print(f"device_ms: the profiler saw no kernel matching {match!r} in {reps} calls; "
+              f"device names {sorted(e.key[:80] for e in cuda)[:8]}", file=sys.stderr)
+    return 0.0, 0
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -2512,6 +2542,321 @@ def gradient_path(dev, frames, s1, s2, c2a, c2b, p1, p2) -> None:
     print(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def bf16_path(dev, frames, stack, s1, s2, c2a, c2b, p1, p2, vid) -> list:
+    """Phase 19: the bfloat16 builds of K1, K2, K6 and K7 (bfloat16 storage,
+    float32 arithmetic, u and v rounded every sweep) against their plain
+    bfloat16 versions at phases 2, 3 and 13's shapes, max |diff| 0.0; then
+    the Jacobi path in bfloat16 through the entry points, counted: C1, C2,
+    C3, C4's two streams, L1 (K7) and L2 (K6), each = the plain route
+    bitwise with the float32 plan's launches, timed beside float32 in the
+    same run (and L1/L2's peak memory); G1 in bfloat16 = the plain route
+    bitwise. Returns the bfloat16 rows of the kernels line."""
+    from opticalflowhs_tpu_torch import (
+        HSConfig,
+        PyramidConfig,
+        flow_stream,
+        flow_stream_warm,
+        hs_pyramid,
+        hs_solve,
+        hs_solve_batched,
+    )
+    from opticalflowhs_tpu_torch.kernels import derivatives as k1
+    from opticalflowhs_tpu_torch.kernels import jacobi as k2
+    from opticalflowhs_tpu_torch.kernels import solve_fused as k6
+    from opticalflowhs_tpu_torch.kernels import solve_resident as sr
+    from opticalflowhs_tpu_torch.kernels import solve_skewed as k7
+    from opticalflowhs_tpu_torch.metrics import epe, interior
+
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    names = ("hs_derivatives_bf16", "hs_jacobi_sweeps_bf16", "hs_solve_fused_bf16",
+             "hs_solve_skewed_bf16")
+    err = dict.fromkeys(names, 0.0)
+
+    def exact(name, got, want, what):
+        for g in got:
+            require(g.dtype == bf, f"{what}: dtype {g.dtype}")
+        d = max(max_diff(g.float(), w.float()) for g, w in zip(got, want))
+        err[name] = max(err[name], d)
+        require(d == 0.0, f"{what}: max|diff| {d} (bfloat16 builds equal plain bitwise)")
+
+    def b16(*a):
+        return tuple(x.to(bf) for x in a)
+
+    # -- the four builds against their plain versions ------------------------------
+    for h, w in ((67, 93), (1080, 1920), (1088, 1920)):
+        for b in ((1, 3) if h != 1080 else (1,)):
+            i1, i2 = b16(*(a.squeeze(0) for a in stack(b, h, w, seed=190)))
+            for variant in ("hs_cube", "central"):
+                for zero_sweep in (False, True):
+                    exact(names[0], k1.hs_derivatives(i1, i2, 0.5, variant, zero_sweep),
+                          k1.derivatives_plain(i1, i2, 0.5, variant, zero_sweep),
+                          f"K1 bf16 B={b} {h}x{w} {variant} {zero_sweep}")
+    print(f"phase 19 K1 bf16 67x93, 1080x1920, 1088x1920, B 1 and 3, both variants, with "
+          f"and without the first sweep: max|diff| vs plain {err[names[0]]:.3g}")
+    for h, w in ((67, 93), (1088, 1920)):
+        i1, i2 = b16(*frames(h, w, seed=191))
+        fields = k1.derivatives_plain(i1, i2, 0.5)
+        u0, v0 = b16(*(a.squeeze(0) for a in stack(1, h, w, seed=192, normal=True)))
+        for n in (1, 7, 100):
+            want = k2.jacobi_sweeps_plain(u0, v0, *fields, n)
+            for s in (1, 4, 0):
+                before = k2.jacobi_sweeps.launches
+                exact(names[1], k2.jacobi_sweeps(u0, v0, *fields, n, block_sweeps=s), want,
+                      f"K2 bf16 {h}x{w} n={n} s={s}")
+                require(k2.jacobi_sweeps.launches - before == -(-n // k2.sweeps_per_launch(s)),
+                        "K2 bf16 launches = the float32 plan's")
+        for init in ((u0, v0), (None, None)):
+            exact(names[1], sr.hs_solve_resident(i1, i2, 0.5, 23, "hs_cube", *init),
+                  sr.hs_solve_resident_plain(i1, i2, 0.5, 23, "hs_cube", *init),
+                  f"K1 + K2 bf16 {h}x{w} n=23")
+    for shape in K2_EDGE_SHAPES:
+        for b in (1, 3):
+            rng = np.random.default_rng(193)
+            full = shape if b == 1 else (b,) + shape
+            i1, i2, u0, v0 = (torch.from_numpy(rng.uniform(-1, 1, full).astype(np.float32))
+                              .to(dev).to(bf) for _ in range(4))
+            fields = k1.derivatives_plain(i1, i2, 0.5)
+            for s in range(1, 13):
+                n = 2 * k2.sweeps_per_launch(s) + 1
+                exact(names[1], k2.jacobi_sweeps(u0, v0, *fields, n, block_sweeps=s),
+                      k2.jacobi_sweeps_plain(u0, v0, *fields, n), f"K2 bf16 edge {full} s={s}")
+    print(f"phase 19 K2 bf16 67x93 and 1088x1920 n 1, 7, 100 at s 1, 4, auto, the K1 + K2 "
+          f"driver n=23 zero and warm, and the edge shapes {K2_EDGE_SHAPES} B 1 and 3 s 1-12: "
+          f"max|diff| vs plain {err[names[1]]:.3g}; launches = the float32 plan's")
+    for b, h, w in ((1, 67, 93), (3, 67, 93), (1, 131, 130), (3, 131, 130), (3, 70, 248),
+                    (1, 1088, 1920)):
+        small = h < 1000
+        variant = "hs_cube" if small else "central"
+        i1, i2 = b16(*(a.squeeze(0) for a in stack(b, h, w, seed=194)))
+        u0, v0 = b16(*(a.squeeze(0) for a in stack(b, h, w, seed=195, normal=True)))
+        for n in (7, 9, 100):
+            for init in ((None, None), (u0, v0)):
+                want = k6.hs_solve_fused_plain(i1, i2, 0.5, n, variant, *init)
+                what = f"{b}x{h}x{w} {variant} n={n} {'zero' if init[0] is None else 'warm'}"
+                exact(names[2], k6.hs_solve_fused(i1, i2, 0.5, n, variant, *init,
+                                                  **(dict(blocks=2) if small else {})),
+                      want, f"K6 bf16 {what}")
+                exact(names[3], k7.hs_solve_skewed(i1, i2, 0.5, n, variant, *init,
+                                                   **(dict(band=16) if small else {})),
+                      want, f"K7 bf16 {what}")
+    geo = {"K2": k2.k2_geometry(dev, 8, dtype=bf), "K6": k6.k6_geometry(dev, 8, bf),
+           "K7 4K": k7.k7_geometry(dev, 2160, 3840, 8, dtype=bf),
+           "K7 8K": k7.k7_geometry(dev, 4320, 7680, 8, dtype=bf)}
+    for tag, g in geo.items():
+        require(g["spill_bytes"] == 0 and g["blocks_per_sm"] >= 1, f"{tag} bf16 geometry {g}")
+    print(f"phase 19 K6/K7 bf16 B 1 and 3 at 67x93, 131x130 and 70x248 (K6 on 2 blocks, K7 in "
+          f"16-row bands), 1088x1920 central, n 7, 9, 100, zero and warm: max|diff| vs plain "
+          f"K6 {err[names[2]]:.3g} K7 {err[names[3]]:.3g}; geometry at s 8: {geo}")
+
+    # -- the Jacobi path in bfloat16, counted -----------------------------------------
+    def in_bf16(c):
+        return dataclasses.replace(c, dtype="bfloat16")
+
+    def plain(c):
+        return dataclasses.replace(c, backend="torch")
+
+    cfg1 = HSConfig(alpha=0.5, iters=100)
+    cfg2 = cell_config("c2_video_batch.json")
+    cfg3 = HSConfig(alpha=1.0, iters=100)
+    cfg4 = cell_config("c4_hd_streaming.json")
+    cfg4w = dataclasses.replace(cfg4, iters=25)
+    pyr3 = PyramidConfig(levels=3)
+    q1, q2 = frames(2160, 3840, seed=0)
+    e1, e2 = frames(4320, 7680, seed=0)
+    counters = {"K1": k1.hs_derivatives, "K2": k2.jacobi_sweeps,
+                "K6": k6.hs_solve_fused, "K7": k7.hs_solve_skewed}
+    per_call = {}
+
+    def counted(tag, fn):
+        before = {n: c.launches for n, c in counters.items()}
+        out = fn()
+        torch.cuda.synchronize()
+        per_call[tag] = tuple(c.launches - before[n] for n, c in counters.items())
+        return out
+
+    runs = {
+        "C1": lambda c=cfg1: hs_solve(s1, s2, c),
+        "C2": lambda c=cfg2: hs_solve_batched(c2a, c2b, c),
+        "C3": lambda c=cfg3: hs_pyramid(p1, p2, c, pyr3),
+        "C4": lambda c=cfg4: list(flow_stream(vid, c, chunk=8)),
+        "C4 warm": lambda c=cfg4w: list(flow_stream_warm(vid, c, chunk=8, warp_prior=True)),
+        "L1": lambda c=cfg1: hs_solve(q1, q2, c),
+        "L2": lambda c=cfg1: hs_solve(e1, e2, c),
+    }
+    cfgs = {"C1": cfg1, "C2": cfg2, "C3": cfg3, "C4": cfg4, "C4 warm": cfg4w, "L1": cfg1,
+            "L2": cfg1}
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    out16 = {tag: counted(tag, lambda fn=fn, tag=tag: fn(in_bf16(cfgs[tag])))
+             for tag, fn in runs.items()}
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"phase 19 path launches (bfloat16: C1, C2, C3, C4, C4 warm, L1, L2): {launches}; "
+          f"per call (K1, K2, K6, K7) {per_call}")
+    require(all(v > 0 for v in launches.values()), f"a bf16 build never ran: {launches}")
+    counts16 = dict(per_call)
+    out32 = {tag: counted(tag, lambda fn=fn, tag=tag: fn(cfgs[tag])) for tag, fn in runs.items()}
+    require(counts16 == per_call, f"bf16 launches {counts16} != float32's {per_call}")
+
+    def flows(x):
+        return x if isinstance(x, list) else [x]
+
+    for tag, got in out16.items():
+        for f in flows(got):
+            for a in f:
+                require(a.dtype == bf and bool(torch.isfinite(a.float()).all()),
+                        f"{tag} bf16 output dtype/finite")
+        want = flows(runs[tag](plain(in_bf16(cfgs[tag]))))
+        for g, w in zip(flows(got), want):
+            require(bool(torch.equal(g.u, w.u) and torch.equal(g.v, w.v)),
+                    f"{tag} bf16 differs from the plain route")
+    require(all(bool(torch.equal(a.u, b.u)) for a, b in
+                zip(out16["C4"], [hs_solve_batched(torch.from_numpy(vid[8 * k:8 * k + 8]).to(dev),
+                                                   torch.from_numpy(vid[8 * k + 1:8 * k + 9]).to(dev),
+                                                   in_bf16(cfg4)) for k in range(2)])),
+            "C4 bf16 chunks differ from hs_solve_batched")
+
+    def mean_abs(a, b):
+        """Interior (8 px in) mean |a - b| over u and v, in px."""
+        return float(sum((x.float() - y.float()).abs()[..., 8:-8, 8:-8].mean()
+                         for x, y in zip(a, b)) / 2)
+
+    ms = {}
+    for tag in ("C1", "C2", "C3", "L1", "L2"):
+        reps = 20 if tag in ("C1", "C3", "L1") else 10
+        ms[tag] = (median_ms(lambda: runs[tag](in_bf16(cfgs[tag])), runs=reps),
+                   median_ms(lambda: runs[tag](cfgs[tag]), runs=reps))
+    for tag in ("C4", "C4 warm"):
+        ms[tag] = (median_ms(lambda: runs[tag](in_bf16(cfgs[tag])), runs=5),
+                   median_ms(lambda: runs[tag](cfgs[tag]), runs=5))
+    peak = {tag: (peak_bytes(lambda: runs[tag](in_bf16(cfgs[tag]))) / 2**20,
+                  peak_bytes(lambda: runs[tag](cfgs[tag])) / 2**20) for tag in ("L1", "L2")}
+    gt3 = np.broadcast_to(np.array([3.0, 1.5], np.float32), (1080, 1920, 2))
+    e3 = [epe(interior(np.stack([f.u.float().cpu().numpy(), f.v.float().cpu().numpy()], -1), 16),
+              interior(gt3, 16)) for f in (out16["C3"], out32["C3"])]
+    for tag in ("C1", "C2", "C3", "L1", "L2"):
+        print(f"phase 19 {tag} bf16: = the plain route bitwise; launches {per_call[tag]} "
+              f"(= float32's); bf16 {ms[tag][0]:.3f} ms, float32 {ms[tag][1]:.3f} ms "
+              f"(median of {20 if tag in ('C1', 'C3', 'L1') else 10}); interior mean |bf16 - "
+              f"float32| {mean_abs(out16[tag], out32[tag]):.5f} px"
+              + (f"; peak {peak[tag][0]:.1f} MiB, float32 {peak[tag][1]:.1f} MiB"
+                 if tag in peak else "")
+              + (f"; interior EPE bf16 {e3[0]:.6f}, float32 {e3[1]:.6f}" if tag == "C3" else ""))
+    for tag in ("C4", "C4 warm"):
+        print(f"phase 19 {tag} bf16 (16 pairs): = the plain route bitwise, chunks = "
+              f"hs_solve_batched; bf16 {ms[tag][0]:.3f} ms, float32 {ms[tag][1]:.3f} ms "
+              f"(median of 5); interior mean |bf16 - float32| of the last pair "
+              f"{mean_abs(out16[tag][-1], out32[tag][-1]):.5f} px")
+    require(peak["L1"][0] < peak["L1"][1], "L1 bf16 peak memory not below float32's")
+
+    # -- G1 in bfloat16: C1's gradient = the plain route bitwise ----------------------
+    a, b = s1.clone().requires_grad_(), s2.clone().requires_grad_()
+    for c in counters.values():
+        c.launches = 0
+
+    def g1(cfg):
+        f = hs_solve(a, b, cfg)
+        loss = torch.mean(f.u.float() ** 2) + torch.mean(f.v.float() ** 2)
+        return f, torch.autograd.grad(loss, (a, b))
+
+    f_g, grads = g1(in_bf16(cfg1))
+    g_launches = tuple(c.launches for c in counters.values())
+    f_p, grads_p = g1(plain(in_bf16(cfg1)))
+    require(all(bool(torch.equal(x, y)) for x, y in zip(list(f_g) + list(grads),
+                                                         list(f_p) + list(grads_p))),
+            "G1 bf16 gradient differs from the plain route")
+    require(g_launches == (1, 13, 0, 0), f"G1 bf16 launches {g_launches}")
+    ms_g1 = median_ms(lambda: g1(in_bf16(cfg1)), runs=3)
+    print(f"phase 19 G1 bf16 hs_solve 1088x1920 a=0.5 i100, d(mean u^2 + mean v^2)/d frames: "
+          f"= the plain route bitwise; launches {g_launches} forward; {ms_g1:.1f} ms "
+          f"(median of 3)")
+    del a, b, grads, grads_p, f_g, f_p
+
+    # -- per-kernel times, bf16 beside float32 ----------------------------------------
+    def k1_call(x, y):
+        return lambda: k1.hs_derivatives(x, y, 0.5, zero_sweep=True)
+
+    def k2_call(x, y):
+        f = k1.derivatives_plain(x, y, 0.5)
+        zu, zv = torch.zeros_like(x), torch.zeros_like(x)
+        uo, vo = torch.empty_like(x), torch.empty_like(x)
+        return (lambda: k2.launch_sweeps(zu, zv, *f, uo, vo, 8),
+                lambda: k2.jacobi_sweeps_plain(zu, zv, *f, 8))
+
+    def per_launch(fn, match):
+        """Ms of one launch and what measured it: the profiler's device
+        time over the kernel runs it saw (one a call), by their count; CUDA
+        events around the calls where the profiler saw none."""
+        total, runs = device_ms(fn, match)
+        if runs == 0:
+            return event_ms(fn), "events"
+        return total * 20 / runs, "device"
+
+    # The float32 kernels' names are prefixes of the bf16 ones', and K2's
+    # float32 kernel is jacobi_kernel<false> (mangled ...ILb0E...), not the
+    # shard variant <true>.
+    t = {}
+    for tag, (x, y) in (("1088x1920", (s1, s2)), ("8x1088x1920", (c2a, c2b))):
+        for dt, k1m, k2m in ((bf, r"derivatives_kernel_bf16", r"jacobi_kernel_bf16"),
+                             (torch.float32, r"derivatives_kernel(?!_bf16)",
+                              r"jacobi_kernel(<false>|ILb0E)")):
+            xx, yy = x.to(dt), y.to(dt)
+            k2_fn, k2_plain = k2_call(xx, yy)
+            t[tag, dt, "K1"] = (*per_launch(k1_call(xx, yy), k1m), event_ms(k1_call(xx, yy)),
+                                event_ms(lambda: k1.derivatives_plain(xx, yy, 0.5, zero_sweep=True),
+                                         reps=5))
+            t[tag, dt, "K2"] = (*per_launch(k2_fn, k2m), event_ms(k2_fn),
+                                event_ms(k2_plain, reps=5))
+            del xx, yy, k2_fn, k2_plain
+    for (tag, dt, k), (dev_ms, by, ev_ms, pl_ms) in t.items():
+        print(f"phase 19 {k} {'bf16' if dt == bf else 'float32'} {tag}: {by} {dev_ms:.4f} ms, "
+              f"events {ev_ms:.4f} ms, plain {pl_ms:.4f} ms"
+              + (" (a launch of 8 sweeps)" if k == "K2" else " (with the first sweep)"))
+    print(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+
+    def bound2(arrays, flops, px):
+        return bound_ms(arrays * 2 * px, flops * px)
+
+    px1, px8 = s1.numel(), c2a.numel()
+    rows = []
+    for name, k, per_px, arrays in ((names[0], "K1", K1_BF16_FLOPS_PER_PX, 8),
+                                    (names[1], "K2", 8 * K2_BF16_FLOPS_PER_PX_SWEEP, 8)):
+        b8, by8 = bound2(arrays, per_px, px8)
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"opticalflowhs_tpu_torch/csrc/"
+                               f"{'derivatives' if k == 'K1' else 'jacobi'}.cu",
+                     "replaces": BF16_REPLACES[k],
+                     "launches": launches[k], "max_abs_err": err[name],
+                     "ms": t["8x1088x1920", bf, k][0], "ms_by": t["8x1088x1920", bf, k][1],
+                     "event_ms": t["8x1088x1920", bf, k][2],
+                     "plain_ms": t["8x1088x1920", bf, k][3],
+                     "float32_ms": t["8x1088x1920", torch.float32, k][0],
+                     "float32_ms_by": t["8x1088x1920", torch.float32, k][1],
+                     "ms_1088x1920": t["1088x1920", bf, k][0],
+                     "event_ms_1088x1920": t["1088x1920", bf, k][2],
+                     "plain_ms_1088x1920": t["1088x1920", bf, k][3],
+                     "float32_ms_1088x1920": t["1088x1920", torch.float32, k][0],
+                     "bound_ms_1088x1920": bound2(arrays, per_px, px1)[0],
+                     "bound_ms": b8, "bound_by": by8, "library_ms": None,
+                     **({"geometry": geo["K2"]} if k == "K2" else {})})
+    for name, k, tag in ((names[2], "K6", "L2"), (names[3], "K7", "L1")):
+        px = (e1 if tag == "L2" else q1).numel()
+        b, by = bound_ms(SOLVE_ARRAYS * 2 * px,
+                         (K1_BF16_FLOPS_PER_PX + 99 * K2_BF16_FLOPS_PER_PX_SWEEP) * px)
+        plain_ms = median_ms(lambda: runs[tag](plain(in_bf16(cfgs[tag]))), runs=3)
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"opticalflowhs_tpu_torch/csrc/"
+                               f"{'solve_fused' if k == 'K6' else 'solve_skewed'}.cu",
+                     "replaces": BF16_REPLACES[k], "launches": launches[k],
+                     "max_abs_err": err[name], "ms": ms[tag][0], "plain_ms": plain_ms,
+                     "float32_ms": ms[tag][1], "peak_mib": peak[tag][0],
+                     "float32_peak_mib": peak[tag][1], "shape": list((e1 if tag == "L2" else q1).shape),
+                     "bound_ms": b, "bound_by": by, "library_ms": None,
+                     "geometry": geo["K6" if k == "K6" else "K7 4K"]})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2864,6 +3209,9 @@ def main() -> int:
     # -- phase 18: gradients through the kernel entries -----------------------------------
     gradient_path(dev, frames, s1, s2, c2a, c2b, p1, p2)
 
+    # -- phase 19: bfloat16 on the Jacobi path (K1, K2, K6, K7's bfloat16 builds) ---------
+    bf16_rows = bf16_path(dev, frames, stack, s1, s2, c2a, c2b, p1, p2, vid)
+
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2
     fields = k1.derivatives_plain(i1, i2, 0.5)
@@ -3025,7 +3373,7 @@ def main() -> int:
          "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name in source
-    ] + [k5_row] + k67_rows + [k8_row] + k9_12_rows
+    ] + [k5_row] + k67_rows + [k8_row] + k9_12_rows + bf16_rows
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

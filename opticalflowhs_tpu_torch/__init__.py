@@ -49,6 +49,20 @@ Frames are (H, W) float32 tensors, or (B, H, W) stacks, and the solve runs
 on their device. numpy inputs go to the entry point's `device` keyword,
 cuda:0 by default; without a CUDA device that default raises, so the CPU
 runs only when asked for (`device="cpu"`, or CPU tensors).
+
+bfloat16 (`HSConfig(dtype="bfloat16")`, solver="jacobi"): bfloat16
+storage, float32 arithmetic. Every array the reference holds in the
+config's dtype is a torch.bfloat16 tensor here: the frames after the cast
+(made on the device), Ex, Ey, Et and 1/den, u and v after every sweep, the
+pyramid's levels, upsampled flows and warped frames, and the returned
+Flow. Each value is widened to float32, the arithmetic runs in float32 in
+the float32 path's order, and each array result is rounded once, to
+nearest even, where it is stored; 1/den is formed from the rounded Ex and
+Ey. The kernels' bfloat16 builds (K1, K2, K6, K7) round u and v at the end
+of every sweep, also inside a launch, so they equal the plain twins
+(`ops.stencils.store`) bitwise and the result does not depend on the
+sweeps a launch runs. bfloat16 for the other solvers and families, and
+for dist/, raises NotImplementedError (ROADMAP.md queue 1, item 5).
 """
 
 from opticalflowhs_tpu_torch.batch import hs_solve_batched

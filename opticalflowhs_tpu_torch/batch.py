@@ -27,13 +27,20 @@ import torch
 from opticalflowhs_tpu_torch.config import HSConfig, LKConfig, PyramidConfig, TVL1Config
 from opticalflowhs_tpu_torch.lucas_kanade import lk_solve_batched
 from opticalflowhs_tpu_torch.pyramid import (
+    add_flows,
     gaussian_pyramid,
     upsample_flow,
     warp_bilinear,
     warp_bilinear_tiled,
     warp_each,
 )
-from opticalflowhs_tpu_torch.solver import Flow, as_frame, check_supported, solve_level
+from opticalflowhs_tpu_torch.solver import (
+    Flow,
+    as_frame,
+    check_supported,
+    solve_level,
+    storage_dtype,
+)
 from opticalflowhs_tpu_torch.tvl1 import tvl1_solve_batched
 
 
@@ -79,10 +86,7 @@ def _pyramid_batched(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig,
             else:
                 f2w = warp_bilinear_tiled(f2, flow.u, flow.v)
         dflow = solve_level(f1, f2w, cfg, iters[level])
-        if flow is None:
-            flow = dflow
-        else:
-            flow = Flow(flow.u + dflow.u, flow.v + dflow.v)
+        flow = dflow if flow is None else add_flows(flow, dflow)
     return flow
 
 
@@ -99,9 +103,10 @@ def hs_solve_batched(
 
     Torch tensors stay on their device; numpy stacks go to `device`
     (cuda:0 when None; RuntimeError without CUDA, so the CPU runs only by
-    `device="cpu"` or CPU tensors). SOR's omega == 0 ("auto") is for
-    single pairs only: tune it with `solver.tune_omega` on a representative
-    pair and pass the result."""
+    `device="cpu"` or CPU tensors); both are cast to the config's dtype
+    there, and the flow has it. SOR's omega == 0 ("auto") is for single
+    pairs only: tune it with `solver.tune_omega` on a representative pair
+    and pass the result."""
     reject_unported(mesh=mesh)
     if i1.ndim != 3:
         raise ValueError(f"expected (B, H, W) frame stacks, got {tuple(i1.shape)}")
@@ -114,8 +119,8 @@ def hs_solve_batched(
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs "
                          f"{tuple(i2.shape)}")
     check_supported(cfg)
-    i1 = as_frame(i1, device)
-    i2 = as_frame(i2, i1.device)
+    i1 = as_frame(i1, device, storage_dtype(cfg))
+    i2 = as_frame(i2, i1.device, storage_dtype(cfg))
     if pyr is not None and pyr.levels > 1:
         return _pyramid_batched(i1, i2, cfg, pyr)
     return solve_level(i1, i2, cfg, cfg.iters)

@@ -15,6 +15,11 @@ are the reference's, computed the same way, so a checkpoint that the JAX
 package wrote for a config whose backend is "auto" (the field values are
 hashed, and the two packages name their other backends differently)
 resumes here, and one written here resumes there.
+
+bfloat16 state (HSConfig.dtype="bfloat16") is stored as its float32
+widening, which is exact, under one more key, `dtype`, and read back to
+bfloat16. The reference stores a bfloat16 flow as 2-byte values (numpy
+reads them as |V2 without ml_dtypes); those are read exactly, as bfloat16.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from opticalflowhs_tpu_torch.config import HSConfig, config_hash
+from opticalflowhs_tpu_torch.io.host import host_array
 from opticalflowhs_tpu_torch.solver import Flow, as_frame, hs_solve, target_device
 
 
@@ -39,9 +45,7 @@ def checkpoint_path(path: str, tag) -> str:
 
 
 def _host(a) -> np.ndarray:
-    if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
+    return host_array(a)
 
 
 def frames_hash(i1, i2) -> str:
@@ -72,6 +76,7 @@ def save_state(path: str, flow: Flow, sweeps_done: int, cfg: HSConfig,
                 sweeps_done=np.int64(sweeps_done),
                 cfg_hash=np.bytes_(config_hash(cfg).encode()),
                 input_hash=np.bytes_(input_hash.encode()),
+                dtype=np.bytes_(str(flow.u.dtype).removeprefix("torch.").encode()),
             )
         os.replace(tmp, path)
     finally:
@@ -102,9 +107,19 @@ def load_state(path: str, cfg: Optional[HSConfig] = None, input_hash: str = "",
                     f"checkpoint {path} was written for a different frame "
                     f"pair (input hash {stored_ih} != {input_hash})"
                 )
-        flow = Flow(torch.from_numpy(z["u"]).to(dev),
-                    torch.from_numpy(z["v"]).to(dev))
+        bf16 = "dtype" in z and bytes(z["dtype"]).decode() == "bfloat16"
+        flow = Flow(*(_state_tensor(z[k], bf16).to(dev) for k in ("u", "v")))
         return flow, int(z["sweeps_done"])
+
+
+def _state_tensor(a: np.ndarray, bf16: bool) -> torch.Tensor:
+    """A stored u or v as a tensor: 2-byte void values (the reference's
+    bfloat16 arrays, saved through ml_dtypes) are bfloat16 bit patterns;
+    float32 values recorded as bfloat16 state are cast back, exactly."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view("<i2").copy()).view(torch.bfloat16)
+    t = torch.from_numpy(a)
+    return t.to(torch.bfloat16) if bf16 else t
 
 
 def hs_solve_checkpointed(i1, i2, cfg: HSConfig, path: str,

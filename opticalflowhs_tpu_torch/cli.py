@@ -80,10 +80,13 @@ def _to_device(img, dev):
 
 
 def _host_flow(flow):
-    """(H, W, 2) float32 numpy of a Flow of (H, W) tensors."""
+    """(H, W, 2) float32 numpy of a Flow of (H, W) tensors (bfloat16
+    widened, exactly)."""
     import numpy as np
 
-    return np.stack([flow.u.cpu().numpy(), flow.v.cpu().numpy()], axis=-1)
+    from opticalflowhs_tpu_torch.io.host import host_array
+
+    return np.stack([host_array(flow.u), host_array(flow.v)], axis=-1)
 
 
 def _make_mesh(mesh_cfg, dev):
@@ -208,6 +211,7 @@ def _cmd_video(args, overrides):
     import numpy as np
 
     from opticalflowhs_tpu_torch.io.flo import write_flo
+    from opticalflowhs_tpu_torch.io.host import host_array
     from opticalflowhs_tpu_torch.io.images import load_gray, save_image
     from opticalflowhs_tpu_torch.solver import Flow
     from opticalflowhs_tpu_torch.video import flow_stream, flow_stream_occlusion
@@ -341,8 +345,8 @@ def _cmd_video(args, overrides):
                     estimate_egomotion(Flow(chunk.u[k], chunk.v[k]))
                     for k in range(chunk.u.shape[0])
                 ]
-            u = chunk.u.cpu().numpy()
-            v = chunk.v.cpu().numpy()
+            u = host_array(chunk.u)
+            v = host_array(chunk.v)
             for k in range(u.shape[0]):
                 f = np.stack([u[k], v[k]], axis=-1)
                 write_flo(os.path.join(args.output, f"flow_{idx:05d}.flo"), f)

@@ -27,8 +27,19 @@ BACKENDS = ("auto", "torch", "cuda")
 
 SOLVERS = ("jacobi", "sor", "multigrid", "robust")
 
+# Storage types of `dtype`: bfloat16 stores every array in 16 bits and
+# computes in float32 (the package docstring's rule); it runs for
+# HSConfig(solver="jacobi") only so far (ROADMAP.md queue 1, item 5).
+DTYPES = ("float32", "bfloat16")
+
 # Reference backend name -> port backend name.
 _BACKEND_FROM_REFERENCE = {"auto": "auto", "jnp": "torch", "pallas": "cuda"}
+
+
+def check_dtype(dtype: str) -> None:
+    """ValueError unless `dtype` names one of DTYPES."""
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype must be one of {DTYPES}, got {dtype!r}")
 
 
 @dataclass(frozen=True)
@@ -37,7 +48,7 @@ class HSConfig:
 
     alpha: float = 1.0          # regularization weight; den = alpha^2 + Ex^2 + Ey^2
     iters: int = 100            # fixed Jacobi iteration count
-    dtype: str = "float32"      # compute dtype (the port runs float32 only)
+    dtype: str = "float32"      # storage dtype (DTYPES; bfloat16: jacobi only)
     deriv_variant: str = "hs_cube"
     backend: str = "auto"       # auto -> cuda for CUDA frames, torch otherwise
     block_sweeps: int = 0       # sweeps per Jacobi kernel launch (0 = auto)
@@ -50,6 +61,7 @@ class HSConfig:
     tol: float = 0.0            # > 0: solve-to-tolerance; 0 = fixed iters
 
     def __post_init__(self):
+        check_dtype(self.dtype)
         if self.deriv_variant not in DERIV_VARIANTS:
             raise ValueError(f"deriv_variant must be one of {DERIV_VARIANTS}")
         if self.backend not in BACKENDS:
@@ -111,13 +123,14 @@ class LKConfig:
     iters: int = 3              # warp-refine Newton steps per pyramid level
     eps: float = 1e-3           # Tikhonov diagonal regularization of the 2x2
                                 # structure tensor (textureless windows)
-    dtype: str = "float32"      # compute dtype (the port runs float32 only)
+    dtype: str = "float32"      # DTYPES; bfloat16 is still to port here
     max_step: float = 0.0       # > 0: clamp each refinement's |du|,|dv| (px);
                                 # 0 = unclamped
     smooth: bool = True         # binomial-blur the flow between refinements
     warp: str = "auto"          # tiled | gather | auto (= tiled)
 
     def __post_init__(self):
+        check_dtype(self.dtype)
         if self.window < 3 or self.window % 2 == 0:
             raise ValueError("window must be odd and >= 3")
         if self.iters < 1:
@@ -146,12 +159,13 @@ class TVL1Config:
                                 # pyr.iters_per_level is not read
     iters: int = 100            # v/u alternations per warp iteration
     median: bool = True         # 3x3 median of the flow after each warp
-    dtype: str = "float32"      # compute dtype (the port runs float32 only)
+    dtype: str = "float32"      # DTYPES; bfloat16 is still to port here
     backend: str = "auto"       # inner loop: cuda (K5) for CUDA frames,
                                 # torch otherwise
     warp: str = "auto"          # tiled | gather | checked | auto (= checked)
 
     def __post_init__(self):
+        check_dtype(self.dtype)
         if self.lambda_ <= 0 or self.theta <= 0:
             raise ValueError("lambda_ and theta must be > 0")
         if not 0 < self.tau <= 0.25:

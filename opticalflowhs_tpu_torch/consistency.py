@@ -21,6 +21,7 @@ import torch
 
 from opticalflowhs_tpu_torch.batch import reject_unported, solve_stack
 from opticalflowhs_tpu_torch.config import HSConfig, PyramidConfig
+from opticalflowhs_tpu_torch.ops.stencils import store
 from opticalflowhs_tpu_torch.pyramid import warp
 from opticalflowhs_tpu_torch.solver import Flow, as_frame, resolve_omega
 
@@ -33,18 +34,22 @@ def _warped_backward(fwd: Flow, bwd: Flow, method: str):
 
 
 def fb_error(fwd: Flow, bwd: Flow, method: str = "gather") -> torch.Tensor:
-    """|f_fwd(x) + f_bwd(x + f_fwd(x))| per pixel."""
+    """|f_fwd(x) + f_bwd(x + f_fwd(x))| per pixel (for bfloat16 flows
+    computed in float32 and rounded once)."""
     bu, bv = _warped_backward(fwd, bwd, method)
-    return torch.sqrt((fwd.u + bu) ** 2 + (fwd.v + bv) ** 2)
+    return store(lambda fu, fv, gu, gv: torch.sqrt((fu + gu) ** 2 + (fv + gv) ** 2),
+                 fwd.u, fwd.v, bu, bv)
 
 
 def occlusion_mask(fwd: Flow, bwd: Flow, a: float = 0.01, b: float = 0.5,
                    method: str = "gather") -> torch.Tensor:
     """Boolean mask, True where the forward flow FAILS the forward-backward
-    test: occluded or unreliable pixels."""
+    test: occluded or unreliable pixels. bfloat16 flows are widened and
+    tested in float32."""
     bu, bv = _warped_backward(fwd, bwd, method)
-    err2 = (fwd.u + bu) ** 2 + (fwd.v + bv) ** 2
-    mag2 = fwd.u ** 2 + fwd.v ** 2 + bu ** 2 + bv ** 2
+    fu, fv, bu, bv = (x.float() for x in (fwd.u, fwd.v, bu, bv))  # bfloat16
+    err2 = (fu + bu) ** 2 + (fv + bv) ** 2
+    mag2 = fu ** 2 + fv ** 2 + bu ** 2 + bv ** 2
     return err2 > a * mag2 + b
 
 

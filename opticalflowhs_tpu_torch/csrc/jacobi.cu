@@ -64,10 +64,19 @@
 // warp's rows breaks the rolling rows (kShard). One launch covers every
 // shard of a device. Bound as K2: 8 arrays of the padded stack a launch.
 //
+// bfloat16 (hs_jacobi_sweeps_bf16, single frame and stack; K9 stays float):
+// the same walk on bfloat16 arrays (k2_window.cuh's storage types), the
+// fields widened into the same registers, u and v held in shared memory in
+// bfloat16 (three pairs: 73,728 bytes), each sweep's u and v rounded to
+// nearest even where they are stored, the float32 geometry and s. Bound: 8
+// arrays of 2 bytes, 10.0 us at 1088x1920; 29 operations a pixel a sweep
+// with the two roundings.
+//
 // Exactness: the association order is that of ops/stencils.py
 // (neighbor_avg, jacobi_step), the constants are the float32 values of
 // 1/12 and 1/3, and the library is built with --fmad=false, so the output
-// equals the plain PyTorch sweeps bitwise.
+// equals the plain PyTorch sweeps bitwise (in bfloat16, the plain sweeps of
+// the storage rule).
 
 #include <cuda_runtime.h>
 
@@ -91,7 +100,30 @@ __global__ void __launch_bounds__(kThreads, 1) jacobi_kernel(const Args a) {
   walk_tiles<kShard, false>(smem, a, true);
 }
 
-template <bool kShard>
+// The bfloat16 build (whole images only).
+constexpr size_t kSmemBytesBf16 = kPairs * pair_bytes<ArgsBf16>();
+
+__global__ void __launch_bounds__(kThreads, 1) jacobi_kernel_bf16(const ArgsBf16 a) {
+  extern __shared__ __align__(16) float smem[];
+  walk_tiles<false, false>(reinterpret_cast<__nv_bfloat16*>(smem), a, true);
+}
+
+// The kernel and shared bytes of a build: K2 (kShard false) or K9 in float,
+// K2 in bfloat16.
+template <class A, bool kShard>
+auto build_kernel() {
+  if constexpr (kIsFloat<A>)
+    return jacobi_kernel<kShard>;
+  else
+    return jacobi_kernel_bf16;
+}
+
+template <class A>
+constexpr size_t build_smem() {
+  return kIsFloat<A> ? kSmemBytes : kSmemBytesBf16;
+}
+
+template <class A, bool kShard>
 cudaError_t configure(int device, int* grid_max) {
   // Per device: opt into the shared memory above 48 KB, and the number of
   // blocks that can be resident at once (the persistent grid).
@@ -100,12 +132,13 @@ cudaError_t configure(int device, int* grid_max) {
     *grid_max = cached[device];
     return cudaSuccess;
   }
+  const auto kernel = build_kernel<A, kShard>();
   cudaError_t err = cudaFuncSetAttribute(
-      jacobi_kernel<kShard>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)build_smem<A>());
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, jacobi_kernel<kShard>,
-                                                      kThreads, kSmemBytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, build_smem<A>());
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
@@ -115,31 +148,43 @@ cudaError_t configure(int device, int* grid_max) {
   return cudaSuccess;
 }
 
-int launch(const float* u, const float* v, const float* ex, const float* ey,
-           const float* et, const float* invd, float* uo, float* vo,
+template <class A>
+int launch(const typename A::Elem* u, const typename A::Elem* v,
+           const typename A::Elem* ex, const typename A::Elem* ey,
+           const typename A::Elem* et, const typename A::Elem* invd,
+           typename A::Elem* uo, typename A::Elem* vo,
            const int* org, int b, int h, int w, int img_h, int img_w,
            int sweeps, int device, void* stream) {
   if (b < 1 || b > kMaxBatch || h < 1 || w < 1 || sweeps < 1 || sweeps > kMaxSweeps)
     return (int)cudaErrorInvalidValue;
+  if (!kIsFloat<A> && org != nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int grid_max = 0;
-  err = org != nullptr ? configure<true>(device, &grid_max)
-                       : configure<false>(device, &grid_max);
+  err = org != nullptr ? configure<Args, true>(device, &grid_max)
+                       : configure<A, false>(device, &grid_max);
   if (err != cudaSuccess) return (int)err;
   const Geometry g = geometry(sweeps);
-  Args a;
+  A a;
   a.u = u; a.v = v; a.ex = ex; a.ey = ey; a.et = et; a.invd = invd;
   a.uo = uo; a.vo = vo; a.org = org;
   a.b = b; a.h = h; a.w = w; a.img_h = img_h; a.img_w = img_w; a.sweeps = sweeps;
   a.tiles_x = (w + g.tw - 1) / g.tw;
   a.tiles_y = (h + g.th - 1) / g.th;
-  a.vec = w % 4 == 0 && aligned(u) && aligned(v) && aligned(ex) && aligned(ey) &&
-          aligned(et) && aligned(invd) && aligned(uo) && aligned(vo);
+  auto all_aligned = [&](unsigned long long n) {
+    return aligned(u, n) && aligned(v, n) && aligned(ex, n) && aligned(ey, n) &&
+           aligned(et, n) && aligned(invd, n) && aligned(uo, n) && aligned(vo, n);
+  };
+  // 16 bytes (4 floats) or 8 (4 bfloat16 values) a lane's load or store; 2:
+  // bfloat16 rows also staged 16 bytes at a time (bf16_wide).
+  a.vec = w % 4 == 0 && all_aligned(4 * sizeof(typename A::Elem));
+  if (!kIsFloat<A> && a.vec && w % 8 == 0 && all_aligned(16)) a.vec = 2;
   const long long tiles = (long long)b * a.tiles_x * a.tiles_y;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int grid = (int)(tiles < grid_max ? tiles : grid_max);
-  if (org != nullptr)
+  if constexpr (!kIsFloat<A>)
+    jacobi_kernel_bf16<<<grid, kThreads, kSmemBytesBf16, (cudaStream_t)stream>>>(a);
+  else if (org != nullptr)
     jacobi_kernel<true><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(a);
   else
     jacobi_kernel<false><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(a);
@@ -153,8 +198,18 @@ extern "C" int hs_jacobi_sweeps(const float* u, const float* v,
                                 const float* et, const float* invd, float* uo,
                                 float* vo, int b, int h, int w, int sweeps,
                                 int device, void* stream) {
-  return launch(u, v, ex, ey, et, invd, uo, vo, nullptr, b, h, w, h, w, sweeps,
-                device, stream);
+  return launch<Args>(u, v, ex, ey, et, invd, uo, vo, nullptr, b, h, w, h, w, sweeps,
+                      device, stream);
+}
+
+// K2's bfloat16 build: the same arguments, every array bfloat16.
+extern "C" int hs_jacobi_sweeps_bf16(const __nv_bfloat16* u, const __nv_bfloat16* v,
+                                     const __nv_bfloat16* ex, const __nv_bfloat16* ey,
+                                     const __nv_bfloat16* et, const __nv_bfloat16* invd,
+                                     __nv_bfloat16* uo, __nv_bfloat16* vo, int b, int h,
+                                     int w, int sweeps, int device, void* stream) {
+  return launch<ArgsBf16>(u, v, ex, ey, et, invd, uo, vo, nullptr, b, h, w, h, w, sweeps,
+                          device, stream);
 }
 
 // K9: b halo-padded h x w shards; org holds 2b ints on the device, the
@@ -166,8 +221,8 @@ extern "C" int hs_tile_sweeps(const float* u, const float* v, const float* ex,
                               const int* org, int b, int h, int w, int img_h,
                               int img_w, int sweeps, int device, void* stream) {
   if (org == nullptr) return (int)cudaErrorInvalidValue;
-  return launch(u, v, ex, ey, et, invd, uo, vo, org, b, h, w, img_h, img_w,
-                sweeps, device, stream);
+  return launch<Args>(u, v, ex, ey, et, invd, uo, vo, org, b, h, w, img_h, img_w,
+                      sweeps, device, stream);
 }
 
 // K2's geometry at `sweeps` on `device` (K9's with `shard` nonzero), into
@@ -179,9 +234,21 @@ extern "C" int hs_jacobi_geometry(int sweeps, int shard, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int grid_max = 0;
-  err = shard ? configure<true>(device, &grid_max) : configure<false>(device, &grid_max);
+  err = shard ? configure<Args, true>(device, &grid_max)
+              : configure<Args, false>(device, &grid_max);
   if (err != cudaSuccess) return (int)err;
   err = shard ? report(jacobi_kernel<true>, kSmemBytes, sweeps, device, grid_max, out)
               : report(jacobi_kernel<false>, kSmemBytes, sweeps, device, grid_max, out);
   return (int)err;
+}
+
+// The bfloat16 build's geometry, as hs_jacobi_geometry reports K2's.
+extern "C" int hs_jacobi_geometry_bf16(int sweeps, int device, int* out) {
+  if (sweeps < 1 || sweeps > kMaxSweeps) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int grid_max = 0;
+  err = configure<ArgsBf16, false>(device, &grid_max);
+  if (err != cudaSuccess) return (int)err;
+  return (int)report(jacobi_kernel_bf16, kSmemBytesBf16, sweeps, device, grid_max, out);
 }

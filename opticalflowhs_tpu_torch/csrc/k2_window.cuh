@@ -46,14 +46,32 @@
 //     they are static, so a source that does not walk a ring compiles none
 //     of them (with external linkage they changed K2's SASS).
 //
+// Storage types: the loop's arguments (`Args`, `ArgsBf16`) name the type
+// the arrays are stored in, float or bfloat16 (K2, K6 and K7 have bfloat16
+// builds). A bfloat16 value is widened to float where it is loaded (fields
+// into the same registers, u and v from shared memory, which holds them
+// in bfloat16), the sweep runs the float32 arithmetic below unchanged, and
+// u and v are rounded to nearest even (__float2bfloat16_rn) where each
+// sweep stores them: into shared memory, or from the last sweep to device
+// memory. So every sweep rounds, also inside a launch, and the result does
+// not depend on the sweeps a launch runs. A lane's 4 bfloat16 values are 8
+// bytes: staged by an 8-byte cp.async where w is a multiple of 4 and the
+// arrays are 8-byte aligned (with kL2 by 8-byte __ldcg loads a row at a
+// time), else by 2-byte loads. The float code paths are as they were
+// (`if constexpr` on the storage type), so the float builds do not change.
+//
 // Exactness: the association order is that of ops/stencils.py
 // (neighbor_avg, jacobi_step), the constants are the float32 values of
 // 1/12 and 1/3, and the library is built with --fmad=false, so every kernel
-// built on this equals the plain PyTorch sweeps bitwise.
+// built on this equals the plain PyTorch sweeps bitwise (in bfloat16, the
+// plain sweeps of the storage rule, `stencils.store`).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace hs_k2 {
 
@@ -64,7 +82,7 @@ constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;         // 512
 constexpr int kWinH = kWarps * kRows;         // 48
 constexpr int kArea = kWinH * kWinW;
-// Shared bytes of one u/v pair of a window.
+// Shared bytes of one u/v pair of a window (float; in bfloat16 half).
 constexpr size_t kPairBytes = (size_t)2 * kArea * sizeof(float);
 constexpr int kMaxSweeps = 16;
 constexpr float kTwelfth = (float)(1.0 / 12.0);
@@ -85,13 +103,56 @@ __host__ __device__ inline Geometry geometry(int s) {
   return g;
 }
 
-struct Args {
-  const float *u, *v, *ex, *ey, *et, *invd;
-  float *uo, *vo;
+// The arguments of one walk, over arrays stored as E (Elem).
+template <class E>
+struct ArgsOf {
+  using Elem = E;
+  const E *u, *v, *ex, *ey, *et, *invd;
+  E *uo, *vo;
   const int* org;  // K9: per-image global origins; null otherwise
   int b, h, w, img_h, img_w, sweeps, tiles_x, tiles_y;
-  int vec;         // 16-byte loads and stores
+  int vec;         // 16-byte loads and stores (bfloat16: 1, 8-byte; 2, also
+                   // 16-byte staging, `bf16_wide`)
 };
+struct Args : ArgsOf<float> {};
+struct ArgsBf16 : ArgsOf<__nv_bfloat16> {};
+
+template <class A>
+inline constexpr bool kIsFloat = std::is_same<typename A::Elem, float>::value;
+
+// Shared bytes of one u/v pair of a window of A's storage type.
+template <class A>
+constexpr size_t pair_bytes() {
+  return (size_t)2 * kArea * sizeof(typename A::Elem);
+}
+
+// bfloat16 to and from float, only by the intrinsics, and packed by 2 and 4
+// (the lower address in the lower bits).
+__device__ __forceinline__ float bf16_widen(unsigned short x) {
+  return __bfloat162float(__ushort_as_bfloat16(x));
+}
+
+__device__ __forceinline__ unsigned short bf16_round(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float4 bf16_widen4(const uint2& x) {
+  return make_float4(bf16_widen((unsigned short)(x.x & 0xffffu)),
+                     bf16_widen((unsigned short)(x.x >> 16)),
+                     bf16_widen((unsigned short)(x.y & 0xffffu)),
+                     bf16_widen((unsigned short)(x.y >> 16)));
+}
+
+// Two values rounded by one conversion (cvt.rn.bf16x2.f32), each as
+// __float2bfloat16_rn rounds it.
+__device__ __forceinline__ unsigned bf16_round2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+__device__ __forceinline__ uint2 bf16_round4(float a, float b, float c, float d) {
+  return make_uint2(bf16_round2(a, b), bf16_round2(c, d));
+}
 
 // One tile: its image, the window's origin in the image's array and the
 // window rows inside the array.
@@ -101,7 +162,8 @@ struct Tile {
 };
 
 // The tile at tile row ty and column tx of image img.
-__device__ __forceinline__ Tile tile_rc(const Args& a, const Geometry& g, int img, int ty,
+template <class A>
+__device__ __forceinline__ Tile tile_rc(const A& a, const Geometry& g, int img, int ty,
                                         int tx) {
   Tile x;
   x.base = (long long)img * a.h * a.w;
@@ -114,8 +176,8 @@ __device__ __forceinline__ Tile tile_rc(const Args& a, const Geometry& g, int im
   return x;
 }
 
-template <bool kShard>
-__device__ __forceinline__ Tile tile_at(const Args& a, const Geometry& g, int t) {
+template <bool kShard, class A>
+__device__ __forceinline__ Tile tile_at(const A& a, const Geometry& g, int t) {
   const int per_img = a.tiles_x * a.tiles_y;
   const int img = t / per_img;
   const int rem = t - img * per_img;
@@ -144,6 +206,29 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, bool in) {
                : "memory");
 }
 
+// cp.async.cg of 16 bytes (8 bfloat16 values: a lane's and the next lane's).
+__device__ __forceinline__ void copy16(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                       bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// bfloat16 rows go by copy16 where the arrays allow (vec == 2: w a multiple
+// of 8, 16-byte aligned) and the tile's first column c0 is a multiple of 8:
+// each even lane copies its 4 values and the next lane's, the odd lanes
+// none. Then 8 columns are all inside the array or all outside.
+__device__ __forceinline__ bool bf16_wide(int vec, int c0) {
+  return vec == 2 && (c0 & 7) == 0;
+}
+
+// cp.async of 8 bytes (4 bfloat16 values); src_size 0 fills zeros.
+__device__ __forceinline__ void copy8(__nv_bfloat16* dst, const __nv_bfloat16* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 8 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void copy_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -155,6 +240,10 @@ __device__ __forceinline__ void copy_wait() {
 
 __device__ __forceinline__ float4 ld4(const float* s, int r, int c) {
   return *reinterpret_cast<const float4*>(s + r * kWinW + c);
+}
+
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* s, int r, int c) {
+  return bf16_widen4(*reinterpret_cast<const uint2*>(s + r * kWinW + c));
 }
 
 // Copies 4 adjacent floats of row `g` (g + q for column q, `in_q` saying
@@ -182,13 +271,61 @@ __device__ __forceinline__ void copy_quad(float* d, const float* __restrict__ sr
   }
 }
 
+// copy_quad of 4 bfloat16 values: with vec one 8-byte cp.async, or with kL2
+// an 8-byte __ldcg load and shared store; else 2-byte loads (__ldg, with kL2
+// __ldcg) and shared stores.
+template <bool kL2>
+__device__ __forceinline__ void copy_quad(__nv_bfloat16* d,
+                                          const __nv_bfloat16* __restrict__ src,
+                                          long long g, int vec, bool row_in, int ac, int w,
+                                          bool live) {
+  if (vec) {
+    const bool in = live && row_in && ac >= 0 && ac < w;
+    if (kL2)
+      *reinterpret_cast<uint2*>(d) =
+          in ? __ldcg(reinterpret_cast<const uint2*>(src + g)) : make_uint2(0u, 0u);
+    else
+      copy8(d, in ? src + g : src, in);
+  } else {
+    const unsigned short* p = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+    for (int q = 0; q < kLaneCols; ++q) {
+      const bool in = live && row_in && ac + q >= 0 && ac + q < w;
+      reinterpret_cast<unsigned short*>(d)[q] =
+          !in ? (unsigned short)0 : kL2 ? __ldcg(p + g + q) : __ldg(p + g + q);
+    }
+  }
+}
+
 // Starts the copies of this thread's pixels of one array of a tile's
 // window into shared memory; outside the array they are zero.
-template <bool kL2>
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
-                                      const Args& a, const Tile& t, int row0, int col0,
+template <bool kL2, class A>
+__device__ __forceinline__ void stage(typename A::Elem* dst,
+                                      const typename A::Elem* __restrict__ src,
+                                      const A& a, const Tile& t, int row0, int col0,
                                       bool live) {
   const int ac = t.c0 + col0;
+  if constexpr (!kIsFloat<A>) {
+    const bool wide = bf16_wide(a.vec, t.c0);
+    if (wide || kL2 || !a.vec) {
+      // bfloat16 rows one at a time: 16-byte copies (wide), or loads through
+      // registers. One loop for both keeps K6 within its registers.
+#pragma unroll 1
+      for (int jj = 0; jj < kRows; ++jj) {
+        const int wr = row0 + jj;
+        const int ar = t.r0 + wr;
+        const long long g = t.base + (long long)ar * a.w + ac;
+        if (!wide) {
+          copy_quad<kL2>(dst + wr * kWinW + col0, src, g, a.vec, ar >= 0 && ar < a.h, ac,
+                         a.w, live);
+        } else if ((col0 & kLaneCols) == 0) {
+          const bool in = live && ar >= 0 && ar < a.h && ac >= 0 && ac < a.w;
+          copy16(dst + wr * kWinW + col0, in ? src + g : src, in);
+        }
+      }
+      return;
+    }
+  }
   if (kL2 && !a.vec) {
     // The 4-byte loads go through registers: one row at a time, so that
     // they do not add to what the fields and the sweeps hold.
@@ -214,10 +351,10 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
 
 // Starts the staging of a tile's u and v (a.u, a.v; zeros where `live` is
 // false) into the pair at `pair`.
-template <bool kL2>
-__device__ __forceinline__ void stage_tile(float* smem, int pair, const Args& a,
+template <bool kL2, class A>
+__device__ __forceinline__ void stage_tile(typename A::Elem* smem, int pair, const A& a,
                                            const Tile& t, int row0, int col0, bool live) {
-  float* pu = smem + 2 * pair * kArea;
+  typename A::Elem* pu = smem + 2 * pair * kArea;
   stage<kL2>(pu, a.u, a, t, row0, col0, live);
   stage<kL2>(pu + kArea, a.v, a, t, row0, col0, live);
   copy_commit();
@@ -225,9 +362,10 @@ __device__ __forceinline__ void stage_tile(float* smem, int pair, const Args& a,
 
 // A thread's kRows x 4 pixels of one field, from device memory into registers
 // (zero outside the array).
+template <class A>
 __device__ __forceinline__ void load_field(float (&f)[kRows][kLaneCols],
                                            const float* __restrict__ p,
-                                           const Args& a, const Tile& t,
+                                           const A& a, const Tile& t,
                                            int row0, int col0) {
   const int ac = t.c0 + col0;
 #pragma unroll
@@ -252,13 +390,46 @@ __device__ __forceinline__ void load_field(float (&f)[kRows][kLaneCols],
   }
 }
 
+// load_field of a bfloat16 field, widened into the same registers: 8-byte
+// loads with vec, else 2-byte ones.
+template <class A>
+__device__ __forceinline__ void load_field(float (&f)[kRows][kLaneCols],
+                                           const __nv_bfloat16* __restrict__ p,
+                                           const A& a, const Tile& t,
+                                           int row0, int col0) {
+  const int ac = t.c0 + col0;
+  const unsigned short* ps = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+  for (int jj = 0; jj < kRows; ++jj) {
+    const int ar = t.r0 + row0 + jj;
+    const bool row_in = ar >= 0 && ar < a.h;
+    const long long g = t.base + (long long)ar * a.w + ac;
+    if (a.vec) {
+      uint2 x = make_uint2(0u, 0u);
+      if (row_in && ac >= 0 && ac < a.w) x = __ldg(reinterpret_cast<const uint2*>(p + g));
+      const float4 y = bf16_widen4(x);
+      f[jj][0] = y.x;
+      f[jj][1] = y.y;
+      f[jj][2] = y.z;
+      f[jj][3] = y.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < kLaneCols; ++q) {
+        const bool in = row_in && ac + q >= 0 && ac + q < a.w;
+        f[jj][q] = in ? bf16_widen(__ldg(ps + g + q)) : 0.0f;
+      }
+    }
+  }
+}
+
 // The four fields of a thread's pixels of a tile.
 struct Fields {
   float x[kRows][kLaneCols], y[kRows][kLaneCols], t[kRows][kLaneCols],
       i[kRows][kLaneCols];
 };
 
-__device__ __forceinline__ void load_fields(Fields& f, const Args& a, const Tile& t,
+template <class A>
+__device__ __forceinline__ void load_fields(Fields& f, const A& a, const Tile& t,
                                             int row0, int col0) {
   load_field(f.x, a.ex, a, t, row0, col0);
   load_field(f.y, a.ey, a, t, row0, col0);
@@ -268,6 +439,12 @@ __device__ __forceinline__ void load_fields(Fields& f, const Args& a, const Tile
 
 __device__ __forceinline__ void st4(float* s, int r, int c, const float (&x)[kLaneCols]) {
   *reinterpret_cast<float4*>(s + r * kWinW + c) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// st4 into bfloat16: each value rounded to nearest even.
+__device__ __forceinline__ void st4(__nv_bfloat16* s, int r, int c,
+                                    const float (&x)[kLaneCols]) {
+  *reinterpret_cast<uint2*>(s + r * kWinW + c) = bf16_round4(x[0], x[1], x[2], x[3]);
 }
 
 // neighbor_avg of a lane's 4 columns at one row: t per column from rows
@@ -309,13 +486,14 @@ struct Lane {
 // The HS update of one row of a lane's 4 pixels, and its store: into the
 // next shared buffer, or on the last sweep, for rows of the owned tile,
 // straight to device memory.
-template <bool kClamp, bool kLast>
+template <bool kClamp, bool kLast, class A>
 __device__ __forceinline__ void update_row(
     const float4& ut, const float4& um, const float4& ub, const float4& vt,
     const float4& vm, const float4& vb, const float (&fx)[kLaneCols],
     const float (&fy)[kLaneCols], const float (&ft)[kLaneCols],
-    const float (&fi)[kLaneCols], float* __restrict__ du, float* __restrict__ dv,
-    const Args& a, const Tile& tile, const Lane& ln, int r) {
+    const float (&fi)[kLaneCols], typename A::Elem* __restrict__ du,
+    typename A::Elem* __restrict__ dv, const A& a, const Tile& tile, const Lane& ln,
+    int r) {
   float ubar[kLaneCols], vbar[kLaneCols], uo[kLaneCols], vo[kLaneCols];
   neighbor_avg4<kClamp>(ut, um, ub, ln.lcl, ln.rcl, ubar);
   neighbor_avg4<kClamp>(vt, vm, vb, ln.lcl, ln.rcl, vbar);
@@ -330,15 +508,32 @@ __device__ __forceinline__ void update_row(
     st4(dv, r, ln.col0, vo);
   } else if (ln.own && r >= ln.out_lo && r < ln.out_hi) {
     const long long g = tile.base + (long long)(tile.r0 + r) * a.w + tile.c0 + ln.col0;
-    if (a.vec && ln.own == 0xfu) {
-      __stcg(reinterpret_cast<float4*>(a.uo + g), make_float4(uo[0], uo[1], uo[2], uo[3]));
-      __stcg(reinterpret_cast<float4*>(a.vo + g), make_float4(vo[0], vo[1], vo[2], vo[3]));
-    } else {
+    if constexpr (kIsFloat<A>) {
+      if (a.vec && ln.own == 0xfu) {
+        __stcg(reinterpret_cast<float4*>(a.uo + g), make_float4(uo[0], uo[1], uo[2], uo[3]));
+        __stcg(reinterpret_cast<float4*>(a.vo + g), make_float4(vo[0], vo[1], vo[2], vo[3]));
+      } else {
 #pragma unroll
-      for (int q = 0; q < kLaneCols; ++q) {
-        if (ln.own >> q & 1u) {
-          a.uo[g + q] = uo[q];
-          a.vo[g + q] = vo[q];
+        for (int q = 0; q < kLaneCols; ++q) {
+          if (ln.own >> q & 1u) {
+            a.uo[g + q] = uo[q];
+            a.vo[g + q] = vo[q];
+          }
+        }
+      }
+    } else {  // bfloat16: each value rounded to nearest even
+      if (a.vec && ln.own == 0xfu) {
+        __stcg(reinterpret_cast<uint2*>(a.uo + g), bf16_round4(uo[0], uo[1], uo[2], uo[3]));
+        __stcg(reinterpret_cast<uint2*>(a.vo + g), bf16_round4(vo[0], vo[1], vo[2], vo[3]));
+      } else {
+        unsigned short* pu = reinterpret_cast<unsigned short*>(a.uo);
+        unsigned short* pv = reinterpret_cast<unsigned short*>(a.vo);
+#pragma unroll
+        for (int q = 0; q < kLaneCols; ++q) {
+          if (ln.own >> q & 1u) {
+            pu[g + q] = bf16_round(uo[q]);
+            pv[g + q] = bf16_round(vo[q]);
+          }
         }
       }
     }
@@ -353,10 +548,10 @@ __device__ __forceinline__ void update_row(
 // or, on a shard, a true image edge; each row takes rows i-1 and i+1 with
 // their clamps, and each column its clamps. The pointers are restrict so
 // that the loads of a row may be issued before the stores of the last.
-template <bool kEdge, bool kShard, bool kLast>
+template <bool kEdge, bool kShard, bool kLast, class A>
 __device__ __forceinline__ void sweep_rows(
-    const float* __restrict__ su, const float* __restrict__ sv,
-    float* __restrict__ du, float* __restrict__ dv, const Args& a,
+    const typename A::Elem* __restrict__ su, const typename A::Elem* __restrict__ sv,
+    typename A::Elem* __restrict__ du, typename A::Elem* __restrict__ dv, const A& a,
     const Tile& tile, const Lane& ln, const Fields& f) {
   const int row0 = ln.row0, col0 = ln.col0;
   if (!kEdge) {
@@ -393,13 +588,14 @@ __device__ __forceinline__ void sweep_rows(
 // shrunk by k (cut at the array's edges), a block barrier between sweeps;
 // the last sweep writes the owned tile. On return `cur` and `dst` name the
 // two pairs the sweeps used.
-template <bool kEdge, bool kShard>
-__device__ __forceinline__ void run_tile(float* smem, int& cur, int& dst, const Args& a,
-                                         const Tile& tile, const Lane& ln, const Fields& f) {
+template <bool kEdge, bool kShard, class A>
+__device__ __forceinline__ void run_tile(typename A::Elem* smem, int& cur, int& dst,
+                                         const A& a, const Tile& tile, const Lane& ln,
+                                         const Fields& f) {
   for (int k = 1; k <= a.sweeps; ++k) {
     const int rlo = max(k, tile.wr_lo), rhi = min(kWinH - k, tile.wr_hi);
-    const float* su = smem + 2 * cur * kArea;
-    float* du = smem + 2 * dst * kArea;
+    const typename A::Elem* su = smem + 2 * cur * kArea;
+    typename A::Elem* du = smem + 2 * dst * kArea;
     if (ln.row0 < rhi && ln.row0 + kRows > rlo) {  // uniform across the warp
       // Each sweep's rows are straight-line code: the last sweep, which
       // writes to device memory, is its own instance.
@@ -421,10 +617,10 @@ __device__ __forceinline__ void run_tile(float* smem, int& cur, int& dst, const 
 // buffer: the lane's column clamps (at the array's edges and, on a shard,
 // at the true image edges) and owned columns, then run_tile, clamped where
 // the window holds an edge.
-template <bool kShard>
-__device__ __forceinline__ void sweep_tile(float* smem, int& cur, int& dst, const Args& a,
-                                           const Geometry& geo, const Tile& tile, Lane& ln,
-                                           const Fields& f) {
+template <bool kShard, class A>
+__device__ __forceinline__ void sweep_tile(typename A::Elem* smem, int& cur, int& dst,
+                                           const A& a, const Geometry& geo, const Tile& tile,
+                                           Lane& ln, const Fields& f) {
   ln.lcl = ln.rcl = ln.own = 0;
 #pragma unroll
   for (int q = 0; q < kLaneCols; ++q) {
@@ -453,8 +649,8 @@ __device__ __forceinline__ void sweep_tile(float* smem, int& cur, int& dst, cons
 // blockIdx.x, + gridDim.x, ... of the stack, in three shared u/v pairs: two
 // swept, one staged for the next tile by cp.async while the current one
 // sweeps. Ends with every copy landed and a block barrier.
-template <bool kShard, bool kL2>
-__device__ __forceinline__ void walk_tiles(float* smem, const Args& a, bool live) {
+template <bool kShard, bool kL2, class A>
+__device__ __forceinline__ void walk_tiles(typename A::Elem* smem, const A& a, bool live) {
   const Geometry geo = geometry(a.sweeps);
   const int ntiles = a.b * a.tiles_x * a.tiles_y;
   if ((int)blockIdx.x >= ntiles) return;
@@ -467,13 +663,27 @@ __device__ __forceinline__ void walk_tiles(float* smem, const Args& a, bool live
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const Tile tile = tile_at<kShard>(a, geo, t);
     Fields f;
-    load_fields(f, a, tile, ln.row0, ln.col0);
-    const int tn = t + gridDim.x;
-    if (tn < ntiles) {
-      stage_tile<kL2>(smem, spare, a, tile_at<kShard>(a, geo, tn), ln.row0, ln.col0, live);
-      copy_wait<1>();
+    if constexpr (kIsFloat<A>) {
+      load_fields(f, a, tile, ln.row0, ln.col0);
+      const int tn = t + gridDim.x;
+      if (tn < ntiles) {
+        stage_tile<kL2>(smem, spare, a, tile_at<kShard>(a, geo, tn), ln.row0, ln.col0, live);
+        copy_wait<1>();
+      } else {
+        copy_wait<0>();
+      }
     } else {
-      copy_wait<0>();
+      // bfloat16: the next tile is staged before the fields are loaded, so
+      // that the staging's address arithmetic and loads through registers
+      // never meet the fields (K6 spilled with them the other way round).
+      const int tn = t + gridDim.x;
+      if (tn < ntiles)
+        stage_tile<kL2>(smem, spare, a, tile_at<kShard>(a, geo, tn), ln.row0, ln.col0, live);
+      load_fields(f, a, tile, ln.row0, ln.col0);
+      if (tn < ntiles)
+        copy_wait<1>();
+      else
+        copy_wait<0>();
     }
     __syncthreads();
     sweep_tile<kShard>(smem, cur, dst, a, geo, tile, ln, f);
@@ -492,7 +702,8 @@ __device__ __forceinline__ void walk_tiles(float* smem, const Args& a, bool live
 // interior tile rows of every image first and each image's first and last
 // tile rows after them all (K11: the tiles whose windows reach a halo row,
 // which may have to wait for it, last).
-static __device__ __forceinline__ void tile_index(const Args& a, int t, int& img, int& ty,
+template <class A>
+static __device__ __forceinline__ void tile_index(const A& a, int t, int& img, int& ty,
                                                   int& tx) {
   const int mid = max(a.tiles_y - 2, 0);
   const int n_mid = a.b * mid * a.tiles_x;
@@ -507,7 +718,8 @@ static __device__ __forceinline__ void tile_index(const Args& a, int t, int& img
 }
 
 // Tile t of the owned rectangles, which start at row oy and column ox.
-static __device__ __forceinline__ Tile tile_owned(const Args& a, const Geometry& g, int t, int oy,
+template <class A>
+static __device__ __forceinline__ Tile tile_owned(const A& a, const Geometry& g, int t, int oy,
                                            int ox) {
   int img, ty, tx;
   tile_index(a, t, img, ty, tx);
@@ -523,9 +735,11 @@ static __device__ __forceinline__ Tile tile_owned(const Args& a, const Geometry&
 
 // sweep_tile on a shard (kShard) with the owned pixels ending before row
 // own_h and column own_w of the array.
-static __device__ __forceinline__ void sweep_owned(float* smem, int& cur, int& dst, const Args& a,
-                                            const Geometry& geo, const Tile& tile, Lane& ln,
-                                            const Fields& f, int own_h, int own_w) {
+template <class A>
+static __device__ __forceinline__ void sweep_owned(typename A::Elem* smem, int& cur, int& dst,
+                                            const A& a, const Geometry& geo,
+                                            const Tile& tile, Lane& ln, const Fields& f,
+                                            int own_h, int own_w) {
   ln.lcl = ln.rcl = ln.own = 0;
 #pragma unroll
   for (int q = 0; q < kLaneCols; ++q) {
@@ -554,8 +768,9 @@ static __device__ __forceinline__ void sweep_owned(float* smem, int& cur, int& d
 // calls ring.before_stage(a, t, tile) before tile t is staged. The next
 // tile is staged before this tile's fields are loaded, so that the 4-byte
 // staging's loads through registers never meet the fields there.
-template <class Ring>
-__device__ __forceinline__ void walk_owned(float* smem, const Args& a, const Ring& ring) {
+template <class Ring, class A>
+__device__ __forceinline__ void walk_owned(typename A::Elem* smem, const A& a,
+                                           const Ring& ring) {
   const Geometry geo = geometry(a.sweeps);
   const int ntiles = a.b * a.tiles_x * a.tiles_y;
   if ((int)blockIdx.x >= ntiles) return;
@@ -614,6 +829,8 @@ cudaError_t report(Kernel kernel, size_t smem, int sweeps, int device, int grid_
   return cudaSuccess;
 }
 
-inline bool aligned(const void* p) { return ((unsigned long long)p & 15ull) == 0; }
+inline bool aligned(const void* p, unsigned long long bytes = 16) {
+  return ((unsigned long long)p & (bytes - 1)) == 0;
+}
 
 }  // namespace hs_k2

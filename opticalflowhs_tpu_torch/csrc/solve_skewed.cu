@@ -57,6 +57,11 @@
 // last tiles filling only part of the card, and one exposed window a step
 // at m = 3.
 //
+// bfloat16 (hs_solve_skewed_sweeps_bf16): the same launch on K2's bfloat16
+// walk (k2_window.cuh's storage types: u and v rounded at the end of every
+// sweep, four bfloat16 pairs, 98,304 bytes of shared memory); the pencils
+// hold bfloat16 and the band copies move a lane's 4 values as 8 bytes.
+//
 // Exactness: K2's sweeps on K2's tiles, so K7 equals the plain sweeps (and
 // the K1 + K2 chain) bitwise.
 
@@ -71,19 +76,24 @@ using namespace hs_k2;
 
 constexpr int kPairs = 4;
 constexpr size_t kSmemBytes = kPairs * kPairBytes;
+constexpr size_t kSmemBytesBf16 = kPairs * pair_bytes<ArgsBf16>();
 constexpr int kMaxTiles = 3;  // m: tiles a block a band
 
 // The sweeps read their Args from the kernel's parameters (`full`, or
 // `rem` for the remainder block), as a K2 launch does; read from shared
 // memory or held in registers they ran slower.
-struct SkewArgs {
-  Args a;                 // the frame or stack and its fields; a.uo/a.vo = u/v
-  Args full, rem;         // a's sweeps and tiles at s and at n mod s (0: none)
-  const float *u0, *v0;   // the start, or null for zeros
-  float *pu, *pv;         // two pencils of s x w each
+template <class A>
+struct SkewArgsOf {
+  using E = typename A::Elem;
+  A a;                    // the frame or stack and its fields; a.uo/a.vo = u/v
+  A full, rem;            // a's sweeps and tiles at s and at n mod s (0: none)
+  const E *u0, *v0;       // the start, or null for zeros
+  E *pu, *pv;             // two pencils of s x w each
   unsigned long long* barrier;  // the grid barrier's count, zero at the start
   int n, s, m, band_ty;   // band_ty: tile rows a band
 };
+struct SkewArgs : SkewArgsOf<Args> {};
+struct SkewArgsBf16 : SkewArgsOf<ArgsBf16> {};
 
 // One band step: image, sweep block, band, and what follows from them.
 struct Step {
@@ -95,7 +105,8 @@ struct Step {
   int n_bands;
 };
 
-__device__ __forceinline__ Step step_at(const SkewArgs& f, int img, int k, int i) {
+template <class A>
+__device__ __forceinline__ Step step_at(const SkewArgsOf<A>& f, int img, int k, int i) {
   Step st;
   st.img = img;
   st.k = k;
@@ -115,7 +126,8 @@ __device__ __forceinline__ Step step_at(const SkewArgs& f, int img, int k, int i
 }
 
 // The step after `st` into *nx; false after the last.
-__device__ __forceinline__ bool next_step(const SkewArgs& f, const Step& st, Step* nx) {
+template <class A>
+__device__ __forceinline__ bool next_step(const SkewArgsOf<A>& f, const Step& st, Step* nx) {
   int img = st.img, k = st.k, i = st.i + 1;
   if (i == st.n_bands) {
     i = 0;
@@ -130,8 +142,9 @@ __device__ __forceinline__ bool next_step(const SkewArgs& f, const Step& st, Ste
 
 // The arguments of a step's staging and pencil (its sweeps take f.full or
 // f.rem).
-__device__ __forceinline__ Args step_args(const SkewArgs& f, const Step& st) {
-  Args a = f.a;
+template <class A>
+__device__ __forceinline__ A step_args(const SkewArgsOf<A>& f, const Step& st) {
+  A a = f.a;
   a.sweeps = st.ns;
   a.tiles_x = st.tiles_x;
   if (st.k == 0 && f.u0 != nullptr) {
@@ -141,7 +154,8 @@ __device__ __forceinline__ Args step_args(const SkewArgs& f, const Step& st) {
   return a;
 }
 
-__device__ __forceinline__ Tile step_tile(const Args& a, const Step& st, int t) {
+template <class A>
+__device__ __forceinline__ Tile step_tile(const A& a, const Step& st, int t) {
   const int ty = t / st.tiles_x;
   return tile_rc(a, geometry(st.ns), st.img, st.ty0 + ty, t - ty * st.tiles_x);
 }
@@ -167,22 +181,48 @@ __device__ __forceinline__ int scratch_pair(int m, int q) {
 // Starts the staging of this block's j-th tile of step st into `pair`:
 // window rows above the band from the pencil the band above saved, the rest
 // from u/v (zeros at a zero start); outside the array zeros.
-__device__ __forceinline__ void stage_step_tile(float* smem, int pair, const SkewArgs& f,
-                                                const Step& st, int j, int row0,
-                                                int col0) {
-  const Args a = step_args(f, st);
+template <class A>
+__device__ __forceinline__ void stage_step_tile(typename A::Elem* smem, int pair,
+                                                const SkewArgsOf<A>& f, const Step& st,
+                                                int j, int row0, int col0) {
+  const A a = step_args(f, st);
   const Tile t = step_tile(a, st, blockIdx.x + j * gridDim.x);
   const bool live = st.k > 0 || f.u0 != nullptr;
   const long long pen = (long long)(st.i % 2) * f.s * a.w;
   const int top = st.r0 - st.ns;  // the pencil's first row
   const int ac = t.c0 + col0;
-  float* pu = smem + 2 * pair * kArea;
+  typename A::Elem* pu = smem + 2 * pair * kArea;
+  if constexpr (!kIsFloat<A>) {
+    if (bf16_wide(a.vec, t.c0)) {  // the even lanes' 16-byte copies
+      if ((col0 & kLaneCols) == 0) {
+        const bool col_in = ac >= 0 && ac < a.w;
+#pragma unroll
+        for (int jj = 0; jj < kRows; ++jj) {
+          const int wr = row0 + jj;
+          const int ar = t.r0 + wr;
+          typename A::Elem* du = pu + wr * kWinW + col0;
+          if (ar >= 0 && ar < st.r0) {  // above the band, inside the image
+            const long long g = pen + (long long)(ar - top) * a.w + ac;
+            copy16(du, col_in ? f.pu + g : f.pu, col_in);
+            copy16(du + kArea, col_in ? f.pv + g : f.pv, col_in);
+          } else {
+            const long long g = t.base + (long long)ar * a.w + ac;
+            const bool in = live && col_in && ar >= 0 && ar < a.h;
+            copy16(du, in ? a.u + g : a.u, in);
+            copy16(du + kArea, in ? a.v + g : a.v, in);
+          }
+        }
+      }
+      copy_commit();
+      return;
+    }
+  }
   // One row at a time: on the 4-byte path the loads go through registers.
 #pragma unroll 1
   for (int jj = 0; jj < kRows; ++jj) {
     const int wr = row0 + jj;
     const int ar = t.r0 + wr;
-    float* du = pu + wr * kWinW + col0;
+    typename A::Elem* du = pu + wr * kWinW + col0;
     if (ar >= 0 && ar < st.r0) {  // above the band, inside the image
       const long long g = pen + (long long)(ar - top) * a.w + ac;
       copy_quad<true>(du, f.pu, g, a.vec, true, ac, a.w, true);
@@ -205,16 +245,18 @@ __device__ __forceinline__ bool has_tile(const Step& st, int j) {
 // Saves the band's last ns rows, still old, from this block's landed
 // windows into pencil (i + 1) % 2: each thread its own staged pixels of
 // the owned tiles.
-__device__ __forceinline__ void save_pencil(const float* smem, const SkewArgs& f,
-                                            const Step& st, int q, int row0, int col0) {
+template <class A>
+__device__ __forceinline__ void save_pencil(const typename A::Elem* smem,
+                                            const SkewArgsOf<A>& f, const Step& st, int q,
+                                            int row0, int col0) {
   if (st.r_end >= f.a.h) return;
-  const Args a = step_args(f, st);
+  const A a = step_args(f, st);
   const Geometry g = geometry(st.ns);
   const long long pen = (long long)((st.i + 1) % 2) * f.s * a.w;
   const int top = st.r_end - st.ns;
   for (int j = 0; j < f.m && has_tile(st, j); ++j) {
     const Tile t = step_tile(a, st, blockIdx.x + j * gridDim.x);
-    const float* su = smem + 2 * win_pair(f.m, q, j) * kArea;
+    const typename A::Elem* su = smem + 2 * win_pair(f.m, q, j) * kArea;
     const int ac = t.c0 + col0;
 #pragma unroll
     for (int jj = 0; jj < kRows; ++jj) {
@@ -222,18 +264,39 @@ __device__ __forceinline__ void save_pencil(const float* smem, const SkewArgs& f
       const int ar = t.r0 + wr;
       if (ar < top || ar >= st.r_end) continue;
       const long long p = pen + (long long)(ar - top) * a.w + ac;
-      const float4 u4 = ld4(su, wr, col0), v4 = ld4(su + kArea, wr, col0);
-      const float us[kLaneCols] = {u4.x, u4.y, u4.z, u4.w};
-      const float vs[kLaneCols] = {v4.x, v4.y, v4.z, v4.w};
-      if (a.vec && col0 >= g.lh && col0 + kLaneCols <= g.lh + g.tw && ac < a.w) {
-        *reinterpret_cast<float4*>(f.pu + p) = u4;
-        *reinterpret_cast<float4*>(f.pv + p) = v4;
-      } else {
+      if constexpr (!kIsFloat<A>) {
+        // bfloat16: the staged values as they are, 8 bytes a lane.
+        const unsigned short* us =
+            reinterpret_cast<const unsigned short*>(su) + wr * kWinW + col0;
+        const unsigned short* vs = us + kArea;
+        unsigned short* pu = reinterpret_cast<unsigned short*>(f.pu) + p;
+        unsigned short* pv = reinterpret_cast<unsigned short*>(f.pv) + p;
+        if (a.vec && col0 >= g.lh && col0 + kLaneCols <= g.lh + g.tw && ac < a.w) {
+          *reinterpret_cast<uint2*>(pu) = *reinterpret_cast<const uint2*>(us);
+          *reinterpret_cast<uint2*>(pv) = *reinterpret_cast<const uint2*>(vs);
+        } else {
 #pragma unroll
-        for (int c = 0; c < kLaneCols; ++c) {
-          if (col0 + c >= g.lh && col0 + c < g.lh + g.tw && ac + c < a.w) {
-            f.pu[p + c] = us[c];
-            f.pv[p + c] = vs[c];
+          for (int c = 0; c < kLaneCols; ++c) {
+            if (col0 + c >= g.lh && col0 + c < g.lh + g.tw && ac + c < a.w) {
+              pu[c] = us[c];
+              pv[c] = vs[c];
+            }
+          }
+        }
+      } else {
+        const float4 u4 = ld4(su, wr, col0), v4 = ld4(su + kArea, wr, col0);
+        const float us[kLaneCols] = {u4.x, u4.y, u4.z, u4.w};
+        const float vs[kLaneCols] = {v4.x, v4.y, v4.z, v4.w};
+        if (a.vec && col0 >= g.lh && col0 + kLaneCols <= g.lh + g.tw && ac < a.w) {
+          *reinterpret_cast<float4*>(f.pu + p) = u4;
+          *reinterpret_cast<float4*>(f.pv + p) = v4;
+        } else {
+#pragma unroll
+          for (int c = 0; c < kLaneCols; ++c) {
+            if (col0 + c >= g.lh && col0 + c < g.lh + g.tw && ac + c < a.w) {
+              f.pu[p + c] = us[c];
+              f.pv[p + c] = vs[c];
+            }
           }
         }
       }
@@ -243,8 +306,10 @@ __device__ __forceinline__ void save_pencil(const float* smem, const SkewArgs& f
 
 // The sweeps of this block's j-th tile of step st (its window in
 // win_pair(m, q, j)), written in place; `a` is f.full or f.rem.
-__device__ __forceinline__ void sweep_step_tile(float* smem, const Args& a, const Step& st,
-                                                int m, int q, int j, int row0, int col0) {
+template <class A>
+__device__ __forceinline__ void sweep_step_tile(typename A::Elem* smem, const A& a,
+                                                const Step& st, int m, int q, int j,
+                                                int row0, int col0) {
   const Tile tile = step_tile(a, st, blockIdx.x + j * gridDim.x);
   Fields fl;
   load_fields(fl, a, tile, row0, col0);
@@ -255,8 +320,9 @@ __device__ __forceinline__ void sweep_step_tile(float* smem, const Args& a, cons
   sweep_tile<false>(smem, cur, dst, a, geometry(a.sweeps), tile, ln, fl);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) skewed_kernel(const SkewArgs f) {
-  extern __shared__ __align__(16) float smem[];
+// The kernel's band steps, on arrays of A's storage type.
+template <class A>
+__device__ __forceinline__ void skewed_steps(typename A::Elem* smem, const SkewArgsOf<A>& f) {
   // The step (sh[q & 1]) and the next (sh[(q + 1) & 1]) live in shared
   // memory and are read where they are used, so that they hold no registers
   // across the sweeps (K2's sweeps leave none of the 128 a thread).
@@ -316,11 +382,73 @@ __global__ void __launch_bounds__(kThreads, 1) skewed_kernel(const SkewArgs f) {
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 1) skewed_kernel(const SkewArgs f) {
+  extern __shared__ __align__(16) float smem[];
+  skewed_steps<Args>(smem, f);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) skewed_kernel_bf16(const SkewArgsBf16 f) {
+  extern __shared__ __align__(16) float smem[];
+  skewed_steps<ArgsBf16>(reinterpret_cast<__nv_bfloat16*>(smem), f);
+}
+
+// hs_solve_skewed_sweeps on arrays of A's storage type E, F its kernel's
+// arguments (SkewArgs or SkewArgsBf16).
+template <class F, class A, class E = typename A::Elem, class Kernel>
+int skewed_sweeps(Kernel kernel, size_t smem, const E* u0, const E* v0, const E* ex,
+                  const E* ey, const E* et, const E* invd, E* u, E* v, E* pu, E* pv,
+                  unsigned long long* barrier, int b, int h, int w, int n, int s, int m,
+                  int band_ty, int grid, int device, void* stream) {
+  if (b < 1 || h < 1 || w < 1 || n < 1 || s < 1 || s > kMaxSweeps || m < 1 ||
+      m > kMaxTiles || band_ty < 1 || grid < 1 || (u0 == nullptr) != (v0 == nullptr) ||
+      barrier == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Geometry g = geometry(s);
+  const long long tiles_x = (w + g.tw - 1) / g.tw, tiles_y = (h + g.th - 1) / g.th;
+  if ((band_ty < tiles_y ? band_ty : tiles_y) * tiles_x > (long long)m * grid)
+    return (int)cudaErrorInvalidValue;
+  F f;
+  A& a = f.a;
+  a.u = u; a.v = v; a.ex = ex; a.ey = ey; a.et = et; a.invd = invd;
+  a.uo = u; a.vo = v; a.org = nullptr;
+  a.b = b; a.h = h; a.w = w; a.img_h = h; a.img_w = w;
+  a.sweeps = s; a.tiles_x = (int)tiles_x; a.tiles_y = (int)tiles_y;
+  auto all_aligned = [&](unsigned long long n) {
+    return aligned(ex, n) && aligned(ey, n) && aligned(et, n) && aligned(invd, n) &&
+           aligned(u, n) && aligned(v, n) && aligned(pu, n) && aligned(pv, n) &&
+           (u0 == nullptr || (aligned(u0, n) && aligned(v0, n)));
+  };
+  // 16 bytes (4 floats) or 8 (4 bfloat16 values) a lane's load or store; 2:
+  // bfloat16 rows also staged 16 bytes at a time (bf16_wide).
+  a.vec = w % 4 == 0 && all_aligned(4 * sizeof(E));
+  if (sizeof(E) == 2 && a.vec && w % 8 == 0 && all_aligned(16)) a.vec = 2;
+  f.full = f.rem = a;
+  const Geometry gr = geometry(n % s > 0 ? n % s : s);
+  f.rem.sweeps = n % s;
+  f.rem.tiles_x = (w + gr.tw - 1) / gr.tw;
+  f.rem.tiles_y = (h + gr.th - 1) / gr.th;
+  f.u0 = u0; f.v0 = v0; f.pu = pu; f.pv = pv;
+  f.n = n; f.s = s; f.m = m; f.band_ty = band_ty;
+  f.barrier = barrier;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(barrier, 0, sizeof(*barrier), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&f};
+  return (int)hs_coop::launch(kernel, grid, kThreads, smem, args, device, stream);
+}
+
 }  // namespace
 
 // Most blocks of K7 that can be resident at once on `device`.
 extern "C" int hs_solve_skewed_blocks(int device, int* blocks) {
   return (int)hs_coop::max_blocks(skewed_kernel, kSmemBytes, kThreads, device, blocks);
+}
+
+// The same for K7's bfloat16 build.
+extern "C" int hs_solve_skewed_blocks_bf16(int device, int* blocks) {
+  return (int)hs_coop::max_blocks(skewed_kernel_bf16, kSmemBytesBf16, kThreads, device,
+                                  blocks);
 }
 
 // K7's build at `sweeps` on `device`, as hs_jacobi_geometry reports K2's:
@@ -333,6 +461,15 @@ extern "C" int hs_solve_skewed_geometry(int sweeps, int device, int* out) {
   const int err = hs_solve_skewed_blocks(device, &grid_max);
   if (err != 0) return err;
   return (int)report(skewed_kernel, kSmemBytes, sweeps, device, grid_max, out);
+}
+
+// The same for K7's bfloat16 build.
+extern "C" int hs_solve_skewed_geometry_bf16(int sweeps, int device, int* out) {
+  if (sweeps < 1 || sweeps > kMaxSweeps) return (int)cudaErrorInvalidValue;
+  int grid_max = 0;
+  const int err = hs_solve_skewed_blocks_bf16(device, &grid_max);
+  if (err != 0) return err;
+  return (int)report(skewed_kernel_bf16, kSmemBytesBf16, sweeps, device, grid_max, out);
 }
 
 // n sweeps in place in (u, v), from (u0, v0) or from zeros when u0 is
@@ -349,36 +486,21 @@ extern "C" int hs_solve_skewed_sweeps(const float* u0, const float* v0,
                                       float* pv, unsigned long long* barrier, int b,
                                       int h, int w, int n, int s, int m, int band_ty,
                                       int grid, int device, void* stream) {
-  if (b < 1 || h < 1 || w < 1 || n < 1 || s < 1 || s > kMaxSweeps || m < 1 ||
-      m > kMaxTiles || band_ty < 1 || grid < 1 || (u0 == nullptr) != (v0 == nullptr) ||
-      barrier == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const Geometry g = geometry(s);
-  const long long tiles_x = (w + g.tw - 1) / g.tw, tiles_y = (h + g.th - 1) / g.th;
-  if ((band_ty < tiles_y ? band_ty : tiles_y) * tiles_x > (long long)m * grid)
-    return (int)cudaErrorInvalidValue;
-  SkewArgs f;
-  Args& a = f.a;
-  a.u = u; a.v = v; a.ex = ex; a.ey = ey; a.et = et; a.invd = invd;
-  a.uo = u; a.vo = v; a.org = nullptr;
-  a.b = b; a.h = h; a.w = w; a.img_h = h; a.img_w = w;
-  a.sweeps = s; a.tiles_x = (int)tiles_x; a.tiles_y = (int)tiles_y;
-  a.vec = w % 4 == 0 && aligned(ex) && aligned(ey) && aligned(et) && aligned(invd) &&
-          aligned(u) && aligned(v) && aligned(pu) && aligned(pv) &&
-          (u0 == nullptr || (aligned(u0) && aligned(v0)));
-  f.full = f.rem = a;
-  const Geometry gr = geometry(n % s > 0 ? n % s : s);
-  f.rem.sweeps = n % s;
-  f.rem.tiles_x = (w + gr.tw - 1) / gr.tw;
-  f.rem.tiles_y = (h + gr.th - 1) / gr.th;
-  f.u0 = u0; f.v0 = v0; f.pu = pu; f.pv = pv;
-  f.n = n; f.s = s; f.m = m; f.band_ty = band_ty;
-  f.barrier = barrier;
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(barrier, 0, sizeof(*barrier), (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {&f};
-  return (int)hs_coop::launch(skewed_kernel, grid, kThreads, kSmemBytes, args, device,
-                              stream);
+  return skewed_sweeps<SkewArgs, Args>(skewed_kernel, kSmemBytes, u0, v0, ex, ey, et, invd,
+                                       u, v, pu, pv, barrier, b, h, w, n, s, m, band_ty,
+                                       grid, device, stream);
+}
+
+// K7's bfloat16 build: the same arguments, every array (the pencils too)
+// bfloat16.
+extern "C" int hs_solve_skewed_sweeps_bf16(
+    const __nv_bfloat16* u0, const __nv_bfloat16* v0, const __nv_bfloat16* ex,
+    const __nv_bfloat16* ey, const __nv_bfloat16* et, const __nv_bfloat16* invd,
+    __nv_bfloat16* u, __nv_bfloat16* v, __nv_bfloat16* pu, __nv_bfloat16* pv,
+    unsigned long long* barrier, int b, int h, int w, int n, int s, int m, int band_ty,
+    int grid, int device, void* stream) {
+  return skewed_sweeps<SkewArgsBf16, ArgsBf16>(skewed_kernel_bf16, kSmemBytesBf16, u0, v0,
+                                               ex, ey, et, invd, u, v, pu, pv, barrier, b,
+                                               h, w, n, s, m, band_ty, grid, device,
+                                               stream);
 }

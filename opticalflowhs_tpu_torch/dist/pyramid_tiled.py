@@ -72,7 +72,7 @@ def hs_pyramid_tiled(
         raise ValueError("halo_sweeps must be >= 1")
     if cfg.solver in ("multigrid", "robust"):
         raise gspmd_unported(cfg.solver)
-    check_supported(cfg)
+    check_supported(cfg, tiled=True)
     i1 = _as_tensor(i1).to(mesh.first)
     i2 = _as_tensor(i2).to(mesh.first)
     if cfg.solver == "sor" and cfg.omega == 0.0:

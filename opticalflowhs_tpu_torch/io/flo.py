@@ -12,13 +12,16 @@ import os
 
 import numpy as np
 
+from opticalflowhs_tpu_torch.io.host import host_array
+
 FLO_MAGIC = 202021.25
 UNKNOWN_FLOW_THRESH = 1e9
 
 
 def write_flo(path: str | os.PathLike, flow: np.ndarray) -> None:
-    """Write an (H, W, 2) float flow field to a .flo file."""
-    flow = np.asarray(flow)
+    """Write an (H, W, 2) float flow field to a .flo file (numpy, or a
+    tensor of any float dtype, `host_array`)."""
+    flow = host_array(flow)
     if flow.ndim != 3 or flow.shape[2] != 2:
         raise ValueError(f".flo flow must be (H, W, 2), got {flow.shape}")
     h, w = flow.shape[:2]

@@ -19,6 +19,8 @@ import os
 
 import numpy as np
 
+from opticalflowhs_tpu_torch.io.host import host_array
+
 _OFFSET = 2**15
 _SCALE = 64.0
 _MAX_ABS = (_OFFSET - 1) / _SCALE  # ±511.98 px representable
@@ -54,7 +56,7 @@ def write_flow_png(
     Flow values beyond the format's ±512 px range are clipped (the devkit
     encoder overflows silently; clipping is the safer contract).
     """
-    flow = np.asarray(flow, dtype=np.float32)
+    flow = np.asarray(host_array(flow), dtype=np.float32)
     if flow.ndim != 3 or flow.shape[2] != 2:
         raise ValueError(f"expected (H, W, 2) flow, got {flow.shape}")
     h, w = flow.shape[:2]

@@ -123,6 +123,19 @@ SIGNATURES = {
     "hs_ring_fused_sweeps": [_P] * 11 + [_I] * 9 + [_U64] + [_I] * 2 + [_P],
 }
 
+# The bfloat16 builds of K1, K2, K6 and K7 (every array bfloat16, the
+# arithmetic float32; csrc/k2_window.cuh's storage types) take their float
+# builds' arguments; the geometry and resident-block queries report them.
+SIGNATURES.update({
+    f"{name}_bf16": SIGNATURES[name]
+    for name in ("hs_derivatives", "hs_jacobi_sweeps", "hs_solve_fused_blocks",
+                 "hs_solve_skewed_blocks", "hs_solve_fused_geometry",
+                 "hs_solve_skewed_geometry", "hs_solve_fused_sweeps",
+                 "hs_solve_skewed_sweeps")
+})
+# sweeps, device, out[8]: K2's bfloat16 build, as hs_jacobi_geometry's
+SIGNATURES["hs_jacobi_geometry_bf16"] = [_I, _I, _IP]
+
 # Largest batch one launch takes: CUDA's limit on gridDim.z.
 MAX_BATCH = 65535
 
@@ -229,6 +242,12 @@ def library() -> ctypes.CDLL:
     lib.hs_error_string.argtypes = [ctypes.c_int]
     lib.hs_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def bf16_suffix(dtype) -> str:
+    """"_bf16", the suffix of the bfloat16 builds' C entry points, for
+    torch.bfloat16 arrays; "" for float32 ones."""
+    return "_bf16" if str(dtype) == "torch.bfloat16" else ""
 
 
 def check(err: int, name: str) -> None:

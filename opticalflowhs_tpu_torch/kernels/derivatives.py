@@ -28,19 +28,36 @@ def derivatives_plain(i1: torch.Tensor, i2: torch.Tensor, alpha: float,
     """(Ex, Ey, Et, 1/(alpha^2+Ex^2+Ey^2)), plus (u1, v1) when zero_sweep.
 
     u1, v1 = 0 - Ex*(Et*invd), 0 - Ey*(Et*invd) is the first Jacobi sweep
-    from u = v = 0 exactly (neighbor_avg(0) == 0)."""
-    alpha = float(alpha)
-    ex, ey, et = stencils.derivatives(i1, i2, variant)
-    invd = 1.0 / (alpha * alpha + ex * ex + ey * ey)
+    from u = v = 0 exactly (neighbor_avg(0) == 0).
+
+    bfloat16 frames give bfloat16 arrays by the storage rule
+    (`stencils.store`): the fields are rounded, invd is formed from the
+    rounded Ex and Ey and rounded, and the first sweep is formed from the
+    rounded arrays. In float32 these are the plain ops with no rounding."""
+    alpha2 = float(alpha) * float(alpha)
+    ex, ey, et = stencils.store(lambda a, b: stencils.derivatives(a, b, variant), i1, i2)
+    invd = stencils.store(lambda x, y: 1.0 / (alpha2 + x * x + y * y), ex, ey)
     if not zero_sweep:
         return ex, ey, et, invd
-    frac = et * invd
-    return ex, ey, et, invd, 0.0 - ex * frac, 0.0 - ey * frac
+
+    def first(x, y, t, i):
+        frac = t * i
+        return 0.0 - x * frac, 0.0 - y * frac
+
+    return (ex, ey, et, invd) + stencils.store(first, ex, ey, et, invd)
 
 
-def check_frames(name: str, *arrays: torch.Tensor) -> None:
-    """The kernels take (H, W) or (B, H, W) float32 contiguous tensors of one
-    shape on one device; raise ValueError on anything else.
+# The storage types of the kernels with a bfloat16 build (K1, K2, K6, K7
+# and the K1 + K2 driver); every other kernel takes float32 only.
+BF16_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_frames(name: str, *arrays: torch.Tensor,
+                 dtypes=(torch.float32,)) -> None:
+    """The kernels take (H, W) or (B, H, W) contiguous tensors of one
+    shape, one dtype and one device; raise ValueError on anything else.
+    The dtype is float32, or one of `dtypes` for an entry with builds in
+    more types (BF16_DTYPES).
 
     Raise RuntimeError for CUDA tensors of which any requires grad while
     grad mode is on: the kernels write their outputs through raw pointers,
@@ -60,15 +77,17 @@ def check_frames(name: str, *arrays: torch.Tensor) -> None:
             raise ValueError(
                 f"{name}: expected (H, W) or (B, H, W) tensors, got {tuple(a.shape)}"
             )
-        if a.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32, got {a.dtype}")
+        if a.dtype not in dtypes:
+            names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise ValueError(f"{name}: expected {names}, got {a.dtype}")
         if not a.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
-        if a.shape != first.shape or a.device != first.device:
+        if (a.shape != first.shape or a.device != first.device
+                or a.dtype != first.dtype):
             raise ValueError(
-                f"{name}: tensors differ in shape or device: "
-                f"{tuple(a.shape)} on {a.device} vs "
-                f"{tuple(first.shape)} on {first.device}"
+                f"{name}: tensors differ in shape, dtype or device: "
+                f"{tuple(a.shape)} {a.dtype} on {a.device} vs "
+                f"{tuple(first.shape)} {first.dtype} on {first.device}"
             )
     if first.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {first.device}")
@@ -101,13 +120,15 @@ def hs_derivatives(i1: torch.Tensor, i2: torch.Tensor, alpha: float,
     """K1 wrapper over an (H, W) pair or a (B, H, W) stack of pairs: the
     kernel on CUDA tensors (one launch for the whole stack),
     `derivatives_plain` on CPU tensors. Returns (ex, ey, et, invd) or, with
-    zero_sweep, also (u1, v1), each of the frames' shape. Differentiable
-    with respect to both frames (`autodiff`)."""
+    zero_sweep, also (u1, v1), each of the frames' shape and dtype
+    (float32, or bfloat16 through the kernel's bfloat16 build, which
+    computes in float32 and rounds each array once where it is stored).
+    Differentiable with respect to both frames (`autodiff`)."""
     if autodiff.needs_grad(i1, i2):
         return autodiff.KernelEntry.apply(
             lambda a, b: hs_derivatives(a, b, alpha, variant, zero_sweep),
             lambda a, b: derivatives_plain(a, b, alpha, variant, zero_sweep), i1, i2)
-    check_frames("hs_derivatives", i1, i2)
+    check_frames("hs_derivatives", i1, i2, dtypes=BF16_DTYPES)
     if variant not in _VARIANT_CODES:
         raise ValueError(f"unknown derivative variant {variant!r}")
     if i1.device.type == "cpu":
@@ -118,8 +139,7 @@ def hs_derivatives(i1: torch.Tensor, i2: torch.Tensor, alpha: float,
         return tuple(outs)
     ptrs = [o.data_ptr() for o in outs] + ([None, None] if not zero_sweep else [])
     alpha2 = float(alpha) * float(alpha)
-    lib = _build.library()
-    err = lib.hs_derivatives(
+    err = getattr(_build.library(), "hs_derivatives" + _build.bf16_suffix(i1.dtype))(
         i1.data_ptr(), i2.data_ptr(), *ptrs, b, h, w, alpha2,
         _VARIANT_CODES[variant], i1.device.index,
         torch.cuda.current_stream(i1.device).cuda_stream,

@@ -27,7 +27,11 @@ import ctypes
 import torch
 
 from opticalflowhs_tpu_torch.kernels import _build, autodiff
-from opticalflowhs_tpu_torch.kernels.derivatives import batch_dims, check_frames
+from opticalflowhs_tpu_torch.kernels.derivatives import (
+    BF16_DTYPES,
+    batch_dims,
+    check_frames,
+)
 from opticalflowhs_tpu_torch.ops import stencils
 
 # The default sweeps per launch (HSConfig.block_sweeps = 0) of every Jacobi
@@ -103,9 +107,11 @@ def jacobi_sweeps_plain(u, v, ex, ey, et, inv_den, n: int):
     stack each image on its own, as the reference's vmapped twin (the
     stencils clamp per image). The sweeps run through
     `stencils.checkpointed_loop`, as the reference's twin (`_jnp_sweeps`):
-    the same values, and a gradient tape of O(sqrt(n)) fields."""
+    the same values, and a gradient tape of O(sqrt(n)) fields. bfloat16
+    arrays follow the storage rule (`stencils.store`): float32 arithmetic,
+    u and v rounded at the end of every sweep."""
     return stencils.checkpointed_loop(
-        lambda uv: stencils.jacobi_step(*uv, ex, ey, et, inv_den), (u, v), n)
+        lambda uv: stencils.store(stencils.jacobi_step, *uv, ex, ey, et, inv_den), (u, v), n)
 
 
 def k2_stage(a, r0: int, c0: int, window=(K2_WINDOW_H, K2_WINDOW_W)):
@@ -245,15 +251,22 @@ def k2_sweeps_schedule_plain(u, v, ex, ey, et, inv_den, n: int, s: int, **kw):
     return u, v
 
 
-def k2_geometry(device, sweeps: int = AUTO_SWEEPS, shard: bool = False) -> dict:
-    """K2's (with shard=True K9's) geometry on a CUDA device at `sweeps`,
-    as the built kernel reports it: tile, threads, shared bytes, registers
-    a thread and spilled bytes (cudaFuncGetAttributes), resident blocks a
-    multiprocessor and multiprocessors."""
+def k2_geometry(device, sweeps: int = AUTO_SWEEPS, shard: bool = False,
+                dtype=torch.float32) -> dict:
+    """K2's (with shard=True K9's; with dtype=torch.bfloat16 K2's bfloat16
+    build's) geometry on a CUDA device at `sweeps`, as the built kernel
+    reports it: tile, threads, shared bytes, registers a thread and spilled
+    bytes (cudaFuncGetAttributes), resident blocks a multiprocessor and
+    multiprocessors."""
     out = (ctypes.c_int * 8)()
-    err = _build.library().hs_jacobi_geometry(
-        sweeps, int(shard), torch.device(device).index or 0,
-        ctypes.cast(out, ctypes.POINTER(ctypes.c_int)))
+    ptr = ctypes.cast(out, ctypes.POINTER(ctypes.c_int))
+    dev = torch.device(device).index or 0
+    if dtype == torch.bfloat16:
+        if shard:
+            raise ValueError("K9 has no bfloat16 build")
+        err = _build.library().hs_jacobi_geometry_bf16(sweeps, dev, ptr)
+    else:
+        err = _build.library().hs_jacobi_geometry(sweeps, int(shard), dev, ptr)
     _build.check(err, "hs_jacobi_geometry")
     keys = ("tile_h", "tile_w", "threads", "smem_bytes", "registers",
             "spill_bytes", "blocks_per_sm", "sms")
@@ -263,13 +276,12 @@ def k2_geometry(device, sweeps: int = AUTO_SWEEPS, shard: bool = False) -> dict:
 def launch_sweeps(u, v, ex, ey, et, inv_den, uo, vo, sweeps: int) -> None:
     """One K2 launch: `sweeps` sweeps from (u, v) into (uo, vo), on the
     current stream, over a frame or a whole stack. All eight tensors are
-    CUDA float32 of one shape (checked by the callers); uo/vo must not
-    alias u/v."""
+    CUDA tensors of one shape and one dtype, float32 or bfloat16 (checked
+    by the callers); uo/vo must not alias u/v."""
     b, h, w = batch_dims("hs_jacobi_sweeps", u)
     if u.numel() == 0:
         return
-    lib = _build.library()
-    err = lib.hs_jacobi_sweeps(
+    err = getattr(_build.library(), "hs_jacobi_sweeps" + _build.bf16_suffix(u.dtype))(
         u.data_ptr(), v.data_ptr(), ex.data_ptr(), ey.data_ptr(),
         et.data_ptr(), inv_den.data_ptr(), uo.data_ptr(), vo.data_ptr(),
         b, h, w, sweeps, u.device.index,
@@ -312,14 +324,16 @@ def jacobi_sweeps(u, v, ex, ey, et, inv_den, n_sweeps: int,
     """n Jacobi sweeps on (H, W) tensors or a (B, H, W) stack of independent
     images: on CUDA tensors ceil(n/s) K2 launches (for the whole stack,
     each image clamped at its own edges), `jacobi_sweeps_plain` on CPU
-    tensors. Returns (u, v); the inputs are not modified. Differentiable
+    tensors. float32 or bfloat16 (the kernel's bfloat16 build: float32
+    arithmetic, u and v rounded at the end of every sweep, the same
+    launches). Returns (u, v); the inputs are not modified. Differentiable
     with respect to all six tensors (`autodiff`: the VJP of
     `jacobi_sweeps_plain`, as the reference's `_jacobi_sweeps_ad`)."""
     if autodiff.needs_grad(u, v, ex, ey, et, inv_den):
         return autodiff.KernelEntry.apply(
             lambda *t: jacobi_sweeps(*t, n_sweeps, block_sweeps),
             lambda *t: jacobi_sweeps_plain(*t, n_sweeps), u, v, ex, ey, et, inv_den)
-    check_frames("jacobi_sweeps", u, v, ex, ey, et, inv_den)
+    check_frames("jacobi_sweeps", u, v, ex, ey, et, inv_den, dtypes=BF16_DTYPES)
     if n_sweeps == 0:
         return u, v
     if u.device.type == "cpu":

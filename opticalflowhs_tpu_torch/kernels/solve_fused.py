@@ -15,7 +15,7 @@ where the K1 + K2 chain takes 1 + ceil((n-1)/s). `fused_schedule_plain`
 walks that schedule in plain torch.
 
 Unlike the TPU kernel, which returns None outside its class, these entry
-points run every float32 size; `applicable` is the reference's class test,
+points run every size, in float32 and in bfloat16; `applicable` is the reference's class test,
 by which `solver.solve_level` routes. CPU tensors take the plain version;
 a CUDA tensor goes through the kernels or the call raises (no fallback).
 """
@@ -29,6 +29,7 @@ import torch
 
 from opticalflowhs_tpu_torch.kernels import _build, autodiff
 from opticalflowhs_tpu_torch.kernels.derivatives import (
+    BF16_DTYPES,
     batch_dims,
     check_frames,
     derivatives_plain,
@@ -46,13 +47,14 @@ from opticalflowhs_tpu_torch.kernels.jacobi import (
 )
 from opticalflowhs_tpu_torch.kernels.solve_resident import (
     _LANE,
-    _SUBLANE,
     hs_solve_resident_plain,
     round_up,
+    sublane,
 )
 
 # The reference's fused class (opticalflowhs_tpu/kernels/solve_fused.py
-# `pick_geometry` :71 and `applicable` :274, float32): frames past its
+# `pick_geometry` :71 and `applicable` :274, in the dtype's bytes and
+# sublanes): frames past its
 # whole-image VMEM class (17 arrays within 100 MiB), for which a band of at
 # least sigma rows of 22 arrays fits the budget. The constants, the
 # TPU-calibrated time model that ranks its geometries included, are the
@@ -65,17 +67,17 @@ _ROW_SWEEP_PS = 17
 _STEP_PS = 30_000_000
 
 
-def _reference_geometry(h: int, wp: int, n: int, s_cap: int):
-    """The reference's `pick_geometry` for float32: (s, rem, sigma, band,
-    hp) of the cheapest modelled schedule, or None."""
-    unit = wp * 4 * _ARRAYS
+def _reference_geometry(h: int, wp: int, n: int, s_cap: int, itemsize: int = 4):
+    """The reference's `pick_geometry` for a dtype of `itemsize` bytes:
+    (s, rem, sigma, band, hp) of the cheapest modelled schedule, or None."""
+    unit = wp * itemsize * _ARRAYS
     cap = max(1, min(s_cap, MAX_S, n))
     best = None
     for s in range(8, cap + 1):
         n_full, rem = divmod(n, s)
         if n_full == 0:
             continue
-        sigma = round_up(s, _SUBLANE)
+        sigma = round_up(s, sublane(itemsize))
         band_max = _VMEM_BUDGET // unit - 2 * sigma
         if band_max < sigma:
             continue
@@ -90,17 +92,18 @@ def _reference_geometry(h: int, wp: int, n: int, s_cap: int):
     return None if best is None else best[1]
 
 
-def applicable(h: int, w: int, n: int, s_cap: int):
-    """The reference's `solve_fused.applicable(i1, n, s_cap)` for a float32
-    (h, w) frame: its geometry when its fused pipeline takes the solve,
-    else None (n < 2, the whole-image VMEM class, or no geometry, as for
-    s_cap < 8)."""
+def applicable(h: int, w: int, n: int, s_cap: int, itemsize: int = 4):
+    """The reference's `solve_fused.applicable(i1, n, s_cap)` for an (h, w)
+    frame of `itemsize`-byte elements: its geometry when its fused pipeline
+    takes the solve, else None (n < 2, the whole-image VMEM class, or no
+    geometry, as for s_cap < 8)."""
     if n < 2:
         return None
     wp = round_up(w, _LANE)
-    if round_up(h, _SUBLANE) * wp * 4 * _VMEM_ARRAYS_WHOLE <= _VMEM_BUDGET:
+    if (round_up(h, sublane(itemsize)) * wp * itemsize * _VMEM_ARRAYS_WHOLE
+            <= _VMEM_BUDGET):
         return None
-    return _reference_geometry(h, wp, n, s_cap)
+    return _reference_geometry(h, wp, n, s_cap, itemsize)
 
 
 def hs_solve_fused_plain(i1, i2, alpha: float, n: int,
@@ -154,9 +157,11 @@ def build_geometry(entry: str, device, sweeps: int) -> dict:
     return dict(zip(keys, list(out)))
 
 
-def k6_geometry(device, sweeps: int = 8) -> dict:
-    """K6's build at `sweeps` (`build_geometry`)."""
-    return build_geometry("hs_solve_fused_geometry", device, sweeps)
+def k6_geometry(device, sweeps: int = 8, dtype=torch.float32) -> dict:
+    """K6's build (of `dtype`: float32 or bfloat16) at `sweeps`
+    (`build_geometry`)."""
+    return build_geometry("hs_solve_fused_geometry" + _build.bf16_suffix(dtype), device,
+                          sweeps)
 
 
 def _ptr(a):
@@ -187,10 +192,11 @@ def launch_fused(u0, v0, ex, ey, et, invd, n: int, s: int, blocks: int = 0):
     dev = ex.device.index
     th, tw, _ = k2_tile(s)
     tiles = b * -(-h // th) * -(-w // tw)
+    bf16 = _build.bf16_suffix(ex.dtype)
     grid = blocks if blocks > 0 else min(
-        tiles, resident_blocks("hs_solve_fused_blocks", dev))
+        tiles, resident_blocks("hs_solve_fused_blocks" + bf16, dev))
     stream = torch.cuda.current_stream(ex.device).cuda_stream
-    err = _build.library().hs_solve_fused_sweeps(
+    err = getattr(_build.library(), "hs_solve_fused_sweeps" + bf16)(
         _ptr(u0), _ptr(v0), ex.data_ptr(), ey.data_ptr(), et.data_ptr(),
         invd.data_ptr(), ua.data_ptr(), va.data_ptr(), ub.data_ptr(),
         vb.data_ptr(), barrier_count(dev, stream).data_ptr(), b, h, w, n,
@@ -206,7 +212,8 @@ def hs_solve_fused(i1, i2, alpha: float, n: int, variant: str = "hs_cube",
     """Whole HS solve of an (H, W) pair or a (B, H, W) stack, from zero or
     from (u0, v0): on CUDA tensors K1, then one K6 launch of all n sweeps
     (s = `jacobi.sweeps_per_launch(block_sweeps)` a block; `blocks` > 0
-    forces the grid); the plain version on CPU tensors. Returns (u, v).
+    forces the grid); the plain version on CPU tensors. float32 or
+    bfloat16 (K1's and K6's bfloat16 builds). Returns (u, v).
     Differentiable with respect to the frames and the start (`autodiff`:
     the VJP of `hs_solve_fused_plain`)."""
     if (u0 is None) != (v0 is None):
@@ -217,7 +224,8 @@ def hs_solve_fused(i1, i2, alpha: float, n: int, variant: str = "hs_cube",
                                               block_sweeps, blocks),
             lambda a, b, c, d: hs_solve_fused_plain(a, b, alpha, n, variant, c, d),
             i1, i2, u0, v0)
-    check_frames("hs_solve_fused", i1, i2, *(() if u0 is None else (u0, v0)))
+    check_frames("hs_solve_fused", i1, i2, *(() if u0 is None else (u0, v0)),
+                 dtypes=BF16_DTYPES)
     if n < 0:
         raise ValueError("n must be >= 0")
     if i1.device.type == "cpu":

@@ -17,8 +17,8 @@ K2 (or K3) launch runs several sweeps on shared-memory tiles.
 
 Two u/v pairs ping-pong; nothing synchronises with the host. Unlike the
 TPU kernel, which returns None outside its VMEM residency class and for
-the central variant, this driver covers every float32 size and both
-derivative variants.
+the central variant, this driver covers every size and both derivative
+variants, in float32 and in bfloat16 (K1's and K2's bfloat16 builds).
 
 `applicable` is the reference's class test for its resident kernel, kept
 here as a plain function of the frame's size: `solver.solve_level` routes
@@ -37,6 +37,7 @@ import torch
 
 from opticalflowhs_tpu_torch.kernels import autodiff, sor
 from opticalflowhs_tpu_torch.kernels.derivatives import (
+    BF16_DTYPES,
     check_frames,
     derivatives_plain,
     hs_derivatives,
@@ -48,10 +49,12 @@ from opticalflowhs_tpu_torch.kernels.jacobi import (
 )
 
 # The reference's resident class (opticalflowhs_tpu/kernels/solve_resident.py
-# `pick_geometry` :94 and `applicable` :607, float32, no HSFLOW_* overrides):
-# 4 fields + 2 u/v pairs + band temporaries within a 118 MiB TPU VMEM
-# budget. These are the reference's routing rule, not properties of the
-# H100; the port keeps them so that it routes as the reference does.
+# `pick_geometry` :94 and `applicable` :607, no HSFLOW_* overrides): 4
+# fields + 2 u/v pairs + band temporaries within a 118 MiB TPU VMEM budget,
+# counted in the dtype's bytes and sublanes (`sublane`: 8 rows for
+# float32, 16 for bfloat16). These are the reference's routing rule, not
+# properties of the H100; the port keeps them so that it routes as the
+# reference does.
 _LANE = 128
 _SUBLANE = 8
 _RESIDENT_ARRAYS = 8
@@ -63,38 +66,47 @@ def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _resident_geometry(h: int, w: int):
-    """The reference's `pick_geometry(h, w, float32)` at stages=1:
-    (nb, band, hp, wp, s, sigma) for the fewest bands that fit, or None."""
+def sublane(itemsize: int) -> int:
+    """The reference's `_sublane`: rows of a TPU tile, 8 for 4-byte and 16
+    for 2-byte (bfloat16) elements."""
+    return _SUBLANE if itemsize == 4 else 2 * _SUBLANE
+
+
+def _resident_geometry(h: int, w: int, itemsize: int = 4):
+    """The reference's `pick_geometry(h, w, dtype)` at stages=1 for a dtype
+    of `itemsize` bytes: (nb, band, hp, wp, s, sigma) for the fewest bands
+    that fit, or None."""
+    sub = sublane(itemsize)
     wp = round_up(w, _LANE)
-    h_units = -(-h // _SUBLANE)
+    h_units = -(-h // sub)
     for nb in range(1, h_units + 1):
-        band = -(-h_units // nb) * _SUBLANE
+        band = -(-h_units // nb) * sub
         hp = band * nb
-        sigma = 0 if nb == 1 else _SUBLANE  # round_up(s = 1, sublane)
+        sigma = 0 if nb == 1 else sub  # round_up(s = 1, sublane)
         if nb > 1 and sigma > band:
             continue
-        resident = _RESIDENT_ARRAYS * hp * wp * 4
-        temps = _TEMP_ARRAYS * (band + 2 * sigma) * wp * 4
-        deriv_win = 2 * (band + _SUBLANE) * wp * 4
+        resident = _RESIDENT_ARRAYS * hp * wp * itemsize
+        temps = _TEMP_ARRAYS * (band + 2 * sigma) * wp * itemsize
+        deriv_win = 2 * (band + sub) * wp * itemsize
         if resident + temps + deriv_win <= _RESIDENT_LIMIT:
             return nb, band, hp, wp, 1, sigma
     return None
 
 
-def applicable(h: int, w: int, n: int, variant: str):
-    """The reference's `solve_resident.applicable` for a float32 (h, w)
-    frame: its geometry when its resident kernel takes the solve (hs_cube,
-    n >= 1, within the budget), else None."""
+def applicable(h: int, w: int, n: int, variant: str, itemsize: int = 4):
+    """The reference's `solve_resident.applicable` for an (h, w) frame of
+    `itemsize`-byte elements: its geometry when its resident kernel takes
+    the solve (hs_cube, n >= 1, within the budget), else None."""
     if n < 1 or variant != "hs_cube":
         return None
-    return _resident_geometry(h, w)
+    return _resident_geometry(h, w, itemsize)
 
 
 def hs_solve_resident_plain(i1, i2, alpha: float, n: int,
                             variant: str = "hs_cube", u0=None, v0=None):
     """Plain version of the whole solve: derivatives, then n sweeps; on a
-    stack each image on its own (the stencils clamp per image)."""
+    stack each image on its own (the stencils clamp per image). bfloat16
+    frames and start follow the storage rule of `stencils.store`."""
     if u0 is None:
         if n == 0:
             return torch.zeros_like(i1), torch.zeros_like(i1)
@@ -109,8 +121,8 @@ def hs_solve_resident(i1, i2, alpha: float, n: int, variant: str = "hs_cube",
                       u0=None, v0=None, block_sweeps: int = 0):
     """Whole HS solve (derivatives + n Jacobi sweeps) of an (H, W) pair or a
     (B, H, W) stack of pairs, from zero or from (u0, v0). K1 + K2 on CUDA
-    tensors (one chain for the whole stack), the plain version on CPU
-    tensors. Returns (u, v). Differentiable with respect to the frames and
+    tensors (one chain for the whole stack; float32 or the bfloat16
+    builds), the plain version on CPU tensors. Returns (u, v). Differentiable with respect to the frames and
     the start (`autodiff`: the VJP of `hs_solve_resident_plain`)."""
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
@@ -120,7 +132,8 @@ def hs_solve_resident(i1, i2, alpha: float, n: int, variant: str = "hs_cube",
                                                  block_sweeps),
             lambda a, b, c, d: hs_solve_resident_plain(a, b, alpha, n, variant, c, d),
             i1, i2, u0, v0)
-    check_frames("hs_solve_resident", i1, i2, *(() if u0 is None else (u0, v0)))
+    check_frames("hs_solve_resident", i1, i2, *(() if u0 is None else (u0, v0)),
+                 dtypes=BF16_DTYPES)
     if n < 0:
         raise ValueError("n must be >= 0")
     if i1.device.type == "cpu":

@@ -16,7 +16,8 @@ behind the one before included, in plain PyTorch, so the CPU tests can
 show that the order is right.
 
 Unlike the TPU kernel, which returns None outside its class, these entry
-points run every float32 size whose band of tiles fits the grid;
+points run every size whose band of tiles fits the grid, in float32 and
+in bfloat16;
 `applicable` is the reference's class test, by which `solver.solve_level`
 routes. CPU tensors take the plain version; a CUDA tensor goes through the
 kernels or the call raises (no fallback).
@@ -30,6 +31,7 @@ import torch
 
 from opticalflowhs_tpu_torch.kernels import _build, autodiff
 from opticalflowhs_tpu_torch.kernels.derivatives import (
+    BF16_DTYPES,
     batch_dims,
     check_frames,
     derivatives_plain,
@@ -56,14 +58,15 @@ from opticalflowhs_tpu_torch.kernels.solve_fused import (
 )
 from opticalflowhs_tpu_torch.kernels.solve_resident import (
     _LANE,
-    _SUBLANE,
     _resident_geometry,
     hs_solve_resident_plain,
     round_up,
+    sublane,
 )
 
 # The reference's skewed class (opticalflowhs_tpu/kernels/solve_skewed.py
-# `pick_geometry` :86 and `applicable` :459, float32): frames of at least
+# `pick_geometry` :86 and `applicable` :459, in the dtype's bytes and
+# sublanes): frames of at least
 # _MIN_PX pixels past the resident class whose two u/v arrays, window set
 # and pencils fit a 118 MiB TPU VMEM budget (about 2.6-11 Mpx, so 4K and
 # not 8K). The constants are the reference's routing rule, not properties
@@ -86,9 +89,9 @@ MAX_TILES = 3
 _STEP_COST = 0.25
 
 
-def _reference_geometry(h: int, w: int, n: int, s_cap: int):
-    """The reference's `pick_geometry` for float32: (s, rem, sigma, band,
-    hp) of the cheapest modelled schedule, or None."""
+def _reference_geometry(h: int, w: int, n: int, s_cap: int, itemsize: int = 4):
+    """The reference's `pick_geometry` for a dtype of `itemsize` bytes:
+    (s, rem, sigma, band, hp) of the cheapest modelled schedule, or None."""
     wp = round_up(w, _LANE)
     cap = max(1, min(s_cap, MAX_S, n))
     best = None
@@ -96,7 +99,7 @@ def _reference_geometry(h: int, w: int, n: int, s_cap: int):
         n_full, rem = divmod(n, s)
         if n_full == 0:
             continue
-        sigma = round_up(s, _SUBLANE)
+        sigma = round_up(s, sublane(itemsize))
         h_units = -(-h // sigma)
         geom = None
         for nb in range(1, h_units + 1):
@@ -104,7 +107,7 @@ def _reference_geometry(h: int, w: int, n: int, s_cap: int):
             hp = band * nb
             win = band + 2 * sigma
             need = (2 * (hp + sigma) * wp + _ARRAYS_WIN * win * wp
-                    + 2 * sigma * wp) * 4
+                    + 2 * sigma * wp) * itemsize
             if need <= _LIMIT:
                 geom = (nb, band, hp, win)
                 break
@@ -119,14 +122,15 @@ def _reference_geometry(h: int, w: int, n: int, s_cap: int):
     return None if best is None else best[1]
 
 
-def applicable(h: int, w: int, n: int):
-    """The reference's `solve_skewed.applicable(i1, n)` for a float32
-    (h, w) frame: its geometry when its skewed kernel takes the solve, else
-    None (n < 2, below _MIN_PX, the resident class, or too large for
-    2-array residency)."""
-    if n < 2 or h * w < _MIN_PX or _resident_geometry(h, w) is not None:
+def applicable(h: int, w: int, n: int, itemsize: int = 4):
+    """The reference's `solve_skewed.applicable(i1, n)` for an (h, w) frame
+    of `itemsize`-byte elements: its geometry when its skewed kernel takes
+    the solve, else None (n < 2, below _MIN_PX, the resident class, or too
+    large for 2-array residency)."""
+    if (n < 2 or h * w < _MIN_PX
+            or _resident_geometry(h, w, itemsize) is not None):
         return None
-    return _reference_geometry(h, w, n, MAX_S)
+    return _reference_geometry(h, w, n, MAX_S, itemsize)
 
 
 @functools.cache
@@ -170,14 +174,16 @@ def geometry(h: int, w: int, s: int, blocks: int, band: int = 0,
 
 
 def k7_geometry(device, h: int, w: int, sweeps: int = AUTO_SWEEPS,
-                band: int = 0, blocks: int = 0) -> dict:
+                band: int = 0, blocks: int = 0, dtype=torch.float32) -> dict:
     """K7's plan for an (h, w) frame on a CUDA device (`geometry` on the
-    resident grid, or `blocks`) and its build at `sweeps`: tile, m, band
-    rows, bands, threads, shared bytes, registers a thread, spilled bytes,
-    resident blocks a multiprocessor, multiprocessors."""
+    resident grid, or `blocks`) and its build (of `dtype`: float32 or
+    bfloat16) at `sweeps`: tile, m, band rows, bands, threads, shared bytes,
+    registers a thread, spilled bytes, resident blocks a multiprocessor,
+    multiprocessors."""
     dev = torch.device(device).index or 0
-    grid = blocks if blocks > 0 else resident_blocks("hs_solve_skewed_blocks", dev)
-    out = build_geometry("hs_solve_skewed_geometry", device, sweeps)
+    bf16 = _build.bf16_suffix(dtype)
+    grid = blocks if blocks > 0 else resident_blocks("hs_solve_skewed_blocks" + bf16, dev)
+    out = build_geometry("hs_solve_skewed_geometry" + bf16, device, sweeps)
     _, _, out["m"], out["band"], out["bands"] = geometry(h, w, sweeps, grid, band)
     out["grid"] = grid
     return out
@@ -327,13 +333,14 @@ def launch_skewed(u0, v0, ex, ey, et, invd, n: int, s: int, band: int = 0,
     larger than can be resident raises). Returns (u, v)."""
     b, h, w = batch_dims("hs_solve_skewed_sweeps", ex)
     dev = ex.device.index
-    grid = blocks if blocks > 0 else resident_blocks("hs_solve_skewed_blocks", dev)
+    bf16 = _build.bf16_suffix(ex.dtype)
+    grid = blocks if blocks > 0 else resident_blocks("hs_solve_skewed_blocks" + bf16, dev)
     th, _, m, band_rows, _ = geometry(h, w, s, grid, band)
     u, v = torch.empty_like(ex), torch.empty_like(ex)
     pu, pv = (torch.empty(2 * s * w, dtype=ex.dtype, device=ex.device)
               for _ in range(2))
     stream = torch.cuda.current_stream(ex.device).cuda_stream
-    err = _build.library().hs_solve_skewed_sweeps(
+    err = getattr(_build.library(), "hs_solve_skewed_sweeps" + bf16)(
         _ptr(u0), _ptr(v0), ex.data_ptr(), ey.data_ptr(), et.data_ptr(),
         invd.data_ptr(), u.data_ptr(), v.data_ptr(), pu.data_ptr(),
         pv.data_ptr(), barrier_count(dev, stream).data_ptr(), b, h, w, n, s,
@@ -351,7 +358,8 @@ def hs_solve_skewed(i1, i2, alpha: float, n: int, variant: str = "hs_cube",
     from (u0, v0), with no second u/v pair: on CUDA tensors K1, then one K7
     launch of all n sweeps (s = `jacobi.sweeps_per_launch(block_sweeps)`
     a block; `band` and `blocks` > 0 force the geometry); the plain version
-    on CPU tensors. Returns (u, v). Differentiable with respect to the
+    on CPU tensors. float32 or bfloat16 (K1's and K7's bfloat16 builds; the
+    pencils are of the arrays' dtype). Returns (u, v). Differentiable with respect to the
     frames and the start (`autodiff`: the VJP of `hs_solve_skewed_plain`)."""
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
@@ -361,7 +369,8 @@ def hs_solve_skewed(i1, i2, alpha: float, n: int, variant: str = "hs_cube",
                                                block_sweeps, band, blocks),
             lambda a, b, c, d: hs_solve_skewed_plain(a, b, alpha, n, variant, c, d),
             i1, i2, u0, v0)
-    check_frames("hs_solve_skewed", i1, i2, *(() if u0 is None else (u0, v0)))
+    check_frames("hs_solve_skewed", i1, i2, *(() if u0 is None else (u0, v0)),
+                 dtypes=BF16_DTYPES)
     if n < 0:
         raise ValueError("n must be >= 0")
     if i1.device.type == "cpu":

@@ -120,8 +120,10 @@ def _lk_pyramid_body(i1: torch.Tensor, i2: torch.Tensor, cfg: LKConfig,
 def _check_dtype(cfg: LKConfig) -> None:
     if cfg.dtype != "float32":
         raise NotImplementedError(
-            f"dtype={cfg.dtype!r} is not ported yet (ROADMAP.md queue 1, "
-            "item 5: bf16); only float32 runs"
+            f"dtype={cfg.dtype!r} is not ported yet for this family "
+            "(ROADMAP.md queue 1, item 5: bf16 runs for HSConfig(solver="
+            "'jacobi') only; SOR, robust, multigrid, TV-L1, LK and dist/ "
+            "are still to port); only float32 runs"
         )
 
 

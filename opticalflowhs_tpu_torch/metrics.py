@@ -14,14 +14,13 @@ import numpy as np
 import torch
 
 from opticalflowhs_tpu_torch.io.flo import unknown_mask
+from opticalflowhs_tpu_torch.io.host import host_array
 from opticalflowhs_tpu_torch.ops import stencils
 from opticalflowhs_tpu_torch.solver import as_frame
 
 
 def _host(a) -> np.ndarray:
-    if hasattr(a, "detach"):  # torch tensor, on any device
-        a = a.detach().cpu().numpy()
-    return np.asarray(a, dtype=np.float64)
+    return np.asarray(host_array(a), dtype=np.float64)
 
 
 def epe(flow, gt, valid_mask: np.ndarray | None = None) -> float:

@@ -7,6 +7,14 @@ bitwise, and on the CPU they agree with the JAX reference to float32
 rounding.
 
 All shifts clamp at the edge (replicate), over the last two axes.
+
+bfloat16 (`store`): an array stored in bfloat16 is widened to float32,
+the op computes in float32 in the float32 order, and each array it
+returns is rounded once, to nearest even, where it is stored. Applied to
+each sweep, to the fields and 1/den (kernels/derivatives.py
+`derivatives_plain`) and to each resampling, that is the rule the
+kernels' bfloat16 builds follow, so they equal the plain twins bitwise as
+the float32 builds do.
 """
 
 from __future__ import annotations
@@ -37,6 +45,23 @@ def shift_left_col(a: torch.Tensor) -> torch.Tensor:
 def shift_right_col(a: torch.Tensor) -> torch.Tensor:
     """a(i, j-1), clamped at the first column."""
     return torch.cat([a[..., :, :1], a[..., :, :-1]], dim=-1)
+
+
+def store(fn, *arrays):
+    """fn(*arrays) under the bfloat16 storage rule: where any tensor
+    argument is bfloat16, the bfloat16 ones are widened to float32, fn
+    computes in float32, and each tensor it returns (one, or a tuple) is
+    rounded once to the first argument's dtype. Without a bfloat16
+    argument it is fn(*arrays) itself."""
+    bf16 = torch.bfloat16
+    if not any(isinstance(a, torch.Tensor) and a.dtype == bf16 for a in arrays):
+        return fn(*arrays)
+    dtype = arrays[0].dtype
+    out = fn(*(a.float() if isinstance(a, torch.Tensor) and a.dtype == bf16 else a
+               for a in arrays))
+    if isinstance(out, torch.Tensor):
+        return out.to(dtype)
+    return tuple(o.to(dtype) for o in out)
 
 
 def derivatives(

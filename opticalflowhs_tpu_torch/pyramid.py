@@ -19,6 +19,11 @@ columns), which equals the reference in every regime.
 
 Gradients reach the frames through the warps, the resampling and each
 level's `solve_level` (kernels/autodiff.py on the cuda backend).
+
+bfloat16 (HSConfig.dtype): the frames are cast before the pyramid is
+built, and every level, upsampled flow, warped frame and sum of flows is
+computed in float32 from the widened arrays and rounded once where it is
+stored (`stencils.store`). A warp's result has its image's dtype.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from opticalflowhs_tpu_torch.ops.stencils import (
     shift_left_col,
     shift_right_col,
     shift_up_row,
+    store,
 )
 from opticalflowhs_tpu_torch.solver import (
     Flow,
@@ -40,6 +46,7 @@ from opticalflowhs_tpu_torch.solver import (
     check_supported,
     resolve_omega,
     solve_level,
+    storage_dtype,
 )
 
 _B5 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
@@ -47,6 +54,10 @@ _B5 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 
 def downsample2x(img: torch.Tensor) -> torch.Tensor:
     """Blur + 2x subsample per axis. Output size is ceil(size / 2)."""
+    return store(_downsample2x, img)
+
+
+def _downsample2x(img: torch.Tensor) -> torch.Tensor:
     r1 = shift_down_row(img)        # i-1
     r2 = shift_down_row(r1)         # i-2
     r3 = shift_up_row(img)          # i+1
@@ -102,7 +113,11 @@ def upsample_flow(flow: Flow, shape: tuple[int, int]) -> Flow:
     h1, w1 = shape
     if h1 < h0 or w1 < w0:
         raise NotImplementedError("upsample_flow only enlarges a flow")
-    u, v = flow
+    return Flow(*store(lambda u, v: _upsample(u, v, h1, w1), flow.u, flow.v))
+
+
+def _upsample(u, v, h1: int, w1: int):
+    h0, w0 = u.shape[-2:]
     if h1 != h0:
         i0, i1, wa, wb = _linear_taps(h0, h1, u.device)
         wa, wb = wa[:, None], wb[:, None]
@@ -112,7 +127,12 @@ def upsample_flow(flow: Flow, shape: tuple[int, int]) -> Flow:
         i0, i1, wa, wb = _linear_taps(w0, w1, u.device)
         u = u[..., :, i0] * wa + u[..., :, i1] * wb
         v = v[..., :, i0] * wa + v[..., :, i1] * wb
-    return Flow((u * (w1 / w0)).contiguous(), (v * (h1 / h0)).contiguous())
+    return (u * (w1 / w0)).contiguous(), (v * (h1 / h0)).contiguous()
+
+
+def add_flows(a: Flow, b: Flow) -> Flow:
+    """a + b, componentwise (a bfloat16 sum rounded once)."""
+    return Flow(*store(lambda au, av, bu, bv: (au + bu, av + bv), a.u, a.v, b.u, b.v))
 
 
 def _grid(h: int, w: int, device):
@@ -144,6 +164,10 @@ def warp_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.
     """Backward warp: out(y, x) = img(y + v(y,x), x + u(y,x)), bilinear,
     sample positions clamped to the image. img is (..., H, W); u and v are
     (H, W), shared by every image, or one flow per image."""
+    return store(_warp_gather, img, u, v)
+
+
+def _warp_gather(img, u, v):
     h, w = img.shape[-2:]
     yy, xx = _grid(h, w, img.device)
     sy = torch.clamp(yy + v.float(), 0.0, h - 1.0)
@@ -202,6 +226,10 @@ def warp_bilinear_tiled(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
     On a (B, H, W) stack with a flow per image this is the reference's
     `jax.vmap(warp_bilinear_tiled)`: each image gets its own tile means."""
+    return store(lambda a, b, c: _warp_tiled(a, b, c, radius), img, u, v)
+
+
+def _warp_tiled(img, u, v, radius: int):
     h, w = img.shape[-2:]
     r = float(radius if radius > 0 else _WARP_R)
     sy, sx, y0, x0, dy, dx, byt, bxt = _tile_offsets(h, w, u, v)
@@ -305,8 +333,8 @@ def hs_pyramid(
             "below 8 px"
         )
     check_supported(cfg)
-    i1 = as_frame(i1, device)
-    i2 = as_frame(i2, i1.device)
+    i1 = as_frame(i1, device, storage_dtype(cfg))
+    i2 = as_frame(i2, i1.device, storage_dtype(cfg))
     cfg = resolve_omega(i1, i2, cfg)
     p1 = gaussian_pyramid(i1, pyr.levels)
     p2 = gaussian_pyramid(i2, pyr.levels)
@@ -321,8 +349,5 @@ def hs_pyramid(
             flow = upsample_flow(flow, f1.shape[-2:])
             f2w = warp(f2, flow.u, flow.v, pyr.warp, pyr.warp_radius)
         dflow = solve_level(f1, f2w, cfg, iters[level])
-        if flow is None:
-            flow = dflow
-        else:
-            flow = Flow(flow.u + dflow.u, flow.v + dflow.v)
+        flow = dflow if flow is None else add_flows(flow, dflow)
     return flow

@@ -21,9 +21,12 @@ device that default raises RuntimeError, so the CPU runs only when the
 caller asks for it (`device="cpu"`, or CPU tensors).
 
 Scope: the solvers "jacobi", "sor", "robust" and "multigrid" (iters counts
-V-cycles), float32, with a fixed sweep count or solved to tolerance
-(`sweeps_until`). bf16 is still to be ported (ROADMAP.md queue 1) and
-raises NotImplementedError rather than solving something else.
+V-cycles), with a fixed sweep count or solved to tolerance
+(`sweeps_until`), in float32; "jacobi" also in bfloat16
+(`HSConfig.dtype`), by the storage rule of the package docstring, through
+K1's, K2's, K6's and K7's bfloat16 builds on the cuda backend. bfloat16
+for the other solvers is still to be ported (ROADMAP.md queue 1, item 5)
+and raises NotImplementedError rather than solving in float32.
 
 Gradients: both backends differentiate with respect to the frames and a
 warm start. The plain ops tape through `stencils.checkpointed_loop`
@@ -86,14 +89,23 @@ def resolve_backend(backend: str, frame: torch.Tensor) -> str:
     return backend
 
 
-def check_supported(cfg: HSConfig) -> None:
+def check_supported(cfg: HSConfig, tiled: bool = False) -> None:
     """Raise NotImplementedError for configurations the port cannot solve
-    yet: every solver runs, in float32 only."""
-    if cfg.dtype != "float32":
+    yet: every solver runs in float32, and solver="jacobi" in bfloat16,
+    untiled (`tiled` is True for dist/'s entries)."""
+    if cfg.dtype == "bfloat16" and (cfg.solver != "jacobi" or tiled):
+        what = "the tiled solver (dist/)" if tiled else f"solver={cfg.solver!r}"
         raise NotImplementedError(
-            f"dtype={cfg.dtype!r} is not ported yet (ROADMAP.md queue 1: "
-            "bf16); only float32 runs"
+            f"dtype='bfloat16' with {what} is not ported yet (ROADMAP.md "
+            "queue 1, item 5: bf16 runs for solver='jacobi' untiled; SOR, "
+            "robust, multigrid, TV-L1, LK and dist/ are still to port); "
+            "use dtype='float32'"
         )
+
+
+def storage_dtype(cfg) -> torch.dtype:
+    """The torch dtype of a config's `dtype` name (float32 or bfloat16)."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
 def target_device(device=None) -> torch.device:
@@ -114,23 +126,26 @@ def target_device(device=None) -> torch.device:
     return device
 
 
-def as_frame(a, device=None) -> torch.Tensor:
-    """A contiguous float32 tensor. Tensors stay on their device (a tensor
-    on another device than an explicit `device` raises); numpy arrays go
-    to `target_device(device)`."""
+def as_frame(a, device=None, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A contiguous tensor of `dtype` (float32 unless a solve's config says
+    bfloat16: the cast to the config's dtype happens here, on the tensor's
+    device). Tensors stay on their device (a tensor on another device than
+    an explicit `device` raises); numpy arrays go to
+    `target_device(device)`."""
     if isinstance(a, np.ndarray):
         a = torch.from_numpy(np.ascontiguousarray(a)).to(target_device(device))
     elif not isinstance(a, torch.Tensor):
         raise TypeError(f"expected a torch tensor or numpy array, got {type(a)}")
     elif device is not None and a.device != target_device(device):
         raise ValueError(f"tensor on {a.device}, expected {device}")
-    return a.to(torch.float32).contiguous()
+    return a.to(dtype).contiguous()
 
 
 def precompute(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig):
-    """(Ex, Ey, Et, 1/(alpha^2 + Ex^2 + Ey^2)): K1 on the cuda backend."""
-    i1 = as_frame(i1)
-    i2 = as_frame(i2, i1.device)
+    """(Ex, Ey, Et, 1/(alpha^2 + Ex^2 + Ey^2)) of the frames cast to the
+    config's dtype: K1 on the cuda backend."""
+    i1 = as_frame(i1, dtype=storage_dtype(cfg))
+    i2 = as_frame(i2, i1.device, storage_dtype(cfg))
     if resolve_backend(cfg.backend, i1) == "cuda":
         return hs_derivatives(i1, i2, cfg.alpha, cfg.deriv_variant)
     return derivatives_plain(i1, i2, cfg.alpha, cfg.deriv_variant)
@@ -213,28 +228,31 @@ def sweeps_until(u, v, ex, ey, et, inv_den, cfg: HSConfig,
 
 @functools.cache
 def whole_solve_route(h: int, w: int, iters: int, variant: str,
-                      block_sweeps: int = 0) -> str:
+                      block_sweeps: int = 0, dtype: str = "float32") -> str:
     """Which whole-solve schedule the reference's `solve_level` takes for a
-    fixed-count Jacobi solve of one float32 (h, w) frame on its Pallas
+    fixed-count Jacobi solve of one (h, w) frame of `dtype` on its Pallas
     backend (opticalflowhs_tpu/solver.py:344-405), by the reference's own
-    class tests (kept here as plain functions of the frame's size; their
-    thresholds are the reference's routing rule, not properties of the
-    H100): "resident" (iters >= 2 and its resident class: hs_cube, up to
-    about 3.7 Mpx, 1440p), else for iters >= 64 "skewed" (its 2-array residency
-    class, 6 to about 11 Mpx: 4K) or "fused" (the rest past the whole-image
-    VMEM class, central 1080p and 8K included; none for block_sweeps in
-    1..7), else "chain". The start, zero or warm, does not enter.
+    class tests in that dtype's bytes (kept here as plain functions of the
+    frame's size; their thresholds are the reference's routing rule, not
+    properties of the H100): "resident" (iters >= 2 and its resident
+    class: hs_cube, up to about 3.7 Mpx in float32, 1440p), else for iters
+    >= 64 "skewed" (its 2-array residency class, 6 to about 11 Mpx in
+    float32: 4K) or "fused" (the rest past the whole-image VMEM class,
+    central 1080p and 8K included; none for block_sweeps in 1..7), else
+    "chain". 1080p, 4K and 8K take the same route in both dtypes. The
+    start, zero or warm, does not enter.
 
     Cached: the class tests walk the reference's geometry models in Python,
     thousands of steps at 8K, and a video asks about the same frame size
     again and again."""
-    if iters >= 2 and solve_resident.applicable(h, w, iters, variant):
+    itemsize = 2 if dtype == "bfloat16" else 4
+    if iters >= 2 and solve_resident.applicable(h, w, iters, variant, itemsize):
         return "resident"
     if iters >= 64:
-        if solve_skewed.applicable(h, w, iters):
+        if solve_skewed.applicable(h, w, iters, itemsize):
             return "skewed"
         s_cap = block_sweeps if block_sweeps > 0 else solve_fused.MAX_S
-        if solve_fused.applicable(h, w, iters, s_cap):
+        if solve_fused.applicable(h, w, iters, s_cap, itemsize):
             return "fused"
     return "chain"
 
@@ -261,15 +279,17 @@ def solve_level(
     per block, with identical values; an IRLS block refreezes at its
     start, as the reference's block does). Multigrid runs K1 (or the plain
     derivatives) and then its plain V-cycles. The torch backend runs the
-    plain ops. Both compute the same sweeps in the same order."""
+    plain ops. Both compute the same sweeps in the same order. Frames and
+    start are cast to the config's dtype first, as the reference casts."""
     check_supported(cfg)
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
-    i1 = as_frame(i1)
-    i2 = as_frame(i2, i1.device)
+    dtype = storage_dtype(cfg)
+    i1 = as_frame(i1, dtype=dtype)
+    i2 = as_frame(i2, i1.device, dtype)
     if u0 is not None:
-        u0 = as_frame(u0, i1.device)
-        v0 = as_frame(v0, i1.device)
+        u0 = as_frame(u0, i1.device, dtype)
+        v0 = as_frame(v0, i1.device, dtype)
     if cfg.tol > 0 or cfg.solver == "multigrid":
         # Multigrid must not fall through to the Jacobi drivers below.
         ex, ey, et, inv_den = precompute(i1, i2, cfg)
@@ -293,7 +313,7 @@ def solve_level(
             i1, i2, cfg.alpha, iters, cfg.omega, cfg.deriv_variant, u0, v0))
     if cuda and i1.ndim == 2:
         route = whole_solve_route(*i1.shape, iters, cfg.deriv_variant,
-                                  cfg.block_sweeps)
+                                  cfg.block_sweeps, cfg.dtype)
         if route in ("skewed", "fused"):
             solve = (solve_skewed.hs_solve_skewed if route == "skewed"
                      else solve_fused.hs_solve_fused)
@@ -372,7 +392,8 @@ def hs_solve(
     arrays, which go to `device` (cuda:0 when None; RuntimeError without
     CUDA). `init` warm-starts u/v; its arrays may be numpy arrays (moved to
     the frames' device) or tensors on that device. cfg.solver="sor" with
-    cfg.omega == 0 tunes omega first (`tune_omega`).
+    cfg.omega == 0 tunes omega first (`tune_omega`). The flow has the
+    config's dtype (bfloat16 for dtype="bfloat16").
     """
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs "
@@ -381,8 +402,8 @@ def hs_solve(
         raise ValueError("hs_solve takes single 2-D grayscale frames; use "
                          "batch.hs_solve_batched for leading batch axes")
     check_supported(cfg)
-    i1 = as_frame(i1, device)
-    i2 = as_frame(i2, i1.device)
+    i1 = as_frame(i1, device, storage_dtype(cfg))
+    i2 = as_frame(i2, i1.device, storage_dtype(cfg))
     cfg = resolve_omega(i1, i2, cfg)
     if init is None:
         return solve_level(i1, i2, cfg, cfg.iters)

@@ -21,7 +21,8 @@ import torch
 from opticalflowhs_tpu_torch.batch import reject_unported, solve_stack
 from opticalflowhs_tpu_torch.config import HSConfig, PyramidConfig
 from opticalflowhs_tpu_torch.consistency import occlusion_mask
-from opticalflowhs_tpu_torch.pyramid import hs_pyramid, warp
+from opticalflowhs_tpu_torch.io.host import host_array
+from opticalflowhs_tpu_torch.pyramid import add_flows, hs_pyramid, warp
 from opticalflowhs_tpu_torch.solver import Flow, as_frame, hs_solve, target_device
 
 Frames = Union[np.ndarray, torch.Tensor, Iterable[np.ndarray]]
@@ -157,7 +158,7 @@ def flow_stream_warm(
             base = Flow(prev.u * warm_scale, prev.v * warm_scale)
             if warp_prior:
                 d = hs_solve(cur[k], warp(cur[k + 1], base.u, base.v), cfg)
-                prev = Flow(base.u + d.u, base.v + d.v)
+                prev = add_flows(base, d)
             else:
                 prev = hs_solve(cur[k], cur[k + 1], cfg, init=base)
             yield prev
@@ -206,6 +207,6 @@ def flow_video(
     us, vs = [], []
     for f in flow_stream(frames, cfg, pyr, chunk, mesh=mesh, lk=lk, tvl1=tvl1,
                          device=device):
-        us.append(f.u.cpu().numpy())
-        vs.append(f.v.cpu().numpy())
+        us.append(host_array(f.u))
+        vs.append(host_array(f.v))
     return Flow(np.concatenate(us, axis=0), np.concatenate(vs, axis=0))

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from opticalflowhs_tpu_torch.io.host import host_array
+
 _SEGMENTS = (("RY", 15), ("YG", 6), ("GC", 4), ("CB", 11), ("BM", 13), ("MR", 6))
 NCOLS = sum(n for _, n in _SEGMENTS)  # 55
 
@@ -52,10 +54,9 @@ _WHEEL = make_color_wheel()
 
 
 def _host(a) -> np.ndarray:
-    """A numpy view of an array, or a torch tensor's values on the host."""
-    if hasattr(a, "detach"):  # torch tensor, on any device
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
+    """A numpy view of an array, or a torch tensor's values on the host
+    (bfloat16 widened to float32, `io.host.host_array`)."""
+    return host_array(a)
 
 
 def flow_to_color(

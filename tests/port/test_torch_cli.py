@@ -507,3 +507,20 @@ def test_subcommands_and_flags_equal_the_references(monkeypatch):
         assert subs[name] == ref_subs[name], name
     assert opts.pop(("--device",))[:2] == ("device", "cuda")  # the one flag of the port's own
     assert opts == ref_opts
+
+
+def test_run_bf16_config_writes_the_widened_flow(work):
+    # "hs": {"dtype": "bfloat16"}: the .flo holds the bfloat16 flow widened
+    # to float32 (exact), bitwise the in-process solve's.
+    cfg_file = work / "bf16.json"
+    cfg_file.write_text(json.dumps({"hs": {"alpha": 0.5, "iters": 20, "dtype": "bfloat16"},
+                                    "pyramid": {"levels": 2}}))
+    f1, f2 = str(work / "f1.pgm"), str(work / "f2.pgm")
+    out = str(work / "bf16.flo")
+    assert cli.main(CPU + ["--config", str(cfg_file), "run", f1, f2, "-o", out]) == 0
+    want = hs_pyramid(load_gray(f1), load_gray(f2),
+                      HSConfig(alpha=0.5, iters=20, dtype="bfloat16"),
+                      PyramidConfig(levels=2), device="cpu")
+    assert want.u.dtype == torch.bfloat16
+    assert np.array_equal(read_flo(out), np.stack([want.u.float().numpy(),
+                                                   want.v.float().numpy()], axis=-1))

@@ -1718,3 +1718,235 @@ def test_hs_energy_on_the_card_equals_cpu(dev, variant, shape):
     want = hs_energy(i1.cpu(), i2.cpu(), Flow(u.cpu(), v.cpu()), 0.5, variant)
     assert got.is_cuda and got.shape == ()
     assert abs(float(got) - float(want)) <= SUM_RTOL * abs(float(want))
+
+
+# -- bfloat16: K1, K2, K6 and K7's bfloat16 builds = their plain twins -----------
+#
+# The storage rule (ops/stencils.py `store`): bfloat16 arrays, float32
+# arithmetic, each array rounded once where it is stored, u and v after
+# every sweep. The kernels' bfloat16 builds follow it, so they equal the
+# plain bfloat16 twins bitwise, with the float32 plan's launches.
+
+BF16 = torch.bfloat16
+
+
+def _rand16(shape, dev, seed, n=2, normal=False):
+    return [a.to(BF16) for a in _rand(shape, dev, seed, n, normal)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("variant", ["hs_cube", "central"])
+@pytest.mark.parametrize("zero_sweep", [False, True])
+def test_k1_bf16_equals_plain(dev, shape, b, variant, zero_sweep):
+    i1, i2 = _rand16(shape if b == 1 else (b,) + shape, dev, 100)
+    got = k1.hs_derivatives(i1, i2, 0.7, variant, zero_sweep)
+    assert all(g.dtype == BF16 for g in got)
+    _equal(got, k1.derivatives_plain(i1, i2, 0.7, variant, zero_sweep))
+    if b > 1:
+        for k in range(b):
+            _equal([g[k] for g in got], k1.hs_derivatives(i1[k], i2[k], 0.7, variant,
+                                                          zero_sweep))
+
+
+# Widths a multiple of 8 stage bfloat16 rows 16 bytes at a time where the
+# tile's first column is a multiple of 8 (csrc/k2_window.cuh `bf16_wide`).
+BF16_WIDE_SHAPES = [(70, 248), (33, 112)]
+
+
+@pytest.mark.parametrize("shape", K2_EDGE_SHAPES + [(67, 93), (130, 129)] + BF16_WIDE_SHAPES)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("s", range(1, 13))
+def test_k2_bf16_edge_shapes_equal_plain(dev, shape, b, s):
+    full = shape if b == 1 else (b,) + shape
+    i1, i2 = _rand16(full, dev, 101)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    u0, v0 = _rand16(full, dev, 102, normal=True)
+    n = 2 * k2.sweeps_per_launch(s) + 1  # s does not divide n
+    k2.jacobi_sweeps.launches = 0
+    got = k2.jacobi_sweeps(u0, v0, *fields, n, block_sweeps=s)
+    assert k2.jacobi_sweeps.launches == -(-n // k2.sweeps_per_launch(s))
+    assert got[0].dtype == BF16
+    _equal(got, k2.jacobi_sweeps_plain(u0, v0, *fields, n))
+
+
+@pytest.mark.parametrize("n", range(1, 24))
+def test_k2_bf16_every_n_equals_plain(dev, n):
+    i1, i2 = _rand16((3, 67, 93), dev, 103)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    u0, v0 = _rand16((3, 67, 93), dev, 104, normal=True)
+    keep = (u0.clone(), v0.clone())
+    k2.jacobi_sweeps.launches = 0
+    _equal(k2.jacobi_sweeps(u0, v0, *fields, n), k2.jacobi_sweeps_plain(u0, v0, *fields, n))
+    assert k2.jacobi_sweeps.launches == -(-n // k2.sweeps_per_launch(0))
+    _equal((u0, v0), keep)
+
+
+@pytest.mark.parametrize("w", [64, 93])
+@pytest.mark.parametrize("off", [1, 4])
+def test_k2_bf16_unaligned_views_equal_plain(dev, w, off):
+    # Views 2 bytes off an 8-byte boundary take the 2-byte loads, 8 bytes off
+    # a 16-byte one the 8-byte copies.
+    h = 50
+    flat = [torch.from_numpy(np.random.default_rng(105 + k).normal(0, 0.5, off + h * w)
+                             .astype(np.float32)).to(dev).to(BF16) for k in range(4)]
+    u0, v0, i1, i2 = (f[off:].view(h, w) for f in flat)
+    fields = k1.derivatives_plain(i1.abs(), i2.abs(), 0.5)
+    _equal(k2.jacobi_sweeps(u0, v0, *fields, 11), k2.jacobi_sweeps_plain(u0, v0, *fields, 11))
+
+
+@pytest.mark.parametrize("shape", BEYOND_SHAPES + BF16_WIDE_SHAPES)
+@pytest.mark.parametrize("n,s", BEYOND_NS)
+@pytest.mark.parametrize("warm", [False, True])
+def test_k6_k7_bf16_equal_plain(dev, shape, n, s, warm):
+    i1, i2 = _rand16(shape, dev, 106)
+    init = _rand16(shape, dev, 107, normal=True) if warm else (None, None)
+    want = k6.hs_solve_fused_plain(i1, i2, 0.5, n, "hs_cube", *init)
+    assert want[0].dtype == BF16
+    for blocks in (0, 2):
+        _equal(k6.hs_solve_fused(i1, i2, 0.5, n, "hs_cube", *init, block_sweeps=s,
+                                 blocks=blocks), want)
+    for band, blocks in ((0, 0), (16, 0), (16, 8)):
+        _equal(k7.hs_solve_skewed(i1, i2, 0.5, n, "hs_cube", *init, block_sweeps=s,
+                                  band=band, blocks=blocks), want)
+    _equal(sr.hs_solve_resident(i1, i2, 0.5, n, "hs_cube", *init, block_sweeps=s), want)
+
+
+@pytest.mark.parametrize("shape", K6_K7_EDGE_SHAPES)
+@pytest.mark.parametrize("s", range(1, K6_K7_MAX_S + 1))
+def test_k6_k7_bf16_every_s_at_edge_shapes(dev, shape, s):
+    i1, i2 = _rand16(shape, dev, 108)
+    u0, v0 = _rand16(shape, dev, 109, normal=True)
+    n = 2 * s + 1
+    for init in ((None, None), (u0, v0)):
+        want = k6.hs_solve_fused_plain(i1, i2, 0.5, n, "central", *init)
+        _equal(k6.hs_solve_fused(i1, i2, 0.5, n, "central", *init, block_sweeps=s), want)
+        _equal(k7.hs_solve_skewed(i1, i2, 0.5, n, "central", *init, block_sweeps=s), want)
+        _equal(k7.hs_solve_skewed(i1, i2, 0.5, n, "central", *init, block_sweeps=s,
+                                  band=1, blocks=1), want)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_k6_k7_bf16_stacks_and_unaligned_views(dev, b):
+    i1, i2 = _rand16((b, 131, 130), dev, 110)
+    want = k6.hs_solve_fused_batched_plain(i1, i2, 0.5, 27)
+    _equal(k6.hs_solve_fused_batched(i1, i2, 0.5, 27, blocks=3), want)
+    _equal(k7.hs_solve_skewed_batched(i1, i2, 0.5, 27, band=24), want)
+    for w, off in ((93, 1), (248, 4), (248, 8)):  # the 2-byte, 8-byte and 16-byte paths
+        h = 70
+        flat = [torch.from_numpy(np.random.default_rng(111 + k).normal(0, 0.5, off + h * w)
+                                 .astype(np.float32)).to(dev).to(BF16) for k in range(4)]
+        u0, v0, j1, j2 = (f[off:].view(h, w) for f in flat)
+        j1, j2 = j1.abs(), j2.abs()
+        want = k6.hs_solve_fused_plain(j1, j2, 0.5, 29, "hs_cube", u0, v0)
+        _equal(k6.hs_solve_fused(j1, j2, 0.5, 29, "hs_cube", u0, v0, blocks=b), want)
+        _equal(k7.hs_solve_skewed(j1, j2, 0.5, 29, "hs_cube", u0, v0, band=1, blocks=b),
+               want)
+
+
+@pytest.mark.parametrize("s", range(1, K6_K7_MAX_S + 1))
+def test_bf16_builds_have_no_spills(dev, s):
+    geos = (k2.k2_geometry(dev, s, dtype=BF16), k6.k6_geometry(dev, s, BF16),
+            k7.k7_geometry(dev, 2160, 3840, s, dtype=BF16))
+    for geo in geos:
+        assert (geo["tile_h"], geo["tile_w"]) == k2.k2_tile(s)[:2]
+        assert geo["threads"] == k2.K2_THREADS and geo["spill_bytes"] == 0
+        assert 0 < geo["registers"] <= 65536 // k2.K2_THREADS
+        assert geo["blocks_per_sm"] >= 1
+    assert geos[0]["smem_bytes"] == geos[1]["smem_bytes"] == k2.K2_SMEM_BYTES // 2
+    assert geos[2]["smem_bytes"] == 4 * k2.K2_SMEM_BYTES // 6
+
+
+def test_bf16_launch_counts_and_routes_are_float32s(dev):
+    i1, i2 = _rand((96, 128), dev, 112)
+    counters = (k1.hs_derivatives, k2.jacobi_sweeps, k6.hs_solve_fused, k7.hs_solve_skewed)
+    cfg = HSConfig(alpha=0.5, iters=100)
+    big = _rand((2160, 3840), dev, 113)
+    cases = [(lambda c: hs_solve(i1, i2, c), cfg),
+             (lambda c: hs_pyramid(i1, i2, c, PyramidConfig(levels=3)), cfg),
+             (lambda c: hs_solve_batched(torch.stack([i1, i2, i1]), torch.stack([i2, i1, i2]),
+                                         c), cfg),
+             (lambda c: hs_solve(*big, c), HSConfig(alpha=0.5, iters=64)),
+             (lambda c: hs_solve(*big[:1], big[1], c),
+              HSConfig(alpha=0.5, iters=64, deriv_variant="central"))]
+    for run, c32 in cases:
+        counts = []
+        for c in (c32, dataclasses.replace(c32, dtype="bfloat16")):
+            for k in counters:
+                k.launches = 0
+            got = run(c)
+            counts.append(tuple(k.launches for k in counters))
+            assert got.u.dtype == (BF16 if c.dtype == "bfloat16" else torch.float32)
+            _equal(got, run(dataclasses.replace(c, backend="torch")))
+        assert counts[0] == counts[1], counts
+
+
+def test_bf16_entry_points_equal_the_plain_route(dev):
+    rng = np.random.default_rng(114)
+    frames = torch.from_numpy(rng.uniform(0, 1, (5, 72, 96)).astype(np.float32)).to(dev)
+    cfg = HSConfig(alpha=0.5, iters=30, dtype="bfloat16")
+    plain = dataclasses.replace(cfg, backend="torch")
+    i1, i2 = frames[0], frames[1]
+    pyr = PyramidConfig(levels=2)
+    for c, p in ((cfg, plain), (dataclasses.replace(cfg, tol=1e-3, block_sweeps=4),
+                                dataclasses.replace(plain, tol=1e-3, block_sweeps=4))):
+        _equal(hs_solve(i1, i2, c), hs_solve(i1, i2, p))
+        _equal(hs_solve_batched(frames[:-1], frames[1:], c),
+               hs_solve_batched(frames[:-1], frames[1:], p))
+        _equal(hs_solve_batched(frames[:-1], frames[1:], c, pyr),
+               hs_solve_batched(frames[:-1], frames[1:], p, pyr))
+    _equal(hs_pyramid(i1, i2, cfg, pyr), hs_pyramid(i1, i2, plain, pyr))
+    for a, b in zip(flow_stream(frames, cfg, chunk=2), flow_stream(frames, plain, chunk=2)):
+        assert a.u.dtype == BF16
+        _equal(a, b)
+    for prior in (False, True):
+        for a, b in zip(flow_stream_warm(frames, cfg, warp_prior=prior),
+                        flow_stream_warm(frames, plain, warp_prior=prior)):
+            _equal(a, b)
+    for (a, ma), (b, mb) in zip(flow_stream_occlusion(frames, cfg, chunk=2, a=0.0, b=1e-4),
+                                flow_stream_occlusion(frames, plain, chunk=2, a=0.0, b=1e-4)):
+        _equal(a, b)
+        assert torch.equal(ma, mb)
+    for a, b in zip(solve_bidirectional(i1, i2, cfg), solve_bidirectional(i1, i2, plain)):
+        _equal(a, b)
+
+
+@pytest.mark.parametrize("shape,name", [(s, n) for s in _GRAD_SHAPES for n in (
+    "K1", "K2", "K1 + K2 zero", "K1 + K2 warm", "K1 + K6 zero", "K1 + K6 warm",
+    "K1 + K7 zero", "K1 + K7 warm")])
+def test_bf16_entries_differentiate_as_their_plain_twins(dev, shape, name):
+    inputs, call, twin = _grad_entries(dev, shape)[name]
+    inputs = [t.to(BF16).requires_grad_() for t in inputs]
+    if name == "K2":  # the fields in bfloat16, from bfloat16 frames
+        i1, i2 = _rand16(shape, dev, 66)
+        inputs = inputs[:2] + [f.requires_grad_() for f in k1.derivatives_plain(i1, i2, 0.5)]
+    counters = counted_wrappers().values()
+    for c in counters:
+        c.launches = 0
+    outs, grads = _weighted_grads(call, inputs)
+    fwd = sum(c.launches for c in counters)
+    assert fwd > 0 and all(o.grad_fn is not None and o.dtype == BF16 for o in outs), name
+    want_outs, want = _weighted_grads(twin, inputs)
+    assert sum(c.launches for c in counters) == fwd
+    _equal([o.detach() for o in outs], [o.detach() for o in want_outs])
+    _equal(grads, want)
+
+
+def test_bf16_is_refused_where_no_build_exists(dev):
+    u, v, i1, i2 = _rand16((40, 56), dev, 115, n=4)
+    f = k1.derivatives_plain(i1, i2, 0.5)
+    with pytest.raises(ValueError, match="float32"):
+        k3.sor_sweeps(u, v, *f, 5, 1.6)
+    with pytest.raises(ValueError, match="float32"):
+        k4.robust_sweeps(u, v, *f[:3], 5, _CFG_R)
+    with pytest.raises(ValueError, match="float32"):
+        k8.sor_planes(u, v, *f, 5, 1.6)
+    with pytest.raises(ValueError, match="float32"):
+        k9.tile_sweeps(u[None], v[None], *(a[None] for a in f), 2, None, 40, 56)
+    with pytest.raises(ValueError, match="float32|bfloat16"):
+        k1.hs_derivatives(i1, i2.float(), 0.5)  # one dtype across the arrays
+    for cfg in (HSConfig(solver="sor", dtype="bfloat16"),
+                HSConfig(solver="robust", dtype="bfloat16"),
+                HSConfig(solver="multigrid", dtype="bfloat16")):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            hs_solve(i1, i2, cfg)
