@@ -91,6 +91,17 @@ each ran through the kernels:
               steps on an offset to frame 2; G2 S1, R1, a stack of C2, C3's
               pyramid, L1 (K7) and L2 central (K6); G3 tvl1_solve one level
               (K5); each = the plain route bitwise.
+  phase 19:   bfloat16 on the Jacobi path: K1, K2, K6 and K7's bfloat16
+              builds = their plain bfloat16 twins; C1-C4, L1 and L2 in
+              bfloat16 beside float32, counted; G1 in bfloat16.
+  phase 20:   bfloat16 on SOR and IRLS: K3, K8 and K4's freeze and sweeps
+              in bfloat16 = their plain twins at their edge shapes (s plan,
+              2, 5, 11 and plan, 2, 7, 14, B 1 and 3, zero and warm), K8 at
+              every parity, their geometry; B7 (S1), B8 (S2's EPE ordering),
+              B9 (R1), B10 (R2's seam), B11 (S1 through K8) and B12 (C2's
+              stack with SOR and robust, C3's pyramid with SOR, C4's stream
+              with SOR, SOR to tol, omega = 0, B7's and B9's gradients), each
+              beside float32, counted, = the plain route bitwise.
 Every phase checks what it measures and any failure exits non-zero.
 Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
@@ -99,7 +110,7 @@ card's name and power limit as nvidia-smi gives them, and a JSON object
 {"kernels": [...]} (per kernel: launches on the batched path for K1 and
 K2, on the SOR and robust path for K3 and K4, on the TV-L1 path for K5,
 on phase 13's path for K6 and K7, on phase 14's for K8, on phase 15's for
-K9-K12, on phase 19's for the bfloat16 builds, max |diff| against
+K9-K12, on phases 19's and 20's for the bfloat16 builds, max |diff| against
 the plain version, ms per launch for the kernel and the plain version at
 8 x 1088x1920 (for K5 per call of 100 alternations, with its 1088x1920,
 544x960 and 272x480 numbers; for K6, K7 and K8 per
@@ -201,6 +212,13 @@ K1_FIELDS_FLOPS_PER_PX = 31
 # v (29 a pixel a sweep in place of 27); every array 2 bytes.
 K1_BF16_FLOPS_PER_PX = K1_FLOPS_PER_PX + 6
 K2_BF16_FLOPS_PER_PX_SWEEP = K2_FLOPS_PER_PX_SWEEP + 2
+# Phase 20: K3 a sweep and K4's sweeps a sweep round u and v (2 more a
+# pixel), K4's freeze rounds wd and ws (2), K1 without the first sweep
+# rounds its 4 arrays.
+K3_BF16_FLOPS_PER_PX_SWEEP = K3_FLOPS_PER_PX_SWEEP + 2
+K4_BF16_FLOPS_PER_PX_SWEEP = K4_FLOPS_PER_PX_SWEEP + 2
+K4_FREEZE_BF16_FLOPS_PER_PX = K4_FREEZE_FLOPS_PER_PX + 2
+K1_FIELDS_BF16_FLOPS_PER_PX = K1_FIELDS_FLOPS_PER_PX + 4
 BF16_REPLACES = {
     "K1": ["opticalflowhs_tpu/kernels/derivatives.py:40",
            "opticalflowhs_tpu/kernels/solve_resident.py:161",
@@ -213,6 +231,10 @@ BF16_REPLACES = {
            "opticalflowhs_tpu/kernels/solve_fused.py:375"],
     "K7": ["opticalflowhs_tpu/kernels/solve_skewed.py:219",
            "opticalflowhs_tpu/kernels/solve_skewed.py:229"],
+    "K3": ["opticalflowhs_tpu/kernels/sor.py:59", "opticalflowhs_tpu/kernels/sor.py:113",
+           "opticalflowhs_tpu/kernels/solve_resident.py:161"],
+    "K4": ["opticalflowhs_tpu/kernels/solve_robust.py:92"],
+    "K8": ["opticalflowhs_tpu/kernels/sor_planes.py:78"],
 }
 # NVLink between the cards of one host: 900 GB/s all to all, 450 each way.
 NVLINK_BYTES_PER_S = 450e9
@@ -2857,6 +2879,367 @@ def bf16_path(dev, frames, stack, s1, s2, c2a, c2b, p1, p2, vid) -> list:
     return rows
 
 
+def bf16_sor_robust_path(dev, frames, stack, s1, s2, c2a, c2b, p1, p2, vid) -> list:
+    """Phase 20: bfloat16 on the SOR and IRLS solvers. The bfloat16 builds of
+    K3, K8 and K4 (freeze and sweeps) against their plain bfloat16 versions,
+    max |diff| 0.0, at K3's and K4's tile-edge shapes and at 67x93 and
+    1088x1920, s plan, 2, 5, 11 (K3) and plan, 2, 7, 14 (K4), B 1 and 3,
+    zero and warm, with the float32 plan's launches; K8 = the plain planes =
+    the bfloat16 K1 + K3 chain at every parity; the builds' geometry (no
+    spills). Then the cells, each beside float32 on the same frames and
+    counted: B7 (S1), B8 (S2's EPE ordering), B9 (R1), B10 (R2's seam),
+    B11 (S1 through K8) and B12 (C2's stack with SOR and robust, C3's
+    pyramid with SOR, C4's stream with SOR, SOR to tol, omega = 0, the
+    gradients of B7 and B9). Returns the bfloat16 rows of the kernels line."""
+    from opticalflowhs_tpu_torch import (
+        HSConfig,
+        PyramidConfig,
+        flow_stream,
+        hs_pyramid,
+        hs_solve,
+        hs_solve_batched,
+        robust,
+    )
+    from opticalflowhs_tpu_torch.kernels import derivatives as k1
+    from opticalflowhs_tpu_torch.kernels import jacobi as k2
+    from opticalflowhs_tpu_torch.kernels import solve_resident as sr
+    from opticalflowhs_tpu_torch.kernels import solve_robust as k4
+    from opticalflowhs_tpu_torch.kernels import sor as k3
+    from opticalflowhs_tpu_torch.kernels import sor_planes as k8
+    from opticalflowhs_tpu_torch.metrics import epe, interior
+    from opticalflowhs_tpu_torch.solver import tune_omega
+
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    names = ("hs_sor_sweeps_bf16", "hs_sor_planes_bf16", "hs_robust_freeze_bf16",
+             "hs_robust_sweeps_bf16")
+    err = dict.fromkeys(names, 0.0)
+
+    def exact(name, got, want, what):
+        for g in got:
+            require(g.dtype == bf, f"{what}: dtype {g.dtype}")
+        d = max(max_diff(g.float(), w.float()) for g, w in zip(got, want))
+        err[name] = max(err[name], d)
+        require(d == 0.0, f"{what}: max|diff| {d} (bfloat16 builds equal plain bitwise)")
+
+    def b16(*a):
+        return tuple(x.to(bf) for x in a)
+
+    def edge(tile, kind):
+        th, tw = tile
+        return {"one+": (th + 1, tw + 1), "two-": (2 * th - 1, 2 * tw - 1),
+                "wide": (2 * th + 1, 2 * tw + 8)}[kind]
+
+    # -- the builds against their plain versions ---------------------------------------
+    blocks3, blocks4 = k3.device_blocks(dev), k4.device_blocks(dev)
+    n_cases = 0
+    for s in (0, 2, 5, k3.K3_MAX_SWEEPS):
+        s_ = s or 4
+        shapes = [(67, 93), (1088, 1920)] + [edge(k3.k3_tile(s_)[:2], k) for k in
+                                             ("one+", "two-", "wide")]
+        for shape in shapes:
+            for b in ((1, 3) if shape[0] < 1000 else (1,)):
+                i1, i2 = b16(*(a.squeeze(0) for a in stack(b, *shape, seed=200)))
+                f = k1.derivatives_plain(i1, i2, 0.5)
+                u0, v0 = b16(*(a.squeeze(0) for a in stack(b, *shape, seed=201, normal=True)))
+                for uv in ((u0, v0), (torch.zeros_like(u0),) * 2):
+                    n = 2 * s_ + 1
+                    before = k3.sor_sweeps.launches
+                    exact(names[0], k3.sor_sweeps(*uv, *f, n, OMEGA, block_sweeps=s),
+                          k3.sor_sweeps_plain(*uv, *f, n, OMEGA), f"K3 bf16 {b}x{shape} s={s}")
+                    require(k3.sor_sweeps.launches - before == k3.launches(
+                        n, k3.sweeps_per_launch(s, u0.shape, n, blocks3)),
+                        "K3 bf16 launches = the float32 plan's")
+                    n_cases += 1
+    for s in (0, 2, 7, k4.K4_MAX_SWEEPS):
+        s_ = s or 5
+        shapes = [(67, 93), (1088, 1920)] + [edge(k4.k4_tile(s_)[:2], k) for k in
+                                             ("one+", "two-", "wide")]
+        for shape in shapes:
+            for b in ((1, 3) if shape[0] < 1000 else (1,)):
+                i1, i2 = b16(*(a.squeeze(0) for a in stack(b, *shape, seed=202)))
+                ex, ey, et, _ = k1.derivatives_plain(i1, i2, 0.4)
+                u0, v0 = b16(*(a.squeeze(0) for a in stack(b, *shape, seed=203, normal=True)))
+                for uv in ((u0, v0), (torch.zeros_like(u0),) * 2):
+                    wd, ws = robust.charbonnier_weights(*uv, ex, ey, et, 0.05, 0.05)
+                    exact(names[2], k4.freeze_weights(*uv, ex, ey, et, 0.05, 0.05), (wd, ws),
+                          f"K4 freeze bf16 {b}x{shape}")
+                    n = 2 * s_ + 1
+                    want = uv
+                    for _ in range(n):
+                        want = robust.robust_step(*want, ex, ey, et, wd, ws, 0.3)
+                    before = k4.frozen_sweeps.launches
+                    exact(names[3], k4.frozen_sweeps(*uv, ex, ey, et, wd, ws, 0.3, n,
+                                                     block_sweeps=s),
+                          want, f"K4 sweeps bf16 {b}x{shape} s={s}")
+                    require(k4.frozen_sweeps.launches - before == k4.launches(
+                        n, k4.sweeps_per_launch(s, u0.shape, n, blocks4)),
+                        "K4 bf16 launches = the float32 plan's")
+                    n_cases += 1
+        cfg = HSConfig(alpha=0.3, iters=13, solver="robust", robust_update_every=5)
+        for init in ((None, None), (u0, v0)):
+            exact(names[3], k4.hs_solve_robust_resident(i1, i2, cfg, *init),
+                  k4.hs_solve_robust_resident_plain(i1, i2, cfg, *init), "IRLS driver bf16")
+    for shape in ((192, 128), (131, 130), (96, 255), (97, 253), (67, 93)):
+        i1, i2 = b16(*frames(*shape, seed=204))
+        f = k1.derivatives_plain(i1, i2, 0.5)
+        u0, v0 = b16(*(a.squeeze(0) for a in stack(1, *shape, seed=205, normal=True)))
+        for n in (1, 4, 7):
+            for init in ((None, None), (u0, v0)):
+                want = k8.sor_planes_plain(*init, *f, n, OMEGA)
+                exact(names[1], k8.sor_planes(*init, *f, n, OMEGA), want, f"K8 bf16 {shape}")
+                exact(names[1], want, sr.hs_solve_resident_sor(i1, i2, 0.5, n, OMEGA, "hs_cube",
+                                                               *init), f"K8 plain = chain {shape}")
+    geo = {"K3": [k3.k3_geometry(dev, s, dtype=bf) for s in (2, 4, k3.K3_MAX_SWEEPS)],
+           "K4": [k4.k4_geometry(dev, s, bf) for s in (1, 5, k4.K4_MAX_SWEEPS)],
+           "K8": [k8.k8_geometry(dev, 4, bf)]}
+    for tag, gs in geo.items():
+        for g in gs:
+            require(g["spill_bytes"] == 0 and g["blocks_per_sm"] == 1, f"{tag} bf16 geometry {g}")
+    print(f"phase 20 K3 bf16 ({n_cases} K3 and K4 cases), K4 freeze and sweeps bf16, the IRLS "
+          f"driver and K8 bf16 (5 shapes of every parity, n 1/4/7, zero and warm): max|diff| vs "
+          f"plain {err}; launches = the float32 plan's; geometry (registers, spills): "
+          + "; ".join(f"{t} " + ", ".join(f"s{g.get('sweeps', 4)} {g['registers']}/{g['spill_bytes']}"
+                                          for g in gs) for t, gs in geo.items()))
+
+    # -- the cells, bf16 beside float32, counted ---------------------------------------
+    def in_bf16(c):
+        return dataclasses.replace(c, dtype="bfloat16")
+
+    def plain(c):
+        return dataclasses.replace(c, backend="torch")
+
+    def mean_abs(a, b):
+        return float(sum((x.float() - y.float()).abs()[..., 8:-8, 8:-8].mean()
+                         for x, y in zip(a, b)) / 2)
+
+    counters = {"K1": k1.hs_derivatives, "K2": k2.jacobi_sweeps, "K3": k3.sor_sweeps,
+                "K4 freeze": k4.freeze_weights, "K4 sweeps": k4.frozen_sweeps,
+                "K8": k8.sor_planes}
+
+    def counted(fn):
+        before = {n: c.launches for n, c in counters.items()}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, tuple(c.launches - before[n] for n, c in counters.items())
+
+    cfg_s1 = HSConfig(alpha=0.5, iters=50, solver="sor", omega=OMEGA)
+    cfg_r1 = HSConfig(alpha=0.25, iters=100, solver="robust", robust_update_every=20)
+    cfg3 = dataclasses.replace(cfg_s1, alpha=1.0, iters=100)
+    cfg4 = dataclasses.replace(cell_config("c4_hd_streaming.json"), solver="sor", omega=OMEGA)
+    runs = {
+        "B7 S1": (lambda c: hs_solve(s1, s2, c), cfg_s1),
+        "B9 R1": (lambda c: hs_solve(s1, s2, c), cfg_r1),
+        "B12 C2 SOR": (lambda c: hs_solve_batched(c2a, c2b, c),
+                       dataclasses.replace(cfg_s1, alpha=1.0)),
+        "B12 C2 robust": (lambda c: hs_solve_batched(c2a, c2b, c),
+                          dataclasses.replace(cfg_r1, alpha=1.0)),
+        "B12 C3 SOR": (lambda c: hs_pyramid(p1, p2, c, PyramidConfig(levels=3)), cfg3),
+        "B12 C4 SOR": (lambda c: list(flow_stream(vid, c, chunk=8)), cfg4),
+        "B12 SOR tol": (lambda c: hs_solve(s1, s2, c),
+                        dataclasses.replace(cfg_s1, iters=64, tol=1e-3, block_sweeps=8)),
+        "B12 omega 0": (lambda c: hs_solve(s1, s2, c), dataclasses.replace(cfg_s1, omega=0.0)),
+    }
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    out16, per16 = {}, {}
+    for tag, (run, c) in runs.items():
+        out16[tag], per16[tag] = counted(lambda: run(in_bf16(c)))
+    b1, b2 = b16(s1, s2)
+    f8, per_k8 = counted(lambda: k8.hs_solve_sor_planes(b1, b2, 0.5, 50, OMEGA))  # B11
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"phase 20 path launches (bfloat16: B7, B9, B12, B11): {launches}; per call "
+          f"(K1, K2, K3, K4 freeze, K4 sweeps, K8) {per16}, B11 {per_k8}")
+    require(per_k8 == (1, 0, 0, 0, 0, 1), f"B11 launches {per_k8}")
+    for k in ("K1", "K3", "K4 freeze", "K4 sweeps", "K8"):
+        require(launches[k] > 0, f"a bf16 build never ran on phase 20's path: {launches}")
+    out32, per32 = {}, {}
+    for tag, (run, c) in runs.items():
+        out32[tag], per32[tag] = counted(lambda: run(c))
+    # To tol the blocks taken follow the updates, which bf16 rounds (an update
+    # below a bf16 ulp of the flow is 0 or at least that ulp): held to the plain
+    # route's blocks below, not to float32's.
+    require({t: n for t, n in per16.items() if t != "B12 SOR tol"}
+            == {t: n for t, n in per32.items() if t != "B12 SOR tol"},
+            f"bf16 launches {per16} != float32's {per32}")
+    require(per16["B12 SOR tol"][2] % k3.launches(8, k3.sweeps_per_launch(8, s1.shape, 8,
+                                                                           blocks3)) == 0,
+            f"SOR tol launches {per16['B12 SOR tol']}: whole check blocks")
+    require(per16["B7 S1"][:3] == (1, 0, k3_plan_launches(dev, (1088, 1920), 50)),
+            f"B7 launches {per16['B7 S1']}")
+    require(per16["B9 R1"][3:5] == (5, k4_plan_launches(dev, (1088, 1920), 100, 20)),
+            f"B9 launches {per16['B9 R1']}")
+
+    def flows(x):
+        return x if isinstance(x, list) else [x]
+
+    for tag, (run, c) in runs.items():
+        want = flows(run(plain(in_bf16(c))))
+        for g, w in zip(flows(out16[tag]), want):
+            for a in g:
+                require(a.dtype == bf and bool(torch.isfinite(a.float()).all()),
+                        f"{tag} bf16 dtype/finite")
+            require(bool(torch.equal(g.u, w.u) and torch.equal(g.v, w.v)),
+                    f"{tag} bf16 differs from the plain route")
+    ms = {}
+    for tag in ("B7 S1", "B9 R1", "B12 C2 SOR", "B12 C2 robust", "B12 C3 SOR"):
+        run, c = runs[tag]
+        reps = 20 if tag in ("B7 S1", "B9 R1") else 10
+        ms[tag] = (median_ms(lambda: run(in_bf16(c)), runs=reps),
+                   median_ms(lambda: run(c), runs=reps))
+    for tag in runs:
+        g, w = flows(out16[tag])[-1], flows(out32[tag])[-1]
+        print(f"phase 20 {tag} bf16: = the plain route bitwise; launches {per16[tag]} "
+              + (f"(float32 {per32[tag]})" if per16[tag] != per32[tag] else "(= float32's)") + (f"; bf16 {ms[tag][0]:.3f} ms, float32 {ms[tag][1]:.3f} ms "
+                                  f"({ms[tag][0] / ms[tag][1]:.3f}x)" if tag in ms else "")
+              + f"; interior mean |bf16 - float32| {mean_abs(g, w):.5f} px")
+    om16 = tune_omega(s1, s2, in_bf16(cfg_s1))
+    om32 = tune_omega(s1, s2, cfg_s1)
+    require(om16 == tune_omega(s1, s2, plain(in_bf16(cfg_s1))), "tune_omega bf16 cuda != plain")
+    print(f"phase 20 tune_omega 1088x1920 a=0.5: bf16 {om16} (= plain), float32 {om32}")
+
+    # -- B8 (S2): SOR i50 below Jacobi i50 in EPE, in bf16 -------------------------------
+    t1, t2, gt = t1_pair(dev)
+    gtc = interior(gt, 16)
+
+    def flow_epe(f):
+        fl = np.stack([f.u.float().cpu().numpy(), f.v.float().cpu().numpy()], axis=-1)
+        return epe(interior(fl, 16), gtc)
+
+    s2e = {}
+    for tag, c in (("SOR i50", HSConfig(alpha=0.25, iters=50, solver="sor", omega=OMEGA)),
+                   ("Jacobi i50", HSConfig(alpha=0.25, iters=50))):
+        s2e[tag] = (flow_epe(hs_solve(t1, t2, in_bf16(c))), flow_epe(hs_solve(t1, t2, c)))
+    print("phase 20 B8 S2 translation_pair 1088x1920 (0.7, -0.3) a=0.25 interior EPE (bf16, "
+          "float32): " + "; ".join(f"{t} {a:.6f}, {b:.6f}" for t, (a, b) in s2e.items()))
+    require(s2e["SOR i50"][0] < s2e["Jacobi i50"][0], f"B8: bf16 SOR EPE not below Jacobi: {s2e}")
+
+    # -- B10 (R2): robust's seam band below classic's, in bf16 ---------------------------
+    m1, m2, gt2 = t2_pair(dev)
+    band = np.zeros((1088, 1920), bool)
+    band[8:-8, 1920 // 2 - 8:1920 // 2 + 8] = True
+    seam = {}
+    for tag, c in (("classic i400", HSConfig(alpha=0.1, iters=400)),
+                   ("robust i400", HSConfig(alpha=0.1, iters=400, solver="robust",
+                                            robust_eps_s=0.01))):
+        fs = [hs_solve(m1, m2, x) for x in (in_bf16(c), c)]
+        e = [np.sqrt(((np.stack([f.u.float().cpu().numpy(), f.v.float().cpu().numpy()], -1)
+                       - gt2) ** 2).sum(-1))[band].mean() for f in fs]
+        seam[tag] = (float(e[0]), float(e[1]))
+        if c.solver == "robust":
+            exact(names[3], fs[0], hs_solve(m1, m2, plain(in_bf16(c))), "B10 robust vs plain")
+    print("phase 20 B10 R2 two_motion_pair 1088x1920 a=0.1 seam-band EPE (bf16, float32): "
+          + "; ".join(f"{t} {a:.4f}, {b:.4f}" for t, (a, b) in seam.items()))
+    require(seam["robust i400"][0] < seam["classic i400"][0],
+            f"B10: bf16 robust seam band not below classic: {seam}")
+
+    # -- B11: S1 through K8 in bf16 = the bf16 K1 + K3 chain ------------------------------
+    exact(names[1], f8, sr.hs_solve_resident_sor(b1, b2, 0.5, 50, OMEGA), "B11 K8 vs the chain")
+    ms_k8 = (median_ms(lambda: k8.hs_solve_sor_planes(b1, b2, 0.5, 50, OMEGA)),
+             median_ms(lambda: k8.hs_solve_sor_planes(s1, s2, 0.5, 50, OMEGA)))
+    ms_k8_chain = median_ms(lambda: sr.hs_solve_resident_sor(b1, b2, 0.5, 50, OMEGA))
+    ms_k8_plain = median_ms(lambda: sr.hs_solve_resident_sor_plain(b1, b2, 0.5, 50, OMEGA),
+                            runs=5)
+    print(f"phase 20 B11 S1 through K8 bf16: = the bf16 K1 + K3 chain bitwise; {ms_k8[0]:.4f} ms "
+          f"(float32 {ms_k8[1]:.4f}), bf16 chain {ms_k8_chain:.4f} ms, plain {ms_k8_plain:.3f} ms")
+
+    # -- B12: gradients of B7 and B9 = the plain route bitwise ---------------------------
+    a, b = s1.clone().requires_grad_(), s2.clone().requires_grad_()
+    for tag, c in (("B7", cfg_s1), ("B9", cfg_r1)):
+        def g(cfg):
+            f = hs_solve(a, b, cfg)
+            loss = torch.mean(f.u.float() ** 2) + torch.mean(f.v.float() ** 2)
+            return f, torch.autograd.grad(loss, (a, b))
+
+        for k in counters.values():
+            k.launches = 0
+        f_g, grads = g(in_bf16(c))
+        fwd = tuple(k.launches for k in counters.values())
+        f_p, grads_p = g(plain(in_bf16(c)))
+        require(all(bool(torch.equal(x, y)) for x, y in zip(list(f_g) + list(grads),
+                                                             list(f_p) + list(grads_p))),
+                f"{tag} bf16 gradient differs from the plain route")
+        require(fwd == per16["B7 S1" if tag == "B7" else "B9 R1"],
+                f"{tag} bf16 gradient launches {fwd}: the forward's only")
+        print(f"phase 20 B12 gradient of {tag} bf16 (d(mean u^2 + mean v^2)/d frames): = the "
+              f"plain route bitwise; launches {fwd} (the forward's)")
+    del a, b, grads, grads_p, f_g, f_p
+
+    # -- per-kernel times at 1088x1920 and 8 x 1088x1920, bf16 beside float32 ------------
+    s3 = k3.sweeps_per_launch(0, tuple(s1.shape), 50, blocks3)
+    s4 = k4_plan(dev, tuple(s1.shape), 20)
+    t = {}
+    for tag, (x, y) in (("1088x1920", (s1, s2)), ("8x1088x1920", (c2a, c2b))):
+        for dt in (bf, torch.float32):
+            xx, yy = x.to(dt), y.to(dt)
+            ex, ey, et, invd = k1.derivatives_plain(xx, yy, 0.5)
+            u, v = torch.zeros_like(xx), torch.zeros_like(xx)
+            uo, vo = torch.empty_like(xx), torch.empty_like(xx)
+            wd, ws = robust.charbonnier_weights(u, v, ex, ey, et, 0.05, 0.05)
+            reps = 5 if tag == "1088x1920" else 3
+
+            def plain_k4(uv=(u, v)):
+                for _ in range(s4):
+                    uv = robust.robust_step(*uv, ex, ey, et, wd, ws, 0.25)
+                return uv
+
+            t[tag, dt] = {
+                names[0]: (event_ms(lambda: k3.launch_sweeps(u, v, ex, ey, et, invd, uo, vo,
+                                                             s3, OMEGA)),
+                           event_ms(lambda: k3.sor_sweeps_plain(u, v, ex, ey, et, invd, s3,
+                                                                OMEGA), reps=reps)),
+                names[2]: (event_ms(lambda: k4.freeze_weights(u, v, ex, ey, et, 0.05, 0.05)),
+                           event_ms(lambda: robust.charbonnier_weights(u, v, ex, ey, et, 0.05,
+                                                                       0.05), reps=reps)),
+                names[3]: (event_ms(lambda: k4.launch_sweeps(u, v, ex, ey, et, wd, ws, uo, vo,
+                                                             s4, 0.25)),
+                           event_ms(plain_k4, reps=reps)),
+            }
+    for (tag, dt), d in t.items():
+        print(f"phase 20 {tag} {'bf16' if dt == bf else 'float32'} per launch (events): "
+              + ", ".join(f"{n} {k:.4f} ms (plain {p:.4f})" for n, (k, p) in d.items())
+              + f" (K3 {s3}, K4 {s4} sweeps a launch)")
+    print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+
+    def bound2(arrays, flops, px):
+        return bound_ms(arrays * 2 * px, flops * px)
+
+    px1, px8 = s1.numel(), c2a.numel()
+    per_px = {names[0]: (8, K3_BF16_FLOPS_PER_PX_SWEEP * s3),
+              names[2]: (7, K4_FREEZE_BF16_FLOPS_PER_PX),
+              names[3]: (9, K4_BF16_FLOPS_PER_PX_SWEEP * s4 + K4_HOISTED_FLOPS_PER_PX)}
+    rows = []
+    for name, (arrays, flops) in per_px.items():
+        b8, by8 = bound2(arrays, flops, px8)
+        k = "K3" if name == names[0] else "K4"
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"opticalflowhs_tpu_torch/csrc/{'sor' if k == 'K3' else 'robust'}.cu",
+                     "replaces": BF16_REPLACES[k], "launches": launches[
+                         {names[0]: "K3", names[2]: "K4 freeze", names[3]: "K4 sweeps"}[name]],
+                     "max_abs_err": err[name],
+                     "ms": t["8x1088x1920", bf][name][0], "plain_ms": t["8x1088x1920", bf][name][1],
+                     "float32_ms": t["8x1088x1920", torch.float32][name][0],
+                     "ms_1088x1920": t["1088x1920", bf][name][0],
+                     "plain_ms_1088x1920": t["1088x1920", bf][name][1],
+                     "float32_ms_1088x1920": t["1088x1920", torch.float32][name][0],
+                     "bound_ms_1088x1920": bound2(arrays, flops, px1)[0],
+                     "bound_ms": b8, "bound_by": by8, "library_ms": None,
+                     **({"sweeps_per_launch": s3, "geometry": geo["K3"][1]} if k == "K3" and
+                        name == names[0] else {}),
+                     **({"sweeps_per_launch": s4, "geometry": geo["K4"][1]}
+                        if name == names[3] else {})})
+    b, by = bound_ms(SOLVE_ARRAYS * 2 * px1,
+                     (K1_FIELDS_BF16_FLOPS_PER_PX + 50 * K3_BF16_FLOPS_PER_PX_SWEEP) * px1)
+    rows.append({"name": names[1], "route": "cuda",
+                 "source": "opticalflowhs_tpu_torch/csrc/sor_planes.cu",
+                 "replaces": BF16_REPLACES["K8"], "launches": launches["K8"],
+                 "max_abs_err": err[names[1]], "ms": ms_k8[0], "plain_ms": ms_k8_plain,
+                 "float32_ms": ms_k8[1], "chain_ms": ms_k8_chain, "shape": [1088, 1920],
+                 "bound_ms": b, "bound_by": by, "library_ms": None, "geometry": geo["K8"][0]})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3211,6 +3594,9 @@ def main() -> int:
 
     # -- phase 19: bfloat16 on the Jacobi path (K1, K2, K6, K7's bfloat16 builds) ---------
     bf16_rows = bf16_path(dev, frames, stack, s1, s2, c2a, c2b, p1, p2, vid)
+
+    # -- phase 20: bfloat16 on SOR and IRLS (K3, K8, K4's bfloat16 builds) ---------------
+    bf16_rows += bf16_sor_robust_path(dev, frames, stack, s1, s2, c2a, c2b, p1, p2, vid)
 
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2

@@ -50,19 +50,24 @@ on their device. numpy inputs go to the entry point's `device` keyword,
 cuda:0 by default; without a CUDA device that default raises, so the CPU
 runs only when asked for (`device="cpu"`, or CPU tensors).
 
-bfloat16 (`HSConfig(dtype="bfloat16")`, solver="jacobi"): bfloat16
-storage, float32 arithmetic. Every array the reference holds in the
+bfloat16 (`HSConfig(dtype="bfloat16")`, solver "jacobi", "sor" or
+"robust", untiled): bfloat16 storage, float32 arithmetic. Every array the reference holds in the
 config's dtype is a torch.bfloat16 tensor here: the frames after the cast
 (made on the device), Ex, Ey, Et and 1/den, u and v after every sweep, the
 pyramid's levels, upsampled flows and warped frames, and the returned
 Flow. Each value is widened to float32, the arithmetic runs in float32 in
 the float32 path's order, and each array result is rounded once, to
 nearest even, where it is stored; 1/den is formed from the rounded Ex and
-Ey. The kernels' bfloat16 builds (K1, K2, K6, K7) round u and v at the end
-of every sweep, also inside a launch, so they equal the plain twins
-(`ops.stencils.store`) bitwise and the result does not depend on the
-sweeps a launch runs. bfloat16 for the other solvers and families, and
-for dist/, raises NotImplementedError (ROADMAP.md queue 1, item 5).
+Ey. A 4-color SOR sweep runs its four color stages in float32, each
+reading the earlier stages' float32 values, and rounds u and v once, at
+the sweep's end; an IRLS freeze rounds wd and ws where it stores them,
+and its sweeps form the frozen system in float32 from the rounded arrays.
+The kernels' bfloat16 builds (K1, K2, K6, K7; K3 and K8; K4's freeze and
+sweeps) round u and v at the end of every sweep, also inside a launch, so
+they equal the plain twins (`ops.stencils.store`) bitwise and the result
+does not depend on the sweeps a launch runs. bfloat16 for multigrid,
+TV-L1, LK and dist/ raises NotImplementedError (ROADMAP.md queue 1,
+item 5).
 """
 
 from opticalflowhs_tpu_torch.batch import hs_solve_batched

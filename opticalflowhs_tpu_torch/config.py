@@ -48,7 +48,7 @@ class HSConfig:
 
     alpha: float = 1.0          # regularization weight; den = alpha^2 + Ex^2 + Ey^2
     iters: int = 100            # fixed Jacobi iteration count
-    dtype: str = "float32"      # storage dtype (DTYPES; bfloat16: jacobi only)
+    dtype: str = "float32"      # storage dtype (DTYPES; bfloat16: jacobi, sor, robust)
     deriv_variant: str = "hs_cube"
     backend: str = "auto"       # auto -> cuda for CUDA frames, torch otherwise
     block_sweeps: int = 0       # sweeps per Jacobi kernel launch (0 = auto)

@@ -11,20 +11,48 @@
 // sor.cu (external linkage in k2_window.cuh once changed K2's SASS). A
 // source compiles only the functions it calls.
 //
+// Storage types: the walk's arguments (`Args`, `ArgsBf16`) name the type
+// the arrays are stored in, float or bfloat16 (K3 and K8 have bfloat16
+// builds; K9's SOR entry stays float). In bfloat16 the two u/v pairs and
+// the four fields are staged in shared memory as bfloat16 (16-byte
+// cp.async of 8 values by the even lanes where the width and the tile's
+// first column allow, `bf16_wide`; else 8-byte copies of a lane's 4, or
+// 2-byte loads), widened into the same registers, and swept in float32.
+// The rows the warps exchange inside a sweep go through a float32 pair of
+// their own (the swept pair itself in float), so that the odd rows' half
+// reads the even rows' float32 values of this sweep, as the plain sweep's
+// later color stages do; the first half of a tile's first sweep reads the
+// staged bfloat16 rows. At each sweep's end a thread rounds u and v of its
+// 16 pixels to nearest even (one cvt.rn.bf16x2.f32 a pair), before it
+// stores its last row for the next sweep, so every value that crosses a
+// sweep, or the launch, is rounded once. The float code paths are as they
+// were (`if constexpr` on the storage type), so the float builds do not
+// change.
+//
 // Exactness: the association order is that of ops/stencils.py
 // (neighbor_avg, sor_step), the constants are the float32 values of 1/12,
 // 1/3 and omega, and the library is built with --fmad=false, so every
-// kernel built on this equals the plain PyTorch sweeps bitwise.
+// kernel built on this equals the plain PyTorch sweeps bitwise (in
+// bfloat16, the plain sweeps of the storage rule, `stencils.store`).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "k2_window.cuh"
 
 namespace {
 
 using hs_k2::aligned;
+using hs_k2::bf16_round2;
+using hs_k2::bf16_round4;
+using hs_k2::bf16_wide;
+using hs_k2::bf16_widen;
+using hs_k2::bf16_widen4;
+using hs_k2::copy16;
 using hs_k2::copy_commit;
 using hs_k2::copy_quad;
 using hs_k2::copy_wait;
@@ -39,9 +67,12 @@ constexpr int kWarps = 12;
 constexpr int kThreads = 32 * kWarps;      // 384
 constexpr int kWinH = kWarps * kRows;      // 48
 constexpr int kArea = kWinH * kWinW;
-// Shared arrays: two u/v pairs (one swept, one staged) and the four fields.
+// Shared arrays: two u/v pairs (one swept, one staged) and the four fields;
+// in bfloat16 also a float32 u/v pair for the rows exchanged in a sweep.
 constexpr int kPairs = 2;
 constexpr size_t kSmemBytes = (size_t)(2 * kPairs + 4) * kArea * sizeof(float);
+constexpr size_t kSmemBytesBf16 =
+    (size_t)(2 * kPairs + 4) * kArea * sizeof(__nv_bfloat16) + 2 * kArea * sizeof(float);
 constexpr int kMaxSweeps = (kWinH - kRows) / 4;  // 11: a tile of 4 rows
 constexpr int kMaxBatch = 65535;
 constexpr unsigned kFull = 0xffffffffu;
@@ -59,14 +90,23 @@ __host__ __device__ inline Geometry geometry(int s) {
   return g;
 }
 
-struct Args {
-  const float *u, *v, *ex, *ey, *et, *invd;
-  float *uo, *vo;
+// The arguments of one walk, over arrays stored as E.
+template <class E>
+struct ArgsOf {
+  using Elem = E;
+  const E *u, *v, *ex, *ey, *et, *invd;
+  E *uo, *vo;
   const int* org;  // K9: per-image global origins; null otherwise
   int b, h, w, img_h, img_w, sweeps, tiles_x, tiles_y;
-  int vec;  // 16-byte copies and stores
+  int vec;  // 16-byte copies and stores (bfloat16: 1, 8-byte; 2, also
+            // 16-byte staging, `bf16_wide`)
   float omega;
 };
+struct Args : ArgsOf<float> {};
+struct ArgsBf16 : ArgsOf<__nv_bfloat16> {};
+
+template <class A>
+inline constexpr bool kIsFloat = std::is_same<typename A::Elem, float>::value;
 
 // One tile: its image, the window's origin in the image's array, its
 // global origin, and the window rows inside the array.
@@ -75,8 +115,8 @@ struct Tile {
   int r0, c0, org_r, org_c, wr_lo, wr_hi;
 };
 
-template <bool kShard>
-__device__ __forceinline__ Tile tile_at(const Args& a, const Geometry& g, int t) {
+template <bool kShard, class A>
+__device__ __forceinline__ Tile tile_at(const A& a, const Geometry& g, int t) {
   const int per_img = a.tiles_x * a.tiles_y;
   const int img = t / per_img;
   const int rem = t - img * per_img;
@@ -116,6 +156,16 @@ __device__ __forceinline__ void ld4(float (&d)[kLaneCols], const float* s, int r
   d[3] = x.w;
 }
 
+// ld4 of 4 bfloat16 values, widened.
+__device__ __forceinline__ void ld4(float (&d)[kLaneCols], const __nv_bfloat16* s, int r,
+                                    int c) {
+  const float4 x = bf16_widen4(*reinterpret_cast<const uint2*>(s + r * kWinW + c));
+  d[0] = x.x;
+  d[1] = x.y;
+  d[2] = x.z;
+  d[3] = x.w;
+}
+
 // Starts the copies of a thread's pixels of a tile's window, u and v into
 // the pair `pair` (zeros where `live` is false: a zero start) and the four
 // fields into theirs; zero outside the array. kL2 (K8): u and v may have
@@ -125,12 +175,50 @@ __device__ __forceinline__ void ld4(float (&d)[kLaneCols], const float* s, int r
 // __ldcg loads and shared stores, a row at a time, so that the loads in
 // flight do not add to the registers that hold the thread's pixels. The
 // fields are never written during a launch and keep their copies.
-template <bool kL2>
-__device__ __forceinline__ void stage_tile(float* smem, int pair, const Args& a,
+//
+// bfloat16: one row at a time; where `bf16_wide` allows, the even lanes copy
+// 16 bytes, their own 4 values of each array and the next lane's, and the
+// odd lanes none (the 8 columns are all in the array or all out); else
+// copy_quad's 8-byte copies (with kL2 8-byte __ldcg loads for u and v) or
+// 2-byte loads.
+template <bool kL2, class A>
+__device__ __forceinline__ void stage_tile(typename A::Elem* smem, int pair, const A& a,
                                            const Tile& t, const Lane& ln, bool live) {
-  float* pu = smem + 2 * pair * kArea;
-  float* pf = smem + 2 * kPairs * kArea;
+  using E = typename A::Elem;
+  E* pu = smem + 2 * pair * kArea;
+  E* pf = smem + 2 * kPairs * kArea;
   const int ac = t.c0 + ln.col0;
+  if constexpr (!kIsFloat<A>) {
+    const bool wide = bf16_wide(a.vec, t.c0);
+#pragma unroll 1
+    for (int jj = 0; jj < kRows; ++jj) {
+      const int wr = ln.row0 + jj;
+      const int ar = t.r0 + wr;
+      const bool row_in = ar >= 0 && ar < a.h;
+      const long long g = t.base + (long long)ar * a.w + ac;
+      const int o = wr * kWinW + ln.col0;
+      if (wide) {
+        if (ln.col0 & kLaneCols) continue;
+        const bool in = row_in && ac >= 0 && ac < a.w;
+        const long long gi = in ? g : 0;
+        copy16(pu + o, a.u + gi, in && live);
+        copy16(pu + kArea + o, a.v + gi, in && live);
+        copy16(pf + o, a.ex + gi, in);
+        copy16(pf + kArea + o, a.ey + gi, in);
+        copy16(pf + 2 * kArea + o, a.et + gi, in);
+        copy16(pf + 3 * kArea + o, a.invd + gi, in);
+      } else {
+        copy_quad<kL2>(pu + o, a.u, g, a.vec, row_in, ac, a.w, live);
+        copy_quad<kL2>(pu + kArea + o, a.v, g, a.vec, row_in, ac, a.w, live);
+        copy_quad<false>(pf + o, a.ex, g, a.vec, row_in, ac, a.w, true);
+        copy_quad<false>(pf + kArea + o, a.ey, g, a.vec, row_in, ac, a.w, true);
+        copy_quad<false>(pf + 2 * kArea + o, a.et, g, a.vec, row_in, ac, a.w, true);
+        copy_quad<false>(pf + 3 * kArea + o, a.invd, g, a.vec, row_in, ac, a.w, true);
+      }
+    }
+    copy_commit();
+    return;
+  }
   const bool uv_l2 = kL2 && !a.vec;
   if (uv_l2) {
 #pragma unroll 1
@@ -163,10 +251,12 @@ __device__ __forceinline__ void stage_tile(float* smem, int pair, const Args& a,
   copy_commit();
 }
 
-// A thread's staged pixels, from shared memory into registers.
-__device__ __forceinline__ void load_own(Own& o, const float* smem, int pair, const Lane& ln) {
-  const float* pu = smem + 2 * pair * kArea;
-  const float* pf = smem + 2 * kPairs * kArea;
+// A thread's staged pixels, from shared memory into registers (bfloat16
+// widened).
+template <class E>
+__device__ __forceinline__ void load_own(Own& o, const E* smem, int pair, const Lane& ln) {
+  const E* pu = smem + 2 * pair * kArea;
+  const E* pf = smem + 2 * kPairs * kArea;
 #pragma unroll
   for (int jj = 0; jj < kRows; ++jj) {
     const int r = ln.row0 + jj;
@@ -257,19 +347,38 @@ __device__ __forceinline__ void update_row(const float (&ut)[kLaneCols], float (
   stage_cols<1 - kPc, kClamp>(um, vm, tu, tv, o.x[jj], o.y[jj], o.t[jj], o.i[jj], ln, omega);
 }
 
+// u and v of a thread's 16 pixels rounded to bfloat16 (to nearest even)
+// and widened back, two values a conversion.
+__device__ __forceinline__ void round_own(Own& o) {
+#pragma unroll
+  for (int jj = 0; jj < kRows; ++jj) {
+#pragma unroll
+    for (int q = 0; q < kLaneCols; q += 2) {
+      const unsigned pu = bf16_round2(o.u[jj][q], o.u[jj][q + 1]);
+      const unsigned pv = bf16_round2(o.v[jj][q], o.v[jj][q + 1]);
+      o.u[jj][q] = bf16_widen((unsigned short)(pu & 0xffffu));
+      o.u[jj][q + 1] = bf16_widen((unsigned short)(pu >> 16));
+      o.v[jj][q] = bf16_widen((unsigned short)(pv & 0xffffu));
+      o.v[jj][q + 1] = bf16_widen((unsigned short)(pv >> 16));
+    }
+  }
+}
+
 // One half sweep on a thread's rows kA and kA + 2 (the rows of one global
 // parity): the row beside them that another warp owns (above for kA = 0,
 // below for kA = 1; the window's own first or last row at its edges) from
-// shared memory, the rest from registers; then the boundary row the half
-// changed (the thread's first or last) to shared memory for the
-// neighbouring warp.
-template <int kA, int kPc, bool kEdge>
-__device__ __forceinline__ void half_sweep(float* su, float* sv, Own& o, const Lane& ln,
-                                           float omega) {
+// shared memory (hu, hv: the float32 exchange pair, or in bfloat16 at a
+// tile's first half the staged pair), the rest from registers; with kRound
+// (bfloat16, the half that ends a sweep) u and v rounded; then the
+// boundary row the half changed (the thread's first or last) to the
+// exchange pair (su, sv) for the neighbouring warp.
+template <int kA, int kPc, bool kEdge, bool kRound = false, class S>
+__device__ __forceinline__ void half_sweep(const S* hsu, const S* hsv, float* su, float* sv,
+                                           Own& o, const Lane& ln, float omega) {
   const int hr = kA == 0 ? max(ln.row0 - 1, 0) : min(ln.row0 + kRows, kWinH - 1);
   float hu[kLaneCols], hv[kLaneCols];
-  ld4(hu, su, hr, ln.col0);
-  ld4(hv, sv, hr, ln.col0);
+  ld4(hu, hsu, hr, ln.col0);
+  ld4(hv, hsv, hr, ln.col0);
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int jj = kA + 2 * e;
@@ -283,25 +392,39 @@ __device__ __forceinline__ void half_sweep(float* su, float* sv, Own& o, const L
       update_row<kPc, kEdge>(o.u[jj - 1], o.u[jj], o.u[jj + 1], o.v[jj - 1], o.v[jj],
                              o.v[jj + 1], o, jj, tc, bc, ln, omega);
   }
+  if (kRound) round_own(o);
   const int pj = kA == 0 ? 0 : kRows - 1;
   st4(su, ln.row0 + pj, ln.col0, o.u[pj]);
   st4(sv, ln.row0 + pj, ln.col0, o.v[pj]);
 }
 
-// The tile's sweeps on the pair at su: sweep k on the warps whose rows
-// meet the rows [2k - 1, kWinH + 1 - 2k), cut at the array's edges, the
-// global-even rows (window rows of parity kPr) first; a block barrier
-// after each half but the last (the next tile's first barrier covers it).
-template <bool kEdge, int kPr, int kPc>
-__device__ __forceinline__ void run_sweeps(float* su, const Args& a, const Tile& tile,
-                                           const Lane& ln, Own& o) {
+// The tile's sweeps: sweep k on the warps whose rows meet the rows
+// [2k - 1, kWinH + 1 - 2k), cut at the array's edges, the global-even rows
+// (window rows of parity kPr) first, exchanging rows through the float32
+// pair at su (in float the swept pair itself; in bfloat16 the first half
+// reads the staged pair at pu); a block barrier after each half but the
+// last (the next tile's first barrier covers it).
+template <bool kEdge, int kPr, int kPc, class A>
+__device__ __forceinline__ void run_sweeps(const typename A::Elem* pu, float* su, const A& a,
+                                           const Tile& tile, const Lane& ln, Own& o) {
   float* sv = su + kArea;
   for (int k = 1; k <= a.sweeps; ++k) {
     const int rlo = max(2 * k - 1, tile.wr_lo), rhi = min(kWinH + 1 - 2 * k, tile.wr_hi);
     const bool live = ln.row0 < rhi && ln.row0 + kRows > rlo;  // uniform across the warp
-    if (live) half_sweep<kPr, kPc, kEdge>(su, sv, o, ln, a.omega);
-    __syncthreads();
-    if (live) half_sweep<1 - kPr, kPc, kEdge>(su, sv, o, ln, a.omega);
+    if constexpr (kIsFloat<A>) {
+      if (live) half_sweep<kPr, kPc, kEdge>(su, sv, su, sv, o, ln, a.omega);
+      __syncthreads();
+      if (live) half_sweep<1 - kPr, kPc, kEdge>(su, sv, su, sv, o, ln, a.omega);
+    } else {
+      if (live) {
+        if (k == 1)
+          half_sweep<kPr, kPc, kEdge>(pu, pu + kArea, su, sv, o, ln, a.omega);
+        else
+          half_sweep<kPr, kPc, kEdge>(su, sv, su, sv, o, ln, a.omega);
+      }
+      __syncthreads();
+      if (live) half_sweep<1 - kPr, kPc, kEdge, true>(su, sv, su, sv, o, ln, a.omega);
+    }
     if (k < a.sweeps) __syncthreads();
   }
 }
@@ -309,9 +432,10 @@ __device__ __forceinline__ void run_sweeps(float* su, const Args& a, const Tile&
 // One staged tile: the thread's clamps and owned columns, the sweeps in
 // the instance of the tile's edges and parities, and the owned pixels
 // from registers to device memory.
-template <bool kShard>
-__device__ __forceinline__ void sweep_tile(float* su, const Args& a, const Geometry& geo,
-                                           const Tile& tile, Lane& ln, Own& o) {
+template <bool kShard, class A>
+__device__ __forceinline__ void sweep_tile(const typename A::Elem* pu, float* su, const A& a,
+                                           const Geometry& geo, const Tile& tile, Lane& ln,
+                                           Own& o) {
   const int hs = 2 * a.sweeps, hc = 4 * a.sweeps;
   ln.lcl = ln.rcl = ln.own = ln.tcl = ln.bcl = 0;
 #pragma unroll
@@ -340,16 +464,16 @@ __device__ __forceinline__ void sweep_tile(float* su, const Args& a, const Geome
   const bool pr = kShard && (gr0 & 1), pc = kShard && (gc0 & 1);
   if (edge) {
     if (pr)
-      pc ? run_sweeps<true, 1, 1>(su, a, tile, ln, o) : run_sweeps<true, 1, 0>(su, a, tile, ln, o);
+      pc ? run_sweeps<true, 1, 1>(pu, su, a, tile, ln, o) : run_sweeps<true, 1, 0>(pu, su, a, tile, ln, o);
     else
-      pc ? run_sweeps<true, 0, 1>(su, a, tile, ln, o) : run_sweeps<true, 0, 0>(su, a, tile, ln, o);
+      pc ? run_sweeps<true, 0, 1>(pu, su, a, tile, ln, o) : run_sweeps<true, 0, 0>(pu, su, a, tile, ln, o);
   } else {
     if (pr)
-      pc ? run_sweeps<false, 1, 1>(su, a, tile, ln, o)
-         : run_sweeps<false, 1, 0>(su, a, tile, ln, o);
+      pc ? run_sweeps<false, 1, 1>(pu, su, a, tile, ln, o)
+         : run_sweeps<false, 1, 0>(pu, su, a, tile, ln, o);
     else
-      pc ? run_sweeps<false, 0, 1>(su, a, tile, ln, o)
-         : run_sweeps<false, 0, 0>(su, a, tile, ln, o);
+      pc ? run_sweeps<false, 0, 1>(pu, su, a, tile, ln, o)
+         : run_sweeps<false, 0, 0>(pu, su, a, tile, ln, o);
   }
   // The owned tile, cut at the array.
   const int out_lo = max(hs, tile.wr_lo), out_hi = min(hs + geo.th, tile.wr_hi);
@@ -359,7 +483,24 @@ __device__ __forceinline__ void sweep_tile(float* su, const Args& a, const Geome
     const int r = ln.row0 + jj;
     if (r < out_lo || r >= out_hi) continue;
     const long long g = tile.base + (long long)(tile.r0 + r) * a.w + tile.c0 + ln.col0;
-    if (a.vec && ln.own == 0xfu) {
+    if constexpr (!kIsFloat<A>) {  // the values are rounded: stored exactly
+      if (a.vec && ln.own == 0xfu) {
+        __stcg(reinterpret_cast<uint2*>(a.uo + g),
+               bf16_round4(o.u[jj][0], o.u[jj][1], o.u[jj][2], o.u[jj][3]));
+        __stcg(reinterpret_cast<uint2*>(a.vo + g),
+               bf16_round4(o.v[jj][0], o.v[jj][1], o.v[jj][2], o.v[jj][3]));
+      } else {
+        unsigned short* qu = reinterpret_cast<unsigned short*>(a.uo);
+        unsigned short* qv = reinterpret_cast<unsigned short*>(a.vo);
+#pragma unroll
+        for (int q = 0; q < kLaneCols; ++q) {
+          if (ln.own >> q & 1u) {
+            qu[g + q] = hs_k2::bf16_round(o.u[jj][q]);
+            qv[g + q] = hs_k2::bf16_round(o.v[jj][q]);
+          }
+        }
+      }
+    } else if (a.vec && ln.own == 0xfu) {
       __stcg(reinterpret_cast<float4*>(a.uo + g),
              make_float4(o.u[jj][0], o.u[jj][1], o.u[jj][2], o.u[jj][3]));
       __stcg(reinterpret_cast<float4*>(a.vo + g),
@@ -386,8 +527,12 @@ __device__ __forceinline__ void sweep_tile(float* su, const Args& a, const Geome
 // it has just read), the sweeps. It ends with no copy in flight; the last
 // half sweep is not followed by a barrier, so a caller that walks again
 // (K8) puts one first.
-template <bool kShard, bool kL2>
-__device__ __forceinline__ void walk_tiles(float* smem, const Args& a, bool live) {
+//
+// bfloat16: a warp barrier after a thread's pixels are read, before the next
+// tile's copies start, since with 16-byte copies an even lane stages the
+// next lane's pixels of the fields' one buffer.
+template <bool kShard, bool kL2, class A>
+__device__ __forceinline__ void walk_tiles(typename A::Elem* smem, const A& a, bool live) {
   const Geometry geo = geometry(a.sweeps);
   const int ntiles = a.b * a.tiles_x * a.tiles_y;
   if ((int)blockIdx.x >= ntiles) return;
@@ -402,9 +547,17 @@ __device__ __forceinline__ void walk_tiles(float* smem, const Args& a, bool live
     __syncthreads();
     Own o;
     load_own(o, smem, cur, ln);
+    if constexpr (!kIsFloat<A>) __syncwarp();
     const int tn = t + gridDim.x;
     if (tn < ntiles) stage_tile<kL2>(smem, cur ^ 1, a, tile_at<kShard>(a, geo, tn), ln, live);
-    sweep_tile<kShard>(smem + 2 * cur * kArea, a, geo, tile, ln, o);
+    // The rows exchanged in a sweep: through the swept pair in float; in
+    // bfloat16 through a float32 pair of their own after the staged arrays.
+    if constexpr (kIsFloat<A>)
+      sweep_tile<kShard>(smem + 2 * cur * kArea, smem + 2 * cur * kArea, a, geo, tile, ln, o);
+    else
+      sweep_tile<kShard>(smem + 2 * cur * kArea,
+                         reinterpret_cast<float*>(smem + (2 * kPairs + 4) * kArea), a, geo,
+                         tile, ln, o);
     cur ^= 1;
   }
 }

@@ -103,6 +103,17 @@
 // edges and at the shard's own edges, and the color parity is that of the
 // global row and column.
 //
+// bfloat16 (hs_sor_sweeps_bf16, single frame and stack; K9's SOR entry
+// stays float): the same walk on bfloat16 arrays (k3_window.cuh's storage
+// types): the pairs and fields staged in bfloat16 (16-byte copies of 8
+// values where the width and the tile's first column are multiples of 8,
+// as at every even s; else 8-byte copies), widened into the same
+// registers, the boundary rows exchanged in a float32 pair within a sweep,
+// u and v rounded to nearest even at each sweep's end: 147,456 bytes of
+// shared memory, the float32 geometry and s. Bound: 8 arrays of 2 bytes,
+// 10.0 us at 1088x1920; 38 operations a pixel a sweep with the two
+// roundings.
+//
 // The walk itself is in k3_window.cuh, which K8 (sor_planes.cu) shares: all
 // of it in an unnamed namespace, as when it lived here, so that each source
 // compiles its own copy and K3's SASS stays what it was; from k2_window.cuh
@@ -123,7 +134,28 @@ __global__ void __launch_bounds__(kThreads, 1) sor_kernel(const Args a) {
   walk_tiles<kShard, false>(smem, a, true);
 }
 
-template <bool kShard>
+// The bfloat16 build (whole images only).
+__global__ void __launch_bounds__(kThreads, 1) sor_kernel_bf16(const ArgsBf16 a) {
+  extern __shared__ __align__(16) float smem[];
+  walk_tiles<false, false>(reinterpret_cast<__nv_bfloat16*>(smem), a, true);
+}
+
+// The kernel and shared bytes of a build: K3 (kShard false) or K9 SOR in
+// float, K3 in bfloat16.
+template <class A, bool kShard>
+auto build_kernel() {
+  if constexpr (kIsFloat<A>)
+    return sor_kernel<kShard>;
+  else
+    return sor_kernel_bf16;
+}
+
+template <class A>
+constexpr size_t build_smem() {
+  return kIsFloat<A> ? kSmemBytes : kSmemBytesBf16;
+}
+
+template <class A, bool kShard>
 cudaError_t configure(int device, int* grid_max) {
   // Per device: opt into the shared memory above 48 KB, and the number of
   // blocks that can be resident at once (the persistent grid).
@@ -132,12 +164,13 @@ cudaError_t configure(int device, int* grid_max) {
     *grid_max = cached[device];
     return cudaSuccess;
   }
+  const auto kernel = build_kernel<A, kShard>();
   cudaError_t err = cudaFuncSetAttribute(
-      sor_kernel<kShard>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)build_smem<A>());
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sor_kernel<kShard>, kThreads,
-                                                      kSmemBytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                      build_smem<A>());
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
@@ -147,32 +180,49 @@ cudaError_t configure(int device, int* grid_max) {
   return cudaSuccess;
 }
 
-int launch(const float* u, const float* v, const float* ex, const float* ey,
-           const float* et, const float* invd, float* uo, float* vo,
+template <class A>
+int launch(const typename A::Elem* u, const typename A::Elem* v,
+           const typename A::Elem* ex, const typename A::Elem* ey,
+           const typename A::Elem* et, const typename A::Elem* invd,
+           typename A::Elem* uo, typename A::Elem* vo,
            const int* org, int b, int h, int w, int img_h, int img_w,
            int sweeps, float omega, int device, void* stream) {
   if (b < 1 || b > kMaxBatch || h < 1 || w < 1 || sweeps < 1 || sweeps > kMaxSweeps)
     return (int)cudaErrorInvalidValue;
+  if (!kIsFloat<A> && org != nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int grid_max = 0;
-  err = org != nullptr ? configure<true>(device, &grid_max)
-                       : configure<false>(device, &grid_max);
+  err = org != nullptr ? configure<Args, true>(device, &grid_max)
+                       : configure<A, false>(device, &grid_max);
   if (err != cudaSuccess) return (int)err;
   const Geometry g = geometry(sweeps);
-  Args a;
+  A a;
   a.u = u; a.v = v; a.ex = ex; a.ey = ey; a.et = et; a.invd = invd;
   a.uo = uo; a.vo = vo; a.org = org;
   a.b = b; a.h = h; a.w = w; a.img_h = img_h; a.img_w = img_w; a.sweeps = sweeps;
   a.omega = omega;
   a.tiles_x = (w + g.tw - 1) / g.tw;
   a.tiles_y = (h + g.th - 1) / g.th;
-  a.vec = w % 4 == 0 && aligned(u) && aligned(v) && aligned(ex) && aligned(ey) &&
-          aligned(et) && aligned(invd) && aligned(uo) && aligned(vo);
+  if constexpr (kIsFloat<A>) {
+    a.vec = w % 4 == 0 && aligned(u) && aligned(v) && aligned(ex) && aligned(ey) &&
+            aligned(et) && aligned(invd) && aligned(uo) && aligned(vo);
+  } else {
+    // 8 bytes (4 bfloat16 values) a lane's copy or store; 2: rows also
+    // staged 16 bytes at a time (bf16_wide).
+    auto all_aligned = [&](unsigned long long n) {
+      return aligned(u, n) && aligned(v, n) && aligned(ex, n) && aligned(ey, n) &&
+             aligned(et, n) && aligned(invd, n) && aligned(uo, n) && aligned(vo, n);
+    };
+    a.vec = w % 4 == 0 && all_aligned(8);
+    if (a.vec && w % 8 == 0 && all_aligned(16)) a.vec = 2;
+  }
   const long long tiles = (long long)b * a.tiles_x * a.tiles_y;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int grid = (int)(tiles < grid_max ? tiles : grid_max);
-  if (org != nullptr)
+  if constexpr (!kIsFloat<A>)
+    sor_kernel_bf16<<<grid, kThreads, kSmemBytesBf16, (cudaStream_t)stream>>>(a);
+  else if (org != nullptr)
     sor_kernel<true><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(a);
   else
     sor_kernel<false><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(a);
@@ -186,8 +236,18 @@ extern "C" int hs_sor_sweeps(const float* u, const float* v, const float* ex,
                              const float* invd, float* uo, float* vo, int b,
                              int h, int w, int sweeps, float omega, int device,
                              void* stream) {
-  return launch(u, v, ex, ey, et, invd, uo, vo, nullptr, b, h, w, h, w, sweeps,
-                omega, device, stream);
+  return launch<Args>(u, v, ex, ey, et, invd, uo, vo, nullptr, b, h, w, h, w, sweeps,
+                      omega, device, stream);
+}
+
+// K3's bfloat16 build: the same arguments, every array bfloat16.
+extern "C" int hs_sor_sweeps_bf16(const __nv_bfloat16* u, const __nv_bfloat16* v,
+                                  const __nv_bfloat16* ex, const __nv_bfloat16* ey,
+                                  const __nv_bfloat16* et, const __nv_bfloat16* invd,
+                                  __nv_bfloat16* uo, __nv_bfloat16* vo, int b, int h, int w,
+                                  int sweeps, float omega, int device, void* stream) {
+  return launch<ArgsBf16>(u, v, ex, ey, et, invd, uo, vo, nullptr, b, h, w, h, w, sweeps,
+                          omega, device, stream);
 }
 
 // K9's SOR twin: b halo-padded h x w shards; org holds 2b ints on the
@@ -201,24 +261,26 @@ extern "C" int hs_sor_tile_sweeps(const float* u, const float* v,
                                   int sweeps, float omega, int device,
                                   void* stream) {
   if (org == nullptr) return (int)cudaErrorInvalidValue;
-  return launch(u, v, ex, ey, et, invd, uo, vo, org, b, h, w, img_h, img_w,
-                sweeps, omega, device, stream);
+  return launch<Args>(u, v, ex, ey, et, invd, uo, vo, org, b, h, w, img_h, img_w,
+                      sweeps, omega, device, stream);
 }
 
 // K3's geometry at `sweeps` on `device` (K9 SOR's with `shard` nonzero),
 // into out[0..8]: sweeps, tile rows, tile columns, threads a block, shared
 // bytes a block, registers a thread, local (spilled) bytes a thread, blocks
 // resident on one multiprocessor, and the number of multiprocessors.
-extern "C" int hs_sor_geometry(int sweeps, int shard, int device, int* out) {
+namespace {
+
+template <class A, bool kShard>
+int report(int sweeps, int device, int* out) {
   if (sweeps < 1 || sweeps > kMaxSweeps) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int grid_max = 0, sms = 0;
-  err = shard ? configure<true>(device, &grid_max) : configure<false>(device, &grid_max);
+  err = configure<A, kShard>(device, &grid_max);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
-  err = shard ? cudaFuncGetAttributes(&attr, sor_kernel<true>)
-              : cudaFuncGetAttributes(&attr, sor_kernel<false>);
+  err = cudaFuncGetAttributes(&attr, build_kernel<A, kShard>());
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
@@ -227,10 +289,22 @@ extern "C" int hs_sor_geometry(int sweeps, int shard, int device, int* out) {
   out[1] = g.th;
   out[2] = g.tw;
   out[3] = kThreads;
-  out[4] = (int)kSmemBytes;
+  out[4] = (int)build_smem<A>();
   out[5] = attr.numRegs;
   out[6] = (int)attr.localSizeBytes;
   out[7] = grid_max / sms;
   out[8] = sms;
   return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" int hs_sor_geometry(int sweeps, int shard, int device, int* out) {
+  return shard ? report<Args, true>(sweeps, device, out)
+               : report<Args, false>(sweeps, device, out);
+}
+
+// K3's bfloat16 build, as hs_sor_geometry's.
+extern "C" int hs_sor_geometry_bf16(int sweeps, int device, int* out) {
+  return report<ArgsBf16, false>(sweeps, device, out);
 }

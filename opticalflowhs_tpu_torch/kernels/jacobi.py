@@ -114,18 +114,34 @@ def jacobi_sweeps_plain(u, v, ex, ey, et, inv_den, n: int):
         lambda uv: stencils.store(stencils.jacobi_step, *uv, ex, ey, et, inv_den), (u, v), n)
 
 
-def k2_stage(a, r0: int, c0: int, window=(K2_WINDOW_H, K2_WINDOW_W)):
+def k2_stage(a, r0: int, c0: int, window=(K2_WINDOW_H, K2_WINDOW_W), group: int = 1):
     """The (wh, ww) window of the (H, W) array `a` whose element (0, 0) is
     array pixel (r0, c0), NaN outside the array (the kernels stage zeros
-    there: NaN shows that no exact pixel reads it)."""
+    there: NaN shows that no exact pixel reads it). `group` > 1 stages the
+    columns as the kernels' wide copies do, in groups of that many from the
+    window's column 0, a group only where all of it lies inside the array
+    (`copy_group` says which width a kernel takes)."""
     wh, ww = window
     h, w = a.shape
     win = torch.full((wh, ww), float("nan"), dtype=a.dtype)
     rlo, rhi = max(0, -r0), min(wh, h - r0)
     clo, chi = max(0, -c0), min(ww, w - c0)
+    if group > 1:
+        clo, chi = -(-clo // group) * group, chi // group * group
     if rlo < rhi and clo < chi:
         win[rlo:rhi, clo:chi] = a[r0 + rlo:r0 + rhi, c0 + clo:c0 + chi]
     return win
+
+
+def copy_group(dtype, w: int, c0: int) -> int:
+    """Columns one copy stages in the window walks of K3 and K4 (csrc,
+    `copy_quad`, `bf16_wide`) for an array of width w whose window starts
+    at column c0: 8 bfloat16 values (16 bytes, a lane pair) where w and c0
+    are multiples of 8, a lane's 4 where w is a multiple of 4, else 1. The
+    groups are then all inside the array or all outside."""
+    if dtype == torch.bfloat16 and w % 8 == 0 and c0 % 8 == 0:
+        return 8
+    return 4 if w % 4 == 0 else 1
 
 
 def k2_window_sweeps(su, sv, fx, fy, ft, fi, sweeps: int, r0: int, c0: int,

@@ -18,7 +18,8 @@ K2 (or K3) launch runs several sweeps on shared-memory tiles.
 Two u/v pairs ping-pong; nothing synchronises with the host. Unlike the
 TPU kernel, which returns None outside its VMEM residency class and for
 the central variant, this driver covers every size and both derivative
-variants, in float32 and in bfloat16 (K1's and K2's bfloat16 builds).
+variants, in float32 and in bfloat16 (K1's, K2's and K3's bfloat16
+builds).
 
 `applicable` is the reference's class test for its resident kernel, kept
 here as a plain function of the frame's size: `solver.solve_level` routes
@@ -170,7 +171,8 @@ def hs_solve_resident_sor(i1, i2, alpha: float, n: int, omega: float,
     """Whole 4-color SOR solve of an (H, W) pair or a (B, H, W) stack, the
     port of the reference's `hs_solve_resident_sor` (`_resident_body` at
     stages=4): on CUDA tensors K1, then ceil(n/s) K3 launches, one chain
-    for a whole stack; the plain version on CPU tensors. Unlike the TPU
+    for a whole stack; the plain version on CPU tensors; float32 or
+    bfloat16 (K1's and K3's bfloat16 builds). Unlike the TPU
     kernel it covers both derivative variants and every size. Returns
     (u, v). Differentiable with respect to the frames and the start
     (`autodiff`: the VJP of `hs_solve_resident_sor_plain`)."""
@@ -184,7 +186,7 @@ def hs_solve_resident_sor(i1, i2, alpha: float, n: int, omega: float,
                                                            variant, c, d),
             i1, i2, u0, v0)
     check_frames("hs_solve_resident_sor", i1, i2,
-                 *(() if u0 is None else (u0, v0)))
+                 *(() if u0 is None else (u0, v0)), dtypes=BF16_DTYPES)
     if n < 0:
         raise ValueError("n must be >= 0")
     if i1.device.type == "cpu":

@@ -35,12 +35,13 @@ import torch
 from opticalflowhs_tpu_torch import robust as plain
 from opticalflowhs_tpu_torch.kernels import _build, autodiff
 from opticalflowhs_tpu_torch.kernels.derivatives import (
+    BF16_DTYPES,
     batch_dims,
     check_frames,
     derivatives_plain,
     hs_derivatives,
 )
-from opticalflowhs_tpu_torch.kernels.jacobi import k2_stage, ping_pong
+from opticalflowhs_tpu_torch.kernels.jacobi import copy_group, k2_stage, ping_pong
 from opticalflowhs_tpu_torch.kernels.sor import _check_block_sweeps
 
 # The sweep kernel's geometry (csrc/robust.cu). A block of K4_THREADS
@@ -154,7 +155,7 @@ def launches(n: int, s: int) -> int:
 
 
 def k4_window_sweeps(su, sv, fx, fy, ft, fd, fs, sweeps: int, alpha: float, r0: int,
-                     c0: int, hw, skip: bool = True):
+                     c0: int, hw, skip: bool = True, bf16: bool = False):
     """The `sweeps` sweeps of one staged K4 window at array pixel (r0, c0) of
     an (h, w) = `hw` array, as csrc/robust.cu schedules them: the ten
     coefficients formed once from the staged fields, then sweep k on the
@@ -165,7 +166,9 @@ def k4_window_sweeps(su, sv, fx, fy, ft, fd, fs, sweeps: int, alpha: float, r0: 
     window (the kernel takes its own first or last row there, and its lanes
     0 and 31 their own columns) is NaN here, so that any value read from
     outside the window shows. skip=False sweeps every row at every sweep.
-    Returns (u, v)."""
+    The arrays are float32; with `bf16` each sweep's u and v are rounded to
+    bfloat16, as the kernel's bfloat16 build rounds them at each sweep's
+    end. Returns (u, v)."""
     h, w = hw
     wh, ww = su.shape
     rows_w = torch.arange(wh)
@@ -208,13 +211,15 @@ def k4_window_sweeps(su, sv, fx, fy, ft, fd, fs, sweeps: int, alpha: float, r0: 
         b2 = a2 * (w_up * v_up + w_dn * v_dn + w_lf * v_lf + w_rt * v_rt) - c2
         un = (a22 * b1 - a12 * b2) * inv_det
         vn = (a11 * b2 - a12 * b1) * inv_det
+        if bf16:
+            un, vn = (x.to(torch.bfloat16).float() for x in (un, vn))
         su, sv = su.clone(), sv.clone()
         su[lo:hi], sv[lo:hi] = un[lo:hi], vn[lo:hi]
     return su, sv
 
 
 def k4_launch_schedule_plain(u, v, ex, ey, et, wd, ws, sweeps: int, alpha: float,
-                             halo=None):
+                             halo=None, group=None):
     """One K4 sweep launch of `sweeps` sweeps as csrc/robust.cu schedules it,
     in plain torch, on (H, W) or (B, H, W): each image cut into `k4_tile`
     tiles; each tile's window staged with what lies outside the array set
@@ -224,7 +229,11 @@ def k4_launch_schedule_plain(u, v, ex, ey, et, wd, ws, sweeps: int, alpha: float
     columns rounded up to 4 on the left (the tile is then the window less
     it on each side, and every row is swept at every sweep, as the warps'
     skipping assumes the full halo), to show what a smaller one does.
-    Returns (u, v)."""
+    bfloat16 arrays are staged as the kernel's bfloat16 build stages them
+    (`jacobi.copy_group`; `group` forces the column groups, to show what
+    copies wider than the alignment allows do) and widened, the
+    coefficients are formed in float32 from the widened fields and
+    weights, and each sweep's u and v are rounded. Returns (u, v)."""
     single = u.ndim == 2
     arrays = [a[None] if single else a for a in (u, v, ex, ey, et, wd, ws)]
     b, h, w = arrays[0].shape
@@ -242,9 +251,12 @@ def k4_launch_schedule_plain(u, v, ex, ey, et, wd, ws, sweeps: int, alpha: float
         for tr0 in range(0, h, th):
             for tc0 in range(0, w, tw):
                 r0, c0 = tr0 - hr, tc0 - lh
-                wins = [k2_stage(a[img], r0, c0, (K4_WINDOW_H, K4_WINDOW_W)) for a in arrays]
+                g = group or copy_group(arrays[0].dtype, w, c0)
+                wins = [k2_stage(a[img], r0, c0, (K4_WINDOW_H, K4_WINDOW_W), g).float()
+                        for a in arrays]
                 su, sv = k4_window_sweeps(*wins, sweeps, alpha, r0, c0, (h, w),
-                                          skip=halo is None)
+                                          skip=halo is None,
+                                          bf16=arrays[0].dtype == torch.bfloat16)
                 r1, c1 = min(tr0 + th, h), min(tc0 + tw, w)
                 out_u[img, tr0:r1, tc0:c1] = su[hr:hr + r1 - tr0, lh:lh + c1 - tc0]
                 out_v[img, tr0:r1, tc0:c1] = sv[hr:hr + r1 - tr0, lh:lh + c1 - tc0]
@@ -263,21 +275,22 @@ def k4_sweeps_schedule_plain(u, v, ex, ey, et, wd, ws, n: int, s: int, alpha: fl
     return u, v
 
 
-def k4_geometry(device, sweeps: int = 8) -> dict:
-    """The K4 sweep kernel's geometry on a CUDA device at `sweeps`, as the
-    built kernel reports it: sweeps, tile, left halo, window rows, rows a
-    thread, threads, shared bytes, registers a thread and spilled bytes
-    (cudaFuncGetAttributes), resident blocks a multiprocessor and
-    multiprocessors."""
-    return dict(_geometry(torch.device(device).index or 0, sweeps))
+def k4_geometry(device, sweeps: int = 8, dtype=torch.float32) -> dict:
+    """The K4 sweep kernel's geometry (of its `dtype` build: float32 or
+    bfloat16) on a CUDA device at `sweeps`, as the built kernel reports it:
+    sweeps, tile, left halo, window rows, rows a thread, threads, shared
+    bytes, registers a thread and spilled bytes (cudaFuncGetAttributes),
+    resident blocks a multiprocessor and multiprocessors."""
+    return dict(_geometry(torch.device(device).index or 0, sweeps,
+                          _build.bf16_suffix(dtype)))
 
 
 @functools.lru_cache(maxsize=64)
-def _geometry(index: int, sweeps: int) -> tuple:
+def _geometry(index: int, sweeps: int, bf16: str = "") -> tuple:
     out = (ctypes.c_int * 12)()
-    err = _build.library().hs_robust_geometry(
+    err = getattr(_build.library(), "hs_robust_geometry" + bf16)(
         sweeps, index, ctypes.cast(out, ctypes.POINTER(ctypes.c_int)))
-    _build.check(err, "hs_robust_geometry")
+    _build.check(err, "hs_robust_geometry" + bf16)
     keys = ("sweeps", "tile_h", "tile_w", "left_halo", "window_h", "thread_rows",
             "threads", "smem_bytes", "registers", "spill_bytes", "blocks_per_sm", "sms")
     return tuple(zip(keys, list(out)))
@@ -311,8 +324,10 @@ def _stream(t: torch.Tensor) -> int:
 
 def freeze_weights(u, v, ex, ey, et, eps_d: float, eps_s: float):
     """(wd, ws) from the current flow: one K4 freeze launch on CUDA
-    tensors, `robust.charbonnier_weights` on CPU tensors."""
-    check_frames("freeze_weights", u, v, ex, ey, et)
+    tensors, `robust.charbonnier_weights` on CPU tensors. float32 or
+    bfloat16 (the freeze's bfloat16 build: float32 arithmetic, wd and ws
+    rounded where they are stored)."""
+    check_frames("freeze_weights", u, v, ex, ey, et, dtypes=BF16_DTYPES)
     if u.device.type == "cpu":
         return plain.charbonnier_weights(u, v, ex, ey, et, eps_d, eps_s)
     b, h, w = batch_dims("hs_robust_freeze", u)
@@ -322,12 +337,13 @@ def freeze_weights(u, v, ex, ey, et, eps_d: float, eps_s: float):
     eps_d, eps_s = float(eps_d), float(eps_s)
     # eps^2 rounds to float32 from its double, as `eps * eps` added to a
     # float32 tensor does in the plain version.
-    err = _build.library().hs_robust_freeze(
+    bf16 = _build.bf16_suffix(u.dtype)
+    err = getattr(_build.library(), "hs_robust_freeze" + bf16)(
         u.data_ptr(), v.data_ptr(), ex.data_ptr(), ey.data_ptr(),
         et.data_ptr(), wd.data_ptr(), ws.data_ptr(), b, h, w,
         eps_d, eps_d * eps_d, eps_s, eps_s * eps_s, u.device.index, _stream(u),
     )
-    _build.check(err, "hs_robust_freeze")
+    _build.check(err, "hs_robust_freeze" + bf16)
     freeze_weights.launches += 1
     return wd, ws
 
@@ -335,20 +351,21 @@ def freeze_weights(u, v, ex, ey, et, eps_d: float, eps_s: float):
 def launch_sweeps(u, v, ex, ey, et, wd, ws, uo, vo, sweeps: int, alpha: float) -> None:
     """One K4 sweep launch: `sweeps` frozen-weight sweeps from (u, v) into
     (uo, vo), on the current stream, over a frame or a whole stack. All
-    nine tensors are CUDA float32 of one shape (checked by the caller);
-    uo/vo must not alias u/v."""
+    nine tensors are CUDA tensors of one shape and one dtype, float32 or
+    bfloat16 (checked by the caller); uo/vo must not alias u/v."""
     b, h, w = batch_dims("hs_robust_sweeps", u)
     if u.numel() == 0:
         return
     alpha = float(alpha)
     # alpha^2 rounds to float32 from its double, as `alpha * alpha` times a
     # float32 tensor does in the plain version.
-    err = _build.library().hs_robust_sweeps(
+    bf16 = _build.bf16_suffix(u.dtype)
+    err = getattr(_build.library(), "hs_robust_sweeps" + bf16)(
         u.data_ptr(), v.data_ptr(), ex.data_ptr(), ey.data_ptr(),
         et.data_ptr(), wd.data_ptr(), ws.data_ptr(), uo.data_ptr(),
         vo.data_ptr(), b, h, w, sweeps, alpha * alpha, u.device.index, _stream(u),
     )
-    _build.check(err, "hs_robust_sweeps")
+    _build.check(err, "hs_robust_sweeps" + bf16)
     frozen_sweeps.launches += 1
 
 
@@ -357,8 +374,11 @@ def frozen_sweeps(u, v, ex, ey, et, wd, ws, alpha: float, n: int,
     """n frozen-weight sweeps: on CUDA tensors ceil(n/s) K4 sweep launches,
     s from `sweeps_per_launch` for this frame or stack on this device
     (`jacobi.ping_pong`; owned=True lets the chain overwrite (u, v)),
-    `robust.robust_step` n times on CPU tensors."""
-    check_frames("frozen_sweeps", u, v, ex, ey, et, wd, ws)
+    `robust.robust_step` n times on CPU tensors. float32 or bfloat16 (the
+    sweeps' bfloat16 build: the coefficients formed in float32 from the
+    widened fields and weights, u and v rounded at each sweep's end, the
+    float32 plan's launches)."""
+    check_frames("frozen_sweeps", u, v, ex, ey, et, wd, ws, dtypes=BF16_DTYPES)
     _check_block_sweeps(block_sweeps)
     if u.device.type == "cpu":
         for _ in range(n):
@@ -388,7 +408,7 @@ def robust_sweeps(u, v, ex, ey, et, n: int, cfg, owned: bool = False):
         return autodiff.KernelEntry.apply(
             lambda *t: robust_sweeps(*t, n, cfg),
             lambda *t: plain.robust_sweeps(*t, n, cfg), u, v, ex, ey, et)
-    check_frames("robust_sweeps", u, v, ex, ey, et)
+    check_frames("robust_sweeps", u, v, ex, ey, et, dtypes=BF16_DTYPES)
     if u.device.type == "cpu":
         return plain.robust_sweeps(u, v, ex, ey, et, n, cfg)
     for m in plain.refreeze_blocks(n, cfg.robust_update_every):
@@ -412,8 +432,8 @@ def hs_solve_robust_resident_plain(i1, i2, cfg, u0=None, v0=None):
 def hs_solve_robust_resident(i1, i2, cfg, u0=None, v0=None):
     """Whole IRLS solve (derivatives, every refreeze, cfg.iters sweeps) of
     an (H, W) pair or a (B, H, W) stack, from zeros or from (u0, v0): K1
-    and the K4 chain on CUDA tensors, the plain version on CPU tensors.
-    Returns (u, v). Differentiable with respect to the frames and the start
+    and the K4 chain on CUDA tensors (float32 or their bfloat16 builds),
+    the plain version on CPU tensors. Returns (u, v). Differentiable with respect to the frames and the start
     (`autodiff`: the VJP of `hs_solve_robust_resident_plain`, as the
     reference's `_solve_ad`)."""
     if (u0 is None) != (v0 is None):
@@ -424,7 +444,7 @@ def hs_solve_robust_resident(i1, i2, cfg, u0=None, v0=None):
             lambda a, b, c, d: hs_solve_robust_resident_plain(a, b, cfg, c, d),
             i1, i2, u0, v0)
     check_frames("hs_solve_robust_resident", i1, i2,
-                 *(() if u0 is None else (u0, v0)))
+                 *(() if u0 is None else (u0, v0)), dtypes=BF16_DTYPES)
     if i1.device.type == "cpu":
         return hs_solve_robust_resident_plain(i1, i2, cfg, u0, v0)
     if cfg.iters == 0:

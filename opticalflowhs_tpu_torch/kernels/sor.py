@@ -26,8 +26,8 @@ import functools
 import torch
 
 from opticalflowhs_tpu_torch.kernels import _build, autodiff
-from opticalflowhs_tpu_torch.kernels.derivatives import batch_dims, check_frames
-from opticalflowhs_tpu_torch.kernels.jacobi import ping_pong
+from opticalflowhs_tpu_torch.kernels.derivatives import BF16_DTYPES, batch_dims, check_frames
+from opticalflowhs_tpu_torch.kernels.jacobi import copy_group, k2_stage, ping_pong
 from opticalflowhs_tpu_torch.ops import stencils
 
 # K3's geometry (csrc/sor.cu). A block of K3_THREADS threads sweeps a
@@ -115,29 +115,23 @@ def launches(n: int, s: int) -> int:
 def sor_sweeps_plain(u, v, ex, ey, et, inv_den, n: int, omega: float):
     """n plain 4-color SOR sweeps (ops/stencils.py sor_step) on (H, W) or
     (B, H, W); the color grids are each image's own. The sweeps run through
-    `stencils.checkpointed_loop`, as the reference's twin."""
+    `stencils.checkpointed_loop`, as the reference's twin. bfloat16 arrays
+    follow the storage rule (`stencils.store`): the four color stages of a
+    sweep in float32, each reading the earlier stages' float32 values, and
+    u and v rounded once, at the sweep's end."""
     colors = stencils.color_masks(*u.shape[-2:], device=u.device)
     return stencils.checkpointed_loop(
-        lambda uv: stencils.sor_step(*uv, ex, ey, et, inv_den, omega, colors),
+        lambda uv: stencils.store(stencils.sor_step, *uv, ex, ey, et, inv_den, omega, colors),
         (u, v), n)
 
 
-def _stage(a, r0: int, c0: int):
-    """The window of the (H, W) array `a` at array pixel (r0, c0), NaN
-    outside the array (the kernel stages zeros: NaN shows that no exact
-    pixel reads it)."""
-    wh, ww = K3_WINDOW_H, K3_WINDOW_W
-    h, w = a.shape
-    win = torch.full((wh, ww), float("nan"), dtype=a.dtype)
-    rlo, rhi = max(0, -r0), min(wh, h - r0)
-    clo, chi = max(0, -c0), min(ww, w - c0)
-    if rlo < rhi and clo < chi:
-        win[rlo:rhi, clo:chi] = a[r0 + rlo:r0 + rhi, c0 + clo:c0 + chi]
-    return win
+def _bf16_round(a):
+    """a (float32) rounded to bfloat16 and widened back, exactly."""
+    return a.to(torch.bfloat16).float()
 
 
 def k3_window_sweeps(su, sv, fx, fy, ft, fi, sweeps: int, omega: float, r0: int,
-                     c0: int, hw, org=(0, 0), img_hw=None):
+                     c0: int, hw, org=(0, 0), img_hw=None, round_at=None):
     """The `sweeps` sweeps of one staged K3 window at array pixel (r0, c0)
     of an (h, w) = `hw` array, in place, as csrc/sor.cu schedules them:
     sweep k on the rows of each warp (K3_THREAD_ROWS rows) that meets the
@@ -150,7 +144,11 @@ def k3_window_sweeps(su, sv, fx, fy, ft, fi, sweeps: int, omega: float, r0: int,
     img_hw image), at the true image edges. Whatever lies beside the window
     (the kernel takes the window's own first or last row there, and its
     lanes 0 and 31 their own column sums) is NaN here, so that any value
-    read from outside the window shows. Returns (u, v)."""
+    read from outside the window shows. The arrays are float32; `round_at`
+    "sweep" rounds u and v to bfloat16 at each sweep's end, as the
+    kernel's bfloat16 build does (its warps exchange their boundary rows
+    in float32 within a sweep), and "half" at the end of each half too, as
+    a build that exchanged them in bfloat16 would. Returns (u, v)."""
     h, w = hw
     wh, ww = su.shape
     shard = img_hw is not None
@@ -202,11 +200,14 @@ def k3_window_sweeps(su, sv, fx, fy, ft, fi, sweeps: int, omega: float, r0: int,
                 mids = [torch.where(sel, mid + omega * (new - mid), mid)
                         for mid, new in zip(mids, (un, vn))]
             su[r], sv[r] = mids
+            if round_at == "half" or (round_at == "sweep" and parity == 1):
+                su, sv = _bf16_round(su), _bf16_round(sv)
     return su, sv
 
 
 def k3_launch_schedule_plain(u, v, ex, ey, et, inv_den, sweeps: int, omega: float,
-                             origins=None, img_hw=None, halo=None):
+                             origins=None, img_hw=None, halo=None, group=None,
+                             round_at="sweep"):
     """One K3 launch of `sweeps` sweeps as csrc/sor.cu schedules it, in
     plain torch, on (H, W) or (B, H, W): each image cut into `k3_tile`
     tiles; each tile's window staged with what lies outside the array set
@@ -215,8 +216,15 @@ def k3_launch_schedule_plain(u, v, ex, ey, et, inv_den, sweeps: int, omega: floa
     (0, 0), in an `img_hw` image). Only the owned tile of the last sweep is
     written, into arrays that are NaN elsewhere. `halo` = (rows, columns)
     replaces the halo of 2s rows and 4s columns (the tile is the window
-    less it on each side), to show what a smaller one does. Returns
-    (u, v)."""
+    less it on each side), to show what a smaller one does.
+
+    bfloat16 arrays are staged as the kernel's bfloat16 build stages them
+    (`jacobi.copy_group`: 16-byte copies of 8 columns where the width and
+    the window's first column allow, else 4 or 1) and widened; the sweeps
+    run in float32 with u and v rounded at each sweep's end (`round_at`,
+    see `k3_window_sweeps`), and the owned tile is stored in bfloat16.
+    `group` forces the staging's column groups, to show what copies wider
+    than the alignment allows do. Returns (u, v)."""
     single = u.ndim == 2
     arrays = [a[None] if single else a for a in (u, v, ex, ey, et, inv_den)]
     b, h, w = arrays[0].shape
@@ -228,6 +236,7 @@ def k3_launch_schedule_plain(u, v, ex, ey, et, inv_den, sweeps: int, omega: floa
         raise ValueError(f"no K3 tile of {sweeps} sweeps in a {K3_WINDOW_H} x "
                          f"{K3_WINDOW_W} window")
     shard = origins is not None
+    bf16 = arrays[0].dtype == torch.bfloat16
     out_u = torch.full_like(arrays[0], float("nan"))
     out_v = torch.full_like(arrays[0], float("nan"))
     for img in range(b):
@@ -235,9 +244,12 @@ def k3_launch_schedule_plain(u, v, ex, ey, et, inv_den, sweeps: int, omega: floa
         for tr0 in range(0, h, th):
             for tc0 in range(0, w, tw):
                 r0, c0 = tr0 - hr, tc0 - hc
-                wins = [_stage(a[img], r0, c0) for a in arrays]
+                g = group or copy_group(arrays[0].dtype, w, c0)
+                wins = [k2_stage(a[img], r0, c0, (K3_WINDOW_H, K3_WINDOW_W), g).float()
+                        for a in arrays]
                 su, sv = k3_window_sweeps(*wins, sweeps, omega, r0, c0, (h, w), org,
-                                          img_hw if shard else None)
+                                          img_hw if shard else None,
+                                          round_at if bf16 else None)
                 r1, c1 = min(tr0 + th, h), min(tc0 + tw, w)
                 out_u[img, tr0:r1, tc0:c1] = su[hr:hr + r1 - tr0, hc:hc + c1 - tc0]
                 out_v[img, tr0:r1, tc0:c1] = sv[hr:hr + r1 - tr0, hc:hc + c1 - tc0]
@@ -255,20 +267,28 @@ def k3_sweeps_schedule_plain(u, v, ex, ey, et, inv_den, n: int, s: int, omega: f
     return u, v
 
 
-def k3_geometry(device, sweeps: int = 4, shard: bool = False) -> dict:
-    """K3's (with shard=True K9 SOR's) geometry on a CUDA device at
-    `sweeps`, as the built kernel reports it: sweeps, tile, threads, shared
-    bytes, registers a thread and spilled bytes (cudaFuncGetAttributes),
-    resident blocks a multiprocessor and multiprocessors."""
-    return dict(_geometry(torch.device(device).index or 0, sweeps, bool(shard)))
+def k3_geometry(device, sweeps: int = 4, shard: bool = False,
+                dtype=torch.float32) -> dict:
+    """K3's (with shard=True K9 SOR's; with dtype=torch.bfloat16 K3's
+    bfloat16 build's) geometry on a CUDA device at `sweeps`, as the built
+    kernel reports it: sweeps, tile, threads, shared bytes, registers a
+    thread and spilled bytes (cudaFuncGetAttributes), resident blocks a
+    multiprocessor and multiprocessors."""
+    if dtype == torch.bfloat16 and shard:
+        raise ValueError("K9 has no bfloat16 build")
+    return dict(_geometry(torch.device(device).index or 0, sweeps, bool(shard),
+                          _build.bf16_suffix(dtype)))
 
 
 @functools.lru_cache(maxsize=64)
-def _geometry(index: int, sweeps: int, shard: bool) -> tuple:
+def _geometry(index: int, sweeps: int, shard: bool, bf16: str = "") -> tuple:
     out = (ctypes.c_int * 9)()
-    err = _build.library().hs_sor_geometry(
-        sweeps, int(shard), index, ctypes.cast(out, ctypes.POINTER(ctypes.c_int)))
-    _build.check(err, "hs_sor_geometry")
+    ptr = ctypes.cast(out, ctypes.POINTER(ctypes.c_int))
+    if bf16:
+        err = _build.library().hs_sor_geometry_bf16(sweeps, index, ptr)
+    else:
+        err = _build.library().hs_sor_geometry(sweeps, int(shard), index, ptr)
+    _build.check(err, "hs_sor_geometry" + bf16)
     keys = ("sweeps", "tile_h", "tile_w", "threads", "smem_bytes", "registers",
             "spill_bytes", "blocks_per_sm", "sms")
     return tuple(zip(keys, list(out)))
@@ -284,13 +304,12 @@ def launch_sweeps(u, v, ex, ey, et, inv_den, uo, vo, sweeps: int,
                   omega: float) -> None:
     """One K3 launch: `sweeps` sweeps from (u, v) into (uo, vo), on the
     current stream, over a frame or a whole stack. All eight tensors are
-    CUDA float32 of one shape (checked by the caller); uo/vo must not alias
-    u/v."""
+    CUDA tensors of one shape and one dtype, float32 or bfloat16 (checked by
+    the caller); uo/vo must not alias u/v."""
     b, h, w = batch_dims("hs_sor_sweeps", u)
     if u.numel() == 0:
         return
-    lib = _build.library()
-    err = lib.hs_sor_sweeps(
+    err = getattr(_build.library(), "hs_sor_sweeps" + _build.bf16_suffix(u.dtype))(
         u.data_ptr(), v.data_ptr(), ex.data_ptr(), ey.data_ptr(),
         et.data_ptr(), inv_den.data_ptr(), uo.data_ptr(), vo.data_ptr(),
         b, h, w, sweeps, float(omega),
@@ -306,13 +325,15 @@ def sor_sweeps(u, v, ex, ey, et, inv_den, n: int, omega: float,
     tensors ceil(n/s) K3 launches (one chain for the whole stack, two u/v
     pairs ping-ponging, no host synchronisation; s from `sweeps_per_launch`),
     `sor_sweeps_plain` on CPU tensors. Returns (u, v); the inputs are not
-    modified. Differentiable with respect to all six tensors (`autodiff`:
+    modified. float32 or bfloat16 (the kernel's bfloat16 build: float32
+    arithmetic, u and v rounded at each sweep's end, the float32 plan's
+    launches). Differentiable with respect to all six tensors (`autodiff`:
     the VJP of `sor_sweeps_plain`, as the reference's `_sor_sweeps_ad`)."""
     if autodiff.needs_grad(u, v, ex, ey, et, inv_den):
         return autodiff.KernelEntry.apply(
             lambda *t: sor_sweeps(*t, n, omega, block_sweeps),
             lambda *t: sor_sweeps_plain(*t, n, omega), u, v, ex, ey, et, inv_den)
-    check_frames("sor_sweeps", u, v, ex, ey, et, inv_den)
+    check_frames("sor_sweeps", u, v, ex, ey, et, inv_den, dtypes=BF16_DTYPES)
     _check_block_sweeps(block_sweeps)
     if n == 0:
         return u, v

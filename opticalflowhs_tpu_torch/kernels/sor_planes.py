@@ -31,7 +31,11 @@ from __future__ import annotations
 import torch
 
 from opticalflowhs_tpu_torch.kernels import _build, autodiff
-from opticalflowhs_tpu_torch.kernels.derivatives import check_frames, hs_derivatives
+from opticalflowhs_tpu_torch.kernels.derivatives import (
+    BF16_DTYPES,
+    check_frames,
+    hs_derivatives,
+)
 from opticalflowhs_tpu_torch.kernels.solve_fused import (
     barrier_count,
     build_geometry,
@@ -47,10 +51,10 @@ from opticalflowhs_tpu_torch.kernels.sor import (
 from opticalflowhs_tpu_torch.ops import stencils
 
 # The reference's plane class (opticalflowhs_tpu/kernels/sor_planes.py
-# `applicable_shape` :57, float32, no HSFLOW_* override): the plane set and
-# its temporaries, 11 full-frame equivalents of the frame padded to 16 x 256,
-# within a 112 MiB TPU VMEM budget. It is the reference's rule for where its
-# kernel runs, not a property of the H100.
+# `applicable_shape` :57, no HSFLOW_* override): the plane set and its
+# temporaries, 11 full-frame equivalents of the frame padded to 16 x 256,
+# in the dtype's bytes, within a 112 MiB TPU VMEM budget. It is the
+# reference's rule for where its kernel runs, not a property of the H100.
 _FULL_EQUIV = 11
 _LIMIT = 112 * 1024 * 1024
 
@@ -58,12 +62,12 @@ _LIMIT = 112 * 1024 * 1024
 COLORS = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 
-def applicable_shape(h: int, w: int):
-    """The reference's (hp, wp) for a float32 (h, w) frame inside its plane
-    class, else None."""
+def applicable_shape(h: int, w: int, itemsize: int = 4):
+    """The reference's (hp, wp) for an (h, w) frame of `itemsize`-byte
+    elements (4 float32, 2 bfloat16) inside its plane class, else None."""
     hp = round_up(h, 16)
     wp = round_up(w, 256)
-    if _FULL_EQUIV * hp * wp * 4 <= _LIMIT:
+    if _FULL_EQUIV * hp * wp * itemsize <= _LIMIT:
         return hp, wp
     return None
 
@@ -104,7 +108,9 @@ def sor_planes_plain(u0, v0, ex, ey, et, inv_den, n: int, omega: float):
     right column are clamped by a one-row or one-column fix whose plane
     depends on the parity of h and w. u0/v0 None start from zero. The
     sweeps run through `stencils.checkpointed_loop` on the eight planes of
-    u and v. Returns (u, v) at full resolution."""
+    u and v. Returns (u, v) at full resolution. bfloat16 arrays follow the
+    storage rule (`stencils.store`): each sweep on the widened planes in
+    float32, u and v rounded at its end, as `sor.sor_sweeps_plain`."""
     h, w = ex.shape
     h2, w2 = plane_shape(h, w)
     if u0 is None:
@@ -164,7 +170,8 @@ def sor_planes_plain(u0, v0, ex, ey, et, inv_den, n: int, omega: float):
             V[c] = V[c] + omega * (vn - V[c])
         return tuple(U[c] for c in COLORS) + tuple(V[c] for c in COLORS)
 
-    state = stencils.checkpointed_loop(sweep, planes(u0) + planes(v0), n)
+    state = stencils.checkpointed_loop(
+        lambda st: stencils.store(lambda *x: sweep(x), *st), planes(u0) + planes(v0), n)
     return interleave(*state[:4], h, w), interleave(*state[4:], h, w)
 
 
@@ -194,11 +201,13 @@ def k8_schedule_plain(u0, v0, ex, ey, et, inv_den, n: int, omega: float, s: int 
     return u, v
 
 
-def k8_geometry(device, sweeps: int = 4) -> dict:
-    """K8's build at `sweeps` on a CUDA device (`solve_fused.build_geometry`):
-    K3's tile, threads, shared bytes, registers a thread, spilled bytes,
-    resident blocks a multiprocessor, multiprocessors."""
-    return build_geometry("hs_sor_planes_geometry", device, sweeps)
+def k8_geometry(device, sweeps: int = 4, dtype=torch.float32) -> dict:
+    """K8's build (of `dtype`: float32 or bfloat16) at `sweeps` on a CUDA
+    device (`solve_fused.build_geometry`): K3's tile, threads, shared bytes,
+    registers a thread, spilled bytes, resident blocks a multiprocessor,
+    multiprocessors."""
+    return build_geometry("hs_sor_planes_geometry" + _build.bf16_suffix(dtype), device,
+                          sweeps)
 
 
 def sor_planes(u0, v0, ex, ey, et, inv_den, n: int, omega: float,
@@ -207,7 +216,8 @@ def sor_planes(u0, v0, ex, ey, et, inv_den, n: int, omega: float,
     are None, from zero: on CUDA tensors one K8 launch (s sweeps a block, s
     by K3's rule `sor.sweeps_per_launch(block_sweeps, ...)`; `blocks` > 0
     forces the grid, and a grid larger than can be resident raises), none
-    for n = 0; on CPU tensors `sor_planes_plain`. Returns new (u, v); the
+    for n = 0; on CPU tensors `sor_planes_plain`. float32 or bfloat16 (K8's
+    bfloat16 build, on K3's bfloat16 walk). Returns new (u, v); the
     inputs are not modified. Differentiable with respect to the start and
     the fields (`autodiff`: the VJP of `sor_planes_plain`)."""
     if (u0 is None) != (v0 is None):
@@ -216,7 +226,8 @@ def sor_planes(u0, v0, ex, ey, et, inv_den, n: int, omega: float,
         return autodiff.KernelEntry.apply(
             lambda *t: sor_planes(*t, n, omega, block_sweeps, blocks),
             lambda *t: sor_planes_plain(*t, n, omega), u0, v0, ex, ey, et, inv_den)
-    check_frames("sor_planes", ex, ey, et, inv_den, *(() if u0 is None else (u0, v0)))
+    check_frames("sor_planes", ex, ey, et, inv_den, *(() if u0 is None else (u0, v0)),
+                 dtypes=BF16_DTYPES)
     if ex.ndim != 2:
         raise ValueError(f"sor_planes: expected an (H, W) frame, got {tuple(ex.shape)}")
     if n < 0:
@@ -231,7 +242,8 @@ def sor_planes(u0, v0, ex, ey, et, inv_den, n: int, omega: float,
         return u0.clone(), v0.clone()
     h, w = ex.shape
     dev = ex.device.index
-    grid_max = resident_blocks("hs_sor_planes_blocks", dev)
+    bf16 = _build.bf16_suffix(ex.dtype)
+    grid_max = resident_blocks("hs_sor_planes_blocks" + bf16, dev)
     s = sweeps_per_launch(block_sweeps, ex.shape, n, grid_max)
     n_blocks = -(-n // s)
     ua, va = torch.empty_like(ex), torch.empty_like(ex)
@@ -239,12 +251,12 @@ def sor_planes(u0, v0, ex, ey, et, inv_den, n: int, omega: float,
     grid = blocks if blocks > 0 else min(k3_tiles(ex.shape, s), grid_max)
     stream = torch.cuda.current_stream(ex.device).cuda_stream
     start = (None, None) if u0 is None else (u0.data_ptr(), v0.data_ptr())
-    err = _build.library().hs_sor_planes(
+    err = getattr(_build.library(), "hs_sor_planes" + bf16)(
         *start, ex.data_ptr(), ey.data_ptr(), et.data_ptr(), inv_den.data_ptr(),
         ua.data_ptr(), va.data_ptr(), ub.data_ptr(), vb.data_ptr(),
         barrier_count(dev, stream).data_ptr(), h, w, n, s, float(omega), grid, dev, stream,
     )
-    _build.check(err, "hs_sor_planes")
+    _build.check(err, "hs_sor_planes" + bf16)
     sor_planes.launches += 1
     return (ua, va) if n_blocks % 2 == 1 else (ub, vb)
 
@@ -259,16 +271,17 @@ def hs_solve_sor_planes(i1, i2, alpha: float, n_sweeps: int, omega: float,
     one K8 call, on CUDA tensors; `derivatives_plain` and `sor_planes_plain`
     on CPU tensors. Returns (u, v), or None where the reference's kernel
     does: a frame that is not 2-D, n_sweeps < 1, a variant other than
-    hs_cube, or a frame outside its plane class (`applicable_shape`). A
-    build or launch failure raises. Differentiable with respect to the
+    hs_cube, or a frame outside its plane class (`applicable_shape` in the
+    frames' bytes). A build or launch failure raises. Differentiable with respect to the
     frames and the start, through K1's and K8's entries (`autodiff`)."""
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
     if i1.ndim != 2 or n_sweeps < 1 or variant != "hs_cube":
         return None
-    if applicable_shape(*i1.shape) is None:
+    if applicable_shape(*i1.shape, i1.element_size()) is None:
         return None
     if not autodiff.needs_grad(i1, i2, u0, v0):
-        check_frames("hs_solve_sor_planes", i1, i2, *(() if u0 is None else (u0, v0)))
+        check_frames("hs_solve_sor_planes", i1, i2, *(() if u0 is None else (u0, v0)),
+                     dtypes=BF16_DTYPES)
     ex, ey, et, invd = hs_derivatives(i1, i2, alpha, variant)
     return sor_planes(u0, v0, ex, ey, et, invd, n_sweeps, omega)

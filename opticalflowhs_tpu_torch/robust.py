@@ -29,11 +29,18 @@ from opticalflowhs_tpu_torch.ops.stencils import (
     shift_left_col,
     shift_right_col,
     shift_up_row,
+    store,
 )
 
 
 def charbonnier_weights(u, v, ex, ey, et, eps_d: float, eps_s: float):
-    """(wd, ws) per pixel from the current flow, unit-plateau normalised."""
+    """(wd, ws) per pixel from the current flow, unit-plateau normalised.
+    bfloat16 arrays follow the storage rule (`stencils.store`): float32
+    arithmetic, wd and ws rounded once, where they are stored."""
+    return store(_weights, u, v, ex, ey, et, eps_d, eps_s)
+
+
+def _weights(u, v, ex, ey, et, eps_d: float, eps_s: float):
     r = ex * u + ey * v + et
     wd = eps_d * torch.rsqrt(r * r + eps_d * eps_d)
     gxu = shift_left_col(u) - u
@@ -46,7 +53,14 @@ def charbonnier_weights(u, v, ex, ey, et, eps_d: float, eps_s: float):
 
 
 def robust_step(u, v, ex, ey, et, wd, ws, alpha: float):
-    """One frozen-weight Jacobi sweep of the IRLS inner system."""
+    """One frozen-weight Jacobi sweep of the IRLS inner system. bfloat16
+    arrays follow the storage rule: the edge weights and the 2x2 system
+    formed in float32 from the widened fields and weights, u and v rounded
+    once, at the sweep's end."""
+    return store(_step, u, v, ex, ey, et, wd, ws, alpha)
+
+
+def _step(u, v, ex, ey, et, wd, ws, alpha: float):
     w_up = 0.5 * (ws + shift_down_row(ws))   # edge to (i-1, j)
     w_dn = 0.5 * (ws + shift_up_row(ws))     # edge to (i+1, j)
     w_lf = 0.5 * (ws + shift_right_col(ws))  # edge to (i, j-1)

@@ -22,11 +22,12 @@ caller asks for it (`device="cpu"`, or CPU tensors).
 
 Scope: the solvers "jacobi", "sor", "robust" and "multigrid" (iters counts
 V-cycles), with a fixed sweep count or solved to tolerance
-(`sweeps_until`), in float32; "jacobi" also in bfloat16
-(`HSConfig.dtype`), by the storage rule of the package docstring, through
-K1's, K2's, K6's and K7's bfloat16 builds on the cuda backend. bfloat16
-for the other solvers is still to be ported (ROADMAP.md queue 1, item 5)
-and raises NotImplementedError rather than solving in float32.
+(`sweeps_until`), in float32; "jacobi", "sor" and "robust" also in
+bfloat16 (`HSConfig.dtype`), untiled, by the storage rule of the package
+docstring, through the bfloat16 builds of K1, K2, K6 and K7 (Jacobi), K3
+(SOR) and K4 (IRLS) on the cuda backend. bfloat16 for multigrid, TV-L1,
+LK and the tiled solver (dist/) is still to be ported (ROADMAP.md queue 1,
+item 5) and raises NotImplementedError rather than solving in float32.
 
 Gradients: both backends differentiate with respect to the frames and a
 warm start. The plain ops tape through `stencils.checkpointed_loop`
@@ -89,17 +90,21 @@ def resolve_backend(backend: str, frame: torch.Tensor) -> str:
     return backend
 
 
+# The solvers that run in bfloat16 (untiled).
+BF16_SOLVERS = ("jacobi", "sor", "robust")
+
+
 def check_supported(cfg: HSConfig, tiled: bool = False) -> None:
     """Raise NotImplementedError for configurations the port cannot solve
-    yet: every solver runs in float32, and solver="jacobi" in bfloat16,
-    untiled (`tiled` is True for dist/'s entries)."""
-    if cfg.dtype == "bfloat16" and (cfg.solver != "jacobi" or tiled):
+    yet: every solver runs in float32, and solvers "jacobi", "sor" and
+    "robust" in bfloat16, untiled (`tiled` is True for dist/'s entries)."""
+    if cfg.dtype == "bfloat16" and (cfg.solver not in BF16_SOLVERS or tiled):
         what = "the tiled solver (dist/)" if tiled else f"solver={cfg.solver!r}"
         raise NotImplementedError(
             f"dtype='bfloat16' with {what} is not ported yet (ROADMAP.md "
-            "queue 1, item 5: bf16 runs for solver='jacobi' untiled; SOR, "
-            "robust, multigrid, TV-L1, LK and dist/ are still to port); "
-            "use dtype='float32'"
+            "queue 1, item 5: bf16 runs for solver='jacobi', 'sor' and "
+            "'robust' untiled; TV-L1, multigrid, LK and dist/ are still to "
+            "port); use dtype='float32'"
         )
 
 
@@ -344,28 +349,34 @@ def tune_omega(i1, i2, cfg: HSConfig = HSConfig(), power_iters: int = 300,
     launch of one sweep and the norms are reductions on the device; the one
     host synchronisation is the final `float(rho)`. It runs under
     `torch.no_grad()`: omega is a float, and frames that require grad would
-    otherwise tape all `power_iters` sweeps."""
+    otherwise tape all `power_iters` sweeps.
+
+    rho is that of the config's dtype, as the reference keys it: in
+    bfloat16 the fields are K1's bfloat16 ones, each sweep is K2's bfloat16
+    build (or the plain sweep under `stencils.store`), the norms and rho
+    are formed in float32 from the widened vectors, and the normalised u
+    and v, the start included, are rounded to bfloat16 as stored arrays."""
     i1 = as_frame(i1, device)
     i2 = as_frame(i2, i1.device)
     ex, ey, _, inv_den = precompute(i1, i2, cfg)
     zero_et = torch.zeros_like(ex)
     gen = torch.Generator().manual_seed(0)
-    u, v = (torch.randn(ex.shape, generator=gen, dtype=ex.dtype).to(ex.device)
-            for _ in range(2))
+    u, v = (torch.randn(ex.shape, generator=gen).to(ex.device) for _ in range(2))
     n0 = torch.sqrt(torch.sum(u * u) + torch.sum(v * v))
-    u, v = u / n0, v / n0
+    u, v = (u / n0).to(ex.dtype), (v / n0).to(ex.dtype)
     tail = max(1, min(10, power_iters // 3))
     cuda = resolve_backend(cfg.backend, i1) == "cuda"
-    acc = torch.zeros((), dtype=ex.dtype, device=ex.device)
+    acc = torch.zeros((), dtype=torch.float32, device=ex.device)
     for k in range(power_iters):
         if cuda:
             nu, nv = jacobi_sweeps(u, v, ex, ey, zero_et, inv_den, 1)
         else:
-            nu, nv = stencils.jacobi_step(u, v, ex, ey, zero_et, inv_den)
+            nu, nv = stencils.store(stencils.jacobi_step, u, v, ex, ey, zero_et, inv_den)
+        nu, nv = nu.float(), nv.float()
         n = torch.sqrt(torch.sum(nu * nu) + torch.sum(nv * nv))
         if k >= power_iters - tail:
             acc = acc + torch.log(n)
-        u, v = nu / n, nv / n
+        u, v = (nu / n).to(ex.dtype), (nv / n).to(ex.dtype)
     rho = min(float(torch.exp(acc / tail)), 0.9999)
     omega = 2.0 / (1.0 + (1.0 - rho * rho) ** 0.5)
     return round(max(1.0, min(omega, 1.98)), 2)

@@ -194,8 +194,8 @@ def _check(i1, i2, cfg: TVL1Config, pyr: PyramidConfig, rank: int) -> None:
         raise NotImplementedError(
             f"dtype={cfg.dtype!r} is not ported yet for this family "
             "(ROADMAP.md queue 1, item 5: bf16 runs for HSConfig(solver="
-            "'jacobi') only; SOR, robust, multigrid, TV-L1, LK and dist/ "
-            "are still to port); only float32 runs"
+            "'jacobi', 'sor' or 'robust') untiled; TV-L1, multigrid, LK and "
+            "dist/ are still to port); only float32 runs"
         )
     if i1.ndim != rank:
         raise ValueError(

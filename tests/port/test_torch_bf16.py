@@ -307,18 +307,16 @@ def test_bidirectional_and_occlusion_streams_bf16():
 
 
 def test_bf16_refusals():
+    # SOR and robust run in bfloat16 (tests/port/test_torch_bf16_sor_robust.py);
+    # multigrid, TV-L1, LK and dist/ still refuse, and so do K5 and K9.
     from opticalflowhs_tpu_torch import LKConfig, MeshConfig, TVL1Config, lk_solve, tvl1_solve
     from opticalflowhs_tpu_torch.dist import hs_solve_tiled, make_mesh
-    from opticalflowhs_tpu_torch.kernels import solve_robust as k4
-    from opticalflowhs_tpu_torch.kernels import sor as k3
+    from opticalflowhs_tpu_torch.kernels import tile as k9
     from opticalflowhs_tpu_torch.kernels import tvl1_inner as k5
 
     z = torch.zeros(16, 16)
-    for cfg in (HSConfig(solver="sor", dtype="bfloat16"),
-                HSConfig(solver="robust", dtype="bfloat16"),
-                HSConfig(solver="multigrid", dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            hs_solve(z, z, cfg)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        hs_solve(z, z, HSConfig(solver="multigrid", dtype="bfloat16"))
     with pytest.raises(NotImplementedError, match="item 5"):
         tvl1_solve(z, z, TVL1Config(dtype="bfloat16"))
     with pytest.raises(NotImplementedError, match="item 5"):
@@ -330,11 +328,12 @@ def test_bf16_refusals():
         HSConfig(dtype="float16")
     b = z.to(BF16)
     with pytest.raises(ValueError, match="expected float32"):
-        k3.sor_sweeps(b, b, b, b, b, b, 2, 1.5)
-    with pytest.raises(ValueError, match="expected float32"):
-        k4.robust_sweeps(b, b, b, b, b, 2, HSConfig(solver="robust"))
-    with pytest.raises(ValueError, match="expected float32"):
         k5.tvl1_inner(b, b, b, b, b, b, b, 2, 0.3, 0.25, 0.05)
+    org = k9.origin_table(b[None], [0], [0])
+    with pytest.raises(ValueError, match="expected float32"):
+        k9.tile_sweeps(*(b[None] for _ in range(6)), 2, org, 16, 16)
+    with pytest.raises(ValueError, match="expected float32"):
+        k9.sor_tile_sweeps(*(b[None] for _ in range(6)), 2, 1.5, org, 16, 16)
     with pytest.raises(ValueError, match="dtype"):
         k2.jacobi_sweeps(b, b, z, z, z, z, 2)  # one dtype across the arrays
 

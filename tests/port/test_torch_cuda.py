@@ -1933,20 +1933,326 @@ def test_bf16_entries_differentiate_as_their_plain_twins(dev, shape, name):
 
 
 def test_bf16_is_refused_where_no_build_exists(dev):
+    # K3, K4 and K8 have bfloat16 builds (below); K5 and K9-K12 do not.
     u, v, i1, i2 = _rand16((40, 56), dev, 115, n=4)
     f = k1.derivatives_plain(i1, i2, 0.5)
     with pytest.raises(ValueError, match="float32"):
-        k3.sor_sweeps(u, v, *f, 5, 1.6)
-    with pytest.raises(ValueError, match="float32"):
-        k4.robust_sweeps(u, v, *f[:3], 5, _CFG_R)
-    with pytest.raises(ValueError, match="float32"):
-        k8.sor_planes(u, v, *f, 5, 1.6)
+        k5.tvl1_inner(u, v, *(a for a in f), u, 5, 0.3, 0.25, 0.05)
     with pytest.raises(ValueError, match="float32"):
         k9.tile_sweeps(u[None], v[None], *(a[None] for a in f), 2, None, 40, 56)
+    with pytest.raises(ValueError, match="float32"):
+        k9.sor_tile_sweeps(u[None], v[None], *(a[None] for a in f), 2, 1.6, None, 40, 56)
     with pytest.raises(ValueError, match="float32|bfloat16"):
         k1.hs_derivatives(i1, i2.float(), 0.5)  # one dtype across the arrays
-    for cfg in (HSConfig(solver="sor", dtype="bfloat16"),
-                HSConfig(solver="robust", dtype="bfloat16"),
-                HSConfig(solver="multigrid", dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            hs_solve(i1, i2, cfg)
+    with pytest.raises(ValueError, match="float32|bfloat16"):
+        k3.sor_sweeps(u, v.float(), *f, 5, 1.6)
+    with pytest.raises(ValueError, match="K9 has no bfloat16 build"):
+        k3.k3_geometry(dev, 4, shard=True, dtype=BF16)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        hs_solve(i1, i2, HSConfig(solver="multigrid", dtype="bfloat16"))
+
+
+# -- bfloat16: K3, K4 (freeze and sweeps) and K8's bfloat16 builds ---------------
+#
+# SOR rounds u and v once a sweep (the warps exchange rows in float32 inside
+# a sweep), IRLS wd and ws at each freeze and u and v once a sweep: the
+# bfloat16 builds equal the plain bfloat16 twins bitwise with the float32
+# plan's launches, at K3's and K4's own edge shapes, every s, stacks, zero
+# and warm starts, and on views that take the 2-, 8- and 16-byte paths.
+
+BF16_WIDE_SHAPES_SOR = [(70, 248), (40, 136)]
+
+
+def _wide_views(dev, h, w, off, seed, b=1):
+    """Four (b, h, w) bfloat16 views `off` elements into their storage: 1
+    takes the 2-byte loads, 4 the 8-byte copies, 8 the 16-byte copies where
+    w is a multiple of 8."""
+    flat = [torch.from_numpy(np.random.default_rng(seed + k).normal(0, 0.5, off + b * h * w)
+                             .astype(np.float32)).to(dev).to(BF16) for k in range(4)]
+    return [f[off:].view(b, h, w) for f in flat]
+
+
+@pytest.mark.parametrize("shape", SHAPES + BF16_WIDE_SHAPES_SOR)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n,s", [(1, 0), (5, 2), (9, 1), (13, 0), (7, 3), (6, 4), (23, 11),
+                                 (17, 8), (12, 5)])
+def test_k3_bf16_equals_plain(dev, shape, b, n, s):
+    i1, i2 = _rand16((b,) + shape, dev, 120)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    u0, v0 = _rand16((b,) + shape, dev, 121, normal=True)
+    keep = (u0.clone(), v0.clone())
+    k3.sor_sweeps.launches = 0
+    got = k3.sor_sweeps(u0, v0, *fields, n, 1.7, block_sweeps=s)
+    assert k3.sor_sweeps.launches == _k3_launches(u0.shape, n, s, dev)
+    assert got[0].dtype == BF16
+    _equal(got, k3.sor_sweeps_plain(u0, v0, *fields, n, 1.7))
+    _equal((u0, v0), keep)
+    for k in range(b):
+        one = k3.sor_sweeps(u0[k], v0[k], *(f[k] for f in fields), n, 1.7, block_sweeps=s)
+        _equal([g[k] for g in got], one)
+
+
+@pytest.mark.parametrize("s", range(1, k3.K3_MAX_SWEEPS + 1))
+@pytest.mark.parametrize("kind", ["one-", "one+", "two-", "two+", "wide"])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("warm", [False, True])
+def test_k3_bf16_tile_edge_shapes_equal_plain(dev, s, kind, b, warm):
+    th, tw, _, _ = k3.k3_tile(s)
+    shape = (2 * th + 1, 2 * tw + 8) if kind == "wide" else _k3_edge_shape(s, kind)
+    full = (b,) + shape
+    i1, i2 = _rand16(full, dev, 122 + s)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    u0, v0 = (_rand16(full, dev, 123, normal=True) if warm
+              else (torch.zeros(full, device=dev, dtype=BF16),) * 2)
+    n = 2 * s + 1
+    k3.sor_sweeps.launches = 0
+    got = k3.sor_sweeps(u0, v0, *fields, n, 1.7, block_sweeps=s)
+    assert k3.sor_sweeps.launches == k3.launches(n, s)
+    _equal(got, k3.sor_sweeps_plain(u0, v0, *fields, n, 1.7))
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 4, 5, 8, k3.K3_MAX_SWEEPS])
+@pytest.mark.parametrize("w,off", [(93, 1), (96, 4), (248, 4), (248, 8)])
+def test_k3_bf16_unaligned_views_equal_plain(dev, s, w, off):
+    u0, v0, i1, i2 = _wide_views(dev, 50, w, off, 124, b=2)
+    fields = k1.derivatives_plain(i1.abs(), i2.abs(), 0.5)
+    n = s + 2
+    _equal(k3.sor_sweeps(u0, v0, *fields, n, 1.7, block_sweeps=s),
+           k3.sor_sweeps_plain(u0, v0, *fields, n, 1.7))
+
+
+@pytest.mark.parametrize("shape", [(67, 93), (200, 336)])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("variant", ["hs_cube", "central"])
+def test_sor_driver_bf16_equals_plain(dev, shape, b, warm, variant):
+    i1, i2 = _rand16((b,) + shape, dev, 125)
+    init = _rand16((b,) + shape, dev, 126, normal=True) if warm else (None, None)
+    k1.hs_derivatives.launches = 0
+    k3.sor_sweeps.launches = 0
+    got = sr.hs_solve_resident_sor(i1, i2, 0.5, 11, 1.6, variant, *init)
+    assert (k1.hs_derivatives.launches, k3.sor_sweeps.launches) == (
+        1, _k3_launches(i1.shape, 11, 0, dev))
+    _equal(got, sr.hs_solve_resident_sor_plain(i1, i2, 0.5, 11, 1.6, variant, *init))
+
+
+@pytest.mark.parametrize("shape", SHAPES + BF16_WIDE_SHAPES_SOR)
+@pytest.mark.parametrize("b", [1, 3])
+def test_k4_freeze_bf16_equals_plain(dev, shape, b):
+    i1, i2 = _rand16((b,) + shape, dev, 127)
+    ex, ey, et, _ = k1.derivatives_plain(i1, i2, 0.4)
+    u, v = _rand16((b,) + shape, dev, 128, normal=True)
+    for eps in ((0.05, 0.05), (0.01, 0.2)):
+        got = k4.freeze_weights(u, v, ex, ey, et, *eps)
+        assert got[0].dtype == BF16
+        _equal(got, robust.charbonnier_weights(u, v, ex, ey, et, *eps))
+
+
+@pytest.mark.parametrize("shape", SHAPES + BF16_WIDE_SHAPES_SOR)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n,s", [(1, 0), (5, 2), (13, 0), (17, 10), (9, 1), (20, 0),
+                                 (29, k4.K4_MAX_SWEEPS), (16, k4.K4_MAX_SWEEPS + 1)])
+def test_k4_sweeps_bf16_equal_plain(dev, shape, b, n, s):
+    i1, i2 = _rand16((b,) + shape, dev, 129)
+    ex, ey, et, _ = k1.derivatives_plain(i1, i2, 0.4)
+    u0, v0 = _rand16((b,) + shape, dev, 130, normal=True)
+    wd, ws = robust.charbonnier_weights(u0, v0, ex, ey, et, 0.05, 0.05)
+    keep = (u0.clone(), v0.clone())
+    k4.frozen_sweeps.launches = 0
+    got = k4.frozen_sweeps(u0, v0, ex, ey, et, wd, ws, 0.3, n, block_sweeps=s)
+    assert k4.frozen_sweeps.launches == _k4_launches(u0.shape, n, s, dev)
+    assert got[0].dtype == BF16
+    _equal(got, _robust_plain(u0, v0, ex, ey, et, wd, ws, n))
+    _equal((u0, v0), keep)
+    for k in range(b):
+        one = k4.frozen_sweeps(u0[k], v0[k], ex[k], ey[k], et[k], wd[k], ws[k], 0.3, n,
+                               block_sweeps=s)
+        _equal([g[k] for g in got], one)
+
+
+@pytest.mark.parametrize("s", range(1, k4.K4_MAX_SWEEPS + 1))
+@pytest.mark.parametrize("kind", ["one-", "one+", "two-", "two+", "wide"])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("warm", [False, True])
+def test_k4_bf16_tile_edge_shapes_equal_plain(dev, s, kind, b, warm):
+    th, tw, _ = k4.k4_tile(s)
+    shape = (2 * th + 1, 2 * tw + 8) if kind == "wide" else _k4_edge_shape(s, kind)
+    full = (b,) + shape
+    i1, i2 = _rand16(full, dev, 131 + s)
+    ex, ey, et, _ = k1.derivatives_plain(i1, i2, 0.4, "central" if s % 2 else "hs_cube")
+    u0, v0 = (_rand16(full, dev, 132, normal=True) if warm
+              else (torch.zeros(full, device=dev, dtype=BF16),) * 2)
+    wd, ws = robust.charbonnier_weights(u0, v0, ex, ey, et, 0.05, 0.05)
+    n = 2 * s + 1
+    k4.frozen_sweeps.launches = 0
+    got = k4.frozen_sweeps(u0, v0, ex, ey, et, wd, ws, 0.3, n, block_sweeps=s)
+    assert k4.frozen_sweeps.launches == k4.launches(n, s)
+    _equal(got, _robust_plain(u0, v0, ex, ey, et, wd, ws, n))
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 5, 7, k4.K4_MAX_SWEEPS])
+@pytest.mark.parametrize("w,off", [(93, 1), (96, 4), (248, 4), (248, 8)])
+def test_k4_bf16_unaligned_views_equal_plain(dev, s, w, off):
+    u0, v0, i1, i2 = _wide_views(dev, 40, w, off, 133, b=2)
+    ex, ey, et, _ = k1.derivatives_plain(i1.abs(), i2.abs(), 0.4)
+    wd, ws = robust.charbonnier_weights(u0, v0, ex, ey, et, 0.05, 0.05)
+    n = s + 2
+    _equal(k4.frozen_sweeps(u0, v0, ex, ey, et, wd, ws, 0.3, n, block_sweeps=s),
+           _robust_plain(u0, v0, ex, ey, et, wd, ws, n))
+    _equal(k4.freeze_weights(u0, v0, ex, ey, et, 0.05, 0.05), (wd, ws))
+
+
+@pytest.mark.parametrize("shape", [(67, 93), (200, 336)])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("iters,k", [(13, 1), (13, 5), (25, 20), (100, 20)])
+@pytest.mark.parametrize("warm", [False, True])
+def test_robust_driver_bf16_equals_plain(dev, shape, b, iters, k, warm):
+    i1, i2 = _rand16((b,) + shape, dev, 134)
+    init = _rand16((b,) + shape, dev, 135, normal=True) if warm else (None, None)
+    cfg = HSConfig(alpha=0.3, iters=iters, solver="robust", robust_update_every=k)
+    k1.hs_derivatives.launches = 0
+    k4.freeze_weights.launches = 0
+    k4.frozen_sweeps.launches = 0
+    got = k4.hs_solve_robust_resident(i1, i2, cfg, *init)
+    blocks = robust.refreeze_blocks(iters, k)
+    assert (k1.hs_derivatives.launches, k4.freeze_weights.launches,
+            k4.frozen_sweeps.launches) == (
+        1, len(blocks), sum(_k4_launches(i1.shape, m, 0, dev) for m in blocks))
+    _equal(got, k4.hs_solve_robust_resident_plain(i1, i2, cfg, *init))
+
+
+@pytest.mark.parametrize("shape", PLANES_SHAPES + [(40, 136)])
+@pytest.mark.parametrize("n", [1, 4, 7])
+@pytest.mark.parametrize("warm", [False, True])
+def test_k8_bf16_equals_plain_and_the_k3_chain(dev, shape, n, warm):
+    i1, i2 = _rand16(shape, dev, 136)
+    init = _rand16(shape, dev, 137, normal=True) if warm else (None, None)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    k8.sor_planes.launches = 0
+    got = k8.sor_planes(*init, *fields, n, 1.7)
+    assert k8.sor_planes.launches == 1 and got[0].dtype == BF16
+    _equal(got, k8.sor_planes_plain(*init, *fields, n, 1.7))
+    z = torch.zeros_like(i1)
+    _equal(got, k3.sor_sweeps_plain(*(init if warm else (z, z)), *fields, n, 1.7))
+    whole = k8.hs_solve_sor_planes(i1, i2, 0.5, n, 1.7, "hs_cube", *init)
+    _equal(whole, sr.hs_solve_resident_sor(i1, i2, 0.5, n, 1.7, "hs_cube", *init))
+    _equal(whole, got)
+
+
+@pytest.mark.parametrize("shape", [(39, 111), (41, 113), (80, 224), (1, 1)])
+@pytest.mark.parametrize("s", [1, 2, 3, 4, 7, k3.K3_MAX_SWEEPS])
+@pytest.mark.parametrize("blocks", [0, 1, 3])
+@pytest.mark.parametrize("warm", [False, True])
+def test_k8_bf16_every_s_and_small_grids_equal_plain(dev, shape, s, blocks, warm):
+    i1, i2 = _rand16(shape, dev, 138)
+    init = _rand16(shape, dev, 139, normal=True) if warm else (None, None)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    n = 3 * s + 2
+    got = k8.sor_planes(*init, *fields, n, 1.7, block_sweeps=s, blocks=blocks)
+    z = torch.zeros_like(i1)
+    start = init if warm else (z, z)
+    _equal(got, k3.sor_sweeps_plain(*start, *fields, n, 1.7))
+    _equal(got, k3.sor_sweeps(*start, *fields, n, 1.7, block_sweeps=s))
+
+
+@pytest.mark.parametrize("w,off", [(93, 1), (96, 4), (248, 4), (248, 8)])
+@pytest.mark.parametrize("blocks", [0, 1, 3])
+def test_k8_bf16_unaligned_views_equal_plain(dev, w, off, blocks):
+    u0, v0, i1, i2 = (a[0] for a in _wide_views(dev, 70, w, off, 140))
+    fields = k1.derivatives_plain(i1.abs(), i2.abs(), 0.5)
+    for init in ((u0, v0), (None, None)):
+        z = torch.zeros_like(u0)
+        want = k3.sor_sweeps_plain(*(init if init[0] is not None else (z, z)), *fields, 13, 1.7)
+        _equal(k8.sor_planes(*init, *fields, 13, 1.7, block_sweeps=4, blocks=blocks), want)
+
+
+@pytest.mark.parametrize("s", range(1, k4.K4_MAX_SWEEPS + 1))
+def test_k3_k4_k8_bf16_geometry_has_no_spills(dev, s):
+    if s <= k3.K3_MAX_SWEEPS:
+        for geo in (k3.k3_geometry(dev, s, dtype=BF16), k8.k8_geometry(dev, s, BF16)):
+            assert (geo["tile_h"], geo["tile_w"]) == k3.k3_tile(s)[:2]
+            assert geo["threads"] == k3.K3_THREADS
+            assert geo["smem_bytes"] == k3.K3_SMEM_BYTES // 2 + k3.K3_SMEM_BYTES // 4
+            assert geo["spill_bytes"] == 0 and 0 < geo["registers"] <= 65536 // k3.K3_THREADS
+            assert geo["blocks_per_sm"] == 1
+    geo = k4.k4_geometry(dev, s, BF16)
+    assert (geo["tile_h"], geo["tile_w"], geo["left_halo"]) == k4.k4_tile(s)
+    assert geo["threads"] == k4.K4_THREADS and geo["spill_bytes"] == 0
+    assert 0 < geo["registers"] <= min(255, 65536 // k4.K4_THREADS)
+    assert geo["blocks_per_sm"] == 1
+
+
+def test_sor_and_robust_bf16_entry_points_run_the_kernels_as_float32(dev):
+    i1, i2 = _rand((3, 96, 128), dev, 141)
+    counters = (k1.hs_derivatives, k3.sor_sweeps, k4.freeze_weights, k4.frozen_sweeps)
+    for kw in (dict(solver="sor", omega=1.6), dict(solver="robust", robust_update_every=7),
+               dict(solver="sor", omega=1.6, tol=1e-3, block_sweeps=4),
+               dict(solver="robust", tol=1e-3, block_sweeps=6), dict(solver="sor", omega=0.0)):
+        c32 = HSConfig(alpha=0.5, iters=20, **kw)
+        c16 = dataclasses.replace(c32, dtype="bfloat16")
+        plain = dataclasses.replace(c16, backend="torch")
+        pyr = PyramidConfig(levels=2, warp="checked")
+        runs = (lambda c: hs_solve(i1[0], i2[0], c), lambda c: hs_pyramid(i1[0], i2[0], c, pyr),
+                lambda c: hs_solve_batched(i1, i2, c),
+                lambda c: hs_solve_batched(i1, i2, c, pyr))
+        if kw.get("omega") == 0.0:  # tuned on a single pair only, as the reference
+            runs = runs[:2]
+        for run in runs:
+            counts = []
+            for c in (c32, c16):
+                for k in counters:
+                    k.launches = 0
+                got = run(c)
+                counts.append(tuple(k.launches for k in counters))
+            if not kw.get("tol"):  # to tol the blocks follow the (rounded) updates
+                assert counts[0] == counts[1], (kw, counts)
+            assert sum(counts[1]) > 0, (kw, counts)
+            assert got.u.dtype == BF16
+            _equal(got, run(plain))
+        if kw.get("omega") == 0.0:
+            continue
+        for a, b in zip(solve_bidirectional(i1[0], i2[0], c16),
+                        solve_bidirectional(i1[0], i2[0], plain)):
+            _equal(a, b)
+        for a, b in zip(flow_stream_warm(i1, c16, warp_prior=True),
+                        flow_stream_warm(i1, plain, warp_prior=True)):
+            _equal(a, b)
+        for a, b in zip(flow_stream(i1, c16, chunk=2), flow_stream(i1, plain, chunk=2)):
+            _equal(a, b)
+        for (a, ma), (b, mb) in zip(flow_stream_occlusion(i1, c16, chunk=2, a=0.0, b=1e-4),
+                                    flow_stream_occlusion(i1, plain, chunk=2, a=0.0, b=1e-4)):
+            _equal(a, b)
+            assert torch.equal(ma, mb)
+
+
+def test_tune_omega_bf16_on_the_card_equals_plain(dev):
+    i1, i2 = _rand((96, 128), dev, 142)
+    for alpha in (0.1, 1.0):
+        c = HSConfig(alpha=alpha, dtype="bfloat16")
+        k2.jacobi_sweeps.launches = 0
+        om = tune_omega(i1, i2, c, power_iters=60)
+        assert k2.jacobi_sweeps.launches == 60
+        assert om == tune_omega(i1, i2, dataclasses.replace(c, backend="torch"),
+                                power_iters=60)
+
+
+@pytest.mark.parametrize("shape,name", [(s, n) for s in _GRAD_SHAPES for n in (
+    "K3", "K4 robust_sweeps", "K1 + K3 zero", "K1 + K3 warm", "K1 + K4 zero",
+    "K1 + K4 warm")] + [((40, 56), n) for n in ("K8", "K1 + K8 zero", "K1 + K8 warm")])
+def test_bf16_sor_robust_entries_differentiate_as_their_plain_twins(dev, shape, name):
+    inputs, call, twin = _grad_entries(dev, shape)[name]
+    inputs = [t.to(BF16).requires_grad_() for t in inputs]
+    if name in ("K3", "K4 robust_sweeps", "K8"):  # the fields from bfloat16 frames
+        i1, i2 = _rand16(shape, dev, 66)
+        f = k1.derivatives_plain(i1, i2, 0.5)
+        inputs = inputs[:2] + [a.requires_grad_() for a in f[:len(inputs) - 2]]
+    counters = counted_wrappers().values()
+    for c in counters:
+        c.launches = 0
+    outs, grads = _weighted_grads(call, inputs)
+    fwd = sum(c.launches for c in counters)
+    assert fwd > 0 and all(o.grad_fn is not None and o.dtype == BF16 for o in outs), name
+    want_outs, want = _weighted_grads(twin, inputs)
+    assert sum(c.launches for c in counters) == fwd
+    _equal([o.detach() for o in outs], [o.detach() for o in want_outs])
+    _equal(grads, want)

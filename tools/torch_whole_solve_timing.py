@@ -26,7 +26,8 @@ With --k3 it times K3 (4-color SOR) instead: a launch of 4 sweeps at
 halo block of 4 sweeps (s by the tree's own rule), the K1 + K3 chain of
 S1 (`solve_resident.hs_solve_resident_sor` 1088x1920 i50, omega
 chip_smoke.OMEGA), beside a K2 launch of 8 sweeps at both shapes and a
-K9 Jacobi launch over D1's 16 shards of 548x968; with --scan, where the
+K9 Jacobi launch over D1's 16 shards of 548x968, and S1 through K8
+(`sor_planes.hs_solve_sor_planes`); with --scan, where the
 tree's K3 has a plan (`sor.sweeps_per_launch` over shapes), a launch at every s up
 to K3_MAX_SWEEPS at 1088x1920, 1088x1900, 8 x 1088x1920, 544x960 and
 272x480, K9 SOR on D4's stack at s 1-4, and the chain of 50 sweeps at
@@ -238,6 +239,7 @@ def k3_times(dev, reps: int, scan: bool) -> dict:
     from opticalflowhs_tpu_torch.kernels import jacobi as k2
     from opticalflowhs_tpu_torch.kernels import solve_resident as sr
     from opticalflowhs_tpu_torch.kernels import sor as k3
+    from opticalflowhs_tpu_torch.kernels import sor_planes as k8
     from opticalflowhs_tpu_torch.kernels import tile as k9
 
     om = chip_smoke.OMEGA
@@ -260,6 +262,7 @@ def k3_times(dev, reps: int, scan: bool) -> dict:
     s1, s2 = chip_smoke.c1_frames(dev)
     out["s1_k1_k3_chain_i50"] = event_ms(
         lambda: sr.hs_solve_resident_sor(s1, s2, 0.5, 50, om), reps)
+    out["s1_k1_k8_i50"] = event_ms(lambda: k8.hs_solve_sor_planes(s1, s2, 0.5, 50, om), reps)
     h, w = 2160, 3840
     for tag, hw, sor in (("k9_16x548x968_s4", 4, False), ("k9_sor_16x572x992_n4", 16, True)):
         th, tw = h // 4, w // 4
