@@ -102,6 +102,16 @@ each ran through the kernels:
               stack with SOR and robust, C3's pyramid with SOR, C4's stream
               with SOR, SOR to tol, omega = 0, B7's and B9's gradients), each
               beside float32, counted, = the plain route bitwise.
+  phase 21:   bfloat16 on TV-L1, multigrid and LK: K5's bfloat16 build =
+              its plain twin at phase 12's shapes (B 1 and 3, iters 1, 7,
+              30, 100, zero and warm, every s), its geometry (= float32's
+              s and launches, no spills); B13 (T1), B14 (T2's seam against
+              classic HS), B15 (T3's stack and the tvl1= streams), B16 (M1
+              i1 and i2 against Jacobi i100 and i1600 in EPE, the multigrid
+              stack and pyramid), B17 (LK1, LK3, LK-B, LK-S) and B18 (G3's
+              gradient), each beside float32, counted, = the plain route
+              bitwise (LK: = the CPU); K5 a call of 100 by device time,
+              bfloat16 beside float32.
 Every phase checks what it measures and any failure exits non-zero.
 Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
@@ -110,7 +120,7 @@ card's name and power limit as nvidia-smi gives them, and a JSON object
 {"kernels": [...]} (per kernel: launches on the batched path for K1 and
 K2, on the SOR and robust path for K3 and K4, on the TV-L1 path for K5,
 on phase 13's path for K6 and K7, on phase 14's for K8, on phase 15's for
-K9-K12, on phases 19's and 20's for the bfloat16 builds, max |diff| against
+K9-K12, on phases 19's, 20's and 21's for the bfloat16 builds, max |diff| against
 the plain version, ms per launch for the kernel and the plain version at
 8 x 1088x1920 (for K5 per call of 100 alternations, with its 1088x1920,
 544x960 and 272x480 numbers; for K6, K7 and K8 per
@@ -219,6 +229,9 @@ K3_BF16_FLOPS_PER_PX_SWEEP = K3_FLOPS_PER_PX_SWEEP + 2
 K4_BF16_FLOPS_PER_PX_SWEEP = K4_FLOPS_PER_PX_SWEEP + 2
 K4_FREEZE_BF16_FLOPS_PER_PX = K4_FREEZE_FLOPS_PER_PX + 2
 K1_FIELDS_BF16_FLOPS_PER_PX = K1_FIELDS_FLOPS_PER_PX + 4
+# Phase 21: K5's bfloat16 build rounds u1, u2 and the four duals an
+# alternation (6 more a pixel than float32's 93); every array 2 bytes.
+K5_BF16_OPS_PER_PX_ITER = K5_OPS_PER_PX_ITER + 6
 BF16_REPLACES = {
     "K1": ["opticalflowhs_tpu/kernels/derivatives.py:40",
            "opticalflowhs_tpu/kernels/solve_resident.py:161",
@@ -235,6 +248,7 @@ BF16_REPLACES = {
            "opticalflowhs_tpu/kernels/solve_resident.py:161"],
     "K4": ["opticalflowhs_tpu/kernels/solve_robust.py:92"],
     "K8": ["opticalflowhs_tpu/kernels/sor_planes.py:78"],
+    "K5": ["opticalflowhs_tpu/kernels/tvl1_inner.py:99"],
 }
 # NVLink between the cards of one host: 900 GB/s all to all, 450 each way.
 NVLINK_BYTES_PER_S = 450e9
@@ -284,16 +298,17 @@ def k4_plan_launches(dev, shape, iters: int, every: int) -> int:
                for m in robust.refreeze_blocks(iters, every))
 
 
-def k5_schedule_bytes(geo: dict, px: int, iters: int) -> float:
+def k5_schedule_bytes(geo: dict, px: int, iters: int, itemsize: int = 4) -> float:
     """Bytes a K5 call of `iters` alternations moves under its blocked
     schedule: each launch reads the arrays of its windows (the window's area
-    over the tile's times the frame) and writes those of its tiles."""
+    over the tile's times the frame) and writes those of its tiles, of
+    `itemsize` bytes a value (2 for the bfloat16 build)."""
     s = geo["iters_per_launch"]
     halo = geo["window_h"] * 128 / (geo["tile_h"] * geo["tile_w"])
     launches = -(-iters // s)
     arrays = sum((7 if k == 0 else 11) * halo + (2 if k == launches - 1 else 6)
                  for k in range(launches))
-    return 4.0 * px * arrays
+    return float(itemsize) * px * arrays
 
 
 def require(cond: bool, what: str) -> None:
@@ -3240,6 +3255,337 @@ def bf16_sor_robust_path(dev, frames, stack, s1, s2, c2a, c2b, p1, p2, vid) -> l
     return rows
 
 
+def bf16_tvl1_mg_lk_path(dev, c2a, c2b, p1, p2, vid, vid_dev) -> dict:
+    """Phase 21: bfloat16 on TV-L1, multigrid and Lucas-Kanade. K5's
+    bfloat16 build against its plain bfloat16 twin, max |diff| 0.0, at phase
+    12's shapes (67x93, 131x130, 1088x1920; B 1 and 3; iters 1, 7, 30, 100;
+    zero and warm; every s and the plan) with the float32 plan's launches,
+    and its geometry (float32's s and launches, no spills). Then the cells,
+    each beside float32 on the same frames and counted: B13 (T1), B14 (T2's
+    seam against classic HS), B15 (T3's stack, flow_stream,
+    flow_stream_occlusion and solve_bidirectional with tvl1=), B16 (M1 i1
+    and i2 against Jacobi i100 and i1600 in EPE, the multigrid stack and
+    pyramid), B17 (LK1, LK3, LK-B, LK-S) and B18 (G3's gradient), each =
+    the plain bfloat16 route bitwise (LK, plain torch on both: = the CPU).
+    Last, K5 a call of 100 alternations by device time at T1's level
+    sizes and 8 x 1080p, bfloat16 beside float32. Returns K5's bfloat16 row
+    of the kernels line."""
+    from opticalflowhs_tpu_torch import (
+        HSConfig,
+        LKConfig,
+        PyramidConfig,
+        TVL1Config,
+        flow_stream,
+        hs_pyramid,
+        hs_solve,
+        hs_solve_batched,
+        lk_solve,
+        lk_solve_batched,
+        tvl1_solve,
+        tvl1_solve_batched,
+    )
+    from opticalflowhs_tpu_torch import tvl1 as tv
+    from opticalflowhs_tpu_torch.consistency import solve_bidirectional
+    from opticalflowhs_tpu_torch.data.synthetic import translation_pair
+    from opticalflowhs_tpu_torch.kernels import counted_wrappers
+    from opticalflowhs_tpu_torch.kernels import tvl1_inner as k5
+    from opticalflowhs_tpu_torch.metrics import epe, interior
+    from opticalflowhs_tpu_torch.pyramid import gaussian_pyramid
+    from opticalflowhs_tpu_torch.video import flow_stream_occlusion
+
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    name = "hs_tvl1_inner_bf16"
+    err = 0.0
+
+    def exact(got, want, what) -> float:
+        got, want = _tensors(got), _tensors(want)
+        require(len(got) == len(want), f"{what}: {len(got)} outputs, {len(want)} expected")
+        for g in got:
+            require(g.dtype in (bf, torch.bool), f"{what}: dtype {g.dtype}")
+        d = max(max_diff(g.float(), w.float()) for g, w in zip(got, want))
+        require(d == 0.0, f"{what}: max|diff| {d} (bfloat16 equals the plain route bitwise)")
+        return d
+
+    cfg0 = TVL1Config(dtype="bfloat16")
+    scalars = tv.inner_scalars(cfg0)
+
+    def inner_args(i1, i2, seed):
+        """bfloat16 warm (u1, u2) from a seeded normal and the fields of a
+        bfloat16 precompute on the pair scaled to [0, 255]."""
+        i1, i2 = tv.rescale_pair(i1.to(bf), i2.to(bf))
+        rng = np.random.default_rng(seed)
+        u1, u2 = (torch.from_numpy(rng.normal(0, 0.5, tuple(i1.shape)).astype(np.float32))
+                  .to(dev).to(bf) for _ in range(2))
+        return u1, u2, tv.inner_fields(i1, i2, u1, u2, cfg0)
+
+    def pairs(b, h, w, key):
+        made = [translation_pair(h, w, 0.7, -0.3, key=key + k) for k in range(b)]
+        return tuple(torch.from_numpy(np.stack([m[j] for m in made])).to(dev).squeeze(0)
+                     for j in (0, 1))
+
+    # -- K5's bfloat16 build against its plain twin, and its geometry ------------------
+    t1, t2, gt_t = t1_pair(dev)
+    n_cases = 0
+    for b, h, w in ((1, 67, 93), (3, 67, 93), (1, 131, 130), (3, 131, 130), (1, 0, 0)):
+        i1, i2 = (t1, t2) if h == 0 else pairs(b, h, w, 60)  # 0: T1's 1088x1920
+        u1, u2, fields = inner_args(i1, i2, seed=61)
+        for uv in ((u1, u2), (torch.zeros_like(u1),) * 2):
+            for iters in (1, 7, 30, 100):
+                want = k5.tvl1_inner_plain(*uv, *fields, iters, *scalars)
+                for s in range(k5.K5_MAX_ITERS + 1):
+                    before = k5.tvl1_inner.launches
+                    err = max(err, exact(k5.tvl1_inner(*uv, *fields, iters, *scalars,
+                                                       block_iters=s), want,
+                                         f"K5 bf16 {tuple(u1.shape)} iters {iters} s {s}"))
+                    n = k5.tvl1_inner.launches - before
+                    require(n == k5.k5_geometry(dev, s, tuple(u1.shape), iters)["launches"],
+                            f"K5 bf16 launches {n}: the float32 plan's")
+                    n_cases += 1
+    geo = {}
+    for shape in ((1088, 1920), (544, 960), (272, 480), (8, 1088, 1920)):
+        for s in range(k5.K5_MAX_ITERS + 1):
+            g16 = k5.k5_geometry(dev, s, shape, 100, bf)
+            g32 = k5.k5_geometry(dev, s, shape, 100)
+            require(g16["spill_bytes"] == 0 and g16["blocks_per_sm"] == 1
+                    and all(g16[k] == g32[k] for k in g32 if k != "registers"),
+                    f"K5 bf16 geometry {g16} against float32's {g32}")
+        geo[shape] = k5.k5_geometry(dev, 0, shape, 100, bf)
+    g0 = geo[(1088, 1920)]
+    print(f"phase 21 K5 bf16 = plain bitwise in {n_cases} calls (67x93, 131x130, 1088x1920; "
+          f"B 1 and 3; iters 1/7/30/100; zero and warm; s 0-{k5.K5_MAX_ITERS}), launches = the "
+          f"float32 plan's; geometry = float32's s and launches, {g0['registers']} registers, "
+          f"{g0['spill_bytes']} spilled bytes; auto s at 1088x1920, 544x960, 272x480, 8x: "
+          + ", ".join(str(g["iters_per_launch"]) for g in geo.values()))
+
+    # -- the cells, bf16 beside float32, counted ------------------------------------------
+    def in_bf16(c):
+        return dataclasses.replace(c, dtype="bfloat16")
+
+    def plain(c):
+        return dataclasses.replace(c, backend="torch")
+
+    def mean_abs(a, b):
+        fa, fb = _tensors(a), _tensors(b)
+        return float(sum((x.float() - y.float()).abs()[..., 8:-8, 8:-8].mean()
+                         for x, y in zip(fa[:2], fb[:2])) / 2)
+
+    counters = counted_wrappers()
+
+    def counted(fn):
+        before = {n: c.launches for n, c in counters.items()}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {n: c.launches - before[n] for n, c in counters.items()
+                     if c.launches != before[n]}
+
+    pyr3 = PyramidConfig(levels=3)
+    small = TVL1Config(warps=2, iters=30)
+    m1, m2, gt_m = t2_pair(dev)
+    q1, q2, gt_q = m1_pair(dev)
+    pa, pb = vid_dev[:4], vid_dev[1:5]
+    occ = dict(a=0.0, b=1e-4)
+    mg = {n: HSConfig(alpha=1.0, iters=n, solver="multigrid") for n in (1, 2)}
+    lk_cfg = LKConfig()
+    runs = {
+        "B13 T1": (lambda c: tvl1_solve(t1, t2, c, pyr3), TVL1Config()),
+        "B14 T2": (lambda c: tvl1_solve(m1, m2, c), TVL1Config()),
+        "B15 T3 stack": (lambda c: tvl1_solve_batched(pa, pb, c), small),
+        "B15 flow_stream": (lambda c: list(flow_stream(vid, tvl1=c, chunk=8)), small),
+        "B15 occlusion": (lambda c: next(flow_stream_occlusion(vid[:9], tvl1=c, chunk=8, **occ)),
+                          small),
+        "B15 bidirectional": (lambda c: solve_bidirectional(t1, t2, tvl1=c), small),
+        "B16 M1 i1": (lambda c: hs_solve(q1, q2, c), mg[1]),
+        "B16 M1 i2": (lambda c: hs_solve(q1, q2, c), mg[2]),
+        "B16 stack": (lambda c: hs_solve_batched(pa[:2], pb[:2], c), mg[2]),
+        "B16 pyramid": (lambda c: hs_pyramid(q1, q2, c, pyr3), mg[2]),
+        "B17 LK1": (lambda c: lk_solve(t1, t2, c), lk_cfg),
+        "B17 LK3": (lambda c: lk_solve(p1, p2, c, PyramidConfig(levels=3, iters_per_level=())),
+                    lk_cfg),
+        "B17 LK-B": (lambda c: lk_solve_batched(vid_dev[:8], vid_dev[1:9], c), lk_cfg),
+        "B17 LK-S": (lambda c: list(flow_stream(vid, lk=c, chunk=8)), lk_cfg),
+    }
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    out16, per16 = {}, {}
+    for tag, (run, c) in runs.items():
+        out16[tag], per16[tag] = counted(lambda: run(in_bf16(c)))
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    print(f"phase 21 path launches (bfloat16: B13-B17): {launches}; per cell {per16}")
+    require(launches.get("K5 hs_tvl1_inner", 0) > 0, f"K5's bf16 build never ran: {launches}")
+    out32, per32 = {}, {}
+    for tag, (run, c) in runs.items():
+        out32[tag], per32[tag] = counted(lambda: run(c))
+    require(per16 == per32, f"bf16 launches {per16} != float32's {per32}")
+    levels = [tuple(a.shape) for a in gaussian_pyramid(t1, pyr3.levels)]
+    want_t1 = cfg0.warps * sum(k5.k5_geometry(dev, 0, hw, cfg0.iters)["launches"]
+                               for hw in levels)
+    require(per16["B13 T1"] == {"K5 hs_tvl1_inner": want_t1},
+            f"B13 launches {per16['B13 T1']}, expected K5 {want_t1}")
+    for tag in ("B16 M1 i1", "B16 M1 i2", "B16 stack"):
+        require(per16[tag] == {"K1 hs_derivatives": 1}, f"{tag} launches {per16[tag]}")
+    for tag in ("B17 LK1", "B17 LK3", "B17 LK-B", "B17 LK-S"):
+        require(per16[tag] == {}, f"{tag} launched kernels: {per16[tag]}")
+
+    for tag, (run, c) in runs.items():
+        for a in _tensors(out16[tag]):
+            require(a.dtype in (bf, torch.bool) and bool(torch.isfinite(a.float()).all()),
+                    f"{tag} bf16 dtype/finite")
+        if tag.startswith("B17"):
+            continue
+        exact(out16[tag], run(plain(in_bf16(c))), f"{tag} bf16 vs the plain route")
+    # LK: plain torch on both devices; LK-B = singles, LK-S = LK-B on each window.
+    d_lk = {}
+    for tag, args in (("B17 LK1", (t1, t2, in_bf16(lk_cfg))),
+                      ("B17 LK3", (p1, p2, in_bf16(lk_cfg),
+                                   PyramidConfig(levels=3, iters_per_level=())))):
+        cpu = lk_solve(args[0].cpu(), args[1].cpu(), *args[2:])
+        d_lk[tag] = max_flow_diff([a.float().cpu() for a in out16[tag]],
+                                  [a.float() for a in cpu])
+        require(d_lk[tag] <= TOL, f"{tag} bf16 card vs CPU max|diff| {d_lk[tag]}")
+    lkb = out16["B17 LK-B"]
+    for k in range(8):
+        one = lk_solve(vid_dev[k], vid_dev[k + 1], in_bf16(lk_cfg))
+        exact((lkb.u[k], lkb.v[k]), one, f"B17 LK-B pair {k} vs lk_solve")
+    for k, ch in enumerate(out16["B17 LK-S"]):
+        exact(ch, lk_solve_batched(vid_dev[8 * k:8 * k + 8], vid_dev[8 * k + 1:8 * k + 9],
+                                   in_bf16(lk_cfg)), f"B17 LK-S chunk {k} vs LK-B")
+    for k in range(4):
+        exact((out16["B15 T3 stack"].u[k], out16["B15 T3 stack"].v[k]),
+              tvl1_solve(pa[k], pb[k], in_bf16(small)), f"B15 stack image {k} vs tvl1_solve")
+
+    ms = {}
+    for tag, reps in (("B13 T1", 10), ("B14 T2", 5), ("B15 T3 stack", 5), ("B16 M1 i2", 5),
+                      ("B17 LK1", 10)):
+        run, c = runs[tag]
+        ms[tag] = (median_ms(lambda: run(in_bf16(c)), runs=reps), median_ms(lambda: run(c),
+                                                                            runs=reps))
+    for tag in runs:
+        print(f"phase 21 {tag} bf16: = the {'CPU' if tag in d_lk else 'plain route'} "
+              f"{'within ' + format(d_lk[tag], '.3g') if tag in d_lk else 'bitwise'}; "
+              f"launches {per16[tag]} (= float32's)"
+              + (f"; bf16 {ms[tag][0]:.3f} ms, float32 {ms[tag][1]:.3f} ms "
+                 f"({ms[tag][0] / ms[tag][1]:.3f}x)" if tag in ms else "")
+              + f"; interior mean |bf16 - float32| {mean_abs(out16[tag], out32[tag]):.5f} px")
+
+    def flow_np(f):
+        return np.stack([f.u.float().cpu().numpy(), f.v.float().cpu().numpy()], axis=-1)
+
+    # -- B13 EPE, B14 the seam's ordering, B16 multigrid against Jacobi ------------------
+    e_t1 = [epe(interior(flow_np(f), 16), interior(gt_t, 16))
+            for f in (out16["B13 T1"], out32["B13 T1"])]
+    require(e_t1[0] < 0.1, f"B13 bf16 EPE {e_t1}")
+    hm, wm = gt_m.shape[:2]
+    band = np.zeros((hm, wm), bool)
+    band[8:-8, wm // 2 - 8:wm // 2 + 8] = True
+
+    def band_epe(f):
+        return float(np.sqrt(((flow_np(f) - gt_m) ** 2).sum(-1))[band].mean())
+
+    classic = HSConfig(alpha=0.1, iters=400)
+    seam = {"TV-L1": (band_epe(out16["B14 T2"]), band_epe(out32["B14 T2"])),
+            "classic i400": (band_epe(hs_solve(m1, m2, in_bf16(classic))),
+                             band_epe(hs_solve(m1, m2, classic)))}
+    require(seam["TV-L1"][0] < seam["classic i400"][0],
+            f"B14: bf16 TV-L1 seam band not below classic HS's: {seam}")
+    e_mg = {}
+    for tag, f16, f32 in (("multigrid i1", out16["B16 M1 i1"], out32["B16 M1 i1"]),
+                          ("multigrid i2", out16["B16 M1 i2"], out32["B16 M1 i2"])):
+        e_mg[tag] = (epe(interior(flow_np(f16), 16), interior(gt_q, 16)),
+                     epe(interior(flow_np(f32), 16), interior(gt_q, 16)))
+    for n in (100, 1600):
+        c = HSConfig(alpha=1.0, iters=n)
+        e_mg[f"Jacobi i{n}"] = tuple(epe(interior(flow_np(hs_solve(q1, q2, x)), 16),
+                                         interior(gt_q, 16)) for x in (in_bf16(c), c))
+    require(e_mg["multigrid i2"][0] < e_mg["Jacobi i100"][0],
+            f"B16: bf16 multigrid i2 EPE not below Jacobi i100's: {e_mg}")
+    e_lk = [epe(interior(flow_np(f), 16), interior(gt_t, 16))
+            for f in (out16["B17 LK1"], out32["B17 LK1"])]
+    print(f"phase 21 EPE (bf16, float32): B13 T1 {e_t1[0]:.6f}, {e_t1[1]:.6f}; B14 seam band "
+          + "; ".join(f"{t} {a:.4f}, {b:.4f}" for t, (a, b) in seam.items())
+          + "; B16 M1 " + "; ".join(f"{t} {a:.6f}, {b:.6f}" for t, (a, b) in e_mg.items())
+          + f"; B17 LK1 {e_lk[0]:.6f}, {e_lk[1]:.6f}")
+    del out16, out32
+
+    # -- B18: G3's gradient in bf16 = the plain route bitwise -----------------------------
+    a, b = t1.clone().requires_grad_(), t2.clone().requires_grad_()
+    tpyr = PyramidConfig(levels=1)
+
+    def g3(cfg):
+        f = tvl1_solve(a, b, cfg, tpyr)
+        loss = torch.mean(f.u.float() ** 2) + torch.mean(f.v.float() ** 2)
+        return f, torch.autograd.grad(loss, (a, b))
+
+    for c in counters.values():
+        c.launches = 0
+    f_g, grads = g3(cfg0)
+    fwd = {n: c.launches for n, c in counters.items() if c.launches}
+    f_p, grads_p = g3(plain(cfg0))
+    exact([x.detach() for x in f_g], f_p, "B18 G3 bf16 flow vs the plain route")
+    require(all(bool(torch.equal(x, y)) for x, y in zip(grads, grads_p)),
+            "B18 G3 bf16 gradient differs from the plain route")
+    k5_fwd = cfg0.warps * k5.k5_geometry(dev, 0, tuple(t1.shape), cfg0.iters)["launches"]
+    require(fwd == {"K5 hs_tvl1_inner": k5_fwd}, f"B18 launches {fwd}: the forward's only")
+    print(f"phase 21 B18 G3 bf16 tvl1_solve 1088x1920 1 level, d(mean u^2 + mean v^2)/d frames: "
+          f"= the plain route bitwise; launches {fwd} (the forward's)")
+    del a, b, grads, grads_p, f_g, f_p
+
+    # -- K5 a call of 100 alternations, bf16 beside float32 ------------------------------
+    def per_call(fn, match, launches_per_call):
+        """Ms of one call and what measured it: the profiler's device time
+        where it saw every launch of the calls, else CUDA events."""
+        total, kruns = device_ms(fn, match, reps=5)
+        if kruns != 5 * launches_per_call:
+            return event_ms(fn, reps=5), "events"
+        return total, "device"
+
+    t = {}
+    for tag, (i1, i2) in (("1088x1920", (t1, t2)), ("544x960", pairs(1, 544, 960, 44)),
+                          ("272x480", pairs(1, 272, 480, 45)), ("8x1088x1920", (c2a, c2b))):
+        u1, u2, fields = inner_args(i1, i2, seed=43)
+        n_l = k5.k5_geometry(dev, 0, tuple(u1.shape), 100)["launches"]
+        w1, w2 = u1.float(), u2.float()
+        f32 = [f.float() for f in fields]
+        t[tag] = {
+            "bf16": per_call(lambda: k5.tvl1_inner(u1, u2, *fields, 100, *scalars),
+                             r"tvl1_kernel_bf16", n_l),
+            "float32": per_call(lambda: k5.tvl1_inner(w1, w2, *f32, 100, *scalars),
+                                r"tvl1_kernel(?!_bf16)", n_l),
+            "bf16 events": (event_ms(lambda: k5.tvl1_inner(u1, u2, *fields, 100, *scalars),
+                                     reps=5), "events"),
+            "plain": (event_ms(lambda: k5.tvl1_inner_plain(u1, u2, *fields, 100, *scalars),
+                               reps=1), "events"),
+        }
+        px = u1.numel()
+        b_ms, b_by = bound_ms(K5_CALL_ARRAYS * 2 * px, K5_BF16_OPS_PER_PX_ITER * 100 * px)
+        sched = k5_schedule_bytes(k5.k5_geometry(dev, 0, tuple(u1.shape), 100, bf), px, 100,
+                                  itemsize=2)
+        t[tag]["bound"] = (b_ms, b_by, sched / PEAK_BYTES_PER_S * 1e3)
+        print(f"phase 21 K5 {tag} a call of 100 ({n_l} launches): bf16 "
+              f"{t[tag]['bf16'][0]:.4f} ms ({t[tag]['bf16'][1]}), float32 "
+              f"{t[tag]['float32'][0]:.4f} ms ({t[tag]['float32'][1]}), ratio "
+              f"{t[tag]['bf16'][0] / t[tag]['float32'][0]:.3f}; bf16 events "
+              f"{t[tag]['bf16 events'][0]:.4f} ms; plain bf16 {t[tag]['plain'][0]:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by}), the schedule's bf16 bytes {t[tag]['bound'][2]:.4f} ms")
+        del u1, u2, fields, w1, w2, f32
+    print(f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    r8, r1 = t["8x1088x1920"], t["1088x1920"]
+    return {"name": name, "route": "cuda", "source": "opticalflowhs_tpu_torch/csrc/tvl1.cu",
+            "replaces": BF16_REPLACES["K5"], "launches": launches["K5 hs_tvl1_inner"],
+            "launches_t1_solve": per16["B13 T1"]["K5 hs_tvl1_inner"], "max_abs_err": err,
+            "ms": r8["bf16"][0], "ms_by": r8["bf16"][1], "event_ms": r8["bf16 events"][0],
+            "plain_ms": r8["plain"][0], "float32_ms": r8["float32"][0],
+            "float32_ms_by": r8["float32"][1], "bound_ms": r8["bound"][0],
+            "bound_by": r8["bound"][1], "schedule_bound_ms": r8["bound"][2],
+            "library_ms": None, "iters_per_launch": g0["iters_per_launch"], "geometry": g0,
+            **{f"{k}_{tag}": v for tag in ("1088x1920", "544x960", "272x480")
+               for k, v in (("ms", t[tag]["bf16"][0]), ("float32_ms", t[tag]["float32"][0]),
+                            ("plain_ms", t[tag]["plain"][0]), ("bound_ms", t[tag]["bound"][0]),
+                            ("schedule_bound_ms", t[tag]["bound"][2]))},
+            "t1_ms": ms["B13 T1"][0], "t1_float32_ms": ms["B13 T1"][1]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3597,6 +3943,9 @@ def main() -> int:
 
     # -- phase 20: bfloat16 on SOR and IRLS (K3, K8, K4's bfloat16 builds) ---------------
     bf16_rows += bf16_sor_robust_path(dev, frames, stack, s1, s2, c2a, c2b, p1, p2, vid)
+
+    # -- phase 21: bfloat16 on TV-L1 (K5's bfloat16 build), multigrid and LK -------------
+    bf16_rows.append(bf16_tvl1_mg_lk_path(dev, c2a, c2b, p1, p2, vid, vid_dev))
 
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2

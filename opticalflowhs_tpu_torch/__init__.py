@@ -50,24 +50,38 @@ on their device. numpy inputs go to the entry point's `device` keyword,
 cuda:0 by default; without a CUDA device that default raises, so the CPU
 runs only when asked for (`device="cpu"`, or CPU tensors).
 
-bfloat16 (`HSConfig(dtype="bfloat16")`, solver "jacobi", "sor" or
-"robust", untiled): bfloat16 storage, float32 arithmetic. Every array the reference holds in the
-config's dtype is a torch.bfloat16 tensor here: the frames after the cast
-(made on the device), Ex, Ey, Et and 1/den, u and v after every sweep, the
-pyramid's levels, upsampled flows and warped frames, and the returned
-Flow. Each value is widened to float32, the arithmetic runs in float32 in
-the float32 path's order, and each array result is rounded once, to
-nearest even, where it is stored; 1/den is formed from the rounded Ex and
-Ey. A 4-color SOR sweep runs its four color stages in float32, each
-reading the earlier stages' float32 values, and rounds u and v once, at
-the sweep's end; an IRLS freeze rounds wd and ws where it stores them,
-and its sweeps form the frozen system in float32 from the rounded arrays.
+bfloat16 (`HSConfig(dtype="bfloat16")` for every solver,
+`TVL1Config(dtype="bfloat16")`, `LKConfig(dtype="bfloat16")`; untiled):
+bfloat16 storage, float32 arithmetic. Every array the reference holds in
+the config's dtype is a torch.bfloat16 tensor here: the frames after the
+cast (made on the device), Ex, Ey, Et and 1/den, u and v after every
+sweep, the pyramid's levels, upsampled flows and warped frames, and the
+returned Flow. Each value is widened to float32, the arithmetic runs in
+float32 in the float32 path's order, and each array result is rounded
+once, to nearest even, where it is stored; 1/den is formed from the
+rounded Ex and Ey. A 4-color SOR sweep runs its four color stages in
+float32, each reading the earlier stages' float32 values, and rounds u
+and v once, at the sweep's end; an IRLS freeze rounds wd and ws where it
+stores them, and its sweeps form the frozen system in float32 from the
+rounded arrays. Where each family stores:
+  multigrid  each level's exx, exy, eyy and idet (formed from K1's rounded
+             Ex and Ey, a coarser level from the rounded finer one), the
+             right-hand side, residuals, restricted residuals, prolonged
+             corrections and corrected flows; u and v once a smoother
+             sweep, its four color stages in float32, as SOR;
+  TV-L1      the rescaled frames (lo, hi and the scale float32), the five
+             inner-loop fields, u1 and u2 where the u-step stores them,
+             the four duals where the p-step does; rho, the step, v, the
+             gradients and the norms are float32; median3 is exact;
+  LK         the warped frame, Ex, Ey and Et, each window sum (the
+             products float32), the flow after each refinement and each
+             blur; the 2x2 solve is float32.
 The kernels' bfloat16 builds (K1, K2, K6, K7; K3 and K8; K4's freeze and
-sweeps) round u and v at the end of every sweep, also inside a launch, so
-they equal the plain twins (`ops.stencils.store`) bitwise and the result
-does not depend on the sweeps a launch runs. bfloat16 for multigrid,
-TV-L1, LK and dist/ raises NotImplementedError (ROADMAP.md queue 1,
-item 5).
+sweeps; K5) round their state where it is stored, also inside a launch,
+so they equal the plain twins (`ops.stencils.store`) bitwise and the
+result does not depend on the sweeps or alternations a launch runs.
+bfloat16 on dist/ and the tiled entries raises NotImplementedError
+(ROADMAP.md queue 1, item 5).
 """
 
 from opticalflowhs_tpu_torch.batch import hs_solve_batched

@@ -37,7 +37,6 @@ from opticalflowhs_tpu_torch.pyramid import (
 from opticalflowhs_tpu_torch.solver import (
     Flow,
     as_frame,
-    check_supported,
     solve_level,
     storage_dtype,
 )
@@ -118,7 +117,6 @@ def hs_solve_batched(
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs "
                          f"{tuple(i2.shape)}")
-    check_supported(cfg)
     i1 = as_frame(i1, device, storage_dtype(cfg))
     i2 = as_frame(i2, i1.device, storage_dtype(cfg))
     if pyr is not None and pyr.levels > 1:

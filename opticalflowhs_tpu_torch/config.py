@@ -28,8 +28,8 @@ BACKENDS = ("auto", "torch", "cuda")
 SOLVERS = ("jacobi", "sor", "multigrid", "robust")
 
 # Storage types of `dtype`: bfloat16 stores every array in 16 bits and
-# computes in float32 (the package docstring's rule); it runs for
-# HSConfig(solver="jacobi") only so far (ROADMAP.md queue 1, item 5).
+# computes in float32 (the package docstring's rule); it runs for every
+# HS solver, TV-L1 and LK, untiled (dist/ is ROADMAP.md queue 1, item 5).
 DTYPES = ("float32", "bfloat16")
 
 # Reference backend name -> port backend name.
@@ -48,7 +48,7 @@ class HSConfig:
 
     alpha: float = 1.0          # regularization weight; den = alpha^2 + Ex^2 + Ey^2
     iters: int = 100            # fixed Jacobi iteration count
-    dtype: str = "float32"      # storage dtype (DTYPES; bfloat16: jacobi, sor, robust)
+    dtype: str = "float32"      # storage dtype (DTYPES; bfloat16 untiled)
     deriv_variant: str = "hs_cube"
     backend: str = "auto"       # auto -> cuda for CUDA frames, torch otherwise
     block_sweeps: int = 0       # sweeps per Jacobi kernel launch (0 = auto)
@@ -123,7 +123,7 @@ class LKConfig:
     iters: int = 3              # warp-refine Newton steps per pyramid level
     eps: float = 1e-3           # Tikhonov diagonal regularization of the 2x2
                                 # structure tensor (textureless windows)
-    dtype: str = "float32"      # DTYPES; bfloat16 is still to port here
+    dtype: str = "float32"      # storage dtype (DTYPES; bfloat16 untiled)
     max_step: float = 0.0       # > 0: clamp each refinement's |du|,|dv| (px);
                                 # 0 = unclamped
     smooth: bool = True         # binomial-blur the flow between refinements
@@ -159,7 +159,7 @@ class TVL1Config:
                                 # pyr.iters_per_level is not read
     iters: int = 100            # v/u alternations per warp iteration
     median: bool = True         # 3x3 median of the flow after each warp
-    dtype: str = "float32"      # DTYPES; bfloat16 is still to port here
+    dtype: str = "float32"      # storage dtype (DTYPES; bfloat16 untiled)
     backend: str = "auto"       # inner loop: cuda (K5) for CUDA frames,
                                 # torch otherwise
     warp: str = "auto"          # tiled | gather | checked | auto (= checked)

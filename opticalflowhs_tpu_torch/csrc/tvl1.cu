@@ -80,8 +80,26 @@
 // them to; the divisions are IEEE divisions and the norm is sqrtf, which
 // equals _safe_norm in value (sqrt(+0) = +0). With --fmad=false the output
 // equals the plain PyTorch loop on the card bitwise.
+//
+// bfloat16 (tvl1_kernel_bf16, hs_tvl1_inner_bf16): every array in device
+// memory is bfloat16, the window in shared memory stays float32, with the
+// float32 build's geometry, plan and launches. Arrays are widened where they
+// are staged: the 6 state arrays, inv_g2 and th by 8-byte loads (a lane's 4
+// values) at the tile's start; rho0, gx and gy of the next tile by one 8-byte
+// cp.async a row into a bfloat16 buffer in the second slot's bytes (cp.async
+// copies bytes and cannot widen), widened into the float32 slot when that
+// tile starts; at widths that are not a multiple of 4 by 2-byte loads. The
+// u-step rounds u1 and u2 to nearest even where it stores them, the p-step
+// the four duals, in shared memory and in the halo as well (time-blocking
+// recomputes the halo, and its values must equal the neighbour tile's);
+// rho, the step, v, the differences and the norms stay float32. So the
+// bfloat16 build equals the plain bfloat16 twin (kernels/tvl1_inner.py,
+// ops/stencils.py `store`) bitwise at every s.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -123,14 +141,19 @@ __host__ __device__ inline Geometry geometry(int s) {
   return g;
 }
 
-struct Args {
-  const float* in[kStates];   // slot read; in[2..5] null: zero duals
-  const float* f[kFields];
-  float* out[kStates];        // slot written; out[2..5] null: u only
+// A launch's arguments, for arrays of storage type E (float or bfloat16).
+template <class E>
+struct ArgsOf {
+  using Elem = E;
+  const E* in[kStates];   // slot read; in[2..5] null: zero duals
+  const E* f[kFields];
+  E* out[kStates];        // slot written; out[2..5] null: u only
   int b, h, w, iters, tiles_x, tiles_y;
   float theta, sigma, lam_theta;
-  int vec;                    // 16-byte loads and stores
+  int vec;                // 16-byte loads and stores (bfloat16: 8-byte)
 };
+struct Args : ArgsOf<float> {};
+struct ArgsBf16 : ArgsOf<__nv_bfloat16> {};
 
 // One tile: the window's origin in its image, and where the image starts.
 struct Tile {
@@ -138,7 +161,8 @@ struct Tile {
   int r0, c0;
 };
 
-__device__ __forceinline__ Tile tile_at(const Args& a, const Geometry& g, int t) {
+template <class A>
+__device__ __forceinline__ Tile tile_at(const A& a, const Geometry& g, int t) {
   const int per_img = a.tiles_x * a.tiles_y;
   const int img = t / per_img;
   const int rem = t - img * per_img;
@@ -175,6 +199,43 @@ __device__ __forceinline__ void copy_commit() {
 // Waits for every copy but those of the last group committed.
 __device__ __forceinline__ void copy_wait_but_last() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void copy_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// cp.async of 8 bytes (4 bfloat16 values); src_size 0 fills zeros.
+__device__ __forceinline__ void copy8(__nv_bfloat16* dst, const __nv_bfloat16* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 8 : 0)
+               : "memory");
+}
+
+// bfloat16 to and from float, only by the intrinsics; 4 values packed in 8
+// bytes, the lower address in the lower bits.
+__device__ __forceinline__ float bf16_widen(unsigned short x) {
+  return __bfloat162float(__ushort_as_bfloat16(x));
+}
+
+__device__ __forceinline__ float4 bf16_widen4(const uint2& x) {
+  return make_float4(bf16_widen((unsigned short)(x.x & 0xffffu)),
+                     bf16_widen((unsigned short)(x.x >> 16)),
+                     bf16_widen((unsigned short)(x.y & 0xffffu)),
+                     bf16_widen((unsigned short)(x.y >> 16)));
+}
+
+__device__ __forceinline__ unsigned bf16_round2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// x rounded to bfloat16 (nearest even) where kRound, widened back; x itself
+// otherwise.
+template <bool kRound>
+__device__ __forceinline__ float stored(float x) {
+  if constexpr (kRound) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
 }
 
 __device__ __forceinline__ void unpack(const float4& v, float (&x)[kLaneCols]) {
@@ -226,9 +287,56 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
   }
 }
 
+// The bfloat16 build's staging. A thread's 4 pixels of one array, widened
+// into the float32 window (zero outside the image), or with src null zeros:
+// one 8-byte load with vec, else 2-byte loads.
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* __restrict__ src,
+                                      const ArgsBf16& a, const Tile& t, const Lane& ln) {
+  float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (src != nullptr) {
+    const int ac = t.c0 + ln.c;
+    const bool row_in = ln.ar >= 0 && ln.ar < a.h;
+    const long long g = t.base + (long long)ln.ar * a.w + ac;
+    if (a.vec) {
+      if (row_in && ac >= 0 && ac < a.w) x = bf16_widen4(*reinterpret_cast<const uint2*>(src + g));
+    } else {
+      float y[kLaneCols];
+#pragma unroll
+      for (int q = 0; q < kLaneCols; ++q) {
+        const bool in = row_in && ac + q >= 0 && ac + q < a.w;
+        y[q] = in ? __bfloat162float(src[g + q]) : 0.0f;
+      }
+      x = make_float4(y[0], y[1], y[2], y[3]);
+    }
+  }
+  *reinterpret_cast<float4*>(dst + ln.r * kWinW + ln.c) = x;
+}
+
+// Starts the copy of this thread's 4 bfloat16 pixels of one array into the
+// bfloat16 buffer `dst` (zero outside the image): one 8-byte cp.async with
+// vec, else 2-byte loads and stores, done when the call returns.
+__device__ __forceinline__ void prefetch(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
+                                         const ArgsBf16& a, const Tile& t, const Lane& ln) {
+  __nv_bfloat16* d = dst + ln.r * kWinW + ln.c;
+  const int ac = t.c0 + ln.c;
+  const bool row_in = ln.ar >= 0 && ln.ar < a.h;
+  const long long g = t.base + (long long)ln.ar * a.w + ac;
+  if (a.vec) {
+    const bool in = row_in && ac >= 0 && ac < a.w;
+    copy8(d, in ? src + g : src, in);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kLaneCols; ++q) {
+      const bool in = row_in && ac + q >= 0 && ac + q < a.w;
+      d[q] = in ? src[g + q] : __float2bfloat16_rn(0.0f);
+    }
+  }
+}
+
 // u = v + theta*div p for one field: p at the pixel, left of it (from the
 // lane beside for the first column) and above it, zero at the image's column
-// 0 and row 0.
+// 0 and row 0. kRound (bfloat16): u rounded where it is stored.
+template <bool kRound>
 __device__ __forceinline__ void u_field(float* __restrict__ su, const float* __restrict__ spx,
                                         const float* __restrict__ spy, const Lane& ln,
                                         float theta, const float (&a)[kLaneCols],
@@ -246,14 +354,15 @@ __device__ __forceinline__ void u_field(float* __restrict__ su, const float* __r
     const float qx = (ln.cfirst >> q & 1u) ? 0.0f : (q == 0 ? l : x[q > 0 ? q - 1 : 0]);
     const float qy = rfirst ? 0.0f : t[q];
     const float div = (x[q] - qx) + (y[q] - qy);
-    o[q] = v + theta * div;
+    o[q] = stored<kRound>(v + theta * div);
   }
   st4(su, ln.r, ln.c, o);
 }
 
 // The u-step of a thread's 4 pixels, in place; `tri` holds rho0, gx, gy.
+template <bool kRound, class A>
 __device__ __forceinline__ void u_step(float* __restrict__ sm, const float* __restrict__ tri,
-                                       const Args& a, const Lane& ln) {
+                                       const A& a, const Lane& ln) {
   const float* sf = sm + kStates * kArea;  // inv_g2, th
   float a1[kLaneCols], a2[kLaneCols], gx[kLaneCols], gy[kLaneCols], step[kLaneCols];
   {
@@ -274,15 +383,17 @@ __device__ __forceinline__ void u_step(float* __restrict__ sm, const float* __re
                               : -rho * ig2[q];
     }
   }
-  u_field(sm, sm + 2 * kArea, sm + 3 * kArea, ln, a.theta, a1, step, gx);
-  u_field(sm + kArea, sm + 4 * kArea, sm + 5 * kArea, ln, a.theta, a2, step, gy);
+  u_field<kRound>(sm, sm + 2 * kArea, sm + 3 * kArea, ln, a.theta, a1, step, gx);
+  u_field<kRound>(sm + kArea, sm + 4 * kArea, sm + 5 * kArea, ln, a.theta, a2, step, gy);
 }
 
 // The p-step of one field of a thread's 4 pixels, in place: p from the new u
 // at the pixel, right of it (from the lane beside for the last column) and
 // below it, and p at the pixel; the differences are zero at the image's last
 // column and row, where the clamped shift of the plain version gives a - a,
-// and px (py) is written as zero there (tvl1.py _mask_dual).
+// and px (py) is written as zero there (tvl1.py _mask_dual). kRound
+// (bfloat16): p rounded where it is stored.
+template <bool kRound>
 __device__ __forceinline__ void p_field(const float* __restrict__ su, float* __restrict__ spx,
                                         float* __restrict__ spy, const Lane& ln, bool rlast,
                                         float sigma) {
@@ -301,8 +412,8 @@ __device__ __forceinline__ void p_field(const float* __restrict__ su, float* __r
     const float nrm = 1.0f + sigma * sqrtf(dx * dx + dy * dy);
     const float qx = (x[q] + sigma * dx) / nrm;
     const float qy = (y[q] + sigma * dy) / nrm;
-    x[q] = clast ? 0.0f : qx;
-    y[q] = rlast ? 0.0f : qy;
+    x[q] = clast ? 0.0f : stored<kRound>(qx);
+    y[q] = rlast ? 0.0f : stored<kRound>(qy);
   }
   st4(spx, ln.r, ln.c, x);
   st4(spy, ln.r, ln.c, y);
@@ -323,8 +434,28 @@ __device__ __forceinline__ void store(float* __restrict__ dst, const float* src,
   }
 }
 
+// The bfloat16 build's store: the owned pixels rounded to bfloat16 (the
+// window holds values the u- and p-steps already rounded, so the conversion
+// is exact), 8 bytes at once with vec.
+__device__ __forceinline__ void store(__nv_bfloat16* __restrict__ dst, const float* src,
+                                      const ArgsBf16& a, const Tile& t, const Lane& ln,
+                                      unsigned own) {
+  float x[kLaneCols];
+  ld4(src, ln.r, ln.c, x);
+  const long long g = t.base + (long long)ln.ar * a.w + t.c0 + ln.c;
+  if (a.vec && own == 0xfu) {
+    __stcg(reinterpret_cast<uint2*>(dst + g),
+           make_uint2(bf16_round2(x[0], x[1]), bf16_round2(x[2], x[3])));
+  } else {
+#pragma unroll
+    for (int q = 0; q < kLaneCols; ++q)
+      if (own >> q & 1u) dst[g + q] = __float2bfloat16_rn(x[q]);
+  }
+}
+
 // A thread's place in tile t.
-__device__ __forceinline__ Lane lane_at(const Args& a, const Tile& t, int r, int c) {
+template <class A>
+__device__ __forceinline__ Lane lane_at(const A& a, const Tile& t, int r, int c) {
   Lane ln;
   ln.r = r;
   ln.c = c;
@@ -393,12 +524,12 @@ __global__ void __launch_bounds__(kThreads, 1) tvl1_kernel(const Args a) {
     const bool rlast = ln.ar == a.h - 1;
     for (int k = 1; k <= a.iters; ++k) {
       const bool final_p = k == a.iters && last_launch;
-      if (in_img && ln.r >= k && ln.r < kWinH - k + 1) u_step(smem, tri, a, ln);
+      if (in_img && ln.r >= k && ln.r < kWinH - k + 1) u_step<false>(smem, tri, a, ln);
       __syncthreads();
       if (final_p) break;
       if (in_img && ln.r >= k && ln.r < kWinH - k) {
-        p_field(smem, smem + 2 * kArea, smem + 3 * kArea, ln, rlast, a.sigma);
-        p_field(smem + kArea, smem + 4 * kArea, smem + 5 * kArea, ln, rlast, a.sigma);
+        p_field<false>(smem, smem + 2 * kArea, smem + 3 * kArea, ln, rlast, a.sigma);
+        p_field<false>(smem + kArea, smem + 4 * kArea, smem + 5 * kArea, ln, rlast, a.sigma);
       }
       __syncthreads();
     }
@@ -414,19 +545,106 @@ __global__ void __launch_bounds__(kThreads, 1) tvl1_kernel(const Args a) {
   }
 }
 
+// The bfloat16 build: tvl1_kernel's walk and alternations on the same
+// float32 window, the state rounded where the u- and p-steps store it.
+// rho0, gx and gy of the block's next tile land in a bfloat16 buffer in the
+// second slot's bytes (cp.async copies bytes and cannot widen) and are
+// widened into the one float32 slot when that tile starts, before the buffer
+// takes the tile after it; the other 8 arrays are widened as they are loaded.
+// Each thread widens and prefetches only its own pixels, so no barrier
+// stands between the two.
+__global__ void __launch_bounds__(kThreads, 1) tvl1_kernel_bf16(const ArgsBf16 a) {
+  extern __shared__ __align__(16) float smem[];
+  const Geometry geo = geometry(a.iters);
+  const int ntiles = a.b * a.tiles_x * a.tiles_y;
+  const bool last_launch = a.out[2] == nullptr;
+  const int r = threadIdx.x >> 5, c = (threadIdx.x & 31) * kLaneCols;
+  float* tri = smem + (kStates + 2) * kArea;
+  __nv_bfloat16* buf = reinterpret_cast<__nv_bfloat16*>(smem + kArrays * kArea);
+  if ((int)blockIdx.x < ntiles) {
+    const Tile t0 = tile_at(a, geo, blockIdx.x);
+    const Lane l0 = lane_at(a, t0, r, c);
+#pragma unroll
+    for (int k = 0; k < kPrefetched; ++k) prefetch(buf + k * kArea, a.f[k], a, t0, l0);
+    copy_commit();
+  }
+  for (int ti = blockIdx.x; ti < ntiles; ti += gridDim.x) {
+    const Tile tile = tile_at(a, geo, ti);
+    const Lane ln = lane_at(a, tile, r, c);
+    unsigned own = 0;  // columns of the owned tile, inside the image
+#pragma unroll
+    for (int q = 0; q < kLaneCols; ++q) {
+      const int ac = tile.c0 + c + q;
+      if (ac >= 0 && ac < a.w && c + q >= geo.lh && c + q < geo.lh + geo.tw) own |= 1u << q;
+    }
+    if (r < a.iters || r >= a.iters + geo.th || ln.ar >= a.h) own = 0;
+    copy_wait_all();
+#pragma unroll
+    for (int k = 0; k < kPrefetched; ++k) {
+      const uint2 x = *reinterpret_cast<const uint2*>(buf + k * kArea + r * kWinW + c);
+      *reinterpret_cast<float4*>(tri + k * kArea + r * kWinW + c) = bf16_widen4(x);
+    }
+    const int tn = ti + gridDim.x;
+    if (tn < ntiles) {
+      const Tile next = tile_at(a, geo, tn);
+      const Lane lnext = lane_at(a, next, r, c);
+#pragma unroll
+      for (int k = 0; k < kPrefetched; ++k) prefetch(buf + k * kArea, a.f[k], a, next, lnext);
+      copy_commit();
+    }
+#pragma unroll
+    for (int k = 0; k < kStates; ++k) stage(smem + k * kArea, a.in[k], a, tile, ln);
+    stage(smem + kStates * kArea, a.f[3], a, tile, ln);
+    stage(smem + (kStates + 1) * kArea, a.f[4], a, tile, ln);
+    __syncthreads();
+
+    const bool in_img = ln.ar >= 0 && ln.ar < a.h;
+    const bool rlast = ln.ar == a.h - 1;
+    for (int k = 1; k <= a.iters; ++k) {
+      const bool final_p = k == a.iters && last_launch;
+      if (in_img && ln.r >= k && ln.r < kWinH - k + 1) u_step<true>(smem, tri, a, ln);
+      __syncthreads();
+      if (final_p) break;
+      if (in_img && ln.r >= k && ln.r < kWinH - k) {
+        p_field<true>(smem, smem + 2 * kArea, smem + 3 * kArea, ln, rlast, a.sigma);
+        p_field<true>(smem + kArea, smem + 4 * kArea, smem + 5 * kArea, ln, rlast, a.sigma);
+      }
+      __syncthreads();
+    }
+    if (own) {
+      const int n_out = last_launch ? 2 : kStates;
+      for (int k = 0; k < n_out; ++k) store(a.out[k], smem + k * kArea, a, tile, ln, own);
+    }
+    __syncthreads();
+  }
+}
+
+// The kernel of a build: float32 (Args) or bfloat16 (ArgsBf16).
+template <class A>
+auto kernel_of() {
+  if constexpr (std::is_same<A, Args>::value) {
+    return tvl1_kernel;
+  } else {
+    return tvl1_kernel_bf16;
+  }
+}
+
+template <class A>
 cudaError_t configure(int device, int* grid_max) {
-  // Per device: opt into the shared memory above 48 KB, and the number of
-  // blocks that can be resident at once (the persistent grid).
+  // Per device and build: opt into the shared memory above 48 KB, and the
+  // number of blocks that can be resident at once (the persistent grid).
   static int cached[64];
   if (device >= 0 && device < 64 && cached[device] > 0) {
     *grid_max = cached[device];
     return cudaSuccess;
   }
-  cudaError_t err = cudaFuncSetAttribute(tvl1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(kernel_of<A>(),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kSmemBytes);
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tvl1_kernel, kThreads, kSmemBytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_of<A>(), kThreads,
+                                                      kSmemBytes);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
@@ -436,7 +654,11 @@ cudaError_t configure(int device, int* grid_max) {
   return cudaSuccess;
 }
 
-bool aligned(const void* p) { return ((unsigned long long)p & 15ull) == 0; }
+// The vector path's alignment: 16 bytes for float (float4), 8 for bfloat16
+// (a lane's 4 values).
+bool aligned(const void* p, unsigned long long bytes) {
+  return ((unsigned long long)p & (bytes - 1)) == 0;
+}
 
 long long tiles_of(int b, int h, int w, int s) {
   const Geometry g = geometry(s);
@@ -463,18 +685,16 @@ int plan(int b, int h, int w, int iters, int block_iters, int grid_max) {
   return best;
 }
 
-}  // namespace
-
-// `iters` alternations as ceil(iters/s) launches (s from `plan`). Each of
-// u1, u2, p1x, p1y, p2x, p2y holds two slots of b*h*w floats: u1 and u2
-// start in slot 0, the duals start at zero (their slot 0 is never read),
-// and the result is in slot (launches mod 2) of u1 and u2. *launches gets
-// the number of launches enqueued, also when one of them fails.
-extern "C" int hs_tvl1_inner(float* u1, float* u2, const float* rho0, const float* gx,
-                             const float* gy, const float* inv_g2, const float* th,
-                             float* p1x, float* p1y, float* p2x, float* p2y, int b, int h,
-                             int w, int iters, float theta, float sigma, float lam_theta,
-                             int block_iters, int device, void* stream, int* launches) {
+// `iters` alternations as ceil(iters/s) launches of A's build (s from
+// `plan`): hs_tvl1_inner's body for either storage type.
+template <class A>
+int inner(typename A::Elem* u1, typename A::Elem* u2, const typename A::Elem* rho0,
+          const typename A::Elem* gx, const typename A::Elem* gy,
+          const typename A::Elem* inv_g2, const typename A::Elem* th, typename A::Elem* p1x,
+          typename A::Elem* p1y, typename A::Elem* p2x, typename A::Elem* p2y, int b, int h,
+          int w, int iters, float theta, float sigma, float lam_theta, int block_iters,
+          int device, void* stream, int* launches) {
+  using E = typename A::Elem;
   *launches = 0;
   if (b < 1 || b > kMaxBatch || h < 1 || w < 1 || iters < 1 || block_iters < 0 ||
       block_iters > kMaxIters)
@@ -482,12 +702,12 @@ extern "C" int hs_tvl1_inner(float* u1, float* u2, const float* rho0, const floa
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int grid_max = 0;
-  err = configure(device, &grid_max);
+  err = configure<A>(device, &grid_max);
   if (err != cudaSuccess) return (int)err;
   const int s = plan(b, h, w, iters, block_iters, grid_max);
   const long long n = (long long)b * h * w;
-  float* state[kStates] = {u1, u2, p1x, p1y, p2x, p2y};
-  Args a;
+  E* state[kStates] = {u1, u2, p1x, p1y, p2x, p2y};
+  A a;
   a.f[0] = rho0;
   a.f[1] = gx;
   a.f[2] = gy;
@@ -499,9 +719,10 @@ extern "C" int hs_tvl1_inner(float* u1, float* u2, const float* rho0, const floa
   a.theta = theta;
   a.sigma = sigma;
   a.lam_theta = lam_theta;
+  const unsigned long long bytes = kLaneCols * sizeof(E);
   bool al = w % 4 == 0;
-  for (int k = 0; k < kStates; ++k) al = al && aligned(state[k]);
-  for (int k = 0; k < kFields; ++k) al = al && aligned(a.f[k]);
+  for (int k = 0; k < kStates; ++k) al = al && aligned(state[k], bytes);
+  for (int k = 0; k < kFields; ++k) al = al && aligned(a.f[k], bytes);
   a.vec = al;
   cudaStream_t st = (cudaStream_t)stream;
   int slot = 0;
@@ -519,7 +740,8 @@ extern "C" int hs_tvl1_inner(float* u1, float* u2, const float* rho0, const floa
     const long long tiles = (long long)b * a.tiles_x * a.tiles_y;
     if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     const int grid = (int)(tiles < grid_max ? tiles : grid_max);
-    tvl1_kernel<<<grid, kThreads, kSmemBytes, st>>>(a);
+    const auto kernel = kernel_of<A>();
+    kernel<<<grid, kThreads, kSmemBytes, st>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     ++*launches;
@@ -528,24 +750,20 @@ extern "C" int hs_tvl1_inner(float* u1, float* u2, const float* rho0, const floa
   return (int)cudaSuccess;
 }
 
-// K5's plan and geometry for a call of `iters` alternations at (b, h, w)
-// with block_iters on `device`, into out[0..10]: alternations a launch,
-// launches, window rows, tile rows, tile columns, threads a block, shared
-// bytes a block, registers a thread, local (spilled) bytes a thread, blocks
-// resident on one multiprocessor, and the tiles of one launch of s.
-extern "C" int hs_tvl1_geometry(int b, int h, int w, int iters, int block_iters, int device,
-                                int* out) {
+// K5's plan and geometry of A's build, as hs_tvl1_geometry reports them.
+template <class A>
+int geometry_of(int b, int h, int w, int iters, int block_iters, int device, int* out) {
   if (b < 1 || h < 1 || w < 1 || iters < 1 || block_iters < 0 || block_iters > kMaxIters)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int grid_max = 0, sms = 0;
-  err = configure(device, &grid_max);
+  err = configure<A>(device, &grid_max);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, tvl1_kernel);
+  err = cudaFuncGetAttributes(&attr, kernel_of<A>());
   if (err != cudaSuccess) return (int)err;
   const int s = plan(b, h, w, iters, block_iters, grid_max);
   const Geometry g = geometry(s);
@@ -561,4 +779,50 @@ extern "C" int hs_tvl1_geometry(int b, int h, int w, int iters, int block_iters,
   out[9] = grid_max / sms;
   out[10] = (int)tiles_of(b, h, w, s);
   return (int)cudaSuccess;
+}
+
+}  // namespace
+
+// `iters` alternations as ceil(iters/s) launches (s from `plan`). Each of
+// u1, u2, p1x, p1y, p2x, p2y holds two slots of b*h*w floats: u1 and u2
+// start in slot 0, the duals start at zero (their slot 0 is never read),
+// and the result is in slot (launches mod 2) of u1 and u2. *launches gets
+// the number of launches enqueued, also when one of them fails.
+extern "C" int hs_tvl1_inner(float* u1, float* u2, const float* rho0, const float* gx,
+                             const float* gy, const float* inv_g2, const float* th,
+                             float* p1x, float* p1y, float* p2x, float* p2y, int b, int h,
+                             int w, int iters, float theta, float sigma, float lam_theta,
+                             int block_iters, int device, void* stream, int* launches) {
+  return inner<Args>(u1, u2, rho0, gx, gy, inv_g2, th, p1x, p1y, p2x, p2y, b, h, w, iters,
+                     theta, sigma, lam_theta, block_iters, device, stream, launches);
+}
+
+// The bfloat16 build: hs_tvl1_inner on bfloat16 arrays (two slots of
+// b*h*w bfloat16 values each), the same plan and launches.
+extern "C" int hs_tvl1_inner_bf16(__nv_bfloat16* u1, __nv_bfloat16* u2,
+                                  const __nv_bfloat16* rho0, const __nv_bfloat16* gx,
+                                  const __nv_bfloat16* gy, const __nv_bfloat16* inv_g2,
+                                  const __nv_bfloat16* th, __nv_bfloat16* p1x,
+                                  __nv_bfloat16* p1y, __nv_bfloat16* p2x, __nv_bfloat16* p2y,
+                                  int b, int h, int w, int iters, float theta, float sigma,
+                                  float lam_theta, int block_iters, int device, void* stream,
+                                  int* launches) {
+  return inner<ArgsBf16>(u1, u2, rho0, gx, gy, inv_g2, th, p1x, p1y, p2x, p2y, b, h, w, iters,
+                         theta, sigma, lam_theta, block_iters, device, stream, launches);
+}
+
+// K5's plan and geometry for a call of `iters` alternations at (b, h, w)
+// with block_iters on `device`, into out[0..10]: alternations a launch,
+// launches, window rows, tile rows, tile columns, threads a block, shared
+// bytes a block, registers a thread, local (spilled) bytes a thread, blocks
+// resident on one multiprocessor, and the tiles of one launch of s.
+extern "C" int hs_tvl1_geometry(int b, int h, int w, int iters, int block_iters, int device,
+                                int* out) {
+  return geometry_of<Args>(b, h, w, iters, block_iters, device, out);
+}
+
+// The same of the bfloat16 build.
+extern "C" int hs_tvl1_geometry_bf16(int b, int h, int w, int iters, int block_iters,
+                                     int device, int* out) {
+  return geometry_of<ArgsBf16>(b, h, w, iters, block_iters, device, out);
 }

@@ -329,7 +329,7 @@ def hs_solve_tiled(
             "cfg.tol early stopping needs the ppermute halo path (the "
             "fused rdma kernel bakes a fixed sweep schedule)"
         )
-    check_supported(cfg, tiled=True)
+    check_supported(cfg)
     i1, i2 = _as_tensor(i1), _as_tensor(i2)
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs {tuple(i2.shape)}")

@@ -48,8 +48,8 @@ def derivatives_plain(i1: torch.Tensor, i2: torch.Tensor, alpha: float,
 
 
 # The storage types of the kernels with a bfloat16 build (K1, K2, K3, K4's
-# freeze and sweeps, K6, K7, K8 and the K1 + K2, K1 + K3 and K1 + K4
-# drivers); every other kernel (K5, K9-K12) takes float32 only.
+# freeze and sweeps, K5, K6, K7, K8 and the K1 + K2, K1 + K3 and K1 + K4
+# drivers); K9-K12 take float32 only.
 BF16_DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -17,6 +17,13 @@ plain torch.
 version, `tvl1_inner_plain`, for CPU tensors. There is no fallback: a CUDA
 tensor goes through the kernel or the call raises. Unlike the TPU kernel,
 which returns None outside its VMEM class, K5 takes every size and stacks.
+
+bfloat16 (`hs_tvl1_inner_bf16`): every array bfloat16, the arithmetic
+float32 (ops/stencils.py `store`). The u-step rounds u1 and u2 where it
+stores them, the p-step the four duals; rho, the step, v, the differences
+and the norms are float32 temporaries. The kernel keeps its float32 window,
+geometry, plan and launches and widens each array where it stages it, so
+it equals `tvl1_inner_plain` bitwise in bfloat16 too.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import functools
 import torch
 
 from opticalflowhs_tpu_torch.kernels import _build, autodiff
-from opticalflowhs_tpu_torch.kernels.derivatives import batch_dims, check_frames
+from opticalflowhs_tpu_torch.kernels.derivatives import BF16_DTYPES, batch_dims, check_frames
 from opticalflowhs_tpu_torch.kernels.jacobi import k2_tile
 from opticalflowhs_tpu_torch.ops import stencils
 
@@ -69,12 +76,16 @@ def tvl1_inner_plain(u1, u2, rho0, gx, gy, inv_g2, th, iters: int,
     u = v + theta*div p and the projected dual ascent
     p <- (p + sigma*grad u) / (1 + sigma*|grad u|), from zero duals.
     The alternations run through `stencils.checkpointed_loop`, as the
-    reference's twin (`_jnp_twin`). Returns (u1, u2)."""
+    reference's twin (`_jnp_twin`). Returns (u1, u2).
+
+    bfloat16 arrays follow the storage rule (`stencils.store`): the u-step
+    rounds u1 and u2 where it stores them, the p-step the four duals (the
+    masked zeros are exact); rho, the step, v, the gradients and the norms
+    are float32 temporaries."""
     # tvl1 routes to this module, so its operators are imported here.
     from opticalflowhs_tpu_torch.tvl1 import _mask_dual, _safe_norm, divergence, grad_forward
 
-    def body(state):
-        u1, u2, p1x, p1y, p2x, p2y = state
+    def u_step(u1, u2, p1x, p1y, p2x, p2y, rho0, gx, gy, inv_g2, th):
         rho = rho0 + u1 * gx + u2 * gy
         step = torch.where(
             rho < -th,
@@ -83,15 +94,20 @@ def tvl1_inner_plain(u1, u2, rho0, gx, gy, inv_g2, th, iters: int,
         )
         v1 = u1 + step * gx
         v2 = u2 + step * gy
-        u1 = v1 + theta * divergence(p1x, p1y)
-        u2 = v2 + theta * divergence(p2x, p2y)
+        return v1 + theta * divergence(p1x, p1y), v2 + theta * divergence(p2x, p2y)
+
+    def p_step(p1x, p1y, p2x, p2y, u1, u2):
         d1x, d1y = grad_forward(u1)
         d2x, d2y = grad_forward(u2)
         n1 = 1.0 + sigma * _safe_norm(d1x, d1y)
         n2 = 1.0 + sigma * _safe_norm(d2x, d2y)
-        p1x, p1y = _mask_dual((p1x + sigma * d1x) / n1, (p1y + sigma * d1y) / n1)
-        p2x, p2y = _mask_dual((p2x + sigma * d2x) / n2, (p2y + sigma * d2y) / n2)
-        return u1, u2, p1x, p1y, p2x, p2y
+        return (_mask_dual((p1x + sigma * d1x) / n1, (p1y + sigma * d1y) / n1)
+                + _mask_dual((p2x + sigma * d2x) / n2, (p2y + sigma * d2y) / n2))
+
+    def body(state):
+        u1, u2, p1x, p1y, p2x, p2y = state
+        u1, u2 = stencils.store(u_step, u1, u2, p1x, p1y, p2x, p2y, rho0, gx, gy, inv_g2, th)
+        return (u1, u2) + stencils.store(p_step, p1x, p1y, p2x, p2y, u1, u2)
 
     z = torch.zeros_like(u1)
     state = stencils.checkpointed_loop(body, (u1, u2, z, z, z, z), iters)
@@ -115,7 +131,12 @@ def k5_launch_schedule_plain(u1, u2, duals, rho0, gx, gy, inv_g2, th, iters: int
     first one as its right), the row neighbours from inside the window (its
     first and last rows their own). With `last` (the call's last launch)
     the final p-step is skipped and only u is written. Only the owned tile
-    is written, into arrays that are NaN elsewhere. Returns (u1, u2, duals), duals None with `last`."""
+    is written, into arrays that are NaN elsewhere. Returns (u1, u2, duals), duals None with `last`.
+
+    bfloat16 arrays are staged as the kernel's bfloat16 build stages them:
+    widened into float32 windows, where the u-step rounds u1 and u2 and the
+    p-step the duals in place (halo cells too), and the owned tile is
+    written back in bfloat16."""
     # tvl1 routes to this module, so its operators are imported here.
     from opticalflowhs_tpu_torch.tvl1 import _safe_norm
 
@@ -134,6 +155,12 @@ def k5_launch_schedule_plain(u1, u2, duals, rho0, gx, gy, inv_g2, th, iters: int
     if t_h < 1 or t_w < lane_cols or ww % lane_cols:
         raise ValueError(f"no K5 tile of {iters} alternations in a {wh} x {ww} window")
     nan = float("nan")
+    bf16 = us[0].dtype == torch.bfloat16
+    win_dtype = torch.float32 if bf16 else us[0].dtype
+
+    def stored(x):
+        return x.to(torch.bfloat16).float() if bf16 else x
+
     outs = [torch.full_like(us[0], nan) for _ in range(2 if last else 6)]
     rows_w, cols_w = torch.arange(wh), torch.arange(ww)
     up = (rows_w - 1).clamp(min=0)
@@ -152,8 +179,8 @@ def k5_launch_schedule_plain(u1, u2, duals, rho0, gx, gy, inv_g2, th, iters: int
                        slice(int(ac[cs[0]]), int(ac[cs[-1]]) + 1))
 
                 def stage(a):
-                    win = torch.full((wh, ww), nan, dtype=us[0].dtype)
-                    win[inside] = 0.0 if a is None else a[src]
+                    win = torch.full((wh, ww), nan, dtype=win_dtype)
+                    win[inside] = 0.0 if a is None else a[src].to(win_dtype)
                     return win
 
                 s1, s2 = (stage(a) for a in us)
@@ -178,8 +205,8 @@ def k5_launch_schedule_plain(u1, u2, duals, rho0, gx, gy, inv_g2, th, iters: int
                             qx = torch.where(cfirst, 0.0, px[r][:, left])
                             qy = torch.where(rfirst[r], 0.0, py[up[r]])
                             divs.append((px[r] - qx) + (py[r] - qy))
-                        s1[r] = v1 + theta * divs[0]
-                        s2[r] = v2 + theta * divs[1]
+                        s1[r] = stored(v1 + theta * divs[0])
+                        s2[r] = stored(v2 + theta * divs[1])
                     if last and k == iters:
                         break
                     lo, hi = max(k, wr_lo), min(wh - k, wr_hi)
@@ -192,8 +219,8 @@ def k5_launch_schedule_plain(u1, u2, duals, rho0, gx, gy, inv_g2, th, iters: int
                             n = 1.0 + sigma * _safe_norm(dx, dy)
                             qx = (px[r] + sigma * dx) / n
                             qy = (py[r] + sigma * dy) / n
-                            px[r] = torch.where(clast, 0.0, qx)
-                            py[r] = torch.where(rlast[r], 0.0, qy)
+                            px[r] = torch.where(clast, 0.0, stored(qx))
+                            py[r] = torch.where(rlast[r], 0.0, stored(qy))
                 # Write the owned tile.
                 rt = torch.arange(iters, iters + t_h)
                 rt = rt[rin[rt]]
@@ -204,7 +231,7 @@ def k5_launch_schedule_plain(u1, u2, duals, rho0, gx, gy, inv_g2, th, iters: int
                            slice(int(ac[ct[0]]), int(ac[ct[-1]]) + 1))
                     wsl = (slice(int(rt[0]), int(rt[-1]) + 1), slice(int(ct[0]), int(ct[-1]) + 1))
                     for o, x in zip(outs, (s1, s2, p1x, p1y, p2x, p2y)):
-                        o[dst] = x[wsl]
+                        o[dst] = x[wsl].to(o.dtype)
     outs = [o[0] for o in outs] if single else outs
     return outs[0], outs[1], (None if last else tuple(outs[2:]))
 
@@ -224,24 +251,28 @@ def k5_iters_schedule_plain(u1, u2, rho0, gx, gy, inv_g2, th, iters: int, s: int
     return u1, u2
 
 
-def k5_geometry(device, block_iters: int = 0, shape=(1088, 1920), iters: int = 100) -> dict:
+def k5_geometry(device, block_iters: int = 0, shape=(1088, 1920), iters: int = 100,
+                dtype=torch.float32) -> dict:
     """K5's plan and geometry for a call of `iters` alternations on an
     (H, W) or (B, H, W) `shape` at block_iters on a CUDA device, as the
-    built kernel reports it: alternations a launch and launches, window
-    rows, tile, threads, shared bytes, registers a thread and spilled bytes
-    (cudaFuncGetAttributes), resident blocks a multiprocessor and the tiles
-    of one launch."""
+    built kernel of `dtype` (float32 or bfloat16) reports it: alternations a
+    launch and launches, window rows, tile, threads, shared bytes,
+    registers a thread and spilled bytes (cudaFuncGetAttributes), resident
+    blocks a multiprocessor and the tiles of one launch."""
     _check_block_iters(block_iters)
     b, h, w = (1,) * (3 - len(shape)) + tuple(shape)
-    return dict(_geometry(torch.device(device).index or 0, b, h, w, iters, block_iters))
+    return dict(_geometry(torch.device(device).index or 0, b, h, w, iters, block_iters,
+                          _build.bf16_suffix(dtype)))
 
 
 @functools.lru_cache(maxsize=256)
-def _geometry(index: int, b: int, h: int, w: int, iters: int, block_iters: int) -> tuple:
+def _geometry(index: int, b: int, h: int, w: int, iters: int, block_iters: int,
+              suffix: str = "") -> tuple:
     out = (ctypes.c_int * 11)()
-    err = _build.library().hs_tvl1_geometry(
+    name = "hs_tvl1_geometry" + suffix
+    err = getattr(_build.library(), name)(
         b, h, w, iters, block_iters, index, ctypes.cast(out, ctypes.POINTER(ctypes.c_int)))
-    _build.check(err, "hs_tvl1_geometry")
+    _build.check(err, name)
     keys = ("iters_per_launch", "launches", "window_h", "tile_h", "tile_w", "threads",
             "smem_bytes", "registers", "spill_bytes", "blocks_per_sm", "tiles")
     return tuple(zip(keys, list(out)))
@@ -255,15 +286,16 @@ def tvl1_inner(u1, u2, rho0, gx, gy, inv_g2, th, iters: int, theta: float,
     stream, on CPU tensors `tvl1_inner_plain` runs. The state ping-pongs between two slots
     of buffers of its own, so the caller's tensors are not modified. theta,
     sigma and lam_theta reach the kernel as the float32 values torch rounds
-    them to. Returns (u1, u2). Differentiable with respect to all seven
-    tensors (`autodiff`: the VJP of `tvl1_inner_plain`, as the reference's
-    `_inner_ad`)."""
+    them to. float32 or bfloat16 arrays (one dtype: the bfloat16 build,
+    `hs_tvl1_inner_bf16`, for bfloat16). Returns (u1, u2). Differentiable
+    with respect to all seven tensors (`autodiff`: the VJP of
+    `tvl1_inner_plain`, as the reference's `_inner_ad`)."""
     if autodiff.needs_grad(u1, u2, rho0, gx, gy, inv_g2, th):
         return autodiff.KernelEntry.apply(
             lambda *t: tvl1_inner(*t, iters, theta, sigma, lam_theta, block_iters),
             lambda *t: tvl1_inner_plain(*t, iters, theta, sigma, lam_theta),
             u1, u2, rho0, gx, gy, inv_g2, th)
-    check_frames("tvl1_inner", u1, u2, rho0, gx, gy, inv_g2, th)
+    check_frames("tvl1_inner", u1, u2, rho0, gx, gy, inv_g2, th, dtypes=BF16_DTYPES)
     if iters < 0:
         raise ValueError(f"tvl1_inner: iters must be >= 0, got {iters}")
     _check_block_iters(block_iters)
@@ -280,7 +312,8 @@ def tvl1_inner(u1, u2, rho0, gx, gy, inv_g2, th, iters: int, theta: float,
     state[0][0].copy_(u1)
     state[1][0].copy_(u2)
     launches = ctypes.c_int(0)
-    err = _build.library().hs_tvl1_inner(
+    name = "hs_tvl1_inner" + _build.bf16_suffix(u1.dtype)
+    err = getattr(_build.library(), name)(
         state[0].data_ptr(), state[1].data_ptr(), rho0.data_ptr(), gx.data_ptr(),
         gy.data_ptr(), inv_g2.data_ptr(), th.data_ptr(),
         *(p.data_ptr() for p in state[2:]), b, h, w, iters, float(theta),
@@ -288,10 +321,10 @@ def tvl1_inner(u1, u2, rho0, gx, gy, inv_g2, th, iters: int, theta: float,
         torch.cuda.current_stream(u1.device).cuda_stream, ctypes.byref(launches),
     )
     tvl1_inner.launches += launches.value
-    _build.check(err, "hs_tvl1_inner")
+    _build.check(err, name)
     return state[0][launches.value % 2], state[1][launches.value % 2]
 
 
-# Every K5 kernel launch, single frame or batched, as the C call reports
-# what it enqueued: ceil(iters/s) a call.
+# Every K5 kernel launch, single frame or batched, float32 or bfloat16, as
+# the C call reports what it enqueued: ceil(iters/s) a call.
 tvl1_inner.launches = 0

@@ -15,6 +15,13 @@ differentiable by torch on both. The window sums are zero-padded shifted
 adds in window order, which reproduce the reference's SAME `reduce_window`
 sums exactly; a prefix-sum difference would round differently, and a
 convolution may run in TF32 on the card.
+
+bfloat16 (LKConfig.dtype): the frames are cast first, and each stored
+array is formed in float32 from the widened arrays and rounded once
+(`stencils.store`): the pyramid's levels, the upsampled flows, the warped
+frame, the gradients Ex, Ey and Et, each window sum (`box_sum`, the five
+products being float32 temporaries), the flow after each refinement and
+after each blur. The 2x2 solve is float32 arithmetic.
 """
 
 from __future__ import annotations
@@ -27,13 +34,18 @@ import torch.nn.functional as F
 from opticalflowhs_tpu_torch.config import LKConfig, PyramidConfig
 from opticalflowhs_tpu_torch.ops import stencils
 from opticalflowhs_tpu_torch.pyramid import _B5, gaussian_pyramid, upsample_flow, warp_each
-from opticalflowhs_tpu_torch.solver import Flow, as_frame
+from opticalflowhs_tpu_torch.solver import Flow, as_frame, storage_dtype
 
 _SINGLE_PYR = PyramidConfig(levels=1, iters_per_level=())
 
 
 def _blur5(a: torch.Tensor) -> torch.Tensor:
-    """Separable 5-tap binomial blur (the pyramid's kernel, no subsample)."""
+    """Separable 5-tap binomial blur (the pyramid's kernel, no subsample);
+    a bfloat16 result rounded once."""
+    return stencils.store(_blur5_f, a)
+
+
+def _blur5_f(a: torch.Tensor) -> torch.Tensor:
     r1, r3 = stencils.shift_down_row(a), stencils.shift_up_row(a)
     r2, r4 = stencils.shift_down_row(r1), stencils.shift_up_row(r3)
     a = _B5[2] * a + _B5[1] * (r1 + r3) + _B5[0] * (r2 + r4)
@@ -47,7 +59,12 @@ def box_sum(a: torch.Tensor, window: int) -> torch.Tensor:
     extent: the sums shrink over the available support at the borders.
     Rows first, then columns; each is a sum from 0.0 of the zero-padded
     input's `window` shifted views in window order, the reference's
-    `lax.reduce_window` sums bitwise."""
+    `lax.reduce_window` sums bitwise. A bfloat16 input is widened and the
+    sum (rows, then columns, in float32) rounded once."""
+    return stencils.store(lambda x: _box_sum(x, window), a)
+
+
+def _box_sum(a: torch.Tensor, window: int) -> torch.Tensor:
     lo, hi = (window - 1) // 2, window // 2
     for dim, pad in ((-2, (0, 0, lo, hi)), (-1, (lo, hi))):
         n = a.shape[dim]
@@ -69,23 +86,33 @@ def lk_refine(i1: torch.Tensor, i2: torch.Tensor, u: torch.Tensor, v: torch.Tens
     with G = sum_w [Ex^2, ExEy; ExEy, Ey^2] (+ eps on the diagonal) and
     b = sum_w [Ex*Et, Ey*Et]. The five window sums run as one box sum of
     the five products stacked, the same additions as five box sums.
+
+    In bfloat16 the warped frame, Ex, Ey, Et and the five sums are each
+    rounded once where stored, the products and the 2x2 solve are float32,
+    and the refined flow is rounded once.
     """
     i2w = warp_each(i2, u, v, cfg.warp, warp_radius)
-    ex, ey, et = stencils.derivatives(i1, i2w, "central")
-    sums = box_sum(torch.stack([ex * ex, ex * ey, ey * ey, ex * et, ey * et]), cfg.window)
-    g11 = sums[0] + cfg.eps
-    g12 = sums[1]
-    g22 = sums[2] + cfg.eps
-    b1, b2 = sums[3], sums[4]
-    inv_det = 1.0 / (g11 * g22 - g12 * g12)
-    du = (g12 * b2 - g22 * b1) * inv_det
-    dv = (g12 * b1 - g11 * b2) * inv_det
-    if cfg.max_step > 0:
-        # Textureless windows leave the regularised system near-singular:
-        # one refinement may move no farther than its linearisation holds.
-        du = torch.clamp(du, -cfg.max_step, cfg.max_step)
-        dv = torch.clamp(dv, -cfg.max_step, cfg.max_step)
-    return u + du, v + dv
+    ex, ey, et = stencils.store(lambda a, b: stencils.derivatives(a, b, "central"), i1, i2w)
+    sums = stencils.store(
+        lambda ex, ey, et: _box_sum(torch.stack([ex * ex, ex * ey, ey * ey, ex * et, ey * et]),
+                                    cfg.window), ex, ey, et)
+
+    def solve(u, v, sums):
+        g11 = sums[0] + cfg.eps
+        g12 = sums[1]
+        g22 = sums[2] + cfg.eps
+        b1, b2 = sums[3], sums[4]
+        inv_det = 1.0 / (g11 * g22 - g12 * g12)
+        du = (g12 * b2 - g22 * b1) * inv_det
+        dv = (g12 * b1 - g11 * b2) * inv_det
+        if cfg.max_step > 0:
+            # Textureless windows leave the regularised system near-singular:
+            # one refinement may move no farther than its linearisation holds.
+            du = torch.clamp(du, -cfg.max_step, cfg.max_step)
+            dv = torch.clamp(dv, -cfg.max_step, cfg.max_step)
+        return u + du, v + dv
+
+    return stencils.store(solve, u, v, sums)
 
 
 def _lk_level(i1, i2, u, v, cfg: LKConfig, iters: int, warp_radius: int = 0):
@@ -117,16 +144,6 @@ def _lk_pyramid_body(i1: torch.Tensor, i2: torch.Tensor, cfg: LKConfig,
     return flow
 
 
-def _check_dtype(cfg: LKConfig) -> None:
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r} is not ported yet for this family "
-            "(ROADMAP.md queue 1, item 5: bf16 runs for HSConfig(solver="
-            "'jacobi', 'sor' or 'robust') untiled; TV-L1, multigrid, LK and "
-            "dist/ are still to port); only float32 runs"
-        )
-
-
 def lk_solve(
     i1,
     i2,
@@ -140,7 +157,8 @@ def lk_solve(
     reach displacements beyond the window's radius, every level refining
     the same flow (no residual to add). Frames are (H, W) tensors, solved
     on their device, or numpy arrays, which go to `device` (cuda:0 when
-    None; RuntimeError without CUDA). Differentiable on either device."""
+    None; RuntimeError without CUDA); both are cast to the config's dtype
+    there, and the flow has it. Differentiable on either device."""
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs {tuple(i2.shape)}")
     if i1.ndim != 2:
@@ -153,9 +171,8 @@ def lk_solve(
         raise ValueError(
             f"{pyr.levels} levels would shrink a {tuple(i1.shape[-2:])} frame below 8 px"
         )
-    _check_dtype(cfg)
-    i1 = as_frame(i1, device)
-    return _lk_pyramid_body(i1, as_frame(i2, i1.device), cfg, pyr)
+    i1 = as_frame(i1, device, storage_dtype(cfg))
+    return _lk_pyramid_body(i1, as_frame(i2, i1.device, i1.dtype), cfg, pyr)
 
 
 def lk_solve_batched(
@@ -180,15 +197,20 @@ def lk_solve_batched(
         )
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs {tuple(i2.shape)}")
-    _check_dtype(cfg)
-    i1 = as_frame(i1, device)
-    return _lk_pyramid_body(i1, as_frame(i2, i1.device), cfg, pyr)
+    i1 = as_frame(i1, device, storage_dtype(cfg))
+    return _lk_pyramid_body(i1, as_frame(i2, i1.device, i1.dtype), cfg, pyr)
 
 
 def lk_solve_tiled(i1, i2, cfg: LKConfig = LKConfig(),
                    pyr: PyramidConfig = _SINGLE_PYR, mesh=None):
     """Spatially tiled LK over a device mesh: comes with the rest of
-    dist/."""
+    dist/ (and in bfloat16 with item 5's dist/ part)."""
+    if getattr(cfg, "dtype", None) == "bfloat16":
+        raise NotImplementedError(
+            "lk_solve_tiled in bfloat16 is not ported yet: bfloat16 on dist/ "
+            "and the tiled entries is ROADMAP.md queue 1, item 5's last part "
+            "(the rest of dist/ is item 6)"
+        )
     raise NotImplementedError(
         "lk_solve_tiled shards a frame over devices and is not ported yet: "
         "it comes with the rest of dist/ (ROADMAP.md queue 1, item 6)"

@@ -23,6 +23,17 @@ cuda backend only the derivatives (K1) run as a kernel. Every op acts on
 the last two axes, so a (B, H, W) stack is solved in one pass and equals a
 loop of single solves. Gradients pass through K1's entry
 (kernels/autodiff.py) and the plain cycles, which torch tapes whole.
+
+bfloat16 (HSConfig.dtype): the storage rule of the package docstring
+(`stencils.store`). The hierarchy is formed in float32 from K1's rounded
+Ex and Ey (each coarser level from the rounded finer one), and each
+level's exx, exy, eyy and idet are rounded once. The right-hand side,
+residuals, restricted residuals and prolonged corrections are rounded
+once where stored, and so is each corrected flow. A smoother sweep runs
+its four color stages in float32, each reading the earlier stages'
+float32 values, and rounds u and v once, at the sweep's end, as an SOR
+sweep does. a2 = alpha^2 stays a Python float, which torch rounds to
+float32 where it meets a tensor, in both dtypes.
 """
 
 from __future__ import annotations
@@ -54,9 +65,11 @@ def residual(u, v, gu, gv, exx, exy, eyy, a2):
 def gs_general(u, v, gu, gv, lvl, n: int):
     """n sweeps of general-RHS 4-color Gauss-Seidel on L x = g: per color,
     the per-pixel 2x2 system (alpha^2 I + M) x = alpha^2 nbar + g solved
-    exactly through the closed-form inverse (idet precomputed)."""
+    exactly through the closed-form inverse (idet precomputed). bfloat16:
+    u and v rounded once a sweep, at its end."""
     exx, exy, eyy, a2, idet, colors = lvl
-    for _ in range(n):
+
+    def sweep(u, v, gu, gv, exx, exy, eyy, idet):
         for cm in colors:
             mu = a2 * stencils.neighbor_avg(u) + gu
             mv = a2 * stencils.neighbor_avg(v) + gv
@@ -64,6 +77,10 @@ def gs_general(u, v, gu, gv, lvl, n: int):
             xv = ((a2 + exx) * mv - exy * mu) * idet
             u = torch.where(cm, xu, u)
             v = torch.where(cm, xv, v)
+        return u, v
+
+    for _ in range(n):
+        u, v = stencils.store(sweep, u, v, gu, gv, exx, exy, eyy, idet)
     return u, v
 
 
@@ -71,7 +88,12 @@ def restrict(a):
     """Full-weighting restriction: [1,2,1]x[1,2,1]/16, then a 2x subsample,
     with clamped edges. Each separable pass subsamples its own axis right
     away, as the reference does; that equals filter-then-[::2, ::2]
-    bitwise, since the passes are independent."""
+    bitwise, since the passes are independent. A bfloat16 result is
+    rounded once."""
+    return stencils.store(_restrict, a)
+
+
+def _restrict(a):
     t = stencils.shift_down_row(a) + 2.0 * a + stencils.shift_up_row(a)
     t = t[..., ::2, :]
     s = stencils.shift_right_col(t) + 2.0 * t + stencils.shift_left_col(t)
@@ -81,7 +103,11 @@ def restrict(a):
 def prolong(a, h: int, w: int):
     """Bilinear prolongation to (h, w): coarse points land on even fine
     indices, odd indices average their neighbours (clamped at the far
-    edge)."""
+    edge). A bfloat16 result is rounded once."""
+    return stencils.store(lambda x: _prolong(x, h, w), a)
+
+
+def _prolong(a, h: int, w: int):
     hc, wc = a.shape[-2:]
     rows = torch.stack([a, 0.5 * (a + stencils.shift_up_row(a))], dim=-2)
     rows = rows.reshape(*a.shape[:-2], 2 * hc, wc)[..., :h, :]
@@ -91,23 +117,34 @@ def prolong(a, h: int, w: int):
 
 def _level(exx, exy, eyy, a2):
     h, w = exx.shape[-2:]
-    det = (a2 + exx) * (a2 + eyy) - exy * exy  # >= a2^2 > 0 (M is SPD)
-    return (exx, exy, eyy, a2, 1.0 / det,
+
+    def idet(exx, exy, eyy):
+        det = (a2 + exx) * (a2 + eyy) - exy * exy  # >= a2^2 > 0 (M is SPD)
+        return 1.0 / det
+
+    return (exx, exy, eyy, a2, stencils.store(idet, exx, exy, eyy),
             stencils.color_masks(h, w, device=exx.device))
 
 
 def _build_levels(ex, ey, alpha: float):
     """The coefficient hierarchy, coarsened until MIN_SIDE. The data
-    products are restricted and scaled by 4 a level."""
+    products are restricted and scaled by 4 a level. bfloat16: each
+    level's products, scaled restrictions and idet rounded once."""
     a2 = alpha * alpha
-    exx, exy, eyy = ex * ex, ex * ey, ey * ey
+    exx, exy, eyy = stencils.store(lambda x, y: (x * x, x * y, y * y), ex, ey)
     levels = [_level(exx, exy, eyy, a2)]
     while True:
         h, w = exx.shape[-2:]
         if min(h, w) <= 2 * MIN_SIDE or min(h, w) <= 3:
             return levels
-        exx, exy, eyy = (4.0 * restrict(c) for c in (exx, exy, eyy))
+        exx, exy, eyy = (_scaled_restrict(c) for c in (exx, exy, eyy))
         levels.append(_level(exx, exy, eyy, a2))
+
+
+def _scaled_restrict(a):
+    """4 * restrict(a), the h^2 rescaling of a coarser level; a bfloat16
+    result rounded once."""
+    return stencils.store(lambda x: 4.0 * _restrict(x), a)
 
 
 def _vcycle(levels, k: int, u, v, gu, gv):
@@ -116,22 +153,21 @@ def _vcycle(levels, k: int, u, v, gu, gv):
         return gs_general(u, v, gu, gv, lvl, CS_SWEEPS)
     u, v = gs_general(u, v, gu, gv, lvl, NU1)
     exx, exy, eyy, a2 = lvl[:4]
-    ru, rv = residual(u, v, gu, gv, exx, exy, eyy, a2)
+    ru, rv = stencils.store(lambda *t: residual(*t, a2), u, v, gu, gv, exx, exy, eyy)
     # x4: the same h^2 rescaling as the coarse data products.
-    rcu, rcv = 4.0 * restrict(ru), 4.0 * restrict(rv)
+    rcu, rcv = _scaled_restrict(ru), _scaled_restrict(rv)
     ze = torch.zeros_like(rcu)
     ecu, ecv = _vcycle(levels, k + 1, ze, ze, rcu, rcv)
     h, w = u.shape[-2:]
-    u = u + prolong(ecu, h, w)
-    v = v + prolong(ecv, h, w)
+    u, v = stencils.store(lambda u, v, pu, pv: (u + pu, v + pv),
+                          u, v, prolong(ecu, h, w), prolong(ecv, h, w))
     return gs_general(u, v, gu, gv, lvl, NU2)
 
 
 def mg_solve(u, v, ex, ey, et, alpha: float, cycles: int):
     """`cycles` V(NU1, NU2) cycles on the HS system from the guess (u, v)."""
     levels = _build_levels(ex, ey, alpha)
-    gu = -ex * et
-    gv = -ey * et
+    gu, gv = stencils.store(lambda x, y, t: (-x * t, -y * t), ex, ey, et)
     for _ in range(cycles):
         u, v = _vcycle(levels, 0, u, v, gu, gv)
     return u, v

@@ -14,7 +14,12 @@ returns is rounded once, to nearest even, where it is stored. Applied to
 each sweep, to the fields and 1/den (kernels/derivatives.py
 `derivatives_plain`) and to each resampling, that is the rule the
 kernels' bfloat16 builds follow, so they equal the plain twins bitwise as
-the float32 builds do.
+the float32 builds do. The families' storing points are listed in the
+package docstring: multigrid's hierarchy, residuals and corrections and
+u, v once a smoother sweep; TV-L1's rescaled frames, five inner-loop
+fields, u where the u-step stores it and the duals where the p-step does;
+LK's warped frame, gradients, window sums and flow after each refinement
+and blur.
 """
 
 from __future__ import annotations

@@ -43,7 +43,6 @@ from opticalflowhs_tpu_torch.ops.stencils import (
 from opticalflowhs_tpu_torch.solver import (
     Flow,
     as_frame,
-    check_supported,
     resolve_omega,
     solve_level,
     storage_dtype,
@@ -332,7 +331,6 @@ def hs_pyramid(
             f"{pyr.levels} levels would shrink a {tuple(i1.shape[-2:])} frame "
             "below 8 px"
         )
-    check_supported(cfg)
     i1 = as_frame(i1, device, storage_dtype(cfg))
     i2 = as_frame(i2, i1.device, storage_dtype(cfg))
     cfg = resolve_omega(i1, i2, cfg)

@@ -22,12 +22,13 @@ caller asks for it (`device="cpu"`, or CPU tensors).
 
 Scope: the solvers "jacobi", "sor", "robust" and "multigrid" (iters counts
 V-cycles), with a fixed sweep count or solved to tolerance
-(`sweeps_until`), in float32; "jacobi", "sor" and "robust" also in
-bfloat16 (`HSConfig.dtype`), untiled, by the storage rule of the package
-docstring, through the bfloat16 builds of K1, K2, K6 and K7 (Jacobi), K3
-(SOR) and K4 (IRLS) on the cuda backend. bfloat16 for multigrid, TV-L1,
-LK and the tiled solver (dist/) is still to be ported (ROADMAP.md queue 1,
-item 5) and raises NotImplementedError rather than solving in float32.
+(`sweeps_until`), in float32 and, untiled, in bfloat16 (`HSConfig.dtype`),
+by the storage rule of the package docstring, through the bfloat16 builds
+of K1, K2, K6 and K7 (Jacobi), K3 (SOR) and K4 (IRLS) on the cuda backend;
+multigrid runs K1's bfloat16 build, then its plain V-cycles by the same
+rule. bfloat16 on the tiled solver (dist/) is still to be ported
+(ROADMAP.md queue 1, item 5) and raises NotImplementedError rather than
+solving in float32.
 
 Gradients: both backends differentiate with respect to the frames and a
 warm start. The plain ops tape through `stencils.checkpointed_loop`
@@ -90,21 +91,16 @@ def resolve_backend(backend: str, frame: torch.Tensor) -> str:
     return backend
 
 
-# The solvers that run in bfloat16 (untiled).
-BF16_SOLVERS = ("jacobi", "sor", "robust")
-
-
-def check_supported(cfg: HSConfig, tiled: bool = False) -> None:
-    """Raise NotImplementedError for configurations the port cannot solve
-    yet: every solver runs in float32, and solvers "jacobi", "sor" and
-    "robust" in bfloat16, untiled (`tiled` is True for dist/'s entries)."""
-    if cfg.dtype == "bfloat16" and (cfg.solver not in BF16_SOLVERS or tiled):
-        what = "the tiled solver (dist/)" if tiled else f"solver={cfg.solver!r}"
+def check_supported(cfg: HSConfig) -> None:
+    """Raise NotImplementedError for the configurations the tiled solver
+    (dist/'s entries) cannot solve yet: every solver runs in float32 there,
+    and bfloat16 runs untiled only."""
+    if cfg.dtype == "bfloat16":
         raise NotImplementedError(
-            f"dtype='bfloat16' with {what} is not ported yet (ROADMAP.md "
-            "queue 1, item 5: bf16 runs for solver='jacobi', 'sor' and "
-            "'robust' untiled; TV-L1, multigrid, LK and dist/ are still to "
-            "port); use dtype='float32'"
+            "dtype='bfloat16' with the tiled solver (dist/) is not ported yet "
+            "(ROADMAP.md queue 1, item 5: bf16 runs for every solver, TV-L1 "
+            "and LK untiled; only dist/ is still to port); use "
+            "dtype='float32'"
         )
 
 
@@ -161,7 +157,6 @@ def sweeps(u, v, ex, ey, et, inv_den, n: int, cfg: HSConfig) -> Flow:
     SOR (K3) or IRLS (K4, refrozen as `robust.robust_sweeps`, inv_den
     unused) on the cuda backend, the plain versions on the torch backend;
     for multigrid n V-cycles (`multigrid.mg_sweeps`), plain on both."""
-    check_supported(cfg)
     if n == 0:
         return Flow(u, v)
     if cfg.solver == "multigrid":
@@ -202,7 +197,6 @@ def sweeps_until(u, v, ex, ey, et, inv_den, cfg: HSConfig,
     one graph through the blocks taken: the port differentiates this route,
     where the reference's `while_loop` refuses reverse mode (ROADMAP.md
     queue 3)."""
-    check_supported(cfg)
     iters = cfg.iters if budget is None else budget
     if cfg.solver == "multigrid":
         b = 1
@@ -286,7 +280,6 @@ def solve_level(
     derivatives) and then its plain V-cycles. The torch backend runs the
     plain ops. Both compute the same sweeps in the same order. Frames and
     start are cast to the config's dtype first, as the reference casts."""
-    check_supported(cfg)
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
     dtype = storage_dtype(cfg)
@@ -412,7 +405,6 @@ def hs_solve(
     if i1.ndim != 2:
         raise ValueError("hs_solve takes single 2-D grayscale frames; use "
                          "batch.hs_solve_batched for leading batch axes")
-    check_supported(cfg)
     i1 = as_frame(i1, device, storage_dtype(cfg))
     i2 = as_frame(i2, i1.device, storage_dtype(cfg))
     cfg = resolve_omega(i1, i2, cfg)

@@ -20,6 +20,15 @@ batching rule; K5 has a batch grid and equals the plain loop.)
 
 Gradients reach the frames through the warps and the inner loop: K5's
 entry is a kernel forward and a plain-twin backward (kernels/autodiff.py).
+
+bfloat16 (TVL1Config.dtype): the frames are cast first, and every array
+the reference holds in the config's dtype is bfloat16 here, formed in
+float32 from the widened arrays and rounded once where it is stored
+(`stencils.store`): the rescaled frames (lo, hi and the scale are float32
+temporaries), the pyramid's levels, the upsampled flows, the warped frame,
+the five inner-loop fields (formed from the rounded warped frame, frame 1
+and flow), and the inner loop's u and duals (K5's bfloat16 build or the
+plain twin). median3 is min/max only and exact in bfloat16.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ from opticalflowhs_tpu_torch.config import PyramidConfig, TVL1Config
 from opticalflowhs_tpu_torch.kernels.tvl1_inner import tvl1_inner, tvl1_inner_plain
 from opticalflowhs_tpu_torch.ops import stencils
 from opticalflowhs_tpu_torch.pyramid import gaussian_pyramid, upsample_flow, warp_each
-from opticalflowhs_tpu_torch.solver import Flow, as_frame, resolve_backend
+from opticalflowhs_tpu_torch.solver import Flow, as_frame, resolve_backend, storage_dtype
 
 _G2_EPS = 1e-9  # guards the |grad I|^2 division in textureless pixels
 
@@ -101,11 +110,16 @@ def inner_fields(i1: torch.Tensor, i2w: torch.Tensor, u1: torch.Tensor,
                  u2: torch.Tensor, cfg: TVL1Config):
     """The inner loop's constant fields, linearised at the flow (u1, u2)
     with i2w frame 2 warped by it: (rho0, gx, gy, 1/(|g|^2 + eps),
-    lambda*theta*|g|^2), where rho(u) = rho0 + u.g."""
-    gx, gy = _central_grad(i2w)
-    rho0 = i2w - i1 - u1 * gx - u2 * gy  # rho(u) = rho0 + u.g, affine in u
-    g2 = gx * gx + gy * gy
-    return rho0, gx, gy, 1.0 / (g2 + _G2_EPS), cfg.lambda_ * cfg.theta * g2
+    lambda*theta*|g|^2), where rho(u) = rho0 + u.g. In bfloat16 all five
+    are formed in float32 and each is rounded once (`stencils.store`)."""
+
+    def fields(i1, i2w, u1, u2):
+        gx, gy = _central_grad(i2w)
+        rho0 = i2w - i1 - u1 * gx - u2 * gy  # rho(u) = rho0 + u.g, affine in u
+        g2 = gx * gx + gy * gy
+        return rho0, gx, gy, 1.0 / (g2 + _G2_EPS), cfg.lambda_ * cfg.theta * g2
+
+    return stencils.store(fields, i1, i2w, u1, u2)
 
 
 def inner_scalars(cfg: TVL1Config) -> tuple[float, float, float]:
@@ -116,15 +130,24 @@ def inner_scalars(cfg: TVL1Config) -> tuple[float, float, float]:
 def rescale_pair(i1: torch.Tensor, i2: torch.Tensor):
     """The pair rescaled jointly to [0, 255], the convention lambda is
     calibrated for. The min/max run over the last two axes, so a stack is
-    rescaled per pair, as under the reference's vmap."""
-    lo = torch.minimum(i1.amin(dim=(-2, -1), keepdim=True),
-                       i2.amin(dim=(-2, -1), keepdim=True))
-    hi = torch.maximum(i1.amax(dim=(-2, -1), keepdim=True),
-                       i2.amax(dim=(-2, -1), keepdim=True))
-    # A tensor numerator keeps 255/x one IEEE division (a Python float over
-    # a tensor is a reciprocal and a multiply in torch).
-    scale = torch.full_like(lo, 255.0) / torch.maximum(hi - lo, lo.new_tensor(1e-6))
-    return (i1 - lo) * scale, (i2 - lo) * scale
+    rescaled per pair, as under the reference's vmap.
+
+    In bfloat16 lo, hi and the scale are float32 temporaries of the widened
+    frames and each rescaled frame is rounded once. The 1e-6 guard is then
+    float32's, where the reference forms it in bfloat16; it only acts on a
+    constant pair, whose rescaled frames are 0 either way."""
+
+    def rescale(i1, i2):
+        lo = torch.minimum(i1.amin(dim=(-2, -1), keepdim=True),
+                           i2.amin(dim=(-2, -1), keepdim=True))
+        hi = torch.maximum(i1.amax(dim=(-2, -1), keepdim=True),
+                           i2.amax(dim=(-2, -1), keepdim=True))
+        # A tensor numerator keeps 255/x one IEEE division (a Python float
+        # over a tensor is a reciprocal and a multiply in torch).
+        scale = torch.full_like(lo, 255.0) / torch.maximum(hi - lo, lo.new_tensor(1e-6))
+        return (i1 - lo) * scale, (i2 - lo) * scale
+
+    return stencils.store(rescale, i1, i2)
 
 
 def tvl1_warp_iteration(
@@ -185,18 +208,10 @@ def _check(i1, i2, cfg: TVL1Config, pyr: PyramidConfig, rank: int) -> None:
     """The reference's checks: tvl1_solve's (rank 2: shapes, rank, levels,
     warps per level) or tvl1_solve_batched's (rank 3: the rank only, with
     equal shapes, where the reference's vmap fails anyway, and a
-    warps_per_level too short for the levels, where it raises IndexError);
-    and the dtype the port runs."""
+    warps_per_level too short for the levels, where it raises IndexError)."""
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs "
                          f"{tuple(i2.shape)}")
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r} is not ported yet for this family "
-            "(ROADMAP.md queue 1, item 5: bf16 runs for HSConfig(solver="
-            "'jacobi', 'sor' or 'robust') untiled; TV-L1, multigrid, LK and "
-            "dist/ are still to port); only float32 runs"
-        )
     if i1.ndim != rank:
         raise ValueError(
             "tvl1_solve takes single 2-D grayscale frames; use "
@@ -233,10 +248,11 @@ def tvl1_solve(
     warp iteration); more levels handle large motions, every level
     refining the same flow. Frames are (H, W) tensors, solved on their
     device, or numpy arrays, which go to `device` (cuda:0 when None;
-    RuntimeError without CUDA)."""
+    RuntimeError without CUDA); both are cast to the config's dtype there,
+    and the flow has it."""
     _check(i1, i2, cfg, pyr, rank=2)
-    i1 = as_frame(i1, device)
-    return _tvl1_pyramid_body(i1, as_frame(i2, i1.device), cfg, pyr)
+    i1 = as_frame(i1, device, storage_dtype(cfg))
+    return _tvl1_pyramid_body(i1, as_frame(i2, i1.device, i1.dtype), cfg, pyr)
 
 
 def tvl1_solve_batched(
@@ -261,14 +277,20 @@ def tvl1_solve_batched(
             "with the rest of dist/ (ROADMAP.md queue 1, item 6)"
         )
     _check(i1, i2, cfg, pyr, rank=3)
-    i1 = as_frame(i1, device)
-    return _tvl1_pyramid_body(i1, as_frame(i2, i1.device), cfg, pyr)
+    i1 = as_frame(i1, device, storage_dtype(cfg))
+    return _tvl1_pyramid_body(i1, as_frame(i2, i1.device, i1.dtype), cfg, pyr)
 
 
 def tvl1_solve_tiled(i1, i2, cfg: TVL1Config = TVL1Config(),
                      pyr: PyramidConfig = PyramidConfig(levels=1), mesh=None):
     """Spatially tiled TV-L1 over a device mesh: comes with the rest of
-    dist/."""
+    dist/ (and in bfloat16 with item 5's dist/ part)."""
+    if getattr(cfg, "dtype", None) == "bfloat16":
+        raise NotImplementedError(
+            "tvl1_solve_tiled in bfloat16 is not ported yet: bfloat16 on dist/ "
+            "and the tiled entries is ROADMAP.md queue 1, item 5's last part "
+            "(the rest of dist/ is item 6)"
+        )
     raise NotImplementedError(
         "tvl1_solve_tiled shards a frame over devices and is not ported yet: "
         "it comes with the rest of dist/ (ROADMAP.md queue 1, item 6)"

@@ -271,7 +271,7 @@ def test_batched_entry_errors():
         solve_bidirectional(z, z, lk=LKConfig(), mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         hs_solve_batched(torch.zeros(2, 8, 8), torch.zeros(2, 8, 8),
-                         HSConfig(solver="multigrid", dtype="bfloat16"))
+                         HSConfig(solver="multigrid", dtype="bfloat16"), mesh=object())
     with pytest.raises(ValueError, match="T, H, W"):
         video_pairs(z)
     p1, p2 = video_pairs(torch.zeros(5, 8, 8))

@@ -307,28 +307,28 @@ def test_bidirectional_and_occlusion_streams_bf16():
 
 
 def test_bf16_refusals():
-    # SOR and robust run in bfloat16 (tests/port/test_torch_bf16_sor_robust.py);
-    # multigrid, TV-L1, LK and dist/ still refuse, and so do K5 and K9.
-    from opticalflowhs_tpu_torch import LKConfig, MeshConfig, TVL1Config, lk_solve, tvl1_solve
+    # Every solver, TV-L1 and LK run in bfloat16 untiled (tests/port/
+    # test_torch_bf16_sor_robust.py, test_torch_bf16_tvl1_mg_lk.py); dist/
+    # and the tiled TV-L1 and LK entries still refuse, and so does K9.
+    from opticalflowhs_tpu_torch import LKConfig, MeshConfig, TVL1Config
     from opticalflowhs_tpu_torch.dist import hs_solve_tiled, make_mesh
     from opticalflowhs_tpu_torch.kernels import tile as k9
-    from opticalflowhs_tpu_torch.kernels import tvl1_inner as k5
+    from opticalflowhs_tpu_torch.lucas_kanade import lk_solve_tiled
+    from opticalflowhs_tpu_torch.tvl1 import tvl1_solve_tiled
 
     z = torch.zeros(16, 16)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        hs_solve(z, z, HSConfig(solver="multigrid", dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tvl1_solve(z, z, TVL1Config(dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        lk_solve(z, z, LKConfig(dtype="bfloat16"))
     mesh = make_mesh(MeshConfig(y=2, x=1), ["cpu"] * 2)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        hs_solve_tiled(z, z, HSConfig(solver="sor", dtype="bfloat16"), mesh)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tvl1_solve_tiled(z, z, TVL1Config(dtype="bfloat16"), mesh=mesh)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        lk_solve_tiled(z, z, LKConfig(dtype="bfloat16"), mesh=mesh)
     with pytest.raises(NotImplementedError, match="dist/"):
         hs_solve_tiled(z, z, HSConfig(dtype="bfloat16"), mesh)
     with pytest.raises(ValueError, match="dtype must be one of"):
         HSConfig(dtype="float16")
     b = z.to(BF16)
-    with pytest.raises(ValueError, match="expected float32"):
-        k5.tvl1_inner(b, b, b, b, b, b, b, 2, 0.3, 0.25, 0.05)
     org = k9.origin_table(b[None], [0], [0])
     with pytest.raises(ValueError, match="expected float32"):
         k9.tile_sweeps(*(b[None] for _ in range(6)), 2, org, 16, 16)

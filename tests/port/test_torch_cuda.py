@@ -1933,11 +1933,12 @@ def test_bf16_entries_differentiate_as_their_plain_twins(dev, shape, name):
 
 
 def test_bf16_is_refused_where_no_build_exists(dev):
-    # K3, K4 and K8 have bfloat16 builds (below); K5 and K9-K12 do not.
+    # K3, K4, K5 and K8 have bfloat16 builds (below); K9-K12 and the tiled
+    # entries (dist/) do not.
     u, v, i1, i2 = _rand16((40, 56), dev, 115, n=4)
     f = k1.derivatives_plain(i1, i2, 0.5)
-    with pytest.raises(ValueError, match="float32"):
-        k5.tvl1_inner(u, v, *(a for a in f), u, 5, 0.3, 0.25, 0.05)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tv.tvl1_solve_tiled(i1, i2, TVL1Config(dtype="bfloat16"))
     with pytest.raises(ValueError, match="float32"):
         k9.tile_sweeps(u[None], v[None], *(a[None] for a in f), 2, None, 40, 56)
     with pytest.raises(ValueError, match="float32"):
@@ -1949,7 +1950,8 @@ def test_bf16_is_refused_where_no_build_exists(dev):
     with pytest.raises(ValueError, match="K9 has no bfloat16 build"):
         k3.k3_geometry(dev, 4, shard=True, dtype=BF16)
     with pytest.raises(NotImplementedError, match="item 5"):
-        hs_solve(i1, i2, HSConfig(solver="multigrid", dtype="bfloat16"))
+        hs_solve_tiled(i1, i2, HSConfig(dtype="bfloat16"), make_mesh(MeshConfig(y=2, x=1),
+                                                                      [dev] * 2))
 
 
 # -- bfloat16: K3, K4 (freeze and sweeps) and K8's bfloat16 builds ---------------
@@ -2254,5 +2256,157 @@ def test_bf16_sor_robust_entries_differentiate_as_their_plain_twins(dev, shape, 
     assert fwd > 0 and all(o.grad_fn is not None and o.dtype == BF16 for o in outs), name
     want_outs, want = _weighted_grads(twin, inputs)
     assert sum(c.launches for c in counters) == fwd
+    _equal([o.detach() for o in outs], [o.detach() for o in want_outs])
+    _equal(grads, want)
+
+
+# -- bfloat16: K5's bfloat16 build, TV-L1, multigrid and LK -----------------------
+#
+# K5 rounds u1 and u2 where the u-step stores them and the duals where the
+# p-step does, in its float32 window, so its bfloat16 build equals the plain
+# bfloat16 twin bitwise with the float32 plan's launches, at K5's edge shapes,
+# every s, stacks, and on views that take the 2- and 8-byte paths. Multigrid
+# (K1, then plain V-cycles) and LK (plain torch) run in bfloat16 on the card
+# as on the plain route.
+
+
+def _tvl1_fields16(shape, dev, seed):
+    """_tvl1_fields from bfloat16 frames and flow: the fields as the bfloat16
+    warp iteration forms them (each rounded once)."""
+    i1, i2 = (255.0 * a for a in _rand16(shape, dev, seed))
+    u1, u2 = _rand16(shape, dev, seed + 1, normal=True)
+    cfg = TVL1Config(dtype="bfloat16")
+    return u1, u2, tv.inner_fields(i1, i2, u1, u2, cfg), tv.inner_scalars(cfg)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("iters", [1, 7])
+def test_k5_bf16_equals_plain(dev, shape, b, iters):
+    u1, u2, fields, scalars = _tvl1_fields16((b,) + shape, dev, 150)
+    assert all(f.dtype == BF16 for f in fields)
+    keep = (u1.clone(), u2.clone())
+    k5.tvl1_inner.launches = 0
+    got = k5.tvl1_inner(u1, u2, *fields, iters, *scalars)
+    assert k5.tvl1_inner.launches == k5.k5_geometry(dev, 0, u1.shape, iters)["launches"]
+    assert got[0].dtype == got[1].dtype == BF16
+    _equal(got, k5.tvl1_inner_plain(u1, u2, *fields, iters, *scalars))
+    _equal((u1, u2), keep)
+    for k in range(b):
+        one = k5.tvl1_inner(u1[k], u2[k], *(f[k] for f in fields), iters, *scalars)
+        _equal([g[k] for g in got], one)
+
+
+@pytest.mark.parametrize("shape", K5_EDGE_SHAPES + [(67, 93), (33, 248)])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("s", range(1, k5.K5_MAX_ITERS + 1))
+def test_k5_bf16_edge_shapes_equal_plain(dev, shape, b, s):
+    full = shape if b == 1 else (b,) + shape
+    u1, u2, fields, scalars = _tvl1_fields16(full, dev, 151)
+    for iters in sorted({1, 7, 2 * s + 1}):  # s does not divide 2s + 1
+        k5.tvl1_inner.launches = 0
+        got = k5.tvl1_inner(u1, u2, *fields, iters, *scalars, block_iters=s)
+        assert k5.tvl1_inner.launches == -(-iters // s)
+        _equal(got, k5.tvl1_inner_plain(u1, u2, *fields, iters, *scalars))
+
+
+@pytest.mark.parametrize("w", [64, 93])
+@pytest.mark.parametrize("off", [1, 2, 4])
+def test_k5_bf16_unaligned_views_equal_plain(dev, w, off):
+    # Views 2 or 4 bytes off an 8-byte boundary take the 2-byte loads; 8
+    # bytes off (off 4) keep the 8-byte copies where w is a multiple of 4.
+    def view(t):
+        v = torch.empty(off + t.numel(), device=dev, dtype=BF16)[off:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    u1, u2, fields, scalars = _tvl1_fields16((50, w), dev, 152)
+    args = [view(t) for t in (u1, u2, *fields)]
+    for s in (0, 3):
+        _equal(k5.tvl1_inner(*args, 11, *scalars, block_iters=s),
+               k5.tvl1_inner_plain(*args, 11, *scalars))
+
+
+@pytest.mark.parametrize("s", [0] + list(range(1, k5.K5_MAX_ITERS + 1)))
+@pytest.mark.parametrize("shape", [(1088, 1920), (544, 960), (272, 480), (8, 1088, 1920)])
+def test_k5_bf16_geometry_is_float32s(dev, s, shape):
+    g16 = k5.k5_geometry(dev, s, shape, 100, BF16)
+    g32 = k5.k5_geometry(dev, s, shape, 100)
+    assert g16["spill_bytes"] == 0 and 0 < g16["registers"] <= 65536 // g16["threads"]
+    assert {k: v for k, v in g16.items() if k != "registers"} == {
+        k: v for k, v in g32.items() if k != "registers"}
+
+
+def test_tvl1_entry_points_run_k5_bf16(dev):
+    i1, i2 = _rand((3, 96, 128), dev, 153)
+    i2 = 0.8 * i1 + 0.2 * i2
+    c32 = TVL1Config(warps=2, iters=10)
+    cfg = dataclasses.replace(c32, dtype="bfloat16")
+    plain = dataclasses.replace(cfg, backend="torch")
+    pyr = PyramidConfig(levels=2)
+    counts = []
+    for c in (c32, cfg):
+        k5.tvl1_inner.launches = 0
+        got = tvl1_solve(i1[0], i2[0], c, pyr)
+        counts.append(k5.tvl1_inner.launches)
+    assert counts[0] == counts[1] > 0
+    assert got.u.dtype == BF16
+    _equal(got, tvl1_solve(i1[0], i2[0], plain, pyr))
+    stack = tvl1_solve_batched(i1, i2, cfg)
+    _equal(stack, tvl1_solve_batched(i1, i2, plain))
+    for k in range(3):
+        _equal([a[k] for a in stack], tvl1_solve(i1[k], i2[k], cfg))
+    vid = torch.cat([i1, i2[-1:]])
+    for a, b in zip(flow_stream(vid, tvl1=cfg, chunk=2), flow_stream(vid, tvl1=plain, chunk=2)):
+        assert a.u.dtype == BF16
+        _equal(a, b)
+    (f, m), (fp, mp) = (next(flow_stream_occlusion(vid, tvl1=c, chunk=3)) for c in (cfg, plain))
+    _equal(f, fp)
+    assert torch.equal(m, mp)
+    for a, b in zip(solve_bidirectional(i1[0], i2[0], tvl1=cfg),
+                    solve_bidirectional(i1[0], i2[0], tvl1=plain)):
+        _equal(a, b)
+
+
+def test_multigrid_and_lk_bf16_on_the_card_equal_the_plain_route(dev):
+    rng = np.random.default_rng(154)
+    frames = torch.from_numpy(rng.uniform(0, 1, (4, 72, 96)).astype(np.float32)).to(dev)
+    i1, i2 = frames[0], frames[1]
+    mg = HSConfig(alpha=0.5, iters=2, solver="multigrid", dtype="bfloat16")
+    mgp = dataclasses.replace(mg, backend="torch")
+    k1.hs_derivatives.launches = 0
+    got = hs_solve(i1, i2, mg)
+    assert k1.hs_derivatives.launches == 1 and got.u.dtype == BF16
+    _equal(got, hs_solve(i1, i2, mgp))
+    for c, p in ((dataclasses.replace(mg, tol=1e-3, iters=4),
+                  dataclasses.replace(mgp, tol=1e-3, iters=4)), (mg, mgp)):
+        _equal(hs_solve_batched(frames[:-1], frames[1:], c),
+               hs_solve_batched(frames[:-1], frames[1:], p))
+    _equal(hs_pyramid(i1, i2, mg, PyramidConfig(levels=2)),
+           hs_pyramid(i1, i2, mgp, PyramidConfig(levels=2)))
+    for a, b in zip(flow_stream_warm(frames, mg, warp_prior=True),
+                    flow_stream_warm(frames, mgp, warp_prior=True)):
+        _equal(a, b)
+    lk = LKConfig(dtype="bfloat16")
+    got = lk_solve(i1, i2, lk, PyramidConfig(levels=2, iters_per_level=()))
+    assert got.u.dtype == BF16
+    _equal_cpu(got, lk_solve(i1.cpu(), i2.cpu(), lk, PyramidConfig(levels=2, iters_per_level=())))
+    _equal_cpu(lk_solve_batched(frames[:-1], frames[1:], lk),
+               lk_solve_batched(frames[:-1].cpu(), frames[1:].cpu(), lk))
+    for a, b in zip(flow_stream(frames, lk=lk, chunk=2), flow_stream(frames.cpu(), lk=lk, chunk=2)):
+        _equal_cpu(a, b)
+
+
+@pytest.mark.parametrize("shape", _GRAD_SHAPES)
+def test_k5_bf16_differentiates_as_its_plain_twin(dev, shape):
+    inputs, call, twin = _grad_entries(dev, shape)["K5"]
+    u1, u2, fields, _ = _tvl1_fields16(shape, dev, 155)
+    inputs = [t.requires_grad_() for t in (u1, u2, *fields)]
+    k5.tvl1_inner.launches = 0
+    outs, grads = _weighted_grads(call, inputs)
+    fwd = k5.tvl1_inner.launches
+    assert fwd > 0 and all(o.grad_fn is not None and o.dtype == BF16 for o in outs)
+    want_outs, want = _weighted_grads(twin, inputs)
+    assert k5.tvl1_inner.launches == fwd
     _equal([o.detach() for o in outs], [o.detach() for o in want_outs])
     _equal(grads, want)

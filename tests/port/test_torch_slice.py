@@ -89,19 +89,23 @@ def test_hs_solve_input_errors():
 
 @pytest.mark.parametrize(
     "cfg",
-    [HSConfig(solver="multigrid", dtype="bfloat16"),
+    [HSConfig(solver="sor", dtype="bfloat16"),
      HSConfig(tol=1e-3, dtype="bfloat16"), HSConfig(dtype="bfloat16")],
 )
 def test_unported_configs_raise(cfg):
-    """bfloat16 multigrid is still to port and raises (bfloat16 SOR and
-    IRLS run: tests/port/test_torch_bf16_sor_robust.py); bfloat16 Jacobi,
-    to a fixed count or to tolerance, solves: interior mean <= 0.02 px and
-    max <= 0.1 px against the reference's float32 solve (tests/port/
-    test_torch_bf16.py states the bars)."""
+    """bfloat16 on the tiled solver (dist/) is still to port and raises
+    (bfloat16 SOR, IRLS, multigrid, TV-L1 and LK run untiled: tests/port/
+    test_torch_bf16_sor_robust.py, test_torch_bf16_tvl1_mg_lk.py);
+    bfloat16 Jacobi, to a fixed count or to tolerance, solves: interior
+    mean <= 0.02 px and max <= 0.1 px against the reference's float32
+    solve (tests/port/test_torch_bf16.py states the bars)."""
     if cfg.solver != "jacobi":
+        from opticalflowhs_tpu_torch import MeshConfig
+        from opticalflowhs_tpu_torch.dist import hs_solve_tiled, make_mesh
+
         a = torch.zeros(16, 16)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            hs_solve(a, a, cfg)
+            hs_solve_tiled(a, a, cfg, make_mesh(MeshConfig(y=2, x=1), ["cpu"] * 2))
         return
     i1, i2, _ = syn.translation_pair(48, 64, 1.0, 0.5, key=7)
     got = hs_solve(torch.from_numpy(i1), torch.from_numpy(i2), cfg)

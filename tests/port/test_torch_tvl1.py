@@ -403,8 +403,8 @@ def test_unsupported_options_raise():
     z = torch.zeros(16, 16)
     with pytest.raises(ValueError, match="B, H, W"):
         tvl1_solve_batched(z, z)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tvl1_solve(z, z, TVL1Config(dtype="bfloat16"))
+    with pytest.raises(NotImplementedError, match="bfloat16 on dist/"):
+        tv.tvl1_solve_tiled(z, z, TVL1Config(dtype="bfloat16"), mesh=object())
     with pytest.raises(NotImplementedError, match="dist/"):
         tvl1_solve_batched(z[None], z[None], mesh=object())
     with pytest.raises(NotImplementedError, match="dist/"):
