@@ -112,6 +112,17 @@ each ran through the kernels:
               gradient), each beside float32, counted, = the plain route
               bitwise (LK: = the CPU); K5 a call of 100 by device time,
               bfloat16 beside float32.
+  phase 22:   bfloat16 on dist/: K9 (Jacobi and SOR), K10, K11 and K12's
+              bfloat16 builds = their plain twins (K9's shards at the
+              corners of an image, stacks, true edges at K2's warp and
+              lane boundaries, odd and 16-byte widths, s 1-8 and the
+              plan; K10 rings of 1-4 shards; K11/K12 on virtual meshes
+              1x1, 2x1, 4x1, 2x2, 1x4 at n 1, 7, 100, zero and warm), their
+              geometry (float32's tile, no spills), the grad refusals;
+              config 5's D1-D4 and a solve to tol in bfloat16 beside
+              float32, each counted (= float32's launches) and = the
+              untiled bfloat16 solve bitwise; each kernel at config 5's
+              shapes beside float32.
 Every phase checks what it measures and any failure exits non-zero.
 Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
@@ -120,7 +131,7 @@ card's name and power limit as nvidia-smi gives them, and a JSON object
 {"kernels": [...]} (per kernel: launches on the batched path for K1 and
 K2, on the SOR and robust path for K3 and K4, on the TV-L1 path for K5,
 on phase 13's path for K6 and K7, on phase 14's for K8, on phase 15's for
-K9-K12, on phases 19's, 20's and 21's for the bfloat16 builds, max |diff| against
+K9-K12, on phases 19's, 20's, 21's and 22's for the bfloat16 builds, max |diff| against
 the plain version, ms per launch for the kernel and the plain version at
 8 x 1088x1920 (for K5 per call of 100 alternations, with its 1088x1920,
 544x960 and 272x480 numbers; for K6, K7 and K8 per
@@ -249,6 +260,11 @@ BF16_REPLACES = {
     "K4": ["opticalflowhs_tpu/kernels/solve_robust.py:92"],
     "K8": ["opticalflowhs_tpu/kernels/sor_planes.py:78"],
     "K5": ["opticalflowhs_tpu/kernels/tvl1_inner.py:99"],
+    "K9": ["opticalflowhs_tpu/kernels/jacobi.py:855"],
+    "K9 SOR": ["opticalflowhs_tpu/kernels/sor.py:59"],
+    "K10": ["opticalflowhs_tpu/kernels/rdma_halo.py:49"],
+    "K11": ["opticalflowhs_tpu/kernels/rdma_halo.py:135"],
+    "K12": ["opticalflowhs_tpu/kernels/rdma_halo.py:398"],
 }
 # NVLink between the cards of one host: 900 GB/s all to all, 450 each way.
 NVLINK_BYTES_PER_S = 450e9
@@ -3586,6 +3602,398 @@ def bf16_tvl1_mg_lk_path(dev, c2a, c2b, p1, p2, vid, vid_dev) -> dict:
             "t1_ms": ms["B13 T1"][0], "t1_float32_ms": ms["B13 T1"][1]}
 
 
+def bf16_dist_path(dev, pair, stack) -> list:
+    """Phase 22: bfloat16 on the tiled solver (dist/). The bfloat16 builds of
+    K9 (Jacobi and SOR), K10, K11 and K12 against their plain bfloat16
+    twins, max |diff| 0.0: K9 at phase 15's shapes and a 16-byte one
+    (origins at the four corners of a 300x400 image and inside it, single
+    and a stack, true edges at K2's warp and lane boundaries, odd widths,
+    every s to the plan), K10 on rings of 1-4 shards and at config 5's 4 x
+    540x3840, halo 5, K11 and K12 on virtual meshes of cuda:0 (1x1, 2x1,
+    4x1, 2x2, 1x4) at n 1, 7 and 100, zero and warm, s 1-8; their geometry
+    (float32's tile and s, no spills); the refusal of frames that require
+    grad. Then config 5 at 2160x3840 through the entry points, in bfloat16
+    beside float32, each counted with the counts set to 0 just before it
+    and read just after (equal to float32's) and = the untiled bfloat16
+    solve bitwise: D1 (hs_solve_tiled i100, halo_sweeps 4, 4 x 4), D2
+    (hs_pyramid_tiled L3), D3 (rdma on 4 x 1 and 2 x 2), D4 (SOR i50) and
+    D5 (to tol 1e-3, checked every 4 sweeps). Last, each kernel at config
+    5's shapes, bfloat16 beside float32, held against its plain twin there.
+    Returns the bfloat16 rows of K9-K12 for the kernels line."""
+    from opticalflowhs_tpu_torch import hs_pyramid, hs_solve
+    from opticalflowhs_tpu_torch.config import MeshConfig
+    from opticalflowhs_tpu_torch.dist import hs_pyramid_tiled, hs_solve_tiled, make_mesh
+    from opticalflowhs_tpu_torch.kernels import derivatives as k1
+    from opticalflowhs_tpu_torch.kernels import jacobi as k2
+    from opticalflowhs_tpu_torch.kernels import ring
+    from opticalflowhs_tpu_torch.kernels import sor as k3
+    from opticalflowhs_tpu_torch.kernels import tile as k9
+
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    names = ("hs_tile_sweeps_bf16", "hs_sor_tile_sweeps_bf16", "hs_ring_halo_exchange_bf16",
+             "hs_ring_fused_sweeps_bf16", "hs_ring_fused_sweeps_2d_bf16")
+    err = dict.fromkeys(names, 0.0)
+
+    def exact(name, got, want, what):
+        for g in got:
+            require(g.dtype == bf, f"{what}: dtype {g.dtype}")
+        d = max(max_diff(g.float(), w.float()) for g, w in zip(got, want))
+        err[name] = max(err[name], d)
+        require(d == 0.0, f"{what}: max|diff| {d} (bfloat16 builds equal plain bitwise)")
+
+    def b16(*a):
+        return tuple(x.to(bf) for x in a)
+
+    def k9_pair(sor, u0, v0, f, n, rows, cols, h, w, s=0):
+        org = k9.origin_table(u0, rows, cols)
+        if sor:
+            return (k9.sor_tile_sweeps(u0, v0, *f, n, OMEGA, org, h, w, block_sweeps=s),
+                    k9.sor_tile_sweeps_plain(u0, v0, *f, n, OMEGA, rows, cols, h, w))
+        return (k9.tile_sweeps(u0, v0, *f, n, org, h, w, block_sweeps=s),
+                k9.tile_sweeps_plain(u0, v0, *f, n, rows, cols, h, w))
+
+    # -- K9 against its plain twins ----------------------------------------------------
+    n_k9 = 0
+    for ph, pw in ((67, 93), (131, 130), (70, 248)):
+        corners = [(-4, -3), (-3, 400 - pw + 5), (300 - ph + 3, -5),
+                   (300 - ph + 4, 400 - pw + 3), (117, 33)]
+        su, sv = b16(*stack(5, ph, pw, seed=450, normal=True))
+        sf = k1.derivatives_plain(*b16(*stack(5, ph, pw, seed=451)), 0.5)
+        rows, cols = [c[0] for c in corners], [c[1] for c in corners]
+        for k, (r0, c0) in enumerate(corners):
+            for sor in (False, True):
+                got, want = k9_pair(sor, su[k], sv[k], [f[k] for f in sf], 7, r0, c0, 300, 400)
+                exact(names[sor], got, want, f"K9 bf16 {'SOR ' * sor}{ph}x{pw} ({r0}, {c0})")
+                n_k9 += 1
+        for sor in (False, True):
+            for s in ((0, 1, 3, 4, 8) if not sor else (0, 1, 2, 4)):
+                got, want = k9_pair(sor, su, sv, sf, 13, rows, cols, 300, 400, s)
+                exact(names[sor], got, want, f"K9 bf16 {'SOR ' * sor}stack of 5 {ph}x{pw} s={s}")
+                n_k9 += 1
+    for s in (1, 3, 4, 8):
+        _, _, lh = k2.k2_tile(s)
+        for pw in (45, 136):
+            rows = [-(k2.K2_WARP_ROWS * m - s) for m in (3, 4)]
+            rows += [r - 1 for r in rows] + [r - 2 for r in rows] + [70 - 37 + 2, 70 - 37 + 5]
+            cols = [-(k2.K2_LANE_COLS * m - lh) for m in (3, 4)]
+            cols += [c - 1 for c in cols] + [c - 3 for c in cols] + [150 - pw + 3, 150 - pw + 4]
+            su, sv = b16(*stack(len(rows), 37, pw, seed=454, normal=True))
+            sf = k1.derivatives_plain(*b16(*stack(len(rows), 37, pw, seed=455)), 0.5)
+            before = k9.tile_sweeps.launches
+            got, want = k9_pair(False, su, sv, sf, 2 * s + 1, rows, cols, 70, 150, s)
+            require(k9.tile_sweeps.launches - before == 3, "K9 bf16 launches = float32's")
+            exact(names[0], got, want, f"K9 bf16 s={s} edges at warp and lane boundaries")
+            n_k9 += 1
+    print(f"phase 22 K9 bf16 (Jacobi and SOR) = plain bitwise in {n_k9} calls: 67x93, 131x130, "
+          "70x248 at the four corners of a 300x400 image and (117, 33), single and a stack "
+          "of 5, s 1-8 and the plan (SOR 1, 2, 4 and the plan); 37x45 and 37x136 shards with "
+          "true edges at K2's warp and lane boundaries, s 1, 3, 4, 8")
+
+    # -- K10, K11 and K12 against their plain twins ---------------------------------
+    for my in (1, 2, 4):
+        for w in (40, 37):
+            tiles = [b16(t)[0] for t in
+                     stack(my, 12, w, seed=460 + my, normal=True)[0].unbind(0)]
+            for halo in (1, 5, 12):
+                before = ring.ring_halo_exchange.launches
+                got = ring.ring_halo_exchange(tiles, halo)
+                require(ring.ring_halo_exchange.launches - before == 1, "K10 bf16 one launch")
+                exact(names[2], got, ring.ring_halo_exchange_plain(tiles, halo),
+                      f"K10 bf16 ring of {my} w={w} halo {halo}")
+    n_ring = 0
+    for my, mx in ((1, 1), (2, 1), (4, 1), (2, 2), (1, 4)):
+        th, tw = 40, 93 if mx == 1 else 50
+        h, w = my * th - 3, mx * tw - (0 if mx == 1 else 5)
+        for n, ss in ((1, (1,)), (7, range(1, 9)), (100, (4, 8))):
+            for s in ss:
+                gu, gv, gf, go = _ring_inputs(dev, my, mx, th, tw, 8, 470 + n + s, h, w)
+                gf = [[b16(*f) for f in row] for row in gf]
+                for warm in (True, False):
+                    gu = [[b16(a)[0] if warm else torch.zeros_like(a, dtype=bf) for a in row]
+                          for row in gu]
+                    gv = [[b16(a)[0] if warm else torch.zeros_like(a, dtype=bf) for a in row]
+                          for row in gv]
+                    if mx == 1:
+                        args = ([r[0] for r in gu], [r[0] for r in gv], [r[0] for r in gf], n,
+                                s, [o[0][0] for o in go], h, w)
+                        got, want = ring.ring_fused_sweeps(*args), ring.ring_fused_sweeps_plain(*args)
+                        name = names[3]
+                    else:
+                        args = (gu, gv, gf, n, s, go, h, w)
+                        got = ring.ring_fused_sweeps_2d(*args)
+                        want = ring.ring_fused_sweeps_2d_plain(*args)
+                        got = ([a for row in got[0] for a in row], [a for row in got[1] for a in row])
+                        want = ([a for row in want[0] for a in row],
+                                [a for row in want[1] for a in row])
+                        name = names[4]
+                    exact(name, got[0] + got[1], want[0] + want[1],
+                          f"{'K11' if mx == 1 else 'K12'} bf16 {my}x{mx} n={n} s={s} warm={warm}")
+                    n_ring += 1
+    print(f"phase 22 K10 bf16 rings of 1, 2, 4 (w 40 and 37, halo 1, 5, 12) and K11/K12 bf16 "
+          f"on virtual meshes 1x1, 2x1, 4x1, 2x2, 1x4 (n 1; 7 at s 1-8; 100 at s 4 and 8; "
+          f"zero and warm; {n_ring} solves) = plain bitwise")
+
+    # -- geometry: float32's tile and s, no spills ---------------------------------
+    geo = {}
+    for s in (1, 4, 8):
+        for tag, f32, g16 in (
+                ("K9", k2.k2_geometry(dev, s, shard=True), k2.k2_geometry(dev, s, True, bf)),
+                ("K11", ring.ring_geometry(dev, s), ring.ring_geometry(dev, s, dtype=bf)),
+                ("K12", ring.ring_geometry(dev, s, True), ring.ring_geometry(dev, s, True, bf))):
+            require((g16["tile_h"], g16["tile_w"]) == (f32["tile_h"], f32["tile_w"])
+                    and g16["spill_bytes"] == 0 and g16["smem_bytes"] == f32["smem_bytes"] // 2,
+                    f"{tag} bf16 geometry {g16} against float32's {f32}")
+            geo[tag, s] = g16
+        g16, f32 = k3.k3_geometry(dev, s, True, bf), k3.k3_geometry(dev, s, True)
+        require((g16["tile_h"], g16["tile_w"]) == (f32["tile_h"], f32["tile_w"])
+                and g16["spill_bytes"] == 0, f"K9 SOR bf16 geometry {g16} against {f32}")
+        geo["K9 SOR", s] = g16
+    print("phase 22 bf16 geometry (float32's tile, no spills) at s 4: "
+          + "; ".join(f"{t} {geo[t, 4]}" for t in ("K9", "K9 SOR", "K11", "K12")))
+
+    # -- frames that require grad are refused, in bfloat16 too --------------------------
+    su, sv = b16(*stack(2, 40, 56, seed=480, normal=True))
+    sf = k1.derivatives_plain(*b16(*stack(2, 40, 56, seed=481)), 0.5)
+    org = k9.origin_table(su, [-3, 20], [-3, 0])
+    rings = {}
+    for mx, seed in ((1, 482), (2, 483)):
+        gu, gv, gf, go = _ring_inputs(dev, 2, mx, 20, 56 // mx, 4, seed, 40, 56)
+        rings[mx] = ([[b16(a)[0] for a in row] for row in gu],
+                     [[b16(a)[0] for a in row] for row in gv],
+                     [[b16(*f) for f in row] for row in gf], go)
+    (u1, v1, f1, _), (u2, v2, f2, o2) = rings[1], rings[2]
+    refusals = {
+        "K9": (su, lambda a: k9.tile_sweeps(a, sv, *sf, 3, org, 60, 56)),
+        "K9 SOR": (su, lambda a: k9.sor_tile_sweeps(a, sv, *sf, 3, OMEGA, org, 60, 56)),
+        "K10": (sv[0], lambda a: ring.ring_halo_exchange([a, sv[1]], 2)),
+        "K11": (u1[0][0], lambda a: ring.ring_fused_sweeps(
+            [a, u1[1][0]], [r[0] for r in v1], [r[0] for r in f1], 4, 4, [0, 20], 40, 56)),
+        "K12": (u2[0][0], lambda a: ring.ring_fused_sweeps_2d(
+            [[a, u2[0][1]], u2[1]], v2, f2, 4, 4, o2, 40, 56))}
+    for tag, (base, call) in refusals.items():
+        try:
+            call(base.clone().requires_grad_())
+        except RuntimeError as e:
+            require("does not differentiate" in str(e), f"{tag} grad refusal: {e}")
+        else:
+            require(False, f"{tag} bf16 on frames that require grad was not refused")
+    print("phase 22 K9, K9 SOR, K10, K11 and K12 in bf16 refuse frames that require grad")
+
+    # -- config 5 in bfloat16 through dist/, counted -----------------------------------
+    cfg5, pyr5, mcfg = c5_configs()
+    s5 = mcfg.halo_sweeps
+    q1, q2 = pair
+    H, W = q1.shape
+    m44 = make_mesh(mcfg, [dev] * 16)
+    m41 = make_mesh(MeshConfig(y=4, x=1), [dev] * 4)
+    m22 = make_mesh(MeshConfig(y=2, x=2), [dev] * 4)
+    counters = {"K9": k9.tile_sweeps, "K9 SOR": k9.sor_tile_sweeps,
+                "K10": ring.ring_halo_exchange, "K11": ring.ring_fused_sweeps,
+                "K12": ring.ring_fused_sweeps_2d}
+
+    def cfgs(dtype):
+        c = dataclasses.replace(cfg5, dtype=dtype)
+        return {"D1": c, "D2": c, "D3 4x1": c, "D3 2x2": c,
+                "D4": dataclasses.replace(c, solver="sor", omega=OMEGA, iters=50),
+                "D5": dataclasses.replace(c, tol=1e-3, block_sweeps=s5)}
+
+    def tiled(tag, c):
+        if tag == "D2":
+            return hs_pyramid_tiled(q1, q2, c, pyr5, m44, halo_sweeps=s5)
+        mesh, impl = {"D3 4x1": (m41, "rdma"), "D3 2x2": (m22, "rdma")}.get(tag, (m44, "ppermute"))
+        return hs_solve_tiled(q1, q2, c, mesh, halo_sweeps=s5, halo_impl=impl)
+
+    def untiled(tag, c):
+        return hs_pyramid(q1, q2, c, pyr5) if tag == "D2" else hs_solve(q1, q2, c)
+
+    per_call, out, launches = {}, {}, dict.fromkeys(counters, 0)
+    for dtype in ("float32", "bfloat16"):
+        for tag, c in cfgs(dtype).items():
+            torch.cuda.synchronize()
+            for k in counters.values():
+                k.launches = 0
+            out[tag, dtype] = tiled(tag, c)
+            torch.cuda.synchronize()
+            per_call[tag, dtype] = {n: k.launches for n, k in counters.items()}
+            if dtype == "bfloat16":
+                for n in counters:
+                    launches[n] += per_call[tag, dtype][n]
+    for tag, c in cfgs("bfloat16").items():
+        f16, f32 = out[tag, "bfloat16"], out[tag, "float32"]
+        require(all(a.dtype == bf and tuple(a.shape) == (H, W) and bool(torch.isfinite(a).all())
+                    for a in f16), f"{tag} bf16 output dtype/shape/finite")
+        require(per_call[tag, "bfloat16"] == per_call[tag, "float32"]
+                and sum(per_call[tag, "bfloat16"].values()) > 0,
+                f"{tag} launches bf16 {per_call[tag, 'bfloat16']} float32 "
+                f"{per_call[tag, 'float32']}")
+        want = untiled(tag, c)
+        name = {"D3 4x1": names[3], "D3 2x2": names[4], "D4": names[1]}.get(tag, names[0])
+        exact(name, f16, want, f"{tag} bf16 tiled vs the untiled bf16 solve")
+    require(all(v > 0 for n, v in launches.items() if n != "K10"),
+            f"a bf16 kernel of the tiled path never ran: {launches}")
+    shards41 = [b16(q1[i * (H // 4):(i + 1) * (H // 4)].contiguous())[0] for i in range(4)]
+    ring.ring_halo_exchange.launches = 0
+    x10 = ring.ring_halo_exchange(shards41, s5 + 1)
+    launches["K10"] = ring.ring_halo_exchange.launches
+    exact(names[2], x10, ring.ring_halo_exchange_plain(shards41, s5 + 1),
+          "K10 bf16 on config 5's 4 x 1 frame shards")
+    d32 = {tag: max(float((a.float() - b).abs().max()) for a, b in
+                    zip(out[tag, "bfloat16"], out[tag, "float32"])) for tag in cfgs("float32")}
+    mean32 = {tag: max(float((a.float() - b).abs().mean()) for a, b in
+                       zip(out[tag, "bfloat16"], out[tag, "float32"])) for tag in cfgs("float32")}
+    ms = {(tag, dtype): median_ms(lambda: tiled(tag, c), runs=5)
+          for dtype in ("float32", "bfloat16") for tag, c in cfgs(dtype).items()}
+    out.clear()
+    print(f"phase 22 config 5 {H}x{W} bf16 through dist/ (virtual meshes on cuda:0): D1-D5 = "
+          f"the untiled bf16 solve bitwise; launches = float32's "
+          f"{ {t: per_call[t, 'bfloat16'] for t in cfgs('float32')} }; |bf16 - float32| max px "
+          f"{d32}, mean px {mean32}; ms (median of 5, bf16 / float32) "
+          f"{ {t: (round(ms[t, 'bfloat16'], 3), round(ms[t, 'float32'], 3)) for t in cfgs('float32')} }")
+
+    # -- per-kernel times at config 5's shapes, bf16 beside float32, = plain --------------
+    hw = s5
+    th, tw = H // 4, W // 4
+    ph, pw = th + 2 * hw, tw + 2 * hw
+    su, sv = b16(*stack(16, ph, pw, seed=490, normal=True))
+    sf = k1.derivatives_plain(*b16(*stack(16, ph, pw, seed=491)), 1.0)
+    rows = [i * th - hw for i in range(4) for _ in range(4)]
+    cols = [j * tw - hw for _ in range(4) for j in range(4)]
+    org = k9.origin_table(su, rows, cols)
+    ph_s, pw_s = th + 8 * hw, tw + 8 * hw
+    tu, tv = b16(*stack(16, ph_s, pw_s, seed=492, normal=True))
+    tf = k1.derivatives_plain(*b16(*stack(16, ph_s, pw_s, seed=493)), 1.0)
+    rows_s, cols_s = [r - 3 * hw for r in rows], [c - 3 * hw for c in cols]
+    org_s = k9.origin_table(tu, rows_s, cols_s)
+
+    def ring16(g):
+        return ([[b16(a)[0] for a in row] for row in g[0]],
+                [[b16(a)[0] for a in row] for row in g[1]],
+                [[b16(*f) for f in row] for row in g[2]], g[3])
+
+    g41 = ring16(_ring_inputs(dev, 4, 1, th, W, hw, 494, H, W))
+    g22 = ring16(_ring_inputs(dev, 2, 2, H // 2, W // 2, hw, 495, H, W))
+    a41 = ([r[0] for r in g41[0]], [r[0] for r in g41[1]], [r[0] for r in g41[2]], 100, hw,
+           [o[0][0] for o in g41[3]], H, W)
+    a22 = (*g22[:3], 100, hw, g22[3], H, W)
+
+    def wide(args):
+        """The same call on the float32 values of its bfloat16 arrays."""
+        def f(x):
+            if torch.is_tensor(x):
+                return x.float()
+            if isinstance(x, (list, tuple)):
+                return type(x)(f(y) for y in x)
+            return x
+        return f(args)
+
+    kept = {}
+
+    def keep(key, fn):
+        def run():
+            kept[key] = fn()
+        return run
+
+    w9, w9s, w41, w22 = wide((su, sv, sf)), wide((tu, tv, tf)), wide(a41), wide(a22)
+    calls = {
+        names[0]: (lambda: k9.tile_sweeps(su, sv, *sf, hw, org, H, W),
+                   lambda: k9.tile_sweeps(w9[0], w9[1], *w9[2], hw, org, H, W), 20,
+                   lambda: k9.tile_sweeps_plain(su, sv, *sf, hw, rows, cols, H, W), 2),
+        names[1]: (lambda: k9.sor_tile_sweeps(tu, tv, *tf, hw, OMEGA, org_s, H, W),
+                   lambda: k9.sor_tile_sweeps(w9s[0], w9s[1], *w9s[2], hw, OMEGA, org_s, H, W),
+                   20,
+                   lambda: k9.sor_tile_sweeps_plain(tu, tv, *tf, hw, OMEGA, rows_s, cols_s, H, W),
+                   2),
+        names[3]: (lambda: ring.ring_fused_sweeps(*a41),
+                   lambda: ring.ring_fused_sweeps(*w41), 5,
+                   lambda: ring.ring_fused_sweeps_plain(*a41), 1),
+        names[4]: (lambda: ring.ring_fused_sweeps_2d(*a22),
+                   lambda: ring.ring_fused_sweeps_2d(*w22), 5,
+                   lambda: ring.ring_fused_sweeps_2d_plain(*a22), 1),
+    }
+    timing = {}
+    for name, (fk, f32, rk, fp, rp) in calls.items():
+        timing[name] = (event_ms(keep((name, "cuda"), fk), reps=rk), event_ms(f32, reps=rk),
+                        event_ms(keep((name, "plain"), fp), reps=rp))
+        exact(name, _tensors(kept[name, "cuda"]), _tensors(kept[name, "plain"]),
+              f"{name} at config 5's shapes")
+        kept.clear()
+    # K10 by its device time beside float32's and a copy_ of the same bytes.
+    def one_kernel_ms(fn, match):
+        """Device time a call of fn, which launches one kernel matching
+        `match` (the profiler over 20 calls), asked again while the
+        profiler misses some of them; CUDA events over the calls (the
+        wrapper's host time too), so labelled, if it keeps missing them."""
+        for _ in range(3):
+            t, runs = device_ms(fn, match)
+            if runs == 20:
+                return t, "device time (profiler)"
+        return event_ms(fn), "events (the profiler missed launches)"
+
+    shards32 = [s.float() for s in shards41]
+    k10_ms, k10_by = one_kernel_ms(lambda: ring.ring_halo_exchange(shards41, hw + 1),
+                                   "halo_kernel_bf16")
+    k10_32, k10_32_by = one_kernel_ms(lambda: ring.ring_halo_exchange(shards32, hw + 1),
+                                      r"halo_kernel(?!_bf16)")
+    k10_plain = event_ms(lambda: ring.ring_halo_exchange_plain(shards41, hw + 1))
+    yard_src = torch.zeros((4, th + hw + 1, W), device=dev, dtype=bf)
+    yard_dst = torch.empty_like(yard_src)
+    copy_dev_ms, copy_by = one_kernel_ms(lambda: yard_dst.copy_(yard_src), "")
+    timing[names[2]] = (k10_ms, k10_32, k10_plain)
+    # A sweep block of K11 and K12 beside a bf16 K9 launch of the same sweeps.
+    n_blk = -(-100 // hw)
+    half = n_blk // 2
+    half41 = a41[:3] + (half * hw,) + a41[4:]
+    half22 = a22[:3] + (half * hw,) + a22[4:]
+    block_of = {names[3]: (timing[names[3]][0] - event_ms(
+                    lambda: ring.ring_fused_sweeps(*half41), reps=5)) / (n_blk - half),
+                names[4]: (timing[names[4]][0] - event_ms(
+                    lambda: ring.ring_fused_sweeps_2d(*half22), reps=5)) / (n_blk - half)}
+    px9, px9s = 16 * ph * pw, 16 * ph_s * pw_s
+    owned = H * W
+    ext41 = 4 * (th + 2 * hw) * W
+    ext22 = 4 * (H // 2 + 2 * hw) * (W // 2 + 2 * hw)
+    bounds = {
+        names[0]: bound_ms(SWEEP_BLOCK_ARRAYS * 2 * px9, K2_BF16_FLOPS_PER_PX_SWEEP * hw * px9),
+        names[1]: bound_ms(SWEEP_BLOCK_ARRAYS * 2 * px9s, K3_BF16_FLOPS_PER_PX_SWEEP * hw * px9s),
+        names[2]: bound_ms(2 * (2 * owned + 4 * 2 * (hw + 1) * W), 0),
+        names[3]: bound_ms(2 * (4 * ext41 + 4 * owned), K2_BF16_FLOPS_PER_PX_SWEEP * 100 * owned),
+        names[4]: bound_ms(2 * (4 * ext22 + 4 * owned), K2_BF16_FLOPS_PER_PX_SWEEP * 100 * owned),
+    }
+    schedule_ms = {n: n_blk * SWEEP_BLOCK_ARRAYS * 2 * ext / PEAK_BYTES_PER_S * 1e3
+                   for n, ext in ((names[3], ext41), (names[4], ext22))}
+    extra = {
+        names[0]: {"shape": [16, ph, pw], "sweeps_per_launch": hw,
+                   "launches_per_D1_solve": per_call["D1", "bfloat16"]["K9"],
+                   "geometry": geo["K9", hw]},
+        names[1]: {"shape": [16, ph_s, pw_s], "sweeps_per_launch": hw,
+                   "launches_per_D4_solve": per_call["D4", "bfloat16"]["K9 SOR"],
+                   "geometry": geo["K9 SOR", hw]},
+        names[2]: {"shards": [4, th, W], "halo": hw + 1, "ms_is": k10_by,
+                   "float32_ms_is": k10_32_by, "copy_ms": copy_dev_ms, "copy_ms_is": copy_by},
+        names[3]: {"mesh": [4, 1], "n": 100, "s": hw, "block_ms": block_of[names[3]],
+                   "schedule_bound_ms": schedule_ms[names[3]], "geometry": geo["K11", hw]},
+        names[4]: {"mesh": [2, 2], "n": 100, "s": hw, "block_ms": block_of[names[4]],
+                   "schedule_bound_ms": schedule_ms[names[4]], "geometry": geo["K12", hw]},
+    }
+    for name in names:
+        t16, t32, tp = timing[name]
+        print(f"kernel {name}: {t16:.4f} ms per call, float32 {t32:.4f} ms (ratio "
+              f"{t16 / t32:.3f}), plain {tp:.4f} ms, bound {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]}) {extra[name]}")
+    print(f"phase 22 a bf16 sweep block of {hw} at config 5's shapes: K11 4 x 1 "
+          f"{block_of[names[3]]:.4f} ms, K12 2 x 2 {block_of[names[4]]:.4f} ms; a bf16 K9 "
+          f"launch of {hw} over 16 x {ph}x{pw} {timing[names[0]][0]:.4f} ms")
+    print(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    source = dict(zip(names, ("jacobi.cu", "sor.cu", "ring.cu", "ring.cu", "ring.cu")))
+    key = dict(zip(names, ("K9", "K9 SOR", "K10", "K11", "K12")))
+    return [{"name": n, "route": "cuda", "source": f"opticalflowhs_tpu_torch/csrc/{source[n]}",
+             "replaces": BF16_REPLACES[key[n]], "launches": launches[key[n]],
+             "max_abs_err": err[n], "ms": timing[n][0], "float32_ms": timing[n][1],
+             "plain_ms": timing[n][2], "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
+             "library_ms": None, **extra[n]} for n in names]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3946,6 +4354,9 @@ def main() -> int:
 
     # -- phase 21: bfloat16 on TV-L1 (K5's bfloat16 build), multigrid and LK -------------
     bf16_rows.append(bf16_tvl1_mg_lk_path(dev, c2a, c2b, p1, p2, vid, vid_dev))
+
+    # -- phase 22: bfloat16 on dist/ (K9, K10, K11 and K12's bfloat16 builds) -------------
+    bf16_rows += bf16_dist_path(dev, c5_frames(dev), stack)
 
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2

@@ -77,11 +77,14 @@ rounded arrays. Where each family stores:
              products float32), the flow after each refinement and each
              blur; the 2x2 solve is float32.
 The kernels' bfloat16 builds (K1, K2, K6, K7; K3 and K8; K4's freeze and
-sweeps; K5) round their state where it is stored, also inside a launch,
-so they equal the plain twins (`ops.stencils.store`) bitwise and the
-result does not depend on the sweeps or alternations a launch runs.
-bfloat16 on dist/ and the tiled entries raises NotImplementedError
-(ROADMAP.md queue 1, item 5).
+sweeps; K5; K9-K12) round their state where it is stored, also inside a
+launch, so they equal the plain twins (`ops.stencils.store`) bitwise and
+the result does not depend on the sweeps or alternations a launch runs.
+On dist/ the frames are cast first, the shards' derivatives and 1/den are
+stored as K1 stores them, and the halos carry the stored values, so a
+tiled solve equals the untiled one bitwise; tvl1_solve_tiled and
+lk_solve_tiled wait for the rest of dist/ in both dtypes (ROADMAP.md
+queue 1, item 6).
 """
 
 from opticalflowhs_tpu_torch.batch import hs_solve_batched

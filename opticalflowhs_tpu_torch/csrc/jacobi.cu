@@ -64,13 +64,14 @@
 // warp's rows breaks the rolling rows (kShard). One launch covers every
 // shard of a device. Bound as K2: 8 arrays of the padded stack a launch.
 //
-// bfloat16 (hs_jacobi_sweeps_bf16, single frame and stack; K9 stays float):
-// the same walk on bfloat16 arrays (k2_window.cuh's storage types), the
-// fields widened into the same registers, u and v held in shared memory in
-// bfloat16 (three pairs: 73,728 bytes), each sweep's u and v rounded to
-// nearest even where they are stored, the float32 geometry and s. Bound: 8
-// arrays of 2 bytes, 10.0 us at 1088x1920; 29 operations a pixel a sweep
-// with the two roundings.
+// bfloat16 (hs_jacobi_sweeps_bf16, single frame and stack; K9's
+// hs_tile_sweeps_bf16 on shards): the same walk on bfloat16 arrays
+// (k2_window.cuh's storage types), the fields widened into the same
+// registers, u and v held in shared memory in bfloat16 (three pairs: 73,728
+// bytes), each sweep's u and v rounded to nearest even where they are
+// stored, the float32 geometry and s. Bound: 8 arrays of 2 bytes, 10.0 us
+// at 1088x1920 (K9: 40.5 us at config 5's 16 shards of 548x968); 29
+// operations a pixel a sweep with the two roundings.
 //
 // Exactness: the association order is that of ops/stencils.py
 // (neighbor_avg, jacobi_step), the constants are the float32 values of
@@ -100,22 +101,23 @@ __global__ void __launch_bounds__(kThreads, 1) jacobi_kernel(const Args a) {
   walk_tiles<kShard, false>(smem, a, true);
 }
 
-// The bfloat16 build (whole images only).
+// The bfloat16 build, K2 (kShard false) or K9.
 constexpr size_t kSmemBytesBf16 = kPairs * pair_bytes<ArgsBf16>();
 
+template <bool kShard>
 __global__ void __launch_bounds__(kThreads, 1) jacobi_kernel_bf16(const ArgsBf16 a) {
   extern __shared__ __align__(16) float smem[];
-  walk_tiles<false, false>(reinterpret_cast<__nv_bfloat16*>(smem), a, true);
+  walk_tiles<kShard, false>(reinterpret_cast<__nv_bfloat16*>(smem), a, true);
 }
 
-// The kernel and shared bytes of a build: K2 (kShard false) or K9 in float,
-// K2 in bfloat16.
+// The kernel and shared bytes of a build: K2 (kShard false) or K9, in
+// float or bfloat16.
 template <class A, bool kShard>
 auto build_kernel() {
   if constexpr (kIsFloat<A>)
     return jacobi_kernel<kShard>;
   else
-    return jacobi_kernel_bf16;
+    return jacobi_kernel_bf16<kShard>;
 }
 
 template <class A>
@@ -157,11 +159,10 @@ int launch(const typename A::Elem* u, const typename A::Elem* v,
            int sweeps, int device, void* stream) {
   if (b < 1 || b > kMaxBatch || h < 1 || w < 1 || sweeps < 1 || sweeps > kMaxSweeps)
     return (int)cudaErrorInvalidValue;
-  if (!kIsFloat<A> && org != nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int grid_max = 0;
-  err = org != nullptr ? configure<Args, true>(device, &grid_max)
+  err = org != nullptr ? configure<A, true>(device, &grid_max)
                        : configure<A, false>(device, &grid_max);
   if (err != cudaSuccess) return (int)err;
   const Geometry g = geometry(sweeps);
@@ -182,12 +183,8 @@ int launch(const typename A::Elem* u, const typename A::Elem* v,
   const long long tiles = (long long)b * a.tiles_x * a.tiles_y;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int grid = (int)(tiles < grid_max ? tiles : grid_max);
-  if constexpr (!kIsFloat<A>)
-    jacobi_kernel_bf16<<<grid, kThreads, kSmemBytesBf16, (cudaStream_t)stream>>>(a);
-  else if (org != nullptr)
-    jacobi_kernel<true><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(a);
-  else
-    jacobi_kernel<false><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(a);
+  const auto kernel = org != nullptr ? build_kernel<A, true>() : build_kernel<A, false>();
+  kernel<<<grid, kThreads, build_smem<A>(), (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -225,30 +222,46 @@ extern "C" int hs_tile_sweeps(const float* u, const float* v, const float* ex,
                       sweeps, device, stream);
 }
 
+// K9's bfloat16 build: the same arguments, every array bfloat16.
+extern "C" int hs_tile_sweeps_bf16(const __nv_bfloat16* u, const __nv_bfloat16* v,
+                                   const __nv_bfloat16* ex, const __nv_bfloat16* ey,
+                                   const __nv_bfloat16* et, const __nv_bfloat16* invd,
+                                   __nv_bfloat16* uo, __nv_bfloat16* vo, const int* org,
+                                   int b, int h, int w, int img_h, int img_w, int sweeps,
+                                   int device, void* stream) {
+  if (org == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<ArgsBf16>(u, v, ex, ey, et, invd, uo, vo, org, b, h, w, img_h, img_w,
+                          sweeps, device, stream);
+}
+
+namespace {
+
+template <class A, bool kShard>
+int geometry_of(int sweeps, int device, int* out) {
+  if (sweeps < 1 || sweeps > kMaxSweeps) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int grid_max = 0;
+  err = configure<A, kShard>(device, &grid_max);
+  if (err != cudaSuccess) return (int)err;
+  return (int)report(build_kernel<A, kShard>(), build_smem<A>(), sweeps, device, grid_max,
+                     out);
+}
+
+}  // namespace
+
 // K2's geometry at `sweeps` on `device` (K9's with `shard` nonzero), into
 // out[0..7]: tile rows, tile columns, threads a block, shared bytes a
 // block, registers a thread, local (spilled) bytes a thread, blocks
 // resident on one multiprocessor, and the number of multiprocessors.
 extern "C" int hs_jacobi_geometry(int sweeps, int shard, int device, int* out) {
-  if (sweeps < 1 || sweeps > kMaxSweeps) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  int grid_max = 0;
-  err = shard ? configure<Args, true>(device, &grid_max)
-              : configure<Args, false>(device, &grid_max);
-  if (err != cudaSuccess) return (int)err;
-  err = shard ? report(jacobi_kernel<true>, kSmemBytes, sweeps, device, grid_max, out)
-              : report(jacobi_kernel<false>, kSmemBytes, sweeps, device, grid_max, out);
-  return (int)err;
+  return shard ? geometry_of<Args, true>(sweeps, device, out)
+               : geometry_of<Args, false>(sweeps, device, out);
 }
 
-// The bfloat16 build's geometry, as hs_jacobi_geometry reports K2's.
-extern "C" int hs_jacobi_geometry_bf16(int sweeps, int device, int* out) {
-  if (sweeps < 1 || sweeps > kMaxSweeps) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  int grid_max = 0;
-  err = configure<ArgsBf16, false>(device, &grid_max);
-  if (err != cudaSuccess) return (int)err;
-  return (int)report(jacobi_kernel_bf16, kSmemBytesBf16, sweeps, device, grid_max, out);
+// The bfloat16 builds' geometry (K9's with `shard` nonzero), as
+// hs_jacobi_geometry reports the float ones.
+extern "C" int hs_jacobi_geometry_bf16(int sweeps, int shard, int device, int* out) {
+  return shard ? geometry_of<ArgsBf16, true>(sweeps, device, out)
+               : geometry_of<ArgsBf16, false>(sweeps, device, out);
 }

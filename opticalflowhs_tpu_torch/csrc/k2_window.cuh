@@ -47,8 +47,8 @@
 //     of them (with external linkage they changed K2's SASS).
 //
 // Storage types: the loop's arguments (`Args`, `ArgsBf16`) name the type
-// the arrays are stored in, float or bfloat16 (K2, K6 and K7 have bfloat16
-// builds). A bfloat16 value is widened to float where it is loaded (fields
+// the arrays are stored in, float or bfloat16 (every kernel on this loop
+// has a bfloat16 build). A bfloat16 value is widened to float where it is loaded (fields
 // into the same registers, u and v from shared memory, which holds them
 // in bfloat16), the sweep runs the float32 arithmetic below unchanged, and
 // u and v are rounded to nearest even (__float2bfloat16_rn) where each

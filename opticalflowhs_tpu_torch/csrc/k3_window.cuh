@@ -12,8 +12,8 @@
 // source compiles only the functions it calls.
 //
 // Storage types: the walk's arguments (`Args`, `ArgsBf16`) name the type
-// the arrays are stored in, float or bfloat16 (K3 and K8 have bfloat16
-// builds; K9's SOR entry stays float). In bfloat16 the two u/v pairs and
+// the arrays are stored in, float or bfloat16 (K3, K9's SOR entry and K8
+// have bfloat16 builds). In bfloat16 the two u/v pairs and
 // the four fields are staged in shared memory as bfloat16 (16-byte
 // cp.async of 8 values by the even lanes where the width and the tile's
 // first column allow, `bf16_wide`; else 8-byte copies of a lane's 4, or

@@ -81,6 +81,23 @@
 //
 // Exactness: K2's sweeps on K2's tiles with K9's clamps, so the owned
 // pixels equal the plain version (kernels/ring.py) bitwise.
+//
+// bfloat16 (hs_ring_halo_exchange_bf16, hs_ring_fused_sweeps_bf16): K10
+// moves 2-byte values, 16 bytes (8 values) at a time where w % 8 == 0 and
+// the shard's four pointers are 16-byte aligned, else one value at a time.
+// K11 and K12 run K2's bfloat16 walk (k2_window.cuh's storage types: u and
+// v rounded where every sweep stores them, the fields widened into the
+// same registers) in kernels of their own (ring_kernel_bf16), with P0 and
+// P1 in bfloat16 and 73,728 bytes of shared memory; the exchange moves the
+// stored, already rounded u and v, so a tiled solve equals the untiled one
+// bitwise. Its rectangles go 16 bytes at a time where w % 8 == 0, sx % 8 ==
+// 0 and the arrays are 16-byte aligned, else 2 bytes at a time (a column
+// halo of 4, as at config 5's 2 x 2 mesh, takes the 2-byte path in both
+// phases). The float kernels are written as they were, so that their SASS
+// does not change. Bound: K10 half of float32's bytes (10.0 us at config
+// 5's shards, halo 5); K11 and K12 the operations bound of 29 operations a
+// pixel a sweep (K2's 27 and the two roundings), and half of float32's
+// schedule bytes.
 
 #include <cuda_runtime.h>
 
@@ -113,14 +130,18 @@ using namespace hs_k2;
 
 constexpr int kHaloThreads = 256;
 
-struct HaloShard {
-  const float* src;  // the shard, h x w
-  float* own;        // its output, (h + 2 halo) x w
-  float* up;         // the output of its upper ring neighbour
-  float* dn;         // the output of its lower ring neighbour
+template <class E>
+struct HaloShardOf {
+  const E* src;  // the shard, h x w
+  E* own;        // its output, (h + 2 halo) x w
+  E* up;         // the output of its upper ring neighbour
+  E* dn;         // the output of its lower ring neighbour
 };
+struct HaloShard : HaloShardOf<float> {};
+struct HaloShardBf16 : HaloShardOf<__nv_bfloat16> {};
 
-// One row of n units (float4 or float) from s to d, and to e and f where
+// One row of n units (float4 or float; bfloat16: uint4 of 8 values, or one
+// value) from s to d, and to e and f where
 // they are not null, the block's threads striding along it.
 template <class T>
 __device__ __forceinline__ void copy_row(const T* __restrict__ s, T* d, T* e, T* f, int n) {
@@ -152,16 +173,39 @@ __global__ void __launch_bounds__(kHaloThreads) halo_kernel(
     copy_row(sh.src + row, own, up, dn, w);
 }
 
+// K10's bfloat16 build: the same row copy, 8 values or one at a time.
+__global__ void __launch_bounds__(kHaloThreads) halo_kernel_bf16(
+    const HaloShardBf16* __restrict__ shards, int h, int w, int halo) {
+  typedef unsigned short B;  // a bfloat16 value's bits
+  const int r = blockIdx.x;
+  const HaloShardBf16 sh = shards[blockIdx.y];
+  const long long row = (long long)r * w;
+  B* up = r < halo ? reinterpret_cast<B*>(sh.up) + (long long)(halo + h) * w + row : nullptr;
+  B* dn = r >= h - halo ? reinterpret_cast<B*>(sh.dn) + row - (long long)(h - halo) * w
+                        : nullptr;
+  B* own = reinterpret_cast<B*>(sh.own) + (long long)halo * w + row;
+  const B* src = reinterpret_cast<const B*>(sh.src) + row;
+  const unsigned long long bases = (unsigned long long)sh.src | (unsigned long long)sh.own |
+                                   (unsigned long long)sh.up | (unsigned long long)sh.dn;
+  if ((w & 7) == 0 && (bases & 15ull) == 0)
+    copy_row(reinterpret_cast<const uint4*>(src), reinterpret_cast<uint4*>(own),
+             reinterpret_cast<uint4*>(up), reinterpret_cast<uint4*>(dn), w >> 3);
+  else
+    copy_row(src, own, up, dn, w);
+}
+
 // -- K11 / K12 ---------------------------------------------------------------
 
 typedef unsigned long long u64;
 
 constexpr size_t kSmemBytes = 3 * kPairBytes;
+constexpr size_t kSmemBytesBf16 = 3 * pair_bytes<ArgsBf16>();
 
 // Per image of a device's stack: where its ring neighbours' arrays and
-// flags lie (on this device or a peer).
-struct RingLink {
-  float* nb[4][4];   // neighbour [up, down, left, right]: its image's element
+// flags lie (on this device or a peer), for arrays stored as E.
+template <class E>
+struct RingLinkOf {
+  E* nb[4][4];       // neighbour [up, down, left, right]: its image's element
                      // (0, 0) in [P0 u, P0 v, P1 u, P1 v]
   u64* nb_flags[4];  // the neighbours' flags
   u64* flags;        // mine: [phase: rows, columns][parity][side: top or
@@ -170,16 +214,19 @@ struct RingLink {
 
 // One Args for each kind of sweep block, in the kernel's parameters, as
 // K6's FusedArgs; even.u/v is P0 and odd.u/v P1 for the exchange.
-struct RingArgs {
-  Args even;  // blocks 0, 2, ...: from P0 into P1
-  Args odd;   // blocks 1, 3, ...: from P1 into P0
-  Args rem;   // the remainder n mod s, at its own tile, after the full blocks
-  const RingLink* links;  // one an image
+template <class A>
+struct RingArgsOf {
+  A even;  // blocks 0, 2, ...: from P0 into P1
+  A odd;   // blocks 1, 3, ...: from P1 into P0
+  A rem;   // the remainder n mod s, at its own tile, after the full blocks
+  const RingLinkOf<typename A::Elem>* links;  // one an image
   u64* barrier;           // the grid barrier's count, zero at the start
   u64 epoch0;
   int n_full;
   int oy, ox;             // the owned rectangle's first row and column: sy, sx
 };
+struct RingArgs : RingArgsOf<Args> {};
+struct RingArgsBf16 : RingArgsOf<ArgsBf16> {};
 
 __device__ __forceinline__ u64 ld_acquire_sys(const u64* p) {
   u64 v;
@@ -199,18 +246,19 @@ __device__ __forceinline__ int flag_index(int phase, int parity, int side) {
   return (phase * 2 + parity) * 2 + side;
 }
 
-// rows x cols floats from src to dst, both of row stride w, by this block's
-// threads, T (float or float4) at a time. src was written during the
-// launch, by other SMs, so it is read around L1. One load is in flight a
-// thread: two made an instance of the kernel spill, the sweeps' registers
-// being all the kernel has.
-template <class T>
-__device__ __forceinline__ void copy_rect_of(float* dst, const float* src, int rows, int cols,
+// rows x cols values of type E from src to dst, both of row stride w, by
+// this block's threads, T (float or float4; bfloat16: uint4 of 8 values,
+// or one value's bits) at a time. src was written during the launch, by
+// other SMs, so it is read around L1. One load is in flight a thread: two
+// made an instance of the kernel spill, the sweeps' registers being all
+// the kernel has.
+template <class T, class E>
+__device__ __forceinline__ void copy_rect_of(E* dst, const E* src, int rows, int cols,
                                              int w) {
-  const int per_row = cols / (int)(sizeof(T) / sizeof(float));
+  const int per_row = cols / (int)(sizeof(T) / sizeof(E));
   for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
     const int r = i / per_row;
-    const size_t o = (size_t)r * w + (size_t)(i - r * per_row) * (sizeof(T) / sizeof(float));
+    const size_t o = (size_t)r * w + (size_t)(i - r * per_row) * (sizeof(T) / sizeof(E));
     *reinterpret_cast<T*>(dst + o) = __ldcg(reinterpret_cast<const T*>(src + o));
   }
 }
@@ -224,6 +272,27 @@ __device__ __forceinline__ void copy_rect(float* dst, const float* src, int rows
     copy_rect_of<float>(dst, src, rows, cols, w);
 }
 
+// bfloat16: 16 bytes at a time with vec (cols and the offsets multiples of
+// 8), else 2.
+__device__ __forceinline__ void copy_rect(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          int rows, int cols, int w, bool vec) {
+  if (vec)
+    copy_rect_of<uint4>(dst, src, rows, cols, w);
+  else
+    copy_rect_of<unsigned short>(dst, src, rows, cols, w);
+}
+
+// Whether the exchange's rectangles go 16 bytes at a time: float, the
+// walk's rule (vec: w and sx multiples of 4, every array 16-byte aligned);
+// bfloat16, w and sx multiples of 8 and every array 16-byte aligned.
+template <class A>
+__device__ __forceinline__ bool rect_vec(const A& a, int ox) {
+  if constexpr (kIsFloat<A>)
+    return a.vec;
+  else
+    return a.vec == 2 && (ox & 7) == 0;
+}
+
 // Phase R (kCols false) or C of sweep block k: job 2 img + side sends one
 // side of one image, for u and v, and releases the receiver's flag. The
 // jobs go to the last blocks, which hold the fewest tiles. Rows: side 0 my
@@ -232,16 +301,17 @@ __device__ __forceinline__ void copy_rect(float* dst, const float* src, int rows
 // Columns, once both row halos have arrived: side 0 my left owned columns,
 // full height, into my left neighbour's right halo, side 1 my right ones
 // into my right neighbour's left halo.
-template <bool kCols>
-__device__ __forceinline__ void exchange(const RingArgs& r, int k) {
-  const Args& a = r.even;
+template <bool kCols, class R>
+__device__ __forceinline__ void exchange(const R& r, int k) {
+  const auto& a = r.even;
+  using E = typename decltype(r.even)::Elem;
   const int p = k & 1;
   const u64 epoch = r.epoch0 + k;
   const size_t area = (size_t)a.h * a.w;
   const int oy = r.oy, ox = r.ox;
   for (int j = gridDim.x - 1 - blockIdx.x; j < 2 * a.b; j += gridDim.x) {
     const int img = j >> 1, side = j & 1;
-    const RingLink& link = r.links[img];
+    const auto& link = r.links[img];
     if (kCols) {
       if (threadIdx.x == 0) {
         wait_flag(link.flags + flag_index(0, p, 0), epoch);
@@ -251,16 +321,16 @@ __device__ __forceinline__ void exchange(const RingArgs& r, int k) {
     }
     const int nb = kCols ? 2 + side : side;
     for (int f = 0; f < 2; ++f) {
-      const float* mine =
+      const E* mine =
           (f == 0 ? (p ? r.odd.u : a.u) : (p ? r.odd.v : a.v)) + img * area;
-      float* theirs = link.nb[nb][2 * p + f];
+      E* theirs = link.nb[nb][2 * p + f];
       if (kCols)
         copy_rect(theirs + (side ? 0 : a.w - ox), mine + (side ? a.w - 2 * ox : ox), a.h, ox,
-                  a.w, a.vec);
+                  a.w, rect_vec(a, ox));
       else
         copy_rect(theirs + (size_t)(side ? 0 : a.h - oy) * a.w + ox,
                   mine + (size_t)(side ? a.h - 2 * oy : oy) * a.w + ox, oy, a.w - 2 * ox, a.w,
-                  a.vec);
+                  rect_vec(a, ox));
     }
     // The block's stores, ordered before thread 0's by the barrier, are
     // made visible to the whole system by its fence and release.
@@ -275,13 +345,14 @@ __device__ __forceinline__ void exchange(const RingArgs& r, int k) {
 // The Ring of walk_owned (k2_window.cuh): the owned rectangle, and with
 // kWait (K11) a wait for the row halo that a tile's window reaches before
 // it is staged. It reads what it needs from the kernel's parameters.
-template <bool kWait>
+template <bool kWait, class R>
 struct HaloRing {
-  const RingArgs& r;
+  const R& r;
   int k;
   __device__ __forceinline__ int oy() const { return r.oy; }
   __device__ __forceinline__ int ox() const { return r.ox; }
-  __device__ __forceinline__ void before_stage(const Args& a, int t, const Tile& x) const {
+  template <class A>
+  __device__ __forceinline__ void before_stage(const A& a, int t, const Tile& x) const {
     if (!kWait) return;
     const bool top = x.r0 < r.oy;
     const bool bot = min(x.r0 + kWinH, a.h) > a.h - r.oy;
@@ -318,10 +389,48 @@ __global__ void __launch_bounds__(kThreads, 1) ring_kernel(const RingArgs r) {
                   r.epoch0 + k);
       hs_coop::grid_barrier(r.barrier, 2 * k + 1);
     }
-    const HaloRing<!kTwoD> ring{r, k};
+    const HaloRing<!kTwoD, RingArgs> ring{r, k};
     walk_owned(smem, k == r.n_full ? r.rem : (k & 1) ? r.odd : r.even, ring);
     if (k + 1 < n_blocks) hs_coop::grid_barrier(r.barrier, kTwoD ? 2 * k + 2 : k + 1);
   }
+}
+
+// The bfloat16 build of K11 and K12: the same loop, written out in its own
+// kernel (reached through a shared function, a float build's SASS changed:
+// solve_fused.cu).
+template <bool kTwoD>
+__global__ void __launch_bounds__(kThreads, 1) ring_kernel_bf16(const RingArgsBf16 r) {
+  extern __shared__ __align__(16) float smem_f[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_f);
+  const int n_blocks = r.n_full + (r.rem.sweeps > 0 ? 1 : 0);
+  for (int k = 0; k < n_blocks; ++k) {
+    exchange<false>(r, k);
+    if (kTwoD) {
+      exchange<true>(r, k);
+      for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < 4 * r.even.b;
+           i += gridDim.x * blockDim.x)
+        wait_flag(r.links[i >> 2].flags + flag_index((i >> 1) & 1, k & 1, i & 1),
+                  r.epoch0 + k);
+      hs_coop::grid_barrier(r.barrier, 2 * k + 1);
+    }
+    const HaloRing<!kTwoD, RingArgsBf16> ring{r, k};
+    walk_owned(smem, k == r.n_full ? r.rem : (k & 1) ? r.odd : r.even, ring);
+    if (k + 1 < n_blocks) hs_coop::grid_barrier(r.barrier, kTwoD ? 2 * k + 2 : k + 1);
+  }
+}
+
+// The kernel of a build: K11 (kTwoD false) or K12, in float or bfloat16.
+template <class A, bool kTwoD>
+auto ring_kernel_of() {
+  if constexpr (kIsFloat<A>)
+    return ring_kernel<kTwoD>;
+  else
+    return ring_kernel_bf16<kTwoD>;
+}
+
+template <class A>
+constexpr size_t ring_smem() {
+  return kIsFloat<A> ? kSmemBytes : kSmemBytesBf16;
 }
 
 }  // namespace
@@ -337,6 +446,19 @@ extern "C" int hs_ring_halo_exchange(const void* table, int n, int h, int w,
   if (err != cudaSuccess) return (int)err;
   halo_kernel<<<dim3(h, n), kHaloThreads, 0, (cudaStream_t)stream>>>(
       (const HaloShard*)table, h, w, halo);
+  return (int)cudaGetLastError();
+}
+
+// K10's bfloat16 build: the same arguments, the table's records pointing
+// at bfloat16 shards.
+extern "C" int hs_ring_halo_exchange_bf16(const void* table, int n, int h, int w,
+                                          int halo, int device, void* stream) {
+  if (n < 1 || n > 65535 || h < 1 || w < 1 || halo < 1 || halo > h)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  halo_kernel_bf16<<<dim3(h, n), kHaloThreads, 0, (cudaStream_t)stream>>>(
+      (const HaloShardBf16*)table, h, w, halo);
   return (int)cudaGetLastError();
 }
 
@@ -357,16 +479,31 @@ extern "C" int hs_enable_peer(int device, int peer) {
   return (int)err;
 }
 
-// Most K11/K12 blocks that can be resident at once on `device`.
+namespace {
+
+template <class A>
+int geometry_of(int sweeps, int two_d, int device, int* out) {
+  if (sweeps < 1 || sweeps > kMaxSweeps) return (int)cudaErrorInvalidValue;
+  const auto kernel = two_d ? ring_kernel_of<A, true>() : ring_kernel_of<A, false>();
+  int grid_max = 0;
+  const cudaError_t err = hs_coop::max_blocks(kernel, ring_smem<A>(), kThreads, device,
+                                              &grid_max);
+  return (int)(err != cudaSuccess
+                   ? err
+                   : report(kernel, ring_smem<A>(), sweeps, device, grid_max, out));
+}
+
+}  // namespace
+
+// Most K11/K12 blocks resident at once on `device`.
 extern "C" int hs_ring_blocks(int device, int* blocks) {
   return (int)hs_coop::max_blocks(ring_kernel<false>, kSmemBytes, kThreads, device, blocks);
 }
 
-template <class Kernel>
-cudaError_t geometry_of(Kernel kernel, int sweeps, int device, int* out) {
-  int grid_max = 0;
-  const cudaError_t err = hs_coop::max_blocks(kernel, kSmemBytes, kThreads, device, &grid_max);
-  return err != cudaSuccess ? err : report(kernel, kSmemBytes, sweeps, device, grid_max, out);
+// The same for the bfloat16 build.
+extern "C" int hs_ring_blocks_bf16(int device, int* blocks) {
+  return (int)hs_coop::max_blocks(ring_kernel_bf16<false>, kSmemBytesBf16, kThreads, device,
+                                  blocks);
 }
 
 // K11's (two_d 0) or K12's build at `sweeps` on `device`, as
@@ -375,10 +512,74 @@ cudaError_t geometry_of(Kernel kernel, int sweeps, int device, int* out) {
 // thread, spilled bytes a thread, resident blocks a multiprocessor,
 // multiprocessors.
 extern "C" int hs_ring_geometry(int sweeps, int two_d, int device, int* out) {
-  if (sweeps < 1 || sweeps > kMaxSweeps) return (int)cudaErrorInvalidValue;
-  return (int)(two_d ? geometry_of(ring_kernel<true>, sweeps, device, out)
-                     : geometry_of(ring_kernel<false>, sweeps, device, out));
+  return geometry_of<Args>(sweeps, two_d, device, out);
 }
+
+// The same for the bfloat16 build.
+extern "C" int hs_ring_geometry_bf16(int sweeps, int two_d, int device, int* out) {
+  return geometry_of<ArgsBf16>(sweeps, two_d, device, out);
+}
+
+namespace {
+
+// hs_ring_fused_sweeps on arrays of A's storage type E.
+template <class A, class E = typename A::Elem>
+int ring_sweeps(const void* links, const int* org, E* pu0, E* pv0, E* pu1, E* pv1,
+                const E* ex, const E* ey, const E* et, const E* invd, u64* barrier, int b,
+                int h, int w, int sy, int sx, int img_h, int img_w, int n, int s,
+                u64 epoch0, int grid, int device, void* stream) {
+  const int th = h - 2 * sy, tw = w - 2 * sx;
+  if (links == nullptr || org == nullptr || barrier == nullptr || b < 1 || sy < 1 ||
+      sx < 0 || th < sy || tw < 1 || tw < sx || n < 1 || s < 1 || s > kMaxSweeps ||
+      s > sy || (sx > 0 && s > sx) || grid < 1 || epoch0 < 1)
+    return (int)cudaErrorInvalidValue;
+  A a;
+  a.ex = ex; a.ey = ey; a.et = et; a.invd = invd; a.org = org;
+  a.b = b; a.h = h; a.w = w; a.img_h = img_h; a.img_w = img_w;
+  auto all_aligned = [&](unsigned long long n) {
+    return aligned(ex, n) && aligned(ey, n) && aligned(et, n) && aligned(invd, n) &&
+           aligned(pu0, n) && aligned(pv0, n) && aligned(pu1, n) && aligned(pv1, n);
+  };
+  // 16 bytes (4 floats) or 8 (4 bfloat16 values) a lane's load or store; 2:
+  // bfloat16 rows also staged 16 bytes at a time (bf16_wide).
+  a.vec = w % 4 == 0 && sx % 4 == 0 && all_aligned(4 * sizeof(E));
+  if (!kIsFloat<A> && a.vec && w % 8 == 0 && all_aligned(16)) a.vec = 2;
+  // A sweep block of `sweeps` (0: none) from (su, sv) into (du, dv).
+  auto block = [&](int sweeps, E* su, E* sv, E* du, E* dv) {
+    A x = a;
+    x.u = su;
+    x.v = sv;
+    x.uo = du;
+    x.vo = dv;
+    x.sweeps = sweeps;
+    const Geometry gx = geometry(sweeps > 0 ? sweeps : 1);
+    x.tiles_x = (tw + gx.tw - 1) / gx.tw;
+    x.tiles_y = (th + gx.th - 1) / gx.th;
+    return x;
+  };
+  const Geometry g = geometry(1);
+  if ((long long)b * ((tw + g.tw - 1) / g.tw) * ((th + g.th - 1) / g.th) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  typename std::conditional<kIsFloat<A>, RingArgs, RingArgsBf16>::type r;
+  r.n_full = n / s;
+  r.even = block(s, pu0, pv0, pu1, pv1);
+  r.odd = block(s, pu1, pv1, pu0, pv0);
+  r.rem = r.n_full % 2 ? block(n % s, pu1, pv1, pu0, pv0) : block(n % s, pu0, pv0, pu1, pv1);
+  r.links = (const RingLinkOf<E>*)links;
+  r.barrier = barrier;
+  r.epoch0 = epoch0;
+  r.oy = sy;
+  r.ox = sx;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(barrier, 0, sizeof(*barrier), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&r};
+  const auto kernel = sx > 0 ? ring_kernel_of<A, true>() : ring_kernel_of<A, false>();
+  return (int)hs_coop::launch(kernel, grid, kThreads, ring_smem<A>(), args, device, stream);
+}
+
+}  // namespace
 
 // K11 (sx = 0) and K12 (sx > 0): n sweeps of the b images of a device, s a
 // sweep block (the last block n mod s), in one cooperative launch of `grid`
@@ -396,49 +597,18 @@ extern "C" int hs_ring_fused_sweeps(const void* links, const int* org, float* pu
                                     const float* et, const float* invd, u64* barrier, int b,
                                     int h, int w, int sy, int sx, int img_h, int img_w, int n,
                                     int s, u64 epoch0, int grid, int device, void* stream) {
-  const int th = h - 2 * sy, tw = w - 2 * sx;
-  if (links == nullptr || org == nullptr || barrier == nullptr || b < 1 || sy < 1 ||
-      sx < 0 || th < sy || tw < 1 || tw < sx || n < 1 || s < 1 || s > kMaxSweeps ||
-      s > sy || (sx > 0 && s > sx) || grid < 1 || epoch0 < 1)
-    return (int)cudaErrorInvalidValue;
-  Args a;
-  a.ex = ex; a.ey = ey; a.et = et; a.invd = invd; a.org = org;
-  a.b = b; a.h = h; a.w = w; a.img_h = img_h; a.img_w = img_w;
-  a.vec = w % 4 == 0 && sx % 4 == 0 && aligned(ex) && aligned(ey) && aligned(et) &&
-          aligned(invd) && aligned(pu0) && aligned(pv0) && aligned(pu1) && aligned(pv1);
-  // A sweep block of `sweeps` (0: none) from (su, sv) into (du, dv).
-  auto block = [&](int sweeps, float* su, float* sv, float* du, float* dv) {
-    Args x = a;
-    x.u = su;
-    x.v = sv;
-    x.uo = du;
-    x.vo = dv;
-    x.sweeps = sweeps;
-    const Geometry gx = geometry(sweeps > 0 ? sweeps : 1);
-    x.tiles_x = (tw + gx.tw - 1) / gx.tw;
-    x.tiles_y = (th + gx.th - 1) / gx.th;
-    return x;
-  };
-  const Geometry g = geometry(1);
-  if ((long long)b * ((tw + g.tw - 1) / g.tw) * ((th + g.th - 1) / g.th) > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  RingArgs r;
-  r.n_full = n / s;
-  r.even = block(s, pu0, pv0, pu1, pv1);
-  r.odd = block(s, pu1, pv1, pu0, pv0);
-  r.rem = r.n_full % 2 ? block(n % s, pu1, pv1, pu0, pv0) : block(n % s, pu0, pv0, pu1, pv1);
-  r.links = (const RingLink*)links;
-  r.barrier = barrier;
-  r.epoch0 = epoch0;
-  r.oy = sy;
-  r.ox = sx;
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(barrier, 0, sizeof(*barrier), (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {&r};
-  return (int)(sx > 0 ? hs_coop::launch(ring_kernel<true>, grid, kThreads, kSmemBytes, args,
-                                        device, stream)
-                      : hs_coop::launch(ring_kernel<false>, grid, kThreads, kSmemBytes, args,
-                                        device, stream));
+  return ring_sweeps<Args>(links, org, pu0, pv0, pu1, pv1, ex, ey, et, invd, barrier, b, h,
+                           w, sy, sx, img_h, img_w, n, s, epoch0, grid, device, stream);
+}
+
+// The bfloat16 build: the same arguments, every array bfloat16.
+extern "C" int hs_ring_fused_sweeps_bf16(
+    const void* links, const int* org, __nv_bfloat16* pu0, __nv_bfloat16* pv0,
+    __nv_bfloat16* pu1, __nv_bfloat16* pv1, const __nv_bfloat16* ex, const __nv_bfloat16* ey,
+    const __nv_bfloat16* et, const __nv_bfloat16* invd, u64* barrier, int b, int h, int w,
+    int sy, int sx, int img_h, int img_w, int n, int s, u64 epoch0, int grid, int device,
+    void* stream) {
+  return ring_sweeps<ArgsBf16>(links, org, pu0, pv0, pu1, pv1, ex, ey, et, invd, barrier, b,
+                               h, w, sy, sx, img_h, img_w, n, s, epoch0, grid, device,
+                               stream);
 }

@@ -104,15 +104,15 @@
 // global row and column.
 //
 // bfloat16 (hs_sor_sweeps_bf16, single frame and stack; K9's SOR entry
-// stays float): the same walk on bfloat16 arrays (k3_window.cuh's storage
+// hs_sor_tile_sweeps_bf16 on shards): the same walk on bfloat16 arrays (k3_window.cuh's storage
 // types): the pairs and fields staged in bfloat16 (16-byte copies of 8
 // values where the width and the tile's first column are multiples of 8,
 // as at every even s; else 8-byte copies), widened into the same
 // registers, the boundary rows exchanged in a float32 pair within a sweep,
 // u and v rounded to nearest even at each sweep's end: 147,456 bytes of
 // shared memory, the float32 geometry and s. Bound: 8 arrays of 2 bytes,
-// 10.0 us at 1088x1920; 38 operations a pixel a sweep with the two
-// roundings.
+// 10.0 us at 1088x1920 (K9 SOR: 43.4 us at config 5's 16 shards of
+// 572x992); 38 operations a pixel a sweep with the two roundings.
 //
 // The walk itself is in k3_window.cuh, which K8 (sor_planes.cu) shares: all
 // of it in an unnamed namespace, as when it lived here, so that each source
@@ -134,20 +134,21 @@ __global__ void __launch_bounds__(kThreads, 1) sor_kernel(const Args a) {
   walk_tiles<kShard, false>(smem, a, true);
 }
 
-// The bfloat16 build (whole images only).
+// The bfloat16 build, K3 (kShard false) or K9 SOR.
+template <bool kShard>
 __global__ void __launch_bounds__(kThreads, 1) sor_kernel_bf16(const ArgsBf16 a) {
   extern __shared__ __align__(16) float smem[];
-  walk_tiles<false, false>(reinterpret_cast<__nv_bfloat16*>(smem), a, true);
+  walk_tiles<kShard, false>(reinterpret_cast<__nv_bfloat16*>(smem), a, true);
 }
 
-// The kernel and shared bytes of a build: K3 (kShard false) or K9 SOR in
-// float, K3 in bfloat16.
+// The kernel and shared bytes of a build: K3 (kShard false) or K9 SOR, in
+// float or bfloat16.
 template <class A, bool kShard>
 auto build_kernel() {
   if constexpr (kIsFloat<A>)
     return sor_kernel<kShard>;
   else
-    return sor_kernel_bf16;
+    return sor_kernel_bf16<kShard>;
 }
 
 template <class A>
@@ -189,11 +190,10 @@ int launch(const typename A::Elem* u, const typename A::Elem* v,
            int sweeps, float omega, int device, void* stream) {
   if (b < 1 || b > kMaxBatch || h < 1 || w < 1 || sweeps < 1 || sweeps > kMaxSweeps)
     return (int)cudaErrorInvalidValue;
-  if (!kIsFloat<A> && org != nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int grid_max = 0;
-  err = org != nullptr ? configure<Args, true>(device, &grid_max)
+  err = org != nullptr ? configure<A, true>(device, &grid_max)
                        : configure<A, false>(device, &grid_max);
   if (err != cudaSuccess) return (int)err;
   const Geometry g = geometry(sweeps);
@@ -220,12 +220,8 @@ int launch(const typename A::Elem* u, const typename A::Elem* v,
   const long long tiles = (long long)b * a.tiles_x * a.tiles_y;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int grid = (int)(tiles < grid_max ? tiles : grid_max);
-  if constexpr (!kIsFloat<A>)
-    sor_kernel_bf16<<<grid, kThreads, kSmemBytesBf16, (cudaStream_t)stream>>>(a);
-  else if (org != nullptr)
-    sor_kernel<true><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(a);
-  else
-    sor_kernel<false><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(a);
+  const auto kernel = org != nullptr ? build_kernel<A, true>() : build_kernel<A, false>();
+  kernel<<<grid, kThreads, build_smem<A>(), (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -263,6 +259,18 @@ extern "C" int hs_sor_tile_sweeps(const float* u, const float* v,
   if (org == nullptr) return (int)cudaErrorInvalidValue;
   return launch<Args>(u, v, ex, ey, et, invd, uo, vo, org, b, h, w, img_h, img_w,
                       sweeps, omega, device, stream);
+}
+
+// K9 SOR's bfloat16 build: the same arguments, every array bfloat16.
+extern "C" int hs_sor_tile_sweeps_bf16(const __nv_bfloat16* u, const __nv_bfloat16* v,
+                                       const __nv_bfloat16* ex, const __nv_bfloat16* ey,
+                                       const __nv_bfloat16* et, const __nv_bfloat16* invd,
+                                       __nv_bfloat16* uo, __nv_bfloat16* vo, const int* org,
+                                       int b, int h, int w, int img_h, int img_w,
+                                       int sweeps, float omega, int device, void* stream) {
+  if (org == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<ArgsBf16>(u, v, ex, ey, et, invd, uo, vo, org, b, h, w, img_h, img_w,
+                          sweeps, omega, device, stream);
 }
 
 // K3's geometry at `sweeps` on `device` (K9 SOR's with `shard` nonzero),
@@ -304,7 +312,8 @@ extern "C" int hs_sor_geometry(int sweeps, int shard, int device, int* out) {
                : report<Args, false>(sweeps, device, out);
 }
 
-// K3's bfloat16 build, as hs_sor_geometry's.
-extern "C" int hs_sor_geometry_bf16(int sweeps, int device, int* out) {
-  return report<ArgsBf16, false>(sweeps, device, out);
+// The bfloat16 builds (K9 SOR's with `shard` nonzero), as hs_sor_geometry's.
+extern "C" int hs_sor_geometry_bf16(int sweeps, int shard, int device, int* out) {
+  return shard ? report<ArgsBf16, true>(sweeps, device, out)
+               : report<ArgsBf16, false>(sweeps, device, out);
 }

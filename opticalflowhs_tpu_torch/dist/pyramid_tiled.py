@@ -28,8 +28,8 @@ from opticalflowhs_tpu_torch.dist.tiled_solver import (
     gspmd_unported,
     solve_padded,
 )
-from opticalflowhs_tpu_torch.pyramid import gaussian_pyramid, upsample_flow, warp
-from opticalflowhs_tpu_torch.solver import Flow, check_supported, tune_omega
+from opticalflowhs_tpu_torch.pyramid import add_flows, gaussian_pyramid, upsample_flow, warp
+from opticalflowhs_tpu_torch.solver import Flow, tune_omega
 
 
 def _level_solve(f1: torch.Tensor, f2: torch.Tensor, cfg: HSConfig, s: int,
@@ -72,9 +72,8 @@ def hs_pyramid_tiled(
         raise ValueError("halo_sweeps must be >= 1")
     if cfg.solver in ("multigrid", "robust"):
         raise gspmd_unported(cfg.solver)
-    check_supported(cfg)
-    i1 = _as_tensor(i1).to(mesh.first)
-    i2 = _as_tensor(i2).to(mesh.first)
+    i1 = _as_tensor(i1, cfg).to(mesh.first)
+    i2 = _as_tensor(i2, cfg).to(mesh.first)
     if cfg.solver == "sor" and cfg.omega == 0.0:
         # omega = 0 is the identity update: resolve the auto sentinel as
         # hs_pyramid does (single pairs), or reject stacks.
@@ -114,5 +113,5 @@ def hs_pyramid_tiled(
         if flow is None:
             flow = Flow(dflow.u.contiguous(), dflow.v.contiguous())
         else:
-            flow = Flow(flow.u + dflow.u, flow.v + dflow.v)
+            flow = add_flows(flow, dflow)
     return flow

@@ -21,6 +21,12 @@ exchange inside the launch; the fields' halo is exchanged once through
 halo.py. On CPU shards it runs the kernels' plain versions, where the
 reference raises off the TPU (ROADMAP.md queue 3).
 
+float32 or bfloat16 (HSConfig.dtype): the frames are cast first, the
+fields are stored as K1 stores them, and K9-K12's bfloat16 builds (or the
+plain versions under the storage rule) round u and v where every sweep
+stores them; the halos carry the stored values, so the tiled solve equals
+the untiled one bitwise in both dtypes.
+
 The reference's GSPMD routes (solver="robust" and "multigrid") are not
 ported yet and raise NotImplementedError (ROADMAP.md queue 1, item 6); they
 never fall through to Jacobi.
@@ -38,7 +44,7 @@ from opticalflowhs_tpu_torch.dist.halo import move, pad_grid, unpad
 from opticalflowhs_tpu_torch.dist.mesh import Mesh
 from opticalflowhs_tpu_torch.kernels import ring, tile
 from opticalflowhs_tpu_torch.ops import stencils
-from opticalflowhs_tpu_torch.solver import Flow, check_supported, resolve_backend
+from opticalflowhs_tpu_torch.solver import Flow, resolve_backend, storage_dtype
 
 GSPMD_ITEM = "ROADMAP.md queue 1, item 6"
 
@@ -129,7 +135,10 @@ def _fields(lay: Layout, f1: dict, f2: dict, cfg: HSConfig, hy: int, hx: int,
             h: int, w: int) -> dict:
     """Per device: (ex, ey, et, invd) stacks of the shards extended by (hy,
     hx), from frames exchanged with an (hy+1, hx+1)-px halo (hx = 0: no
-    column halo) and the masked derivatives; plain torch on every device."""
+    column halo) and the masked derivatives; plain torch on every device.
+    bfloat16 frames give bfloat16 fields as K1 stores them
+    (`derivatives_plain`): Ex, Ey and Et rounded, 1/den formed from the
+    rounded Ex and Ey and rounded."""
     px = hx + 1 if hx else 0
     p1, p2 = lay.pad(f1, hy + 1, px), lay.pad(f2, hy + 1, px)
     out = {}
@@ -137,10 +146,12 @@ def _fields(lay: Layout, f1: dict, f2: dict, cfg: HSConfig, hy: int, hx: int,
         a, b = p1[dev].flatten(0, 1), p2[dev].flatten(0, 1)
         rows, cols = lay.slice_origins(dev, -(hy + 1), -px)
         masks = tile.tile_masks(a.shape, rows, cols, h, w, dev)
-        ex, ey, et = stencils.derivatives_masked(a, b, masks, cfg.deriv_variant)
+        ex, ey, et = stencils.store(
+            lambda x, y: stencils.derivatives_masked(x, y, masks, cfg.deriv_variant), a, b)
         crop = (slice(1, -1), slice(1, -1) if hx else slice(None))
         ex, ey, et = (x[(Ellipsis,) + crop].contiguous() for x in (ex, ey, et))
-        invd = 1.0 / (cfg.alpha * cfg.alpha + ex * ex + ey * ey)
+        invd = stencils.store(lambda x, y: 1.0 / (cfg.alpha * cfg.alpha + x * x + y * y),
+                              ex, ey)
         out[dev] = (ex, ey, et, invd)
     return out
 
@@ -201,7 +212,8 @@ def tile_body(lay: Layout, f1: dict, f2: dict, cfg: HSConfig, s: int, h: int,
         # over its owned true pixels, reduced over the mesh onto the first
         # device (one host sync a block); an image that has converged keeps
         # its flow, as the reference's vmapped while_loop keeps it. Budget:
-        # cfg.iters rounded down to whole blocks.
+        # cfg.iters rounded down to whole blocks. The updates are taken in
+        # the flow's dtype, as `solver.sweeps_until` takes them.
         b = max(1, min(s, cfg.iters))
         first = lay.mesh.first
         delta = torch.full((lay.groups * lay.bl,), torch.finfo(probe.dtype).max,
@@ -240,12 +252,13 @@ def tile_body_rdma(lay: Layout, f1: dict, f2: dict, cfg: HSConfig, s: int, h: in
     sx = sblk if lay.mx > 1 else 0
     fields = _fields(lay, f1, f2, cfg, sblk, sx, h, w)
     fs = [lay.split({dev: f[q] for dev, f in fields.items()}) for q in range(4)]
+    probe = next(iter(f1.values()))
     shards = {}
     for c in lay.coords:
-        z = torch.zeros((lay.bl, lay.th, lay.tw), device=lay.mesh.devices[c])
+        z = torch.zeros((lay.bl, lay.th, lay.tw), dtype=probe.dtype,
+                        device=lay.mesh.devices[c])
         shards[c] = ring.Shard(z, torch.zeros_like(z), tuple(f[c] for f in fs),
                                *lay.origin(c))
-    probe = next(iter(f1.values()))
     solve = (ring.ring_solve if resolve_backend(cfg.backend, probe) == "cuda"
              else ring.ring_solve_plain)
     res = solve([lay.grid(shards, b) for b in range(lay.groups)], cfg.iters, sblk, h, w)
@@ -254,12 +267,13 @@ def tile_body_rdma(lay: Layout, f1: dict, f2: dict, cfg: HSConfig, s: int, h: in
     return u, v
 
 
-def _as_tensor(a) -> torch.Tensor:
+def _as_tensor(a, cfg: HSConfig) -> torch.Tensor:
+    """Frames in the config's storage dtype (`solver.storage_dtype`)."""
     if isinstance(a, np.ndarray):
         a = torch.from_numpy(np.ascontiguousarray(a))
     elif not isinstance(a, torch.Tensor):
         raise TypeError(f"expected a torch tensor or numpy array, got {type(a)}")
-    return a.to(torch.float32)
+    return a.to(storage_dtype(cfg))
 
 
 def solve_padded(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig, s: int,
@@ -301,7 +315,9 @@ def hs_solve_tiled(
     sweep count). cfg.solver="sor" tiles with a 4*halo_sweeps-px halo and
     colors by global parity. cfg.tol > 0 solves to tolerance: each block's
     max |update| over owned true pixels is reduced over the mesh, one host
-    sync a block; each image of a stack stops on its own.
+    sync a block; each image of a stack stops on its own. cfg.dtype
+    "bfloat16" solves in bfloat16 (the storage rule), equal to the untiled
+    bfloat16 solve.
     """
     if mesh is None:
         raise ValueError("hs_solve_tiled requires a Mesh (dist.make_mesh)")
@@ -329,8 +345,7 @@ def hs_solve_tiled(
             "cfg.tol early stopping needs the ppermute halo path (the "
             "fused rdma kernel bakes a fixed sweep schedule)"
         )
-    check_supported(cfg)
-    i1, i2 = _as_tensor(i1), _as_tensor(i2)
+    i1, i2 = _as_tensor(i1, cfg), _as_tensor(i2, cfg)
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs {tuple(i2.shape)}")
     batched = i1.ndim == 3

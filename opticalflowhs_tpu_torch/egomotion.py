@@ -13,6 +13,15 @@ their centroid the normal equations decouple into closed-form moment
 ratios: a few sums over the field, computed on the flow's device.
 
 Focus of expansion: the fixed point of the model, center - (tx, ty)/s.
+
+bfloat16 flows (the storage rule of ROADMAP.md queue 3): the fit runs in
+float32 on the widened flow, and tx and ty, which the reference returns in
+the flow's dtype, are rounded once to it where they are stored; the
+residual's model and the `center` reparametrisation read the stored
+values, and the latter follows the reference's promotions (bfloat16 tx
+plus float32 terms: float32). omega, scale and the residual stay float32,
+as in the reference. The pixel count n is exact here; the reference's
+bfloat16 sum of ones is not on large frames (ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
@@ -61,6 +70,7 @@ def estimate_egomotion(
             "axis_names= (sums across mesh shards) is not ported yet: it comes "
             "with the rest of dist/ (ROADMAP.md queue 1, item 6)"
         )
+    bf16 = isinstance(flow.u, torch.Tensor) and flow.u.dtype == torch.bfloat16
     u = as_frame(flow.u, device)
     v = as_frame(flow.v, u.device)
     h, w = u.shape[-2], u.shape[-1]
@@ -86,17 +96,19 @@ def estimate_egomotion(
 
     tx = total(u) / n
     ty = total(v) / n
+    if bf16:
+        tx, ty = tx.to(torch.bfloat16), ty.to(torch.bfloat16)
     r2 = total(xb * xb + yb * yb)
     s = total(u * xb + v * yb) / r2
     omega = total(v * xb - u * yb) / r2
 
-    um = b(tx) + b(s) * xb - b(omega) * yb
-    vm = b(ty) + b(s) * yb + b(omega) * xb
+    um = b(tx.float()) + b(s) * xb - b(omega) * yb
+    vm = b(ty.float()) + b(s) * yb + b(omega) * xb
     residual = torch.sqrt(total((u - um) ** 2 + (v - vm) ** 2) / n)
     if center is not None:
         # u = tx + s(x-cx) - w(y-cy) = tx' + s(x-cx') - w(y-cy') with
         # tx' = tx + s(cx'-cx) - w(cy'-cy) (and the rotated analog for ty).
         dx = float(center[0]) - cx
         dy = float(center[1]) - cy
-        tx, ty = tx + s * dx - omega * dy, ty + s * dy + omega * dx
+        tx, ty = tx.float() + s * dx - omega * dy, ty.float() + s * dy + omega * dx
     return EgoMotion(tx, ty, omega, s, residual)

@@ -123,25 +123,22 @@ SIGNATURES = {
     "hs_ring_fused_sweeps": [_P] * 11 + [_I] * 9 + [_U64] + [_I] * 2 + [_P],
 }
 
-# The bfloat16 builds of K1, K2, K6, K7, K3, K8, K4 and K5 (every array
-# bfloat16, the arithmetic float32; csrc/k2_window.cuh's and
-# csrc/k3_window.cuh's storage types) take their float builds' arguments;
-# the geometry and resident-block queries report them.
+# The bfloat16 builds of every kernel, K1-K12 (every array bfloat16, the
+# arithmetic float32; csrc/k2_window.cuh's and csrc/k3_window.cuh's storage
+# types), take their float builds' arguments; the geometry and
+# resident-block queries report them.
 SIGNATURES.update({
     f"{name}_bf16": SIGNATURES[name]
-    for name in ("hs_derivatives", "hs_jacobi_sweeps", "hs_solve_fused_blocks",
-                 "hs_solve_skewed_blocks", "hs_solve_fused_geometry",
-                 "hs_solve_skewed_geometry", "hs_solve_fused_sweeps",
-                 "hs_solve_skewed_sweeps", "hs_sor_sweeps", "hs_sor_planes",
-                 "hs_sor_planes_blocks", "hs_sor_planes_geometry", "hs_robust_freeze",
-                 "hs_robust_sweeps", "hs_robust_geometry", "hs_tvl1_inner",
-                 "hs_tvl1_geometry")
+    for name in ("hs_derivatives", "hs_jacobi_sweeps", "hs_jacobi_geometry",
+                 "hs_solve_fused_blocks", "hs_solve_skewed_blocks",
+                 "hs_solve_fused_geometry", "hs_solve_skewed_geometry",
+                 "hs_solve_fused_sweeps", "hs_solve_skewed_sweeps", "hs_sor_sweeps",
+                 "hs_sor_geometry", "hs_sor_planes", "hs_sor_planes_blocks",
+                 "hs_sor_planes_geometry", "hs_robust_freeze", "hs_robust_sweeps",
+                 "hs_robust_geometry", "hs_tvl1_inner", "hs_tvl1_geometry",
+                 "hs_tile_sweeps", "hs_sor_tile_sweeps", "hs_ring_halo_exchange",
+                 "hs_ring_blocks", "hs_ring_geometry", "hs_ring_fused_sweeps")
 })
-# sweeps, device, out: the bfloat16 builds of K2 and K3, as
-# hs_jacobi_geometry's and hs_sor_geometry's (no shard argument: K9 has no
-# bfloat16 build)
-SIGNATURES["hs_jacobi_geometry_bf16"] = [_I, _I, _IP]
-SIGNATURES["hs_sor_geometry_bf16"] = [_I, _I, _IP]
 
 # Largest batch one launch takes: CUDA's limit on gridDim.z.
 MAX_BATCH = 65535

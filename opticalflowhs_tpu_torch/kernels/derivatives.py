@@ -47,9 +47,9 @@ def derivatives_plain(i1: torch.Tensor, i2: torch.Tensor, alpha: float,
     return (ex, ey, et, invd) + stencils.store(first, ex, ey, et, invd)
 
 
-# The storage types of the kernels with a bfloat16 build (K1, K2, K3, K4's
-# freeze and sweeps, K5, K6, K7, K8 and the K1 + K2, K1 + K3 and K1 + K4
-# drivers); K9-K12 take float32 only.
+# The storage types of the kernels with a bfloat16 build: every one, K1-K12
+# (K4's freeze and sweeps too), and the K1 + K2, K1 + K3 and K1 + K4
+# drivers.
 BF16_DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -269,21 +269,17 @@ def k2_sweeps_schedule_plain(u, v, ex, ey, et, inv_den, n: int, s: int, **kw):
 
 def k2_geometry(device, sweeps: int = AUTO_SWEEPS, shard: bool = False,
                 dtype=torch.float32) -> dict:
-    """K2's (with shard=True K9's; with dtype=torch.bfloat16 K2's bfloat16
+    """K2's (with shard=True K9's; with dtype=torch.bfloat16 the bfloat16
     build's) geometry on a CUDA device at `sweeps`, as the built kernel
     reports it: tile, threads, shared bytes, registers a thread and spilled
     bytes (cudaFuncGetAttributes), resident blocks a multiprocessor and
     multiprocessors."""
     out = (ctypes.c_int * 8)()
     ptr = ctypes.cast(out, ctypes.POINTER(ctypes.c_int))
-    dev = torch.device(device).index or 0
-    if dtype == torch.bfloat16:
-        if shard:
-            raise ValueError("K9 has no bfloat16 build")
-        err = _build.library().hs_jacobi_geometry_bf16(sweeps, dev, ptr)
-    else:
-        err = _build.library().hs_jacobi_geometry(sweeps, int(shard), dev, ptr)
-    _build.check(err, "hs_jacobi_geometry")
+    name = "hs_jacobi_geometry" + _build.bf16_suffix(dtype)
+    err = getattr(_build.library(), name)(sweeps, int(shard),
+                                          torch.device(device).index or 0, ptr)
+    _build.check(err, name)
     keys = ("tile_h", "tile_w", "threads", "smem_bytes", "registers",
             "spill_bytes", "blocks_per_sm", "sms")
     return dict(zip(keys, list(out)))

@@ -34,6 +34,13 @@ copies from the neighbours' shards, then masked sweeps over the extended
 shard); on CUDA tensors the kernels, or they raise. There is no fallback.
 The owned pixels of both are equal bitwise; the halo of the working shard
 is discarded.
+
+float32 or bfloat16: the bfloat16 builds (`hs_ring_halo_exchange_bf16`,
+`hs_ring_fused_sweeps_bf16`) move 2-byte values and run K2's bfloat16 walk,
+with the pairs P0 and P1 in bfloat16; the plain versions copy the same
+values and sweep under the storage rule (`stencils.store`: u and v rounded
+at the end of every sweep), so the exchange carries rounded values, as the
+untiled solve reads them.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ from typing import Optional
 import torch
 
 from opticalflowhs_tpu_torch.kernels import _build
-from opticalflowhs_tpu_torch.kernels.derivatives import check_frames
+from opticalflowhs_tpu_torch.kernels.derivatives import BF16_DTYPES, check_frames
 from opticalflowhs_tpu_torch.kernels.jacobi import (
     K2_LANE_COLS,
     K2_MAX_SWEEPS,
@@ -157,7 +164,8 @@ def ring_halo_exchange_plain(tiles, halo: int):
 
 def ring_halo_exchange(tiles, halo: int):
     """K10 over a ring of shards (a sequence along y, each (h, w) or a
-    (B, h, w) stack, one shape, on CPU or CUDA devices): one launch a device
+    (B, h, w) stack, one shape and one dtype, float32 or bfloat16, on CPU or
+    CUDA devices): one launch a device
     reads each row of its shards once and stores it into the shard's own
     output and, for the edge rows, into the neighbours' halos (csrc/ring.cu:
     a block a row, 16-byte streaming copies where the rows allow them);
@@ -165,9 +173,9 @@ def ring_halo_exchange(tiles, halo: int):
     halo from 1 to h rows is taken."""
     tiles = list(tiles)
     for t in tiles:
-        check_frames("ring_halo_exchange", t)
-        if t.shape != tiles[0].shape:
-            raise ValueError("the shards of a ring differ in shape")
+        check_frames("ring_halo_exchange", t, dtypes=BF16_DTYPES)
+        if t.shape != tiles[0].shape or t.dtype != tiles[0].dtype:
+            raise ValueError("the shards of a ring differ in shape or dtype")
     h, w = tiles[0].shape[-2:]
     if halo < 1:
         raise ValueError(f"halo must be >= 1, got {halo}")
@@ -179,7 +187,8 @@ def ring_halo_exchange(tiles, halo: int):
     nb = tiles[0].shape[0] if tiles[0].ndim == 3 else 1
     outs = [torch.empty(t.shape[:-2] + (h + 2 * halo, w), dtype=t.dtype,
                         device=t.device) for t in tiles]
-    src_px, out_px = h * w * 4, (h + 2 * halo) * w * 4
+    size = tiles[0].element_size()
+    src_px, out_px = h * w * size, (h + 2 * halo) * w * size
     per_device: dict = {}
     for i, t in enumerate(tiles):
         up, dn = (i - 1) % n, (i + 1) % n
@@ -192,13 +201,13 @@ def ring_halo_exchange(tiles, halo: int):
                 outs[up].data_ptr() + k * out_px, outs[dn].data_ptr() + k * out_px))
     devices = list(per_device)
     barrier(devices)
-    lib = _build.library()
+    name = "hs_ring_halo_exchange" + _build.bf16_suffix(tiles[0].dtype)
+    fn = getattr(_build.library(), name)
     for dev, recs in per_device.items():
         table = _table(recs, dev)
-        err = lib.hs_ring_halo_exchange(
-            table.data_ptr(), len(recs), h, w, halo, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "hs_ring_halo_exchange")
+        err = fn(table.data_ptr(), len(recs), h, w, halo, dev.index,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, name)
         ring_halo_exchange.launches += 1
     barrier(devices)
     return outs
@@ -294,8 +303,8 @@ def ring_solve_plain(rings, n_sweeps: int, block_sweeps: int, h: int, w: int):
                 for j in range(mx):
                     uu, vv = ext[i][j]
                     for _ in range(ns):
-                        uu, vv = stencils.jacobi_step_masked(
-                            uu, vv, *grid[i][j].fields, masks[i][j])
+                        uu, vv = stencils.store(stencils.jacobi_step_masked, uu, vv,
+                                                *grid[i][j].fields, masks[i][j])
                     state[i][j] = (uu[..., sy:sy + th, sx:sx + tw],
                                    vv[..., sy:sy + th, sx:sx + tw])
             left -= ns
@@ -323,7 +332,8 @@ def ring_schedule_plain(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
     the owned rectangle only, with the shards' global origins, into a fresh
     pair that holds the owned pixels and NaN elsewhere: no sweep writes a
     halo. Returns the owned (u, v) of every shard; equal to
-    `ring_solve_plain` bitwise (the tests hold it to that)."""
+    `ring_solve_plain` bitwise (the tests hold it to that). float32 only,
+    as `k2_launch_schedule_plain`."""
     th, tw, sy, sx = _geometry(rings)
     if n_sweeps == 0:
         return [[[(sh.u, sh.v) for sh in row] for row in grid] for grid in rings]
@@ -380,24 +390,28 @@ def ring_schedule_plain(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
 
 
 @functools.cache
-def resident_blocks(device: int) -> int:
-    """The most K11/K12 blocks resident at once on `device` (one an SM)."""
+def resident_blocks(device: int, dtype=torch.float32) -> int:
+    """The most K11/K12 blocks of the build for `dtype` resident at once on
+    `device` (one an SM): the size of a cooperative grid."""
     out = ctypes.c_int(0)
-    err = _build.library().hs_ring_blocks(device, ctypes.byref(out))
-    _build.check(err, "hs_ring_blocks")
+    name = "hs_ring_blocks" + _build.bf16_suffix(dtype)
+    err = getattr(_build.library(), name)(device, ctypes.byref(out))
+    _build.check(err, name)
     return out.value
 
 
-def ring_geometry(device, sweeps: int = 8, two_d: bool = False) -> dict:
-    """K11's (two_d=True: K12's) build at `sweeps` on a CUDA device, as
-    `solve_fused.build_geometry` reports K6's: K2's tile, threads, shared
-    bytes, registers a thread, spilled bytes, resident blocks a
-    multiprocessor, multiprocessors."""
+def ring_geometry(device, sweeps: int = 8, two_d: bool = False,
+                  dtype=torch.float32) -> dict:
+    """K11's (two_d=True: K12's; dtype=torch.bfloat16: the bfloat16 build's)
+    build at `sweeps` on a CUDA device, as `solve_fused.build_geometry`
+    reports K6's: K2's tile, threads, shared bytes, registers a thread,
+    spilled bytes, resident blocks a multiprocessor, multiprocessors."""
     out = (ctypes.c_int * 8)()
-    err = _build.library().hs_ring_geometry(
+    name = "hs_ring_geometry" + _build.bf16_suffix(dtype)
+    err = getattr(_build.library(), name)(
         sweeps, int(two_d), torch.device(device).index or 0,
         ctypes.cast(out, ctypes.POINTER(ctypes.c_int)))
-    _build.check(err, "hs_ring_geometry")
+    _build.check(err, name)
     keys = ("tile_h", "tile_w", "threads", "smem_bytes", "registers",
             "spill_bytes", "blocks_per_sm", "sms")
     return dict(zip(keys, list(out)))
@@ -447,14 +461,18 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
     CUDA devices: one cooperative launch a device for every image it holds,
     `ring_solve_plain` on CPU tensors. `blocks` > 0 forces each launch's
     grid (a grid too large to be resident raises). Returns the owned (u, v)
-    of every shard, views of the kernel's pairs."""
+    of every shard, views of the kernel's pairs. float32 or bfloat16, one
+    dtype for every array."""
     th, tw, sy, sx = _geometry(rings)
     shards = [sh for grid in rings for row in grid for sh in row]
+    dtype = shards[0].u.dtype
     for sh in shards:
-        check_frames("ring_solve", sh.u, sh.v)
-        check_frames("ring_solve", *sh.fields)
+        check_frames("ring_solve", sh.u, sh.v, dtypes=BF16_DTYPES)
+        check_frames("ring_solve", *sh.fields, dtypes=BF16_DTYPES)
         if sh.fields[0].device != sh.u.device:
             raise ValueError("a shard's fields lie on another device than its flow")
+        if sh.u.dtype != dtype or sh.fields[0].dtype != dtype:
+            raise ValueError("the arrays of a ring solve differ in dtype")
     if _device_kind([sh.u for sh in shards]) == "cpu":
         return ring_solve_plain(rings, n_sweeps, block_sweeps, h, w)
     if n_sweeps == 0:
@@ -475,7 +493,7 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
     state: dict = {}
     for dev, members in local.items():
         b = len(members) * nb
-        pairs = torch.empty((4, b, eh, ew), dtype=torch.float32, device=dev)
+        pairs = torch.empty((4, b, eh, ew), dtype=dtype, device=dev)
         for k, sh in enumerate(members):
             first[id(sh)] = k * nb
             pairs[0, k * nb:(k + 1) * nb][(Ellipsis,) + own] = sh.u.reshape(nb, th, tw)
@@ -512,7 +530,8 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
                         *(image(n, q, k) for n in nbs for q in range(4)),
                         *(flags(n, k) for n in nbs), flags(sh, k))
     devices = list(local)
-    lib = _build.library()
+    name = "hs_ring_fused_sweeps" + _build.bf16_suffix(dtype)
+    fn = getattr(_build.library(), name)
     th_k, tw_k, _ = k2_tile(s)
     barrier(devices)
     counter = ring_fused_sweeps_2d if sx else ring_fused_sweeps
@@ -521,13 +540,13 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
         b = pairs.shape[1]
         table = _table(links[dev], dev)
         tiles = b * -(-th // th_k) * -(-tw // tw_k)
-        grid_blocks = blocks if blocks > 0 else min(tiles, resident_blocks(dev.index))
+        grid_blocks = blocks if blocks > 0 else min(tiles, resident_blocks(dev.index, dtype))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hs_ring_fused_sweeps(
+        err = fn(
             table.data_ptr(), org.data_ptr(), *(pairs[q].data_ptr() for q in range(4)),
             *(f.data_ptr() for f in fields), barrier_count(dev.index, stream).data_ptr(),
             b, eh, ew, sy, sx, h, w, n_sweeps, s, epoch0, grid_blocks, dev.index, stream)
-        _build.check(err, "hs_ring_fused_sweeps")
+        _build.check(err, name)
         counter.launches += 1
     barrier(devices)
     q = 2 if n_blocks % 2 else 0

@@ -269,13 +269,11 @@ def k3_sweeps_schedule_plain(u, v, ex, ey, et, inv_den, n: int, s: int, omega: f
 
 def k3_geometry(device, sweeps: int = 4, shard: bool = False,
                 dtype=torch.float32) -> dict:
-    """K3's (with shard=True K9 SOR's; with dtype=torch.bfloat16 K3's
+    """K3's (with shard=True K9 SOR's; with dtype=torch.bfloat16 the
     bfloat16 build's) geometry on a CUDA device at `sweeps`, as the built
     kernel reports it: sweeps, tile, threads, shared bytes, registers a
     thread and spilled bytes (cudaFuncGetAttributes), resident blocks a
     multiprocessor and multiprocessors."""
-    if dtype == torch.bfloat16 and shard:
-        raise ValueError("K9 has no bfloat16 build")
     return dict(_geometry(torch.device(device).index or 0, sweeps, bool(shard),
                           _build.bf16_suffix(dtype)))
 
@@ -284,10 +282,7 @@ def k3_geometry(device, sweeps: int = 4, shard: bool = False,
 def _geometry(index: int, sweeps: int, shard: bool, bf16: str = "") -> tuple:
     out = (ctypes.c_int * 9)()
     ptr = ctypes.cast(out, ctypes.POINTER(ctypes.c_int))
-    if bf16:
-        err = _build.library().hs_sor_geometry_bf16(sweeps, index, ptr)
-    else:
-        err = _build.library().hs_sor_geometry(sweeps, int(shard), index, ptr)
+    err = getattr(_build.library(), "hs_sor_geometry" + bf16)(sweeps, int(shard), index, ptr)
     _build.check(err, "hs_sor_geometry" + bf16)
     keys = ("sweeps", "tile_h", "tile_w", "threads", "smem_bytes", "registers",
             "spill_bytes", "blocks_per_sm", "sms")

@@ -25,6 +25,12 @@ jacobi_step_masked` and `sor_step_masked` over the whole padded shard), on
 CUDA tensors the kernel, or they raise; there is no fallback. Both sides
 clamp at the shard's own edges, so the kernel equals the plain version on
 every element of the padded shard, halo included.
+
+float32 or bfloat16: the bfloat16 builds (`hs_tile_sweeps_bf16`,
+`hs_sor_tile_sweeps_bf16`) run K2's and K3's bfloat16 walks at the float32
+geometry and s, and the plain versions follow the storage rule
+(`stencils.store`: float32 arithmetic, u and v rounded at the end of every
+sweep; an SOR sweep's four color stages in float32).
 """
 
 from __future__ import annotations
@@ -36,7 +42,11 @@ import torch
 from opticalflowhs_tpu_torch.kernels import _build
 from opticalflowhs_tpu_torch.kernels import jacobi as k2
 from opticalflowhs_tpu_torch.kernels import sor as k3
-from opticalflowhs_tpu_torch.kernels.derivatives import batch_dims, check_frames
+from opticalflowhs_tpu_torch.kernels.derivatives import (
+    BF16_DTYPES,
+    batch_dims,
+    check_frames,
+)
 from opticalflowhs_tpu_torch.ops import stencils
 
 Origins = Union[int, Sequence[int], torch.Tensor]
@@ -64,23 +74,25 @@ def tile_masks(shape, row0: Origins, col0: Origins, h: int, w: int, device):
 
 def tile_sweeps_plain(u, v, ex, ey, et, inv_den, n_sweeps: int, row0: Origins,
                       col0: Origins, h: int, w: int):
-    """n masked Jacobi sweeps over the whole padded shard (or stack)."""
+    """n masked Jacobi sweeps over the whole padded shard (or stack); in
+    bfloat16 under the storage rule."""
     masks = tile_masks(u.shape, row0, col0, h, w, u.device)
     for _ in range(n_sweeps):
-        u, v = stencils.jacobi_step_masked(u, v, ex, ey, et, inv_den, masks)
+        u, v = stencils.store(stencils.jacobi_step_masked, u, v, ex, ey, et, inv_den, masks)
     return u, v
 
 
 def sor_tile_sweeps_plain(u, v, ex, ey, et, inv_den, n_sweeps: int,
                           omega: float, row0: Origins, col0: Origins, h: int,
                           w: int):
-    """n masked 4-color SOR sweeps, colors by global parity."""
+    """n masked 4-color SOR sweeps, colors by global parity; in bfloat16
+    under the storage rule (u and v rounded once a sweep)."""
     gr, gc = origin_grids(u.shape, row0, col0, u.device)
     masks = stencils.edge_masks(gr, gc, h, w)
     colors = stencils.global_colors(gr, gc)
     for _ in range(n_sweeps):
-        u, v = stencils.sor_step_masked(u, v, ex, ey, et, inv_den, omega,
-                                        colors, masks)
+        u, v = stencils.store(stencils.sor_step_masked, u, v, ex, ey, et, inv_den, omega,
+                              colors, masks)
     return u, v
 
 
@@ -107,10 +119,10 @@ def _check_table(u, org):
 def _launcher(entry: str, u, ex, ey, et, inv_den, org, h: int, w: int,
               omega=None):
     """launch(su, sv, du, dv, k) for `jacobi.ping_pong`: one K9 launch of k
-    sweeps over the whole stack."""
+    sweeps over the whole stack, through the build of u's dtype."""
     b, ph, pw = batch_dims(entry, u)
     lib = _build.library()
-    fn = getattr(lib, entry)
+    fn = getattr(lib, entry + _build.bf16_suffix(u.dtype))
     stream = torch.cuda.current_stream(u.device).cuda_stream
     extra = () if omega is None else (float(omega),)
 
@@ -131,8 +143,9 @@ def tile_sweeps(u, v, ex, ey, et, inv_den, n_sweeps: int, org: torch.Tensor,
     stack: clamps at the true h x w image from each slice's global origin,
     given as an `origin_table`. On CUDA tensors ceil(n/s) K9 launches for
     the whole stack (s as K2: `jacobi.sweeps_per_launch(block_sweeps)`), on
-    CPU tensors `tile_sweeps_plain`. Returns the padded (u, v)."""
-    check_frames("tile_sweeps", u, v, ex, ey, et, inv_den)
+    CPU tensors `tile_sweeps_plain`. float32 or bfloat16. Returns the
+    padded (u, v)."""
+    check_frames("tile_sweeps", u, v, ex, ey, et, inv_den, dtypes=BF16_DTYPES)
     _check_table(u, org)
     if n_sweeps == 0:
         return u, v
@@ -149,8 +162,8 @@ def sor_tile_sweeps(u, v, ex, ey, et, inv_den, n_sweeps: int, omega: float,
     """SOR twin of `tile_sweeps`: n 4-color sweeps, colors by global parity;
     ceil(n/s) launches of K9's SOR entry (s by K3's rule,
     `sor.sweeps_per_launch`, for the stack), or the plain version on CPU
-    tensors."""
-    check_frames("sor_tile_sweeps", u, v, ex, ey, et, inv_den)
+    tensors. float32 or bfloat16."""
+    check_frames("sor_tile_sweeps", u, v, ex, ey, et, inv_den, dtypes=BF16_DTYPES)
     _check_table(u, org)
     if n_sweeps == 0:
         return u, v

@@ -204,12 +204,12 @@ def lk_solve_batched(
 def lk_solve_tiled(i1, i2, cfg: LKConfig = LKConfig(),
                    pyr: PyramidConfig = _SINGLE_PYR, mesh=None):
     """Spatially tiled LK over a device mesh: comes with the rest of
-    dist/ (and in bfloat16 with item 5's dist/ part)."""
+    dist/, in both dtypes (ROADMAP.md queue 1, item 6)."""
     if getattr(cfg, "dtype", None) == "bfloat16":
         raise NotImplementedError(
-            "lk_solve_tiled in bfloat16 is not ported yet: bfloat16 on dist/ "
-            "and the tiled entries is ROADMAP.md queue 1, item 5's last part "
-            "(the rest of dist/ is item 6)"
+            "lk_solve_tiled in bfloat16 is not ported yet: bfloat16 on dist/ runs "
+            "the tiled HS solves; this entry comes with the rest of dist/ "
+            "(ROADMAP.md queue 1, item 6), in both dtypes"
         )
     raise NotImplementedError(
         "lk_solve_tiled shards a frame over devices and is not ported yet: "

@@ -22,13 +22,12 @@ caller asks for it (`device="cpu"`, or CPU tensors).
 
 Scope: the solvers "jacobi", "sor", "robust" and "multigrid" (iters counts
 V-cycles), with a fixed sweep count or solved to tolerance
-(`sweeps_until`), in float32 and, untiled, in bfloat16 (`HSConfig.dtype`),
-by the storage rule of the package docstring, through the bfloat16 builds
-of K1, K2, K6 and K7 (Jacobi), K3 (SOR) and K4 (IRLS) on the cuda backend;
+(`sweeps_until`), in float32 and in bfloat16 (`HSConfig.dtype`), by the
+storage rule of the package docstring, through the bfloat16 builds of K1,
+K2, K6 and K7 (Jacobi), K3 (SOR) and K4 (IRLS) on the cuda backend;
 multigrid runs K1's bfloat16 build, then its plain V-cycles by the same
-rule. bfloat16 on the tiled solver (dist/) is still to be ported
-(ROADMAP.md queue 1, item 5) and raises NotImplementedError rather than
-solving in float32.
+rule. The tiled solver (dist/) runs Jacobi and SOR in both dtypes, through
+the bfloat16 builds of K9-K12.
 
 Gradients: both backends differentiate with respect to the frames and a
 warm start. The plain ops tape through `stencils.checkpointed_loop`
@@ -89,19 +88,6 @@ def resolve_backend(backend: str, frame: torch.Tensor) -> str:
             f"backend='cuda' needs CUDA tensors; the frames are on {frame.device}"
         )
     return backend
-
-
-def check_supported(cfg: HSConfig) -> None:
-    """Raise NotImplementedError for the configurations the tiled solver
-    (dist/'s entries) cannot solve yet: every solver runs in float32 there,
-    and bfloat16 runs untiled only."""
-    if cfg.dtype == "bfloat16":
-        raise NotImplementedError(
-            "dtype='bfloat16' with the tiled solver (dist/) is not ported yet "
-            "(ROADMAP.md queue 1, item 5: bf16 runs for every solver, TV-L1 "
-            "and LK untiled; only dist/ is still to port); use "
-            "dtype='float32'"
-        )
 
 
 def storage_dtype(cfg) -> torch.dtype:

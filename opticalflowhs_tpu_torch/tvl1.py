@@ -284,12 +284,12 @@ def tvl1_solve_batched(
 def tvl1_solve_tiled(i1, i2, cfg: TVL1Config = TVL1Config(),
                      pyr: PyramidConfig = PyramidConfig(levels=1), mesh=None):
     """Spatially tiled TV-L1 over a device mesh: comes with the rest of
-    dist/ (and in bfloat16 with item 5's dist/ part)."""
+    dist/, in both dtypes (ROADMAP.md queue 1, item 6)."""
     if getattr(cfg, "dtype", None) == "bfloat16":
         raise NotImplementedError(
-            "tvl1_solve_tiled in bfloat16 is not ported yet: bfloat16 on dist/ "
-            "and the tiled entries is ROADMAP.md queue 1, item 5's last part "
-            "(the rest of dist/ is item 6)"
+            "tvl1_solve_tiled in bfloat16 is not ported yet: bfloat16 on dist/ runs "
+            "the tiled HS solves; this entry comes with the rest of dist/ "
+            "(ROADMAP.md queue 1, item 6), in both dtypes"
         )
     raise NotImplementedError(
         "tvl1_solve_tiled shards a frame over devices and is not ported yet: "

@@ -308,32 +308,40 @@ def test_bidirectional_and_occlusion_streams_bf16():
 
 def test_bf16_refusals():
     # Every solver, TV-L1 and LK run in bfloat16 untiled (tests/port/
-    # test_torch_bf16_sor_robust.py, test_torch_bf16_tvl1_mg_lk.py); dist/
-    # and the tiled TV-L1 and LK entries still refuse, and so does K9.
+    # test_torch_bf16_sor_robust.py, test_torch_bf16_tvl1_mg_lk.py), and
+    # hs_solve_tiled in bfloat16 solves, = the untiled solve bitwise
+    # (test_torch_bf16_dist.py); the tiled TV-L1 and LK entries still
+    # refuse in both dtypes (the rest of dist/, ROADMAP.md item 6).
     from opticalflowhs_tpu_torch import LKConfig, MeshConfig, TVL1Config
     from opticalflowhs_tpu_torch.dist import hs_solve_tiled, make_mesh
-    from opticalflowhs_tpu_torch.kernels import tile as k9
     from opticalflowhs_tpu_torch.lucas_kanade import lk_solve_tiled
     from opticalflowhs_tpu_torch.tvl1 import tvl1_solve_tiled
 
     z = torch.zeros(16, 16)
     mesh = make_mesh(MeshConfig(y=2, x=1), ["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        hs_solve_tiled(z, z, HSConfig(solver="sor", dtype="bfloat16"), mesh)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    i1, i2 = (torch.from_numpy(a) for a in translation_pair(16, 16, 1.0, 0.0, key=2)[:2])
+    for cfg in (HSConfig(solver="sor", iters=5, dtype="bfloat16"),
+                HSConfig(iters=5, dtype="bfloat16")):
+        got = hs_solve_tiled(i1, i2, cfg, mesh)
+        want = hs_solve(i1, i2, cfg)
+        assert got.u.dtype == BF16
+        assert torch.equal(got.u, want.u) and torch.equal(got.v, want.v)
+    with pytest.raises(NotImplementedError, match="item 6"):
         tvl1_solve_tiled(z, z, TVL1Config(dtype="bfloat16"), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         lk_solve_tiled(z, z, LKConfig(dtype="bfloat16"), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="dist/"):
-        hs_solve_tiled(z, z, HSConfig(dtype="bfloat16"), mesh)
     with pytest.raises(ValueError, match="dtype must be one of"):
         HSConfig(dtype="float16")
+    # K9 takes float32 or bfloat16, one dtype across its arrays.
+    from opticalflowhs_tpu_torch.kernels import tile as k9
+
     b = z.to(BF16)
+    half = z.half()[None]
     org = k9.origin_table(b[None], [0], [0])
-    with pytest.raises(ValueError, match="expected float32"):
-        k9.tile_sweeps(*(b[None] for _ in range(6)), 2, org, 16, 16)
-    with pytest.raises(ValueError, match="expected float32"):
-        k9.sor_tile_sweeps(*(b[None] for _ in range(6)), 2, 1.5, org, 16, 16)
+    with pytest.raises(ValueError, match="expected float32 or bfloat16"):
+        k9.tile_sweeps(*(half for _ in range(6)), 2, org, 16, 16)
+    with pytest.raises(ValueError, match="dtype"):
+        k9.sor_tile_sweeps(b[None], *(z[None] for _ in range(5)), 2, 1.5, org, 16, 16)
     with pytest.raises(ValueError, match="dtype"):
         k2.jacobi_sweeps(b, b, z, z, z, z, 2)  # one dtype across the arrays
 

@@ -1546,19 +1546,24 @@ def test_k11_grid_too_large_is_refused(dev):
         ring.ring_fused_sweeps(u, v, f, 8, 4, [0, 40], 80, 93, blocks=100_000)
 
 
-def _dist_guarded(dev):
-    u0, v0, fields = _tile_problem(dev, (40, 56), 75)
+def _dist_guarded(dev, dtype=torch.float32):
+    """(tensor, call) of each dist/ kernel entry, its arrays in `dtype`."""
+    u0, v0, fields = (a.to(dtype) if torch.is_tensor(a) else tuple(f.to(dtype) for f in a)
+                      for a in _tile_problem(dev, (40, 56), 75))
     gu, gv, gf, go = _ring_problem(dev, 2, 1, 20, 56, 4, 0, 76, 40, 56)
-    i1, i2 = _rand((40, 56), dev, 77)
+    gu, gv = ([[a.to(dtype) for a in row] for row in g] for g in (gu, gv))
+    gf = [[tuple(f.to(dtype) for f in fs) for fs in row] for row in gf]
+    i1, i2 = (a.to(dtype) for a in _rand((40, 56), dev, 77))
     mesh = make_mesh(MeshConfig(y=2, x=2), [dev] * 4)
     org = k9.origin_table(u0, -3, -3)
+    cfg = HSConfig(iters=3, dtype=str(dtype).removeprefix("torch."))
     return [
         (u0, lambda a: k9.tile_sweeps(a, v0, *fields, 3, org, 40, 56)),
         (u0, lambda a: k9.sor_tile_sweeps(a, v0, *fields, 3, 1.6, org, 40, 56)),
         (u0, lambda a: ring.ring_halo_exchange([a, v0], 2)),
         (gu[0][0], lambda a: ring.ring_fused_sweeps([a, gu[1][0]], [gv[0][0], gv[1][0]],
                                                     [gf[0][0], gf[1][0]], 4, 4, [0, 20], 40, 56)),
-        (i1, lambda a: hs_solve_tiled(a, i2, HSConfig(iters=3), mesh)),
+        (i1, lambda a: hs_solve_tiled(a, i2, cfg, mesh)),
     ]
 
 
@@ -1933,25 +1938,27 @@ def test_bf16_entries_differentiate_as_their_plain_twins(dev, shape, name):
 
 
 def test_bf16_is_refused_where_no_build_exists(dev):
-    # K3, K4, K5 and K8 have bfloat16 builds (below); K9-K12 and the tiled
-    # entries (dist/) do not.
+    # Every kernel, K1-K12, has a bfloat16 build, and the tiled HS solves run
+    # in bfloat16 (below); what is refused: tvl1_solve_tiled in both dtypes
+    # (the rest of dist/, ROADMAP.md item 6) and arrays of two dtypes.
     u, v, i1, i2 = _rand16((40, 56), dev, 115, n=4)
     f = k1.derivatives_plain(i1, i2, 0.5)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         tv.tvl1_solve_tiled(i1, i2, TVL1Config(dtype="bfloat16"))
-    with pytest.raises(ValueError, match="float32"):
-        k9.tile_sweeps(u[None], v[None], *(a[None] for a in f), 2, None, 40, 56)
-    with pytest.raises(ValueError, match="float32"):
-        k9.sor_tile_sweeps(u[None], v[None], *(a[None] for a in f), 2, 1.6, None, 40, 56)
+    org = k9.origin_table(u[None], 0, 0)
+    with pytest.raises(ValueError, match="dtype"):
+        k9.tile_sweeps(u[None], v[None].float(), *(a[None] for a in f), 2, org, 40, 56)
+    with pytest.raises(ValueError, match="dtype"):
+        k9.sor_tile_sweeps(u[None], v[None], *(a[None].float() for a in f), 2, 1.6, org, 40, 56)
     with pytest.raises(ValueError, match="float32|bfloat16"):
         k1.hs_derivatives(i1, i2.float(), 0.5)  # one dtype across the arrays
     with pytest.raises(ValueError, match="float32|bfloat16"):
         k3.sor_sweeps(u, v.float(), *f, 5, 1.6)
-    with pytest.raises(ValueError, match="K9 has no bfloat16 build"):
-        k3.k3_geometry(dev, 4, shard=True, dtype=BF16)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        hs_solve_tiled(i1, i2, HSConfig(dtype="bfloat16"), make_mesh(MeshConfig(y=2, x=1),
-                                                                      [dev] * 2))
+    assert k3.k3_geometry(dev, 4, shard=True, dtype=BF16)["spill_bytes"] == 0
+    cfg = HSConfig(iters=6, dtype="bfloat16")
+    got = hs_solve_tiled(i1, i2, cfg, make_mesh(MeshConfig(y=2, x=1), [dev] * 2))
+    assert got.u.dtype == BF16
+    _equal(got, hs_solve(i1, i2, cfg))
 
 
 # -- bfloat16: K3, K4 (freeze and sweeps) and K8's bfloat16 builds ---------------
@@ -2410,3 +2417,249 @@ def test_k5_bf16_differentiates_as_its_plain_twin(dev, shape):
     assert k5.tvl1_inner.launches == fwd
     _equal([o.detach() for o in outs], [o.detach() for o in want_outs])
     _equal(grads, want)
+
+
+# -- bfloat16: K9-K12's bfloat16 builds and the tiled solver in bfloat16 -------
+#
+# K9 runs K2's and K3's bfloat16 walks on shards, K11 and K12 K2's with the
+# pairs in bfloat16, K10 moves 2-byte values: each equals its plain
+# bfloat16 twin bitwise, with float32's geometry, s and launches, at the
+# float32 cases' shapes, with rows that take the 2-, 8- and 16-byte paths.
+
+
+def _tile_problem16(dev, shape, seed, stack=0):
+    full = (stack,) + shape if stack else shape
+    i1, i2 = _rand16(full, dev, seed)
+    fields = k1.derivatives_plain(i1, i2, 0.5)
+    u0, v0 = _rand16(full, dev, seed + 1, normal=True)
+    return u0, v0, fields
+
+
+def _k9_pair(sor, u0, v0, fields, n, rows, cols, h, w, **kw):
+    """K9 on CUDA shards and its plain twin, (got, want)."""
+    org = k9.origin_table(u0, rows, cols)
+    if sor:
+        return (k9.sor_tile_sweeps(u0, v0, *fields, n, 1.6, org, h, w, **kw),
+                k9.sor_tile_sweeps_plain(u0, v0, *fields, n, 1.6, rows, cols, h, w))
+    return (k9.tile_sweeps(u0, v0, *fields, n, org, h, w, **kw),
+            k9.tile_sweeps_plain(u0, v0, *fields, n, rows, cols, h, w))
+
+
+@pytest.mark.parametrize("shape", [(67, 93), (131, 130), (70, 248)])
+@pytest.mark.parametrize("corner", list(_CORNERS))
+@pytest.mark.parametrize("sor", [False, True])
+def test_k9_bf16_equals_plain(dev, shape, corner, sor):
+    u0, v0, fields = _tile_problem16(dev, shape, 170)
+    r0, c0 = _CORNERS[corner](*shape)
+    for n in (7, 13):
+        got, want = _k9_pair(sor, u0, v0, fields, n, r0, c0, 300, 400)
+        assert got[0].dtype == BF16
+        _equal(got, want)  # every element of the padded shard, halo included
+
+
+@pytest.mark.parametrize("s", [1, 3, 4, 8])
+@pytest.mark.parametrize("shape", [(37, 45), (60, 140), (60, 136)])
+def test_k9_bf16_true_edges_at_warp_and_lane_boundaries(dev, s, shape):
+    rows, cols = _k2_edge_origins(s)
+    h, w = 70, 150
+    rows = rows + [h - shape[0] + 2, h - shape[0] + 5]
+    cols = cols + [w - shape[1] + 3, w - shape[1] + 4]
+    u0, v0, fields = _tile_problem16(dev, shape, 176, stack=len(rows))
+    k9.tile_sweeps.launches = 0
+    got, want = _k9_pair(False, u0, v0, fields, 2 * s + 1, rows, cols, h, w, block_sweeps=s)
+    assert k9.tile_sweeps.launches == 3
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("sor", [False, True])
+def test_k9_bf16_stack_of_shards_is_one_launch(dev, sor):
+    u0, v0, fields = _tile_problem16(dev, (67, 93), 172, stack=3)
+    rows, cols = [-4, 117, 300 - 67 + 3], [-3, 33, 400 - 93 + 4]
+    counter = k9.sor_tile_sweeps if sor else k9.tile_sweeps
+    counter.launches = 0
+    got, want = _k9_pair(sor, u0, v0, fields, 4, rows, cols, 300, 400)
+    assert counter.launches == 1
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("s", range(1, k3.K3_MAX_SWEEPS + 1))
+@pytest.mark.parametrize("pw", [150, 136])
+def test_k9_sor_bf16_at_odd_and_even_origins_equals_plain(dev, s, pw):
+    ph = 37
+    rows = [-4, -3, 117, 116, 5, 300 - ph + 3, 300 - ph + 4]
+    cols = [-3, -4, 33, 32, -8, 400 - pw + 4, 400 - pw + 5]
+    u0, v0, fields = _tile_problem16(dev, (ph, pw), 204, stack=len(rows))
+    k9.sor_tile_sweeps.launches = 0
+    got, want = _k9_pair(True, u0, v0, fields, 2 * s + 1, rows, cols, 300, 400, block_sweeps=s)
+    assert k9.sor_tile_sweeps.launches == k3.launches(2 * s + 1, s)
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("w", [64, 93])
+@pytest.mark.parametrize("off", [1, 4, 8])
+@pytest.mark.parametrize("sor", [False, True])
+def test_k9_bf16_unaligned_views_equal_plain(dev, w, off, sor):
+    # Views 2, 8 and 16 bytes into their storage: the 2-byte loads, the
+    # 8-byte copies, and the 16-byte copies where w is a multiple of 8.
+    u0, v0, i1, i2 = _wide_views(dev, 45, w, off, 260, b=2)
+    fields = [f.contiguous() for f in k1.derivatives_plain(i1, i2, 0.5)]
+    views = []
+    for f in fields:
+        buf = torch.empty(off + f.numel(), dtype=BF16, device=dev)
+        buf[off:] = f.flatten()
+        views.append(buf[off:].view(f.shape))
+    got, want = _k9_pair(sor, u0, v0, views, 9, [-3, 20], [-2, 5], 80, w + 9)
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("w", [40, 36, 37, 39])
+@pytest.mark.parametrize("halo", [1, 10])
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+@pytest.mark.parametrize("stack", [0, 3])
+def test_k10_bf16_row_paths_equal_plain(dev, w, halo, n_shards, stack):
+    # 16-byte rows (w % 8 == 0) and 2-byte rows, halos of one row and of
+    # the whole shard, rings of 1, 2 and 4 shards, single and stacked.
+    tiles = [_rand16(((stack,) if stack else ()) + (10, w), dev, 185 + k, n=1)[0]
+             for k in range(n_shards)]
+    ring.ring_halo_exchange.launches = 0
+    got = ring.ring_halo_exchange(tiles, halo)
+    assert ring.ring_halo_exchange.launches == 1
+    for g, r in zip(got, ring.ring_halo_exchange_plain(tiles, halo)):
+        assert g.dtype == BF16 and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("off", [1, 4])
+@pytest.mark.parametrize("halo", [1, 5, 12])
+def test_k10_bf16_unaligned_views_equal_plain(dev, off, halo):
+    h, w = 12, 64
+    tiles = [v[0] for v in _wide_views(dev, h, w, off, 188)]
+    assert tiles[0].data_ptr() % 16 != 0
+    got = ring.ring_halo_exchange(tiles, halo)
+    for g, r in zip(got, ring.ring_halo_exchange_plain(tiles, halo)):
+        assert torch.equal(g, r)
+
+
+def _ring_rings16(dev, my, mx, s, seed, **kw):
+    """_ring_rings in bfloat16 (the same values rounded once)."""
+    rings, h, w = _ring_rings(dev, my, mx, s, seed, **kw)
+    for row in rings[0]:
+        for k, sh in enumerate(row):
+            row[k] = ring.Shard(sh.u.to(BF16), sh.v.to(BF16),
+                                tuple(f.to(BF16) for f in sh.fields), sh.row0, sh.col0)
+    return rings, h, w
+
+
+@pytest.mark.parametrize("s", range(1, ring.MAX_RING_SWEEPS + 1))
+@pytest.mark.parametrize("my,mx", RING_MESHES)
+def test_k11_k12_bf16_equal_plain_at_every_block_depth(dev, my, mx, s):
+    # sx = s: column halos of s take the 2-byte exchange (the 16-byte one
+    # needs s and the width multiples of 8).
+    rings, h, w = _ring_rings16(dev, my, mx, s, 300 + s)
+    _ring_equal(rings, 2 * s + 1, s, h, w)
+
+
+@pytest.mark.parametrize("my,mx", RING_MESHES)
+@pytest.mark.parametrize("stack", [0, 3])
+@pytest.mark.parametrize("warm", [False, True])
+def test_k11_k12_bf16_stacks_and_starts_equal_plain(dev, my, mx, stack, warm):
+    rings, h, w = _ring_rings16(dev, my, mx, 4, 330, stack=stack, warm=warm)
+    _ring_equal(rings, 13, 4, h, w)
+
+
+@pytest.mark.parametrize("my,mx", [(4, 0), (2, 2), (1, 4)])
+@pytest.mark.parametrize("blocks", [0, 1, 3])
+def test_k11_k12_bf16_wide_rows_equal_plain(dev, my, mx, blocks):
+    # s = 8 and widths multiples of 8: 16-byte staging and, in both
+    # exchange phases, 16-byte rectangles.
+    rings, h, w = _ring_rings16(dev, my, mx, 8, 340, th=70, tw=48 if mx else 64)
+    assert rings[0][0][0].fields[0].shape[-1] % 8 == 0
+    _ring_equal(rings, 21, 8, h, w, blocks=blocks)
+
+
+@pytest.mark.parametrize("mx", [0, 1])
+@pytest.mark.parametrize("off", [1, 4])
+def test_k11_k12_bf16_unaligned_views_equal_plain(dev, mx, off):
+    s, th, tw = 4, 50, 64
+    sx = s if mx else 0
+    eh, ew = th + 2 * s, tw + 2 * sx
+    i1, i2 = (v[0] for v in _wide_views(dev, eh, ew, off, 350, b=1)[:2])
+    views = []
+    for f in k1.derivatives_plain(i1.contiguous(), i2.contiguous(), 0.5):
+        buf = torch.empty(off + eh * ew, dtype=BF16, device=dev)
+        buf[off:] = f.flatten()
+        views.append(buf[off:].view(eh, ew))
+    assert views[0].data_ptr() % 16 != 0
+    u0, v0 = _rand16((th, tw), dev, 352, normal=True)
+    rings = [[[ring.Shard(u0, v0, tuple(views), 0, 0)]]]
+    _ring_equal(rings, 15, s, th - 1, tw - 2)
+
+
+@pytest.mark.parametrize("s", range(1, ring.MAX_RING_SWEEPS + 1))
+def test_k9_k11_k12_bf16_geometry_is_float32s(dev, s):
+    for f32, b16 in ((k2.k2_geometry(dev, s, shard=True),
+                      k2.k2_geometry(dev, s, shard=True, dtype=BF16)),
+                     (ring.ring_geometry(dev, s), ring.ring_geometry(dev, s, dtype=BF16)),
+                     (ring.ring_geometry(dev, s, True), ring.ring_geometry(dev, s, True, BF16))):
+        assert (b16["tile_h"], b16["tile_w"], b16["threads"]) == (
+            f32["tile_h"], f32["tile_w"], f32["threads"])
+        assert b16["smem_bytes"] == f32["smem_bytes"] // 2 == k2.K2_SMEM_BYTES // 2
+        assert b16["spill_bytes"] == 0 and 0 < b16["registers"] <= 65536 // k2.K2_THREADS
+    if s <= k3.K3_MAX_SWEEPS:
+        geo = k3.k3_geometry(dev, s, shard=True, dtype=BF16)
+        f32 = k3.k3_geometry(dev, s, shard=True)
+        assert (geo["tile_h"], geo["tile_w"]) == (f32["tile_h"], f32["tile_w"])
+        assert geo["spill_bytes"] == 0
+    assert ring.resident_blocks(0, BF16) >= ring.resident_blocks(0)
+
+
+@pytest.mark.parametrize("my,mx", [(1, 1), (2, 2), (4, 4), (1, 4), (4, 1)])
+@pytest.mark.parametrize("s", [1, 4])
+def test_tiled_solve_bf16_on_a_virtual_mesh_equals_untiled(dev, my, mx, s):
+    i1, i2 = _rand((130, 197), dev, 160)
+    mesh = make_mesh(MeshConfig(y=my, x=mx), [dev] * (my * mx))
+    kernels = (k9.tile_sweeps, k9.sor_tile_sweeps, ring.ring_fused_sweeps,
+               ring.ring_fused_sweeps_2d)
+    cases = [dict(iters=23), dict(iters=23, halo_impl="rdma")]
+    if 130 // my > 4 * s and 197 // mx > 4 * s:
+        cases.append(dict(iters=9, solver="sor", omega=1.6))
+    for kw in cases:
+        impl = kw.pop("halo_impl", "ppermute")
+        counts = []
+        for dtype in ("float32", "bfloat16"):
+            cfg = HSConfig(alpha=0.5, dtype=dtype, **kw)
+            for k in kernels:
+                k.launches = 0
+            got = hs_solve_tiled(i1, i2, cfg, mesh, halo_sweeps=s, halo_impl=impl)
+            counts.append(tuple(k.launches for k in kernels))
+            assert got.u.dtype == (BF16 if dtype == "bfloat16" else torch.float32)
+            _equal(got, hs_solve(i1, i2, cfg))
+        assert counts[0] == counts[1] and sum(counts[0]) > 0, counts
+
+
+def test_tiled_bf16_stack_tol_and_pyramid_on_a_virtual_mesh(dev):
+    i1, i2 = _rand((4, 64, 96), dev, 161)
+    i2[1] = i1[1]  # converges at the first check
+    mesh = make_mesh(MeshConfig(batch=2, y=2, x=2), [dev] * 8)
+    for cfg in (HSConfig(alpha=0.5, iters=20, dtype="bfloat16"),
+                HSConfig(alpha=0.5, iters=40, tol=1e-3, block_sweeps=3, dtype="bfloat16")):
+        got = hs_solve_tiled(i1, i2, cfg, mesh, halo_sweeps=3)
+        _equal(got, hs_solve_batched(i1, i2, cfg))
+    cfg = HSConfig(alpha=0.5, iters=20, dtype="bfloat16")
+    _equal(hs_solve_tiled(i1, i2, cfg, mesh, halo_sweeps=3, halo_impl="rdma"),
+           hs_solve_batched(i1, i2, cfg))
+    from opticalflowhs_tpu_torch.dist import hs_pyramid_tiled
+
+    mesh = make_mesh(MeshConfig(y=2, x=2), [dev] * 4)
+    pyr = PyramidConfig(levels=2)
+    _equal(hs_pyramid_tiled(i1[0], i2[0], cfg, pyr, mesh, halo_sweeps=2),
+           hs_pyramid(i1[0], i2[0], cfg, pyr))
+
+
+@pytest.mark.parametrize("k", range(5))
+def test_dist_bf16_kernel_entries_refuse_frames_that_require_grad(dev, k):
+    base, call = _dist_guarded(dev, BF16)[k]
+    a = base.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="does not differentiate.*no_grad"):
+        call(a)
+    with torch.no_grad():
+        call(a)

@@ -142,6 +142,50 @@ def test_numpy_flow_and_refusals():
         hs_energy(u, u, Flow(u, v), axis_names=("y",), device="cpu")
 
 
+# -- bfloat16 flows -------------------------------------------------------------
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """The spacing of bfloat16 values at |x| (8 significand bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), np.finfo(np.float32).tiny)))
+    return np.exp2(e - 7)
+
+
+@pytest.mark.parametrize("case", ["single", "stack", "center"])
+def test_bf16_flow_matches_reference(case):
+    # A random bf16 flow, the same values through both. tx and ty come back
+    # in bfloat16 as the reference returns them, within 2 bfloat16 ulps of
+    # its values: one rounding of the float32 mean here, against the
+    # reference's bfloat16 sum and division (1 ulp measured on these fields).
+    # With center= both reparametrise the stored tx, ty in float32 (a
+    # bfloat16 tx plus float32 terms), so those too are 2 ulps of the stored
+    # value apart, plus 1e-5 for the float32 terms (1 ulp measured). omega,
+    # scale and the residual are float32 in both, within 1e-6 (at most
+    # 9.6e-7 measured: the residual's model reads the stored tx, ty, which
+    # may lie an ulp apart).
+    rng = np.random.default_rng(21)
+    shape = (2, 22, 30) if case == "stack" else (22, 30)
+    u = torch.from_numpy(rng.normal(0.4, 0.8, shape).astype(np.float32)).bfloat16()
+    v = torch.from_numpy(rng.normal(0.0, 0.5, shape).astype(np.float32)).bfloat16()
+    kw = {"center": (7.0, 13.0)} if case == "center" else {}
+    got = estimate_egomotion(Flow(u, v), **kw)
+    want = ref_estimate(RefFlow(jnp.asarray(u.float().numpy()).astype(jnp.bfloat16),
+                                jnp.asarray(v.float().numpy()).astype(jnp.bfloat16)), **kw)
+    stored = estimate_egomotion(Flow(u, v))
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert str(g.dtype).removeprefix("torch.") == str(w.dtype), k
+        g, w = g.float().numpy(), np.asarray(w).astype(np.float32)
+        d = np.abs(g - w)
+        _DIFFS.append(float(d.max()))
+        if k < 2:
+            bar = 2 * _bf16_ulp(stored[k].float().numpy())
+            assert (d <= bar + (1e-5 if kw else 0.0)).all(), (k, d, bar)
+        else:
+            assert float(d.max()) <= 1e-6, (k, d)
+    assert got.tx.dtype == (torch.float32 if kw else torch.bfloat16)
+    assert got.omega.dtype == got.scale.dtype == got.residual.dtype == torch.float32
+
+
 # -- hs_energy ------------------------------------------------------------------
 
 

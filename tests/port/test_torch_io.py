@@ -30,6 +30,16 @@ from opticalflowhs_tpu_torch.io import images, kitti, native, png16
 
 torch.set_num_threads(1)
 
+# Build libhsio at collection, in every worker process, before any test
+# runs. The reference's io/native.py remembers a failed load for the life
+# of the process, and its KITTI readers and writers try a load on every
+# call: in a fresh tree, a KITTI test that ran before the library existed
+# would make every libhsio case in that process skip (those here and the
+# reference's tests/unit/test_native_io.py), depending on which files share
+# a worker. The build takes a lock file, so the workers take turns; with no
+# C++ toolchain it returns False and the `hsio` cases skip as before.
+native.build()
+
 FIXTURES = Path(__file__).resolve().parents[1] / "data"
 
 

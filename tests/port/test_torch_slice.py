@@ -93,24 +93,26 @@ def test_hs_solve_input_errors():
      HSConfig(tol=1e-3, dtype="bfloat16"), HSConfig(dtype="bfloat16")],
 )
 def test_unported_configs_raise(cfg):
-    """bfloat16 on the tiled solver (dist/) is still to port and raises
-    (bfloat16 SOR, IRLS, multigrid, TV-L1 and LK run untiled: tests/port/
-    test_torch_bf16_sor_robust.py, test_torch_bf16_tvl1_mg_lk.py);
-    bfloat16 Jacobi, to a fixed count or to tolerance, solves: interior
-    mean <= 0.02 px and max <= 0.1 px against the reference's float32
-    solve (tests/port/test_torch_bf16.py states the bars)."""
+    """bfloat16 configurations that once raised now solve (bfloat16 SOR,
+    IRLS, multigrid, TV-L1 and LK untiled: tests/port/
+    test_torch_bf16_sor_robust.py, test_torch_bf16_tvl1_mg_lk.py; the tiled
+    solver: test_torch_bf16_dist.py): bfloat16 Jacobi, to a fixed count or
+    to tolerance, and bfloat16 SOR through the tiled solver (dist/), equal
+    to its untiled solve bitwise. Each: interior mean <= 0.02 px and max <=
+    0.1 px against the reference's float32 solve (tests/port/
+    test_torch_bf16.py states the bars)."""
+    i1, i2, _ = syn.translation_pair(48, 64, 1.0, 0.5, key=7)
+    t1, t2 = torch.from_numpy(i1), torch.from_numpy(i2)
+    got = hs_solve(t1, t2, cfg)
     if cfg.solver != "jacobi":
         from opticalflowhs_tpu_torch import MeshConfig
         from opticalflowhs_tpu_torch.dist import hs_solve_tiled, make_mesh
 
-        a = torch.zeros(16, 16)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            hs_solve_tiled(a, a, cfg, make_mesh(MeshConfig(y=2, x=1), ["cpu"] * 2))
-        return
-    i1, i2, _ = syn.translation_pair(48, 64, 1.0, 0.5, key=7)
-    got = hs_solve(torch.from_numpy(i1), torch.from_numpy(i2), cfg)
+        tiled = hs_solve_tiled(t1, t2, cfg, make_mesh(MeshConfig(y=2, x=1), ["cpu"] * 2))
+        assert torch.equal(tiled.u, got.u) and torch.equal(tiled.v, got.v)
     want = ref_hs_solve(jnp.asarray(i1), jnp.asarray(i2),
-                        RefHS(alpha=cfg.alpha, iters=cfg.iters, tol=cfg.tol, backend="jnp"))
+                        RefHS(alpha=cfg.alpha, iters=cfg.iters, tol=cfg.tol, backend="jnp",
+                              solver=cfg.solver, omega=cfg.omega))
     assert got.u.dtype == got.v.dtype == torch.bfloat16
     for g, w in zip(got, want):
         d = np.abs(g.float().numpy() - np.asarray(w))[8:-8, 8:-8]
