@@ -123,6 +123,21 @@ each ran through the kernels:
               float32, each counted (= float32's launches) and = the
               untiled bfloat16 solve bitwise; each kernel at config 5's
               shapes beside float32.
+  phase 23:   the rest of dist/ (dist/gspmd.py, dist/reshard.py; no new
+              kernel), float32 then bfloat16, each route counted (K1, K4's
+              freeze and sweeps, K5) beside its untiled counterpart's
+              launches, = the untiled entry bitwise, timed beside it
+              (median of 5, synced): config 5's 2160x3840 pair on its
+              virtual 4 x 4 mesh through hs_solve_tiled robust (D6: a
+              fixed count and to tol) and multigrid (D7), hs_pyramid_tiled
+              L3 with robust and multigrid levels (D8); tvl1_solve_tiled
+              and lk_solve_tiled L3 on 2 x 2 (D9); DP: C2's stack through
+              hs_solve_batched(mesh=) on (4, 1, 1) (Jacobi, robust,
+              multigrid), C4's streams with mesh= on (2, 1, 1),
+              flow_with_occlusion on 2 x 2 (hs, lk, tvl1); C4's frames
+              through time_to_space / space_to_time on (2, 2, 2) and
+              timesharded_pairs on (4, 1, 1); estimate_egomotion and
+              hs_energy over D1's 16 shards (axis_names) against the whole.
 Every phase checks what it measures and any failure exits non-zero.
 Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
@@ -3994,6 +4009,229 @@ def bf16_dist_path(dev, pair, stack) -> list:
              "library_ms": None, **extra[n]} for n in names]
 
 
+def dist_gspmd_path(dev, pair, c2a, c2b, vid) -> dict:
+    """Phase 23: the rest of dist/, which adds no kernel. The reference's
+    GSPMD routes run as data parallelism over the mesh's batch axis, each
+    group through the untiled entry on its first device (dist/gspmd.py),
+    and dist/reshard.py moves frames between layouts. Each route, in
+    float32 and then bfloat16, is counted (every counter set to 0 just
+    before it and read just after), held bitwise against its untiled
+    counterpart with that counterpart's K1, K4 and K5 launches (for a stack
+    split into groups: the untiled entry on each group's pairs; for the
+    spatial consistency of LK and TV-L1: the untiled entry once a
+    direction), and timed beside it (median of 5, synced). Returns the
+    route's K1, K4 and K5 launch totals."""
+    from opticalflowhs_tpu_torch import (
+        HSConfig,
+        LKConfig,
+        PyramidConfig,
+        TVL1Config,
+        flow_stream,
+        flow_with_occlusion,
+        hs_pyramid,
+        hs_solve,
+        hs_solve_batched,
+        lk_solve,
+        tvl1_solve,
+    )
+    from opticalflowhs_tpu_torch.config import MeshConfig
+    import opticalflowhs_tpu_torch.dist.reshard as rs
+    from opticalflowhs_tpu_torch.dist import hs_pyramid_tiled, hs_solve_tiled, make_mesh
+    from opticalflowhs_tpu_torch.egomotion import estimate_egomotion
+    from opticalflowhs_tpu_torch.kernels import counted_wrappers
+    from opticalflowhs_tpu_torch.lucas_kanade import lk_solve_tiled
+    from opticalflowhs_tpu_torch.metrics import hs_energy
+    from opticalflowhs_tpu_torch.solver import Flow
+    from opticalflowhs_tpu_torch.tvl1 import tvl1_solve_tiled
+    from opticalflowhs_tpu_torch.video import flow_stream_occlusion
+
+    t_phase = time.perf_counter()
+    hs5, pyr5, mcfg = c5_configs()
+    i1, i2 = pair
+    m44 = make_mesh(mcfg, [dev] * 16)
+    m22 = make_mesh(MeshConfig(y=2, x=2), [dev] * 4)
+    m411 = make_mesh(MeshConfig(batch=4), [dev] * 4)
+    m211 = make_mesh(MeshConfig(batch=2), [dev] * 2)
+    m222 = make_mesh(MeshConfig(batch=2, y=2, x=2), [dev] * 8)
+    wrappers = counted_wrappers()
+    names = ("K1 hs_derivatives", "K4 hs_robust_freeze", "K4 hs_robust_sweeps", "K5 hs_tvl1_inner")
+    totals = dict.fromkeys(names, 0)
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, tuple(wrappers[n].launches for n in names), {
+            n: w.launches for n, w in wrappers.items() if w.launches}
+
+    def tensors(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        return [t for item in x for t in tensors(item)]
+
+    def route(tag, fn, untiled, count_ref=None, expect=None, compare=True):
+        """Run, count and time one route beside its untiled counterpart:
+        equal bitwise, its K1/K4/K5 launches = the counterpart's (or
+        count_ref's) unless compare is False, and `expect` of all its
+        launches true."""
+        got, n_got, all_got = counted(fn)
+        want, n_want, _ = counted(untiled)
+        if count_ref is not None:
+            _, n_want, _ = counted(count_ref)
+        a, b = tensors(got), tensors(want)
+        require(len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                         for x, y in zip(a, b)),
+                f"{tag}: the route differs from its untiled entry")
+        require(all(bool(torch.isfinite(x).all()) for x in a if x.is_floating_point()),
+                f"{tag}: non-finite flow")
+        if compare:
+            require(n_got == n_want, f"{tag}: launches {n_got}, untiled {n_want}")
+        if expect is not None:
+            require(expect(all_got), f"{tag}: launches {all_got}")
+        for n, k in zip(names, n_got):
+            totals[n] += k
+        ms_r = median_ms(fn, runs=5)
+        ms_u = median_ms(untiled, runs=5)
+        print(f"phase 23 {tag}: = untiled bitwise; launches K1/K4 freeze/K4 sweeps/K5 "
+              f"{n_got} (untiled {n_want}; all {all_got}); {ms_r:.3f} ms, untiled "
+              f"{ms_u:.3f} ms ({ms_r / ms_u:.3f}x)")
+        return got
+
+    robust5 = dict(solver="robust", alpha=1.0, iters=100, robust_update_every=20)
+    mg5 = dict(solver="multigrid", alpha=1.0, iters=2)
+    occ_pair = (torch.from_numpy(vid[0]).to(dev), torch.from_numpy(vid[1]).to(dev))
+    for dtype in ("float32", "bfloat16"):
+        bf = f" {dtype}"
+        # D6, D7: config 5's pair on its virtual 4 x 4 mesh.
+        for tag, kw in (("D6 robust i100 k20", robust5),
+                        ("D6 robust to tol 1e-3", dict(robust5, tol=1e-3)),
+                        ("D7 multigrid i2", mg5)):
+            cfg = HSConfig(dtype=dtype, **kw)
+            route(f"{tag} 2160x3840 4x4{bf}",
+                  lambda: hs_solve_tiled(i1, i2, cfg, m44, halo_sweeps=mcfg.halo_sweeps),
+                  lambda: hs_solve(i1, i2, cfg), expect=lambda c: c.get("K1 hs_derivatives") == 1)
+        # D8: the tiled pyramid with robust and multigrid levels.
+        for tag, kw in (("robust", robust5), ("multigrid", mg5)):
+            cfg = HSConfig(dtype=dtype, **kw)
+            route(f"D8 hs_pyramid_tiled L3 {tag} 2160x3840 4x4{bf}",
+                  lambda: hs_pyramid_tiled(i1, i2, cfg, pyr5, m44, mcfg.halo_sweeps),
+                  lambda: hs_pyramid(i1, i2, cfg, pyr5), expect=lambda c: c.get(
+                      "K1 hs_derivatives") == pyr5.levels)
+        # D9: TV-L1 and LK, L3, on a 2 x 2 mesh.
+        p3 = PyramidConfig(levels=3, iters_per_level=())
+        tcfg, lcfg = TVL1Config(dtype=dtype), LKConfig(dtype=dtype)
+        route(f"D9 tvl1_solve_tiled L3 2160x3840 2x2{bf}",
+              lambda: tvl1_solve_tiled(i1, i2, tcfg, p3, mesh=m22),
+              lambda: tvl1_solve(i1, i2, tcfg, p3), expect=lambda c: c.get("K5 hs_tvl1_inner", 0) > 0)
+        route(f"D9 lk_solve_tiled L3 2160x3840 2x2{bf}",
+              lambda: lk_solve_tiled(i1, i2, lcfg, p3, mesh=m22),
+              lambda: lk_solve(i1, i2, lcfg, p3), expect=lambda c: not c)
+        # DP: C2's stack split over a (4, 1, 1) mesh; counts against the
+        # untiled entry on each group's two pairs.
+        for tag, kw in (("Jacobi i100", dict(alpha=1.0, iters=100)), ("robust i100 k20", robust5),
+                        ("multigrid i2", mg5)):
+            cfg = HSConfig(dtype=dtype, **kw)
+            route(f"DP hs_solve_batched(mesh=) 8x1088x1920 {tag} (4,1,1){bf}",
+                  lambda: hs_solve_batched(c2a, c2b, cfg, mesh=m411),
+                  lambda: hs_solve_batched(c2a, c2b, cfg),
+                  count_ref=lambda: [hs_solve_batched(c2a[g:g + 2], c2b[g:g + 2], cfg)
+                                     for g in range(0, 8, 2)],
+                  expect=lambda c: c.get("K1 hs_derivatives") == 4)
+        cfg4 = dataclasses.replace(cell_config("c4_hd_streaming.json"), dtype=dtype)
+
+        def stream_groups(fn):
+            """The untiled entry on each group's pairs of each window."""
+            def run():
+                out = []
+                for s in range(0, vid.shape[0] - 1, 8):
+                    cur = torch.from_numpy(vid[s:s + 9]).to(dev)
+                    a, b = fn(cur)
+                    k = a.shape[0] // 2
+                    out += [hs_solve_batched(a[g * k:(g + 1) * k], b[g * k:(g + 1) * k], cfg4)
+                            for g in range(2)]
+                return out
+            return run
+
+        route(f"DP flow_stream(mesh=) C4 17 frames chunk 8 (2,1,1){bf}",
+              lambda: list(flow_stream(vid, cfg4, chunk=8, mesh=m211)),
+              lambda: list(flow_stream(vid, cfg4, chunk=8)),
+              count_ref=stream_groups(lambda c: (c[:-1], c[1:])))
+        route(f"DP flow_stream_occlusion(mesh=) C4 17 frames chunk 8 (2,1,1){bf}",
+              lambda: list(flow_stream_occlusion(vid, cfg4, chunk=8, mesh=m211)),
+              lambda: list(flow_stream_occlusion(vid, cfg4, chunk=8)),
+              count_ref=stream_groups(lambda c: (torch.cat([c[:-1], c[1:]]),
+                                                 torch.cat([c[1:], c[:-1]]))))
+        # flow_with_occlusion on a 2 x 2 mesh: HS through one batch-2 tiled
+        # solve (K9, the derivatives in plain torch: its launches are K9's,
+        # not the untiled K1 + K2's), LK and TV-L1 through their tiled
+        # entries once a direction.
+        route(f"DP flow_with_occlusion hs 1080x1920 2x2{bf}",
+              lambda: flow_with_occlusion(*occ_pair, cfg4, mesh=m22, halo_sweeps=4),
+              lambda: flow_with_occlusion(*occ_pair, cfg4), compare=False,
+              expect=lambda c: c.get("K9 hs_tile_sweeps", 0) > 0 and "K2 hs_jacobi_sweeps" not in c)
+        for fam, fcfg, untiled in (("lk", lcfg, lk_solve), ("tvl1", tcfg, tvl1_solve)):
+            one = PyramidConfig(levels=1, iters_per_level=())
+            route(f"DP flow_with_occlusion {fam} 1080x1920 2x2{bf}",
+                  lambda: flow_with_occlusion(*occ_pair, mesh=m22, **{fam: fcfg}),
+                  lambda: flow_with_occlusion(*occ_pair, **{fam: fcfg}),
+                  count_ref=lambda: (untiled(*occ_pair, fcfg, one),
+                                     untiled(occ_pair[1], occ_pair[0], fcfg, one)))
+
+    # Reshard: C4's 17 frames (host numpy) on (2, 2, 2) and (4, 1, 1).
+    frames = torch.from_numpy(vid)
+    t_tim = rs.shard(frames, m222, rs.TIME)
+    torch.cuda.synchronize()
+    sp = rs.time_to_space(t_tim, m222)
+    back = rs.space_to_time(sp, m222)
+    require(torch.equal(sp.gather().cpu(), frames) and torch.equal(back.gather().cpu(), frames),
+            "time_to_space / space_to_time round trip")
+    require(all(b.device == dev for b in sp.blocks.values()), "reshard blocks on the card")
+    ms_ts = median_ms(lambda: rs.time_to_space(t_tim, m222), runs=5)
+    ms_st = median_ms(lambda: rs.space_to_time(sp, m222), runs=5)
+    ms_g = median_ms(lambda: sp.gather(), runs=5)
+    tp = rs.shard(frames, m411, rs.TIME)
+    a, b, ok = rs.timesharded_pairs(tp)
+    ok = ok.gather()
+    whole = frames.to(dev)
+    require(int(ok.sum()) == 16 and torch.equal(a.gather()[ok], whole[:-1])
+            and torch.equal(b.gather()[ok], whole[1:]), "timesharded_pairs covers the 16 pairs")
+    ms_tp = median_ms(lambda: rs.timesharded_pairs(tp), runs=5)
+    gb = frames.numel() * 4 / 1e9
+    print(f"phase 23 reshard C4 17x1080x1920 on (2,2,2): time_to_space {ms_ts:.3f} ms "
+          f"({gb / ms_ts * 1e3:.1f} GB/s), space_to_time {ms_st:.3f} ms, gather {ms_g:.3f} ms; "
+          f"round trip = the frames bitwise; timesharded_pairs on (4,1,1) {ms_tp:.3f} ms, "
+          f"16 valid pairs = the video's")
+
+    # The sharded sums over D1's 16 shards.
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(hs5, dtype=dtype)
+        flow = hs_solve_tiled(i1, i2, cfg, m44, halo_sweeps=mcfg.halo_sweeps)
+        spec = ("y", "x")
+        su, sv = rs.shard(flow.u, m44, spec), rs.shard(flow.v, m44, spec)
+        f1, f2 = rs.shard(i1, m44, spec), rs.shard(i2, m44, spec)
+        got = estimate_egomotion(Flow(su, sv), axis_names=spec)
+        want = estimate_egomotion(flow)
+        d_em = max(abs(float(g) - float(w)) / max(1.0, abs(float(w))) for g, w in zip(got, want))
+        require(all(g.dtype == w.dtype for g, w in zip(got, want)), "sharded ego-motion dtypes")
+        e_got = hs_energy(f1, f2, Flow(su, sv), alpha=cfg.alpha, axis_names=spec)
+        e_want = hs_energy(i1, i2, flow, alpha=cfg.alpha)
+        d_e = abs(float(e_got) - float(e_want)) / max(1.0, abs(float(e_want)))
+        ms_em = median_ms(lambda: estimate_egomotion(Flow(su, sv), axis_names=spec), runs=5)
+        ms_em1 = median_ms(lambda: estimate_egomotion(flow), runs=5)
+        ms_e = median_ms(lambda: hs_energy(f1, f2, Flow(su, sv), alpha=cfg.alpha,
+                                           axis_names=spec), runs=5)
+        ms_e1 = median_ms(lambda: hs_energy(i1, i2, flow, alpha=cfg.alpha), runs=5)
+        print(f"phase 23 sums over D1's 16 shards {dtype}: ego-motion max rel diff {d_em:.3g} "
+              f"(tx {float(got.tx):.6g} vs {float(want.tx):.6g}), {ms_em:.3f} ms (whole "
+              f"{ms_em1:.3f}); hs_energy {float(e_got):.7g} vs {float(e_want):.7g} rel "
+              f"{d_e:.3g}, {ms_e:.3f} ms (whole {ms_e1:.3f})")
+        require(d_em <= 1e-5 and d_e <= 1e-5, f"sharded sums {dtype}: {d_em} {d_e}")
+    print(f"phase 23 launches on its routes: {totals}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4357,6 +4595,9 @@ def main() -> int:
 
     # -- phase 22: bfloat16 on dist/ (K9, K10, K11 and K12's bfloat16 builds) -------------
     bf16_rows += bf16_dist_path(dev, c5_frames(dev), stack)
+
+    # -- phase 23: the rest of dist/ (the GSPMD routes, mesh=, reshard, sharded sums) -----
+    dist_gspmd_path(dev, c5_frames(dev), c2a, c2b, vid)
 
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2

@@ -33,6 +33,12 @@ the reference's:
                 flow, with its focus of expansion
   dist/         make_mesh (meshes of devices in one process, virtual ones
                 included), halo_pad, hs_solve_tiled, hs_pyramid_tiled
+                (every solver; robust and multigrid by the batch groups
+                of gspmd.py), reshard (Sharded arrays, time_to_space,
+                space_to_time, timesharded_pairs); mesh= on the batched
+                entries, the streams and consistency, tvl1_solve_tiled,
+                lk_solve_tiled, and axis_names= on estimate_egomotion and
+                hs_energy come with it
   metrics       EPE, angular error, hs_energy
   data/         synthetic pairs with analytic flow; datasets: the
                 Middlebury, Sintel and KITTI readers, evaluate
@@ -82,9 +88,9 @@ launch, so they equal the plain twins (`ops.stencils.store`) bitwise and
 the result does not depend on the sweeps or alternations a launch runs.
 On dist/ the frames are cast first, the shards' derivatives and 1/den are
 stored as K1 stores them, and the halos carry the stored values, so a
-tiled solve equals the untiled one bitwise; tvl1_solve_tiled and
-lk_solve_tiled wait for the rest of dist/ in both dtypes (ROADMAP.md
-queue 1, item 6).
+tiled solve equals the untiled one bitwise; the GSPMD routes (robust and
+multigrid tiles, tvl1_solve_tiled, lk_solve_tiled, mesh= stacks) run the
+untiled entries per batch group, so they take bfloat16 as those do.
 """
 
 from opticalflowhs_tpu_torch.batch import hs_solve_batched

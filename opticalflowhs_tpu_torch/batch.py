@@ -13,9 +13,14 @@ pass through the stack's kernel entries as through a single pair's
 
 `solve_stack` picks the family for the stream and consistency entry
 points: HS, Lucas-Kanade with `lk=` (lucas_kanade.lk_solve_batched) or
-TV-L1 with `tvl1=` (tvl1.tvl1_solve_batched). Sharding a stack over a
-device mesh (`mesh=`) comes with the rest of `dist/`, still to be ported
-(ROADMAP.md queue 1, item 6).
+TV-L1 with `tvl1=` (tvl1.tvl1_solve_batched). With `mesh=` a stack splits
+over the mesh's "batch" axis (dist/gspmd.py): each group of B / batch
+pairs is solved on mesh.devices[g, 0, 0] and the flows are gathered on
+the mesh's first device. As the reference's mesh-sharded stacks
+(`stacked_ok=False`), each group then takes the single-pair rules: a
+Jacobi pyramid warps each image by `pyramid.warp`'s rule (`warp_each`,
+with pyr.warp and pyr.warp_radius), not by the stacked route's gather or
+tiled R = 4 warp.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Optional, Sequence
 import torch
 
 from opticalflowhs_tpu_torch.config import HSConfig, LKConfig, PyramidConfig, TVL1Config
+from opticalflowhs_tpu_torch.dist.gspmd import mesh_frames, run_groups
 from opticalflowhs_tpu_torch.lucas_kanade import lk_solve_batched
 from opticalflowhs_tpu_torch.pyramid import (
     add_flows,
@@ -43,30 +49,24 @@ from opticalflowhs_tpu_torch.solver import (
 from opticalflowhs_tpu_torch.tvl1 import tvl1_solve_batched
 
 
-def reject_unported(lk=None, tvl1=None, mesh=None) -> None:
-    """Check the family options of the stream and consistency entry points:
-    ValueError for lk= together with tvl1=, as the reference; then
-    NotImplementedError for `mesh=`, still to be ported."""
+def check_family(lk=None, tvl1=None) -> None:
+    """The family options of the stream and consistency entry points:
+    ValueError for lk= together with tvl1=, as the reference."""
     if lk is not None and tvl1 is not None:
         raise ValueError("pass at most one of lk= and tvl1=")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharding a stack over devices) is not ported yet: it comes "
-            "with the rest of dist/ (ROADMAP.md queue 1, item 6); "
-            "dist.hs_solve_tiled shards a solve over a mesh today"
-        )
 
 
 def _pyramid_batched(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig,
-                     pyr: PyramidConfig) -> Flow:
+                     pyr: PyramidConfig, stacked_ok: bool = True) -> Flow:
     """The reference's batched pyramid (`_batched_pyramid_impl`):
     batch-aware per-level ops, a batched zero-start residual solve per
     level. For Jacobi it follows the reference's batched-kernel route,
     which warps with the gather when pyr.warp == "gather" and otherwise
     with the tiled warp at R = 4, each image with its own tile means, and
-    reads neither "checked" nor warp_radius. For the other solvers the
-    reference vmaps the single-pair body, so each image is warped by
-    `pyramid.warp`'s rule with pyr.warp and pyr.warp_radius (`warp_each`)."""
+    reads neither "checked" nor warp_radius. For the other solvers, and
+    for a mesh-sharded stack (stacked_ok=False), the reference vmaps the
+    single-pair body, so each image is warped by `pyramid.warp`'s rule
+    with pyr.warp and pyr.warp_radius (`warp_each`)."""
     p1 = gaussian_pyramid(i1, pyr.levels)
     p2 = gaussian_pyramid(i2, pyr.levels)
     iters: Sequence[int] = pyr.iters_per_level or (cfg.iters,) * pyr.levels
@@ -78,7 +78,7 @@ def _pyramid_batched(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig,
             f2w = f2
         else:
             flow = upsample_flow(flow, f1.shape[-2:])
-            if cfg.solver != "jacobi":
+            if cfg.solver != "jacobi" or not stacked_ok:
                 f2w = warp_each(f2, flow.u, flow.v, pyr.warp, pyr.warp_radius)
             elif pyr.warp == "gather":
                 f2w = warp_bilinear(f2, flow.u, flow.v)
@@ -105,8 +105,14 @@ def hs_solve_batched(
     `device="cpu"` or CPU tensors); both are cast to the config's dtype
     there, and the flow has it. SOR's omega == 0 ("auto") is for single
     pairs only: tune it with `solver.tune_omega` on a representative pair
-    and pass the result."""
-    reject_unported(mesh=mesh)
+    and pass the result.
+
+    `mesh`: split the stack over the mesh's "batch" axis (B must divide
+    by it; dist/gspmd.py): group g of B / batch pairs is solved on
+    mesh.devices[g, 0, 0] by this entry, with the reference's
+    single-pair warp rule for a pyramid, and the flow is gathered on the
+    mesh's first device. numpy stacks go to the mesh's first device when
+    `device` is None."""
     if i1.ndim != 3:
         raise ValueError(f"expected (B, H, W) frame stacks, got {tuple(i1.shape)}")
     if cfg.solver == "sor" and cfg.omega == 0.0:
@@ -117,27 +123,35 @@ def hs_solve_batched(
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs "
                          f"{tuple(i2.shape)}")
-    i1 = as_frame(i1, device, storage_dtype(cfg))
+    i1 = mesh_frames(i1, mesh, device, storage_dtype(cfg))
     i2 = as_frame(i2, i1.device, storage_dtype(cfg))
+    if mesh is not None:
+        return run_groups(lambda a, b: _solve_batched(a, b, cfg, pyr, False), mesh, i1, i2)
+    return _solve_batched(i1, i2, cfg, pyr, True)
+
+
+def _solve_batched(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig,
+                   pyr: Optional[PyramidConfig], stacked_ok: bool) -> Flow:
     if pyr is not None and pyr.levels > 1:
-        return _pyramid_batched(i1, i2, cfg, pyr)
+        return _pyramid_batched(i1, i2, cfg, pyr, stacked_ok)
     return solve_level(i1, i2, cfg, cfg.iters)
 
 
 def solve_stack(i1, i2, cfg: HSConfig, pyr: Optional[PyramidConfig] = None,
                 tvl1: Optional[TVL1Config] = None,
-                lk: Optional[LKConfig] = None) -> Flow:
+                lk: Optional[LKConfig] = None, mesh=None) -> Flow:
     """A (B, H, W) stack through the chosen family: `hs_solve_batched`
     with (cfg, pyr), or with `lk` the Lucas-Kanade family, with `tvl1` the
     TV-L1 family (cfg is then ignored), on pyr or, when it is None, one
-    level, as the reference's streams."""
+    level, as the reference's streams; `mesh` splits it over the batch
+    axis."""
     if lk is None and tvl1 is None:
-        return hs_solve_batched(i1, i2, cfg, pyr)
+        return hs_solve_batched(i1, i2, cfg, pyr, mesh=mesh)
     if pyr is None:
         pyr = PyramidConfig(levels=1, iters_per_level=())
     if lk is not None:
-        return lk_solve_batched(i1, i2, lk, pyr)
-    return tvl1_solve_batched(i1, i2, tvl1, pyr)
+        return lk_solve_batched(i1, i2, lk, pyr, mesh=mesh)
+    return tvl1_solve_batched(i1, i2, tvl1, pyr, mesh=mesh)
 
 
 def video_pairs(frames):

@@ -178,8 +178,8 @@ def run_scaling_bench(rc=None, shape=(512, 640), repeats: int = 30,
     1 card: batched video fps (B = 8, config 2's stack). N cards: image
     area scaled with the card count, efficiency = T(1 tile alone) / T(N
     tiles together) through `dist.hs_solve_tiled`; then the data-parallel
-    leg, `hs_solve_batched(..., mesh=)`, which raises NotImplementedError
-    until `mesh=` is ported (ROADMAP.md queue 1, item 6)."""
+    leg, `hs_solve_batched(..., mesh=)` with the stack split over every
+    card (dist/gspmd.py)."""
     from opticalflowhs_tpu_torch.batch import hs_solve_batched
     from opticalflowhs_tpu_torch.config import MeshConfig, RunConfig
     from opticalflowhs_tpu_torch.dist import hs_solve_tiled, make_mesh

@@ -131,7 +131,7 @@ def _cmd_run(args, overrides):
             i1, i2, rc.hs, rc.pyramid,
             lk=rc.lk if method == "lk" else None,
             tvl1=rc.tvl1 if method == "tvl1" else None,
-            mesh=mesh, device=dev,
+            mesh=mesh, halo_sweeps=rc.mesh.halo_sweeps, device=dev,
         )
     elif method == "lk":
         if tiled:
@@ -707,12 +707,7 @@ def main(argv=None) -> int:
     ps.set_defaults(fn=_cmd_selftest)
 
     args = p.parse_args(argv)
-    try:
-        return args.fn(args, overrides)
-    except NotImplementedError as e:
-        # Routes still to be ported (the rest of dist/, ROADMAP.md queue 1,
-        # item 6) end the command with their message.
-        raise SystemExit(str(e)) from e
+    return args.fn(args, overrides)
 
 
 if __name__ == "__main__":

@@ -29,8 +29,7 @@ SOLVERS = ("jacobi", "sor", "multigrid", "robust")
 
 # Storage types of `dtype`: bfloat16 stores every array in 16 bits and
 # computes in float32 (the package docstring's rule); it runs for every
-# HS solver, TV-L1 and LK untiled, and for the tiled Jacobi and SOR solves
-# of dist/.
+# HS solver, TV-L1 and LK, untiled and on every route of dist/.
 DTYPES = ("float32", "bfloat16")
 
 # Reference backend name -> port backend name.

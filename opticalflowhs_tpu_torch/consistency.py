@@ -9,8 +9,11 @@ forward target, cancels it. Occluded or unreliable pixels fail
 
 with (a, b) = (0.01, 0.5) by default. Both directions solve as one batch-2
 solve (batch.solve_stack: HS, Lucas-Kanade with `lk=` or TV-L1 with
-`tvl1=`), so they share every kernel launch. The functions take one (H, W)
-flow or a (B, H, W) stack of flows.
+`tvl1=`), so they share every kernel launch; `mesh=` shards it as the
+reference does (a spatial mesh: one batch-2 `hs_pyramid_tiled`, or the
+tiled LK or TV-L1 entry once a direction; a batch-only mesh: the batched
+entry with `mesh=`). The functions take one (H, W) flow or a (B, H, W)
+stack of flows.
 """
 
 from __future__ import annotations
@@ -19,11 +22,15 @@ from typing import Optional
 
 import torch
 
-from opticalflowhs_tpu_torch.batch import reject_unported, solve_stack
+from opticalflowhs_tpu_torch.batch import check_family, solve_stack
 from opticalflowhs_tpu_torch.config import HSConfig, PyramidConfig
+from opticalflowhs_tpu_torch.dist.gspmd import mesh_frames
+from opticalflowhs_tpu_torch.dist.pyramid_tiled import hs_pyramid_tiled
+from opticalflowhs_tpu_torch.lucas_kanade import lk_solve_tiled
 from opticalflowhs_tpu_torch.ops.stencils import store
 from opticalflowhs_tpu_torch.pyramid import warp
 from opticalflowhs_tpu_torch.solver import Flow, as_frame, resolve_omega
+from opticalflowhs_tpu_torch.tvl1 import tvl1_solve_tiled
 
 
 def _warped_backward(fwd: Flow, bwd: Flow, method: str):
@@ -61,21 +68,38 @@ def solve_bidirectional(
     lk=None,
     tvl1=None,
     mesh=None,
+    halo_sweeps: int = 1,
     device=None,
 ) -> tuple[Flow, Flow]:
     """(forward, backward) flow of one (H, W) pair through a single batch-2
     solve: HS with (cfg, pyr), or with `lk` the Lucas-Kanade family, with
     `tvl1` the TV-L1 family (cfg is then ignored; pyr defaults to one
-    level). numpy frames go to `device`, as in hs_solve. SOR's omega == 0
-    is tuned on the pair before the batch-2 solve, which would refuse it."""
-    reject_unported(lk, tvl1, mesh)
+    level). numpy frames go to `device` (with `mesh` and no device, the
+    mesh's first device), as in hs_solve. SOR's omega == 0 is tuned on the
+    pair before the batch-2 solve, which would refuse it.
+
+    `mesh`, as the reference's: on a mesh with y * x > 1 the HS leg rides
+    one batch-2 `hs_pyramid_tiled` (a 1-level pyramid is the tiled solve;
+    halo blocks of `halo_sweeps`), and LK and TV-L1 run their tiled entries
+    once a direction; a batch-only mesh sends every family through its
+    batched entry with `mesh=`."""
     if i1.ndim != 2:
         raise ValueError(f"expected (H, W) frames, got {tuple(i1.shape)}")
-    i1 = as_frame(i1, device)
+    check_family(lk, tvl1)
+    i1 = mesh_frames(i1, mesh, device)
     i2 = as_frame(i2, i1.device)
+    alt_pyr = pyr if pyr is not None else PyramidConfig(levels=1, iters_per_level=())
+    spatial = mesh is not None and mesh.shape["y"] * mesh.shape["x"] > 1
+    if spatial and (lk is not None or tvl1 is not None):
+        tiled, fam = (lk_solve_tiled, lk) if lk is not None else (tvl1_solve_tiled, tvl1)
+        return tiled(i1, i2, fam, alt_pyr, mesh=mesh), tiled(i2, i1, fam, alt_pyr, mesh=mesh)
     if lk is None and tvl1 is None:
         cfg = resolve_omega(i1, i2, cfg)
-    f = solve_stack(torch.stack([i1, i2]), torch.stack([i2, i1]), cfg, pyr, tvl1, lk)
+    b1, b2 = torch.stack([i1, i2]), torch.stack([i2, i1])
+    if spatial:
+        f = hs_pyramid_tiled(b1, b2, cfg, alt_pyr, mesh=mesh, halo_sweeps=halo_sweeps)
+    else:
+        f = solve_stack(b1, b2, cfg, pyr, tvl1, lk, mesh=mesh)
     return Flow(f.u[0], f.v[0]), Flow(f.u[1], f.v[1])
 
 
@@ -89,9 +113,11 @@ def flow_with_occlusion(
     lk=None,
     tvl1=None,
     mesh=None,
+    halo_sweeps: int = 1,
     device=None,
 ) -> tuple[Flow, torch.Tensor]:
-    """Forward flow plus its occlusion mask, one call."""
+    """Forward flow plus its occlusion mask, one call (any family,
+    optionally over a mesh: see solve_bidirectional)."""
     fwd, bwd = solve_bidirectional(i1, i2, cfg, pyr, lk=lk, tvl1=tvl1,
-                                   mesh=mesh, device=device)
+                                   mesh=mesh, halo_sweeps=halo_sweeps, device=device)
     return fwd, occlusion_mask(fwd, bwd, a=a, b=b)

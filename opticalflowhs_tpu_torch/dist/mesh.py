@@ -11,7 +11,7 @@ on four cards of one host one shard per card moves its halos by peer copies
 and peer stores over NVLink. The reference is single-controller too: its
 mesh is jax devices under one process, and its tests run 8 fake CPU
 devices. Multi-process meshes (dist/multihost.py of the reference) are not
-ported yet (ROADMAP.md queue 1, item 6).
+ported yet (ROADMAP.md queue 1, item 6.5, the last module of the port).
 """
 
 from __future__ import annotations

@@ -9,8 +9,11 @@ valid (for SOR by its four halo rings a sweep). The cold per-level ops
 (binomial downsample, bilinear flow upsample, backward warp) run once per
 level, whole, on the mesh's first device,
 through pyramid.py. The reference shards them by GSPMD; the values are the
-same (ROADMAP.md queue 3). Tiled == untiled therefore holds for the whole
-pyramid to float tolerance.
+same (ROADMAP.md queue 3). Robust and multigrid levels take the GSPMD
+route instead (`tiled_solver.solve_gspmd`: each batch group's level solved
+whole by the untiled entry), as the reference routes them through
+`_level_solve_gspmd`, never through the Jacobi shard body. Tiled ==
+untiled therefore holds for the whole pyramid, bitwise.
 """
 
 from __future__ import annotations
@@ -23,9 +26,10 @@ import torch
 from opticalflowhs_tpu_torch.config import HSConfig, PyramidConfig
 from opticalflowhs_tpu_torch.dist.mesh import Mesh
 from opticalflowhs_tpu_torch.dist.tiled_solver import (
+    GSPMD_SOLVERS,
     _as_tensor,
     _round_up,
-    gspmd_unported,
+    solve_gspmd,
     solve_padded,
 )
 from opticalflowhs_tpu_torch.pyramid import add_flows, gaussian_pyramid, upsample_flow, warp
@@ -63,15 +67,14 @@ def hs_pyramid_tiled(
     """Coarse-to-fine pyramidal HS with every level's solve sharded over the
     mesh. Takes (H, W) pairs or (B, H, W) stacks (split over the "batch"
     axis too); returns the flow on the mesh's first device. Equals
-    hs_pyramid up to the tiled solver's float tolerance, for any geometry."""
+    hs_pyramid bitwise, for any geometry; robust and multigrid levels take
+    the GSPMD route (`tiled_solver.solve_gspmd`)."""
     if mesh is None:
         raise ValueError("hs_pyramid_tiled requires a Mesh (dist.make_mesh)")
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs {tuple(i2.shape)}")
     if halo_sweeps < 1:
         raise ValueError("halo_sweeps must be >= 1")
-    if cfg.solver in ("multigrid", "robust"):
-        raise gspmd_unported(cfg.solver)
     i1 = _as_tensor(i1, cfg).to(mesh.first)
     i2 = _as_tensor(i2, cfg).to(mesh.first)
     if cfg.solver == "sor" and cfg.omega == 0.0:
@@ -106,6 +109,10 @@ def hs_pyramid_tiled(
             flow = upsample_flow(flow, f1.shape[-2:])
             f2w = warp(f2, flow.u, flow.v, pyr.warp)
         lcfg = dataclasses.replace(cfg, iters=iters[level])
+        if cfg.solver in GSPMD_SOLVERS:
+            dflow = solve_gspmd(f1, f2w, lcfg, mesh, iters[level])
+            flow = dflow if flow is None else add_flows(flow, dflow)
+            continue
         stack = (f1, f2w) if batched else (f1[None], f2w[None])
         dflow = _level_solve(*stack, lcfg, halo_sweeps, mesh)
         if not batched:

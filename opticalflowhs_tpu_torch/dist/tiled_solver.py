@@ -27,9 +27,12 @@ plain versions under the storage rule) round u and v where every sweep
 stores them; the halos carry the stored values, so the tiled solve equals
 the untiled one bitwise in both dtypes.
 
-The reference's GSPMD routes (solver="robust" and "multigrid") are not
-ported yet and raise NotImplementedError (ROADMAP.md queue 1, item 6); they
-never fall through to Jacobi.
+solver="robust" and "multigrid" take the reference's GSPMD route, which
+the port runs as data parallelism over the mesh's batch axis
+(dist/gspmd.py): each batch group solves its whole frames through the
+untiled entry (K1 + K4, K1 + the plain V-cycles) on its first device, so
+the values equal the untiled solve bitwise; they never fall through to
+Jacobi.
 """
 
 from __future__ import annotations
@@ -40,34 +43,32 @@ import numpy as np
 import torch
 
 from opticalflowhs_tpu_torch.config import HSConfig
+from opticalflowhs_tpu_torch.dist import gspmd
 from opticalflowhs_tpu_torch.dist.halo import move, pad_grid, unpad
 from opticalflowhs_tpu_torch.dist.mesh import Mesh
 from opticalflowhs_tpu_torch.kernels import ring, tile
 from opticalflowhs_tpu_torch.ops import stencils
-from opticalflowhs_tpu_torch.solver import Flow, resolve_backend, storage_dtype
+from opticalflowhs_tpu_torch.solver import Flow, resolve_backend, solve_level, storage_dtype
 
-GSPMD_ITEM = "ROADMAP.md queue 1, item 6"
+GSPMD_SOLVERS = ("multigrid", "robust")
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def gspmd_unported(solver: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"tiled solver={solver!r} is the reference's GSPMD route, not ported "
-        f"yet ({GSPMD_ITEM}); the shard bodies here run Jacobi and SOR only"
-    )
-
-
 class Layout:
     """Which shard lives where: batch groups x (y, x) coordinates, each a
     (bl, th, tw) tensor on its mesh device, and each device's shards in a
-    fixed order (the slices of its stacked launches)."""
+    fixed order (the slices of its stacked launches). `my` and `mx` (the
+    mesh's y and x by default) may be 1 for a layout that does not split
+    that axis: its shards then sit at y or x index 0 of the mesh."""
 
-    def __init__(self, mesh: Mesh, groups: int, bl: int, th: int, tw: int):
+    def __init__(self, mesh: Mesh, groups: int, bl: int, th: int, tw: int,
+                 my: Optional[int] = None, mx: Optional[int] = None):
         self.mesh, self.groups, self.bl, self.th, self.tw = mesh, groups, bl, th, tw
-        self.my, self.mx = mesh.shape["y"], mesh.shape["x"]
+        self.my = mesh.shape["y"] if my is None else my
+        self.mx = mesh.shape["x"] if mx is None else mx
         self.coords = [(b, i, j) for b in range(groups) for i in range(self.my)
                        for j in range(self.mx)]
         self.local: dict = {}
@@ -276,6 +277,18 @@ def _as_tensor(a, cfg: HSConfig) -> torch.Tensor:
     return a.to(storage_dtype(cfg))
 
 
+def solve_gspmd(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig, mesh: Mesh,
+                iters: int) -> Flow:
+    """The GSPMD route of solver="robust" and "multigrid" (and of a tiled
+    pyramid's levels with them): an (H, W) pair solved whole on the mesh's
+    first device, a (B, H, W) stack split over the batch groups
+    (dist/gspmd.py), each through `solver.solve_level`, the untiled
+    entry. To tolerance each image stops on its own, as the reference's
+    vmapped `sweeps_until` with its `run_block` override."""
+    return gspmd.run_pair_or_groups(lambda a, b: solve_level(a, b, cfg, iters),
+                                    mesh, i1, i2)
+
+
 def solve_padded(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig, s: int,
                  mesh: Mesh, h: int, w: int, halo_impl: str = "ppermute") -> Flow:
     """(B, Hp, Wp) frames already padded to the mesh grid -> the (B, Hp, Wp)
@@ -313,7 +326,10 @@ def hs_solve_tiled(
     whole solve of every shard in one ring launch a device, the exchange
     inside it: K11 on a (y, 1) mesh, K12 otherwise; Jacobi only, fixed
     sweep count). cfg.solver="sor" tiles with a 4*halo_sweeps-px halo and
-    colors by global parity. cfg.tol > 0 solves to tolerance: each block's
+    colors by global parity. cfg.solver="robust" and "multigrid" take the
+    GSPMD route (`solve_gspmd`: the batch groups, each solved whole by the
+    untiled entry; halo_sweeps does not enter, halo_impl must be
+    "ppermute"). cfg.tol > 0 solves to tolerance: each block's
     max |update| over owned true pixels is reduced over the mesh, one host
     sync a block; each image of a stack stops on its own. cfg.dtype
     "bfloat16" solves in bfloat16 (the storage rule), equal to the untiled
@@ -325,11 +341,16 @@ def hs_solve_tiled(
         raise ValueError("halo_sweeps must be >= 1")
     if halo_impl not in ("ppermute", "rdma"):
         raise ValueError("halo_impl must be 'ppermute' or 'rdma'")
-    if cfg.solver in ("multigrid", "robust"):
+    if cfg.solver in GSPMD_SOLVERS:
+        # The GSPMD route: the whole IRLS loop or V-cycle per batch group
+        # through the untiled entry (dist/gspmd.py), never Jacobi.
         if halo_impl != "ppermute":
             raise ValueError(f"tiled {cfg.solver} uses the GSPMD path; "
                              "halo_impl does not apply")
-        raise gspmd_unported(cfg.solver)
+        i1, i2 = _as_tensor(i1, cfg), _as_tensor(i2, cfg)
+        if i1.shape != i2.shape:
+            raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs {tuple(i2.shape)}")
+        return solve_gspmd(i1, i2, cfg, mesh, cfg.iters)
     if cfg.solver == "sor" and cfg.omega == 0.0:
         raise ValueError(
             "omega=0 (auto) is single-pair only — call solver.tune_omega on "

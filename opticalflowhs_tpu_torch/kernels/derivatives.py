@@ -97,9 +97,10 @@ def check_frames(name: str, *arrays: torch.Tensor,
         raise RuntimeError(
             f"{name}: this kernel does not differentiate, as the reference's "
             "tile and rdma kernels do not, so the gradient would be dropped "
-            "(a tiled solve's gradient waits for ROADMAP.md queue 1 item 6; "
-            "K4's freeze and sweep launches differentiate only through "
-            "robust_sweeps and hs_solve_robust_resident); call under "
+            "(tiled Jacobi and SOR solves run K9-K12 and refuse; tiled robust "
+            "and multigrid solves, the GSPMD routes, differentiate through the "
+            "untiled entries; K4's freeze and sweep launches differentiate only "
+            "through robust_sweeps and hs_solve_robust_resident); call under "
             "torch.no_grad(), or solve untiled"
         )
 

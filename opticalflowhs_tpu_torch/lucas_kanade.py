@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from opticalflowhs_tpu_torch.config import LKConfig, PyramidConfig
+from opticalflowhs_tpu_torch.dist.gspmd import mesh_frames, run_groups, run_pair_or_groups
 from opticalflowhs_tpu_torch.ops import stencils
 from opticalflowhs_tpu_torch.pyramid import _B5, gaussian_pyramid, upsample_flow, warp_each
 from opticalflowhs_tpu_torch.solver import Flow, as_frame, storage_dtype
@@ -187,31 +188,37 @@ def lk_solve_batched(
     to a loop of `lk_solve` over the pairs, bitwise. Like the reference's,
     it checks only the rank (and here equal shapes), so it also solves
     frames that lk_solve refuses (levels below 8 px). numpy stacks go to
-    `device`, as in lk_solve. `mesh=` comes with the rest of dist/."""
+    `device` (with `mesh` and no device, the mesh's first device), as in
+    lk_solve. `mesh`: the stack splits over the mesh's "batch" axis
+    (dist/gspmd.py), each group solved on its device, the flow gathered on
+    the mesh's first device."""
     if i1.ndim != 3:
         raise ValueError(f"expected (B, H, W) frame stacks, got {tuple(i1.shape)}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharding a stack over devices) is not ported yet: it comes "
-            "with the rest of dist/ (ROADMAP.md queue 1, item 6)"
-        )
     if i1.shape != i2.shape:
         raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs {tuple(i2.shape)}")
-    i1 = as_frame(i1, device, storage_dtype(cfg))
-    return _lk_pyramid_body(i1, as_frame(i2, i1.device, i1.dtype), cfg, pyr)
+    i1 = mesh_frames(i1, mesh, device, storage_dtype(cfg))
+    i2 = as_frame(i2, i1.device, i1.dtype)
+    if mesh is not None:
+        return run_groups(lambda a, b: _lk_pyramid_body(a, b, cfg, pyr), mesh, i1, i2)
+    return _lk_pyramid_body(i1, i2, cfg, pyr)
 
 
 def lk_solve_tiled(i1, i2, cfg: LKConfig = LKConfig(),
-                   pyr: PyramidConfig = _SINGLE_PYR, mesh=None):
-    """Spatially tiled LK over a device mesh: comes with the rest of
-    dist/, in both dtypes (ROADMAP.md queue 1, item 6)."""
-    if getattr(cfg, "dtype", None) == "bfloat16":
-        raise NotImplementedError(
-            "lk_solve_tiled in bfloat16 is not ported yet: bfloat16 on dist/ runs "
-            "the tiled HS solves; this entry comes with the rest of dist/ "
-            "(ROADMAP.md queue 1, item 6), in both dtypes"
-        )
-    raise NotImplementedError(
-        "lk_solve_tiled shards a frame over devices and is not ported yet: "
-        "it comes with the rest of dist/ (ROADMAP.md queue 1, item 6)"
-    )
+                   pyr: PyramidConfig = _SINGLE_PYR, mesh=None) -> Flow:
+    """Spatially tiled LK over a ("y", "x") device mesh, in float32 or
+    bfloat16. The reference runs the whole pyramid as global ops under
+    GSPMD sharding constraints, byte-identical to the untiled path; LK has
+    no sweep loop with a fixed halo (its window sums and warps run once a
+    refinement), so the port solves the frame whole on the mesh's first
+    device through the untiled body (dist/gspmd.py) and returns the flow
+    there, equal to `lk_solve` bitwise. As the reference's, it checks the
+    rank, the shapes and the mesh only."""
+    if i1.ndim != 2:
+        raise ValueError("lk_solve_tiled takes single 2-D grayscale frames")
+    if i1.shape != i2.shape:
+        raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs {tuple(i2.shape)}")
+    if mesh is None:
+        raise ValueError("lk_solve_tiled requires a mesh (use lk_solve)")
+    i1 = mesh_frames(i1, mesh, None, storage_dtype(cfg))
+    i2 = as_frame(i2, i1.device, i1.dtype)
+    return run_pair_or_groups(lambda a, b: _lk_pyramid_body(a, b, cfg, pyr), mesh, i1, i2)

@@ -67,14 +67,20 @@ def hs_energy(i1, i2, flow, alpha: float = 1.0, deriv_variant: str = "hs_cube",
     device; over a (B, H, W) stack the means run over every pixel. Its
     monotone non-increase over sweeps is the convergence diagnostic. numpy
     frames go to `device` (cuda:0 when None), the flow to the frames'
-    device. `axis_names` (sums across the shards of a mesh) comes with the
-    rest of dist/ and raises NotImplementedError.
+    device.
+
+    `axis_names`: i1, i2, flow.u and flow.v are `dist.reshard.Sharded`
+    arrays of one layout, split over those mesh axes (every axis that
+    splits them must be named). This is the port's form of the
+    reference's call inside `shard_map`: each block takes a one-pixel halo
+    from its neighbours (dist/halo.py), its derivatives and gradients are
+    clamped at the true image edges by global coordinates, its sums run
+    over its true pixels, and the sums are reduced onto the mesh's first
+    device in float32, where E is returned. It equals the whole-image E up
+    to the order of the float32 sums.
     """
     if axis_names:
-        raise NotImplementedError(
-            "axis_names= (sums across mesh shards) is not ported yet: it comes "
-            "with the rest of dist/ (ROADMAP.md queue 1, item 6)"
-        )
+        return _energy_sharded(i1, i2, flow, alpha, deriv_variant, axis_names)
     i1 = as_frame(i1, device)
     ex, ey, et = stencils.derivatives(i1, as_frame(i2, i1.device), deriv_variant)
     u = as_frame(flow.u, i1.device)
@@ -89,6 +95,46 @@ def hs_energy(i1, i2, flow, alpha: float = 1.0, deriv_variant: str = "hs_cube",
 
     n = torch.ones_like(u).sum()
     return (data + alpha * alpha * (grad2(u) + grad2(v))) / n
+
+
+def _energy_sharded(i1, i2, flow, alpha: float, deriv_variant: str,
+                    axis_names) -> torch.Tensor:
+    """hs_energy over `Sharded` frames and flow (see hs_energy)."""
+    from opticalflowhs_tpu_torch.dist.reshard import check_sharded
+    from opticalflowhs_tpu_torch.kernels import tile
+
+    arrays = (i1, i2, flow.u, flow.v)
+    check_sharded("hs_energy", arrays, axis_names, ("batch", "y", "x"))
+    lay = i1.layout
+    h, w = i1.shape[-2:]
+    t = i1.shape[0] if i1.ndim == 3 else 1
+    f1, f2, pu, pv = (lay.pad({c: b.float() for c, b in x.blocks.items()}, 1, 1)
+                      for x in arrays)
+    first = lay.mesh.first
+    data = grads = n = torch.zeros((), dtype=torch.float32, device=first)
+    for dev in lay.local:
+        a, b, uu, vv = (x[dev].flatten(0, 1) for x in (f1, f2, pu, pv))
+        rows, cols = lay.slice_origins(dev, -1, -1)
+        masks = tile.tile_masks(a.shape, rows, cols, h, w, dev)
+        ex, ey, et = stencils.derivatives_masked(a, b, masks, deriv_variant)
+        gr, gc = tile.origin_grids(a.shape, rows, cols, dev)
+        frame = torch.tensor([c[0] * lay.bl + k for c in lay.local[dev] for k in range(lay.bl)],
+                             device=dev)
+        own = ((gr < h) & (gc < w) & (frame < t)[:, None, None])[..., 1:-1, 1:-1]
+
+        def crop(t):
+            return t[..., 1:-1, 1:-1]
+
+        def grad2(t):
+            gx = torch.where(masks[3], t, stencils.shift_left_col(t)) - t
+            gy = torch.where(masks[1], t, stencils.shift_up_row(t)) - t
+            return torch.where(own, crop(gx * gx + gy * gy), 0.0).sum()
+
+        r = (crop(ex) * crop(uu) + crop(ey) * crop(vv) + crop(et)) ** 2
+        data = data + torch.where(own, r, 0.0).sum().to(first)
+        grads = grads + (grad2(uu) + grad2(vv)).to(first)
+        n = n + own.sum(dtype=torch.float32).to(first)
+    return (data + alpha * alpha * grads) / n
 
 
 def interior(arr: np.ndarray, margin: int) -> np.ndarray:

@@ -27,7 +27,8 @@ storage rule of the package docstring, through the bfloat16 builds of K1,
 K2, K6 and K7 (Jacobi), K3 (SOR) and K4 (IRLS) on the cuda backend;
 multigrid runs K1's bfloat16 build, then its plain V-cycles by the same
 rule. The tiled solver (dist/) runs Jacobi and SOR in both dtypes, through
-the bfloat16 builds of K9-K12.
+the bfloat16 builds of K9-K12, and robust and multigrid through this
+module's solve_level per batch group.
 
 Gradients: both backends differentiate with respect to the frames and a
 warm start. The plain ops tape through `stencils.checkpointed_loop`

@@ -38,6 +38,7 @@ from typing import Optional, Sequence
 import torch
 
 from opticalflowhs_tpu_torch.config import PyramidConfig, TVL1Config
+from opticalflowhs_tpu_torch.dist.gspmd import mesh_frames, run_groups, run_pair_or_groups
 from opticalflowhs_tpu_torch.kernels.tvl1_inner import tvl1_inner, tvl1_inner_plain
 from opticalflowhs_tpu_torch.ops import stencils
 from opticalflowhs_tpu_torch.pyramid import gaussian_pyramid, upsample_flow, warp_each
@@ -270,28 +271,34 @@ def tvl1_solve_batched(
     below 8 px, sides below 8 px at one level) and takes a warps_per_level
     longer than the levels (its first entries); one shorter raises
     ValueError. One chain of launches serves the whole stack. numpy stacks
-    go to `device`, as in tvl1_solve."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharding a stack over devices) is not ported yet: it comes "
-            "with the rest of dist/ (ROADMAP.md queue 1, item 6)"
-        )
+    go to `device` (with `mesh` and no device, the mesh's first device),
+    as in tvl1_solve. `mesh`: the stack splits over the mesh's "batch"
+    axis (dist/gspmd.py), each group one chain of launches on its device,
+    the flow gathered on the mesh's first device."""
     _check(i1, i2, cfg, pyr, rank=3)
-    i1 = as_frame(i1, device, storage_dtype(cfg))
-    return _tvl1_pyramid_body(i1, as_frame(i2, i1.device, i1.dtype), cfg, pyr)
+    i1 = mesh_frames(i1, mesh, device, storage_dtype(cfg))
+    i2 = as_frame(i2, i1.device, i1.dtype)
+    if mesh is not None:
+        return run_groups(lambda a, b: _tvl1_pyramid_body(a, b, cfg, pyr), mesh, i1, i2)
+    return _tvl1_pyramid_body(i1, i2, cfg, pyr)
 
 
 def tvl1_solve_tiled(i1, i2, cfg: TVL1Config = TVL1Config(),
-                     pyr: PyramidConfig = PyramidConfig(levels=1), mesh=None):
-    """Spatially tiled TV-L1 over a device mesh: comes with the rest of
-    dist/, in both dtypes (ROADMAP.md queue 1, item 6)."""
-    if getattr(cfg, "dtype", None) == "bfloat16":
-        raise NotImplementedError(
-            "tvl1_solve_tiled in bfloat16 is not ported yet: bfloat16 on dist/ runs "
-            "the tiled HS solves; this entry comes with the rest of dist/ "
-            "(ROADMAP.md queue 1, item 6), in both dtypes"
-        )
-    raise NotImplementedError(
-        "tvl1_solve_tiled shards a frame over devices and is not ported yet: "
-        "it comes with the rest of dist/ (ROADMAP.md queue 1, item 6)"
-    )
+                     pyr: PyramidConfig = PyramidConfig(levels=1), mesh=None) -> Flow:
+    """Spatially tiled TV-L1 over a ("y", "x") device mesh, in float32 or
+    bfloat16. The reference runs the whole pyramid as global ops under
+    GSPMD sharding constraints, byte-identical to the untiled path; TV-L1's
+    warps are data-dependent and have no fixed halo, so the port solves
+    the frame whole on the mesh's first device through the untiled body
+    (K5 on the card; dist/gspmd.py) and returns the flow there, equal to
+    `tvl1_solve` bitwise. As the reference's, it checks the rank, the
+    shapes and the mesh only."""
+    if i1.ndim != 2:
+        raise ValueError("tvl1_solve_tiled takes single 2-D grayscale frames")
+    if i1.shape != i2.shape:
+        raise ValueError(f"frame shapes differ: {tuple(i1.shape)} vs {tuple(i2.shape)}")
+    if mesh is None:
+        raise ValueError("tvl1_solve_tiled requires a mesh (use tvl1_solve)")
+    i1 = mesh_frames(i1, mesh, None, storage_dtype(cfg))
+    i2 = as_frame(i2, i1.device, i1.dtype)
+    return run_pair_or_groups(lambda a, b: _tvl1_pyramid_body(a, b, cfg, pyr), mesh, i1, i2)

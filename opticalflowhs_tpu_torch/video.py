@@ -18,7 +18,7 @@ from typing import Iterable, Iterator, Optional, Union
 import numpy as np
 import torch
 
-from opticalflowhs_tpu_torch.batch import reject_unported, solve_stack
+from opticalflowhs_tpu_torch.batch import check_family, solve_stack
 from opticalflowhs_tpu_torch.config import HSConfig, PyramidConfig
 from opticalflowhs_tpu_torch.consistency import occlusion_mask
 from opticalflowhs_tpu_torch.io.host import host_array
@@ -99,6 +99,21 @@ def _prefetched_windows(frames: Frames, chunk: int,
         del host
 
 
+def _stream_device(frames, mesh, device):
+    """Where numpy windows go: `device`, or the mesh's first device (a
+    tensor's windows stay on its device)."""
+    if device is None and mesh is not None and not isinstance(frames, torch.Tensor):
+        return mesh.first
+    return device
+
+
+def _fits(mesh, n: int):
+    """The mesh when its batch axis divides n pairs, else None (unsharded)."""
+    if mesh is not None and n % mesh.shape["batch"]:
+        return None
+    return mesh
+
+
 def flow_stream(
     frames: Frames,
     cfg: HSConfig = HSConfig(),
@@ -116,10 +131,17 @@ def flow_stream(
     `frames`: a (T, H, W) array or tensor, or an iterator of (H, W) numpy
     frames (what a camera or decoder feed looks like). `lk` / `tvl1`: solve
     with the Lucas-Kanade or TV-L1 family instead of HS (`cfg` is then
-    ignored; `pyr` defaults to one level)."""
-    reject_unported(lk, tvl1, mesh)
-    for cur in _prefetched_windows(frames, chunk, device):
-        yield solve_stack(cur[:-1], cur[1:], cfg, pyr, tvl1, lk)
+    ignored; `pyr` defaults to one level).
+
+    `mesh`: split each chunk's pairs over the mesh's "batch" axis (the
+    batched entries' `mesh=`); numpy frames go to the mesh's first device
+    when `device` is None. A window whose pairs the batch axis does not
+    divide (the stream's remainder) runs unsharded there, as the
+    reference's."""
+    check_family(lk, tvl1)
+    for cur in _prefetched_windows(frames, chunk, _stream_device(frames, mesh, device)):
+        n = cur.shape[0] - 1
+        yield solve_stack(cur[:-1], cur[1:], cfg, pyr, tvl1, lk, mesh=_fits(mesh, n))
 
 
 def flow_stream_warm(
@@ -179,13 +201,15 @@ def flow_stream_occlusion(
     """flow_stream plus per-pair occlusion masks: yields (forward Flow,
     boolean mask) per chunk. Both directions ride one 2n-image solve per
     window, then the forward-backward test (consistency.occlusion_mask)
-    runs on the stack; thresholds (a, b) as there. `lk=` and `tvl1=` as
-    in flow_stream."""
-    reject_unported(lk, tvl1, mesh)
-    for cur in _prefetched_windows(frames, chunk, device):
+    runs on the stack; thresholds (a, b) as there. `lk=`, `tvl1=` and
+    `mesh=` as in flow_stream (the 2n images split over the batch axis, or
+    unsharded when it does not divide them)."""
+    check_family(lk, tvl1)
+    for cur in _prefetched_windows(frames, chunk, _stream_device(frames, mesh, device)):
         n = cur.shape[0] - 1
         f = solve_stack(torch.cat([cur[:-1], cur[1:]]),
-                        torch.cat([cur[1:], cur[:-1]]), cfg, pyr, tvl1, lk)
+                        torch.cat([cur[1:], cur[:-1]]), cfg, pyr, tvl1, lk,
+                        mesh=_fits(mesh, 2 * n))
         fwd = Flow(f.u[:n], f.v[:n])
         bwd = Flow(f.u[n:], f.v[n:])
         yield fwd, occlusion_mask(fwd, bwd, a=a, b=b)
@@ -203,7 +227,8 @@ def flow_video(
 ) -> Flow:
     """Whole video, (T, H, W) frames -> (T-1, H, W) Flow of numpy arrays.
     Each chunk's flow is copied to the host while the next window is
-    already on its way, so device memory stays bounded by one window."""
+    already on its way, so device memory stays bounded by one window.
+    `mesh=` as in flow_stream."""
     us, vs = [], []
     for f in flow_stream(frames, cfg, pyr, chunk, mesh=mesh, lk=lk, tvl1=tvl1,
                          device=device):

@@ -264,14 +264,22 @@ def test_batched_entry_errors():
         hs_solve_batched(z, z)
     with pytest.raises(ValueError, match="differ"):
         hs_solve_batched(torch.zeros(2, 8, 8), torch.zeros(2, 8, 9))
-    with pytest.raises(NotImplementedError, match="dist/"):
-        hs_solve_batched(torch.zeros(2, 8, 8), torch.zeros(2, 8, 8), mesh=object())
-    # lk= solves (the Lucas-Kanade family); with mesh= it still raises.
-    with pytest.raises(NotImplementedError, match="dist/"):
-        solve_bidirectional(z, z, lk=LKConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hs_solve_batched(torch.zeros(2, 8, 8), torch.zeros(2, 8, 8),
-                         HSConfig(solver="multigrid", dtype="bfloat16"), mesh=object())
+    # mesh= splits the stack over the batch axis (dist/gspmd.py): = the
+    # untiled stack, in both dtypes; a batch it does not divide raises the
+    # reference's ValueError.
+    from opticalflowhs_tpu_torch import MeshConfig
+    from opticalflowhs_tpu_torch.dist import make_mesh
+
+    mesh = make_mesh(MeshConfig(batch=2), ["cpu"] * 2)
+    a, b = (torch.from_numpy(np.random.default_rng(k).uniform(0, 1, (2, 8, 8))
+                             .astype(np.float32)) for k in (1, 2))
+    for cfg in (HSConfig(iters=3), HSConfig(solver="multigrid", iters=1, dtype="bfloat16")):
+        got, want = hs_solve_batched(a, b, cfg, mesh=mesh), hs_solve_batched(a, b, cfg)
+        assert torch.equal(got.u, want.u) and torch.equal(got.v, want.v)
+    fw, bw = solve_bidirectional(z, z, lk=LKConfig(), mesh=mesh)
+    assert torch.equal(fw.u, solve_bidirectional(z, z, lk=LKConfig())[0].u)
+    with pytest.raises(ValueError, match="batch 3 not divisible by mesh batch 2"):
+        hs_solve_batched(torch.zeros(3, 8, 8), torch.zeros(3, 8, 8), mesh=mesh)
     with pytest.raises(ValueError, match="T, H, W"):
         video_pairs(z)
     p1, p2 = video_pairs(torch.zeros(5, 8, 8))

@@ -310,8 +310,9 @@ def test_bf16_refusals():
     # Every solver, TV-L1 and LK run in bfloat16 untiled (tests/port/
     # test_torch_bf16_sor_robust.py, test_torch_bf16_tvl1_mg_lk.py), and
     # hs_solve_tiled in bfloat16 solves, = the untiled solve bitwise
-    # (test_torch_bf16_dist.py); the tiled TV-L1 and LK entries still
-    # refuse in both dtypes (the rest of dist/, ROADMAP.md item 6).
+    # (test_torch_bf16_dist.py); the tiled TV-L1 and LK entries, once
+    # refused, solve in bfloat16 too, = their untiled entries bitwise.
+    # What is refused: float16.
     from opticalflowhs_tpu_torch import LKConfig, MeshConfig, TVL1Config
     from opticalflowhs_tpu_torch.dist import hs_solve_tiled, make_mesh
     from opticalflowhs_tpu_torch.lucas_kanade import lk_solve_tiled
@@ -326,10 +327,14 @@ def test_bf16_refusals():
         want = hs_solve(i1, i2, cfg)
         assert got.u.dtype == BF16
         assert torch.equal(got.u, want.u) and torch.equal(got.v, want.v)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tvl1_solve_tiled(z, z, TVL1Config(dtype="bfloat16"), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        lk_solve_tiled(z, z, LKConfig(dtype="bfloat16"), mesh=mesh)
+    from opticalflowhs_tpu_torch import lk_solve, tvl1_solve
+
+    for tiled, untiled, cfg in ((tvl1_solve_tiled, tvl1_solve, TVL1Config(warps=1, iters=3,
+                                                                          dtype="bfloat16")),
+                                (lk_solve_tiled, lk_solve, LKConfig(dtype="bfloat16"))):
+        got, want = tiled(i1, i2, cfg, mesh=mesh), untiled(i1, i2, cfg)
+        assert got.u.dtype == BF16
+        assert torch.equal(got.u, want.u) and torch.equal(got.v, want.v)
     with pytest.raises(ValueError, match="dtype must be one of"):
         HSConfig(dtype="float16")
     # K9 takes float32 or bfloat16, one dtype across its arrays.

@@ -419,28 +419,50 @@ def test_refusals_match_the_reference(work, video_dir, monkeypatch):
 
 
 def test_routes_waiting_for_dist_exit_with_their_message(work, video_dir):
+    # These four commands once ended with the refusal of a route still to be
+    # ported (the rest of dist/); now each writes the flow of its entry point,
+    # called with the same mesh (a virtual mesh of the CPU), bitwise.
+    from opticalflowhs_tpu_torch import LKConfig, MeshConfig, lk_solve
+    from opticalflowhs_tpu_torch.dist import make_mesh
     from opticalflowhs_tpu_torch.lucas_kanade import lk_solve_tiled
     from opticalflowhs_tpu_torch.tvl1 import tvl1_solve_tiled
 
-    def not_ported(fn, *args, **kw):
-        with pytest.raises(NotImplementedError) as e:
-            fn(*args, **kw)
-        return str(e.value)
-
     f1, f2 = str(work / "f1.pgm"), str(work / "f2.pgm")
-    run = CPU + ["run", f1, f2, "-o", str(work / "never2.flo")]
-    assert _refusal(run + ["--method", "lk", "--mesh.y", "2"]) == not_ported(
-        lk_solve_tiled, None, None)
-    assert _refusal(run + ["--method", "tvl1", "--mesh.x", "2"]) == not_ported(
-        tvl1_solve_tiled, None, None)
-    mesh_msg = not_ported(flow_stream(np.zeros((3, 8, 8), np.float32), mesh=object(),
-                                      device="cpu").__next__)
-    assert _refusal(run + ["--occlusion", str(work / "o2.png"), "--mesh.batch", "2"]) == mesh_msg
-    assert _refusal(CPU + ["video", str(video_dir), "-o", str(work / "never3"),
-                           "--mesh.batch", "2"]) == mesh_msg
-    assert not (work / "never2.flo").exists()
-    # A tiled HS run is ported: it solves on a virtual mesh of the CPU.
-    assert cli.main(run + ["--mesh.y", "2", "--mesh.x", "2"] + ITERS) == 0
+    i1, i2 = load_gray(f1), load_gray(f2)
+
+    def mesh(**kw):
+        cfg = MeshConfig(**kw)
+        return make_mesh(cfg, ["cpu"] * (cfg.batch * cfg.y * cfg.x))
+
+    run = CPU + ["run", f1, f2, "-o"]
+    assert cli.main(run + [str(work / "m_lk.flo"), "--method", "lk", "--mesh.y", "2"]) == 0
+    want = lk_solve_tiled(i1, i2, LKConfig(), PyramidConfig(), mesh=mesh(y=2))
+    assert np.array_equal(read_flo(work / "m_lk.flo"), _flow_np(want))
+    assert np.array_equal(_flow_np(want), _flow_np(lk_solve(i1, i2, LKConfig(), PyramidConfig(),
+                                                            device="cpu")))
+    assert cli.main(run + [str(work / "m_tv.flo"), "--method", "tvl1", "--mesh.x", "2",
+                           "--tvl1.warps", "1", "--tvl1.iters", "5"]) == 0
+    cfg = TVL1Config(warps=1, iters=5)
+    want = tvl1_solve_tiled(i1, i2, cfg, PyramidConfig(), mesh=mesh(x=2))
+    assert np.array_equal(read_flo(work / "m_tv.flo"), _flow_np(want))
+    assert np.array_equal(_flow_np(want), _flow_np(tvl1_solve(i1, i2, cfg, PyramidConfig(),
+                                                              device="cpu")))
+    o = str(work / "m_occ.png")
+    assert cli.main(run + [str(work / "m_occ.flo"), "--occlusion", o, "--mesh.batch", "2"]
+                    + ITERS) == 0
+    fwd, mask = flow_with_occlusion(i1, i2, HSConfig(iters=20), PyramidConfig(),
+                                    mesh=mesh(batch=2))
+    assert np.array_equal(read_flo(work / "m_occ.flo"), _flow_np(fwd))
+    assert np.array_equal(load_gray(o), mask.numpy().astype(np.float32))
+    assert cli.main(CPU + ["video", str(video_dir), "-o", str(work / "m_video"),
+                           "--mesh.batch", "2"] + ITERS) == 0
+    chunks = flow_stream(_decoded(video_dir), HSConfig(iters=20), PyramidConfig(),
+                         mesh=mesh(batch=2))
+    want = np.concatenate([np.stack([c.u.numpy(), c.v.numpy()], axis=-1) for c in chunks])
+    assert np.array_equal(_video_flows(work / "m_video"), want)
+    # A tiled HS run: the tiled pyramid on a virtual mesh of the CPU.
+    assert cli.main(run + [str(work / "m_hs.flo"), "--mesh.y", "2", "--mesh.x", "2"]
+                    + ITERS) == 0
 
 
 def test_python_m_runs_without_jax():

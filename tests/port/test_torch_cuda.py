@@ -1938,13 +1938,14 @@ def test_bf16_entries_differentiate_as_their_plain_twins(dev, shape, name):
 
 
 def test_bf16_is_refused_where_no_build_exists(dev):
-    # Every kernel, K1-K12, has a bfloat16 build, and the tiled HS solves run
-    # in bfloat16 (below); what is refused: tvl1_solve_tiled in both dtypes
-    # (the rest of dist/, ROADMAP.md item 6) and arrays of two dtypes.
+    # Every kernel, K1-K12, has a bfloat16 build, and the tiled solves run
+    # in bfloat16 (below), tvl1_solve_tiled too (once refused: = the untiled
+    # bf16 solve); what is refused: arrays of two dtypes.
     u, v, i1, i2 = _rand16((40, 56), dev, 115, n=4)
     f = k1.derivatives_plain(i1, i2, 0.5)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tv.tvl1_solve_tiled(i1, i2, TVL1Config(dtype="bfloat16"))
+    cfg = TVL1Config(warps=1, iters=8, dtype="bfloat16")
+    _equal(tv.tvl1_solve_tiled(i1, i2, cfg, mesh=make_mesh(MeshConfig(y=2, x=2), [dev] * 4)),
+           tvl1_solve(i1, i2, cfg))
     org = k9.origin_table(u[None], 0, 0)
     with pytest.raises(ValueError, match="dtype"):
         k9.tile_sweeps(u[None], v[None].float(), *(a[None] for a in f), 2, org, 40, 56)
@@ -2663,3 +2664,136 @@ def test_dist_bf16_kernel_entries_refuse_frames_that_require_grad(dev, k):
         call(a)
     with torch.no_grad():
         call(a)
+
+
+# -- the GSPMD routes on a virtual mesh of one card (dist/gspmd.py) ---------------------
+
+
+_ROUTE_KERNELS = ("K1 hs_derivatives", "K4 hs_robust_freeze", "K4 hs_robust_sweeps",
+                  "K5 hs_tvl1_inner")
+
+
+def _counted(fn):
+    """fn()'s result and the K1, K4 and K5 launches it made."""
+    ks = [counted_wrappers()[name] for name in _ROUTE_KERNELS]
+    for k in ks:
+        k.launches = 0
+    out = fn()
+    return out, tuple(k.launches for k in ks)
+
+
+def _vmesh(dev, b=1, y=1, x=1):
+    return make_mesh(MeshConfig(batch=b, y=y, x=x), [dev] * (b * y * x))
+
+
+GSPMD_CFGS = {"robust": dict(solver="robust", alpha=0.3, iters=30, robust_update_every=10),
+              "robust-tol": dict(solver="robust", alpha=0.3, iters=60, robust_update_every=10,
+                                 tol=1e-3, block_sweeps=5),
+              "multigrid": dict(solver="multigrid", alpha=1.0, iters=2),
+              "multigrid-tol": dict(solver="multigrid", alpha=1.0, iters=4, tol=1e-3)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(GSPMD_CFGS))
+def test_tiled_gspmd_routes_equal_untiled_on_a_virtual_mesh(dev, name, dtype):
+    from opticalflowhs_tpu_torch.dist import hs_pyramid_tiled
+
+    cfg = HSConfig(dtype=dtype, **GSPMD_CFGS[name])
+    i1, i2 = _rand((131, 130), dev, 171)
+    got, n_got = _counted(lambda: hs_solve_tiled(i1, i2, cfg, _vmesh(dev, y=2, x=2)))
+    want, n_want = _counted(lambda: hs_solve(i1, i2, cfg))
+    _equal(got, want)
+    assert n_got == n_want and n_got[0] == 1, (n_got, n_want)
+    s1, s2 = _rand((4, 67, 93), dev, 172)
+    got, n_got = _counted(lambda: hs_solve_tiled(s1, s2, cfg, _vmesh(dev, 2, 2, 1)))
+    want = hs_solve_batched(s1, s2, cfg)
+    _, n_groups = _counted(lambda: [hs_solve_batched(s1[g:g + 2], s2[g:g + 2], cfg)
+                                    for g in (0, 2)])
+    _equal(got, want)
+    assert n_got == n_groups and n_got[0] == 2, (n_got, n_groups)
+    pyr = PyramidConfig(levels=2)
+    got, n_got = _counted(lambda: hs_pyramid_tiled(i1, i2, cfg, pyr, _vmesh(dev, y=2, x=2)))
+    want, n_want = _counted(lambda: hs_pyramid(i1, i2, cfg, pyr))
+    _equal(got, want)
+    assert n_got == n_want, (n_got, n_want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", ["hs", "sor", "robust", "multigrid", "lk", "tvl1"])
+def test_mesh_stacks_equal_untiled_on_a_virtual_mesh(dev, family, dtype):
+    # mesh= on the batched entries: each group through the untiled entry,
+    # the launches those calls make; the streams = the unsharded streams.
+    a, b = _rand((4, 67, 93), dev, 173)
+    mesh = _vmesh(dev, 2)
+    hs = {"hs": dict(iters=20), "sor": dict(solver="sor", omega=1.7, iters=10),
+          "robust": dict(GSPMD_CFGS["robust"]), "multigrid": dict(GSPMD_CFGS["multigrid"])}
+    if family in hs:
+        cfg = HSConfig(dtype=dtype, **hs[family])
+        entry, fam = (lambda x, y, m=None: hs_solve_batched(x, y, cfg, mesh=m)), dict(cfg=cfg)
+    elif family == "lk":
+        cfg = LKConfig(dtype=dtype)
+        entry, fam = (lambda x, y, m=None: lk_solve_batched(x, y, cfg, mesh=m)), dict(lk=cfg)
+    else:
+        cfg = TVL1Config(warps=2, iters=10, dtype=dtype)
+        entry, fam = (lambda x, y, m=None: tvl1_solve_batched(x, y, cfg, mesh=m)), dict(tvl1=cfg)
+    got, n_got = _counted(lambda: entry(a, b, mesh))
+    _, n_groups = _counted(lambda: [entry(a[g:g + 2], b[g:g + 2]) for g in (0, 2)])
+    _equal(got, entry(a, b))
+    assert n_got == n_groups, (n_got, n_groups)
+    frames = torch.cat([a, b[-1:]])
+    cfg_kw = dict(fam)
+    hs_cfg = cfg_kw.pop("cfg", HSConfig())
+    got = list(flow_stream(frames, hs_cfg, chunk=2, mesh=mesh, **cfg_kw))
+    for g, w in zip(got, flow_stream(frames, hs_cfg, chunk=2, **cfg_kw)):
+        _equal(g, w)
+    got = list(flow_stream_occlusion(frames, hs_cfg, chunk=3, mesh=mesh, **cfg_kw))
+    for (g, gm), (w, wm) in zip(got, flow_stream_occlusion(frames, hs_cfg, chunk=3, **cfg_kw)):
+        _equal(g, w)
+        assert torch.equal(gm, wm)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", ["lk", "tvl1"])
+def test_tiled_lk_and_tvl1_equal_untiled_on_a_virtual_mesh(dev, family, dtype):
+    from opticalflowhs_tpu_torch.lucas_kanade import lk_solve_tiled
+
+    i1, i2 = _rand((131, 130), dev, 174)
+    pyr = PyramidConfig(levels=2, iters_per_level=())
+    if family == "lk":
+        cfg = LKConfig(dtype=dtype)
+        tiled, untiled = lk_solve_tiled, lk_solve
+    else:
+        cfg = TVL1Config(warps=2, iters=12, dtype=dtype)
+        tiled, untiled = tv.tvl1_solve_tiled, tvl1_solve
+    got, n_got = _counted(lambda: tiled(i1, i2, cfg, pyr, mesh=_vmesh(dev, y=2, x=2)))
+    want, n_want = _counted(lambda: untiled(i1, i2, cfg, pyr))
+    _equal(got, want)
+    assert n_got == n_want and (family == "lk") == (n_got[3] == 0), n_got
+    # consistency on the spatial mesh: the tiled entry once a direction
+    fam = {family: cfg}
+    got = flow_with_occlusion(i1, i2, pyr=pyr, mesh=_vmesh(dev, y=2, x=2), **fam)
+    want = flow_with_occlusion(i1, i2, pyr=pyr, **fam)
+    _equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+def test_spatial_hs_occlusion_and_gspmd_gradient_on_a_virtual_mesh(dev):
+    # flow_with_occlusion on a spatial mesh: one batch-2 tiled pyramid (K9),
+    # halo_sweeps reaching it; and the gradient of a tiled robust solve (the
+    # untiled entry's kernel forward, its plain twin's backward) = untiled.
+    i1, i2 = _rand((131, 130), dev, 175)
+    cfg = HSConfig(alpha=0.5, iters=30)
+    got = flow_with_occlusion(i1, i2, cfg, mesh=_vmesh(dev, y=2, x=2), halo_sweeps=4)
+    want = flow_with_occlusion(i1, i2, cfg)
+    _equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+    def grad(fn):
+        x = i2.clone().requires_grad_()
+        f = fn(i1, x)
+        (f.u.pow(2).mean() + f.v.pow(2).mean()).backward()
+        return x.grad
+
+    rcfg = HSConfig(**GSPMD_CFGS["robust"])
+    _equal([grad(lambda a, b: hs_solve_tiled(a, b, rcfg, _vmesh(dev, y=2, x=2)))],
+           [grad(lambda a, b: hs_solve(a, b, rcfg))])

@@ -347,12 +347,21 @@ def test_validation_errors_match_reference(k):
 
 @pytest.mark.parametrize("solver", ["robust", "multigrid"])
 def test_gspmd_routes_raise_not_implemented(solver):
-    i1, i2 = _frames((32, 64), 2)
+    # The GSPMD routes were refused until they were ported (dist/gspmd.py):
+    # now they solve, never falling through to Jacobi, and equal the untiled
+    # solve and pyramid of their solver bitwise
+    # (tests/port/test_torch_dist_gspmd.py holds them to the reference).
+    i1, i2 = (torch.from_numpy(a) for a in _frames((32, 64), 2))
     mesh = make_mesh(MeshConfig(y=2, x=2), CPU8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hs_solve_tiled(i1, i2, HSConfig(solver=solver), mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hs_pyramid_tiled(i1, i2, HSConfig(solver=solver), PyramidConfig(levels=2), mesh)
+    cfg = HSConfig(solver=solver, iters=4 if solver == "robust" else 1)
+    got = hs_solve_tiled(i1, i2, cfg, mesh)
+    want = hs_solve(i1, i2, cfg)
+    assert torch.equal(got.u, want.u) and torch.equal(got.v, want.v)
+    assert not torch.equal(got.u, hs_solve(i1, i2, dataclasses.replace(cfg, solver="jacobi")).u)
+    pyr = PyramidConfig(levels=2)
+    got = hs_pyramid_tiled(i1, i2, cfg, pyr, mesh)
+    want = hs_pyramid(i1, i2, cfg, pyr)
+    assert torch.equal(got.u, want.u) and torch.equal(got.v, want.v)
 
 
 def test_mesh_construction(monkeypatch):

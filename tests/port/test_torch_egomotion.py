@@ -136,10 +136,19 @@ def test_numpy_flow_and_refusals():
     u, v = _model_flow(16, 24, 0.5, 0.0, 0.0, 0.0)
     got = estimate_egomotion(Flow(u, v), device="cpu")
     assert got.tx.device.type == "cpu" and abs(float(got.tx) - 0.5) < 1e-5
-    with pytest.raises(NotImplementedError, match="dist/"):
+    # axis_names= sums across the shards of a dist.reshard.Sharded field
+    # (tests/port/test_torch_reshard.py); a whole tensor is refused.
+    import opticalflowhs_tpu_torch.dist.reshard as rs
+    from opticalflowhs_tpu_torch import MeshConfig
+    from opticalflowhs_tpu_torch.dist import make_mesh
+
+    with pytest.raises(TypeError, match="Sharded"):
         estimate_egomotion(Flow(torch.from_numpy(u), torch.from_numpy(v)), axis_names=("y",))
-    with pytest.raises(NotImplementedError, match="dist/"):
+    with pytest.raises(TypeError, match="Sharded"):
         hs_energy(u, u, Flow(u, v), axis_names=("y",), device="cpu")
+    mesh = make_mesh(MeshConfig(y=2), ["cpu"] * 2)
+    su, sv = (rs.shard(a, mesh, ("y", None)) for a in (u, v))
+    assert abs(float(estimate_egomotion(Flow(su, sv), axis_names=("y",)).tx) - 0.5) < 1e-5
 
 
 # -- bfloat16 flows -------------------------------------------------------------

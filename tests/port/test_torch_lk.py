@@ -297,22 +297,31 @@ def test_refusals_match_reference(call):
 
 def test_port_only_refusals():
     z, s = torch.zeros(16, 16), torch.zeros(2, 16, 16)
-    with pytest.raises(NotImplementedError, match="bfloat16.*item 6"):
-        lk.lk_solve_tiled(z, z, LKConfig(dtype="bfloat16"), mesh=object())
-    with pytest.raises(NotImplementedError, match="dist/"):
-        lk_solve_batched(s, s, mesh=object())
-    with pytest.raises(NotImplementedError, match="dist/"):
-        lk.lk_solve_tiled(z, z, mesh=object())
+    # The tiled entry and mesh= solve (dist/gspmd.py), in both dtypes, =
+    # the untiled entries (tests/port/test_torch_dist_gspmd.py holds them to
+    # the reference).
+    from opticalflowhs_tpu_torch import MeshConfig
+    from opticalflowhs_tpu_torch.dist import make_mesh
+
+    mesh = make_mesh(MeshConfig(batch=2, y=2), ["cpu"] * 4)
+    r = torch.from_numpy(np.random.default_rng(4).uniform(0, 1, (2, 16, 16)).astype(np.float32))
+    cfg = LKConfig(dtype="bfloat16")
+    got, want = lk.lk_solve_tiled(r[0], z, cfg, mesh=mesh), lk_solve(r[0], z, cfg)
+    assert torch.equal(got.u, want.u) and torch.equal(got.v, want.v)
+    got, want = lk_solve_batched(r, s, mesh=mesh), lk_solve_batched(r, s)
+    assert torch.equal(got.u, want.u) and torch.equal(got.v, want.v)
     with pytest.raises(ValueError, match="differ"):
         lk_solve_batched(s, torch.zeros(2, 16, 17))
     with pytest.raises(ValueError, match="at most one of lk= and tvl1="):
         solve_bidirectional(z, z, lk=LKConfig(), tvl1=TVL1Config())
     with pytest.raises(ValueError, match="at most one of lk= and tvl1="):
         flow_with_occlusion(z, z, lk=LKConfig(), tvl1=TVL1Config())
-    with pytest.raises(NotImplementedError, match="dist/"):
-        flow_with_occlusion(z, z, lk=LKConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="dist/"):
-        next(video.flow_stream_occlusion(_video(), lk=LKConfig(), mesh=object(), device="cpu"))
+    fw, mask = flow_with_occlusion(r[0], z, lk=LKConfig(), mesh=mesh)
+    want = flow_with_occlusion(r[0], z, lk=LKConfig())
+    assert torch.equal(fw.u, want[0].u) and torch.equal(mask, want[1])
+    got = next(video.flow_stream_occlusion(_video(), lk=LKConfig(), mesh=mesh))
+    want = next(video.flow_stream_occlusion(_video(), lk=LKConfig(), device="cpu"))
+    assert torch.equal(got[0].u, want[0].u) and torch.equal(got[1], want[1])
 
 
 def test_reference_top_level_names_are_exported():

@@ -403,12 +403,21 @@ def test_unsupported_options_raise():
     z = torch.zeros(16, 16)
     with pytest.raises(ValueError, match="B, H, W"):
         tvl1_solve_batched(z, z)
-    with pytest.raises(NotImplementedError, match="bfloat16.*item 6"):
-        tv.tvl1_solve_tiled(z, z, TVL1Config(dtype="bfloat16"), mesh=object())
-    with pytest.raises(NotImplementedError, match="dist/"):
-        tvl1_solve_batched(z[None], z[None], mesh=object())
-    with pytest.raises(NotImplementedError, match="dist/"):
-        tv.tvl1_solve_tiled(z, z, mesh=object())
+    # The tiled entry and mesh= solve (dist/gspmd.py), in both dtypes, =
+    # the untiled entries (tests/port/test_torch_dist_gspmd.py holds them to
+    # the reference); without a mesh the tiled entry raises its ValueError.
+    from opticalflowhs_tpu_torch import MeshConfig
+    from opticalflowhs_tpu_torch.dist import make_mesh
+
+    mesh = make_mesh(MeshConfig(y=2, x=2), ["cpu"] * 4)
+    r = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (16, 16)).astype(np.float32))
+    cfg = TVL1Config(warps=1, iters=4, dtype="bfloat16")
+    got, want = tv.tvl1_solve_tiled(r, z, cfg, mesh=mesh), tvl1_solve(r, z, cfg)
+    assert torch.equal(got.u, want.u) and torch.equal(got.v, want.v)
+    got = tvl1_solve_batched(r[None], z[None], cfg, mesh=make_mesh(MeshConfig(), ["cpu"]))
+    assert torch.equal(got.u[0], want.u)
+    with pytest.raises(ValueError, match="requires a mesh"):
+        tv.tvl1_solve_tiled(z, z)
     # The cuda backend takes CUDA tensors only; nothing falls back to the CPU.
     with pytest.raises(ValueError, match="CUDA"):
         tvl1_solve(z, z, TVL1Config(backend="cuda"))

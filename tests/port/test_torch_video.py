@@ -106,9 +106,17 @@ def test_flow_stream_rejects_bad_args():
         list(video.flow_stream(_video(), chunk=0, device="cpu"))
     with pytest.raises(ValueError, match="T, H, W"):
         list(video.flow_stream(np.zeros((8, 8), np.float32), device="cpu"))
-    # lk= solves (the Lucas-Kanade family); with mesh= it still raises.
-    with pytest.raises(NotImplementedError, match="dist/"):
-        list(video.flow_stream(_video(), lk=LKConfig(), mesh=object(), device="cpu"))
+    # lk= with mesh= solves too, each chunk split over the batch axis, = the
+    # unsharded stream (tests/port/test_torch_dist_gspmd.py covers the rest).
+    from opticalflowhs_tpu_torch import MeshConfig
+    from opticalflowhs_tpu_torch.dist import make_mesh
+
+    mesh = make_mesh(MeshConfig(batch=2), ["cpu"] * 2)
+    got = list(video.flow_stream(_video(), lk=LKConfig(), mesh=mesh, chunk=2))
+    want = list(video.flow_stream(_video(), lk=LKConfig(), chunk=2, device="cpu"))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g.u, w.u) and torch.equal(g.v, w.v)
 
 
 @pytest.mark.parametrize("entry", ["flow_stream", "flow_stream_occlusion", "flow_video"])
