@@ -138,6 +138,22 @@ each ran through the kernels:
               through time_to_space / space_to_time on (2, 2, 2) and
               timesharded_pairs on (4, 1, 1); estimate_egomotion and
               hs_energy over D1's 16 shards (axis_names) against the whole.
+  phase 24:   dist/multihost.py, meshes that span processes (no new
+              kernel; K9 runs across the process boundary): worker
+              processes of this script (`--mh-worker`, importing no JAX)
+              join torch.distributed worlds through init_multihost. Two
+              processes on cuda:0 over gloo (halos staged through pinned
+              host buffers), config 5's (1, 4, 4) mesh of 8 virtual shards
+              a process: D1, D2, D4, D5, bf16 D1 and a robust pair through
+              GSPMD = their untiled entries bitwise on both processes,
+              counted (K9 25 launches a process for D1), the bytes each
+              sends in D1 = the halo count, timed (median of 5) beside the
+              in-process virtual 4 x 4 mesh; `python -m
+              opticalflowhs_tpu_torch.dist.multihost` as 2 processes at its
+              defaults (rank 0's .flo = hs_pyramid bitwise); a 1-process
+              NCCL world (all_gather, all_reduce, D1 and D5); two NCCL ranks
+              on one card refused by name; with two or more cards, D1 over
+              NCCL one card a rank.
 Every phase checks what it measures and any failure exits non-zero.
 Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
@@ -162,19 +178,27 @@ line is
 
 from __future__ import annotations
 
-import dataclasses
-import json
-import statistics
-import subprocess
 import sys
-import time
-from pathlib import Path
 
-import numpy as np
-import torch
+if sys.argv[1:2] == ["--mh-worker"]:
+    # Phase 24's worker processes, as every process of the port, import
+    # neither JAX nor the reference package.
+    sys.modules["jax"] = None
+    sys.modules["opticalflowhs_tpu"] = None
+
+import dataclasses  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import statistics  # noqa: E402
+import subprocess  # noqa: E402
+import time  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # The port's one roofline accounting (opticalflowhs_tpu_torch/bench.py).
-from opticalflowhs_tpu_torch.bench import HBM_GBPS, VPU_TOPS
+from opticalflowhs_tpu_torch.bench import HBM_GBPS, VPU_TOPS  # noqa: E402
 
 TOL = 2e-6  # the reference's kernel-vs-oracle bar; the kernels aim for 0.0
 ROOT = Path(__file__).resolve().parent
@@ -4232,6 +4256,310 @@ def dist_gspmd_path(dev, pair, c2a, c2b, vid) -> dict:
     return totals
 
 
+# Phase 24's legs: (mode, processes, backend). "gloo": config 5's D1, D2,
+# D4, D5, bf16 D1 and a robust pair on a (1, 4, 4) mesh of 8 virtual shards
+# a process on cuda:0; "nccl1": a 1-process NCCL world (D1 and D5 through
+# the NCCL collectives); "shared": two NCCL ranks on cuda:0, which must be
+# refused by name; "cards": D1 with NCCL, one card a rank (two or more
+# cards only).
+MH_LEGS = {"gloo": (2, "gloo"), "nccl1": (1, "nccl"), "shared": (2, "nccl"),
+           "cards": (2, "nccl")}
+
+
+def mh_cases(cfg5, s5):
+    """Phase 24's cases: name -> (tiled config, its untiled twin's config,
+    whether it is config 5's pyramid)."""
+    d5 = dataclasses.replace(cfg5, tol=1e-3)
+    return {"D1": (cfg5, cfg5, False),
+            "D2": (cfg5, cfg5, True),
+            "D4": (dataclasses.replace(cfg5, solver="sor", omega=OMEGA, iters=50),) * 2 + (False,),
+            # To tolerance the untiled solve checks every block_sweeps
+            # sweeps, the tiled one every halo block.
+            "D5": (d5, dataclasses.replace(d5, block_sweeps=s5), False),
+            "D1 bf16": (dataclasses.replace(cfg5, dtype="bfloat16"),) * 2 + (False,),
+            "robust pair": (dataclasses.replace(cfg5, solver="robust"),) * 2 + (False,)}
+
+
+def mh_d1_bytes(th: int, tw: int, s: int, mx: int, blocks: int) -> int:
+    """Bytes one process sends in D1 on a mesh whose "y" boundary lies
+    between two processes: a block's u and v halos (s rows of the
+    column-extended shard, one strip a column of the mesh), and once the
+    two frames' halos (s + 1 rows)."""
+    block = 2 * mx * s * (tw + 2 * s) * 4
+    return blocks * block + 2 * mx * (s + 1) * (tw + 2 * (s + 1)) * 4
+
+
+def mh_worker(argv) -> int:
+    """One process of phase 24: `chip_smoke.py --mh-worker MODE RANK WORLD
+    HOST:PORT OUTDIR`. Joins the world through init_multihost, runs its
+    leg's cases counted and timed, each against its untiled entry, and
+    writes its results to OUTDIR/MODE_rRANK.json."""
+    from opticalflowhs_tpu_torch import PyramidConfig, hs_pyramid, hs_solve
+    from opticalflowhs_tpu_torch.dist import hs_pyramid_tiled, hs_solve_tiled, make_mesh
+    from opticalflowhs_tpu_torch.dist import transport
+    from opticalflowhs_tpu_torch.dist.multihost import init_multihost
+    from opticalflowhs_tpu_torch.kernels import _build, counted_wrappers
+
+    mode, rank, world, addr, out = argv[0], int(argv[1]), int(argv[2]), argv[3], Path(argv[4])
+    backend = MH_LEGS[mode][1]
+    dev = torch.device("cuda", rank if mode == "cards" else 0)
+    res = {"mode": mode, "rank": rank, "backend": backend, "device": str(dev)}
+    t0 = time.perf_counter()
+    try:
+        init_multihost(addr, world, rank, backend=backend, device=dev)
+    except ValueError as e:
+        if mode != "shared":
+            raise
+        res.update(refused=str(e), refused_after_s=time.perf_counter() - t0)
+        (out / f"{mode}_r{rank}.json").write_text(json.dumps(res))
+        return 0
+    require(mode != "shared", "two NCCL ranks on one card were not refused")
+    res["init_s"] = time.perf_counter() - t0
+    _build.library()
+    cfg5, pyr5, mcfg = c5_configs()
+    s5 = mcfg.halo_sweeps
+    q1, q2 = c5_frames(dev)
+    mesh = make_mesh(mcfg, [dev] * (mcfg.batch * mcfg.y * mcfg.x // world))
+    res["ranks"] = mesh.ranks.tolist()
+    if mode == "nccl1":
+        # The NCCL collectives themselves, on the card.
+        x = torch.arange(4, device=dev, dtype=torch.float32)
+        got = [torch.empty_like(x)]
+        torch.distributed.all_gather(got, x)
+        y = x.clone()
+        torch.distributed.all_reduce(y, op=torch.distributed.ReduceOp.MAX)
+        require(torch.equal(got[0], x) and torch.equal(y, x), "NCCL all_gather / all_reduce")
+    cases = mh_cases(cfg5, s5)
+    if mode != "gloo":
+        cases = {k: cases[k] for k in (("D1", "D5") if mode == "nccl1" else ("D1",))}
+    wrappers = counted_wrappers()
+
+    def tiled(c, pyramid):
+        if pyramid:
+            return hs_pyramid_tiled(q1, q2, c, pyr5, mesh, halo_sweeps=s5)
+        return hs_solve_tiled(q1, q2, c, mesh, halo_sweeps=s5)
+
+    for tag, (c, twin, pyramid) in cases.items():
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        transport.counts.update(sent_bytes=0, exchanges=0, exchange_s=0.0, gather_s=0.0)
+        got = tiled(c, pyramid)
+        torch.cuda.synchronize()
+        launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+        sent = dict(transport.counts)
+        want = hs_pyramid(q1, q2, twin, pyr5) if pyramid else hs_solve(q1, q2, twin)
+        equal = all(torch.equal(a, b) and a.dtype == b.dtype and a.device == dev
+                    for a, b in zip(got, want))
+        diff = max_flow_diff([a.float() for a in got], [b.float() for b in want])
+        ms = median_ms(lambda: tiled(c, pyramid), runs=5)
+        # Where a warm call's host time goes: the exchanges and gathers.
+        transport.counts.update(sent_bytes=0, exchanges=0, exchange_s=0.0, gather_s=0.0)
+        t0 = time.perf_counter()
+        tiled(c, pyramid)
+        torch.cuda.synchronize()
+        warm = dict(transport.counts, call_s=time.perf_counter() - t0)
+        res[tag] = {"equal": equal, "max_abs_diff": diff, "launches": launches,
+                    "sent": sent, "ms": ms, "warm": warm}
+    torch.distributed.destroy_process_group()
+    (out / f"{mode}_r{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def mh_split(warm: dict) -> dict:
+    """A warm call's host seconds: in the exchanges, in the gathers, and
+    the rest (K9 launches, local copies, the cold ops)."""
+    rest = warm["call_s"] - warm["exchange_s"] - warm["gather_s"]
+    return {"call": round(warm["call_s"], 4), "exchanges": round(warm["exchange_s"], 4),
+            "gathers": round(warm["gather_s"], 4), "rest": round(rest, 4)}
+
+
+def _spawn(cmds, envs, timeout: float):
+    """Start every command at once from the repo's root and wait for all
+    within `timeout` seconds; every process still running then is killed.
+    Returns each one's (returncode, stdout, stderr)."""
+    procs = [subprocess.Popen(c, cwd=ROOT, env=e, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c, e in zip(cmds, envs)]
+    deadline = time.perf_counter() + timeout
+    res = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+            res.append((p.returncode, o, e))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return res
+
+
+def _free_addr() -> str:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
+
+
+def multihost_path(dev) -> dict:
+    """Phase 24: dist/multihost.py on the card. Two processes on cuda:0
+    over gloo (halos staged through the host) reproduce config 5's D1, D2,
+    D4, D5, bf16 D1 and the robust pair through GSPMD bitwise against their
+    untiled entries, counted (K9 25 launches a process for D1) and timed
+    beside the same calls on phase 15's in-process virtual 4 x 4 mesh; the
+    bytes each process sends in D1 = the halo count. `python -m
+    opticalflowhs_tpu_torch.dist.multihost` as 2 processes at its defaults
+    (gloo): rank 0's .flo = the untiled hs_pyramid bitwise. A 1-process
+    NCCL world runs D1 and D5 through the NCCL collectives; two NCCL ranks
+    on one card are refused by name; with two or more cards D1 runs with
+    NCCL, one card a rank. Returns the numbers for K9's row."""
+    import tempfile
+
+    from opticalflowhs_tpu_torch import HSConfig, PyramidConfig, hs_pyramid, hs_solve
+    from opticalflowhs_tpu_torch.dist import hs_pyramid_tiled, hs_solve_tiled, make_mesh
+    from opticalflowhs_tpu_torch.io.flo import read_flo
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    legs = ["gloo", "nccl1", "shared"] + (["cards"] if cards >= 2 else [])
+    print(f"phase 24 legs: {legs} ({cards} card(s); the NCCL leg one card a rank "
+          f"{'runs' if cards >= 2 else 'needs two cards and does not run'})")
+    base = {k: v for k, v in os.environ.items() if not k.startswith("HSFLOW_")}
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+
+        def leg_cmds(mode):
+            n, addr = MH_LEGS[mode][0], _free_addr()
+            return [[sys.executable, str(ROOT / "chip_smoke.py"), "--mh-worker", mode, str(r),
+                     str(n), addr, str(out)] for r in range(n)]
+
+        def check(mode, res):
+            for r, (rc, o, e) in enumerate(res):
+                require(rc == 0, f"phase 24 {mode} worker {r} exited {rc}: {e[-4000:]}")
+            results[mode] = [json.loads((out / f"{mode}_r{r}.json").read_text())
+                             for r in range(len(res))]
+
+        # The timed leg alone on the card.
+        t0 = time.perf_counter()
+        check("gloo", _spawn(leg_cmds("gloo"), [base] * 2, 300))
+        gloo_s = time.perf_counter() - t0
+        # The entry point, the NCCL world of one and the shared-card pair together.
+        addr = _free_addr()
+        cli = [[sys.executable, "-m", "opticalflowhs_tpu_torch.dist.multihost",
+                "--dist-backend", "gloo", "-o", str(out / f"cli_r{r}.flo")] for r in range(2)]
+        cli_env = [dict(base, HSFLOW_COORD=addr, HSFLOW_NPROC="2", HSFLOW_PROC_ID=str(r))
+                   for r in range(2)]
+        nccl = leg_cmds("nccl1") + leg_cmds("shared")
+        t0 = time.perf_counter()
+        res = _spawn(cli + nccl, cli_env + [base] * len(nccl), 300)
+        rest_s = time.perf_counter() - t0
+        for r, (rc, o, e) in enumerate(res[:2]):
+            require(rc == 0, f"phase 24 multihost entry rank {r} exited {rc}: {e[-4000:]}")
+        check("nccl1", res[2:3])
+        check("shared", res[3:5])
+        cli_out = [o for _, o, _ in res[:2]]
+        flo = read_flo(out / "cli_r0.flo")
+        require(not (out / "cli_r1.flo").exists() and cli_out[1] == "",
+                "phase 24: rank 1 of the entry point wrote or printed")
+        if "cards" in legs:
+            check("cards", _spawn(leg_cmds("cards"), [base] * 2, 300))
+
+    # -- the gloo leg: bitwise, counted, timed beside the in-process virtual mesh ----------
+    cfg5, pyr5, mcfg = c5_configs()
+    s5 = mcfg.halo_sweeps
+    q1, q2 = c5_frames(dev)
+    H, W = q1.shape
+    m44 = make_mesh(mcfg, [dev] * 16)
+    th, tw = H // mcfg.y, W // mcfg.x
+    want_bytes = mh_d1_bytes(th, tw, s5, mcfg.x, -(-cfg5.iters // s5))
+    cases = mh_cases(cfg5, s5)
+    in_process = {}
+    for tag, (c, _, pyramid) in cases.items():
+        fn = ((lambda c=c: hs_pyramid_tiled(q1, q2, c, pyr5, m44, halo_sweeps=s5)) if pyramid
+              else (lambda c=c: hs_solve_tiled(q1, q2, c, m44, halo_sweeps=s5)))
+        in_process[tag] = median_ms(fn, runs=5)
+    g = results["gloo"]
+    for r, w in enumerate(g):
+        require(w["ranks"] == [[[0] * 4] * 2 + [[1] * 4] * 2], f"gloo mesh ranks {w['ranks']}")
+    for tag in cases:
+        for r, w in enumerate(g):
+            require(w[tag]["equal"], f"phase 24 {tag} rank {r} differs from the untiled entry: "
+                                     f"{w[tag]['max_abs_diff']}")
+        k9 = [w[tag]["launches"].get("K9 hs_tile_sweeps", 0) for w in g]
+        k9s = [w[tag]["launches"].get("K9 hs_sor_tile_sweeps", 0) for w in g]
+        if tag in ("D1", "D1 bf16"):
+            require(k9 == [25, 25], f"{tag} K9 launches a process {k9}")
+        elif tag == "D4":
+            require(min(k9s) > 0 and k9 == [0, 0], f"D4 K9 launches {k9}, K9 SOR {k9s}")
+        elif tag == "robust pair":
+            # The pair is solved by rank 0, which owns mesh entry (0, 0, 0).
+            require(g[0][tag]["launches"].get("K4 hs_robust_sweeps", 0) > 0
+                    and not g[1][tag]["launches"], f"robust pair launches {[w[tag]['launches'] for w in g]}")
+        else:
+            require(min(k9) > 0, f"{tag} K9 launches {k9}")
+        print(f"phase 24 {tag} 2 processes on cuda:0 (gloo, halos through the host), "
+              f"(1, 4, 4) of 8 shards a process: = untiled bitwise on both; launches "
+              f"{[w[tag]['launches'] for w in g]}; sent {[w[tag]['sent'] for w in g]}; a warm "
+              f"call's host s {[mh_split(w[tag]['warm']) for w in g]}; ms "
+              f"(median of 5) {[round(w[tag]['ms'], 3) for w in g]} beside in-process "
+              f"virtual 4 x 4 {in_process[tag]:.3f}")
+    sent = [w["D1"]["sent"]["sent_bytes"] for w in g]
+    require(sent == [want_bytes] * 2, f"D1 bytes sent {sent}, the halo count {want_bytes}")
+    per_block = 2 * mcfg.x * s5 * (tw + 2 * s5) * 4
+    print(f"phase 24 D1 crossing bytes: {sent[0]} a process "
+          f"({per_block} a block each way, {2 * per_block} a block in all, and the frames' "
+          f"halos once), {g[0]['D1']['sent']['exchanges']} exchanges a process; "
+          f"leg {gloo_s:.1f} s with start-up")
+
+    # -- the entry point, the NCCL world of one, the shared card --------------------------
+    i1 = np.random.default_rng(0).uniform(0, 1, (2160, 3840)).astype(np.float32)
+    i2 = np.roll(i1, 2, axis=1)
+    want = hs_pyramid(i1, i2, HSConfig(alpha=1.0, iters=100), PyramidConfig(levels=3),
+                      device=dev)
+    require(flo.shape == (2160, 3840, 2)
+            and np.array_equal(flo[..., 0], want.u.cpu().numpy())
+            and np.array_equal(flo[..., 1], want.v.cpu().numpy()),
+            "the entry point's .flo differs from the untiled hs_pyramid")
+    lines = cli_out[0].splitlines()
+    require(len(lines) == 3 and lines[0] == "2 processes, 2 devices, mesh (1, 1, 2)"
+            and lines[1].startswith("ego-motion: t=(") and lines[2].startswith("wrote "),
+            f"the entry point's rank 0 printed {lines}")
+    print(f"phase 24 python -m opticalflowhs_tpu_torch.dist.multihost, 2 processes (gloo) at "
+          f"2160x3840 L3 i100 s4: {lines[1]}; .flo = hs_pyramid bitwise; rank 1 silent")
+    n1 = results["nccl1"][0]
+    for tag in ("D1", "D5"):
+        require(n1[tag]["equal"], f"NCCL 1-process {tag} differs from the untiled entry")
+    require(n1["D1"]["launches"].get("K9 hs_tile_sweeps") == 25,
+            f"NCCL 1-process D1 launches {n1['D1']['launches']}")
+    print(f"phase 24 NCCL world of 1 on cuda:0: all_gather and all_reduce; D1 and D5 through "
+          f"the NCCL collectives = untiled bitwise, D1 launches {n1['D1']['launches']}, ms "
+          f"D1 {n1['D1']['ms']:.3f} D5 {n1['D5']['ms']:.3f} beside in-process "
+          f"{in_process['D1']:.3f} and {in_process['D5']:.3f}")
+    sh = results["shared"]
+    require(all("refuses two ranks on one card" in w["refused"] and w["refused_after_s"] < 60
+                for w in sh), f"shared-card refusal {sh}")
+    print(f"phase 24 two NCCL ranks on cuda:0 refused after "
+          f"{[round(w['refused_after_s'], 2) for w in sh]} s: {sh[0]['refused']}")
+    if "cards" in legs:
+        c2 = results["cards"]
+        require(all(w["D1"]["equal"] and w["D1"]["launches"].get("K9 hs_tile_sweeps") == 25
+                    for w in c2), f"NCCL one card a rank D1 {c2}")
+        print(f"phase 24 NCCL one card a rank ({[w['device'] for w in c2]}): D1 = untiled "
+              f"bitwise, 25 K9 launches a process, ms {[round(w['D1']['ms'], 3) for w in c2]}, "
+              f"sent {[w['D1']['sent']['sent_bytes'] for w in c2]}, a warm call's host s "
+              f"{[mh_split(w['D1']['warm']) for w in c2]}")
+    print(f"phase 24 took {time.perf_counter() - t_phase:.1f} s (legs after the first "
+          f"{rest_s:.1f} s)")
+    return {"launches_D1_per_process_2_processes": 25,
+            "multiprocess_D1_ms": [w["D1"]["ms"] for w in g],
+            "in_process_D1_ms": in_process["D1"],
+            "multiprocess_D1_sent_bytes_per_process": sent[0]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4599,6 +4927,10 @@ def main() -> int:
     # -- phase 23: the rest of dist/ (the GSPMD routes, mesh=, reshard, sharded sums) -----
     dist_gspmd_path(dev, c5_frames(dev), c2a, c2b, vid)
 
+    # -- phase 24: dist/multihost.py, meshes that span processes (K9 across them) ---------
+    mh = multihost_path(dev)
+    next(r for r in k9_12_rows if r["name"] == "hs_tile_sweeps").update(mh)
+
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2
     fields = k1.derivatives_plain(i1, i2, 0.5)
@@ -4769,4 +5101,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mh-worker"]:
+        sys.exit(mh_worker(sys.argv[2:]))
     sys.exit(main())

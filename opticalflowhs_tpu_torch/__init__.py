@@ -32,7 +32,10 @@ the reference's:
   egomotion     estimate_egomotion: the 4-parameter rigid+zoom fit to a
                 flow, with its focus of expansion
   dist/         make_mesh (meshes of devices in one process, virtual ones
-                included), halo_pad, hs_solve_tiled, hs_pyramid_tiled
+                included, or across processes after init_multihost: one
+                process a card, torch.distributed; `python -m
+                opticalflowhs_tpu_torch.dist.multihost`), halo_pad,
+                hs_solve_tiled, hs_pyramid_tiled
                 (every solver; robust and multigrid by the batch groups
                 of gspmd.py), reshard (Sharded arrays, time_to_space,
                 space_to_time, timesharded_pairs); mesh= on the batched

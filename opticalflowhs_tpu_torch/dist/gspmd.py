@@ -23,6 +23,12 @@ partitioner, so here:
 A single (H, W) pair uses no batch axis, as the reference's P("y", "x"),
 and is solved on the mesh's first device. Gradients pass through the
 copies and the untiled entries (kernels/autodiff.py).
+
+On a mesh that spans processes (dist/multihost.py) every process holds the
+whole frames: each solves the batch groups whose device it owns, and the
+groups' flows are all-gathered in group order (dist/transport.py), so
+every process returns the whole flow on its own first device; a pair is
+solved by the process that owns mesh entry (0, 0, 0) and broadcast.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from opticalflowhs_tpu_torch.dist import transport
 from opticalflowhs_tpu_torch.dist.mesh import Mesh
 from opticalflowhs_tpu_torch.solver import Flow, as_frame
 
@@ -68,8 +75,10 @@ def run_groups(fn: Callable[..., Flow], mesh: Mesh, *stacks: torch.Tensor) -> Fl
     different cards overlap."""
     check_batch(stacks[0].shape[0], mesh)
     k = stacks[0].shape[0] // mesh.shape["batch"]
-    flows = [fn(*(s[g * k:(g + 1) * k].to(dev) for s in stacks))
-             for g, dev in enumerate(group_devices(mesh))]
+    groups = list(range(mesh.shape["batch"]))
+    flows = {g: fn(*(s[g * k:(g + 1) * k].to(dev) for s in stacks))
+             for g, dev in enumerate(group_devices(mesh)) if mesh.is_local((g, 0, 0))}
+    flows = [flows[g] for g in groups] if not mesh.collective else _share(flows, mesh, groups)
     first = mesh.first
     if len(flows) == 1:
         return Flow(flows[0].u.to(first), flows[0].v.to(first))
@@ -82,5 +91,18 @@ def run_pair_or_groups(fn: Callable[..., Flow], mesh: Mesh, i1: torch.Tensor,
     """An (H, W) pair through fn on the mesh's first device; a (B, H, W)
     stack through `run_groups`."""
     if i1.ndim == 2:
-        return fn(i1.to(mesh.first), i2.to(mesh.first))
+        if not mesh.collective:
+            return fn(i1.to(mesh.first), i2.to(mesh.first))
+        own = {0: fn(i1.to(mesh.first), i2.to(mesh.first))} if mesh.is_local((0, 0, 0)) else {}
+        return _share(own, mesh, [0])[0]
     return run_groups(fn, mesh, i1, i2)
+
+
+def _share(flows: dict, mesh: Mesh, groups: list) -> list[Flow]:
+    """The flows of `groups` (this process's own in `flows`, by group) on
+    every process of a mesh that spans processes, each (u, v) as one
+    tensor, on the mesh's first device."""
+    own = {g: torch.stack([f.u, f.v]) for g, f in flows.items()}
+    every = transport.all_gather_owned(own, groups, lambda g: int(mesh.ranks[g, 0, 0]),
+                                       mesh.first)
+    return [Flow(every[g][0], every[g][1]) for g in groups]

@@ -14,6 +14,11 @@ route instead (`tiled_solver.solve_gspmd`: each batch group's level solved
 whole by the untiled entry), as the reference routes them through
 `_level_solve_gspmd`, never through the Jacobi shard body. Tiled ==
 untiled therefore holds for the whole pyramid, bitwise.
+
+On a mesh that spans processes (dist/multihost.py) the cold ops run whole
+on every process's first device, from identical inputs: each level's flow
+comes back all-gathered (tiled_solver.gather), so every process warps and
+upsamples the same whole flow (ROADMAP.md queue 3).
 """
 
 from __future__ import annotations

@@ -16,6 +16,10 @@ tensor, except through the explicit `Sharded.gather`. Blocks are zero
 padded up to the mesh grid, as the reference pads, and the padding is
 cropped where the array is gathered.
 
+A mesh that spans processes (dist/multihost.py) takes no `Sharded` layout
+and no `axis_names` sum yet: each raises ValueError (ROADMAP.md queue 1,
+item 6.6: all-to-all and all-reduce of the blocks).
+
 A dimension the spec does not split is held once, at index 0 of that mesh
 axis (the reference replicates it on every device of the axis; in one
 process a copy a device buys nothing).
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from opticalflowhs_tpu_torch.dist.halo import move
-from opticalflowhs_tpu_torch.dist.mesh import Mesh
+from opticalflowhs_tpu_torch.dist.mesh import Mesh, require_one_process
 from opticalflowhs_tpu_torch.dist.tiled_solver import Layout, gather, scatter
 
 TIME = ("batch", None, None)
@@ -69,6 +73,7 @@ def _ceil_div(a: int, b: int) -> int:
 def _layout_for(mesh: Mesh, spec3: tuple, shape3: tuple) -> Layout:
     """The `Layout` of a (T, H, W) array split by spec3 over the mesh: each
     split dimension zero-padded to the axis size, the others whole."""
+    require_one_process(mesh, "a dist.reshard.Sharded layout")
     g = mesh.shape["batch"] if spec3[0] else 1
     my = mesh.shape["y"] if spec3[1] else 1
     mx = mesh.shape["x"] if spec3[2] else 1
@@ -246,6 +251,7 @@ def check_sharded(what: str, arrays: Sequence, axis_names: Sequence[str],
                 f"field (mesh coordinate -> block on its device); got {type(x).__name__}"
             )
     a = arrays[0]
+    require_one_process(a.mesh, f"{what} with axis_names")
     for b in arrays[1:]:
         if b.mesh is not a.mesh or b.spec != a.spec or b.shape != a.shape:
             raise ValueError(f"{what}: the fields differ in layout: {b!r} is not laid "

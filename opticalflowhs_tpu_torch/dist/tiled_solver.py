@@ -27,6 +27,16 @@ plain versions under the storage rule) round u and v where every sweep
 stores them; the halos carry the stored values, so the tiled solve equals
 the untiled one bitwise in both dtypes.
 
+On a mesh that spans processes (dist/multihost.py) every process holds the
+whole frames and solves its own shards: halo strips between two
+processes' shards go as sends and receives (dist/halo.py over
+dist/transport.py), K9 still runs once a device a block over the shards
+that device holds, the per-image maxima of a solve to tolerance are
+all-reduced (still one host sync a block, so every process stops on the
+same block), and the owned tiles are all-gathered, so every process
+returns the whole flow on its own first device. halo_impl="rdma" across
+processes raises (ROADMAP.md queue 1, item 6.6).
+
 solver="robust" and "multigrid" take the reference's GSPMD route, which
 the port runs as data parallelism over the mesh's batch axis
 (dist/gspmd.py): each batch group solves its whole frames through the
@@ -43,9 +53,9 @@ import numpy as np
 import torch
 
 from opticalflowhs_tpu_torch.config import HSConfig
-from opticalflowhs_tpu_torch.dist import gspmd
+from opticalflowhs_tpu_torch.dist import gspmd, transport
 from opticalflowhs_tpu_torch.dist.halo import move, pad_grid, unpad
-from opticalflowhs_tpu_torch.dist.mesh import Mesh
+from opticalflowhs_tpu_torch.dist.mesh import Mesh, require_one_process
 from opticalflowhs_tpu_torch.kernels import ring, tile
 from opticalflowhs_tpu_torch.ops import stencils
 from opticalflowhs_tpu_torch.solver import Flow, resolve_backend, solve_level, storage_dtype
@@ -62,7 +72,9 @@ class Layout:
     (bl, th, tw) tensor on its mesh device, and each device's shards in a
     fixed order (the slices of its stacked launches). `my` and `mx` (the
     mesh's y and x by default) may be 1 for a layout that does not split
-    that axis: its shards then sit at y or x index 0 of the mesh."""
+    that axis: its shards then sit at y or x index 0 of the mesh. On a mesh
+    that spans processes `mine` and `local` hold only the calling
+    process's coordinates and devices."""
 
     def __init__(self, mesh: Mesh, groups: int, bl: int, th: int, tw: int,
                  my: Optional[int] = None, mx: Optional[int] = None):
@@ -71,8 +83,9 @@ class Layout:
         self.mx = mesh.shape["x"] if mx is None else mx
         self.coords = [(b, i, j) for b in range(groups) for i in range(self.my)
                        for j in range(self.mx)]
+        self.mine = [c for c in self.coords if mesh.is_local(c)]
         self.local: dict = {}
-        for c in self.coords:
+        for c in self.mine:
             self.local.setdefault(mesh.devices[c], []).append(c)
 
     def origin(self, c) -> tuple[int, int]:
@@ -80,7 +93,14 @@ class Layout:
         return c[1] * self.th, c[2] * self.tw
 
     def grid(self, shards: dict, b: int):
-        return [[shards[(b, i, j)] for j in range(self.mx)] for i in range(self.my)]
+        """Group b's (y, x) grid of `shards` (None where another process
+        owns the shard)."""
+        return [[shards.get((b, i, j)) for j in range(self.mx)] for i in range(self.my)]
+
+    def rank_grid(self, b: int):
+        """Group b's (y, x) grid of the processes that own its shards."""
+        return [[int(self.mesh.ranks[b, i, j]) for j in range(self.mx)]
+                for i in range(self.my)]
 
     def slice_origins(self, dev, dr: int, dc: int):
         """Per-slice (rows, cols) origins of dev's stack, offset by (dr, dc)."""
@@ -89,14 +109,19 @@ class Layout:
 
     def pad(self, shards: dict, sy: int, sx: int) -> dict:
         """Exchange (sy, sx) halos: a (n_local, bl, th+2sy, tw+2sx) stack a
-        device, each shard a view of its slice."""
+        device, each shard a view of its slice (none for a process that
+        owns no shard: it has nothing to send or receive)."""
+        if not self.local:
+            return {}
         first = next(iter(shards.values()))
         bufs = {dev: torch.empty((len(cs), self.bl, self.th + 2 * sy, self.tw + 2 * sx),
                                  dtype=first.dtype, device=dev)
                 for dev, cs in self.local.items()}
         views = {c: bufs[dev][k] for dev, cs in self.local.items() for k, c in enumerate(cs)}
         for b in range(self.groups):
-            pad_grid(self.grid(shards, b), sy, sx, out=self.grid(views, b))
+            ranks = self.rank_grid(b) if self.mesh.collective else None
+            pad_grid(self.grid(shards, b), sy, sx, out=self.grid(views, b), ranks=ranks,
+                     me=self.mesh.process_index)
         return bufs
 
     def split(self, stacks: dict, fn=lambda a: a) -> dict:
@@ -110,9 +135,11 @@ class Layout:
 
 
 def scatter(frames: torch.Tensor, lay: Layout) -> dict:
-    """(B, Hp, Wp) frames -> each shard's (bl, th, tw) tile on its device."""
+    """(B, Hp, Wp) frames -> each shard's (bl, th, tw) tile on its device
+    (on a mesh that spans processes, every process holds the whole frames
+    and cuts out its own shards)."""
     out = {}
-    for c in lay.coords:
+    for c in lay.mine:
         b, i, j = c
         part = frames[b * lay.bl:(b + 1) * lay.bl, i * lay.th:(i + 1) * lay.th,
                       j * lay.tw:(j + 1) * lay.tw]
@@ -120,12 +147,19 @@ def scatter(frames: torch.Tensor, lay: Layout) -> dict:
     return out
 
 
-def gather(shards: dict, lay: Layout) -> torch.Tensor:
+def gather(shards: dict, lay: Layout, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Each shard's (bl, th, tw) tile -> the (B, Hp, Wp) whole on the mesh's
-    first device."""
-    first = next(iter(shards.values()))
+    first device; on a mesh that spans processes the owned tiles are
+    all-gathered, so every process gets the whole (`dtype`, the tiles'
+    dtype, for a process that owns none)."""
+    if dtype is None:
+        dtype = next(iter(shards.values())).dtype
     out = torch.empty((lay.groups * lay.bl, lay.my * lay.th, lay.mx * lay.tw),
-                      dtype=first.dtype, device=lay.mesh.first)
+                      dtype=dtype, device=lay.mesh.first)
+    if lay.mesh.collective:
+        shards = transport.all_gather_owned(
+            shards, lay.coords, lambda c: int(lay.mesh.ranks[c]), lay.mesh.first,
+            ((lay.bl, lay.th, lay.tw), dtype))
     for (b, i, j), t in shards.items():
         move(out[b * lay.bl:(b + 1) * lay.bl, i * lay.th:(i + 1) * lay.th,
                  j * lay.tw:(j + 1) * lay.tw], t)
@@ -157,11 +191,17 @@ def _fields(lay: Layout, f1: dict, f2: dict, cfg: HSConfig, hy: int, hx: int,
     return out
 
 
-def _per_image_delta(lay: Layout, nu, nv, u, v, h: int, w: int) -> torch.Tensor:
+def _per_image_delta(lay: Layout, nu, nv, u, v, h: int, w: int,
+                     dtype: torch.dtype) -> torch.Tensor:
     """Max |update| of each image over its owned true pixels, on the first
-    device: one value per image of the stack."""
+    device: one value per image of the stack (on a mesh that spans
+    processes, this process's shards' maxima reduced by MAX over the
+    processes, so every process holds the same values)."""
     parts = []
     for c in lay.coords:
+        if not lay.mesh.is_local(c):  # another process's shard: 0 for the max
+            parts.append(torch.zeros(lay.bl, dtype=dtype, device=lay.mesh.first))
+            continue
         r0, c0 = lay.origin(c)
         rows, cols = min(max(h - r0, 0), lay.th), min(max(w - c0, 0), lay.tw)
         d = torch.zeros(lay.bl, dtype=u[c].dtype, device=u[c].device)
@@ -170,7 +210,8 @@ def _per_image_delta(lay: Layout, nu, nv, u, v, h: int, w: int) -> torch.Tensor:
                               (nv[c] - v[c])[..., :rows, :cols].abs().amax(dim=(-2, -1)))
         parts.append(d.to(lay.mesh.first))
     d = torch.stack(parts).reshape(lay.groups, lay.my * lay.mx, lay.bl)
-    return d.amax(dim=1).reshape(-1)
+    d = d.amax(dim=1).reshape(-1)
+    return transport.all_reduce_max(d) if lay.mesh.collective else d
 
 
 def tile_body(lay: Layout, f1: dict, f2: dict, cfg: HSConfig, s: int, h: int,
@@ -181,7 +222,11 @@ def tile_body(lay: Layout, f1: dict, f2: dict, cfg: HSConfig, s: int, h: int,
     # ring a color stage, four a sweep.
     hw = 4 * s if is_sor else s
     fields = _fields(lay, f1, f2, cfg, hw, hw, h, w)
-    probe = next(iter(f1.values()))
+    # A process that owns no shard of the layout still takes part in every
+    # exchange and reduction.
+    probe = next(iter(f1.values()), None)
+    if probe is None:
+        probe = torch.empty(0, dtype=storage_dtype(cfg), device=lay.mesh.first)
     cuda = resolve_backend(cfg.backend, probe) == "cuda"
     # The kernels take an origin table (built once), the plain versions the
     # (rows, cols) lists.
@@ -226,9 +271,9 @@ def tile_body(lay: Layout, f1: dict, f2: dict, cfg: HSConfig, s: int, h: int,
             if n_active == 0:
                 break
             nu, nv = block(u, v, b)
-            d = _per_image_delta(lay, nu, nv, u, v, h, w)
+            d = _per_image_delta(lay, nu, nv, u, v, h, w, probe.dtype)
             if n_active < active.numel():
-                for c in lay.coords:
+                for c in lay.mine:
                     keep = active[c[0] * lay.bl:(c[0] + 1) * lay.bl].to(nu[c].device)
                     nu[c] = torch.where(keep[:, None, None], nu[c], u[c])
                     nv[c] = torch.where(keep[:, None, None], nv[c], v[c])
@@ -301,7 +346,7 @@ def solve_padded(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig, s: int,
     f1, f2 = scatter(i1, lay), scatter(i2, lay)
     body = tile_body_rdma if halo_impl == "rdma" else tile_body
     u, v = body(lay, f1, f2, cfg, s, h, w)
-    return Flow(gather(u, lay), gather(v, lay))
+    return Flow(gather(u, lay, i1.dtype), gather(v, lay, i1.dtype))
 
 
 def hs_solve_tiled(
@@ -333,7 +378,8 @@ def hs_solve_tiled(
     max |update| over owned true pixels is reduced over the mesh, one host
     sync a block; each image of a stack stops on its own. cfg.dtype
     "bfloat16" solves in bfloat16 (the storage rule), equal to the untiled
-    bfloat16 solve.
+    bfloat16 solve. On a mesh that spans processes every process passes
+    the whole frames and gets the whole flow (halo_impl "ppermute" only).
     """
     if mesh is None:
         raise ValueError("hs_solve_tiled requires a Mesh (dist.make_mesh)")
@@ -341,6 +387,10 @@ def hs_solve_tiled(
         raise ValueError("halo_sweeps must be >= 1")
     if halo_impl not in ("ppermute", "rdma"):
         raise ValueError("halo_impl must be 'ppermute' or 'rdma'")
+    if halo_impl == "rdma":
+        # K11 and K12 store into the neighbours' memory inside the launch;
+        # across processes that needs CUDA IPC mappings.
+        require_one_process(mesh, "halo_impl='rdma'")
     if cfg.solver in GSPMD_SOLVERS:
         # The GSPMD route: the whole IRLS loop or V-cycle per batch group
         # through the untiled entry (dist/gspmd.py), never Jacobi.

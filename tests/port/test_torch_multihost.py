@@ -1,0 +1,317 @@
+"""Meshes that span processes (dist/multihost.py, dist/transport.py) on the
+CPU: gloo worlds of 2 and 4 processes (tests/port/torch_mh_worker.py, one
+spawn a world, every case of a world in that spawn), and the
+`python -m opticalflowhs_tpu_torch.dist.multihost` entry as 2 processes.
+
+Inputs come from seeded numpy generators: the reference's
+tests/distributed/mh_worker.py case (32x64 uniform frames from
+default_rng(0), alpha 0.5, i16, halo sweeps 2) and a B=2 stack from
+default_rng(1). Bars, each with its reason:
+  * every rank's tiled flow against the port's untiled entry: bitwise.
+    The halos carry the stored values whichever process they come from,
+    the tiles are all-gathered unchanged, and the GSPMD routes run the
+    untiled entry on the owning process and broadcast its flow.
+  * against the reference's untiled route (backend "jnp"; its tiled
+    compiles are too slow here): Jacobi solves 2e-6, the pyramids and SOR
+    1e-5 (ROADMAP.md queue 3's bars), robust 2e-6, multigrid 1e-5, LK 2e-6
+    (test_torch_dist_gspmd.py's bars); bfloat16 against the reference's
+    float32 solve by queue 3's bars for the storage rule (8 px in: mean
+    0.02 px, max 0.1 px).
+"""
+
+import json
+import os
+import re
+import socket
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import opticalflowhs_tpu.config as ref_config
+from opticalflowhs_tpu.batch import hs_solve_batched as ref_batched
+from opticalflowhs_tpu.lucas_kanade import lk_solve as ref_lk_solve
+from opticalflowhs_tpu.pyramid import hs_pyramid as ref_hs_pyramid
+from opticalflowhs_tpu.solver import hs_solve as ref_hs_solve
+from opticalflowhs_tpu_torch import HSConfig, PyramidConfig, hs_pyramid, hs_solve
+from opticalflowhs_tpu_torch.dist import multihost
+from opticalflowhs_tpu_torch.io.flo import read_flo
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(os.path.dirname(HERE))
+WORKER = os.path.join(HERE, "torch_mh_worker.py")
+TIMEOUT = 120
+
+SOLVE_TOL = 2e-6
+PYRAMID_TOL = 1e-5
+SOR_TOL = 1e-5
+ROBUST_TOL = 2e-6
+MG_TOL = 1e-5
+LK_TOL = 2e-6
+MEAN_TOL = 0.02
+MAX_TOL = 0.1
+EDGE = 8
+
+TWO = ["jacobi", "pyramid", "tol", "sor", "bf16", "stack", "x", "idle"]
+FOUR = ["jacobi", "robust", "multigrid", "lk"]
+# Which mesh axis each case's processes split: the mesh's ranks differ
+# along it (and along no other for the 2-process meshes).
+TWO_SPLIT = {"stack": 0, "idle": 0, "x": 2}
+HS = dict(alpha=0.5, iters=16)
+
+
+def _run(cmds, env=None, cwd=ROOT):
+    """Start every command at once, wait for all (killing all past
+    TIMEOUT), and return each one's (returncode, stdout, stderr)."""
+    procs = [subprocess.Popen(c, cwd=cwd, env=env(k) if env else None, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for k, c in enumerate(cmds)]
+    try:
+        res = [p.communicate(timeout=TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [(p.returncode, o, e) for p, (o, e) in zip(procs, res)]
+
+
+def _world(tmp_path_factory, group, n):
+    out = tmp_path_factory.mktemp(f"mh_{group}")
+    rdv = out / "rendezvous"
+    res = _run([[sys.executable, WORKER, group, str(r), str(n), str(rdv), str(out)]
+                for r in range(n)])
+    for r, (rc, o, e) in enumerate(res):
+        assert rc == 0 and f"TORCH_MH_WORKER_OK {group} {r}" in o, (r, rc, o, e[-3000:])
+    return out
+
+
+@pytest.fixture(scope="module")
+def two(tmp_path_factory):
+    return _world(tmp_path_factory, "two", 2)
+
+
+@pytest.fixture(scope="module")
+def four(tmp_path_factory):
+    return _world(tmp_path_factory, "four", 4)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module")
+def cli(tmp_path_factory):
+    """The entry point as 2 processes through HSFLOW_COORD (a free port on
+    127.0.0.1, tried again once if the address is taken), each with its
+    own -o path: (results, directory)."""
+    out = tmp_path_factory.mktemp("mh_cli")
+    for attempt in range(2):
+        port = _free_port()
+
+        def env(r):
+            e = dict(os.environ, HSFLOW_COORD=f"127.0.0.1:{port}", HSFLOW_NPROC="2",
+                     HSFLOW_PROC_ID=str(r))
+            e.pop("HSFLOW_LOCAL_RANK", None)
+            return e
+
+        res = _run([[sys.executable, "-m", "opticalflowhs_tpu_torch.dist.multihost",
+                     "--device", "cpu", "--shape", "64x96", "--levels", "2", "--iters", "10",
+                     "-o", str(out / f"r{r}.flo")] for r in range(2)], env)
+        if attempt == 0 and any("address already in use" in e.lower() for _, _, e in res):
+            continue
+        break
+    for r, (rc, o, e) in enumerate(res):
+        assert rc == 0, (r, rc, o, e[-3000:])
+    return res, out
+
+
+def _load(d, case, rank=None):
+    return np.load(d / (f"{case}_untiled.npy" if rank is None else f"{case}_tiled_r{rank}.npy"))
+
+
+def _ref_frames(shape, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.uniform(0, 1, shape).astype(np.float32) for _ in range(2))
+
+
+def _reference(case):
+    """The reference's untiled flow of a case, as a (2, ...) array, and its bar."""
+    i1, i2 = (jnp.asarray(a) for a in _ref_frames((32, 64), 0))
+    hs = lambda **kw: ref_config.HSConfig(backend="jnp", **{**HS, **kw})  # noqa: E731
+    if case in ("jacobi", "x", "bf16"):
+        f, bar = ref_hs_solve(i1, i2, hs()), SOLVE_TOL
+    elif case == "pyramid":
+        f, bar = ref_hs_pyramid(i1, i2, hs(), ref_config.PyramidConfig(levels=2)), PYRAMID_TOL
+    elif case in ("tol", "idle"):
+        f, bar = ref_hs_solve(i1, i2, hs(iters=100, tol=1e-3, block_sweeps=2)), SOLVE_TOL
+    elif case == "sor":
+        f, bar = ref_hs_solve(i1, i2, hs(solver="sor", omega=1.7)), SOR_TOL
+    elif case == "stack":
+        s1, s2 = (jnp.asarray(a) for a in _ref_frames((2, 32, 64), 1))
+        f, bar = ref_batched(s1, s2, hs()), SOLVE_TOL
+    elif case == "robust":
+        cfg = ref_config.HSConfig(backend="jnp", solver="robust", alpha=0.3, iters=6,
+                                  robust_update_every=3)
+        f, bar = ref_hs_solve(i1, i2, cfg), ROBUST_TOL
+    elif case == "multigrid":
+        s1, s2 = (jnp.asarray(a) for a in _ref_frames((2, 32, 64), 1))
+        cfg = ref_config.HSConfig(backend="jnp", solver="multigrid", alpha=1.0, iters=2)
+        f, bar = ref_batched(s1, s2, cfg), MG_TOL
+    else:  # lk
+        f, bar = ref_lk_solve(i1, i2, ref_config.LKConfig(),
+                              ref_config.PyramidConfig(levels=1, iters_per_level=())), LK_TOL
+    return np.stack([np.asarray(f.u), np.asarray(f.v)]).astype(np.float64), bar
+
+
+def _check_reference(got, case, record_property):
+    want, bar = _reference(case)
+    got = got.astype(np.float64)
+    if case == "bf16":
+        d = np.abs(got - want)[..., EDGE:-EDGE, EDGE:-EDGE]
+        record_property("max_abs_diff", float(d.max()))
+        assert d.mean(axis=(-2, -1)).max() <= MEAN_TOL and d.max() <= MAX_TOL
+        return
+    d = float(np.abs(got - want).max())
+    record_property("max_abs_diff", d)
+    assert d <= bar
+
+
+def _ranks(d):
+    return json.loads((d / "meshes.json").read_text())
+
+
+# -- 2 processes x 4 CPU shards ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", TWO)
+def test_two_processes_equal_the_untiled_entry(two, case):
+    ranks = np.asarray(_ranks(two)[case])
+    axis = TWO_SPLIT.get(case, 1)
+    assert np.ptp(ranks, axis=axis).max() == 1  # the processes split this axis
+    assert all(np.ptp(ranks, axis=a).max() == 0 for a in range(3) if a != axis)
+    want = _load(two, case)
+    for r in range(2):
+        got = _load(two, case, r)
+        assert got.shape == want.shape and np.array_equal(got, want), (case, r)
+    if case in ("tol", "idle"):  # the solve stopped before its budget of 100 sweeps
+        i1, i2 = (torch.from_numpy(x) for x in _ref_frames((32, 64), 0))
+        full = hs_solve(i1, i2, HSConfig(alpha=0.5, iters=100))
+        assert not np.array_equal(want[0], full.u.numpy())
+
+
+@pytest.mark.parametrize("case", TWO)
+def test_two_processes_match_the_reference(two, case, record_property):
+    _check_reference(_load(two, case, 1), case, record_property)
+
+
+def test_fault_hook_across_processes(two):
+    # Rank 1 corrupted the halo rows it received from rank 0: the flow
+    # differs from the untiled solve, and both ranks hold the same flow.
+    bad0, bad1, clean = _load(two, "fault", 0), _load(two, "fault", 1), _load(two, "fault")
+    assert np.array_equal(bad0, bad1)
+    assert float(np.abs(bad0 - clean).max()) > 1e-3
+    assert np.array_equal(_load(two, "jacobi", 1), clean)
+
+
+@pytest.mark.parametrize("what", ["rdma", "sharded", "time_to_space", "egomotion", "energy"])
+def test_refusals_across_processes(two, what):
+    msg = json.loads((two / "refusals.json").read_text())[what]
+    assert "spans 2 processes" in msg and "ROADMAP.md queue 1, item 6.6" in msg, msg
+
+
+# -- 4 processes x 1 CPU shard ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", FOUR)
+def test_four_processes_equal_the_untiled_entry(four, case):
+    # Both mesh axes lie between the processes, corners included.
+    assert _ranks(four)[case] == [[[0, 1], [2, 3]]]
+    want = _load(four, case)
+    for r in range(4):
+        assert np.array_equal(_load(four, case, r), want), (case, r)
+
+
+@pytest.mark.parametrize("case", FOUR)
+def test_four_processes_match_the_reference(four, case, record_property):
+    _check_reference(_load(four, case, 3), case, record_property)
+
+
+# -- init_multihost ------------------------------------------------------------------------------
+
+
+def _clear_env(monkeypatch):
+    for k in ("HSFLOW_COORD", "HSFLOW_NPROC", "HSFLOW_PROC_ID", "HSFLOW_LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+
+
+def test_init_multihost_with_nothing_set_does_nothing(monkeypatch):
+    _clear_env(monkeypatch)
+    assert multihost.init_multihost() is None
+    assert multihost.init_multihost(device="cpu") == torch.device("cpu")
+    assert not torch.distributed.is_initialized()
+
+
+def test_init_multihost_without_cuda_raises(monkeypatch):
+    _clear_env(monkeypatch)
+    monkeypatch.setenv("HSFLOW_COORD", "127.0.0.1:1")
+    monkeypatch.setenv("HSFLOW_NPROC", "2")
+    monkeypatch.setenv("HSFLOW_PROC_ID", "0")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        multihost.init_multihost()
+    monkeypatch.delenv("HSFLOW_PROC_ID")
+    with pytest.raises(ValueError, match="needs the coordinator"):
+        multihost.init_multihost(device="cpu")
+    assert not torch.distributed.is_initialized()
+
+
+def test_shared_cards_are_named():
+    assert multihost.shared_cards(["a|GPU-1", "a|GPU-2", "b|GPU-1"]) is None
+    assert multihost.shared_cards(["a|GPU-1", "a|GPU-2", "a|GPU-1"]) == (0, 2)
+
+
+# -- python -m opticalflowhs_tpu_torch.dist.multihost ---------------------------------------------
+
+
+def _cli_frames():
+    rng = np.random.default_rng(0)
+    i1 = rng.uniform(0, 1, (64, 96)).astype(np.float32)
+    return i1, np.roll(i1, 2, axis=1)
+
+
+def test_multihost_cli_rank0_prints_and_writes(cli):
+    (rc0, out0, _), (rc1, out1, _) = cli[0]
+    lines = out0.splitlines()
+    assert lines[0] == "2 processes, 2 devices, mesh (1, 1, 2)"
+    assert re.fullmatch(r"ego-motion: t=\([+-]\d+\.\d{3}, [+-]\d+\.\d{3}\) px/frame, "
+                        r"omega=[+-]\d+\.\d{5} rad, scale=[+-]\d+\.\d{5}, "
+                        r"residual=\d+\.\d{4}", lines[1]), lines[1]
+    assert lines[2] == f"wrote {cli[1] / 'r0.flo'}" and len(lines) == 3
+    assert out1 == "" and not (cli[1] / "r1.flo").exists()
+
+
+def test_multihost_cli_flo_equals_hs_pyramid(cli):
+    got = read_flo(cli[1] / "r0.flo")
+    i1, i2 = _cli_frames()
+    want = hs_pyramid(i1, i2, HSConfig(alpha=1.0, iters=10), PyramidConfig(levels=2),
+                      device="cpu")
+    assert got.shape == (64, 96, 2)
+    assert np.array_equal(got[..., 0], want.u.numpy()) and np.array_equal(got[..., 1],
+                                                                          want.v.numpy())
+
+
+def test_multihost_cli_matches_reference(cli, record_property):
+    got = read_flo(cli[1] / "r0.flo").astype(np.float64)
+    i1, i2 = (jnp.asarray(a) for a in _cli_frames())
+    want = ref_hs_pyramid(i1, i2, ref_config.HSConfig(alpha=1.0, iters=10, backend="jnp"),
+                          ref_config.PyramidConfig(levels=2))
+    d = max(float(np.abs(got[..., 0] - np.asarray(want.u)).max()),
+            float(np.abs(got[..., 1] - np.asarray(want.v)).max()))
+    record_property("max_abs_diff", d)
+    assert d <= PYRAMID_TOL

@@ -339,6 +339,13 @@ def test_package_imports_without_jax():
         "import opticalflowhs_tpu_torch.dist, opticalflowhs_tpu_torch.dist.halo\n"
         "import opticalflowhs_tpu_torch.dist.mesh, opticalflowhs_tpu_torch.dist.tiled_solver\n"
         "import opticalflowhs_tpu_torch.dist.pyramid_tiled\n"
+        "import opticalflowhs_tpu_torch.dist.multihost, opticalflowhs_tpu_torch.dist.transport\n"
+        "from opticalflowhs_tpu_torch.dist import init_multihost\n"
+        "for k in ('HSFLOW_COORD', 'HSFLOW_NPROC', 'HSFLOW_PROC_ID'):\n"
+        "    __import__('os').environ.pop(k, None)\n"
+        "assert init_multihost() is None\n"
+        "import torch.distributed\n"
+        "assert not torch.distributed.is_initialized()\n"
         "import opticalflowhs_tpu_torch.kernels.tile, opticalflowhs_tpu_torch.kernels.ring\n"
         "import opticalflowhs_tpu_torch.cli, opticalflowhs_tpu_torch.bench\n"
         "import opticalflowhs_tpu_torch.viz, opticalflowhs_tpu_torch.logging_util\n"
