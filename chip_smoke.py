@@ -154,6 +154,24 @@ each ran through the kernels:
               NCCL world (all_gather, all_reduce, D1 and D5); two NCCL ranks
               on one card refused by name; with two or more cards, D1 over
               NCCL one card a rank.
+  phase 25:   item 6.6, across processes (no new kernel; K11 and K12 run
+              across the process boundary): two worker processes on cuda:0
+              over gloo (`--mh-worker ipc`) time the ring flags' round trip
+              through CUDA IPC (csrc/ring.cu's hs_ipc_ping_pong), run config 5's D3
+              with halo_impl="rdma" on (1, 4, 1) (K11) and (1, 2, 2) (K12),
+              two shards a process, the neighbours' pairs and flags mapped
+              through CUDA IPC, in float32 and bfloat16: = the untiled
+              solve bitwise on both, 1 ring launch and no K9 a process, a
+              second call opening no handle; a pair on (2, 1, 2), rank 0
+              owning both shards and rank 1 none, the same (rank 1
+              launches nothing and meets in every collective); C4's time_to_space /
+              space_to_time on (2, 2, 2), split by batch, round trip
+              bitwise, and timesharded_pairs on (2, 1, 1), 16 valid pairs,
+              the bytes each process sends = the count; estimate_egomotion
+              and hs_energy over D1's 16 shards, the same on both processes
+              and within 1e-5 relative of the whole (plus the flow's
+              float32 rounding size); each timed (median of 5) beside
+              the same call in one process.
 Every phase checks what it measures and any failure exits non-zero.
 Imports torch, numpy and opticalflowhs_tpu_torch only, never JAX.
 
@@ -4293,7 +4311,8 @@ def mh_worker(argv) -> int:
     """One process of phase 24: `chip_smoke.py --mh-worker MODE RANK WORLD
     HOST:PORT OUTDIR`. Joins the world through init_multihost, runs its
     leg's cases counted and timed, each against its untiled entry, and
-    writes its results to OUTDIR/MODE_rRANK.json."""
+    writes its results to OUTDIR/MODE_rRANK.json. MODE "ipc" is phase 25's
+    worker (`ipc_worker`)."""
     from opticalflowhs_tpu_torch import PyramidConfig, hs_pyramid, hs_solve
     from opticalflowhs_tpu_torch.dist import hs_pyramid_tiled, hs_solve_tiled, make_mesh
     from opticalflowhs_tpu_torch.dist import transport
@@ -4301,6 +4320,8 @@ def mh_worker(argv) -> int:
     from opticalflowhs_tpu_torch.kernels import _build, counted_wrappers
 
     mode, rank, world, addr, out = argv[0], int(argv[1]), int(argv[2]), argv[3], Path(argv[4])
+    if mode in IPC_LEGS:
+        return ipc_worker(mode, rank, world, addr, out)
     backend = MH_LEGS[mode][1]
     dev = torch.device("cuda", rank if mode == "cards" else 0)
     res = {"mode": mode, "rank": rank, "backend": backend, "device": str(dev)}
@@ -4558,6 +4579,309 @@ def multihost_path(dev) -> dict:
             "multiprocess_D1_ms": [w["D1"]["ms"] for w in g],
             "in_process_D1_ms": in_process["D1"],
             "multiprocess_D1_sent_bytes_per_process": sent[0]}
+
+
+# Phase 25's legs and their backends. "ipc": two gloo processes on cuda:0
+# run K11/K12 across the process boundary through CUDA IPC, the layout
+# changes and the sums; "ipc_cards": D3 with one card a process over NCCL,
+# the arenas mapped across NVLink (two or more cards only; up to 4
+# processes).
+IPC_LEGS = {"ipc": "gloo", "ipc_cards": "nccl"}
+# D3's meshes (y, x): K11 on (1, 4, 1), K12 on (1, 2, 2), two shards a process.
+D3_MESHES = {"D3 4x1": (4, 1), "D3 2x2": (2, 2)}
+
+
+def ipc_worker(mode: str, rank: int, world: int, addr: str, out: Path) -> int:
+    """One process of phase 25: `chip_smoke.py --mh-worker MODE RANK WORLD
+    HOST:PORT OUTDIR`, MODE "ipc" or "ipc_cards" (IPC_LEGS). "ipc" joins a
+    gloo world on cuda:0, times the IPC probe, runs D3 across the
+    processes (K11 and K12, float32 and bfloat16) and for a pair whose
+    shards rank 0 owns, C4's layout changes and the sums over D1's
+    shards, each counted and checked; "ipc_cards" joins
+    an NCCL world on cuda:RANK and runs D3 only. Writes its results to
+    OUTDIR/MODE_rRANK.json."""
+    from opticalflowhs_tpu_torch import MeshConfig, hs_solve
+    from opticalflowhs_tpu_torch.dist import hs_solve_tiled, make_mesh, transport
+    from opticalflowhs_tpu_torch.dist import reshard as rs
+    from opticalflowhs_tpu_torch.dist.multihost import init_multihost, shutdown
+    from opticalflowhs_tpu_torch.egomotion import estimate_egomotion
+    from opticalflowhs_tpu_torch.kernels import _build, counted_wrappers, ring
+    from opticalflowhs_tpu_torch.metrics import hs_energy
+    from opticalflowhs_tpu_torch.solver import Flow
+
+    cards = mode == "ipc_cards"
+    dev = torch.device("cuda", rank if cards else 0)
+    init_multihost(addr, world, rank, backend=IPC_LEGS[mode], device=dev)
+    _build.library()
+    res: dict = {"rank": rank, "device": str(dev)}
+    if not cards:
+        ring.ipc_round_trip(dev, 1)
+        res["probe_ms"] = ring.ipc_round_trip(dev, 50) * 1e3
+    cfg5, _, mcfg = c5_configs()
+    s5 = mcfg.halo_sweeps
+    q1, q2 = c5_frames(dev)
+    wrappers = counted_wrappers()
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        ring.ipc_counts.update(exported=0, opened=0, exchanges=0)
+        transport.counts.update(sent_bytes=0, exchanges=0, exchange_s=0.0, gather_s=0.0)
+
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(cfg5, dtype=dtype)
+        want = hs_solve(q1, q2, cfg)
+        for tag, (y, x) in D3_MESHES.items():
+            mesh = make_mesh(MeshConfig(batch=1, y=y, x=x), [dev] * (4 // world))
+
+            def d3():
+                return hs_solve_tiled(q1, q2, cfg, mesh, halo_sweeps=s5, halo_impl="rdma")
+
+            zero_counts()
+            got = d3()
+            torch.cuda.synchronize()
+            launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+            first = dict(ring.ipc_counts)
+            zero_counts()
+            d3()
+            torch.cuda.synchronize()
+            again = dict(ring.ipc_counts)
+            res[f"{tag} {dtype}"] = {
+                "equal": all(torch.equal(a, b) and a.dtype == b.dtype and a.device == dev
+                             for a, b in zip(got, want)),
+                "max_abs_diff": max_flow_diff([a.float() for a in got],
+                                              [b.float() for b in want]),
+                "launches": launches, "ipc_first": first, "ipc_again": again,
+                "ranks": mesh.ranks.tolist(), "ms": median_ms(d3, runs=5)}
+    if cards:
+        shutdown()
+        (out / f"{mode}_r{rank}.json").write_text(json.dumps(res))
+        return 0
+
+    # A pair on (2, 1, 2): the first batch group only, so rank 0 owns both
+    # shards and rank 1 none; both still meet in every collective of the
+    # ring solve (the handles, the epochs, the barriers).
+    want = hs_solve(q1, q2, cfg5)
+    m212 = make_mesh(MeshConfig(batch=2, y=1, x=2), [dev] * 2)
+    zero_counts()
+    got = hs_solve_tiled(q1, q2, cfg5, m212, halo_sweeps=s5, halo_impl="rdma")
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+    zero_counts()
+    hs_solve_tiled(q1, q2, cfg5, m212, halo_sweeps=s5, halo_impl="rdma")
+    torch.cuda.synchronize()
+    res["idle"] = {"equal": all(torch.equal(a, b) for a, b in zip(got, want)),
+                   "launches": launches, "ipc_again": dict(ring.ipc_counts),
+                   "ranks": m212.ranks.tolist()}
+
+    # C4's frames: time-sharded on (2, 2, 2), split by batch between the
+    # processes, to space (held once, by rank 0) and back.
+    vid, _ = c4_video()
+    frames = torch.from_numpy(vid)
+    m222 = make_mesh(MeshConfig(batch=2, y=2, x=2), [dev] * 4)
+    t_tim = rs.shard(frames, m222, rs.TIME)
+    zero_counts()
+    sp = rs.time_to_space(t_tim, m222)
+    torch.cuda.synchronize()
+    sent_ts = transport.counts["sent_bytes"]
+    zero_counts()
+    back = rs.space_to_time(sp, m222)
+    torch.cuda.synchronize()
+    sent_st = transport.counts["sent_bytes"]
+    m211 = make_mesh(MeshConfig(batch=2, y=1, x=1), [dev])
+    tp = rs.shard(frames, m211, rs.TIME)
+    zero_counts()
+    a, b, ok = rs.timesharded_pairs(tp)
+    torch.cuda.synchronize()
+    sent_tp = transport.counts["sent_bytes"]
+    ok = ok.gather()
+    whole = frames.to(dev)
+    res["reshard"] = {
+        "round_trip": torch.equal(sp.gather().cpu(), frames)
+        and torch.equal(back.gather().cpu(), frames),
+        "blocks": {"space": sorted(map(list, sp.blocks)), "time": sorted(map(list, back.blocks))},
+        "sent": [sent_ts, sent_st, sent_tp], "valid": int(ok.sum()),
+        "pairs": torch.equal(a.gather()[ok], whole[:-1]) and torch.equal(b.gather()[ok], whole[1:]),
+        "ms": [median_ms(lambda: rs.time_to_space(t_tim, m222), runs=5),
+               median_ms(lambda: rs.space_to_time(sp, m222), runs=5),
+               median_ms(lambda: rs.timesharded_pairs(tp), runs=5)]}
+
+    # The sums over D1's 16 shards (8 a process) of D1's flow (= the untiled).
+    flow = hs_solve(q1, q2, cfg5)
+    m144 = make_mesh(mcfg, [dev] * 8)
+    spec = ("y", "x")
+    su, sv = rs.shard(flow.u, m144, spec), rs.shard(flow.v, m144, spec)
+    f1, f2 = rs.shard(q1, m144, spec), rs.shard(q2, m144, spec)
+    em = estimate_egomotion(Flow(su, sv), axis_names=spec)
+    e = hs_energy(f1, f2, Flow(su, sv), alpha=cfg5.alpha, axis_names=spec)
+    res["sums"] = {
+        "egomotion": [float(v) for v in em], "energy": float(e),
+        "whole_egomotion": [float(v) for v in estimate_egomotion(flow)],
+        "whole_energy": float(hs_energy(q1, q2, flow, alpha=cfg5.alpha)),
+        "floor": float(torch.finfo(torch.float32).eps
+                       * max(float(flow.u.abs().max()), float(flow.v.abs().max()))),
+        "ms": [median_ms(lambda: estimate_egomotion(Flow(su, sv), axis_names=spec), runs=5),
+               median_ms(lambda: hs_energy(f1, f2, Flow(su, sv), alpha=cfg5.alpha,
+                                           axis_names=spec), runs=5)]}
+    shutdown()
+    (out / f"{mode}_r{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def ipc_path(dev) -> dict:
+    """Phase 25: item 6.6 on the card. Two gloo processes on cuda:0 run D3
+    across the process boundary, K11 on (1, 4, 1) and K12 on (1, 2, 2), two
+    shards a process, the neighbours' pairs and flags mapped through CUDA
+    IPC, in float32 and bfloat16: = the untiled solve bitwise on both, one
+    ring launch and no K9 a process, a second call opening no handle, timed
+    beside the in-process 4 x 1 and 2 x 2 meshes; a pair on (2, 1, 2) whose
+    shards rank 0 owns, = the untiled solve on both; C4's time_to_space /
+    space_to_time on (2, 2, 2) split by batch (round trip bitwise, the bytes
+    each process sends = the count) and timesharded_pairs on (2, 1, 1) (16
+    valid pairs); the sums over D1's 16 shards within 1e-5 of the whole and
+    the same on both processes; the IPC probe's round trip. With two or
+    more cards, D3 again with one card a process over NCCL (up to 4
+    processes). Returns the numbers for K11's and K12's rows."""
+    import tempfile
+
+    from opticalflowhs_tpu_torch import MeshConfig, hs_solve
+    from opticalflowhs_tpu_torch.dist import hs_solve_tiled, make_mesh
+    from opticalflowhs_tpu_torch.dist import reshard as rs
+    from opticalflowhs_tpu_torch.egomotion import estimate_egomotion
+    from opticalflowhs_tpu_torch.metrics import hs_energy
+    from opticalflowhs_tpu_torch.solver import Flow
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = {k: v for k, v in os.environ.items() if not k.startswith("HSFLOW_")}
+    legs = ["ipc"] + (["ipc_cards"] if torch.cuda.device_count() >= 2 else [])
+    results, leg_s = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        for mode in legs:
+            n = 2 if mode == "ipc" else min(4, torch.cuda.device_count())
+            addr = _free_addr()
+            cmds = [[sys.executable, str(ROOT / "chip_smoke.py"), "--mh-worker", mode, str(r),
+                     str(n), addr, str(out)] for r in range(n)]
+            t0 = time.perf_counter()
+            res = _spawn(cmds, [base] * n, 300)
+            leg_s[mode] = round(time.perf_counter() - t0, 1)
+            for r, (rc, o, e) in enumerate(res):
+                require(rc == 0, f"phase 25 {mode} worker {r} exited {rc}: {e[-4000:]}")
+            results[mode] = [json.loads((out / f"{mode}_r{r}.json").read_text())
+                             for r in range(n)]
+    g = results["ipc"]
+
+    # The same calls in this one process, for the times beside them.
+    cfg5, _, mcfg = c5_configs()
+    s5 = mcfg.halo_sweeps
+    q1, q2 = c5_frames(dev)
+    in_process = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(cfg5, dtype=dtype)
+        for tag, (y, x) in D3_MESHES.items():
+            m = make_mesh(MeshConfig(batch=1, y=y, x=x), [dev] * (y * x))
+            in_process[f"{tag} {dtype}"] = median_ms(
+                lambda: hs_solve_tiled(q1, q2, cfg, m, halo_sweeps=s5, halo_impl="rdma"), runs=5)
+    vid, _ = c4_video()
+    frames = torch.from_numpy(vid)
+    m222 = make_mesh(MeshConfig(batch=2, y=2, x=2), [dev] * 8)
+    t_tim = rs.shard(frames, m222, rs.TIME)
+    sp = rs.time_to_space(t_tim, m222)
+    tp = rs.shard(frames, make_mesh(MeshConfig(batch=2, y=1, x=1), [dev] * 2), rs.TIME)
+    reshard_ms = [median_ms(lambda: rs.time_to_space(t_tim, m222), runs=5),
+                  median_ms(lambda: rs.space_to_time(sp, m222), runs=5),
+                  median_ms(lambda: rs.timesharded_pairs(tp), runs=5)]
+    flow = hs_solve(q1, q2, cfg5)
+    m44 = make_mesh(mcfg, [dev] * 16)
+    spec = ("y", "x")
+    su, sv = rs.shard(flow.u, m44, spec), rs.shard(flow.v, m44, spec)
+    f1, f2 = rs.shard(q1, m44, spec), rs.shard(q2, m44, spec)
+    sums_ms = [median_ms(lambda: estimate_egomotion(Flow(su, sv), axis_names=spec), runs=5),
+               median_ms(lambda: hs_energy(f1, f2, Flow(su, sv), alpha=cfg5.alpha,
+                                           axis_names=spec), runs=5)]
+
+    print(f"phase 25 IPC probe, 2 gloo processes on cuda:0: a round trip of the ring flags "
+          f"{[round(w['probe_ms'], 4) for w in g]} ms (50 rounds)")
+    rows = {"hs_ring_fused_sweeps": {}, "hs_ring_fused_sweeps_2d": {}}
+    for mode, ws in results.items():
+        n = len(ws)
+        for dtype in ("float32", "bfloat16"):
+            for tag, (y, x) in D3_MESHES.items():
+                key = f"{tag} {dtype}"
+                kernel = "K11 hs_ring_fused_sweeps" if x == 1 else "K12 hs_ring_fused_sweeps_2d"
+                # Rank-major: the processes split the mesh in order, 4 / n shards each.
+                ranks = (np.arange(4) // (4 // n)).reshape(1, y, x).tolist()
+                for r, w in enumerate(ws):
+                    c = w[key]
+                    require(c["equal"], f"phase 25 {mode} {key} rank {r} differs from the "
+                                        f"untiled solve: {c['max_abs_diff']}")
+                    require(c["launches"] == {kernel: 1}, f"phase 25 {mode} {key} rank {r} "
+                                                          f"launches {c['launches']}")
+                    require(c["ipc_again"] == {"exported": 0, "opened": 0, "exchanges": 0},
+                            f"phase 25 {mode} {key} rank {r}: a second call shared arenas "
+                            f"{c['ipc_again']}")
+                    require(c["ranks"] == ranks, f"phase 25 {mode} {key} mesh ranks "
+                                                 f"{c['ranks']}")
+                ms = [w[key]["ms"] for w in ws]
+                where = ("2 gloo processes on cuda:0" if mode == "ipc" else
+                         f"{n} NCCL processes, one card each ({[w['device'] for w in ws]})")
+                print(f"phase 25 {key} {'K11' if x == 1 else 'K12'} across {where} "
+                      f"({4 // n} shard(s) a process, halos through CUDA IPC): = untiled "
+                      f"bitwise on all; launches {[w[key]['launches'] for w in ws]}; first "
+                      f"call's IPC {[w[key]['ipc_first'] for w in ws]}, the second's none; ms "
+                      f"(median of 5) {[round(t, 3) for t in ms]} beside in-process "
+                      f"{in_process[key]:.3f}")
+                row = rows["hs_ring_fused_sweeps" if x == 1 else "hs_ring_fused_sweeps_2d"]
+                bf = "" if dtype == "float32" else "_bf16"
+                row[f"multiprocess_D3_ms{bf}" + ("" if mode == "ipc" else f"_{n}_cards")] = ms
+                row[f"in_process_D3_ms{bf}"] = in_process[key]
+                row["multiprocess_launches_per_process"] = 1
+    # Bytes a process sends: time_to_space, rank 1's 8 true frames to rank 0
+    # (which holds the space layout); space_to_time, the same back; the
+    # pairs' halo, group 1's first frame to rank 0.
+    frame = frames[0].numel() * frames.element_size()
+    want = [[0, 8 * frame, 0], [8 * frame, 0, frame]]
+    for r, w in enumerate(g):
+        rsd = w["reshard"]
+        require(rsd["round_trip"] and rsd["pairs"] and rsd["valid"] == 16,
+                f"phase 25 reshard rank {r}: {rsd}")
+        require(rsd["sent"] == want[r], f"phase 25 reshard rank {r} sent {rsd['sent']}, "
+                                        f"the count {want[r]}")
+    print(f"phase 25 reshard C4 17x1080x1920 across 2 processes: time_to_space / space_to_time "
+          f"on (2,2,2) (space blocks {g[0]['reshard']['blocks']['space']} on rank 0, held "
+          f"once), round trip bitwise; timesharded_pairs on (2,1,1) 16 valid pairs; bytes sent "
+          f"a process {[w['reshard']['sent'] for w in g]} = the count; ms (median of 5) "
+          f"{[[round(t, 3) for t in w['reshard']['ms']] for w in g]} beside in-process "
+          f"{[round(t, 3) for t in reshard_ms]}")
+    for r, w in enumerate(g):
+        c = w["idle"]
+        require(c["equal"] and c["ranks"] == [[[0, 0]], [[1, 1]]]
+                and c["launches"] == ({"K12 hs_ring_fused_sweeps_2d": 1} if r == 0 else {})
+                and c["ipc_again"] == {"exported": 0, "opened": 0, "exchanges": 0},
+                f"phase 25 idle rank {r}: {c}")
+    print(f"phase 25 idle: a pair on (2,1,2), rank 0 owning both shards and rank 1 none, "
+          f"= untiled bitwise on both; launches {[w['idle']['launches'] for w in g]}")
+    sums = [w["sums"] for w in g]
+    require(all(s["egomotion"] == sums[0]["egomotion"] and s["energy"] == sums[0]["energy"]
+                for s in sums), f"phase 25 sums differ between the processes: {sums}")
+    s = sums[0]
+    # Relative 1e-5, plus the flow's float32 rounding size (eps x max |u, v|)
+    # for components that cancel to near 0 (omega, scale).
+    d_em = max(abs(a - b) / (abs(b) + s["floor"] / 1e-5)
+               for a, b in zip(s["egomotion"], s["whole_egomotion"]))
+    d_e = abs(s["energy"] - s["whole_energy"]) / (abs(s["whole_energy"]) + s["floor"] / 1e-5)
+    require(d_em <= 1e-5 and d_e <= 1e-5, f"phase 25 sums: {d_em} {d_e} {s}")
+    print(f"phase 25 sums over D1's 16 shards across 2 processes: the same on both; ego-motion "
+          f"max rel diff {d_em:.3g}, hs_energy {s['energy']:.7g} vs {s['whole_energy']:.7g} rel "
+          f"{d_e:.3g}; ms (median of 5) {[[round(t, 3) for t in w['sums']['ms']] for w in g]} "
+          f"beside in-process {[round(t, 3) for t in sums_ms]}")
+    print(f"phase 25 took {time.perf_counter() - t_phase:.1f} s (legs with start-up {leg_s} s)")
+    for row in rows.values():
+        row["ipc_probe_round_trip_ms"] = [w["probe_ms"] for w in g]
+    return rows
 
 
 def main() -> int:
@@ -4930,6 +5254,10 @@ def main() -> int:
     # -- phase 24: dist/multihost.py, meshes that span processes (K9 across them) ---------
     mh = multihost_path(dev)
     next(r for r in k9_12_rows if r["name"] == "hs_tile_sweeps").update(mh)
+
+    # -- phase 25: K11/K12 across processes (CUDA IPC), layouts and sums across them ------
+    for name, numbers in ipc_path(dev).items():
+        next(r for r in k9_12_rows if r["name"] == name).update(numbers)
 
     # -- per-kernel times at the headline shape -------------------------------
     i1, i2 = s1, s2

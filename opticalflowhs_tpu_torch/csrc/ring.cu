@@ -99,7 +99,26 @@
 // pixel a sweep (K2's 27 and the two roundings), and half of float32's
 // schedule bytes.
 
+// Across processes of one host (hs_ipc_*, at the end): a neighbour's pairs
+// and flags belong to another CUDA context. Each process allocates its ring
+// buffers of a shape (the four pair planes and the epoch flags) as one arena
+// with cudaMalloc, exports it once (cudaIpcGetMemHandle: a handle names a
+// whole allocation, which is why the arena does not come from PyTorch's
+// caching allocator), and maps its neighbours' arenas once
+// (cudaIpcOpenMemHandle with lazy peer access); kernels/ring.py writes the
+// mapped addresses into the link table, and K11/K12 run unchanged: their
+// flags are released and acquired at system scope, the scope that memory
+// shared between processes needs. hs_ipc_ping_pong is a probe of that
+// protocol, not a kernel of the solve: one thread of one block a process,
+// two processes, each releasing a flag in the other's mapped arena and
+// acquiring its own. On one card without MPS the two processes' contexts
+// are time-sliced, so a round trip costs about two of the card's context
+// switches; the ring solve pays the same for each sweep block whose halo
+// crosses the process boundary.
+
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 #include "cooperative.cuh"
 #include "k2_window.cuh"
@@ -611,4 +630,93 @@ extern "C" int hs_ring_fused_sweeps_bf16(
   return ring_sweeps<ArgsBf16>(links, org, pu0, pv0, pu1, pv1, ex, ey, et, invd, barrier, b,
                                h, w, sy, sx, img_h, img_w, n, s, epoch0, grid, device,
                                stream);
+}
+
+// -- across processes: the arenas' CUDA IPC and the flag probe ----------------
+
+namespace {
+
+// Round i (0-based) of `rounds`: the first process releases base + 2i + 1
+// into the other's flag and waits for base + 2i + 2 in its own; the second
+// waits for base + 2i + 1 and answers with base + 2i + 2.
+__global__ void ping_pong_kernel(const u64* mine, u64* theirs, int rounds, int first,
+                                 u64 base) {
+  for (int i = 0; i < rounds; ++i) {
+    const u64 go = base + 2 * (u64)i + 1, back = go + 1;
+    if (first) {
+      st_release_sys(theirs, go);
+      wait_flag(mine, back);
+    } else {
+      wait_flag(mine, go);
+      st_release_sys(theirs, back);
+    }
+  }
+}
+
+}  // namespace
+
+// The bytes of an IPC handle (cudaIpcMemHandle_t), written to *bytes.
+extern "C" int hs_ipc_handle_bytes(int* bytes) {
+  if (bytes == nullptr) return (int)cudaErrorInvalidValue;
+  *bytes = (int)sizeof(cudaIpcMemHandle_t);
+  return 0;
+}
+
+// A zeroed arena of `bytes` on `device`, and its IPC handle written to
+// `handle` (hs_ipc_handle_bytes bytes). The arena lives until hs_ipc_free.
+extern "C" int hs_ipc_alloc(int device, unsigned long long bytes, void** ptr, void* handle) {
+  if (ptr == nullptr || handle == nullptr || bytes == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaMalloc(ptr, bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemset(*ptr, 0, bytes);
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  cudaIpcMemHandle_t h;
+  if (err == cudaSuccess) err = cudaIpcGetMemHandle(&h, *ptr);
+  if (err != cudaSuccess) {
+    cudaFree(*ptr);
+    *ptr = nullptr;
+    return (int)err;
+  }
+  std::memcpy(handle, &h, sizeof h);
+  return 0;
+}
+
+// Another process's arena, mapped into this one on `device` (a handle of this
+// process's own is refused by CUDA).
+extern "C" int hs_ipc_open(int device, const void* handle, void** ptr) {
+  if (ptr == nullptr || handle == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaIpcMemHandle_t h;
+  std::memcpy(&h, handle, sizeof h);
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+// Unmap an arena that hs_ipc_open mapped.
+extern "C" int hs_ipc_close(int device, void* ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaIpcCloseMemHandle(ptr);
+}
+
+// Free an arena of this process (hs_ipc_alloc).
+extern "C" int hs_ipc_free(int device, void* ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFree(ptr);
+}
+
+// The probe: `rounds` round trips of one flag each way between this process
+// (`first` 1 starts) and another, `mine` an 8-byte flag of this process's
+// arena and `theirs` one of the other's, mapped; one thread, on `stream`.
+// `base` must exceed every value either flag already holds.
+extern "C" int hs_ipc_ping_pong(const void* mine, void* theirs, int rounds, int first,
+                                unsigned long long base, int device, void* stream) {
+  if (mine == nullptr || theirs == nullptr || rounds < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  ping_pong_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const u64*)mine, (u64*)theirs, rounds,
+                                                       first, base);
+  return (int)cudaGetLastError();
 }

@@ -16,11 +16,18 @@ built in an initialized world lays every process's devices out rank-major,
 as the reference reshapes `jax.devices()`, which come in process order.
 Such a mesh is `collective`: its halos, gathers and reductions go through
 the process group (dist/transport.py). A mesh built with no world has every
-rank 0 and moves everything by copies in its one process.
+rank 0 and moves everything by copies in its one process. A process
+stacks its shards on a device in coordinate order, so every process
+derives where another's shard lies in that process's stack from `ranks`
+and `devices` alone (kernels/ring.py), and no index crosses the
+processes. `hosts` names each rank's host, for the one route that needs
+every process on one host (the ring kernels' stores through CUDA IPC,
+`require_one_host`).
 """
 
 from __future__ import annotations
 
+import socket
 from typing import Optional, Sequence
 
 import numpy as np
@@ -40,7 +47,8 @@ class Mesh:
     def __init__(self, devices: np.ndarray, axis_names=("batch", "y", "x"),
                  ranks: Optional[np.ndarray] = None, process_index: int = 0,
                  process_count: int = 1, collective: bool = False,
-                 local_device: Optional[torch.device] = None):
+                 local_device: Optional[torch.device] = None,
+                 hosts: Optional[Sequence[str]] = None):
         kinds = {d.type for d in devices.flat}
         if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
             raise ValueError(
@@ -53,6 +61,7 @@ class Mesh:
         self.process_index, self.process_count = process_index, process_count
         self.collective = collective
         self._local_device = local_device
+        self.hosts = list(hosts) if hosts is not None else None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -76,12 +85,19 @@ class Mesh:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.flat]}{procs})"
 
 
-def require_one_process(mesh: Mesh, what: str) -> None:
-    """ValueError for an operation not ported to meshes that span processes."""
-    if mesh.process_count > 1:
+def require_one_host(mesh: Mesh, what: str) -> None:
+    """ValueError for a route that needs every process of the mesh on one
+    host: CUDA IPC, through which a process maps its neighbours' memory,
+    does not reach another host."""
+    if mesh.hosts is None:
+        return
+    hosts = sorted({mesh.hosts[r] for r in np.unique(mesh.ranks)})
+    if len(hosts) > 1:
         raise ValueError(
-            f"{what} over a mesh that spans {mesh.process_count} processes is not "
-            "ported yet (ROADMAP.md queue 1, item 6.6)"
+            f"{what} stores into the neighbours' memory inside the launch, which "
+            "across processes goes through CUDA IPC, and CUDA IPC does not reach "
+            f"another host: this mesh's processes lie on the hosts {hosts}; use "
+            "halo_impl='ppermute' (the halo exchanged between K9 launches)"
         )
 
 
@@ -133,11 +149,12 @@ def make_mesh(cfg: MeshConfig = MeshConfig(),
     if world:
         rank, size = dist.get_rank(), dist.get_world_size()
         lists = [None] * size
-        dist.all_gather_object(lists, [str(d) for d in local])
-        devices = [torch.device(d) for lst in lists for d in lst]
-        owners = [r for r, lst in enumerate(lists) for _ in lst]
+        dist.all_gather_object(lists, (socket.gethostname(), [str(d) for d in local]))
+        hosts = [host for host, _ in lists]
+        devices = [torch.device(d) for _, lst in lists for d in lst]
+        owners = [r for r, (_, lst) in enumerate(lists) for _ in lst]
     else:
-        devices, owners = local, [0] * len(local)
+        devices, owners, hosts = local, [0] * len(local), None
     n = cfg.batch * cfg.y * cfg.x
     if n > len(devices):
         raise ValueError(f"mesh {cfg.shape} needs {n} devices, have {len(devices)}")
@@ -145,7 +162,7 @@ def make_mesh(cfg: MeshConfig = MeshConfig(),
     arr[:] = devices[:n]
     ranks = np.asarray(owners[:n], dtype=int).reshape(cfg.shape)
     return Mesh(arr.reshape(cfg.shape), cfg.axis_names, ranks, rank, size, world,
-                local[0] if local else None)
+                local[0] if local else None, hosts)
 
 
 def mesh_for_devices(n: int, batch: int = 1) -> MeshConfig:

@@ -17,6 +17,7 @@ are all-gathered, the solve-to-tolerance maxima all-reduced
 NCCL refuses two ranks on one card, and so does `init_multihost`, by name
 and before any NCCL call; two processes that share a card take
 `backend="gloo"`, whose CUDA strips go through pinned host buffers.
+`shutdown()` leaves the world (the ring kernels' CUDA IPC arenas first).
 """
 
 from __future__ import annotations
@@ -125,6 +126,16 @@ def init_multihost(
     return dev
 
 
+def shutdown() -> None:
+    """Leave the world: the ring arenas shared through CUDA IPC
+    (kernels/ring.py) are unmapped by every process, then freed, and the
+    process group is destroyed. Every process calls it."""
+    from opticalflowhs_tpu_torch.kernels import ring
+
+    ring.release_arenas(dist.barrier)
+    dist.destroy_process_group()
+
+
 def _int_env(name: str) -> Optional[int]:
     v = os.environ.get(name)
     return int(v) if v is not None else None
@@ -203,7 +214,7 @@ def main(argv=None) -> int:
             write_flo(args.output, f)
             print(f"wrote {args.output}")
     if world:
-        dist.destroy_process_group()
+        shutdown()
     return 0
 
 

@@ -3,10 +3,10 @@
 Phases of a video pipeline want different layouts: decode and ingest are
 naturally time-sharded (each batch group holds a contiguous run of frames),
 the tiled solve is space-sharded. The reference expresses these as
-`shard_map` collectives over jax arrays with a sharding. The port's mesh
-lives in one process, so a sharded array is explicit here: `Sharded`, one
-block a mesh coordinate, each on its mesh device, with its spec (which
-mesh axis splits which dimension) and its true shape.
+`shard_map` collectives over jax arrays with a sharding. Here a sharded
+array is explicit: `Sharded`, one block a mesh coordinate, each on its
+mesh device, with its spec (which mesh axis splits which dimension) and
+its true shape.
 
 Copy discipline, as the reference's hand-written lowering: a layout change
 slices each source block down to what a destination block needs, at the
@@ -16,13 +16,21 @@ tensor, except through the explicit `Sharded.gather`. Blocks are zero
 padded up to the mesh grid, as the reference pads, and the padding is
 cropped where the array is gathered.
 
-A mesh that spans processes (dist/multihost.py) takes no `Sharded` layout
-and no `axis_names` sum yet: each raises ValueError (ROADMAP.md queue 1,
-item 6.6: all-to-all and all-reduce of the blocks).
+On a mesh that spans processes (dist/multihost.py) a process builds and
+holds only the blocks it owns (`Layout.mine`): `shard` cuts them from the
+whole array that every process passes, a layout change sends each slice
+whose destination block another process owns through one all-to-all
+(dist/transport.py) and copies the rest, and `gather` returns the whole
+array on every process's first device. The sums over `Sharded` fields
+(`axis_names=` of estimate_egomotion and hs_energy) take each process's
+partial sums over its own blocks and add them in rank order
+(`transport.sum_over_processes`), so every process gets the same value.
 
 A dimension the spec does not split is held once, at index 0 of that mesh
-axis (the reference replicates it on every device of the axis; in one
-process a copy a device buys nothing).
+axis, across processes too (the reference replicates it on every device
+of the axis): no device holds more than its slices, and a process that
+owns no block of a layout still gets the whole array from `gather`
+(ROADMAP.md queue 3).
 
 `timesharded_pairs` forms each group's frame pairs: its last pair needs
 the next group's first frame, a one-frame temporal halo fetched from that
@@ -36,8 +44,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from opticalflowhs_tpu_torch.dist import transport
 from opticalflowhs_tpu_torch.dist.halo import move
-from opticalflowhs_tpu_torch.dist.mesh import Mesh, require_one_process
+from opticalflowhs_tpu_torch.dist.mesh import Mesh
 from opticalflowhs_tpu_torch.dist.tiled_solver import Layout, gather, scatter
 
 TIME = ("batch", None, None)
@@ -73,7 +82,6 @@ def _ceil_div(a: int, b: int) -> int:
 def _layout_for(mesh: Mesh, spec3: tuple, shape3: tuple) -> Layout:
     """The `Layout` of a (T, H, W) array split by spec3 over the mesh: each
     split dimension zero-padded to the axis size, the others whole."""
-    require_one_process(mesh, "a dist.reshard.Sharded layout")
     g = mesh.shape["batch"] if spec3[0] else 1
     my = mesh.shape["y"] if spec3[1] else 1
     mx = mesh.shape["x"] if spec3[2] else 1
@@ -83,23 +91,23 @@ def _layout_for(mesh: Mesh, spec3: tuple, shape3: tuple) -> Layout:
 
 class Sharded:
     """An array split over a mesh: `blocks` maps each mesh coordinate
-    (b, i, j) of the layout to its (bl, th, tw) block on
-    mesh.devices[b, i, j]; `spec` says which mesh axis splits which
-    dimension (the reference's PartitionSpec entries, None for a whole
-    dimension); `shape` is the true shape (rank 1, 2 or 3; blocks hold its
-    (T, H, W) view, zero-padded to the mesh grid)."""
+    (b, i, j) of the layout that this process owns (every one in one
+    process) to its (bl, th, tw) block on mesh.devices[b, i, j]; `spec`
+    says which mesh axis splits which dimension (the reference's
+    PartitionSpec entries, None for a whole dimension); `shape` is the true
+    shape (rank 1, 2 or 3; blocks hold its (T, H, W) view, zero-padded to
+    the mesh grid); `dtype` the blocks' (given where a process owns
+    none)."""
 
-    def __init__(self, blocks: dict, layout: Layout, spec: Sequence, shape: Sequence):
+    def __init__(self, blocks: dict, layout: Layout, spec: Sequence, shape: Sequence,
+                 dtype=None):
         self.blocks, self.layout = blocks, layout
         self.spec, self.shape = tuple(spec), tuple(shape)
+        self.dtype = dtype if dtype is not None else next(iter(blocks.values())).dtype
 
     @property
     def mesh(self) -> Mesh:
         return self.layout.mesh
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return next(iter(self.blocks.values())).dtype
 
     @property
     def ndim(self) -> int:
@@ -118,9 +126,10 @@ class Sharded:
 
     def gather(self) -> torch.Tensor:
         """The whole array on the mesh's first device (the only copy that
-        assembles it)."""
+        assembles it): every process's own first device on a mesh that
+        spans processes (the owned blocks all-gathered)."""
         t, h, w = _view3(self.shape)
-        whole = gather(self.blocks, self.layout)[:t, :h, :w]
+        whole = gather(self.blocks, self.layout, self.dtype)[:t, :h, :w]
         return whole.reshape(self.shape)
 
     def __repr__(self) -> str:
@@ -141,7 +150,7 @@ def shard(x, mesh: Mesh, spec: Sequence) -> Sharded:
            0, lay.groups * lay.bl - shape3[0])
     if any(pad):
         v = torch.nn.functional.pad(v, pad)
-    return Sharded(scatter(v, lay), lay, spec, x.shape)
+    return Sharded(scatter(v, lay), lay, spec, x.shape, x.dtype)
 
 
 def _span(c, lay: Layout) -> tuple[tuple[int, int], ...]:
@@ -153,13 +162,17 @@ def _span(c, lay: Layout) -> tuple[tuple[int, int], ...]:
 def _relayout(x: Sharded, mesh: Mesh, spec: Sequence) -> Sharded:
     """x in another layout: each destination block takes, from every source
     block that overlaps it within the true shape, the overlapping slice,
-    cut at the source and copied to the destination's device."""
+    cut at the source and copied to the destination's device; a slice
+    between two processes' blocks goes through one all-to-all, listed in
+    the order (destination, source) of the layouts' coordinates."""
     shape3 = _view3(x.shape)
     lay = _layout_for(mesh, _spec3(spec, x.ndim), shape3)
-    src = [(c, _span(c, x.layout)) for c in x.blocks]
-    out = {}
+    me = mesh.process_index
+    src = [(c, _span(c, x.layout)) for c in x.layout.coords]
+    out = {c: torch.zeros((lay.bl, lay.th, lay.tw), dtype=x.dtype, device=mesh.devices[c])
+           for c in lay.mine}
+    transfers = []
     for c in lay.coords:
-        dst = torch.zeros((lay.bl, lay.th, lay.tw), dtype=x.dtype, device=mesh.devices[c])
         dspan = _span(c, lay)
         for sc, sspan in src:
             lo = [max(a[0], b[0]) for a, b in zip(dspan, sspan)]
@@ -168,9 +181,15 @@ def _relayout(x: Sharded, mesh: Mesh, spec: Sequence) -> Sharded:
                 continue
             d = tuple(slice(l - s[0], h - s[0]) for l, h, s in zip(lo, hi, dspan))
             s = tuple(slice(l - s[0], h - s[0]) for l, h, s in zip(lo, hi, sspan))
-            move(dst[d], x.blocks[sc][s])
-        out[c] = dst
-    return Sharded(out, lay, spec, x.shape)
+            rs, rd = int(x.mesh.ranks[sc]), int(mesh.ranks[c])
+            if rs == rd == me:
+                move(out[c][d], x.blocks[sc][s])
+            elif rs != rd:
+                transfers.append((rs, rd, x.blocks[sc][s] if rs == me else None,
+                                  out[c][d] if rd == me else None))
+    if transfers:
+        transport.all_to_all(transfers, me)
+    return Sharded(out, lay, spec, x.shape, x.dtype)
 
 
 def reshard(x, mesh: Mesh, spec: Sequence) -> Sharded:
@@ -212,28 +231,40 @@ def timesharded_pairs(frames: Sharded) -> tuple[Sharded, Sharded, Sharded]:
     give k pairs, pair j = (frame j, frame j + 1) in its own numbering; its
     last pair needs the next group's first frame, the one-frame temporal
     halo, copied from that group's device (zeros after the last group,
-    where the video ends). i1 and i2 are time-sharded (T_pad, H, W), valid
+    where the video ends; across processes the next group's owner sends
+    it). i1 and i2 are time-sharded (T_pad, H, W), valid
     a time-sharded (T_pad,) bool: global pair t is valid when frame t + 1
     exists, t < T - 1 (the reference's rule, which assumes T divides by
     the groups; the padded frames' pairs are invalid too)."""
     if frames.spec != TIME:
         raise ValueError(f"expected frames sharded as {TIME}, got {frames.spec}")
     lay, t_true = frames.layout, frames.shape[0]
+    mesh, me = lay.mesh, lay.mesh.process_index
+    halos = {c: torch.zeros((1, lay.th, lay.tw), dtype=frames.dtype, device=mesh.devices[c])
+             for c in lay.mine}
+    transfers = []
+    for g in range(lay.groups - 1):
+        c, nc = (g, 0, 0), (g + 1, 0, 0)
+        rs, rd = int(mesh.ranks[nc]), int(mesh.ranks[c])
+        if rs == rd == me:
+            move(halos[c], frames.blocks[nc][:1])
+        elif rs != rd:
+            transfers.append((rs, rd, frames.blocks[nc][:1] if rs == me else None,
+                              halos.get(c)))
+    if transfers:
+        transport.all_to_all(transfers, me)
     i2, valid = {}, {}
-    for g in range(lay.groups):
-        c = (g, 0, 0)
+    for c in lay.mine:
         blk = frames.blocks[c]
-        halo = torch.zeros_like(blk[:1])
-        if g + 1 < lay.groups:
-            move(halo, frames.blocks[(g + 1, 0, 0)][:1])
-        i2[c] = torch.cat([blk[1:], halo])
-        t = g * lay.bl + torch.arange(lay.bl, device=blk.device)
+        i2[c] = torch.cat([blk[1:], halos[c]])
+        t = c[0] * lay.bl + torch.arange(lay.bl, device=blk.device)
         valid[c] = (t < t_true - 1)[:, None, None]
     n = lay.groups * lay.bl
     vlay = Layout(lay.mesh, lay.groups, lay.bl, 1, 1, 1, 1)
-    return (Sharded(dict(frames.blocks), lay, TIME, (n,) + frames.shape[1:]),
-            Sharded(i2, lay, TIME, (n,) + frames.shape[1:]),
-            Sharded(valid, vlay, ("batch",), (n,)))
+    shape = (n,) + frames.shape[1:]
+    return (Sharded(dict(frames.blocks), lay, TIME, shape, frames.dtype),
+            Sharded(i2, lay, TIME, shape, frames.dtype),
+            Sharded(valid, vlay, ("batch",), (n,), torch.bool))
 
 
 def check_sharded(what: str, arrays: Sequence, axis_names: Sequence[str],
@@ -251,7 +282,6 @@ def check_sharded(what: str, arrays: Sequence, axis_names: Sequence[str],
                 f"field (mesh coordinate -> block on its device); got {type(x).__name__}"
             )
     a = arrays[0]
-    require_one_process(a.mesh, f"{what} with axis_names")
     for b in arrays[1:]:
         if b.mesh is not a.mesh or b.spec != a.spec or b.shape != a.shape:
             raise ValueError(f"{what}: the fields differ in layout: {b!r} is not laid "

@@ -34,8 +34,11 @@ dist/transport.py), K9 still runs once a device a block over the shards
 that device holds, the per-image maxima of a solve to tolerance are
 all-reduced (still one host sync a block, so every process stops on the
 same block), and the owned tiles are all-gathered, so every process
-returns the whole flow on its own first device. halo_impl="rdma" across
-processes raises (ROADMAP.md queue 1, item 6.6).
+returns the whole flow on its own first device. halo_impl="rdma" runs
+across the processes of one host: each process launches K11/K12 on its
+own shards and the kernels store their halos into the neighbours' pairs
+through CUDA IPC mappings (kernels/ring.py), or the plain versions send
+the strips; across hosts it raises, CUDA IPC not reaching another host.
 
 solver="robust" and "multigrid" take the reference's GSPMD route, which
 the port runs as data parallelism over the mesh's batch axis
@@ -55,7 +58,7 @@ import torch
 from opticalflowhs_tpu_torch.config import HSConfig
 from opticalflowhs_tpu_torch.dist import gspmd, transport
 from opticalflowhs_tpu_torch.dist.halo import move, pad_grid, unpad
-from opticalflowhs_tpu_torch.dist.mesh import Mesh, require_one_process
+from opticalflowhs_tpu_torch.dist.mesh import Mesh, require_one_host
 from opticalflowhs_tpu_torch.kernels import ring, tile
 from opticalflowhs_tpu_torch.ops import stencils
 from opticalflowhs_tpu_torch.solver import Flow, resolve_backend, solve_level, storage_dtype
@@ -293,23 +296,34 @@ def tile_body_rdma(lay: Layout, f1: dict, f2: dict, cfg: HSConfig, s: int, h: in
                    w: int) -> tuple[dict, dict]:
     """The rdma-path solve: the fields' halo once through halo.py, then all
     sweeps of every shard in one ring launch a device (K11 for x = 1, K12
-    otherwise), or their plain versions."""
+    otherwise), or their plain versions. On a mesh that spans processes a
+    process builds `Shard`s for its own coordinates and names the others'
+    by owner (`ring.RemoteShard`); it returns its own shards' flow."""
     sblk = max(1, min(s, cfg.iters if cfg.iters else 1))
     sx = sblk if lay.mx > 1 else 0
     fields = _fields(lay, f1, f2, cfg, sblk, sx, h, w)
     fs = [lay.split({dev: f[q] for dev, f in fields.items()}) for q in range(4)]
-    probe = next(iter(f1.values()))
+    dtype = storage_dtype(cfg)
+    probe = next(iter(f1.values()), None)
+    if probe is None:
+        probe = torch.empty(0, dtype=dtype, device=lay.mesh.first)
     shards = {}
     for c in lay.coords:
-        z = torch.zeros((lay.bl, lay.th, lay.tw), dtype=probe.dtype,
-                        device=lay.mesh.devices[c])
-        shards[c] = ring.Shard(z, torch.zeros_like(z), tuple(f[c] for f in fs),
-                               *lay.origin(c))
-    solve = (ring.ring_solve if resolve_backend(cfg.backend, probe) == "cuda"
-             else ring.ring_solve_plain)
-    res = solve([lay.grid(shards, b) for b in range(lay.groups)], cfg.iters, sblk, h, w)
-    u = {c: res[c[0]][c[1]][c[2]][0] for c in lay.coords}
-    v = {c: res[c[0]][c[1]][c[2]][1] for c in lay.coords}
+        dev = lay.mesh.devices[c]
+        if lay.mesh.is_local(c):
+            z = torch.zeros((lay.bl, lay.th, lay.tw), dtype=dtype, device=dev)
+            shards[c] = ring.Shard(z, torch.zeros_like(z), tuple(f[c] for f in fs),
+                                   *lay.origin(c))
+        else:
+            shards[c] = ring.RemoteShard(int(lay.mesh.ranks[c]), dev, (lay.bl, lay.th, lay.tw),
+                                         (lay.th + 2 * sblk, lay.tw + 2 * sx), dtype)
+    rings = [lay.grid(shards, b) for b in range(lay.groups)]
+    if resolve_backend(cfg.backend, probe) == "cuda":
+        res = ring.ring_solve(rings, cfg.iters, sblk, h, w, collective=lay.mesh.collective)
+    else:
+        res = ring.ring_solve_plain(rings, cfg.iters, sblk, h, w)
+    u = {c: res[c[0]][c[1]][c[2]][0] for c in lay.mine}
+    v = {c: res[c[0]][c[1]][c[2]][1] for c in lay.mine}
     return u, v
 
 
@@ -379,7 +393,9 @@ def hs_solve_tiled(
     sync a block; each image of a stack stops on its own. cfg.dtype
     "bfloat16" solves in bfloat16 (the storage rule), equal to the untiled
     bfloat16 solve. On a mesh that spans processes every process passes
-    the whole frames and gets the whole flow (halo_impl "ppermute" only).
+    the whole frames and gets the whole flow; halo_impl "rdma" there needs
+    every process of the mesh on one host (CUDA IPC) and raises
+    ValueError otherwise.
     """
     if mesh is None:
         raise ValueError("hs_solve_tiled requires a Mesh (dist.make_mesh)")
@@ -389,8 +405,9 @@ def hs_solve_tiled(
         raise ValueError("halo_impl must be 'ppermute' or 'rdma'")
     if halo_impl == "rdma":
         # K11 and K12 store into the neighbours' memory inside the launch;
-        # across processes that needs CUDA IPC mappings.
-        require_one_process(mesh, "halo_impl='rdma'")
+        # across processes that goes through CUDA IPC mappings, which reach
+        # no other host.
+        require_one_host(mesh, "halo_impl='rdma'")
     if cfg.solver in GSPMD_SOLVERS:
         # The GSPMD route: the whole IRLS loop or V-cycle per batch group
         # through the untiled entry (dist/gspmd.py), never Jacobi.

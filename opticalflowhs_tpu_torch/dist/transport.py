@@ -11,8 +11,11 @@ else does: never a fallback after a failure.
     device), the one-card rehearsal of a multi-process run.
 
 `exchange` posts one phase of halo strips as one `batch_isend_irecv`;
-`all_gather_owned` assembles tensors that each process owns part of;
-`all_reduce_max` reduces a tensor elementwise over the processes. Every
+`all_to_all` moves the slices of a layout change between processes, as
+one exchange; `all_gather_owned` assembles tensors that each process owns
+part of; `all_reduce_max` reduces a tensor elementwise over the
+processes; `sum_over_processes` adds every process's partial sums in rank
+order, so every process gets the same bits. Every
 process of the world calls each of them, in the same order. `counts`
 adds up what crossed the process boundary from this process, and the
 host seconds spent in the exchanges and the gathers (staging copies and
@@ -106,6 +109,33 @@ def exchange(sends: Sequence, recvs: Sequence) -> None:
     counts["sent_bytes"] += sum(w.numel() * w.element_size() for w in wires)
     counts["exchanges"] += 1
     counts["exchange_s"] += time.perf_counter() - t0
+
+
+def all_to_all(transfers: Sequence, me: int) -> None:
+    """Every (source rank, destination rank, source, destination) of
+    `transfers` between two processes, listed in one order by every
+    process (its position is its tag): this process sends the source of
+    each transfer it is the source of and receives into the destination of
+    each it is the destination of, all as one exchange. The other entries
+    (None for the tensors this process does not hold) only keep the
+    positions; a transfer within one process is the caller's copy."""
+    exchange([(d, tag, src) for tag, (s, d, src, _) in enumerate(transfers) if s == me],
+             [(s, tag, dst) for tag, (s, d, _, dst) in enumerate(transfers) if d == me])
+
+
+def sum_over_processes(t: torch.Tensor) -> torch.Tensor:
+    """The elementwise sum of `t` over every process, on t's device, the
+    same bits on every process: each process's `t` is all-gathered and the
+    parts are added in rank order (an all_reduce's order is the
+    backend's)."""
+    size = dist.get_world_size()
+    w = _wire(t)
+    bufs = _buffer([t] * size)[1]
+    dist.all_gather(bufs, w)
+    acc = bufs[0].to(t.device)
+    for b in bufs[1:]:
+        acc = acc + b.to(t.device)
+    return acc
 
 
 def all_reduce_max(t: torch.Tensor) -> torch.Tensor:

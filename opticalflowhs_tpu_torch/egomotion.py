@@ -67,15 +67,17 @@ def _coords(h: int, w: int, r0: float, c0: float, dev) -> tuple[torch.Tensor, to
     return yy, xx
 
 
-def _parts(flow: Flow, axis_names, global_offset, device) -> tuple[list, torch.device, tuple]:
-    """The field's parts, the device the sums meet on, and the shape of
-    the result's leading axes."""
+def _parts(flow: Flow, axis_names, global_offset, device) -> tuple[list, torch.device, tuple,
+                                                                   object]:
+    """The field's parts (this process's blocks of a sharded field), the
+    device the sums meet on, the shape of the result's leading axes, and
+    the sharded field's layout (None for a whole field)."""
     r0, c0 = global_offset if global_offset is not None else (0, 0)
     if not axis_names:
         u = as_frame(flow.u, device)
         v = as_frame(flow.v, u.device)
         yy, xx = _coords(u.shape[-2], u.shape[-1], r0, c0, u.device)
-        return [_Part(u, v, yy, xx, None, None)], u.device, None
+        return [_Part(u, v, yy, xx, None, None)], u.device, None, None
     from opticalflowhs_tpu_torch.dist.reshard import check_sharded
 
     fu, fv = flow.u, flow.v
@@ -83,7 +85,7 @@ def _parts(flow: Flow, axis_names, global_offset, device) -> tuple[list, torch.d
     lay = fu.layout
     h, w = fu.shape[-2:]
     parts = []
-    for c in lay.coords:
+    for c in lay.mine:
         _, gr, gc = fu.offset(c)
         dev = fu.blocks[c].device
         yy, xx = _coords(lay.th, lay.tw, gr + r0, gc + c0, dev)
@@ -91,7 +93,7 @@ def _parts(flow: Flow, axis_names, global_offset, device) -> tuple[list, torch.d
         cols = torch.arange(lay.tw, device=dev)[None, :] + gc < w
         parts.append(_Part(fu.blocks[c].float(), fv.blocks[c].float(), yy, xx, rows & cols,
                            slice(c[0] * lay.bl, (c[0] + 1) * lay.bl)))
-    return parts, lay.mesh.first, fu.shape[:-2]
+    return parts, lay.mesh.first, fu.shape[:-2], lay
 
 
 def estimate_egomotion(
@@ -118,19 +120,25 @@ def estimate_egomotion(
     offset, over its true pixels, and reduced over the named axes onto the
     mesh's first device in float32, where the estimate is returned (one a
     frame of a time-split stack). It equals the whole-field estimate up to
-    the order of the float32 sums.
+    the order of the float32 sums. On a mesh that spans processes each
+    process sums its own blocks and the partial sums are added in rank
+    order (`dist.transport.sum_over_processes`), so every process returns
+    the same estimate.
     """
     bf16 = getattr(flow.u, "dtype", None) is torch.bfloat16
-    parts, out, lead = _parts(flow, axis_names, global_offset, device)
+    parts, out, lead, lay = _parts(flow, axis_names, global_offset, device)
 
     def total(fn):
         if lead is None:
             return fn(parts[0]).sum(dim=(-2, -1))
-        acc: dict = {}  # one sum a group of frames, over its blocks
+        # One sum a frame of each group, over its blocks in coordinate order.
+        res = torch.zeros(lay.groups * lay.bl, dtype=torch.float32, device=out)
         for p in parts:
-            a = torch.where(p.mask, fn(p), 0.0).sum(dim=(-2, -1)).to(out)
-            acc[p.sel.start] = a if p.sel.start not in acc else acc[p.sel.start] + a
-        res = torch.cat([acc[k] for k in sorted(acc)])
+            res[p.sel] = res[p.sel] + torch.where(p.mask, fn(p), 0.0).sum(dim=(-2, -1)).to(out)
+        if lay.mesh.collective:
+            from opticalflowhs_tpu_torch.dist import transport
+
+            res = transport.sum_over_processes(res)
         return res[0] if len(lead) == 0 else res[:lead[0]]
 
     def b(a, p):

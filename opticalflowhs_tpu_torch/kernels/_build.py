@@ -121,6 +121,16 @@ SIGNATURES = {
     # bytes), b, h, w, sy, sx, img_h, img_w, n, s, epoch0, grid, device,
     # stream
     "hs_ring_fused_sweeps": [_P] * 11 + [_I] * 9 + [_U64] + [_I] * 2 + [_P],
+    # the ring arenas across processes (csrc/ring.cu): out, the bytes of an
+    # IPC handle; device, bytes, out pointer, out handle; device, handle,
+    # out pointer; device, pointer (unmap; free)
+    "hs_ipc_handle_bytes": [_IP],
+    "hs_ipc_alloc": [_I, _U64, _P, _P],
+    "hs_ipc_open": [_I, _P, _P],
+    "hs_ipc_close": [_I, _P],
+    "hs_ipc_free": [_I, _P],
+    # mine, theirs, rounds, first, base, device, stream: the flag probe
+    "hs_ipc_ping_pong": [_P, _P, _I, _I, _U64, _I, _P],
 }
 
 # The bfloat16 builds of every kernel, K1-K12 (every array bfloat16, the

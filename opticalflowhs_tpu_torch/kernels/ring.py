@@ -29,6 +29,15 @@ ring. The reference rounds sigma up to 8 rows and the column halo to 128
 columns for the TPU's tiles; here sigma is the fields' own halo (at least
 the block's sweeps), and the 2-D column halo is sigma wide.
 
+Across the processes of one host (a mesh that spans processes) each
+process launches K11/K12 on its own shards, and a shard whose neighbour
+another process holds stores its halo into that neighbour's pairs and
+flags through CUDA IPC: each process's ring buffers of a shape are one
+exported arena (csrc/ring.cu), mapped by its neighbours once and kept; the
+kernels themselves do not change (their flags are released and acquired
+at system scope). The plain versions send those strips between the
+processes instead (dist/transport.py).
+
 On CPU tensors the wrappers run the plain versions (the halo as tensor
 copies from the neighbours' shards, then masked sweeps over the extended
 shard); on CUDA tensors the kernels, or they raise. There is no fallback.
@@ -45,9 +54,11 @@ untiled solve reads them.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
 import struct
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -232,18 +243,45 @@ class Shard:
     col0: int = 0
 
 
+@dataclass(frozen=True)
+class RemoteShard:
+    """A shard of a ring that another process of the world holds (a mesh
+    that spans processes): its owner's rank, its device in the owner's
+    numbering, the shape of its owned u ((th, tw) or (B, th, tw)), its
+    fields' (th + 2 sy, tw + 2 sx) and its dtype. Every process lists the
+    same rings, so a shard's place in its owner's stack on its device is
+    its position among that owner's shards of the device in ring order
+    (the tiled solver's rings are in coordinate order, the order of every
+    process's stacks): no index crosses the processes."""
+
+    rank: int
+    device: torch.device
+    shape: tuple
+    ext: tuple
+    dtype: torch.dtype
+
+
+def _dims(sh) -> tuple[tuple, tuple, torch.dtype]:
+    """A shard's owned shape, its fields' last two dimensions and its
+    dtype, whichever process holds it."""
+    if isinstance(sh, Shard):
+        return tuple(sh.u.shape), tuple(sh.fields[0].shape[-2:]), sh.u.dtype
+    return tuple(sh.shape), tuple(sh.ext), sh.dtype
+
+
+def _cells(rings) -> list:
+    return [sh for grid in rings for row in grid for sh in row]
+
+
 def _geometry(rings):
-    first = rings[0][0][0]
-    th, tw = first.u.shape[-2:]
-    eh, ew = first.fields[0].shape[-2:]
+    shape, (eh, ew), _ = _dims(_cells(rings)[0])
+    th, tw = shape[-2:]
     sy, sx = (eh - th) // 2, (ew - tw) // 2
-    for grid in rings:
-        for row in grid:
-            for sh in row:
-                if sh.u.shape != first.u.shape or any(
-                        f.shape[-2:] != (eh, ew) or f.shape[:-2] != sh.u.shape[:-2]
-                        for f in sh.fields):
-                    raise ValueError("the shards of a ring solve differ in shape")
+    for sh in _cells(rings):
+        if _dims(sh)[:2] != (shape, (eh, ew)) or isinstance(sh, Shard) and any(
+                f.shape[-2:] != (eh, ew) or f.shape[:-2] != sh.u.shape[:-2]
+                for f in sh.fields):
+            raise ValueError("the shards of a ring solve differ in shape")
     if eh != th + 2 * sy or ew != tw + 2 * sx or sy < 1:
         raise ValueError(f"fields {eh}x{ew} must carry an even halo around the "
                          f"{th}x{tw} shard, at least one row deep")
@@ -264,51 +302,95 @@ def _block_sweeps(n_sweeps: int, block_sweeps: int, sy: int, sx: int,
     return s
 
 
+def _owned(rings) -> list:
+    """The (u, v) start of every shard this process holds, None for the
+    others', grids like the input."""
+    return [[[(sh.u, sh.v) if isinstance(sh, Shard) else None for sh in row]
+             for row in grid] for grid in rings]
+
+
+def _fetch(grid, items, shape, dtype) -> dict:
+    """For each (key, destination cell, source cell, cut) of `items`, listed
+    in one order by every process, whose destination this process holds:
+    cut(source cell), the strip, on the destination's device, a copy when
+    this process holds the source too, else received from its owner; the
+    strips of the sources this process holds go to the other processes'
+    destinations. The strips between processes travel as one exchange
+    (dist/transport.py), a strip's position in `items` its tag; `shape`
+    and `dtype` are a strip's."""
+    got, sends, recvs = {}, [], []
+    for tag, (key, d, s, cut) in enumerate(items):
+        dst, src = grid[d[0]][d[1]], grid[s[0]][s[1]]
+        if isinstance(dst, Shard):
+            if isinstance(src, Shard):
+                got[key] = cut(s).to(dst.u.device)
+            else:
+                got[key] = torch.empty(shape, dtype=dtype, device=dst.u.device)
+                recvs.append((src.rank, tag, got[key]))
+        elif isinstance(src, Shard):
+            sends.append((dst.rank, tag, cut(s)))
+    if sends or recvs:
+        from opticalflowhs_tpu_torch.dist import transport
+
+        transport.exchange(sends, recvs)
+    return got
+
+
 def ring_solve_plain(rings, n_sweeps: int, block_sweeps: int, h: int, w: int):
     """The plain version of K11/K12 on a list of rings, each a (y, x) grid
     of `Shard`s: every s sweeps the row halos (sy rows of the upper and
     lower neighbours' owned columns) and, when the fields carry a column
     halo, the column strips of the left and right neighbours' row-extended
     shards; then s masked sweeps over each extended shard. Returns the owned
-    (u, v) of every shard, grids like the input."""
+    (u, v) of every shard, grids like the input.
+
+    Across processes (a mesh that spans them) a grid holds `RemoteShard`s
+    where another process holds the shard: every process calls with the
+    same rings, the halo strips between two processes' shards cross as
+    sends and receives in the kernels' schedule (each phase one exchange),
+    and the result holds None where the shard is another process's."""
     th, tw, sy, sx = _geometry(rings)
     if n_sweeps == 0:
-        return [[[(sh.u, sh.v) for sh in row] for row in grid] for grid in rings]
+        return _owned(rings)
     s = _block_sweeps(n_sweeps, block_sweeps, sy, sx)
+    shape, _, dtype = _dims(_cells(rings)[0])
+    lead = shape[:-2]
     out = []
     for grid in rings:
         my, mx = len(grid), len(grid[0])
-        masks = [[stencils.edge_masks(*_ext_grids(sh, th, tw, sy, sx), h, w)
-                  for sh in row] for row in grid]
-        state = [[(sh.u, sh.v) for sh in row] for row in grid]
+        cells = [(i, j) for i in range(my) for j in range(mx)]
+        mine = [c for c in cells if isinstance(grid[c[0]][c[1]], Shard)]
+        masks = {c: stencils.edge_masks(*_ext_grids(grid[c[0]][c[1]], th, tw, sy, sx), h, w)
+                 for c in mine}
+        state = {c: (grid[c[0]][c[1]].u, grid[c[0]][c[1]].v) for c in mine}
         left = n_sweeps
         while left > 0:
             ns = min(s, left)
-            ext = []
-            for i in range(my):
-                ext.append([])
-                for j in range(mx):
-                    dev = grid[i][j].u.device
-                    up, dn = state[(i - 1) % my][j], state[(i + 1) % my][j]
-                    ext[i].append(tuple(
-                        torch.cat([up[f][..., th - sy:, :].to(dev), state[i][j][f],
-                                   dn[f][..., :sy, :].to(dev)], dim=-2)
-                        for f in (0, 1)))
+            rows = _fetch(grid, [
+                ((c, side, f), c, nb, lambda src, f=f, cut=cut: cut(state[src][f]))
+                for c in cells
+                for side, nb, cut in ((0, ((c[0] - 1) % my, c[1]), lambda t: t[..., th - sy:, :]),
+                                      (1, ((c[0] + 1) % my, c[1]), lambda t: t[..., :sy, :]))
+                for f in (0, 1)], lead + (sy, tw), dtype)
+            ext = {c: tuple(torch.cat([rows[c, 0, f], state[c][f], rows[c, 1, f]], dim=-2)
+                            for f in (0, 1)) for c in mine}
             if sx:
-                ext = [[tuple(torch.cat([ext[i][(j - 1) % mx][f][..., tw - sx:].to(
-                    grid[i][j].u.device), ext[i][j][f], ext[i][(j + 1) % mx][f][..., :sx].to(
-                    grid[i][j].u.device)], dim=-1) for f in (0, 1))
-                        for j in range(mx)] for i in range(my)]
-            for i in range(my):
-                for j in range(mx):
-                    uu, vv = ext[i][j]
-                    for _ in range(ns):
-                        uu, vv = stencils.store(stencils.jacobi_step_masked, uu, vv,
-                                                *grid[i][j].fields, masks[i][j])
-                    state[i][j] = (uu[..., sy:sy + th, sx:sx + tw],
-                                   vv[..., sy:sy + th, sx:sx + tw])
+                cols = _fetch(grid, [
+                    ((c, side, f), c, nb, lambda src, f=f, cut=cut: cut(ext[src][f]))
+                    for c in cells
+                    for side, nb, cut in ((0, (c[0], (c[1] - 1) % mx), lambda t: t[..., tw - sx:]),
+                                          (1, (c[0], (c[1] + 1) % mx), lambda t: t[..., :sx]))
+                    for f in (0, 1)], lead + (th + 2 * sy, sx), dtype)
+                ext = {c: tuple(torch.cat([cols[c, 0, f], ext[c][f], cols[c, 1, f]], dim=-1)
+                                for f in (0, 1)) for c in mine}
+            for c in mine:
+                uu, vv = ext[c]
+                for _ in range(ns):
+                    uu, vv = stencils.store(stencils.jacobi_step_masked, uu, vv,
+                                            *grid[c[0]][c[1]].fields, masks[c])
+                state[c] = (uu[..., sy:sy + th, sx:sx + tw], vv[..., sy:sy + th, sx:sx + tw])
             left -= ns
-        out.append(state)
+        out.append([[state.get((i, j)) for j in range(mx)] for i in range(my)])
     return out
 
 
@@ -433,6 +515,188 @@ _FLAGS_PER_IMAGE = 8   # [phase: rows, columns][parity][side]
 _LINK = struct.Struct("<21Q")
 
 
+# -- K11/K12 across processes: ring arenas shared through CUDA IPC -------------------
+#
+# A process's ring buffers of one shape on one device (the pairs P0 and P1,
+# (4, b, eh, ew), and b images' flags) are one cudaMalloc arena
+# (csrc/ring.cu's hs_ipc_*), exported once; every process maps its neighbours' arenas
+# once and keeps the mappings, so a solve opens and closes no handle. The
+# arenas and mappings go at `release_arenas` (dist.multihost.shutdown, or
+# the process's exit).
+
+_ARENAS: dict = {}     # (device, b, eh, ew, dtype) -> this process's _Arena
+_MAPPED: dict = {}     # (local device, rank, device, b, eh, ew, dtype) -> address
+_SHARED: set = set()   # the calls' layouts whose handles every process has
+_PROBE = [0]           # the IPC probe's flag values handed out
+# Arenas this process exported, handles it opened, and handle exchanges
+# (all_gather_object calls): set them to 0 to count.
+ipc_counts = {"exported": 0, "opened": 0, "exchanges": 0}
+
+
+class _Memory:
+    """Device memory the library allocated, as torch takes it
+    (__cuda_array_interface__, no stream to wait for)."""
+
+    def __init__(self, ptr: int, shape: tuple, typestr: str):
+        self.__cuda_array_interface__ = {"shape": tuple(shape), "typestr": typestr,
+                                         "data": (ptr, False), "strides": None,
+                                         "version": 2}
+
+
+def _device_view(ptr: int, shape: tuple, dtype, device) -> torch.Tensor:
+    """A tensor over `shape` elements of `dtype` at `ptr` on `device`, which
+    owns nothing (the arena outlives it)."""
+    typestr = {torch.float32: "<f4", torch.bfloat16: "<i2", torch.int64: "<i8"}[dtype]
+    t = torch.as_tensor(_Memory(ptr, shape, typestr), device=device)
+    return t.view(dtype)
+
+
+def _arena_layout(b: int, eh: int, ew: int, dtype) -> tuple[int, int, int]:
+    """An arena's bytes a pair plane (b images), its flags' offset and its
+    size: the four planes as torch lays out a (4, b, eh, ew) tensor, then
+    _FLAGS_PER_IMAGE int64 flags an image, 256-byte aligned."""
+    plane = b * eh * ew * dtype.itemsize
+    flags = -(-4 * plane // 256) * 256
+    return plane, flags, flags + 8 * _FLAGS_PER_IMAGE * b
+
+
+class _Arena:
+    """This process's ring buffers of one shape on one device, exported."""
+
+    def __init__(self, device: torch.device, b: int, eh: int, ew: int, dtype):
+        lib = _build.library()
+        _, flags, size = _arena_layout(b, eh, ew, dtype)
+        n = ctypes.c_int(0)
+        _build.check(lib.hs_ipc_handle_bytes(ctypes.byref(n)), "hs_ipc_handle_bytes")
+        ptr, handle = ctypes.c_void_p(), ctypes.create_string_buffer(n.value)
+        _build.check(lib.hs_ipc_alloc(device.index, size, ctypes.byref(ptr), handle),
+                     "hs_ipc_alloc")
+        self.device, self.ptr, self.handle = device, ptr.value, handle.raw
+        self.pairs = _device_view(self.ptr, (4, b, eh, ew), dtype, device)
+        self.flags = _device_view(self.ptr + flags, (_FLAGS_PER_IMAGE * b,), torch.int64,
+                                  device)
+        ipc_counts["exported"] += 1
+
+
+def _arena(device: torch.device, b: int, eh: int, ew: int, dtype) -> _Arena:
+    key = (device, b, eh, ew, dtype)
+    if key not in _ARENAS:
+        _ARENAS[key] = _Arena(device, b, eh, ew, dtype)
+    return _ARENAS[key]
+
+
+def _share_arenas(layout: tuple, mine: dict, needed: dict, eh: int, ew: int, dtype) -> None:
+    """Make every remote arena in `needed` ((rank, device, b) -> the local
+    device that maps it) mapped: the first call of a layout (every
+    process's (rank, device, b), the same tuple on every process) exchanges
+    the handles of `mine` ((device, b) -> _Arena) through all_gather_object
+    and opens the neighbours' that are not mapped yet; a later call of it
+    exchanges and opens nothing."""
+    import torch.distributed as dist
+
+    if layout in _SHARED:
+        return
+    lists = [None] * dist.get_world_size()
+    dist.all_gather_object(lists, {(str(d), b): a.handle for (d, b), a in mine.items()})
+    ipc_counts["exchanges"] += 1
+    lib = _build.library()
+    for (rank, dev, b), local in needed.items():
+        key = (local, rank, str(dev), b, eh, ew, dtype)
+        if key in _MAPPED:
+            continue
+        ptr = ctypes.c_void_p()
+        handle = ctypes.create_string_buffer(lists[rank][(str(dev), b)])
+        _build.check(lib.hs_ipc_open(local.index, handle, ctypes.byref(ptr)), "hs_ipc_open")
+        _MAPPED[key] = ptr.value
+        ipc_counts["opened"] += 1
+    _SHARED.add(layout)
+
+
+def release_arenas(between=None) -> None:
+    """Unmap every neighbour's arena, call `between` (dist.multihost.shutdown
+    passes the world's barrier, so no arena is freed while another process
+    still maps it), and free this process's; at the end of a world and at
+    exit. No solve may run on them any more. A failed unmap or free raises,
+    after the barrier (so it strands no other process) and after every
+    other release was tried.
+
+    An arena is kept for each (device, b, eh, ew, dtype) a ring solve
+    across processes met, outside torch's caching allocator, until this
+    call: the memory held grows with the number of distinct shapes (each
+    level of a tiled pyramid is one)."""
+    lib = _build.library() if _ARENAS or _MAPPED else None
+    errs = [(lib.hs_ipc_close(key[0].index, ctypes.c_void_p(ptr)), "hs_ipc_close")
+            for key, ptr in _MAPPED.items()]
+    if between is not None:
+        between()
+    errs += [(lib.hs_ipc_free(a.device.index, ctypes.c_void_p(a.ptr)), "hs_ipc_free")
+             for a in _ARENAS.values()]
+    _MAPPED.clear()
+    _ARENAS.clear()
+    _SHARED.clear()
+    for err, name in errs:
+        _build.check(err, name)
+
+
+atexit.register(release_arenas)
+
+
+def _sync_processes(devices) -> None:
+    """Every local device's work done, then every process of the world at
+    this point: a neighbour's pairs hold their start before any launch
+    stores into them, and no arena is reused while a neighbour still
+    stores into it."""
+    import torch.distributed as dist
+
+    for d in devices:
+        torch.cuda.synchronize(d)
+    dist.barrier()
+
+
+def ipc_round_trip(device, rounds: int = 20) -> float:
+    """Seconds a round trip of the ring kernels' flag protocol takes between
+    the two processes of a world of two (both call it): each holds one
+    8-byte flag in an exported arena, maps the other's, and
+    csrc/ring.cu's probe (hs_ipc_ping_pong) releases and acquires them `rounds` times (rank 0
+    starts). Timed on the host from a barrier to the probe's end."""
+    import torch.distributed as dist
+
+    if dist.get_world_size() != 2:
+        raise ValueError("the IPC probe runs between the two processes of a world of two")
+    device = torch.device(device)
+    rank = dist.get_rank()
+    devs = [None, None]
+    dist.all_gather_object(devs, str(device))
+    mine = _arena(device, 1, 1, 1, torch.float32)
+    _share_arenas(("probe", tuple(devs)), {(device, 1): mine},
+                  {(1 - rank, devs[1 - rank], 1): device}, 1, 1, torch.float32)
+    theirs = _MAPPED[(device, 1 - rank, devs[1 - rank], 1, 1, 1, torch.float32)]
+    flag = _arena_layout(1, 1, 1, torch.float32)[1]
+    # Both flags hold at most the last probe's values: every process starts
+    # above the largest base handed out.
+    base = _agree_max(_PROBE[0], device)
+    _PROBE[0] = base + 2 * rounds
+    lib = _build.library()
+    _sync_processes([device])
+    t0 = time.perf_counter()
+    err = lib.hs_ipc_ping_pong(mine.flags.data_ptr(), theirs + flag, rounds, int(rank == 0),
+                               base, device.index, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, "hs_ipc_ping_pong")
+    torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    dist.barrier()
+    return dt / rounds
+
+
+def _agree_max(value: int, device) -> int:
+    """The largest of every process's `value` (dist.transport.all_reduce_max
+    on `device`)."""
+    from opticalflowhs_tpu_torch.dist import transport
+
+    return int(transport.all_reduce_max(torch.tensor([value], dtype=torch.int64,
+                                                     device=device))[0])
+
+
 def _stacked(parts: list, hw) -> torch.Tensor:
     """One device's per-shard tensors, in its image order, as one (B, h, w)
     stack: the tensor they are consecutive slices of when they are (the
@@ -454,7 +718,7 @@ def _stacked(parts: list, hw) -> torch.Tensor:
 
 
 def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
-               blocks: int = 0):
+               blocks: int = 0, collective: bool = False):
     """K11 (fields without a column halo) or K12 (with one) over a list of
     rings, each a (y, x) grid of `Shard`s of (th, tw) owned tensors or (B,
     th, tw) stacks (image k of every shard forms its own ring), on CPU or
@@ -462,10 +726,26 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
     `ring_solve_plain` on CPU tensors. `blocks` > 0 forces each launch's
     grid (a grid too large to be resident raises). Returns the owned (u, v)
     of every shard, views of the kernel's pairs. float32 or bfloat16, one
-    dtype for every array."""
+    dtype for every array.
+
+    Across processes of one host (`collective`: a mesh that spans them,
+    `RemoteShard`s where another process holds a shard; every process of
+    the world calls with the same rings, also one that holds every shard
+    or none) each process launches on its own shards, with its pairs and
+    flags in its exported arena (`_Arena`) and a remote neighbour's
+    entries of the link table its mapped arena's addresses; every process
+    takes the same epochs, and the processes meet (a device sync and a
+    barrier) before the launches and after them. The result holds None
+    where the shard is another process's, and copies of the owned pixels
+    (the arena is reused by the next call)."""
     th, tw, sy, sx = _geometry(rings)
-    shards = [sh for grid in rings for row in grid for sh in row]
-    dtype = shards[0].u.dtype
+    cells = _cells(rings)
+    shards = [sh for sh in cells if isinstance(sh, Shard)]
+    # Whether the processes meet is the mesh's to say, not this process's
+    # shards: one that holds all or none of them still takes part.
+    if len(shards) < len(cells) and not collective:
+        raise ValueError("a ring with shards of other processes takes collective=True")
+    shape, _, dtype = _dims(cells[0])
     for sh in shards:
         check_frames("ring_solve", sh.u, sh.v, dtypes=BF16_DTYPES)
         check_frames("ring_solve", *sh.fields, dtypes=BF16_DTYPES)
@@ -473,15 +753,33 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
             raise ValueError("a shard's fields lie on another device than its flow")
         if sh.u.dtype != dtype or sh.fields[0].dtype != dtype:
             raise ValueError("the arrays of a ring solve differ in dtype")
-    if _device_kind([sh.u for sh in shards]) == "cpu":
+    kinds = {sh.u.device.type if isinstance(sh, Shard) else sh.device.type for sh in cells}
+    if len(kinds) != 1:
+        raise ValueError("the shards of a ring lie on CPU and CUDA devices; "
+                         "a mesh takes one kind")
+    if kinds == {"cpu"}:
         return ring_solve_plain(rings, n_sweeps, block_sweeps, h, w)
     if n_sweeps == 0:
-        return [[[(sh.u, sh.v) for sh in row] for row in grid] for grid in rings]
+        return _owned(rings)
     s = _block_sweeps(n_sweeps, block_sweeps, sy, sx, MAX_RING_SWEEPS)
     n_blocks = -(-n_sweeps // s)
-    nb = shards[0].u.shape[0] if shards[0].u.ndim == 3 else 1
+    nb = shape[0] if len(shape) == 3 else 1
     eh, ew = th + 2 * sy, tw + 2 * sx
     own = (slice(sy, sy + th), slice(sx, sx + tw))
+    me = 0
+    if collective:
+        import torch.distributed as dist
+
+        me = dist.get_rank()
+
+    # Every shard's place, derived alike by every process: its owner and
+    # device, and its index in that device's stack (ring order).
+    slot: dict = {}
+    count: dict = {}
+    for sh in cells:
+        key = (me, sh.u.device) if isinstance(sh, Shard) else (sh.rank, sh.device)
+        slot[id(sh)] = (key, count.get(key, 0))
+        count[key] = count.get(key, 0) + 1
 
     # Per device: its images stacked (shard by shard, a shard's stack in
     # order), the pairs P0 and P1 with the start in P0's owned pixels, the
@@ -491,9 +789,15 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
         local.setdefault(sh.u.device, []).append(sh)
     first: dict = {}
     state: dict = {}
+    arenas: dict = {}
     for dev, members in local.items():
         b = len(members) * nb
-        pairs = torch.empty((4, b, eh, ew), dtype=dtype, device=dev)
+        if collective:
+            arenas[dev, b] = _arena(dev, b, eh, ew, dtype)
+            pairs, flags_buf = arenas[dev, b].pairs, arenas[dev, b].flags
+        else:
+            pairs = torch.empty((4, b, eh, ew), dtype=dtype, device=dev)
+            flags_buf = _flags(dev, _FLAGS_PER_IMAGE * b)
         for k, sh in enumerate(members):
             first[id(sh)] = k * nb
             pairs[0, k * nb:(k + 1) * nb][(Ellipsis,) + own] = sh.u.reshape(nb, th, tw)
@@ -502,29 +806,74 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
         org = _table([struct.pack(f"<{2 * b}i", *(x for sh in members for _ in range(nb)
                                                   for x in (sh.row0 - sy, sh.col0 - sx)))],
                      dev).view(torch.int32)
-        state[dev] = (pairs, fields, org, _flags(dev, _FLAGS_PER_IMAGE * b))
-    epoch0 = _EPOCH[0] + 1
+        state[dev] = (pairs, fields, org, flags_buf)
+
+    def neighbours(grid, i, j):
+        my, mx = len(grid), len(grid[0])
+        nbs = (grid[(i - 1) % my][j], grid[(i + 1) % my][j],
+               grid[i][(j - 1) % mx], grid[i][(j + 1) % mx])
+        return nbs if sx else nbs[:2]
+
+    if collective:
+        # The remote neighbours' arenas, mapped once (on the device of the
+        # local shard that stores into them); the same epochs everywhere.
+        needed = {}
+        for grid in rings:
+            for i, row in enumerate(grid):
+                for j, sh in enumerate(row):
+                    if isinstance(sh, Shard):
+                        for n in neighbours(grid, i, j):
+                            if not isinstance(n, Shard):
+                                needed.setdefault((n.rank, n.device, count[n.rank, n.device] * nb),
+                                                  sh.u.device)
+        layout = (eh, ew, dtype, tuple(sorted((r, str(d), c * nb)
+                                              for (r, d), c in count.items())))
+        _share_arenas(layout, arenas, needed, eh, ew, dtype)
+        dev0 = next(iter(local)) if local else torch.device("cuda", torch.cuda.current_device())
+        epoch0 = _agree_max(_EPOCH[0], dev0) + 1
+    else:
+        epoch0 = _EPOCH[0] + 1
     if epoch0 + n_blocks >= 2 ** 63:
         raise RuntimeError("ring epochs exhausted")
     _EPOCH[0] = epoch0 + n_blocks
+    plane, flags_off, _ = _arena_layout(1, eh, ew, dtype)  # the bytes of one image
 
     def image(sh, q: int, k: int) -> int:
-        pairs = state[sh.u.device][0]
-        return pairs[q, first[id(sh)] + k].data_ptr()
+        if isinstance(sh, Shard):
+            pairs = state[sh.u.device][0]
+            return pairs[q, first[id(sh)] + k].data_ptr()
+        (rank, dev), idx = slot[id(sh)]
+        b = count[rank, dev] * nb
+        return remote_base(sh) + (q * b + idx * nb + k) * plane
 
     def flags(sh, k: int) -> int:
-        return state[sh.u.device][3].data_ptr() + 8 * _FLAGS_PER_IMAGE * (first[id(sh)] + k)
+        if isinstance(sh, Shard):
+            return (state[sh.u.device][3].data_ptr()
+                    + 8 * _FLAGS_PER_IMAGE * (first[id(sh)] + k))
+        (rank, dev), idx = slot[id(sh)]
+        b = count[rank, dev] * nb
+        return (remote_base(sh) + _arena_layout(b, eh, ew, dtype)[1]
+                + 8 * _FLAGS_PER_IMAGE * (idx * nb + k))
 
+    def remote_base(sh) -> int:
+        return _MAPPED[(mapped_on[id(sh)], sh.rank, str(sh.device),
+                        count[sh.rank, sh.device] * nb, eh, ew, dtype)]
+
+    mapped_on: dict = {}  # a remote neighbour -> the local device it is mapped on
     links: dict = {dev: [None] * state[dev][0].shape[1] for dev in local}
     for grid in rings:
-        my, mx = len(grid), len(grid[0])
-        for i in range(my):
-            for j in range(mx):
-                sh = grid[i][j]
-                nbs = (grid[(i - 1) % my][j], grid[(i + 1) % my][j],
-                       grid[i][(j - 1) % mx], grid[i][(j + 1) % mx])
-                for n in nbs[:2] + (nbs[2:] if sx else ()):
-                    enable_peer(sh.u.device.index, n.u.device.index)
+        for i, row in enumerate(grid):
+            for j, sh in enumerate(row):
+                if not isinstance(sh, Shard):
+                    continue
+                nbs = neighbours(grid, i, j)
+                for n in nbs:
+                    if isinstance(n, Shard):
+                        enable_peer(sh.u.device.index, n.u.device.index)
+                    else:
+                        mapped_on[id(n)] = needed[n.rank, n.device,
+                                                  count[n.rank, n.device] * nb]
+                nbs = nbs + (sh, sh) if len(nbs) == 2 else nbs  # K11: no left or right
                 for k in range(nb):
                     links[sh.u.device][first[id(sh)] + k] = _LINK.pack(
                         *(image(n, q, k) for n in nbs for q in range(4)),
@@ -533,7 +882,10 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
     name = "hs_ring_fused_sweeps" + _build.bf16_suffix(dtype)
     fn = getattr(_build.library(), name)
     th_k, tw_k, _ = k2_tile(s)
-    barrier(devices)
+    if collective:
+        _sync_processes(devices)
+    else:
+        barrier(devices)
     counter = ring_fused_sweeps_2d if sx else ring_fused_sweeps
     for dev in devices:
         pairs, fields, org, _ = state[dev]
@@ -548,19 +900,25 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
             b, eh, ew, sy, sx, h, w, n_sweeps, s, epoch0, grid_blocks, dev.index, stream)
         _build.check(err, name)
         counter.launches += 1
-    barrier(devices)
+    if collective:
+        _sync_processes(devices)
+    else:
+        barrier(devices)
     q = 2 if n_blocks % 2 else 0
     out = []
     for grid in rings:
         res = []
         for row in grid:
-            cells = []
+            cells_out = []
             for sh in row:
+                if not isinstance(sh, Shard):
+                    cells_out.append(None)
+                    continue
                 pairs, k = state[sh.u.device][0], first[id(sh)]
-                cells.append(tuple(
-                    pairs[q + f, k:k + nb][(Ellipsis,) + own].reshape(sh.u.shape)
-                    for f in (0, 1)))
-            res.append(cells)
+                got = tuple(pairs[q + f, k:k + nb][(Ellipsis,) + own].reshape(sh.u.shape)
+                            for f in (0, 1))
+                cells_out.append(tuple(t.clone() for t in got) if collective else got)
+            res.append(cells_out)
         out.append(res)
     return out
 

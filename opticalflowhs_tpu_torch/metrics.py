@@ -77,7 +77,11 @@ def hs_energy(i1, i2, flow, alpha: float = 1.0, deriv_variant: str = "hs_cube",
     clamped at the true image edges by global coordinates, its sums run
     over its true pixels, and the sums are reduced onto the mesh's first
     device in float32, where E is returned. It equals the whole-image E up
-    to the order of the float32 sums.
+    to the order of the float32 sums. On a mesh that spans processes the
+    halo crosses the process boundary as the tiled solve's does, each
+    process sums its own blocks, and the partial sums are added in rank
+    order (`dist.transport.sum_over_processes`): every process returns the
+    same E.
     """
     if axis_names:
         return _energy_sharded(i1, i2, flow, alpha, deriv_variant, axis_names)
@@ -134,6 +138,10 @@ def _energy_sharded(i1, i2, flow, alpha: float, deriv_variant: str,
         data = data + torch.where(own, r, 0.0).sum().to(first)
         grads = grads + (grad2(uu) + grad2(vv)).to(first)
         n = n + own.sum(dtype=torch.float32).to(first)
+    if lay.mesh.collective:
+        from opticalflowhs_tpu_torch.dist import transport
+
+        data, grads, n = transport.sum_over_processes(torch.stack([data, grads, n]))
     return (data + alpha * alpha * grads) / n
 
 

@@ -17,8 +17,20 @@ default_rng(1). Bars, each with its reason:
     (test_torch_dist_gspmd.py's bars); bfloat16 against the reference's
     float32 solve by queue 3's bars for the storage rule (8 px in: mean
     0.02 px, max 0.1 px).
+  * halo_impl="rdma" (the plain ring across processes) as the Jacobi
+    solves: bitwise against the untiled entry, 2e-6 (bfloat16: the storage
+    rule's bars) against the reference.
+  * the layout changes: every rank's blocks and gathered arrays bitwise
+    against the same calls in one process and against the numpy slices
+    (they only move values).
+  * the axis_names sums: bitwise equal on every rank (the partial sums are
+    added in rank order); every rank's within 1e-5 relative of the port's
+    whole-array call and of the reference's (the order of the float32
+    sums), plus the flow's float32 rounding size (eps x max |u, v|), the
+    floor for ego-motion's scale, a ratio of sums that cancel (1.8e-5 here).
 """
 
+import functools
 import json
 import os
 import re
@@ -33,11 +45,15 @@ import torch
 
 import opticalflowhs_tpu.config as ref_config
 from opticalflowhs_tpu.batch import hs_solve_batched as ref_batched
+from opticalflowhs_tpu.egomotion import estimate_egomotion as ref_egomotion
 from opticalflowhs_tpu.lucas_kanade import lk_solve as ref_lk_solve
+from opticalflowhs_tpu.metrics import hs_energy as ref_hs_energy
 from opticalflowhs_tpu.pyramid import hs_pyramid as ref_hs_pyramid
+from opticalflowhs_tpu.solver import Flow as RefFlow
 from opticalflowhs_tpu.solver import hs_solve as ref_hs_solve
-from opticalflowhs_tpu_torch import HSConfig, PyramidConfig, hs_pyramid, hs_solve
-from opticalflowhs_tpu_torch.dist import multihost
+from opticalflowhs_tpu_torch import HSConfig, MeshConfig, PyramidConfig, hs_pyramid, hs_solve
+from opticalflowhs_tpu_torch.dist import hs_solve_tiled, make_mesh, multihost, reshard
+from opticalflowhs_tpu_torch.dist.mesh import Mesh, require_one_host
 from opticalflowhs_tpu_torch.io.flo import read_flo
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -54,12 +70,14 @@ LK_TOL = 2e-6
 MEAN_TOL = 0.02
 MAX_TOL = 0.1
 EDGE = 8
+SUM_TOL = 1e-5
 
-TWO = ["jacobi", "pyramid", "tol", "sor", "bf16", "stack", "x", "idle"]
-FOUR = ["jacobi", "robust", "multigrid", "lk"]
+TWO = ["jacobi", "pyramid", "tol", "sor", "bf16", "stack", "x", "idle", "rdma", "rdma_bf16",
+       "rdma_k11", "rdma_idle"]
+FOUR = ["jacobi", "robust", "multigrid", "lk", "rdma", "rdma_bf16"]
 # Which mesh axis each case's processes split: the mesh's ranks differ
 # along it (and along no other for the 2-process meshes).
-TWO_SPLIT = {"stack": 0, "idle": 0, "x": 2}
+TWO_SPLIT = {"stack": 0, "idle": 0, "rdma_idle": 0, "x": 2}
 HS = dict(alpha=0.5, iters=16)
 
 
@@ -142,9 +160,16 @@ def _ref_frames(shape, seed):
 
 def _reference(case):
     """The reference's untiled flow of a case, as a (2, ...) array, and its bar."""
+    if case.startswith("rdma") or case in ("x", "bf16"):  # the Jacobi solve's
+        case = "jacobi"
+    return _reference_of(case)
+
+
+@functools.cache
+def _reference_of(case):
     i1, i2 = (jnp.asarray(a) for a in _ref_frames((32, 64), 0))
     hs = lambda **kw: ref_config.HSConfig(backend="jnp", **{**HS, **kw})  # noqa: E731
-    if case in ("jacobi", "x", "bf16"):
+    if case == "jacobi":
         f, bar = ref_hs_solve(i1, i2, hs()), SOLVE_TOL
     elif case == "pyramid":
         f, bar = ref_hs_pyramid(i1, i2, hs(), ref_config.PyramidConfig(levels=2)), PYRAMID_TOL
@@ -172,7 +197,7 @@ def _reference(case):
 def _check_reference(got, case, record_property):
     want, bar = _reference(case)
     got = got.astype(np.float64)
-    if case == "bf16":
+    if case.endswith("bf16"):
         d = np.abs(got - want)[..., EDGE:-EDGE, EDGE:-EDGE]
         record_property("max_abs_diff", float(d.max()))
         assert d.mean(axis=(-2, -1)).max() <= MEAN_TOL and d.max() <= MAX_TOL
@@ -219,10 +244,93 @@ def test_fault_hook_across_processes(two):
     assert np.array_equal(_load(two, "jacobi", 1), clean)
 
 
-@pytest.mark.parametrize("what", ["rdma", "sharded", "time_to_space", "egomotion", "energy"])
-def test_refusals_across_processes(two, what):
-    msg = json.loads((two / "refusals.json").read_text())[what]
-    assert "spans 2 processes" in msg and "ROADMAP.md queue 1, item 6.6" in msg, msg
+def _vid():
+    return torch.from_numpy(np.random.default_rng(2).uniform(0, 1, (5, 12, 20))
+                            .astype(np.float32))
+
+
+def _in_process(what):
+    """The worker's layout change in one process, on CPU meshes of the same
+    shapes: its arrays (Sharded), and the whole arrays from numpy slices."""
+    vid = _vid()
+    if what == "timesharded_pairs":
+        m = make_mesh(MeshConfig(batch=2, y=1, x=1), ["cpu"] * 2)
+        arrays = reshard.timesharded_pairs(reshard.shard(vid, m, reshard.TIME))
+        n = arrays[0].shape[0]
+        i1, i2 = np.zeros((2, n) + tuple(vid.shape[1:]), np.float32)
+        i1[:5], i2[:4] = vid.numpy(), vid.numpy()[1:]
+        return arrays, {"i1": i1, "i2": i2, "valid": np.arange(n) < 4}
+    m = make_mesh(MeshConfig(batch=2, y=2, x=2), ["cpu"] * 8)
+    sp = reshard.time_to_space(reshard.shard(vid, m, reshard.TIME), m)
+    arrays = (sp,) if what == "time_to_space" else (reshard.space_to_time(sp, m),)
+    return arrays, {"whole": vid.numpy()}
+
+
+@pytest.mark.parametrize("what", ["time_to_space", "space_to_time", "timesharded_pairs"])
+def test_layout_changes_across_processes(two, what):
+    arrays, wholes = _in_process(what)
+    ranks = np.asarray(_ranks(two)[what])
+    assert np.ptp(ranks, axis=0).max() == 1  # the batch groups lie on both processes
+    owned = set()
+    for r in range(2):
+        got = np.load(two / f"{what}_r{r}.npz")
+        for k, want in wholes.items():
+            assert np.array_equal(got[k], want), (what, r, k)
+        for key in got.files:
+            if key in wholes:
+                continue
+            k, *c = key.split("_")
+            c = tuple(int(x) for x in c)
+            assert ranks[c] == r and np.array_equal(got[key], arrays[int(k)].blocks[c].numpy())
+            owned.add((int(k), c))
+    # Every block of every array is held once, by its owner (the space
+    # layout wholly by rank 0: held once at batch index 0).
+    assert owned == {(k, c) for k, x in enumerate(arrays) for c in x.blocks}
+
+
+def _reference_sums(d, what):
+    """The reference's whole-array estimate_egomotion or hs_energy (alpha
+    0.5) of the flow the worker took the sums over (its Jacobi case's
+    untiled flow), and the float32 rounding size of that flow."""
+    uv = _load(d, "jacobi")
+    flow = RefFlow(jnp.asarray(uv[0]), jnp.asarray(uv[1]))
+    if what == "egomotion":
+        want = [float(x) for x in ref_egomotion(flow)]
+    else:
+        i1, i2 = (jnp.asarray(a) for a in _ref_frames((32, 64), 0))
+        want = [float(ref_hs_energy(i1, i2, flow, alpha=HS["alpha"]))]
+    return want, float(np.finfo(np.float32).eps * np.abs(uv).max())
+
+
+@pytest.mark.parametrize("world", ["two", "four"])
+@pytest.mark.parametrize("what", ["egomotion", "energy"])
+def test_axis_name_sums_across_processes(request, world, what):
+    d = request.getfixturevalue(world)
+    n = {"two": 2, "four": 4}[world]
+    sums = [json.loads((d / f"sums_r{r}.json").read_text()) for r in range(n)]
+    got = [s[what] for s in sums]
+    assert all(g == got[0] for g in got)  # the same bits on every rank
+    ref, floor = _reference_sums(d, what)
+    for r, g in enumerate(got):
+        for want in (sums[0]["whole_" + what], ref):
+            assert len(g) == len(want)
+            for a, b in zip(g, want):
+                assert abs(a - b) <= SUM_TOL * abs(b) + floor, (what, r, a, b)
+
+
+def test_rdma_refused_across_hosts():
+    # A mesh whose two processes lie on different hosts (identities faked,
+    # no world needed: the refusal comes before any exchange).
+    devices = np.empty((1, 2, 1), dtype=object)
+    devices[0, 0, 0] = devices[0, 1, 0] = torch.device("cpu")
+    ranks = np.asarray([[[0], [1]]])
+    mesh = Mesh(devices, ranks=ranks, process_index=0, process_count=2, collective=True,
+                hosts=["host-a", "host-b"])
+    i1, i2 = (torch.from_numpy(x) for x in _ref_frames((32, 64), 0))
+    with pytest.raises(ValueError, match="CUDA IPC does not reach another host"):
+        hs_solve_tiled(i1, i2, HSConfig(**HS), mesh, halo_sweeps=2, halo_impl="rdma")
+    require_one_host(Mesh(devices, ranks=ranks, process_index=0, process_count=2,
+                          collective=True, hosts=["host-a", "host-a"]), "rdma")
 
 
 # -- 4 processes x 1 CPU shard ------------------------------------------------------------------

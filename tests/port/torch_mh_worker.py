@@ -11,14 +11,21 @@ Groups:
         a B=2 stack on a (2, 1, 2) mesh and a (1, 1, 4) mesh of 2 shards a
         process (the batch and the "x" boundary between the processes); a
         pair to tolerance on the (2, 1, 2) mesh (rank 1 owns no shard); the
-        fault hook on rank 1; the refusals.
+        fault hook on rank 1; halo_impl="rdma" (the plain ring) on the
+        (1, 2, 4) mesh in float32 and bfloat16, on a (1, 4, 1) mesh of 2
+        shards a process and for a pair on the (2, 1, 2) mesh (rank 1 owns
+        no shard); time_to_space / space_to_time of 5 x 12 x 20
+        frames (default_rng(2)) on (2, 2, 2), split by batch, and
+        timesharded_pairs on (2, 1, 1); the axis_names sums on (1, 2, 4).
   four  4 processes x 1 shard: the (1, 2, 2) mesh, both axes between the
         processes: Jacobi, a robust pair and a multigrid stack through the
-        GSPMD routes, lk_solve_tiled.
+        GSPMD routes, lk_solve_tiled, rdma in float32 and bfloat16, the
+        axis_names sums.
 
 Each case writes every rank's tiled flow and rank 0's untiled flow as
-(2, ...) .npy files (u, v; bfloat16 widened, which is exact), the mesh's
-ranks as JSON, and the refusals' messages as JSON.
+(2, ...) .npy files (u, v; bfloat16 widened, which is exact) and the mesh's
+ranks as JSON; the layout changes every rank's gathered arrays and owned
+blocks (.npz), the sums every rank's values (JSON).
 """
 
 import sys
@@ -52,8 +59,7 @@ from opticalflowhs_tpu_torch import (  # noqa: E402
     lk_solve,
 )
 from opticalflowhs_tpu_torch.dist import halo, hs_pyramid_tiled, hs_solve_tiled, make_mesh  # noqa: E402
-from opticalflowhs_tpu_torch.dist import reshard  # noqa: E402
-from opticalflowhs_tpu_torch.dist.tiled_solver import Layout  # noqa: E402
+from opticalflowhs_tpu_torch.dist import multihost, reshard  # noqa: E402
 from opticalflowhs_tpu_torch.egomotion import estimate_egomotion  # noqa: E402
 from opticalflowhs_tpu_torch.io.host import host_array  # noqa: E402
 from opticalflowhs_tpu_torch.lucas_kanade import lk_solve_tiled  # noqa: E402
@@ -80,12 +86,38 @@ def save(case, mesh, tiled, untiled):
     assert tiled.u.device == CPU and tiled.u.dtype == untiled.u.dtype
 
 
-def refused(fn) -> str:
-    try:
-        fn()
-    except ValueError as e:
-        return str(e)
-    return "not refused"
+def rdma(mesh, tag):
+    """halo_impl="rdma" (the plain ring, its halos sent between the
+    processes) against the untiled entry; `tag` "_bf16" in bfloat16."""
+    c = HSConfig(alpha=0.5, iters=16, dtype="bfloat16" if tag == "_bf16" else "float32")
+    save("rdma" + tag, mesh, hs_solve_tiled(i1, i2, c, mesh, halo_sweeps=2, halo_impl="rdma"),
+         hs_solve(i1, i2, c))
+
+
+def relayout(case, mesh, wholes, *arrays):
+    """A layout change's gathered arrays and this rank's blocks."""
+    blocks = {f"{k}_{'_'.join(map(str, c))}": x.blocks[c].numpy()
+              for k, x in enumerate(arrays) for c in x.blocks}
+    np.savez(os.path.join(out, f"{case}_r{rank}.npz"),
+             **{k: v.numpy() for k, v in wholes.items()}, **blocks)
+    if rank == 0:
+        meshes[case] = mesh.ranks.tolist()
+
+
+def sums(mesh):
+    """estimate_egomotion and hs_energy with axis_names over the mesh's
+    shards of an untiled flow, every rank's values and rank 0's
+    whole-array ones."""
+    flow = hs_solve(i1, i2, cfg)
+    spec = ("y", "x")
+    su, sv = reshard.shard(flow.u, mesh, spec), reshard.shard(flow.v, mesh, spec)
+    f1, f2 = reshard.shard(i1, mesh, spec), reshard.shard(i2, mesh, spec)
+    got = {"egomotion": [float(x) for x in estimate_egomotion(Flow(su, sv), axis_names=spec)],
+           "energy": [float(hs_energy(f1, f2, Flow(su, sv), alpha=cfg.alpha, axis_names=spec))],
+           "whole_egomotion": [float(x) for x in estimate_egomotion(flow)],
+           "whole_energy": [float(hs_energy(i1, i2, flow, alpha=cfg.alpha))]}
+    with open(os.path.join(out, f"sums_r{rank}.json"), "w") as f:
+        json.dump(got, f)
 
 
 i1, i2 = frames((32, 64), 0)
@@ -123,20 +155,25 @@ if group == "two":
     bad = hs_solve_tiled(i1, i2, cfg, m124, halo_sweeps=2)
     halo.set_fault_hook(None)
     save("fault", m124, bad, hs_solve(i1, i2, cfg))
-    lay = Layout(m124, 1, 1, 16, 16)
-    blocks = {c: i1[None, 16 * c[1]:16 * c[1] + 16, 16 * c[2]:16 * c[2] + 16] for c in lay.mine}
-    sh = reshard.Sharded(blocks, lay, ("y", "x"), (32, 64))
-    msgs = {
-        "rdma": refused(lambda: hs_solve_tiled(i1, i2, cfg, m124, halo_sweeps=2,
-                                               halo_impl="rdma")),
-        "sharded": refused(lambda: reshard.shard(i1, m124, ("y", "x"))),
-        "time_to_space": refused(lambda: reshard.time_to_space(s1, m124)),
-        "egomotion": refused(lambda: estimate_egomotion(Flow(sh, sh), axis_names=("y", "x"))),
-        "energy": refused(lambda: hs_energy(sh, sh, Flow(sh, sh), axis_names=("y", "x"))),
-    }
-    if rank == 0:
-        with open(os.path.join(out, "refusals.json"), "w") as f:
-            json.dump(msgs, f)
+    rdma(m124, "")
+    rdma(m124, "_bf16")
+    m141 = make_mesh(MeshConfig(batch=1, y=4, x=1), [CPU] * 2)
+    rdma(m141, "_k11")
+    rdma(m212, "_idle")  # rank 0 owns every shard of the pair, rank 1 none
+    # The layout changes: C4-like frames split by batch between the
+    # processes, all of the space layout on rank 0 (held once).
+    vid = torch.from_numpy(np.random.default_rng(2).uniform(0, 1, (5, 12, 20))
+                           .astype(np.float32))
+    m222 = make_mesh(MeshConfig(batch=2, y=2, x=2), [CPU] * 4)
+    sp = reshard.time_to_space(reshard.shard(vid, m222, reshard.TIME), m222)
+    relayout("time_to_space", m222, {"whole": sp.gather()}, sp)
+    back = reshard.space_to_time(sp, m222)
+    relayout("space_to_time", m222, {"whole": back.gather()}, back)
+    m211 = make_mesh(MeshConfig(batch=2, y=1, x=1), [CPU])
+    a, b, ok = reshard.timesharded_pairs(reshard.shard(vid, m211, reshard.TIME))
+    relayout("timesharded_pairs", m211, {"i1": a.gather(), "i2": b.gather(), "valid": ok.gather()},
+             a, b, ok)
+    sums(m124)
 elif group == "four":
     m122 = make_mesh(MeshConfig(batch=1, y=2, x=2), [CPU])
     save("jacobi", m122, hs_solve_tiled(i1, i2, cfg, m122, halo_sweeps=2), hs_solve(i1, i2, cfg))
@@ -147,11 +184,14 @@ elif group == "four":
     save("multigrid", m122, hs_solve_tiled(s1, s2, mg, m122), hs_solve_batched(s1, s2, mg))
     lk = LKConfig()
     save("lk", m122, lk_solve_tiled(i1, i2, lk, mesh=m122), lk_solve(i1, i2, lk))
+    rdma(m122, "")
+    rdma(m122, "_bf16")
+    sums(m122)
 else:
     raise SystemExit(f"unknown group {group!r}")
 
 if rank == 0:
     with open(os.path.join(out, "meshes.json"), "w") as f:
         json.dump(meshes, f)
-dist.destroy_process_group()
+multihost.shutdown()
 print(f"TORCH_MH_WORKER_OK {group} {rank}", flush=True)
