@@ -66,6 +66,11 @@ each ran through the kernels:
               meshes: hs_solve_tiled 2160x3840 i100 halo_sweeps 4 on 4 x 4
               (D1), hs_pyramid_tiled L3 (D2), halo_impl="rdma" on 4 x 1
               and 2 x 2 (D3), SOR i50 (D4), each against the untiled solve;
+              D3 again at halo_sweeps 4, 16, 20, 32 and 100 (blocks deeper
+              than 16 sweeps run as passes of K2's walk inside the one
+              launch), each counted, its exchanges ceil(100/s) and its grid
+              barriers the plan's, = the untiled solve, timed; the deep
+              kernels at config 5's shapes (s 32) = plain, timed, bounded;
   phase 16:   the Lucas-Kanade family (plain torch; no kernel launches):
               lk_solve on T1's pair (LK1) and C3's frames at 3 levels
               (LK3) against the CPU, lk_solve_batched on 8 of C4's pairs
@@ -122,7 +127,8 @@ each ran through the kernels:
               config 5's D1-D4 and a solve to tol in bfloat16 beside
               float32, each counted (= float32's launches) and = the
               untiled bfloat16 solve bitwise; each kernel at config 5's
-              shapes beside float32.
+              shapes beside float32; phase 15's deep D3 and kernels in
+              bfloat16.
   phase 23:   the rest of dist/ (dist/gspmd.py, dist/reshard.py; no new
               kernel), float32 then bfloat16, each route counted (K1, K4's
               freeze and sweeps, K5) beside its untiled counterpart's
@@ -162,7 +168,9 @@ each ran through the kernels:
               two shards a process, the neighbours' pairs and flags mapped
               through CUDA IPC, in float32 and bfloat16: = the untiled
               solve bitwise on both, 1 ring launch and no K9 a process, a
-              second call opening no handle; a pair on (2, 1, 2), rank 0
+              second call opening no handle; D3 again at halo_sweeps 20, 32
+              and 100 (deep blocks), the same, with ceil(100/s) exchanges,
+              s 32 timed beside s 4; a pair on (2, 1, 2), rank 0
               owning both shards and rank 1 none, the same (rank 1
               launches nothing and meets in every collective); C4's time_to_space /
               space_to_time on (2, 2, 2), split by batch, round trip
@@ -1870,10 +1878,182 @@ def tiled_path(dev, pair, stack) -> list:
                 "hs_ring_fused_sweeps": ["opticalflowhs_tpu/kernels/rdma_halo.py:135"],
                 "hs_ring_fused_sweeps_2d": ["opticalflowhs_tpu/kernels/rdma_halo.py:398"]}
     key = dict(zip(names, ("K9", "K9 SOR", "K10", "K11", "K12")))
-    return [{"name": n, "route": "cuda", "source": source[n], "replaces": replaces[n],
+    rows = [{"name": n, "route": "cuda", "source": source[n], "replaces": replaces[n],
              "launches": launches[key[n]], "max_abs_err": err[n], "ms": timing[n][0],
              "plain_ms": timing[n][1], "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
              "library_ms": None, **extra[n]} for n in names]
+    # -- sweep blocks deeper than one pass of K2's walk: D3 at s 4-100, the deep kernels --
+    return rows + ring_deep_path(dev, pair, "float32")
+
+
+# D3's sweep blocks beside config 5's s 4: K2's deepest pass (16), then blocks
+# that run as passes of K2's walk (8 + 12, 16 + 16, and one block of 100:
+# 4 + 6 x 16).
+D3_DEPTHS = (4, 16, 20, 32, 100)
+
+
+def ring_schedule_work(b: int, th: int, tw: int, two_d: bool, n: int, s: int,
+                       itemsize: int) -> tuple[float, float]:
+    """Bytes and operations of K11's (two_d: K12's) schedule for n sweeps
+    in blocks of s over b images of th x tw owned pixels: each pass of each
+    block moves K2's 8 arrays of its rectangle (the owned one grown by the
+    sweeps still to come) and sweeps it, its redundant halo rows included."""
+    from opticalflowhs_tpu_torch.kernels import ring
+
+    n_bytes = ops = 0.0
+    for k in [s] * (n // s) + ([n % s] if n % s else []):
+        left = k
+        for d in ring.ring_passes(k):
+            left -= d
+            px = b * (th + 2 * left) * (tw + (2 * left if two_d else 0))
+            n_bytes += SWEEP_BLOCK_ARRAYS * itemsize * px
+            ops += d * px
+    return n_bytes, ops
+
+
+def ring_deep_path(dev, pair, dtype: str) -> list:
+    """Sweep blocks deeper than one pass of K2's walk (phase 15 in float32,
+    phase 22 in bfloat16). Config 5's D3 (hs_solve_tiled rdma, i100) on
+    virtual 4 x 1 (K11) and 2 x 2 (K12) meshes of cuda:0 at each of
+    D3_DEPTHS, counted (every count 0 just before, read just after: 1 K11
+    or K12, no K9), its exchanges (the epochs in the flags) ceil(100/s),
+    its grid barriers the plan's (ring.ring_barriers times the grid), = the
+    untiled solve bitwise, timed (median of 10). Then the deep kernels at
+    config 5's shapes, n 100 in blocks of 32 (passes of 16 + 16), = plain
+    bitwise, timed beside the plain version (bfloat16: and beside the same
+    call in float32), with the function's bound (its inputs read once, u, v
+    written once; 27 operations a pixel a sweep, bfloat16 29) and the
+    schedule's (`ring_schedule_work`). Returns the deep rows of the kernels
+    line (the D3 times in their `solve_ms_D3_by_s`)."""
+    from opticalflowhs_tpu_torch import hs_solve
+    from opticalflowhs_tpu_torch.config import MeshConfig
+    from opticalflowhs_tpu_torch.dist import hs_solve_tiled, make_mesh
+    from opticalflowhs_tpu_torch.kernels import counted_wrappers, ring
+    from opticalflowhs_tpu_torch.kernels import solve_fused as k6
+
+    t_phase = time.perf_counter()
+    phase = "phase 22" if dtype == "bfloat16" else "phase 15"
+    bf = dtype == "bfloat16"
+    tdtype = torch.bfloat16 if bf else torch.float32
+    cfg = dataclasses.replace(c5_configs()[0], dtype=dtype)
+    q1, q2 = pair
+    H, W = q1.shape
+    meshes = {"D3 4x1": (make_mesh(MeshConfig(y=4, x=1), [dev] * 4), H // 4, W, False),
+              "D3 2x2": (make_mesh(MeshConfig(y=2, x=2), [dev] * 4), H // 2, W // 2, True)}
+    kernel_of = {False: "K11 hs_ring_fused_sweeps", True: "K12 hs_ring_fused_sweeps_2d"}
+    wrappers = counted_wrappers()
+    want = hs_solve(q1, q2, cfg)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ms, plan, launches = {}, {}, {False: 0, True: 0}
+    for tag, (mesh, th, tw, two_d) in meshes.items():
+        for s in D3_DEPTHS:
+            def d3(mesh=mesh, s=s):
+                return hs_solve_tiled(q1, q2, cfg, mesh, halo_sweeps=s, halo_impl="rdma")
+
+            torch.cuda.synchronize()
+            for w in wrappers.values():
+                w.launches = 0
+            mark = ring.epoch_mark()
+            got = d3()
+            torch.cuda.synchronize()
+            counts = {n: w.launches for n, w in wrappers.items() if w.launches}
+            require(counts == {kernel_of[two_d]: 1},
+                    f"{phase} {tag} s={s} {dtype}: launches {counts}, expected one "
+                    f"{kernel_of[two_d]} and no K9")
+            epochs = ring.released_epoch(dev) - mark
+            grid = min(ring.ring_tiles(4, th, tw, two_d, 100, s),
+                       ring.resident_blocks(dev.index, tdtype))
+            count = int(k6.barrier_count(dev.index, stream).item())
+            require(epochs == -(-100 // s), f"{phase} {tag} s={s} {dtype}: {epochs} exchanges, "
+                                            f"expected ceil(100/{s})")
+            require(count == ring.ring_barriers(100, s, two_d) * grid,
+                    f"{phase} {tag} s={s} {dtype}: barrier count {count}, expected "
+                    f"{ring.ring_barriers(100, s, two_d)} x {grid}")
+            require(all(tuple(a.shape) == (H, W) and a.dtype == tdtype for a in got),
+                    f"{phase} {tag} s={s} output shape/dtype")
+            d = max_flow_diff([a.float() for a in got], [b.float() for b in want])
+            require(d == 0.0, f"{phase} {tag} s={s} {dtype}: max|diff| {d} against the untiled "
+                              "solve, expected bitwise equality")
+            if s > ring.RING_PASS_SWEEPS:
+                launches[two_d] += 1
+            plan[tag, s] = {"passes": ring.ring_passes(s), "epochs": epochs,
+                            "barriers": count // grid, "grid": grid}
+            ms[tag, s] = median_ms(d3, runs=10)
+    print(f"{phase} D3 {dtype} config 5 {H}x{W} a=1 i100 rdma at halo_sweeps "
+          f"{list(D3_DEPTHS)}: = the untiled solve bitwise, 1 K11 (4 x 1) or K12 (2 x 2) and "
+          f"no K9, exchanges ceil(100/s), barriers the plan's: "
+          f"{ {f'{t} s={s}': p for (t, s), p in plan.items()} }; ms (median of 10) "
+          f"{ {f'{t} s={s}': round(v, 3) for (t, s), v in ms.items()} }")
+    for tag in meshes:
+        print(f"{phase} D3 {tag} {dtype} ms by block depth: "
+              + ", ".join(f"s {s} {ms[tag, s]:.3f}" for s in D3_DEPTHS))
+
+    # -- the deep kernels at config 5's shapes: n 100 in blocks of 32 ------------------
+    s = 32
+    g41 = _ring_inputs(dev, 4, 1, H // 4, W, s, 196, H, W)
+    g22 = _ring_inputs(dev, 2, 2, H // 2, W // 2, s, 197, H, W)
+
+    def cast(g):
+        return ([[a.to(tdtype) for a in row] for row in g[0]],
+                [[a.to(tdtype) for a in row] for row in g[1]],
+                [[tuple(f.to(tdtype) for f in fs) for fs in row] for row in g[2]], g[3])
+
+    def args(g, two_d):
+        if two_d:
+            return (*g[:3], 100, s, g[3], H, W)
+        return ([r[0] for r in g[0]], [r[0] for r in g[1]], [r[0] for r in g[2]], 100, s,
+                [o[0][0] for o in g[3]], H, W)
+
+    rows = []
+    for two_d, g in ((False, g41), (True, g22)):
+        kernel = ring.ring_fused_sweeps_2d if two_d else ring.ring_fused_sweeps
+        plain = ring.ring_fused_sweeps_2d_plain if two_d else ring.ring_fused_sweeps_plain
+        a = args(cast(g), two_d)
+        kept = {}
+        t_k = event_ms(lambda: kept.__setitem__("cuda", kernel(*a)), reps=10)
+        t_p = event_ms(lambda: kept.__setitem__("plain", plain(*a)), reps=1)
+        d = max(max_diff(x.float(), y.float())
+                for x, y in zip(_tensors(kept["cuda"]), _tensors(kept["plain"])))
+        require(d == 0.0, f"{phase} deep {'K12' if two_d else 'K11'} {dtype} at config 5's "
+                          f"shapes, s {s}: max|diff| {d}")
+        kept.clear()
+        t_32 = event_ms(lambda: kernel(*args(g, two_d)), reps=10) if bf else None
+        th, tw = (H // 2, W // 2) if two_d else (H // 4, W)
+        itemsize = 2 if bf else 4
+        ext = 4 * (th + 2 * s) * (tw + (2 * s if two_d else 0))
+        flops = K2_BF16_FLOPS_PER_PX_SWEEP if bf else K2_FLOPS_PER_PX_SWEEP
+        bound = bound_ms(itemsize * (4 * ext + 4 * H * W), flops * 100 * H * W)
+        sched_bytes, sched_px = ring_schedule_work(4, th, tw, two_d, 100, s, itemsize)
+        geo = ring.ring_geometry(dev, s, two_d, tdtype)
+        require(geo["spill_bytes"] == 0 and geo["blocks_per_sm"] == 1,
+                f"{phase} deep {'K12' if two_d else 'K11'} {dtype} geometry {geo}")
+        name = ("hs_ring_fused_sweeps_2d" if two_d else "hs_ring_fused_sweeps") + "_deep" + (
+            "_bf16" if bf else "")
+        tag = "D3 2x2" if two_d else "D3 4x1"
+        row = {"name": name, "route": "cuda", "source": "opticalflowhs_tpu_torch/csrc/ring.cu",
+               "replaces": (BF16_REPLACES if bf else {
+                   "K11": ["opticalflowhs_tpu/kernels/rdma_halo.py:135"],
+                   "K12": ["opticalflowhs_tpu/kernels/rdma_halo.py:398"]})[
+                   "K12" if two_d else "K11"],
+               "launches": launches[two_d], "max_abs_err": d, "ms": t_k, "plain_ms": t_p,
+               "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+               "mesh": [2, 2] if two_d else [4, 1], "n": 100, "s": s,
+               "passes": ring.ring_passes(s),
+               "schedule_bound_ms": sched_bytes / PEAK_BYTES_PER_S * 1e3,
+               "schedule_ops_bound_ms": flops * sched_px / PEAK_FLOPS * 1e3,
+               "solve_ms_D3_by_s": {str(k): ms[tag, k] for k in D3_DEPTHS},
+               "geometry": geo}
+        if bf:
+            row["float32_ms"] = t_32
+        rows.append(row)
+        print(f"kernel {name}: {t_k:.4f} ms per call (n 100, s {s}, passes "
+              f"{ring.ring_passes(s)}), plain {t_p:.4f} ms"
+              + (f", float32 {t_32:.4f} ms" if bf else "")
+              + f", bound {bound[0]:.4f} ms ({bound[1]}), the schedule's bytes "
+              f"{row['schedule_bound_ms']:.4f} ms and operations "
+              f"{row['schedule_ops_bound_ms']:.4f} ms; geometry {geo}")
+    print(f"{phase} deep ring blocks took {time.perf_counter() - t_phase:.1f} s")
+    return rows
 
 
 def lk_path(dev, vid, vid_dev, s1, s2) -> None:
@@ -4044,11 +4224,13 @@ def bf16_dist_path(dev, pair, stack) -> list:
     print(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
     source = dict(zip(names, ("jacobi.cu", "sor.cu", "ring.cu", "ring.cu", "ring.cu")))
     key = dict(zip(names, ("K9", "K9 SOR", "K10", "K11", "K12")))
-    return [{"name": n, "route": "cuda", "source": f"opticalflowhs_tpu_torch/csrc/{source[n]}",
+    rows = [{"name": n, "route": "cuda", "source": f"opticalflowhs_tpu_torch/csrc/{source[n]}",
              "replaces": BF16_REPLACES[key[n]], "launches": launches[key[n]],
              "max_abs_err": err[n], "ms": timing[n][0], "float32_ms": timing[n][1],
              "plain_ms": timing[n][2], "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
              "library_ms": None, **extra[n]} for n in names]
+    # -- sweep blocks deeper than one pass of K2's walk, in bfloat16 ------------------------
+    return rows + ring_deep_path(dev, pair, "bfloat16")
 
 
 def dist_gspmd_path(dev, pair, c2a, c2b, vid) -> dict:
@@ -4589,6 +4771,8 @@ def multihost_path(dev) -> dict:
 IPC_LEGS = {"ipc": "gloo", "ipc_cards": "nccl"}
 # D3's meshes (y, x): K11 on (1, 4, 1), K12 on (1, 2, 2), two shards a process.
 D3_MESHES = {"D3 4x1": (4, 1), "D3 2x2": (2, 2)}
+# D3's deep sweep blocks across the processes (s 32 timed beside config 5's 4).
+IPC_DEEP = (20, 32, 100)
 
 
 def ipc_worker(mode: str, rank: int, world: int, addr: str, out: Path) -> int:
@@ -4654,6 +4838,22 @@ def ipc_worker(mode: str, rank: int, world: int, addr: str, out: Path) -> int:
                                               [b.float() for b in want]),
                 "launches": launches, "ipc_first": first, "ipc_again": again,
                 "ranks": mesh.ranks.tolist(), "ms": median_ms(d3, runs=5)}
+            for s in IPC_DEEP:
+                def deep(mesh=mesh, s=s):
+                    return hs_solve_tiled(q1, q2, cfg, mesh, halo_sweeps=s, halo_impl="rdma")
+
+                zero_counts()
+                mark = ring.epoch_mark()
+                got = deep()
+                torch.cuda.synchronize()
+                res[f"{tag} {dtype} s{s}"] = {
+                    "equal": all(torch.equal(a, b) and a.dtype == b.dtype
+                                 for a, b in zip(got, want)),
+                    "max_abs_diff": max_flow_diff([a.float() for a in got],
+                                                  [b.float() for b in want]),
+                    "launches": {n: w.launches for n, w in wrappers.items() if w.launches},
+                    "epochs": ring.released_epoch(dev) - mark,
+                    "ms": median_ms(deep, runs=5 if s == 32 else 1)}
     if cards:
         shutdown()
         (out / f"{mode}_r{rank}.json").write_text(json.dumps(res))
@@ -4785,6 +4985,8 @@ def ipc_path(dev) -> dict:
             m = make_mesh(MeshConfig(batch=1, y=y, x=x), [dev] * (y * x))
             in_process[f"{tag} {dtype}"] = median_ms(
                 lambda: hs_solve_tiled(q1, q2, cfg, m, halo_sweeps=s5, halo_impl="rdma"), runs=5)
+            in_process[f"{tag} {dtype} s32"] = median_ms(
+                lambda: hs_solve_tiled(q1, q2, cfg, m, halo_sweeps=32, halo_impl="rdma"), runs=5)
     vid, _ = c4_video()
     frames = torch.from_numpy(vid)
     m222 = make_mesh(MeshConfig(batch=2, y=2, x=2), [dev] * 8)
@@ -4825,7 +5027,15 @@ def ipc_path(dev) -> dict:
                             f"{c['ipc_again']}")
                     require(c["ranks"] == ranks, f"phase 25 {mode} {key} mesh ranks "
                                                  f"{c['ranks']}")
+                for s in IPC_DEEP:
+                    for r, w in enumerate(ws):
+                        c = w[f"{key} s{s}"]
+                        require(c["equal"] and c["launches"] == {kernel: 1}
+                                and c["epochs"] == -(-100 // s),
+                                f"phase 25 {mode} {key} s={s} rank {r}: {c}, expected = "
+                                f"untiled, one {kernel}, {-(-100 // s)} exchanges")
                 ms = [w[key]["ms"] for w in ws]
+                deep_ms = {s: [w[f"{key} s{s}"]["ms"] for w in ws] for s in IPC_DEEP}
                 where = ("2 gloo processes on cuda:0" if mode == "ipc" else
                          f"{n} NCCL processes, one card each ({[w['device'] for w in ws]})")
                 print(f"phase 25 {key} {'K11' if x == 1 else 'K12'} across {where} "
@@ -4833,11 +5043,18 @@ def ipc_path(dev) -> dict:
                       f"bitwise on all; launches {[w[key]['launches'] for w in ws]}; first "
                       f"call's IPC {[w[key]['ipc_first'] for w in ws]}, the second's none; ms "
                       f"(median of 5) {[round(t, 3) for t in ms]} beside in-process "
-                      f"{in_process[key]:.3f}")
+                      f"{in_process[key]:.3f}; deep blocks s {list(IPC_DEEP)} = untiled "
+                      f"bitwise on all, 1 launch, ceil(100/s) exchanges; ms (s 32 median of "
+                      f"5, else one call) "
+                      f"{ {s: [round(t, 3) for t in v] for s, v in deep_ms.items()} } "
+                      f"beside in-process s 32 {in_process[key + ' s32']:.3f}")
                 row = rows["hs_ring_fused_sweeps" if x == 1 else "hs_ring_fused_sweeps_2d"]
                 bf = "" if dtype == "float32" else "_bf16"
                 row[f"multiprocess_D3_ms{bf}" + ("" if mode == "ipc" else f"_{n}_cards")] = ms
                 row[f"in_process_D3_ms{bf}"] = in_process[key]
+                row[f"multiprocess_D3_ms_s32{bf}" + ("" if mode == "ipc" else f"_{n}_cards")] = \
+                    deep_ms[32]
+                row[f"in_process_D3_ms_s32{bf}"] = in_process[key + " s32"]
                 row["multiprocess_launches_per_process"] = 1
     # Bytes a process sends: time_to_space, rank 1's 8 true frames to rank 0
     # (which holds the space layout); space_to_time, the same back; the

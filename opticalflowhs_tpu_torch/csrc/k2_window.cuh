@@ -44,7 +44,12 @@
 //     (tile_owned, sweep_owned) beside walk_tiles and sweep_tile, which
 //     stay as they were, so that K2, K9, K6 and K7 build to the same code;
 //     they are static, so a source that does not walk a ring compiles none
-//     of them (with external linkage they changed K2's SASS).
+//     of them (with external linkage they changed K2's SASS). `walk_rect`
+//     is the walk of one pass of a deep sweep block (ring.cu): walk_owned
+//     over a rectangle whose inset and tile counts its Ring gives, read at
+//     each use. It is a function of its own, as are its `tile_index_in` and
+//     `tile_owned_in`: walk_owned reading them from a Ring changed K11's and
+//     K12's SASS.
 //
 // Storage types: the loop's arguments (`Args`, `ArgsBf16`) name the type
 // the arrays are stored in, float or bfloat16 (every kernel on this loop
@@ -792,6 +797,77 @@ __device__ __forceinline__ void walk_owned(typename A::Elem* smem, const A& a,
     Fields f;
     load_fields(f, a, tile, ln.row0, ln.col0);
     if (tn < ntiles)
+      copy_wait<1>();
+    else
+      copy_wait<0>();
+    __syncthreads();
+    sweep_owned(smem, cur, dst, a, geo, tile, ln, f, a.h - ring.oy(), a.w - ring.ox());
+    __syncthreads();
+    const int x = spare;
+    spare = cur;
+    cur = x;
+  }
+}
+
+// tile_index over owned rectangles of tiles_y x tiles_x tiles.
+template <class A>
+static __device__ __forceinline__ void tile_index_in(const A& a, int tiles_x, int tiles_y,
+                                                     int t, int& img, int& ty, int& tx) {
+  const int mid = max(tiles_y - 2, 0);
+  const int n_mid = a.b * mid * tiles_x;
+  const bool edge = t >= n_mid;
+  const int rows = edge ? tiles_y - mid : mid;
+  if (edge) t -= n_mid;
+  img = t / (rows * tiles_x);
+  const int rem = t - img * rows * tiles_x;
+  const int r = rem / tiles_x;
+  tx = rem - r * tiles_x;
+  ty = edge ? (r == 0 ? 0 : tiles_y - 1) : 1 + r;
+}
+
+// tile_owned over the Ring's rectangle.
+template <class Ring, class A>
+static __device__ __forceinline__ Tile tile_owned_in(const A& a, const Geometry& g, int t,
+                                                     const Ring& ring) {
+  int img, ty, tx;
+  tile_index_in(a, ring.tiles_x(), ring.tiles_y(), t, img, ty, tx);
+  Tile x = tile_rc(a, g, img, ty, tx);
+  x.r0 += ring.oy();
+  x.c0 += ring.ox();
+  x.wr_lo = max(0, -x.r0);
+  x.wr_hi = min(kWinH, a.h - x.r0);
+  x.org_r = a.org[2 * img];
+  x.org_c = a.org[2 * img + 1];
+  return x;
+}
+
+// walk_owned over the Ring's rectangle: rows [ring.oy(), h - ring.oy()),
+// columns [ring.ox(), w - ring.ox()), ring.tiles_y() x ring.tiles_x()
+// tiles of a.sweeps; ring.before_stage(a, t, tile) before tile t is staged.
+template <class Ring, class A>
+__device__ __forceinline__ void walk_rect(typename A::Elem* smem, const A& a,
+                                          const Ring& ring) {
+  const Geometry geo = geometry(a.sweeps);
+  if ((int)blockIdx.x >= a.b * ring.tiles_x() * ring.tiles_y()) return;
+  Lane ln;
+  ln.row0 = (threadIdx.x >> 5) * kRows;
+  ln.col0 = (threadIdx.x & 31) * kLaneCols;
+  int cur = 0, dst = 1, spare = 2;
+  const Tile first = tile_owned_in(a, geo, blockIdx.x, ring);
+  ring.before_stage(a, blockIdx.x, first);
+  stage_tile<true>(smem, cur, a, first, ln.row0, ln.col0, true);
+  for (int t = blockIdx.x; t < a.b * ring.tiles_x() * ring.tiles_y(); t += gridDim.x) {
+    const Tile tile = tile_owned_in(a, geo, t, ring);
+    const int tn = t + gridDim.x;
+    const bool more = tn < a.b * ring.tiles_x() * ring.tiles_y();
+    if (more) {
+      const Tile next = tile_owned_in(a, geo, tn, ring);
+      ring.before_stage(a, tn, next);
+      stage_tile<true>(smem, spare, a, next, ln.row0, ln.col0, true);
+    }
+    Fields f;
+    load_fields(f, a, tile, ln.row0, ln.col0);
+    if (more)
       copy_wait<1>();
     else
       copy_wait<0>();

@@ -71,6 +71,42 @@
 // phase R, which follows the barrier after my block k reads of P[k % 2]
 // (rdma_halo.py:177-185).
 //
+// Deep sweep blocks (ring_kernel_deep). K2's 48-row window leaves a 16-row
+// tile at 16 sweeps (kMaxSweeps), and the reference takes any block its
+// halo allows (s <= sy, sx). A block of s > 16 runs in the same launch,
+// between the same exchange and the same end-of-block barrier, as P passes
+// of K2's walk, s = s_1 + ... + s_P (ring_passes: the fewest passes, every
+// one but the first of q sweeps, q the multiple of 4 nearest s / P, the
+// first the rest). Pass p walks the owned rectangle grown by r_p = s -
+// (s_1 + ... + s_p) rows on each side (K12: and columns), a multiple of 4,
+// so the columns keep the 16-byte paths' alignment; the last (r_P = 0) is
+// ring_kernel's walk. A pass reaches s_p + r_p <= s <= sy beyond the owned
+// rectangle, so it reads only the halo just exchanged (pass 1) or pixels
+// the previous pass wrote; the clamps still fire at the true image edges,
+// and rows of wrapped halo outside the image are swept but never read by a
+// true pixel. A grid barrier ends each pass; K11 waits for a halo's flag
+// only in pass 1 (HaloRing's wait, in PassRing).
+// Where the passes write: no pass but the last may write P[(k + 1) % 2],
+// whose halo a neighbour (another card, or another process through the IPC
+// arena) may already be storing into for its block k + 1. The passes
+// alternate between Q, a scratch pair of the device's stack that the
+// wrapper allocates (never exported, not in the arena), and P[k % 2]: pass
+// 1 reads P[k % 2] into Q, then Q into P[k % 2], P[k % 2] into Q, ..., the
+// last into P[(k + 1) % 2]. P[k % 2] is free for that from pass 2 on. Its
+// writers are my last pass of block k - 1 (before block k's start), my
+// neighbours' phase R and C of block k (each landed before pass 1 ends: K12
+// waits for every flag before it; on K11 each image's first and last tile
+// rows of pass 1 reach both of its halos and wait for them, and the grid
+// barrier after pass 1 orders those waits before any pass 2 store), and
+// their phase R and C of block k + 2, which follow their block k + 1 flag
+// waits, which follow my block k + 1 exchange, which follows my block k's
+// last barrier. Its readers are my block k exchange (before pass 1's
+// barrier) and pass 1. So between pass 1's end and block k's end no other
+// agent touches P[k % 2]. Launches, epochs and exchanges stay one a device,
+// one a block; grid barriers become P a block (K12: and the exchange's),
+// less the launch's last (ring.ring_barriers). The deep kernels are
+// instantiations of their own, so the s <= 16 kernels keep their SASS.
+//
 // Bound: a whole solve moves each input once (the four fields of the
 // extended shards, the start) and writes u and v once, against 27 float32
 // operations a pixel a sweep (K2's count), an operations bound; a schedule
@@ -438,6 +474,147 @@ __global__ void __launch_bounds__(kThreads, 1) ring_kernel_bf16(const RingArgsBf
   }
 }
 
+// -- K11/K12: sweep blocks deeper than K2's window takes ----------------------
+
+// The passes of a sweep block of s sweeps (header: deep sweep blocks): n
+// passes, the first of s1 sweeps and the others of q (s = s1 + (n - 1) q,
+// each at most kMaxSweeps); n = 1, s1 = s, q = 0 for s <= kMaxSweeps.
+struct Passes {
+  int n, s1, q;
+};
+
+inline Passes ring_passes(int s) {
+  Passes p;
+  p.n = (s + kMaxSweeps - 1) / kMaxSweeps;
+  if (p.n == 1) {
+    p.s1 = s;
+    p.q = 0;
+    return p;
+  }
+  // q: the multiple of kLaneCols nearest s / n, raised to what keeps s1 at
+  // most kMaxSweeps.
+  const int near = (s + 2 * p.n) / (4 * p.n) * kLaneCols;
+  const int least = ((s - kMaxSweeps + p.n - 2) / (p.n - 1) + kLaneCols - 1) / kLaneCols *
+                    kLaneCols;
+  p.q = near > least ? near : least;
+  if (p.q > kMaxSweeps) p.q = kMaxSweeps;
+  p.s1 = s - (p.n - 1) * p.q;
+  return p;
+}
+
+// The deep build's parameters: one Args a pass role, each from its source
+// into its destination (P0, P1 the pairs, Q the scratch pair, par a block's
+// parity, n its passes); the Ring gives each pass its rectangle and tiles.
+// even and odd double as the exchange's P0 and P1, as RingArgs' do.
+template <class A>
+struct RingDeepArgsOf {
+  A even;         // pass 1 of an even block: P0 into Q
+  A odd;          // pass 1 of an odd block: P1 into Q
+  A mid[2][2];    // [par][p & 1], 1 < p < n: p even Q into P[par], p odd P[par] into Q
+  A last[2];      // [par], pass n: Q (n even) or P[par] (n odd) into P[1 - par]
+  A rem_first, rem_mid[2], rem_last;  // the remainder block's, at its parity
+  const RingLinkOf<typename A::Elem>* links;
+  u64* barrier;
+  u64 epoch0;
+  int n_full;
+  int oy, ox;
+  int passes, q;          // the full blocks' n and q (ring_passes)
+  int rem_passes, rem_q;  // the remainder block's (rem_passes 0: none)
+};
+struct RingDeepArgs : RingDeepArgsOf<Args> {};
+struct RingDeepArgsBf16 : RingDeepArgsOf<ArgsBf16> {};
+
+// One pass's rectangle (the owned one grown by the sweeps still to come),
+// its tiles, its block and whether K11 waits for the halo (the block's
+// first pass), written by thread 0 before the pass's walk into shared
+// memory, volatile: the walk reads each where it uses it instead of
+// holding it in a register through the sweeps (held in registers, they
+// made K12's float build spill).
+struct PassDesc {
+  int oy, ox, tiles_x, tiles_y, k, wait;
+};
+
+// The Ring of walk_rect for one pass: the PassDesc's rectangle, and with
+// kWait (K11) HaloRing's wait for the row halos (rows above r.oy, below
+// a.h - r.oy) that a tile's window reaches, in the block's first pass.
+template <bool kWait, class R>
+struct PassRing {
+  const R& r;
+  const volatile PassDesc& d;
+  __device__ __forceinline__ int oy() const { return d.oy; }
+  __device__ __forceinline__ int ox() const { return d.ox; }
+  __device__ __forceinline__ int tiles_x() const { return d.tiles_x; }
+  __device__ __forceinline__ int tiles_y() const { return d.tiles_y; }
+  template <class A>
+  __device__ __forceinline__ void before_stage(const A& a, int t, const Tile& x) const {
+    if (!kWait || !d.wait) return;
+    const bool top = x.r0 < r.oy;
+    const bool bot = min(x.r0 + kWinH, a.h) > a.h - r.oy;
+    if (!top && !bot) return;  // the same for every thread of the block
+    if (threadIdx.x == 0) {
+      int img, ty, tx;
+      tile_index_in(a, d.tiles_x, d.tiles_y, t, img, ty, tx);
+      const u64* f = r.links[img].flags;
+      const int k = d.k;
+      if (top) wait_flag(f + flag_index(0, k & 1, 0), r.epoch0 + k);
+      if (bot) wait_flag(f + flag_index(0, k & 1, 1), r.epoch0 + k);
+    }
+    __syncthreads();
+  }
+};
+
+// K11 (kTwoD false) and K12 with sweep blocks deeper than kMaxSweeps, float
+// (R = RingDeepArgs) or bfloat16 (RingDeepArgsBf16). One loop over the
+// launch's passes, i, from which the block k and its pass p follow (only i
+// lives through the walk): a block's first pass starts with its exchange
+// as ring_kernel's, and a grid barrier ends every pass but the launch's
+// last. The n-th barrier is i + 1 (K11) or, after block k's exchange, i +
+// k + 1 and, after pass i, i + k + 2 (K12).
+template <bool kTwoD, class R>
+__global__ void __launch_bounds__(kThreads, 1) ring_kernel_deep(const R r) {
+  using E = typename decltype(r.even)::Elem;
+  extern __shared__ __align__(16) float smem_f[];
+  __shared__ volatile PassDesc desc;
+  E* smem = reinterpret_cast<E*>(smem_f);
+  const int full = r.n_full * r.passes;
+  const int steps = full + r.rem_passes;
+  for (int i = 0; i < steps; ++i) {
+    const bool rem = i >= full;
+    const int k = rem ? r.n_full : i / r.passes;
+    const int p = rem ? i - full + 1 : i - k * r.passes + 1;
+    const int passes = rem ? r.rem_passes : r.passes;
+    if (p == 1) {
+      exchange<false>(r, k);
+      if (kTwoD) {
+        exchange<true>(r, k);
+        for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < 4 * r.even.b;
+             j += gridDim.x * blockDim.x)
+          wait_flag(r.links[j >> 2].flags + flag_index((j >> 1) & 1, k & 1, j & 1),
+                    r.epoch0 + k);
+        hs_coop::grid_barrier(r.barrier, i + k + 1);
+      }
+    }
+    const int par = k & 1;
+    const auto& a = p == passes ? (rem ? r.rem_last : r.last[par])
+                    : p == 1    ? (rem ? r.rem_first : par ? r.odd : r.even)
+                                : (rem ? r.rem_mid[p & 1] : r.mid[par][p & 1]);
+    if (threadIdx.x == 0) {
+      const int grow = (passes - p) * (rem ? r.rem_q : r.q);
+      const int oy = r.oy - grow, ox = kTwoD ? r.ox - grow : 0;
+      const Geometry g = geometry(a.sweeps);
+      desc.oy = oy;
+      desc.ox = ox;
+      desc.tiles_x = (a.w - 2 * ox + g.tw - 1) / g.tw;
+      desc.tiles_y = (a.h - 2 * oy + g.th - 1) / g.th;
+      desc.k = k;
+      desc.wait = p == 1;
+    }
+    __syncthreads();
+    walk_rect(smem, a, PassRing<!kTwoD, R>{r, desc});
+    if (i + 1 < steps) hs_coop::grid_barrier(r.barrier, kTwoD ? i + k + 2 : i + 1);
+  }
+}
+
 // The kernel of a build: K11 (kTwoD false) or K12, in float or bfloat16.
 template <class A, bool kTwoD>
 auto ring_kernel_of() {
@@ -445,6 +622,15 @@ auto ring_kernel_of() {
     return ring_kernel<kTwoD>;
   else
     return ring_kernel_bf16<kTwoD>;
+}
+
+// The deep kernel of a build.
+template <class A, bool kTwoD>
+auto ring_kernel_deep_of() {
+  if constexpr (kIsFloat<A>)
+    return ring_kernel_deep<kTwoD, RingDeepArgs>;
+  else
+    return ring_kernel_deep<kTwoD, RingDeepArgsBf16>;
 }
 
 template <class A>
@@ -500,16 +686,28 @@ extern "C" int hs_enable_peer(int device, int peer) {
 
 namespace {
 
-template <class A>
-int geometry_of(int sweeps, int two_d, int device, int* out) {
-  if (sweeps < 1 || sweeps > kMaxSweeps) return (int)cudaErrorInvalidValue;
-  const auto kernel = two_d ? ring_kernel_of<A, true>() : ring_kernel_of<A, false>();
+template <class A, class Kernel>
+int report_of(Kernel kernel, int sweeps, int device, int* out) {
   int grid_max = 0;
   const cudaError_t err = hs_coop::max_blocks(kernel, ring_smem<A>(), kThreads, device,
                                               &grid_max);
   return (int)(err != cudaSuccess
                    ? err
                    : report(kernel, ring_smem<A>(), sweeps, device, grid_max, out));
+}
+
+// A block of `sweeps` <= kMaxSweeps: ring_kernel's build; deeper, the deep
+// kernel's, with the tile of its passes of q sweeps.
+template <class A>
+int geometry_of(int sweeps, int two_d, int device, int* out) {
+  if (sweeps < 1) return (int)cudaErrorInvalidValue;
+  if (sweeps > kMaxSweeps) {
+    const int q = ring_passes(sweeps).q;
+    return two_d ? report_of<A>(ring_kernel_deep_of<A, true>(), q, device, out)
+                 : report_of<A>(ring_kernel_deep_of<A, false>(), q, device, out);
+  }
+  return two_d ? report_of<A>(ring_kernel_of<A, true>(), sweeps, device, out)
+               : report_of<A>(ring_kernel_of<A, false>(), sweeps, device, out);
 }
 
 }  // namespace
@@ -543,24 +741,28 @@ namespace {
 
 // hs_ring_fused_sweeps on arrays of A's storage type E.
 template <class A, class E = typename A::Elem>
-int ring_sweeps(const void* links, const int* org, E* pu0, E* pv0, E* pu1, E* pv1,
-                const E* ex, const E* ey, const E* et, const E* invd, u64* barrier, int b,
-                int h, int w, int sy, int sx, int img_h, int img_w, int n, int s,
+int ring_sweeps(const void* links, const int* org, E* pu0, E* pv0, E* pu1, E* pv1, E* qu,
+                E* qv, const E* ex, const E* ey, const E* et, const E* invd, u64* barrier,
+                int b, int h, int w, int sy, int sx, int img_h, int img_w, int n, int s,
                 u64 epoch0, int grid, int device, void* stream) {
   const int th = h - 2 * sy, tw = w - 2 * sx;
+  const bool deep = s > kMaxSweeps;
   if (links == nullptr || org == nullptr || barrier == nullptr || b < 1 || sy < 1 ||
-      sx < 0 || th < sy || tw < 1 || tw < sx || n < 1 || s < 1 || s > kMaxSweeps ||
-      s > sy || (sx > 0 && s > sx) || grid < 1 || epoch0 < 1)
+      sx < 0 || th < sy || tw < 1 || tw < sx || n < 1 || s < 1 || s > sy ||
+      (sx > 0 && s > sx) || grid < 1 || epoch0 < 1 ||
+      (deep && (qu == nullptr || qv == nullptr)))
     return (int)cudaErrorInvalidValue;
   A a;
   a.ex = ex; a.ey = ey; a.et = et; a.invd = invd; a.org = org;
   a.b = b; a.h = h; a.w = w; a.img_h = img_h; a.img_w = img_w;
   auto all_aligned = [&](unsigned long long n) {
     return aligned(ex, n) && aligned(ey, n) && aligned(et, n) && aligned(invd, n) &&
-           aligned(pu0, n) && aligned(pv0, n) && aligned(pu1, n) && aligned(pv1, n);
+           aligned(pu0, n) && aligned(pv0, n) && aligned(pu1, n) && aligned(pv1, n) &&
+           (!deep || (aligned(qu, n) && aligned(qv, n)));
   };
   // 16 bytes (4 floats) or 8 (4 bfloat16 values) a lane's load or store; 2:
-  // bfloat16 rows also staged 16 bytes at a time (bf16_wide).
+  // bfloat16 rows also staged 16 bytes at a time (bf16_wide). A deep block's
+  // passes keep it: their insets differ from sx by multiples of 4.
   a.vec = w % 4 == 0 && sx % 4 == 0 && all_aligned(4 * sizeof(E));
   if (!kIsFloat<A> && a.vec && w % 8 == 0 && all_aligned(16)) a.vec = 2;
   // A sweep block of `sweeps` (0: none) from (su, sv) into (du, dv).
@@ -576,9 +778,50 @@ int ring_sweeps(const void* links, const int* org, E* pu0, E* pv0, E* pu1, E* pv
     x.tiles_y = (th + gx.th - 1) / gx.th;
     return x;
   };
+  // A deep block's passes walk the rectangle grown up to the whole array.
   const Geometry g = geometry(1);
-  if ((long long)b * ((tw + g.tw - 1) / g.tw) * ((th + g.th - 1) / g.th) > 0x7fffffffLL)
+  const int rows = deep ? h : th, cols = deep ? w : tw;
+  if ((long long)b * ((cols + g.tw - 1) / g.tw) * ((rows + g.th - 1) / g.th) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(barrier, 0, sizeof(*barrier), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  if (deep) {
+    typename std::conditional<kIsFloat<A>, RingDeepArgs, RingDeepArgsBf16>::type r;
+    E* pair[2][2] = {{pu0, pv0}, {pu1, pv1}};
+    E* const q[2] = {qu, qv};
+    auto pass = [&](int sweeps, E* const* src, E* const* dst) {
+      return block(sweeps, src[0], src[1], dst[0], dst[1]);
+    };
+    const Passes full = ring_passes(s);
+    for (int par = 0; par < 2; ++par) {
+      (par ? r.odd : r.even) = pass(full.s1, pair[par], q);
+      r.mid[par][0] = pass(full.q, q, pair[par]);
+      r.mid[par][1] = pass(full.q, pair[par], q);
+      r.last[par] = pass(full.q, full.n % 2 ? pair[par] : q, pair[1 - par]);
+    }
+    r.n_full = n / s;
+    const int rem = n % s, pr = r.n_full % 2;
+    const Passes part = ring_passes(rem > 0 ? rem : 1);
+    r.rem_first = pass(part.s1, pair[pr], q);
+    r.rem_mid[0] = pass(part.q, q, pair[pr]);
+    r.rem_mid[1] = pass(part.q, pair[pr], q);
+    r.rem_last = pass(part.n > 1 ? part.q : rem, part.n % 2 ? pair[pr] : q, pair[1 - pr]);
+    r.passes = full.n;
+    r.q = full.q;
+    r.rem_passes = rem > 0 ? part.n : 0;
+    r.rem_q = part.q;
+    r.links = (const RingLinkOf<E>*)links;
+    r.barrier = barrier;
+    r.epoch0 = epoch0;
+    r.oy = sy;
+    r.ox = sx;
+    void* args[] = {&r};
+    const auto kernel =
+        sx > 0 ? ring_kernel_deep_of<A, true>() : ring_kernel_deep_of<A, false>();
+    return (int)hs_coop::launch(kernel, grid, kThreads, ring_smem<A>(), args, device, stream);
+  }
   typename std::conditional<kIsFloat<A>, RingArgs, RingArgsBf16>::type r;
   r.n_full = n / s;
   r.even = block(s, pu0, pv0, pu1, pv1);
@@ -589,10 +832,6 @@ int ring_sweeps(const void* links, const int* org, E* pu0, E* pv0, E* pu1, E* pv
   r.epoch0 = epoch0;
   r.oy = sy;
   r.ox = sx;
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(barrier, 0, sizeof(*barrier), (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
   void* args[] = {&r};
   const auto kernel = sx > 0 ? ring_kernel_of<A, true>() : ring_kernel_of<A, false>();
   return (int)hs_coop::launch(kernel, grid, kThreads, ring_smem<A>(), args, device, stream);
@@ -605,31 +844,35 @@ int ring_sweeps(const void* links, const int* org, E* pu0, E* pv0, E* pu1, E* pv
 // blocks. Each image is h x w, its owned th x tw pixels at (sy, sx), th = h
 // - 2 sy, tw = w - 2 sx; (pu0, pv0) and (pu1, pv1) are the pairs P0 and P1,
 // (b, h, w) each, with the start in P0's owned pixels; the result lands in
-// the owned pixels of P1 when ceil(n/s) is odd, else of P0. `links` holds b
-// RingLink records and `org` 2b ints, the global origin of each image's
-// element (0, 0) in the img_h x img_w image, both on the device; `barrier`
-// is 8 bytes of device memory, cleared here on the stream; epochs
-// epoch0 .. epoch0 + ceil(n/s) - 1 must exceed every epoch already in the
-// flags. A grid that cannot be resident is refused.
+// the owned pixels of P1 when ceil(n/s) is odd, else of P0. (qu, qv) is the
+// scratch pair Q of a block deeper than kMaxSweeps (b, h, w each; null for
+// s <= kMaxSweeps), local to the device. `links` holds b RingLink records
+// and `org` 2b ints, the global origin of each image's element (0, 0) in
+// the img_h x img_w image, both on the device; `barrier` is 8 bytes of
+// device memory, cleared here on the stream; epochs epoch0 .. epoch0 +
+// ceil(n/s) - 1 must exceed every epoch already in the flags. s must not
+// exceed the halo (sy, and sx > 0). A grid that cannot be resident is
+// refused.
 extern "C" int hs_ring_fused_sweeps(const void* links, const int* org, float* pu0, float* pv0,
-                                    float* pu1, float* pv1, const float* ex, const float* ey,
-                                    const float* et, const float* invd, u64* barrier, int b,
-                                    int h, int w, int sy, int sx, int img_h, int img_w, int n,
-                                    int s, u64 epoch0, int grid, int device, void* stream) {
-  return ring_sweeps<Args>(links, org, pu0, pv0, pu1, pv1, ex, ey, et, invd, barrier, b, h,
-                           w, sy, sx, img_h, img_w, n, s, epoch0, grid, device, stream);
+                                    float* pu1, float* pv1, float* qu, float* qv,
+                                    const float* ex, const float* ey, const float* et,
+                                    const float* invd, u64* barrier, int b, int h, int w,
+                                    int sy, int sx, int img_h, int img_w, int n, int s,
+                                    u64 epoch0, int grid, int device, void* stream) {
+  return ring_sweeps<Args>(links, org, pu0, pv0, pu1, pv1, qu, qv, ex, ey, et, invd, barrier,
+                           b, h, w, sy, sx, img_h, img_w, n, s, epoch0, grid, device, stream);
 }
 
 // The bfloat16 build: the same arguments, every array bfloat16.
 extern "C" int hs_ring_fused_sweeps_bf16(
     const void* links, const int* org, __nv_bfloat16* pu0, __nv_bfloat16* pv0,
-    __nv_bfloat16* pu1, __nv_bfloat16* pv1, const __nv_bfloat16* ex, const __nv_bfloat16* ey,
-    const __nv_bfloat16* et, const __nv_bfloat16* invd, u64* barrier, int b, int h, int w,
-    int sy, int sx, int img_h, int img_w, int n, int s, u64 epoch0, int grid, int device,
-    void* stream) {
-  return ring_sweeps<ArgsBf16>(links, org, pu0, pv0, pu1, pv1, ex, ey, et, invd, barrier, b,
-                               h, w, sy, sx, img_h, img_w, n, s, epoch0, grid, device,
-                               stream);
+    __nv_bfloat16* pu1, __nv_bfloat16* pv1, __nv_bfloat16* qu, __nv_bfloat16* qv,
+    const __nv_bfloat16* ex, const __nv_bfloat16* ey, const __nv_bfloat16* et,
+    const __nv_bfloat16* invd, u64* barrier, int b, int h, int w, int sy, int sx, int img_h,
+    int img_w, int n, int s, u64 epoch0, int grid, int device, void* stream) {
+  return ring_sweeps<ArgsBf16>(links, org, pu0, pv0, pu1, pv1, qu, qv, ex, ey, et, invd,
+                               barrier, b, h, w, sy, sx, img_h, img_w, n, s, epoch0, grid,
+                               device, stream);
 }
 
 // -- across processes: the arenas' CUDA IPC and the flag probe ----------------

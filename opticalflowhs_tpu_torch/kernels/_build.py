@@ -117,10 +117,10 @@ SIGNATURES = {
     # sweeps, two_d, device, out[8]: K11's (K12's) build, as
     # hs_jacobi_geometry's
     "hs_ring_geometry": [_I] * 3 + [_IP],
-    # links, org, P0 u, P0 v, P1 u, P1 v, ex, ey, et, invd, barrier (8
-    # bytes), b, h, w, sy, sx, img_h, img_w, n, s, epoch0, grid, device,
-    # stream
-    "hs_ring_fused_sweeps": [_P] * 11 + [_I] * 9 + [_U64] + [_I] * 2 + [_P],
+    # links, org, P0 u, P0 v, P1 u, P1 v, Q u, Q v (a block deeper than 16
+    # sweeps; else null), ex, ey, et, invd, barrier (8 bytes), b, h, w, sy,
+    # sx, img_h, img_w, n, s, epoch0, grid, device, stream
+    "hs_ring_fused_sweeps": [_P] * 13 + [_I] * 9 + [_U64] + [_I] * 2 + [_P],
     # the ring arenas across processes (csrc/ring.cu): out, the bytes of an
     # IPC handle; device, bytes, out pointer, out handle; device, handle,
     # out pointer; device, pointer (unmap; free)

@@ -44,8 +44,8 @@ from opticalflowhs_tpu_torch.ops import stencils
 # K3_MAX_SWEEPS (`sweeps_per_launch` of kernels/sor.py), and K4's sweeps
 # from one of their own for each refreeze block, at most K4_MAX_SWEEPS
 # (`sweeps_per_launch` of kernels/solve_robust.py). K11 and K12 take
-# their sweep block from the tiled solver (at most MAX_RING_SWEEPS,
-# kernels/ring.py).
+# their sweep block from the tiled solver, run as passes of at most
+# RING_PASS_SWEEPS (kernels/ring.py).
 TILE_H = 64
 TILE_W = 64
 AUTO_SWEEPS = 8

@@ -17,7 +17,9 @@ raises where the cards cannot reach each other). K11 and K12 run K2's window
 loop (csrc/k2_window.cuh) over the owned pixels of every image of a device,
 stacked, with the halo exchanged straight into the halo rows and columns of
 the neighbours' u/v pairs; `ring_schedule_plain` walks that schedule in
-plain torch.
+plain torch. A sweep block takes any depth the fields' halo allows, as the
+reference's: one deeper than K2's window takes (RING_PASS_SWEEPS) runs as
+passes of K2's walk inside the same launch (`ring_passes`).
 
 Each ring wraps around (the reference's periodic ring): the top shard's
 upper halo is the bottom shard's last rows. Those halo rows lie outside the
@@ -60,7 +62,6 @@ import functools
 import struct
 import time
 from dataclasses import dataclass
-from typing import Optional
 
 import torch
 
@@ -78,9 +79,9 @@ from opticalflowhs_tpu_torch.kernels.jacobi import (
 from opticalflowhs_tpu_torch.kernels.solve_fused import barrier_count
 from opticalflowhs_tpu_torch.ops import stencils
 
-# Most sweeps a K11/K12 sweep block runs: K2's window takes at most 16
-# (a 16-row tile), and the fields' halo must be at least as deep.
-MAX_RING_SWEEPS = K2_MAX_SWEEPS
+# Most sweeps one pass of K2's walk runs inside a K11/K12 sweep block: K2's
+# 48-row window leaves a 16-row tile at 16. A deeper block runs as passes.
+RING_PASS_SWEEPS = K2_MAX_SWEEPS
 
 _PEERS: set = set()
 _FLAGS: dict = {}      # device -> persistent int64 epoch flags
@@ -288,18 +289,61 @@ def _geometry(rings):
     return th, tw, sy, sx
 
 
-def _block_sweeps(n_sweeps: int, block_sweeps: int, sy: int, sx: int,
-                  cap: Optional[int] = None) -> int:
+def _block_sweeps(n_sweeps: int, block_sweeps: int, sy: int, sx: int) -> int:
     """Sweeps a block: block_sweeps, at most n; no deeper than the fields'
-    halo, nor than `cap` (the kernels' MAX_RING_SWEEPS)."""
+    halo (the reference's rule)."""
     s = max(1, min(block_sweeps, n_sweeps))
     if s > sy or (sx and s > sx):
         raise ValueError(f"the fields' {sy}-row/{sx}-column halo is narrower "
                          f"than a block of {s} sweeps")
-    if cap is not None and s > cap:
-        raise ValueError(f"a block of {s} sweeps is deeper than the ring kernels' "
-                         f"K2 window takes (at most {cap})")
     return s
+
+
+def ring_passes(s: int) -> list[int]:
+    """The sweeps of each pass of K2's walk in a K11/K12 sweep block of s
+    (csrc/ring.cu `ring_passes`): one pass up to RING_PASS_SWEEPS; deeper,
+    the fewest passes, every pass but the first of q sweeps, q the multiple
+    of 4 nearest s / passes (raised where the first would exceed
+    RING_PASS_SWEEPS), and the first the rest. Pass p then walks the owned
+    rectangle grown by the sweeps still to come, a multiple of 4: the
+    columns keep their 16-byte alignment."""
+    n = -(-s // RING_PASS_SWEEPS)
+    if n == 1:
+        return [s]
+    near = (s + 2 * n) // (4 * n) * K2_LANE_COLS
+    least = -(-(-(-(s - RING_PASS_SWEEPS) // (n - 1))) // K2_LANE_COLS) * K2_LANE_COLS
+    q = min(max(near, least), RING_PASS_SWEEPS)
+    return [s - (n - 1) * q] + [q] * (n - 1)
+
+
+def _grown(s: int):
+    """(sweeps, rows of halo the rectangle is grown by) of each pass of a
+    sweep block of s."""
+    left = s
+    for d in ring_passes(s):
+        left -= d
+        yield d, left
+
+
+def ring_barriers(n_sweeps: int, s: int, two_d: bool) -> int:
+    """Grid barriers of one K11 (K12: two_d) launch of n sweeps in blocks
+    of s: one after each pass but the launch's last, and on K12 one after
+    each block's exchange."""
+    blocks = [s] * (n_sweeps // s) + ([n_sweeps % s] if n_sweeps % s else [])
+    return sum(len(ring_passes(k)) + int(two_d) for k in blocks) - 1
+
+
+def ring_tiles(b: int, th: int, tw: int, two_d: bool, n_sweeps: int, s: int) -> int:
+    """Most K2 tiles a pass of a launch walks over b images of th x tw
+    owned pixels (the full blocks' and the remainder's passes): the grid
+    that keeps every block busy."""
+    most = 0
+    for k in {s, n_sweeps % s} - {0}:
+        for d, r in _grown(k):
+            kth, ktw, _ = k2_tile(d)
+            most = max(most, b * -(-(th + 2 * r) // kth)
+                       * -(-(tw + (2 * r if two_d else 0)) // ktw))
+    return most
 
 
 def _owned(rings) -> list:
@@ -410,12 +454,13 @@ def ring_schedule_plain(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
     (phase R: the sy edge rows of the owned columns of the upper and lower
     neighbours' pairs; phase C, with a column halo: the full-height column
     strips of the left and right neighbours' pairs, row halos included),
-    then runs one K2 launch's walk (`jacobi.k2_launch_schedule_plain`) over
-    the owned rectangle only, with the shards' global origins, into a fresh
-    pair that holds the owned pixels and NaN elsewhere: no sweep writes a
-    halo. Returns the owned (u, v) of every shard; equal to
-    `ring_solve_plain` bitwise (the tests hold it to that). float32 only,
-    as `k2_launch_schedule_plain`."""
+    then runs one K2 launch's walk (`jacobi.k2_launch_schedule_plain`) a
+    pass (`ring_passes`): pass p over the owned rectangle grown by the
+    sweeps still to come (the last pass over the owned rectangle only),
+    with the shards' global origins, into a fresh pair that holds what it
+    wrote and NaN elsewhere: the last pass writes no halo. Returns the owned
+    (u, v) of every shard; equal to `ring_solve_plain` bitwise (the tests
+    hold it to that). float32 only, as `k2_launch_schedule_plain`."""
     th, tw, sy, sx = _geometry(rings)
     if n_sweeps == 0:
         return [[[(sh.u, sh.v) for sh in row] for row in grid] for grid in rings]
@@ -460,10 +505,13 @@ def ring_schedule_plain(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
                     sh = grid[i][j]
                     nb = sh.u.shape[0] if sh.u.ndim == 3 else 1
                     org = [(sh.row0 - sy, sh.col0 - sx)] * nb
-                    new[i, j] = list(k2_launch_schedule_plain(
-                        *pairs[i, j], *sh.fields, ns, origins=org, img_hw=(h, w),
-                        owned=(sy, sx), window=window, lane_cols=lane_cols,
-                        warp_rows=warp_rows))
+                    pair = pairs[i, j]
+                    for d, r in _grown(ns):
+                        pair = list(k2_launch_schedule_plain(
+                            *pair, *sh.fields, d, origins=org, img_hw=(h, w),
+                            owned=(sy - r, sx - r if sx else 0), window=window,
+                            lane_cols=lane_cols, warp_rows=warp_rows))
+                    new[i, j] = pair
             pairs = new
             left -= ns
         out.append([[tuple(a[own] for a in pairs[i, j]) for j in range(mx)]
@@ -487,7 +535,9 @@ def ring_geometry(device, sweeps: int = 8, two_d: bool = False,
     """K11's (two_d=True: K12's; dtype=torch.bfloat16: the bfloat16 build's)
     build at `sweeps` on a CUDA device, as `solve_fused.build_geometry`
     reports K6's: K2's tile, threads, shared bytes, registers a thread,
-    spilled bytes, resident blocks a multiprocessor, multiprocessors."""
+    spilled bytes, resident blocks a multiprocessor, multiprocessors. Above
+    RING_PASS_SWEEPS the deep kernel's build, with the tile of its passes
+    of `ring_passes(sweeps)[-1]` sweeps."""
     out = (ctypes.c_int * 8)()
     name = "hs_ring_geometry" + _build.bf16_suffix(dtype)
     err = getattr(_build.library(), name)(
@@ -497,6 +547,26 @@ def ring_geometry(device, sweeps: int = 8, two_d: bool = False,
     keys = ("tile_h", "tile_w", "threads", "smem_bytes", "registers",
             "spill_bytes", "blocks_per_sm", "sms")
     return dict(zip(keys, list(out)))
+
+
+def epoch_mark() -> int:
+    """The mark above which this process hands out ring epochs: a solve of
+    k sweep blocks that starts after it exchanges at epochs mark + 1 ..
+    mark + k (across processes, above every process's mark)."""
+    return _EPOCH[0]
+
+
+def released_epoch(device) -> int:
+    """The highest epoch any exchange has released into the flags of this
+    process's images on `device` (its own flags and its arenas'): after a
+    solve, the epoch of its last sweep block."""
+    device = torch.device(device)
+    bufs = [f for d, f in _FLAGS.items() if d == device]
+    # An arena of 1 x 1 images is the IPC probe's (a ring's fields carry a
+    # halo): its flags hold the probe's values, not epochs.
+    bufs += [a.flags for a in _ARENAS.values()
+             if a.device == device and a.pairs.shape[-2:] != (1, 1)]
+    return max((int(f.max()) for f in bufs), default=0)
 
 
 def _flags(device: torch.device, n: int) -> torch.Tensor:
@@ -726,7 +796,9 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
     `ring_solve_plain` on CPU tensors. `blocks` > 0 forces each launch's
     grid (a grid too large to be resident raises). Returns the owned (u, v)
     of every shard, views of the kernel's pairs. float32 or bfloat16, one
-    dtype for every array.
+    dtype for every array. A sweep block deeper than RING_PASS_SWEEPS runs
+    as `ring_passes` passes in the same launch, the passes but the last
+    through a scratch pair of each device's stack allocated here.
 
     Across processes of one host (`collective`: a mesh that spans them,
     `RemoteShard`s where another process holds a shard; every process of
@@ -761,7 +833,7 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
         return ring_solve_plain(rings, n_sweeps, block_sweeps, h, w)
     if n_sweeps == 0:
         return _owned(rings)
-    s = _block_sweeps(n_sweeps, block_sweeps, sy, sx, MAX_RING_SWEEPS)
+    s = _block_sweeps(n_sweeps, block_sweeps, sy, sx)
     n_blocks = -(-n_sweeps // s)
     nb = shape[0] if len(shape) == 3 else 1
     eh, ew = th + 2 * sy, tw + 2 * sx
@@ -881,7 +953,12 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
     devices = list(local)
     name = "hs_ring_fused_sweeps" + _build.bf16_suffix(dtype)
     fn = getattr(_build.library(), name)
-    th_k, tw_k, _ = k2_tile(s)
+    # A block deeper than one pass of K2's walk: the scratch pair Q of the
+    # passes but the last, each device's own (never in an arena).
+    deep = s > RING_PASS_SWEEPS
+    scratch = {dev: tuple(torch.empty(state[dev][0].shape[1:], dtype=dtype, device=dev)
+                          for _ in range(2)) if deep else (None, None)
+               for dev in devices}
     if collective:
         _sync_processes(devices)
     else:
@@ -891,11 +968,12 @@ def ring_solve(rings, n_sweeps: int, block_sweeps: int, h: int, w: int,
         pairs, fields, org, _ = state[dev]
         b = pairs.shape[1]
         table = _table(links[dev], dev)
-        tiles = b * -(-th // th_k) * -(-tw // tw_k)
-        grid_blocks = blocks if blocks > 0 else min(tiles, resident_blocks(dev.index, dtype))
+        grid_blocks = blocks if blocks > 0 else min(ring_tiles(b, th, tw, bool(sx), n_sweeps, s),
+                                                    resident_blocks(dev.index, dtype))
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             table.data_ptr(), org.data_ptr(), *(pairs[q].data_ptr() for q in range(4)),
+            *(None if a is None else a.data_ptr() for a in scratch[dev]),
             *(f.data_ptr() for f in fields), barrier_count(dev.index, stream).data_ptr(),
             b, eh, ew, sy, sx, h, w, n_sweeps, s, epoch0, grid_blocks, dev.index, stream)
         _build.check(err, name)

@@ -1371,13 +1371,18 @@ def test_k12_equals_plain(dev, my, mx, n, s):
 # K11 and K12 on K2's window loop. Meshes: (my, 0) is a 1-D ring of my
 # shards (K11), (my, mx) a 2-D one (K12).
 RING_MESHES = [(1, 0), (2, 0), (4, 0), (5, 0), (1, 1), (2, 2), (1, 4), (4, 1), (3, 2)]
+# Sweep blocks: every depth one pass of K2's walk takes, and deeper ones,
+# which run as 2 or 3 passes (ring.ring_passes: 9 + 8, 8 + 12, 15 + 16,
+# 16 + 16, 16 + 16 + 16).
+RING_BLOCK_SWEEPS = list(range(1, ring.RING_PASS_SWEEPS + 1)) + [17, 20, 31, 32, 48]
 
 
 def _ring_rings(dev, my, mx, s, seed, stack=0, warm=True, th=None, tw=None):
     """One ring of Shards with a halo exactly s deep: by default two K2
-    tile rows a shard, the second cut short, and a true image that ends
-    inside the last shards. Returns (rings, h, w)."""
-    th = th or (k2.K2_WINDOW_H - 2 * s) + 7
+    tile rows a shard, the second cut short (for a block deeper than one
+    pass, s + 7 rows), and a true image that ends inside the last shards.
+    Returns (rings, h, w)."""
+    th = th or max(k2.K2_WINDOW_H - 2 * s, s) + 7
     tw = tw or (37 if mx == 0 else s + 21)
     sx, mx = (s if mx else 0), max(mx, 1)
     lead = (stack,) if stack else ()
@@ -1397,11 +1402,22 @@ def _ring_rings(dev, my, mx, s, seed, stack=0, warm=True, th=None, tw=None):
 
 
 def _ring_equal(rings, n, s, h, w, **kw):
-    two_d = rings[0][0][0].fields[0].shape[-1] != rings[0][0][0].u.shape[-1]
+    sh = rings[0][0][0]
+    two_d = sh.fields[0].shape[-1] != sh.u.shape[-1]
     counter = ring.ring_fused_sweeps_2d if two_d else ring.ring_fused_sweeps
     counter.launches = 0
+    mark = ring.epoch_mark()
     got = ring.ring_solve(rings, n, s, h, w, **kw)
     assert counter.launches == 1  # one launch for the device's every image
+    # ceil(n/s) exchanges (no block shortened), and the plan's grid
+    # barriers: one after each pass but the last (K12: and each exchange).
+    dev = sh.u.device
+    assert ring.released_epoch(dev) == mark + -(-n // s)
+    b = sum(len(row) for g in rings for row in g) * (sh.u.shape[0] if sh.u.ndim == 3 else 1)
+    grid = kw.get("blocks") or min(ring.ring_tiles(b, *sh.u.shape[-2:], two_d, n, s),
+                                   ring.resident_blocks(dev.index, sh.u.dtype))
+    count = k6.barrier_count(dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    assert int(count.item()) == ring.ring_barriers(n, s, two_d) * grid
     want = ring.ring_solve_plain(rings, n, s, h, w)
     for g_grid, w_grid in zip(got, want):
         for g_row, w_row in zip(g_grid, w_grid):
@@ -1409,7 +1425,7 @@ def _ring_equal(rings, n, s, h, w, **kw):
                 _equal(g, r)
 
 
-@pytest.mark.parametrize("s", range(1, ring.MAX_RING_SWEEPS + 1))
+@pytest.mark.parametrize("s", RING_BLOCK_SWEEPS)
 @pytest.mark.parametrize("my,mx", RING_MESHES)
 def test_k11_k12_equal_plain_at_every_block_depth(dev, my, mx, s):
     # n = 2s + 1: three sweep blocks, the last one short; sx = s, so s not a
@@ -1459,11 +1475,12 @@ def test_k11_k12_unaligned_views_equal_plain(dev, mx):
     _ring_equal(rings, 15, s, th - 1, tw - 2)
 
 
-@pytest.mark.parametrize("s", range(1, ring.MAX_RING_SWEEPS + 1))
+@pytest.mark.parametrize("s", RING_BLOCK_SWEEPS)
 @pytest.mark.parametrize("two_d", [False, True])
 def test_k11_k12_geometry_has_no_spills(dev, s, two_d):
+    # Deeper than one pass: the deep kernel's build, at its passes' tile.
     geo = ring.ring_geometry(dev, s, two_d=two_d)
-    th, tw, _ = k2.k2_tile(s)
+    th, tw, _ = k2.k2_tile(ring.ring_passes(s)[-1])
     assert (geo["tile_h"], geo["tile_w"]) == (th, tw)
     assert geo["threads"] == k2.K2_THREADS and geo["smem_bytes"] == k2.K2_SMEM_BYTES
     assert 0 < geo["registers"] <= 65536 // k2.K2_THREADS and geo["spill_bytes"] == 0
@@ -1471,9 +1488,12 @@ def test_k11_k12_geometry_has_no_spills(dev, s, two_d):
 
 
 def test_k11_k12_refuse_a_block_deeper_than_k2s_window(dev):
+    # A block deeper than K2's window takes runs as passes; only one deeper
+    # than the fields' halo (rows, or columns on K12) is refused.
     rings, h, w = _ring_rings(dev, 2, 2, 17, 260, th=40, tw=40)
-    with pytest.raises(ValueError, match="at most 16"):
-        ring.ring_solve(rings, 40, 17, h, w)
+    _ring_equal(rings, 40, 17, h, w)
+    with pytest.raises(ValueError, match="narrower than a block"):
+        ring.ring_solve(rings, 40, 18, h, w)
 
 
 def test_ring_tables_are_kept_per_stream(dev):
@@ -1519,6 +1539,25 @@ def test_tiled_solve_on_a_virtual_mesh_equals_untiled(dev, my, mx, s):
         _equal(hs_solve_tiled(i1, i2, sor, mesh, halo_sweeps=s),
                hs_solve_tiled(i1, i2, dataclasses.replace(sor, backend="torch"), mesh,
                               halo_sweeps=s))
+
+
+@pytest.mark.parametrize("my,mx,s", [(4, 1, 20), (2, 2, 20), (2, 2, 32), (2, 2, 45)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiled_rdma_deep_blocks_on_a_virtual_mesh_equal_untiled(dev, my, mx, s, dtype):
+    # halo_sweeps deeper than one pass of K2's walk (i45: blocks of s and
+    # the rest, or one block), on shards of 33 x 197, 65 x 99: one ring
+    # launch, ceil(45/s) exchanges, = the untiled solve bitwise.
+    i1, i2 = _rand((130, 197), dev, 62)
+    mesh = make_mesh(MeshConfig(y=my, x=mx), [dev] * (my * mx))
+    cfg = HSConfig(alpha=0.5, iters=45, dtype=dtype)
+    ring.ring_fused_sweeps.launches = ring.ring_fused_sweeps_2d.launches = 0
+    k9.tile_sweeps.launches = 0
+    mark = ring.epoch_mark()
+    got = hs_solve_tiled(i1, i2, cfg, mesh, halo_sweeps=s, halo_impl="rdma")
+    assert ring.ring_fused_sweeps.launches + ring.ring_fused_sweeps_2d.launches == 1
+    assert k9.tile_sweeps.launches == 0
+    assert ring.released_epoch(dev) == mark + -(-45 // s)
+    _equal(got, hs_solve(i1, i2, cfg))
 
 
 def test_tiled_solve_stack_and_tol_on_a_virtual_mesh(dev):
@@ -2550,7 +2589,7 @@ def _ring_rings16(dev, my, mx, s, seed, **kw):
     return rings, h, w
 
 
-@pytest.mark.parametrize("s", range(1, ring.MAX_RING_SWEEPS + 1))
+@pytest.mark.parametrize("s", RING_BLOCK_SWEEPS)
 @pytest.mark.parametrize("my,mx", RING_MESHES)
 def test_k11_k12_bf16_equal_plain_at_every_block_depth(dev, my, mx, s):
     # sx = s: column halos of s take the 2-byte exchange (the 16-byte one
@@ -2595,12 +2634,14 @@ def test_k11_k12_bf16_unaligned_views_equal_plain(dev, mx, off):
     _ring_equal(rings, 15, s, th - 1, tw - 2)
 
 
-@pytest.mark.parametrize("s", range(1, ring.MAX_RING_SWEEPS + 1))
+@pytest.mark.parametrize("s", RING_BLOCK_SWEEPS)
 def test_k9_k11_k12_bf16_geometry_is_float32s(dev, s):
-    for f32, b16 in ((k2.k2_geometry(dev, s, shard=True),
-                      k2.k2_geometry(dev, s, shard=True, dtype=BF16)),
-                     (ring.ring_geometry(dev, s), ring.ring_geometry(dev, s, dtype=BF16)),
-                     (ring.ring_geometry(dev, s, True), ring.ring_geometry(dev, s, True, BF16))):
+    # K9 takes at most K2's 16 sweeps a launch; K11 and K12 any block.
+    k9_pair = [(k2.k2_geometry(dev, s, shard=True), k2.k2_geometry(dev, s, shard=True, dtype=BF16))
+               ] if s <= k2.K2_MAX_SWEEPS else []
+    for f32, b16 in k9_pair + [
+            (ring.ring_geometry(dev, s), ring.ring_geometry(dev, s, dtype=BF16)),
+            (ring.ring_geometry(dev, s, True), ring.ring_geometry(dev, s, True, BF16))]:
         assert (b16["tile_h"], b16["tile_w"], b16["threads"]) == (
             f32["tile_h"], f32["tile_w"], f32["threads"])
         assert b16["smem_bytes"] == f32["smem_bytes"] // 2 == k2.K2_SMEM_BYTES // 2

@@ -73,11 +73,11 @@ EDGE = 8
 SUM_TOL = 1e-5
 
 TWO = ["jacobi", "pyramid", "tol", "sor", "bf16", "stack", "x", "idle", "rdma", "rdma_bf16",
-       "rdma_k11", "rdma_idle"]
+       "rdma_k11", "rdma_idle", "rdma_deep"]
 FOUR = ["jacobi", "robust", "multigrid", "lk", "rdma", "rdma_bf16"]
 # Which mesh axis each case's processes split: the mesh's ranks differ
 # along it (and along no other for the 2-process meshes).
-TWO_SPLIT = {"stack": 0, "idle": 0, "rdma_idle": 0, "x": 2}
+TWO_SPLIT = {"stack": 0, "idle": 0, "rdma_idle": 0, "x": 2, "rdma_deep": 2}
 HS = dict(alpha=0.5, iters=16)
 
 
@@ -160,7 +160,9 @@ def _ref_frames(shape, seed):
 
 def _reference(case):
     """The reference's untiled flow of a case, as a (2, ...) array, and its bar."""
-    if case.startswith("rdma") or case in ("x", "bf16"):  # the Jacobi solve's
+    if case == "rdma_deep":  # the Jacobi solve's at i45
+        case = "jacobi45"
+    elif case.startswith("rdma") or case in ("x", "bf16"):  # the Jacobi solve's
         case = "jacobi"
     return _reference_of(case)
 
@@ -171,6 +173,8 @@ def _reference_of(case):
     hs = lambda **kw: ref_config.HSConfig(backend="jnp", **{**HS, **kw})  # noqa: E731
     if case == "jacobi":
         f, bar = ref_hs_solve(i1, i2, hs()), SOLVE_TOL
+    elif case == "jacobi45":
+        f, bar = ref_hs_solve(i1, i2, hs(iters=45)), SOLVE_TOL
     elif case == "pyramid":
         f, bar = ref_hs_pyramid(i1, i2, hs(), ref_config.PyramidConfig(levels=2)), PYRAMID_TOL
     elif case in ("tol", "idle"):

@@ -5,9 +5,10 @@ concatenation for the exchange, and on n-shard 1-D and 2-D meshes against
 the untiled sweeps (tiled == untiled). K11's and K12's schedule walked in
 plain torch (`ring.ring_schedule_plain`: the exchange into extended pairs,
 K2's windows over the owned tiles only, NaN wherever nothing was written)
-equals the plain solve bitwise on those meshes, at every sweep block from 1
-to K2's 16, with owned heights that K2's tile rows do not divide and true
-image edges inside the shards.
+equals the plain solve bitwise on those meshes, at sweep blocks from 1 to
+K2's 16, with owned heights that K2's tile rows do not divide and true
+image edges inside the shards, and at deeper blocks, which run as passes of
+K2's walk over the owned rectangle grown into the halo (`ring.ring_passes`).
 
 Tolerances: 2e-6 against the reference's logic twin (its Pallas kernel in
 interpret mode; same ops, XLA:CPU may round the last ulp of a fused chain
@@ -22,6 +23,9 @@ import torch
 
 from opticalflowhs_tpu.kernels.rdma_halo import ring_fused_sweeps_logic_twin
 from opticalflowhs_tpu.ops import stencils as ref_st
+from opticalflowhs_tpu_torch import HSConfig, hs_solve
+from opticalflowhs_tpu_torch.config import MeshConfig
+from opticalflowhs_tpu_torch.dist import hs_solve_tiled, make_mesh
 from opticalflowhs_tpu_torch.kernels import jacobi as k2
 from opticalflowhs_tpu_torch.kernels import ring
 from opticalflowhs_tpu_torch.kernels.derivatives import derivatives_plain
@@ -106,8 +110,8 @@ def test_plain_ring_takes_blocks_deeper_than_the_kernels(s, record_property):
     # The reference takes any block depth its halo allows, and so does the
     # plain version that CPU shards run: against the reference's logic twin
     # on its own case, and tiled == untiled on a 2-shard ring. On the card
-    # K11/K12 refuse a block deeper than K2's window takes (16 sweeps), a
-    # known gap from the reference (ROADMAP.md queue 3).
+    # K11/K12 take them too, as passes of K2's walk; only a block deeper
+    # than the fields' halo is refused, as the reference refuses it.
     h, w, n = 64, 96, s + 3  # a block of s, then one of 3
     rng = np.random.default_rng(1)
     i1, i2 = (rng.uniform(0, 1, (h, w)).astype(np.float32) for _ in range(2))
@@ -132,8 +136,9 @@ def test_plain_ring_takes_blocks_deeper_than_the_kernels(s, record_property):
                                  n, s, [0, 40], 80, 37)
     want = _untiled(uv, fields, n)
     assert torch.equal(torch.cat(got[0]), want[0]) and torch.equal(torch.cat(got[1]), want[1])
-    with pytest.raises(ValueError, match="at most 16"):
-        ring._block_sweeps(n, s, sigma, 0, ring.MAX_RING_SWEEPS)
+    assert ring._block_sweeps(n, s, sigma, 0) == s
+    with pytest.raises(ValueError, match="narrower than a block"):
+        ring._block_sweeps(sigma + 1, sigma + 1, sigma, 0)
 
 
 @pytest.mark.parametrize("my", [1, 2, 4, 5])
@@ -183,6 +188,58 @@ def test_schedule_equals_plain_at_every_block_depth(my, mx, s):
     uv, fields = _problem((my * th, max(mx, 1) * tw), 50 + s)
     rings = _rings(uv, fields, my, max(mx, 1), s, s if mx else 0)
     _schedule_equals_plain(rings, 2 * s + 1, s, my * th - 2, max(mx, 1) * tw - 3)
+
+
+@pytest.mark.parametrize("s", [17, 20, 32, 33])
+@pytest.mark.parametrize("my,mx", [(2, 0), (4, 0), (2, 2), (3, 2)])
+def test_schedule_equals_plain_at_deep_blocks(my, mx, s):
+    # Blocks deeper than one pass of K2's walk: shards taller and wider than
+    # the halo of exactly s, n = 2s + s // 2 + 1 (two full blocks, then a
+    # remainder of 9-17 sweeps: one pass, or two at s 32 and 33), and the
+    # true image ending inside the last shards.
+    th = s + 7
+    tw = 37 if mx == 0 else s + 9
+    uv, fields = _problem((my * th, max(mx, 1) * tw), 90 + s)
+    rings = _rings(uv, fields, my, max(mx, 1), s, s if mx else 0)
+    _schedule_equals_plain(rings, 2 * s + s // 2 + 1, s, my * th - 2, max(mx, 1) * tw - 3)
+
+
+def test_ring_passes_and_barriers():
+    # The fewest passes of at most 16 sweeps; all but the first a multiple
+    # of 4 (the grown rectangles keep the columns' 16-byte alignment).
+    for s in range(1, 300):
+        p = ring.ring_passes(s)
+        assert sum(p) == s and len(p) == -(-s // 16) and 1 <= p[0] <= 16
+        assert all(q == p[-1] and q % 4 == 0 and q <= 16 for q in p[1:])
+    assert ring.ring_passes(16) == [16] and ring.ring_passes(17) == [9, 8]
+    assert ring.ring_passes(20) == [8, 12] and ring.ring_passes(33) == [9, 12, 12]
+    assert ring.ring_passes(100) == [4] + [16] * 6
+    # K11: a barrier after each pass but the last; K12: and after each
+    # exchange. At s <= 16 that is the one-pass kernel's count.
+    assert ring.ring_barriers(100, 4, False) == 24 and ring.ring_barriers(100, 4, True) == 49
+    assert ring.ring_barriers(100, 100, False) == 6 and ring.ring_barriers(100, 100, True) == 7
+    assert ring.ring_barriers(100, 32, False) == 3 * 2 + 1 - 1  # 32, 32, 32 and 4
+    # The grid: the most tiles of any pass. At s 4, K2's 40 x 120 tiles of
+    # config 5's 4 x 540x3840; at s 20, 8 + 12 sweeps: the first pass's 32 x
+    # 112 tiles over the 40 x 40 rectangle grown by 12, 64 x 64 (2 tiles),
+    # then 24 x 104 tiles over 40 x 40 (2 tiles).
+    assert ring.ring_tiles(4, 540, 3840, False, 100, 4) == 4 * 14 * 32
+    assert ring.ring_tiles(1, 40, 40, True, 40, 20) == 2
+    assert ring.ring_tiles(1, 90, 40, False, 40, 20) == 4  # 114 / 32; 90 / 24
+
+
+@pytest.mark.parametrize("my,mx", [(4, 1), (2, 2)])
+def test_tiled_rdma_deep_blocks_on_cpu_shards_equal_untiled(my, mx):
+    # halo_sweeps 20 (blocks of 20, 20, 5) on CPU shards of 24 x 100 and
+    # 48 x 50: the ring's plain version, = the untiled solve bitwise.
+    rng = np.random.default_rng(95)
+    i1, i2 = (torch.from_numpy(rng.uniform(0, 1, (96, 100)).astype(np.float32))
+              for _ in range(2))
+    cfg = HSConfig(alpha=0.5, iters=45)
+    mesh = make_mesh(MeshConfig(y=my, x=mx), ["cpu"] * (my * mx))
+    got = hs_solve_tiled(i1, i2, cfg, mesh, halo_sweeps=20, halo_impl="rdma")
+    want = hs_solve(i1, i2, cfg)
+    assert torch.equal(got.u, want.u) and torch.equal(got.v, want.v)
 
 
 @pytest.mark.parametrize("s", [3, 4])
@@ -260,13 +317,16 @@ def test_ring_errors():
         ring.ring_fused_sweeps([t], [t], [f2], 2, 2, [0], 8, 12)
     with pytest.raises(ValueError, match="column halo too"):
         ring.ring_fused_sweeps_2d([[t]], [[t]], [[f]], 2, 2, [[(0, 0)]], 8, 12)
-    # A sweep block is at most K2's 16 sweeps on the card; the plain
-    # versions take any depth the halo allows.
-    assert ring.MAX_RING_SWEEPS == k2.K2_MAX_SWEEPS == 16
-    assert ring._block_sweeps(40, 16, 16, 16, ring.MAX_RING_SWEEPS) == 16
-    with pytest.raises(ValueError, match="at most 16"):
-        ring._block_sweeps(40, 17, 17, 0, ring.MAX_RING_SWEEPS)
-    assert ring._block_sweeps(40, 17, 17, 0) == 17
+    # A sweep block takes any depth the fields' halo allows, on the card as
+    # passes of at most K2's 16 sweeps; a block deeper than the halo (rows,
+    # or columns on a 2-D mesh) is refused.
+    assert ring.RING_PASS_SWEEPS == k2.K2_MAX_SWEEPS == 16
+    assert ring._block_sweeps(40, 16, 16, 16) == 16
+    assert ring._block_sweeps(40, 17, 17, 0) == 17 == ring._block_sweeps(17, 40, 17, 17)
+    with pytest.raises(ValueError, match="narrower than a block"):
+        ring._block_sweeps(40, 18, 17, 0)
+    with pytest.raises(ValueError, match="narrower than a block"):
+        ring._block_sweeps(40, 17, 17, 16)
 
 
 def test_device_stacks_are_views_of_consecutive_shards():

@@ -13,8 +13,9 @@ Groups:
         pair to tolerance on the (2, 1, 2) mesh (rank 1 owns no shard); the
         fault hook on rank 1; halo_impl="rdma" (the plain ring) on the
         (1, 2, 4) mesh in float32 and bfloat16, on a (1, 4, 1) mesh of 2
-        shards a process and for a pair on the (2, 1, 2) mesh (rank 1 owns
-        no shard); time_to_space / space_to_time of 5 x 12 x 20
+        shards a process, for a pair on the (2, 1, 2) mesh (rank 1 owns
+        no shard) and with sweep blocks of 20 (i45) on a (1, 1, 2) mesh;
+        time_to_space / space_to_time of 5 x 12 x 20
         frames (default_rng(2)) on (2, 2, 2), split by batch, and
         timesharded_pairs on (2, 1, 1); the axis_names sums on (1, 2, 4).
   four  4 processes x 1 shard: the (1, 2, 2) mesh, both axes between the
@@ -160,6 +161,13 @@ if group == "two":
     m141 = make_mesh(MeshConfig(batch=1, y=4, x=1), [CPU] * 2)
     rdma(m141, "_k11")
     rdma(m212, "_idle")  # rank 0 owns every shard of the pair, rank 1 none
+    # A sweep block deeper than one pass of K2's walk (20 > 16 sweeps) on a
+    # (1, 1, 2) mesh of 32 x 32 shards, one a process, i45: blocks of 20,
+    # 20 and 5.
+    m112 = make_mesh(MeshConfig(batch=1, y=1, x=2), [CPU])
+    deep = HSConfig(alpha=0.5, iters=45)
+    save("rdma_deep", m112, hs_solve_tiled(i1, i2, deep, m112, halo_sweeps=20, halo_impl="rdma"),
+         hs_solve(i1, i2, deep))
     # The layout changes: C4-like frames split by batch between the
     # processes, all of the space layout on rank 0 (held once).
     vid = torch.from_numpy(np.random.default_rng(2).uniform(0, 1, (5, 12, 20))

@@ -18,10 +18,14 @@ float32 builds on one CUDA card, in one process, on the same noise frames
 at 1088x1920, 2160x3840 and 4320x7680 (K3, K8, K4 and the SOR and robust
 solves at 1088x1920 only, with `--sor-robust` alone). The kernels' times
 are CUDA events over 20 (K2, K3, K4) or 10 calls after a warm-up call
-(chip_smoke.py's `event_ms`). Prints the card's name and power limit, then
-one JSON line.
+(chip_smoke.py's `event_ms`). With `--l4` alone: L4, the batched twins
+`solve_fused.hs_solve_fused_batched` (K1 + K6) and
+`solve_skewed.hs_solve_skewed_batched` (K1 + K7) on a 2 x 2160x3840 noise
+stack, alpha 0.5, i100, each dtype by CUDA events over 10 calls and by
+host time (median of 10, synced). Prints the card's name and power limit,
+then one JSON line.
 
-    python3 tools/torch_bf16_timing.py [--sor-robust]
+    python3 tools/torch_bf16_timing.py [--sor-robust | --l4]
 """
 
 from __future__ import annotations
@@ -56,6 +60,21 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     sor_robust_only = "--sor-robust" in sys.argv[1:]
     out = {}
+    if "--l4" in sys.argv[1:]:
+        rng = np.random.default_rng(0)
+        a, b = (torch.from_numpy(rng.uniform(0, 1, (2, 2160, 3840)).astype(np.float32)).to(dev)
+                for _ in range(2))
+        for name, dt in (("bf16", torch.bfloat16), ("float32", torch.float32)):
+            x, y = a.to(dt), b.to(dt)
+            for cell, solve in (("k6_batched", k6.hs_solve_fused_batched),
+                                ("k7_batched", k7.hs_solve_skewed_batched)):
+                out[f"L4 2x2160x3840 {cell} {name}"] = cs.event_ms(
+                    lambda: solve(x, y, 0.5, 100), 10)
+                out[f"L4 2x2160x3840 {cell} {name} host"] = cs.median_ms(
+                    lambda: solve(x, y, 0.5, 100), 10)
+        print(cs.card_line())
+        print(json.dumps(out))
+        return 0
     for tag, (h, w) in (("1088x1920", (1088, 1920)), ("2160x3840", (2160, 3840)),
                         ("4320x7680", (4320, 7680))):
         if sor_robust_only and tag != "1088x1920":
