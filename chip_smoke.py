@@ -12,7 +12,9 @@ each ran through the kernels:
   phase 6:    batched K1 and K2 against their plain versions and against
               the single-frame kernels, B in {1, 3};
   phase 7:    config 2 (configs/c2_video_batch.json): hs_solve_batched on
-              8 pairs at 1088x1920, and the batched pyramid at 4 x 1080p;
+              8 pairs at 1088x1920 (and batch.solve_level_batched on them,
+              stacked_ok True and False), and the batched pyramid at 4 x
+              1080p;
   phase 8:    config 4 (configs/c4_hd_streaming.json) on a 17-frame 1080p
               video: flow_stream (8-image solves), flow_stream_warm with
               the warp prior, flow_stream_occlusion (a 16-image solve),
@@ -32,7 +34,8 @@ each ran through the kernels:
               TV-L1 at full size: tvl1_solve 1088x1920 L3 (T1), the 1080p
               seam against phase 11's classic HS (T2), tvl1_solve_batched
               on 4 x 1080p, flow_stream, flow_stream_occlusion and
-              solve_bidirectional with tvl1= (T3);
+              solve_bidirectional with tvl1= (T3); tvl1_warp_iteration on
+              T1's pair with kernel_ok False (no K5) and True;
   phase 13:   K6 and K7 (the whole Jacobi solve in one sweep launch, u/v
               ping-pong and in place) against their plain versions and the
               K1 + K2 chain, 67x93, 131x130 (small forced geometries) and
@@ -42,6 +45,8 @@ each ran through the kernels:
               through the entry points: hs_solve 2160x3840 (L1, K7) and
               4320x7680 (L2, K6) i100, hs_pyramid 4K L3 (L3), the batched
               twins on 2 x 4K (L4) and hs_solve_checkpointed 4K i200 (L5);
+              L1 through solve_level(whole_solve_ok=False) (the K1 + K2
+              chain, no K7);
   phase 14:   K8 (the whole SOR solve in one launch on K3's window walk)
               against the plain planes, the plain SOR sweeps and the K1 +
               K3 chain at every parity of h and w, n 1, 4, 7, zero and
@@ -69,8 +74,12 @@ each ran through the kernels:
               D3 again at halo_sweeps 4, 16, 20, 32 and 100 (blocks deeper
               than 16 sweeps run as passes of K2's walk inside the one
               launch), each counted, its exchanges ceil(100/s) and its grid
-              barriers the plan's, = the untiled solve, timed; the deep
-              kernels at config 5's shapes (s 32) = plain, timed, bounded;
+              barriers the plan's, = the untiled solve, timed; rdma on
+              frames padded as the reference pads them (config 5's pair at
+              halo_sweeps 541 on 4 x 1 and 4 x 4, i100 and i541; small
+              frames with shards wholly in the pad), each counted and =
+              the untiled solve; the deep kernels at config 5's shapes
+              (s 32) = plain, timed, bounded;
   phase 16:   the Lucas-Kanade family (plain torch; no kernel launches):
               lk_solve on T1's pair (LK1) and C3's frames at 3 levels
               (LK3) against the CPU, lk_solve_batched on 8 of C4's pairs
@@ -127,8 +136,8 @@ each ran through the kernels:
               config 5's D1-D4 and a solve to tol in bfloat16 beside
               float32, each counted (= float32's launches) and = the
               untiled bfloat16 solve bitwise; each kernel at config 5's
-              shapes beside float32; phase 15's deep D3 and kernels in
-              bfloat16.
+              shapes beside float32; phase 15's deep D3, padded rdma and
+              kernels in bfloat16.
   phase 23:   the rest of dist/ (dist/gspmd.py, dist/reshard.py; no new
               kernel), float32 then bfloat16, each route counted (K1, K4's
               freeze and sweeps, K5) beside its untiled counterpart's
@@ -928,6 +937,25 @@ def tvl1_path(dev, vid, vid_dev, c2a, c2b, classic_band: float) -> dict:
           f"max|diff| vs plain {d:.3g}; K5 launches {n_t1}; kernel {ms_t1:.3f} ms "
           f"(median of 10) plain {ms_t1p:.3f} ms (once); interior EPE {e_t1:.6f}")
     require(e_t1 < 0.1, f"T1 EPE {e_t1}")
+    # tvl1_warp_iteration's kernel_ok on T1's pair, rescaled as the solve
+    # rescales it, warm from T1's flow: False runs the plain inner loop (no
+    # K5), True K5 (ceil(iters/s) launches); equal bitwise.
+    r1, r2 = tv.rescale_pair(t1, t2)
+    it, n_it = {}, {}
+    for ok in (False, True):
+        torch.cuda.synchronize()
+        before = k5.tvl1_inner.launches
+        it[ok] = tv.tvl1_warp_iteration(r1, r2, f_t1.u, f_t1.v, cfg0, kernel_ok=ok)
+        torch.cuda.synchronize()
+        n_it[ok] = k5.tvl1_inner.launches - before
+    d = max_flow_diff(it[False], it[True])
+    want_it = k5.k5_geometry(dev, 0, tuple(t1.shape), cfg0.iters)["launches"]
+    print(f"phase 12 T1 tvl1_warp_iteration kernel_ok False / True: K5 launches "
+          f"{n_it[False]} / {n_it[True]}, max|diff| {d:.3g}")
+    require(d == 0.0 and n_it == {False: 0, True: want_it},
+            f"T1 tvl1_warp_iteration kernel_ok: max|diff| {d}, launches {n_it}, expected "
+            f"bitwise equal, 0 and {want_it}")
+    del r1, r2, it
     d = max_flow_diff(f_small, tvl1_solve(t1, t2, plain(small)))
     note(d, "T1 small leg kernel vs plain")
     ms_s = median_ms(lambda: tvl1_solve(t1, t2, small), runs=10)
@@ -1046,7 +1074,8 @@ def beyond_resident(dev, frames, stack, s1, s2) -> list:
     counted: L1 hs_solve 2160x3840 i100 (K7), L2 4320x7680 i100 and 1088x1920
     central i100 (K6), L3 hs_pyramid 4K L3, L4 the batched twins on 2 x 4K,
     L5 hs_solve_checkpointed 4K i200; C1 beside them keeps its K1 + K2
-    chain. Returns the K6 and K7 rows of the kernels line."""
+    chain, as does L1 through solve_level(whole_solve_ok=False). Returns
+    the K6 and K7 rows of the kernels line."""
     import tempfile
 
     from opticalflowhs_tpu_torch import (
@@ -1064,6 +1093,7 @@ def beyond_resident(dev, frames, stack, s1, s2) -> list:
     from opticalflowhs_tpu_torch.kernels import solve_resident as sr
     from opticalflowhs_tpu_torch.kernels import solve_skewed as k7
     from opticalflowhs_tpu_torch.metrics import epe, interior
+    from opticalflowhs_tpu_torch.solver import solve_level
 
     err = {"hs_solve_fused": 0.0, "hs_solve_skewed": 0.0}
 
@@ -1168,13 +1198,15 @@ def beyond_resident(dev, frames, stack, s1, s2) -> list:
     f_l4f = counted("L4 fused", lambda: k6.hs_solve_fused_batched(ba, bb, 0.5, 100))
     f_l4s = counted("L4 skewed", lambda: k7.hs_solve_skewed_batched(ba, bb, 0.5, 100))
     f_l5 = counted("L5", lambda: hs_solve_checkpointed(q1, q2, cfg_ck, ck))
+    f_l1c = counted("L1 whole_solve_ok=False",
+                    lambda: solve_level(q1, q2, cfg, cfg.iters, whole_solve_ok=False))
     torch.cuda.synchronize()
     launches = {n: c.launches for n, c in counters.items()}
     print(f"beyond-resident path launches (L1, L2, L2 central, C1, L3, L4, L5): {launches}; "
           f"per call {per_call}")
     want = {"L1": (1, 0, 0, 1), "L2": (1, 0, 1, 0), "L2 central": (1, 0, 1, 0),
             "C1": (1, 13, 0, 0), "L4 fused": (1, 0, 1, 0), "L4 skewed": (1, 0, 0, 1),
-            "L5": (2, 0, 0, 2)}
+            "L5": (2, 0, 0, 2), "L1 whole_solve_ok=False": (1, 13, 0, 0)}
     for tag, counts in want.items():
         require(tuple(per_call[tag].values()) == counts,
                 f"{tag} launches {per_call[tag]}, expected K1, K2, K6, K7 = {counts}")
@@ -1192,6 +1224,12 @@ def beyond_resident(dev, frames, stack, s1, s2) -> list:
             require(tuple(a.shape) == shape and bool(torch.isfinite(a).all()),
                     f"phase 13 output shape/finite {shape}")
     same(f_c1, sr.hs_solve_resident(s1, s2, 0.5, 100), "C1 vs the K1 + K2 chain")
+    # solve_level(whole_solve_ok=False) on L1's pair takes no whole-solve
+    # kernel (the K1 + K2 chain, 0 K7) and = K7's route bitwise.
+    same(f_l1c, f_l1, "L1 whole_solve_ok=False vs K7's route")
+    print(f"phase 13 L1 solve_level whole_solve_ok=False: launches "
+          f"{per_call['L1 whole_solve_ok=False']}, = K7's route bitwise; "
+          f"{median_ms(lambda: solve_level(q1, q2, cfg, cfg.iters, whole_solve_ok=False)):.3f} ms")
     rows = {}
     for tag, name, (a, b), f in (("L1", "hs_solve_skewed", (q1, q2), f_l1),
                                  ("L2", "hs_solve_fused", (e1, e2), f_l2)):
@@ -1987,6 +2025,7 @@ def ring_deep_path(dev, pair, dtype: str) -> list:
     for tag in meshes:
         print(f"{phase} D3 {tag} {dtype} ms by block depth: "
               + ", ".join(f"s {s} {ms[tag, s]:.3f}" for s in D3_DEPTHS))
+    padded = padded_rdma_path(dev, pair, dtype, phase)
 
     # -- the deep kernels at config 5's shapes: n 100 in blocks of 32 ------------------
     s = 32
@@ -2042,6 +2081,7 @@ def ring_deep_path(dev, pair, dtype: str) -> list:
                "schedule_bound_ms": sched_bytes / PEAK_BYTES_PER_S * 1e3,
                "schedule_ops_bound_ms": flops * sched_px / PEAK_FLOPS * 1e3,
                "solve_ms_D3_by_s": {str(k): ms[tag, k] for k in D3_DEPTHS},
+               "padded_rdma": {k: v for k, v in padded.items() if v["two_d"] == two_d},
                "geometry": geo}
         if bf:
             row["float32_ms"] = t_32
@@ -2054,6 +2094,101 @@ def ring_deep_path(dev, pair, dtype: str) -> list:
               f"{row['schedule_ops_bound_ms']:.4f} ms; geometry {geo}")
     print(f"{phase} deep ring blocks took {time.perf_counter() - t_phase:.1f} s")
     return rows
+
+
+# Frames whose mesh-grid shards are no deeper or wider than halo_sweeps, so
+# halo_impl="rdma" pads them as the reference pads them
+# (tiled_solver.rdma_padded_shape): config 5's pair at halo_sweeps 541 on
+# 4 x 1 (K11, tiles 544 x 3840) and 4 x 4 (K12, 544 x 1024: the last column
+# of shards partly in the pad), at its i100 (blocks of 100) and at i541 (one
+# block of 541); and small frames with shards wholly in the pad: (h, w, b,
+# my, mx, s, iters).
+PADDED_SMALL = [(10, 70, 1, 4, 1, 3, 11), (10, 70, 2, 4, 1, 3, 11), (20, 60, 1, 2, 2, 12, 29),
+                (200, 60, 1, 2, 2, 40, 83)]
+
+
+def padded_rdma_path(dev, pair, dtype: str, phase: str) -> dict:
+    """Phases 15 and 22: hs_solve_tiled rdma on frames padded as the
+    reference pads them, on virtual meshes of cuda:0, each counted (every
+    count 0 just before, read just after: 1 K11 or K12 and nothing else),
+    its exchanges ceil(n/s) and grid barriers the plan's, = the untiled
+    solve bitwise, timed (median of 10; 3 at i541). Returns each case's
+    figures by name."""
+    from opticalflowhs_tpu_torch import HSConfig, hs_solve, hs_solve_batched
+    from opticalflowhs_tpu_torch.config import MeshConfig
+    from opticalflowhs_tpu_torch.dist import hs_solve_tiled, make_mesh
+    from opticalflowhs_tpu_torch.dist.tiled_solver import rdma_padded_shape
+    from opticalflowhs_tpu_torch.kernels import counted_wrappers, ring
+    from opticalflowhs_tpu_torch.kernels import solve_fused as k6
+
+    tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    cfg5 = dataclasses.replace(c5_configs()[0], dtype=dtype)
+    q1, q2 = pair
+    rng = np.random.default_rng(198)
+    cases = {}
+    for n in (cfg5.iters, 541):
+        for my, mx in ((4, 1), (4, 4)):
+            cases[f"C5 {my}x{mx} s 541 i{n}"] = (q1, q2, my, mx, 541,
+                                                 dataclasses.replace(cfg5, iters=n))
+    for h, w, b, my, mx, s, n in PADDED_SMALL:
+        shape = (b, h, w) if b > 1 else (h, w)
+        f1, f2 = (torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to(dev)
+                  for _ in range(2))
+        cases[f"{'x'.join(map(str, shape))} {my}x{mx} s {s} i{n}"] = (
+            f1, f2, my, mx, s, HSConfig(alpha=0.5, iters=n, dtype=dtype))
+    wrappers = counted_wrappers()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+    for name, (a, b, my, mx, s, cfg) in cases.items():
+        h, w = a.shape[-2:]
+        nb = a.shape[0] if a.ndim == 3 else 1
+        hp, wp = rdma_padded_shape(h, w, my, mx, s)
+        th, tw, two_d = hp // my, wp // mx, mx > 1
+        wholly = th * (my - 1) >= h or tw * (mx - 1) >= w
+        mesh = make_mesh(MeshConfig(y=my, x=mx), [dev] * (my * mx))
+        sblk = min(s, cfg.iters)
+
+        def solve(a=a, b=b, cfg=cfg, mesh=mesh, s=s):
+            return hs_solve_tiled(a, b, cfg, mesh, halo_sweeps=s, halo_impl="rdma")
+
+        want = (hs_solve_batched if a.ndim == 3 else hs_solve)(a, b, cfg)
+        torch.cuda.synchronize()
+        for wr in wrappers.values():
+            wr.launches = 0
+        mark = ring.epoch_mark()
+        got = solve()
+        torch.cuda.synchronize()
+        counts = {k: wr.launches for k, wr in wrappers.items() if wr.launches}
+        kernel = "K12 hs_ring_fused_sweeps_2d" if two_d else "K11 hs_ring_fused_sweeps"
+        require(counts == {kernel: 1}, f"{phase} padded rdma {name} {dtype}: launches "
+                                       f"{counts}, expected one {kernel} and nothing else")
+        epochs = ring.released_epoch(dev) - mark
+        grid = min(ring.ring_tiles(nb * my * mx, th, tw, two_d, cfg.iters, sblk),
+                   ring.resident_blocks(dev.index, tdtype))
+        count = int(k6.barrier_count(dev.index, stream).item())
+        require(epochs == -(-cfg.iters // sblk),
+                f"{phase} padded rdma {name} {dtype}: {epochs} exchanges")
+        require(count == ring.ring_barriers(cfg.iters, sblk, two_d) * grid,
+                f"{phase} padded rdma {name} {dtype}: barrier count {count}")
+        require(all(tuple(x.shape) == tuple(a.shape) and x.dtype == tdtype
+                    and bool(torch.isfinite(x).all()) for x in got),
+                f"{phase} padded rdma {name} output shape/dtype/finite")
+        d = max_flow_diff([x.float() for x in got], [y.float() for y in want])
+        require(d == 0.0, f"{phase} padded rdma {name} {dtype}: max|diff| {d} against the "
+                          "untiled solve, expected bitwise equality")
+        t = median_ms(solve, runs=3 if cfg.iters > 100 else 10)
+        out[name] = {"tile": [th, tw], "mesh_grid_tile": [-(-h // my), -(-w // mx)],
+                     "wholly_padded_shard": wholly, "two_d": two_d, "n": cfg.iters,
+                     "block": sblk, "passes": ring.ring_passes(sblk), "epochs": epochs,
+                     "barriers": count // grid, "grid": grid, "ms": t}
+        print(f"{phase} padded rdma {dtype} {name}: tile {th}x{tw} (mesh grid "
+              f"{-(-h // my)}x{-(-w // mx)}), a shard wholly in the pad {wholly}, 1 "
+              f"{kernel.split()[0]} and nothing else, {epochs} exchanges, blocks of {sblk} "
+              f"(passes {ring.ring_passes(sblk)}), = the untiled solve bitwise; {t:.3f} ms "
+              f"(median of {3 if cfg.iters > 100 else 10})")
+    require(any(v["wholly_padded_shard"] for v in out.values()),
+            f"{phase} padded rdma: no shard wholly in the pad")
+    return out
 
 
 def lk_path(dev, vid, vid_dev, s1, s2) -> None:
@@ -5114,6 +5249,7 @@ def main() -> int:
         hs_solve,
         hs_solve_batched,
     )
+    from opticalflowhs_tpu_torch.batch import solve_level_batched
     from opticalflowhs_tpu_torch.data.synthetic import WarpSpec, synthetic_pair
     from opticalflowhs_tpu_torch.video import flow_stream_occlusion
     from opticalflowhs_tpu_torch.kernels import _build
@@ -5361,6 +5497,22 @@ def main() -> int:
           f"plain {ms_c2p:.3f} ms ({bsz / ms_c2p * 1e3:.2f} pairs/s)")
     require(d_c2 <= TOL, "C2 kernel vs plain")
     require(n_c2 == (1, 13), f"C2 launches per stack {n_c2}, expected K1=1 K2=13")
+    # batch.solve_level_batched, the batch twin of solve_level: = C2's flow
+    # bitwise, stacked_ok True and False, each call 1 K1 + 13 K2.
+    for stacked_ok in (True, False):
+        torch.cuda.synchronize()
+        k1.hs_derivatives.launches = k2.jacobi_sweeps.launches = 0
+        flow_lb = solve_level_batched(c2a, c2b, cfg2, cfg2.iters, stacked_ok)
+        torch.cuda.synchronize()
+        n_lb = (k1.hs_derivatives.launches, k2.jacobi_sweeps.launches)
+        d_lb = max_flow_diff(flow_lb, flow_c2)
+        ms_lb = median_ms(lambda: solve_level_batched(c2a, c2b, cfg2, cfg2.iters, stacked_ok))
+        print(f"phase 7 C2 solve_level_batched stacked_ok={stacked_ok}: max|diff| vs "
+              f"hs_solve_batched {d_lb:.3g}; launches K1={n_lb[0]} K2={n_lb[1]}; "
+              f"{ms_lb:.3f} ms")
+        require(d_lb == 0.0 and n_lb == (1, 13),
+                f"C2 solve_level_batched stacked_ok={stacked_ok}: max|diff| {d_lb}, "
+                f"launches {n_lb}, expected = hs_solve_batched bitwise, K1=1 K2=13")
 
     for a in flow_p2:
         require(a.shape == (4, 1080, 1920) and bool(torch.isfinite(a).all()),

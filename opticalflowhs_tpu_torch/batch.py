@@ -56,6 +56,24 @@ def check_family(lk=None, tvl1=None) -> None:
         raise ValueError("pass at most one of lk= and tvl1=")
 
 
+def solve_level_batched(i1, i2, cfg: HSConfig, iters: int, stacked_ok: bool = True) -> Flow:
+    """One zero-start solve of a (B, H, W) stack with a budget of `iters`:
+    the batch twin of `solver.solve_level`, shared by `hs_solve_batched`
+    and the batched pyramid's levels, as the reference's. `iters` sweeps
+    (V-cycles for multigrid), or with cfg.tol > 0 `solver.sweeps_until`
+    under that budget, each image stopping on its own. Inputs are taken
+    as `solve_level` takes them.
+
+    `stacked_ok` is the reference's choice between its stacked kernels and
+    the vmapped single-pair solve of a mesh-sharded stack. Here both are
+    one chain of launches over the stack (K1, then K2, K3 or K4), each
+    image clamped at its own edges and, to tolerance, stopped on its own,
+    so the flow does not depend on it."""
+    if i1.ndim != 3:
+        raise ValueError(f"expected (B, H, W) frame stacks, got {tuple(i1.shape)}")
+    return solve_level(i1, i2, cfg, iters)
+
+
 def _pyramid_batched(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig,
                      pyr: PyramidConfig, stacked_ok: bool = True) -> Flow:
     """The reference's batched pyramid (`_batched_pyramid_impl`):
@@ -84,7 +102,7 @@ def _pyramid_batched(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig,
                 f2w = warp_bilinear(f2, flow.u, flow.v)
             else:
                 f2w = warp_bilinear_tiled(f2, flow.u, flow.v)
-        dflow = solve_level(f1, f2w, cfg, iters[level])
+        dflow = solve_level_batched(f1, f2w, cfg, iters[level], stacked_ok)
         flow = dflow if flow is None else add_flows(flow, dflow)
     return flow
 
@@ -134,7 +152,7 @@ def _solve_batched(i1: torch.Tensor, i2: torch.Tensor, cfg: HSConfig,
                    pyr: Optional[PyramidConfig], stacked_ok: bool) -> Flow:
     if pyr is not None and pyr.levels > 1:
         return _pyramid_batched(i1, i2, cfg, pyr, stacked_ok)
-    return solve_level(i1, i2, cfg, cfg.iters)
+    return solve_level_batched(i1, i2, cfg, cfg.iters, stacked_ok)
 
 
 def solve_stack(i1, i2, cfg: HSConfig, pyr: Optional[PyramidConfig] = None,

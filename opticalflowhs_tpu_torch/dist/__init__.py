@@ -16,8 +16,8 @@ between phases.
   gspmd.py          the batch groups every GSPMD route and mesh= stack runs on
   reshard.py        Sharded, shard, reshard, time_to_space, space_to_time,
                     timesharded_pairs (import them from the module, as the
-                    reference's dist/ package exports none of them; one
-                    process only)
+                    reference's dist/ package exports none of them; in one
+                    process or across the processes of a world)
   transport.py      the moves between processes: halo strips as one
                     batch_isend_irecv a phase, all-gathers, all-reduces
                     (NCCL, or gloo with CUDA tensors staged through the host)

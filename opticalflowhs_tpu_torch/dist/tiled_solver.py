@@ -19,7 +19,11 @@ halo_impl="rdma" runs the whole solve of every shard in one launch a device
 (kernels/ring.py: K11 on a (y, 1) mesh, K12 on a (y, x) mesh) with the halo
 exchange inside the launch; the fields' halo is exchanged once through
 halo.py. On CPU shards it runs the kernels' plain versions, where the
-reference raises off the TPU (ROADMAP.md queue 3).
+reference raises off the TPU (ROADMAP.md queue 3). A frame whose mesh-grid
+tile is not deeper and wider than the halo is padded further, as the
+reference pads every rdma frame (`rdma_padded_shape`): h to a multiple of
+y * 8 and, when x > 1, w to x * 128; shards that then lie wholly in the
+pad compute garbage that no true pixel reads.
 
 float32 or bfloat16 (HSConfig.dtype): the frames are cast first, the
 fields are stored as K1 stores them, and K9-K12's bfloat16 builds (or the
@@ -68,6 +72,22 @@ GSPMD_SOLVERS = ("multigrid", "robust")
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def rdma_padded_shape(h: int, w: int, my: int, mx: int, hwidth: int) -> tuple[int, int]:
+    """The padded (Hp, Wp) frame that halo_impl="rdma" tiles on a (my, mx)
+    mesh with a halo of hwidth: the frame rounded up to the mesh grid when
+    its tile is deeper and wider than the halo, else the reference's rdma
+    frame (opticalflowhs_tpu/dist/tiled_solver.py:442-456), h rounded up to
+    my * 8 and, on a mesh that splits x, w to mx * 128. So rdma takes
+    exactly the shapes the reference's takes, and a shape whose mesh-grid
+    tile it takes keeps that tile. Shards may then lie partly or wholly in
+    the zero pad: the clamps fire at the true edges from global
+    coordinates, and the pad is cropped away."""
+    hp, wp = _round_up(h, my), _round_up(w, mx)
+    if hp // my > hwidth and wp // mx > hwidth:
+        return hp, wp
+    return _round_up(h, my * 8), _round_up(w, mx * 128) if mx > 1 else w
 
 
 class Layout:
@@ -379,7 +399,9 @@ def hs_solve_tiled(
     zero-padded to the mesh grid, shards clamp at the true image edges, and
     the flow, on the mesh's first device, is cropped back to H x W, equal
     to the untiled solve. Shards (after padding) must be more than the halo
-    wide on a side.
+    wide on a side; under "rdma" a frame whose mesh-grid shards are not is
+    padded as the reference pads it (`rdma_padded_shape`) before that
+    check, so rdma takes the shapes the reference's rdma takes.
 
     halo_impl: "ppermute" (halo copies between K9 launches) or "rdma" (the
     whole solve of every shard in one ring launch a device, the exchange
@@ -443,8 +465,9 @@ def hs_solve_tiled(
         raise ValueError(
             f"batch {i1.shape[0]} not divisible by mesh batch {mesh.shape['batch']}"
         )
-    hp, wp = _round_up(h, my), _round_up(w, mx)
     hwidth = 4 * halo_sweeps if cfg.solver == "sor" else halo_sweeps
+    hp, wp = rdma_padded_shape(h, w, my, mx, hwidth) if halo_impl == "rdma" else (
+        _round_up(h, my), _round_up(w, mx))
     if hp // my <= hwidth or wp // mx <= hwidth:
         raise ValueError(
             f"tile {hp // my}x{wp // mx} too small for halo_sweeps="

@@ -32,6 +32,7 @@ Importing these modules builds nothing: the library is built and loaded at
 the first launch on a CUDA tensor.
 """
 
+from opticalflowhs_tpu_torch.kernels.jacobi import jacobi_sweeps
 from opticalflowhs_tpu_torch.kernels.solve_fused import (
     hs_solve_fused,
     hs_solve_fused_batched,
@@ -41,7 +42,6 @@ from opticalflowhs_tpu_torch.kernels.solve_skewed import (
     hs_solve_skewed_batched,
 )
 from opticalflowhs_tpu_torch.kernels.sor_planes import hs_solve_sor_planes
-
 
 
 def counted_wrappers() -> dict:
@@ -83,4 +83,5 @@ __all__ = [
     "hs_solve_skewed",
     "hs_solve_skewed_batched",
     "hs_solve_sor_planes",
+    "jacobi_sweeps",
 ]

@@ -143,9 +143,9 @@ def checkpoint_block(fn, state):
         fn, *state, use_reentrant=False, preserve_rng_state=False))
 
 
-def checkpointed_loop(step, state, n: int):
+def checkpointed_loop(step, uv, n: int):
     """Run `n` applications of `step` (a tuple of tensors to a tuple of
-    tensors) on `state`, with sqrt(n) recomputation: the reference's
+    tensors) on the state `uv`, with sqrt(n) recomputation: the reference's
     `checkpointed_loop` (opticalflowhs_tpu/ops/stencils.py:268).
 
     The forward is exactly n applications of `step`, so it equals the plain
@@ -155,7 +155,7 @@ def checkpointed_loop(step, state, n: int):
     states (the tensors `step` closes over once) and recomputes one block's
     tape at a time in the backward: O(sqrt(n)) fields instead of every
     step's intermediates."""
-    state = tuple(state)
+    state = tuple(uv)
     b = math.isqrt(max(n, 0))
     if b < 2 or not torch.is_grad_enabled():
         for _ in range(n):

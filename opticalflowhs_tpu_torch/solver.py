@@ -164,7 +164,7 @@ def sweeps(u, v, ex, ey, et, inv_den, n: int, cfg: HSConfig) -> Flow:
 
 
 def sweeps_until(u, v, ex, ey, et, inv_den, cfg: HSConfig,
-                 budget: Optional[int] = None) -> Flow:
+                 budget: Optional[int] = None, run_block=None) -> Flow:
     """Solve to tolerance (cfg.tol > 0), as the reference's sweeps_until:
     check blocks of b = block_sweeps (16 when 0) sweeps, or of one V-cycle
     for multigrid, b at most
@@ -183,8 +183,17 @@ def sweeps_until(u, v, ex, ey, et, inv_den, cfg: HSConfig,
     block. The updates are compared detached, so with grad on the flow keeps
     one graph through the blocks taken: the port differentiates this route,
     where the reference's `while_loop` refuses reverse mode (ROADMAP.md
-    queue 3)."""
+    queue 3).
+
+    `run_block(u, v, n) -> (u, v)` replaces the default block runner
+    (`sweeps` on the given fields, which may then be None), so a caller
+    with its own block keeps the stop rule here; on a stack the images
+    that have converged are frozen in what it returns too."""
     iters = cfg.iters if budget is None else budget
+    if run_block is None:
+        def run_block(uu, vv, nn):
+            return sweeps(uu, vv, ex, ey, et, inv_den, nn, cfg)
+
     if cfg.solver == "multigrid":
         b = 1
     else:
@@ -198,7 +207,7 @@ def sweeps_until(u, v, ex, ey, et, inv_den, cfg: HSConfig,
         n_active = int(active.sum())  # the host sync of this block
         if n_active == 0:
             break
-        nu, nv = sweeps(u, v, ex, ey, et, inv_den, b, cfg)
+        nu, nv = run_block(u, v, b)
         d = torch.maximum((nu - u).detach().abs().amax(dim=(-2, -1)),
                           (nv - v).detach().abs().amax(dim=(-2, -1)))
         if n_active == active.numel():
@@ -250,6 +259,7 @@ def solve_level(
     iters: int,
     u0: Optional[torch.Tensor] = None,
     v0: Optional[torch.Tensor] = None,
+    whole_solve_ok: bool = True,
 ) -> Flow:
     """One solve of an (H, W) pair or a (B, H, W) stack of pairs, from zero
     or from (u0, v0): `iters` sweeps, or with cfg.tol > 0 `sweeps_until`
@@ -266,7 +276,13 @@ def solve_level(
     start, as the reference's block does). Multigrid runs K1 (or the plain
     derivatives) and then its plain V-cycles. The torch backend runs the
     plain ops. Both compute the same sweeps in the same order. Frames and
-    start are cast to the config's dtype first, as the reference casts."""
+    start are cast to the config's dtype first, as the reference casts.
+
+    whole_solve_ok=False takes no whole-solve kernel, as the reference's
+    callers that trace this body under vmap ask: a fixed-count Jacobi pair
+    then runs the K1 + K2 chain instead of K1 + K7 or K1 + K6, with the
+    same values (K6 and K7 equal the chain bitwise); every other route is
+    already a chain of K1 and sweep launches and does not change."""
     if (u0 is None) != (v0 is None):
         raise ValueError("u0 and v0 must be given together")
     dtype = storage_dtype(cfg)
@@ -296,7 +312,7 @@ def solve_level(
                 block_sweeps=cfg.block_sweeps))
         return Flow(*hs_solve_resident_sor_plain(
             i1, i2, cfg.alpha, iters, cfg.omega, cfg.deriv_variant, u0, v0))
-    if cuda and i1.ndim == 2:
+    if cuda and whole_solve_ok and i1.ndim == 2:
         route = whole_solve_route(*i1.shape, iters, cfg.deriv_variant,
                                   cfg.block_sweeps, cfg.dtype)
         if route in ("skewed", "fused"):

@@ -157,19 +157,22 @@ def tvl1_warp_iteration(
     u1: torch.Tensor,
     u2: torch.Tensor,
     cfg: TVL1Config,
+    kernel_ok: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One warp-and-relinearise step of Zach et al. (2007), Alg. 1, on an
     (H, W) pair or a (B, H, W) stack: warp frame 2 by (u1, u2), linearise
     rho(u) = rho0 + u.grad(I2w) around it, run cfg.iters alternations of
-    the inner loop (K5 on the cuda backend, `tvl1_inner_plain` on the
-    torch backend), then the optional median. With `divergence` the
+    the inner loop (`kernel_ok` and the cuda backend: K5; else
+    `tvl1_inner_plain`, the reference's default; the solves pass True),
+    then the optional median. With `divergence` the
     negative adjoint of `grad_forward`, the u-step is v + theta*div p and
     pairs with dual ascent p + sigma*grad u (the IPOL sign convention)."""
     # "auto" means "checked" for TV-L1: its sharp motion boundaries can
     # break the tiled warp's per-tile contract. A stack warps each image by
     # the single-pair rule, as the reference's vmapped body.
     i2w = warp_each(i2, u1, u2, "checked" if cfg.warp == "auto" else cfg.warp)
-    inner = tvl1_inner if resolve_backend(cfg.backend, i1) == "cuda" else tvl1_inner_plain
+    cuda = resolve_backend(cfg.backend, i1) == "cuda"
+    inner = tvl1_inner if kernel_ok and cuda else tvl1_inner_plain
     u1, u2 = inner(u1, u2, *inner_fields(i1, i2w, u1, u2, cfg), cfg.iters,
                    *inner_scalars(cfg))
     if cfg.median:
@@ -179,7 +182,7 @@ def tvl1_warp_iteration(
 
 def _tvl1_level(i1, i2, u1, u2, cfg: TVL1Config, warps: int):
     for _ in range(warps):
-        u1, u2 = tvl1_warp_iteration(i1, i2, u1, u2, cfg)
+        u1, u2 = tvl1_warp_iteration(i1, i2, u1, u2, cfg, kernel_ok=True)
     return u1, u2
 
 

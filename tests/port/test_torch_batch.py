@@ -24,6 +24,7 @@ import opticalflowhs_tpu.kernels.jacobi as ref_jacobi
 import opticalflowhs_tpu.kernels.solve_resident as ref_resident
 import opticalflowhs_tpu.pyramid as ref_pyr
 from opticalflowhs_tpu.batch import hs_solve_batched as ref_hs_solve_batched
+from opticalflowhs_tpu.batch import solve_level_batched as ref_solve_level_batched
 from opticalflowhs_tpu.config import HSConfig as RefHS
 from opticalflowhs_tpu.config import PyramidConfig as RefPyr
 from opticalflowhs_tpu.solver import hs_solve as ref_hs_solve
@@ -40,7 +41,7 @@ from opticalflowhs_tpu_torch import (
     hs_solve,
     hs_solve_batched,
 )
-from opticalflowhs_tpu_torch.batch import video_pairs
+from opticalflowhs_tpu_torch.batch import solve_level_batched, video_pairs
 from opticalflowhs_tpu_torch.consistency import solve_bidirectional
 from opticalflowhs_tpu_torch.data.synthetic import synthetic_sequence
 from opticalflowhs_tpu_torch.kernels import _build
@@ -52,6 +53,7 @@ from opticalflowhs_tpu_torch.video import flow_stream_occlusion
 torch.set_num_threads(1)
 
 SOLVE_TOL = 2e-6
+SOR_TOL = 1e-5
 PYRAMID_TOL = 1e-5
 WARP_TOL = 1e-6
 
@@ -105,6 +107,40 @@ def test_hs_solve_batched_matches_reference(kw):
         one = hs_solve(torch.from_numpy(i1[b]), torch.from_numpy(i2[b]),
                        HSConfig(alpha=0.5, **kw))
         assert torch.equal(one.u, got.u[b]) and torch.equal(one.v, got.v[b])
+
+
+@pytest.mark.parametrize("stacked_ok", [True, False])
+@pytest.mark.parametrize(
+    "kw,budget",
+    [(dict(iters=60), 60), (dict(iters=200, tol=1e-3, block_sweeps=8), 120),
+     (dict(solver="sor", omega=1.6, iters=40), 25)],
+)
+def test_solve_level_batched_matches_reference(kw, budget, stacked_ok):
+    # The batch twin of solve_level against the reference's (backend "jnp":
+    # its vmapped single-pair solve, each image stopping on its own), with
+    # a budget of its own; = hs_solve_batched bitwise at the config's
+    # budget. SOR: 1e-5 (its Gauss-Seidel order carries the last ulp on).
+    frames = _video(4, 40, 56, key=6)
+    i1, i2 = frames[:-1], frames[1:]
+    cfg = HSConfig(alpha=0.5, **kw)
+    got = solve_level_batched(torch.from_numpy(i1), torch.from_numpy(i2), cfg, budget,
+                              stacked_ok)
+    want = ref_solve_level_batched(jnp.asarray(i1), jnp.asarray(i2),
+                                   RefHS(alpha=0.5, backend="jnp", **kw), budget, stacked_ok)
+    bar = SOR_TOL if cfg.solver == "sor" else SOLVE_TOL
+    assert got.u.shape == (3, 40, 56)
+    assert _max_diff(got.u, want.u) <= bar
+    assert _max_diff(got.v, want.v) <= bar
+    at_cfg = solve_level_batched(torch.from_numpy(i1), torch.from_numpy(i2), cfg, cfg.iters,
+                                 stacked_ok)
+    whole = hs_solve_batched(i1, i2, cfg, device="cpu")
+    assert torch.equal(at_cfg.u, whole.u) and torch.equal(at_cfg.v, whole.v)
+
+
+def test_solve_level_batched_takes_stacks_only():
+    i1, i2 = _stack((24, 32))
+    with pytest.raises(ValueError, match=r"\(B, H, W\)"):
+        solve_level_batched(torch.from_numpy(i1), torch.from_numpy(i2), HSConfig(), 4)
 
 
 @pytest.mark.parametrize("kw", [dict(tol=2e-3), dict(tol=1e-4, block_sweeps=5)])

@@ -889,6 +889,55 @@ def test_k6_k7_geometry_has_no_spills(dev, s):
     assert (geo["m"], geo["band"], geo["bands"]) == k7.geometry(2160, 3840, s, geo["grid"])[2:]
 
 
+@pytest.mark.parametrize("shape,route", [((2160, 3840), "K7"), ((1088, 1920), "K6")])
+def test_whole_solve_ok_false_takes_the_chain(dev, shape, route):
+    # The reference's classes send a fixed-count Jacobi pair to K7 (4K) or,
+    # central, K6 (1080p); whole_solve_ok=False takes the K1 + K2 chain
+    # instead, with the same values.
+    cfg = HSConfig(alpha=0.5, iters=100,
+                   deriv_variant="central" if route == "K6" else "hs_cube")
+    i1, i2 = _rand(shape, dev, 58)
+    from opticalflowhs_tpu_torch.solver import solve_level
+
+    counters = (k1.hs_derivatives, k2.jacobi_sweeps, k6.hs_solve_fused, k7.hs_solve_skewed)
+    before = [c.launches for c in counters]
+    whole = solve_level(i1, i2, cfg, cfg.iters)
+    mid = [c.launches for c in counters]
+    chain = solve_level(i1, i2, cfg, cfg.iters, whole_solve_ok=False)
+    after = [c.launches for c in counters]
+    k6k7 = (1, 0) if route == "K6" else (0, 1)
+    assert [m - b for m, b in zip(mid, before)] == [1, 0, *k6k7]
+    assert [a - m for a, m in zip(after, mid)] == [1, 13, 0, 0]
+    _equal(chain, whole)
+
+
+@pytest.mark.parametrize("stacked_ok", [True, False])
+def test_solve_level_batched_equals_hs_solve_batched(dev, stacked_ok):
+    from opticalflowhs_tpu_torch.batch import solve_level_batched
+
+    i1, i2 = _rand((3, 131, 130), dev, 59)
+    cfg = HSConfig(alpha=0.5, iters=23)
+    k1.hs_derivatives.launches = k2.jacobi_sweeps.launches = 0
+    got = solve_level_batched(i1, i2, cfg, cfg.iters, stacked_ok)
+    assert (k1.hs_derivatives.launches, k2.jacobi_sweeps.launches) == (
+        1, -(-22 // k2.sweeps_per_launch(0)))
+    _equal(got, hs_solve_batched(i1, i2, cfg))
+
+
+def test_kernel_ok_routes_the_inner_loop(dev):
+    # tvl1_warp_iteration: kernel_ok=False runs the plain inner loop (no
+    # K5), True K5; the same values.
+    i1, i2 = (255.0 * a for a in _rand((131, 130), dev, 60))
+    u1, u2 = _rand((131, 130), dev, 61, normal=True)
+    cfg = TVL1Config(iters=30)
+    k5.tvl1_inner.launches = 0
+    plain = tv.tvl1_warp_iteration(i1, i2, u1, u2, cfg, kernel_ok=False)
+    assert k5.tvl1_inner.launches == 0
+    kernel = tv.tvl1_warp_iteration(i1, i2, u1, u2, cfg, kernel_ok=True)
+    assert k5.tvl1_inner.launches == k5.k5_geometry(dev, 0, (131, 130), 30)["launches"]
+    _equal(kernel, plain)
+
+
 def test_k6_k7_refusals(dev):
     i1, i2 = _rand((131, 130), dev, 56)
     u0, v0 = _rand((131, 130), dev, 57, normal=True)
@@ -1558,6 +1607,38 @@ def test_tiled_rdma_deep_blocks_on_a_virtual_mesh_equal_untiled(dev, my, mx, s, 
     assert k9.tile_sweeps.launches == 0
     assert ring.released_epoch(dev) == mark + -(-45 // s)
     _equal(got, hs_solve(i1, i2, cfg))
+
+
+# Frames whose mesh-grid shards are no deeper or wider than the halo, so
+# rdma pads them as the reference does (tiled_solver.rdma_padded_shape):
+# 10 x 70 on 4 x 1 at s 3 (tiles of 8 rows: shards 2 and 3 wholly in the
+# pad), a (2, 10, 70) stack the same, 20 x 60 on 2 x 2 at s 12 (32 x 256:
+# the second column of shards wholly right of w, the second row partly
+# below h).
+PADDED_RDMA = [((10, 70), 4, 1, 3), ((2, 10, 70), 4, 1, 3), ((20, 60), 2, 2, 12)]
+
+
+@pytest.mark.parametrize("shape,my,mx,s", PADDED_RDMA)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiled_rdma_padded_as_the_reference_equals_untiled(dev, shape, my, mx, s, dtype):
+    # One K11 or K12 launch and no K9 on the virtual mesh, the padded
+    # shards included, = the untiled solve bitwise.
+    from opticalflowhs_tpu_torch.dist.tiled_solver import rdma_padded_shape
+
+    h, w = shape[-2:]
+    hp, wp = rdma_padded_shape(h, w, my, mx, s)
+    assert (hp // my) * (my - 1) >= h or (wp // mx) * (mx - 1) >= w  # a shard wholly in the pad
+    i1, i2 = _rand(shape, dev, 63)
+    mesh = make_mesh(MeshConfig(y=my, x=mx), [dev] * (my * mx))
+    cfg = HSConfig(alpha=0.5, iters=2 * s + 5, dtype=dtype)
+    ring.ring_fused_sweeps.launches = ring.ring_fused_sweeps_2d.launches = 0
+    k9.tile_sweeps.launches = 0
+    got = hs_solve_tiled(i1, i2, cfg, mesh, halo_sweeps=s, halo_impl="rdma")
+    assert (ring.ring_fused_sweeps_2d if mx > 1 else ring.ring_fused_sweeps).launches == 1
+    assert ring.ring_fused_sweeps.launches + ring.ring_fused_sweeps_2d.launches == 1
+    assert k9.tile_sweeps.launches == 0
+    want = (hs_solve_batched if len(shape) == 3 else hs_solve)(i1, i2, cfg)
+    _equal(got, want)
 
 
 def test_tiled_solve_stack_and_tol_on_a_virtual_mesh(dev):

@@ -73,7 +73,7 @@ EDGE = 8
 SUM_TOL = 1e-5
 
 TWO = ["jacobi", "pyramid", "tol", "sor", "bf16", "stack", "x", "idle", "rdma", "rdma_bf16",
-       "rdma_k11", "rdma_idle", "rdma_deep"]
+       "rdma_k11", "rdma_idle", "rdma_deep", "rdma_pad"]
 FOUR = ["jacobi", "robust", "multigrid", "lk", "rdma", "rdma_bf16"]
 # Which mesh axis each case's processes split: the mesh's ranks differ
 # along it (and along no other for the 2-process meshes).
@@ -162,6 +162,8 @@ def _reference(case):
     """The reference's untiled flow of a case, as a (2, ...) array, and its bar."""
     if case == "rdma_deep":  # the Jacobi solve's at i45
         case = "jacobi45"
+    elif case == "rdma_pad":  # the Jacobi solve's of the first 10 rows
+        case = "jacobi_crop"
     elif case.startswith("rdma") or case in ("x", "bf16"):  # the Jacobi solve's
         case = "jacobi"
     return _reference_of(case)
@@ -175,6 +177,8 @@ def _reference_of(case):
         f, bar = ref_hs_solve(i1, i2, hs()), SOLVE_TOL
     elif case == "jacobi45":
         f, bar = ref_hs_solve(i1, i2, hs(iters=45)), SOLVE_TOL
+    elif case == "jacobi_crop":
+        f, bar = ref_hs_solve(i1[:10], i2[:10], hs()), SOLVE_TOL
     elif case == "pyramid":
         f, bar = ref_hs_pyramid(i1, i2, hs(), ref_config.PyramidConfig(levels=2)), PYRAMID_TOL
     elif case in ("tol", "idle"):

@@ -14,7 +14,9 @@ Groups:
         fault hook on rank 1; halo_impl="rdma" (the plain ring) on the
         (1, 2, 4) mesh in float32 and bfloat16, on a (1, 4, 1) mesh of 2
         shards a process, for a pair on the (2, 1, 2) mesh (rank 1 owns
-        no shard) and with sweep blocks of 20 (i45) on a (1, 1, 2) mesh;
+        no shard), with sweep blocks of 20 (i45) on a (1, 1, 2) mesh and,
+        padded as the reference pads it, a 10 x 64 crop on the (1, 4, 1)
+        mesh at s 3 (rank 1's shards wholly below h);
         time_to_space / space_to_time of 5 x 12 x 20
         frames (default_rng(2)) on (2, 2, 2), split by batch, and
         timesharded_pairs on (2, 1, 1); the axis_names sums on (1, 2, 4).
@@ -161,6 +163,12 @@ if group == "two":
     m141 = make_mesh(MeshConfig(batch=1, y=4, x=1), [CPU] * 2)
     rdma(m141, "_k11")
     rdma(m212, "_idle")  # rank 0 owns every shard of the pair, rank 1 none
+    # A 10 x 64 crop on the (1, 4, 1) mesh at s 3: its mesh-grid tiles of 3
+    # rows are refused, so rdma pads it as the reference (tiles of 8 rows);
+    # rank 1's two shards lie wholly below h.
+    save("rdma_pad", m141, hs_solve_tiled(i1[:10], i2[:10], cfg, m141, halo_sweeps=3,
+                                          halo_impl="rdma"),
+         hs_solve(i1[:10], i2[:10], cfg))
     # A sweep block deeper than one pass of K2's walk (20 > 16 sweeps) on a
     # (1, 1, 2) mesh of 32 x 32 shards, one a process, i45: blocks of 20,
     # 20 and 5.
